@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``_build/`` beside this file (listed in
+``.gitignore``), named by a hash of its source and flags, so a changed
+source rebuilds and an unchanged one loads at once.  Builds happen at
+first use — never at import — and a failed build raises with nvcc's
+output.  ``build_all`` starts one ``nvcc`` per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_HERE = Path(__file__).resolve().parent
+SRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+SOURCES = ("flash_fwd",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the "
+            "port's CUDA kernels are built from source on the machine with "
+            "the card"
+        )
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Optional[subprocess.Popen]:
+    so = library_path(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    proc.tmp, proc.so = tmp, so
+    return proc
+
+
+def _finish(name: str, proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        if proc.tmp.exists():
+            proc.tmp.unlink()
+        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    proc.so.with_suffix(".log").write_text(log)
+    os.replace(proc.tmp, proc.so)  # atomic: a reader never sees half a file
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Build every named source that is not built yet, in parallel."""
+    names = list(names)
+    procs = {n: _start(n) for n in names}
+    try:
+        for n, p in procs.items():
+            if p is not None:
+                _finish(n, p)
+    finally:
+        for p in procs.values():
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    return {n: library_path(n) for n in names}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and spill report) of the last build."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        so = build_all([name])[name]
+        lib = _loaded[name] = ctypes.CDLL(str(so))
+    return lib
+
+
+def cuda_error_string(lib: ctypes.CDLL, code: int) -> str:
+    """cudaGetErrorString, through a kernel library's C interface (each
+    exports ``tfs_cuda_error_string``)."""
+    fn = lib.tfs_cuda_error_string
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    return fn(code).decode()

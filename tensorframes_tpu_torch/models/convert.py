@@ -1,0 +1,117 @@
+"""Bring the JAX package's transformer weights and config into the port.
+
+``params_from_numpy`` takes the JAX param pytree with every leaf already a
+numpy array (``jax.tree.map(np.asarray, params)``), so the port never sees
+a JAX type.  Every leaf is checked against the config's layout: a missing
+or extra key, a wrong shape or a quantised (``QTensor``) leaf raises with
+a message naming the leaf, so a wrong layout fails loudly instead of
+scoring garbage.  Quantised weights come with the decode slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .. import dtypes
+from ..device import DeviceLike, resolve_device
+from . import transformer as tfm
+
+
+def _leaf(path: str, value, shape: tuple, cfg, device) -> torch.Tensor:
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        # a NamedTuple leaf: models/quant.py's QTensor(q, scale)
+        raise ValueError(
+            f"param {path!r} is a quantised {type(value).__name__} "
+            f"{value._fields}; quantised weights are not ported yet (they "
+            f"come with the decode slice) — pass float weights"
+        )
+    if not isinstance(value, np.ndarray):
+        raise TypeError(
+            f"param {path!r} must be a numpy array, got "
+            f"{type(value).__name__} (convert with jax.tree.map(np.asarray, "
+            f"params) first)"
+        )
+    if value.dtype.kind != "f":
+        raise TypeError(f"param {path!r} has non-float dtype {value.dtype}")
+    if tuple(value.shape) != tuple(shape):
+        raise ValueError(
+            f"param {path!r} has shape {tuple(value.shape)} but the config "
+            f"expects {tuple(shape)}"
+        )
+    # np.array copies: the tensor never aliases the caller's (read-only) array
+    return torch.from_numpy(np.array(value)).to(device=device, dtype=cfg.param_dtype)
+
+
+def _check_keys(path: str, tree: Mapping, expected: Mapping) -> None:
+    if not isinstance(tree, Mapping):
+        raise TypeError(
+            f"param {path or 'tree'!r} must be a dict, got {type(tree).__name__}"
+        )
+    missing = sorted(set(expected) - set(tree))
+    extra = sorted(set(tree) - set(expected))
+    where = f" under {path!r}" if path else ""
+    if missing:
+        raise KeyError(f"missing param(s){where}: {missing}")
+    if extra:
+        raise KeyError(
+            f"unexpected param(s){where}: {extra} (this layout has "
+            f"{sorted(expected)})"
+        )
+
+
+def params_from_numpy(
+    tree: Mapping[str, Any],
+    cfg: tfm.TransformerConfig,
+    device: DeviceLike = None,
+) -> tfm.Params:
+    """The JAX package's param tree (numpy leaves) as the port's params, in
+    ``cfg.param_dtype`` on ``device`` (None: the CUDA card)."""
+    dev = resolve_device(device)
+    layout = tfm.param_shapes(cfg)
+    _check_keys("", tree, layout)
+    _check_keys("blocks", tree["blocks"], layout["blocks"])
+    out: tfm.Params = {}
+    for k, shape in layout.items():
+        if k == "blocks":
+            out[k] = {
+                bk: _leaf(f"blocks.{bk}", tree[k][bk], bshape, cfg, dev)
+                for bk, bshape in shape.items()
+            }
+        else:
+            out[k] = _leaf(k, tree[k], shape, cfg, dev)
+    return out
+
+
+def _torch_dtype(x) -> torch.dtype:
+    """A dtype given as a torch dtype, a name, a numpy dtype or a scalar
+    type class (``jnp.bfloat16``, ``np.float32``) -> torch dtype."""
+    if isinstance(x, torch.dtype):
+        return x
+    if isinstance(x, str):
+        name = x
+    elif isinstance(x, np.dtype):
+        name = x.name
+    else:
+        name = getattr(x, "__name__", None) or str(x)
+    st = dtypes.by_name(name)
+    if st.torch_dtype is None:
+        raise TypeError(f"dtype {name!r} has no device type")
+    return st.torch_dtype
+
+
+def config_from_dict(fields: Mapping[str, Any]) -> tfm.TransformerConfig:
+    """A port ``TransformerConfig`` from the JAX config's fields
+    (``dataclasses.asdict(jax_cfg)``); dtypes become torch dtypes."""
+    known = {f.name for f in dataclasses.fields(tfm.TransformerConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown TransformerConfig field(s): {unknown}")
+    kw = dict(fields)
+    for k in ("dtype", "param_dtype"):
+        if k in kw:
+            kw[k] = _torch_dtype(kw[k])
+    return tfm.TransformerConfig(**kw)

@@ -1,0 +1,376 @@
+"""Program: the named-input tensor program fed to every verb.
+
+PyTorch counterpart of ``tensorframes_tpu/program.py``.  A ``Program``
+wraps a function over torch tensors whose argument names are the input
+names and whose outputs are named fetches.  PyTorch runs eagerly, so there
+is no trace or compile cache: the callable is kept as given, and
+``update_params`` swaps the param tensors it is called with — it never
+rebuilds the callable.
+
+Params (a tensor, or a pytree of nested dicts/lists/tuples of tensors)
+move to the program's device once, at construction or ``update_params``,
+not per block.  ``analyze`` shape-infers the program on ``meta`` tensors:
+no data, no device work.  ``serialize``/``aot_compile`` are
+StableHLO-specific in the JAX package and wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import dtypes
+from .device import DeviceLike, resolve_device
+from .dtypes import ScalarType
+from .shape import Shape, UNKNOWN
+
+
+class ProgramError(ValueError):
+    """Raised for malformed programs (bad signature, bad outputs)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphNodeSummary:
+    """Shape/dtype summary of one program input or output."""
+
+    name: str
+    is_input: bool
+    is_output: bool
+    scalar_type: ScalarType
+    shape: Shape
+
+    def __repr__(self):
+        role = "input" if self.is_input else "output"
+        return f"{self.name}[{role}]: {self.scalar_type}{self.shape}"
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a pytree of dicts/lists/tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix: str = "") -> List[tuple]:
+    """``(path, leaf)`` pairs in a stable order (dict keys as given)."""
+    if isinstance(tree, dict):
+        out = []
+        for k, v in tree.items():
+            out.extend(tree_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out.extend(tree_leaves(v, f"{prefix}[{i}]"))
+        return out
+    return [(prefix, tree)]
+
+
+def _tree_structure(tree):
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _tree_structure(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_tree_structure(v) for v in tree))
+    return "*"
+
+
+def _to_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+class Program:
+    """A tensor program with named inputs and named outputs.
+
+    ``fn`` takes keyword tensors named by ``input_names`` and returns a
+    ``dict`` of named outputs, a single tensor (only when ``fetches`` names
+    exactly one output), or a tuple matching ``fetches``.  Outputs are
+    ordered sorted-by-name.  ``feed_dict`` maps input name -> column name.
+    ``device``: where the params live and the verbs run (None = the CUDA
+    card; raises without one)."""
+
+    def __init__(
+        self,
+        fn: Callable[..., Any],
+        input_names: Sequence[str],
+        fetches: Optional[Sequence[str]] = None,
+        feed_dict: Optional[Mapping[str, str]] = None,
+        params: Optional[Mapping[str, Any]] = None,
+        device: DeviceLike = None,
+    ):
+        self._fn = fn
+        self._device = resolve_device(device)
+        self._declared_fetches = list(fetches) if fetches is not None else None
+        all_names = list(input_names)
+        self._params: Dict[str, Any] = {
+            k: tree_map(lambda a: _to_tensor(a, self._device), v)
+            for k, v in (params or {}).items()
+        }
+        for k in self._params:
+            if k not in all_names:
+                raise ProgramError(
+                    f"params key {k!r} is not a program argument; "
+                    f"arguments are {all_names}"
+                )
+        # column-fed inputs exclude param-fed arguments
+        self._input_names = [n for n in all_names if n not in self._params]
+        if not self._input_names:
+            raise ProgramError(
+                "a program needs at least one column-fed input (all "
+                "arguments were bound by params)"
+            )
+        self._feed = dict(feed_dict or {})
+        for k in self._feed:
+            if k not in self._input_names:
+                raise ProgramError(
+                    f"feed_dict key {k!r} is not a program input; "
+                    f"inputs are {self._input_names}"
+                )
+        self._fetches: Optional[List[str]] = None  # resolved at first call
+
+    # -- construction --------------------------------------------------------
+
+    @staticmethod
+    def wrap(
+        fn_or_program,
+        fetches: Optional[Sequence[str]] = None,
+        feed_dict: Optional[Mapping[str, str]] = None,
+        params: Optional[Mapping[str, Any]] = None,
+        device: DeviceLike = None,
+    ) -> "Program":
+        if isinstance(fn_or_program, Program):
+            if params:
+                raise ProgramError(
+                    "cannot bind params on an existing Program; pass params "
+                    "when the program is created, or call update_params"
+                )
+            if fetches is not None and sorted(fetches) != sorted(
+                fn_or_program._declared_fetches or []
+            ):
+                raise ProgramError(
+                    "cannot re-declare fetches on an existing Program; pass "
+                    "fetches when the program is created/imported"
+                )
+            if feed_dict:
+                return fn_or_program.with_feed(feed_dict)
+            return fn_or_program
+        if not callable(fn_or_program):
+            raise ProgramError(
+                f"expected a callable or Program, got "
+                f"{type(fn_or_program).__name__}"
+            )
+        sig = inspect.signature(fn_or_program)
+        names = []
+        for p in sig.parameters.values():
+            if p.kind in (
+                inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                inspect.Parameter.KEYWORD_ONLY,
+            ):
+                names.append(p.name)
+            elif p.kind in (
+                inspect.Parameter.VAR_POSITIONAL,
+                inspect.Parameter.VAR_KEYWORD,
+            ):
+                raise ProgramError(
+                    "program functions must declare explicit named parameters "
+                    "(column names); *args/**kwargs are not allowed"
+                )
+        if not names:
+            raise ProgramError("a program needs at least one named input")
+        return Program(fn_or_program, names, fetches, feed_dict, params, device)
+
+    def with_feed(self, feed_dict: Mapping[str, str]) -> "Program":
+        """A copy with additional input->column renames merged in."""
+        merged = dict(self._feed)
+        merged.update(feed_dict)
+        return Program(
+            self._fn,
+            self._input_names + list(self._params),
+            self._declared_fetches,
+            merged,
+            self._params,
+            self._device,
+        )
+
+    # -- accessors -----------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def input_names(self) -> List[str]:
+        """Column-fed input names (param-bound arguments excluded)."""
+        return list(self._input_names)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return dict(self._params)
+
+    def update_params(self, **arrays) -> "Program":
+        """Replace param values in place (structure, shapes and dtypes must
+        match).  Every key is validated before anything is swapped, so a
+        failed update leaves the program unchanged."""
+        validated: Dict[str, Any] = {}
+        for k, v in arrays.items():
+            if k not in self._params:
+                raise ProgramError(
+                    f"update_params: {k!r} is not a param; params are "
+                    f"{sorted(self._params)}"
+                )
+            old = self._params[k]
+            new = tree_map(lambda a: _to_tensor(a, self._device), v)
+            if _tree_structure(old) != _tree_structure(new):
+                raise ProgramError(
+                    f"update_params: {k!r} must keep its pytree structure; "
+                    f"build a new Program for a different structure"
+                )
+            for (path, ol), (_, nl) in zip(tree_leaves(old), tree_leaves(new)):
+                if nl.shape != ol.shape or nl.dtype != ol.dtype:
+                    raise ProgramError(
+                        f"update_params: {k!r} must keep shape "
+                        f"{tuple(ol.shape)} / dtype {ol.dtype}, got "
+                        f"{tuple(nl.shape)} / {nl.dtype} (at {path or k!r}; "
+                        f"build a new Program instead)"
+                    )
+            validated[k] = new
+        self._params.update(validated)
+        return self
+
+    def column_for_input(self, name: str) -> str:
+        """Frame column feeding a given input (identity unless feed_dict)."""
+        return self._feed.get(name, name)
+
+    @property
+    def fetches(self) -> Optional[List[str]]:
+        return list(self._fetches) if self._fetches is not None else (
+            sorted(self._declared_fetches) if self._declared_fetches else None
+        )
+
+    # -- execution -----------------------------------------------------------
+
+    def _normalize_outputs(self, out) -> Dict[str, torch.Tensor]:
+        if isinstance(out, dict):
+            res = dict(out)
+        elif isinstance(out, (tuple, list)):
+            if self._declared_fetches is None or len(self._declared_fetches) != len(
+                out
+            ):
+                raise ProgramError(
+                    "tuple program outputs require fetches=[...] of matching "
+                    f"length; got {len(out)} outputs, fetches="
+                    f"{self._declared_fetches}"
+                )
+            res = dict(zip(self._declared_fetches, out))
+        else:
+            if self._declared_fetches is None or len(self._declared_fetches) != 1:
+                raise ProgramError(
+                    "a program returning a single array must declare exactly "
+                    "one fetch name (pass fetches=['name']), or return a dict "
+                    "{name: array}"
+                )
+            res = {self._declared_fetches[0]: out}
+        if self._declared_fetches is not None:
+            missing = [f for f in self._declared_fetches if f not in res]
+            if missing:
+                raise ProgramError(
+                    f"program outputs {sorted(res)} are missing requested "
+                    f"fetches {missing}"
+                )
+            res = {f: res[f] for f in self._declared_fetches}
+        if not res:
+            raise ProgramError("program produced no outputs")
+        for name, v in res.items():
+            if not isinstance(name, str):
+                raise ProgramError(f"output names must be strings, got {name!r}")
+            if not isinstance(v, torch.Tensor):
+                res[name] = torch.as_tensor(np.asarray(v), device=self._device)
+        # canonical order: sorted by name (DebugRowOps.scala:349-372)
+        ordered = {k: res[k] for k in sorted(res)}
+        if self._fetches is None:
+            self._fetches = list(ordered)
+        return ordered
+
+    def call(
+        self,
+        inputs: Mapping[str, Any],
+        params: Optional[Mapping[str, Any]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Run the program on ``inputs`` with the current (or given) params."""
+        if params is None:
+            params = self._params
+        kwargs = {n: inputs[n] for n in self._input_names}
+        kwargs.update(params)
+        return self._normalize_outputs(self._fn(**kwargs))
+
+    # -- analysis ------------------------------------------------------------
+
+    def analyze(
+        self, input_specs: Mapping[str, Any]
+    ) -> List[GraphNodeSummary]:
+        """Shape-infer the program against input specs without executing it.
+
+        ``input_specs``: input name -> ``(ScalarType, shape)``.  The program
+        runs on ``meta`` tensors (params included), which carry shapes and
+        dtypes but no data.  Unknown (-1) dims are evaluated at two probe
+        sizes; output dims that track the probe come back Unknown."""
+        shapes: Dict[str, Shape] = {}
+        stypes: Dict[str, ScalarType] = {}
+        for n in self._input_names:
+            if n not in input_specs:
+                raise ProgramError(
+                    f"analyze: no spec for program input {n!r}; "
+                    f"got specs for {sorted(input_specs)}"
+                )
+            st, shape = input_specs[n]
+            shapes[n] = Shape(shape)
+            stypes[n] = st
+        meta_params = {
+            k: tree_map(lambda a: a.to("meta"), v) for k, v in self._params.items()
+        }
+
+        def _eval(probe: int) -> Dict[str, torch.Tensor]:
+            ins = {
+                n: torch.empty(
+                    tuple(probe if d == UNKNOWN else d for d in shapes[n]),
+                    dtype=stypes[n].torch_dtype,
+                    device="meta",
+                )
+                for n in self._input_names
+            }
+            with torch.no_grad():
+                return self.call(ins, meta_params)
+
+        out_a = _eval(3)
+        if any(not s.is_static for s in shapes.values()):
+            out_b = _eval(7)
+            out_shapes = {}
+            for name in out_a:
+                sa, sb = Shape(out_a[name].shape), Shape(out_b[name].shape)
+                if sa.rank != sb.rank:
+                    raise ProgramError(
+                        f"analyze: output {name!r} changes rank with the "
+                        f"unknown input dims ({sa} vs {sb}); its shape "
+                        f"cannot be described"
+                    )
+                out_shapes[name] = sa.merge(sb)
+        else:
+            out_shapes = {n: Shape(t.shape) for n, t in out_a.items()}
+        summaries = [
+            GraphNodeSummary(n, True, False, stypes[n], shapes[n])
+            for n in self._input_names
+        ]
+        for name, shape in out_shapes.items():
+            summaries.append(
+                GraphNodeSummary(
+                    name, False, True, dtypes.from_torch(out_a[name].dtype), shape
+                )
+            )
+        return summaries
