@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
+    python3 chip_smoke.py --profile  # also device time by kernel per path
 
 Phases, each printing its own lines:
 
@@ -10,19 +11,31 @@ Phases, each printing its own lines:
    ``nvidia-smi`` reports them;
 2. build: the CUDA kernels from ``tensorframes_tpu_torch/csrc`` (one nvcc
    per source, started together), with ptxas' register/spill report;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and the edge cases, with stated tolerances;
+3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV)
+   against its plain PyTorch version on the card, at the main paths'
+   shapes and the edge cases, with stated tolerances; and gradients
+   through the autograd Function on the card against the same Function on
+   CPU copies;
 4. timing: each kernel, its plain version and the one-call library
-   equivalent at the main path's shape, beside the least time the card
+   equivalent at the main paths' shape, beside the least time the card
    could take (its bound);
-5. slice: the flagship transformer (series widths, random seeded weights)
-   scores a 64-row frame of 2048-token cells through ``map_blocks`` with
-   ``attn_impl="flash"``; launches of every kernel are counted over that
-   run alone; results are checked for shape and finiteness, against the
-   same frame scored with ``attn_impl="full"``, and, on a small input,
-   against the port's CPU path;
-   with ``--profile``, device time by kernel over one block of it;
-6. the kernels' JSON record, then the last line
+5. slice (scoring): the flagship transformer (series widths, random seeded
+   weights) scores a 64-row frame of 2048-token cells through
+   ``map_blocks`` with ``attn_impl="flash"``; the kernels' launches are
+   counted over that run alone; results are checked for shape and
+   finiteness, against the same frame scored with ``attn_impl="full"``,
+   and, on a small input, against the port's CPU path;
+6. train: the flagship train step (bench config 6's widths, remat "none")
+   runs one epoch of a 64-row frame of 2049-token rows through a
+   ``FrameLoader`` and ``train.fit``, after one warm-up step; the kernels'
+   launches are counted over that run alone; the losses must be finite
+   and fall.  Then two steps with ``remat_policy="full"`` (the forward
+   runs twice per step, the first loss is the same), one step at B=2
+   against ``attn_impl="full"`` (loss and gradient norm), and a small f32
+   model trained three steps on the card and on the CPU;
+   with ``--profile``, device time by kernel over one block of the scoring
+   slice and over one train step;
+7. the kernels' JSON record, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card the script
@@ -61,7 +74,30 @@ KERNEL_CASES = [
 ]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # atol = rtol
 LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 2e-5}
+# backward kernels against flash_attention_bwd_plain on the same out/lse:
+# both cast P and dS to bf16 at the same points, so a 1-ulp flip of a cast
+# and the bf16 rounding of the result (~2^-8 relative) are expected; f32
+# differs by summation order and exp, at the JAX suite's own gradient
+# tolerance (tests/test_flash.py)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 NLL_TOL = 3e-2  # flash vs full, bf16 model, on a mean NLL of ~9
+
+# the train slice: bench.py config 6's widths (remat "none": config 6's
+# "selective" policy is not ported yet) and its TrainConfig(3e-4)
+TRAIN_MODEL = dict(
+    vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
+    d_ff=4096, max_seq=2048, dtype=torch.bfloat16, attn_impl="flash",
+    remat_policy="none",
+)
+TRAIN_ROWS, TRAIN_B, TRAIN_L = 64, 8, 2048
+# remat "full" recomputes the same forward from the same params and batch:
+# only a different cuBLAS choice could move the first loss
+REMAT_LOSS_TOL = 1e-3
+# flash vs full attention, one B=2 step of the bf16 model: attention rounds
+# to bf16 at different points (the scoring slice's bound on the loss), and
+# the gradient norm agrees in relative terms
+FULL_LOSS_TOL, FULL_GRAD_NORM_RTOL = 3e-2, 5e-2
+SMALL_TRAIN_TOL = 1e-4  # f32, three steps, card vs CPU: summation order
 
 
 def say(tag: str, **kw) -> None:
@@ -109,18 +145,28 @@ def qkv(c, seed=0):
     return r(c["Lq"], c["H"]), r(c["Lk"], c["KVH"]), r(c["Lk"], c["KVH"])
 
 
-def flash_bound(c):
-    """Least time for the work: every input read once, out + lse written
-    once; FLOPs counted for the keys this data needs (causal: the
-    top-left triangle, exactly)."""
+# FLOPs per (query, key) pair and head dim: the forward's S and PV; dQ's
+# S, dP and dS K; dK/dV's S, dP, P^T dO and dS^T Q
+FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+
+def kernel_bound(c, kernel):
+    """Least time for one kernel's work: every input read once, every
+    output written once; FLOPs counted for the (query, key) pairs this data
+    needs (causal: the top-left triangle, exactly)."""
     B, Lq, Lk, H, KVH, D = (c[k] for k in ("B", "Lq", "Lk", "H", "KVH", "D"))
     if c["causal"]:
         pairs = sum(min(i + 1, Lk) for i in range(Lq))
     else:
         pairs = Lq * Lk
-    flops = 4.0 * B * H * D * pairs
+    flops = FLOPS_PER_PAIR[kernel] * B * H * D * pairs
     es = torch.tensor([], dtype=c["dtype"]).element_size()
-    nbytes = es * (2 * B * Lq * H * D + 2 * B * Lk * KVH * D) + 4 * B * H * Lq
+    q_like, kv_like, row = es * B * Lq * H * D, es * B * Lk * KVH * D, 4 * B * H * Lq
+    nbytes = {
+        "flash_fwd": 2 * q_like + 2 * kv_like + row,       # q, k, v -> out, lse
+        "flash_bwd_dq": 3 * q_like + 2 * kv_like + 2 * row,  # q, dO, k, v, lse, D -> dq
+        "flash_bwd_dkv": 2 * q_like + 4 * kv_like + 2 * row,  # ... -> dk, dv
+    }[kernel]
     peak = PEAK_BF16_FLOPS if c["dtype"] == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -169,10 +215,48 @@ def phase_kernels():
         torch.cuda.synchronize()
         e_out = check_close(f"{name} out", out, ref_out, TOL[c["dtype"]])
         e_lse = check_close(f"{name} lse", lse, ref_lse, LSE_TOL[c["dtype"]])
-        errs[name] = e_out
+        # the backward kernels on the kernel's own out/lse
+        do = torch.randn(out.shape, generator=torch.Generator(device="cuda")
+                         .manual_seed(7), device="cuda").to(c["dtype"])
+        grads = flash.flash_attention_bwd(q, k, v, out, lse, do, c["causal"])
+        torch.cuda.synchronize()
+        refs = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, c["causal"])
+        torch.cuda.synchronize()
+        e_bwd = {
+            g: check_close(f"{name} {g}", got, ref, BWD_TOL[c["dtype"]])
+            for g, got, ref in zip(("dq", "dk", "dv"), grads, refs)
+        }
+        errs[name] = dict(flash_fwd=e_out, flash_bwd_dq=e_bwd["dq"],
+                          flash_bwd_dkv=max(e_bwd["dk"], e_bwd["dv"]))
         say("kernel", case=name, max_abs_err_out=e_out, max_abs_err_lse=e_lse,
-            tol=TOL[c["dtype"]], shape={k_: str(v_) for k_, v_ in c.items()})
+            max_abs_err_bwd=e_bwd, tol=TOL[c["dtype"]],
+            bwd_tol=BWD_TOL[c["dtype"]],
+            shape={k_: str(v_) for k_, v_ in c.items()})
+    errs["autograd"] = phase_autograd()
     return errs
+
+
+def phase_autograd():
+    """Gradients through flash_attention (the autograd Function) on the
+    card against the same Function on CPU copies (its plain versions), one
+    small f32 GQA case; atol = rtol = 2e-4 (summation order)."""
+    from tensorframes_tpu_torch.parallel import flash
+
+    rng = np.random.RandomState(3)
+    arrays = [rng.randn(2, 100, heads, 64).astype(np.float32) for heads in (4, 2, 2)]
+    w = rng.randn(2, 100, 4, 64).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True) for a in arrays)
+        (flash.flash_attention(q, k, v, True) * torch.tensor(w, device=dev)).sum().backward()
+        grads[dev] = (q.grad, k.grad, v.grad)
+    err = max(
+        check_close(f"autograd {n}", g.cpu(), r, 2e-4)
+        for n, g, r in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"])
+    )
+    say("kernel", check="autograd Function, cuda vs cpu (f32, atol=rtol=2e-4)",
+        max_abs_err=err)
+    return err
 
 
 def phase_timing():
@@ -180,23 +264,50 @@ def phase_timing():
 
     c = FLAGSHIP
     q, k, v = qkv(c, seed=1)
-    kernel_ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, True), 20)
-    plain_ms = cuda_ms(lambda: flash.flash_attention_plain(q, k, v, True), 3, 1)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(2), device="cuda").to(c["dtype"])
+    out, lse = flash.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     # one library call computing the same function, timed only: SDPA on
-    # [B, H, L, D] views (Lq == Lk, so its causal mask is the same one)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True
+    # [B, H, L, D] views (Lq == Lk, so its causal mask is the same one);
+    # its backward computes dq, dk and dv in one call, so it is the
+    # yardstick of both backward kernels
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o_lib = sdpa(qt, kt, vt, is_causal=True)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
+    runs = {
+        "flash_fwd": (
+            lambda: flash.flash_attention_fwd(q, k, v, True),
+            lambda: flash.flash_attention_plain(q, k, v, True),
+            lambda: sdpa(qt, kt, vt, is_causal=True),
         ),
-        20,
-    )
-    bound_ms, bound_by = flash_bound(c)
-    say("timing", kernel="flash_fwd", ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-        share_of_bound=bound_ms / kernel_ms)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+        "flash_bwd_dq": (
+            lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: flash.flash_bwd_dq_plain(q, k, v, out, lse, do, True),
+            None,
+        ),
+        "flash_bwd_dkv": (
+            lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: flash.flash_bwd_dkv_plain(q, k, v, out, lse, do, True),
+            None,
+        ),
+    }
+    timing = {}
+    with torch.no_grad():
+        for name, (kernel, plain, library) in runs.items():
+            bound_ms, bound_by = kernel_bound(c, name)
+            row = dict(
+                ms=cuda_ms(kernel, 20),
+                plain_ms=cuda_ms(plain, 3, 1),
+                library_ms=cuda_ms(library, 20) if library else sdpa_bwd_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            timing[name] = row
+            say("timing", kernel=name, **row,
+                share_of_bound=bound_ms / row["ms"])
+    return timing
 
 
 def phase_slice():
@@ -276,22 +387,151 @@ def phase_slice():
         )
     say("slice", check="small input, cuda vs cpu (f32, atol=rtol=1e-4)",
         max_abs_err=errs)
-    return launches, prog, frame
+    return prog, frame
 
 
-def phase_profile(prog, frame) -> None:
-    """Device time by kernel over one block of the slice (torch.profiler),
-    and the device's idle share of that block's wall time."""
+def clone_params(tree):
+    return {
+        k: clone_params(v) if isinstance(v, dict) else v.detach().clone()
+        for k, v in tree.items()
+    }
+
+
+def phase_train():
+    """The flagship train step fed from a FrameLoader through train.fit."""
+    from tensorframes_tpu_torch import TensorFrame, data, train
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    cfg = tfm.TransformerConfig(**TRAIN_MODEL)
+    tc = train.TrainConfig(learning_rate=3e-4)
+    steps = TRAIN_ROWS // TRAIN_B  # one epoch
+    rng = np.random.RandomState(0)
+    start = rng.randint(0, cfg.vocab_size, (TRAIN_ROWS, 1))
+    toks = ((start + np.arange(TRAIN_L + 1)) % cfg.vocab_size).astype(np.int32)
+    frame = TensorFrame.from_arrays({"tokens": toks}, num_blocks=8)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = train.n_params(params)
+
+    def loader():
+        return data.FrameLoader(frame, batch_size=TRAIN_B, shuffle=True, seed=0)
+
+    def run(model_cfg, n, p):
+        """fit over n steps, counted alone: (losses, seconds, launches, peak)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        _, _, losses = train.fit(loader(), model_cfg, tc, steps=n, params=p)
+        sec = time.perf_counter() - t0  # fit's losses are read: synced
+        launches = {"flash_fwd": flash.launches, "flash_bwd_dq": flash.launches_dq,
+                    "flash_bwd_dkv": flash.launches_dkv}
+        return losses, sec, launches, train.hbm_high_water()
+
+    def expect(launches, fwd, bwd, what):
+        want = {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
+        if launches != want:
+            raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
+
+    run(cfg, 1, params)  # warm-up step
+    start_params = clone_params(params)
+    losses, sec, launches, peak = run(cfg, steps, params)
+    expect(launches, cfg.n_layers * steps, cfg.n_layers * steps, "train")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    tokens = steps * TRAIN_B * TRAIN_L
+    flops_per_token = train.counted_flops_per_token(n_params, cfg, TRAIN_L)
+    say("train", attn_impl="flash", remat="none", steps=steps, batch=TRAIN_B,
+        seq=TRAIN_L, n_params=n_params, seconds=sec,
+        ms_per_step=sec / steps * 1e3, tokens_per_s=tokens / sec,
+        counted_tflops_per_s=flops_per_token * tokens / sec / 1e12,
+        peak_bytes=peak, launches=launches, losses=losses)
+
+    # remat "full": the forward runs again in the backward, same first loss
+    rcfg = dataclasses.replace(cfg, remat_policy="full")
+    r_losses, r_sec, r_launches, r_peak = run(rcfg, 2, clone_params(start_params))
+    expect(r_launches, 2 * cfg.n_layers * 2, cfg.n_layers * 2, "remat full")
+    diff = abs(r_losses[0] - losses[0])
+    if not diff <= REMAT_LOSS_TOL:
+        raise AssertionError(f"remat full first loss off by {diff}")
+    say("train", remat="full", steps=2, ms_per_step=r_sec / 2 * 1e3,
+        peak_bytes=r_peak, launches=r_launches, losses=r_losses,
+        first_loss_abs_diff_vs_none=diff, tol=REMAT_LOSS_TOL)
+
+    # one step at B=2: flash against full attention
+    batch = torch.from_numpy(toks[:2]).cuda()
+    inp, tgt = batch[:, :-1], batch[:, 1:]
+    ref = {}
+    for impl in ("flash", "full"):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        p = clone_params(start_params)
+        leaves = [t.requires_grad_() for _, t in train.param_leaves(p)]
+        loss = tfm.loss_fn(p, inp, tgt, icfg)
+        grads = torch.autograd.grad(loss, leaves)
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        del grads
+        step, tx = train.make_train_step(icfg, tc)
+        state = tx.init(p)
+        step(p, state, inp, tgt)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _, _, last = step(p, state, inp, tgt)
+        float(last)
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        ref[impl] = dict(loss=float(loss.detach()), grad_norm=norm, ms_per_step=ms,
+                         peak_bytes=train.hbm_high_water())
+        del p, state, leaves
+    d_loss = abs(ref["flash"]["loss"] - ref["full"]["loss"])
+    d_norm = abs(ref["flash"]["grad_norm"] / ref["full"]["grad_norm"] - 1)
+    if not (d_loss <= FULL_LOSS_TOL and d_norm <= FULL_GRAD_NORM_RTOL):
+        raise AssertionError(f"B=2 flash vs full: loss diff {d_loss}, grad norm rel {d_norm}")
+    say("train", check="B=2 step, flash vs full", batch=2, **{
+        f"{impl}_{k}": v for impl, r in ref.items() for k, v in r.items()
+    }, loss_abs_diff=d_loss, loss_tol=FULL_LOSS_TOL, grad_norm_rel_diff=d_norm,
+        grad_norm_rtol=FULL_GRAD_NORM_RTOL)
+
+    # a small f32 model trained three steps on the card and on the CPU
+    small = tfm.TransformerConfig(
+        vocab_size=64, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+        d_ff=256, max_seq=64, dtype=torch.float32, attn_impl="flash",
+    )
+    stc = train.TrainConfig(learning_rate=1e-2, warmup_steps=1,
+                            schedule="cosine", total_steps=10, grad_clip=0.5)
+    cpu_p = tfm.init(torch.Generator().manual_seed(1), small, device="cpu")
+    trained = {}
+    for dev in ("cuda", "cpu"):
+        p = clone_params(cpu_p)
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(dev)) for k, v in p.items()}
+        step, tx = train.make_train_step(small, stc)
+        state = tx.init(p)
+        for i in range(3):
+            b = np.random.RandomState(10 + i).randint(0, 64, (4, 41)).astype(np.int32)
+            b = torch.from_numpy(b).to(dev)
+            step(p, state, b[:, :-1], b[:, 1:])
+        trained[dev] = dict(train.param_leaves(p))
+    err = max(
+        check_close(f"small train {k}", v.detach().cpu(), trained["cpu"][k].detach(),
+                    SMALL_TRAIN_TOL)
+        for k, v in trained["cuda"].items()
+    )
+    say("train", check="small f32 model, 3 steps, cuda vs cpu params "
+        f"(atol=rtol={SMALL_TRAIN_TOL:g})", max_abs_err=err)
+    return launches, cfg, tc, start_params, loader
+
+
+def profile_kernels(label, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tensorframes_tpu_torch import TensorFrame, map_blocks
-
-    block = TensorFrame.from_arrays({"tokens": frame.block(0)["tokens"]})
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        map_blocks(prog, block).to_arrays()
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     def dev_us(e):
@@ -306,11 +546,30 @@ def phase_profile(prog, frame) -> None:
     ]
     rows = sorted(kernels, key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    say("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    say("profile", path=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=max(0.0, 1.0 - busy_ms / wall_ms))
-    for e in rows[:14]:
-        say("profile", kernel=e.key[:90], device_ms=dev_us(e) / 1e3,
+    for e in rows[:16]:
+        say("profile", path=label, kernel=e.key[:90], device_ms=dev_us(e) / 1e3,
             calls=e.count, share=dev_us(e) / 1e3 / busy_ms)
+
+
+def phase_profile(prog, frame, train_run) -> None:
+    """One block of the scoring slice and one flagship train step."""
+    from tensorframes_tpu_torch import TensorFrame, data, map_blocks, train
+
+    block = TensorFrame.from_arrays({"tokens": frame.block(0)["tokens"]})
+    profile_kernels("score one block", lambda: map_blocks(prog, block).to_arrays())
+
+    _, cfg, tc, params, loader = train_run
+    step, tx = train.make_train_step(cfg, tc)
+    state = tx.init(params)
+    inp, tgt = data.lm_split(next(iter(loader())))
+    step(params, state, inp, tgt)  # warm-up
+
+    def one_step():
+        float(step(params, state, inp, tgt)[2])
+
+    profile_kernels("train one step", one_step)
 
 
 def main() -> int:
@@ -318,7 +577,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one block of the slice by kernel")
+                    help="also profile one scoring block and one train step "
+                    "by kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -334,20 +594,29 @@ def main() -> int:
     if args.quick:
         return 0
     timing = phase_timing()
-    launches, prog, frame = phase_slice()
+    prog, frame = phase_slice()
+    train_run = phase_train()
     if args.profile:
-        phase_profile(prog, frame)
+        phase_profile(prog, frame, train_run)
+    # launches: the train path's run, the one path that runs all three
+    # (the scoring path's forward count is on its "slice" line)
+    launches = train_run[0]
     record = {
         "kernels": [
             {
-                "name": "flash_fwd",
+                "name": name,
                 "route": "cuda",
-                "source": "tensorframes_tpu_torch/csrc/flash_fwd.cu",
-                "replaces": "tensorframes_tpu/parallel/flash.py:42",
-                "launches": launches,
-                "max_abs_err": errs["flagship"],
-                **timing,
+                "source": f"tensorframes_tpu_torch/csrc/{src}.cu",
+                "replaces": f"tensorframes_tpu/parallel/flash.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": errs["flagship"][name],
+                **timing[name],
             }
+            for name, src, line in (
+                ("flash_fwd", "flash_fwd", 42),
+                ("flash_bwd_dq", "flash_bwd", 416),
+                ("flash_bwd_dkv", "flash_bwd", 452),
+            )
         ]
     }
     print(json.dumps(record), flush=True)

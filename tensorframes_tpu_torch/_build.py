@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``_build/`` beside this file (listed in
-``.gitignore``), named by a hash of its source and flags, so a changed
-source rebuilds and an unchanged one loads at once.  Builds happen at
+``.gitignore``), named by a hash of its source, of every header it
+includes from ``csrc/`` (``#include "..."``, followed recursively) and of
+the flags, so a changed source or header rebuilds and an unchanged one
+loads at once.  Builds happen at
 first use — never at import — and a failed build raises with nvcc's
 output.  ``build_all`` starts one ``nvcc`` per source, all at once.
 """
@@ -14,15 +16,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -46,9 +49,31 @@ def _nvcc() -> str:
     return str(path)
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header, sorted by path."""
+    found: List[Path] = []
+    todo = [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if dep.exists():
+                todo.append(dep)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

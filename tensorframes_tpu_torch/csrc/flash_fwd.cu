@@ -44,10 +44,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_common.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace tfs_flash;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core kernel
@@ -62,67 +63,6 @@ constexpr size_t mma_smem_bytes() {
   // Q tile + two K and two V tiles, rows padded by 8 elements so that the
   // eight row addresses of an ldmatrix fall in distinct banks
   return size_t(BQ + 4 * BK) * (D + 8) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes (rows past the end of the sequence)
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c[16x8] += a[16x16] * b[16x8]
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + nrows) of one head -> shared tile, asynchronously
-template <int D>
-__device__ __forceinline__ void load_async(bf16* dst, const bf16* base,
-                                           int64_t s_l, int row0, int nrows,
-                                           int L, int tid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < nrows * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L;
-    cp_async16(smem_addr(dst + r * (D + 8) + c),
-               base + (ok ? row * s_l + c : 0), ok);
-  }
 }
 
 template <int D>
@@ -154,10 +94,10 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Lq) - 1) / BK + 1);
 
-  load_async<D>(Qs, qb, q_sl, q0, BQ, Lq, tid);
+  load_rows_async<D, THREADS>(Qs, qb, q_sl, q0, BQ, Lq, tid);
   if (n_tiles > 0) {
-    load_async<D>(Ks, kb, k_sl, 0, BK, Lk, tid);
-    load_async<D>(Vs, vb, v_sl, 0, BK, Lk, tid);
+    load_rows_async<D, THREADS>(Ks, kb, k_sl, 0, BK, Lk, tid);
+    load_rows_async<D, THREADS>(Vs, vb, v_sl, 0, BK, Lk, tid);
   }
   cp_async_commit();
 
@@ -171,8 +111,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {  // the next tile streams in during this one
-      load_async<D>(Ks + (buf ^ 1) * BK * LD, kb, k_sl, (t + 1) * BK, BK, Lk, tid);
-      load_async<D>(Vs + (buf ^ 1) * BK * LD, vb, v_sl, (t + 1) * BK, BK, Lk, tid);
+      load_rows_async<D, THREADS>(Ks + (buf ^ 1) * BK * LD, kb, k_sl, (t + 1) * BK, BK, Lk, tid);
+      load_rows_async<D, THREADS>(Vs + (buf ^ 1) * BK * LD, vb, v_sl, (t + 1) * BK, BK, Lk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // Q and tile t have landed

@@ -6,6 +6,10 @@ a JAX type.  Every leaf is checked against the config's layout: a missing
 or extra key, a wrong shape or a quantised (``QTensor``) leaf raises with
 a message naming the leaf, so a wrong layout fails loudly instead of
 scoring garbage.  Quantised weights come with the decode slice.
+
+``adamw_state_from_numpy`` carries a JAX run's optimizer state (the
+``optax`` chain of ``train.make_optimizer``, numpy leaves) into the port's
+``train.OptState``, so a run trained in JAX continues in the port.
 """
 
 from __future__ import annotations
@@ -115,3 +119,61 @@ def config_from_dict(fields: Mapping[str, Any]) -> tfm.TransformerConfig:
         if k in kw:
             kw[k] = _torch_dtype(kw[k])
     return tfm.TransformerConfig(**kw)
+
+
+def _find_adam_state(tree):
+    """The first NamedTuple with ``count``/``mu``/``nu`` fields (optax's
+    ``ScaleByAdamState``) in a nest of tuples, lists and dicts."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        if {"count", "mu", "nu"} <= set(tree._fields):
+            return tree
+    if isinstance(tree, Mapping):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            found = _find_adam_state(x)
+            if found is not None:
+                return found
+    return None
+
+
+def _at(tree: Mapping, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def adamw_state_from_numpy(opt_state_tree, params: tfm.Params, tcfg):
+    """The JAX optimizer state (``jax.tree.map(np.asarray, opt_state)`` of
+    ``train.make_optimizer(tcfg).init(...)`` after some updates) as a port
+    ``train.OptState`` over ``params`` (the port's, updated in place from
+    then on).  Adam's moments and its update count are read by field name
+    (``count``, ``mu``, ``nu``), so no optax type is needed; the count is
+    also the schedule's."""
+    from ..train import make_optimizer, param_leaves
+
+    adam = _find_adam_state(opt_state_tree)
+    if adam is None:
+        raise ValueError(
+            "no Adam state (a NamedTuple with count/mu/nu fields) in the "
+            "optimizer state"
+        )
+    count = int(np.asarray(adam.count))
+    state = make_optimizer(tcfg).init(params)
+    for path, p in param_leaves(params):
+        moments = {}
+        for name, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+            arr = np.asarray(_at(tree, path))
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"optimizer state {name} for {path!r} has shape "
+                    f"{tuple(arr.shape)}, the param {tuple(p.shape)}"
+                )
+            moments[name] = torch.from_numpy(np.array(arr)).to(
+                device=p.device, dtype=p.dtype
+            )
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32), **moments
+        }
+    state.count = count
+    return state

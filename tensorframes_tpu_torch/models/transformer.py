@@ -1,10 +1,13 @@
-"""Decoder-only transformer LM: the forward pass of the flagship model.
+"""Decoder-only transformer LM: the flagship model's forward and loss.
 
 PyTorch counterpart of ``tensorframes_tpu/models/transformer.py`` for one
 device: ``init`` (same layout and scaling, blocks stacked on a lead
-``[n_layers]`` axis) and ``apply`` (RMSNorm, RoPE, GQA attention with
-``attn_impl`` full/flash/auto, dense SwiGLU).  Params are a plain dict of
-tensors, the JAX pytree's layout.
+``[n_layers]`` axis), ``apply`` (RMSNorm, RoPE, GQA attention with
+``attn_impl`` full/flash/auto, dense SwiGLU, packed-sequence
+``segment_ids``, ``remat_policy`` none/full) and the training loss
+(``nll_sum_and_count``, ``cross_entropy``, ``cross_entropy_chunked``,
+``loss_fn``).  Params are a plain dict of tensors, the JAX pytree's layout;
+autograd gives the gradients ``jax.value_and_grad`` does.
 
 Numerics matched to the JAX package on purpose:
 
@@ -17,8 +20,12 @@ Numerics matched to the JAX package on purpose:
   multiplies by the cast weight.
 * ``_rope`` rotates halves (not interleaved pairs); frequencies are f32
   and cos/sin are cast to ``x.dtype`` before use.
+* The embedding casts the table to the activation dtype, THEN gathers
+  (``embed_lookup``): its gradient is scatter-added in that dtype and cast
+  to f32 afterwards, as JAX's is.
 
-Ring/ring_flash attention and MoE blocks wait for later slices.
+Ring/ring_flash attention, MoE blocks and the remat policies "dots",
+"attn" and "selective" wait for later slices.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..parallel.flash import flash_attention
@@ -40,6 +48,8 @@ _DEFERRED = {
     "ring": "ROADMAP.md Queue 1, 'ring/MoE attention paths' (sequence-sharded "
     "attention with the distributed slice)",
     "moe": "ROADMAP.md Queue 1, 'ring/MoE attention paths' (models/moe.py)",
+    "remat": "ROADMAP.md Queue 1 item F (the selective remat policies "
+    "'dots', 'attn' and 'selective')",
 }
 
 
@@ -235,8 +245,11 @@ def _attn_qkv(bp, x, positions, cfg):
     )
 
 
-def _attn_residual(bp, x, positions, cfg, custom_positions: bool = False):
-    """x -> x + Wo(attn(...)).  ``cfg.attn_impl`` is resolved (full/flash)."""
+def _attn_residual(
+    bp, x, positions, cfg, custom_positions: bool = False, segments=None
+):
+    """x -> x + Wo(attn(...)).  ``cfg.attn_impl`` is resolved (full/flash);
+    ``segments`` [B, L] (packed sequences) take the full path."""
     B, L, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _attn_qkv(bp, x, positions, cfg)
@@ -249,7 +262,7 @@ def _attn_residual(bp, x, positions, cfg, custom_positions: bool = False):
             k = torch.repeat_interleave(k, h // kvh, dim=2)
             v = torch.repeat_interleave(v, h // kvh, dim=2)
         pos = positions if custom_positions else None
-        att = full_attention(q, k, v, True, pos, pos)
+        att = full_attention(q, k, v, True, pos, pos, segments, segments)
     att = att.reshape(B, L, h * dh)
     return x + att @ bp["wo"].to(cfg.dtype)
 
@@ -264,21 +277,52 @@ def _mlp_residual(bp, x, cfg):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _block(bp, x, positions, cfg, custom_positions, segments):
+    """One decoder block: ``(x', aux)``."""
+    x = _attn_residual(bp, x, positions, cfg, custom_positions, segments)
+    return _mlp_residual(bp, x, cfg)
+
+
+def _remat_policy(cfg: TransformerConfig) -> str:
+    policy = cfg.remat_policy
+    if policy == "none" and cfg.remat:
+        policy = "full"  # legacy flag
+    if policy not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat_policy={policy!r} is not ported yet: {_DEFERRED['remat']}; "
+            f"use 'none' or 'full'"
+        )
+    return policy
+
+
 def apply_blocks(
     blocks: Params,
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: TransformerConfig,
     custom_positions: bool = False,
+    segments: Optional[torch.Tensor] = None,
 ):
     """Run the stacked blocks in order (the JAX ``lax.scan``).  Returns
-    ``(x, aux)``; aux is the summed MoE loss (0 for dense models)."""
+    ``(x, aux)``; aux is the summed MoE loss (0 for dense models).
+
+    ``remat_policy="full"`` checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed in the backward instead of saved, as ``jax.checkpoint``
+    does.  Without autograd there is nothing to save, and it runs plain."""
+    remat = _remat_policy(cfg) == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # unbind, not v[i]: its backward stacks the layers' gradients once,
+    # where each v[i] would add a zero-filled [n_layers, ...] tensor
+    layers = {k: v.unbind(0) for k, v in blocks.items()}
     n_layers = next(iter(blocks.values())).shape[0]
     for i in range(n_layers):
-        bp = {k: v[i] for k, v in blocks.items()}
-        x = _attn_residual(bp, x, positions, cfg, custom_positions)
-        x, a = _mlp_residual(bp, x, cfg)
+        bp = {k: v[i] for k, v in layers.items()}
+        args = (bp, x, positions, cfg, custom_positions, segments)
+        if remat:
+            x, a = checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x, a = _block(*args)
         aux = aux + a
     return x, aux
 
@@ -290,18 +334,40 @@ def apply(
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
     return_aux: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
 ):
     """tokens [B, L] int -> logits [B, L, V] (f32), on the params' device.
 
     ``return_hidden=True`` also returns the final-norm hidden states
     [B, L, D]; ``return_aux=True`` appends the MoE aux loss (f32 scalar, 0
-    for dense).  Extras come in (hidden, aux) order."""
-    _check_supported(cfg)
+    for dense).  Extras come in (hidden, aux) order.  ``segment_ids``
+    [B, L] enables packed-sequence training (``data.pack_examples``):
+    attention stays within each segment (id 0 = padding); pass the
+    matching restart ``positions``.  Packed batches take the full-attention
+    path (the flash kernels mask by row-major offsets)."""
     B, L = tokens.shape
+    if segment_ids is not None and cfg.attn_impl in (
+        "flash", "ring", "ring_flash",
+    ):
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} cannot honour segment_ids "
+            f"(packed sequences need the explicit mask); use "
+            f"attn_impl='full' or 'auto'"
+        )
+    if segment_ids is not None and positions is None:
+        raise ValueError(
+            "segment_ids without restart positions: RoPE would rotate "
+            "later segments from a continuous arange and logits would "
+            "silently differ from the per-example forward — pass the "
+            "positions from data.pack_examples/lm_split_packed"
+        )
+    _check_supported(cfg)
     if cfg.attn_impl == "auto":
         # one device (sp == 1): flash at L >= flash_min_len with row-major
-        # positions, full otherwise
-        use_flash = positions is None and L >= cfg.flash_min_len
+        # positions and no segments, full otherwise
+        use_flash = (
+            positions is None and segment_ids is None and L >= cfg.flash_min_len
+        )
         cfg = dataclasses.replace(cfg, attn_impl="flash" if use_flash else "full")
     if positions is not None and cfg.attn_impl == "flash":
         raise ValueError(
@@ -321,9 +387,10 @@ def apply(
     if positions is None:
         positions = torch.arange(L, dtype=torch.int32, device=tokens.device)
         positions = positions.expand(B, L)
-    # gather rows, then cast: the same values as JAX's cast-then-gather
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
-    x, aux = apply_blocks(params["blocks"], x, positions, cfg, custom)
+    # cast the table, then gather (embed_lookup): the gradient is
+    # scatter-added in the activation dtype, as JAX's is
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    x, aux = apply_blocks(params["blocks"], x, positions, cfg, custom, segment_ids)
     x = _rms_norm(x, params["ln_f"])
     # JAX: einsum(..., preferred_element_type=f32) -> exact products, f32 out
     logits = x.float() @ params["lm_head"].to(cfg.dtype).float()
@@ -333,3 +400,89 @@ def apply(
     if return_aux:
         out += (aux,)
     return out if len(out) > 1 else logits
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def nll_sum_and_count(logits: torch.Tensor, targets: torch.Tensor):
+    """Summed masked NLL + valid-target count (-1 = ignore): the single
+    home of the masking numerics shared by :func:`cross_entropy` and the
+    chunked loss (sums combine exactly across chunks; divide once)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = targets >= 0
+    safe = torch.where(valid, targets, 0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * valid).sum(), valid.sum()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over valid targets (-1 = ignore)."""
+    s, c = nll_sum_and_count(logits, targets)
+    return s / torch.clamp_min(c, 1)
+
+
+def _chunk_nll(h, w, t):
+    logits = h.float() @ w.float()  # exact products, f32 out
+    return nll_sum_and_count(logits, t)
+
+
+def cross_entropy_chunked(
+    hidden: torch.Tensor,
+    lm_head: torch.Tensor,
+    targets: torch.Tensor,
+    chunk: int,
+    dtype,
+) -> torch.Tensor:
+    """``cross_entropy(hidden @ lm_head, targets)`` without ever holding the
+    full [B, L, V] f32 logits: one [B, chunk, V] slice at a time, each
+    checkpointed (``torch.utils.checkpoint``) so its logits are recomputed
+    in the backward instead of saved — ``jax.checkpoint`` on the JAX scan
+    body.  Row-wise softmax makes this exactly the un-chunked loss."""
+    B, L, D = hidden.shape
+    if L % chunk:
+        raise ValueError(
+            f"ce_chunk {chunk} must divide the sequence length {L}"
+        )
+    w = lm_head.to(dtype)
+    s = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    c = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(0, L, chunk):
+        args = (hidden[:, i : i + chunk], w, targets[:, i : i + chunk])
+        if torch.is_grad_enabled():
+            ns, nc = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            ns, nc = _chunk_nll(*args)
+        s, c = s + ns, c + nc
+    return s / torch.clamp_min(c, 1)
+
+
+def loss_fn(
+    params: Params,
+    tokens: torch.Tensor,
+    targets: torch.Tensor,
+    cfg: TransformerConfig,
+    positions: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy.  targets [B, L] int (-1 = ignore);
+    pass ``positions``/``segment_ids`` from ``data.lm_split_packed`` for
+    packed batches (cross-segment targets arrive pre-masked as -1).
+
+    With ``cfg.ce_chunk > 0`` the loss is computed chunk-wise from the
+    final hidden states: the same numerics, O(L/chunk) less live memory.
+    (MoE configs, whose loss adds the aux term, are not ported yet.)"""
+    if cfg.ce_chunk:
+        _, hidden = apply(
+            params, tokens, cfg, positions=positions, return_hidden=True,
+            segment_ids=segment_ids,
+        )
+        return cross_entropy_chunked(
+            hidden, params["lm_head"], targets, cfg.ce_chunk, cfg.dtype
+        )
+    logits = apply(
+        params, tokens, cfg, positions=positions, segment_ids=segment_ids
+    )
+    return cross_entropy(logits, targets)

@@ -1,24 +1,36 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Port of ``tensorframes_tpu/parallel/flash.py::_flash_kernel`` (launched by
-``_flash_fwd_impl``, exposed as ``flash_attention``).  It computes
+Port of ``tensorframes_tpu/parallel/flash.py``: the forward
+(``_flash_kernel``, launched by ``_flash_fwd_impl``), the two backward
+kernels (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, launched by
+``_flash_bwd_impl``) and the ``custom_vjp`` glue that makes
+``flash_attention`` differentiable.  The forward computes
 ``softmax(QK^T / sqrt(Dh)) V`` with the online-softmax recurrence and a
-per-row logsumexp, without materialising the [Lq, Lk] scores.
+per-row logsumexp; the backward recomputes the probabilities from that
+logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
 
-* :func:`flash_attention_fwd` is the wrapper.  A CUDA tensor launches the
-  kernel in ``csrc/flash_fwd.cu`` (or raises: there is no fallback); a CPU
-  or ``meta`` tensor takes :func:`flash_attention_plain`.
-* :func:`flash_attention_plain` emulates the Pallas kernel's tiled
-  algorithm in plain PyTorch: ``block_q``/``block_k`` tiles, the causal
-  block skip, the key padding mask, the GQA head map and the -inf-safe
-  recurrence.  The CPU tests hold it against the JAX kernel in interpret
-  mode; ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+* :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
+  wrappers.  A CUDA tensor launches the kernels in ``csrc/flash_fwd.cu`` /
+  ``csrc/flash_bwd.cu`` (or raises: there is no fallback); a CPU or
+  ``meta`` tensor takes :func:`flash_attention_plain` /
+  :func:`flash_attention_bwd_plain`.
+* The plain versions emulate the Pallas kernels' tiled algorithms in plain
+  PyTorch: ``block_q``/``block_k`` tiles, the causal block skip, the key
+  padding mask, the GQA head map, the -inf-safe recurrence and recompute,
+  and the (group head, q tile) order of the dK/dV sums.  The CPU tests hold
+  them against the JAX kernels in interpret mode; ``chip_smoke.py`` holds
+  the CUDA kernels against them on the card.
+* :func:`flash_attention` is a ``torch.autograd.Function`` whose forward and
+  backward both dispatch by device, so the same program trains alike on
+  the card and on the host.
 
-Numerics of both: scores are f32 from exact products of the input dtype,
-``p`` is cast to ``v.dtype`` before PV (``flash.py:107-108``), the running
-max, denominator and accumulator are f32, and the causal mask is aligned
-top-left (``q_idx >= k_idx``) for ``Lq != Lk``.  The backward kernels and
-the ring step are still to port (ROADMAP.md, Queue 2).
+Numerics: scores are f32 from exact products of the input dtype, ``p`` is
+cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
+before P^T dO (``:482``), dS to q/k's dtype before its products (``:443``,
+``:489``), the running max, denominator and accumulators are f32, and the
+causal mask is aligned top-left (``q_idx >= k_idx``) for ``Lq != Lk``.
+float64 inputs (``gradcheck``) keep float64 throughout the plain versions.
+The ring step is still to port (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -31,14 +43,17 @@ import torch
 
 _NEG_INF = float("-inf")
 
-# launches of the CUDA kernel since the last reset (chip_smoke.py reads it
-# to show that the main path went through the kernel)
+# launches of each CUDA kernel since the last reset (chip_smoke.py reads
+# them to show that the main path went through the kernels): the forward,
+# the backward's dQ and its dK/dV
 launches = 0
+launches_dq = 0
+launches_dkv = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_dq, launches_dkv
+    launches = launches_dq = launches_dkv = 0
 
 
 def _blocking(Lq, Lk, block_q, block_k):
@@ -60,6 +75,12 @@ def _kv_head_map(H: int, KVH: int) -> torch.Tensor:
     return torch.arange(H) // (H // KVH)
 
 
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation dtype: f32 (the kernels' own), or
+    f64 for f64 inputs."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -77,19 +98,20 @@ def flash_attention_plain(
     B, Lq, H, Dh = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     kv = _kv_head_map(H, KVH).to(q.device)
+    wide = _wide(q.dtype)
     scale = float(np.float32(1.0 / np.sqrt(Dh)))
     bq, bk = _blocking(Lq, Lk, block_q, block_k)
-    qh = q.permute(0, 2, 1, 3).float()  # [B, H, Lq, Dh]
-    kh = k.permute(0, 2, 1, 3)[:, kv].float()  # GQA: [B, H, Lk, Dh]
+    qh = q.permute(0, 2, 1, 3).to(wide)  # [B, H, Lq, Dh]
+    kh = k.permute(0, 2, 1, 3)[:, kv].to(wide)  # GQA: [B, H, Lk, Dh]
     vh = v.permute(0, 2, 1, 3)[:, kv]
     out = torch.empty(B, H, Lq, Dh, dtype=q.dtype, device=q.device)
-    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
-    neg_inf = torch.tensor(_NEG_INF, device=q.device)
+    lse = torch.empty(B, H, Lq, dtype=wide, device=q.device)
+    neg_inf = torch.tensor(_NEG_INF, dtype=wide, device=q.device)
     for qi in range(-(-Lq // bq)):
         q0, q1 = qi * bq, min((qi + 1) * bq, Lq)
-        m = torch.full((B, H, q1 - q0), _NEG_INF, device=q.device)
-        l = torch.zeros((B, H, q1 - q0), device=q.device)
-        acc = torch.zeros((B, H, q1 - q0, Dh), device=q.device)
+        m = torch.full((B, H, q1 - q0), _NEG_INF, dtype=wide, device=q.device)
+        l = torch.zeros((B, H, q1 - q0), dtype=wide, device=q.device)
+        acc = torch.zeros((B, H, q1 - q0, Dh), dtype=wide, device=q.device)
         q_idx = torch.arange(q0, q1, device=q.device)[:, None]
         for ki in range(-(-Lk // bk)):
             # causal block skip: a k block strictly above the diagonal
@@ -111,13 +133,143 @@ def flash_attention_plain(
             alpha = torch.where(m == _NEG_INF, 0.0, torch.exp(m - m_safe))
             l = alpha * l + p.sum(-1)
             acc = acc * alpha[..., None] + (
-                p.to(v.dtype).float() @ vh[:, :, k0:k1].float()
+                p.to(v.dtype).to(wide) @ vh[:, :, k0:k1].to(wide)
             )
             m = m_new
         denom = torch.where(l == 0.0, 1.0, l)
         out[:, :, q0:q1] = (acc / denom[..., None]).to(q.dtype)
         lse[:, :, q0:q1] = m + torch.log(denom)
     return out.permute(0, 2, 1, 3), lse
+
+
+class _BwdTiles:
+    """What both plain backward halves share: the inputs in [B, heads, L,
+    Dh] views, ``D = rowsum(dO o O)`` in f32 (``flash.py:511-514``), the
+    -inf-safe lse, the tiling, and P/dS of one (q tile, k tile)
+    (``_bwd_mask_and_p``)."""
+
+    def __init__(self, q, k, v, out, lse, do, causal, block_q, block_k):
+        B, Lq, H, Dh = q.shape
+        Lk, KVH = k.shape[1], k.shape[2]
+        self.kv = _kv_head_map(H, KVH).to(q.device)
+        self.grp = H // KVH
+        self.wide = _wide(q.dtype)
+        self.scale = float(np.float32(1.0 / np.sqrt(Dh)))
+        self.bq, self.bk = _blocking(Lq, Lk, block_q, block_k)
+        self.nq, self.nk = -(-Lq // self.bq), -(-Lk // self.bk)
+        self.causal, self.q, self.k, self.v, self.do = causal, q, k, v, do
+        self.qh, self.kh, self.vh, self.doh = (
+            x.permute(0, 2, 1, 3) for x in (q, k, v, do)
+        )
+        self.dd = (do.to(self.wide) * out.to(self.wide)).sum(-1).permute(0, 2, 1)
+        # all-masked rows carry lse = -inf: they take 0 under the mask and
+        # never compute exp(finite - (-inf)) = inf (``flash.py:409-412``)
+        self.lse = torch.where(lse == _NEG_INF, 0.0, lse).to(self.wide)
+
+    def rows(self, i, n, L):
+        return i * n, min((i + 1) * n, L)
+
+    def skipped(self, qi, ki):
+        """A k tile wholly above the diagonal contributes nothing."""
+        return self.causal and (qi + 1) * self.bq - 1 < ki * self.bk
+
+    def p_and_ds(self, heads, kvs, q0, q1, k0, k1):
+        """P and dS [B, n, q, k] of one (q tile, k tile): query heads
+        ``heads`` against kv heads ``kvs``."""
+        w = self.wide
+        s = self.qh[:, heads, q0:q1].to(w) @ (
+            self.kh[:, kvs, k0:k1].to(w).transpose(-1, -2)
+        ) * self.scale
+        p = torch.exp(s - self.lse[:, heads, q0:q1, None])
+        if self.causal:
+            q_idx = torch.arange(q0, q1, device=s.device)[:, None]
+            k_idx = torch.arange(k0, k1, device=s.device)[None, :]
+            p = torch.where(q_idx >= k_idx, p, 0.0)
+        dp = self.doh[:, heads, q0:q1].to(self.v.dtype).to(w) @ (
+            self.vh[:, kvs, k0:k1].to(w).transpose(-1, -2)
+        )
+        return p, p * (dp - self.dd[:, heads, q0:q1, None])
+
+
+def flash_bwd_dq_plain(
+    q, k, v, out, lse, do, causal: bool = True, block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """dQ of the Pallas dQ kernel (``flash.py:416``) in plain PyTorch: per
+    q tile, the k tiles in order up to the diagonal, ``dQ += scale *
+    dS(k.dtype) K``.  Returns dq [B, Lq, H, Dh] in q.dtype."""
+    t = _BwdTiles(q, k, v, out, lse, do, causal, block_q, block_k)
+    B, Lq, H, Dh = q.shape
+    Lk, w, every = k.shape[1], t.wide, slice(None)
+    dq = torch.empty(B, H, Lq, Dh, dtype=q.dtype, device=q.device)
+    for qi in range(t.nq):
+        q0, q1 = t.rows(qi, t.bq, Lq)
+        acc = torch.zeros((B, H, q1 - q0, Dh), dtype=w, device=q.device)
+        for ki in range(t.nk):
+            if t.skipped(qi, ki):
+                continue
+            k0, k1 = t.rows(ki, t.bk, Lk)
+            _, ds = t.p_and_ds(every, t.kv, q0, q1, k0, k1)
+            kt = t.kh[:, t.kv, k0:k1].to(w)
+            acc = acc + (ds.to(k.dtype).to(w) @ kt) * t.scale
+        dq[:, :, q0:q1] = acc.to(q.dtype)
+    return dq.permute(0, 2, 1, 3)
+
+
+def flash_bwd_dkv_plain(
+    q, k, v, out, lse, do, causal: bool = True, block_q: int = 128,
+    block_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of the Pallas dK/dV kernel (``flash.py:452``) in plain
+    PyTorch: per k tile, the (query head of the GQA group, q tile) pairs
+    in that order, ``dV += P(do.dtype)^T dO`` and ``dK += scale *
+    dS(q.dtype)^T Q``, so they come out at kv width.  Returns (dk, dv)
+    [B, Lk, KVH, Dh] in k's and v's dtypes."""
+    t = _BwdTiles(q, k, v, out, lse, do, causal, block_q, block_k)
+    B, Lq, _, Dh = q.shape
+    Lk, KVH, w, every = k.shape[1], k.shape[2], t.wide, slice(None)
+    dk = torch.empty(B, KVH, Lk, Dh, dtype=k.dtype, device=q.device)
+    dv = torch.empty(B, KVH, Lk, Dh, dtype=v.dtype, device=q.device)
+    for ki in range(t.nk):
+        k0, k1 = t.rows(ki, t.bk, Lk)
+        acc_k = torch.zeros((B, KVH, k1 - k0, Dh), dtype=w, device=q.device)
+        acc_v = torch.zeros_like(acc_k)
+        for g in range(t.grp):
+            # query head g of every group, one per kv head
+            heads = torch.arange(KVH, device=q.device) * t.grp + g
+            for qi in range(t.nq):
+                if t.skipped(qi, ki):
+                    continue
+                q0, q1 = t.rows(qi, t.bq, Lq)
+                p, ds = t.p_and_ds(heads, every, q0, q1, k0, k1)
+                pt = p.to(do.dtype).to(w).transpose(-1, -2)
+                acc_v = acc_v + pt @ t.doh[:, heads, q0:q1].to(w)
+                dst = ds.to(q.dtype).to(w).transpose(-1, -2)
+                acc_k = acc_k + (dst @ t.qh[:, heads, q0:q1].to(w)) * t.scale
+        dk[:, :, k0:k1] = acc_k.to(k.dtype)
+        dv[:, :, k0:k1] = acc_v.to(v.dtype)
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = True,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Pallas backward kernels' algorithm in plain PyTorch.
+
+    q/out/do [B, Lq, H, Dh]; k/v [B, Lk, KVH, Dh]; lse [B, H, Lq] from the
+    forward.  Returns ``(dq, dk, dv)`` in the dtypes and shapes of q, k, v:
+    :func:`flash_bwd_dq_plain` and :func:`flash_bwd_dkv_plain`."""
+    dq = flash_bwd_dq_plain(q, k, v, out, lse, do, causal, block_q, block_k)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, out, lse, do, causal, block_q, block_k)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -229,10 +381,136 @@ def flash_attention_fwd(
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def _bwd_kernels():
+    """The C entry points of ``csrc/flash_bwd.cu`` (built at first use),
+    with their ctypes signatures declared."""
+    from .. import _build
+
+    lib = _build.load("flash_bwd")
+    for fn, outs in ((lib.tfs_flash_bwd_dq, 1), (lib.tfs_flash_bwd_dkv, 2)):
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 8
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+            )
+    return lib, lib.tfs_flash_bwd_dq, lib.tfs_flash_bwd_dkv
+
+
+def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal):
+    from .. import _build
+
+    B, Lq, H, Dh = q.shape
+    Lk, KVH = k.shape[1], k.shape[2]
+    strides = (ctypes.c_int64 * 12)(
+        *(t.stride(i) for t in (q, k, v, do) for i in range(3))
+    )
+    with torch.cuda.device(q.device):
+        err = fn(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, lse, delta)),
+            *(ctypes.c_void_p(t.data_ptr()) for t in outs),
+            B, H, KVH, Lq, Lk, Dh, _DTYPE_CODE[q.dtype], int(bool(causal)),
+            strides, ctypes.c_float(float(np.float32(1.0 / np.sqrt(Dh)))),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{_build.cuda_error_string(_bwd_kernels()[0], err)} "
+            f"(cudaError {err}) for q {tuple(q.shape)} {q.dtype}, k "
+            f"{tuple(k.shape)}"
+        )
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
+    """The dQ kernel on CUDA tensors (checked by :func:`flash_attention_bwd`):
+    dO contiguous in q's dtype, lse and ``delta = rowsum(dO o O)``
+    contiguous [B, H, Lq] f32.  Returns dq [B, Lq, H, Dh]."""
+    global launches_dq
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dq", _bwd_kernels()[1], q, k, v, do, lse, delta,
+                (dq,), causal)
+    launches_dq += 1
+    return dq
+
+
+def flash_bwd_dkv(
+    q, k, v, do, lse, delta, causal: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel on CUDA tensors, inputs as :func:`flash_bwd_dq`.
+    Returns (dk, dv) [B, Lk, KVH, Dh]."""
+    global launches_dkv
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dkv", _bwd_kernels()[2], q, k, v, do, lse, delta,
+                (dk, dv), causal)
+    launches_dkv += 1
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
+    check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or out.shape != q.shape:
+        raise ValueError(
+            f"flash_attention backward: dO {tuple(do.shape)} {do.dtype} and "
+            f"out {tuple(out.shape)} must match q {tuple(q.shape)} {q.dtype}"
+        )
+    if not (q.device == k.device == v.device == do.device == lse.device):
+        raise ValueError("flash_attention: q, k, v, dO, lse must be on one device")
+    B, Lq, H, _ = q.shape
+    if B * H * Lq == 0 or k.shape[1] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # the incoming gradient may be any view (an expanded scalar's, say)
+    do = do.contiguous()
+    # D = rowsum(dO o O) in f32, outside the kernels (flash.py:511-514)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.float().contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, do,
+    causal: bool = True, block_q: int = 128, block_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` from the forward's ``out``
+    and ``lse`` and the incoming gradient ``do``.  CUDA tensors launch the
+    dQ and dK/dV kernels (their own tiling) or raise; CPU and meta tensors
+    take :func:`flash_attention_bwd_plain`."""
+    if q.device.type == "cuda":
+        return _flash_bwd_cuda(q, k, v, out, lse, do, causal)
+    if q.device.type in ("cpu", "meta"):
+        return flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal, block_q, block_k
+        )
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of ``flash.py:569-610``: the forward saves
+    ``(q, k, v, out, lse)`` and the backward runs the backward kernels.
+    Both dispatch by device, with no fallback on CUDA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out, lse = flash_attention_fwd(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocking = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.blocking)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128
 ) -> torch.Tensor:
     """softmax(QK^T / sqrt(d)) V: q [B, Lq, H, Dh]; k/v [B, Lk, KVH, Dh]
     with H % KVH == 0 (GQA K/V stay kv-width).  Row-major causal
-    positions (the ``sp == 1`` case)."""
-    return flash_attention_fwd(q, k, v, causal, block_q, block_k)[0]
+    positions (the ``sp == 1`` case).  Differentiable on every device: the
+    gradient goes through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, causal, block_q, block_k)

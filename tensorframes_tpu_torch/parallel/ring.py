@@ -18,7 +18,10 @@ def _widen(x: torch.Tensor, groups: int) -> torch.Tensor:
     return x if groups == 1 else torch.repeat_interleave(x, groups, dim=2)
 
 
-def full_attention(q, k, v, causal: bool, positions_q=None, positions_k=None):
+def full_attention(
+    q, k, v, causal: bool, positions_q=None, positions_k=None,
+    segments_q=None, segments_k=None,
+):
     """q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (kv heads already repeated).
 
     JAX's ``einsum(..., preferred_element_type=f32)`` on bf16 operands
@@ -28,9 +31,13 @@ def full_attention(q, k, v, causal: bool, positions_q=None, positions_k=None):
     cast to ``q.dtype`` before PV, as in JAX.  The causal mask is aligned
     top-left (``q_idx >= k_idx``) for ``Lq != Lk`` — not SDPA's
     bottom-right convention.  ``positions_*``: [B, L] absolute positions
-    for the causal mask (default ``arange``)."""
+    for the causal mask (default ``arange``).  ``segments_*``: [B, L]
+    packed-sequence segment ids: tokens attend only within their own
+    segment (``data.pack_examples``); the ``==`` mask combines with the
+    causal one (``ring.py:369-373``)."""
     scale = np.float32(1.0 / np.sqrt(q.shape[-1]))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * float(scale)
+    mask = None
     if causal:
         if positions_q is None:
             iq = torch.arange(q.shape[1], device=q.device)
@@ -38,6 +45,10 @@ def full_attention(q, k, v, causal: bool, positions_q=None, positions_k=None):
             mask = (iq[:, None] >= ik[None, :])[None, None]
         else:
             mask = positions_q[:, None, :, None] >= positions_k[:, None, None, :]
+    if segments_q is not None:
+        seg = segments_q[:, None, :, None] == segments_k[:, None, None, :]
+        mask = seg if mask is None else (mask & seg)
+    if mask is not None:
         s = torch.where(mask, s, torch.tensor(float("-inf"), device=s.device))
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)

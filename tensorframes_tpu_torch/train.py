@@ -1,0 +1,349 @@
+"""Training the flagship transformer on one device.
+
+PyTorch counterpart of the single-device part of
+``tensorframes_tpu/train.py``: ``TrainConfig``, the learning-rate schedule,
+AdamW with global-norm clipping, ``make_train_step``, ``fit`` (a
+``FrameLoader`` over a ``TensorFrame`` feeds the step) and the accounting
+helpers.  The optimizer is ``torch.optim.AdamW`` with one param group, so
+weight decay covers every leaf, as ``optax.adamw`` without a mask does.
+Clipping and the schedule follow optax's formulas, not torch's:
+
+* clipping keeps ``g`` when ``‖g‖ < c`` and otherwise takes ``g / ‖g‖ * c``
+  (``torch.nn.utils.clip_grad_norm_`` divides by ``‖g‖ + 1e-6``);
+* the schedule is read at the count of updates already applied, so the
+  first update uses step 0 (``optax.scale_by_schedule``).
+
+Pipeline parallelism (``pp_stages > 1``, the GPipe and 1F1B schedules) and
+the MFU ``frontier_sweep`` wait for the distributed slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .device import DeviceLike
+from .models import transformer as tfm
+from .models.transformer import Params, TransformerConfig
+
+_DEFERRED_PP = (
+    "ROADMAP.md Queue 1 item 13 (pipeline stages and the GPipe/1F1B "
+    "schedules come with the distributed slice)"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    pp_stages: int = 1  # pipeline stages (> 1 is not ported yet)
+    microbatches: int = 1  # pipeline microbatches (used with pp_stages > 1)
+    pipeline_schedule: str = "gpipe"  # "gpipe" | "1f1b"
+    # "constant" | "cosine" (linear warmup to learning_rate, cosine decay
+    # to lr_min over total_steps)
+    schedule: str = "constant"
+    warmup_steps: int = 0
+    total_steps: int = 0  # required for schedule="cosine"
+    lr_min: float = 0.0
+
+
+def param_leaves(params: Params) -> List[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` for every leaf, in the order ``jax.tree`` flattens
+    the same dict (sorted keys, depth first)."""
+    out: List[Tuple[str, torch.Tensor]] = []
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, dict):
+            out += [(f"{k}.{p}", t) for p, t in param_leaves(v)]
+        else:
+            out.append((k, v))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# schedule, clipping, optimizer
+# ---------------------------------------------------------------------------
+
+
+def make_schedule(tcfg: TrainConfig) -> Union[float, Callable[[int], float]]:
+    """Learning-rate schedule from the config: a float (constant) or a
+    function of the update count with optax's formulas, in f32
+    (``optax.linear_schedule`` / ``warmup_cosine_decay_schedule``)."""
+    f32 = np.float32
+
+    def linear(init, end, steps):
+        def at(count):
+            c = min(max(count, 0), steps)
+            frac = f32(1) - f32(c) / f32(steps)
+            return float(f32(init - end) * frac + f32(end))
+
+        return at
+
+    if tcfg.schedule == "constant":
+        if tcfg.warmup_steps:
+            return linear(0.0, tcfg.learning_rate, tcfg.warmup_steps)
+        return tcfg.learning_rate
+    if tcfg.schedule == "cosine":
+        if tcfg.total_steps <= 0:
+            raise ValueError(
+                "schedule='cosine' needs total_steps > 0 (the horizon the "
+                "cosine decays over)"
+            )
+        peak, warm = tcfg.learning_rate, tcfg.warmup_steps
+        decay_steps = tcfg.total_steps - warm
+        if not decay_steps > 0:
+            raise ValueError(
+                "The cosine_decay_schedule requires positive decay_steps, got"
+                f" decay_steps={decay_steps}."
+            )
+        alpha = 0.0 if peak == 0.0 else tcfg.lr_min / peak
+        warmup = linear(0.0, peak, warm) if warm > 0 else (lambda count: 0.0)
+
+        def cosine(count):
+            c = f32(min(count, decay_steps))
+            decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay_steps)))
+            return float(f32(peak) * ((f32(1) - f32(alpha)) * decay + f32(alpha)))
+
+        # optax.join_schedules: the cosine takes over at the boundary
+        return lambda count: warmup(count) if count < warm else cosine(count - warm)
+    raise ValueError(
+        f"unknown schedule {tcfg.schedule!r}; use 'constant' or 'cosine'"
+    )
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place: each ``g`` stays when the
+    global norm is below ``max_norm`` and becomes ``g / norm * max_norm``
+    otherwise.  Decided on the device, with no host sync."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+class OptState:
+    """The optimizer state of one training run: ``torch.optim.AdamW`` over
+    the param leaves and the number of updates applied (optax's
+    ``ScaleByScheduleState.count``, which the schedule reads).
+
+    The params are updated in place; ``state_dict``/``load_state_dict``
+    carry both parts through a checkpoint."""
+
+    def __init__(self, tcfg: TrainConfig, params: Params):
+        self.tcfg = tcfg
+        self.schedule = make_schedule(tcfg)
+        self.leaves = [p for _, p in param_leaves(params)]
+        for p in self.leaves:
+            p.requires_grad_(True)
+        self.optimizer = torch.optim.AdamW(
+            self.leaves, lr=self.lr(0), betas=(tcfg.b1, tcfg.b2),
+            eps=tcfg.eps, weight_decay=tcfg.weight_decay,
+        )
+        self.count = 0
+
+    def lr(self, count: int) -> float:
+        s = self.schedule
+        return float(s(count)) if callable(s) else float(s)
+
+    def apply_gradients(self) -> None:
+        """Clip the leaves' ``.grad``, apply one AdamW update at the
+        schedule's rate for this count, and clear the gradients."""
+        grads = [p.grad for p in self.leaves]
+        if any(g is None for g in grads):
+            raise RuntimeError("apply_gradients: a param leaf has no gradient")
+        with torch.no_grad():
+            clip_by_global_norm_(grads, self.tcfg.grad_clip)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr(self.count)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.count += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.count = int(state["count"])
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm, adamw)`` for the port:
+    ``init(params)`` makes the :class:`OptState` of a run."""
+
+    def __init__(self, tcfg: TrainConfig):
+        self.tcfg = tcfg
+
+    def init(self, params: Params) -> OptState:
+        return OptState(self.tcfg, params)
+
+
+def make_optimizer(tcfg: TrainConfig) -> Optimizer:
+    return Optimizer(tcfg)
+
+
+# ---------------------------------------------------------------------------
+# train step and fit
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(
+    cfg: TransformerConfig, tcfg: TrainConfig, packed: bool = False
+):
+    """Returns ``(train_step, tx)``; ``train_step(params, opt_state, tokens,
+    targets) -> (params, opt_state, loss)`` with ``opt_state =
+    tx.init(params)``.  The params are updated in place and returned; the
+    loss is a detached device scalar (reading it syncs).
+
+    ``packed=True``: the step takes two extra arguments ``(segments,
+    positions)`` (``data.lm_split_packed``) and trains with segment-aware
+    attention (single-stage only)."""
+    tx = make_optimizer(tcfg)
+    if tcfg.pipeline_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(
+            f"unknown pipeline_schedule {tcfg.pipeline_schedule!r}; use "
+            f"'gpipe' or '1f1b'"
+        )
+    if packed and tcfg.pp_stages > 1:
+        raise ValueError("packed training is single-stage; set pp_stages=1")
+    if tcfg.pp_stages > 1:
+        raise NotImplementedError(
+            f"pp_stages={tcfg.pp_stages} (pipeline_schedule="
+            f"{tcfg.pipeline_schedule!r}) is not ported yet: {_DEFERRED_PP}"
+        )
+
+    def step(params, opt_state, tokens, targets, segments=None, positions=None):
+        opt_state.optimizer.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(
+            params, tokens, targets, cfg,
+            positions=positions, segment_ids=segments,
+        )
+        loss.backward()
+        opt_state.apply_gradients()
+        return params, opt_state, loss.detach()
+
+    if packed:
+
+        def train_step(params, opt_state, tokens, targets, segments, positions):
+            return step(params, opt_state, tokens, targets, segments, positions)
+
+        return train_step, tx
+
+    def train_step(params, opt_state, tokens, targets):
+        return step(params, opt_state, tokens, targets)
+
+    return train_step, tx
+
+
+def fit(
+    loader,
+    cfg: TransformerConfig,
+    tcfg: TrainConfig,
+    *,
+    steps: int,
+    params: Optional[Params] = None,
+    rng: int = 0,
+    column: str = "tokens",
+    packed: bool = False,
+    device: DeviceLike = None,
+) -> Tuple[Params, OptState, list]:
+    """Train the flagship LM straight from the data plane.
+
+    ``loader`` is a :class:`~.data.FrameLoader` (or any iterable of
+    ``{column: [B, L+1] int tokens}`` batches): the TensorFrame feeds the
+    train step.  ``params`` None: fresh weights from ``torch.Generator``
+    seed ``rng`` on ``device`` (None: the CUDA card); a torch generator
+    draws other numbers than ``jax.random`` of the same seed.
+
+    ``packed=True``: batches must carry ``tokens``/``segments``/
+    ``positions`` columns (``data.packed_frame``) and each step trains with
+    segment-aware attention.
+
+    Returns ``(params, opt_state, losses)``; the losses stay device scalars
+    until the end, so the step loop never waits for the card."""
+    from .data import lm_split, lm_split_packed
+
+    if params is None:
+        params = tfm.init(torch.Generator().manual_seed(rng), cfg, device=device)
+    train_step, tx = make_train_step(cfg, tcfg, packed=packed)
+    opt_state = tx.init(params)
+    losses = []
+    it = loader.forever() if hasattr(loader, "forever") else iter(loader)
+    for step in range(steps):
+        try:
+            batch = next(it)
+        except StopIteration:
+            raise ValueError(
+                f"loader exhausted after {step} batches but steps={steps}; "
+                f"pass a FrameLoader (cycles epochs via .forever()) or an "
+                f"iterable with at least `steps` batches"
+            ) from None
+        if packed:
+            tokens, targets, segs, pos = lm_split_packed(
+                batch["tokens"], batch["segments"], batch["positions"]
+            )
+            params, opt_state, loss = train_step(
+                params, opt_state, tokens, targets, segs, pos
+            )
+        else:
+            tokens, targets = lm_split(batch, column)
+            params, opt_state, loss = train_step(
+                params, opt_state, tokens, targets
+            )
+        losses.append(loss)  # device scalars: don't sync the step loop
+    return params, opt_state, [float(x) for x in losses]
+
+
+# ---------------------------------------------------------------------------
+# accounting
+# ---------------------------------------------------------------------------
+
+
+def hbm_high_water(device: DeviceLike = None) -> Optional[int]:
+    """Peak bytes allocated on a CUDA ``device`` since the last
+    ``torch.cuda.reset_peak_memory_stats`` (``max_memory_allocated``), or
+    None for the CPU or when no card is present."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(torch.cuda.max_memory_allocated(dev))
+
+
+def counted_flops_per_token(n_params: int, cfg: TransformerConfig,
+                            seq_len: int) -> float:
+    """The standard counted-FLOPs estimate per trained token: ~6N for the
+    fwd+bwd matmuls plus the 12*L*d attention term per layer — the formula
+    the JAX package's MFU figures use."""
+    return 6.0 * n_params + 12.0 * cfg.n_layers * seq_len * cfg.d_model
+
+
+def n_params(params: Params) -> int:
+    """Number of scalar parameters."""
+    return sum(t.numel() for _, t in param_leaves(params))
+
+
+__all__ = [
+    "OptState",
+    "Optimizer",
+    "TrainConfig",
+    "clip_by_global_norm_",
+    "counted_flops_per_token",
+    "fit",
+    "hbm_high_water",
+    "make_optimizer",
+    "make_schedule",
+    "make_train_step",
+    "n_params",
+    "param_leaves",
+]

@@ -1,6 +1,6 @@
-"""The port stands alone: importing it loads no JAX and nothing of the JAX
-package, its sources import neither, and its entry points refuse to run on
-the CPU unless asked to."""
+"""The port stands alone: importing it loads no JAX, no optax or orbax and
+nothing of the JAX package, its sources import none of them, and its entry
+points refuse to run on the CPU unless asked to."""
 
 import pathlib
 import re
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import tensorframes_tpu_torch as tft
+from tensorframes_tpu_torch import data, train
 from tensorframes_tpu_torch.models import convert, scoring
 from tensorframes_tpu_torch.models import transformer as tfm
 from tensorframes_tpu_torch.parallel import flash
@@ -23,10 +24,11 @@ ROOT = PKG.parent
 def test_import_loads_no_jax_or_jax_package():
     code = (
         "import sys, tensorframes_tpu_torch, tensorframes_tpu_torch.models.scoring, "
-        "tensorframes_tpu_torch.models.convert, tensorframes_tpu_torch._build\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('jaxlib') or m == 'tensorframes_tpu'"
-        " or m.startswith('tensorframes_tpu.'))\n"
+        "tensorframes_tpu_torch.models.convert, tensorframes_tpu_torch._build, "
+        "tensorframes_tpu_torch.train, tensorframes_tpu_torch.data, "
+        "tensorframes_tpu_torch.checkpoint\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu'))\n"
         "print(repr(bad))"
     )
     out = subprocess.run(
@@ -38,11 +40,13 @@ def test_import_loads_no_jax_or_jax_package():
 
 def test_sources_import_neither_jax_nor_the_jax_package():
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax\b|jaxlib\b|tensorframes_tpu\b(?!_torch))",
+        r"^\s*(import|from)\s+"
+        r"(jax\b|jaxlib\b|optax\b|orbax\b|tensorframes_tpu\b(?!_torch))",
         re.M,
     )
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"train.py", "data.py", "checkpoint.py"} <= {p.name for p in files}
     for path in files:
         hits = pat.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -72,9 +76,13 @@ def _cfg():
             tfm.init(torch.Generator(), _cfg(), device="cpu"), _cfg()
         ),
         lambda: convert.params_from_numpy({}, _cfg()),
+        lambda: data.FrameLoader(
+            tft.TensorFrame.from_arrays({"x": np.ones((4, 2), np.int32)}), 2
+        ),
+        lambda: train.fit([], _cfg(), train.TrainConfig(), steps=1),
     ],
     ids=["map_blocks", "Program", "init", "scoring_program",
-         "params_from_numpy"],
+         "params_from_numpy", "FrameLoader", "fit"],
 )
 def test_entry_points_raise_without_a_card(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
