@@ -10,16 +10,21 @@ Phases, each printing its own lines:
 1. env: torch/CUDA versions, the card, and its name and power limit as
    ``nvidia-smi`` reports them;
 2. build: the CUDA kernels from ``tensorframes_tpu_torch/csrc`` (one nvcc
-   per source, started together), with ptxas' register/spill report;
+   per source, started together), with ptxas' register/spill report; the
+   Hopper design of the bf16 forward and dK/dV kernels is asserted in the
+   built code: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   their SASS (``cuobjdump``), and 0 bytes of ptxas spills;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
-   main paths' shapes and the edge cases, with stated tolerances;
+   main paths' shapes and the edge cases (ragged, cross, GQA, a length that
+   wraps the kernels' stage rings many times, q/k/v as strided views), with
+   stated tolerances;
    gradients through the autograd Function on the card against the same
    Function on CPU copies; and an explicit ``ring_flash`` at a chunk the
    TPU cannot tile, which must launch the ring step on every hop;
 4. timing: each kernel, its plain version and the one-call library
    equivalent at the main paths' shape, beside the least time the card
-   could take (its bound); the ring step at both flagship hops (diagonal
+   could take (its bound) and the counted TFLOP/s; the ring step at both flagship hops (diagonal
    and off-diagonal), with SDPA's forward on the same chunk pair as the
    nearest yardstick (no library call folds a carry);
 5. slice (scoring): the flagship transformer (series widths, random seeded
@@ -63,6 +68,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +93,13 @@ KERNEL_CASES = [
     ("cross24x40", dict(B=2, Lq=24, Lk=40, H=4, KVH=4, D=64, dtype=torch.bfloat16, causal=False)),
     ("gqa16x4", dict(B=2, Lq=2048, Lk=2048, H=16, KVH=4, D=64, dtype=torch.bfloat16, causal=True)),
     ("f32", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=128, dtype=torch.float32, causal=True)),
+    # GQA, ragged and causal over many TMA boxes: the forward's 4-slot ring
+    # wraps twice per CTA, dK/dV's 4-slot ring 16 times (4 heads x 16 tiles)
+    ("gqa_ragged1000", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=2, D=64, dtype=torch.bfloat16, causal=True)),
+    # q, k, v as views into one fused [B, L, H + 2 KVH, D] projection: the
+    # descriptors' strides are not a contiguous tensor's
+    ("strided_fused", dict(B=2, Lq=300, Lk=300, H=8, KVH=2, D=64, dtype=torch.bfloat16,
+                           causal=True, layout="fused")),
 ]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # atol = rtol
 LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 2e-5}
@@ -199,12 +212,18 @@ def check_close(name, got, ref, tol) -> float:
 
 
 def qkv(c, seed=0):
+    """Seeded q, k, v on the card: contiguous, or with ``layout="fused"``
+    views into one [B, L, H + 2 KVH, D] tensor (Lq == Lk)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(L, heads):
         x = torch.randn(c["B"], L, heads, c["D"], generator=g, device="cuda")
         return x.to(c["dtype"])
 
+    if c.get("layout") == "fused":
+        H, KVH = c["H"], c["KVH"]
+        x = r(c["Lq"], H + 2 * KVH)
+        return x[:, :, :H], x[:, :, H:H + KVH], x[:, :, H + KVH:]
     return r(c["Lq"], c["H"]), r(c["Lk"], c["KVH"]), r(c["Lk"], c["KVH"])
 
 
@@ -232,7 +251,7 @@ def kernel_bound(c, kernel):
     }[kernel]
     peak = PEAK_BF16_FLOPS if c["dtype"] == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
 def ring_bound(c, q_off, k_off):
@@ -286,6 +305,50 @@ def phase_build():
         ]
         say("build", source=name, ptxas=ptxas)
     say("build", seconds=round(time.perf_counter() - t0, 3))
+    check_hopper_design(_build)
+
+
+# the kernels whose design (TMA loads, wgmma) the built code must show
+HOPPER_KERNELS = {"flash_fwd": "flash_fwd_bf16", "flash_bwd": "flash_bwd_dkv_bf16"}
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def ptxas_spills(log):
+    """{kernel: (spill store bytes, spill load bytes)} from ptxas -v."""
+    spills, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+def check_hopper_design(_build):
+    """The bf16 forward and dK/dV kernels, as built: HGMMA and UTMALDG in
+    every instantiation's SASS, no spills, and no setmaxnreg that ptxas
+    ignored."""
+    for src, kernel in HOPPER_KERNELS.items():
+        sass = subprocess.run(
+            [_build.cuda_bin("cuobjdump"), "--dump-sass", str(_build.library_path(src))],
+            capture_output=True, text=True, timeout=300, check=True,
+        ).stdout
+        counts = {}
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            fn = body.split("\n", 1)[0].strip()
+            if kernel in fn:
+                counts[fn] = {op: body.count(op) for op in SASS_OPS}
+        log = _build.build_log(src)
+        spills = {fn: v for fn, v in ptxas_spills(log).items() if kernel in fn}
+        if not counts or any(0 in c.values() for c in counts.values()):
+            raise AssertionError(f"{kernel}: SASS lacks {SASS_OPS}: {counts}")
+        if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
+            raise AssertionError(f"{kernel}: ptxas spills {spills}")
+        if "C7508" in log:
+            raise AssertionError(f"{src}: ptxas ignored setmaxnreg (C7508)")
+        say("build", kernel=kernel, sass_counts=counts, spill_bytes=spills)
 
 
 def phase_kernels():
@@ -464,7 +527,7 @@ def phase_timing():
     timing = {}
     with torch.no_grad():
         for name, (kernel, plain, library) in runs.items():
-            bound_ms, bound_by = kernel_bound(c, name)
+            bound_ms, bound_by, flops = kernel_bound(c, name)
             row = dict(
                 ms=cuda_ms(kernel, 20),
                 plain_ms=cuda_ms(plain, 3, 1),
@@ -473,7 +536,8 @@ def phase_timing():
             )
             timing[name] = row
             say("timing", kernel=name, **row,
-                share_of_bound=bound_ms / row["ms"])
+                share_of_bound=bound_ms / row["ms"],
+                tflops_per_s=flops / row["ms"] / 1e9)
     timing["flash_ring_step"] = phase_ring_timing()
     return timing
 

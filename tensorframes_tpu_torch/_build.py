@@ -34,17 +34,19 @@ NVCC_FLAGS = (
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_bin(tool: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH, else in
+    ``$CUDA_HOME/bin`` (``/usr/local/cuda`` by default)."""
+    found = shutil.which(tool)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / tool
     if not path.exists():
         raise RuntimeError(
-            "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the "
-            "port's CUDA kernels are built from source on the machine with "
-            "the card"
+            f"{tool} not found (looked on PATH and in $CUDA_HOME/bin); the "
+            f"port's CUDA kernels are built from source on the machine with "
+            f"the card"
         )
     return str(path)
 
@@ -84,7 +86,7 @@ def _start(name: str) -> Optional[subprocess.Popen]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    cmd = [cuda_bin("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

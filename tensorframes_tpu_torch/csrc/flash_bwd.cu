@@ -14,28 +14,49 @@
 // What bounds them on the H100: at the flagship shape (B=8, L=2048, H=16,
 // Dh=64, causal, bf16) dQ does 6*Dh and dK/dV 8*Dh FLOP per (query, key)
 // pair (~103 and ~137 GFLOP) against ~0.2 GB of inputs each: bound by
-// operations, i.e. by how well the loops keep the tensor cores fed.
+// operations, i.e. by the tensor-core rate (which only wgmma reaches) and
+// how well the loops keep the tensor cores fed.
 //
-// What the design does about it (bf16, the main path):
-//  * The TPU grid's sequential axis becomes a loop inside one CTA, so
-//    nothing carries between blocks and nothing needs atomics: the results
-//    are deterministic.
-//  * dQ: one CTA of 4 warps owns one (batch*head, 64-query tile); each warp
-//    owns 16 query rows.  Q and dO are loaded once; 64-key K/V tiles stream
-//    through a cp.async double buffer up to the diagonal (the causal skip is
-//    the loop bound).  S = Q K^T and dP = dO V^T run on the tensor cores
-//    (mma.sync m16n8k16, f32 accumulate), P and dS stay in registers, and dS
-//    (cast to bf16) is the A operand of dQ += dS K straight from them.
-//  * dK/dV: one CTA of 4 warps owns one (batch*kv head, 64-key tile); each
-//    warp owns 16 keys.  K and V are loaded once; the CTA loops over every
-//    (query head of the group, query tile) pair from the diagonal on, with
-//    Q, dO, lse and D double-buffered.  It computes S^T = K Q^T and
-//    dP^T = V dO^T directly, so P^T and dS^T are already the A operands of
-//    dV += P^T dO and dK += dS^T Q; dK and dV stay in f32 registers across
-//    the whole group (the TPU kernel's VMEM accumulation, flash.py:537-541).
-//  * Loads are 16-byte vectors straight from [B, L, H, Dh] through its
-//    strides (no transpose or pad copy); ragged tails are zero-filled by the
-//    copy and masked here.
+// What the design does about it (bf16, the main path).  In both, the TPU
+// grid's sequential axis becomes a loop inside one CTA, so nothing carries
+// between blocks and nothing needs atomics: the results are deterministic.
+//  * dK/dV (warp-specialised TMA + wgmma; building blocks in hopper.cuh):
+//    one CTA of three warpgroups owns one (batch*kv head, 128-key tile).
+//    The producer warpgroup loads K and V once by TMA, then streams the
+//    (Q, dO) tiles of 64 query rows (32 at Dh = 128) of every (query head of
+//    the group, query tile) pair from the diagonal on through a 4-slot ring
+//    of full/empty mbarriers; one of its warps stages the pairs' lse * log2(e)
+//    and D rows beside them.  setmaxnreg moves its registers to the two
+//    consumer warpgroups of 64 keys each.  Per pair a consumer computes
+//    S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in shared
+//    memory), P^T = exp2(S^T * scale * log2(e) - lse) and
+//    dS^T = P^T o (dP^T - D) in registers, then dV += P^T dO and
+//    dK += dS^T Q with P^T and dS^T as register A operands (the accumulator
+//    layout is the A fragment's) and dO and Q read MN-major through the
+//    transpose bit.  dK and dV stay in f32 registers across the whole group
+//    (the TPU kernel's VMEM accumulation, flash.py:537-541).  A query tile
+//    wholly before a consumer's 64 keys (one per head, two at Dh = 128, when
+//    the other consumer's keys reach into it) is masked to 0 rather than
+//    skipped, so both consumers walk the same ring.  At Dh = 128, dK and dV
+//    of 64 keys would take 128 f32 registers a thread beside the scores,
+//    over a consumer's budget: the consumers walk the pairs twice, dV in the
+//    first pass and dK in the second, recomputing S^T (a quarter more
+//    products) to hold one accumulator.
+//    Tried and slower on the H100 at the flagship shape, so not kept:
+//    issuing pair n + 1's S^T and dP^T behind pair n's gradient products
+//    inside a warpgroup (it also spills), and ping-pong between the two
+//    consumers.
+//  * dQ (the earlier mma.sync design): one CTA of 4 warps owns one
+//    (batch*head, 64-query tile); each warp owns 16 query rows.  Q and dO
+//    are loaded once; 64-key K/V tiles stream through a cp.async double
+//    buffer up to the diagonal.  S = Q K^T and dP = dO V^T run on the tensor
+//    cores (mma.sync m16n8k16, f32 accumulate, operands by ldmatrix), P and
+//    dS stay in registers, and dS (cast to bf16) is the A operand of
+//    dQ += dS K straight from them.  Not yet done: TMA, wgmma and warp
+//    specialisation for dQ.
+//  * Loads read [B, L, H, Dh] through its strides (no transpose or pad
+//    copy); ragged tails are zero-filled (by the TMA descriptors, which
+//    bound L per batch, or by the copy) and masked here.
 // Numerics kept from flash.py: P is cast to dO's dtype before P^T dO (:482)
 // and dS to q/k's dtype before its products (:443, :489); the scale is
 // applied in f32; a row whose lse is -inf takes lse 0 under the mask and
@@ -43,7 +64,6 @@
 // top-left (q >= k) when Lq != Lk.
 // f32 inputs take plain FMA kernels (TF32 would lose precision the JAX
 // reference keeps); they are off the main path.
-// Not yet done (later work): TMA loads, wgmma, warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,10 +72,12 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace tfs_flash;
+using namespace tfs_hopper;
 
 // element strides (batch, length, head) of q, k, v and dO
 struct Strides {
@@ -86,29 +108,14 @@ __device__ __forceinline__ float safe_lse(const float* lse, int64_t i, bool ok) 
 // bf16: tensor-core kernels
 // ---------------------------------------------------------------------------
 
+// dQ: mma.sync kernel
 constexpr int THREADS = 128;  // 4 warps x 16 rows
 constexpr int BQ = 64;        // query rows per dQ CTA
 constexpr int BK = 64;        // keys per dQ tile
-constexpr int BKV = 64;       // keys per dK/dV CTA
-
-// query rows per dK/dV tile: fewer at Dh=128, where dK and dV take 128
-// accumulator registers a thread
-template <int D>
-__host__ __device__ constexpr int dkv_bq() {
-  return D == 128 ? 32 : 64;
-}
-
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // Q and dO tiles + two K and two V tiles, rows padded by 8 elements
   return size_t(2 * BQ + 4 * BK) * (D + 8) * sizeof(bf16);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // K and V tiles + two Q and two dO tiles + two (lse, D) row vectors
-  return size_t(2 * BKV + 4 * dkv_bq<D>()) * (D + 8) * sizeof(bf16) +
-         size_t(4 * dkv_bq<D>()) * sizeof(float);
 }
 
 template <int D>
@@ -242,156 +249,271 @@ flash_bwd_dq_bf16(Problem p, bf16* __restrict__ dq) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV: warp-specialised TMA + wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int DKV_BK = 128;       // keys per CTA, 64 per consumer warpgroup
+constexpr int DKV_THREADS = 384;  // the producer and two consumer warpgroups
+// 128 x 40 + 256 x 232 = 64512 = 384 x 168, the registers the CTA starts with
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_bf16(Problem p, bf16* __restrict__ dk, bf16* __restrict__ dv) {
-  constexpr int LD = D + 8;
-  constexpr int BQ2 = dkv_bq<D>();
-  constexpr int NT = BQ2 / 8;  // 8-query column tiles of S^T per warp
-  constexpr int DT = D / 8;    // 8-wide column tiles of dK/dV per warp
+struct Dkv {
+  // query rows per (Q, dO) tile
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  // At Dh = 128, dK and dV of 64 keys would hold 128 accumulator registers
+  // a thread beside the scores: more than a consumer's budget.  The kernel
+  // then walks the pairs twice, dV in the first pass and dK in the second,
+  // recomputing S^T (a quarter more products) to keep one accumulator.
+  static constexpr int PASSES = D == 128 ? 2 : 1;
+  static constexpr int STAGES = 4;
+  static constexpr int KV_BOX = DKV_BK * 128;  // one 64-column box of K or V
+  static constexpr int KV_TILE = (D / BOX_COLS) * KV_BOX;
+  static constexpr int Q_BOX = BQ * 128;       // one 64-column box of Q or dO
+  static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
+  static constexpr int SLOT = 2 * Q_TILE;      // a slot: the Q tile, then dO's
+  static constexpr int ROWS = 2 * BQ;          // a slot's lse * log2(e), then D
+  // K and V; full and empty per slot
+  static constexpr int BARRIERS = 1 + 2 * STAGES;
+  static constexpr size_t SMEM = size_t(2) * KV_TILE +
+                                 size_t(STAGES) * (SLOT + ROWS * sizeof(float)) +
+                                 8 * BARRIERS + ATOM_BYTES;
+};
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BKV * LD;
-  bf16* Qs = Vs + BKV * LD;       // two buffers of BQ2 rows
-  bf16* Os = Qs + 2 * BQ2 * LD;   // dO: two buffers of BQ2 rows
-  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ2 * LD);  // lse*log2(e), x2
-  float* Ds = Ls + 2 * BQ2;                                  // D, x2
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap o_map, Problem p,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  using F = Dkv<D>;
+  constexpr int S = F::STAGES, BQ2 = F::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const Ks = atom_aligned(smem_raw);
+  unsigned char* const Vs = Ks + F::KV_TILE;
+  unsigned char* const ring = Vs + F::KV_TILE;
+  float* const rows = reinterpret_cast<float*>(ring + S * F::SLOT);
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(rows + S * F::ROWS);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + S;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int H = p.H, KVH = p.KVH, Lq = p.Lq, Lk = p.Lk, grp = H / KVH;
+  // the key tiles of one kv head are neighbours in the launch order, so
+  // the CTAs in flight share their heads' Q and dO in L2; causal: key tile
+  // 0, the heaviest, launches first
   const int bkv = blockIdx.y, b = bkv / KVH, kvh = bkv % KVH;
-  const int k0 = blockIdx.x * BKV;
-  const int wk0 = k0 + warp * 16;                // this warp's first key
-  const int key_a = wk0 + g, key_b = key_a + 8;  // this thread's two keys
+  const int k0 = blockIdx.x * DKV_BK;
   const int nq = (Lq + BQ2 - 1) / BQ2;
   // causal: query tiles that end before k0 see none of these keys
   const int qt0 = p.causal ? min(k0 / BQ2, nq) : 0;
   const int nqe = nq - qt0;
   const int n_iter = grp * nqe;  // (query head of the group, query tile)
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
+  const int n_load = F::PASSES * n_iter;  // the ring's fills: every pass's pairs
 
-  // stage pair `it` (its Q, dO, lse and D) into buffer `buf`
-  auto stage = [&](int it, int buf) {
-    const int h = kvh * grp + it / nqe;
-    const int qq0 = (qt0 + it % nqe) * BQ2;
-    const bf16* qb = static_cast<const bf16*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
-    const bf16* ob = static_cast<const bf16*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
-    load_rows_async<D, THREADS>(Qs + buf * BQ2 * LD, qb, p.s.q[1], qq0, BQ2, Lq, tid);
-    load_rows_async<D, THREADS>(Os + buf * BQ2 * LD, ob, p.s.d[1], qq0, BQ2, Lq, tid);
-    if (tid < BQ2) {
-      const int row = qq0 + tid;
-      const int64_t i = (int64_t(b) * H + h) * Lq + row;
-      Ls[buf * BQ2 + tid] = safe_lse(p.lse, i, row < Lq) * LOG2E;
-      Ds[buf * BQ2 + tid] = row < Lq ? p.delta[i] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1 + 32);    // the TMA thread and the lse/D warp
+      mbar_init(empty + s, 2 * 128);  // every consumer thread releases a slot
     }
-  };
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_rows_async<D, THREADS>(Ks, kb, p.s.k[1], k0, BKV, Lk, tid);
-  load_rows_async<D, THREADS>(Vs, vb, p.s.v[1], k0, BKV, Lk, tid);
-  if (n_iter > 0) stage(0, 0);
-  cp_async_commit();
-
-  const float sl2 = p.scale * LOG2E;
-  float adk[DT][4] = {}, adv[DT][4] = {};
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iter) stage(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and pair `it` have landed
-    __syncthreads();
-
-    const int qq0 = (qt0 + it % nqe) * BQ2;
-    // a query tile wholly before this warp's keys contributes nothing
-    if (!p.causal || qq0 + BQ2 - 1 >= wk0) {
-      const bf16* Qt = Qs + buf * BQ2 * LD;
-      const bf16* Ot = Os + buf * BQ2 * LD;
-      const float* Lt = Ls + buf * BQ2;
-      const float* Dt = Ds + buf * BQ2;
-      float st[NT][4] = {}, dpt[NT][4] = {};
-      // S^T = K Q^T and dP^T = V dO^T
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, Ks, LD, warp * 16, kk * 16, lane);
-        load_a(av, Vs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bq[4], bo[4];
-          load_bt(bq, Qt, LD, np * 16, kk * 16, lane);
-          mma_16816(st[2 * np], ak, bq[0], bq[1]);
-          mma_16816(st[2 * np + 1], ak, bq[2], bq[3]);
-          load_bt(bo, Ot, LD, np * 16, kk * 16, lane);
-          mma_16816(dpt[2 * np], av, bo[0], bo[1]);
-          mma_16816(dpt[2 * np + 1], av, bo[2], bo[3]);
+  if (threadIdx.x < 128) {
+    // the producer: warp 0 issues TMA, warp 1 stages the lse and D rows
+    regs_dec<PRODUCER_REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * F::KV_TILE);
+      for (int x = 0; x < D / BOX_COLS; ++x) {
+        tma_load(Ks + x * F::KV_BOX, &k_map, kv_full, x * BOX_COLS, kvh, k0, b);
+        tma_load(Vs + x * F::KV_BOX, &v_map, kv_full, x * BOX_COLS, kvh, k0, b);
+      }
+      for (int n = 0; n < n_load; ++n) {
+        const int s = n % S, it = n % n_iter;
+        if (n >= S) mbar_wait(empty + s, (n / S - 1) & 1);  // its last use is done
+        const int h = kvh * grp + it / nqe, qq0 = (qt0 + it % nqe) * BQ2;
+        unsigned char* const Qt = ring + s * F::SLOT;
+        mbar_arrive_expect_tx(full + s, F::SLOT);
+        for (int x = 0; x < D / BOX_COLS; ++x) {
+          tma_load(Qt + x * F::Q_BOX, &q_map, full + s, x * BOX_COLS, h, qq0, b);
+          tma_load(Qt + F::Q_TILE + x * F::Q_BOX, &o_map, full + s, x * BOX_COLS,
+                   h, qq0, b);
         }
       }
+    } else if (warp == 1) {
+      for (int n = 0; n < n_load; ++n) {
+        const int s = n % S, it = n % n_iter;
+        if (n >= S) mbar_wait(empty + s, (n / S - 1) & 1);
+        const int h = kvh * grp + it / nqe, qq0 = (qt0 + it % nqe) * BQ2;
+        float* const Lt = rows + s * F::ROWS;
+        for (int r = lane; r < BQ2; r += 32) {
+          const int row = qq0 + r;
+          const int64_t i = (int64_t(b) * H + h) * Lq + row;
+          Lt[r] = safe_lse(p.lse, i, row < Lq) * LOG2E;
+          Lt[BQ2 + r] = row < Lq ? p.delta[i] : 0.f;
+        }
+        mbar_arrive(full + s);
+      }
+    }
+  } else {
+    // a consumer: 64 keys, 16 per warp; dK and dV stay in registers across
+    // the whole group (the TPU kernel's VMEM accumulation, flash.py:537-541)
+    regs_inc<CONSUMER_REGS>();
+    constexpr int NT = BQ2 / 8;  // 8-query column blocks of S^T
+    constexpr int DT = D / 8;    // 8-wide column blocks of dK and dV
+    constexpr bool ONE_PASS = F::PASSES == 1;
+    const int c = threadIdx.x / 128 - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wk0 = k0 + 64 * c + 16 * w;          // this warp's first key
+    const int key_a = wk0 + g, key_b = key_a + 8;  // this thread's two keys
+    const float sl2 = p.scale * LOG2E;
+    float adk[DT * 4], adv[DT * 4];
+    float st[NT * 4], dpt[NT * 4];              // S^T and dP^T, then P^T and dS^T
+    uint32_t ap[BQ2 / 16][4], as[BQ2 / 16][4];  // P^T and dS^T as bf16 A fragments
+    // A of S^T = K Q^T and of dP^T = V dO^T: this warpgroup's 64 keys
+    const uint64_t k_desc = sw128_desc(Ks + 64 * c * 128, 16, ATOM_BYTES);
+    const uint64_t v_desc = sw128_desc(Vs + 64 * c * 128, 16, ATOM_BYTES);
+    auto slot = [&](int n) { return ring + (n % S) * F::SLOT; };
+
+    // S^T = K Q^T (and dP^T = V dO^T) of ring fill n, the reduction over Dh
+    auto issue_scores = [&](int n, bool with_dp) {
+      mbar_wait(full + n % S, (n / S) & 1);
+      const uint64_t q_desc = sw128_desc(slot(n), 16, ATOM_BYTES);
+      const uint64_t o_desc = sw128_desc(slot(n) + F::Q_TILE, 16, ATOM_BYTES);
+      const uint64_t ka = opaque(k_desc), va = opaque(v_desc);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * F::KV_BOX + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * F::Q_BOX + (kk % 4) * 32;
+        wgmma_ss(st, desc_at(ka, a_off), desc_at(q_desc, b_off), kk);
+        if (with_dp) wgmma_ss(dpt, desc_at(va, a_off), desc_at(o_desc, b_off), kk);
+      }
+      wgmma_commit();
+    };
+    // dV += P^T dO (P cast to dO's dtype, flash.py:482) and dK += dS^T Q
+    // (dS cast to q's, :489): A from registers, dO and Q MN-major (16 query
+    // rows, 2048 bytes, per slice)
+    auto issue_grads = [&](int n, bool dv_on, bool dk_on) {
+      const uint64_t q_mn = sw128_desc(slot(n), F::Q_BOX, ATOM_BYTES);
+      const uint64_t o_mn = sw128_desc(slot(n) + F::Q_TILE, F::Q_BOX, ATOM_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < BQ2 / 16; ++kk) {
+        if (dv_on) wgmma_rs(adv, ap[kk], desc_at(o_mn, kk * 16 * 128));
+        if (dk_on) wgmma_rs(adk, as[kk], desc_at(q_mn, kk * 16 * 128));
+      }
+      wgmma_commit();
+    };
+    // P^T = exp(S^T * scale - lse), masked where the tile crosses the
+    // diagonal or an end of the sequences (a query tile wholly before these
+    // keys masks to 0); dS^T = P^T o (dP^T - D); both packed to bf16
+    auto grads_of_scores = [&](int n, bool with_ds) {
+      const int qq0 = (qt0 + (n % n_iter) % nqe) * BQ2;
+      const float* const Lt = rows + (n % S) * F::ROWS;
+      const float* const Dt = Lt + BQ2;
       const bool need_mask =
           qq0 + BQ2 > Lq || wk0 + 16 > Lk || (p.causal && qq0 < wk0 + 15);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
+        const float2 lq = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t4);
+        const float2 dd = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int ql = j * 8 + 2 * t4 + (e & 1);
-          const int col = qq0 + ql;  // the query
+          const int col = qq0 + 8 * j + 2 * t4 + (e & 1);  // the query
           const int key = e < 2 ? key_a : key_b;
-          float pr = exp2f(st[j][e] * sl2 - Lt[ql]);
+          float pr = exp2_ftz(fmaf(st[4 * j + e], sl2, -((e & 1) ? lq.y : lq.x)));
           if (need_mask && (col >= Lq || key >= Lk || (p.causal && col < key)))
             pr = 0.f;
-          st[j][e] = pr;                          // P^T
-          dpt[j][e] = pr * (dpt[j][e] - Dt[ql]);  // dS^T
+          st[4 * j + e] = pr;
+          if (with_ds) dpt[4 * j + e] = pr * (dpt[4 * j + e] - ((e & 1) ? dd.y : dd.x));
         }
       }
-      // dV += P^T dO (P cast to dO's dtype), dK += dS^T Q (dS cast to q's)
 #pragma unroll
       for (int kk = 0; kk < BQ2 / 16; ++kk) {
-        const uint32_t ap[4] = {
-            pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-            pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-            pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-            pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]),
-        };
-        const uint32_t as[4] = {
-            pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-            pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-            pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-            pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]),
-        };
 #pragma unroll
-        for (int dn = 0; dn < DT / 2; ++dn) {
-          uint32_t bo[4], bq[4];
-          load_b(bo, Ot, LD, kk * 16, dn * 16, lane);
-          mma_16816(adv[2 * dn], ap, bo[0], bo[1]);
-          mma_16816(adv[2 * dn + 1], ap, bo[2], bo[3]);
-          load_b(bq, Qt, LD, kk * 16, dn * 16, lane);
-          mma_16816(adk[2 * dn], as, bq[0], bq[1]);
-          mma_16816(adk[2 * dn + 1], as, bq[2], bq[3]);
+        for (int r = 0; r < 4; ++r) {
+          ap[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          if (with_ds) as[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
         }
       }
-    }
-    __syncthreads();  // every warp is done with this buffer before its refill
-  }
-  cp_async_wait<0>();
-
-  // dK = scale * acc and dV (contiguous [B, Lk, KVH, D]), in k/v's dtype
-  const float sc = p.scale;
+    };
+    // one ring fill: the products of a pair and its release
+    auto pair = [&](int n, bool dv_on, bool dk_on) {
+      wgmma_fence();
+      issue_scores(n, dk_on);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      grads_of_scores(n, dk_on);
+      wgmma_fence();  // ap and as were written by ordinary instructions
+      issue_grads(n, dv_on, dk_on);
+      wgmma_wait<0>();
+      fence_regs(adv);
+      fence_regs(adk);
+      mbar_arrive(empty + n % S);  // this thread is done with the slot
+    };
+    // dK = scale * acc, dV (contiguous [B, Lk, KVH, D]) in k/v's dtype
+    auto store = [&](bf16* dst, const float (&acc)[DT * 4], float sc) {
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (key_a < Lk) {
-      const int64_t o = ((int64_t(b) * Lk + key_a) * KVH + kvh) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(adk[j][0] * sc, adk[j][1] * sc);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(adv[j][0], adv[j][1]);
-    }
-    if (key_b < Lk) {
-      const int64_t o = ((int64_t(b) * Lk + key_b) * KVH + kvh) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(adk[j][2] * sc, adk[j][3] * sc);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(adv[j][2], adv[j][3]);
+      for (int j = 0; j < DT; ++j) {
+        const int col = j * 8 + 2 * t4;
+        if (key_a < Lk)
+          *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_a) * KVH + kvh) * D + col) =
+              pack_bf16(acc[4 * j] * sc, acc[4 * j + 1] * sc);
+        if (key_b < Lk)
+          *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_b) * KVH + kvh) * D + col) =
+              pack_bf16(acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
+      }
+    };
+
+    mbar_wait(kv_full, 0);
+    if (ONE_PASS) {
+#pragma unroll
+      for (int i = 0; i < DT * 4; ++i) adk[i] = adv[i] = 0.f;
+      for (int n = 0; n < n_iter; ++n) pair(n, true, true);
+      store(dk, adk, p.scale);
+      store(dv, adv, 1.f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DT * 4; ++i) adv[i] = 0.f;
+      for (int n = 0; n < n_iter; ++n) pair(n, true, false);
+      store(dv, adv, 1.f);
+#pragma unroll
+      for (int i = 0; i < DT * 4; ++i) adk[i] = 0.f;
+      for (int n = n_iter; n < 2 * n_iter; ++n) pair(n, false, true);
+      store(dk, adk, p.scale);
     }
   }
+}
+
+template <int D>
+cudaError_t launch_dkv(const Problem& p, int B, bf16* dk, bf16* dv,
+                       cudaStream_t stream) {
+  using F = Dkv<D>;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  cudaError_t err = make_tile_map(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
+                                  p.s.q[1], p.s.q[2], F::BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
+                        p.s.d[2], F::BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
+                        p.s.k[2], DKV_BK);
+  if (err == cudaSuccess)
+    err = make_tile_map(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
+                        p.s.v[2], DKV_BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK, B * p.KVH);
+  flash_bwd_dkv_bf16<D><<<grid, DKV_THREADS, F::SMEM, stream>>>(
+      q_map, k_map, v_map, o_map, p, dk, dv);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -634,6 +756,7 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
+// bf16 takes TMA: 16-byte aligned bases and strides.
 extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dk, void* dv, int B,
@@ -644,13 +767,14 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid_mma((Lk + BKV - 1) / BKV, B * KVH), grid_f32((Lk + FT - 1) / FT, B * KVH);
-  bf16 *k16 = static_cast<bf16*>(dk), *v16 = static_cast<bf16*>(dv);
+  if (dtype == 1) {
+    bf16 *k16 = static_cast<bf16*>(dk), *v16 = static_cast<bf16*>(dv);
+    if (D == 64) return int(launch_dkv<64>(p, B, k16, v16, st));
+    if (D == 128) return int(launch_dkv<128>(p, B, k16, v16, st));
+    return int(cudaErrorInvalidValue);
+  }
+  const dim3 grid_f32((Lk + FT - 1) / FT, B * KVH);
   float *k32 = static_cast<float*>(dk), *v32 = static_cast<float*>(dv);
-  if (dtype == 1 && D == 64)
-    return int(run(flash_bwd_dkv_bf16<64>, grid_mma, THREADS, dkv_smem_bytes<64>(), st, p, k16, v16));
-  if (dtype == 1 && D == 128)
-    return int(run(flash_bwd_dkv_bf16<128>, grid_mma, THREADS, dkv_smem_bytes<128>(), st, p, k16, v16));
   if (dtype == 0 && D == 64)
     return int(run(flash_bwd_dkv_f32<64>, grid_f32, F_THREADS, f32_smem_bytes<64>(), st, p, k32, v32));
   if (dtype == 0 && D == 128)

@@ -9,34 +9,54 @@
 // What bounds it on the H100: at the flagship shape (B=8, L=2048, H=16,
 // Dh=64, causal, bf16) the work is ~69 GFLOP against ~17 MB of inputs and
 // outputs, about 4000 FLOP per byte -- far above the card's ~295 FLOP/byte
-// ridge, so it is bound by operations: the tensor-core rate, and in practice
-// by how well the loop keeps the tensor cores fed.
+// ridge, so it is bound by operations: the tensor-core rate, which only
+// wgmma reaches, and how well the loop keeps the tensor cores fed.
 //
-// What the design does about it (the bf16 kernel, the main path):
-//  * One CTA of 8 warps owns one (batch*head, 128-query tile); each warp owns
-//    16 query rows.  The TPU kernel's sequential third grid axis over K/V
-//    blocks (running max, denominator and accumulator carried in VMEM scratch
-//    between grid steps) becomes a loop over 64-key tiles inside the CTA: GPU
-//    blocks run in no order, so nothing may carry between them.
-//  * Both products run on the tensor cores (mma.sync m16n8k16 bf16, f32
-//    accumulate; operands loaded with ldmatrix).  Products of two bf16
-//    values are exact in f32, matching JAX's preferred_element_type=f32.
-//  * Scores, probabilities, the running max/denominator and the output
-//    accumulator all stay in registers: the score accumulator's layout is
-//    the next product's A-operand layout, so P never touches shared memory.
-//  * K/V tiles are double-buffered in shared memory with cp.async: tile t+1
-//    is in flight while tile t is multiplied; each tile is read by all eight
-//    warps.  Loads are 16-byte vectors straight from the [B, L, H, Dh]
-//    layout through its strides (no transpose or pad copy); the ragged tail
-//    is zero-filled by the copy and masked here.
-//  * Causal: the tile loop ends at the diagonal, a warp skips the tiles
-//    wholly above its rows, only tiles that cross the diagonal (or the end
-//    of the keys) are masked, and CTAs of later (heavier) query tiles are
-//    launched first.
+// What the design does about it (the bf16 kernel, the main path; the
+// building blocks are in hopper.cuh):
+//  * Warp roles.  One CTA of three warpgroups owns one (batch*head,
+//    128-query tile).  Warpgroup 0 is the producer: one thread issues the
+//    TMA loads, Q once, then 128-key K and V tiles into a ring of STAGES
+//    slots guarded by full and empty mbarriers.  setmaxnreg moves its
+//    registers to the two consumer warpgroups, which own 64 query rows each.
+//  * S = Q K^T is wgmma m64n128k16 with both operands in 128B-swizzled
+//    shared memory (K-major; Dh is the reduction).  O += P V is wgmma
+//    m64nDk16 with P in registers, cast to bf16 straight from the S
+//    accumulator (its layout is the A fragment's), and V read MN-major
+//    through the transpose bit.  No thread loads an operand, so the per-warp
+//    ldmatrix re-reads of Q, K and V of the earlier mma.sync design (~128 KB
+//    of shared-memory reads per 64-key tile) are gone, and loads overlap the
+//    products with no __syncthreads in the loop.
+//  * Each consumer warpgroup runs its tile loop on its own (S, softmax,
+//    P V), so one's softmax overlaps the other's products; the softmax is
+//    one FMA per score into exp2 (the scale is folded in).
+//  * The TPU kernel's sequential grid axis over K/V blocks (m, l and the
+//    accumulator carried in VMEM scratch between grid steps) is the loop
+//    over key tiles inside the CTA: GPU blocks run in no order, so nothing
+//    carries between them.  m, l and O stay in registers.
+//  * Causal: the tile loop ends at the diagonal, only tiles that cross it
+//    (or the end of the keys) are masked (with 128-row query tiles no key
+//    tile lies wholly above a consumer's 64 rows), and the heavier (later)
+//    query tiles of a head launch first.  The tiles of one head are
+//    neighbours in the launch order, so the CTAs in flight share a few
+//    heads' K and V in L2 (ordered the other way, by head first, every
+//    tile came from device memory and the kernel was bound by it).
+//  * Ragged ends: the descriptors bound L per batch and zero-fill, the
+//    masks cover keys >= Lk, and rows >= Lq are not stored.
 //  * GQA: query head h reads kv head h / (H / KVH), flash.py:_kv_head_map.
+//  * Dh = 128 is two 64-column boxes per tile, and the ring has 2 stages
+//    (Q 32 KB + 2 x 64 KB of shared memory); Dh = 64 has 4 (16 + 4 x 32 KB).
+// Numerics kept from the TPU kernel: P is cast to v's dtype before PV
+// (flash.py:107-108), l sums the f32 p, the running max is -inf-safe
+// (m_safe, alpha: flash.py:101-105), the causal mask is top-left (q >= k)
+// when Lq != Lk, a row that sees no key outputs 0, and lse = m + log(l).
+// Tried and slower on the H100 at the flagship shape, so not kept: issuing
+// tile t + 1's scores behind tile t's P V inside a warpgroup (FA3's
+// intra-warpgroup overlap; it also spills at Dh = 128), and ordering the two
+// consumers' products with named barriers (FA3's ping-pong).  What bounds
+// the kernel now is the softmax's instruction count (PERF.md).
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps); it is off the main path.
-// Not yet done (later work): TMA loads, wgmma, warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,141 +65,169 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace tfs_flash;
+using namespace tfs_hopper;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel
+// bf16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 128;           // query rows per CTA
-constexpr int BK = 64;            // keys per tile
-constexpr int THREADS = 256;      // 8 warps x 16 query rows
+constexpr int BQ = 128;       // query rows per CTA, 64 per consumer warpgroup
+constexpr int BK = 128;       // keys per tile
+constexpr int THREADS = 384;  // the producer and two consumer warpgroups
+// 128 x 40 + 256 x 232 = 64512 = 384 x 168, the registers the CTA starts with
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  // Q tile + two K and two V tiles, rows padded by 8 elements so that the
-  // eight row addresses of an ldmatrix fall in distinct banks
-  return size_t(BQ + 4 * BK) * (D + 8) * sizeof(bf16);
-}
+struct Fwd {
+  static constexpr int BOX = BK * 128;             // one 64-column box of a tile
+  static constexpr int TILE = (D / BOX_COLS) * BOX;  // one Q, K or V tile
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  // Q; K full, V full and empty per slot
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  static constexpr size_t SMEM =
+      size_t(TILE) * (1 + 2 * STAGES) + 8 * BARRIERS + ATOM_BYTES;
+};
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out,
-               float* __restrict__ lse, int H, int KVH, int Lq, int Lk,
-               int causal, int64_t q_sb, int64_t q_sl, int64_t q_sh,
-               int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,
-               int64_t v_sl, int64_t v_sh, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;  // 8-key column tiles of S per warp
-  constexpr int DT = D / 8;   // 8-wide column tiles of O per warp
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               bf16* __restrict__ out, float* __restrict__ lse, int H, int KVH,
+               int Lq, int Lk, int causal, float scale) {
+  using F = Fwd<D>;
+  constexpr int S = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const Qs = atom_aligned(smem_raw);
+  unsigned char* const ring = Qs + F::TILE;  // slot s: K tile, then V tile
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + 2 * S * F::TILE);
+  uint64_t* const k_full = q_full + 1;
+  uint64_t* const v_full = k_full + S;
+  uint64_t* const empty = v_full + S;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;      // two buffers of BK rows
-  bf16* Vs = Ks + 2 * BK * LD;  // two buffers of BK rows
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row / column pair
+  // the query tiles of one head are neighbours in the launch order, so the
+  // CTAs in flight share their heads' K and V in L2; causal: the heavier
+  // (later) tiles of a head launch first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-
+  const int q0 = int(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Lq) - 1) / BK + 1);
 
-  load_rows_async<D, THREADS>(Qs, qb, q_sl, q0, BQ, Lq, tid);
-  if (n_tiles > 0) {
-    load_rows_async<D, THREADS>(Ks, kb, k_sl, 0, BK, Lk, tid);
-    load_rows_async<D, THREADS>(Vs, vb, v_sl, 0, BK, Lk, tid);
-  }
-  cp_async_commit();
-
-  const int wq0 = q0 + warp * 16;    // this warp's first query row
-  const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // the next tile streams in during this one
-      load_rows_async<D, THREADS>(Ks + (buf ^ 1) * BK * LD, kb, k_sl, (t + 1) * BK, BK, Lk, tid);
-      load_rows_async<D, THREADS>(Vs + (buf ^ 1) * BK * LD, vb, v_sl, (t + 1) * BK, BK, Lk, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 8);  // every consumer warp releases a slot
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // Q and tile t have landed
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    const int k0 = t * BK;
-    // a tile wholly above this warp's rows contributes nothing
-    if (!causal || k0 <= wq0 + 15) {
-      const bf16* Kt = Ks + buf * BK * LD;
-      const bf16* Vt = Vs + buf * BK * LD;
-      float s[NT][4];
+  if (threadIdx.x < 128) {
+    // the producer: one thread keeps the ring full
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, F::TILE);
+      for (int x = 0; x < D / BOX_COLS; ++x)
+        tma_load(Qs + x * F::BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);  // its last use is done
+        unsigned char* const Kt = ring + 2 * s * F::TILE;
+        mbar_arrive_expect_tx(k_full + s, F::TILE);
+        for (int x = 0; x < D / BOX_COLS; ++x)
+          tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
+        mbar_arrive_expect_tx(v_full + s, F::TILE);
+        for (int x = 0; x < D / BOX_COLS; ++x)
+          tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS,
+                   kvh, t * BK, b);
+      }
+    }
+  } else {
+    // a consumer: 64 query rows, 16 per warp
+    regs_inc<CONSUMER_REGS>();
+    constexpr int NT = BK / 8;  // 8-key column blocks of S
+    constexpr int DT = D / 8;   // 8-wide column blocks of O
+    const int c = threadIdx.x / 128 - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+    const int wq0 = q0 + 64 * c + 16 * w;    // this warp's first row
+    const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
+    const float sl2 = scale * LOG2E;
+    float o[DT * 4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      // S = Q K^T
+    for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+    // the running max of the raw scores (times scale: the softmax's max)
+    // and the denominator of this thread's two rows
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    // A of S = Q K^T: this warpgroup's 64 rows of the Q tile
+    const uint64_t q_desc = sw128_desc(Qs + 64 * c * 128, 16, ATOM_BYTES);
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % S;
+      const uint32_t ph = (t / S) & 1;
+      const int k0 = t * BK;
+      unsigned char* const Kt = ring + 2 * s * F::TILE;
+      mbar_wait(k_full + s, ph);
+      // S = Q K^T, the reduction over Dh in 16-wide slices
+      float sc[NT * 4];
+      const uint64_t a_desc = opaque(q_desc);
+      const uint64_t k_desc = sw128_desc(Kt, 16, ATOM_BYTES);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, smem_addr(Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                 (lane >> 4) * 8));
+        const uint32_t off = (kk / 4) * F::BOX + (kk % 4) * 32;
+        wgmma_ss(sc, desc_at(a_desc, off), desc_at(k_desc, off), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // mask the tiles that cross the diagonal or the key end
+      if ((k0 + BK > Lk) || (causal && k0 + BK - 1 > wq0)) {
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bq[4];
-          ldmatrix_x4(bq, smem_addr(Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                                    kk * 16 + ((lane >> 3) & 1) * 8));
-          mma_16816(s[2 * np], a, bq[0], bq[1]);
-          mma_16816(s[2 * np + 1], a, bq[2], bq[3]);
+        for (int i = 0; i < NT * 4; ++i) {
+          const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+          const int row = (i & 2) ? row_b : row_a;
+          if (col >= Lk || (causal && row < col)) sc[i] = -INFINITY;
         }
       }
-      // scale, then mask the tiles that cross the diagonal or the key end
-      const bool need_mask = (k0 + BK > Lk) || (causal && k0 + BK - 1 > wq0);
       float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale;
-          if (need_mask) {
-            const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-            const int row = e < 2 ? row_a : row_b;
-            if (col >= Lk || (causal && row < col)) x = -INFINITY;
-          }
-          s[j][e] = x;
-        }
-        mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
-      // a row's 64 scores are spread over the 4 lanes of its quad
+      // a row's 128 scores are spread over the 4 lanes of its quad
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
       const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
       // -inf-safe: a row with no unmasked key yet keeps m = -inf and adds
-      // zeros, never NaNs (flash.py:101-105)
-      const float ms_a = mn_a == -INFINITY ? 0.f : mn_a;
-      const float ms_b = mn_b == -INFINITY ? 0.f : mn_b;
-      const float al_a = m_a == -INFINITY ? 0.f : exp2f((m_a - ms_a) * LOG2E);
-      const float al_b = m_b == -INFINITY ? 0.f : exp2f((m_b - ms_b) * LOG2E);
+      // zeros, never NaNs (flash.py:101-105); p = exp((s - m) * scale) as
+      // one FMA into exp2
+      const float ms_a = mn_a == -INFINITY ? 0.f : mn_a * sl2;
+      const float ms_b = mn_b == -INFINITY ? 0.f : mn_b * sl2;
+      const float al_a = m_a == -INFINITY ? 0.f : exp2_ftz(fmaf(m_a, sl2, -ms_a));
+      const float al_b = m_b == -INFINITY ? 0.f : exp2_ftz(fmaf(m_b, sl2, -ms_b));
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        s[j][0] = exp2f((s[j][0] - ms_a) * LOG2E);
-        s[j][1] = exp2f((s[j][1] - ms_a) * LOG2E);
-        s[j][2] = exp2f((s[j][2] - ms_b) * LOG2E);
-        s[j][3] = exp2f((s[j][3] - ms_b) * LOG2E);
-        sum_a += s[j][0] + s[j][1];
-        sum_b += s[j][2] + s[j][3];
+        sc[4 * j] = exp2_ftz(fmaf(sc[4 * j], sl2, -ms_a));
+        sc[4 * j + 1] = exp2_ftz(fmaf(sc[4 * j + 1], sl2, -ms_a));
+        sc[4 * j + 2] = exp2_ftz(fmaf(sc[4 * j + 2], sl2, -ms_b));
+        sc[4 * j + 3] = exp2_ftz(fmaf(sc[4 * j + 3], sl2, -ms_b));
+        sum_a += sc[4 * j] + sc[4 * j + 1];
+        sum_b += sc[4 * j + 2] + sc[4 * j + 3];
       }
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 1);
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 2);
@@ -191,52 +239,74 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_b = mn_b;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
-        o[j][0] *= al_a;
-        o[j][1] *= al_a;
-        o[j][2] *= al_b;
-        o[j][3] *= al_b;
+        o[4 * j] *= al_a;
+        o[4 * j + 1] *= al_a;
+        o[4 * j + 2] *= al_b;
+        o[4 * j + 3] *= al_b;
       }
-      // O += P V, P cast to bf16 (v's dtype, flash.py:107-108) straight from
-      // the score registers into A fragments
+      // p cast to bf16 (v's dtype, flash.py:107-108): the A fragments of
+      // the 16-key slices, straight from the score registers
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, smem_addr(Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                          dp * 16 + (lane >> 4) * 8));
-          mma_16816(o[2 * dp], a, bv[0], bv[1]);
-          mma_16816(o[2 * dp + 1], a, bv[2], bv[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before its refill
-  }
-  cp_async_wait<0>();
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-  // finish (flash.py:115-122): out in bf16, lse = m + log(l)
-  const float den_a = l_a == 0.f ? 1.f : l_a;
-  const float den_b = l_b == 0.f ? 1.f : l_b;
+      // O += P V, V MN-major: 16 keys (2048 bytes) per slice
+      mbar_wait(v_full + s, ph);
+      const uint64_t v_desc = sw128_desc(Kt + F::TILE, F::BOX, ATOM_BYTES);
+      wgmma_fence();  // o was rescaled and pa written by ordinary instructions
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (row_a < Lq)
-      *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
-          pack_bf16(o[j][0] / den_a, o[j][1] / den_a);
-    if (row_b < Lq)
-      *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
-          pack_bf16(o[j][2] / den_b, o[j][3] / den_b);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(empty + s);  // this warp is done with the slot
+    }
+
+    // finish (flash.py:115-122): out in bf16, lse = m + log(l)
+    const float den_a = l_a == 0.f ? 1.f : l_a;
+    const float den_b = l_b == 0.f ? 1.f : l_b;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = j * 8 + 2 * t4;
+      if (row_a < Lq)
+        *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
+            pack_bf16(o[4 * j] / den_a, o[4 * j + 1] / den_a);
+      if (row_b < Lq)
+        *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
+            pack_bf16(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
+    }
+    if (t4 == 0) {
+      if (row_a < Lq) lse[int64_t(bh) * Lq + row_a] = m_a * scale + logf(den_a);
+      if (row_b < Lq) lse[int64_t(bh) * Lq + row_b] = m_b * scale + logf(den_b);
+    }
   }
-  if (t4 == 0) {
-    if (row_a < Lq) lse[int64_t(bh) * Lq + row_a] = m_a + logf(den_a);
-    if (row_b < Lq) lse[int64_t(bh) * Lq + row_b] = m_b + logf(den_b);
-  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
+                        float* lse, int B, int H, int KVH, int Lq, int Lk,
+                        int causal, const int64_t* s, float scale,
+                        cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = make_tile_map(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
+  if (err == cudaSuccess)
+    err = make_tile_map(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = Fwd<D>::SMEM;
+  err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + BQ - 1) / BQ, B * H);
+  flash_fwd_bf16<D><<<grid, THREADS, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(out), lse, H, KVH, Lq, Lk,
+      causal, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -376,20 +446,19 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel, typename T>
-cudaError_t launch(Kernel kernel, int bq, int threads, size_t bytes,
-                   const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int H, int KVH, int Lq, int Lk,
-                   int causal, const int64_t* s, float scale,
-                   cudaStream_t stream) {
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, size_t bytes, const void* q,
+                       const void* k, const void* v, void* out, float* lse,
+                       int B, int H, int KVH, int Lq, int Lk, int causal,
+                       const int64_t* s, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + bq - 1) / bq, B * H);
-  kernel<<<grid, threads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, H, KVH, Lq, Lk,
-      causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale);
+  const dim3 grid((Lq + F_BQ - 1) / F_BQ, B * H);
+  kernel<<<grid, F_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, KVH, Lq,
+      Lk, causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale);
   return cudaGetLastError();
 }
 
@@ -398,7 +467,8 @@ cudaError_t launch(Kernel kernel, int bq, int threads, size_t bytes,
 // q: [B, Lq, H, D], k/v: [B, Lk, KVH, D] with element strides
 // (batch, length, head) each and a contiguous head dim; out: contiguous
 // [B, Lq, H, D] in the input dtype; lse: contiguous [B, H, Lq] f32.
-// dtype: 0 = f32, 1 = bf16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = f32, 1 = bf16 (which takes TMA: 16-byte aligned bases and
+// strides, Lk > 0).  Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,
@@ -410,26 +480,25 @@ extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   const int64_t s[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && D == 64)
-    err = launch<decltype(&flash_fwd_bf16<64>), bf16>(
-        flash_fwd_bf16<64>, BQ, THREADS, mma_smem_bytes<64>(), q, k, v, out,
-        lse, B, H, KVH, Lq, Lk, causal, s, scale, st);
-  else if (dtype == 1 && D == 128)
-    err = launch<decltype(&flash_fwd_bf16<128>), bf16>(
-        flash_fwd_bf16<128>, BQ, THREADS, mma_smem_bytes<128>(), q, k, v, out,
-        lse, B, H, KVH, Lq, Lk, causal, s, scale, st);
-  else if (dtype == 0 && D == 64)
-    err = launch<decltype(&flash_fwd_f32<64>), float>(
-        flash_fwd_f32<64>, F_BQ, F_THREADS, f32_smem_bytes<64>(), q, k, v,
-        out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st);
-  else if (dtype == 0 && D == 128)
-    err = launch<decltype(&flash_fwd_f32<128>), float>(
-        flash_fwd_f32<128>, F_BQ, F_THREADS, f32_smem_bytes<128>(), q, k, v,
-        out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st);
-  return int(err);
+  if (dtype == 1) {
+    if (Lk == 0) return int(cudaErrorInvalidValue);
+    if (D == 64)
+      return int(launch_bf16<64>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+    if (D == 128)
+      return int(launch_bf16<128>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+    return int(cudaErrorInvalidValue);
+  }
+  if (dtype != 0) return int(cudaErrorInvalidValue);
+  if (D == 64)
+    return int(launch_f32(flash_fwd_f32<64>, f32_smem_bytes<64>(), q, k, v,
+                          out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+  if (D == 128)
+    return int(launch_f32(flash_fwd_f32<128>, f32_smem_bytes<128>(), q, k, v,
+                          out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+  return int(cudaErrorInvalidValue);
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+

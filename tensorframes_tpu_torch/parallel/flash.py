@@ -23,6 +23,11 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
 * :func:`flash_attention` is a ``torch.autograd.Function`` whose forward and
   backward both dispatch by device, so the same program trains alike on
   the card and on the host.
+* The bf16 forward and dK/dV kernels read q, k, v and dO through TMA
+  descriptors that the C side encodes (``csrc/hopper.cuh``);
+  :func:`tma_tile_map` is the same arithmetic in Python, and
+  :func:`check_kernel_inputs` raises before a launch for what a descriptor
+  refuses.
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -369,12 +374,46 @@ def flash_ring_step_plain(
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+# a TMA box is 64 columns (one 128-byte swizzle atom of bf16) wide, and a
+# descriptor's byte strides stay below 2^40
+TMA_BOX_COLS = 64
+TMA_STRIDE_LIMIT = 1 << 40
+
+
+def tma_tile_map(name, shape, strides, element_size, data_ptr, rows=128):
+    """The TMA descriptor that ``csrc/hopper.cuh::make_tile_map`` encodes for
+    a [B, L, heads, Dh] tensor with element ``strides`` and a contiguous
+    head dim: its dims innermost first ``(Dh, heads, L, B)`` (an empty L
+    counts 1), the byte strides of heads, L and B, and a box of ``(64, 1,
+    rows, 1)``.  Raises ValueError, naming the tensor, for what TMA does not
+    take: a base that is not 16-byte aligned, byte strides that are not
+    multiples of 16 (rows that are not 16-byte aligned), or a byte stride of
+    2^40 or more."""
+    B, L, heads, Dh = shape
+    if data_ptr % 16 or any(strides[i] * element_size % 16 for i in range(3)):
+        raise ValueError(
+            f"flash_attention: {name}'s rows must be 16-byte aligned "
+            f"(strides {tuple(strides)})"
+        )
+    byte_strides = tuple(strides[i] * element_size for i in (2, 1, 0))
+    for dim, st in zip(("head", "length", "batch"), byte_strides):
+        if st >= TMA_STRIDE_LIMIT:
+            raise ValueError(
+                f"flash_attention: {name}'s {dim} stride of {st} bytes is "
+                f"beyond the TMA descriptor's 2^40"
+            )
+    return dict(
+        dims=(Dh, heads, max(L, 1), B),
+        strides=byte_strides,
+        box=(TMA_BOX_COLS, 1, rows, 1),
+    )
 
 
 def check_kernel_inputs(q, k, v) -> None:
-    """Raise ValueError for what the CUDA kernel does not take: dtypes other
+    """Raise ValueError for what the CUDA kernels do not take: dtypes other
     than bf16/f32, mixed dtypes, Dh outside {64, 128}, a head dim that is
-    not contiguous, or rows not 16-byte aligned (its vector loads)."""
+    not contiguous, or what a TMA descriptor refuses (:func:`tma_tile_map`:
+    rows not 16-byte aligned, byte strides of 2^40 or more)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, L, H, Dh]")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
@@ -393,15 +432,10 @@ def check_kernel_inputs(q, k, v) -> None:
             f"do not fit q {tuple(q.shape)}"
         )
     _kv_head_map(H, k.shape[2])
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
-        if t.data_ptr() % 16 or any(t.stride(i) % vec for i in range(3)):
-            raise ValueError(
-                f"flash_attention: {name}'s rows must be 16-byte aligned "
-                f"(strides {t.stride()})"
-            )
+        tma_tile_map(name, t.shape, t.stride(), t.element_size(), t.data_ptr())
 
 
 def _kernel():
@@ -433,6 +467,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool):
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     if B * H * Lq == 0:
         return out, lse
+    if Lk == 0:  # no key: every row outputs 0 with lse = -inf
+        return out.zero_(), lse.fill_(_NEG_INF)
     lib, fn = _kernel()
     scale = float(np.float32(1.0 / np.sqrt(Dh)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -553,6 +589,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     # the incoming gradient may be any view (an expanded scalar's, say)
     do = do.contiguous()
+    tma_tile_map("dO", do.shape, do.stride(), do.element_size(), do.data_ptr())
     # D = rowsum(dO o O) in f32, outside the kernels (flash.py:511-514)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.float().contiguous()
