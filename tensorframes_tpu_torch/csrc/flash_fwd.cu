@@ -14,11 +14,14 @@
 //
 // What the design does about it (the bf16 kernel, the main path; the
 // building blocks are in hopper.cuh):
-//  * Warp roles.  One CTA of three warpgroups owns one (batch*head,
-//    128-query tile).  Warpgroup 0 is the producer: one thread issues the
-//    TMA loads, Q once, then 128-key K and V tiles into a ring of STAGES
-//    slots guarded by full and empty mbarriers.  setmaxnreg moves its
-//    registers to the two consumer warpgroups, which own 64 query rows each.
+//  * Warp roles.  One CTA owns one (batch*head, query tile).  Warpgroup 0
+//    is the producer: one thread issues the TMA loads, Q once, then 128-key
+//    K and V tiles into a ring of STAGES slots guarded by full and empty
+//    mbarriers.  setmaxnreg moves its registers to the consumer warpgroups
+//    of 64 query rows each: three at Dh = 64 (192-query tiles: a third
+//    fewer K/V reads than 128-query tiles, and a third warpgroup to
+//    overlap; measured faster), two at Dh = 128, whose O accumulator
+//    leaves no registers for a third.
 //  * S = Q K^T is wgmma m64n128k16 with both operands in 128B-swizzled
 //    shared memory (K-major; Dh is the reduction).  O += P V is wgmma
 //    m64nDk16 with P in registers, cast to bf16 straight from the S
@@ -28,16 +31,17 @@
 //    of shared-memory reads per 64-key tile) are gone, and loads overlap the
 //    products with no __syncthreads in the loop.
 //  * Each consumer warpgroup runs its tile loop on its own (S, softmax,
-//    P V), so one's softmax overlaps the other's products; the softmax is
+//    P V), so one's softmax overlaps the others' products; the softmax is
 //    one FMA per score into exp2 (the scale is folded in).
 //  * The TPU kernel's sequential grid axis over K/V blocks (m, l and the
 //    accumulator carried in VMEM scratch between grid steps) is the loop
 //    over key tiles inside the CTA: GPU blocks run in no order, so nothing
 //    carries between them.  m, l and O stay in registers.
 //  * Causal: the tile loop ends at the diagonal, only tiles that cross it
-//    (or the end of the keys) are masked (with 128-row query tiles no key
-//    tile lies wholly above a consumer's 64 rows), and the heavier (later)
-//    query tiles of a head launch first.  The tiles of one head are
+//    (or the end of the keys) are masked, a consumer only releases the
+//    trailing tiles wholly above its 64 rows (and every tile when its rows
+//    are past the end), and the heavier (later) query tiles of a head
+//    launch first.  The tiles of one head are
 //    neighbours in the launch order, so the CTAs in flight share a few
 //    heads' K and V in L2 (ordered the other way, by head first, every
 //    tile came from device memory and the kernel was bound by it).
@@ -45,16 +49,16 @@
 //    masks cover keys >= Lk, and rows >= Lq are not stored.
 //  * GQA: query head h reads kv head h / (H / KVH), flash.py:_kv_head_map.
 //  * Dh = 128 is two 64-column boxes per tile, and the ring has 2 stages
-//    (Q 32 KB + 2 x 64 KB of shared memory); Dh = 64 has 4 (16 + 4 x 32 KB).
+//    (Q 32 KB + 2 x 64 KB of shared memory); Dh = 64 has 4 (24 + 4 x 32 KB).
 // Numerics kept from the TPU kernel: P is cast to v's dtype before PV
 // (flash.py:107-108), l sums the f32 p, the running max is -inf-safe
 // (m_safe, alpha: flash.py:101-105), the causal mask is top-left (q >= k)
 // when Lq != Lk, a row that sees no key outputs 0, and lse = m + log(l).
 // Tried and slower on the H100 at the flagship shape, so not kept: issuing
 // tile t + 1's scores behind tile t's P V inside a warpgroup (FA3's
-// intra-warpgroup overlap; it also spills at Dh = 128), and ordering the two
+// intra-warpgroup overlap; it also spills at Dh = 128), and ordering two
 // consumers' products with named barriers (FA3's ping-pong).  What bounds
-// the kernel now is the softmax's instruction count (PERF.md).
+// the kernel now is each tile's chain of S, softmax and P V (PERF.md).
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps); it is off the main path.
 
@@ -76,25 +80,34 @@ using namespace tfs_hopper;
 // bf16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 128;       // query rows per CTA, 64 per consumer warpgroup
-constexpr int BK = 128;       // keys per tile
-constexpr int THREADS = 384;  // the producer and two consumer warpgroups
-// 128 x 40 + 256 x 232 = 64512 = 384 x 168, the registers the CTA starts with
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int BK = 128;  // keys per tile
 
 template <int D>
 struct Fwd {
-  static constexpr int BOX = BK * 128;             // one 64-column box of a tile
-  static constexpr int TILE = (D / BOX_COLS) * BOX;  // one Q, K or V tile
+  // consumer warpgroups of 64 query rows each: three at Dh = 64 (a third
+  // fewer K/V reads per query and one more warpgroup to overlap), two at
+  // Dh = 128, whose O accumulator leaves no registers for a third
+  static constexpr int CONSUMERS = D == 64 ? 3 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // the registers the CTA starts with, moved from the producer to the
+  // consumers: 128 x 24 + 384 x 160 = 64512 = 512 x 126;
+  // 128 x 40 + 256 x 232 = 64512 = 384 x 168
+  static constexpr int PRODUCER_REGS = CONSUMERS == 3 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : 232;
+  static constexpr int Q_BOX = BQ * 128;  // one 64-column box of the Q tile
+  static constexpr int BOX = BK * 128;    // one 64-column box of a K or V tile
+  static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
+  static constexpr int TILE = (D / BOX_COLS) * BOX;  // one K or V tile
   static constexpr int STAGES = D == 64 ? 4 : 2;
   // Q; K full, V full and empty per slot
   static constexpr int BARRIERS = 1 + 3 * STAGES;
-  static constexpr size_t SMEM =
-      size_t(TILE) * (1 + 2 * STAGES) + 8 * BARRIERS + ATOM_BYTES;
+  static constexpr size_t SMEM = size_t(Q_TILE) + size_t(TILE) * 2 * STAGES +
+                                 8 * BARRIERS + ATOM_BYTES;
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
@@ -104,7 +117,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   constexpr int S = F::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const Qs = atom_aligned(smem_raw);
-  unsigned char* const ring = Qs + F::TILE;  // slot s: K tile, then V tile
+  unsigned char* const ring = Qs + F::Q_TILE;  // slot s: K tile, then V tile
   uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + 2 * S * F::TILE);
   uint64_t* const k_full = q_full + 1;
   uint64_t* const v_full = k_full + S;
@@ -115,16 +128,16 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   // (later) tiles of a head launch first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = int(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
+  const int q0 = int(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * F::BQ;
   int n_tiles = (Lk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Lq) - 1) / BK + 1);
+  if (causal) n_tiles = min(n_tiles, (min(q0 + F::BQ, Lq) - 1) / BK + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(k_full + s, 1);
       mbar_init(v_full + s, 1);
-      mbar_init(empty + s, 8);  // every consumer warp releases a slot
+      mbar_init(empty + s, 4 * F::CONSUMERS);  // every consumer warp releases a slot
     }
     mbar_fence_init();
   }
@@ -132,11 +145,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x < 128) {
     // the producer: one thread keeps the ring full
-    regs_dec<PRODUCER_REGS>();
+    regs_dec<F::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_full, F::TILE);
+      mbar_arrive_expect_tx(q_full, F::Q_TILE);
       for (int x = 0; x < D / BOX_COLS; ++x)
-        tma_load(Qs + x * F::BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+        tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S;
         if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);  // its last use is done
@@ -152,13 +165,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // a consumer: 64 query rows, 16 per warp
-    regs_inc<CONSUMER_REGS>();
+    regs_inc<F::CONSUMER_REGS>();
     constexpr int NT = BK / 8;  // 8-key column blocks of S
     constexpr int DT = D / 8;   // 8-wide column blocks of O
     const int c = threadIdx.x / 128 - 1;
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
-    const int wq0 = q0 + 64 * c + 16 * w;    // this warp's first row
+    const int wg0 = q0 + 64 * c;             // this warpgroup's first row
+    const int wq0 = wg0 + 16 * w;            // this warp's first row
     const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
     const float sl2 = scale * LOG2E;
     float o[DT * 4];
@@ -177,6 +191,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
       const int k0 = t * BK;
       unsigned char* const Kt = ring + 2 * s * F::TILE;
       mbar_wait(k_full + s, ph);
+      // rows past the end, or a tile wholly above this warpgroup's rows
+      // (the trailing tiles of its loop), add nothing: release the slot.
+      // After the K wait, so the arrival counts for this use of the slot.
+      if (wg0 >= Lq || (causal && k0 > wg0 + 63)) {
+        if (lane == 0) mbar_arrive(empty + s);
+        continue;
+      }
       // S = Q K^T, the reduction over Dh in 16-wide slices
       float sc[NT * 4];
       const uint64_t a_desc = opaque(q_desc);
@@ -184,8 +205,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * F::BOX + (kk % 4) * 32;
-        wgmma_ss(sc, desc_at(a_desc, off), desc_at(k_desc, off), kk);
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(sc, desc_at(a_desc, (kk / 4) * F::Q_BOX + off),
+                 desc_at(k_desc, (kk / 4) * F::BOX + off), kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -291,19 +313,20 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         float* lse, int B, int H, int KVH, int Lq, int Lk,
                         int causal, const int64_t* s, float scale,
                         cudaStream_t stream) {
+  using F = Fwd<D>;
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = make_tile_map(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], BQ);
+  cudaError_t err = make_tile_map(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
   if (err == cudaSuccess)
     err = make_tile_map(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
   if (err == cudaSuccess)
     err = make_tile_map(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
   if (err != cudaSuccess) return err;
-  const size_t bytes = Fwd<D>::SMEM;
+  const size_t bytes = F::SMEM;
   err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_fwd_bf16<D><<<grid, THREADS, bytes, stream>>>(
+  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
+  flash_fwd_bf16<D><<<grid, F::THREADS, bytes, stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(out), lse, H, KVH, Lq, Lk,
       causal, scale);
   return cudaGetLastError();

@@ -1,7 +1,7 @@
 """The flash kernels' tiling and their TMA descriptors, on the CPU.
 
-The bf16 forward kernel (``csrc/flash_fwd.cu``) runs 128-query by 128-key
-tiles and the dK/dV kernel (``csrc/flash_bwd.cu``) 128-key tiles against
+The bf16 forward kernel (``csrc/flash_fwd.cu``) runs 192-query (128 at
+Dh = 128) by 128-key tiles and the dK/dV kernel (``csrc/flash_bwd.cu``) 128-key tiles against
 64-query tiles (32 at Dh = 128).  The plain versions at those tilings are
 held against the JAX Pallas kernels (interpret mode) run at the same
 tiling, at ragged, GQA and cross lengths: that is the algorithm the CUDA
@@ -48,15 +48,16 @@ def _inputs(B, Lq, Lk, H, KVH, D, seed=0):
     )
 
 
+@pytest.mark.parametrize("block_q", [192, 128], ids=["bq192-dh64", "bq128-dh128"])
 @pytest.mark.parametrize("case", list(SHAPES), ids=list(SHAPES))
-def test_plain_forward_at_the_kernel_tiling_matches_jax(case):
+def test_plain_forward_at_the_kernel_tiling_matches_jax(case, block_q):
     B, Lq, Lk, H, KVH, D, causal = SHAPES[case]
     q, k, v, _ = _inputs(B, Lq, Lk, H, KVH, D)
     j_out, j_lse = jflash._flash_fwd_impl(
-        *(jnp.asarray(x) for x in (q, k, v)), causal, 128, 128, None
+        *(jnp.asarray(x) for x in (q, k, v)), causal, block_q, 128, None
     )
     t_out, t_lse = tflash.flash_attention_plain(
-        *(torch.from_numpy(x) for x in (q, k, v)), causal, 128, 128
+        *(torch.from_numpy(x) for x in (q, k, v)), causal, block_q, 128
     )
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **FWD)
     j_lse = np.asarray(j_lse)[:, :Lq, 0].reshape(B, H, Lq)
@@ -107,6 +108,8 @@ def test_tile_map_of_a_contiguous_tensor():
     assert m["dims"] == (64, 8, 300, 2)
     assert m["strides"] == (64 * 2, 8 * 64 * 2, 300 * 8 * 64 * 2)
     assert m["box"] == (64, 1, 128, 1)
+    # the forward's Q tile at Dh = 64 is 192 rows
+    assert _map(t, rows=192)["box"] == (64, 1, 192, 1)
     # a Dh of 128 is two 64-column boxes; the dK/dV kernel's q tiles are
     # 64 rows (32 at Dh = 128)
     t = torch.zeros(1, 10, 2, 128, dtype=torch.bfloat16)
