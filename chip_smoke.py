@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also device time by kernel per path
+    python3 chip_smoke.py --dq-variants  # kernel checks + the dQ designs tried
 
 Phases, each printing its own lines:
 
@@ -11,14 +12,16 @@ Phases, each printing its own lines:
    ``nvidia-smi`` reports them;
 2. build: the CUDA kernels from ``tensorframes_tpu_torch/csrc`` (one nvcc
    per source, started together), with ptxas' register/spill report; the
-   Hopper design of the bf16 forward and dK/dV kernels is asserted in the
-   built code: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   their SASS (``cuobjdump``), and 0 bytes of ptxas spills;
+   Hopper design of the four bf16 kernels (the forward, dQ, dK/dV and the
+   ring step) is asserted in the built code: ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in every instantiation's SASS
+   (``cuobjdump``), 0 bytes of ptxas spills, and no ignored ``setmaxnreg``;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
    wraps the kernels' stage rings many times, q/k/v as strided views), with
-   stated tolerances;
+   stated tolerances; the ring step also keeps a dominant carry (m above
+   every score of the chunk by > 30) to f32 rounding;
    gradients through the autograd Function on the card against the same
    Function on CPU copies; and an explicit ``ring_flash`` at a chunk the
    TPU cannot tile, which must launch the ring step on every hop;
@@ -115,14 +118,20 @@ NLL_TOL = 3e-2  # flash vs full, bf16 model, on a mean NLL of ~9
 # chunk (hop 0, the diagonal) and rank 3 folding chunk 1 (hop 2, every pair
 # visible), each with a non-empty random carry.  (name, shape, q_off, k_off,
 # carry): "random" o/m/l, "empty" (m = -inf, l = 0, o = 0), "dead" (random,
-# with every third row's m at -inf).  "masked_rows" and "dead_f32" hide the
-# chunk from their first 100 rows, which must carry m = -inf, l = 0, o = 0.
+# with every third row's m at -inf), "dominant" (random o and l, m above
+# every scaled score of the chunk by more than 30: alpha = 1 and every
+# p < e^-30, so the new o must be the carried o to f32 rounding, compared
+# raw at DOMINANT_O_TOL).  "masked_rows" and "dead_f32" hide the chunk from
+# their first 100 rows, which must carry m = -inf, l = 0, o = 0.
 RING_FLAGSHIP = dict(B=8, C=2048, H=16, KVH=16, D=64, dtype=torch.bfloat16, causal=True)
 RING_CASES = [
     ("flagship_diag", RING_FLAGSHIP, 4096, 4096, "random"),
     ("flagship_offdiag", RING_FLAGSHIP, 6144, 2048, "random"),
     ("dh128", dict(B=2, C=2048, H=8, KVH=8, D=128, dtype=torch.bfloat16, causal=True), 2048, 2048, "random"),
     ("ragged130", dict(B=2, C=130, H=4, KVH=4, D=64, dtype=torch.bfloat16, causal=True), 130, 130, "random"),
+    ("ragged257_cross", dict(B=2, C=257, H=4, KVH=2, D=64, dtype=torch.bfloat16, causal=True),
+     300, 0, "random"),
+    ("tiny5", dict(B=2, C=5, H=4, KVH=2, D=64, dtype=torch.bfloat16, causal=True), 5, 5, "random"),
     ("gqa16x4", dict(B=2, C=2048, H=16, KVH=4, D=64, dtype=torch.bfloat16, causal=True), 2048, 2048, "random"),
     ("f32", dict(B=2, C=257, H=4, KVH=2, D=128, dtype=torch.float32, causal=True), 257, 257, "random"),
     ("noncausal", dict(B=2, C=512, H=4, KVH=4, D=64, dtype=torch.bfloat16, causal=False), 0, 512, "random"),
@@ -131,6 +140,18 @@ RING_CASES = [
     ("dead_f32", dict(B=2, C=200, H=4, KVH=4, D=64, dtype=torch.float32, causal=True), 100, 200, "dead"),
     ("f32_diag", dict(B=2, C=2048, H=4, KVH=4, D=64, dtype=torch.float32, causal=True), 4096, 4096, "random"),
     ("f32_offdiag", dict(B=2, C=2048, H=4, KVH=2, D=64, dtype=torch.float32, causal=True), 6144, 2048, "random"),
+    # q, k, v as views into one fused [B, C, H + 2 KVH, D] projection
+    ("strided_fused", dict(B=2, C=300, H=8, KVH=2, D=64, dtype=torch.bfloat16, causal=True,
+                           layout="fused"), 300, 300, "random"),
+    # GQA, ragged and causal over many TMA boxes: the 4-slot ring of K/V
+    # tiles wraps twice per CTA; on the diagonal and at a cross offset
+    ("gqa_ragged1000", dict(B=2, C=1000, H=8, KVH=2, D=64, dtype=torch.bfloat16, causal=True),
+     1000, 1000, "random"),
+    ("gqa_ragged1000_cross", dict(B=2, C=1000, H=8, KVH=2, D=64, dtype=torch.bfloat16,
+                                  causal=True), 1037, 0, "random"),
+    # the carry precision: a carry rounded through bf16 (~2e-3) fails here
+    ("dominant_carry", dict(B=2, C=1000, H=8, KVH=2, D=64, dtype=torch.bfloat16, causal=True),
+     1000, 1000, "dominant"),
 ]
 # o is compared as o / l: the un-normalised o carries the row's denominator
 # (up to ~2000 here), so one bf16 rounding of p that differs between exp2f
@@ -141,6 +162,10 @@ RING_CASES = [
 # f32 sums in another order
 RING_O_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-5}
 RING_ML_TOL = 1e-4
+# the dominant carry's raw o against the carried o (atol = rtol): what the
+# step adds is below e^-30 of it, so only f32 rounding of o * alpha remains
+DOMINANT_O_TOL = 1e-5
+DOMINANT_GAP = 30.0  # m above every scaled score of the chunk, at least
 
 # the train slice: bench.py config 6's widths (remat "none": config 6's
 # "selective" policy is not ported yet) and its TrainConfig(3e-4)
@@ -271,7 +296,7 @@ def ring_bound(c, q_off, k_off):
               + 4 * 4 * B * H * C)  # m and l in and out, f32
     peak = PEAK_BF16_FLOPS if c["dtype"] == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
 def phase_env() -> str:
@@ -308,8 +333,14 @@ def phase_build():
     check_hopper_design(_build)
 
 
-# the kernels whose design (TMA loads, wgmma) the built code must show
-HOPPER_KERNELS = {"flash_fwd": "flash_fwd_bf16", "flash_bwd": "flash_bwd_dkv_bf16"}
+# (source, kernel): the kernels whose design (TMA loads, wgmma) the built
+# code must show
+HOPPER_KERNELS = [
+    ("flash_fwd", "flash_fwd_bf16"),
+    ("flash_bwd", "flash_bwd_dq_bf16"),
+    ("flash_bwd", "flash_bwd_dkv_bf16"),
+    ("flash_ring", "ring_step_tma_bf16"),
+]
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -327,14 +358,18 @@ def ptxas_spills(log):
 
 
 def check_hopper_design(_build):
-    """The bf16 forward and dK/dV kernels, as built: HGMMA and UTMALDG in
-    every instantiation's SASS, no spills, and no setmaxnreg that ptxas
+    """The four bf16 kernels, as built: HGMMA and UTMALDG in every
+    instantiation's SASS, no spills, and no setmaxnreg that ptxas
     ignored."""
-    for src, kernel in HOPPER_KERNELS.items():
-        sass = subprocess.run(
-            [_build.cuda_bin("cuobjdump"), "--dump-sass", str(_build.library_path(src))],
-            capture_output=True, text=True, timeout=300, check=True,
-        ).stdout
+    sass_of = {}
+    for src, kernel in HOPPER_KERNELS:
+        if src not in sass_of:
+            sass_of[src] = subprocess.run(
+                [_build.cuda_bin("cuobjdump"), "--dump-sass",
+                 str(_build.library_path(src))],
+                capture_output=True, text=True, timeout=300, check=True,
+            ).stdout
+        sass = sass_of[src]
         counts = {}
         for body in re.split(r"\n\s*Function : ", sass)[1:]:
             fn = body.split("\n", 1)[0].strip()
@@ -400,7 +435,19 @@ def ring_inputs(c, carry, seed=0):
     l = 1 + 49 * torch.rand(B, H, C, generator=g, device="cuda")
     if carry == "dead":
         m[:, :, ::3] = float("-inf")
+    if carry == "dominant":
+        # scaled scores of these inputs stay below ~7, m's randn above -5
+        m += 20 + DOMINANT_GAP
     return q, k, v, o, m, l
+
+
+def score_max(q, k):
+    """The largest scaled score of each query row against the whole chunk
+    [B, H, C] (every key, so an upper bound of the visible ones)."""
+    g = q.shape[2] // k.shape[2]
+    kh = k.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) / q.shape[3] ** 0.5
+    return s.amax(-1)
 
 
 def per_l(o, l):
@@ -439,6 +486,12 @@ def phase_ring_kernel():
         cut = (got[0][:, :n], got[1][:, :, :n], got[2][:, :, :n])
         if not all(torch.equal(a, b) for a, b in zip(cut, want)):
             raise AssertionError(f"ring {name}: rows that see no key must keep their carry")
+        if carry == "dominant":
+            gap = float((args[4] - score_max(*args[:2])).min())
+            if not gap >= DOMINANT_GAP:
+                raise AssertionError(f"ring {name}: carried m only {gap} above the scores")
+            e["o_raw_vs_carry"] = check_close(
+                f"ring {name} raw o vs the carried o", got[0], args[3], DOMINANT_O_TOL)
         errs[name] = e["o/l"]
         say("kernel", ring_case=name, q_off=q_off, k_off=k_off, carry=carry,
             max_abs_err=e, o_tol=RING_O_TOL[c["dtype"]], ml_tol=RING_ML_TOL,
@@ -555,7 +608,7 @@ def phase_ring_timing():
     hops = {}
     with torch.no_grad():
         for hop, (q_off, k_off) in RING_HOPS.items():
-            bound_ms, bound_by = ring_bound(c, q_off, k_off)
+            bound_ms, bound_by, flops = ring_bound(c, q_off, k_off)
             row = dict(
                 ms=cuda_ms(lambda: flash.flash_ring_step(*args, q_off, k_off, True), 20),
                 plain_ms=cuda_ms(lambda: flash.flash_ring_step_plain(
@@ -566,8 +619,78 @@ def phase_ring_timing():
             )
             hops[hop] = row
             say("timing", kernel="flash_ring_step", hop=hop, q_off=q_off,
-                k_off=k_off, **row, share_of_bound=bound_ms / row["ms"])
+                k_off=k_off, **row, share_of_bound=bound_ms / row["ms"],
+                tflops_per_s=flops / row["ms"] / 1e9)
     return hops
+
+
+# the dQ designs tried (PERF.md): consumer warpgroups and keys per K/V
+# tile, written into edited copies of csrc/flash_bwd.cu's Dq struct
+DQ_LINES = ("  static constexpr int CONSUMERS = D == 64 ? 3 : 2;\n",
+            "  static constexpr int BK = 64;\n")
+DQ_VARIANTS = {
+    "3 consumers at Dh = 64 (2 at 128), 64 keys": ("D == 64 ? 3 : 2", "64"),
+    "2 consumers, 64 keys": ("2", "64"),
+    "3 consumers, 64 keys": ("3", "64"),
+    "2 consumers, 128 keys at Dh = 64": ("2", "D == 64 ? 128 : 64"),
+}
+
+
+def phase_dq_variants():
+    """Each dQ design of DQ_VARIANTS built from an edited copy of the
+    sources, with its ptxas spills, held against the plain version, and
+    timed in turns at the flagship (Dh = 64) and at its widths with
+    Dh = 128 (B=8, L=2048, H=16)."""
+    import ctypes
+    import shutil
+    from tensorframes_tpu_torch import _build
+    from tensorframes_tpu_torch.parallel import flash
+
+    base = (_build.SRC_DIR / "flash_bwd.cu").read_text()
+    src_dir, build_dir = _build.SRC_DIR, _build.BUILD_DIR
+    fns = {}
+    try:
+        for i, (tag, (consumers, bk)) in enumerate(DQ_VARIANTS.items()):
+            d = build_dir / "dq_variants" / str(i)
+            shutil.rmtree(d, ignore_errors=True)
+            shutil.copytree(src_dir, d / "csrc")
+            text = base.replace(DQ_LINES[0], f"  static constexpr int CONSUMERS = {consumers};\n")
+            text = text.replace(DQ_LINES[1], f"  static constexpr int BK = {bk};\n")
+            if text.count("CONSUMERS = ") != 1 or ("BK = " + bk) not in text:
+                raise AssertionError(f"dQ variant {tag}: the Dq lines moved")
+            (d / "csrc" / "flash_bwd.cu").write_text(text)
+            _build.SRC_DIR, _build.BUILD_DIR = d / "csrc", d / "build"
+            lib = ctypes.CDLL(str(_build.build_all(["flash_bwd"])["flash_bwd"]))
+            say("dq_variant", variant=tag, spill_bytes={
+                k_: v_ for k_, v_ in ptxas_spills(_build.build_log("flash_bwd")).items()
+                if "dq_bf16" in k_})
+            fn = lib.tfs_flash_bwd_dq
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+            fns[tag] = fn
+    finally:
+        _build.SRC_DIR, _build.BUILD_DIR = src_dir, build_dir
+    shapes = {"dh64": FLAGSHIP, "dh128": dict(FLAGSHIP, D=128)}
+    ms = {(t, s): [] for t in fns for s in shapes}
+    for s, c in shapes.items():
+        q, k, v = qkv(c, seed=1)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                         .manual_seed(2), device="cuda").to(c["dtype"])
+        out, lse = flash.flash_attention_fwd(q, k, v, True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        ref = flash.flash_bwd_dq_plain(q, k, v, out, lse, do, True)
+        for tag, fn in fns.items():
+            dq = torch.empty_like(q)
+            flash._bwd_launch("dq variant", fn, q, k, v, do, lse, delta, (dq,), True)
+            torch.cuda.synchronize()
+            check_close(f"dq variant {tag} {s}", dq, ref, BWD_TOL[c["dtype"]])
+        for _ in range(3):  # in turns
+            for tag, fn in fns.items():
+                ms[tag, s].append(cuda_ms(lambda: flash._bwd_launch(
+                    "dq variant", fn, q, k, v, do, lse, delta, (dq,), True), 20))
+    for (tag, s), t in ms.items():
+        say("dq_variant", variant=tag, shape=s, ms=t)
 
 
 def phase_slice():
@@ -1049,6 +1172,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--dq-variants", action="store_true",
+                    help="after the kernel checks, build and time the dQ "
+                    "designs tried (edited copies of the source), then stop")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one scoring block and one train step "
                     "by kernel")
@@ -1064,7 +1190,9 @@ def main() -> int:
     card = phase_env()
     phase_build()
     errs = phase_kernels()
-    if args.quick:
+    if args.dq_variants:
+        phase_dq_variants()
+    if args.quick or args.dq_variants:
         return 0
     timing = phase_timing()
     prog, frame = phase_slice()

@@ -17,11 +17,34 @@
 // operations, i.e. by the tensor-core rate (which only wgmma reaches) and
 // how well the loops keep the tensor cores fed.
 //
-// What the design does about it (bf16, the main path).  In both, the TPU
-// grid's sequential axis becomes a loop inside one CTA, so nothing carries
-// between blocks and nothing needs atomics: the results are deterministic.
-//  * dK/dV (warp-specialised TMA + wgmma; building blocks in hopper.cuh):
-//    one CTA of three warpgroups owns one (batch*kv head, 128-key tile).
+// What the design does about it (bf16, the main path): both are
+// warp-specialised TMA + wgmma kernels (building blocks in hopper.cuh).  In
+// both, the TPU grid's sequential axis becomes a loop inside one CTA, so
+// nothing carries between blocks and nothing needs atomics: the results are
+// deterministic.
+//  * dQ: one CTA owns one (batch*head, query tile of 64 rows per consumer
+//    warpgroup).  The producer warpgroup loads the Q and dO tiles once by
+//    TMA, then
+//    streams the 64-key K and V tiles of kv head h / (H / KVH), from key 0
+//    to the diagonal, through a 4-slot ring of full/empty mbarriers;
+//    setmaxnreg moves its registers to the consumer warpgroups of 64 query
+//    rows (three at Dh = 64, two at Dh = 128), which load their rows' lse
+//    and D before the first wait.
+//    Per tile a consumer computes S = Q K^T and dP = dO V^T (wgmma, both
+//    operands K-major in shared memory),
+//    P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = P o (dP - D) in
+//    registers, then dQ += dS K with dS as the register A operand (the
+//    accumulator layout is the A fragment's) and K read MN-major through
+//    the transpose bit: the same shared-memory tile S read, no second
+//    load.  dQ stays in f32 registers to the end and is scaled and stored
+//    once.  S and dP of 64 x 128 beside dQ spilled at Dh = 64, so the key
+//    tiles are 64 wide, and at that width a third consumer fits (160
+//    registers) and was faster; the designs tried and their times are in
+//    PERF.md (chip_smoke.py --dq-variants).  A consumer releases without
+//    compute the trailing tiles wholly above its rows.  The heavier query
+//    tiles launch first, and the tiles of one head side by side so their
+//    K/V stay in L2.
+//  * dK/dV: one CTA of three warpgroups owns one (batch*kv head, 128-key tile).
 //    The producer warpgroup loads K and V once by TMA, then streams the
 //    (Q, dO) tiles of 64 query rows (32 at Dh = 128) of every (query head of
 //    the group, query tile) pair from the diagonal on through a 4-slot ring
@@ -46,14 +69,6 @@
 //    issuing pair n + 1's S^T and dP^T behind pair n's gradient products
 //    inside a warpgroup (it also spills), and ping-pong between the two
 //    consumers.
-//  * dQ (the earlier mma.sync design): one CTA of 4 warps owns one
-//    (batch*head, 64-query tile); each warp owns 16 query rows.  Q and dO
-//    are loaded once; 64-key K/V tiles stream through a cp.async double
-//    buffer up to the diagonal.  S = Q K^T and dP = dO V^T run on the tensor
-//    cores (mma.sync m16n8k16, f32 accumulate, operands by ldmatrix), P and
-//    dS stay in registers, and dS (cast to bf16) is the A operand of
-//    dQ += dS K straight from them.  Not yet done: TMA, wgmma and warp
-//    specialisation for dQ.
 //  * Loads read [B, L, H, Dh] through its strides (no transpose or pad
 //    copy); ragged tails are zero-filled (by the TMA descriptors, which
 //    bound L per batch, or by the copy) and masked here.
@@ -108,145 +123,234 @@ __device__ __forceinline__ float safe_lse(const float* lse, int64_t i, bool ok) 
 // bf16: tensor-core kernels
 // ---------------------------------------------------------------------------
 
-// dQ: mma.sync kernel
-constexpr int THREADS = 128;  // 4 warps x 16 rows
-constexpr int BQ = 64;        // query rows per dQ CTA
-constexpr int BK = 64;        // keys per dQ tile
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Q and dO tiles + two K and two V tiles, rows padded by 8 elements
-  return size_t(2 * BQ + 4 * BK) * (D + 8) * sizeof(bf16);
-}
+// dQ: warp-specialised TMA + wgmma kernel
+// 128 x 40 + 256 x 232 = 64512 = 384 x 168, the registers the CTA starts with
+// (dK/dV's split too)
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_bf16(Problem p, bf16* __restrict__ dq) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;  // 8-key column tiles of S per warp
-  constexpr int DT = D / 8;   // 8-wide column tiles of dQ per warp
+struct Dq {
+  // consumer warpgroups of 64 query rows: three at Dh = 64 (a third fewer
+  // K/V reads per query, and measured faster than two), two at Dh = 128
+  static constexpr int CONSUMERS = D == 64 ? 3 : 2;
+  // keys per K/V tile: S and dP (64 x BK) and dQ (64 x D) stay in a
+  // consumer's f32 registers, 32 + 32 + D / 2 a thread (128 keys spilled
+  // at Dh = 64 with two consumers)
+  static constexpr int BK = 64;
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // 128 x 24 + 384 x 160 = 64512 with three consumers
+  static constexpr int P_REGS = CONSUMERS == 3 ? 24 : PRODUCER_REGS;
+  static constexpr int C_REGS = CONSUMERS == 3 ? 160 : CONSUMER_REGS;
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BOX = BQ * 128;  // one 64-column box of Q or dO
+  static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
+  static constexpr int BOX = BK * 128;  // one 64-column box of a K or V tile
+  static constexpr int TILE = (D / BOX_COLS) * BOX;
+  // Q and dO; K full, V full and empty per slot
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  static constexpr size_t SMEM = size_t(2) * Q_TILE + size_t(TILE) * 2 * STAGES +
+                                 8 * BARRIERS + ATOM_BYTES;
+};
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + BQ * LD;      // dO
-  bf16* Ks = Os + BQ * LD;      // two buffers of BK rows
-  bf16* Vs = Ks + 2 * BK * LD;  // two buffers of BK rows
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::THREADS, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map, Problem p,
+                  bf16* __restrict__ dq) {
+  using F = Dq<D>;
+  constexpr int S = F::STAGES, BK = F::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const Qs = atom_aligned(smem_raw);
+  unsigned char* const Os = Qs + F::Q_TILE;    // dO
+  unsigned char* const ring = Os + F::Q_TILE;  // slot s: K tile, then V tile
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + 2 * S * F::TILE);
+  uint64_t* const k_full = q_full + 1;
+  uint64_t* const v_full = k_full + S;
+  uint64_t* const empty = v_full + S;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row / column pair
   const int H = p.H, Lq = p.Lq, Lk = p.Lk;
+  // the query tiles of one head are neighbours in the launch order, so the
+  // CTAs in flight share their heads' K and V in L2; causal: the heavier
+  // (later) tiles of a head launch first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / p.KVH);
-  // causal: the heavier (later) query tiles are launched first
-  const int q0 = int(p.causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
-  const bf16* ob = static_cast<const bf16*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-
+  const int q0 = int(p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * F::BQ;
   int n_tiles = (Lk + BK - 1) / BK;
-  if (p.causal) n_tiles = min(n_tiles, (min(q0 + BQ, Lq) - 1) / BK + 1);
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + F::BQ, Lq) - 1) / BK + 1);
 
-  load_rows_async<D, THREADS>(Qs, qb, p.s.q[1], q0, BQ, Lq, tid);
-  load_rows_async<D, THREADS>(Os, ob, p.s.d[1], q0, BQ, Lq, tid);
-  if (n_tiles > 0) {
-    load_rows_async<D, THREADS>(Ks, kb, p.s.k[1], 0, BK, Lk, tid);
-    load_rows_async<D, THREADS>(Vs, vb, p.s.v[1], 0, BK, Lk, tid);
-  }
-  cp_async_commit();
-
-  const int wq0 = q0 + warp * 16;                // this warp's first query row
-  const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
-  const int64_t r0 = int64_t(bh) * Lq;
-  const float la_a = safe_lse(p.lse, r0 + row_a, row_a < Lq) * LOG2E;
-  const float la_b = safe_lse(p.lse, r0 + row_b, row_b < Lq) * LOG2E;
-  const float dd_a = row_a < Lq ? p.delta[r0 + row_a] : 0.f;
-  const float dd_b = row_b < Lq ? p.delta[r0 + row_b] : 0.f;
-  const float sl2 = p.scale * LOG2E;
-  float acc[DT][4] = {};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // the next tile streams in during this one
-      load_rows_async<D, THREADS>(Ks + (buf ^ 1) * BK * LD, kb, p.s.k[1], (t + 1) * BK, BK, Lk, tid);
-      load_rows_async<D, THREADS>(Vs + (buf ^ 1) * BK * LD, vb, p.s.v[1], (t + 1) * BK, BK, Lk, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 4 * F::CONSUMERS);  // every consumer warp releases a slot
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and tile t have landed
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    const int k0 = t * BK;
-    // a tile wholly above this warp's rows contributes nothing
-    if (!p.causal || k0 <= wq0 + 15) {
-      const bf16* Kt = Ks + buf * BK * LD;
-      const bf16* Vt = Vs + buf * BK * LD;
-      float s[NT][4] = {}, dp[NT][4] = {};
-      // S = Q K^T and dP = dO V^T
+  if (threadIdx.x < 128) {
+    // the producer: one thread loads Q and dO once, then keeps the ring of
+    // K/V tiles full
+    regs_dec<F::P_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * F::Q_TILE);
+      for (int x = 0; x < D / BOX_COLS; ++x) {
+        tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+        tma_load(Os + x * F::Q_BOX, &o_map, q_full, x * BOX_COLS, h, q0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);  // its last use is done
+        unsigned char* const Kt = ring + 2 * s * F::TILE;
+        mbar_arrive_expect_tx(k_full + s, F::TILE);
+        for (int x = 0; x < D / BOX_COLS; ++x)
+          tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
+        mbar_arrive_expect_tx(v_full + s, F::TILE);
+        for (int x = 0; x < D / BOX_COLS; ++x)
+          tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS,
+                   kvh, t * BK, b);
+      }
+    }
+  } else {
+    // a consumer: 64 query rows, 16 per warp; dQ stays in f32 registers
+    // across the key tiles (the TPU kernel's VMEM accumulator)
+    regs_inc<F::C_REGS>();
+    constexpr int NT = BK / 8;  // 8-key column blocks of S and dP
+    constexpr int DT = D / 8;   // 8-wide column blocks of dQ
+    const int c = threadIdx.x / 128 - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+    const int wg0 = q0 + 64 * c;             // this warpgroup's first row
+    const int wq0 = wg0 + 16 * w;            // this warp's first row
+    const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
+    // lse * log2(e) and D of the two rows, loaded before the first wait
+    const int64_t r0 = int64_t(bh) * Lq;
+    const float la_a = safe_lse(p.lse, r0 + row_a, row_a < Lq) * LOG2E;
+    const float la_b = safe_lse(p.lse, r0 + row_b, row_b < Lq) * LOG2E;
+    const float dd_a = row_a < Lq ? p.delta[r0 + row_a] : 0.f;
+    const float dd_b = row_b < Lq ? p.delta[r0 + row_b] : 0.f;
+    const float sl2 = p.scale * LOG2E;
+    float acc[DT * 4];
+#pragma unroll
+    for (int i = 0; i < DT * 4; ++i) acc[i] = 0.f;
+    // A of S = Q K^T and of dP = dO V^T: this warpgroup's 64 rows
+    const uint64_t q_desc = sw128_desc(Qs + 64 * c * 128, 16, ATOM_BYTES);
+    const uint64_t o_desc = sw128_desc(Os + 64 * c * 128, 16, ATOM_BYTES);
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % S;
+      const uint32_t ph = (t / S) & 1;
+      const int k0 = t * BK;
+      unsigned char* const Kt = ring + 2 * s * F::TILE;
+      mbar_wait(k_full + s, ph);
+      // rows past the end, or a tile wholly above this warpgroup's rows,
+      // add nothing: release the slot (after the K wait, so the arrival
+      // counts for this use of the slot)
+      if (wg0 >= Lq || (p.causal && k0 > wg0 + 63)) {
+        if (lane == 0) mbar_arrive(empty + s);
+        continue;
+      }
+      // S = Q K^T and dP = dO V^T, one batch once V has landed; the
+      // reduction over Dh in 16-wide slices, every operand K-major
+      mbar_wait(v_full + s, ph);
+      float sc[NT * 4], dp[NT * 4];
+      const uint64_t qa = opaque(q_desc), oa = opaque(o_desc);
+      const uint64_t k_desc = sw128_desc(Kt, 16, ATOM_BYTES);
+      const uint64_t v_desc = sw128_desc(Kt + F::TILE, 16, ATOM_BYTES);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t aq[4], ao[4];
-        load_a(aq, Qs, LD, warp * 16, kk * 16, lane);
-        load_a(ao, Os, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bk[4], bv[4];
-          load_bt(bk, Kt, LD, np * 16, kk * 16, lane);
-          mma_16816(s[2 * np], aq, bk[0], bk[1]);
-          mma_16816(s[2 * np + 1], aq, bk[2], bk[3]);
-          load_bt(bv, Vt, LD, np * 16, kk * 16, lane);
-          mma_16816(dp[2 * np], ao, bv[0], bv[1]);
-          mma_16816(dp[2 * np + 1], ao, bv[2], bv[3]);
-        }
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(sc, desc_at(qa, (kk / 4) * F::Q_BOX + off),
+                 desc_at(k_desc, (kk / 4) * F::BOX + off), kk);
+        wgmma_ss(dp, desc_at(oa, (kk / 4) * F::Q_BOX + off),
+                 desc_at(v_desc, (kk / 4) * F::BOX + off), kk);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
       // P = exp(S * scale - lse), masked where the tile crosses the
       // diagonal or an end of the sequences; then dS = P o (dP - D) in place
       const bool need_mask =
           k0 + BK > Lk || wq0 + 16 > Lq || (p.causal && k0 + BK - 1 > wq0);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e < 2 ? row_a : row_b;
-          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-          float pr = exp2f(s[j][e] * sl2 - (e < 2 ? la_a : la_b));
-          if (need_mask && (col >= Lk || row >= Lq || (p.causal && row < col)))
-            pr = 0.f;
-          s[j][e] = pr * (dp[j][e] - (e < 2 ? dd_a : dd_b));
+      for (int i = 0; i < NT * 4; ++i) {
+        const bool b_row = i & 2;
+        float pr = exp2_ftz(fmaf(sc[i], sl2, -(b_row ? la_b : la_a)));
+        if (need_mask) {
+          const int row = b_row ? row_b : row_a;
+          const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+          if (col >= Lk || row >= Lq || (p.causal && row < col)) pr = 0.f;
         }
+        sc[i] = pr * (dp[i] - (b_row ? dd_b : dd_a));
       }
-      // dQ += dS K, dS cast to bf16 (k's dtype) straight from registers
+      // dS cast to bf16 (k's dtype, flash.py:443): the A fragments of the
+      // 16-key slices, straight from the registers
+      uint32_t da[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int dn = 0; dn < DT / 2; ++dn) {
-          uint32_t bk[4];
-          load_b(bk, Kt, LD, kk * 16, dn * 16, lane);
-          mma_16816(acc[2 * dn], a, bk[0], bk[1]);
-          mma_16816(acc[2 * dn + 1], a, bk[2], bk[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before its refill
-  }
-  cp_async_wait<0>();
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-  // dQ (contiguous [B, Lq, H, D]) = scale * acc, in q's dtype
-  const float sc = p.scale;
+      // dQ += dS K, K MN-major through the transpose bit (the tile S read
+      // K-major): 16 keys (2048 bytes) per slice
+      const uint64_t k_mn = sw128_desc(Kt, F::BOX, ATOM_BYTES);
+      wgmma_fence();  // da was written by ordinary instructions
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (row_a < Lq)
-      *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
-          pack_bf16(acc[j][0] * sc, acc[j][1] * sc);
-    if (row_b < Lq)
-      *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
-          pack_bf16(acc[j][2] * sc, acc[j][3] * sc);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc, da[kk], desc_at(k_mn, kk * 16 * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + s);  // this warp is done with the slot
+    }
+
+    // dQ (contiguous [B, Lq, H, D]) = scale * acc, in q's dtype, once
+    const float scale = p.scale;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = j * 8 + 2 * t4;
+      if (row_a < Lq)
+        *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
+            pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (row_b < Lq)
+        *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
+            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
   }
+}
+
+template <int D>
+cudaError_t launch_dq(const Problem& p, int B, bf16* dq, cudaStream_t stream) {
+  using F = Dq<D>;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  cudaError_t err = make_tile_map(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
+                                  p.s.q[1], p.s.q[2], F::BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
+                        p.s.d[2], F::BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
+                        p.s.k[2], F::BK);
+  if (err == cudaSuccess)
+    err = make_tile_map(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
+                        p.s.v[2], F::BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + F::BQ - 1) / F::BQ, B * p.H);
+  flash_bwd_dq_bf16<D><<<grid, F::THREADS, F::SMEM, stream>>>(
+      q_map, k_map, v_map, o_map, p, dq);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -255,8 +359,6 @@ flash_bwd_dq_bf16(Problem p, bf16* __restrict__ dq) {
 
 constexpr int DKV_BK = 128;       // keys per CTA, 64 per consumer warpgroup
 constexpr int DKV_THREADS = 384;  // the producer and two consumer warpgroups
-// 128 x 40 + 256 x 232 = 64512 = 384 x 168, the registers the CTA starts with
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 template <int D>
 struct Dkv {
@@ -741,13 +843,14 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid_mma((Lq + BQ - 1) / BQ, B * H), grid_f32((Lq + FT - 1) / FT, B * H);
-  bf16* o16 = static_cast<bf16*>(dq);
+  if (dtype == 1) {
+    bf16* o16 = static_cast<bf16*>(dq);
+    if (D == 64) return int(launch_dq<64>(p, B, o16, st));
+    if (D == 128) return int(launch_dq<128>(p, B, o16, st));
+    return int(cudaErrorInvalidValue);
+  }
+  const dim3 grid_f32((Lq + FT - 1) / FT, B * H);
   float* o32 = static_cast<float*>(dq);
-  if (dtype == 1 && D == 64)
-    return int(run(flash_bwd_dq_bf16<64>, grid_mma, THREADS, dq_smem_bytes<64>(), st, p, o16));
-  if (dtype == 1 && D == 128)
-    return int(run(flash_bwd_dq_bf16<128>, grid_mma, THREADS, dq_smem_bytes<128>(), st, p, o16));
   if (dtype == 0 && D == 64)
     return int(run(flash_bwd_dq_f32<64>, grid_f32, F_THREADS, f32_smem_bytes<64>(), st, p, o32));
   if (dtype == 0 && D == 128)

@@ -13,34 +13,60 @@
 // Dh=64, bf16): the carry makes every hop read and write an f32
 // [B, C, H, Dh] o (134 MB) beside 100 MB of q/k/v, so
 //  * the diagonal hop (q_off == k_off, half the pairs) is bound by bytes:
-//    ~0.070 ms at 3.35 TB/s against 0.0695 ms of operations;
+//    ~0.071 ms at 3.35 TB/s against 0.0695 ms of operations;
 //  * an off-diagonal hop (every pair visible) is bound by operations:
 //    137 GFLOP, 0.139 ms at 989 TFLOP/s.
 // The carry stays f32 (JAX carries f32); nothing is saved by rounding it.
 //
-// The design is the forward kernel's (flash_fwd.cu), with the carry:
-//  * One CTA of 8 warps owns one (batch*head, 128-query tile); each warp owns
-//    16 query rows.  The TPU kernel's sequential grid axis over K/V tiles,
-//    whose scratch held (acc, m, l) between grid steps, is a loop over
-//    64-key tiles inside the CTA.
-//  * The carry is loaded once per query tile straight into the registers
-//    that hold the accumulator fragments (o as float2 per thread, m and l per
-//    row) and stored from them once at the end: o makes one round trip
-//    through device memory per hop, which is the least it can.
-//  * S = Q K^T and O += P V run on the tensor cores (mma.sync m16n8k16 bf16,
-//    f32 accumulate); S and P stay in registers; K/V tiles are
-//    double-buffered in shared memory with cp.async.
-//  * Causal: the tile loop ends at the last key any row of the tile can see,
-//    a warp skips the tiles hidden from all of its rows, and only tiles that
-//    cross the diagonal (or the end of the keys) are masked.  A skipped tile
-//    would have left a row with a finite max unchanged and zeroed (alpha =
-//    0) a row whose max is -inf, so rows whose max is still -inf at the end
+// The design (the bf16 kernel, the main path) is the forward's
+// (flash_fwd.cu), warp-specialised on TMA and wgmma (building blocks in
+// hopper.cuh), with the carry and the offsets:
+//  * Warp roles.  One CTA owns one (batch*head, query tile).  Warpgroup 0
+//    is the producer: one thread issues the TMA loads, Q once, then 128-key
+//    K and V tiles of the chunk into a ring of STAGES slots guarded by full
+//    and empty mbarriers.  setmaxnreg moves its registers to the consumer
+//    warpgroups of 64 query rows each: three at Dh = 64 (192-query tiles),
+//    two at Dh = 128, whose O accumulator leaves no registers for a third.
+//  * S = Q K^T is wgmma m64n128k16 with both operands in 128B-swizzled
+//    shared memory (K-major); O += P V is wgmma m64nDk16 with P in
+//    registers, cast to bf16 straight from the S accumulator, and V read
+//    MN-major through the transpose bit.  Each consumer warpgroup runs its
+//    tile loop on its own, so one's softmax overlaps the others' products.
+//  * The carry in: before its first wait, each consumer thread loads its
+//    rows' o (float2 per 8-column block: the wgmma accumulator layout,
+//    which is mma.sync's m16n8) straight into the accumulator registers,
+//    and m and l into its row registers, so the loads overlap the
+//    producer's first TMA loads.  o makes one round trip through device
+//    memory per hop, which is the least it can.
+//  * m is the running max of the scaled scores, the softmax's own, so a
+//    carried m goes in and out unconverted; alpha is exactly 1 while the
+//    max holds, so a carry that no key outweighs comes out to f32 rounding.
+//  * The carry out, un-normalised: no 1/l, no lse.  A skipped tile would
+//    have left a row with a finite max unchanged and zeroed (alpha = 0) a
+//    row whose max is -inf, so rows whose max is still -inf at the end
 //    store m = -inf, l = 0 and o = 0: exactly what the TPU kernel stores
-//    after folding every tile, with no NaN.
-//  * GQA: query head h reads kv head h / (H / KVH) (flash.py:_kv_head_map).
+//    after folding every tile, with no NaN.  A hop hidden from every row of
+//    a query tile visits no tile and returns its carry so.
+//  * The mask on global positions: the tile loop ends at the last key any
+//    row of the tile can see (visible_tiles), only tiles that cross the
+//    diagonal or the end of the keys are masked, and an off-diagonal hop
+//    (k_off + C <= q_off) masks nothing and visits every tile.  With three
+//    consumers, a consumer releases without compute the trailing tiles
+//    wholly hidden from its 64 rows (and every tile when its rows are past
+//    the end), after the tile's K has landed, so the arrival counts for
+//    this use of the slot; the consumer holding a tile's last row computes
+//    it, so no load is left in flight at exit.
+//  * The chunks are read through their strides by the TMA descriptors, so
+//    q/k/v may be views; the descriptors bound L per batch and zero-fill,
+//    the masks cover keys >= Lk, and rows >= Lq are neither loaded nor
+//    stored.  GQA: query head h reads kv head h / (H / KVH).
+//  * The forward keeps its own copy of this loop: built from one shared
+//    loop, the forward measured 2-4% slower (PERF.md).
+// Numerics kept from the TPU kernel: P is cast to v's dtype before PV
+// (flash.py:271-273), l sums the f32 p, and the running max is -inf-safe
+// (flash.py:265-268), so a row that has seen no key adds zeros, never NaN.
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps); it is off the main path.
-// Not yet done (later work): TMA loads, wgmma, warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,10 +75,12 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace tfs_flash;
+using namespace tfs_hopper;
 
 // How many key tiles of width bk a query tile whose last row is q_last must
 // visit: with the causal mask, key columns past q_off + q_last - k_off are
@@ -68,158 +96,217 @@ __device__ __forceinline__ int visible_tiles(int Lk, int bk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel
+// bf16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 128;       // query rows per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 8 warps x 16 query rows
+constexpr int BK = 128;  // keys per tile
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  // Q tile + two K and two V tiles, rows padded by 8 elements so that the
-  // eight row addresses of an ldmatrix fall in distinct banks
-  return size_t(BQ + 4 * BK) * (D + 8) * sizeof(bf16);
-}
+struct Ring {
+  // consumer warpgroups of 64 query rows each: three at Dh = 64, two at
+  // Dh = 128, whose O accumulator leaves no registers for a third
+  static constexpr int CONSUMERS = D == 64 ? 3 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // the registers the CTA starts with, moved from the producer to the
+  // consumers: 128 x 24 + 384 x 160 = 64512 = 512 x 126;
+  // 128 x 40 + 256 x 232 = 64512 = 384 x 168
+  static constexpr int PRODUCER_REGS = CONSUMERS == 3 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : 232;
+  static constexpr int Q_BOX = BQ * 128;  // one 64-column box of the Q tile
+  static constexpr int BOX = BK * 128;    // one 64-column box of a K or V tile
+  static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
+  static constexpr int TILE = (D / BOX_COLS) * BOX;  // one K or V tile
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  // Q; K full, V full and empty per slot
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  static constexpr size_t SMEM = size_t(Q_TILE) + size_t(TILE) * 2 * STAGES +
+                                 8 * BARRIERS + ATOM_BYTES;
+};
+
+// the carry: o [B, Lq, H, D] and m, l [B, H, Lq], f32 and contiguous, in
+// and out (flash.py:241-245, :275-279)
+struct Carry {
+  const float* o_in;
+  const float* m_in;
+  const float* l_in;
+  float* o_out;
+  float* m_out;
+  float* l_out;
+};
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-ring_step_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const float* __restrict__ o_in,
-               const float* __restrict__ m_in, const float* __restrict__ l_in,
-               float* __restrict__ o_out, float* __restrict__ m_out,
-               float* __restrict__ l_out, int H, int KVH, int Lq, int Lk,
-               int q_off, int k_off, int causal, int64_t q_sb, int64_t q_sl,
-               int64_t q_sh, int64_t k_sb, int64_t k_sl, int64_t k_sh,
-               int64_t v_sb, int64_t v_sl, int64_t v_sh, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;  // 8-key column tiles of S per warp
-  constexpr int DT = D / 8;   // 8-wide column tiles of O per warp
+__global__ void __launch_bounds__(Ring<D>::THREADS, 1)
+ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, const Carry cy,
+                   int H, int KVH, int Lq, int Lk, int causal, int q_off,
+                   int k_off, float scale) {
+  using F = Ring<D>;
+  constexpr int S = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const Qs = atom_aligned(smem_raw);
+  unsigned char* const ring = Qs + F::Q_TILE;  // slot s: K tile, then V tile
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + 2 * S * F::TILE);
+  uint64_t* const k_full = q_full + 1;
+  uint64_t* const v_full = k_full + S;
+  uint64_t* const empty = v_full + S;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;      // two buffers of BK rows
-  bf16* Vs = Ks + 2 * BK * LD;  // two buffers of BK rows
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row / column pair
+  // the query tiles of one head are neighbours in the launch order, so the
+  // CTAs in flight share their heads' K and V in L2; causal: the heavier
+  // (later) tiles of a head launch first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-
+  const int q0 = int(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * F::BQ;
   const int n_tiles =
-      visible_tiles(Lk, BK, causal, q_off, k_off, min(q0 + BQ, Lq) - 1);
+      visible_tiles(Lk, BK, causal, q_off, k_off, min(q0 + F::BQ, Lq) - 1);
+  // a key column is hidden from a row when col > row + delta
+  const int delta = q_off - k_off;
 
-  load_rows_async<D, THREADS>(Qs, qb, q_sl, q0, BQ, Lq, tid);
-  if (n_tiles > 0) {
-    load_rows_async<D, THREADS>(Ks, kb, k_sl, 0, BK, Lk, tid);
-    load_rows_async<D, THREADS>(Vs, vb, v_sl, 0, BK, Lk, tid);
-  }
-  cp_async_commit();
-
-  const int wq0 = q0 + warp * 16;                 // this warp's first query row
-  const int row_a = wq0 + g, row_b = row_a + 8;   // this thread's two rows
-  const bool in_a = row_a < Lq, in_b = row_b < Lq;
-  // the carry in: o [B, Lq, H, D] f32 and m, l [B, H, Lq] f32, straight into
-  // the accumulator fragments (flash.py:241-245)
-  const int64_t oa = ((int64_t(b) * Lq + row_a) * H + h) * D;
-  const int64_t ob = ((int64_t(b) * Lq + row_b) * H + h) * D;
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    const float2 xa = in_a ? *reinterpret_cast<const float2*>(o_in + oa + col)
-                           : make_float2(0.f, 0.f);
-    const float2 xb = in_b ? *reinterpret_cast<const float2*>(o_in + ob + col)
-                           : make_float2(0.f, 0.f);
-    o[j][0] = xa.x;
-    o[j][1] = xa.y;
-    o[j][2] = xb.x;
-    o[j][3] = xb.y;
-  }
-  const int64_t ra = int64_t(bh) * Lq + row_a, rb = int64_t(bh) * Lq + row_b;
-  float m_a = in_a ? m_in[ra] : -INFINITY, m_b = in_b ? m_in[rb] : -INFINITY;
-  float l_a = in_a ? l_in[ra] : 0.f, l_b = in_b ? l_in[rb] : 0.f;
-  // global positions: the warp's first row, and this thread's two rows
-  const int wpos = q_off + wq0;
-  const int pos_a = q_off + row_a, pos_b = q_off + row_b;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // the next tile streams in during this one
-      load_rows_async<D, THREADS>(Ks + (buf ^ 1) * BK * LD, kb, k_sl, (t + 1) * BK, BK, Lk, tid);
-      load_rows_async<D, THREADS>(Vs + (buf ^ 1) * BK * LD, vb, v_sl, (t + 1) * BK, BK, Lk, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 4 * F::CONSUMERS);  // every consumer warp releases a slot
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // Q and tile t have landed
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    const int k0 = t * BK;
-    const int kpos0 = k_off + k0;  // global position of the tile's first key
-    // a tile hidden from all of this warp's rows contributes nothing
-    if (!causal || kpos0 <= wpos + 15) {
-      const bf16* Kt = Ks + buf * BK * LD;
-      const bf16* Vt = Vs + buf * BK * LD;
-      float s[NT][4];
+  if (threadIdx.x < 128) {
+    // the producer: one thread keeps the ring full
+    regs_dec<F::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, F::Q_TILE);
+      for (int x = 0; x < D / BOX_COLS; ++x)
+        tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);  // its last use is done
+        unsigned char* const Kt = ring + 2 * s * F::TILE;
+        mbar_arrive_expect_tx(k_full + s, F::TILE);
+        for (int x = 0; x < D / BOX_COLS; ++x)
+          tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
+        mbar_arrive_expect_tx(v_full + s, F::TILE);
+        for (int x = 0; x < D / BOX_COLS; ++x)
+          tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS,
+                   kvh, t * BK, b);
+      }
+    }
+  } else {
+    // a consumer: 64 query rows, 16 per warp
+    regs_inc<F::CONSUMER_REGS>();
+    constexpr int NT = BK / 8;  // 8-key column blocks of S
+    constexpr int DT = D / 8;   // 8-wide column blocks of O
+    const int c = threadIdx.x / 128 - 1;
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+    const int wg0 = q0 + 64 * c;             // this warpgroup's first row
+    const int wq0 = wg0 + 16 * w;            // this warp's first row
+    const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
+    const bool in_a = row_a < Lq, in_b = row_b < Lq;
+    const float sl2 = scale * LOG2E;
+    // the carry in, before the first wait so that its loads overlap the
+    // producer's first TMA loads: o straight into the accumulator
+    // fragments, the running max of the scaled scores and the denominator
+    // into this thread's two rows' registers
+    const int64_t oa = ((int64_t(b) * Lq + row_a) * H + h) * D;
+    const int64_t ob = ((int64_t(b) * Lq + row_b) * H + h) * D;
+    const int64_t ra = int64_t(bh) * Lq + row_a, rb = int64_t(bh) * Lq + row_b;
+    float o[DT * 4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      // S = Q K^T
+    for (int j = 0; j < DT; ++j) {
+      const int col = j * 8 + 2 * t4;
+      const float2 xa = in_a ? *reinterpret_cast<const float2*>(cy.o_in + oa + col)
+                             : make_float2(0.f, 0.f);
+      const float2 xb = in_b ? *reinterpret_cast<const float2*>(cy.o_in + ob + col)
+                             : make_float2(0.f, 0.f);
+      o[4 * j] = xa.x;
+      o[4 * j + 1] = xa.y;
+      o[4 * j + 2] = xb.x;
+      o[4 * j + 3] = xb.y;
+    }
+    float m_a = in_a ? cy.m_in[ra] : -INFINITY, m_b = in_b ? cy.m_in[rb] : -INFINITY;
+    float l_a = in_a ? cy.l_in[ra] : 0.f, l_b = in_b ? cy.l_in[rb] : 0.f;
+    // A of S = Q K^T: this warpgroup's 64 rows of the Q tile
+    const uint64_t q_desc = sw128_desc(Qs + 64 * c * 128, 16, ATOM_BYTES);
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % S;
+      const uint32_t ph = (t / S) & 1;
+      const int k0 = t * BK;
+      unsigned char* const Kt = ring + 2 * s * F::TILE;
+      mbar_wait(k_full + s, ph);
+      // rows past the end, or a tile wholly hidden from this warpgroup's
+      // rows (the trailing tiles of its loop), add nothing: release the
+      // slot, after the K wait so the arrival counts for this use of it.
+      // Three consumers only, as in the forward (with two, few key tiles
+      // lie wholly above a consumer's rows)
+      if (F::CONSUMERS == 3 && (wg0 >= Lq || (causal && k0 > wg0 + 63 + delta))) {
+        if (lane == 0) mbar_arrive(empty + s);
+        continue;
+      }
+      // S = Q K^T, the reduction over Dh in 16-wide slices
+      float sc[NT * 4];
+      const uint64_t a_desc = opaque(q_desc);
+      const uint64_t k_desc = sw128_desc(Kt, 16, ATOM_BYTES);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, smem_addr(Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                 (lane >> 4) * 8));
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(sc, desc_at(a_desc, (kk / 4) * F::Q_BOX + off),
+                 desc_at(k_desc, (kk / 4) * F::BOX + off), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // mask the tiles that cross the diagonal or the key end
+      if ((k0 + BK > Lk) || (causal && k0 + BK - 1 > wq0 + delta)) {
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bq[4];
-          ldmatrix_x4(bq, smem_addr(Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                                    kk * 16 + ((lane >> 3) & 1) * 8));
-          mma_16816(s[2 * np], a, bq[0], bq[1]);
-          mma_16816(s[2 * np + 1], a, bq[2], bq[3]);
+        for (int i = 0; i < NT * 4; ++i) {
+          const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+          const int row = (i & 2) ? row_b : row_a;
+          if (col >= Lk || (causal && col > row + delta)) sc[i] = -INFINITY;
         }
       }
-      // scale, then mask the tiles that cross the diagonal or the key end
-      const bool need_mask = (k0 + BK > Lk) || (causal && kpos0 + BK - 1 > wpos);
       float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale;
-          if (need_mask) {
-            const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-            const int pos = e < 2 ? pos_a : pos_b;
-            if (col >= Lk || (causal && pos < k_off + col)) x = -INFINITY;
-          }
-          s[j][e] = x;
-        }
-        mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
-      // a row's 64 scores are spread over the 4 lanes of its quad
+      // a row's 128 scores are spread over the 4 lanes of its quad
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      // -inf-safe (flash.py:265-268): m_safe, and alpha = 0 when the carried
-      // max is -inf, so a row that has seen no key yet adds zeros, never NaN
-      const float ms_a = mn_a == -INFINITY ? 0.f : mn_a;
-      const float ms_b = mn_b == -INFINITY ? 0.f : mn_b;
-      const float al_a = m_a == -INFINITY ? 0.f : exp2f((m_a - ms_a) * LOG2E);
-      const float al_b = m_b == -INFINITY ? 0.f : exp2f((m_b - ms_b) * LOG2E);
+      // the max of the scaled scores is the scaled max of the raw ones
+      // (rounding is monotonic)
+      const float mn_a = fmaxf(m_a, mx_a * scale), mn_b = fmaxf(m_b, mx_b * scale);
+      // -inf-safe: a row with no unmasked key yet keeps m = -inf and adds
+      // zeros, never NaNs; p = exp(s * scale - m) as one FMA into exp2.
+      // alpha is exactly 1 while the max holds: the FMA against the rounded
+      // m * log2(e) leaves that rounding in alpha, and a carried o would
+      // drift by it from tile to tile.  A max that leaves -inf gives
+      // alpha = exp2(-inf) = 0; one that stays at -inf keeps alpha = 1 on
+      // an o that the end stores as 0.  (Written as (m - mn) * log2(e)
+      // instead, the kernel spilled at Dh = 64.)
+      const float ms_a = mn_a == -INFINITY ? 0.f : mn_a * LOG2E;
+      const float ms_b = mn_b == -INFINITY ? 0.f : mn_b * LOG2E;
+      const float al_a = m_a == mn_a ? 1.f : exp2_ftz(fmaf(m_a, LOG2E, -ms_a));
+      const float al_b = m_b == mn_b ? 1.f : exp2_ftz(fmaf(m_b, LOG2E, -ms_b));
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        s[j][0] = exp2f((s[j][0] - ms_a) * LOG2E);
-        s[j][1] = exp2f((s[j][1] - ms_a) * LOG2E);
-        s[j][2] = exp2f((s[j][2] - ms_b) * LOG2E);
-        s[j][3] = exp2f((s[j][3] - ms_b) * LOG2E);
-        sum_a += s[j][0] + s[j][1];
-        sum_b += s[j][2] + s[j][3];
+        sc[4 * j] = exp2_ftz(fmaf(sc[4 * j], sl2, -ms_a));
+        sc[4 * j + 1] = exp2_ftz(fmaf(sc[4 * j + 1], sl2, -ms_a));
+        sc[4 * j + 2] = exp2_ftz(fmaf(sc[4 * j + 2], sl2, -ms_b));
+        sc[4 * j + 3] = exp2_ftz(fmaf(sc[4 * j + 3], sl2, -ms_b));
+        sum_a += sc[4 * j] + sc[4 * j + 1];
+        sum_b += sc[4 * j + 2] + sc[4 * j + 3];
       }
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 1);
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 2);
@@ -231,58 +318,79 @@ ring_step_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_b = mn_b;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
-        o[j][0] *= al_a;
-        o[j][1] *= al_a;
-        o[j][2] *= al_b;
-        o[j][3] *= al_b;
+        o[4 * j] *= al_a;
+        o[4 * j + 1] *= al_a;
+        o[4 * j + 2] *= al_b;
+        o[4 * j + 3] *= al_b;
       }
-      // O += P V, P cast to bf16 (v's dtype, flash.py:271-273) straight from
-      // the score registers into A fragments
+      // p cast to bf16 (v's dtype, flash.py:271-273): the A fragments of
+      // the 16-key slices, straight from the score registers
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, smem_addr(Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                          dp * 16 + (lane >> 4) * 8));
-          mma_16816(o[2 * dp], a, bv[0], bv[1]);
-          mma_16816(o[2 * dp + 1], a, bv[2], bv[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before its refill
-  }
-  cp_async_wait<0>();
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-  // the carry out (flash.py:275-279), not normalised: a row that saw no key
-  // keeps m = -inf and stores l = 0, o = 0
-  const bool dead_a = m_a == -INFINITY, dead_b = m_b == -INFINITY;
+      // O += P V, V MN-major: 16 keys (2048 bytes) per slice
+      mbar_wait(v_full + s, ph);
+      const uint64_t v_desc = sw128_desc(Kt + F::TILE, F::BOX, ATOM_BYTES);
+      wgmma_fence();  // o was rescaled and pa written by ordinary instructions
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (in_a)
-      *reinterpret_cast<float2*>(o_out + oa + col) =
-          dead_a ? make_float2(0.f, 0.f) : make_float2(o[j][0], o[j][1]);
-    if (in_b)
-      *reinterpret_cast<float2*>(o_out + ob + col) =
-          dead_b ? make_float2(0.f, 0.f) : make_float2(o[j][2], o[j][3]);
-  }
-  if (t4 == 0) {
-    if (in_a) {
-      m_out[ra] = m_a;
-      l_out[ra] = dead_a ? 0.f : l_a;
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(empty + s);  // this warp is done with the slot
     }
-    if (in_b) {
-      m_out[rb] = m_b;
-      l_out[rb] = dead_b ? 0.f : l_b;
+
+    // the carry out (flash.py:275-279), not normalised: a row that saw no
+    // key keeps m = -inf and stores l = 0, o = 0
+    const bool dead_a = m_a == -INFINITY, dead_b = m_b == -INFINITY;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = j * 8 + 2 * t4;
+      if (in_a)
+        *reinterpret_cast<float2*>(cy.o_out + oa + col) =
+            dead_a ? make_float2(0.f, 0.f) : make_float2(o[4 * j], o[4 * j + 1]);
+      if (in_b)
+        *reinterpret_cast<float2*>(cy.o_out + ob + col) =
+            dead_b ? make_float2(0.f, 0.f) : make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+    if (t4 == 0) {
+      if (in_a) {
+        cy.m_out[ra] = m_a;
+        cy.l_out[ra] = dead_a ? 0.f : l_a;
+      }
+      if (in_b) {
+        cy.m_out[rb] = m_b;
+        cy.l_out[rb] = dead_b ? 0.f : l_b;
+      }
     }
   }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const Carry& cy, int B, int H, int KVH, int Lq, int Lk,
+                        int causal, int q_off, int k_off, const int64_t* s,
+                        float scale, cudaStream_t stream) {
+  using F = Ring<D>;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = make_tile_map(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
+  if (err == cudaSuccess)
+    err = make_tile_map(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ring_step_tma_bf16<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
+  ring_step_tma_bf16<D><<<grid, F::THREADS, F::SMEM, stream>>>(
+      q_map, k_map, v_map, cy, H, KVH, Lq, Lk, causal, q_off, k_off, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -440,22 +548,22 @@ ring_step_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel, typename T>
-cudaError_t launch(Kernel kernel, int bq, int threads, size_t bytes,
-                   const void* q, const void* k, const void* v,
-                   const float* o_in, const float* m_in, const float* l_in,
-                   float* o_out, float* m_out, float* l_out, int B, int H,
-                   int KVH, int Lq, int Lk, int q_off, int k_off, int causal,
-                   const int64_t* s, float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const float* o_in, const float* m_in, const float* l_in,
+                       float* o_out, float* m_out, float* l_out, int B, int H,
+                       int KVH, int Lq, int Lk, int q_off, int k_off, int causal,
+                       const int64_t* s, float scale, cudaStream_t stream) {
+  const size_t bytes = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+      ring_step_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + bq - 1) / bq, B * H);
-  kernel<<<grid, threads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), o_in, m_in, l_in, o_out, m_out, l_out, H, KVH,
-      Lq, Lk, q_off, k_off, causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
-      s[7], s[8], scale);
+  const dim3 grid((Lq + F_BQ - 1) / F_BQ, B * H);
+  ring_step_f32<D><<<grid, F_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), o_in, m_in, l_in, o_out, m_out, l_out, H,
+      KVH, Lq, Lk, q_off, k_off, causal, s[0], s[1], s[2], s[3], s[4], s[5],
+      s[6], s[7], s[8], scale);
   return cudaGetLastError();
 }
 
@@ -465,7 +573,8 @@ cudaError_t launch(Kernel kernel, int bq, int threads, size_t bytes,
 // length, head) each and a contiguous head dim; the carry in and out:
 // contiguous o [B, Lq, H, D] f32 and m, l [B, H, Lq] f32 (out must not alias
 // in).  q_off/k_off: the chunks' global positions.  dtype: 0 = f32,
-// 1 = bf16.  Returns a cudaError_t (0 = launched).
+// 1 = bf16 (which takes TMA: 16-byte aligned bases and strides).  Returns a
+// cudaError_t (0 = launched).
 extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
                                    const float* o_in, const float* m_in,
                                    const float* l_in, float* o_out,
@@ -477,28 +586,20 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
   if (B * H > 65535 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk < 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
+  const Carry carry{o_in, m_in, l_in, o_out, m_out, l_out};
   if (dtype == 1 && D == 64)
-    err = launch<decltype(&ring_step_bf16<64>), bf16>(
-        ring_step_bf16<64>, BQ, THREADS, mma_smem_bytes<64>(), q, k, v, o_in,
-        m_in, l_in, o_out, m_out, l_out, B, H, KVH, Lq, Lk, q_off, k_off,
-        causal, strides, scale, st);
-  else if (dtype == 1 && D == 128)
-    err = launch<decltype(&ring_step_bf16<128>), bf16>(
-        ring_step_bf16<128>, BQ, THREADS, mma_smem_bytes<128>(), q, k, v, o_in,
-        m_in, l_in, o_out, m_out, l_out, B, H, KVH, Lq, Lk, q_off, k_off,
-        causal, strides, scale, st);
-  else if (dtype == 0 && D == 64)
-    err = launch<decltype(&ring_step_f32<64>), float>(
-        ring_step_f32<64>, F_BQ, F_THREADS, f32_smem_bytes<64>(), q, k, v, o_in,
-        m_in, l_in, o_out, m_out, l_out, B, H, KVH, Lq, Lk, q_off, k_off,
-        causal, strides, scale, st);
-  else if (dtype == 0 && D == 128)
-    err = launch<decltype(&ring_step_f32<128>), float>(
-        ring_step_f32<128>, F_BQ, F_THREADS, f32_smem_bytes<128>(), q, k, v,
-        o_in, m_in, l_in, o_out, m_out, l_out, B, H, KVH, Lq, Lk, q_off, k_off,
-        causal, strides, scale, st);
-  return int(err);
+    return int(launch_bf16<64>(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off,
+                               k_off, strides, scale, st));
+  if (dtype == 1 && D == 128)
+    return int(launch_bf16<128>(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off,
+                                k_off, strides, scale, st));
+  if (dtype == 0 && D == 64)
+    return int(launch_f32<64>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, B, H,
+                              KVH, Lq, Lk, q_off, k_off, causal, strides, scale, st));
+  if (dtype == 0 && D == 128)
+    return int(launch_f32<128>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, B, H,
+                               KVH, Lq, Lk, q_off, k_off, causal, strides, scale, st));
+  return int(cudaErrorInvalidValue);
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {

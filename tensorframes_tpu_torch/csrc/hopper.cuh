@@ -1,13 +1,17 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels in
-// flash_fwd.cu and flash_bwd.cu: TMA descriptors and loads, mbarriers, the
-// wgmma shared-memory matrix descriptor and the m64nNk16 bf16 products,
-// and setmaxnreg.  Raw PTX in inline asm; no CUTLASS/CuTe.
+// Hopper (sm_90a) building blocks of the four bf16 flash-attention kernels:
+// the forward (flash_fwd.cu::flash_fwd_bf16), the ring step
+// (flash_ring.cu::ring_step_tma_bf16), dQ and dK/dV
+// (flash_bwd.cu::flash_bwd_dq_bf16, ::flash_bwd_dkv_bf16): TMA descriptors and loads, mbarriers, the wgmma shared-memory matrix
+// descriptor and the m64nNk16 bf16 products, and setmaxnreg.  Raw PTX in
+// inline asm; no CUTLASS/CuTe.
 //
 // What it is for: the TPU kernels these replace
-// (tensorframes_tpu/parallel/flash.py::_flash_kernel and
-// ::_flash_bwd_dkv_kernel) are bound by operations, and on an H100 the full
-// tensor-core rate is reached only by wgmma, fed from shared memory that TMA
-// fills without spending threads on the copy.  The layout both agree on:
+// (tensorframes_tpu/parallel/flash.py::_flash_kernel, ::_ring_step_kernel,
+// ::_flash_bwd_dq_kernel and ::_flash_bwd_dkv_kernel) are bound by
+// operations (the ring's diagonal hop by its carry's bytes), and on an H100
+// the full tensor-core rate is reached only by wgmma, fed from shared
+// memory that TMA fills without spending threads on the copy.  The layout
+// they all agree on:
 //
 //  * A tile of a [B, L, heads, Dh] bf16 tensor is `rows` consecutive
 //    sequence positions of one (batch, head), loaded as boxes of 64 columns
@@ -20,11 +24,11 @@
 //    Q K^T, K and Q in K Q^T): descriptor SBO = 1024 (next 8 rows), LBO
 //    unused; the k-th 16-wide slice of the reduction starts 32 * (k % 4)
 //    bytes into box k / 4.
-//  * MN-major operand (the reduction runs down the rows: V in P V, dO and Q
-//    in P^T dO and dS^T Q), read through the transpose bit: SBO = 1024 (the
-//    next 8 rows of the reduction), LBO = the bytes between the 64-column
-//    boxes of the output width; the k-th 16-row slice starts 2048 * k
-//    bytes in.
+//  * MN-major operand (the reduction runs down the rows: V in P V, K in
+//    dS K, dO and Q in P^T dO and dS^T Q), read through the transpose bit:
+//    SBO = 1024 (the next 8 rows of the reduction), LBO = the bytes between
+//    the 64-column boxes of the output width; the k-th 16-row slice starts
+//    2048 * k bytes in.
 //  * A wgmma accumulator m64nN (f32) gives thread lane = 4 g + t4 of warp w
 //    in its warpgroup rows 16 w + g (d[4j], d[4j+1]) and 16 w + g + 8
 //    (d[4j+2], d[4j+3]) at columns 8 j + 2 t4 (+1): mma.sync's m16n8 layout,

@@ -23,8 +23,9 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
 * :func:`flash_attention` is a ``torch.autograd.Function`` whose forward and
   backward both dispatch by device, so the same program trains alike on
   the card and on the host.
-* The bf16 forward and dK/dV kernels read q, k, v and dO through TMA
-  descriptors that the C side encodes (``csrc/hopper.cuh``);
+* The four bf16 kernels (the forward, dQ, dK/dV and the ring step) read
+  q, k, v and dO through TMA descriptors that the C side encodes
+  (``csrc/hopper.cuh``);
   :func:`tma_tile_map` is the same arithmetic in Python, and
   :func:`check_kernel_inputs` raises before a launch for what a descriptor
   refuses.
@@ -310,6 +311,7 @@ def _chunk_block(c: int) -> int:
 
 def flash_ring_step_plain(
     q, k, v, o, m, l, q_off: int, k_off: int, causal: bool = True,
+    block_q: int | None = None, block_k: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The Pallas ring step's algorithm (``flash.py:217``) in plain PyTorch.
 
@@ -317,19 +319,21 @@ def flash_ring_step_plain(
     m/l [B, H, C] f32; ``q_off``/``k_off`` the chunks' global positions.
     Returns the updated, un-normalised ``(o, m, l)``.
 
-    Tiles are the JAX kernel's (``_chunk_block``), or 128 with a ragged tail
-    for chunks it cannot tile.  A tile that the causal mask hides from every
-    row of a query tile is skipped, as the CUDA kernel skips it; JAX folds it
-    as all -inf, which leaves a row with a finite max unchanged and zeroes
-    (alpha = 0) a row whose max is still -inf.  So after the last tile a row
-    with m = -inf carries o = 0 and l = 0, whichever tiles it saw."""
+    Tiles are ``block_q`` x ``block_k`` with ragged tails (the CUDA kernel's
+    are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128); by default the JAX
+    kernel's (``_chunk_block``), or 128 for chunks it cannot tile.  A tile
+    that the causal mask hides from every row of a query tile is skipped,
+    as the CUDA kernel skips it; JAX folds it as all -inf, which leaves a
+    row with a finite max unchanged and zeroes (alpha = 0) a row whose max
+    is still -inf.  So after the last tile a row with m = -inf carries
+    o = 0 and l = 0, whichever tiles it saw."""
     B, C, H, Dh = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     kv = _kv_head_map(H, KVH).to(q.device)
     wide = _wide(q.dtype)
     scale = float(np.float32(1.0 / np.sqrt(Dh)))
-    bq = _chunk_block(C) if chunk_supported(C) else 128
-    bk = _chunk_block(Lk) if chunk_supported(Lk) else 128
+    bq = block_q or (_chunk_block(C) if chunk_supported(C) else 128)
+    bk = block_k or (_chunk_block(Lk) if chunk_supported(Lk) else 128)
     qh = q.permute(0, 2, 1, 3).to(wide)  # [B, H, C, Dh]
     kh = k.permute(0, 2, 1, 3)[:, kv].to(wide)  # GQA: [B, H, Ck, Dh]
     vh = v.permute(0, 2, 1, 3)[:, kv]

@@ -195,12 +195,10 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_lists_its_shared_header(csrc_copy):
-    # the TMA/wgmma kernels also include the Hopper header; the ring step
-    # does not, so its library does not move when that header does
-    hopper = {"flash_fwd": ["hopper.cuh"], "flash_bwd": ["hopper.cuh"]}
+    # every kernel source, the ring step's too, includes the Hopper header
     for name in _build.SOURCES:
         names = [p.name for p in _build.source_files(name)]
-        want = [f"{name}.cu", "flash_common.cuh", *hopper.get(name, [])]
+        want = [f"{name}.cu", "flash_common.cuh", "hopper.cuh"]
         assert names == sorted(want), names
 
 
@@ -211,18 +209,22 @@ def test_every_kernel_source_lists_its_shared_header(csrc_copy):
         pytest.param("flash_bwd", "flash_common.cuh", id="flash_bwd"),
         pytest.param("flash_fwd", "hopper.cuh", id="flash_fwd-hopper"),
         pytest.param("flash_bwd", "hopper.cuh", id="flash_bwd-hopper"),
+        pytest.param("flash_ring", "hopper.cuh", id="flash_ring-hopper"),
+        pytest.param("flash_ring", "flash_common.cuh", id="flash_ring"),
     ],
 )
 def test_library_hash_follows_the_included_header(csrc_copy, name, header):
     before = _build.library_path(name)
-    ring = _build.library_path("flash_ring")
+    others = {n: _build.library_path(n) for n in _build.SOURCES if n != name}
     assert before == _build.library_path(name)  # stable
     header = csrc_copy / header
     header.write_text(header.read_text() + "\n// edited\n")
     after_header = _build.library_path(name)
     assert after_header != before
-    if header.name == "hopper.cuh":
-        assert _build.library_path("flash_ring") == ring
+    # a library that does not include the header keeps its name
+    for other, path in others.items():
+        includes = header.name in [p.name for p in _build.source_files(other)]
+        assert (_build.library_path(other) != path) == includes, other
     src = csrc_copy / f"{name}.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build.library_path(name) not in (before, after_header)

@@ -1,12 +1,19 @@
 """The flash kernels' tiling and their TMA descriptors, on the CPU.
 
-The bf16 forward kernel (``csrc/flash_fwd.cu``) runs 192-query (128 at
-Dh = 128) by 128-key tiles and the dK/dV kernel (``csrc/flash_bwd.cu``) 128-key tiles against
-64-query tiles (32 at Dh = 128).  The plain versions at those tilings are
-held against the JAX Pallas kernels (interpret mode) run at the same
-tiling, at ragged, GQA and cross lengths: that is the algorithm the CUDA
-kernels tile by, and ``chip_smoke.py`` holds the kernels against these plain
-versions on the card.  Tolerances: f32 ``rtol=atol=2e-5`` for the forward
+The bf16 kernels' tiles:
+* the forward (``csrc/flash_fwd.cu``) and the ring step
+  (``csrc/flash_ring.cu``): 192-query (128 at Dh = 128) by 128-key tiles;
+* dQ (``csrc/flash_bwd.cu``): 192-query (128 at Dh = 128) by 64-key
+  tiles;
+* dK/dV (``csrc/flash_bwd.cu``): 128-key tiles against 64-query tiles (32
+  at Dh = 128).
+The plain versions at those tilings are held against the JAX Pallas kernels
+(interpret mode) at ragged, GQA and cross lengths (the ring step also at
+cross offsets and with rows the chunk is hidden from): the backward kernels
+and the forward run at the same tiling, the JAX ring step at its own
+(``_chunk_block``).  That is the algorithm the CUDA kernels tile by, and
+``chip_smoke.py`` holds the kernels against these plain versions on the
+card.  Tolerances: f32 ``rtol=atol=2e-5`` for the forward and the ring step
 and ``2e-4`` for the gradients (the JAX suite's own, ``test_flash.py``: the
 two differ only in summation order).
 
@@ -81,6 +88,70 @@ def test_plain_dkv_at_the_kernel_tiling_matches_jax(case, block_q):
     )
     np.testing.assert_allclose(t_dk.numpy(), np.asarray(j_dk), **GRAD)
     np.testing.assert_allclose(t_dv.numpy(), np.asarray(j_dv), **GRAD)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(192, 64), (128, 64)],
+                         ids=["bq192-bk64-dh64", "bq128-bk64-dh128"])
+@pytest.mark.parametrize("case", list(SHAPES), ids=list(SHAPES))
+def test_plain_dq_at_the_kernel_tiling_matches_jax(case, block_q, block_k):
+    B, Lq, Lk, H, KVH, D, causal = SHAPES[case]
+    q, k, v, do = _inputs(B, Lq, Lk, H, KVH, D, seed=3)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    out, lse = jflash._flash_fwd_impl(jq, jk, jv, causal, 128, 128, None)
+    j_dq, _, _ = jflash._flash_bwd_impl(
+        jq, jk, jv, out, lse, jdo, causal, block_q, block_k, None
+    )
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    t_out, t_lse = tflash.flash_attention_plain(tq, tk, tv, causal, 128, 128)
+    t_dq = tflash.flash_bwd_dq_plain(
+        tq, tk, tv, t_out, t_lse, tdo, causal, block_q, block_k
+    )
+    np.testing.assert_allclose(t_dq.numpy(), np.asarray(j_dq), **GRAD)
+
+
+# the ring step: (B, C, H, KVH, Dh, q_off, k_off, causal, carry).  C is a
+# multiple of 64, so JAX tiles it (by 128 or 64), and not of 192, so the
+# kernel's last query tile is ragged.  carry: "random" o/m/l, or "dead"
+# (every third row's m at -inf)
+RING_SHAPES = {
+    "ragged-256-diagonal": (2, 256, 2, 2, 8, 256, 256, True, "random"),
+    "ragged-320-diagonal": (1, 320, 2, 2, 8, 640, 640, True, "dead"),
+    "gqa-4x2-off-diagonal": (1, 256, 4, 2, 8, 512, 0, True, "random"),
+    "gqa-4x2-cross-offset": (1, 320, 4, 2, 8, 357, 0, True, "random"),
+    "hidden-rows": (1, 256, 2, 1, 8, 0, 100, True, "dead"),
+    "non-causal": (1, 320, 2, 2, 8, 0, 320, False, "random"),
+}
+
+
+@pytest.mark.parametrize("block_q", [192, 128], ids=["bq192-dh64", "bq128-dh128"])
+@pytest.mark.parametrize("case", list(RING_SHAPES), ids=list(RING_SHAPES))
+def test_plain_ring_step_at_the_kernel_tiling_matches_jax(case, block_q):
+    B, C, H, KVH, D, q_off, k_off, causal, carry = RING_SHAPES[case]
+    rng = np.random.RandomState(4)
+    q, k, v, _ = _inputs(B, C, C, H, KVH, D, seed=4)
+    o = (3 * rng.randn(B, C, H, D)).astype(np.float32)
+    m = rng.randn(B, H, C).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (B, H, C)).astype(np.float32)
+    if carry == "dead":
+        m[:, :, ::3] = -np.inf
+    j = jflash.flash_ring_step(
+        *(jnp.asarray(x) for x in (q, k, v, o, m, l)), q_off, k_off, causal,
+        interpret=True,
+    )
+    t = tflash.flash_ring_step_plain(
+        *(torch.from_numpy(x) for x in (q, k, v, o, m, l)), q_off, k_off,
+        causal, block_q, 128,
+    )
+    for name, a, b in zip(("o", "m", "l"), t, j):
+        b = np.asarray(b)
+        # -inf (rows that have seen no key) must sit exactly where JAX's are
+        np.testing.assert_array_equal(np.isneginf(a.numpy()), np.isneginf(b), name)
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(a.numpy()[fin], b[fin], err_msg=name, **FWD)
+    # a row that has seen no key carries m = -inf, l = 0 and o = 0
+    dead = np.isneginf(t[1].numpy())
+    assert (t[2].numpy()[dead] == 0).all()
+    assert (t[0].numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
 
 
 def test_dkv_tilings_agree_with_each_other():

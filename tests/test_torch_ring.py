@@ -32,7 +32,8 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 
 # (B, C, H, KVH, Dh, q_off, k_off, causal, carry, dtype).  carry: "random"
 # o/m/l, "empty" (m = -inf, l = 0, o = 0), "dead" (random, every third
-# row's m at -inf)
+# row's m at -inf), "dominant" (random o and l, m above every scaled score
+# of the chunk by more than 30: the step must keep o to f32 rounding)
 STEP_CASES = {
     "diagonal": (2, 16, 4, 4, 16, 16, 16, True, "random", "f32"),
     "off-diagonal": (2, 16, 4, 4, 16, 32, 0, True, "random", "f32"),
@@ -43,7 +44,11 @@ STEP_CASES = {
     "non-causal": (2, 16, 4, 2, 16, 0, 16, False, "random", "f32"),
     "bf16-diagonal": (2, 16, 4, 4, 16, 16, 16, True, "random", "bf16"),
     "bf16-gqa-dead": (1, 32, 4, 2, 16, 32, 32, True, "dead", "bf16"),
+    "dominant-carry": (2, 16, 4, 4, 16, 16, 16, True, "dominant", "f32"),
+    "dominant-carry-gqa-off-diagonal": (2, 16, 4, 2, 16, 32, 0, True, "dominant", "f32"),
 }
+# far above any scaled score of these inputs (|s| < ~6 at Dh = 16)
+DOMINANT_M = 40.0
 
 
 def _step_inputs(B, C, H, KVH, Dh, carry, seed=0):
@@ -61,6 +66,8 @@ def _step_inputs(B, C, H, KVH, Dh, carry, seed=0):
         l = rng.uniform(0.5, 2.0, (B, H, C)).astype(np.float32)
         if carry == "dead":
             m[:, :, ::3] = -np.inf
+        if carry == "dominant":
+            m = m + np.float32(DOMINANT_M)
     return q, k, v, o, m, l
 
 
@@ -95,6 +102,21 @@ def test_ring_step_plain_matches_jax_interpret(case):
     assert dead.any() == (case in ("hidden-chunk", "half-hidden-rows"))
     assert (t[2].numpy()[dead] == 0).all()
     assert (t[0].numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["dominant-carry", "dominant-carry-gqa-off-diagonal"])
+def test_ring_step_keeps_a_dominant_carry_to_f32_rounding(case):
+    # alpha = 1 and every p < e^-30, so the new o is the carried o to f32
+    # rounding: a carry that passed through bf16 (~2e-3) would show here
+    B, C, H, KVH, Dh, q_off, k_off, causal, carry, _ = STEP_CASES[case]
+    q, k, v, o, m, l = _step_inputs(B, C, H, KVH, Dh, carry)
+    kv = np.arange(H) // (H // KVH)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k[:, :, kv]) / np.sqrt(Dh)
+    assert (m - s.max(-1)).min() > 30
+    t = tflash.flash_ring_step(*(torch.from_numpy(x) for x in (q, k, v, o, m, l)),
+                               q_off, k_off, causal)
+    np.testing.assert_allclose(t[0].numpy(), o, rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(t[1].numpy(), m)
 
 
 def test_ring_step_leaves_its_inputs_unchanged():
