@@ -106,6 +106,13 @@ struct Fwd {
                                  8 * BARRIERS + ATOM_BYTES;
 };
 
+// flash_ring.cu::ring_step_tma_bf16 holds a second copy of this loop (the
+// same roles, ring, barrier phases, masks and early tile release), kept
+// apart because one shared loop made this kernel 2-4% slower (PERF.md).
+// A fix to any of those here is made there too, and the other way round.
+// The copies differ on purpose only in the prologue and epilogue (carry in
+// and out there; 1/l and lse here), the global offsets of the mask, and
+// alpha, which there is exactly 1 while the max holds.
 template <int D>
 __global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,

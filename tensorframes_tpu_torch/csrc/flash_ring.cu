@@ -135,6 +135,13 @@ struct Carry {
   float* l_out;
 };
 
+// flash_fwd.cu::flash_fwd_bf16 holds a second copy of this loop (the same
+// roles, ring, barrier phases, masks and early tile release), kept apart
+// because one shared loop made the forward 2-4% slower (PERF.md).  A fix
+// to any of those here is made there too, and the other way round.  The
+// copies differ on purpose only in the prologue and epilogue (carry in and
+// out here; 1/l and lse there), the global offsets of the mask, and alpha,
+// which here is exactly 1 while the max holds.
 template <int D>
 __global__ void __launch_bounds__(Ring<D>::THREADS, 1)
 ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,

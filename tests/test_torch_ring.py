@@ -46,8 +46,9 @@ STEP_CASES = {
     "bf16-gqa-dead": (1, 32, 4, 2, 16, 32, 32, True, "dead", "bf16"),
     "dominant-carry": (2, 16, 4, 4, 16, 16, 16, True, "dominant", "f32"),
     "dominant-carry-gqa-off-diagonal": (2, 16, 4, 2, 16, 32, 0, True, "dominant", "f32"),
+    "dominant-carry-dh128": (2, 16, 4, 2, 128, 16, 16, True, "dominant", "f32"),
 }
-# far above any scaled score of these inputs (|s| < ~6 at Dh = 16)
+# far above any scaled score of these inputs (|s| < ~6 at Dh = 16 and 128)
 DOMINANT_M = 40.0
 
 
@@ -104,7 +105,8 @@ def test_ring_step_plain_matches_jax_interpret(case):
     assert (t[0].numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
 
 
-@pytest.mark.parametrize("case", ["dominant-carry", "dominant-carry-gqa-off-diagonal"])
+@pytest.mark.parametrize("case", ["dominant-carry", "dominant-carry-gqa-off-diagonal",
+                                  "dominant-carry-dh128"])
 def test_ring_step_keeps_a_dominant_carry_to_f32_rounding(case):
     # alpha = 1 and every p < e^-30, so the new o is the carried o to f32
     # rounding: a carry that passed through bf16 (~2e-3) would show here
