@@ -11,16 +11,20 @@ Phases, each printing its own lines:
    ``nvidia-smi`` reports them;
 2. build: the CUDA kernels from ``tensorframes_tpu_torch/csrc`` (one nvcc
    per source, started together), with ptxas' register/spill report; the
-   Hopper design of the four bf16 kernels (the forward, dQ, dK/dV and the
-   ring step) is asserted in the built code: ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions in every instantiation's SASS
-   (``cuobjdump``), 0 bytes of ptxas spills, and no ignored ``setmaxnreg``;
+   Hopper design of the four 16-bit kernels (the forward, dQ, dK/dV and the
+   ring step, each instantiated for bf16 and f16 at Dh 64 and 128) is
+   asserted in the built code: the four instantiations of each, ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions in every instantiation's
+   SASS (``cuobjdump``), 0 bytes of ptxas spills, and no ignored
+   ``setmaxnreg``;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
-   wraps the kernels' stage rings many times, q/k/v as strided views), with
-   stated tolerances; the ring step also keeps a dominant carry (m above
-   every score of the chunk by > 30) to f32 rounding;
+   wraps the kernels' stage rings many times, q/k/v as strided views, head
+   dims 8, 12, 32 and 96 zero-padded by the wrappers, f16 at Dh 64 and
+   128), with stated tolerances; the ring step also keeps a dominant carry
+   (m above every score of the chunk by > 30) to f32 rounding, in bf16,
+   f16 and at a padded Dh;
    gradients through the autograd Function on the card against the same
    Function on CPU copies; and an explicit ``ring_flash`` at a chunk the
    TPU cannot tile, which must launch the ring step on every hop;
@@ -28,13 +32,27 @@ Phases, each printing its own lines:
    equivalent at the main paths' shape, beside the least time the card
    could take (its bound) and the counted TFLOP/s; the ring step at both flagship hops (diagonal
    and off-diagonal), with SDPA's forward on the same chunk pair as the
-   nearest yardstick (no library call folds a carry);
+   nearest yardstick (no library call folds a carry); the forward also at
+   Dh = 32 (padded) and in f16, beside SDPA at the same shapes (records);
 5. slice (scoring): the flagship transformer (series widths, random seeded
    weights) scores a 64-row frame of 2048-token cells through
    ``map_blocks`` with ``attn_impl="flash"``; the kernels' launches are
    counted over that run alone; results are checked for shape and
    finiteness, against the same frame scored with ``attn_impl="full"``,
-   and, on a small input, against the port's CPU path;
+   and, on a small input, against the port's CPU path; then the
+   small-head slice: a Dh = 32 model (d_model 128, 4 heads) scores a frame
+   with ``attn_impl="flash"`` (forward launches ``n_layers x blocks``; nll
+   against the CPU path, f32 at 1e-4 and bf16 at the slice's 3e-2);
+   then the verbs at BASELINE configs 2, 3 and 5's sizes and the
+   reference's k-means demo: ``reduce_blocks`` sum/min and ``reduce_rows``
+   (tree) over 500,000 x 64 f32 in 4 blocks, ``reduce_rows`` sequential at
+   4,096 rows, ``map_rows`` of a 784-256-128-10 MLP over 65,536 rows (also
+   against ``block_scoring_program`` through ``map_blocks``), 20
+   logistic-regression gradient steps over 500,000 x 64 (the loss must
+   fall), 10 k-means steps over 100,000 x 100 with k = 10 by both
+   strategies, and ``aggregate`` over keys of more than 8 group sizes (the
+   combine tree); each against the port's CPU path and numpy at stated
+   tolerances, each with its Mrows/s;
 6. train: the flagship train step (bench config 6's widths, remat "none")
    runs one epoch of a 64-row frame of 2049-token rows through a
    ``FrameLoader`` and ``train.fit``, after one warm-up step; the kernels'
@@ -79,11 +97,22 @@ import numpy as np
 import torch
 
 # the card's published peaks (H100 SXM data sheet, dense), for the bound
-PEAK_BF16_FLOPS = 989e12
+PEAK_16BIT_FLOPS = 989e12  # bf16 and f16 alike
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(B=8, Lq=2048, Lk=2048, H=16, KVH=16, D=64, dtype=torch.bfloat16, causal=True)
+# the small-head slice: a JAX test width (d_model 128, 4 heads: Dh = 32),
+# which the kernels run zero-padded to 64
+SMALL_HEAD = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=4,
+                  d_ff=512, max_seq=512, attn_impl="flash")
+SMALL_HEAD_ROWS, SMALL_HEAD_L, SMALL_HEAD_BLOCKS = 16, 512, 4
+SMALL_HEAD_TOL = 1e-4  # f32, card vs CPU: summation order
+# the attention that slice launches: one block's rows at the model's heads
+SMALL_HEAD_ATTN = dict(B=SMALL_HEAD_ROWS // SMALL_HEAD_BLOCKS, Lq=SMALL_HEAD_L,
+                       Lk=SMALL_HEAD_L, H=SMALL_HEAD["n_heads"],
+                       KVH=SMALL_HEAD["n_kv_heads"],
+                       D=SMALL_HEAD["d_model"] // SMALL_HEAD["n_heads"], causal=True)
 # (name, shape, tolerance): bf16 outputs round to bf16 (~2^-8 relative) and
 # p is rounded to bf16 before PV in both versions, so a 1-ulp difference in
 # p or out is expected; f32 differs only by summation order and expf
@@ -102,15 +131,34 @@ KERNEL_CASES = [
     # descriptors' strides are not a contiguous tensor's
     ("strided_fused", dict(B=2, Lq=300, Lk=300, H=8, KVH=2, D=64, dtype=torch.bfloat16,
                            causal=True, layout="fused")),
+    # head dims other than 64 and 128 (JAX configs' and tests' widths), zero-
+    # padded to the kernels' 64 or 128 by the wrappers
+    ("dh8", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=8, dtype=torch.bfloat16, causal=True)),
+    ("dh12", dict(B=2, Lq=257, Lk=257, H=4, KVH=4, D=12, dtype=torch.bfloat16, causal=False)),
+    ("dh32", dict(B=4, Lq=1024, Lk=1024, H=4, KVH=4, D=32, dtype=torch.bfloat16, causal=True)),
+    ("dh96", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=2, D=96, dtype=torch.bfloat16, causal=True)),
+    # the small-head slice's own shape, in both of its dtypes
+    ("small_head", dict(SMALL_HEAD_ATTN, dtype=torch.bfloat16)),
+    ("small_head_f32", dict(SMALL_HEAD_ATTN, dtype=torch.float32)),
+    # f16: the same kernels instantiated for __half
+    ("f16_dh64", dict(B=2, Lq=2048, Lk=2048, H=16, KVH=4, D=64, dtype=torch.float16, causal=True)),
+    ("f16_dh128", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=8, D=128, dtype=torch.float16, causal=True)),
+    ("f16_dh12_cross", dict(B=2, Lq=24, Lk=40, H=4, KVH=2, D=12, dtype=torch.float16, causal=False)),
 ]
-TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # atol = rtol
-LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 2e-5}
+# f16 rounds finer than bf16 (2^-11 against 2^-8), so it has limits of its
+# own, between what the sound kernels need on an H100 (least_tol: out
+# <= 4.8e-4, dQ/dK/dV <= 6.5e-4, ring o/l <= 1.5e-4) and what the same
+# kernels need with P and dS rounded through bf16 before f16 (out >= 1.7e-3,
+# gradients >= 1.6e-3, ring o/l >= 4.2e-4): the fault an f16 instantiation
+# is likeliest to bring
+TOL = {torch.bfloat16: 2e-2, torch.float16: 1e-3, torch.float32: 2e-5}  # atol = rtol
+LSE_TOL = {torch.bfloat16: 1e-4, torch.float16: 1e-4, torch.float32: 2e-5}
 # backward kernels against flash_attention_bwd_plain on the same out/lse:
 # both cast P and dS to bf16 at the same points, so a 1-ulp flip of a cast
 # and the bf16 rounding of the result (~2^-8 relative) are expected; f32
 # differs by summation order and exp, at the JAX suite's own gradient
 # tolerance (tests/test_flash.py)
-BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 1e-3, torch.float32: 2e-4}
 NLL_TOL = 3e-2  # flash vs full, bf16 model, on a mean NLL of ~9
 
 # the ring step at the ring slice's chunk (L=8192 over sp=4): rank 2's own
@@ -154,6 +202,17 @@ RING_CASES = [
      1000, 1000, "dominant"),
     ("dominant_carry_dh128", dict(B=2, C=1000, H=8, KVH=2, D=128, dtype=torch.bfloat16,
                                   causal=True), 1000, 1000, "dominant"),
+    # padded head dims (the carry's o padded with them) and f16
+    ("dh8", dict(B=2, C=300, H=4, KVH=2, D=8, dtype=torch.bfloat16, causal=True), 300, 0, "random"),
+    ("dh12", dict(B=2, C=257, H=4, KVH=4, D=12, dtype=torch.bfloat16, causal=True), 257, 257, "random"),
+    ("dh32", dict(B=4, C=1024, H=4, KVH=4, D=32, dtype=torch.bfloat16, causal=True), 2048, 1024, "random"),
+    ("dh96", dict(B=2, C=1000, H=8, KVH=2, D=96, dtype=torch.bfloat16, causal=True), 1000, 1000, "random"),
+    ("f16_dh64", dict(B=2, C=2048, H=16, KVH=4, D=64, dtype=torch.float16, causal=True), 2048, 2048, "random"),
+    ("f16_dh128", dict(B=2, C=1000, H=8, KVH=8, D=128, dtype=torch.float16, causal=True), 1037, 0, "random"),
+    ("dominant_carry_f16", dict(B=2, C=1000, H=8, KVH=2, D=64, dtype=torch.float16,
+                                causal=True), 1000, 1000, "dominant"),
+    ("dominant_carry_dh32", dict(B=2, C=1000, H=8, KVH=2, D=32, dtype=torch.bfloat16,
+                                 causal=True), 1000, 1000, "dominant"),
 ]
 # o is compared as o / l: the un-normalised o carries the row's denominator
 # (up to ~2000 here), so one bf16 rounding of p that differs between exp2f
@@ -162,7 +221,7 @@ RING_CASES = [
 # the limit sits at a few times that, not at the forward's 2e-2 (a typical
 # |o / l| at the flagship chunk is ~0.03).  m and l: as the forward's lse,
 # f32 sums in another order
-RING_O_TOL = {torch.bfloat16: 5e-3, torch.float32: 2e-5}
+RING_O_TOL = {torch.bfloat16: 5e-3, torch.float16: 2.5e-4, torch.float32: 2e-5}
 RING_ML_TOL = 1e-4
 # the dominant carry's raw o against the carried o (atol = rtol): what the
 # step adds is below e^-30 of it, so only f32 rounding of o * alpha remains
@@ -238,6 +297,15 @@ def check_close(name, got, ref, tol) -> float:
     return err
 
 
+def least_tol(got, ref) -> float:
+    """The least atol = rtol at which :func:`check_close` passes ``got``
+    against ``ref``: the check's margin, printed beside its limit."""
+    got, ref = got.float(), ref.float()
+    finite = torch.isfinite(ref)
+    ratio = (got - ref).abs()[finite] / (1 + ref.abs()[finite])
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
 def qkv(c, seed=0):
     """Seeded q, k, v on the card: contiguous, or with ``layout="fused"``
     views into one [B, L, H + 2 KVH, D] tensor (Lq == Lk)."""
@@ -276,7 +344,7 @@ def kernel_bound(c, kernel):
         "flash_bwd_dq": 3 * q_like + 2 * kv_like + 2 * row,  # q, dO, k, v, lse, D -> dq
         "flash_bwd_dkv": 2 * q_like + 4 * kv_like + 2 * row,  # ... -> dk, dv
     }[kernel]
-    peak = PEAK_BF16_FLOPS if c["dtype"] == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_F32_FLOPS if c["dtype"] == torch.float32 else PEAK_16BIT_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -296,7 +364,7 @@ def ring_bound(c, q_off, k_off):
     nbytes = (es * B * C * (H + 2 * KVH) * D  # q, k, v
               + 2 * 4 * B * C * H * D  # o in and out, f32
               + 4 * 4 * B * H * C)  # m and l in and out, f32
-    peak = PEAK_BF16_FLOPS if c["dtype"] == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_F32_FLOPS if c["dtype"] == torch.float32 else PEAK_16BIT_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -338,12 +406,16 @@ def phase_build():
 # (source, kernel): the kernels whose design (TMA loads, wgmma) the built
 # code must show
 HOPPER_KERNELS = [
-    ("flash_fwd", "flash_fwd_bf16"),
-    ("flash_bwd", "flash_bwd_dq_bf16"),
-    ("flash_bwd", "flash_bwd_dkv_bf16"),
-    ("flash_ring", "ring_step_tma_bf16"),
+    ("flash_fwd", "flash_fwd_tma"),
+    ("flash_bwd", "flash_bwd_dq_tma"),
+    ("flash_bwd", "flash_bwd_dkv_tma"),
+    ("flash_ring", "ring_step_tma"),
 ]
 SASS_OPS = ("HGMMA", "UTMALDG")
+# each kernel's instantiations: bf16 and f16 (mangled __nv_bfloat16 and
+# __half) at Dh = 64 and 128
+ELEMENT_TYPES = ("__nv_bfloat16", "__half")
+INSTANTIATIONS = len(ELEMENT_TYPES) * 2
 
 
 def ptxas_spills(log):
@@ -360,9 +432,9 @@ def ptxas_spills(log):
 
 
 def check_hopper_design(_build):
-    """The four bf16 kernels, as built: HGMMA and UTMALDG in every
-    instantiation's SASS, no spills, and no setmaxnreg that ptxas
-    ignored."""
+    """The four 16-bit kernels, as built: four instantiations each (bf16
+    and f16 at Dh 64 and 128), HGMMA and UTMALDG in every instantiation's
+    SASS, no spills, and no setmaxnreg that ptxas ignored."""
     sass_of = {}
     for src, kernel in HOPPER_KERNELS:
         if src not in sass_of:
@@ -381,6 +453,11 @@ def check_hopper_design(_build):
         spills = {fn: v for fn, v in ptxas_spills(log).items() if kernel in fn}
         if not counts or any(0 in c.values() for c in counts.values()):
             raise AssertionError(f"{kernel}: SASS lacks {SASS_OPS}: {counts}")
+        types = {t: sum(t in fn for fn in counts) for t in ELEMENT_TYPES}
+        if len(counts) != INSTANTIATIONS or set(types.values()) != {2}:
+            raise AssertionError(
+                f"{kernel}: expected {INSTANTIATIONS} instantiations (bf16 and "
+                f"f16, Dh 64 and 128), found {sorted(counts)}")
         if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
             raise AssertionError(f"{kernel}: ptxas spills {spills}")
         if "C7508" in log:
@@ -413,9 +490,11 @@ def phase_kernels():
         }
         errs[name] = dict(flash_fwd=e_out, flash_bwd_dq=e_bwd["dq"],
                           flash_bwd_dkv=max(e_bwd["dk"], e_bwd["dv"]))
+        need = {"out": least_tol(out, ref_out), **{
+            g: least_tol(got, ref) for g, got, ref in zip(("dq", "dk", "dv"), grads, refs)}}
         say("kernel", case=name, max_abs_err_out=e_out, max_abs_err_lse=e_lse,
             max_abs_err_bwd=e_bwd, tol=TOL[c["dtype"]],
-            bwd_tol=BWD_TOL[c["dtype"]],
+            bwd_tol=BWD_TOL[c["dtype"]], least_tol=need,
             shape={k_: str(v_) for k_, v_ in c.items()})
     errs["autograd"] = phase_autograd()
     errs["ring"] = phase_ring_kernel()
@@ -497,27 +576,32 @@ def phase_ring_kernel():
         errs[name] = e["o/l"]
         say("kernel", ring_case=name, q_off=q_off, k_off=k_off, carry=carry,
             max_abs_err=e, o_tol=RING_O_TOL[c["dtype"]], ml_tol=RING_ML_TOL,
+            least_tol_o_l=least_tol(per_l(got[0], ref[2]), per_l(ref[0], ref[2])),
             shape={k_: str(v_) for k_, v_ in c.items()})
 
     # an explicit ring_flash folds every hop with the kernel, also at a chunk
     # the TPU cannot tile (C = 130), and agrees with the xla step
     from tensorframes_tpu_torch.parallel import mesh, ring
 
+    # (and at Dh = 32, where ring.py pads q, k, v once for every hop and
+    # carries o padded)
     sp, C = 4, 130
-    q, k, v = qkv(dict(B=2, Lq=sp * C, Lk=sp * C, H=4, KVH=2, D=64,
-                       dtype=torch.bfloat16), seed=1)
-    with mesh.set_mesh(mesh.training_mesh(sp=sp)):
-        flash.reset_launches()
-        got = ring.ring_attention(q, k, v, True, impl="flash")
-        torch.cuda.synchronize()
-        n = flash.launches_ring
-        ref = ring.ring_attention(q, k, v, True, impl="xla")
-    if n != hops_per_layer(sp):
-        raise AssertionError(f"ring_flash at C={C}: {n} ring steps, "
-                             f"expected {hops_per_layer(sp)}")
-    e = check_close(f"ring_flash C={C} vs xla step", got, ref, TOL[torch.bfloat16])
-    say("kernel", check=f"ring_flash at C={C}, sp={sp}, vs the xla step",
-        ring_step_launches=n, max_abs_err=e, tol=TOL[torch.bfloat16])
+    for D in (64, 32):
+        q, k, v = qkv(dict(B=2, Lq=sp * C, Lk=sp * C, H=4, KVH=2, D=D,
+                           dtype=torch.bfloat16), seed=1)
+        with mesh.set_mesh(mesh.training_mesh(sp=sp)):
+            flash.reset_launches()
+            got = ring.ring_attention(q, k, v, True, impl="flash")
+            torch.cuda.synchronize()
+            n = flash.launches_ring
+            ref = ring.ring_attention(q, k, v, True, impl="xla")
+        if n != hops_per_layer(sp) or got.shape != q.shape:
+            raise AssertionError(f"ring_flash at C={C}, Dh={D}: {n} ring steps, "
+                                 f"expected {hops_per_layer(sp)}; out {tuple(got.shape)}")
+        e = check_close(f"ring_flash C={C} Dh={D} vs xla step", got, ref,
+                        TOL[torch.bfloat16])
+        say("kernel", check=f"ring_flash at C={C}, Dh={D}, sp={sp}, vs the xla step",
+            ring_step_launches=n, max_abs_err=e, tol=TOL[torch.bfloat16])
     return errs
 
 
@@ -594,7 +678,49 @@ def phase_timing():
                 share_of_bound=bound_ms / row["ms"],
                 tflops_per_s=flops / row["ms"] / 1e9)
     timing["flash_ring_step"] = phase_ring_timing()
+    timing["flash_fwd_variants"] = phase_fwd_variant_timing()
     return timing
+
+
+# the forward at a padded head dim and in f16, at the flagship's batch,
+# length and heads (records only: the bound is the true head dim's work)
+FWD_VARIANTS = {
+    "dh32_bf16": dict(FLAGSHIP, D=32),
+    "dh64_f16": dict(FLAGSHIP, dtype=torch.float16),
+}
+
+
+def phase_fwd_variant_timing():
+    """The forward kernel at Dh = 32 (zero-padded to 64 by the wrapper, the
+    pad and slice included) and at Dh = 64 in f16, beside SDPA at the same
+    shape and each one's bound; the timed call's output is held against
+    the plain version's on the same inputs."""
+    from tensorframes_tpu_torch.parallel import flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    with torch.no_grad():
+        for name, c in FWD_VARIANTS.items():
+            q, k, v = qkv(c, seed=3)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out, lse = flash.flash_attention_fwd(q, k, v, True)
+            ref_out, ref_lse = flash.flash_attention_plain(q, k, v, True)
+            err = check_close(f"{name} out", out, ref_out, TOL[c["dtype"]])
+            check_close(f"{name} lse", lse, ref_lse, LSE_TOL[c["dtype"]])
+            del out, lse, ref_out, ref_lse
+            bound_ms, bound_by, flops = kernel_bound(c, "flash_fwd")
+            row = dict(
+                ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, True), 20),
+                plain_ms=cuda_ms(lambda: flash.flash_attention_plain(q, k, v, True), 3, 1),
+                library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20),
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            )
+            rows[name] = row
+            say("timing", kernel="flash_fwd", variant=name, **row,
+                share_of_bound=bound_ms / row["ms"],
+                tflops_per_s=flops / row["ms"] / 1e9,
+                shape={k_: str(v_) for k_, v_ in c.items()})
+    return rows
 
 
 def phase_ring_timing():
@@ -704,6 +830,252 @@ def phase_slice():
     say("slice", check="small input, cuda vs cpu (f32, atol=rtol=1e-4)",
         max_abs_err=errs)
     return prog, frame
+
+
+
+
+def phase_small_head_slice():
+    """A model at Dh = 32 scores a frame through map_blocks with
+    attn_impl="flash" on the card: the forward kernel must launch
+    n_layers x blocks times (padded launches count), and nll must agree
+    with the port's CPU path: f32 at 1e-4; bf16 (the TMA kernel) at the
+    scoring slice's NLL_TOL."""
+    from tensorframes_tpu_torch import TensorFrame, map_blocks
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    toks = np.random.RandomState(5).randint(
+        0, SMALL_HEAD["vocab_size"], (SMALL_HEAD_ROWS, SMALL_HEAD_L)).astype(np.int32)
+    frame = TensorFrame.from_arrays({"tokens": toks}, num_blocks=SMALL_HEAD_BLOCKS)
+    f32 = tfm.TransformerConfig(**SMALL_HEAD, dtype=torch.float32)
+    cpu_params = tfm.init(torch.Generator().manual_seed(2), f32, device="cpu")
+    cpu = map_blocks(scoring.scoring_program(cpu_params, f32, fetches=("nll",),
+                                             device="cpu"), frame).to_arrays()["nll"]
+    for dtype, tol in ((torch.float32, SMALL_HEAD_TOL), (torch.bfloat16, NLL_TOL)):
+        cfg = dataclasses.replace(f32, dtype=dtype)
+        prog = scoring.scoring_program(cpu_params, cfg, fetches=("nll",), device="cuda")
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        nll = map_blocks(prog, frame).to_arrays()["nll"]
+        sec = time.perf_counter() - t0
+        want = cfg.n_layers * SMALL_HEAD_BLOCKS
+        if flash.launches != want:
+            raise AssertionError(f"small-head slice ({dtype}): {flash.launches} forward "
+                                 f"launches, expected n_layers x blocks = {want}")
+        err = check_close(f"small-head nll {dtype}", torch.from_numpy(nll),
+                          torch.from_numpy(cpu), tol)
+        say("small_head_slice", dtype=str(dtype), head_dim=cfg.d_model // cfg.n_heads,
+            kernel_head_dim=flash.kernel_head_dim(cfg.d_model // cfg.n_heads),
+            rows=SMALL_HEAD_ROWS, tokens_per_row=SMALL_HEAD_L, blocks=SMALL_HEAD_BLOCKS,
+            flash_launches=flash.launches, seconds=sec,
+            nll_max_abs_err_vs_cpu=err, tol=tol)
+
+
+# the verbs phase: BASELINE configs 2, 3 and 5 at their data sizes
+# (bench.py:208-230, 320-330, 418-432), and the reference's k-means demo
+# (kmeans_demo.py:208-255)
+VERB_ROWS, VERB_D, VERB_BLOCKS = 500_000, 64, 4
+SEQ_ROWS = 4_096  # the sequential fold: one dependent call per row
+MLP_ROWS, MLP_SIZES = 65_536, [784, 256, 128, 10]
+LOGREG_STEPS = 20
+KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_STEPS = 100_000, 100, 10, 10
+AGG_ROWS, AGG_KEYS = 200_000, 1_000
+# f32 sums over 125k rows a block in another order than the CPU's (and
+# than numpy's f64): relative 1e-4; min, max and integer results exactly
+SUM_RTOL = 1e-4
+# the MLP's logits: f32 GEMMs (TF32 off) on the card and the CPU
+MLP_TOL = 1e-4
+# k-means centers (|x| ~ 10): an argmin near-tie between the card's GEMM
+# and the CPU's moves a point to another cluster, so centers are compared
+# at 1e-3 and assignments only between strategies on one device
+KMEANS_TOL = 1e-3
+
+
+def timed(fn):
+    """(result, seconds) of fn() after one warm-up call; fn ends in a host
+    readback, so the clock stops after the device's work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_results(name, got, ref, rtol, atol=0.0, keys=None):
+    """The largest |got - ref| over ``keys`` (default: every key of ref);
+    raises beyond rtol/atol."""
+    err = 0.0
+    for k in keys or ref:
+        g, r = np.asarray(got[k], np.float64), np.asarray(ref[k], np.float64)
+        if g.shape != r.shape or not np.allclose(g, r, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"{name} {k}: shapes {g.shape}/{r.shape}, max |diff| "
+                f"{np.abs(g - r).max() if g.shape == r.shape else None} beyond "
+                f"rtol={rtol}, atol={atol}")
+        err = max(err, float(np.abs(g - r).max()) if g.size else 0.0)
+    return err
+
+
+def phase_verbs():
+    """The four verbs at the BASELINE configs' sizes on the card, each
+    against the port's CPU path and numpy, each with Mrows/s."""
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch.models import kmeans, logistic_regression as lr, mlp
+
+    cpu = dict(device="cpu")
+    rng = np.random.RandomState(0)
+    vals = rng.rand(VERB_ROWS, VERB_D).astype(np.float32)
+    frame = tft.TensorFrame.from_arrays({"v": vals}, num_blocks=VERB_BLOCKS)
+    exact = {"v": vals.astype(np.float64).sum(0)}
+    rows = {}
+
+    def leg(name, n_rows, card, host, ref, rtol, atol=0.0, keys=None, **extra):
+        """Run ``card`` (timed) and ``host`` (the port's CPU path), compare
+        ``keys`` of both, and of ``card`` against numpy's ``ref``."""
+        got, sec = timed(card)
+        e_cpu = check_results(f"{name} vs cpu", got, host(), rtol, atol, keys)
+        e_np = check_results(f"{name} vs numpy", got, ref, rtol, atol) if ref else None
+        rows[name] = dict(rows=n_rows, seconds=sec, mrows_per_s=n_rows / sec / 1e6)
+        say("verbs", leg=name, rows=n_rows, seconds=sec, mrows_per_s=n_rows / sec / 1e6,
+            max_abs_err_vs_cpu=e_cpu, max_abs_err_vs_numpy=e_np, rtol=rtol, atol=atol,
+            **extra)
+        return got
+
+    # config 2: reduce_blocks sum and min over a 500k x 64 f32 frame
+    for op, ref in (("sum", exact), ("min", {"v": vals.min(0)})):
+        fn = (lambda v_input: {"v": v_input.sum(0)}) if op == "sum" else (
+            lambda v_input: {"v": v_input.amin(0)})
+        leg(f"reduce_blocks_{op}", VERB_ROWS,
+            lambda: tft.reduce_blocks(fn, frame),
+            lambda: tft.reduce_blocks(fn, frame, **cpu), ref,
+            SUM_RTOL if op == "sum" else 0.0)
+    pair = lambda v_1, v_2: {"v": v_1 + v_2}  # noqa: E731
+    leg("reduce_rows_tree", VERB_ROWS, lambda: tft.reduce_rows(pair, frame),
+        lambda: tft.reduce_rows(pair, frame, **cpu), exact, SUM_RTOL)
+    small = tft.TensorFrame.from_arrays({"v": vals[:SEQ_ROWS]}, num_blocks=VERB_BLOCKS)
+    leg("reduce_rows_sequential", SEQ_ROWS,
+        lambda: tft.reduce_rows(pair, small, mode="sequential"),
+        lambda: tft.reduce_rows(pair, small, mode="sequential", **cpu),
+        {"v": vals[:SEQ_ROWS].astype(np.float64).sum(0)}, SUM_RTOL)
+
+    # config 3's widths: map_rows of a 784-256-128-10 MLP over 65,536 rows
+    params = mlp.init(torch.Generator().manual_seed(0), MLP_SIZES, device="cpu")
+    feats = rng.rand(MLP_ROWS, MLP_SIZES[0]).astype(np.float32)
+    pix = tft.TensorFrame.from_arrays({"pixels": feats}, num_blocks=VERB_BLOCKS)
+    h = feats.astype(np.float64)
+    for layer in params[:-1]:
+        h = np.maximum(h @ layer["w"].double().numpy() + layer["b"].double().numpy(), 0)
+    want = h @ params[-1]["w"].double().numpy() + params[-1]["b"].double().numpy()
+    row_prog = mlp.scoring_program(params, device="cuda")
+    got = leg("map_rows_mlp", MLP_ROWS,
+              lambda: tft.map_rows(row_prog, pix, feed_dict={"image": "pixels"}).to_arrays(),
+              lambda: tft.map_rows(mlp.scoring_program(params, **cpu), pix,
+                                   feed_dict={"image": "pixels"}).to_arrays(),
+              {"logits": want}, MLP_TOL, MLP_TOL, keys=("logits",))
+    blocks = tft.map_blocks(mlp.block_scoring_program(params, device="cuda"), pix,
+                            feed_dict={"image": "pixels"}).to_arrays()
+    e_blk = check_results("map_rows_mlp vs map_blocks", got, blocks, MLP_TOL, MLP_TOL,
+                          ("logits",))
+    if not np.array_equal(got["prediction"], got["logits"].argmax(1)):
+        raise AssertionError("map_rows_mlp: prediction is not the argmax of its logits")
+    say("verbs", leg="map_rows_mlp", check="vs block_scoring_program through map_blocks",
+        max_abs_err=e_blk, tol=MLP_TOL)
+
+    # config 5, eager: logistic-regression gradient steps over 500k x 64
+    w_true = rng.randn(VERB_D).astype(np.float32)
+    labels = (vals @ w_true > 0).astype(np.float32)
+    lframe = tft.TensorFrame.from_arrays({"features": vals, "label": labels},
+                                         num_blocks=VERB_BLOCKS)
+
+    def fit(device):
+        p, losses = lr.init(VERB_D, device=device), []
+        progs = {}
+        for i in range(LOGREG_STEPS):
+            p, loss = lr.gradient_step(p, lframe, 0.5, device=device, _programs=progs)
+            losses.append(loss)
+            if i == 0:
+                w1 = p["w"].cpu().numpy()
+        return {"w": p["w"].cpu().numpy(), "w1": w1, "loss": np.array(losses)}
+
+    # numpy: the first step from w = b = 0, where every logit is exactly 0
+    # and the mean loss is log 2.  There the derivatives JAX takes (and the
+    # port with it) of max(l, 0) and |l| are 1/2 and 1, so the loss's
+    # gradient in l is -y (not sigmoid(0) - y): w1 = lr * X^T y / n
+    w1 = 0.5 * (vals.astype(np.float64).T @ labels.astype(np.float64)) / VERB_ROWS
+    got, sec = timed(lambda: fit("cuda"))
+    host = fit("cpu")
+    e_cpu = check_results("logreg vs cpu", got, host, SUM_RTOL, SUM_RTOL)
+    e_np = check_results("logreg vs numpy", {"w1": got["w1"], "loss0": got["loss"][:1]},
+                         {"w1": w1, "loss0": np.log([2.0])}, SUM_RTOL, SUM_RTOL)
+    if not (np.isfinite(got["loss"]).all() and got["loss"][-1] < got["loss"][0]):
+        raise AssertionError(f"logreg losses not finite and falling: {got['loss']}")
+    n_rows = VERB_ROWS * LOGREG_STEPS
+    rows["logreg_gradient_step"] = dict(rows=n_rows, seconds=sec,
+                                        mrows_per_s=n_rows / sec / 1e6)
+    say("verbs", leg="logreg_gradient_step", rows=n_rows, steps=LOGREG_STEPS,
+        seconds=sec, mrows_per_s=n_rows / sec / 1e6, ms_per_step=sec / LOGREG_STEPS * 1e3,
+        max_abs_err_vs_cpu=e_cpu, max_abs_err_vs_numpy=e_np, rtol=SUM_RTOL,
+        atol=SUM_RTOL, losses=got["loss"].tolist())
+
+    # the reference's k-means demo: 100k x 100, k = 10, 10 Lloyd steps
+    kr = np.random.RandomState(1)
+    true = kr.randn(KMEANS_K, KMEANS_D) * 10
+    pts = (true[kr.randint(0, KMEANS_K, KMEANS_N)]
+           + kr.randn(KMEANS_N, KMEANS_D)).astype(np.float32)
+    kframe = tft.TensorFrame.from_arrays({"points": pts}, num_blocks=VERB_BLOCKS)
+    init = pts[:KMEANS_K].astype(np.float64)
+    # numpy's Lloyd steps in f64: argmin of ||c||^2 - 2 x.c, then the means
+    # (an empty cluster keeps its center)
+    ref = init.copy()
+    x64 = pts.astype(np.float64)
+    for _ in range(KMEANS_STEPS):
+        idx = ((ref * ref).sum(1)[None, :] - 2.0 * x64 @ ref.T).argmin(1)
+        onehot = (idx[:, None] == np.arange(KMEANS_K)[None, :]).astype(np.float64)
+        counts, sums = onehot.sum(0), onehot.T @ x64
+        ref = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1)[:, None], ref)
+    centers = {}
+    for strategy in ("preagg", "aggregate"):
+        def run(device, strategy=strategy):
+            c, a = kmeans.fit(kframe, KMEANS_K, KMEANS_STEPS, strategy, device=device,
+                              init_centers=init)
+            return {"centers": c, "assign": a}
+
+        # rows: points x Lloyd steps
+        got = leg(f"kmeans_{strategy}", KMEANS_N * KMEANS_STEPS, lambda: run("cuda"),
+                  lambda: run("cpu"), {"centers": ref}, 0.0, KMEANS_TOL,
+                  keys=("centers",), steps=KMEANS_STEPS)
+        centers[strategy] = got
+    e = check_results("kmeans preagg vs aggregate", centers["preagg"],
+                      centers["aggregate"], 0.0, KMEANS_TOL, ("centers",))
+    if not np.array_equal(centers["preagg"]["assign"], centers["aggregate"]["assign"]):
+        raise AssertionError("kmeans: the two strategies assign points differently")
+    say("verbs", leg="kmeans", check="preagg vs aggregate on the card", max_abs_err=e,
+        tol=KMEANS_TOL)
+
+    # aggregate over keys of more than 8 distinct group sizes: the tree path
+    ar = np.random.RandomState(2)
+    # skewed group sizes (a Pareto tail) scaled to about AGG_ROWS rows
+    sizes = 1 + ar.pareto(1.0, AGG_KEYS)
+    sizes = np.maximum(1, np.round(sizes / sizes.sum() * AGG_ROWS)).astype(np.int64)
+    keys = np.repeat(np.arange(AGG_KEYS), sizes)
+    keys = keys[ar.permutation(len(keys))]
+    avals = ar.rand(len(keys), VERB_D).astype(np.float32)
+    aframe = tft.TensorFrame.from_arrays({"k": keys, "v": avals}, num_blocks=VERB_BLOCKS)
+    distinct_sizes = len(np.unique(np.bincount(keys)))
+    if distinct_sizes <= 8:
+        raise AssertionError(f"aggregate leg: only {distinct_sizes} distinct group sizes")
+    order = np.argsort(keys, kind="stable")
+    starts = np.r_[0, np.nonzero(np.diff(keys[order]))[0] + 1]
+    present = keys[order][starts]
+    ref = np.add.reduceat(avals[order].astype(np.float64), starts)
+    agg = lambda v_input: {"v": v_input.sum(0)}  # noqa: E731
+    leg("aggregate_tree", len(keys),
+        lambda: tft.aggregate(agg, aframe.group_by("k")).to_arrays(),
+        lambda: tft.aggregate(agg, aframe.group_by("k"), **cpu).to_arrays(),
+        {"k": present, "v": ref}, SUM_RTOL, SUM_RTOL,
+        groups=len(present), distinct_sizes=distinct_sizes)
+    return rows
 
 
 def clone_params(tree):
@@ -1124,6 +1496,8 @@ def main() -> int:
         return 0
     timing = phase_timing()
     prog, frame = phase_slice()
+    phase_small_head_slice()
+    phase_verbs()
     train_run = phase_train()
     ring_run = phase_ring_slice()
     ring_train_run = phase_ring_train(ring_run[3])
@@ -1143,6 +1517,8 @@ def main() -> int:
                 "launches": launches[name],
                 "max_abs_err": errs["flagship"][name],
                 **timing[name],
+                **({"variants": timing["flash_fwd_variants"]}
+                   if name == "flash_fwd" else {}),
             }
             for name, src, line in (
                 ("flash_fwd", "flash_fwd", 42),

@@ -17,8 +17,10 @@
 // operations, i.e. by the tensor-core rate (which only wgmma reaches) and
 // how well the loops keep the tensor cores fed.
 //
-// What the design does about it (bf16, the main path): both are
-// warp-specialised TMA + wgmma kernels (building blocks in hopper.cuh).  In
+// What the design does about it (the 16-bit kernels flash_bwd_dq_tma and
+// flash_bwd_dkv_tma, the main path, each one template instantiated for bf16
+// and f16): both are warp-specialised TMA + wgmma kernels (building blocks
+// in hopper.cuh).  In
 // both, the TPU grid's sequential axis becomes a loop inside one CTA, so
 // nothing carries between blocks and nothing needs atomics: the results are
 // deterministic.
@@ -69,8 +71,9 @@
 //    issuing pair n + 1's S^T and dP^T behind pair n's gradient products
 //    inside a warpgroup (it also spills), and ping-pong between the two
 //    consumers.
-//  * Loads read [B, L, H, Dh] through its strides (no transpose or pad
-//    copy); ragged tails are zero-filled (by the TMA descriptors, which
+//  * Loads read [B, L, H, Dh] through its strides (no transpose copy; head
+//    dims other than 64 and 128 arrive zero-padded to the next of the two
+//    from the wrapper, which leaves S, dP and D unchanged); ragged tails are zero-filled (by the TMA descriptors, which
 //    bound L per batch, or by the copy) and masked here.
 // Numerics kept from flash.py: P is cast to dO's dtype before P^T dO (:482)
 // and dS to q/k's dtype before its products (:443, :489); the scale is
@@ -80,7 +83,6 @@
 // f32 inputs take plain FMA kernels (TF32 would lose precision the JAX
 // reference keeps); they are off the main path.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -120,7 +122,7 @@ __device__ __forceinline__ float safe_lse(const float* lse, int64_t i, bool ok) 
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels
+// bf16 and f16: tensor-core kernels (one template each, T = the element type)
 // ---------------------------------------------------------------------------
 
 // dQ: warp-specialised TMA + wgmma kernel
@@ -153,13 +155,13 @@ struct Dq {
                                  8 * BARRIERS + ATOM_BYTES;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Dq<D>::THREADS, 1)
-flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
-                  const __grid_constant__ CUtensorMap k_map,
-                  const __grid_constant__ CUtensorMap v_map,
-                  const __grid_constant__ CUtensorMap o_map, Problem p,
-                  bf16* __restrict__ dq) {
+flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map, Problem p,
+                 T* __restrict__ dq) {
   using F = Dq<D>;
   constexpr int S = F::STAGES, BK = F::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -266,9 +268,9 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss(sc, desc_at(qa, (kk / 4) * F::Q_BOX + off),
+        wgmma_ss<T>(sc, desc_at(qa, (kk / 4) * F::Q_BOX + off),
                  desc_at(k_desc, (kk / 4) * F::BOX + off), kk);
-        wgmma_ss(dp, desc_at(oa, (kk / 4) * F::Q_BOX + off),
+        wgmma_ss<T>(dp, desc_at(oa, (kk / 4) * F::Q_BOX + off),
                  desc_at(v_desc, (kk / 4) * F::BOX + off), kk);
       }
       wgmma_commit();
@@ -291,14 +293,14 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
         }
         sc[i] = pr * (dp[i] - (b_row ? dd_b : dd_a));
       }
-      // dS cast to bf16 (k's dtype, flash.py:443): the A fragments of the
+      // dS cast to T (k's dtype, flash.py:443): the A fragments of the
       // 16-key slices, straight from the registers
       uint32_t da[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          da[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          da[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
       // dQ += dS K, K MN-major through the transpose bit (the tile S read
       // K-major): 16 keys (2048 bytes) per slice
@@ -306,7 +308,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();  // da was written by ordinary instructions
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(acc, da[kk], desc_at(k_mn, kk * 16 * 128));
+        wgmma_rs<T>(acc, da[kk], desc_at(k_mn, kk * 16 * 128));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -320,41 +322,41 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       const int col = j * 8 + 2 * t4;
       if (row_a < Lq)
         *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
-            pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+            pack2<T>(acc[4 * j] * scale, acc[4 * j + 1] * scale);
       if (row_b < Lq)
         *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
-            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+            pack2<T>(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
     }
   }
 }
 
-template <int D>
-cudaError_t launch_dq(const Problem& p, int B, bf16* dq, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_dq(const Problem& p, int B, void* dq, cudaStream_t stream) {
   using F = Dq<D>;
   CUtensorMap q_map, k_map, v_map, o_map;
-  cudaError_t err = make_tile_map(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
+  cudaError_t err = make_tile_map<T>(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
                                   p.s.q[1], p.s.q[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
+    err = make_tile_map<T>(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
                         p.s.d[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
+    err = make_tile_map<T>(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
                         p.s.k[2], F::BK);
   if (err == cudaSuccess)
-    err = make_tile_map(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
+    err = make_tile_map<T>(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
                         p.s.v[2], F::BK);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_tma<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + F::BQ - 1) / F::BQ, B * p.H);
-  flash_bwd_dq_bf16<D><<<grid, F::THREADS, F::SMEM, stream>>>(
-      q_map, k_map, v_map, o_map, p, dq);
+  flash_bwd_dq_tma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
+      q_map, k_map, v_map, o_map, p, static_cast<T*>(dq));
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV: warp-specialised TMA + wgmma kernel
+// bf16/f16 dK/dV: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
 constexpr int DKV_BK = 128;       // keys per CTA, 64 per consumer warpgroup
@@ -383,13 +385,13 @@ struct Dkv {
                                  8 * BARRIERS + ATOM_BYTES;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
-flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
-                   const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map,
-                   const __grid_constant__ CUtensorMap o_map, Problem p,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv) {
+flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map, Problem p,
+                  T* __restrict__ dk, T* __restrict__ dv) {
   using F = Dkv<D>;
   constexpr int S = F::STAGES, BQ2 = F::BQ;
   extern __shared__ unsigned char smem_raw[];
@@ -476,7 +478,7 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
     const float sl2 = p.scale * LOG2E;
     float adk[DT * 4], adv[DT * 4];
     float st[NT * 4], dpt[NT * 4];              // S^T and dP^T, then P^T and dS^T
-    uint32_t ap[BQ2 / 16][4], as[BQ2 / 16][4];  // P^T and dS^T as bf16 A fragments
+    uint32_t ap[BQ2 / 16][4], as[BQ2 / 16][4];  // P^T and dS^T as A fragments of T
     // A of S^T = K Q^T and of dP^T = V dO^T: this warpgroup's 64 keys
     const uint64_t k_desc = sw128_desc(Ks + 64 * c * 128, 16, ATOM_BYTES);
     const uint64_t v_desc = sw128_desc(Vs + 64 * c * 128, 16, ATOM_BYTES);
@@ -492,8 +494,8 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t a_off = (kk / 4) * F::KV_BOX + (kk % 4) * 32;
         const uint32_t b_off = (kk / 4) * F::Q_BOX + (kk % 4) * 32;
-        wgmma_ss(st, desc_at(ka, a_off), desc_at(q_desc, b_off), kk);
-        if (with_dp) wgmma_ss(dpt, desc_at(va, a_off), desc_at(o_desc, b_off), kk);
+        wgmma_ss<T>(st, desc_at(ka, a_off), desc_at(q_desc, b_off), kk);
+        if (with_dp) wgmma_ss<T>(dpt, desc_at(va, a_off), desc_at(o_desc, b_off), kk);
       }
       wgmma_commit();
     };
@@ -505,14 +507,14 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       const uint64_t o_mn = sw128_desc(slot(n) + F::Q_TILE, F::Q_BOX, ATOM_BYTES);
 #pragma unroll
       for (int kk = 0; kk < BQ2 / 16; ++kk) {
-        if (dv_on) wgmma_rs(adv, ap[kk], desc_at(o_mn, kk * 16 * 128));
-        if (dk_on) wgmma_rs(adk, as[kk], desc_at(q_mn, kk * 16 * 128));
+        if (dv_on) wgmma_rs<T>(adv, ap[kk], desc_at(o_mn, kk * 16 * 128));
+        if (dk_on) wgmma_rs<T>(adk, as[kk], desc_at(q_mn, kk * 16 * 128));
       }
       wgmma_commit();
     };
     // P^T = exp(S^T * scale - lse), masked where the tile crosses the
     // diagonal or an end of the sequences (a query tile wholly before these
-    // keys masks to 0); dS^T = P^T o (dP^T - D); both packed to bf16
+    // keys masks to 0); dS^T = P^T o (dP^T - D); both packed to T
     auto grads_of_scores = [&](int n, bool with_ds) {
       const int qq0 = (qt0 + (n % n_iter) % nqe) * BQ2;
       const float* const Lt = rows + (n % S) * F::ROWS;
@@ -538,8 +540,8 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       for (int kk = 0; kk < BQ2 / 16; ++kk) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          ap[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
-          if (with_ds) as[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          ap[kk][r] = pack2<T>(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          if (with_ds) as[kk][r] = pack2<T>(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
         }
       }
     };
@@ -559,16 +561,16 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       mbar_arrive(empty + n % S);  // this thread is done with the slot
     };
     // dK = scale * acc, dV (contiguous [B, Lk, KVH, D]) in k/v's dtype
-    auto store = [&](bf16* dst, const float (&acc)[DT * 4], float sc) {
+    auto store = [&](T* dst, const float (&acc)[DT * 4], float sc) {
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
         const int col = j * 8 + 2 * t4;
         if (key_a < Lk)
           *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_a) * KVH + kvh) * D + col) =
-              pack_bf16(acc[4 * j] * sc, acc[4 * j + 1] * sc);
+              pack2<T>(acc[4 * j] * sc, acc[4 * j + 1] * sc);
         if (key_b < Lk)
           *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_b) * KVH + kvh) * D + col) =
-              pack_bf16(acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
+              pack2<T>(acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
       }
     };
 
@@ -592,29 +594,29 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
-cudaError_t launch_dkv(const Problem& p, int B, bf16* dk, bf16* dv,
+template <typename T, int D>
+cudaError_t launch_dkv(const Problem& p, int B, void* dk, void* dv,
                        cudaStream_t stream) {
   using F = Dkv<D>;
   CUtensorMap q_map, k_map, v_map, o_map;
-  cudaError_t err = make_tile_map(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
+  cudaError_t err = make_tile_map<T>(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
                                   p.s.q[1], p.s.q[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
+    err = make_tile_map<T>(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
                         p.s.d[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
+    err = make_tile_map<T>(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
                         p.s.k[2], DKV_BK);
   if (err == cudaSuccess)
-    err = make_tile_map(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
+    err = make_tile_map<T>(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
                         p.s.v[2], DKV_BK);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_tma<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK, B * p.KVH);
-  flash_bwd_dkv_bf16<D><<<grid, DKV_THREADS, F::SMEM, stream>>>(
-      q_map, k_map, v_map, o_map, p, dk, dv);
+  flash_bwd_dkv_tma<T, D><<<grid, DKV_THREADS, F::SMEM, stream>>>(
+      q_map, k_map, v_map, o_map, p, static_cast<T*>(dk), static_cast<T*>(dv));
   return cudaGetLastError();
 }
 
@@ -831,7 +833,8 @@ Problem problem(const void* q, const void* k, const void* v, const void* dout,
 // q, dout: [B, Lq, H, D]; k, v: [B, Lk, KVH, D], with element strides
 // (batch, length, head) of q, k, v, dout in `strides` (12 values) and a
 // contiguous head dim.  lse, delta: contiguous [B, H, Lq] f32.  dq:
-// contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16.
+// contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16,
+// 2 = f16.  D: 64 or 128 (the wrapper pads other head dims).
 // Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
@@ -843,11 +846,12 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    bf16* o16 = static_cast<bf16*>(dq);
-    if (D == 64) return int(launch_dq<64>(p, B, o16, st));
-    if (D == 128) return int(launch_dq<128>(p, B, o16, st));
-    return int(cudaErrorInvalidValue);
+  if (dtype == 1 || dtype == 2) {
+    if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
+    const auto launch = dtype == 1
+        ? (D == 64 ? launch_dq<bf16, 64> : launch_dq<bf16, 128>)
+        : (D == 64 ? launch_dq<f16, 64> : launch_dq<f16, 128>);
+    return int(launch(p, B, dq, st));
   }
   const dim3 grid_f32((Lq + FT - 1) / FT, B * H);
   float* o32 = static_cast<float*>(dq);
@@ -859,7 +863,7 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
-// bf16 takes TMA: 16-byte aligned bases and strides.
+// bf16 and f16 take TMA: 16-byte aligned bases and strides.
 extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dk, void* dv, int B,
@@ -870,11 +874,12 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    bf16 *k16 = static_cast<bf16*>(dk), *v16 = static_cast<bf16*>(dv);
-    if (D == 64) return int(launch_dkv<64>(p, B, k16, v16, st));
-    if (D == 128) return int(launch_dkv<128>(p, B, k16, v16, st));
-    return int(cudaErrorInvalidValue);
+  if (dtype == 1 || dtype == 2) {
+    if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
+    const auto launch = dtype == 1
+        ? (D == 64 ? launch_dkv<bf16, 64> : launch_dkv<bf16, 128>)
+        : (D == 64 ? launch_dkv<f16, 64> : launch_dkv<f16, 128>);
+    return int(launch(p, B, dk, dv, st));
   }
   const dim3 grid_f32((Lk + FT - 1) / FT, B * KVH);
   float *k32 = static_cast<float*>(dk), *v32 = static_cast<float*>(dv);

@@ -12,8 +12,9 @@
 // ridge, so it is bound by operations: the tensor-core rate, which only
 // wgmma reaches, and how well the loop keeps the tensor cores fed.
 //
-// What the design does about it (the bf16 kernel, the main path; the
-// building blocks are in hopper.cuh):
+// What the design does about it (the 16-bit kernel flash_fwd_tma, the main
+// path, one template instantiated for bf16 and f16; the building blocks are
+// in hopper.cuh):
 //  * Warp roles.  One CTA owns one (batch*head, query tile).  Warpgroup 0
 //    is the producer: one thread issues the TMA loads, Q once, then 128-key
 //    K and V tiles into a ring of STAGES slots guarded by full and empty
@@ -24,7 +25,7 @@
 //    leaves no registers for a third.
 //  * S = Q K^T is wgmma m64n128k16 with both operands in 128B-swizzled
 //    shared memory (K-major; Dh is the reduction).  O += P V is wgmma
-//    m64nDk16 with P in registers, cast to bf16 straight from the S
+//    m64nDk16 with P in registers, cast to T straight from the S
 //    accumulator (its layout is the A fragment's), and V read MN-major
 //    through the transpose bit.  No thread loads an operand, so the per-warp
 //    ldmatrix re-reads of Q, K and V of the earlier mma.sync design (~128 KB
@@ -50,6 +51,9 @@
 //  * GQA: query head h reads kv head h / (H / KVH), flash.py:_kv_head_map.
 //  * Dh = 128 is two 64-column boxes per tile, and the ring has 2 stages
 //    (Q 32 KB + 2 x 64 KB of shared memory); Dh = 64 has 4 (24 + 4 x 32 KB).
+//    Other head dims (1..128) reach the kernel zero-padded to the next of
+//    the two by the wrapper (parallel/flash.py): zero columns of Q and K
+//    leave Q K^T as it is, zero columns of V give zero output columns.
 // Numerics kept from the TPU kernel: P is cast to v's dtype before PV
 // (flash.py:107-108), l sums the f32 p, the running max is -inf-safe
 // (m_safe, alpha: flash.py:101-105), the causal mask is top-left (q >= k)
@@ -62,7 +66,6 @@
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps); it is off the main path.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -77,7 +80,7 @@ using namespace tfs_flash;
 using namespace tfs_hopper;
 
 // ---------------------------------------------------------------------------
-// bf16: warp-specialised TMA + wgmma kernel
+// bf16 and f16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 128;  // keys per tile
@@ -106,20 +109,20 @@ struct Fwd {
                                  8 * BARRIERS + ATOM_BYTES;
 };
 
-// flash_ring.cu::ring_step_tma_bf16 holds a second copy of this loop (the
+// flash_ring.cu::ring_step_tma holds a second copy of this loop (the
 // same roles, ring, barrier phases, masks and early tile release), kept
 // apart because one shared loop made this kernel 2-4% slower (PERF.md).
 // A fix to any of those here is made there too, and the other way round.
 // The copies differ on purpose only in the prologue and epilogue (carry in
 // and out there; 1/l and lse here), the global offsets of the mask, and
 // alpha, which there is exactly 1 while the max holds.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
-flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
-               const __grid_constant__ CUtensorMap k_map,
-               const __grid_constant__ CUtensorMap v_map,
-               bf16* __restrict__ out, float* __restrict__ lse, int H, int KVH,
-               int Lq, int Lk, int causal, float scale) {
+flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              T* __restrict__ out, float* __restrict__ lse, int H, int KVH,
+              int Lq, int Lk, int causal, float scale) {
   using F = Fwd<D>;
   constexpr int S = F::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -215,7 +218,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss(sc, desc_at(a_desc, (kk / 4) * F::Q_BOX + off),
+        wgmma_ss<T>(sc, desc_at(a_desc, (kk / 4) * F::Q_BOX + off),
                  desc_at(k_desc, (kk / 4) * F::BOX + off), kk);
       }
       wgmma_commit();
@@ -275,14 +278,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
         o[4 * j + 2] *= al_b;
         o[4 * j + 3] *= al_b;
       }
-      // p cast to bf16 (v's dtype, flash.py:107-108): the A fragments of
+      // p cast to T (v's dtype, flash.py:107-108): the A fragments of
       // the 16-key slices, straight from the score registers
       uint32_t pa[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
       // O += P V, V MN-major: 16 keys (2048 bytes) per slice
       mbar_wait(v_full + s, ph);
@@ -290,14 +293,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();  // o was rescaled and pa written by ordinary instructions
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
+        wgmma_rs<T>(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(empty + s);  // this warp is done with the slot
     }
 
-    // finish (flash.py:115-122): out in bf16, lse = m + log(l)
+    // finish (flash.py:115-122): out in T, lse = m + log(l)
     const float den_a = l_a == 0.f ? 1.f : l_a;
     const float den_b = l_b == 0.f ? 1.f : l_b;
 #pragma unroll
@@ -305,10 +308,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
       const int col = j * 8 + 2 * t4;
       if (row_a < Lq)
         *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
-            pack_bf16(o[4 * j] / den_a, o[4 * j + 1] / den_a);
+            pack2<T>(o[4 * j] / den_a, o[4 * j + 1] / den_a);
       if (row_b < Lq)
         *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
-            pack_bf16(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
+            pack2<T>(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
     }
     if (t4 == 0) {
       if (row_a < Lq) lse[int64_t(bh) * Lq + row_a] = m_a * scale + logf(den_a);
@@ -317,26 +320,26 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
-                        float* lse, int B, int H, int KVH, int Lq, int Lk,
-                        int causal, const int64_t* s, float scale,
-                        cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_tma(const void* q, const void* k, const void* v, void* out,
+                       float* lse, int B, int H, int KVH, int Lq, int Lk,
+                       int causal, const int64_t* s, float scale,
+                       cudaStream_t stream) {
   using F = Fwd<D>;
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = make_tile_map(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
+  cudaError_t err = make_tile_map<T>(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
+    err = make_tile_map<T>(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
   if (err == cudaSuccess)
-    err = make_tile_map(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
+    err = make_tile_map<T>(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
   if (err != cudaSuccess) return err;
   const size_t bytes = F::SMEM;
-  err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+  err = cudaFuncSetAttribute(flash_fwd_tma<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
-  flash_fwd_bf16<D><<<grid, F::THREADS, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(out), lse, H, KVH, Lq, Lk,
+  flash_fwd_tma<T, D><<<grid, F::THREADS, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(out), lse, H, KVH, Lq, Lk,
       causal, scale);
   return cudaGetLastError();
 }
@@ -499,8 +502,9 @@ cudaError_t launch_f32(Kernel kernel, size_t bytes, const void* q,
 // q: [B, Lq, H, D], k/v: [B, Lk, KVH, D] with element strides
 // (batch, length, head) each and a contiguous head dim; out: contiguous
 // [B, Lq, H, D] in the input dtype; lse: contiguous [B, H, Lq] f32.
-// dtype: 0 = f32, 1 = bf16 (which takes TMA: 16-byte aligned bases and
-// strides, Lk > 0).  Returns a cudaError_t (0 = launched).
+// dtype: 0 = f32, 1 = bf16, 2 = f16 (the 16-bit types take TMA: 16-byte
+// aligned bases and strides, Lk > 0).  D: 64 or 128 (the wrapper pads
+// other head dims).  Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,
@@ -512,13 +516,12 @@ extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   const int64_t s[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (Lk == 0) return int(cudaErrorInvalidValue);
-    if (D == 64)
-      return int(launch_bf16<64>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
-    if (D == 128)
-      return int(launch_bf16<128>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
-    return int(cudaErrorInvalidValue);
+  if (dtype == 1 || dtype == 2) {
+    if (Lk == 0 || (D != 64 && D != 128)) return int(cudaErrorInvalidValue);
+    const auto launch = dtype == 1
+        ? (D == 64 ? launch_tma<bf16, 64> : launch_tma<bf16, 128>)
+        : (D == 64 ? launch_tma<f16, 64> : launch_tma<f16, 128>);
+    return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
   }
   if (dtype != 0) return int(cudaErrorInvalidValue);
   if (D == 64)

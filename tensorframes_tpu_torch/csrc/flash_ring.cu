@@ -18,7 +18,8 @@
 //    137 GFLOP, 0.139 ms at 989 TFLOP/s.
 // The carry stays f32 (JAX carries f32); nothing is saved by rounding it.
 //
-// The design (the bf16 kernel, the main path) is the forward's
+// The design (the 16-bit kernel ring_step_tma, the main path, one template
+// instantiated for bf16 and f16) is the forward's
 // (flash_fwd.cu), warp-specialised on TMA and wgmma (building blocks in
 // hopper.cuh), with the carry and the offsets:
 //  * Warp roles.  One CTA owns one (batch*head, query tile).  Warpgroup 0
@@ -29,7 +30,7 @@
 //    two at Dh = 128, whose O accumulator leaves no registers for a third.
 //  * S = Q K^T is wgmma m64n128k16 with both operands in 128B-swizzled
 //    shared memory (K-major); O += P V is wgmma m64nDk16 with P in
-//    registers, cast to bf16 straight from the S accumulator, and V read
+//    registers, cast to T straight from the S accumulator, and V read
 //    MN-major through the transpose bit.  Each consumer warpgroup runs its
 //    tile loop on its own, so one's softmax overlaps the others' products.
 //  * The carry in: before its first wait, each consumer thread loads its
@@ -68,7 +69,6 @@
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps); it is off the main path.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -96,7 +96,7 @@ __device__ __forceinline__ int visible_tiles(int Lk, int bk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: warp-specialised TMA + wgmma kernel
+// bf16 and f16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 128;  // keys per tile
@@ -135,20 +135,20 @@ struct Carry {
   float* l_out;
 };
 
-// flash_fwd.cu::flash_fwd_bf16 holds a second copy of this loop (the same
+// flash_fwd.cu::flash_fwd_tma holds a second copy of this loop (the same
 // roles, ring, barrier phases, masks and early tile release), kept apart
 // because one shared loop made the forward 2-4% slower (PERF.md).  A fix
 // to any of those here is made there too, and the other way round.  The
 // copies differ on purpose only in the prologue and epilogue (carry in and
 // out here; 1/l and lse there), the global offsets of the mask, and alpha,
 // which here is exactly 1 while the max holds.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Ring<D>::THREADS, 1)
-ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,
-                   const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map, const Carry cy,
-                   int H, int KVH, int Lq, int Lk, int causal, int q_off,
-                   int k_off, float scale) {
+ring_step_tma(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map, const Carry cy,
+              int H, int KVH, int Lq, int Lk, int causal, int q_off,
+              int k_off, float scale) {
   using F = Ring<D>;
   constexpr int S = F::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -263,7 +263,7 @@ ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss(sc, desc_at(a_desc, (kk / 4) * F::Q_BOX + off),
+        wgmma_ss<T>(sc, desc_at(a_desc, (kk / 4) * F::Q_BOX + off),
                  desc_at(k_desc, (kk / 4) * F::BOX + off), kk);
       }
       wgmma_commit();
@@ -330,14 +330,14 @@ ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,
         o[4 * j + 2] *= al_b;
         o[4 * j + 3] *= al_b;
       }
-      // p cast to bf16 (v's dtype, flash.py:271-273): the A fragments of
+      // p cast to T (v's dtype, flash.py:271-273): the A fragments of
       // the 16-key slices, straight from the score registers
       uint32_t pa[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
       // O += P V, V MN-major: 16 keys (2048 bytes) per slice
       mbar_wait(v_full + s, ph);
@@ -345,7 +345,7 @@ ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();  // o was rescaled and pa written by ordinary instructions
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
+        wgmma_rs<T>(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -378,24 +378,24 @@ ring_step_tma_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const Carry& cy, int B, int H, int KVH, int Lq, int Lk,
-                        int causal, int q_off, int k_off, const int64_t* s,
-                        float scale, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_tma(const void* q, const void* k, const void* v,
+                       const Carry& cy, int B, int H, int KVH, int Lq, int Lk,
+                       int causal, int q_off, int k_off, const int64_t* s,
+                       float scale, cudaStream_t stream) {
   using F = Ring<D>;
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = make_tile_map(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
+  cudaError_t err = make_tile_map<T>(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
+    err = make_tile_map<T>(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
   if (err == cudaSuccess)
-    err = make_tile_map(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
+    err = make_tile_map<T>(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ring_step_tma_bf16<D>,
+  err = cudaFuncSetAttribute(ring_step_tma<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
-  ring_step_tma_bf16<D><<<grid, F::THREADS, F::SMEM, stream>>>(
+  ring_step_tma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
       q_map, k_map, v_map, cy, H, KVH, Lq, Lk, causal, q_off, k_off, scale);
   return cudaGetLastError();
 }
@@ -580,7 +580,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // length, head) each and a contiguous head dim; the carry in and out:
 // contiguous o [B, Lq, H, D] f32 and m, l [B, H, Lq] f32 (out must not alias
 // in).  q_off/k_off: the chunks' global positions.  dtype: 0 = f32,
-// 1 = bf16 (which takes TMA: 16-byte aligned bases and strides).  Returns a
+// 1 = bf16, 2 = f16 (the 16-bit types take TMA: 16-byte aligned bases and
+// strides).  D: 64 or 128 (the wrapper pads other head dims).  Returns a
 // cudaError_t (0 = launched).
 extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
                                    const float* o_in, const float* m_in,
@@ -594,12 +595,14 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Carry carry{o_in, m_in, l_in, o_out, m_out, l_out};
-  if (dtype == 1 && D == 64)
-    return int(launch_bf16<64>(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off,
-                               k_off, strides, scale, st));
-  if (dtype == 1 && D == 128)
-    return int(launch_bf16<128>(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off,
-                                k_off, strides, scale, st));
+  if (dtype == 1 || dtype == 2) {
+    if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
+    const auto launch = dtype == 1
+        ? (D == 64 ? launch_tma<bf16, 64> : launch_tma<bf16, 128>)
+        : (D == 64 ? launch_tma<f16, 64> : launch_tma<f16, 128>);
+    return int(launch(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off, k_off,
+                      strides, scale, st));
+  }
   if (dtype == 0 && D == 64)
     return int(launch_f32<64>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, B, H,
                               KVH, Lq, Lk, q_off, k_off, causal, strides, scale, st));

@@ -7,7 +7,8 @@ it on the device.  Verb outputs stay on the device until ``collect`` /
 ``to_arrays`` materialise them on the host.
 
 Cell packing uses the numpy path only (the JAX package's native C++ packer
-is an optimisation of the same result).  ``cache``/``lazy`` and the
+is an optimisation of the same result).  ``group_by`` makes the
+``GroupedFrame`` that ``aggregate`` takes.  ``cache``/``lazy`` and the
 arrow/parquet/pandas entry points wait for later slices (ROADMAP.md).
 """
 
@@ -322,6 +323,12 @@ class TensorFrame:
 
     def select(self, names: Sequence[str]) -> "TensorFrame":
         return TensorFrame([self.column(n) for n in names], self._offsets)
+
+    def group_by(self, *keys: str):
+        """The frame grouped by scalar key columns, for ``aggregate``."""
+        from .ops.engine import GroupedFrame
+
+        return GroupedFrame(self, keys)
 
     # -- materialisation -----------------------------------------------------
 

@@ -10,12 +10,17 @@ scoring garbage.  Quantised weights come with the decode slice.
 ``adamw_state_from_numpy`` carries a JAX run's optimizer state (the
 ``optax`` chain of ``train.make_optimizer``, numpy leaves) into the port's
 ``train.OptState``, so a run trained in JAX continues in the port.
+
+``mlp_params_from_numpy``, ``logreg_params_from_numpy`` and
+``centers_from_numpy`` do the same for the verb models' weights: the MLP's
+layer list, the logistic regression's ``w``/``b`` and k-means' centers,
+each checked for layout and kept in its own float dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -177,3 +182,65 @@ def adamw_state_from_numpy(opt_state_tree, params: tfm.Params, tcfg):
         }
     state.count = count
     return state
+
+
+def _float_tensor(path: str, value, ndim: int, device) -> torch.Tensor:
+    """A float numpy array of rank ``ndim`` as a tensor on ``device``, in its
+    own dtype (bf16 arrays have no numpy dtype here and are refused)."""
+    if not isinstance(value, np.ndarray):
+        raise TypeError(
+            f"param {path!r} must be a numpy array, got "
+            f"{type(value).__name__} (convert with jax.tree.map(np.asarray, "
+            f"params) first)"
+        )
+    if value.dtype.kind != "f" or value.dtype.itemsize < 4:
+        raise TypeError(f"param {path!r} has dtype {value.dtype}; f32 or f64 expected")
+    if value.ndim != ndim:
+        raise ValueError(
+            f"param {path!r} has shape {tuple(value.shape)}; rank {ndim} expected"
+        )
+    return torch.from_numpy(np.array(value)).to(device)
+
+
+def mlp_params_from_numpy(
+    layers: Sequence[Mapping[str, Any]], device: DeviceLike = None
+) -> List[dict]:
+    """The JAX MLP's params (``models/mlp.init``: a list of ``{"w": [in,
+    out], "b": [out]}``, numpy leaves) as the port's ``models/mlp`` params
+    on ``device``.  Each layer's ``w`` must take the previous one's width."""
+    dev = resolve_device(device)
+    out = []
+    width = None
+    for i, layer in enumerate(layers):
+        _check_keys(f"[{i}]", layer, {"w": None, "b": None})
+        w = _float_tensor(f"[{i}].w", layer["w"], 2, dev)
+        b = _float_tensor(f"[{i}].b", layer["b"], 1, dev)
+        if (width is not None and w.shape[0] != width) or b.shape[0] != w.shape[1]:
+            raise ValueError(
+                f"layer {i}: w {tuple(w.shape)} and b {tuple(b.shape)} do not "
+                f"chain from a width of {width}"
+            )
+        width = w.shape[1]
+        out.append({"w": w, "b": b})
+    if not out:
+        raise ValueError("an MLP needs at least one layer")
+    return out
+
+
+def logreg_params_from_numpy(
+    tree: Mapping[str, Any], device: DeviceLike = None
+) -> dict:
+    """The JAX logistic regression's params (``{"w": [d], "b": []}``, numpy
+    leaves) as the port's ``models/logistic_regression`` params."""
+    dev = resolve_device(device)
+    _check_keys("", tree, {"w": None, "b": None})
+    return {
+        "w": _float_tensor("w", tree["w"], 1, dev),
+        "b": _float_tensor("b", np.asarray(tree["b"]), 0, dev),
+    }
+
+
+def centers_from_numpy(centers, device: DeviceLike = None) -> torch.Tensor:
+    """k-means centers [k, d] (a numpy array from the JAX package's
+    ``kmeans.fit``/``step``) as a tensor on ``device``."""
+    return _float_tensor("centers", np.asarray(centers), 2, resolve_device(device))

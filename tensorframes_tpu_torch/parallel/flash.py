@@ -23,12 +23,15 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
 * :func:`flash_attention` is a ``torch.autograd.Function`` whose forward and
   backward both dispatch by device, so the same program trains alike on
   the card and on the host.
-* The four bf16 kernels (the forward, dQ, dK/dV and the ring step) read
-  q, k, v and dO through TMA descriptors that the C side encodes
-  (``csrc/hopper.cuh``);
-  :func:`tma_tile_map` is the same arithmetic in Python, and
-  :func:`check_kernel_inputs` raises before a launch for what a descriptor
-  refuses.
+* The four 16-bit kernels (the forward, dQ, dK/dV and the ring step, each
+  built for bf16 and f16) read q, k, v and dO through TMA descriptors that
+  the C side encodes (``csrc/hopper.cuh``); :func:`tma_tile_map` is the
+  same arithmetic in Python, and :func:`check_kernel_inputs` raises before
+  a launch for what a descriptor refuses.
+* Every kernel is built for head dims 64 and 128.  Any head dim from 1 to
+  128 runs: the wrappers zero-pad it to the next of the two and slice the
+  results back (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the
+  true dim as the scale.  A head dim above 128 raises.
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -87,6 +90,12 @@ def _kv_head_map(H: int, KVH: int) -> torch.Tensor:
     return torch.arange(H) // (H // KVH)
 
 
+def _scale(head_dim: int) -> float:
+    """The softmax scale ``1/sqrt(Dh)`` as an f32 value (JAX's weak-typed
+    float times f32 scores)."""
+    return float(np.float32(1.0 / np.sqrt(head_dim)))
+
+
 def _wide(dtype: torch.dtype) -> torch.dtype:
     """The plain versions' accumulation dtype: f32 (the kernels' own), or
     f64 for f64 inputs."""
@@ -100,18 +109,21 @@ def flash_attention_plain(
     causal: bool = True,
     block_q: int = 128,
     block_k: int = 128,
+    scale: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Pallas kernel's algorithm in plain PyTorch.
 
     q [B, Lq, H, Dh]; k/v [B, Lk, KVH, Dh] with H % KVH == 0.  Returns
     ``(out [B, Lq, H, Dh] in q.dtype, lse [B, H, Lq] f32)``.  All batch
     rows and heads of one q tile run as one batched step; the k tiles of a
-    q tile run in order, as the TPU grid's sequential axis does."""
+    q tile run in order, as the TPU grid's sequential axis does.  ``scale``
+    defaults to ``1/sqrt(Dh)`` (a zero-padded head dim passes its true
+    one)."""
     B, Lq, H, Dh = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     kv = _kv_head_map(H, KVH).to(q.device)
     wide = _wide(q.dtype)
-    scale = float(np.float32(1.0 / np.sqrt(Dh)))
+    scale = _scale(Dh) if scale is None else scale
     bq, bk = _blocking(Lq, Lk, block_q, block_k)
     qh = q.permute(0, 2, 1, 3).to(wide)  # [B, H, Lq, Dh]
     kh = k.permute(0, 2, 1, 3)[:, kv].to(wide)  # GQA: [B, H, Lk, Dh]
@@ -160,13 +172,13 @@ class _BwdTiles:
     -inf-safe lse, the tiling, and P/dS of one (q tile, k tile)
     (``_bwd_mask_and_p``)."""
 
-    def __init__(self, q, k, v, out, lse, do, causal, block_q, block_k):
+    def __init__(self, q, k, v, out, lse, do, causal, block_q, block_k, scale):
         B, Lq, H, Dh = q.shape
         Lk, KVH = k.shape[1], k.shape[2]
         self.kv = _kv_head_map(H, KVH).to(q.device)
         self.grp = H // KVH
         self.wide = _wide(q.dtype)
-        self.scale = float(np.float32(1.0 / np.sqrt(Dh)))
+        self.scale = _scale(Dh) if scale is None else scale
         self.bq, self.bk = _blocking(Lq, Lk, block_q, block_k)
         self.nq, self.nk = -(-Lq // self.bq), -(-Lk // self.bk)
         self.causal, self.q, self.k, self.v, self.do = causal, q, k, v, do
@@ -205,12 +217,12 @@ class _BwdTiles:
 
 def flash_bwd_dq_plain(
     q, k, v, out, lse, do, causal: bool = True, block_q: int = 128,
-    block_k: int = 128,
+    block_k: int = 128, scale: float | None = None,
 ) -> torch.Tensor:
     """dQ of the Pallas dQ kernel (``flash.py:416``) in plain PyTorch: per
     q tile, the k tiles in order up to the diagonal, ``dQ += scale *
     dS(k.dtype) K``.  Returns dq [B, Lq, H, Dh] in q.dtype."""
-    t = _BwdTiles(q, k, v, out, lse, do, causal, block_q, block_k)
+    t = _BwdTiles(q, k, v, out, lse, do, causal, block_q, block_k, scale)
     B, Lq, H, Dh = q.shape
     Lk, w, every = k.shape[1], t.wide, slice(None)
     dq = torch.empty(B, H, Lq, Dh, dtype=q.dtype, device=q.device)
@@ -230,14 +242,14 @@ def flash_bwd_dq_plain(
 
 def flash_bwd_dkv_plain(
     q, k, v, out, lse, do, causal: bool = True, block_q: int = 128,
-    block_k: int = 128,
+    block_k: int = 128, scale: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV of the Pallas dK/dV kernel (``flash.py:452``) in plain
     PyTorch: per k tile, the (query head of the GQA group, q tile) pairs
     in that order, ``dV += P(do.dtype)^T dO`` and ``dK += scale *
     dS(q.dtype)^T Q``, so they come out at kv width.  Returns (dk, dv)
     [B, Lk, KVH, Dh] in k's and v's dtypes."""
-    t = _BwdTiles(q, k, v, out, lse, do, causal, block_q, block_k)
+    t = _BwdTiles(q, k, v, out, lse, do, causal, block_q, block_k, scale)
     B, Lq, _, Dh = q.shape
     Lk, KVH, w, every = k.shape[1], k.shape[2], t.wide, slice(None)
     dk = torch.empty(B, KVH, Lk, Dh, dtype=k.dtype, device=q.device)
@@ -273,14 +285,17 @@ def flash_attention_bwd_plain(
     causal: bool = True,
     block_q: int = 128,
     block_k: int = 128,
+    scale: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The Pallas backward kernels' algorithm in plain PyTorch.
 
     q/out/do [B, Lq, H, Dh]; k/v [B, Lk, KVH, Dh]; lse [B, H, Lq] from the
     forward.  Returns ``(dq, dk, dv)`` in the dtypes and shapes of q, k, v:
     :func:`flash_bwd_dq_plain` and :func:`flash_bwd_dkv_plain`."""
-    dq = flash_bwd_dq_plain(q, k, v, out, lse, do, causal, block_q, block_k)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, out, lse, do, causal, block_q, block_k)
+    dq = flash_bwd_dq_plain(q, k, v, out, lse, do, causal, block_q, block_k, scale)
+    dk, dv = flash_bwd_dkv_plain(
+        q, k, v, out, lse, do, causal, block_q, block_k, scale
+    )
     return dq, dk, dv
 
 
@@ -312,6 +327,7 @@ def _chunk_block(c: int) -> int:
 def flash_ring_step_plain(
     q, k, v, o, m, l, q_off: int, k_off: int, causal: bool = True,
     block_q: int | None = None, block_k: int | None = None,
+    scale: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The Pallas ring step's algorithm (``flash.py:217``) in plain PyTorch.
 
@@ -331,7 +347,7 @@ def flash_ring_step_plain(
     Lk, KVH = k.shape[1], k.shape[2]
     kv = _kv_head_map(H, KVH).to(q.device)
     wide = _wide(q.dtype)
-    scale = float(np.float32(1.0 / np.sqrt(Dh)))
+    scale = _scale(Dh) if scale is None else scale
     bq = block_q or (_chunk_block(C) if chunk_supported(C) else 128)
     bk = block_k or (_chunk_block(Lk) if chunk_supported(Lk) else 128)
     qh = q.permute(0, 2, 1, 3).to(wide)  # [B, H, C, Dh]
@@ -376,12 +392,39 @@ def flash_ring_step_plain(
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-# a TMA box is 64 columns (one 128-byte swizzle atom of bf16) wide, and a
-# descriptor's byte strides stay below 2^40
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the head dims the kernels are built for; every head dim up to the widest
+# runs zero-padded to the next of them (:func:`kernel_head_dim`)
+KERNEL_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+# a TMA box is 64 columns (one 128-byte swizzle atom of a 16-bit type) wide,
+# and a descriptor's byte strides stay below 2^40
 TMA_BOX_COLS = 64
 TMA_STRIDE_LIMIT = 1 << 40
+
+
+def kernel_head_dim(head_dim: int) -> int:
+    """The head dim the CUDA kernels run a true head dim of ``head_dim`` at:
+    64 or 128.  The wrappers zero-pad the head dim up to it and slice the
+    results back (:func:`pad_head_dim`): zero columns of Q and K leave Q K^T
+    unchanged and zero columns of V give zero output columns, while the
+    softmax scale stays ``1/sqrt(head_dim)``.  Raises ValueError past
+    :data:`MAX_HEAD_DIM`."""
+    if head_dim < 1 or head_dim > MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention kernel takes head dims 1..{MAX_HEAD_DIM}; got "
+            f"{head_dim} (a head dim above {MAX_HEAD_DIM} needs a kernel with "
+            f"one consumer warpgroup and a 64x256 f32 accumulator, not built)"
+        )
+    return next(w for w in KERNEL_HEAD_DIMS if head_dim <= w)
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` [..., Dh] zero-padded to [..., width] (``x`` itself when it is
+    that wide already)."""
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def tma_tile_map(name, shape, strides, element_size, data_ptr, rows=128):
@@ -413,23 +456,24 @@ def tma_tile_map(name, shape, strides, element_size, data_ptr, rows=128):
     )
 
 
-def check_kernel_inputs(q, k, v) -> None:
+def check_kernel_inputs(q, k, v) -> int:
     """Raise ValueError for what the CUDA kernels do not take: dtypes other
-    than bf16/f32, mixed dtypes, Dh outside {64, 128}, a head dim that is
-    not contiguous, or what a TMA descriptor refuses (:func:`tma_tile_map`:
-    rows not 16-byte aligned, byte strides of 2^40 or more)."""
+    than bf16/f16/f32, mixed dtypes, a head dim above :data:`MAX_HEAD_DIM`,
+    a head dim that is not contiguous, or (at a head dim the kernels are
+    built for, which is launched as it is) what a TMA descriptor refuses
+    (:func:`tma_tile_map`: rows not 16-byte aligned, byte strides of 2^40
+    or more).  Returns the head dim the kernels run at
+    (:func:`kernel_head_dim`); a narrower one is padded into a fresh,
+    contiguous tensor."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, L, H, Dh]")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(
-            f"flash_attention kernel takes bf16 or f32 q/k/v of one dtype; "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+            f"flash_attention kernel takes bf16, f16 or f32 q/k/v of one "
+            f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     B, _, H, Dh = q.shape
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention kernel supports head dims {_HEAD_DIMS}; got {Dh}"
-        )
+    width = kernel_head_dim(Dh)
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh:
         raise ValueError(
             f"flash_attention: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
@@ -439,7 +483,43 @@ def check_kernel_inputs(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
-        tma_tile_map(name, t.shape, t.stride(), t.element_size(), t.data_ptr())
+        if width == Dh:
+            tma_tile_map(name, t.shape, t.stride(), t.element_size(), t.data_ptr())
+    return width
+
+
+# -- the kernels at their head dim: pad, run, slice --------------------------
+#
+# Each takes a ``run`` callable with the kernel's arguments at the padded
+# head dim plus the true dim's scale: here the launch; the CPU tests pass
+# the plain version at the kernel's tiling, to hold the padded path itself
+# against JAX.
+
+
+def _fwd_padded(run, q, k, v, causal):
+    Dh = q.shape[3]
+    w = kernel_head_dim(Dh)
+    out, lse = run(*(pad_head_dim(x, w) for x in (q, k, v)), causal, _scale(Dh), w)
+    return (out if w == Dh else out[..., :Dh].contiguous()), lse
+
+
+def _bwd_padded(run, q, k, v, out, lse, do, causal):
+    Dh = q.shape[3]
+    w = kernel_head_dim(Dh)
+    grads = run(*(pad_head_dim(x, w) for x in (q, k, v, out, do)), lse, causal,
+                _scale(Dh), w)
+    return tuple(g if w == Dh else g[..., :Dh].contiguous() for g in grads)
+
+
+def _ring_padded(run, q, k, v, o, m, l, q_off, k_off, causal, scale):
+    Dh = q.shape[3]
+    w = kernel_head_dim(Dh)
+    scale = _scale(Dh) if scale is None else scale
+    o_out, m_out, l_out = run(
+        *(pad_head_dim(x, w) for x in (q, k, v, o)), m, l, q_off, k_off,
+        causal, scale, w,
+    )
+    return (o_out if w == Dh else o_out[..., :Dh].contiguous()), m_out, l_out
 
 
 def _kernel():
@@ -458,13 +538,11 @@ def _kernel():
     return lib, fn
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool):
+def _launch_fwd(q, k, v, causal, scale, width):
+    """The forward kernel at the kernel's head dim ``width``."""
     from .. import _build
 
     global launches
-    check_kernel_inputs(q, k, v)
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k, v must be on one device")
     B, Lq, H, Dh = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
@@ -474,7 +552,6 @@ def _flash_fwd_cuda(q, k, v, causal: bool):
     if Lk == 0:  # no key: every row outputs 0 with lse = -inf
         return out.zero_(), lse.fill_(_NEG_INF)
     lib, fn = _kernel()
-    scale = float(np.float32(1.0 / np.sqrt(Dh)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(
@@ -483,7 +560,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool):
             ctypes.c_void_p(v.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(lse.data_ptr()),
-            B, H, KVH, Lq, Lk, Dh, _DTYPE_CODE[q.dtype], int(bool(causal)),
+            B, H, KVH, Lq, Lk, width, _DTYPE_CODE[q.dtype], int(bool(causal)),
             *(ctypes.c_int64(t.stride(i)) for t in (q, k, v) for i in range(3)),
             ctypes.c_float(scale),
             ctypes.c_void_p(stream),
@@ -499,12 +576,20 @@ def _flash_fwd_cuda(q, k, v, causal: bool):
     return out, lse
 
 
+def _flash_fwd_cuda(q, k, v, causal: bool):
+    check_kernel_inputs(q, k, v)
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v must be on one device")
+    return _fwd_padded(_launch_fwd, q, k, v, causal)
+
+
 def flash_attention_fwd(
     q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Lq, H, Dh], lse [B, H, Lq] f32)``.  CUDA tensors launch
-    the kernel (its own tiling; ``block_q``/``block_k`` shape only the
-    plain version) or raise; CPU and meta tensors take the plain version."""
+    the kernel (its own tiling, at the head dim zero-padded to 64 or 128;
+    ``block_q``/``block_k`` shape only the plain version) or raise; CPU and
+    meta tensors take the plain version."""
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, causal)
     if q.device.type in ("cpu", "meta"):
@@ -528,7 +613,7 @@ def _bwd_kernels():
     return lib, lib.tfs_flash_bwd_dq, lib.tfs_flash_bwd_dkv
 
 
-def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal):
+def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
     from .. import _build
 
     B, Lq, H, Dh = q.shape
@@ -541,7 +626,7 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal):
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, do, lse, delta)),
             *(ctypes.c_void_p(t.data_ptr()) for t in outs),
             B, H, KVH, Lq, Lk, Dh, _DTYPE_CODE[q.dtype], int(bool(causal)),
-            strides, ctypes.c_float(float(np.float32(1.0 / np.sqrt(Dh)))),
+            strides, ctypes.c_float(_scale(Dh) if scale is None else scale),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
         )
     if err != 0:
@@ -553,20 +638,22 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal):
         )
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
-    """The dQ kernel on CUDA tensors (checked by :func:`flash_attention_bwd`):
-    dO contiguous in q's dtype, lse and ``delta = rowsum(dO o O)``
-    contiguous [B, H, Lq] f32.  Returns dq [B, Lq, H, Dh]."""
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 scale: float | None = None) -> torch.Tensor:
+    """The dQ kernel on CUDA tensors at a head dim of 64 or 128 (checked and
+    padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
+    and ``delta = rowsum(dO o O)`` contiguous [B, H, Lq] f32; ``scale``
+    defaults to ``1/sqrt(Dh)``.  Returns dq [B, Lq, H, Dh]."""
     global launches_dq
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_bwd_dq", _bwd_kernels()[1], q, k, v, do, lse, delta,
-                (dq,), causal)
+                (dq,), causal, scale)
     launches_dq += 1
     return dq
 
 
 def flash_bwd_dkv(
-    q, k, v, do, lse, delta, causal: bool = True
+    q, k, v, do, lse, delta, causal: bool = True, scale: float | None = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel on CUDA tensors, inputs as :func:`flash_bwd_dq`.
     Returns (dk, dv) [B, Lk, KVH, Dh]."""
@@ -574,9 +661,23 @@ def flash_bwd_dkv(
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     _bwd_launch("flash_bwd_dkv", _bwd_kernels()[2], q, k, v, do, lse, delta,
-                (dk, dv), causal)
+                (dk, dv), causal, scale)
     launches_dkv += 1
     return dk, dv
+
+
+def _launch_bwd(q, k, v, out, do, lse, causal, scale, width):
+    """dQ, dK and dV by the two backward kernels at head dim ``width``."""
+    # the incoming gradient may be any view (an expanded scalar's, say)
+    do = do.contiguous()
+    tma_tile_map("dO", do.shape, do.stride(), do.element_size(), do.data_ptr())
+    # D = rowsum(dO o O) in f32, outside the kernels (flash.py:511-514);
+    # zero-padded columns add nothing to it
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.float().contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
@@ -591,15 +692,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
     B, Lq, H, _ = q.shape
     if B * H * Lq == 0 or k.shape[1] == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    # the incoming gradient may be any view (an expanded scalar's, say)
-    do = do.contiguous()
-    tma_tile_map("dO", do.shape, do.stride(), do.element_size(), do.data_ptr())
-    # D = rowsum(dO o O) in f32, outside the kernels (flash.py:511-514)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    lse = lse.float().contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-    return dq, dk, dv
+    return _bwd_padded(_launch_bwd, q, k, v, out, lse, do, causal)
 
 
 def flash_attention_bwd(
@@ -608,8 +701,9 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention` from the forward's ``out``
     and ``lse`` and the incoming gradient ``do``.  CUDA tensors launch the
-    dQ and dK/dV kernels (their own tiling) or raise; CPU and meta tensors
-    take :func:`flash_attention_bwd_plain`."""
+    dQ and dK/dV kernels (their own tiling, at the head dim zero-padded to
+    64 or 128) or raise; CPU and meta tensors take
+    :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cuda":
         return _flash_bwd_cuda(q, k, v, out, lse, do, causal)
     if q.device.type in ("cpu", "meta"):
@@ -664,10 +758,40 @@ def _ring_kernel():
     return lib, fn
 
 
-def _ring_step_cuda(q, k, v, o, m, l, q_off: int, k_off: int, causal: bool):
+def _launch_ring(q, k, v, o, m, l, q_off, k_off, causal, scale, width):
+    """The ring-step kernel at head dim ``width`` (o carried at it)."""
     from .. import _build
 
     global launches_ring
+    B, C, H, Dh = q.shape
+    o, m, l = o.contiguous(), m.contiguous(), l.contiguous()
+    o_out, m_out, l_out = torch.empty_like(o), torch.empty_like(m), torch.empty_like(l)
+    if B * H * C == 0:
+        return o_out, m_out, l_out
+    lib, fn = _ring_kernel()
+    strides = (ctypes.c_int64 * 9)(
+        *(t.stride(i) for t in (q, k, v) for i in range(3))
+    )
+    with torch.cuda.device(q.device):
+        err = fn(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, m, l, o_out, m_out, l_out)),
+            B, H, k.shape[2], C, k.shape[1], width, _DTYPE_CODE[q.dtype],
+            int(bool(causal)), int(q_off), int(k_off),
+            strides, ctypes.c_float(scale),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_ring_step kernel launch failed: "
+            f"{_build.cuda_error_string(lib, err)} (cudaError {err}) for q "
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}"
+        )
+    launches_ring += 1
+    return o_out, m_out, l_out
+
+
+def _ring_step_cuda(q, k, v, o, m, l, q_off: int, k_off: int, causal: bool,
+                    scale: float | None):
     check_kernel_inputs(q, k, v)
     B, C, H, Dh = q.shape
     if o.shape != q.shape or m.shape != (B, H, C) or l.shape != (B, H, C):
@@ -682,34 +806,12 @@ def _ring_step_cuda(q, k, v, o, m, l, q_off: int, k_off: int, causal: bool):
         )
     if not (q.device == k.device == v.device == o.device == m.device == l.device):
         raise ValueError("flash_ring_step: q, k, v and the carry must be on one device")
-    o, m, l = o.contiguous(), m.contiguous(), l.contiguous()
-    o_out, m_out, l_out = torch.empty_like(o), torch.empty_like(m), torch.empty_like(l)
-    if B * H * C == 0:
-        return o_out, m_out, l_out
-    lib, fn = _ring_kernel()
-    strides = (ctypes.c_int64 * 9)(
-        *(t.stride(i) for t in (q, k, v) for i in range(3))
-    )
-    with torch.cuda.device(q.device):
-        err = fn(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, m, l, o_out, m_out, l_out)),
-            B, H, k.shape[2], C, k.shape[1], Dh, _DTYPE_CODE[q.dtype],
-            int(bool(causal)), int(q_off), int(k_off),
-            strides, ctypes.c_float(float(np.float32(1.0 / np.sqrt(Dh)))),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_ring_step kernel launch failed: "
-            f"{_build.cuda_error_string(lib, err)} (cudaError {err}) for q "
-            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}"
-        )
-    launches_ring += 1
-    return o_out, m_out, l_out
+    return _ring_padded(_launch_ring, q, k, v, o, m, l, q_off, k_off, causal, scale)
 
 
 def flash_ring_step(
     q, k, v, o, m, l, q_off: int, k_off: int, causal: bool = True,
+    scale: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One ring-attention step: fold the K/V chunk at global offset
     ``k_off`` into the running online-softmax carry of the query chunk at
@@ -717,11 +819,15 @@ def flash_ring_step(
 
     q [B, C, H, Dh]; k/v [B, C, KVH, Dh] (GQA stays kv-width); o [B, C, H,
     Dh] f32; m/l [B, H, C] f32.  Returns the updated, un-normalised
-    ``(o, m, l)``; the inputs are left as they were.  CUDA tensors launch
-    ``csrc/flash_ring.cu`` (any chunk length) or raise; CPU and meta
+    ``(o, m, l)``; the inputs are left as they were.  ``scale`` defaults to
+    ``1/sqrt(Dh)``: a caller that pads the head dim itself once for many
+    hops (``ring.py``) passes the true dim's.  CUDA tensors launch
+    ``csrc/flash_ring.cu`` (any chunk length; a head dim other than 64 or
+    128 zero-padded to the next of them, o with it) or raise; CPU and meta
     tensors take :func:`flash_ring_step_plain`."""
     if q.device.type == "cuda":
-        return _ring_step_cuda(q, k, v, o, m, l, q_off, k_off, causal)
+        return _ring_step_cuda(q, k, v, o, m, l, q_off, k_off, causal, scale)
     if q.device.type in ("cpu", "meta"):
-        return flash_ring_step_plain(q, k, v, o, m, l, q_off, k_off, causal)
+        return flash_ring_step_plain(q, k, v, o, m, l, q_off, k_off, causal,
+                                     scale=scale)
     raise ValueError(f"flash_ring_step: unsupported device {q.device}")

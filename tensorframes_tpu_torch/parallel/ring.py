@@ -39,7 +39,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .flash import flash_ring_step
+from .flash import flash_ring_step, kernel_head_dim, pad_head_dim
 from .mesh import Mesh, get_mesh
 
 _NEG_INF = float("-inf")
@@ -106,8 +106,15 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
     # C % 8 rule is a TPU tiling limit, and the kernel tiles any C.  Only
     # "auto" keeps the rule (transformer.resolve_attn_impl), so it picks
     # the path JAX picks
+    width = Dh
+    if impl == "flash" and dev.type == "cuda" and kernel_head_dim(Dh) != Dh:
+        # the kernel runs at a head dim of 64 or 128: pad q, k and v once for
+        # every hop of the layer, carry o at that width (the step is given
+        # the true dim's scale) and slice it once after the last hop
+        width = kernel_head_dim(Dh)
+        q_c, k_c, v_c = ([pad_head_dim(x, width) for x in xs] for xs in (q_c, k_c, v_c))
     f32 = dict(dtype=torch.float32, device=dev)
-    o = [torch.zeros((B, C, H, Dh), **f32) for _ in range(sp)]
+    o = [torch.zeros((B, C, H, width), **f32) for _ in range(sp)]
     m = [torch.full((B, H, C), _NEG_INF, **f32) for _ in range(sp)]
     l = [torch.zeros((B, H, C), **f32) for _ in range(sp)]
     k_cur, v_cur = list(k_c), list(v_c)
@@ -121,7 +128,7 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
             if impl == "flash":
                 o[my], m[my], l[my] = flash_ring_step(
                     q_c[my], k_cur[my], v_cur[my], o[my], m[my], l[my],
-                    my * C, src * C, causal,
+                    my * C, src * C, causal, scale=scale,
                 )
             else:
                 s = _scores(
@@ -135,7 +142,8 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
     out, lse = [], []
     for r in range(sp):
         l_safe = torch.where(l[r] == 0.0, 1.0, l[r])  # all-masked rows -> 0
-        out.append((o[r] / l_safe.transpose(1, 2)[..., None]).to(dtype))
+        o_r = o[r] if width == Dh else o[r][..., :Dh]
+        out.append((o_r / l_safe.transpose(1, 2)[..., None]).to(dtype))
         lse.append(m[r] + torch.log(l_safe))  # -inf for all-masked rows
     return out, lse
 

@@ -10,7 +10,10 @@ rebuilds the callable.
 Params (a tensor, or a pytree of nested dicts/lists/tuples of tensors)
 move to the program's device once, at construction or ``update_params``,
 not per block.  ``analyze`` shape-infers the program on ``meta`` tensors:
-no data, no device work.  ``serialize``/``aot_compile`` are
+no data, no device work, and refines the result by the program's shape
+hints (``with_shape_hints``).  ``vmapped`` is the row-level call of
+``map_rows``: the cell program under ``torch.func.vmap``, as the JAX
+package's is under ``jax.vmap``.  ``serialize``/``aot_compile`` are
 StableHLO-specific in the JAX package and wait for a later slice.
 """
 
@@ -134,6 +137,8 @@ class Program:
                     f"inputs are {self._input_names}"
                 )
         self._fetches: Optional[List[str]] = None  # resolved at first call
+        # output name -> shape hint (the reference's ShapeDescription)
+        self._shape_hints: Dict[str, Shape] = {}
 
     # -- construction --------------------------------------------------------
 
@@ -186,18 +191,47 @@ class Program:
             raise ProgramError("a program needs at least one named input")
         return Program(fn_or_program, names, fetches, feed_dict, params, device)
 
+    def _copy(self, feed: Mapping[str, str]) -> "Program":
+        p = Program(
+            self._fn,
+            self._input_names + list(self._params),
+            self._declared_fetches,
+            feed,
+            self._params,
+            self._device,
+        )
+        p._shape_hints = dict(self._shape_hints)
+        return p
+
     def with_feed(self, feed_dict: Mapping[str, str]) -> "Program":
         """A copy with additional input->column renames merged in."""
         merged = dict(self._feed)
         merged.update(feed_dict)
-        return Program(
-            self._fn,
-            self._input_names + list(self._params),
-            self._declared_fetches,
-            merged,
-            self._params,
-            self._device,
-        )
+        return self._copy(merged)
+
+    def with_shape_hints(
+        self, hints: Mapping[str, Sequence[int]]
+    ) -> "Program":
+        """A copy carrying output-shape hints (the reference's
+        ``ShapeDescription`` override, ``TensorFlowOps.scala:126-133``):
+        each hint refines, and never contradicts, the inferred shape.
+        Applied by ``analyze`` and checked against real outputs by the map
+        verbs."""
+        p = self._copy(self._feed)
+        for name, s in hints.items():
+            p._shape_hints[name] = Shape(s)
+        if self._declared_fetches is not None:
+            bad = sorted(set(p._shape_hints) - set(self._declared_fetches))
+            if bad:
+                raise ProgramError(
+                    f"shape hints for unknown outputs {bad}; program "
+                    f"outputs are {sorted(self._declared_fetches)}"
+                )
+        return p
+
+    @property
+    def shape_hints(self) -> Dict[str, Shape]:
+        return dict(self._shape_hints)
 
     # -- accessors -----------------------------------------------------------
 
@@ -213,6 +247,11 @@ class Program:
     @property
     def params(self) -> Dict[str, Any]:
         return dict(self._params)
+
+    @property
+    def name(self) -> str:
+        """The wrapped function's qualified name (for error messages)."""
+        return getattr(self._fn, "__qualname__", None) or repr(self._fn)
 
     def update_params(self, **arrays) -> "Program":
         """Replace param values in place (structure, shapes and dtypes must
@@ -310,17 +349,51 @@ class Program:
         kwargs.update(params)
         return self._normalize_outputs(self._fn(**kwargs))
 
+    def vmapped(self):
+        """The row-level call of ``map_rows``: ``fn(inputs, params=None)``
+        runs the cell program over the lead axis of every input under
+        ``torch.func.vmap`` (the JAX package's ``Program.vmapped``); params
+        are shared by every row.  What vmap refuses (``.item()`` and Python
+        control flow on values, in-place writes to captured tensors,
+        randomness) raises a ProgramError naming the verb and the program;
+        nothing falls back to a loop over rows."""
+        names = self._input_names
+
+        def run(inputs, params=None):
+            params = self._params if params is None else params
+
+            def cell(*xs):
+                return self.call(dict(zip(names, xs)), params)
+
+            try:
+                return torch.func.vmap(cell)(*(inputs[n] for n in names))
+            except RuntimeError as e:
+                if "vmap" not in str(e):
+                    raise
+                raise ProgramError(
+                    f"map_rows: program {self.name!r} cannot run row by row "
+                    f"under torch.func.vmap: {e}"
+                ) from e
+
+        return run
+
     # -- analysis ------------------------------------------------------------
 
     def analyze(
-        self, input_specs: Mapping[str, Any]
+        self,
+        input_specs: Mapping[str, Any],
+        hints: Optional[Mapping[str, Sequence[int]]] = None,
     ) -> List[GraphNodeSummary]:
         """Shape-infer the program against input specs without executing it.
 
         ``input_specs``: input name -> ``(ScalarType, shape)``.  The program
         runs on ``meta`` tensors (params included), which carry shapes and
         dtypes but no data.  Unknown (-1) dims are evaluated at two probe
-        sizes; output dims that track the probe come back Unknown."""
+        sizes; output dims that track the probe come back Unknown.
+
+        ``hints``: output name -> shape, merged over the program's own
+        (``with_shape_hints``).  A hint refines an inferred shape (an
+        Unknown dim takes the hinted value); a contradiction raises."""
         shapes: Dict[str, Shape] = {}
         stypes: Dict[str, ScalarType] = {}
         for n in self._input_names:
@@ -363,11 +436,27 @@ class Program:
                 out_shapes[name] = sa.merge(sb)
         else:
             out_shapes = {n: Shape(t.shape) for n, t in out_a.items()}
+        merged_hints = dict(self._shape_hints)
+        for name, h in (hints or {}).items():
+            merged_hints[name] = Shape(h)
+        unknown_hints = sorted(set(merged_hints) - set(out_shapes))
+        if unknown_hints:
+            raise ProgramError(
+                f"shape hints given for non-existent outputs: "
+                f"{unknown_hints}; program outputs are {sorted(out_shapes)}"
+            )
         summaries = [
             GraphNodeSummary(n, True, False, stypes[n], shapes[n])
             for n in self._input_names
         ]
         for name, shape in out_shapes.items():
+            if name in merged_hints:
+                try:
+                    shape = shape.refine(
+                        merged_hints[name], context=f"output {name!r}"
+                    )
+                except Exception as e:
+                    raise ProgramError(str(e)) from e
             summaries.append(
                 GraphNodeSummary(
                     name, False, True, dtypes.from_torch(out_a[name].dtype), shape

@@ -156,9 +156,9 @@ def _kernel_inputs(dtype=torch.bfloat16, D=64, H=4, KVH=4):
 
 
 def test_kernel_input_checks_accept_the_main_path_layout():
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for D in (64, 128):
-            tflash.check_kernel_inputs(*_kernel_inputs(dtype, D))
+            assert tflash.check_kernel_inputs(*_kernel_inputs(dtype, D)) == D
     # q/k/v as the transformer makes them: a reshape of a projection
     y = torch.zeros(2, 16, 8 * 64, dtype=torch.bfloat16)
     q = y.reshape(2, 16, 8, 64)
@@ -168,9 +168,10 @@ def test_kernel_input_checks_accept_the_main_path_layout():
 @pytest.mark.parametrize(
     "bad,match",
     [
-        (lambda q, k, v: (q.half(), k.half(), v.half()), "bf16 or f32"),
+        (lambda q, k, v: (q.double(), k.double(), v.double()), "bf16, f16 or f32"),
         (lambda q, k, v: (q, k.float(), v), "one dtype"),
-        (lambda q, k, v: (q[..., :32], k[..., :32], v[..., :32]), "head dims"),
+        (lambda q, k, v: _kernel_inputs(D=192), "head dims 1..128"),
+        (lambda q, k, v: _kernel_inputs(D=256), "above 128"),
         (lambda q, k, v: (q, k[:1], v[:1]), "do not fit"),
         (lambda q, k, v: (q, k[:, :, :3], v[:, :, :3]), "divisible"),
         (lambda q, k, v: (torch.zeros(2, 16, 4, 128, dtype=torch.bfloat16)[..., ::2], k, v), "contiguous"),
@@ -180,3 +181,132 @@ def test_kernel_input_checks_accept_the_main_path_layout():
 def test_kernel_input_checks_reject(bad, match):
     with pytest.raises(ValueError, match=match):
         tflash.check_kernel_inputs(*bad(*_kernel_inputs()))
+
+
+# -- every head dim up to 128, and f16 ---------------------------------------
+
+
+@pytest.mark.parametrize("D", [1, 4, 8, 12, 16, 32, 63, 64, 65, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_input_checks_accept_every_head_dim_to_128(dtype, D):
+    # what JAX's kernels run (any Dh, any dtype) the port's kernels take:
+    # a head dim other than 64 and 128 runs zero-padded to the next of them
+    width = tflash.check_kernel_inputs(*_kernel_inputs(dtype, D))
+    assert width == (64 if D <= 64 else 128) == tflash.kernel_head_dim(D)
+    # a narrow head dim of odd byte stride is padded into a fresh tensor,
+    # so the descriptor's 16-byte rule is no refusal there
+    q = torch.zeros(2 * 16 * 4 * 12 + 1, dtype=dtype)[1:].view(2, 16, 4, 12)
+    tflash.check_kernel_inputs(q, q, q)
+
+
+def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
+    x = torch.randn(2, 5, 3, 12)
+    y = tflash.pad_head_dim(x, 64)
+    assert y.shape == (2, 5, 3, 64) and y.is_contiguous()
+    assert torch.equal(y[..., :12], x) and not y[..., 12:].any()
+    assert tflash.pad_head_dim(y, 64) is y
+
+
+# The padded path as the card runs it -- the head dim zero-padded to the
+# kernels' width, the plain version at the kernel's tiling, the results
+# sliced back, the scale of the true head dim -- against the JAX kernels in
+# interpret mode, at head dims of JAX's own configs and tests (8, 12, 32)
+# and in f16.  f32: the JAX suite's tolerances (forward 2e-5, gradients
+# 2e-4: summation order).  f16: outputs, p and dS round to f16 (2^-11
+# relative) at the same points in both, so 1e-2.
+PAD_TOL = {torch.float32: (F32, dict(rtol=2e-4, atol=2e-4)),
+           torch.float16: (dict(rtol=1e-2, atol=1e-2), dict(rtol=1e-2, atol=1e-2))}
+PAD_CASES = [(8, torch.float32), (12, torch.float32), (32, torch.float32),
+             (12, torch.float16), (64, torch.float16)]
+_JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16}
+
+
+def _kernel_tiles(kernel, width):
+    """(block_q, block_k) of a 16-bit CUDA kernel at head dim ``width``
+    (64 or 128), as ``csrc/`` builds it and ``test_torch_flash_tiling.py``
+    pins it."""
+    wide = width == 128
+    return {
+        "fwd": (128 if wide else 192, 128),
+        "dq": (128 if wide else 192, 64),
+        "dkv": (32 if wide else 64, 128),
+        "ring": (128 if wide else 192, 128),
+    }[kernel]
+
+
+def _fwd_emulated(q, k, v, causal):
+    """The forward kernel's padded path with the plain version at the
+    kernel's tiling in place of the launch."""
+    def run(q, k, v, causal, scale, w):
+        return tflash.flash_attention_plain(q, k, v, causal,
+                                            *_kernel_tiles("fwd", w), scale)
+
+    return tflash._fwd_padded(run, q, k, v, causal)
+
+
+def _bwd_emulated(q, k, v, out, lse, do, causal):
+    """The dQ and dK/dV kernels' padded path (see :func:`_fwd_emulated`)."""
+    def run(q, k, v, out, do, lse, causal, scale, w):
+        dq = tflash.flash_bwd_dq_plain(q, k, v, out, lse, do, causal,
+                                       *_kernel_tiles("dq", w), scale)
+        dk, dv = tflash.flash_bwd_dkv_plain(q, k, v, out, lse, do, causal,
+                                            *_kernel_tiles("dkv", w), scale)
+        return dq, dk, dv
+
+    return tflash._bwd_padded(run, q, k, v, out, lse, do, causal)
+
+
+def _ring_emulated(q, k, v, o, m, l, q_off, k_off, causal):
+    """The ring-step kernel's padded path (see :func:`_fwd_emulated`)."""
+    def run(q, k, v, o, m, l, q_off, k_off, causal, scale, w):
+        return tflash.flash_ring_step_plain(q, k, v, o, m, l, q_off, k_off, causal,
+                                            *_kernel_tiles("ring", w), scale)
+
+    return tflash._ring_padded(run, q, k, v, o, m, l, q_off, k_off, causal, None)
+
+
+@pytest.mark.parametrize("D,dtype", PAD_CASES, ids=[f"dh{d}-{str(t)[6:]}" for d, t in PAD_CASES])
+def test_padded_kernel_path_matches_jax_forward_and_backward(D, dtype):
+    B, L, H, KVH, causal = 2, 200, 4, 2, True
+    q, k, v = _qkv(B, L, H, D, seed=D, KVH=KVH)
+    do = np.random.RandomState(D + 1).randn(B, L, H, D).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, _JNP[dtype]) for x in (q, k, v, do))
+    j_out, j_lse = jflash._flash_fwd_impl(jq, jk, jv, causal, 128, 128, None)
+    j_grads = jflash._flash_bwd_impl(jq, jk, jv, j_out, j_lse, jdo, causal,
+                                     128, 128, None)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
+    t_out, t_lse = _fwd_emulated(tq, tk, tv, causal)
+    assert t_out.shape == (B, L, H, D) and t_out.dtype == dtype
+    fwd_tol, grad_tol = PAD_TOL[dtype]
+    np.testing.assert_allclose(t_out.float().numpy(),
+                               np.asarray(j_out, np.float32), **fwd_tol)
+    j_lse = np.asarray(j_lse)[:, :L, 0].reshape(B, H, L)
+    np.testing.assert_allclose(t_lse.numpy(), j_lse, **F32 if dtype == torch.float32
+                               else dict(rtol=1e-3, atol=1e-3))
+    t_grads = _bwd_emulated(tq, tk, tv, t_out, t_lse, tdo, causal)
+    for name, t, j in zip(("dq", "dk", "dv"), t_grads, j_grads):
+        assert t.shape == j.shape and t.dtype == dtype, name
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                                   err_msg=name, **grad_tol)
+
+
+@pytest.mark.parametrize("D,dtype", PAD_CASES, ids=[f"dh{d}-{str(t)[6:]}" for d, t in PAD_CASES])
+def test_padded_ring_step_matches_jax(D, dtype):
+    B, C, H, KVH, q_off, k_off = 1, 256, 4, 2, 256, 0
+    rng = np.random.RandomState(D)
+    q, k, v = _qkv(B, C, H, D, seed=D + 2, KVH=KVH)
+    o = (3 * rng.randn(B, C, H, D)).astype(np.float32)
+    m = rng.randn(B, H, C).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (B, H, C)).astype(np.float32)
+    j = jflash.flash_ring_step(
+        *(jnp.asarray(x, _JNP[dtype]) for x in (q, k, v)),
+        *(jnp.asarray(x) for x in (o, m, l)), q_off, k_off, True, interpret=True,
+    )
+    t = _ring_emulated(
+        *(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+        *(torch.from_numpy(x) for x in (o, m, l)), q_off, k_off, True,
+    )
+    assert t[0].shape == (B, C, H, D) and t[0].dtype == torch.float32
+    tol = F32 if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for name, a, b in zip(("o", "m", "l"), t, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **tol)

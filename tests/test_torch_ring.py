@@ -196,9 +196,9 @@ def test_ring_attention_counts_hops_and_skips_later_chunks(monkeypatch):
     calls = []
     step = tflash.flash_ring_step
 
-    def spy(q, k, v, o, m, l, q_off, k_off, causal):
+    def spy(q, k, v, o, m, l, q_off, k_off, causal, scale=None):
         calls.append((q_off, k_off))
-        return step(q, k, v, o, m, l, q_off, k_off, causal)
+        return step(q, k, v, o, m, l, q_off, k_off, causal, scale=scale)
 
     monkeypatch.setattr(tring, "flash_ring_step", spy)
     q, k, v, _ = (torch.from_numpy(x) for x in _qkv(1, 32, 2, 2, 8, seed=0))
@@ -224,9 +224,9 @@ def test_explicit_ring_flash_folds_a_ragged_chunk_with_the_step(devices, monkeyp
     calls = []
     step = tflash.flash_ring_step
 
-    def spy(q, k, v, o, m, l, q_off, k_off, causal):
+    def spy(q, k, v, o, m, l, q_off, k_off, causal, scale=None):
         calls.append((q_off, k_off))
-        return step(q, k, v, o, m, l, q_off, k_off, causal)
+        return step(q, k, v, o, m, l, q_off, k_off, causal, scale=scale)
 
     monkeypatch.setattr(tring, "flash_ring_step", spy)
     q, k, v, w = _qkv(B, L, H, KVH, Dh, seed=11)
