@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also device time by kernel per path
+                                     # (and per GraphDef leg)
 
 Phases, each printing its own lines:
 
@@ -16,15 +17,17 @@ Phases, each printing its own lines:
    asserted in the built code: the four instantiations of each, ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in every instantiation's
    SASS (``cuobjdump``), 0 bytes of ptxas spills, and no ignored
-   ``setmaxnreg``;
+   ``setmaxnreg``; and of the four FMA kernels (f32 at Dh 64, 128, 256;
+   bf16 and f16 at Dh 256): five instantiations each, no spills;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
    wraps the kernels' stage rings many times, q/k/v as strided views, head
    dims 8, 12, 32 and 96 zero-padded by the wrappers, f16 at Dh 64 and
-   128), with stated tolerances; the ring step also keeps a dominant carry
-   (m above every score of the chunk by > 30) to f32 rounding, in bf16,
-   f16 and at a padded Dh;
+   128, and the wide build at Dh 160 and 256 in bf16, f16 and f32), with
+   stated tolerances; the ring step also keeps a dominant carry (m above
+   every score of the chunk by > 30) to f32 rounding, in bf16, f16, at a
+   padded Dh and at Dh 256;
    gradients through the autograd Function on the card against the same
    Function on CPU copies; and an explicit ``ring_flash`` at a chunk the
    TPU cannot tile, which must launch the ring step on every hop;
@@ -32,8 +35,9 @@ Phases, each printing its own lines:
    equivalent at the main paths' shape, beside the least time the card
    could take (its bound) and the counted TFLOP/s; the ring step at both flagship hops (diagonal
    and off-diagonal), with SDPA's forward on the same chunk pair as the
-   nearest yardstick (no library call folds a carry); the forward also at
-   Dh = 32 (padded) and in f16, beside SDPA at the same shapes (records);
+   nearest yardstick (no library call folds a carry); every kernel also at
+   Dh = 32 (padded), in f16 and at Dh = 256, beside SDPA at the same shapes
+   (each kernel record's ``variants``);
 5. slice (scoring): the flagship transformer (series widths, random seeded
    weights) scores a 64-row frame of 2048-token cells through
    ``map_blocks`` with ``attn_impl="flash"``; the kernels' launches are
@@ -53,14 +57,26 @@ Phases, each printing its own lines:
    strategies, and ``aggregate`` over keys of more than 8 group sizes (the
    combine tree); each against the port's CPU path and numpy at stated
    tolerances, each with its Mrows/s;
-6. train: the flagship train step (bench config 6's widths, remat "none")
-   runs one epoch of a 64-row frame of 2049-token rows through a
-   ``FrameLoader`` and ``train.fit``, after one warm-up step; the kernels'
-   launches are counted over that run alone; the losses must be finite
-   and fall.  Then two steps with ``remat_policy="full"`` (the forward
-   runs twice per step, the first loss is the same), one step at B=2
-   against ``attn_impl="full"`` (loss and gradient norm), and a small f32
-   model trained three steps on the card and on the CPU;
+6. crossover: flash against full attention at the scoring slice's widths
+   (ms per block of 16,384 tokens at L = 256 .. 4096, one B=2 train step
+   at each L), and ``ring_flash`` against the xla ring at sp = 4 (L = 2048,
+   8192); the table behind ``flash_min_len``;
+   train: the flagship train step (bench config 6's widths and its own
+   remat policy, "selective") runs one epoch of a 64-row frame of
+   2049-token rows through a ``FrameLoader`` and ``train.fit``, after one
+   warm-up step; the kernels' launches are counted over that run alone
+   (the forward twice a step: the policy recomputes it); the losses must
+   be finite and fall.  Then two steps each of "none", "full" and "dots"
+   (first loss held to "none"'s), one step at B=2 against
+   ``attn_impl="full"`` (loss and gradient norm), and a small f32 model
+   trained three steps on the card and on the CPU; then a short
+   ``train.frontier_sweep`` (6 points);
+   graphdef: Inception-v3 at full width (8192 seeded 299 x 299 x 3 uint8
+   rows, bf16 params) scored through ``map_blocks`` natively and through
+   its exported and re-imported frozen GraphDef, VGG-16 (224 x 224)
+   likewise, and config 3's MLP frozen into a GraphDef through
+   ``map_rows``; each against its native model, the CPU path on a few rows
+   (f32), with rows/s, ms per block and peak memory;
 7. ring slice (scoring): the same widths score a 32-row frame of
    8192-token cells in 4 blocks through ``map_blocks`` under
    ``set_mesh(training_mesh(sp=4))`` with ``attn_impl="auto"``, which
@@ -144,6 +160,14 @@ KERNEL_CASES = [
     ("f16_dh64", dict(B=2, Lq=2048, Lk=2048, H=16, KVH=4, D=64, dtype=torch.float16, causal=True)),
     ("f16_dh128", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=8, D=128, dtype=torch.float16, causal=True)),
     ("f16_dh12_cross", dict(B=2, Lq=24, Lk=40, H=4, KVH=2, D=12, dtype=torch.float16, causal=False)),
+    # the wide build (FMA kernels on tiles widened to f32): Dh 160 padded to
+    # 256 and Dh 256 itself, in each dtype, causal and not, with GQA
+    ("bf16_dh160", dict(B=2, Lq=700, Lk=700, H=8, KVH=2, D=160, dtype=torch.bfloat16, causal=True)),
+    ("bf16_dh256", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=4, D=256, dtype=torch.bfloat16, causal=False)),
+    ("f16_dh160_cross", dict(B=2, Lq=300, Lk=500, H=4, KVH=2, D=160, dtype=torch.float16, causal=False)),
+    ("f16_dh256", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=2, D=256, dtype=torch.float16, causal=True)),
+    ("f32_dh160", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=160, dtype=torch.float32, causal=True)),
+    ("f32_dh256", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=256, dtype=torch.float32, causal=False)),
 ]
 # f16 rounds finer than bf16 (2^-11 against 2^-8), so it has limits of its
 # own, between what the sound kernels need on an H100 (least_tol: out
@@ -213,6 +237,22 @@ RING_CASES = [
                                 causal=True), 1000, 1000, "dominant"),
     ("dominant_carry_dh32", dict(B=2, C=1000, H=8, KVH=2, D=32, dtype=torch.bfloat16,
                                  causal=True), 1000, 1000, "dominant"),
+    # the wide build: Dh 160 (padded, o with it) and 256, each dtype, causal
+    # and not, GQA, and the dominant carry at 256
+    ("bf16_dh160", dict(B=2, C=700, H=8, KVH=2, D=160, dtype=torch.bfloat16, causal=False),
+     0, 700, "random"),
+    ("bf16_dh256", dict(B=2, C=1000, H=8, KVH=2, D=256, dtype=torch.bfloat16, causal=True),
+     1000, 1000, "random"),
+    ("f16_dh160_cross", dict(B=2, C=500, H=4, KVH=2, D=160, dtype=torch.float16, causal=True),
+     1037, 0, "random"),
+    ("f16_dh256", dict(B=2, C=1000, H=8, KVH=4, D=256, dtype=torch.float16, causal=True),
+     1000, 1000, "random"),
+    ("f32_dh160", dict(B=2, C=300, H=4, KVH=4, D=160, dtype=torch.float32, causal=True),
+     300, 0, "random"),
+    ("f32_dh256", dict(B=2, C=257, H=4, KVH=2, D=256, dtype=torch.float32, causal=False),
+     0, 257, "random"),
+    ("dominant_carry_dh256", dict(B=2, C=1000, H=8, KVH=2, D=256, dtype=torch.bfloat16,
+                                  causal=True), 1000, 1000, "dominant"),
 ]
 # o is compared as o / l: the un-normalised o carries the row's denominator
 # (up to ~2000 here), so one bf16 rounding of p that differs between exp2f
@@ -228,12 +268,12 @@ RING_ML_TOL = 1e-4
 DOMINANT_O_TOL = 1e-5
 DOMINANT_GAP = 30.0  # m above every scaled score of the chunk, at least
 
-# the train slice: bench.py config 6's widths (remat "none": config 6's
-# "selective" policy is not ported yet) and its TrainConfig(3e-4)
+# the train slice: bench.py config 6's widths and its own remat policy
+# ("selective", bench.py:642) and TrainConfig(3e-4)
 TRAIN_MODEL = dict(
     vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
     d_ff=4096, max_seq=2048, dtype=torch.bfloat16, attn_impl="flash",
-    remat_policy="none",
+    remat_policy="selective",
 )
 TRAIN_ROWS, TRAIN_B, TRAIN_L = 64, 8, 2048
 # remat "full" recomputes the same forward from the same params and batch:
@@ -258,6 +298,33 @@ RING_TRAIN_ROWS, RING_TRAIN_B = 16, 2  # training: one epoch of 8 steps
 # the flagship hops that chip_smoke times: rank 2's own chunk (the
 # diagonal, half the pairs) and rank 3 folding chunk 1 (every pair visible)
 RING_HOPS = {"diagonal": (4096, 4096), "off_diagonal": (6144, 2048)}
+
+# the flash/full crossover (attn_impl="auto"'s flash_min_len): the scoring
+# slice's widths, a block of the flagship's 16,384 tokens at each length;
+# one B=2 train step at each length; the ring legs at sp = 4
+CROSSOVER_LS = (256, 512, 1024, 2048, 4096)
+CROSSOVER_TOKENS = 8 * 2048
+CROSSOVER_RING_LS = (2048, 8192)
+CROSSOVER_RING_ROWS = 2  # rows per ring block
+
+# the frontier sweep: cheapest first, at most 6 points
+FRONTIER = [dict(batches=(4, 8), seqs=(1024, 2048), remat_policies=("selective",)),
+            dict(batches=(8,), seqs=(1024, 2048), remat_policies=("full",))]
+
+# the GraphDef legs: Inception-v3 at full width, 8192 rows in 4 blocks of
+# 2048 (bench.py:3113-3118); VGG-16 at 224 x 224, 8192 rows in blocks of
+# 512 (cut from 2048: at 2048 one f32 conv1 activation is 26 GB); config
+# 3's MLP as a frozen GraphDef over the verbs phase's 65,536 rows
+INCEPTION_ROWS, INCEPTION_BLOCKS = 8192, 4
+VGG_ROWS, VGG_BLOCKS = 8192, 16
+GRAPHDEF_CPU_ROWS = 4
+# card against the CPU, f32 (TF32 off): the same convolutions summed in
+# another order through 94 (Inception) or 16 (VGG) layers
+GRAPHDEF_CPU_TOL = 1e-3
+# imported graph against the native model on the card: the same f32
+# arithmetic (bf16 weights widen exactly), so only the kernels' choice of
+# summation order may differ
+GRAPHDEF_NATIVE_TOL = 1e-4
 
 
 def say(tag: str, **kw) -> None:
@@ -416,6 +483,15 @@ SASS_OPS = ("HGMMA", "UTMALDG")
 # __half) at Dh = 64 and 128
 ELEMENT_TYPES = ("__nv_bfloat16", "__half")
 INSTANTIATIONS = len(ELEMENT_TYPES) * 2
+# the FMA kernels (tiles widened to f32 in shared memory): f32 at Dh 64, 128
+# and 256, bf16 and f16 at 256; no TMA, no wgmma
+FMA_KERNELS = [
+    ("flash_fwd", "flash_fwd_fma"),
+    ("flash_bwd", "flash_bwd_dq_fma"),
+    ("flash_bwd", "flash_bwd_dkv_fma"),
+    ("flash_ring", "ring_step_fma"),
+]
+FMA_INSTANTIATIONS = 5
 
 
 def ptxas_spills(log):
@@ -434,7 +510,9 @@ def ptxas_spills(log):
 def check_hopper_design(_build):
     """The four 16-bit kernels, as built: four instantiations each (bf16
     and f16 at Dh 64 and 128), HGMMA and UTMALDG in every instantiation's
-    SASS, no spills, and no setmaxnreg that ptxas ignored."""
+    SASS, no spills, and no setmaxnreg that ptxas ignored; the four FMA
+    kernels: five instantiations each (f32 at Dh 64, 128, 256; bf16 and f16
+    at 256), no HGMMA or UTMALDG, no spills."""
     sass_of = {}
     for src, kernel in HOPPER_KERNELS:
         if src not in sass_of:
@@ -463,6 +541,24 @@ def check_hopper_design(_build):
         if "C7508" in log:
             raise AssertionError(f"{src}: ptxas ignored setmaxnreg (C7508)")
         say("build", kernel=kernel, sass_counts=counts, spill_bytes=spills)
+    for src, kernel in FMA_KERNELS:
+        counts = {}
+        for body in re.split(r"\n\s*Function : ", sass_of[src])[1:]:
+            fn = body.split("\n", 1)[0].strip()
+            if kernel in fn:
+                counts[fn] = {op: body.count(op) for op in SASS_OPS}
+        spills = {fn: v for fn, v in ptxas_spills(_build.build_log(src)).items()
+                  if kernel in fn}
+        types = {t: sum(t in fn for fn in counts) for t in ELEMENT_TYPES}
+        if len(counts) != FMA_INSTANTIATIONS or set(types.values()) != {1}:
+            raise AssertionError(
+                f"{kernel}: expected {FMA_INSTANTIATIONS} instantiations (f32 at "
+                f"Dh 64, 128, 256; bf16 and f16 at 256), found {sorted(counts)}")
+        if any(sum(c.values()) for c in counts.values()):
+            raise AssertionError(f"{kernel}: an FMA kernel with {SASS_OPS}: {counts}")
+        if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
+            raise AssertionError(f"{kernel}: ptxas spills {spills}")
+        say("build", kernel=kernel, instantiations=sorted(counts), spill_bytes=spills)
 
 
 def phase_kernels():
@@ -678,48 +774,107 @@ def phase_timing():
                 share_of_bound=bound_ms / row["ms"],
                 tflops_per_s=flops / row["ms"] / 1e9)
     timing["flash_ring_step"] = phase_ring_timing()
-    timing["flash_fwd_variants"] = phase_fwd_variant_timing()
+    timing["variants"] = phase_variant_timing()
     return timing
 
 
-# the forward at a padded head dim and in f16, at the flagship's batch,
-# length and heads (records only: the bound is the true head dim's work)
-FWD_VARIANTS = {
+# each kernel at a padded head dim, in f16 and at the wide build's Dh = 256,
+# at the flagship's batch and length (Dh = 256 at 4 heads: the flagship's
+# d_model); records only, the bound is each variant's true work
+VARIANTS = {
     "dh32_bf16": dict(FLAGSHIP, D=32),
     "dh64_f16": dict(FLAGSHIP, dtype=torch.float16),
+    "dh256_bf16": dict(FLAGSHIP, D=256, H=4, KVH=4),
 }
 
 
-def phase_fwd_variant_timing():
-    """The forward kernel at Dh = 32 (zero-padded to 64 by the wrapper, the
-    pad and slice included) and at Dh = 64 in f16, beside SDPA at the same
-    shape and each one's bound; the timed call's output is held against
-    the plain version's on the same inputs."""
+def phase_variant_timing():
+    """Each kernel at every VARIANTS shape (the wrappers' pad and slice
+    included): the forward, dQ and dK/dV beside SDPA's forward / backward
+    at the same shape, and the ring step's off-diagonal flagship hop beside
+    SDPA's forward on the chunk pair, each with its bound; each timed
+    call's output is held against the plain version's on the same
+    inputs."""
     from tensorframes_tpu_torch.parallel import flash
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {}
-    with torch.no_grad():
-        for name, c in FWD_VARIANTS.items():
-            q, k, v = qkv(c, seed=3)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows = {name: {} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                  "flash_ring_step")}
+
+    def record(kernel, variant, c, row, flops):
+        rows[kernel][variant] = row
+        say("timing", kernel=kernel, variant=variant, **row,
+            share_of_bound=row["bound_ms"] / row["ms"],
+            tflops_per_s=flops / row["ms"] / 1e9,
+            shape={k_: str(v_) for k_, v_ in c.items()})
+
+    for name, c in VARIANTS.items():
+        q, k, v = qkv(c, seed=3)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                         .manual_seed(4), device="cuda").to(c["dtype"])
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        o_lib = sdpa(qt, kt, vt, is_causal=True)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
+        del o_lib
+        with torch.no_grad():
             out, lse = flash.flash_attention_fwd(q, k, v, True)
             ref_out, ref_lse = flash.flash_attention_plain(q, k, v, True)
             err = check_close(f"{name} out", out, ref_out, TOL[c["dtype"]])
             check_close(f"{name} lse", lse, ref_lse, LSE_TOL[c["dtype"]])
-            del out, lse, ref_out, ref_lse
+            grads = flash.flash_attention_bwd(q, k, v, out, lse, do, True)
+            refs = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+            g_err = [check_close(f"{name} {g}", a, b_, BWD_TOL[c["dtype"]])
+                     for g, a, b_ in zip(("dq", "dk", "dv"), grads, refs)]
+            del ref_out, ref_lse, grads, refs
             bound_ms, bound_by, flops = kernel_bound(c, "flash_fwd")
-            row = dict(
+            record("flash_fwd", name, c, dict(
                 ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, True), 20),
                 plain_ms=cuda_ms(lambda: flash.flash_attention_plain(q, k, v, True), 3, 1),
                 library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20),
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-            )
-            rows[name] = row
-            say("timing", kernel="flash_fwd", variant=name, **row,
-                share_of_bound=bound_ms / row["ms"],
-                tflops_per_s=flops / row["ms"] / 1e9,
-                shape={k_: str(v_) for k_, v_ in c.items()})
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err), flops)
+            # each backward kernel alone on the inputs the wrapper prepares
+            # (padded to the kernel's width, D = rowsum(dO o O) computed), as
+            # the flagship rows time them; beside it the whole padded
+            # backward (the pad, D, both kernels, the slice)
+            w = flash.kernel_head_dim(c["D"])
+            pq, pk, pv, pout, pdo = (flash.pad_head_dim(x, w) for x in (q, k, v, out, do))
+            delta = (pdo.float() * pout.float()).sum(-1).transpose(1, 2).contiguous()
+            scale = flash._scale(c["D"])
+            bwd_path_ms = cuda_ms(
+                lambda: flash.flash_attention_bwd(q, k, v, out, lse, do, True), 20)
+            for kernel, e in (("flash_bwd_dq", g_err[0]), ("flash_bwd_dkv", max(g_err[1:]))):
+                bound_ms, bound_by, flops = kernel_bound(c, kernel)
+                fn = flash.flash_bwd_dq if kernel == "flash_bwd_dq" else flash.flash_bwd_dkv
+                plain = (flash.flash_bwd_dq_plain if kernel == "flash_bwd_dq"
+                         else flash.flash_bwd_dkv_plain)
+                record(kernel, name, c, dict(
+                    ms=cuda_ms(lambda: fn(pq, pk, pv, pdo, lse, delta, True, scale), 20),
+                    plain_ms=cuda_ms(lambda: plain(q, k, v, out, lse, do, True), 3, 1),
+                    library_ms=sdpa_bwd_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    max_abs_err=e, padded_backward_path_ms=bwd_path_ms), flops)
+            del pq, pk, pv, pout, pdo, delta
+        del q, k, v, do, qt, kt, vt, out, lse
+        # the ring step at the off-diagonal flagship hop, at this variant
+        rc = dict(RING_FLAGSHIP, D=c["D"], H=c["H"], KVH=c["KVH"], dtype=c["dtype"])
+        q_off, k_off = RING_HOPS["off_diagonal"]
+        args = ring_inputs(rc, "random", seed=5)
+        rq, rk, rv = (x.transpose(1, 2) for x in args[:3])
+        with torch.no_grad():
+            got = flash.flash_ring_step(*args, q_off, k_off, True)
+            ref = flash.flash_ring_step_plain(*args, q_off, k_off, True)
+            err = check_close(f"ring {name} o/l", per_l(got[0], ref[2]),
+                              per_l(ref[0], ref[2]), RING_O_TOL[rc["dtype"]])
+            del got, ref
+            bound_ms, bound_by, flops = ring_bound(rc, q_off, k_off)
+            record("flash_ring_step", name, rc, dict(
+                ms=cuda_ms(lambda: flash.flash_ring_step(*args, q_off, k_off, True), 20),
+                plain_ms=cuda_ms(lambda: flash.flash_ring_step_plain(
+                    *args, q_off, k_off, True), 3, 1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                sdpa_yardstick_ms=cuda_ms(lambda: sdpa(rq, rk, rv), 20),
+                max_abs_err=err), flops)
+        del args, rq, rk, rv
     return rows
 
 
@@ -1124,27 +1279,38 @@ def phase_train():
     run(cfg, 1, params)  # warm-up step
     start_params = clone_params(params)
     losses, sec, launches, peak = run(cfg, steps, params)
-    expect(launches, cfg.n_layers * steps, cfg.n_layers * steps, "train")
+    # "selective" recomputes each block's forward in the backward (saving
+    # only JAX's tagged tensors), so the forward kernel runs twice a step
+    expect(launches, 2 * cfg.n_layers * steps, cfg.n_layers * steps, "train")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train losses not finite and falling: {losses}")
     tokens = steps * TRAIN_B * TRAIN_L
     flops_per_token = train.counted_flops_per_token(n_params, cfg, TRAIN_L)
-    say("train", attn_impl="flash", remat="none", steps=steps, batch=TRAIN_B,
+    say("train", attn_impl="flash", remat=cfg.remat_policy, steps=steps, batch=TRAIN_B,
         seq=TRAIN_L, n_params=n_params, seconds=sec,
         ms_per_step=sec / steps * 1e3, tokens_per_s=tokens / sec,
         counted_tflops_per_s=flops_per_token * tokens / sec / 1e12,
         peak_bytes=peak, launches=launches, losses=losses)
 
-    # remat "full": the forward runs again in the backward, same first loss
-    rcfg = dataclasses.replace(cfg, remat_policy="full")
-    r_losses, r_sec, r_launches, r_peak = run(rcfg, 2, clone_params(start_params))
-    expect(r_launches, 2 * cfg.n_layers * 2, cfg.n_layers * 2, "remat full")
-    diff = abs(r_losses[0] - losses[0])
-    if not diff <= REMAT_LOSS_TOL:
-        raise AssertionError(f"remat full first loss off by {diff}")
-    say("train", remat="full", steps=2, ms_per_step=r_sec / 2 * 1e3,
-        peak_bytes=r_peak, launches=r_launches, losses=r_losses,
-        first_loss_abs_diff_vs_none=diff, tol=REMAT_LOSS_TOL)
+    # the other policies: two steps each from the same params and batches,
+    # first loss held to "none"'s
+    legs = {}
+    for policy, fwd_per_step in (("none", 1), ("full", 2), ("dots", 2)):
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        p_losses, p_sec, p_launches, p_peak = run(pcfg, 2, clone_params(start_params))
+        expect(p_launches, 2 * fwd_per_step * cfg.n_layers, 2 * cfg.n_layers, f"remat {policy}")
+        legs[policy] = dict(first_loss=p_losses[0], ms_per_step=p_sec / 2 * 1e3,
+                            peak_bytes=p_peak, launches=p_launches, losses=p_losses)
+    for policy, first in (("selective", losses[0]), ("full", legs["full"]["first_loss"]),
+                          ("dots", legs["dots"]["first_loss"])):
+        diff = abs(first - legs["none"]["first_loss"])
+        if not diff <= REMAT_LOSS_TOL:
+            raise AssertionError(f"remat {policy} first loss off by {diff} from none's")
+    for policy, leg in legs.items():
+        say("train", remat=policy, steps=2, **leg, selective_ms_per_step=sec / steps * 1e3,
+            selective_peak_bytes=peak,
+            first_loss_abs_diff_vs_none=abs(leg["first_loss"] - legs["none"]["first_loss"]),
+            tol=REMAT_LOSS_TOL)
 
     # one step at B=2: flash against full attention
     batch = torch.from_numpy(toks[:2]).cuda()
@@ -1411,6 +1577,288 @@ def phase_ring_train(ring_mesh):
     return cfg, tc, start_params, loader
 
 
+def phase_crossover():
+    """attn_impl="auto"'s threshold on this card: flash against full at the
+    scoring slice's widths, scoring ms per block of CROSSOVER_TOKENS tokens
+    and one B=2 train step (best of three) at each length of CROSSOVER_LS,
+    and the ring legs (ring_flash against the xla ring step) at sp = 4.
+    Returns the smallest length at which flash is no slower than full in
+    both (None: at none of them)."""
+    from tensorframes_tpu_torch import TensorFrame, map_blocks, train
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+    from tensorframes_tpu_torch.parallel import mesh
+
+    base = tfm.TransformerConfig(
+        vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
+        d_ff=4096, max_seq=8192, dtype=torch.bfloat16,
+    )
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), base)
+    tc = train.TrainConfig(learning_rate=3e-4)
+
+    def score_ms(cfg, L, rows, blocks=2, ring_mesh=None):
+        toks = np.random.RandomState(L).randint(
+            0, base.vocab_size, (rows * blocks, L)).astype(np.int32)
+        frame = TensorFrame.from_arrays({"tokens": toks}, num_blocks=blocks)
+        prog = scoring.scoring_program(params, cfg, fetches=("nll",))
+        with mesh.set_mesh(ring_mesh):
+            map_blocks(prog, TensorFrame.from_arrays({"tokens": toks[:rows]})).to_arrays()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = map_blocks(prog, frame).to_arrays()["nll"]
+            return (time.perf_counter() - t0) / blocks * 1e3, out
+
+    def step_ms(cfg, L):
+        p = clone_params(params)
+        step, tx = train.make_train_step(cfg, tc)
+        state = tx.init(p)
+        b = np.random.RandomState(L + 1).randint(0, base.vocab_size, (2, L + 1))
+        b = torch.from_numpy(b.astype(np.int32)).cuda()
+        inp, tgt = b[:, :-1], b[:, 1:]
+        float(step(p, state, inp, tgt)[2])  # warm-up
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(p, state, inp, tgt)[2])
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    table = []
+    for L in CROSSOVER_LS:
+        rows = CROSSOVER_TOKENS // L
+        row = dict(L=L, rows_per_block=rows)
+        nll = {}
+        for impl in ("flash", "full"):
+            cfg = dataclasses.replace(base, attn_impl=impl)
+            row[f"{impl}_score_ms_per_block"], nll[impl] = score_ms(cfg, L, rows)
+        diff = float(np.abs(nll["flash"] - nll["full"]).max())
+        if not diff <= NLL_TOL:
+            raise AssertionError(f"crossover L={L}: nll flash vs full {diff} > {NLL_TOL}")
+        row["flash_train_ms_per_step"] = step_ms(dataclasses.replace(base, attn_impl="flash"), L)
+        try:  # full attention holds [B, H, L, L] f32 per layer: it may not fit
+            row["full_train_ms_per_step"] = step_ms(dataclasses.replace(base, attn_impl="full"), L)
+        except torch.cuda.OutOfMemoryError:
+            row["full_train_ms_per_step"] = "out of memory"
+        torch.cuda.empty_cache()
+        full_train = row["full_train_ms_per_step"]
+        row["flash_no_slower"] = (
+            row["flash_score_ms_per_block"] <= row["full_score_ms_per_block"]
+            and (isinstance(full_train, str) or row["flash_train_ms_per_step"] <= full_train))
+        row["nll_max_abs_diff"] = diff
+        table.append(row)
+        say("crossover", **row)
+    crossover = next((r["L"] for r in table if r["flash_no_slower"]), None)
+
+    ring_mesh = mesh.training_mesh(sp=4)
+    ring_flash_wins = []
+    for L in CROSSOVER_RING_LS:
+        row = dict(L=L, sp=4, rows_per_block=CROSSOVER_RING_ROWS)
+        nll = {}
+        for impl in ("ring_flash", "ring"):
+            cfg = dataclasses.replace(base, attn_impl=impl)
+            row[f"{impl}_score_ms_per_block"], nll[impl] = score_ms(
+                cfg, L, CROSSOVER_RING_ROWS, ring_mesh=ring_mesh)
+        row["nll_max_abs_diff"] = float(np.abs(nll["ring_flash"] - nll["ring"]).max())
+        if not row["nll_max_abs_diff"] <= NLL_TOL:
+            raise AssertionError(f"ring crossover L={L}: nll {row['nll_max_abs_diff']}")
+        row["ring_flash_no_slower"] = (row["ring_flash_score_ms_per_block"]
+                                       <= row["ring_score_ms_per_block"])
+        if row["ring_flash_no_slower"]:
+            ring_flash_wins.append(L)
+        say("crossover", **row)
+    say("crossover", measured_flash_min_len=crossover,
+        port_default=tfm.TransformerConfig().flash_min_len,
+        ring_flash_no_slower_at=ring_flash_wins)
+    del params
+    torch.cuda.empty_cache()
+    return crossover
+
+
+def phase_frontier(cfg, tc):
+    """A short train.frontier_sweep (FRONTIER: at most 6 points, cheapest
+    first); every point must run."""
+    from tensorframes_tpu_torch import train
+
+    points = []
+    for grid in FRONTIER:
+        points += train.frontier_sweep(cfg, tc, steps=2, log=lambda r: say("frontier", **r),
+                                       **grid)
+    bad = [p.record() for p in points if p.error is not None]
+    if bad or len(points) > 6:
+        raise AssertionError(f"frontier sweep: {len(points)} points, failed {bad}")
+    best = train.best_frontier_point(points)
+    say("frontier", best=best.record(), points=len(points))
+    torch.cuda.empty_cache()
+
+
+def _graphdef_leg(name, native_fn, graph_bytes, images, blocks, fetches, profile):
+    """Score ``images`` (host uint8 rows) through ``native_fn`` and through
+    the imported ``graph_bytes`` with map_blocks on the card (``profile``:
+    also device time by kernel over one block of each); returns (imported
+    outputs, native outputs, record)."""
+    from tensorframes_tpu_torch import TensorFrame, map_blocks
+    from tensorframes_tpu_torch.graphdef import import_graphdef
+
+    frame = TensorFrame.from_arrays({"image": images}, num_blocks=blocks)
+    first = TensorFrame.from_arrays({"image": images[: len(images) // blocks]})
+    imported = import_graphdef(graph_bytes, fetches=fetches)
+    rec, outs = {}, {}
+    for path, prog in (("native", native_fn), ("imported", imported)):
+        map_blocks(prog, first).to_arrays()  # warm-up: one block
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[path] = map_blocks(prog, frame, trim=True).to_arrays()  # ends in a D2H sync
+        sec = time.perf_counter() - t0
+        rec[path] = dict(seconds=sec, rows_per_s=len(images) / sec,
+                         ms_per_block=sec / blocks * 1e3,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        if profile:
+            profile_kernels(f"{name} {path} one block",
+                            lambda: map_blocks(prog, first, trim=True).to_arrays())
+        torch.cuda.empty_cache()
+    return outs["imported"], outs["native"], rec
+
+
+def _check_leg(name, imported, native, cpu, rows, score_key, class_key):
+    """The imported graph against the native model on the card, and both
+    against the port's CPU path on the first ``rows`` rows (f32)."""
+    err = check_results(f"{name} imported vs native", imported, native,
+                        GRAPHDEF_NATIVE_TOL, GRAPHDEF_NATIVE_TOL, keys=(score_key,))
+
+    def ranked(got, ref, tol):
+        """The entries whose rank is no near-tie: a top-k list may swap two
+        values within tol, so a class is compared only where the values
+        beside it in the list differ by more (a 1-D prediction: all)."""
+        v = np.asarray(ref[score_key], np.float64)
+        if v.ndim == 1:
+            return np.ones(len(v), bool)
+        gap = np.diff(-v, axis=-1) > tol * (1 + np.abs(v[:, :-1]))
+        edge = np.ones((len(v), 1), bool)
+        return np.concatenate([gap, edge], 1) & np.concatenate([edge, gap], 1)
+
+    keep = ranked(imported, native, GRAPHDEF_NATIVE_TOL)
+    if not np.array_equal(imported[class_key][keep], native[class_key][keep]):
+        n = int((imported[class_key][keep] != native[class_key][keep]).sum())
+        raise AssertionError(f"{name}: {n} predictions differ, imported vs native")
+    head = {k: v[:rows] for k, v in imported.items()}
+    cpu_err = check_results(f"{name} card vs cpu", head, cpu, GRAPHDEF_CPU_TOL,
+                            GRAPHDEF_CPU_TOL, keys=(score_key,))
+    keep_cpu = ranked(head, cpu, GRAPHDEF_CPU_TOL)
+    if not np.array_equal(head[class_key][keep_cpu], cpu[class_key][keep_cpu]):
+        raise AssertionError(f"{name}: card and CPU predictions differ")
+    for k, v in imported.items():
+        if not np.isfinite(np.asarray(v, np.float64)).all():
+            raise AssertionError(f"{name} {k}: non-finite values")
+    return err, cpu_err, int(keep.sum())
+
+
+def phase_graphdef(profile=False):
+    """Frozen-GraphDef scoring: Inception-v3 (full width, bf16 params,
+    299 x 299 x 3 uint8 rows) natively and through the imported frozen
+    graph, VGG-16 (224 x 224) likewise, and config 3's MLP as a frozen
+    GraphDef through map_rows, each against its native model, the CPU path
+    on a few rows, and finiteness; ``profile``: device time by kernel over
+    one block of each image leg."""
+    from tensorframes_tpu_torch import TensorFrame, map_rows
+    from tensorframes_tpu_torch.graphdef import import_graphdef
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+    from tensorframes_tpu_torch.models import convert, inception, mlp, vgg
+    from tensorframes_tpu_torch.models.inception_export import export_graphdef as inc_export
+    from tensorframes_tpu_torch.models.vgg_export import export_graphdef as vgg_export
+
+    gen = np.random.default_rng(0)
+    rows = GRAPHDEF_CPU_ROWS
+
+    # Inception-v3: bf16 params from init(0), scored as JAX's program does
+    # (a bf16 image over an f32 scalar promotes to f32)
+    params = inception.init(0)
+    images = gen.integers(0, 256, (INCEPTION_ROWS, 299, 299, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    graph = inc_export(params)
+    export_s = time.perf_counter() - t0
+    imp, nat, rec = _graphdef_leg(
+        "inception", inception.scoring_program(params), graph, images,
+        INCEPTION_BLOCKS, ["prediction", "score"], profile)
+    cpu_params = convert.inception_params_from_numpy(_np_tree(params), device="cpu")
+    cpu = import_graphdef(graph, fetches=["prediction", "score"], device="cpu").call(
+        {"image": torch.from_numpy(images[:rows])})
+    cpu = {k: v.numpy() for k, v in cpu.items()}
+    cpu_native = inception.scoring_program(cpu_params, dtype=torch.float32)(
+        torch.from_numpy(images[:rows]))
+    check_results("inception cpu imported vs native", cpu,
+                  {k: v.numpy() for k, v in cpu_native.items()}, GRAPHDEF_NATIVE_TOL,
+                  GRAPHDEF_NATIVE_TOL, keys=("score",))
+    err, cpu_err, _ = _check_leg("inception", imp, nat, cpu, rows, "score", "prediction")
+    say("graphdef", model="inception_v3", rows=INCEPTION_ROWS, blocks=INCEPTION_BLOCKS,
+        graph_bytes=len(graph), export_seconds=export_s, **rec,
+        score_max_abs_diff_imported_vs_native=err, native_tol=GRAPHDEF_NATIVE_TOL,
+        score_max_abs_diff_card_vs_cpu=cpu_err, cpu_tol=GRAPHDEF_CPU_TOL,
+        distinct_predictions=int(len(np.unique(imp["prediction"]))))
+    del params, images, imp, nat
+    torch.cuda.empty_cache()
+
+    # VGG-16, 224 x 224, f32 (JAX's default)
+    vparams = vgg.init(0)
+    vimages = gen.integers(0, 256, (VGG_ROWS, 224, 224, 3), dtype=np.uint8)
+    graph = vgg_export(vparams)
+    imp, nat, rec = _graphdef_leg(
+        "vgg16", vgg.scoring_program(vparams), graph, vimages, VGG_BLOCKS,
+        ["value", "index", "probability"], profile)
+    cpu = import_graphdef(graph, fetches=["value", "index", "probability"],
+                          device="cpu").call({"image": torch.from_numpy(vimages[:rows])})
+    cpu = {k: v.numpy() for k, v in cpu.items()}
+    err, cpu_err, ranked = _check_leg("vgg16", imp, nat, cpu, rows, "value", "index")
+    say("graphdef", model="vgg16", rows=VGG_ROWS, blocks=VGG_BLOCKS, graph_bytes=len(graph),
+        **rec, classes_compared=ranked, value_max_abs_diff_imported_vs_native=err, native_tol=GRAPHDEF_NATIVE_TOL,
+        value_max_abs_diff_card_vs_cpu=cpu_err, cpu_tol=GRAPHDEF_CPU_TOL)
+    del vparams, vimages, imp, nat
+    torch.cuda.empty_cache()
+
+    # config 3's MLP (784-256-128-10) frozen into a GraphDef, through map_rows
+    rng = np.random.RandomState(0)
+    sizes = MLP_SIZES
+    g = GraphBuilder()
+    g.placeholder("image", "float32", [sizes[0]])
+    x, layers = "image", []
+    for i, (fi, fo) in enumerate(zip(sizes[:-1], sizes[1:])):
+        w = (rng.randn(fi, fo) * np.sqrt(2.0 / fi)).astype(np.float32)
+        b = np.zeros((fo,), np.float32)
+        layers.append({"w": w, "b": b})
+        g.const(f"w{i}", w)
+        g.const(f"b{i}", b)
+        x = g.op("MatMul", f"mm{i}", [x, f"w{i}"])
+        x = g.op("BiasAdd", f"bias{i}", [x, f"b{i}"])
+        if i < len(sizes) - 2:
+            x = g.op("Relu", f"relu{i}", [x])
+    g.op("ArgMax", "prediction", [x, g.const("axis", np.int32(-1))])
+    feats = rng.rand(MLP_ROWS, sizes[0]).astype(np.float32)
+    frame = TensorFrame.from_arrays({"pixels": feats}, num_blocks=4)
+    prog = import_graphdef(g.to_bytes(), fetches=["prediction", x],
+                           inputs={"image": "pixels"}, outputs={x: "logits"})
+    got, sec = timed(lambda: map_rows(prog, frame).to_arrays())
+    native = map_rows(mlp.scoring_program(convert.mlp_params_from_numpy(layers)), frame,
+                      feed_dict={"image": "pixels"}).to_arrays()
+    err = check_results("mlp graphdef vs native", got, native, MLP_TOL, MLP_TOL,
+                        keys=("logits",))
+    top2 = np.sort(native["logits"], axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 10 * MLP_TOL  # argmax is not a near-tie
+    if not np.array_equal(got["prediction"][clear], native["logits"].argmax(-1)[clear]):
+        raise AssertionError("mlp graphdef: predictions differ from the native MLP")
+    say("graphdef", model="mlp_784_256_128_10", verb="map_rows", rows=MLP_ROWS,
+        seconds=sec, mrows_per_s=MLP_ROWS / sec / 1e6, logits_max_abs_diff=err,
+        tol=MLP_TOL, predictions_compared=int(clear.sum()))
+
+
+def _np_tree(tree):
+    """A param tree of tensors as host f32 numpy."""
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_np_tree(v) for v in tree]
+    return tree.detach().float().cpu().numpy()
+
+
 def profile_kernels(label, fn) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's idle share of its wall time."""
@@ -1498,7 +1946,10 @@ def main() -> int:
     prog, frame = phase_slice()
     phase_small_head_slice()
     phase_verbs()
+    phase_crossover()
     train_run = phase_train()
+    phase_frontier(*train_run[1:3])
+    phase_graphdef(args.profile)
     ring_run = phase_ring_slice()
     ring_train_run = phase_ring_train(ring_run[3])
     if args.profile:
@@ -1517,8 +1968,7 @@ def main() -> int:
                 "launches": launches[name],
                 "max_abs_err": errs["flagship"][name],
                 **timing[name],
-                **({"variants": timing["flash_fwd_variants"]}
-                   if name == "flash_fwd" else {}),
+                "variants": timing["variants"][name],
             }
             for name, src, line in (
                 ("flash_fwd", "flash_fwd", 42),
@@ -1538,6 +1988,7 @@ def main() -> int:
                 **timing["flash_ring_step"]["off_diagonal"],
                 "diagonal": dict(timing["flash_ring_step"]["diagonal"],
                                  max_abs_err=errs["ring"]["flagship_diag"]),
+                "variants": timing["variants"]["flash_ring_step"],
             }
         ]
     }

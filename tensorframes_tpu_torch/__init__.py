@@ -7,8 +7,11 @@ verbs of the reference (``map_blocks``, ``map_blocks_trimmed``,
 on them (``models/``), the flagship transformer scored on the data plane
 (``models/scoring.py``), trained from a frame (``train.py``), and run over
 long sequences with ring attention on the ``sp`` axis
-(``parallel/ring.py``).  Its attention kernels are hand-written CUDA for
-Hopper (``parallel/flash.py``, ``csrc/``).  Every entry point
+(``parallel/ring.py``); frozen TF GraphDefs imported and scored through
+the verbs (``graphdef/``, with Inception-v3 and VGG-16 in ``models/``),
+the graph DSL (``dsl.py``) and the fluent ``OpBuilder`` (``builder.py``).
+Its attention kernels are hand-written CUDA for Hopper
+(``parallel/flash.py``, ``csrc/``).  Every entry point
 runs on the CUDA card unless its caller passes ``device="cpu"``; without a
 card and without that request it raises.
 
@@ -16,7 +19,12 @@ The package imports torch and numpy only — never jax or tensorframes_tpu —
 and installs no global hooks.
 """
 
+from . import dsl, graphdef
 from .analyze import analyze, print_schema
+from .builder import OpBuilder
+from .data import FrameLoader
+from .dsl import block, row
+from .dtypes import ScalarType, by_name as scalar_type, supported_types
 from .frame import TensorFrame
 from .ops.engine import (
     Executor,
@@ -30,17 +38,32 @@ from .ops.engine import (
     reduce_rows,
 )
 from .ops.validation import ValidationError
-from .program import Program, ProgramError
+from .program import GraphNodeSummary, Program, ProgramError
+from .schema import ColumnInfo, Schema, SchemaError
+from .shape import Shape, ShapeError, UNKNOWN
 
 __all__ = [
+    "ColumnInfo",
     "Executor",
+    "FrameLoader",
+    "GraphNodeSummary",
     "GroupedFrame",
+    "OpBuilder",
     "Program",
     "ProgramError",
+    "ScalarType",
+    "Schema",
+    "SchemaError",
+    "Shape",
+    "ShapeError",
     "TensorFrame",
+    "UNKNOWN",
     "ValidationError",
     "aggregate",
     "analyze",
+    "block",
+    "dsl",
+    "graphdef",
     "group_by",
     "map_blocks",
     "map_blocks_trimmed",
@@ -48,4 +71,7 @@ __all__ = [
     "print_schema",
     "reduce_blocks",
     "reduce_rows",
+    "row",
+    "scalar_type",
+    "supported_types",
 ]

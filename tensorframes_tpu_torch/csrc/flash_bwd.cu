@@ -81,7 +81,11 @@
 // never computes exp(finite - (-inf)) (:409-412); the causal mask is
 // top-left (q >= k) when Lq != Lk.
 // f32 inputs take plain FMA kernels (TF32 would lose precision the JAX
-// reference keeps); they are off the main path.
+// reference keeps), and so do bf16 and f16 at Dh = 256 (head dims 129..256,
+// padded): one template on the element type, P and dS rounded to it before
+// their products as above.  At that width dK and dV of a 32-key tile are
+// 2 x 32 x 256 f32, so the block has 256 threads (32 + 32 accumulators a
+// thread).  Both are off the main path.
 
 #include <cuda_runtime.h>
 
@@ -621,30 +625,38 @@ cudaError_t launch_dkv(const Problem& p, int B, void* dk, void* dv,
 }
 
 // ---------------------------------------------------------------------------
-// f32: plain FMA kernels over 32 x 32 tiles in shared memory
+// FMA kernels over 32 x 32 tiles in shared memory: f32 at every head dim,
+// bf16 and f16 at Dh = 256 (tiles widened to f32, P and dS rounded to the
+// element type before their products)
 // ---------------------------------------------------------------------------
 
-constexpr int FT = 32;          // query rows and keys per f32 tile
-constexpr int F_THREADS = 128;  // 4 threads per output row
+constexpr int FT = 32;  // query rows and keys per FMA tile
+
+// threads of a block: 4 a row (query row for dQ, key for dK/dV), 8 at
+// D = 256, so that dK's and dV's accumulators stay at 32 + 32 registers
+template <int D>
+__host__ __device__ constexpr int fma_threads() {
+  return D > 128 ? 256 : 128;
+}
 
 template <int D>
-constexpr size_t f32_smem_bytes() {
+constexpr size_t fma_smem_bytes() {
   // Q, dO, K, V tiles (rows of D + 1), P and dS tiles, lse and D vectors
   return (size_t(4) * FT * (D + 1) + 2 * FT * (FT + 1) + 2 * FT) * sizeof(float);
 }
 
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* base,
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_bwd(float* dst, const T* base,
                                               int64_t s_l, int row0, int L,
                                               int tid) {
-  for (int i = tid; i < FT * D; i += F_THREADS) {
+  for (int i = tid; i < FT * D; i += fma_threads<D>()) {
     const int r = i / D, c = i % D, row = row0 + r;
-    dst[r * (D + 1) + c] = row < L ? base[row * s_l + c] : 0.f;
+    dst[r * (D + 1) + c] = row < L ? to_f32(base[row * s_l + c]) : 0.f;
   }
 }
 
 // lse (safe) and D of query rows [q0, q0 + FT) of head bh
-__device__ __forceinline__ void load_rows_f32(float* Ls, float* Ds,
+__device__ __forceinline__ void load_rows_fma(float* Ls, float* Ds,
                                               const Problem& p, int64_t bh,
                                               int q0, int tid) {
   if (tid < FT) {
@@ -655,13 +667,15 @@ __device__ __forceinline__ void load_rows_f32(float* Ls, float* Ds,
   }
 }
 
-// P and dS of one (query tile, key tile) pair, [query][key] in Ps / Ss
-template <int D>
-__device__ __forceinline__ void p_ds_tile_f32(
+// P and dS of one (query tile, key tile) pair, [query][key] in Ps / Ss,
+// each rounded to T: P before P^T dO (flash.py:482), dS before dS K and
+// dS^T Q (:443, :489)
+template <typename T, int D>
+__device__ __forceinline__ void p_ds_tile_fma(
     const float* Qs, const float* Os, const float* Ks, const float* Vs,
     const float* Ls, const float* Ds, int q0, int k0, const Problem& p,
     float* Ps, float* Ss, int tid) {
-  for (int i = tid; i < FT * FT; i += F_THREADS) {
+  for (int i = tid; i < FT * FT; i += fma_threads<D>()) {
     const int r = i / FT, c = i % FT;
     const float* qr = Qs + r * (D + 1);
     const float* orow = Os + r * (D + 1);
@@ -675,15 +689,15 @@ __device__ __forceinline__ void p_ds_tile_f32(
     const int qi = q0 + r, kj = k0 + c;
     const bool ok = qi < p.Lq && kj < p.Lk && (!p.causal || qi >= kj);
     const float pr = ok ? expf(s * p.scale - Ls[r]) : 0.f;
-    Ps[r * (FT + 1) + c] = pr;
-    Ss[r * (FT + 1) + c] = pr * (dp - Ds[r]);
+    Ps[r * (FT + 1) + c] = round_to<T>(pr);
+    Ss[r * (FT + 1) + c] = round_to<T>(pr * (dp - Ds[r]));
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
-flash_bwd_dq_f32(Problem p, float* __restrict__ dq) {
-  constexpr int LD = D + 1, NJ = D / 4;
+template <typename T, int D>
+__global__ void __launch_bounds__(fma_threads<D>(), 1)
+flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
+  constexpr int LD = D + 1, TPR = fma_threads<D>() / FT, NJ = D / TPR;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Os = Qs + FT * LD;
@@ -699,44 +713,45 @@ flash_bwd_dq_f32(Problem p, float* __restrict__ dq) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / p.KVH);
   const int q0 = blockIdx.x * FT;
-  const float* qb = static_cast<const float*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
-  const float* ob = static_cast<const float*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
-  const float* kb = static_cast<const float*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
-  const float* vb = static_cast<const float*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-  load_tile_f32<D>(Qs, qb, p.s.q[1], q0, Lq, tid);
-  load_tile_f32<D>(Os, ob, p.s.d[1], q0, Lq, tid);
-  load_rows_f32(Ls, Ds, p, bh, q0, tid);
+  const T* qb = static_cast<const T*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
+  const T* ob = static_cast<const T*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
+  const T* kb = static_cast<const T*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
+  const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
+  load_tile_bwd<T, D>(Qs, qb, p.s.q[1], q0, Lq, tid);
+  load_tile_bwd<T, D>(Os, ob, p.s.d[1], q0, Lq, tid);
+  load_rows_fma(Ls, Ds, p, bh, q0, tid);
 
-  const int r = tid / 4, c0 = tid % 4;  // this thread: row r, columns c0 + 4j
+  // this thread: row r, columns c0 + TPR j
+  const int r = tid / TPR, c0 = tid % TPR;
   float acc[NJ] = {};
   int n_tiles = (Lk + FT - 1) / FT;
   if (p.causal) n_tiles = min(n_tiles, (min(q0 + FT, Lq) - 1) / FT + 1);
   for (int t = 0; t < n_tiles; ++t) {
     __syncthreads();  // the previous tile is consumed
-    load_tile_f32<D>(Ks, kb, p.s.k[1], t * FT, Lk, tid);
-    load_tile_f32<D>(Vs, vb, p.s.v[1], t * FT, Lk, tid);
+    load_tile_bwd<T, D>(Ks, kb, p.s.k[1], t * FT, Lk, tid);
+    load_tile_bwd<T, D>(Vs, vb, p.s.v[1], t * FT, Lk, tid);
     __syncthreads();
-    p_ds_tile_f32<D>(Qs, Os, Ks, Vs, Ls, Ds, q0, t * FT, p, Ps, Ss, tid);
+    p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, q0, t * FT, p, Ps, Ss, tid);
     __syncthreads();
     for (int c = 0; c < FT; ++c) {
       const float ds = Ss[r * (FT + 1) + c];
       const float* kr = Ks + c * LD + c0;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] = fmaf(ds, kr[4 * j], acc[j]);
+      for (int j = 0; j < NJ; ++j) acc[j] = fmaf(ds, kr[TPR * j], acc[j]);
     }
   }
   const int row = q0 + r;
   if (row < Lq) {
-    float* dst = dq + ((int64_t(b) * Lq + row) * H + h) * D + c0;
+    T* dst = dq + ((int64_t(b) * Lq + row) * H + h) * D + c0;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dst[4 * j] = acc[j] * p.scale;
+    for (int j = 0; j < NJ; ++j) dst[TPR * j] = from_f32<T>(acc[j] * p.scale);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
-flash_bwd_dkv_f32(Problem p, float* __restrict__ dk, float* __restrict__ dv) {
-  constexpr int LD = D + 1, NJ = D / 4;
+template <typename T, int D>
+__global__ void __launch_bounds__(fma_threads<D>(), 1)
+flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int LD = D + 1, TPR = fma_threads<D>() / FT, NJ = D / TPR;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Os = Qs + FT * LD;
@@ -751,26 +766,27 @@ flash_bwd_dkv_f32(Problem p, float* __restrict__ dk, float* __restrict__ dv) {
   const int H = p.H, KVH = p.KVH, Lq = p.Lq, Lk = p.Lk, grp = H / KVH;
   const int bkv = blockIdx.y, b = bkv / KVH, kvh = bkv % KVH;
   const int k0 = blockIdx.x * FT;
-  const float* kb = static_cast<const float*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
-  const float* vb = static_cast<const float*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-  load_tile_f32<D>(Ks, kb, p.s.k[1], k0, Lk, tid);
-  load_tile_f32<D>(Vs, vb, p.s.v[1], k0, Lk, tid);
+  const T* kb = static_cast<const T*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
+  const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
+  load_tile_bwd<T, D>(Ks, kb, p.s.k[1], k0, Lk, tid);
+  load_tile_bwd<T, D>(Vs, vb, p.s.v[1], k0, Lk, tid);
 
-  const int kr = tid / 4, c0 = tid % 4;  // this thread: key kr, columns c0 + 4j
+  // this thread: key kr, columns c0 + TPR j
+  const int kr = tid / TPR, c0 = tid % TPR;
   float adk[NJ] = {}, adv[NJ] = {};
   const int nq = (Lq + FT - 1) / FT;
   const int qt0 = p.causal ? min(k0 / FT, nq) : 0;
   for (int gi = 0; gi < grp; ++gi) {
     const int h = kvh * grp + gi;
-    const float* qb = static_cast<const float*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
-    const float* ob = static_cast<const float*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
+    const T* qb = static_cast<const T*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
+    const T* ob = static_cast<const T*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
     for (int qt = qt0; qt < nq; ++qt) {
       __syncthreads();  // the previous pair is consumed
-      load_tile_f32<D>(Qs, qb, p.s.q[1], qt * FT, Lq, tid);
-      load_tile_f32<D>(Os, ob, p.s.d[1], qt * FT, Lq, tid);
-      load_rows_f32(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
+      load_tile_bwd<T, D>(Qs, qb, p.s.q[1], qt * FT, Lq, tid);
+      load_tile_bwd<T, D>(Os, ob, p.s.d[1], qt * FT, Lq, tid);
+      load_rows_fma(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
       __syncthreads();
-      p_ds_tile_f32<D>(Qs, Os, Ks, Vs, Ls, Ds, qt * FT, k0, p, Ps, Ss, tid);
+      p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, qt * FT, k0, p, Ps, Ss, tid);
       __syncthreads();
       for (int r = 0; r < FT; ++r) {
         const float pr = Ps[r * (FT + 1) + kr];
@@ -779,8 +795,8 @@ flash_bwd_dkv_f32(Problem p, float* __restrict__ dk, float* __restrict__ dv) {
         const float* orow = Os + r * LD + c0;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          adv[j] = fmaf(pr, orow[4 * j], adv[j]);
-          adk[j] = fmaf(ds, qr[4 * j], adk[j]);
+          adv[j] = fmaf(pr, orow[TPR * j], adv[j]);
+          adk[j] = fmaf(ds, qr[TPR * j], adk[j]);
         }
       }
     }
@@ -790,8 +806,8 @@ flash_bwd_dkv_f32(Problem p, float* __restrict__ dk, float* __restrict__ dv) {
     const int64_t o = ((int64_t(b) * Lk + key) * KVH + kvh) * D + c0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      dk[o + 4 * j] = adk[j] * p.scale;
-      dv[o + 4 * j] = adv[j];
+      dk[o + TPR * j] = from_f32<T>(adk[j] * p.scale);
+      dv[o + TPR * j] = from_f32<T>(adv[j]);
     }
   }
 }
@@ -828,13 +844,49 @@ Problem problem(const void* q, const void* k, const void* v, const void* dout,
   return p;
 }
 
+// the FMA kernels for (dtype, D): f32 at 64, 128 and 256, bf16 and f16 at
+// 256 (the tensor-core kernels take 16-bit inputs at 64 and 128)
+template <typename T, int D>
+cudaError_t run_dq_fma(const Problem& p, dim3 grid, cudaStream_t st, void* dq) {
+  return run(flash_bwd_dq_fma<T, D>, grid, fma_threads<D>(), fma_smem_bytes<D>(),
+             st, p, static_cast<T*>(dq));
+}
+
+template <typename T, int D>
+cudaError_t run_dkv_fma(const Problem& p, dim3 grid, cudaStream_t st, void* dk,
+                        void* dv) {
+  return run(flash_bwd_dkv_fma<T, D>, grid, fma_threads<D>(), fma_smem_bytes<D>(),
+             st, p, static_cast<T*>(dk), static_cast<T*>(dv));
+}
+
+cudaError_t launch_dq_fma(const Problem& p, int dtype, int D, dim3 grid,
+                          cudaStream_t st, void* dq) {
+  if (dtype == 0 && D == 64) return run_dq_fma<float, 64>(p, grid, st, dq);
+  if (dtype == 0 && D == 128) return run_dq_fma<float, 128>(p, grid, st, dq);
+  if (dtype == 0 && D == 256) return run_dq_fma<float, 256>(p, grid, st, dq);
+  if (dtype == 1 && D == 256) return run_dq_fma<bf16, 256>(p, grid, st, dq);
+  if (dtype == 2 && D == 256) return run_dq_fma<f16, 256>(p, grid, st, dq);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_dkv_fma(const Problem& p, int dtype, int D, dim3 grid,
+                           cudaStream_t st, void* dk, void* dv) {
+  if (dtype == 0 && D == 64) return run_dkv_fma<float, 64>(p, grid, st, dk, dv);
+  if (dtype == 0 && D == 128) return run_dkv_fma<float, 128>(p, grid, st, dk, dv);
+  if (dtype == 0 && D == 256) return run_dkv_fma<float, 256>(p, grid, st, dk, dv);
+  if (dtype == 1 && D == 256) return run_dkv_fma<bf16, 256>(p, grid, st, dk, dv);
+  if (dtype == 2 && D == 256) return run_dkv_fma<f16, 256>(p, grid, st, dk, dv);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, dout: [B, Lq, H, D]; k, v: [B, Lk, KVH, D], with element strides
 // (batch, length, head) of q, k, v, dout in `strides` (12 values) and a
 // contiguous head dim.  lse, delta: contiguous [B, H, Lq] f32.  dq:
 // contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16,
-// 2 = f16.  D: 64 or 128 (the wrapper pads other head dims).
+// 2 = f16.  D: 64, 128 or 256 (the wrapper pads other head dims); bf16
+// and f16 at 256 take the FMA kernels.
 // Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
@@ -846,20 +898,14 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 || dtype == 2) {
+  if ((dtype == 1 || dtype == 2) && D != 256) {
     if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
     const auto launch = dtype == 1
         ? (D == 64 ? launch_dq<bf16, 64> : launch_dq<bf16, 128>)
         : (D == 64 ? launch_dq<f16, 64> : launch_dq<f16, 128>);
     return int(launch(p, B, dq, st));
   }
-  const dim3 grid_f32((Lq + FT - 1) / FT, B * H);
-  float* o32 = static_cast<float*>(dq);
-  if (dtype == 0 && D == 64)
-    return int(run(flash_bwd_dq_f32<64>, grid_f32, F_THREADS, f32_smem_bytes<64>(), st, p, o32));
-  if (dtype == 0 && D == 128)
-    return int(run(flash_bwd_dq_f32<128>, grid_f32, F_THREADS, f32_smem_bytes<128>(), st, p, o32));
-  return int(cudaErrorInvalidValue);
+  return int(launch_dq_fma(p, dtype, D, dim3((Lq + FT - 1) / FT, B * H), st, dq));
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
@@ -874,20 +920,15 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 || dtype == 2) {
+  if ((dtype == 1 || dtype == 2) && D != 256) {
     if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
     const auto launch = dtype == 1
         ? (D == 64 ? launch_dkv<bf16, 64> : launch_dkv<bf16, 128>)
         : (D == 64 ? launch_dkv<f16, 64> : launch_dkv<f16, 128>);
     return int(launch(p, B, dk, dv, st));
   }
-  const dim3 grid_f32((Lk + FT - 1) / FT, B * KVH);
-  float *k32 = static_cast<float*>(dk), *v32 = static_cast<float*>(dv);
-  if (dtype == 0 && D == 64)
-    return int(run(flash_bwd_dkv_f32<64>, grid_f32, F_THREADS, f32_smem_bytes<64>(), st, p, k32, v32));
-  if (dtype == 0 && D == 128)
-    return int(run(flash_bwd_dkv_f32<128>, grid_f32, F_THREADS, f32_smem_bytes<128>(), st, p, k32, v32));
-  return int(cudaErrorInvalidValue);
+  return int(launch_dkv_fma(p, dtype, D, dim3((Lk + FT - 1) / FT, B * KVH), st,
+                            dk, dv));
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {

@@ -1,9 +1,11 @@
 // What the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_ring.cu) share beside hopper.cuh: the 16-bit element types, log2(e)
-// for the exp2 softmax, and the packing of two f32 values into a pair of
+// for the exp2 softmax, the packing of two f32 values into a pair of
 // the element type -- the step that turns a wgmma accumulator (P, dS) into
 // the register A fragment of the next product, and an f32 result into its
-// stored output.
+// stored output -- and the element conversions of the FMA kernels, which
+// hold every tile in f32 whatever the element type (f32 at any head dim;
+// bf16 and f16 at the head dims above the tensor-core kernels').
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +34,101 @@ template <>
 __device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
   __half2 v = __floats2half2_rn(lo, hi);  // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// -- the FMA kernels' element conversions ----------------------------------
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+
+// an f32 value rounded to the element type (round to nearest even)
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half_rn(x);
+}
+
+// x rounded to T and read back: the cast the TPU kernels make before a
+// product (p.astype(v.dtype), dS to q's dtype); the identity for f32
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// four consecutive elements as f32: one 16-byte load of f32, two 4-byte
+// pair loads of a 16-bit type (the wrappers keep rows 16-byte aligned)
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p);
+
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <>
+__device__ __forceinline__ float4 load4<bf16>(const bf16* p) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(p2[0]);
+  const float2 b = __bfloat1622float2(p2[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <>
+__device__ __forceinline__ float4 load4<f16>(const f16* p) {
+  const __half2* p2 = reinterpret_cast<const __half2*>(p);
+  const float2 a = __half22float2(p2[0]);
+  const float2 b = __half22float2(p2[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// The forward's and the ring step's FMA tiling at head dim D: 128 threads,
+// a lane pair per query row (half the keys each for the scores, half of D
+// each for P V), Q, K and V tiles in shared memory as f32 with rows of
+// D + 8, the scores (then P) and the output accumulator beside them.  At
+// D = 256 a key tile is 32 keys, so that the tiles fit the 227 KB a block
+// may hold (206 KB), and the P V loop runs 32 output columns a pass, so
+// that its accumulators stay in registers.
+template <int D>
+struct FmaTiles {
+  static constexpr int BQ = 64;
+  static constexpr int BK = D > 128 ? 32 : 64;
+  static constexpr int THREADS = 128;  // 4 warps x 16 query rows
+  static constexpr int T_LD = D + 8, S_LD = BK + 4, O_LD = D + 4;
+  static constexpr int HALF = D / 2, HK = BK / 2;
+  static constexpr int PV = D > 128 ? 32 : HALF;
+  static constexpr size_t SMEM =
+      (size_t(BQ + 2 * BK) * T_LD + size_t(BQ) * S_LD + size_t(BQ) * O_LD) *
+      sizeof(float);
+  static_assert(SMEM <= 232448, "FMA tiles exceed a block's shared memory");
+};
+
+// rows [row0, row0 + rows) of a [L, D] slice with row stride s_l, as f32
+// into rows of D + 8 (zeros past L)
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_fma(float* dst, const T* base,
+                                              int64_t s_l, int row0, int rows,
+                                              int L, int tid, int threads) {
+  constexpr int VPR = D / 4;
+  for (int i = tid; i < rows * VPR; i += threads) {
+    const int r = i / VPR, c = (i % VPR) * 4;
+    const int row = row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < L) val = load4<T>(base + row * s_l + c);
+    *reinterpret_cast<float4*>(dst + r * (D + 8) + c) = val;
+  }
 }
 
 }  // namespace tfs_flash

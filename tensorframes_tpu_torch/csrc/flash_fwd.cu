@@ -64,7 +64,12 @@
 // consumers' products with named barriers (FA3's ping-pong).  What bounds
 // the kernel now is each tile's chain of S, softmax and P V (PERF.md).
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
-// reference keeps); it is off the main path.
+// reference keeps), and so do bf16 and f16 at Dh = 256 (head dims 129..256,
+// padded): one template on the element type, tiles widened to f32 in shared
+// memory, P rounded to the element type before P V as above.  A wgmma design
+// at that width would hold a 64 x 256 f32 O accumulator (128 registers a
+// thread) beside S; no JAX config uses Dh > 128, so the simple kernel stands
+// (PERF.md).  Both are off the main path.
 
 #include <cuda_runtime.h>
 
@@ -345,61 +350,39 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// f32: plain FMA kernel (two lanes per query row, tiles in shared memory)
+// FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 256 (two lanes
+// per query row, tiles in shared memory as f32; FmaTiles in
+// flash_common.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 64;
-constexpr int F_BK = 64;
-constexpr int F_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int S_LD = F_BK + 4;
-
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  return size_t(3) * F_BQ * (D + 8) * sizeof(float)  // Q, K, V tiles
-         + size_t(F_BQ) * S_LD * sizeof(float)       // scores, then p
-         + size_t(F_BQ) * (D + 4) * sizeof(float);   // output accumulator
-}
-
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* base,
-                                              int64_t s_l, int row0, int L,
-                                              int tid) {
-  constexpr int VPR = D / 4;
-  for (int i = tid; i < F_BQ * VPR; i += F_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    const int row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < L) val = *reinterpret_cast<const float4*>(base + row * s_l + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 8) + c) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out,
+template <typename T, int D>
+__global__ void __launch_bounds__(FmaTiles<D>::THREADS, 1)
+flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
               float* __restrict__ lse, int H, int KVH, int Lq, int Lk,
               int causal, int64_t q_sb, int64_t q_sl, int64_t q_sh,
               int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,
               int64_t v_sl, int64_t v_sh, float scale) {
-  constexpr int T_LD = D + 8, O_LD = D + 4, HALF = D / 2, HK = F_BK / 2;
+  using F = FmaTiles<D>;
+  constexpr int T_LD = F::T_LD, S_LD = F::S_LD, O_LD = F::O_LD;
+  constexpr int HALF = F::HALF, HK = F::HK, BQ = F::BQ, BK = F::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + F_BQ * T_LD;
-  float* Vs = Ks + F_BK * T_LD;
-  float* Ss = Vs + F_BK * T_LD;
-  float* Os = Ss + F_BQ * S_LD;
+  float* Ks = Qs + BQ * T_LD;
+  float* Vs = Ks + BK * T_LD;
+  float* Ss = Vs + BK * T_LD;
+  float* Os = Ss + BQ * S_LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * F_BQ;
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + kvh * k_sh;
-  const float* vb = v + b * v_sb + kvh * v_sh;
+  const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + kvh * k_sh;
+  const T* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile_f32<D>(Qs, qb, q_sl, q0, Lq, tid);
-  for (int i = tid; i < F_BQ * O_LD; i += F_THREADS) Os[i] = 0.f;
+  load_tile_fma<T, D>(Qs, qb, q_sl, q0, BQ, Lq, tid, F::THREADS);
+  for (int i = tid; i < BQ * O_LD; i += F::THREADS) Os[i] = 0.f;
 
   // lane pair (2r, 2r+1) owns row r of its warp: half the keys, half of Dh
   const int r = lane >> 1, half = lane & 1;
@@ -409,14 +392,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* orow = Os + wrow * O_LD + half * HALF;
   float m_i = -INFINITY, l_i = 0.f;
 
-  int n_tiles = (Lk + F_BK - 1) / F_BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + F_BQ, Lq) - 1) / F_BK + 1);
+  int n_tiles = (Lk + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Lq) - 1) / BK + 1);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * F_BK;
+    const int k0 = t * BK;
     __syncthreads();
-    load_tile_f32<D>(Ks, kb, k_sl, k0, Lk, tid);
-    load_tile_f32<D>(Vs, vb, v_sl, k0, Lk, tid);
+    load_tile_fma<T, D>(Ks, kb, k_sl, k0, BK, Lk, tid, F::THREADS);
+    load_tile_fma<T, D>(Vs, vb, v_sl, k0, BK, Lk, tid, F::THREADS);
     __syncthreads();
 
     float sv[HK];
@@ -444,8 +427,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < HK; ++c) {
       const float p = expf(sv[c] - m_safe);
-      srow[c] = p;
-      sum += p;
+      srow[c] = round_to<T>(p);  // p cast to v's dtype (flash.py:107-108)
+      sum += p;                  // l sums the f32 p (flash.py:106)
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     const float alpha = m_i == -INFINITY ? 0.f : expf(m_i - m_safe);
@@ -453,26 +436,28 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     m_i = m_new;
     __syncwarp();  // p of both halves of the row is in Ss
 
-    float acc[HALF];
-#pragma unroll
-    for (int dd = 0; dd < HALF; ++dd) acc[dd] = orow[dd] * alpha;
     const float* prow = Ss + wrow * S_LD;
-    for (int j = 0; j < F_BK; ++j) {
-      const float p = prow[j];
-      const float* vr = Vs + j * T_LD + half * HALF;
+    for (int c0 = 0; c0 < HALF; c0 += F::PV) {
+      float acc[F::PV];
 #pragma unroll
-      for (int dd = 0; dd < HALF; ++dd) acc[dd] = fmaf(p, vr[dd], acc[dd]);
+      for (int dd = 0; dd < F::PV; ++dd) acc[dd] = orow[c0 + dd] * alpha;
+      for (int j = 0; j < BK; ++j) {
+        const float p = prow[j];
+        const float* vr = Vs + j * T_LD + half * HALF + c0;
+#pragma unroll
+        for (int dd = 0; dd < F::PV; ++dd) acc[dd] = fmaf(p, vr[dd], acc[dd]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < F::PV; ++dd) orow[c0 + dd] = acc[dd];
     }
-#pragma unroll
-    for (int dd = 0; dd < HALF; ++dd) orow[dd] = acc[dd];
   }
   __syncthreads();  // with no tile at all, Os holds only the zero fill
 
   if (qrow < Lq) {
     const float denom = l_i == 0.f ? 1.f : l_i;
-    float* dst = out + ((int64_t(b) * Lq + qrow) * H + h) * D + half * HALF;
-#pragma unroll
-    for (int dd = 0; dd < HALF; ++dd) dst[dd] = orow[dd] / denom;
+    T* dst = out + ((int64_t(b) * Lq + qrow) * H + h) * D + half * HALF;
+#pragma unroll 8
+    for (int dd = 0; dd < HALF; ++dd) dst[dd] = from_f32<T>(orow[dd] / denom);
     if (half == 0) lse[int64_t(bh) * Lq + qrow] = m_i + logf(denom);
   }
 }
@@ -481,19 +466,21 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch_f32(Kernel kernel, size_t bytes, const void* q,
-                       const void* k, const void* v, void* out, float* lse,
-                       int B, int H, int KVH, int Lq, int Lk, int causal,
-                       const int64_t* s, float scale, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
+                       float* lse, int B, int H, int KVH, int Lq, int Lk,
+                       int causal, const int64_t* s, float scale,
+                       cudaStream_t stream) {
+  using F = FmaTiles<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+      flash_fwd_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(F::SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + F_BQ - 1) / F_BQ, B * H);
-  kernel<<<grid, F_THREADS, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, H, KVH, Lq,
-      Lk, causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale);
+  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
+  flash_fwd_fma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, KVH, Lq, Lk,
+      causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale);
   return cudaGetLastError();
 }
 
@@ -503,8 +490,9 @@ cudaError_t launch_f32(Kernel kernel, size_t bytes, const void* q,
 // (batch, length, head) each and a contiguous head dim; out: contiguous
 // [B, Lq, H, D] in the input dtype; lse: contiguous [B, H, Lq] f32.
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (the 16-bit types take TMA: 16-byte
-// aligned bases and strides, Lk > 0).  D: 64 or 128 (the wrapper pads
-// other head dims).  Returns a cudaError_t (0 = launched).
+// aligned bases and strides, Lk > 0).  D: 64, 128 or 256 (the wrapper pads
+// other head dims); bf16 and f16 at 256 take the FMA kernel.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,
@@ -516,6 +504,10 @@ extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   const int64_t s[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((dtype == 1 || dtype == 2) && D == 256) {
+    const auto launch = dtype == 1 ? launch_fma<bf16, 256> : launch_fma<f16, 256>;
+    return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+  }
   if (dtype == 1 || dtype == 2) {
     if (Lk == 0 || (D != 64 && D != 128)) return int(cudaErrorInvalidValue);
     const auto launch = dtype == 1
@@ -523,14 +515,12 @@ extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
         : (D == 64 ? launch_tma<f16, 64> : launch_tma<f16, 128>);
     return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
   }
-  if (dtype != 0) return int(cudaErrorInvalidValue);
-  if (D == 64)
-    return int(launch_f32(flash_fwd_f32<64>, f32_smem_bytes<64>(), q, k, v,
-                          out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
-  if (D == 128)
-    return int(launch_f32(flash_fwd_f32<128>, f32_smem_bytes<128>(), q, k, v,
-                          out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
-  return int(cudaErrorInvalidValue);
+  if (dtype != 0 || (D != 64 && D != 128 && D != 256))
+    return int(cudaErrorInvalidValue);
+  const auto launch = D == 64    ? launch_fma<float, 64>
+                      : D == 128 ? launch_fma<float, 128>
+                                 : launch_fma<float, 256>;
+  return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {

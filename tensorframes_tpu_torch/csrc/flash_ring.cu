@@ -67,7 +67,10 @@
 // (flash.py:271-273), l sums the f32 p, and the running max is -inf-safe
 // (flash.py:265-268), so a row that has seen no key adds zeros, never NaN.
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
-// reference keeps); it is off the main path.
+// reference keeps), and so do bf16 and f16 at Dh = 256 (head dims 129..256,
+// padded, the carried o with them): one template on the element type, P
+// rounded to it before P V as above, the carry f32.  Both are off the main
+// path.
 
 #include <cuda_runtime.h>
 
@@ -401,65 +404,43 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// f32: plain FMA kernel (two lanes per query row, tiles in shared memory)
+// FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 256 (two lanes
+// per query row, tiles in shared memory as f32; FmaTiles in
+// flash_common.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 64;
-constexpr int F_BK = 64;
-constexpr int F_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int S_LD = F_BK + 4;
-
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  return size_t(3) * F_BQ * (D + 8) * sizeof(float)  // Q, K, V tiles
-         + size_t(F_BQ) * S_LD * sizeof(float)       // scores, then p
-         + size_t(F_BQ) * (D + 4) * sizeof(float);   // output accumulator
-}
-
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* base,
-                                              int64_t s_l, int row0, int L,
-                                              int tid) {
-  constexpr int VPR = D / 4;
-  for (int i = tid; i < F_BQ * VPR; i += F_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    const int row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < L) val = *reinterpret_cast<const float4*>(base + row * s_l + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 8) + c) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
-ring_step_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ o_in,
+template <typename T, int D>
+__global__ void __launch_bounds__(FmaTiles<D>::THREADS, 1)
+ring_step_fma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ o_in,
               const float* __restrict__ m_in, const float* __restrict__ l_in,
               float* __restrict__ o_out, float* __restrict__ m_out,
               float* __restrict__ l_out, int H, int KVH, int Lq, int Lk,
               int q_off, int k_off, int causal, int64_t q_sb, int64_t q_sl,
               int64_t q_sh, int64_t k_sb, int64_t k_sl, int64_t k_sh,
               int64_t v_sb, int64_t v_sl, int64_t v_sh, float scale) {
-  constexpr int T_LD = D + 8, O_LD = D + 4, HALF = D / 2, HK = F_BK / 2;
+  using F = FmaTiles<D>;
+  constexpr int T_LD = F::T_LD, S_LD = F::S_LD, O_LD = F::O_LD;
+  constexpr int HALF = F::HALF, HK = F::HK, BQ = F::BQ, BK = F::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + F_BQ * T_LD;
-  float* Vs = Ks + F_BK * T_LD;
-  float* Ss = Vs + F_BK * T_LD;
-  float* Os = Ss + F_BQ * S_LD;
+  float* Ks = Qs + BQ * T_LD;
+  float* Vs = Ks + BK * T_LD;
+  float* Ss = Vs + BK * T_LD;
+  float* Os = Ss + BQ * S_LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * F_BQ;
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + kvh * k_sh;
-  const float* vb = v + b * v_sb + kvh * v_sh;
+  const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + kvh * k_sh;
+  const T* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile_f32<D>(Qs, qb, q_sl, q0, Lq, tid);
+  load_tile_fma<T, D>(Qs, qb, q_sl, q0, BQ, Lq, tid, F::THREADS);
   // the output accumulator starts from the carried o
   constexpr int VPR = D / 4;
-  for (int i = tid; i < F_BQ * VPR; i += F_THREADS) {
+  for (int i = tid; i < BQ * VPR; i += F::THREADS) {
     const int r = i / VPR, c = (i % VPR) * 4;
     const int row = q0 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -481,13 +462,13 @@ ring_step_f32(const float* __restrict__ q, const float* __restrict__ k,
   float l_i = qrow < Lq ? l_in[rr] : 0.f;
 
   const int n_tiles =
-      visible_tiles(Lk, F_BK, causal, q_off, k_off, min(q0 + F_BQ, Lq) - 1);
+      visible_tiles(Lk, BK, causal, q_off, k_off, min(q0 + BQ, Lq) - 1);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * F_BK;
+    const int k0 = t * BK;
     __syncthreads();
-    load_tile_f32<D>(Ks, kb, k_sl, k0, Lk, tid);
-    load_tile_f32<D>(Vs, vb, v_sl, k0, Lk, tid);
+    load_tile_fma<T, D>(Ks, kb, k_sl, k0, BK, Lk, tid, F::THREADS);
+    load_tile_fma<T, D>(Vs, vb, v_sl, k0, BK, Lk, tid, F::THREADS);
     __syncthreads();
 
     float sv[HK];
@@ -515,8 +496,8 @@ ring_step_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < HK; ++c) {
       const float p = expf(sv[c] - m_safe);
-      srow[c] = p;
-      sum += p;
+      srow[c] = round_to<T>(p);  // p cast to v's dtype (flash.py:271-273)
+      sum += p;                  // l sums the f32 p
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     const float alpha = m_i == -INFINITY ? 0.f : expf(m_i - m_safe);
@@ -524,25 +505,27 @@ ring_step_f32(const float* __restrict__ q, const float* __restrict__ k,
     m_i = m_new;
     __syncwarp();  // p of both halves of the row is in Ss
 
-    float acc[HALF];
-#pragma unroll
-    for (int dd = 0; dd < HALF; ++dd) acc[dd] = orow[dd] * alpha;
     const float* prow = Ss + wrow * S_LD;
-    for (int j = 0; j < F_BK; ++j) {
-      const float p = prow[j];
-      const float* vr = Vs + j * T_LD + half * HALF;
+    for (int c0 = 0; c0 < HALF; c0 += F::PV) {
+      float acc[F::PV];
 #pragma unroll
-      for (int dd = 0; dd < HALF; ++dd) acc[dd] = fmaf(p, vr[dd], acc[dd]);
+      for (int dd = 0; dd < F::PV; ++dd) acc[dd] = orow[c0 + dd] * alpha;
+      for (int j = 0; j < BK; ++j) {
+        const float p = prow[j];
+        const float* vr = Vs + j * T_LD + half * HALF + c0;
+#pragma unroll
+        for (int dd = 0; dd < F::PV; ++dd) acc[dd] = fmaf(p, vr[dd], acc[dd]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < F::PV; ++dd) orow[c0 + dd] = acc[dd];
     }
-#pragma unroll
-    for (int dd = 0; dd < HALF; ++dd) orow[dd] = acc[dd];
   }
   __syncthreads();  // with no tile at all, Os holds the carry as loaded
 
   if (qrow < Lq) {
     const bool dead = m_i == -INFINITY;  // saw no key: m = -inf, l = 0, o = 0
     float* dst = o_out + ((int64_t(b) * Lq + qrow) * H + h) * D + half * HALF;
-#pragma unroll
+#pragma unroll 8
     for (int dd = 0; dd < HALF; ++dd) dst[dd] = dead ? 0.f : orow[dd];
     if (half == 0) {
       m_out[rr] = m_i;
@@ -555,20 +538,21 @@ ring_step_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
+template <typename T, int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const float* o_in, const float* m_in, const float* l_in,
                        float* o_out, float* m_out, float* l_out, int B, int H,
                        int KVH, int Lq, int Lk, int q_off, int k_off, int causal,
                        const int64_t* s, float scale, cudaStream_t stream) {
-  const size_t bytes = f32_smem_bytes<D>();
+  using F = FmaTiles<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      ring_step_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+      ring_step_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(F::SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + F_BQ - 1) / F_BQ, B * H);
-  ring_step_f32<D><<<grid, F_THREADS, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), o_in, m_in, l_in, o_out, m_out, l_out, H,
+  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
+  ring_step_fma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), o_in, m_in, l_in, o_out, m_out, l_out, H,
       KVH, Lq, Lk, q_off, k_off, causal, s[0], s[1], s[2], s[3], s[4], s[5],
       s[6], s[7], s[8], scale);
   return cudaGetLastError();
@@ -581,7 +565,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // contiguous o [B, Lq, H, D] f32 and m, l [B, H, Lq] f32 (out must not alias
 // in).  q_off/k_off: the chunks' global positions.  dtype: 0 = f32,
 // 1 = bf16, 2 = f16 (the 16-bit types take TMA: 16-byte aligned bases and
-// strides).  D: 64 or 128 (the wrapper pads other head dims).  Returns a
+// strides).  D: 64, 128 or 256 (the wrapper pads other head dims); bf16
+// and f16 at 256 take the FMA kernel.  Returns a
 // cudaError_t (0 = launched).
 extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
                                    const float* o_in, const float* m_in,
@@ -595,7 +580,7 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Carry carry{o_in, m_in, l_in, o_out, m_out, l_out};
-  if (dtype == 1 || dtype == 2) {
+  if ((dtype == 1 || dtype == 2) && D != 256) {
     if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
     const auto launch = dtype == 1
         ? (D == 64 ? launch_tma<bf16, 64> : launch_tma<bf16, 128>)
@@ -603,12 +588,16 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
     return int(launch(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off, k_off,
                       strides, scale, st));
   }
-  if (dtype == 0 && D == 64)
-    return int(launch_f32<64>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, B, H,
-                              KVH, Lq, Lk, q_off, k_off, causal, strides, scale, st));
-  if (dtype == 0 && D == 128)
-    return int(launch_f32<128>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, B, H,
-                               KVH, Lq, Lk, q_off, k_off, causal, strides, scale, st));
+#define TFS_RING_FMA(T, DD)                                                   \
+  return int(launch_fma<T, DD>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, \
+                               B, H, KVH, Lq, Lk, q_off, k_off, causal,        \
+                               strides, scale, st))
+  if (dtype == 0 && D == 64) TFS_RING_FMA(float, 64);
+  if (dtype == 0 && D == 128) TFS_RING_FMA(float, 128);
+  if (dtype == 0 && D == 256) TFS_RING_FMA(float, 256);
+  if (dtype == 1 && D == 256) TFS_RING_FMA(bf16, 256);
+  if (dtype == 2 && D == 256) TFS_RING_FMA(f16, 256);
+#undef TFS_RING_FMA
   return int(cudaErrorInvalidValue);
 }
 

@@ -244,3 +244,43 @@ def centers_from_numpy(centers, device: DeviceLike = None) -> torch.Tensor:
     """k-means centers [k, d] (a numpy array from the JAX package's
     ``kmeans.fit``/``step``) as a tensor on ``device``."""
     return _float_tensor("centers", np.asarray(centers), 2, resolve_device(device))
+
+
+def _image_tree(path: str, tree, dtype, device):
+    """A JAX image model's numpy param tree (dicts and lists of arrays, any
+    float dtype, ml_dtypes' bfloat16 included) as tensors of ``dtype``."""
+    if isinstance(tree, Mapping):
+        return {k: _image_tree(f"{path}.{k}" if path else str(k), v, dtype, device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_image_tree(f"{path}[{i}]", v, dtype, device) for i, v in enumerate(tree)]
+    if not isinstance(tree, np.ndarray) or tree.dtype.kind not in "fV":
+        raise TypeError(
+            f"param {path!r} must be a numpy float array, got "
+            f"{type(tree).__name__}"
+        )
+    return torch.from_numpy(np.asarray(tree, np.float32)).to(device=device, dtype=dtype)
+
+
+def inception_params_from_numpy(
+    tree: Mapping[str, Any], dtype=torch.float32, device: DeviceLike = None
+) -> dict:
+    """The JAX Inception-v3's params (``models/inception.init``: host numpy,
+    ``{"stem": [...], "blocks": [...], "fc_w", "fc_b"}``) as the port's
+    ``models/inception`` params: ``dtype`` tensors on ``device``."""
+    dev = resolve_device(device)
+    _check_keys("", tree, {"stem": None, "blocks": None, "fc_w": None, "fc_b": None})
+    return _image_tree("", dict(tree), dtype, dev)
+
+
+def vgg_params_from_numpy(
+    tree: Mapping[str, Any], dtype=torch.float32, device: DeviceLike = None
+) -> dict:
+    """The JAX VGG-16's params (``models/vgg.init``: ``{"convs", "fcs",
+    "width_mult"}``) as the port's ``models/vgg`` params."""
+    dev = resolve_device(device)
+    _check_keys("", tree, {"convs": None, "fcs": None, "width_mult": None})
+    out = _image_tree("", {k: tree[k] for k in ("convs", "fcs")}, dtype, dev)
+    out["width_mult"] = tree["width_mult"]
+    return out
+

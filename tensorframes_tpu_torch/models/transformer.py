@@ -4,8 +4,8 @@ PyTorch counterpart of ``tensorframes_tpu/models/transformer.py`` for one
 device: ``init`` (same layout and scaling, blocks stacked on a lead
 ``[n_layers]`` axis), ``apply`` (RMSNorm, RoPE, GQA attention with
 ``attn_impl`` full/flash/ring/ring_flash/auto, dense SwiGLU,
-packed-sequence ``segment_ids``, ``remat_policy`` none/full) and the
-training loss
+packed-sequence ``segment_ids``, ``remat_policy`` none/full/dots/attn/
+selective) and the training loss
 (``nll_sum_and_count``, ``cross_entropy``, ``cross_entropy_chunked``,
 ``loss_fn``).  Params are a plain dict of tensors, the JAX pytree's layout;
 autograd gives the gradients ``jax.value_and_grad`` does.
@@ -28,19 +28,35 @@ Numerics matched to the JAX package on purpose:
 ``"ring"``/``"ring_flash"`` run ring attention over the ambient mesh's
 ``sp`` axis (``parallel.mesh.set_mesh``; the axis's ranks share one device,
 see ``parallel/mesh.py``), and ``"auto"`` resolves to them under an
-``sp > 1`` mesh as the JAX package does.  MoE blocks and the remat policies
-"dots", "attn" and "selective" wait for later slices.
+``sp > 1`` mesh as the JAX package does.  MoE blocks wait for a later slice.
+
+The remat policies (``apply_blocks``) are ``torch.utils.checkpoint`` with
+selective-checkpoint policies in place of ``jax.checkpoint`` policies:
+``"full"`` saves nothing of a block, ``"dots"`` saves the outputs of the
+products with no batch dims (``aten.mm``/``aten.addmm``: every
+projection), ``"selective"`` saves exactly what JAX tags ``tfs_saved``
+(:func:`_saved`), and ``"attn"`` checkpoints only the full-attention core.
+A policy's recompute re-runs the whole block's Python, so the flash
+forward kernel runs again in the backward under "full", "dots" and
+"selective" (JAX's ``custom_vjp`` forward is recomputed likewise); ops
+whose outputs are saved return the saved tensor instead of recomputing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import DeviceLike, resolve_device
 from ..parallel.flash import chunk_supported, flash_attention
@@ -51,8 +67,6 @@ Params = Dict[str, Any]
 
 _DEFERRED = {
     "moe": "ROADMAP.md Queue 1 item D, the MoE attention path (models/moe.py)",
-    "remat": "ROADMAP.md Queue 1 item F (the selective remat policies "
-    "'dots', 'attn' and 'selective')",
 }
 
 
@@ -72,9 +86,12 @@ class TransformerConfig:
     # kernel, sp == 1) | "ring" (over the mesh's sp axis) | "ring_flash"
     # (the ring with the CUDA ring-step kernel)
     attn_impl: str = "full"
-    # "auto" picks flash at L >= this.  The value is the JAX package's
-    # TPU-era crossover (v5e); it has not been measured on the H100.
-    flash_min_len: int = 8192
+    # "auto" picks flash (ring_flash under sp > 1) at L >= this: the
+    # smallest length at which flash was no slower than full attention in
+    # both scoring and a B=2 train step on an H100 at the flagship's widths,
+    # in every measured run (PERF.md section 6, the crossover table, from
+    # chip_smoke.py's crossover phase)
+    flash_min_len: int = 1024
     remat: bool = False
     remat_policy: str = "none"
     moe_experts: int = 0
@@ -204,6 +221,23 @@ def init(
 # ---------------------------------------------------------------------------
 
 
+_TAG = threading.local()
+
+
+def _saved(x: torch.Tensor) -> torch.Tensor:
+    """Tag an activation as saved under ``remat_policy="selective"`` (JAX's
+    ``checkpoint_name(x, "tfs_saved")``, ``transformer.py:320-326``).  The
+    tag is an ``aten.alias`` view of ``x`` made while a thread-local flag
+    is up; :func:`_save_policy` saves the output of that one op, so the tag
+    copies nothing and is a plain view under every other policy (a slice
+    that spans a whole dim is an ``aten.alias`` too, and is not saved)."""
+    _TAG.on = True
+    try:
+        return torch.ops.aten.alias(x)
+    finally:
+        _TAG.on = False
+
+
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     # normalise in f32, cast to the activation dtype, then scale by the
     # weight cast to that dtype (transformer.py:329-332)
@@ -233,14 +267,14 @@ def _attn_qkv(bp, x, positions, cfg):
     B, L, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
-    y = _rms_norm(x, bp["ln1"])
+    y = _saved(_rms_norm(x, bp["ln1"]))
     q = (y @ bp["wq"].to(dt)).reshape(B, L, h, dh)
     k = (y @ bp["wk"].to(dt)).reshape(B, L, kvh, dh)
     v = (y @ bp["wv"].to(dt)).reshape(B, L, kvh, dh)
     return (
-        _rope(q, positions, cfg.rope_theta),
-        _rope(k, positions, cfg.rope_theta),
-        v,
+        _saved(_rope(q, positions, cfg.rope_theta)),
+        _saved(_rope(k, positions, cfg.rope_theta)),
+        _saved(v),
     )
 
 
@@ -269,7 +303,16 @@ def _attn_residual(
             k = torch.repeat_interleave(k, h // kvh, dim=2)
             v = torch.repeat_interleave(v, h // kvh, dim=2)
         pos = positions if custom_positions else None
-        att = full_attention(q, k, v, True, pos, pos, segments, segments)
+        core = functools.partial(
+            full_attention, causal=True, positions_q=pos, positions_k=pos,
+            segments_q=segments, segments_k=segments,
+        )
+        if cfg.remat_policy == "attn" and torch.is_grad_enabled():
+            # recompute scores and softmax from q, k, v in the backward: the
+            # f32 [B, h, L, L] probabilities never persist
+            att = _saved(checkpoint(core, q, k, v, use_reentrant=False))
+        else:
+            att = _saved(core(q, k, v))
     att = att.reshape(B, L, h * dh)
     return x + att @ bp["wo"].to(cfg.dtype)
 
@@ -277,10 +320,10 @@ def _attn_residual(
 def _mlp_residual(bp, x, cfg):
     """x -> x + FF(rms_norm(x)), dense SwiGLU.  Returns ``(x', aux)``."""
     dt = cfg.dtype
-    y = _rms_norm(x, bp["ln2"])
+    y = _saved(_rms_norm(x, bp["ln2"]))
     gate = F.silu(y @ bp["w_gate"].to(dt))
     up = y @ bp["w_up"].to(dt)
-    x = x + (gate * up) @ bp["w_down"].to(dt)
+    x = x + _saved(gate * up) @ bp["w_down"].to(dt)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -294,12 +337,32 @@ def _remat_policy(cfg: TransformerConfig) -> str:
     policy = cfg.remat_policy
     if policy == "none" and cfg.remat:
         policy = "full"  # legacy flag
-    if policy not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat_policy={policy!r} is not ported yet: {_DEFERRED['remat']}; "
-            f"use 'none' or 'full'"
-        )
     return policy
+
+
+# what a block's checkpoint saves under each selective policy (everything
+# else is recomputed): "dots" is JAX's dots_with_no_batch_dims_saveable --
+# x @ w on a [B, L, d] activation is one aten.mm, while the batched products
+# of attention are aten.bmm -- and "selective" is
+# save_only_these_names("tfs_saved"), the outputs of _saved
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_policy(policy, ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``policy`` ("dots" or
+    "selective"): save what it names, recompute everything else."""
+    if policy == "dots":
+        save = op in _DOTS
+    else:
+        save = op is torch.ops.aten.alias.default and getattr(_TAG, "on", False)
+    return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_context(policy: str):
+    """``context_fn`` of a block's checkpoint under a selective policy."""
+    return create_selective_checkpoint_contexts(
+        functools.partial(_save_policy, policy)
+    )
 
 
 def apply_blocks(
@@ -313,11 +376,15 @@ def apply_blocks(
     """Run the stacked blocks in order (the JAX ``lax.scan``).  Returns
     ``(x, aux)``; aux is the summed MoE loss (0 for dense models).
 
-    ``remat_policy="full"`` checkpoints each block
-    (``torch.utils.checkpoint``, non-reentrant): its activations are
-    recomputed in the backward instead of saved, as ``jax.checkpoint``
-    does.  Without autograd there is nothing to save, and it runs plain."""
-    remat = _remat_policy(cfg) == "full" and torch.is_grad_enabled()
+    Under autograd each block is checkpointed as its ``remat_policy`` says
+    (``torch.utils.checkpoint``, non-reentrant, as ``jax.checkpoint``):
+    ``"full"`` recomputes all of it in the backward, ``"dots"`` and
+    ``"selective"`` recompute all but what :func:`_save_policy` saves;
+    ``"attn"`` checkpoints only the full-attention core
+    (``_attn_residual``).  Without autograd there is nothing to save, and
+    every block runs plain."""
+    policy = _remat_policy(cfg)
+    remat = policy in ("full", "dots", "selective") and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     # unbind, not v[i]: its backward stacks the layers' gradients once,
     # where each v[i] would add a zero-filled [n_layers, ...] tensor
@@ -326,8 +393,13 @@ def apply_blocks(
     for i in range(n_layers):
         bp = {k: v[i] for k, v in layers.items()}
         args = (bp, x, positions, cfg, custom_positions, segments)
-        if remat:
+        if remat and policy == "full":
             x, a = checkpoint(_block, *args, use_reentrant=False)
+        elif remat:
+            x, a = checkpoint(
+                _block, *args, use_reentrant=False,
+                context_fn=functools.partial(_checkpoint_context, policy),
+            )
         else:
             x, a = _block(*args)
         aux = aux + a

@@ -105,6 +105,18 @@ def group_by(frame: TensorFrame, *keys: str) -> GroupedFrame:
     return GroupedFrame(frame, keys)
 
 
+def _with_prelude(program: Program, host_stage):
+    """Merge the program's ``host_prelude`` (e.g. the GraphDef importer's
+    in-graph Decode* stages) under any caller-supplied ``host_stage`` —
+    an explicit stage wins per input."""
+    prelude = getattr(program, "host_prelude", None)
+    if not prelude:
+        return host_stage
+    merged = dict(prelude)
+    merged.update(host_stage or {})
+    return merged
+
+
 class Executor:
     """Serial verb executor: blocks run one after another on the program's
     device (where its params live)."""
@@ -120,17 +132,47 @@ class Executor:
         arr = np.ascontiguousarray(np.asarray(value), dtype=st.host_dtype())
         return torch.from_numpy(arr).to(device, non_blocking=True)
 
+    def _staged_value(self, stage_fn, value, input_name: str) -> np.ndarray:
+        """Run one host_stage fn over a block's cells and shape-check the
+        result — the host half of the reference's binary-feed contract
+        (``read_image.py:164-167`` feeds encoded bytes to an in-graph
+        decoder; a device tensor cannot hold strings, so the decode runs
+        here)."""
+        n_rows = len(value)
+        if isinstance(value, np.ndarray) and value.dtype == object:
+            value = list(value)
+        out = np.asarray(stage_fn(value))
+        if out.ndim == 0 or out.shape[0] != n_rows:
+            raise ValidationError(
+                f"host_stage for input {input_name!r} returned shape "
+                f"{out.shape}; expected lead dimension {n_rows} (one "
+                f"preprocessed cell per input row)."
+            )
+        if out.dtype == object:
+            raise ValidationError(
+                f"host_stage for input {input_name!r} must return a uniform "
+                f"numeric array, got dtype=object (ragged cells)."
+            )
+        return out
+
     def _device_inputs(
         self,
         program: Program,
         block: Mapping[str, Any],
         infos: Mapping[str, ColumnInfo],
         device: torch.device,
+        host_stage: Optional[Mapping[str, Any]] = None,
     ) -> Dict[str, torch.Tensor]:
+        """One block's program inputs on ``device``; an input with a
+        ``host_stage`` fn takes that fn's output over the block's cells."""
         inputs = {}
         for n in program.input_names:
             value = block[program.column_for_input(n)]
-            st = dtypes.coerce(infos[n].scalar_type)
+            if host_stage and n in host_stage:
+                value = self._staged_value(host_stage[n], value, n)
+                st = dtypes.coerce(dtypes.from_numpy(value.dtype))
+            else:
+                st = dtypes.coerce(infos[n].scalar_type)
             inputs[n] = self._device_value(value, st, device)
         return inputs
 
@@ -139,10 +181,17 @@ class Executor:
         program: Program,
         frame: TensorFrame,
         trim: bool = False,
+        host_stage: Optional[Mapping[str, Any]] = None,
     ) -> TensorFrame:
         """``mapBlocks`` / ``mapBlocksTrimmed`` (trim=True: output row count
-        may differ, no passthrough columns)."""
-        infos = validation.check_map_inputs(program, frame, "map_blocks")
+        may differ, no passthrough columns).  ``host_stage``: input name ->
+        host fn(cells) -> [rows, *cell] array, run per block before the
+        program (binary decode); the program's ``host_prelude`` is merged
+        under it."""
+        host_stage = _with_prelude(program, host_stage)
+        infos = validation.check_map_inputs(
+            program, frame, "map_blocks", host_staged=host_stage or ()
+        )
         if frame.num_rows == 0 and not trim:
             # empty-frame contract: a non-trimmed map of an empty frame is
             # an empty frame with the program's inferred output schema — no
@@ -151,18 +200,19 @@ class Executor:
             out_blocks = [self._empty_map_outputs(program, infos, False)]
         else:
             out_blocks = self._map_dispatch(
-                program, frame, infos, program.call, False, trim
+                program, frame, infos, program.call, False, trim, host_stage
             )
         return self._build_map_output(frame, out_blocks, trim)
 
-    def _map_dispatch(self, program, frame, infos, run, rows_level, trim):
+    def _map_dispatch(self, program, frame, infos, run, rows_level, trim,
+                      host_stage=None):
         """Run ``run`` (the block call, or the vmapped row call) over every
         block, checking each block's outputs."""
         out_blocks = []
         with torch.no_grad():
             for bi, n_rows in enumerate(frame.block_sizes):
                 inputs = self._device_inputs(
-                    program, frame.block(bi), infos, program.device
+                    program, frame.block(bi), infos, program.device, host_stage
                 )
                 outs = run(inputs)
                 del inputs
@@ -251,25 +301,33 @@ class Executor:
                 cols.append(frame.column(cname))
         return TensorFrame(cols, offsets)
 
-    def map_rows(self, program: Program, frame: TensorFrame) -> TensorFrame:
+    def map_rows(
+        self,
+        program: Program,
+        frame: TensorFrame,
+        host_stage: Optional[Mapping[str, Any]] = None,
+    ) -> TensorFrame:
         """``mapRows`` (``DebugRowOps.scala:396-477``): the program is written
         at *cell* level and vmapped over each block's rows.  Ragged input
         columns run one vmapped call per distinct row shape
-        (``_map_rows_ragged``)."""
+        (``_map_rows_ragged``).  ``host_stage`` as for :meth:`map_blocks`."""
+        host_stage = _with_prelude(program, host_stage)
         infos = validation.check_map_inputs(
-            program, frame, "map_rows", allow_ragged=True
+            program, frame, "map_rows", host_staged=host_stage or (),
+            allow_ragged=True,
         )
         ragged = [
             n for n in program.input_names
-            if frame.column(program.column_for_input(n)).is_ragged
+            if not (host_stage and n in host_stage)
+            and frame.column(program.column_for_input(n)).is_ragged
         ]
         if ragged:
-            return self._map_rows_ragged(program, frame, infos, ragged)
+            return self._map_rows_ragged(program, frame, infos, ragged, host_stage)
         if frame.num_rows == 0:
             out_blocks = [self._empty_map_outputs(program, infos, True)]
         else:
             out_blocks = self._map_dispatch(
-                program, frame, infos, program.vmapped(), True, False
+                program, frame, infos, program.vmapped(), True, False, host_stage
             )
         return self._build_map_output(frame, out_blocks, trim=False)
 
@@ -279,6 +337,7 @@ class Executor:
         frame: TensorFrame,
         infos: Mapping[str, ColumnInfo],
         ragged_names: Sequence[str],
+        host_stage: Optional[Mapping[str, Any]] = None,
     ) -> TensorFrame:
         """Ragged ``map_rows`` by shape-bucketing: rows are grouped by their
         concrete cell shapes and each group runs as ONE vmapped call, in
@@ -293,7 +352,12 @@ class Executor:
         for in_name in program.input_names:
             col = frame.column(program.column_for_input(in_name))
             st = dtypes.coerce(infos[in_name].scalar_type)
-            if in_name in ragged_names:
+            if host_stage and in_name in host_stage:
+                staged = self._staged_value(host_stage[in_name], col.cells(), in_name)
+                uniform[in_name] = (
+                    staged, dtypes.coerce(dtypes.from_numpy(staged.dtype))
+                )
+            elif in_name in ragged_names:
                 cells[in_name] = [
                     np.asarray(c).astype(st.host_dtype(), copy=False)
                     for c in col.cells()
@@ -714,13 +778,15 @@ def map_blocks(
     feed_dict: Optional[Mapping[str, str]] = None,
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
+    host_stage: Optional[Mapping[str, Any]] = None,
 ) -> TensorFrame:
     """Apply a block-level program to every block.
 
     ``fn``: a :class:`Program` or a callable (wrapped on ``device``; None =
-    the CUDA card).  ``shapes``: output name -> block-shape hint."""
+    the CUDA card).  ``shapes``: output name -> block-shape hint.
+    ``host_stage``: input name -> host preprocessing fn (binary decode)."""
     program = _wrap(fn, "map_blocks", fetches, feed_dict, shapes, device)
-    return Executor().map_blocks(program, frame, trim=trim)
+    return Executor().map_blocks(program, frame, trim=trim, host_stage=host_stage)
 
 
 def map_blocks_trimmed(fn, frame: TensorFrame, **kw) -> TensorFrame:
@@ -735,11 +801,13 @@ def map_rows(
     feed_dict: Optional[Mapping[str, str]] = None,
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
+    host_stage: Optional[Mapping[str, Any]] = None,
 ) -> TensorFrame:
     """Apply a row-level program to every row (``tfs.map_rows``, reference
-    ``core.py:175-211``).  ``shapes`` hints are per-row cell shapes."""
+    ``core.py:175-211``).  ``shapes`` hints are per-row cell shapes;
+    ``host_stage`` as for :func:`map_blocks`."""
     program = _wrap(fn, "map_rows", fetches, feed_dict, shapes, device)
-    return Executor().map_rows(program, frame)
+    return Executor().map_rows(program, frame, host_stage=host_stage)
 
 
 def reduce_rows(

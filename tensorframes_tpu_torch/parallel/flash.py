@@ -28,10 +28,12 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
   the C side encodes (``csrc/hopper.cuh``); :func:`tma_tile_map` is the
   same arithmetic in Python, and :func:`check_kernel_inputs` raises before
   a launch for what a descriptor refuses.
-* Every kernel is built for head dims 64 and 128.  Any head dim from 1 to
-  128 runs: the wrappers zero-pad it to the next of the two and slice the
-  results back (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the
-  true dim as the scale.  A head dim above 128 raises.
+* Every kernel is built for head dims 64, 128 and 256 (at 256, and for
+  f32 inputs, as an FMA kernel on tiles widened to f32).  Any head dim
+  from 1 to 256 runs: the wrappers zero-pad it to the next of the three
+  and slice the results back (:func:`kernel_head_dim`), keeping
+  ``1/sqrt(Dh)`` of the true dim as the scale.  A head dim above 256
+  raises.
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -336,8 +338,9 @@ def flash_ring_step_plain(
     Returns the updated, un-normalised ``(o, m, l)``.
 
     Tiles are ``block_q`` x ``block_k`` with ragged tails (the CUDA kernel's
-    are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128); by default the JAX
-    kernel's (``_chunk_block``), or 128 for chunks it cannot tile.  A tile
+    are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128, 64 x 32 at Dh = 256);
+    by default the JAX kernel's (``_chunk_block``), or 128 for chunks it
+    cannot tile.  A tile
     that the causal mask hides from every row of a query tile is skipped,
     as the CUDA kernel skips it; JAX folds it as all -inf, which leaves a
     row with a finite max unchanged and zeroes (alpha = 0) a row whose max
@@ -394,8 +397,9 @@ def flash_ring_step_plain(
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the kernels are built for; every head dim up to the widest
-# runs zero-padded to the next of them (:func:`kernel_head_dim`)
-KERNEL_HEAD_DIMS = (64, 128)
+# runs zero-padded to the next of them (:func:`kernel_head_dim`).  256 is
+# the widest head dim of the common public decoders (Gemma's)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 # a TMA box is 64 columns (one 128-byte swizzle atom of a 16-bit type) wide,
 # and a descriptor's byte strides stay below 2^40
@@ -405,7 +409,7 @@ TMA_STRIDE_LIMIT = 1 << 40
 
 def kernel_head_dim(head_dim: int) -> int:
     """The head dim the CUDA kernels run a true head dim of ``head_dim`` at:
-    64 or 128.  The wrappers zero-pad the head dim up to it and slice the
+    64, 128 or 256.  The wrappers zero-pad the head dim up to it and slice the
     results back (:func:`pad_head_dim`): zero columns of Q and K leave Q K^T
     unchanged and zero columns of V give zero output columns, while the
     softmax scale stays ``1/sqrt(head_dim)``.  Raises ValueError past
@@ -413,8 +417,7 @@ def kernel_head_dim(head_dim: int) -> int:
     if head_dim < 1 or head_dim > MAX_HEAD_DIM:
         raise ValueError(
             f"flash_attention kernel takes head dims 1..{MAX_HEAD_DIM}; got "
-            f"{head_dim} (a head dim above {MAX_HEAD_DIM} needs a kernel with "
-            f"one consumer warpgroup and a 64x256 f32 accumulator, not built)"
+            f"{head_dim} (no kernel is built wider than {MAX_HEAD_DIM})"
         )
     return next(w for w in KERNEL_HEAD_DIMS if head_dim <= w)
 
@@ -587,7 +590,8 @@ def flash_attention_fwd(
     q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Lq, H, Dh], lse [B, H, Lq] f32)``.  CUDA tensors launch
-    the kernel (its own tiling, at the head dim zero-padded to 64 or 128;
+    the kernel (its own tiling, at the head dim zero-padded to 64, 128 or
+    256;
     ``block_q``/``block_k`` shape only the plain version) or raise; CPU and
     meta tensors take the plain version."""
     if q.device.type == "cuda":
@@ -640,7 +644,7 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: float | None = None) -> torch.Tensor:
-    """The dQ kernel on CUDA tensors at a head dim of 64 or 128 (checked and
+    """The dQ kernel on CUDA tensors at a head dim of 64, 128 or 256 (checked and
     padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
     and ``delta = rowsum(dO o O)`` contiguous [B, H, Lq] f32; ``scale``
     defaults to ``1/sqrt(Dh)``.  Returns dq [B, Lq, H, Dh]."""
@@ -702,7 +706,7 @@ def flash_attention_bwd(
     """``(dq, dk, dv)`` of :func:`flash_attention` from the forward's ``out``
     and ``lse`` and the incoming gradient ``do``.  CUDA tensors launch the
     dQ and dK/dV kernels (their own tiling, at the head dim zero-padded to
-    64 or 128) or raise; CPU and meta tensors take
+    64, 128 or 256) or raise; CPU and meta tensors take
     :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cuda":
         return _flash_bwd_cuda(q, k, v, out, lse, do, causal)
@@ -822,8 +826,8 @@ def flash_ring_step(
     ``(o, m, l)``; the inputs are left as they were.  ``scale`` defaults to
     ``1/sqrt(Dh)``: a caller that pads the head dim itself once for many
     hops (``ring.py``) passes the true dim's.  CUDA tensors launch
-    ``csrc/flash_ring.cu`` (any chunk length; a head dim other than 64 or
-    128 zero-padded to the next of them, o with it) or raise; CPU and meta
+    ``csrc/flash_ring.cu`` (any chunk length; a head dim other than 64,
+    128 or 256 zero-padded to the next of them, o with it) or raise; CPU and meta
     tensors take :func:`flash_ring_step_plain`."""
     if q.device.type == "cuda":
         return _ring_step_cuda(q, k, v, o, m, l, q_off, k_off, causal, scale)

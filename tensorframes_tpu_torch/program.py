@@ -139,6 +139,10 @@ class Program:
         self._fetches: Optional[List[str]] = None  # resolved at first call
         # output name -> shape hint (the reference's ShapeDescription)
         self._shape_hints: Dict[str, Shape] = {}
+        # input name -> host fn the map verbs merge under the caller's
+        # host_stage (set by the GraphDef importer for in-graph Decode*
+        # nodes; an explicit caller host_stage wins per input)
+        self.host_prelude: Dict[str, Any] = {}
 
     # -- construction --------------------------------------------------------
 
@@ -166,6 +170,33 @@ class Program:
             if feed_dict:
                 return fn_or_program.with_feed(feed_dict)
             return fn_or_program
+        # DSL nodes (and sequences of them) lower to a Program
+        is_node = hasattr(fn_or_program, "to_program")
+        is_node_seq = (
+            isinstance(fn_or_program, (list, tuple))
+            and fn_or_program
+            and all(hasattr(x, "to_program") for x in fn_or_program)
+        )
+        if is_node or is_node_seq:
+            if params:
+                raise ProgramError(
+                    "params are not supported for DSL-node programs; use "
+                    "dsl.constant for fixed values or a python-function "
+                    "program for updatable params"
+                )
+            from . import dsl  # local import: dsl depends on this module
+
+            nodes = [fn_or_program] if is_node else list(fn_or_program)
+            p = dsl.build_program(nodes, feed_dict=feed_dict, device=device)
+            if fetches is not None and sorted(fetches) != sorted(
+                p._declared_fetches or []
+            ):
+                raise ProgramError(
+                    f"fetches {sorted(fetches)} do not match the DSL fetch "
+                    f"node names {sorted(p._declared_fetches or [])}; name "
+                    f"fetch nodes with .named(...) instead"
+                )
+            return p
         if not callable(fn_or_program):
             raise ProgramError(
                 f"expected a callable or Program, got "
@@ -201,6 +232,7 @@ class Program:
             self._device,
         )
         p._shape_hints = dict(self._shape_hints)
+        p.host_prelude = dict(self.host_prelude)
         return p
 
     def with_feed(self, feed_dict: Mapping[str, str]) -> "Program":

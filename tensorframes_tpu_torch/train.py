@@ -16,20 +16,23 @@ Clipping and the schedule follow optax's formulas, not torch's:
 Long sequences train under an ambient ``sp`` mesh
 (``parallel.mesh.set_mesh(training_mesh(sp=...))``) with ``attn_impl``
 ``"ring"``, ``"ring_flash"`` or ``"auto"``: the step reads the mesh where
-attention runs, and the ranks share the one device.  Pipeline parallelism
-(``pp_stages > 1``, the GPipe and 1F1B schedules) and the MFU
-``frontier_sweep`` wait for the distributed slice (ROADMAP.md).
+attention runs, and the ranks share the one device.  ``frontier_sweep``
+measures the train step over batch x length x remat policy.  Pipeline
+parallelism (``pp_stages > 1``, the GPipe and 1F1B schedules) waits for the
+distributed slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+import gc
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .device import DeviceLike
+from .device import DeviceLike, resolve_device
 from .models import transformer as tfm
 from .models.transformer import Params, TransformerConfig
 
@@ -337,7 +340,136 @@ def n_params(params: Params) -> int:
     return sum(t.numel() for _, t in param_leaves(params))
 
 
+@dataclasses.dataclass
+class FrontierPoint:
+    """One grid point of :func:`frontier_sweep`.  A point that runs out of
+    memory (or fails to build) stays in the table with its ``error`` and
+    no throughput: it pins the memory envelope at this scale."""
+
+    batch: int
+    seq: int
+    remat: str
+    tokens_per_s: Optional[float] = None
+    achieved_tflops: Optional[float] = None
+    mfu: Optional[float] = None
+    hbm_high_water_gb: Optional[float] = None
+    error: Optional[str] = None
+
+    def record(self) -> Dict[str, Any]:
+        """JSON-able digest (None fields dropped)."""
+        out: Dict[str, Any] = {
+            "B": self.batch, "L": self.seq, "remat": self.remat,
+        }
+        if self.tokens_per_s is not None:
+            out["tokens_per_s"] = round(self.tokens_per_s, 0)
+            out["achieved_tflops"] = round(self.achieved_tflops, 2)
+        if self.mfu is not None:
+            out["mfu"] = round(self.mfu, 4)
+        if self.hbm_high_water_gb is not None:
+            out["hbm_gb"] = self.hbm_high_water_gb
+        if self.error is not None:
+            out["error"] = self.error
+        return out
+
+
+def best_frontier_point(
+    points: Sequence[FrontierPoint],
+) -> Optional[FrontierPoint]:
+    """The measured point with the highest MFU (tokens/s breaks the tie, and
+    decides alone when no peak is known), or None if every point failed."""
+    ok = [p for p in points if p.tokens_per_s is not None]
+    if not ok:
+        return None
+    return max(ok, key=lambda p: (p.mfu or 0.0, p.tokens_per_s))
+
+
+def frontier_sweep(
+    cfg: TransformerConfig,
+    tcfg: Optional[TrainConfig] = None,
+    *,
+    batches: Sequence[int] = (8, 16, 32),
+    seqs: Sequence[int] = (1024, 2048, 4096),
+    remat_policies: Sequence[str] = ("selective", "attn", "full"),
+    steps: int = 3,
+    peak_flops: Optional[float] = None,
+    rng: int = 0,
+    log: Optional[Callable[[Dict[str, Any]], None]] = None,
+    device: DeviceLike = None,
+) -> List[FrontierPoint]:
+    """Measure the train step over batch x seq x remat
+    (``tensorframes_tpu/train.py:frontier_sweep``).
+
+    Each point builds params and the step at its shape and times the full
+    ``make_train_step`` step (best of ``steps`` synced reps, after one
+    warm-up step), recording tokens/s, counted TFLOP/s
+    (:func:`counted_flops_per_token`) and, with ``peak_flops`` given, MFU
+    (``peak_flops=None`` gives ``mfu=None``: the port has no peak table
+    yet).  ``hbm_high_water_gb`` is recorded only on the points that raised
+    the device's peak-allocation mark (monotone over the sweep: a smaller
+    later point would only echo the running peak).  A point that raises
+    (out of memory, or a policy its attention refuses) keeps its ``error``
+    and the sweep goes on.  Points run cheapest first by B*L across shapes,
+    so the first error row pins the envelope; the allocator's cache is
+    emptied between points.  ``log`` receives each point's ``record()`` as
+    it finishes.  ``device``: where it runs (None = the CUDA card)."""
+    if tcfg is None:
+        tcfg = TrainConfig(learning_rate=3e-4)
+    dev = resolve_device(device)
+    rs = np.random.RandomState(rng)
+
+    def run_point(pt: FrontierPoint) -> None:
+        # its own frame: on a failure the params and optimizer state die
+        # with it instead of holding memory under every later point
+        c = dataclasses.replace(cfg, max_seq=pt.seq, remat_policy=pt.remat)
+        toks = torch.from_numpy(
+            rs.randint(0, c.vocab_size, (pt.batch, pt.seq)).astype(np.int32)
+        ).to(dev)
+        tgts = torch.roll(toks, -1, dims=1)
+        params = tfm.init(torch.Generator(device=dev).manual_seed(rng), c, device=dev)
+        step, tx = make_train_step(c, tcfg)
+        state = tx.init(params)
+        count = n_params(params)
+        float(step(params, state, toks, tgts)[2])  # warm-up
+        best = float("inf")
+        for _ in range(max(1, steps)):
+            t0 = time.perf_counter()
+            float(step(params, state, toks, tgts)[2])  # reads the loss: synced
+            best = min(best, time.perf_counter() - t0)
+        pt.tokens_per_s = pt.batch * pt.seq / best
+        fpt = counted_flops_per_token(count, c, pt.seq)
+        pt.achieved_tflops = pt.tokens_per_s * fpt / 1e12
+        if peak_flops:
+            pt.mfu = pt.tokens_per_s * fpt / peak_flops
+
+    points: List[FrontierPoint] = []
+    prev_hw = hbm_high_water(dev) or 0
+    shapes = sorted(
+        ((B, L) for L in seqs for B in batches), key=lambda s: s[0] * s[1]
+    )
+    for remat in remat_policies:
+        for B, L in shapes:
+            pt = FrontierPoint(batch=B, seq=L, remat=remat)
+            points.append(pt)
+            try:
+                run_point(pt)
+            except Exception as e:  # out of memory, refused policy: keep going
+                pt.error = repr(e)[:200]
+            hw = hbm_high_water(dev)
+            if hw is not None and hw > prev_hw:
+                pt.hbm_high_water_gb = round(hw / 2**30, 2)
+                prev_hw = hw
+            if log is not None:
+                log(pt.record())
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return points
+
+
 __all__ = [
+    "FrontierPoint",
+    "best_frontier_point",
+    "frontier_sweep",
     "OptState",
     "Optimizer",
     "TrainConfig",

@@ -170,8 +170,8 @@ def test_kernel_input_checks_accept_the_main_path_layout():
     [
         (lambda q, k, v: (q.double(), k.double(), v.double()), "bf16, f16 or f32"),
         (lambda q, k, v: (q, k.float(), v), "one dtype"),
-        (lambda q, k, v: _kernel_inputs(D=192), "head dims 1..128"),
-        (lambda q, k, v: _kernel_inputs(D=256), "above 128"),
+        (lambda q, k, v: _kernel_inputs(D=257), "head dims 1..256"),
+        (lambda q, k, v: _kernel_inputs(D=320), "wider than 256"),
         (lambda q, k, v: (q, k[:1], v[:1]), "do not fit"),
         (lambda q, k, v: (q, k[:, :, :3], v[:, :, :3]), "divisible"),
         (lambda q, k, v: (torch.zeros(2, 16, 4, 128, dtype=torch.bfloat16)[..., ::2], k, v), "contiguous"),
@@ -199,6 +199,15 @@ def test_kernel_input_checks_accept_every_head_dim_to_128(dtype, D):
     tflash.check_kernel_inputs(q, q, q)
 
 
+@pytest.mark.parametrize("D", [129, 160, 192, 200, 255, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_input_checks_accept_every_head_dim_to_256(dtype, D):
+    # the wide build: 129..256 runs zero-padded to 256 (JAX's kernels take
+    # any Dh); Gemma's 256 runs unpadded
+    width = tflash.check_kernel_inputs(*_kernel_inputs(dtype, D))
+    assert width == 256 == tflash.kernel_head_dim(D)
+
+
 def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
     x = torch.randn(2, 5, 3, 12)
     y = tflash.pad_head_dim(x, 64)
@@ -211,20 +220,31 @@ def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
 # kernels' width, the plain version at the kernel's tiling, the results
 # sliced back, the scale of the true head dim -- against the JAX kernels in
 # interpret mode, at head dims of JAX's own configs and tests (8, 12, 32)
-# and in f16.  f32: the JAX suite's tolerances (forward 2e-5, gradients
-# 2e-4: summation order).  f16: outputs, p and dS round to f16 (2^-11
-# relative) at the same points in both, so 1e-2.
+# and in f16, and at the wide build's head dims (160 padded to 256, and 256:
+# the FMA kernels' tilings).  f32: the JAX suite's tolerances (forward 2e-5,
+# gradients 2e-4: summation order).  f16: outputs, p and dS round to f16
+# (2^-11 relative) at the same points in both, so 1e-2; bf16 (2^-8
+# relative): 3e-2.
 PAD_TOL = {torch.float32: (F32, dict(rtol=2e-4, atol=2e-4)),
-           torch.float16: (dict(rtol=1e-2, atol=1e-2), dict(rtol=1e-2, atol=1e-2))}
+           torch.float16: (dict(rtol=1e-2, atol=1e-2), dict(rtol=1e-2, atol=1e-2)),
+           torch.bfloat16: (dict(rtol=3e-2, atol=3e-2), dict(rtol=3e-2, atol=3e-2))}
 PAD_CASES = [(8, torch.float32), (12, torch.float32), (32, torch.float32),
-             (12, torch.float16), (64, torch.float16)]
-_JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16}
+             (12, torch.float16), (64, torch.float16),
+             (160, torch.float32), (256, torch.float32), (160, torch.float16),
+             (256, torch.bfloat16)]
+_JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
+        torch.bfloat16: jnp.bfloat16}
 
 
 def _kernel_tiles(kernel, width):
-    """(block_q, block_k) of a 16-bit CUDA kernel at head dim ``width``
-    (64 or 128), as ``csrc/`` builds it and ``test_torch_flash_tiling.py``
-    pins it."""
+    """(block_q, block_k) of a CUDA kernel at head dim ``width``: the 16-bit
+    tensor-core kernels at 64 and 128, as ``csrc/`` builds them and
+    ``test_torch_flash_tiling.py`` pins them; the FMA kernels at 256
+    (``FmaTiles<256>`` in ``csrc/flash_common.cuh``: 64 x 32 forward and
+    ring tiles; ``FT`` = 32 in ``csrc/flash_bwd.cu``)."""
+    if width == 256:
+        return {"fwd": (64, 32), "dq": (32, 32), "dkv": (32, 32),
+                "ring": (64, 32)}[kernel]
     wide = width == 128
     return {
         "fwd": (128 if wide else 192, 128),
@@ -307,6 +327,6 @@ def test_padded_ring_step_matches_jax(D, dtype):
         *(torch.from_numpy(x) for x in (o, m, l)), q_off, k_off, True,
     )
     assert t[0].shape == (B, C, H, D) and t[0].dtype == torch.float32
-    tol = F32 if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    tol = PAD_TOL[dtype][0]  # f16: 1e-2, as before
     for name, a, b in zip(("o", "m", "l"), t, j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **tol)

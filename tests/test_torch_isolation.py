@@ -44,6 +44,31 @@ def test_import_loads_no_jax_or_jax_package():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_graphdef_slice_loads_no_jax_or_jax_package():
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch.graphdef, tensorframes_tpu_torch.graphdef.wire, "
+        "tensorframes_tpu_torch.graphdef.proto, tensorframes_tpu_torch.graphdef.tfcompat, "
+        "tensorframes_tpu_torch.graphdef.builder, tensorframes_tpu_torch.graphdef.decode, "
+        "tensorframes_tpu_torch.graphdef.ops, tensorframes_tpu_torch.graphdef.importer, "
+        "tensorframes_tpu_torch.models.inception, tensorframes_tpu_torch.models.vgg, "
+        "tensorframes_tpu_torch.models.inception_export, "
+        "tensorframes_tpu_torch.models.vgg_export, tensorframes_tpu_torch.dsl, "
+        "tensorframes_tpu_torch.builder\n"
+        "from tensorframes_tpu_torch import OpBuilder, graphdef, dsl, block, row\n"
+        "from tensorframes_tpu_torch.train import frontier_sweep, FrontierPoint\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'PIL'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    # PIL too: it is imported at the first decoded block, never at import
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pat = re.compile(
         r"^\s*(import|from)\s+"
@@ -52,12 +77,22 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     )
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {"train.py", "data.py", "checkpoint.py", "mesh.py", "ring.py", "flash.py"} <= {
+    assert {"train.py", "data.py", "checkpoint.py", "mesh.py", "ring.py", "flash.py",
+            "importer.py", "ops.py", "inception.py", "vgg.py", "dsl.py", "builder.py"} <= {
         p.name for p in files
     }
     for path in files:
         hits = pat.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
+
+
+def _tiny_graph():
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    b = GraphBuilder()
+    b.placeholder("x", "float64", [-1])
+    b.op("Identity", "y", ["x"])
+    return b.to_bytes()
 
 
 @pytest.fixture
@@ -94,6 +129,28 @@ def _cfg():
          "params_from_numpy", "FrameLoader", "fit", "training_mesh"],
 )
 def test_entry_points_raise_without_a_card(no_cuda, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: __import__("tensorframes_tpu_torch.graphdef", fromlist=["x"])
+        .import_graphdef(_tiny_graph(), fetches=["y"]),
+        lambda: __import__("tensorframes_tpu_torch.models.inception", fromlist=["x"]).init(0),
+        lambda: __import__("tensorframes_tpu_torch.models.vgg", fromlist=["x"]).init(0),
+        lambda: tft.dsl.build_program([(tft.dsl.placeholder("float64", [-1], name="x")
+                                        + 1.0).named("z")]),
+        lambda: tft.OpBuilder.map_blocks(
+            tft.TensorFrame.from_arrays({"x": np.ones(3)})).graph(lambda x: {"y": x})
+        .build_df(),
+        lambda: train.frontier_sweep(_cfg(), batches=(1,), seqs=(4,)),
+    ],
+    ids=["import_graphdef", "inception_init", "vgg_init", "dsl", "OpBuilder",
+         "frontier_sweep"],
+)
+def test_graphdef_slice_entry_points_raise_without_a_card(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

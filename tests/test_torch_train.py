@@ -115,7 +115,7 @@ def test_packed_loss_and_gradients_match_jax():
     corpus = [rng.randint(0, 32, n) for n in rng.randint(2, 9, 12)]
     toks, segs, pos = jdata.pack_examples(corpus, 9)
     inp, tgt, s, p = jdata.lm_split_packed(toks, segs, pos)
-    jcfg, tcfg = _pair(BASE, attn_impl="auto")
+    jcfg, tcfg = _pair(BASE, attn_impl="auto", flash_min_len=16)
     jp, tp = _params(jcfg, tcfg)
     jloss, jgrads = jax.value_and_grad(jtfm.loss_fn)(
         jp, jnp.asarray(inp), jnp.asarray(tgt), jcfg,
@@ -145,10 +145,15 @@ def test_remat_full_gives_the_gradients_of_none():
 
 @pytest.mark.parametrize("policy", ["dots", "attn", "selective"])
 def test_unported_remat_policies_raise_naming_the_roadmap(policy):
-    _, tcfg = _pair(BASE, attn_impl="full", remat_policy=policy)
-    _, tp = _params(*_pair(BASE))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item F"):
-        ttfm.apply(tp, torch.zeros(1, 4, dtype=torch.int32), tcfg)
+    # these policies raised until ROADMAP Queue 1 item F landed; they now
+    # run and give the JAX package's loss (tests/test_torch_remat.py holds
+    # their gradients too)
+    jcfg, tcfg = _pair(BASE, attn_impl="full", remat_policy=policy)
+    jp, tp = _params(jcfg, tcfg)
+    inp, tgt = _batch()
+    jloss = jtfm.loss_fn(jp, jnp.asarray(inp), jnp.asarray(tgt), jcfg)
+    tloss = ttfm.loss_fn(tp, torch.from_numpy(inp), torch.from_numpy(tgt), tcfg)
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
 
 
 def _both_raise(jcall, tcall, exc=ValueError):

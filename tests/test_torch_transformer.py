@@ -51,7 +51,7 @@ def _tokens(B=3, L=8, V=32, seed=0):
     [
         ("full", {}),
         ("flash", {}),
-        ("auto", {}),                   # L < flash_min_len: full
+        ("auto", {"flash_min_len": 16}),  # L < flash_min_len: full
         ("auto", {"flash_min_len": 8}),  # L >= flash_min_len: flash
     ],
     ids=["full", "flash", "auto-full", "auto-flash"],
