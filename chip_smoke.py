@@ -11,23 +11,27 @@ Phases, each printing its own lines:
 1. env: torch/CUDA versions, the card, and its name and power limit as
    ``nvidia-smi`` reports them;
 2. build: the CUDA kernels from ``tensorframes_tpu_torch/csrc`` (one nvcc
-   per source, started together), with ptxas' register/spill report; the
-   Hopper design of the four 16-bit kernels (the forward, dQ, dK/dV and the
-   ring step, each instantiated for bf16 and f16 at Dh 64 and 128) is
-   asserted in the built code: the four instantiations of each, ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA load) instructions in every instantiation's
-   SASS (``cuobjdump``), 0 bytes of ptxas spills, and no ignored
-   ``setmaxnreg``; and of the four FMA kernels (f32 at Dh 64, 128, 256;
-   bf16 and f16 at Dh 256): five instantiations each, no spills;
+   per source, started together), with ptxas' register/spill report; every
+   kernel's instantiations are asserted in the built code against
+   ``built_instantiations``: the 16-bit TMA + wgmma kernels (bf16 and f16;
+   the forward and dK/dV at Dh 64, 128 and 256, dQ and the ring step at 64
+   and 128) with ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
+   in every instantiation's SASS (``cuobjdump``) and no ignored
+   ``setmaxnreg``; the FMA kernels (f32 at Dh 64, 128, 256 and 512, 16-bit
+   inputs at the widths above the TMA kernels') without them; 0 bytes of
+   ptxas spills in all;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
    wraps the kernels' stage rings many times, q/k/v as strided views, head
    dims 8, 12, 32 and 96 zero-padded by the wrappers, f16 at Dh 64 and
-   128, and the wide build at Dh 160 and 256 in bf16, f16 and f32), with
-   stated tolerances; the ring step also keeps a dominant carry (m above
-   every score of the chunk by > 30) to f32 rounding, in bf16, f16, at a
-   padded Dh and at Dh 256;
+   128, Dh 160, 200 and 256 in bf16, f16 and f32 (the Dh-256 TMA forward
+   and dK/dV also at the wide-head path's shape, at cross lengths both
+   ways and on strided views), and Dh 320 and 512 on the 512-wide build),
+   with stated tolerances, each launch held to the instantiation the
+   dispatch must pick (``route_of``); the ring step also keeps a dominant
+   carry (m above every score of the chunk by > 30) to f32 rounding, in
+   bf16, f16, at a padded Dh and at Dh 256;
    gradients through the autograd Function on the card against the same
    Function on CPU copies; and an explicit ``ring_flash`` at a chunk the
    TPU cannot tile, which must launch the ring step on every hop;
@@ -36,14 +40,21 @@ Phases, each printing its own lines:
    could take (its bound) and the counted TFLOP/s; the ring step at both flagship hops (diagonal
    and off-diagonal), with SDPA's forward on the same chunk pair as the
    nearest yardstick (no library call folds a carry); every kernel also at
-   Dh = 32 (padded), in f16 and at Dh = 256, beside SDPA at the same shapes
+   Dh = 32 (padded), in f16, at Dh = 256 (also 4 heads over 2 kv heads) and
+   in f32 at Dh 64, 128, 256 and 512, beside SDPA at the same shapes
    (each kernel record's ``variants``);
 5. slice (scoring): the flagship transformer (series widths, random seeded
    weights) scores a 64-row frame of 2048-token cells through
    ``map_blocks`` with ``attn_impl="flash"``; the kernels' launches are
    counted over that run alone; results are checked for shape and
    finiteness, against the same frame scored with ``attn_impl="full"``,
-   and, on a small input, against the port's CPU path; then the
+   and, on a small input, against the port's CPU path; then the wide-head
+   path: the same widths at 4 heads over 2 kv heads (Dh 256) score 16 rows
+   of 2048 tokens in 2 blocks and train one epoch of 4 steps at B=8
+   (remat "none") through ``FrameLoader`` and ``fit``: launches by
+   instantiation (the TMA forward and dK/dV, dQ's FMA kernel), ms per
+   block and step, tokens/s, counted TFLOP/s, peak memory, nll against
+   ``"full"`` and a B=2 step against ``"full"``; then the
    small-head slice: a Dh = 32 model (d_model 128, 4 heads) scores a frame
    with ``attn_impl="flash"`` (forward launches ``n_layers x blocks``; nll
    against the CPU path, f32 at 1e-4 and bf16 at the slice's 3e-2);
@@ -92,8 +103,10 @@ Phases, each printing its own lines:
    trained three steps under the mesh on the card and on the CPU;
    with ``--profile``, device time by kernel over one block and one train
    step of each slice;
-9. the card's line again, the kernels' JSON record, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. the card's line again, the kernels' JSON record (each kernel at the
+   flagship shape with its built instantiations, then every instantiation
+   timed at a variant shape, with its launches over the main paths' runs),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card the script
 exits 1 before printing any result.  It imports no JAX.
@@ -160,14 +173,32 @@ KERNEL_CASES = [
     ("f16_dh64", dict(B=2, Lq=2048, Lk=2048, H=16, KVH=4, D=64, dtype=torch.float16, causal=True)),
     ("f16_dh128", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=8, D=128, dtype=torch.float16, causal=True)),
     ("f16_dh12_cross", dict(B=2, Lq=24, Lk=40, H=4, KVH=2, D=12, dtype=torch.float16, causal=False)),
-    # the wide build (FMA kernels on tiles widened to f32): Dh 160 padded to
-    # 256 and Dh 256 itself, in each dtype, causal and not, with GQA
+    # Dh 256: the TMA forward and dK/dV (dQ on its FMA kernel) in bf16 and
+    # f16, Dh 160 padded to 256, causal and not, GQA, ragged, cross lengths
+    # both ways, strided views, and the wide-head slice's own shape (the
+    # flagship's B and L at 4 heads over 2 kv heads); f32 on the FMA kernels
     ("bf16_dh160", dict(B=2, Lq=700, Lk=700, H=8, KVH=2, D=160, dtype=torch.bfloat16, causal=True)),
     ("bf16_dh256", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=4, D=256, dtype=torch.bfloat16, causal=False)),
     ("f16_dh160_cross", dict(B=2, Lq=300, Lk=500, H=4, KVH=2, D=160, dtype=torch.float16, causal=False)),
     ("f16_dh256", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=2, D=256, dtype=torch.float16, causal=True)),
     ("f32_dh160", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=160, dtype=torch.float32, causal=True)),
     ("f32_dh256", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=256, dtype=torch.float32, causal=False)),
+    ("bf16_dh256_wide_head", dict(B=8, Lq=2048, Lk=2048, H=4, KVH=2, D=256, dtype=torch.bfloat16,
+                                  causal=True)),
+    ("bf16_dh256_cross_causal", dict(B=2, Lq=300, Lk=700, H=4, KVH=2, D=256, dtype=torch.bfloat16,
+                                     causal=True)),
+    ("f16_dh256_cross", dict(B=2, Lq=700, Lk=130, H=4, KVH=1, D=256, dtype=torch.float16,
+                             causal=False)),
+    ("bf16_dh256_strided_fused", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=256, dtype=torch.bfloat16,
+                                      causal=True, layout="fused")),
+    ("f16_dh200_ragged130", dict(B=2, Lq=130, Lk=130, H=4, KVH=4, D=200, dtype=torch.float16,
+                                 causal=True)),
+    # head dims 257..512: every kernel's FMA build at 512 (Dh 320 padded)
+    ("bf16_dh320", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=320, dtype=torch.bfloat16, causal=True)),
+    ("f16_dh320_cross", dict(B=2, Lq=200, Lk=260, H=4, KVH=2, D=320, dtype=torch.float16,
+                             causal=False)),
+    ("f32_dh320", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=320, dtype=torch.float32, causal=True)),
+    ("bf16_dh512", dict(B=2, Lq=200, Lk=200, H=2, KVH=1, D=512, dtype=torch.bfloat16, causal=True)),
 ]
 # f16 rounds finer than bf16 (2^-11 against 2^-8), so it has limits of its
 # own, between what the sound kernels need on an H100 (least_tol: out
@@ -253,6 +284,13 @@ RING_CASES = [
      0, 257, "random"),
     ("dominant_carry_dh256", dict(B=2, C=1000, H=8, KVH=2, D=256, dtype=torch.bfloat16,
                                   causal=True), 1000, 1000, "dominant"),
+    # head dims 257..512 (the FMA build at 512, Dh 320 padded, o with it)
+    ("bf16_dh320", dict(B=2, C=300, H=4, KVH=2, D=320, dtype=torch.bfloat16, causal=True),
+     300, 0, "random"),
+    ("f16_dh320", dict(B=2, C=257, H=4, KVH=4, D=320, dtype=torch.float16, causal=True),
+     257, 257, "random"),
+    ("f32_dh320", dict(B=2, C=200, H=4, KVH=2, D=320, dtype=torch.float32, causal=False),
+     0, 200, "random"),
 ]
 # o is compared as o / l: the un-normalised o carries the row's denominator
 # (up to ~2000 here), so one bf16 rounding of p that differs between exp2f
@@ -267,6 +305,19 @@ RING_ML_TOL = 1e-4
 # step adds is below e^-30 of it, so only f32 rounding of o * alpha remains
 DOMINANT_O_TOL = 1e-5
 DOMINANT_GAP = 30.0  # m above every scaled score of the chunk, at least
+
+# the wide-head path: the flagship's widths at 4 heads over 2 kv heads (Dh
+# 256 with 2:1 GQA, the head geometry of Gemma-style decoders), scoring 16
+# rows of 2048 tokens in 2 blocks and training one epoch of 4 steps at B=8;
+# remat "none", so that the kernels, not torch's selective-checkpoint
+# dispatch, show in ms per step
+WIDE_MODEL = dict(
+    vocab_size=8192, d_model=1024, n_layers=8, n_heads=4, n_kv_heads=2,
+    d_ff=4096, max_seq=2048, dtype=torch.bfloat16, attn_impl="flash",
+    remat_policy="none",
+)
+WIDE_ROWS, WIDE_BLOCKS, WIDE_L = 16, 2, 2048
+WIDE_TRAIN_ROWS, WIDE_TRAIN_B = 32, 8
 
 # the train slice: bench.py config 6's widths and its own remat policy
 # ("selective", bench.py:642) and TrainConfig(3e-4)
@@ -467,31 +518,43 @@ def phase_build():
         ]
         say("build", source=name, ptxas=ptxas)
     say("build", seconds=round(time.perf_counter() - t0, 3))
-    check_hopper_design(_build)
+    return check_hopper_design(_build)
 
 
-# (source, kernel): the kernels whose design (TMA loads, wgmma) the built
-# code must show
-HOPPER_KERNELS = [
-    ("flash_fwd", "flash_fwd_tma"),
-    ("flash_bwd", "flash_bwd_dq_tma"),
-    ("flash_bwd", "flash_bwd_dkv_tma"),
-    ("flash_ring", "ring_step_tma"),
-]
+# The instantiations each kernel is built at, (element type, Dh), and the
+# route each (dtype, width) must take, as csrc/ dispatches them: the
+# TMA + wgmma kernels for bf16 and f16 (the forward and dK/dV to Dh 256,
+# dQ and the ring step to 128), the FMA kernels (tiles widened to f32) for
+# f32 at every width and for 16-bit inputs above those widths
+T16 = ("bf16", "f16")
+WIDTHS = (64, 128, 256, 512)
+TMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128),
+              "flash_bwd_dkv": (64, 128, 256), "ring_step": (64, 128)}
+SOURCE_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+             "flash_bwd_dkv": "flash_bwd", "ring_step": "flash_ring"}
+DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+# the mangled template arguments <T, D> of a kernel's symbol
+MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
+def built_instantiations(kernel, route):
+    """{(type, Dh)} that csrc/ must build of ``<kernel>_<route>``."""
+    tma = TMA_WIDTHS[kernel]
+    if route == "tma":
+        return {(t, d) for t in T16 for d in tma}
+    return {("f32", d) for d in WIDTHS} | {(t, d) for t in T16 for d in WIDTHS
+                                           if d not in tma}
+
+
+def route_of(kernel, dtype, width):
+    """The instantiation ``kernel`` must launch for (dtype, width), named as
+    ``flash.kernel_launches`` names it."""
+    t = DTYPE_NAMES[dtype]
+    route = "tma" if t != "f32" and width in TMA_WIDTHS[kernel] else "fma"
+    return f"{kernel}_{route}<{t},{width}>"
+
+
 SASS_OPS = ("HGMMA", "UTMALDG")
-# each kernel's instantiations: bf16 and f16 (mangled __nv_bfloat16 and
-# __half) at Dh = 64 and 128
-ELEMENT_TYPES = ("__nv_bfloat16", "__half")
-INSTANTIATIONS = len(ELEMENT_TYPES) * 2
-# the FMA kernels (tiles widened to f32 in shared memory): f32 at Dh 64, 128
-# and 256, bf16 and f16 at 256; no TMA, no wgmma
-FMA_KERNELS = [
-    ("flash_fwd", "flash_fwd_fma"),
-    ("flash_bwd", "flash_bwd_dq_fma"),
-    ("flash_bwd", "flash_bwd_dkv_fma"),
-    ("flash_ring", "ring_step_fma"),
-]
-FMA_INSTANTIATIONS = 5
 
 
 def ptxas_spills(log):
@@ -508,57 +571,46 @@ def ptxas_spills(log):
 
 
 def check_hopper_design(_build):
-    """The four 16-bit kernels, as built: four instantiations each (bf16
-    and f16 at Dh 64 and 128), HGMMA and UTMALDG in every instantiation's
-    SASS, no spills, and no setmaxnreg that ptxas ignored; the four FMA
-    kernels: five instantiations each (f32 at Dh 64, 128, 256; bf16 and f16
-    at 256), no HGMMA or UTMALDG, no spills."""
-    sass_of = {}
-    for src, kernel in HOPPER_KERNELS:
-        if src not in sass_of:
-            sass_of[src] = subprocess.run(
-                [_build.cuda_bin("cuobjdump"), "--dump-sass",
-                 str(_build.library_path(src))],
-                capture_output=True, text=True, timeout=300, check=True,
-            ).stdout
-        sass = sass_of[src]
-        counts = {}
-        for body in re.split(r"\n\s*Function : ", sass)[1:]:
-            fn = body.split("\n", 1)[0].strip()
-            if kernel in fn:
-                counts[fn] = {op: body.count(op) for op in SASS_OPS}
+    """Every kernel as built: exactly the instantiations of
+    ``built_instantiations``, 0 spill bytes in all; HGMMA and UTMALDG in
+    every TMA kernel instantiation's SASS (and in no FMA kernel's), and no
+    setmaxnreg that ptxas ignored (C7508).  Returns {source: [built
+    instantiation names]}."""
+    sass_of = {src: subprocess.run(
+        [_build.cuda_bin("cuobjdump"), "--dump-sass", str(_build.library_path(src))],
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout for src in _build.SOURCES}
+    built = {}
+    for kernel, src in SOURCE_OF.items():
         log = _build.build_log(src)
-        spills = {fn: v for fn, v in ptxas_spills(log).items() if kernel in fn}
-        if not counts or any(0 in c.values() for c in counts.values()):
-            raise AssertionError(f"{kernel}: SASS lacks {SASS_OPS}: {counts}")
-        types = {t: sum(t in fn for fn in counts) for t in ELEMENT_TYPES}
-        if len(counts) != INSTANTIATIONS or set(types.values()) != {2}:
-            raise AssertionError(
-                f"{kernel}: expected {INSTANTIATIONS} instantiations (bf16 and "
-                f"f16, Dh 64 and 128), found {sorted(counts)}")
-        if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
-            raise AssertionError(f"{kernel}: ptxas spills {spills}")
         if "C7508" in log:
             raise AssertionError(f"{src}: ptxas ignored setmaxnreg (C7508)")
-        say("build", kernel=kernel, sass_counts=counts, spill_bytes=spills)
-    for src, kernel in FMA_KERNELS:
-        counts = {}
-        for body in re.split(r"\n\s*Function : ", sass_of[src])[1:]:
-            fn = body.split("\n", 1)[0].strip()
-            if kernel in fn:
-                counts[fn] = {op: body.count(op) for op in SASS_OPS}
-        spills = {fn: v for fn, v in ptxas_spills(_build.build_log(src)).items()
-                  if kernel in fn}
-        types = {t: sum(t in fn for fn in counts) for t in ELEMENT_TYPES}
-        if len(counts) != FMA_INSTANTIATIONS or set(types.values()) != {1}:
-            raise AssertionError(
-                f"{kernel}: expected {FMA_INSTANTIATIONS} instantiations (f32 at "
-                f"Dh 64, 128, 256; bf16 and f16 at 256), found {sorted(counts)}")
-        if any(sum(c.values()) for c in counts.values()):
-            raise AssertionError(f"{kernel}: an FMA kernel with {SASS_OPS}: {counts}")
-        if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
-            raise AssertionError(f"{kernel}: ptxas spills {spills}")
-        say("build", kernel=kernel, instantiations=sorted(counts), spill_bytes=spills)
+        spills_all = ptxas_spills(log)
+        for route in ("tma", "fma"):
+            name = f"{kernel}_{route}"
+            pat = re.compile(rf"\d+{name}I({'|'.join(MANGLED_TYPES)})Li(\d+)E")
+            counts = {}
+            for body in re.split(r"\n\s*Function : ", sass_of[src])[1:]:
+                fn = body.split("\n", 1)[0].strip()
+                m = pat.search(fn)
+                if m:
+                    inst = (MANGLED_TYPES[m.group(1)], int(m.group(2)))
+                    counts[inst] = {op: body.count(op) for op in SASS_OPS}
+            want = built_instantiations(kernel, route)
+            if set(counts) != want:
+                raise AssertionError(f"{name}: built {sorted(counts)}, expected {sorted(want)}")
+            tensor_core = route == "tma"
+            if any((0 in c.values()) if tensor_core else sum(c.values())
+                   for c in counts.values()):
+                raise AssertionError(f"{name}: SASS counts of {SASS_OPS}: {counts}")
+            spills = {fn: v for fn, v in spills_all.items() if pat.search(fn)}
+            if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
+                raise AssertionError(f"{name}: ptxas spills {spills}")
+            built[name] = sorted(f"{name}<{t},{d}>" for t, d in counts)
+            say("build", kernel=name, instantiations=built[name],
+                sass_counts={f"<{t},{d}>": c for (t, d), c in sorted(counts.items())},
+                spill_bytes=sorted(set(spills.values())))
+    return built
 
 
 def phase_kernels():
@@ -567,8 +619,13 @@ def phase_kernels():
     errs = {}
     for name, c in KERNEL_CASES:
         q, k, v = qkv(c)
+        flash.reset_launches()
         out, lse = flash.flash_attention_fwd(q, k, v, c["causal"])
         torch.cuda.synchronize()
+        width = flash.kernel_head_dim(c["D"])
+        launched = dict(flash.kernel_launches)
+        if launched != {route_of("flash_fwd", c["dtype"], width): 1}:
+            raise AssertionError(f"{name}: forward launched {launched}")
         ref_out, ref_lse = flash.flash_attention_plain(q, k, v, c["causal"])
         torch.cuda.synchronize()
         e_out = check_close(f"{name} out", out, ref_out, TOL[c["dtype"]])
@@ -576,8 +633,14 @@ def phase_kernels():
         # the backward kernels on the kernel's own out/lse
         do = torch.randn(out.shape, generator=torch.Generator(device="cuda")
                          .manual_seed(7), device="cuda").to(c["dtype"])
+        flash.reset_launches()
         grads = flash.flash_attention_bwd(q, k, v, out, lse, do, c["causal"])
         torch.cuda.synchronize()
+        # the backward's launches went through the instantiations csrc/
+        # must dispatch this dtype and width to
+        want = {route_of(kn, c["dtype"], width): 1 for kn in ("flash_bwd_dq", "flash_bwd_dkv")}
+        if flash.kernel_launches != want:
+            raise AssertionError(f"{name}: launched {flash.kernel_launches}, expected {want}")
         refs = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, c["causal"])
         torch.cuda.synchronize()
         e_bwd = {
@@ -589,7 +652,7 @@ def phase_kernels():
         need = {"out": least_tol(out, ref_out), **{
             g: least_tol(got, ref) for g, got, ref in zip(("dq", "dk", "dv"), grads, refs)}}
         say("kernel", case=name, max_abs_err_out=e_out, max_abs_err_lse=e_lse,
-            max_abs_err_bwd=e_bwd, tol=TOL[c["dtype"]],
+            max_abs_err_bwd=e_bwd, tol=TOL[c["dtype"]], launched={**launched, **want},
             bwd_tol=BWD_TOL[c["dtype"]], least_tol=need,
             shape={k_: str(v_) for k_, v_ in c.items()})
     errs["autograd"] = phase_autograd()
@@ -640,8 +703,12 @@ def phase_ring_kernel():
     errs = {}
     for name, c, q_off, k_off, carry in RING_CASES:
         args = ring_inputs(c, carry)
+        flash.reset_launches()
         got = flash.flash_ring_step(*args, q_off, k_off, c["causal"])
         torch.cuda.synchronize()
+        launched = dict(flash.kernel_launches)
+        if launched != {route_of("ring_step", c["dtype"], flash.kernel_head_dim(c["D"])): 1}:
+            raise AssertionError(f"ring {name}: launched {launched}")
         ref = flash.flash_ring_step_plain(*args, q_off, k_off, c["causal"])
         torch.cuda.synchronize()
         e = {
@@ -670,7 +737,7 @@ def phase_ring_kernel():
             e["o_raw_vs_carry"] = check_close(
                 f"ring {name} raw o vs the carried o", got[0], args[3], DOMINANT_O_TOL)
         errs[name] = e["o/l"]
-        say("kernel", ring_case=name, q_off=q_off, k_off=k_off, carry=carry,
+        say("kernel", ring_case=name, q_off=q_off, k_off=k_off, carry=carry, launched=launched,
             max_abs_err=e, o_tol=RING_O_TOL[c["dtype"]], ml_tol=RING_ML_TOL,
             least_tol_o_l=least_tol(per_l(got[0], ref[2]), per_l(ref[0], ref[2])),
             shape={k_: str(v_) for k_, v_ in c.items()})
@@ -738,7 +805,6 @@ def phase_timing():
     # its backward computes dq, dk and dv in one call, so it is the
     # yardstick of both backward kernels
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     o_lib = sdpa(qt, kt, vt, is_causal=True)
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
@@ -778,14 +844,27 @@ def phase_timing():
     return timing
 
 
-# each kernel at a padded head dim, in f16 and at the wide build's Dh = 256,
-# at the flagship's batch and length (Dh = 256 at 4 heads: the flagship's
-# d_model); records only, the bound is each variant's true work
+# each kernel at a padded head dim, in f16, at Dh = 256 (the wide-head
+# path's GQA too) and in f32 at every built width (the FMA kernels), at the
+# flagship's batch, length and d_model (H = 1024 / Dh); records only, the
+# bound is each variant's true work, f32's at the FMA pipe's rate
 VARIANTS = {
     "dh32_bf16": dict(FLAGSHIP, D=32),
     "dh64_f16": dict(FLAGSHIP, dtype=torch.float16),
     "dh256_bf16": dict(FLAGSHIP, D=256, H=4, KVH=4),
+    "dh256_gqa_bf16": dict(FLAGSHIP, D=256, H=4, KVH=2),
+    "dh64_f32": dict(FLAGSHIP, dtype=torch.float32),
+    "dh128_f32": dict(FLAGSHIP, D=128, H=8, KVH=8, dtype=torch.float32),
+    "dh256_f32": dict(FLAGSHIP, D=256, H=4, KVH=4, dtype=torch.float32),
+    "dh512_f32": dict(FLAGSHIP, D=512, H=2, KVH=2, dtype=torch.float32),
 }
+
+
+def sdpa(q, k, v, is_causal=False):
+    """PyTorch's one-call attention on [B, H, L, D] views (timed only, never
+    called by the port), with its own GQA where the heads differ."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=is_causal, enable_gqa=q.shape[1] != k.shape[1])
 
 
 def phase_variant_timing():
@@ -797,7 +876,6 @@ def phase_variant_timing():
     inputs."""
     from tensorframes_tpu_torch.parallel import flash
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {name: {} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                                   "flash_ring_step")}
 
@@ -887,7 +965,6 @@ def phase_ring_timing():
     c = RING_FLAGSHIP
     args = ring_inputs(c, "random", seed=1)
     qt, kt, vt = (x.transpose(1, 2) for x in args[:3])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     hops = {}
     with torch.no_grad():
         for hop, (q_off, k_off) in RING_HOPS.items():
@@ -937,6 +1014,7 @@ def phase_slice():
 
     prog = scoring.scoring_program(params, cfg, fetches=scoring.FETCHES)
     out, sec, launches, peak = score(prog)
+    by_instantiation = dict(flash.kernel_launches)
     if launches != cfg.n_layers * blocks:
         raise AssertionError(
             f"flash kernel launched {launches} times on the main path, "
@@ -984,9 +1062,98 @@ def phase_slice():
         )
     say("slice", check="small input, cuda vs cpu (f32, atol=rtol=1e-4)",
         max_abs_err=errs)
-    return prog, frame
+    return prog, frame, by_instantiation
 
 
+
+
+def phase_wide_head():
+    """The wide-head path: the flagship's widths at 4 heads over 2 kv heads
+    (Dh 256, 2:1 GQA), scored through Program -> map_blocks and trained
+    through FrameLoader -> train.fit with remat "none", on the Dh-256
+    forward and dK/dV TMA kernels (dQ on its FMA kernel).  Launch counts by
+    instantiation, nll against "full", a B=2 step against "full".  Returns
+    the two runs' launches by instantiation, and (program, one block,
+    config, train config, params, loader) for profiling."""
+    from tensorframes_tpu_torch import TensorFrame, data, map_blocks, train
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    cfg = tfm.TransformerConfig(**WIDE_MODEL)
+    width = flash.kernel_head_dim(cfg.d_model // cfg.n_heads)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (WIDE_ROWS, WIDE_L)).astype(np.int32)
+    frame = TensorFrame.from_arrays({"tokens": tokens}, num_blocks=WIDE_BLOCKS)
+    block = TensorFrame.from_arrays({"tokens": tokens[: WIDE_ROWS // WIDE_BLOCKS]})
+
+    def score(program):
+        map_blocks(program, block).to_arrays()  # warm-up: one block
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()  # count the main path's run alone
+        t0 = time.perf_counter()
+        out = map_blocks(program, frame).to_arrays()  # ends in a D2H sync
+        sec = time.perf_counter() - t0
+        return out, sec, dict(flash.kernel_launches), torch.cuda.max_memory_allocated()
+
+    prog = scoring.scoring_program(params, cfg, fetches=scoring.FETCHES)
+    out, sec, scored, peak = score(prog)
+    want = {route_of("flash_fwd", cfg.dtype, width): cfg.n_layers * WIDE_BLOCKS}
+    if scored != want or not all("_tma<" in k for k in want):
+        raise AssertionError(f"wide-head scoring: launched {scored}, expected {want}")
+    for key, shape in (("nll", (WIDE_ROWS,)), ("perplexity", (WIDE_ROWS,)),
+                       ("embedding", (WIDE_ROWS, cfg.d_model))):
+        if out[key].shape != shape or not np.isfinite(out[key]).all():
+            raise AssertionError(f"wide-head {key}: shape {out[key].shape} or non-finite")
+    full, full_sec, _, full_peak = score(scoring.scoring_program(
+        params, dataclasses.replace(cfg, attn_impl="full"), fetches=("nll",)))
+    diff = float(np.abs(full["nll"] - out["nll"]).max())
+    if not diff <= NLL_TOL:
+        raise AssertionError(f"wide-head nll flash vs full: max |diff| {diff} > {NLL_TOL}")
+    say("wide_head", leg="score", attn_impl="flash", head_dim=width, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, rows=WIDE_ROWS, tokens_per_row=WIDE_L,
+        blocks=WIDE_BLOCKS, seconds=sec, ms_per_block=sec / WIDE_BLOCKS * 1e3,
+        tokens_per_s=WIDE_ROWS * WIDE_L / sec, peak_bytes=peak, launched=scored,
+        nll_mean=float(out["nll"].mean()), full_ms_per_block=full_sec / WIDE_BLOCKS * 1e3,
+        full_peak_bytes=full_peak, nll_max_abs_diff_vs_full=diff, nll_tol=NLL_TOL)
+
+    # one epoch of training from a FrameLoader, after a warm-up step
+    tc = train.TrainConfig(learning_rate=3e-4)
+    steps = WIDE_TRAIN_ROWS // WIDE_TRAIN_B
+    start = np.random.RandomState(8).randint(0, cfg.vocab_size, (WIDE_TRAIN_ROWS, 1))
+    toks = ((start + np.arange(WIDE_L + 1)) % cfg.vocab_size).astype(np.int32)
+    tframe = TensorFrame.from_arrays({"tokens": toks}, num_blocks=4)
+
+    def loader():
+        return data.FrameLoader(tframe, batch_size=WIDE_TRAIN_B, shuffle=True, seed=0)
+
+    train.fit(loader(), cfg, tc, steps=1, params=params)  # warm-up step
+    start_params = clone_params(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    _, _, losses = train.fit(loader(), cfg, tc, steps=steps, params=params)
+    sec = time.perf_counter() - t0  # fit's losses are read: synced
+    trained, peak = dict(flash.kernel_launches), train.hbm_high_water()
+    want = {route_of(k, cfg.dtype, width): cfg.n_layers * steps
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if trained != want or not {"flash_fwd_tma", "flash_bwd_dkv_tma"} <= {
+            k.split("<")[0] for k in trained}:
+        raise AssertionError(f"wide-head train: launched {trained}, expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"wide-head train losses not finite: {losses}")
+    n_params = train.n_params(params)
+    tokens_run = steps * WIDE_TRAIN_B * WIDE_L
+    flops_per_token = train.counted_flops_per_token(n_params, cfg, WIDE_L)
+    say("wide_head", leg="train", attn_impl="flash", remat=cfg.remat_policy, steps=steps,
+        batch=WIDE_TRAIN_B, seq=WIDE_L, n_params=n_params, seconds=sec,
+        ms_per_step=sec / steps * 1e3, tokens_per_s=tokens_run / sec,
+        counted_tflops_per_s=flops_per_token * tokens_run / sec / 1e12,
+        peak_bytes=peak, launched=trained, losses=losses)
+    flash_vs_full_step("wide_head", cfg, tc, start_params, toks[:2])
+    return scored, trained, (prog, block, cfg, tc, params, loader)
 
 
 def phase_small_head_slice():
@@ -1240,6 +1407,49 @@ def clone_params(tree):
     }
 
 
+def flash_vs_full_step(tag, cfg, tc, start_params, toks):
+    """One step of ``cfg`` on the batch ``toks`` from ``start_params``, with
+    attn_impl "flash" against "full": the loss and the gradient norm must
+    agree (FULL_LOSS_TOL, FULL_GRAD_NORM_RTOL); ms per step of each over
+    three steps, and their peak memory."""
+    from tensorframes_tpu_torch import train
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    batch = torch.from_numpy(toks).cuda()
+    inp, tgt = batch[:, :-1], batch[:, 1:]
+    ref = {}
+    for impl in ("flash", "full"):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        p = clone_params(start_params)
+        leaves = [t.requires_grad_() for _, t in train.param_leaves(p)]
+        loss = tfm.loss_fn(p, inp, tgt, icfg)
+        grads = torch.autograd.grad(loss, leaves)
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        del grads
+        step, tx = train.make_train_step(icfg, tc)
+        state = tx.init(p)
+        step(p, state, inp, tgt)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _, _, last = step(p, state, inp, tgt)
+        float(last)
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        ref[impl] = dict(loss=float(loss.detach()), grad_norm=norm, ms_per_step=ms,
+                         peak_bytes=train.hbm_high_water())
+        del p, state, leaves
+    d_loss = abs(ref["flash"]["loss"] - ref["full"]["loss"])
+    d_norm = abs(ref["flash"]["grad_norm"] / ref["full"]["grad_norm"] - 1)
+    if not (d_loss <= FULL_LOSS_TOL and d_norm <= FULL_GRAD_NORM_RTOL):
+        raise AssertionError(f"{tag}: B={len(toks)} flash vs full: loss diff {d_loss}, "
+                             f"grad norm rel {d_norm}")
+    say(tag, check=f"B={len(toks)} step, flash vs full", batch=len(toks), **{
+        f"{impl}_{k}": v for impl, r in ref.items() for k, v in r.items()
+    }, loss_abs_diff=d_loss, loss_tol=FULL_LOSS_TOL, grad_norm_rel_diff=d_norm,
+        grad_norm_rtol=FULL_GRAD_NORM_RTOL)
+
+
 def phase_train():
     """The flagship train step fed from a FrameLoader through train.fit."""
     from tensorframes_tpu_torch import TensorFrame, data, train
@@ -1279,6 +1489,7 @@ def phase_train():
     run(cfg, 1, params)  # warm-up step
     start_params = clone_params(params)
     losses, sec, launches, peak = run(cfg, steps, params)
+    by_instantiation = dict(flash.kernel_launches)
     # "selective" recomputes each block's forward in the backward (saving
     # only JAX's tagged tensors), so the forward kernel runs twice a step
     expect(launches, 2 * cfg.n_layers * steps, cfg.n_layers * steps, "train")
@@ -1313,38 +1524,7 @@ def phase_train():
             tol=REMAT_LOSS_TOL)
 
     # one step at B=2: flash against full attention
-    batch = torch.from_numpy(toks[:2]).cuda()
-    inp, tgt = batch[:, :-1], batch[:, 1:]
-    ref = {}
-    for impl in ("flash", "full"):
-        icfg = dataclasses.replace(cfg, attn_impl=impl)
-        p = clone_params(start_params)
-        leaves = [t.requires_grad_() for _, t in train.param_leaves(p)]
-        loss = tfm.loss_fn(p, inp, tgt, icfg)
-        grads = torch.autograd.grad(loss, leaves)
-        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
-        del grads
-        step, tx = train.make_train_step(icfg, tc)
-        state = tx.init(p)
-        step(p, state, inp, tgt)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            _, _, last = step(p, state, inp, tgt)
-        float(last)
-        ms = (time.perf_counter() - t0) / 3 * 1e3
-        ref[impl] = dict(loss=float(loss.detach()), grad_norm=norm, ms_per_step=ms,
-                         peak_bytes=train.hbm_high_water())
-        del p, state, leaves
-    d_loss = abs(ref["flash"]["loss"] - ref["full"]["loss"])
-    d_norm = abs(ref["flash"]["grad_norm"] / ref["full"]["grad_norm"] - 1)
-    if not (d_loss <= FULL_LOSS_TOL and d_norm <= FULL_GRAD_NORM_RTOL):
-        raise AssertionError(f"B=2 flash vs full: loss diff {d_loss}, grad norm rel {d_norm}")
-    say("train", check="B=2 step, flash vs full", batch=2, **{
-        f"{impl}_{k}": v for impl, r in ref.items() for k, v in r.items()
-    }, loss_abs_diff=d_loss, loss_tol=FULL_LOSS_TOL, grad_norm_rel_diff=d_norm,
-        grad_norm_rtol=FULL_GRAD_NORM_RTOL)
+    flash_vs_full_step("train", cfg, tc, start_params, toks[:2])
 
     # a small f32 model trained three steps on the card and on the CPU
     small = tfm.TransformerConfig(
@@ -1373,7 +1553,7 @@ def phase_train():
     )
     say("train", check="small f32 model, 3 steps, cuda vs cpu params "
         f"(atol=rtol={SMALL_TRAIN_TOL:g})", max_abs_err=err)
-    return launches, cfg, tc, start_params, loader
+    return launches, cfg, tc, start_params, loader, by_instantiation
 
 
 def ring_launches(flash):
@@ -1421,6 +1601,7 @@ def phase_ring_slice():
 
     prog = scoring.scoring_program(params, cfg, fetches=scoring.FETCHES)
     out, sec, launches, peak = score(prog, ring_mesh, frame)
+    by_instantiation = dict(flash.kernel_launches)
     want = dict.fromkeys(launches, 0)
     want["flash_ring_step"] = cfg.n_layers * hops_per_layer(RING_SP) * blocks
     if launches != want:
@@ -1457,7 +1638,7 @@ def phase_ring_slice():
         raise AssertionError(f"nll ring_flash vs ring (xla step): max |diff| {diff}")
     say("ring_slice", attn_impl="ring", sp=RING_SP, blocks=1, ms_per_block=x_sec * 1e3,
         peak_bytes=x_peak, nll_max_abs_diff_vs_ring_flash=diff, nll_tol=NLL_TOL)
-    return launches["flash_ring_step"], prog, block, ring_mesh
+    return launches["flash_ring_step"], prog, block, ring_mesh, by_instantiation
 
 
 def phase_ring_train(ring_mesh):
@@ -1905,20 +2086,71 @@ def profile_step(label, cfg, tc, params, loader) -> None:
     profile_kernels(label, one_step)
 
 
-def phase_profile(prog, frame, train_run, ring_run, ring_train_run) -> None:
-    """One block and one train step of each slice: flash at 2048 tokens,
-    and the ring at 8192 tokens over sp = 4."""
+def phase_profile(prog, frame, train_run, wide_run, ring_run, ring_train_run) -> None:
+    """One block and one train step of each slice: flash at 2048 tokens
+    (the flagship and the wide-head model), and the ring at 8192 tokens
+    over sp = 4."""
     from tensorframes_tpu_torch import TensorFrame, map_blocks
     from tensorframes_tpu_torch.parallel import mesh
 
     block = TensorFrame.from_arrays({"tokens": frame.block(0)["tokens"]})
     profile_kernels("score one block", lambda: map_blocks(prog, block).to_arrays())
-    profile_step("train one step", *train_run[1:])
-    _, ring_prog, ring_block, ring_mesh = ring_run
+    profile_step("train one step", *train_run[1:5])
+    wide_prog, wide_block, *wide_train = wide_run
+    profile_kernels("wide-head score one block",
+                    lambda: map_blocks(wide_prog, wide_block).to_arrays())
+    profile_step("wide-head train one step", *wide_train)
+    ring_prog, ring_block, ring_mesh = ring_run[1:4]
     with mesh.set_mesh(ring_mesh):
         profile_kernels("ring score one block",
                         lambda: map_blocks(ring_prog, ring_block).to_arrays())
         profile_step("ring train one step", *ring_train_run)
+
+
+# (kernel family, its flagship record's name, source, the Pallas kernel's
+# line in tensorframes_tpu/parallel/flash.py)
+KERNELS = [("flash_fwd", "flash_fwd", "flash_fwd", 42),
+           ("flash_bwd_dq", "flash_bwd_dq", "flash_bwd", 416),
+           ("flash_bwd_dkv", "flash_bwd_dkv", "flash_bwd", 452),
+           ("ring_step", "flash_ring_step", "flash_ring", 217)]
+
+
+def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_runs):
+    """The kernels' JSON record: each kernel at the flagship shape (the
+    train epoch's launches; the ring step's, the ring scoring run's), then
+    every instantiation timed at a VARIANTS shape, named by what it runs,
+    with its launches over the main paths' runs (``main_runs``: launches by
+    instantiation of the flagship scoring, the wide-head scoring and train,
+    the flagship train epoch and the ring scoring runs)."""
+    from tensorframes_tpu_torch.parallel import flash
+
+    by_inst = {}
+    for run in main_runs:
+        for name, n in run.items():
+            by_inst[name] = by_inst.get(name, 0) + n
+    entries = []
+    for family, name, src, line in KERNELS:
+        common = dict(route="cuda", source=f"tensorframes_tpu_torch/csrc/{src}.cu",
+                      replaces=f"tensorframes_tpu/parallel/flash.py:{line}")
+        if family == "ring_step":
+            # the off-diagonal hop (6 of the 10 hops a layer runs), with the
+            # diagonal hop beside it
+            head = dict(launches=ring_launches_n, max_abs_err=errs["ring"]["flagship_offdiag"],
+                        **timing["flash_ring_step"]["off_diagonal"],
+                        diagonal=dict(timing["flash_ring_step"]["diagonal"],
+                                      max_abs_err=errs["ring"]["flagship_diag"]))
+        else:
+            head = dict(launches=train_launches[name], max_abs_err=errs["flagship"][name],
+                        **timing[name])
+        entries.append(dict(name=name, **common, **head,
+                            instantiation=route_of(family, FLAGSHIP["dtype"], 64),
+                            built=built[f"{family}_tma"] + built[f"{family}_fma"]))
+        for variant, row in timing["variants"][name].items():
+            c = VARIANTS[variant]
+            inst = route_of(family, c["dtype"], flash.kernel_head_dim(c["D"]))
+            entries.append(dict(name=f"{inst} ({variant})", **common,
+                                launches=by_inst.get(inst, 0), **row))
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -1938,12 +2170,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity with JAX
     torch.backends.cudnn.allow_tf32 = False
     card = phase_env()
-    phase_build()
+    built = phase_build()
     errs = phase_kernels()
     if args.quick:
         return 0
     timing = phase_timing()
-    prog, frame = phase_slice()
+    prog, frame, slice_launches = phase_slice()
+    *wide_launches, wide_run = phase_wide_head()
     phase_small_head_slice()
     phase_verbs()
     phase_crossover()
@@ -1953,45 +2186,9 @@ def main() -> int:
     ring_run = phase_ring_slice()
     ring_train_run = phase_ring_train(ring_run[3])
     if args.profile:
-        phase_profile(prog, frame, train_run, ring_run, ring_train_run)
-    # launches: the train path's run, the one path that runs all three
-    # flash kernels (the scoring path's forward count is on its "slice"
-    # line); the ring step's: the ring scoring path's run
-    launches = train_run[0]
-    record = {
-        "kernels": [
-            {
-                "name": name,
-                "route": "cuda",
-                "source": f"tensorframes_tpu_torch/csrc/{src}.cu",
-                "replaces": f"tensorframes_tpu/parallel/flash.py:{line}",
-                "launches": launches[name],
-                "max_abs_err": errs["flagship"][name],
-                **timing[name],
-                "variants": timing["variants"][name],
-            }
-            for name, src, line in (
-                ("flash_fwd", "flash_fwd", 42),
-                ("flash_bwd_dq", "flash_bwd", 416),
-                ("flash_bwd_dkv", "flash_bwd", 452),
-            )
-        ] + [
-            {
-                # the off-diagonal hop (6 of the 10 hops a layer runs), with
-                # the diagonal hop beside it
-                "name": "flash_ring_step",
-                "route": "cuda",
-                "source": "tensorframes_tpu_torch/csrc/flash_ring.cu",
-                "replaces": "tensorframes_tpu/parallel/flash.py:217",
-                "launches": ring_run[0],  # the ring scoring path's run
-                "max_abs_err": errs["ring"]["flagship_offdiag"],
-                **timing["flash_ring_step"]["off_diagonal"],
-                "diagonal": dict(timing["flash_ring_step"]["diagonal"],
-                                 max_abs_err=errs["ring"]["flagship_diag"]),
-                "variants": timing["variants"]["flash_ring_step"],
-            }
-        ]
-    }
+        phase_profile(prog, frame, train_run, wide_run, ring_run, ring_train_run)
+    record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
+        slice_launches, *wide_launches, train_run[5], ring_run[4]])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)
     print(json.dumps(record), flush=True)

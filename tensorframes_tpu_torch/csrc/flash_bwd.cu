@@ -19,8 +19,8 @@
 //
 // What the design does about it (the 16-bit kernels flash_bwd_dq_tma and
 // flash_bwd_dkv_tma, the main path, each one template instantiated for bf16
-// and f16): both are warp-specialised TMA + wgmma kernels (building blocks
-// in hopper.cuh).  In
+// and f16, dQ at Dh 64 and 128, dK/dV at 64, 128 and 256): both are
+// warp-specialised TMA + wgmma kernels (building blocks in hopper.cuh).  In
 // both, the TPU grid's sequential axis becomes a loop inside one CTA, so
 // nothing carries between blocks and nothing needs atomics: the results are
 // deterministic.
@@ -46,13 +46,15 @@
 //    compute the trailing tiles wholly above its rows.  The heavier query
 //    tiles launch first, and the tiles of one head side by side so their
 //    K/V stay in L2.
-//  * dK/dV: one CTA of three warpgroups owns one (batch*kv head, 128-key tile).
+//  * dK/dV: one CTA of three warpgroups (two at Dh = 256, see Dkv) owns
+//    one (batch*kv head, 128-key tile).
 //    The producer warpgroup loads K and V once by TMA, then streams the
-//    (Q, dO) tiles of 64 query rows (32 at Dh = 128) of every (query head of
-//    the group, query tile) pair from the diagonal on through a 4-slot ring
-//    of full/empty mbarriers; one of its warps stages the pairs' lse * log2(e)
-//    and D rows beside them.  setmaxnreg moves its registers to the two
-//    consumer warpgroups of 64 keys each.  Per pair a consumer computes
+//    (Q, dO) tiles of 64 query rows (32 at Dh = 128 and 256) of every
+//    (query head of the group, query tile) pair from the diagonal on
+//    through a 4-slot ring (3 at Dh = 256) of full/empty mbarriers; one
+//    of its warps stages the pairs' lse * log2(e) and D rows beside them.
+//    setmaxnreg moves its registers to the two consumer warpgroups of 64
+//    keys each.  Per pair a consumer computes
 //    S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in shared
 //    memory), P^T = exp2(S^T * scale * log2(e) - lse) and
 //    dS^T = P^T o (dP^T - D) in registers, then dV += P^T dO and
@@ -66,26 +68,32 @@
 //    of 64 keys would take 128 f32 registers a thread beside the scores,
 //    over a consumer's budget: the consumers walk the pairs twice, dV in the
 //    first pass and dK in the second, recomputing S^T (a quarter more
-//    products) to hold one accumulator.
+//    products) to hold one accumulator.  Dh = 256 keeps that scheme with
+//    one accumulator of 128 registers a thread, each product into it two
+//    m64n128k16 (one per half of the columns); K and V of the CTA's 128
+//    keys take 128 KB and a slot of Q and dO 32 KB, so the ring has 3 slots
+//    (226 KB in all).
 //    Tried and slower on the H100 at the flagship shape, so not kept:
 //    issuing pair n + 1's S^T and dP^T behind pair n's gradient products
 //    inside a warpgroup (it also spills), and ping-pong between the two
 //    consumers.
 //  * Loads read [B, L, H, Dh] through its strides (no transpose copy; head
-//    dims other than 64 and 128 arrive zero-padded to the next of the two
-//    from the wrapper, which leaves S, dP and D unchanged); ragged tails are zero-filled (by the TMA descriptors, which
-//    bound L per batch, or by the copy) and masked here.
+//    dims other than 64, 128, 256 and 512 arrive zero-padded to the next of
+//    them from the wrapper, which leaves S, dP and D unchanged); ragged
+//    tails are zero-filled (by the TMA descriptors, which bound L per
+//    batch, or by the copy) and masked here.
 // Numerics kept from flash.py: P is cast to dO's dtype before P^T dO (:482)
 // and dS to q/k's dtype before its products (:443, :489); the scale is
 // applied in f32; a row whose lse is -inf takes lse 0 under the mask and
 // never computes exp(finite - (-inf)) (:409-412); the causal mask is
 // top-left (q >= k) when Lq != Lk.
 // f32 inputs take plain FMA kernels (TF32 would lose precision the JAX
-// reference keeps), and so do bf16 and f16 at Dh = 256 (head dims 129..256,
-// padded): one template on the element type, P and dS rounded to it before
-// their products as above.  At that width dK and dV of a 32-key tile are
-// 2 x 32 x 256 f32, so the block has 256 threads (32 + 32 accumulators a
-// thread).  Both are off the main path.
+// reference keeps), and so do bf16 and f16 where the tensor-core kernels
+// stop: dQ at Dh = 256, both at 512 (head dims 257..512, padded).  One
+// template on the element type, P and dS rounded to it before their
+// products as above.  From Dh = 256 on the block has 256 threads, so that
+// dK and dV of a tile stay at 32 + 32 accumulators a thread; at 512 the
+// tiles are 16 x 16 (FmaBwd).  The f32 kernels are off the main path.
 
 #include <cuda_runtime.h>
 
@@ -363,19 +371,36 @@ cudaError_t launch_dq(const Problem& p, int B, void* dq, cudaStream_t stream) {
 // bf16/f16 dK/dV: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int DKV_BK = 128;       // keys per CTA, 64 per consumer warpgroup
-constexpr int DKV_THREADS = 384;  // the producer and two consumer warpgroups
+constexpr int DKV_BK = 128;  // keys per CTA, 64 per consumer warpgroup
 
 template <int D>
 struct Dkv {
-  // query rows per (Q, dO) tile
-  static constexpr int BQ = D == 128 ? 32 : 64;
-  // At Dh = 128, dK and dV of 64 keys would hold 128 accumulator registers
-  // a thread beside the scores: more than a consumer's budget.  The kernel
-  // then walks the pairs twice, dV in the first pass and dK in the second,
-  // recomputing S^T (a quarter more products) to keep one accumulator.
-  static constexpr int PASSES = D == 128 ? 2 : 1;
-  static constexpr int STAGES = 4;
+  // query rows per (Q, dO) tile: S^T and dP^T are 64 x BQ, 16 + 16 f32
+  // registers a thread at 32 rows
+  static constexpr int BQ = D >= 128 ? 32 : 64;
+  // From Dh = 128 on, dK and dV of 64 keys would hold 2 x D / 2 accumulator
+  // registers a thread beside the scores: more than a consumer's budget.
+  // The kernel then walks the pairs twice, dV in the first pass and dK in
+  // the second, recomputing S^T (a quarter more products at Dh = 128) to
+  // keep one accumulator (128 registers at Dh = 256).
+  static constexpr int PASSES = D >= 128 ? 2 : 1;
+  // at Dh = 256 K and V take 128 KB and a slot 32 KB: three slots fit
+  static constexpr int STAGES = D == 256 ? 3 : 4;
+  // dV += P^T dO and dK += dS^T Q as wgmma products of at most 128 output
+  // columns (m64n128k16): one at Dh = 64 and 128, two at 256
+  static constexpr int GN = D > 128 ? 128 : D;
+  static constexpr int GP = D / GN;
+  // The producer: a warpgroup before the two consumers, whose registers
+  // setmaxnreg moves to them.  ptxas allocates a thread no more than its
+  // sub-partition's share (168 at 384 threads: 16384 registers over three
+  // warps) whatever setmaxnreg grants, and at Dh = 256 a consumer needs
+  // more (its accumulator alone is 128).  There the CTA is the two
+  // consumer warpgroups alone (up to 255 registers a thread), and warp 0
+  // refills the ring inline: lane 0 issues the TMA loads, each lane stages
+  // one lse and D row of the 32.
+  static constexpr bool INLINE_PRODUCER = D == 256;
+  static constexpr int THREADS = INLINE_PRODUCER ? 256 : 384;
+  static_assert(!INLINE_PRODUCER || BQ == 32, "one lse/D row per lane of warp 0");
   static constexpr int KV_BOX = DKV_BK * 128;  // one 64-column box of K or V
   static constexpr int KV_TILE = (D / BOX_COLS) * KV_BOX;
   static constexpr int Q_BOX = BQ * 128;       // one 64-column box of Q or dO
@@ -387,10 +412,11 @@ struct Dkv {
   static constexpr size_t SMEM = size_t(2) * KV_TILE +
                                  size_t(STAGES) * (SLOT + ROWS * sizeof(float)) +
                                  8 * BARRIERS + ATOM_BYTES;
+  static_assert(SMEM <= 232448, "dK/dV tiles exceed a block's shared memory");
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(DKV_THREADS, 1)
+__global__ void __launch_bounds__(Dkv<D>::THREADS, 1)
 flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
@@ -430,57 +456,81 @@ flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
-    // the producer: warp 0 issues TMA, warp 1 stages the lse and D rows
+  // ring fill n, pair n % n_iter into slot n % S: its (Q, dO) tile by TMA
+  // from one thread, and its lse * log2(e) and D rows staged by a warp
+  // (lane r: rows r, r + 32, ...), each lane arriving on the slot's barrier
+  auto fill_tma = [&](int n) {
+    const int s = n % S, it = n % n_iter;
+    const int h = kvh * grp + it / nqe, qq0 = (qt0 + it % nqe) * BQ2;
+    unsigned char* const Qt = ring + s * F::SLOT;
+    mbar_arrive_expect_tx(full + s, F::SLOT);
+    for (int x = 0; x < D / BOX_COLS; ++x) {
+      tma_load(Qt + x * F::Q_BOX, &q_map, full + s, x * BOX_COLS, h, qq0, b);
+      tma_load(Qt + F::Q_TILE + x * F::Q_BOX, &o_map, full + s, x * BOX_COLS, h,
+               qq0, b);
+    }
+  };
+  auto fill_rows = [&](int n, int lane) {
+    const int s = n % S, it = n % n_iter;
+    const int h = kvh * grp + it / nqe, qq0 = (qt0 + it % nqe) * BQ2;
+    float* const Lt = rows + s * F::ROWS;
+    for (int r = lane; r < BQ2; r += 32) {
+      const int row = qq0 + r;
+      const int64_t i = (int64_t(b) * H + h) * Lq + row;
+      Lt[r] = safe_lse(p.lse, i, row < Lq) * LOG2E;
+      Lt[BQ2 + r] = row < Lq ? p.delta[i] : 0.f;
+    }
+    mbar_arrive(full + s);
+  };
+  auto load_kv = [&] {
+    mbar_arrive_expect_tx(kv_full, 2 * F::KV_TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x) {
+      tma_load(Ks + x * F::KV_BOX, &k_map, kv_full, x * BOX_COLS, kvh, k0, b);
+      tma_load(Vs + x * F::KV_BOX, &v_map, kv_full, x * BOX_COLS, kvh, k0, b);
+    }
+  };
+
+  if (!F::INLINE_PRODUCER && threadIdx.x < 128) {
+    // the producer: thread 0 issues TMA, warp 1 stages the lse and D rows
     regs_dec<PRODUCER_REGS>();
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * F::KV_TILE);
-      for (int x = 0; x < D / BOX_COLS; ++x) {
-        tma_load(Ks + x * F::KV_BOX, &k_map, kv_full, x * BOX_COLS, kvh, k0, b);
-        tma_load(Vs + x * F::KV_BOX, &v_map, kv_full, x * BOX_COLS, kvh, k0, b);
-      }
+      load_kv();
       for (int n = 0; n < n_load; ++n) {
-        const int s = n % S, it = n % n_iter;
-        if (n >= S) mbar_wait(empty + s, (n / S - 1) & 1);  // its last use is done
-        const int h = kvh * grp + it / nqe, qq0 = (qt0 + it % nqe) * BQ2;
-        unsigned char* const Qt = ring + s * F::SLOT;
-        mbar_arrive_expect_tx(full + s, F::SLOT);
-        for (int x = 0; x < D / BOX_COLS; ++x) {
-          tma_load(Qt + x * F::Q_BOX, &q_map, full + s, x * BOX_COLS, h, qq0, b);
-          tma_load(Qt + F::Q_TILE + x * F::Q_BOX, &o_map, full + s, x * BOX_COLS,
-                   h, qq0, b);
-        }
+        if (n >= S) mbar_wait(empty + n % S, (n / S - 1) & 1);  // its last use is done
+        fill_tma(n);
       }
     } else if (warp == 1) {
       for (int n = 0; n < n_load; ++n) {
-        const int s = n % S, it = n % n_iter;
-        if (n >= S) mbar_wait(empty + s, (n / S - 1) & 1);
-        const int h = kvh * grp + it / nqe, qq0 = (qt0 + it % nqe) * BQ2;
-        float* const Lt = rows + s * F::ROWS;
-        for (int r = lane; r < BQ2; r += 32) {
-          const int row = qq0 + r;
-          const int64_t i = (int64_t(b) * H + h) * Lq + row;
-          Lt[r] = safe_lse(p.lse, i, row < Lq) * LOG2E;
-          Lt[BQ2 + r] = row < Lq ? p.delta[i] : 0.f;
-        }
-        mbar_arrive(full + s);
+        if (n >= S) mbar_wait(empty + n % S, (n / S - 1) & 1);
+        fill_rows(n, lane);
       }
     }
   } else {
     // a consumer: 64 keys, 16 per warp; dK and dV stay in registers across
     // the whole group (the TPU kernel's VMEM accumulation, flash.py:537-541)
-    regs_inc<CONSUMER_REGS>();
-    constexpr int NT = BQ2 / 8;  // 8-query column blocks of S^T
-    constexpr int DT = D / 8;    // 8-wide column blocks of dK and dV
-    constexpr bool ONE_PASS = F::PASSES == 1;
-    const int c = threadIdx.x / 128 - 1;
+    if constexpr (F::INLINE_PRODUCER) {
+      // warp 0 fills the ring's first S slots, and refills slot (n - 1) % S
+      // with fill n - 1 + S at the top of pair n (below)
+      if (threadIdx.x < 32) {
+        if (threadIdx.x == 0) load_kv();
+        for (int n = 0; n < min(S, n_load); ++n) {
+          if (threadIdx.x == 0) fill_tma(n);
+          fill_rows(n, threadIdx.x);
+        }
+      }
+    } else {
+      regs_inc<CONSUMER_REGS>();
+    }
+    constexpr int NT = BQ2 / 8;      // 8-query column blocks of S^T
+    constexpr int GT = F::GN / 8;    // 8-wide column blocks of one part of dK, dV
+    const int c = threadIdx.x / 128 - (F::INLINE_PRODUCER ? 0 : 1);
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;
     const int wk0 = k0 + 64 * c + 16 * w;          // this warp's first key
     const int key_a = wk0 + g, key_b = key_a + 8;  // this thread's two keys
     const float sl2 = p.scale * LOG2E;
-    float adk[DT * 4], adv[DT * 4];
+    float adk[F::GP][GT * 4], adv[F::GP][GT * 4];
     float st[NT * 4], dpt[NT * 4];              // S^T and dP^T, then P^T and dS^T
     uint32_t ap[BQ2 / 16][4], as[BQ2 / 16][4];  // P^T and dS^T as A fragments of T
     // A of S^T = K Q^T and of dP^T = V dO^T: this warpgroup's 64 keys
@@ -505,15 +555,19 @@ flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
     };
     // dV += P^T dO (P cast to dO's dtype, flash.py:482) and dK += dS^T Q
     // (dS cast to q's, :489): A from registers, dO and Q MN-major (16 query
-    // rows, 2048 bytes, per slice)
+    // rows, 2048 bytes, per slice); part p of dK and dV reads the boxes of
+    // its GN columns
     auto issue_grads = [&](int n, bool dv_on, bool dk_on) {
       const uint64_t q_mn = sw128_desc(slot(n), F::Q_BOX, ATOM_BYTES);
       const uint64_t o_mn = sw128_desc(slot(n) + F::Q_TILE, F::Q_BOX, ATOM_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < BQ2 / 16; ++kk) {
-        if (dv_on) wgmma_rs<T>(adv, ap[kk], desc_at(o_mn, kk * 16 * 128));
-        if (dk_on) wgmma_rs<T>(adk, as[kk], desc_at(q_mn, kk * 16 * 128));
-      }
+      for (int kk = 0; kk < BQ2 / 16; ++kk)
+#pragma unroll
+        for (int gp = 0; gp < F::GP; ++gp) {
+          const uint32_t off = gp * (F::GN / BOX_COLS) * F::Q_BOX + kk * 16 * 128;
+          if (dv_on) wgmma_rs<T>(adv[gp], ap[kk], desc_at(o_mn, off));
+          if (dk_on) wgmma_rs<T>(adk[gp], as[kk], desc_at(q_mn, off));
+        }
       wgmma_commit();
     };
     // P^T = exp(S^T * scale - lse), masked where the tile crosses the
@@ -551,6 +605,16 @@ flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
     };
     // one ring fill: the products of a pair and its release
     auto pair = [&](int n, bool dv_on, bool dk_on) {
+      if constexpr (F::INLINE_PRODUCER) {
+        // every thread is done with fill n - 1 once its slot's empty phase
+        // completes (this warp is, being here)
+        if (threadIdx.x < 32 && n >= 1 && n - 1 + S < n_load) {
+          mbar_wait(empty + (n - 1) % S, ((n - 1) / S) & 1);
+          if (threadIdx.x == 0) fill_tma(n - 1 + S);
+          fill_rows(n - 1 + S, threadIdx.x);
+        }
+        __syncwarp();
+      }
       wgmma_fence();
       issue_scores(n, dk_on);
       wgmma_wait<0>();
@@ -560,38 +624,47 @@ flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();  // ap and as were written by ordinary instructions
       issue_grads(n, dv_on, dk_on);
       wgmma_wait<0>();
-      fence_regs(adv);
-      fence_regs(adk);
+#pragma unroll
+      for (int gp = 0; gp < F::GP; ++gp) {
+        fence_regs(adv[gp]);
+        fence_regs(adk[gp]);
+      }
       mbar_arrive(empty + n % S);  // this thread is done with the slot
     };
-    // dK = scale * acc, dV (contiguous [B, Lk, KVH, D]) in k/v's dtype
-    auto store = [&](T* dst, const float (&acc)[DT * 4], float sc) {
+    auto zero = [&](float (&acc)[F::GP][GT * 4]) {
 #pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int col = j * 8 + 2 * t4;
-        if (key_a < Lk)
-          *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_a) * KVH + kvh) * D + col) =
-              pack2<T>(acc[4 * j] * sc, acc[4 * j + 1] * sc);
-        if (key_b < Lk)
-          *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_b) * KVH + kvh) * D + col) =
-              pack2<T>(acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
-      }
+      for (int gp = 0; gp < F::GP; ++gp)
+#pragma unroll
+        for (int i = 0; i < GT * 4; ++i) acc[gp][i] = 0.f;
+    };
+    // dK = scale * acc, dV (contiguous [B, Lk, KVH, D]) in k/v's dtype
+    auto store = [&](T* dst, const float (&acc)[F::GP][GT * 4], float sc) {
+#pragma unroll
+      for (int gp = 0; gp < F::GP; ++gp)
+#pragma unroll
+        for (int j = 0; j < GT; ++j) {
+          const int col = gp * F::GN + j * 8 + 2 * t4;
+          if (key_a < Lk)
+            *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_a) * KVH + kvh) * D + col) =
+                pack2<T>(acc[gp][4 * j] * sc, acc[gp][4 * j + 1] * sc);
+          if (key_b < Lk)
+            *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_b) * KVH + kvh) * D + col) =
+                pack2<T>(acc[gp][4 * j + 2] * sc, acc[gp][4 * j + 3] * sc);
+        }
     };
 
     mbar_wait(kv_full, 0);
-    if (ONE_PASS) {
-#pragma unroll
-      for (int i = 0; i < DT * 4; ++i) adk[i] = adv[i] = 0.f;
+    if constexpr (F::PASSES == 1) {
+      zero(adk);
+      zero(adv);
       for (int n = 0; n < n_iter; ++n) pair(n, true, true);
       store(dk, adk, p.scale);
       store(dv, adv, 1.f);
     } else {
-#pragma unroll
-      for (int i = 0; i < DT * 4; ++i) adv[i] = 0.f;
+      zero(adv);
       for (int n = 0; n < n_iter; ++n) pair(n, true, false);
       store(dv, adv, 1.f);
-#pragma unroll
-      for (int i = 0; i < DT * 4; ++i) adk[i] = 0.f;
+      zero(adk);
       for (int n = n_iter; n < 2 * n_iter; ++n) pair(n, false, true);
       store(dk, adk, p.scale);
     }
@@ -619,43 +692,49 @@ cudaError_t launch_dkv(const Problem& p, int B, void* dk, void* dv,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK, B * p.KVH);
-  flash_bwd_dkv_tma<T, D><<<grid, DKV_THREADS, F::SMEM, stream>>>(
+  flash_bwd_dkv_tma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
       q_map, k_map, v_map, o_map, p, static_cast<T*>(dk), static_cast<T*>(dv));
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernels over 32 x 32 tiles in shared memory: f32 at every head dim,
-// bf16 and f16 at Dh = 256 (tiles widened to f32, P and dS rounded to the
-// element type before their products)
+// FMA kernels over FT x FT tiles in shared memory: f32 at every head dim,
+// bf16 and f16 at the head dims above the tensor-core kernels' (dQ at 256
+// and 512, dK/dV at 512), with tiles widened to f32 and P and dS rounded to
+// the element type before their products
 // ---------------------------------------------------------------------------
 
-constexpr int FT = 32;  // query rows and keys per FMA tile
-
-// threads of a block: 4 a row (query row for dQ, key for dK/dV), 8 at
-// D = 256, so that dK's and dV's accumulators stay at 32 + 32 registers
 template <int D>
-__host__ __device__ constexpr int fma_threads() {
-  return D > 128 ? 256 : 128;
-}
-
-template <int D>
-constexpr size_t fma_smem_bytes() {
+struct FmaBwd {
+  // query rows and keys per tile: 32, and 16 at D = 512, where 32-row
+  // Q, dO, K and V tiles of f32 would take 271 KB
+  static constexpr int FT = D > 256 ? 16 : 32;
+  // threads of a block, THREADS / FT a row (query row for dQ, key for
+  // dK/dV): 4 a row to D = 128; above it 8 (16 at 512), so that dK's and
+  // dV's accumulators stay at 32 + 32 registers a thread
+  static constexpr int THREADS = D > 128 ? 256 : 128;
+  static constexpr int TPR = THREADS / FT, NJ = D / TPR;
+  static constexpr int LD = D + 1;
   // Q, dO, K, V tiles (rows of D + 1), P and dS tiles, lse and D vectors
-  return (size_t(4) * FT * (D + 1) + 2 * FT * (FT + 1) + 2 * FT) * sizeof(float);
-}
+  static constexpr size_t SMEM =
+      (size_t(4) * FT * LD + 2 * FT * (FT + 1) + 2 * FT) * sizeof(float);
+  static_assert(SMEM <= 232448, "FMA tiles exceed a block's shared memory");
+  static_assert(THREADS % FT == 0 && D % TPR == 0);
+};
 
 template <typename T, int D>
 __device__ __forceinline__ void load_tile_bwd(float* dst, const T* base,
                                               int64_t s_l, int row0, int L,
                                               int tid) {
-  for (int i = tid; i < FT * D; i += fma_threads<D>()) {
+  using F = FmaBwd<D>;
+  for (int i = tid; i < F::FT * D; i += F::THREADS) {
     const int r = i / D, c = i % D, row = row0 + r;
-    dst[r * (D + 1) + c] = row < L ? to_f32(base[row * s_l + c]) : 0.f;
+    dst[r * F::LD + c] = row < L ? to_f32(base[row * s_l + c]) : 0.f;
   }
 }
 
 // lse (safe) and D of query rows [q0, q0 + FT) of head bh
+template <int FT>
 __device__ __forceinline__ void load_rows_fma(float* Ls, float* Ds,
                                               const Problem& p, int64_t bh,
                                               int q0, int tid) {
@@ -675,12 +754,14 @@ __device__ __forceinline__ void p_ds_tile_fma(
     const float* Qs, const float* Os, const float* Ks, const float* Vs,
     const float* Ls, const float* Ds, int q0, int k0, const Problem& p,
     float* Ps, float* Ss, int tid) {
-  for (int i = tid; i < FT * FT; i += fma_threads<D>()) {
+  using F = FmaBwd<D>;
+  constexpr int FT = F::FT;
+  for (int i = tid; i < FT * FT; i += F::THREADS) {
     const int r = i / FT, c = i % FT;
-    const float* qr = Qs + r * (D + 1);
-    const float* orow = Os + r * (D + 1);
-    const float* kr = Ks + c * (D + 1);
-    const float* vr = Vs + c * (D + 1);
+    const float* qr = Qs + r * F::LD;
+    const float* orow = Os + r * F::LD;
+    const float* kr = Ks + c * F::LD;
+    const float* vr = Vs + c * F::LD;
     float s = 0.f, dp = 0.f;
     for (int d = 0; d < D; ++d) {
       s = fmaf(qr[d], kr[d], s);
@@ -695,9 +776,10 @@ __device__ __forceinline__ void p_ds_tile_fma(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(fma_threads<D>(), 1)
+__global__ void __launch_bounds__(FmaBwd<D>::THREADS, 1)
 flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
-  constexpr int LD = D + 1, TPR = fma_threads<D>() / FT, NJ = D / TPR;
+  using F = FmaBwd<D>;
+  constexpr int FT = F::FT, LD = F::LD, TPR = F::TPR, NJ = F::NJ;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Os = Qs + FT * LD;
@@ -719,7 +801,7 @@ flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
   const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
   load_tile_bwd<T, D>(Qs, qb, p.s.q[1], q0, Lq, tid);
   load_tile_bwd<T, D>(Os, ob, p.s.d[1], q0, Lq, tid);
-  load_rows_fma(Ls, Ds, p, bh, q0, tid);
+  load_rows_fma<FT>(Ls, Ds, p, bh, q0, tid);
 
   // this thread: row r, columns c0 + TPR j
   const int r = tid / TPR, c0 = tid % TPR;
@@ -749,9 +831,10 @@ flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(fma_threads<D>(), 1)
+__global__ void __launch_bounds__(FmaBwd<D>::THREADS, 1)
 flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
-  constexpr int LD = D + 1, TPR = fma_threads<D>() / FT, NJ = D / TPR;
+  using F = FmaBwd<D>;
+  constexpr int FT = F::FT, LD = F::LD, TPR = F::TPR, NJ = F::NJ;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Os = Qs + FT * LD;
@@ -784,7 +867,7 @@ flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
       __syncthreads();  // the previous pair is consumed
       load_tile_bwd<T, D>(Qs, qb, p.s.q[1], qt * FT, Lq, tid);
       load_tile_bwd<T, D>(Os, ob, p.s.d[1], qt * FT, Lq, tid);
-      load_rows_fma(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
+      load_rows_fma<FT>(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
       __syncthreads();
       p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, qt * FT, k0, p, Ps, Ss, tid);
       __syncthreads();
@@ -844,39 +927,20 @@ Problem problem(const void* q, const void* k, const void* v, const void* dout,
   return p;
 }
 
-// the FMA kernels for (dtype, D): f32 at 64, 128 and 256, bf16 and f16 at
-// 256 (the tensor-core kernels take 16-bit inputs at 64 and 128)
+// the FMA kernels, one CTA per FT-row query tile (dQ) or FT-key tile (dK/dV)
 template <typename T, int D>
-cudaError_t run_dq_fma(const Problem& p, dim3 grid, cudaStream_t st, void* dq) {
-  return run(flash_bwd_dq_fma<T, D>, grid, fma_threads<D>(), fma_smem_bytes<D>(),
-             st, p, static_cast<T*>(dq));
+cudaError_t launch_dq_fma(const Problem& p, int B, void* dq, cudaStream_t st) {
+  using F = FmaBwd<D>;
+  return run(flash_bwd_dq_fma<T, D>, dim3((p.Lq + F::FT - 1) / F::FT, B * p.H),
+             F::THREADS, F::SMEM, st, p, static_cast<T*>(dq));
 }
 
 template <typename T, int D>
-cudaError_t run_dkv_fma(const Problem& p, dim3 grid, cudaStream_t st, void* dk,
-                        void* dv) {
-  return run(flash_bwd_dkv_fma<T, D>, grid, fma_threads<D>(), fma_smem_bytes<D>(),
-             st, p, static_cast<T*>(dk), static_cast<T*>(dv));
-}
-
-cudaError_t launch_dq_fma(const Problem& p, int dtype, int D, dim3 grid,
-                          cudaStream_t st, void* dq) {
-  if (dtype == 0 && D == 64) return run_dq_fma<float, 64>(p, grid, st, dq);
-  if (dtype == 0 && D == 128) return run_dq_fma<float, 128>(p, grid, st, dq);
-  if (dtype == 0 && D == 256) return run_dq_fma<float, 256>(p, grid, st, dq);
-  if (dtype == 1 && D == 256) return run_dq_fma<bf16, 256>(p, grid, st, dq);
-  if (dtype == 2 && D == 256) return run_dq_fma<f16, 256>(p, grid, st, dq);
-  return cudaErrorInvalidValue;
-}
-
-cudaError_t launch_dkv_fma(const Problem& p, int dtype, int D, dim3 grid,
-                           cudaStream_t st, void* dk, void* dv) {
-  if (dtype == 0 && D == 64) return run_dkv_fma<float, 64>(p, grid, st, dk, dv);
-  if (dtype == 0 && D == 128) return run_dkv_fma<float, 128>(p, grid, st, dk, dv);
-  if (dtype == 0 && D == 256) return run_dkv_fma<float, 256>(p, grid, st, dk, dv);
-  if (dtype == 1 && D == 256) return run_dkv_fma<bf16, 256>(p, grid, st, dk, dv);
-  if (dtype == 2 && D == 256) return run_dkv_fma<f16, 256>(p, grid, st, dk, dv);
-  return cudaErrorInvalidValue;
+cudaError_t launch_dkv_fma(const Problem& p, int B, void* dk, void* dv,
+                           cudaStream_t st) {
+  using F = FmaBwd<D>;
+  return run(flash_bwd_dkv_fma<T, D>, dim3((p.Lk + F::FT - 1) / F::FT, B * p.KVH),
+             F::THREADS, F::SMEM, st, p, static_cast<T*>(dk), static_cast<T*>(dv));
 }
 
 }  // namespace
@@ -885,50 +949,76 @@ cudaError_t launch_dkv_fma(const Problem& p, int dtype, int D, dim3 grid,
 // (batch, length, head) of q, k, v, dout in `strides` (12 values) and a
 // contiguous head dim.  lse, delta: contiguous [B, H, Lq] f32.  dq:
 // contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16,
-// 2 = f16.  D: 64, 128 or 256 (the wrapper pads other head dims); bf16
-// and f16 at 256 take the FMA kernels.
-// Returns a cudaError_t (0 = launched).
+// 2 = f16.  D: 64, 128, 256 or 512 (the wrapper pads other head dims);
+// bf16 and f16 take the TMA kernel at 64 and 128, and the FMA kernel at 256
+// and 512, as f32 does at every D.  *route is set to the kernel launched
+// (0 = flash_bwd_dq_tma, 1 = flash_bwd_dq_fma).  Returns a cudaError_t
+// (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, void* dq, int B, int H,
                                 int KVH, int Lq, int Lk, int D, int dtype,
                                 int causal, const int64_t* strides,
-                                float scale, void* stream) {
+                                float scale, void* stream, int* route) {
   if (!valid(B, H, H, KVH, Lq, Lk)) return int(cudaErrorInvalidValue);
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype == 1 || dtype == 2) && D != 256) {
-    if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
-    const auto launch = dtype == 1
-        ? (D == 64 ? launch_dq<bf16, 64> : launch_dq<bf16, 128>)
-        : (D == 64 ? launch_dq<f16, 64> : launch_dq<f16, 128>);
-    return int(launch(p, B, dq, st));
-  }
-  return int(launch_dq_fma(p, dtype, D, dim3((Lq + FT - 1) / FT, B * H), st, dq));
+#define TFS_DQ(LAUNCH, TY, DD, R)             \
+  do {                                        \
+    *route = R;                               \
+    return int(LAUNCH<TY, DD>(p, B, dq, st)); \
+  } while (0)
+  if (dtype == 1 && D == 64) TFS_DQ(launch_dq, bf16, 64, 0);
+  if (dtype == 1 && D == 128) TFS_DQ(launch_dq, bf16, 128, 0);
+  if (dtype == 1 && D == 256) TFS_DQ(launch_dq_fma, bf16, 256, 1);
+  if (dtype == 1 && D == 512) TFS_DQ(launch_dq_fma, bf16, 512, 1);
+  if (dtype == 2 && D == 64) TFS_DQ(launch_dq, f16, 64, 0);
+  if (dtype == 2 && D == 128) TFS_DQ(launch_dq, f16, 128, 0);
+  if (dtype == 2 && D == 256) TFS_DQ(launch_dq_fma, f16, 256, 1);
+  if (dtype == 2 && D == 512) TFS_DQ(launch_dq_fma, f16, 512, 1);
+  if (dtype == 0 && D == 64) TFS_DQ(launch_dq_fma, float, 64, 1);
+  if (dtype == 0 && D == 128) TFS_DQ(launch_dq_fma, float, 128, 1);
+  if (dtype == 0 && D == 256) TFS_DQ(launch_dq_fma, float, 256, 1);
+  if (dtype == 0 && D == 512) TFS_DQ(launch_dq_fma, float, 512, 1);
+#undef TFS_DQ
+  return int(cudaErrorInvalidValue);
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
-// bf16 and f16 take TMA: 16-byte aligned bases and strides.
+// bf16 and f16 take the TMA kernel at 64, 128 and 256 (16-byte aligned
+// bases and strides) and the FMA kernel at 512, as f32 does at every D.
+// *route is set to the kernel launched (0 = flash_bwd_dkv_tma,
+// 1 = flash_bwd_dkv_fma).
 extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dk, void* dv, int B,
                                  int H, int KVH, int Lq, int Lk, int D,
                                  int dtype, int causal, const int64_t* strides,
-                                 float scale, void* stream) {
+                                 float scale, void* stream, int* route) {
   if (!valid(B, KVH, H, KVH, Lq, Lk)) return int(cudaErrorInvalidValue);
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype == 1 || dtype == 2) && D != 256) {
-    if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
-    const auto launch = dtype == 1
-        ? (D == 64 ? launch_dkv<bf16, 64> : launch_dkv<bf16, 128>)
-        : (D == 64 ? launch_dkv<f16, 64> : launch_dkv<f16, 128>);
-    return int(launch(p, B, dk, dv, st));
-  }
-  return int(launch_dkv_fma(p, dtype, D, dim3((Lk + FT - 1) / FT, B * KVH), st,
-                            dk, dv));
+#define TFS_DKV(LAUNCH, TY, DD, R)                \
+  do {                                            \
+    *route = R;                                   \
+    return int(LAUNCH<TY, DD>(p, B, dk, dv, st)); \
+  } while (0)
+  if (dtype == 1 && D == 64) TFS_DKV(launch_dkv, bf16, 64, 0);
+  if (dtype == 1 && D == 128) TFS_DKV(launch_dkv, bf16, 128, 0);
+  if (dtype == 1 && D == 256) TFS_DKV(launch_dkv, bf16, 256, 0);
+  if (dtype == 1 && D == 512) TFS_DKV(launch_dkv_fma, bf16, 512, 1);
+  if (dtype == 2 && D == 64) TFS_DKV(launch_dkv, f16, 64, 0);
+  if (dtype == 2 && D == 128) TFS_DKV(launch_dkv, f16, 128, 0);
+  if (dtype == 2 && D == 256) TFS_DKV(launch_dkv, f16, 256, 0);
+  if (dtype == 2 && D == 512) TFS_DKV(launch_dkv_fma, f16, 512, 1);
+  if (dtype == 0 && D == 64) TFS_DKV(launch_dkv_fma, float, 64, 1);
+  if (dtype == 0 && D == 128) TFS_DKV(launch_dkv_fma, float, 128, 1);
+  if (dtype == 0 && D == 256) TFS_DKV(launch_dkv_fma, float, 256, 1);
+  if (dtype == 0 && D == 512) TFS_DKV(launch_dkv_fma, float, 512, 1);
+#undef TFS_DKV
+  return int(cudaErrorInvalidValue);
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {

@@ -5,7 +5,8 @@
 // the register A fragment of the next product, and an f32 result into its
 // stored output -- and the element conversions of the FMA kernels, which
 // hold every tile in f32 whatever the element type (f32 at any head dim;
-// bf16 and f16 at the head dims above the tensor-core kernels').
+// bf16 and f16 at the head dims above the tensor-core kernels': 512 for
+// all four, 256 for dQ and the ring step).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -94,18 +95,19 @@ __device__ __forceinline__ float4 load4<f16>(const f16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// The forward's and the ring step's FMA tiling at head dim D: 128 threads,
-// a lane pair per query row (half the keys each for the scores, half of D
-// each for P V), Q, K and V tiles in shared memory as f32 with rows of
-// D + 8, the scores (then P) and the output accumulator beside them.  At
-// D = 256 a key tile is 32 keys, so that the tiles fit the 227 KB a block
-// may hold (206 KB), and the P V loop runs 32 output columns a pass, so
-// that its accumulators stay in registers.
+// The forward's and the ring step's FMA tiling at head dim D: a lane pair
+// per query row (half the keys each for the scores, half of D each for
+// P V), Q, K and V tiles in shared memory as f32 with rows of D + 8, the
+// scores (then P) and the output accumulator beside them.  The tiles shrink
+// with D to fit the 227 KB a block may hold: 64 queries x 64 keys up to
+// D = 128, 64 x 32 at D = 256 (206 KB), 32 x 16 at D = 512 (202 KB); above
+// D = 128 the P V loop runs 32 output columns a pass, so that its
+// accumulators stay in registers.
 template <int D>
 struct FmaTiles {
-  static constexpr int BQ = 64;
-  static constexpr int BK = D > 128 ? 32 : 64;
-  static constexpr int THREADS = 128;  // 4 warps x 16 query rows
+  static constexpr int BQ = D > 256 ? 32 : 64;
+  static constexpr int BK = D > 256 ? 16 : D > 128 ? 32 : 64;
+  static constexpr int THREADS = 2 * BQ;  // 16 query rows a warp
   static constexpr int T_LD = D + 8, S_LD = BK + 4, O_LD = D + 4;
   static constexpr int HALF = D / 2, HK = BK / 2;
   static constexpr int PV = D > 128 ? 32 : HALF;

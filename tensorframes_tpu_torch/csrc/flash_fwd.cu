@@ -13,21 +13,27 @@
 // wgmma reaches, and how well the loop keeps the tensor cores fed.
 //
 // What the design does about it (the 16-bit kernel flash_fwd_tma, the main
-// path, one template instantiated for bf16 and f16; the building blocks are
-// in hopper.cuh):
+// path, one template instantiated for bf16 and f16 at Dh = 64, 128 and 256;
+// the building blocks are in hopper.cuh):
 //  * Warp roles.  One CTA owns one (batch*head, query tile).  Warpgroup 0
 //    is the producer: one thread issues the TMA loads, Q once, then 128-key
-//    K and V tiles into a ring of STAGES slots guarded by full and empty
-//    mbarriers.  setmaxnreg moves its registers to the consumer warpgroups
-//    of 64 query rows each: three at Dh = 64 (192-query tiles: a third
-//    fewer K/V reads than 128-query tiles, and a third warpgroup to
-//    overlap; measured faster), two at Dh = 128, whose O accumulator
-//    leaves no registers for a third.
-//  * S = Q K^T is wgmma m64n128k16 with both operands in 128B-swizzled
-//    shared memory (K-major; Dh is the reduction).  O += P V is wgmma
-//    m64nDk16 with P in registers, cast to T straight from the S
-//    accumulator (its layout is the A fragment's), and V read MN-major
-//    through the transpose bit.  No thread loads an operand, so the per-warp
+//    (64 at Dh = 256) K and V tiles into a ring of STAGES slots guarded by
+//    full and empty mbarriers.  setmaxnreg moves its registers to the
+//    consumer warpgroups of 64 query rows each: three at Dh = 64
+//    (192-query tiles: a third fewer K/V reads than 128-query tiles, and a
+//    third warpgroup to overlap; measured faster), two at Dh = 128 and 256,
+//    whose O accumulator leaves no registers for a third.  At Dh = 256 a
+//    consumer needs ~200 registers, above the 168 ptxas allows a thread of
+//    a 384-thread CTA whatever setmaxnreg grants: there the CTA is the two
+//    consumer warpgroups alone (up to 255 registers a thread), and thread 0
+//    refills the ring at the top of each step, once both consumers have
+//    released the slot.
+//  * S = Q K^T is wgmma m64n128k16 (m64n64k16 at Dh = 256) with both
+//    operands in 128B-swizzled shared memory (K-major; Dh is the
+//    reduction).  O += P V is wgmma m64nDk16 (two m64n128k16 at Dh = 256,
+//    one per half of V's columns) with P in registers, cast to T straight
+//    from the S accumulator (its layout is the A fragment's), and V read
+//    MN-major through the transpose bit.  No thread loads an operand, so the per-warp
 //    ldmatrix re-reads of Q, K and V of the earlier mma.sync design (~128 KB
 //    of shared-memory reads per 64-key tile) are gone, and loads overlap the
 //    products with no __syncthreads in the loop.
@@ -40,9 +46,10 @@
 //    carries between them.  m, l and O stay in registers.
 //  * Causal: the tile loop ends at the diagonal, only tiles that cross it
 //    (or the end of the keys) are masked, and the heavier (later) query
-//    tiles of a head launch first.  With three consumers, a consumer
-//    releases without compute the trailing tiles wholly above its 64 rows
-//    (and every tile when its rows are past the end).  The tiles of one
+//    tiles of a head launch first.  Where a query tile is taller than a
+//    key tile (Dh = 64 and 256), a consumer releases without compute the
+//    trailing tiles wholly above its 64 rows (and every tile when its rows
+//    are past the end).  The tiles of one
 //    head are neighbours in the launch order, so the CTAs in flight share
 //    a few heads' K and V in L2 (ordered the other way, by head first,
 //    every tile came from device memory and the kernel was bound by it).
@@ -51,9 +58,12 @@
 //  * GQA: query head h reads kv head h / (H / KVH), flash.py:_kv_head_map.
 //  * Dh = 128 is two 64-column boxes per tile, and the ring has 2 stages
 //    (Q 32 KB + 2 x 64 KB of shared memory); Dh = 64 has 4 (24 + 4 x 32 KB).
-//    Other head dims (1..128) reach the kernel zero-padded to the next of
-//    the two by the wrapper (parallel/flash.py): zero columns of Q and K
-//    leave Q K^T as it is, zero columns of V give zero output columns.
+//    Dh = 256 is four boxes: the K and V tiles are 64 keys (32 KB each),
+//    two stages beside a 128-row Q tile (64 KB + 2 x 64 KB), and the
+//    consumers hold O as 128 f32 registers a thread beside S's 32.  Other head dims (1..256) reach the kernel
+//    zero-padded to the next of the three by the wrapper
+//    (parallel/flash.py): zero columns of Q and K leave Q K^T as it is, zero
+//    columns of V give zero output columns.
 // Numerics kept from the TPU kernel: P is cast to v's dtype before PV
 // (flash.py:107-108), l sums the f32 p, the running max is -inf-safe
 // (m_safe, alpha: flash.py:101-105), the causal mask is top-left (q >= k)
@@ -64,12 +74,10 @@
 // consumers' products with named barriers (FA3's ping-pong).  What bounds
 // the kernel now is each tile's chain of S, softmax and P V (PERF.md).
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
-// reference keeps), and so do bf16 and f16 at Dh = 256 (head dims 129..256,
+// reference keeps), and so do bf16 and f16 at Dh = 512 (head dims 257..512,
 // padded): one template on the element type, tiles widened to f32 in shared
-// memory, P rounded to the element type before P V as above.  A wgmma design
-// at that width would hold a 64 x 256 f32 O accumulator (128 registers a
-// thread) beside S; no JAX config uses Dh > 128, so the simple kernel stands
-// (PERF.md).  Both are off the main path.
+// memory, P rounded to the element type before P V as above.  Both are off
+// the main path.
 
 #include <cuda_runtime.h>
 
@@ -88,19 +96,27 @@ using namespace tfs_hopper;
 // bf16 and f16: warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int BK = 128;  // keys per tile
-
 template <int D>
 struct Fwd {
   // consumer warpgroups of 64 query rows each: three at Dh = 64 (a third
   // fewer K/V reads per query and one more warpgroup to overlap), two at
-  // Dh = 128, whose O accumulator leaves no registers for a third
+  // Dh = 128 and 256, whose O accumulator leaves no registers for a third
   static constexpr int CONSUMERS = D == 64 ? 3 : 2;
   static constexpr int BQ = 64 * CONSUMERS;  // query rows per CTA
-  static constexpr int THREADS = 128 * (1 + CONSUMERS);
-  // the registers the CTA starts with, moved from the producer to the
-  // consumers: 128 x 24 + 384 x 160 = 64512 = 512 x 126;
-  // 128 x 40 + 256 x 232 = 64512 = 384 x 168
+  // keys per K/V tile: 128, and 64 at Dh = 256, where a 128-key K or V
+  // tile is 64 KB and beside the 64 KB Q tile not even two stages of them
+  // would fit; the S accumulator is then 32 registers beside O's 128
+  static constexpr int BK = D == 256 ? 64 : 128;
+  // The producer: a warpgroup before the consumers, whose registers
+  // setmaxnreg moves to them (128 x 24 + 384 x 160 = 64512 = 512 x 126;
+  // 128 x 40 + 256 x 232 = 64512 = 384 x 168).  ptxas allocates a thread
+  // no more than its sub-partition's share, 16384 registers over the most
+  // warps one of the SM's four holds (128 at 512 threads, 168 at 384),
+  // whatever setmaxnreg grants; at Dh = 256 a consumer needs ~200 (O alone is 128).  There the
+  // CTA is the two consumer warpgroups alone (two warps a sub-partition:
+  // up to 255 registers a thread), and warp 0 refills the ring inline.
+  static constexpr bool INLINE_PRODUCER = D == 256;
+  static constexpr int THREADS = 128 * (CONSUMERS + (INLINE_PRODUCER ? 0 : 1));
   static constexpr int PRODUCER_REGS = CONSUMERS == 3 ? 24 : 40;
   static constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : 232;
   static constexpr int Q_BOX = BQ * 128;  // one 64-column box of the Q tile
@@ -108,16 +124,27 @@ struct Fwd {
   static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
   static constexpr int TILE = (D / BOX_COLS) * BOX;  // one K or V tile
   static constexpr int STAGES = D == 64 ? 4 : 2;
+  // O += P V as wgmma products of at most 128 output columns (m64n128k16):
+  // one at Dh = 64 and 128, two (the first and last two V boxes) at 256
+  static constexpr int PV_N = D > 128 ? 128 : D;
+  static constexpr int PV_PARTS = D / PV_N;
+  // a key tile can lie wholly above a consumer's 64 rows only when the
+  // query tile is taller than a key tile: then the consumer releases it
+  // without compute (at Dh = 128 the test alone slowed the kernel by ~4%)
+  static constexpr bool RELEASE = BQ > BK;
   // Q; K full, V full and empty per slot
   static constexpr int BARRIERS = 1 + 3 * STAGES;
   static constexpr size_t SMEM = size_t(Q_TILE) + size_t(TILE) * 2 * STAGES +
                                  8 * BARRIERS + ATOM_BYTES;
+  static_assert(SMEM <= 232448, "forward tiles exceed a block's shared memory");
 };
 
 // flash_ring.cu::ring_step_tma holds a second copy of this loop (the
-// same roles, ring, barrier phases, masks and early tile release), kept
-// apart because one shared loop made this kernel 2-4% slower (PERF.md).
-// A fix to any of those here is made there too, and the other way round.
+// same roles, ring, barrier phases, masks and early tile release) at
+// Dh = 64 and 128, kept apart because one shared loop made this kernel
+// 2-4% slower (PERF.md).  A fix to any of those here is made there too, and
+// the other way round.  Only this copy is built at Dh = 256 (64-key tiles,
+// O in two 128-column products): the ring step takes its FMA kernel there.
 // The copies differ on purpose only in the prologue and epilogue (carry in
 // and out there; 1/l and lse here), the global offsets of the mask, and
 // alpha, which there is exactly 1 while the max holds.
@@ -129,7 +156,7 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
               T* __restrict__ out, float* __restrict__ lse, int H, int KVH,
               int Lq, int Lk, int causal, float scale) {
   using F = Fwd<D>;
-  constexpr int S = F::STAGES;
+  constexpr int S = F::STAGES, BK = F::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const Qs = atom_aligned(smem_raw);
   unsigned char* const ring = Qs + F::Q_TILE;  // slot s: K tile, then V tile
@@ -158,41 +185,60 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
+  // the loads: Q once, and key tile t into slot t % S
+  auto load_q = [&] {
+    mbar_arrive_expect_tx(q_full, F::Q_TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x)
+      tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+  };
+  auto load_kv = [&](int t) {
+    const int s = t % S;
+    unsigned char* const Kt = ring + 2 * s * F::TILE;
+    mbar_arrive_expect_tx(k_full + s, F::TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x)
+      tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
+    mbar_arrive_expect_tx(v_full + s, F::TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x)
+      tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS, kvh,
+               t * BK, b);
+  };
+
+  if (!F::INLINE_PRODUCER && threadIdx.x < 128) {
     // the producer: one thread keeps the ring full
     regs_dec<F::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_full, F::Q_TILE);
-      for (int x = 0; x < D / BOX_COLS; ++x)
-        tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+      load_q();
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % S;
-        if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);  // its last use is done
-        unsigned char* const Kt = ring + 2 * s * F::TILE;
-        mbar_arrive_expect_tx(k_full + s, F::TILE);
-        for (int x = 0; x < D / BOX_COLS; ++x)
-          tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
-        mbar_arrive_expect_tx(v_full + s, F::TILE);
-        for (int x = 0; x < D / BOX_COLS; ++x)
-          tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS,
-                   kvh, t * BK, b);
+        if (t >= S) mbar_wait(empty + t % S, (t / S - 1) & 1);  // its last use is done
+        load_kv(t);
       }
     }
   } else {
     // a consumer: 64 query rows, 16 per warp
-    regs_inc<F::CONSUMER_REGS>();
-    constexpr int NT = BK / 8;  // 8-key column blocks of S
-    constexpr int DT = D / 8;   // 8-wide column blocks of O
-    const int c = threadIdx.x / 128 - 1;
+    if constexpr (F::INLINE_PRODUCER) {
+      // thread 0 fills the ring's first S slots, and refills slot (t - 1) % S
+      // with tile t - 1 + S at the top of step t (below)
+      if (threadIdx.x == 0) {
+        load_q();
+        for (int t = 0; t < min(S, n_tiles); ++t) load_kv(t);
+      }
+    } else {
+      regs_inc<F::CONSUMER_REGS>();
+    }
+    constexpr int NT = BK / 8;          // 8-key column blocks of S
+    constexpr int PT = F::PV_N / 8;     // 8-wide column blocks of one O part
+    const int c = threadIdx.x / 128 - (F::INLINE_PRODUCER ? 0 : 1);
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
     const int wg0 = q0 + 64 * c;             // this warpgroup's first row
     const int wq0 = wg0 + 16 * w;            // this warp's first row
     const int row_a = wq0 + g, row_b = row_a + 8;  // this thread's two rows
     const float sl2 = scale * LOG2E;
-    float o[DT * 4];
+    float o[F::PV_PARTS][PT * 4];
 #pragma unroll
-    for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+    for (int p = 0; p < F::PV_PARTS; ++p)
+#pragma unroll
+      for (int i = 0; i < PT * 4; ++i) o[p][i] = 0.f;
     // the running max of the raw scores (times scale: the softmax's max)
     // and the denominator of this thread's two rows
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
@@ -201,6 +247,15 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(q_full, 0);
 
     for (int t = 0; t < n_tiles; ++t) {
+      if constexpr (F::INLINE_PRODUCER) {
+        // every warp is done with tile t - 1 once its slot's empty phase
+        // completes (this warp is, being here)
+        if (threadIdx.x == 0 && t >= 1 && t - 1 + S < n_tiles) {
+          mbar_wait(empty + (t - 1) % S, ((t - 1) / S) & 1);
+          load_kv(t - 1 + S);
+        }
+        __syncwarp();
+      }
       const int s = t % S;
       const uint32_t ph = (t / S) & 1;
       const int k0 = t * BK;
@@ -209,9 +264,7 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
       // rows past the end, or a tile wholly above this warpgroup's rows
       // (the trailing tiles of its loop), add nothing: release the slot.
       // After the K wait, so the arrival counts for this use of the slot.
-      // Three consumers only: with two (128-query tiles) no key tile lies
-      // wholly above a consumer's rows, and the test slowed Dh = 128 by ~4%.
-      if (F::CONSUMERS == 3 && (wg0 >= Lq || (causal && k0 > wg0 + 63))) {
+      if (F::RELEASE && (wg0 >= Lq || (causal && k0 > wg0 + 63))) {
         if (lane == 0) mbar_arrive(empty + s);
         continue;
       }
@@ -245,7 +298,7 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
         mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
-      // a row's 128 scores are spread over the 4 lanes of its quad
+      // a row's scores are spread over the 4 lanes of its quad
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
@@ -277,12 +330,14 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        o[4 * j] *= al_a;
-        o[4 * j + 1] *= al_a;
-        o[4 * j + 2] *= al_b;
-        o[4 * j + 3] *= al_b;
-      }
+      for (int p = 0; p < F::PV_PARTS; ++p)
+#pragma unroll
+        for (int j = 0; j < PT; ++j) {
+          o[p][4 * j] *= al_a;
+          o[p][4 * j + 1] *= al_a;
+          o[p][4 * j + 2] *= al_b;
+          o[p][4 * j + 3] *= al_b;
+        }
       // p cast to T (v's dtype, flash.py:107-108): the A fragments of
       // the 16-key slices, straight from the score registers
       uint32_t pa[BK / 16][4];
@@ -292,16 +347,21 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
         for (int r = 0; r < 4; ++r)
           pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-      // O += P V, V MN-major: 16 keys (2048 bytes) per slice
+      // O += P V, V MN-major: 16 keys (2048 bytes) per slice; part p of O
+      // reads the V boxes of its PV_N columns
       mbar_wait(v_full + s, ph);
       const uint64_t v_desc = sw128_desc(Kt + F::TILE, F::BOX, ATOM_BYTES);
       wgmma_fence();  // o was rescaled and pa written by ordinary instructions
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<T>(o, pa[kk], desc_at(v_desc, kk * 16 * 128));
+#pragma unroll
+        for (int p = 0; p < F::PV_PARTS; ++p)
+          wgmma_rs<T>(o[p], pa[kk],
+                      desc_at(v_desc, p * (F::PV_N / BOX_COLS) * F::BOX + kk * 16 * 128));
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int p = 0; p < F::PV_PARTS; ++p) fence_regs(o[p]);
       if (lane == 0) mbar_arrive(empty + s);  // this warp is done with the slot
     }
 
@@ -309,15 +369,17 @@ flash_fwd_tma(const __grid_constant__ CUtensorMap q_map,
     const float den_a = l_a == 0.f ? 1.f : l_a;
     const float den_b = l_b == 0.f ? 1.f : l_b;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = j * 8 + 2 * t4;
-      if (row_a < Lq)
-        *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
-            pack2<T>(o[4 * j] / den_a, o[4 * j + 1] / den_a);
-      if (row_b < Lq)
-        *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
-            pack2<T>(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
-    }
+    for (int p = 0; p < F::PV_PARTS; ++p)
+#pragma unroll
+      for (int j = 0; j < PT; ++j) {
+        const int col = p * F::PV_N + j * 8 + 2 * t4;
+        if (row_a < Lq)
+          *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
+              pack2<T>(o[p][4 * j] / den_a, o[p][4 * j + 1] / den_a);
+        if (row_b < Lq)
+          *reinterpret_cast<uint32_t*>(out + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
+              pack2<T>(o[p][4 * j + 2] / den_b, o[p][4 * j + 3] / den_b);
+      }
     if (t4 == 0) {
       if (row_a < Lq) lse[int64_t(bh) * Lq + row_a] = m_a * scale + logf(den_a);
       if (row_b < Lq) lse[int64_t(bh) * Lq + row_b] = m_b * scale + logf(den_b);
@@ -334,9 +396,9 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* out,
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = make_tile_map<T>(&q_map, q, B, Lq, H, D, s[0], s[1], s[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], BK);
+    err = make_tile_map<T>(&k_map, k, B, Lk, KVH, D, s[3], s[4], s[5], F::BK);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], BK);
+    err = make_tile_map<T>(&v_map, v, B, Lk, KVH, D, s[6], s[7], s[8], F::BK);
   if (err != cudaSuccess) return err;
   const size_t bytes = F::SMEM;
   err = cudaFuncSetAttribute(flash_fwd_tma<T, D>,
@@ -350,7 +412,7 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 256 (two lanes
+// FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 512 (two lanes
 // per query row, tiles in shared memory as f32; FmaTiles in
 // flash_common.cuh)
 // ---------------------------------------------------------------------------
@@ -489,38 +551,43 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
 // q: [B, Lq, H, D], k/v: [B, Lk, KVH, D] with element strides
 // (batch, length, head) each and a contiguous head dim; out: contiguous
 // [B, Lq, H, D] in the input dtype; lse: contiguous [B, H, Lq] f32.
-// dtype: 0 = f32, 1 = bf16, 2 = f16 (the 16-bit types take TMA: 16-byte
-// aligned bases and strides, Lk > 0).  D: 64, 128 or 256 (the wrapper pads
-// other head dims); bf16 and f16 at 256 take the FMA kernel.  Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = f32, 1 = bf16, 2 = f16 (the 16-bit types take TMA up to
+// D = 256: 16-byte aligned bases and strides, Lk > 0).  D: 64, 128, 256 or
+// 512 (the wrapper pads other head dims); bf16 and f16 at 512, and f32 at
+// every D, take the FMA kernel.  *route is set to the kernel launched
+// (0 = flash_fwd_tma, 1 = flash_fwd_fma).  Returns a cudaError_t
+// (0 = launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,
                              int64_t q_sb, int64_t q_sl, int64_t q_sh,
                              int64_t k_sb, int64_t k_sl, int64_t k_sh,
                              int64_t v_sb, int64_t v_sl, int64_t v_sh,
-                             float scale, void* stream) {
+                             float scale, void* stream, int* route) {
   if (B * H > 65535 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk < 0)
     return int(cudaErrorInvalidValue);
   const int64_t s[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype == 1 || dtype == 2) && D == 256) {
-    const auto launch = dtype == 1 ? launch_fma<bf16, 256> : launch_fma<f16, 256>;
-    return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
-  }
+#define TFS_FWD(LAUNCH, TY, DD, R) \
+  return *route = R,               \
+         int(LAUNCH<TY, DD>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st))
   if (dtype == 1 || dtype == 2) {
-    if (Lk == 0 || (D != 64 && D != 128)) return int(cudaErrorInvalidValue);
-    const auto launch = dtype == 1
-        ? (D == 64 ? launch_tma<bf16, 64> : launch_tma<bf16, 128>)
-        : (D == 64 ? launch_tma<f16, 64> : launch_tma<f16, 128>);
-    return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+    if (Lk == 0) return int(cudaErrorInvalidValue);
+    if (dtype == 1 && D == 64) TFS_FWD(launch_tma, bf16, 64, 0);
+    if (dtype == 1 && D == 128) TFS_FWD(launch_tma, bf16, 128, 0);
+    if (dtype == 1 && D == 256) TFS_FWD(launch_tma, bf16, 256, 0);
+    if (dtype == 1 && D == 512) TFS_FWD(launch_fma, bf16, 512, 1);
+    if (dtype == 2 && D == 64) TFS_FWD(launch_tma, f16, 64, 0);
+    if (dtype == 2 && D == 128) TFS_FWD(launch_tma, f16, 128, 0);
+    if (dtype == 2 && D == 256) TFS_FWD(launch_tma, f16, 256, 0);
+    if (dtype == 2 && D == 512) TFS_FWD(launch_fma, f16, 512, 1);
   }
-  if (dtype != 0 || (D != 64 && D != 128 && D != 256))
-    return int(cudaErrorInvalidValue);
-  const auto launch = D == 64    ? launch_fma<float, 64>
-                      : D == 128 ? launch_fma<float, 128>
-                                 : launch_fma<float, 256>;
-  return int(launch(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st));
+  if (dtype == 0 && D == 64) TFS_FWD(launch_fma, float, 64, 1);
+  if (dtype == 0 && D == 128) TFS_FWD(launch_fma, float, 128, 1);
+  if (dtype == 0 && D == 256) TFS_FWD(launch_fma, float, 256, 1);
+  if (dtype == 0 && D == 512) TFS_FWD(launch_fma, float, 512, 1);
+#undef TFS_FWD
+  return int(cudaErrorInvalidValue);
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {

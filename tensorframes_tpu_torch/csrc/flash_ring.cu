@@ -62,15 +62,16 @@
 //    the masks cover keys >= Lk, and rows >= Lq are neither loaded nor
 //    stored.  GQA: query head h reads kv head h / (H / KVH).
 //  * The forward keeps its own copy of this loop: built from one shared
-//    loop, the forward measured 2-4% slower (PERF.md).
+//    loop, the forward measured 2-4% slower (PERF.md).  Both copies cover
+//    Dh = 64 and 128; the forward's alone is built at 256 too.
 // Numerics kept from the TPU kernel: P is cast to v's dtype before PV
 // (flash.py:271-273), l sums the f32 p, and the running max is -inf-safe
 // (flash.py:265-268), so a row that has seen no key adds zeros, never NaN.
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
-// reference keeps), and so do bf16 and f16 at Dh = 256 (head dims 129..256,
-// padded, the carried o with them): one template on the element type, P
-// rounded to it before P V as above, the carry f32.  Both are off the main
-// path.
+// reference keeps), and so do bf16 and f16 at Dh = 256 and 512 (head dims
+// 129..512, padded, the carried o with them): one template on the element
+// type, P rounded to it before P V as above, the carry f32.  Both are off
+// the main path.
 
 #include <cuda_runtime.h>
 
@@ -404,7 +405,7 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 256 (two lanes
+// FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 256 and 512 (two lanes
 // per query row, tiles in shared memory as f32; FmaTiles in
 // flash_common.cuh)
 // ---------------------------------------------------------------------------
@@ -564,10 +565,11 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 // length, head) each and a contiguous head dim; the carry in and out:
 // contiguous o [B, Lq, H, D] f32 and m, l [B, H, Lq] f32 (out must not alias
 // in).  q_off/k_off: the chunks' global positions.  dtype: 0 = f32,
-// 1 = bf16, 2 = f16 (the 16-bit types take TMA: 16-byte aligned bases and
-// strides).  D: 64, 128 or 256 (the wrapper pads other head dims); bf16
-// and f16 at 256 take the FMA kernel.  Returns a
-// cudaError_t (0 = launched).
+// 1 = bf16, 2 = f16 (the 16-bit types take TMA at D = 64 and 128: 16-byte
+// aligned bases and strides).  D: 64, 128, 256 or 512 (the wrapper pads
+// other head dims); bf16 and f16 at 256 and 512, and f32 at every D, take
+// the FMA kernel.  *route is set to the kernel launched (0 = ring_step_tma,
+// 1 = ring_step_fma).  Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
                                    const float* o_in, const float* m_in,
                                    const float* l_in, float* o_out,
@@ -575,28 +577,37 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
                                    int KVH, int Lq, int Lk, int D, int dtype,
                                    int causal, int q_off, int k_off,
                                    const int64_t* strides, float scale,
-                                   void* stream) {
+                                   void* stream, int* route) {
   if (B * H > 65535 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk < 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Carry carry{o_in, m_in, l_in, o_out, m_out, l_out};
-  if ((dtype == 1 || dtype == 2) && D != 256) {
-    if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
-    const auto launch = dtype == 1
-        ? (D == 64 ? launch_tma<bf16, 64> : launch_tma<bf16, 128>)
-        : (D == 64 ? launch_tma<f16, 64> : launch_tma<f16, 128>);
-    return int(launch(q, k, v, carry, B, H, KVH, Lq, Lk, causal, q_off, k_off,
-                      strides, scale, st));
-  }
-#define TFS_RING_FMA(T, DD)                                                   \
-  return int(launch_fma<T, DD>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, \
-                               B, H, KVH, Lq, Lk, q_off, k_off, causal,        \
-                               strides, scale, st))
+#define TFS_RING_TMA(T, DD)                                                    \
+  do {                                                                         \
+    *route = 0;                                                                \
+    return int(launch_tma<T, DD>(q, k, v, carry, B, H, KVH, Lq, Lk, causal,    \
+                                 q_off, k_off, strides, scale, st));           \
+  } while (0)
+#define TFS_RING_FMA(T, DD)                                                     \
+  do {                                                                          \
+    *route = 1;                                                                 \
+    return int(launch_fma<T, DD>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, \
+                                 B, H, KVH, Lq, Lk, q_off, k_off, causal,        \
+                                 strides, scale, st));                           \
+  } while (0)
+  if (dtype == 1 && D == 64) TFS_RING_TMA(bf16, 64);
+  if (dtype == 1 && D == 128) TFS_RING_TMA(bf16, 128);
+  if (dtype == 1 && D == 256) TFS_RING_FMA(bf16, 256);
+  if (dtype == 1 && D == 512) TFS_RING_FMA(bf16, 512);
+  if (dtype == 2 && D == 64) TFS_RING_TMA(f16, 64);
+  if (dtype == 2 && D == 128) TFS_RING_TMA(f16, 128);
+  if (dtype == 2 && D == 256) TFS_RING_FMA(f16, 256);
+  if (dtype == 2 && D == 512) TFS_RING_FMA(f16, 512);
   if (dtype == 0 && D == 64) TFS_RING_FMA(float, 64);
   if (dtype == 0 && D == 128) TFS_RING_FMA(float, 128);
   if (dtype == 0 && D == 256) TFS_RING_FMA(float, 256);
-  if (dtype == 1 && D == 256) TFS_RING_FMA(bf16, 256);
-  if (dtype == 2 && D == 256) TFS_RING_FMA(f16, 256);
+  if (dtype == 0 && D == 512) TFS_RING_FMA(float, 512);
+#undef TFS_RING_TMA
 #undef TFS_RING_FMA
   return int(cudaErrorInvalidValue);
 }

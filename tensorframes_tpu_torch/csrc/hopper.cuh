@@ -21,10 +21,10 @@
 //    (128 bytes: one 128B swizzle atom wide) x rows.  In shared memory a box
 //    is rows x 128 bytes, 8-row groups of 1024 bytes, the 16-byte chunks of
 //    row r XOR-swizzled by r % 8 (CU_TENSOR_MAP_SWIZZLE_128B).  A Dh of 128
-//    is two boxes, the second `rows * 128` bytes after the first.  Every box
-//    starts 1024-byte aligned, so the descriptor's base offset is 0.  Other
-//    head dims are zero-padded to 64 or 128 by the wrapper
-//    (parallel/flash.py), so every box is full width.
+//    is two boxes, the second `rows * 128` bytes after the first, and a Dh
+//    of 256 four.  Every box starts 1024-byte aligned, so the descriptor's
+//    base offset is 0.  Other head dims are zero-padded to 64, 128 or 256 by
+//    the wrapper (parallel/flash.py), so every box is full width.
 //  * K-major operand (the reduction runs along the 128-byte row: Q and K in
 //    Q K^T, K and Q in K Q^T): descriptor SBO = 1024 (next 8 rows), LBO
 //    unused; the k-th 16-wide slice of the reduction starts 32 * (k % 4)
@@ -33,7 +33,8 @@
 //    dS K, dO and Q in P^T dO and dS^T Q), read through the transpose bit:
 //    SBO = 1024 (the next 8 rows of the reduction), LBO = the bytes between
 //    the 64-column boxes of the output width; the k-th 16-row slice starts
-//    2048 * k bytes in.
+//    2048 * k bytes in.  An output 256 columns wide is two m64n128
+//    products, the second's descriptor two boxes on.
 //  * A wgmma accumulator m64nN (f32) gives thread lane = 4 g + t4 of warp w
 //    in its warpgroup rows 16 w + g (d[4j], d[4j+1]) and 16 w + g + 8
 //    (d[4j+2], d[4j+3]) at columns 8 j + 2 t4 (+1): mma.sync's m16n8 layout,
@@ -386,7 +387,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // A producer warpgroup gives registers up and the consumer warpgroups take
 // them; every warp of a warpgroup executes it, and the roles must be one
 // if/else at the top of the kernel that never reconverges (or ptxas ignores
-// it, warning C7508).
+// it, warning C7508).  ptxas (CUDA 12.8) still allocates a thread no more
+// than its sub-partition's share under the launch bound -- 16384 registers
+// over the most warps one of the SM's four holds, 168 at 384 threads --
+// whatever setmaxnreg grants, so a kernel that needs more (the Dh = 256
+// forward and dK/dV, ~200) runs 8 warps and no producer warpgroup.
 template <int R>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));

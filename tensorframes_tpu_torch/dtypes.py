@@ -129,10 +129,18 @@ def from_numpy(dtype) -> ScalarType:
     return st
 
 
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+
 def from_torch(dtype: torch.dtype) -> ScalarType:
-    """Lookup by torch dtype (device column storage)."""
+    """Lookup by torch dtype (device column storage).  The unsigned types
+    wider than uint8 (a uint64 ``Sum``, say) take the schema type that
+    :func:`from_numpy` gives their numpy dtypes, as the JAX package's
+    columns of them do."""
     st = _BY_TORCH.get(dtype)
     if st is None:
+        if dtype in _WIDE_UNSIGNED:
+            return int64 if dtype.itemsize >= 4 else int32
         raise DTypeError(f"unsupported torch dtype {dtype}")
     return st
 

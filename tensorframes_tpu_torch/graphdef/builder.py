@@ -15,8 +15,6 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Union
 
-import numpy as np
-
 from .. import dtypes as dt
 from ..shape import Shape
 from .proto import AttrValue, GraphDef, NodeDef, TensorProto
@@ -52,7 +50,10 @@ class GraphBuilder:
         return self._add("Placeholder", name, (), attrs)
 
     def const(self, name: str, value) -> str:
-        tp = TensorProto.from_numpy(np.asarray(value))
+        """A Const node of ``value``: anything numpy takes, or a
+        ``torch.bfloat16`` tensor (its bit patterns, as JAX's builder
+        writes a bfloat16 array)."""
+        tp = TensorProto.from_numpy(value)
         return self._add(
             "Const",
             name,

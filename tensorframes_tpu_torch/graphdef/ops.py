@@ -744,6 +744,25 @@ def _prod(x, axis, keepdims):
     return x
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _unsigned_in_uint64(fn):
+    """``fn`` (an integer sum or product) with an unsigned input giving
+    uint64, as ``jnp.sum`` and ``jnp.prod`` do under x64.  torch has no
+    uint64 sum or product on the CPU, so the input is taken as int64 (a
+    uint64 one by its bits), reduced there -- the two's-complement wrap of
+    a sum or product is its value modulo 2^64, exactly as in uint64 -- and
+    the result's bits read back as uint64."""
+    def go(x, axis, keepdims):
+        if x.dtype not in _UNSIGNED:
+            return fn(x, axis, keepdims)
+        x = x.view(torch.int64) if x.dtype == torch.uint64 else x.to(torch.int64)
+        return fn(x, axis, keepdims).view(torch.uint64)
+
+    return go
+
+
 def _reduction(fn):
     def go(ins, attrs):
         x, axes = ins
@@ -970,11 +989,11 @@ REGISTRY: Dict[str, Callable[[List[Any], Dict], Any]] = {
     "FusedBatchNormV2": _fused_batch_norm,
     "FusedBatchNormV3": _fused_batch_norm,
     # reductions (reduction indices arrive as const inputs)
-    "Sum": _reduction(lambda x, a, k: torch.sum(x, dim=a, keepdim=k)),
+    "Sum": _reduction(_unsigned_in_uint64(lambda x, a, k: torch.sum(x, dim=a, keepdim=k))),
     "Mean": _reduction(_mean),
     "Min": _reduction(lambda x, a, k: torch.amin(x, dim=a, keepdim=k)),
     "Max": _reduction(lambda x, a, k: torch.amax(x, dim=a, keepdim=k)),
-    "Prod": _reduction(_prod),
+    "Prod": _reduction(_unsigned_in_uint64(_prod)),
     "All": _reduction(lambda x, a, k: torch.all(x.to(torch.bool), dim=a, keepdim=k)),
     "Any": _reduction(lambda x, a, k: torch.any(x.to(torch.bool), dim=a, keepdim=k)),
     "ArgMax": _arg(torch.argmax, "ArgMax"),

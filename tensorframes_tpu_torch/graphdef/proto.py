@@ -2,7 +2,8 @@
 
 A copy of ``tensorframes_tpu/graphdef/proto.py``, kept in the port so that it
 never imports the JAX package; bfloat16 tensors, which numpy cannot hold
-here, decode to a CPU ``torch.bfloat16`` tensor.
+here, decode to a CPU ``torch.bfloat16`` tensor, and such a tensor encodes
+to the bit patterns the JAX package writes through ml_dtypes.
 
 Schema-directed decode/encode over the ``wire`` codec, covering the subset of
 the public TF wire format the framework interchanges (field numbers are fixed
@@ -153,7 +154,12 @@ class TensorProto:
         return TensorProto(dtype, shape, arr)
 
     @staticmethod
-    def from_numpy(arr: np.ndarray) -> "TensorProto":
+    def from_numpy(arr) -> "TensorProto":
+        """A TensorProto of a numpy value, or of a ``torch.bfloat16`` tensor
+        (held as a CPU tensor: numpy has no bfloat16 here)."""
+        if _is_bf16(arr):
+            return TensorProto(dt.TF_BFLOAT16, Shape(tuple(arr.shape)),
+                               arr.detach().cpu())
         arr = np.asarray(arr)
         st = dt.from_numpy(arr.dtype)
         return TensorProto(st.tf_enum, Shape(arr.shape), arr)
@@ -162,6 +168,11 @@ class TensorProto:
         out = bytearray()
         wire.write_varint_field(out, 1, self.dtype)
         wire.write_len_field(out, 2, encode_shape(self.shape))
+        if self.dtype == dt.TF_BFLOAT16:
+            # tensor_content: the raw little-endian bit patterns, as the JAX
+            # package's ml_dtypes array writes them
+            wire.write_len_field(out, 4, _bf16_bits(self.value))
+            return bytes(out)
         arr = np.asarray(self.value)
         if self.dtype == dt.TF_STRING:
             for s in arr.reshape(-1):
@@ -178,6 +189,20 @@ class TensorProto:
                 arr.astype(st.np_dtype.newbyteorder("<"), copy=False).tobytes(),
             )
         return bytes(out)
+
+
+def _is_bf16(value) -> bool:
+    import torch
+
+    return isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16
+
+
+def _bf16_bits(value) -> bytes:
+    """A ``torch.bfloat16`` tensor's 16-bit patterns, little-endian."""
+    import torch
+
+    bits = value.detach().cpu().contiguous().view(torch.int16).numpy()
+    return bits.astype("<i2", copy=False).tobytes()
 
 
 def _bf16_tensor(dtype, shape, content, typed) -> "TensorProto":

@@ -171,9 +171,11 @@ def complete_for_tf(graph: GraphDef) -> GraphDef:
             if op == "Const":
                 val = attrs.get("value")
                 if val is not None and val.kind == "tensor":
+                    value = val.value.value
                     try:
                         const_elems[node.name] = int(
-                            np.asarray(val.value.value).size
+                            value.numel() if hasattr(value, "numel")
+                            else np.asarray(value).size
                         )
                     except Exception:
                         pass

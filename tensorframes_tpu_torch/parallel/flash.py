@@ -28,11 +28,13 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
   the C side encodes (``csrc/hopper.cuh``); :func:`tma_tile_map` is the
   same arithmetic in Python, and :func:`check_kernel_inputs` raises before
   a launch for what a descriptor refuses.
-* Every kernel is built for head dims 64, 128 and 256 (at 256, and for
-  f32 inputs, as an FMA kernel on tiles widened to f32).  Any head dim
-  from 1 to 256 runs: the wrappers zero-pad it to the next of the three
-  and slice the results back (:func:`kernel_head_dim`), keeping
-  ``1/sqrt(Dh)`` of the true dim as the scale.  A head dim above 256
+* Every kernel is built for head dims 64, 128, 256 and 512.  The 16-bit
+  inputs take the TMA + ``wgmma`` kernels at 64 and 128, and the forward
+  and dK/dV at 256 too; the rest (f32 at every width, dQ and the ring step
+  at 256, all four at 512) are FMA kernels on tiles widened to f32.  Any
+  head dim from 1 to 512 runs: the wrappers zero-pad it to the next built
+  width and slice the results back (:func:`kernel_head_dim`), keeping
+  ``1/sqrt(Dh)`` of the true dim as the scale.  A head dim above 512
   raises.
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
@@ -52,7 +54,7 @@ launch ``csrc/flash_ring.cu``; CPU and meta tensors take
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -66,11 +68,24 @@ launches = 0
 launches_dq = 0
 launches_dkv = 0
 launches_ring = 0
+# the same launches by the instantiation the C entry point reports it ran,
+# e.g. "flash_fwd_tma<bf16,256>" or "flash_bwd_dq_fma<f32,512>"
+kernel_launches: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     global launches, launches_dq, launches_dkv, launches_ring
     launches = launches_dq = launches_dkv = launches_ring = 0
+    kernel_launches.clear()
+
+
+_ROUTES = ("tma", "fma")  # the C entry points' *route: 0 and 1
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _count(kernel: str, route: ctypes.c_int, dtype: torch.dtype, width: int) -> None:
+    name = f"{kernel}_{_ROUTES[route.value]}<{_DTYPE_NAMES[dtype]},{width}>"
+    kernel_launches[name] = kernel_launches.get(name, 0) + 1
 
 
 def _blocking(Lq, Lk, block_q, block_k):
@@ -338,7 +353,8 @@ def flash_ring_step_plain(
     Returns the updated, un-normalised ``(o, m, l)``.
 
     Tiles are ``block_q`` x ``block_k`` with ragged tails (the CUDA kernel's
-    are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128, 64 x 32 at Dh = 256);
+    are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128, 64 x 32 at Dh = 256,
+    32 x 16 at Dh = 512);
     by default the JAX kernel's (``_chunk_block``), or 128 for chunks it
     cannot tile.  A tile
     that the causal mask hides from every row of a query tile is skipped,
@@ -398,8 +414,9 @@ def flash_ring_step_plain(
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the kernels are built for; every head dim up to the widest
 # runs zero-padded to the next of them (:func:`kernel_head_dim`).  256 is
-# the widest head dim of the common public decoders (Gemma's)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# the widest head dim of the common public decoders (Gemma's); 512 is the
+# FMA kernels' widest tiling that fits a block's shared memory
+KERNEL_HEAD_DIMS = (64, 128, 256, 512)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 # a TMA box is 64 columns (one 128-byte swizzle atom of a 16-bit type) wide,
 # and a descriptor's byte strides stay below 2^40
@@ -409,10 +426,10 @@ TMA_STRIDE_LIMIT = 1 << 40
 
 def kernel_head_dim(head_dim: int) -> int:
     """The head dim the CUDA kernels run a true head dim of ``head_dim`` at:
-    64, 128 or 256.  The wrappers zero-pad the head dim up to it and slice the
-    results back (:func:`pad_head_dim`): zero columns of Q and K leave Q K^T
-    unchanged and zero columns of V give zero output columns, while the
-    softmax scale stays ``1/sqrt(head_dim)``.  Raises ValueError past
+    64, 128, 256 or 512.  The wrappers zero-pad the head dim up to it and
+    slice the results back (:func:`pad_head_dim`): zero columns of Q and K
+    leave Q K^T unchanged and zero columns of V give zero output columns,
+    while the softmax scale stays ``1/sqrt(head_dim)``.  Raises ValueError past
     :data:`MAX_HEAD_DIM`."""
     if head_dim < 1 or head_dim > MAX_HEAD_DIM:
         raise ValueError(
@@ -525,6 +542,9 @@ def _ring_padded(run, q, k, v, o, m, l, q_off, k_off, causal, scale):
     return (o_out if w == Dh else o_out[..., :Dh].contiguous()), m_out, l_out
 
 
+_ROUTE_ARG = ctypes.POINTER(ctypes.c_int)  # each entry point's *route
+
+
 def _kernel():
     """The C entry point of ``csrc/flash_fwd.cu`` (built at first use), with
     its ctypes signature declared."""
@@ -536,7 +556,7 @@ def _kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 9
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p, _ROUTE_ARG]
         )
     return lib, fn
 
@@ -556,6 +576,7 @@ def _launch_fwd(q, k, v, causal, scale, width):
         return out.zero_(), lse.fill_(_NEG_INF)
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = fn(
             ctypes.c_void_p(q.data_ptr()),
@@ -567,6 +588,7 @@ def _launch_fwd(q, k, v, causal, scale, width):
             *(ctypes.c_int64(t.stride(i)) for t in (q, k, v) for i in range(3)),
             ctypes.c_float(scale),
             ctypes.c_void_p(stream),
+            ctypes.byref(route),
         )
     if err != 0:
         raise RuntimeError(
@@ -576,6 +598,7 @@ def _launch_fwd(q, k, v, causal, scale, width):
             f"{tuple(k.shape)}"
         )
     launches += 1
+    _count("flash_fwd", route, q.dtype, width)
     return out, lse
 
 
@@ -590,8 +613,8 @@ def flash_attention_fwd(
     q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Lq, H, Dh], lse [B, H, Lq] f32)``.  CUDA tensors launch
-    the kernel (its own tiling, at the head dim zero-padded to 64, 128 or
-    256;
+    the kernel (its own tiling, at the head dim zero-padded to 64, 128, 256
+    or 512;
     ``block_q``/``block_k`` shape only the plain version) or raise; CPU and
     meta tensors take the plain version."""
     if q.device.type == "cuda":
@@ -612,15 +635,17 @@ def _bwd_kernels():
             fn.restype = ctypes.c_int
             fn.argtypes = (
                 [ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 8
-                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, _ROUTE_ARG]
             )
     return lib, lib.tfs_flash_bwd_dq, lib.tfs_flash_bwd_dkv
 
 
 def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
+    """Launch a backward kernel; counts the launch by the route it took."""
     from .. import _build
 
     B, Lq, H, Dh = q.shape
+    route = ctypes.c_int(-1)
     Lk, KVH = k.shape[1], k.shape[2]
     strides = (ctypes.c_int64 * 12)(
         *(t.stride(i) for t in (q, k, v, do) for i in range(3))
@@ -632,6 +657,7 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
             B, H, KVH, Lq, Lk, Dh, _DTYPE_CODE[q.dtype], int(bool(causal)),
             strides, ctypes.c_float(_scale(Dh) if scale is None else scale),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+            ctypes.byref(route),
         )
     if err != 0:
         raise RuntimeError(
@@ -640,12 +666,13 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
             f"(cudaError {err}) for q {tuple(q.shape)} {q.dtype}, k "
             f"{tuple(k.shape)}"
         )
+    _count(name, route, q.dtype, Dh)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: float | None = None) -> torch.Tensor:
-    """The dQ kernel on CUDA tensors at a head dim of 64, 128 or 256 (checked and
-    padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
+    """The dQ kernel on CUDA tensors at a head dim of 64, 128, 256 or 512
+    (checked and padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
     and ``delta = rowsum(dO o O)`` contiguous [B, H, Lq] f32; ``scale``
     defaults to ``1/sqrt(Dh)``.  Returns dq [B, Lq, H, Dh]."""
     global launches_dq
@@ -706,7 +733,7 @@ def flash_attention_bwd(
     """``(dq, dk, dv)`` of :func:`flash_attention` from the forward's ``out``
     and ``lse`` and the incoming gradient ``do``.  CUDA tensors launch the
     dQ and dK/dV kernels (their own tiling, at the head dim zero-padded to
-    64, 128 or 256) or raise; CPU and meta tensors take
+    64, 128, 256 or 512) or raise; CPU and meta tensors take
     :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cuda":
         return _flash_bwd_cuda(q, k, v, out, lse, do, causal)
@@ -757,7 +784,7 @@ def _ring_kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, _ROUTE_ARG]
         )
     return lib, fn
 
@@ -776,6 +803,7 @@ def _launch_ring(q, k, v, o, m, l, q_off, k_off, causal, scale, width):
     strides = (ctypes.c_int64 * 9)(
         *(t.stride(i) for t in (q, k, v) for i in range(3))
     )
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = fn(
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, m, l, o_out, m_out, l_out)),
@@ -783,6 +811,7 @@ def _launch_ring(q, k, v, o, m, l, q_off, k_off, causal, scale, width):
             int(bool(causal)), int(q_off), int(k_off),
             strides, ctypes.c_float(scale),
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+            ctypes.byref(route),
         )
     if err != 0:
         raise RuntimeError(
@@ -791,6 +820,7 @@ def _launch_ring(q, k, v, o, m, l, q_off, k_off, causal, scale, width):
             f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}"
         )
     launches_ring += 1
+    _count("ring_step", route, q.dtype, width)
     return o_out, m_out, l_out
 
 
@@ -827,8 +857,8 @@ def flash_ring_step(
     ``1/sqrt(Dh)``: a caller that pads the head dim itself once for many
     hops (``ring.py``) passes the true dim's.  CUDA tensors launch
     ``csrc/flash_ring.cu`` (any chunk length; a head dim other than 64,
-    128 or 256 zero-padded to the next of them, o with it) or raise; CPU and meta
-    tensors take :func:`flash_ring_step_plain`."""
+    128, 256 or 512 zero-padded to the next of them, o with it) or raise;
+    CPU and meta tensors take :func:`flash_ring_step_plain`."""
     if q.device.type == "cuda":
         return _ring_step_cuda(q, k, v, o, m, l, q_off, k_off, causal, scale)
     if q.device.type in ("cpu", "meta"):

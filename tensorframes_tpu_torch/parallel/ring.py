@@ -108,9 +108,10 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
     # the path JAX picks
     width = Dh
     if impl == "flash" and dev.type == "cuda" and kernel_head_dim(Dh) != Dh:
-        # the kernel runs at a head dim of 64, 128 or 256: pad q, k and v once for
-        # every hop of the layer, carry o at that width (the step is given
-        # the true dim's scale) and slice it once after the last hop
+        # the kernel runs at a head dim of 64, 128, 256 or 512: pad q, k
+        # and v once for every hop of the layer, carry o at that width (the
+        # step is given the true dim's scale) and slice it once after the
+        # last hop
         width = kernel_head_dim(Dh)
         q_c, k_c, v_c = ([pad_head_dim(x, width) for x in xs] for xs in (q_c, k_c, v_c))
     f32 = dict(dtype=torch.float32, device=dev)

@@ -170,8 +170,8 @@ def test_kernel_input_checks_accept_the_main_path_layout():
     [
         (lambda q, k, v: (q.double(), k.double(), v.double()), "bf16, f16 or f32"),
         (lambda q, k, v: (q, k.float(), v), "one dtype"),
-        (lambda q, k, v: _kernel_inputs(D=257), "head dims 1..256"),
-        (lambda q, k, v: _kernel_inputs(D=320), "wider than 256"),
+        (lambda q, k, v: _kernel_inputs(D=513), "head dims 1..512"),
+        (lambda q, k, v: _kernel_inputs(D=640), "wider than 512"),
         (lambda q, k, v: (q, k[:1], v[:1]), "do not fit"),
         (lambda q, k, v: (q, k[:, :, :3], v[:, :, :3]), "divisible"),
         (lambda q, k, v: (torch.zeros(2, 16, 4, 128, dtype=torch.bfloat16)[..., ::2], k, v), "contiguous"),
@@ -208,6 +208,15 @@ def test_kernel_input_checks_accept_every_head_dim_to_256(dtype, D):
     assert width == 256 == tflash.kernel_head_dim(D)
 
 
+@pytest.mark.parametrize("D", [257, 320, 384, 511, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_input_checks_accept_every_head_dim_to_512(dtype, D):
+    # the FMA build at 512: 257..512 runs zero-padded to 512, as JAX's
+    # kernels take any Dh
+    width = tflash.check_kernel_inputs(*_kernel_inputs(dtype, D))
+    assert width == 512 == tflash.kernel_head_dim(D)
+
+
 def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
     x = torch.randn(2, 5, 3, 12)
     y = tflash.pad_head_dim(x, 64)
@@ -220,9 +229,9 @@ def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
 # kernels' width, the plain version at the kernel's tiling, the results
 # sliced back, the scale of the true head dim -- against the JAX kernels in
 # interpret mode, at head dims of JAX's own configs and tests (8, 12, 32)
-# and in f16, and at the wide build's head dims (160 padded to 256, and 256:
-# the FMA kernels' tilings).  f32: the JAX suite's tolerances (forward 2e-5,
-# gradients 2e-4: summation order).  f16: outputs, p and dS round to f16
+# and in f16, and at the wide builds' head dims (160 padded to 256, 256
+# itself, 320 padded to 512, and 512).  f32: the JAX suite's tolerances
+# (forward 2e-5, gradients 2e-4: summation order).  f16: outputs, p and dS round to f16
 # (2^-11 relative) at the same points in both, so 1e-2; bf16 (2^-8
 # relative): 3e-2.
 PAD_TOL = {torch.float32: (F32, dict(rtol=2e-4, atol=2e-4)),
@@ -231,27 +240,37 @@ PAD_TOL = {torch.float32: (F32, dict(rtol=2e-4, atol=2e-4)),
 PAD_CASES = [(8, torch.float32), (12, torch.float32), (32, torch.float32),
              (12, torch.float16), (64, torch.float16),
              (160, torch.float32), (256, torch.float32), (160, torch.float16),
-             (256, torch.bfloat16)]
+             (256, torch.bfloat16), (320, torch.float32), (320, torch.bfloat16),
+             (512, torch.float16)]
 _JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
         torch.bfloat16: jnp.bfloat16}
 
 
-def _kernel_tiles(kernel, width):
-    """(block_q, block_k) of a CUDA kernel at head dim ``width``: the 16-bit
-    tensor-core kernels at 64 and 128, as ``csrc/`` builds them and
-    ``test_torch_flash_tiling.py`` pins them; the FMA kernels at 256
-    (``FmaTiles<256>`` in ``csrc/flash_common.cuh``: 64 x 32 forward and
-    ring tiles; ``FT`` = 32 in ``csrc/flash_bwd.cu``)."""
-    if width == 256:
-        return {"fwd": (64, 32), "dq": (32, 32), "dkv": (32, 32),
-                "ring": (64, 32)}[kernel]
-    wide = width == 128
+# the widths each 16-bit tensor-core kernel is built at (csrc/); f32, and
+# 16-bit inputs wider than these, take the FMA kernels
+_TMA_WIDTHS = {"fwd": (64, 128, 256), "dq": (64, 128), "dkv": (64, 128, 256),
+               "ring": (64, 128)}
+
+
+def _kernel_tiles(kernel, width, dtype):
+    """(block_q, block_k) of the CUDA kernel that runs ``dtype`` at head dim
+    ``width``: the tensor-core kernels' as ``csrc/`` builds them and
+    ``test_torch_flash_tiling.py`` pins them (the forward at Dh 256: 128
+    queries x 64 keys; dK/dV: 128 keys against 32 queries); the FMA
+    kernels' (``FmaTiles`` in ``csrc/flash_common.cuh``: 64 x 64, 64 x 32
+    at Dh 256, 32 x 16 at 512; ``FmaBwd::FT`` in ``csrc/flash_bwd.cu``: 32,
+    16 at 512)."""
+    if dtype == torch.float32 or width not in _TMA_WIDTHS[kernel]:
+        if kernel in ("dq", "dkv"):
+            ft = 16 if width > 256 else 32
+            return ft, ft
+        return (32, 16) if width > 256 else (64, 32) if width > 128 else (64, 64)
     return {
-        "fwd": (128 if wide else 192, 128),
-        "dq": (128 if wide else 192, 64),
-        "dkv": (32 if wide else 64, 128),
-        "ring": (128 if wide else 192, 128),
-    }[kernel]
+        "fwd": {64: (192, 128), 128: (128, 128), 256: (128, 64)},
+        "dq": {64: (192, 64), 128: (128, 64)},
+        "dkv": {64: (64, 128), 128: (32, 128), 256: (32, 128)},
+        "ring": {64: (192, 128), 128: (128, 128)},
+    }[kernel][width]
 
 
 def _fwd_emulated(q, k, v, causal):
@@ -259,7 +278,7 @@ def _fwd_emulated(q, k, v, causal):
     kernel's tiling in place of the launch."""
     def run(q, k, v, causal, scale, w):
         return tflash.flash_attention_plain(q, k, v, causal,
-                                            *_kernel_tiles("fwd", w), scale)
+                                            *_kernel_tiles("fwd", w, q.dtype), scale)
 
     return tflash._fwd_padded(run, q, k, v, causal)
 
@@ -268,9 +287,9 @@ def _bwd_emulated(q, k, v, out, lse, do, causal):
     """The dQ and dK/dV kernels' padded path (see :func:`_fwd_emulated`)."""
     def run(q, k, v, out, do, lse, causal, scale, w):
         dq = tflash.flash_bwd_dq_plain(q, k, v, out, lse, do, causal,
-                                       *_kernel_tiles("dq", w), scale)
+                                       *_kernel_tiles("dq", w, q.dtype), scale)
         dk, dv = tflash.flash_bwd_dkv_plain(q, k, v, out, lse, do, causal,
-                                            *_kernel_tiles("dkv", w), scale)
+                                            *_kernel_tiles("dkv", w, q.dtype), scale)
         return dq, dk, dv
 
     return tflash._bwd_padded(run, q, k, v, out, lse, do, causal)
@@ -280,7 +299,7 @@ def _ring_emulated(q, k, v, o, m, l, q_off, k_off, causal):
     """The ring-step kernel's padded path (see :func:`_fwd_emulated`)."""
     def run(q, k, v, o, m, l, q_off, k_off, causal, scale, w):
         return tflash.flash_ring_step_plain(q, k, v, o, m, l, q_off, k_off, causal,
-                                            *_kernel_tiles("ring", w), scale)
+                                            *_kernel_tiles("ring", w, q.dtype), scale)
 
     return tflash._ring_padded(run, q, k, v, o, m, l, q_off, k_off, causal, None)
 

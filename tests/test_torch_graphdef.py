@@ -149,16 +149,33 @@ def test_bfloat16_tensorproto_decodes_to_a_bf16_tensor():
 
 
 def test_bfloat16_consts_cannot_be_encoded_where_jax_encodes_them():
-    """A known refusal (ROADMAP Queue 3): numpy has no bfloat16 here, so
-    the port's builder cannot freeze a bf16 constant, which the JAX
-    package's (ml_dtypes) can; the exporters freeze f32, as JAX's do."""
+    """Once a known refusal (numpy has no bfloat16 here), now repaired: a
+    ``torch.bfloat16`` constant freezes into the bytes the JAX builder
+    writes for the same values (through ml_dtypes), the constant decodes
+    back bit for bit, and a graph reading it imports and runs as JAX's
+    does (exactly: every bf16 value widens to f32 exactly)."""
     import jax.numpy as jnp
 
-    jb = JBuilder()
-    jb.const("c", np.ones(2, jnp.bfloat16))
-    assert len(jb.to_bytes()) > 0
-    with pytest.raises(TypeError):
-        GraphBuilder().const("c", torch.ones(2, dtype=torch.bfloat16))
+    vals = np.asarray([[1.5, -2.0, 3.25], [1e-3, -7e4, 0.1]], np.float32)
+    t_bf16 = torch.from_numpy(vals).to(torch.bfloat16)
+    jb, tb = JBuilder(), GraphBuilder()
+    jb.const("c", vals.astype(jnp.bfloat16))
+    tb.const("c", t_bf16)
+    assert tb.to_bytes() == jb.to_bytes()
+    (node,) = parse_graphdef(tb.to_bytes()).nodes
+    back = node.attrs["value"].value
+    assert back.dtype == tdt.TF_BFLOAT16 and tuple(back.shape) == (2, 3)
+    assert torch.equal(back.value.view(torch.int16), t_bf16.view(torch.int16))
+
+    def build(b):
+        b.placeholder("x", "float32", [-1, 3])
+        b.const("c", t_bf16 if isinstance(b, GraphBuilder) else vals.astype(jnp.bfloat16))
+        b.op("Cast", "cf", ["c"], DstT=_av(type(b))("type", tdt.by_name("float32").tf_enum))
+        b.op("Add", "y", ["x", "cf"])
+
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    out = _both(build, {"x": x}, ["y"], rtol=0, atol=0)
+    np.testing.assert_array_equal(out["y"], x + t_bf16.float().numpy())
 
 
 def test_string_tensor():
@@ -811,23 +828,31 @@ def test_integer_reductions_and_casts_keep_jax_dtypes(dtype):
         b.op("Sum", "sum", ["x", "ax"])
         b.op("Cast", "f", ["x"], DstT=_av(type(b))("type", tdt.by_name("float32").tf_enum))
 
-    fetches = ["mean", "f"] + ([] if dtype == "uint8" else ["sum"])
-    _both(build, {"x": x}, fetches)
+    _both(build, {"x": x}, ["mean", "f", "sum"])
 
 
 def test_unsigned_sum_is_int64_where_jax_gives_uint64():
-    """A known difference (ROADMAP Queue 3): JAX sums an unsigned column in
-    uint64, which torch cannot sum on the CPU; the port sums it in int64.
-    The values agree."""
-    x = np.arange(24).reshape(2, 3, 4).astype(np.uint8)
+    """Once a known difference (the port summed an unsigned column in
+    int64), now repaired: ``Sum`` and ``Prod`` of a uint8 column come out
+    uint64 with JAX's values, and so does the ``Sum`` of those uint64
+    values, also where a product and a sum wrap past 2^64."""
+    x = np.full((2, 3, 12), 255, np.uint8)
+    x[1, 1] = np.arange(12)
 
     def build(b):
-        b.placeholder("x", "uint8", [-1, 3, 4])
-        b.op("Sum", "sum", ["x", b.const("ax", np.asarray([1], np.int32))])
+        b.placeholder("x", "uint8", [-1, 3, 12])
+        b.op("Sum", "sum", ["x", b.const("ax", np.asarray([2], np.int32))])
+        b.op("Prod", "prod", ["x", b.const("ax2", np.asarray([2], np.int32))])
+        b.op("Sum", "sum_of_prods", ["prod", b.const("ax1", np.asarray([1], np.int32))])
 
-    t, j = _run_graph(build, {"x": x}, ["sum"]), _run_jax(build, {"x": x}, ["sum"])
-    assert t["sum"].dtype == np.int64 and j["sum"].dtype == np.uint64
-    np.testing.assert_array_equal(t["sum"], j["sum"])
+    fetches = ["sum", "prod", "sum_of_prods"]
+    t, j = _run_graph(build, {"x": x}, fetches), _run_jax(build, {"x": x}, fetches)
+    for f in fetches:
+        assert t[f].dtype == j[f].dtype == np.uint64, f
+        np.testing.assert_array_equal(t[f], j[f], err_msg=f)
+    # 255^12 and the sum of three of them are far past 2^64: both wrapped
+    assert 255 ** 12 > 2 ** 64 and int(j["prod"][0, 0]) == 255 ** 12 % 2 ** 64
+    assert int(j["sum_of_prods"][0]) == 3 * 255 ** 12 % 2 ** 64
 
 
 def test_shape_ops_match_jax():
