@@ -6,7 +6,7 @@
     python3 chip_smoke.py --profile  # also device time by kernel per path
                                      # (and per GraphDef leg)
 
-Phases, each printing its own lines:
+Phases, each printing its own lines and then its command time (``phase:``):
 
 1. env: torch/CUDA versions, the card, and its name and power limit as
    ``nvidia-smi`` reports them;
@@ -14,7 +14,7 @@ Phases, each printing its own lines:
    per source, started together), with ptxas' register/spill report; every
    kernel's instantiations are asserted in the built code against
    ``built_instantiations``: the 16-bit TMA + wgmma kernels (bf16 and f16;
-   the forward and dK/dV at Dh 64, 128 and 256, dQ and the ring step at 64
+   the forward, dQ and dK/dV at Dh 64, 128 and 256, the ring step at 64
    and 128) with ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
    in every instantiation's SASS (``cuobjdump``) and no ignored
    ``setmaxnreg``; the FMA kernels (f32 at Dh 64, 128, 256 and 512, 16-bit
@@ -25,9 +25,10 @@ Phases, each printing its own lines:
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
    wraps the kernels' stage rings many times, q/k/v as strided views, head
    dims 8, 12, 32 and 96 zero-padded by the wrappers, f16 at Dh 64 and
-   128, Dh 160, 200 and 256 in bf16, f16 and f32 (the Dh-256 TMA forward
-   and dK/dV also at the wide-head path's shape, at cross lengths both
-   ways and on strided views), and Dh 320 and 512 on the 512-wide build),
+   128, Dh 160, 200 and 256 in bf16, f16 and f32 (the Dh-256 TMA forward,
+   dQ and dK/dV also at the wide-head path's shape, at cross lengths both
+   ways and on strided views), Dh 320 and 512 on the 512-wide build, and
+   Dh 640 and 1024 split into chunks of 512 in bf16, f16 and f32),
    with stated tolerances, each launch held to the instantiation the
    dispatch must pick (``route_of``); the ring step also keeps a dominant
    carry (m above every score of the chunk by > 30) to f32 rounding, in
@@ -41,8 +42,9 @@ Phases, each printing its own lines:
    and off-diagonal), with SDPA's forward on the same chunk pair as the
    nearest yardstick (no library call folds a carry); every kernel also at
    Dh = 32 (padded), in f16, at Dh = 256 (also 4 heads over 2 kv heads) and
-   in f32 at Dh 64, 128, 256 and 512, beside SDPA at the same shapes
-   (each kernel record's ``variants``);
+   in f32 at Dh 64, 128, 256 and 512, in bf16 at 512 and split at 640 and
+   1024, beside SDPA at the same shapes and the backend SDPA picked (each
+   kernel record's ``variants``);
 5. slice (scoring): the flagship transformer (series widths, random seeded
    weights) scores a 64-row frame of 2048-token cells through
    ``map_blocks`` with ``attn_impl="flash"``; the kernels' launches are
@@ -52,7 +54,7 @@ Phases, each printing its own lines:
    path: the same widths at 4 heads over 2 kv heads (Dh 256) score 16 rows
    of 2048 tokens in 2 blocks and train one epoch of 4 steps at B=8
    (remat "none") through ``FrameLoader`` and ``fit``: launches by
-   instantiation (the TMA forward and dK/dV, dQ's FMA kernel), ms per
+   instantiation (the TMA forward, dQ and dK/dV), ms per
    block and step, tokens/s, counted TFLOP/s, peak memory, nll against
    ``"full"`` and a B=2 step against ``"full"``; then the
    small-head slice: a Dh = 32 model (d_model 128, 4 heads) scores a frame
@@ -173,7 +175,7 @@ KERNEL_CASES = [
     ("f16_dh64", dict(B=2, Lq=2048, Lk=2048, H=16, KVH=4, D=64, dtype=torch.float16, causal=True)),
     ("f16_dh128", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=8, D=128, dtype=torch.float16, causal=True)),
     ("f16_dh12_cross", dict(B=2, Lq=24, Lk=40, H=4, KVH=2, D=12, dtype=torch.float16, causal=False)),
-    # Dh 256: the TMA forward and dK/dV (dQ on its FMA kernel) in bf16 and
+    # Dh 256: the TMA forward, dQ and dK/dV in bf16 and
     # f16, Dh 160 padded to 256, causal and not, GQA, ragged, cross lengths
     # both ways, strided views, and the wide-head slice's own shape (the
     # flagship's B and L at 4 heads over 2 kv heads); f32 on the FMA kernels
@@ -199,6 +201,18 @@ KERNEL_CASES = [
                              causal=False)),
     ("f32_dh320", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=320, dtype=torch.float32, causal=True)),
     ("bf16_dh512", dict(B=2, Lq=200, Lk=200, H=2, KVH=1, D=512, dtype=torch.bfloat16, causal=True)),
+    # head dims above 512: the 512-wide FMA builds split into chunks of 512
+    # columns (640 padded to 1024: two; 1024 itself), each dtype, causal and
+    # not, GQA, ragged and cross lengths
+    ("bf16_dh640", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=640, dtype=torch.bfloat16, causal=True)),
+    ("f16_dh640_cross", dict(B=2, Lq=200, Lk=260, H=4, KVH=2, D=640, dtype=torch.float16,
+                             causal=False)),
+    ("f32_dh640", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=640, dtype=torch.float32, causal=False)),
+    ("bf16_dh1024", dict(B=1, Lq=257, Lk=257, H=2, KVH=1, D=1024, dtype=torch.bfloat16,
+                         causal=False)),
+    ("f16_dh1024", dict(B=1, Lq=130, Lk=130, H=2, KVH=2, D=1024, dtype=torch.float16, causal=True)),
+    ("f32_dh1024_cross", dict(B=1, Lq=200, Lk=140, H=2, KVH=1, D=1024, dtype=torch.float32,
+                              causal=True)),
 ]
 # f16 rounds finer than bf16 (2^-11 against 2^-8), so it has limits of its
 # own, between what the sound kernels need on an H100 (least_tol: out
@@ -291,6 +305,19 @@ RING_CASES = [
      257, 257, "random"),
     ("f32_dh320", dict(B=2, C=200, H=4, KVH=2, D=320, dtype=torch.float32, causal=False),
      0, 200, "random"),
+    # above 512: the split (Dh 640 padded to 1024, and 1024), the carry's o
+    # split with it: each dtype, the diagonal and a cross offset, causal and
+    # not, GQA, hidden rows, and the dominant carry
+    ("bf16_dh640", dict(B=2, C=300, H=4, KVH=2, D=640, dtype=torch.bfloat16, causal=True),
+     300, 300, "random"),
+    ("f16_dh1024", dict(B=1, C=257, H=2, KVH=1, D=1024, dtype=torch.float16, causal=True),
+     300, 0, "random"),
+    ("f32_dh640", dict(B=2, C=200, H=4, KVH=2, D=640, dtype=torch.float32, causal=False),
+     0, 200, "random"),
+    ("f32_dh1024_dead", dict(B=1, C=200, H=2, KVH=2, D=1024, dtype=torch.float32, causal=True),
+     100, 200, "dead"),
+    ("dominant_carry_dh640", dict(B=1, C=300, H=4, KVH=2, D=640, dtype=torch.bfloat16,
+                                  causal=True), 300, 300, "dominant"),
 ]
 # o is compared as o / l: the un-normalised o carries the row's denominator
 # (up to ~2000 here), so one bf16 rounding of p that differs between exp2f
@@ -523,12 +550,13 @@ def phase_build():
 
 # The instantiations each kernel is built at, (element type, Dh), and the
 # route each (dtype, width) must take, as csrc/ dispatches them: the
-# TMA + wgmma kernels for bf16 and f16 (the forward and dK/dV to Dh 256,
-# dQ and the ring step to 128), the FMA kernels (tiles widened to f32) for
-# f32 at every width and for 16-bit inputs above those widths
+# TMA + wgmma kernels for bf16 and f16 (the forward, dQ and dK/dV to Dh
+# 256, the ring step to 128), the FMA kernels (tiles widened to f32) for
+# f32 at every width and for 16-bit inputs above those widths; a width
+# above 512 runs the 512-wide FMA build split into chunks of 512
 T16 = ("bf16", "f16")
 WIDTHS = (64, 128, 256, 512)
-TMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128),
+TMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
               "flash_bwd_dkv": (64, 128, 256), "ring_step": (64, 128)}
 SOURCE_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
              "flash_bwd_dkv": "flash_bwd", "ring_step": "flash_ring"}
@@ -548,10 +576,11 @@ def built_instantiations(kernel, route):
 
 def route_of(kernel, dtype, width):
     """The instantiation ``kernel`` must launch for (dtype, width), named as
-    ``flash.kernel_launches`` names it."""
-    t = DTYPE_NAMES[dtype]
-    route = "tma" if t != "f32" and width in TMA_WIDTHS[kernel] else "fma"
-    return f"{kernel}_{route}<{t},{width}>"
+    ``flash.kernel_launches`` names it (a split width with its chunks)."""
+    from tensorframes_tpu_torch.parallel import flash
+
+    tma = DTYPE_NAMES[dtype] != "f32" and width in TMA_WIDTHS[kernel]
+    return flash.launch_name(kernel, "tma" if tma else "fma", dtype, width)
 
 
 SASS_OPS = ("HGMMA", "UTMALDG")
@@ -845,9 +874,11 @@ def phase_timing():
 
 
 # each kernel at a padded head dim, in f16, at Dh = 256 (the wide-head
-# path's GQA too) and in f32 at every built width (the FMA kernels), at the
-# flagship's batch, length and d_model (H = 1024 / Dh); records only, the
-# bound is each variant's true work, f32's at the FMA pipe's rate
+# path's GQA too), in f32 at every built width (the FMA kernels), in bf16
+# at 512 (the 16-bit FMA build) and split above 512 (Dh 640 padded to 1024
+# and 1024 itself, each two chunks of 512), at the flagship's batch, length
+# and d_model (H = 1024 / Dh; 2 heads at 640); records only, the bound is
+# each variant's true work, f32's at the FMA pipe's rate
 VARIANTS = {
     "dh32_bf16": dict(FLAGSHIP, D=32),
     "dh64_f16": dict(FLAGSHIP, dtype=torch.float16),
@@ -857,7 +888,18 @@ VARIANTS = {
     "dh128_f32": dict(FLAGSHIP, D=128, H=8, KVH=8, dtype=torch.float32),
     "dh256_f32": dict(FLAGSHIP, D=256, H=4, KVH=4, dtype=torch.float32),
     "dh512_f32": dict(FLAGSHIP, D=512, H=2, KVH=2, dtype=torch.float32),
+    "dh512_bf16": dict(FLAGSHIP, D=512, H=2, KVH=2),
+    "dh640_bf16": dict(FLAGSHIP, D=640, H=2, KVH=2),
+    "dh1024_bf16": dict(FLAGSHIP, D=1024, H=1, KVH=1),
 }
+# the FMA kernels take 7-32 ms a call at these shapes: fewer timed calls
+FMA_ITERS = 5
+
+
+def variant_iters(c):
+    """Timed calls of a variant's kernels: 20, or FMA_ITERS where every
+    kernel runs on the FMA pipe (f32, and 16-bit above Dh 256)."""
+    return FMA_ITERS if c["dtype"] == torch.float32 or c["D"] > 256 else 20
 
 
 def sdpa(q, k, v, is_causal=False):
@@ -865,6 +907,18 @@ def sdpa(q, k, v, is_causal=False):
     called by the port), with its own GQA where the heads differ."""
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=is_causal, enable_gqa=q.shape[1] != k.shape[1])
+
+
+def sdpa_backend(q, k, v, is_causal=False):
+    """The backend :func:`sdpa`'s dispatch picks for these inputs
+    (``torch._fused_sdp_choice``, the choice SDPA itself makes), by name:
+    above a head dim of 256 the flash backend refuses and another runs."""
+    from torch.nn.attention import SDPBackend
+
+    idx = torch._fused_sdp_choice(q, k, v, attn_mask=None, dropout_p=0.0,
+                                  is_causal=is_causal, scale=None,
+                                  enable_gqa=q.shape[1] != k.shape[1])
+    return {int(b.value): n for n, b in SDPBackend.__members__.items()}.get(int(idx), str(idx))
 
 
 def phase_variant_timing():
@@ -887,10 +941,12 @@ def phase_variant_timing():
             shape={k_: str(v_) for k_, v_ in c.items()})
 
     for name, c in VARIANTS.items():
+        n = variant_iters(c)
         q, k, v = qkv(c, seed=3)
         do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
                          .manual_seed(4), device="cuda").to(c["dtype"])
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        backend = sdpa_backend(qt, kt, vt, is_causal=True)
         o_lib = sdpa(qt, kt, vt, is_causal=True)
         sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20)
@@ -907,10 +963,11 @@ def phase_variant_timing():
             del ref_out, ref_lse, grads, refs
             bound_ms, bound_by, flops = kernel_bound(c, "flash_fwd")
             record("flash_fwd", name, c, dict(
-                ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, True), 20),
+                ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, True), n),
                 plain_ms=cuda_ms(lambda: flash.flash_attention_plain(q, k, v, True), 3, 1),
                 library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20),
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err), flops)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                sdpa_backend=backend), flops)
             # each backward kernel alone on the inputs the wrapper prepares
             # (padded to the kernel's width, D = rowsum(dO o O) computed), as
             # the flagship rows time them; beside it the whole padded
@@ -920,17 +977,18 @@ def phase_variant_timing():
             delta = (pdo.float() * pout.float()).sum(-1).transpose(1, 2).contiguous()
             scale = flash._scale(c["D"])
             bwd_path_ms = cuda_ms(
-                lambda: flash.flash_attention_bwd(q, k, v, out, lse, do, True), 20)
+                lambda: flash.flash_attention_bwd(q, k, v, out, lse, do, True), n)
             for kernel, e in (("flash_bwd_dq", g_err[0]), ("flash_bwd_dkv", max(g_err[1:]))):
                 bound_ms, bound_by, flops = kernel_bound(c, kernel)
                 fn = flash.flash_bwd_dq if kernel == "flash_bwd_dq" else flash.flash_bwd_dkv
                 plain = (flash.flash_bwd_dq_plain if kernel == "flash_bwd_dq"
                          else flash.flash_bwd_dkv_plain)
                 record(kernel, name, c, dict(
-                    ms=cuda_ms(lambda: fn(pq, pk, pv, pdo, lse, delta, True, scale), 20),
+                    ms=cuda_ms(lambda: fn(pq, pk, pv, pdo, lse, delta, True, scale), n),
                     plain_ms=cuda_ms(lambda: plain(q, k, v, out, lse, do, True), 3, 1),
                     library_ms=sdpa_bwd_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    max_abs_err=e, padded_backward_path_ms=bwd_path_ms), flops)
+                    max_abs_err=e, padded_backward_path_ms=bwd_path_ms,
+                    sdpa_backend=backend), flops)
             del pq, pk, pv, pout, pdo, delta
         del q, k, v, do, qt, kt, vt, out, lse
         # the ring step at the off-diagonal flagship hop, at this variant
@@ -946,7 +1004,7 @@ def phase_variant_timing():
             del got, ref
             bound_ms, bound_by, flops = ring_bound(rc, q_off, k_off)
             record("flash_ring_step", name, rc, dict(
-                ms=cuda_ms(lambda: flash.flash_ring_step(*args, q_off, k_off, True), 20),
+                ms=cuda_ms(lambda: flash.flash_ring_step(*args, q_off, k_off, True), n),
                 plain_ms=cuda_ms(lambda: flash.flash_ring_step_plain(
                     *args, q_off, k_off, True), 3, 1),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -1071,7 +1129,7 @@ def phase_wide_head():
     """The wide-head path: the flagship's widths at 4 heads over 2 kv heads
     (Dh 256, 2:1 GQA), scored through Program -> map_blocks and trained
     through FrameLoader -> train.fit with remat "none", on the Dh-256
-    forward and dK/dV TMA kernels (dQ on its FMA kernel).  Launch counts by
+    forward, dQ and dK/dV TMA kernels.  Launch counts by
     instantiation, nll against "full", a B=2 step against "full".  Returns
     the two runs' launches by instantiation, and (program, one block,
     config, train config, params, loader) for profiling."""
@@ -1139,7 +1197,7 @@ def phase_wide_head():
     trained, peak = dict(flash.kernel_launches), train.hbm_high_water()
     want = {route_of(k, cfg.dtype, width): cfg.n_layers * steps
             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    if trained != want or not {"flash_fwd_tma", "flash_bwd_dkv_tma"} <= {
+    if trained != want or not {"flash_fwd_tma", "flash_bwd_dq_tma", "flash_bwd_dkv_tma"} <= {
             k.split("<")[0] for k in trained}:
         raise AssertionError(f"wide-head train: launched {trained}, expected {want}")
     if not np.isfinite(losses).all():
@@ -2153,6 +2211,15 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     return {"kernels": entries}
 
 
+def run_phase(phase, *args):
+    """``phase(*args)``, printing its command time: the script's run time
+    by phase."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    say("phase", name=phase.__name__, seconds=round(time.perf_counter() - t0, 3))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2170,23 +2237,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity with JAX
     torch.backends.cudnn.allow_tf32 = False
     card = phase_env()
-    built = phase_build()
-    errs = phase_kernels()
+    built = run_phase(phase_build)
+    errs = run_phase(phase_kernels)
     if args.quick:
         return 0
-    timing = phase_timing()
-    prog, frame, slice_launches = phase_slice()
-    *wide_launches, wide_run = phase_wide_head()
-    phase_small_head_slice()
-    phase_verbs()
-    phase_crossover()
-    train_run = phase_train()
-    phase_frontier(*train_run[1:3])
-    phase_graphdef(args.profile)
-    ring_run = phase_ring_slice()
-    ring_train_run = phase_ring_train(ring_run[3])
+    timing = run_phase(phase_timing)
+    prog, frame, slice_launches = run_phase(phase_slice)
+    *wide_launches, wide_run = run_phase(phase_wide_head)
+    run_phase(phase_small_head_slice)
+    run_phase(phase_verbs)
+    run_phase(phase_crossover)
+    train_run = run_phase(phase_train)
+    run_phase(phase_frontier, *train_run[1:3])
+    run_phase(phase_graphdef, args.profile)
+    ring_run = run_phase(phase_ring_slice)
+    ring_train_run = run_phase(phase_ring_train, ring_run[3])
     if args.profile:
-        phase_profile(prog, frame, train_run, wide_run, ring_run, ring_train_run)
+        run_phase(phase_profile, prog, frame, train_run, wide_run, ring_run, ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, train_run[5], ring_run[4]])
     # the card line again, so that it stands among the last lines too

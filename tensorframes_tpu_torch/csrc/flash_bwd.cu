@@ -19,7 +19,7 @@
 //
 // What the design does about it (the 16-bit kernels flash_bwd_dq_tma and
 // flash_bwd_dkv_tma, the main path, each one template instantiated for bf16
-// and f16, dQ at Dh 64 and 128, dK/dV at 64, 128 and 256): both are
+// and f16 at Dh 64, 128 and 256): both are
 // warp-specialised TMA + wgmma kernels (building blocks in hopper.cuh).  In
 // both, the TPU grid's sequential axis becomes a loop inside one CTA, so
 // nothing carries between blocks and nothing needs atomics: the results are
@@ -31,7 +31,13 @@
 //    to the diagonal, through a 4-slot ring of full/empty mbarriers;
 //    setmaxnreg moves its registers to the consumer warpgroups of 64 query
 //    rows (three at Dh = 64, two at Dh = 128), which load their rows' lse
-//    and D before the first wait.
+//    and D before the first wait.  At Dh = 256 dQ alone takes 128 f32
+//    registers a thread, over the 168 ptxas gives a thread of a 384-thread
+//    CTA: there the CTA is the two consumer warpgroups (256 threads, 222
+//    registers), thread 0 refills the ring inline, the 64-key K/V tiles
+//    have a single stage beside the 128-row Q and dO tiles (193 KB in
+//    all; three stages of 32-key tiles measured slower), and dQ += dS K
+//    is two m64n128k16 products, one per half of dQ's columns.
 //    Per tile a consumer computes S = Q K^T and dP = dO V^T (wgmma, both
 //    operands K-major in shared memory),
 //    P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = P o (dP - D) in
@@ -89,11 +95,15 @@
 // top-left (q >= k) when Lq != Lk.
 // f32 inputs take plain FMA kernels (TF32 would lose precision the JAX
 // reference keeps), and so do bf16 and f16 where the tensor-core kernels
-// stop: dQ at Dh = 256, both at 512 (head dims 257..512, padded).  One
-// template on the element type, P and dS rounded to it before their
-// products as above.  From Dh = 256 on the block has 256 threads, so that
-// dK and dV of a tile stay at 32 + 32 accumulators a thread; at 512 the
-// tiles are 16 x 16 (FmaBwd).  The f32 kernels are off the main path.
+// stop: both at 512 (head dims 257..512, padded).  One template on the
+// element type, P and dS rounded to it before their products as above.
+// From Dh = 256 on the block has 256 threads, so that dK and dV of a tile
+// stay at 32 + 32 accumulators a thread; at 512 the tiles are 16 x 16
+// (FmaBwd).  A head dim above 512 (padded to a multiple of it) runs the
+// 512-wide build split into chunks of 512 columns, one grid axis over
+// them: each chunk's blocks sum S and dP over every chunk and accumulate
+// only their own chunk of dQ, or of dK and dV.  These kernels are off the
+// main path.
 
 #include <cuda_runtime.h>
 
@@ -146,17 +156,34 @@ template <int D>
 struct Dq {
   // consumer warpgroups of 64 query rows: three at Dh = 64 (a third fewer
   // K/V reads per query, and measured faster than two), two at Dh = 128
+  // and 256
   static constexpr int CONSUMERS = D == 64 ? 3 : 2;
   // keys per K/V tile: S and dP (64 x BK) and dQ (64 x D) stay in a
-  // consumer's f32 registers, 32 + 32 + D / 2 a thread (128 keys spilled
-  // at Dh = 64 with two consumers)
+  // consumer's f32 registers, BK / 2 + BK / 2 + D / 2 a thread (128 keys
+  // spilled at Dh = 64 with two consumers; 222 registers at Dh = 256)
   static constexpr int BK = 64;
   static constexpr int BQ = 64 * CONSUMERS;  // query rows per CTA
-  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // The producer: a warpgroup before the consumers, whose registers
+  // setmaxnreg moves to them.  ptxas allocates a thread no more than its
+  // sub-partition's share (168 at 384 threads) whatever setmaxnreg grants,
+  // and at Dh = 256 a consumer needs more (dQ alone is 128).  There the CTA
+  // is the two consumer warpgroups alone (up to 255 registers a thread),
+  // and thread 0 refills the ring inline, as Fwd<256> and Dkv<256> do.
+  static constexpr bool INLINE_PRODUCER = D == 256;
+  static constexpr int THREADS = 128 * (CONSUMERS + (INLINE_PRODUCER ? 0 : 1));
   // 128 x 24 + 384 x 160 = 64512 with three consumers
   static constexpr int P_REGS = CONSUMERS == 3 ? 24 : PRODUCER_REGS;
   static constexpr int C_REGS = CONSUMERS == 3 ? 160 : CONSUMER_REGS;
-  static constexpr int STAGES = 4;
+  // At Dh = 256 Q and dO take 128 KB, and beside them one 64-key K and V
+  // pair (64 KB): a single stage, so each tile's loads wait for the last
+  // tile's products.  Three stages of 32-key tiles fit too, and were
+  // 13-18% slower on the H100 at the wide-head shape (PERF.md,
+  // tools/dq_tile_variant.py)
+  static constexpr int STAGES = D == 256 ? 1 : 4;
+  // dQ += dS K as wgmma products of at most 128 output columns
+  // (m64n128k16): one at Dh = 64 and 128, two at 256
+  static constexpr int GN = D > 128 ? 128 : D;
+  static constexpr int GP = D / GN;
   static constexpr int Q_BOX = BQ * 128;  // one 64-column box of Q or dO
   static constexpr int Q_TILE = (D / BOX_COLS) * Q_BOX;
   static constexpr int BOX = BK * 128;  // one 64-column box of a K or V tile
@@ -165,6 +192,7 @@ struct Dq {
   static constexpr int BARRIERS = 1 + 3 * STAGES;
   static constexpr size_t SMEM = size_t(2) * Q_TILE + size_t(TILE) * 2 * STAGES +
                                  8 * BARRIERS + ATOM_BYTES;
+  static_assert(SMEM <= 232448, "dQ tiles exceed a block's shared memory");
 };
 
 template <typename T, int D>
@@ -206,36 +234,53 @@ flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
+  // the loads: Q and dO once, and key tile t into slot t % S
+  auto load_q = [&] {
+    mbar_arrive_expect_tx(q_full, 2 * F::Q_TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x) {
+      tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
+      tma_load(Os + x * F::Q_BOX, &o_map, q_full, x * BOX_COLS, h, q0, b);
+    }
+  };
+  auto load_kv = [&](int t) {
+    const int s = t % S;
+    unsigned char* const Kt = ring + 2 * s * F::TILE;
+    mbar_arrive_expect_tx(k_full + s, F::TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x)
+      tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
+    mbar_arrive_expect_tx(v_full + s, F::TILE);
+    for (int x = 0; x < D / BOX_COLS; ++x)
+      tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS, kvh,
+               t * BK, b);
+  };
+
+  if (!F::INLINE_PRODUCER && threadIdx.x < 128) {
     // the producer: one thread loads Q and dO once, then keeps the ring of
     // K/V tiles full
     regs_dec<F::P_REGS>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(q_full, 2 * F::Q_TILE);
-      for (int x = 0; x < D / BOX_COLS; ++x) {
-        tma_load(Qs + x * F::Q_BOX, &q_map, q_full, x * BOX_COLS, h, q0, b);
-        tma_load(Os + x * F::Q_BOX, &o_map, q_full, x * BOX_COLS, h, q0, b);
-      }
+      load_q();
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % S;
-        if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);  // its last use is done
-        unsigned char* const Kt = ring + 2 * s * F::TILE;
-        mbar_arrive_expect_tx(k_full + s, F::TILE);
-        for (int x = 0; x < D / BOX_COLS; ++x)
-          tma_load(Kt + x * F::BOX, &k_map, k_full + s, x * BOX_COLS, kvh, t * BK, b);
-        mbar_arrive_expect_tx(v_full + s, F::TILE);
-        for (int x = 0; x < D / BOX_COLS; ++x)
-          tma_load(Kt + F::TILE + x * F::BOX, &v_map, v_full + s, x * BOX_COLS,
-                   kvh, t * BK, b);
+        if (t >= S) mbar_wait(empty + t % S, (t / S - 1) & 1);  // its last use is done
+        load_kv(t);
       }
     }
   } else {
     // a consumer: 64 query rows, 16 per warp; dQ stays in f32 registers
     // across the key tiles (the TPU kernel's VMEM accumulator)
-    regs_inc<F::C_REGS>();
-    constexpr int NT = BK / 8;  // 8-key column blocks of S and dP
-    constexpr int DT = D / 8;   // 8-wide column blocks of dQ
-    const int c = threadIdx.x / 128 - 1;
+    if constexpr (F::INLINE_PRODUCER) {
+      // thread 0 fills the ring's first S slots, and refills slot (t - 1) % S
+      // with tile t - 1 + S at the top of step t (below)
+      if (threadIdx.x == 0) {
+        load_q();
+        for (int t = 0; t < min(S, n_tiles); ++t) load_kv(t);
+      }
+    } else {
+      regs_inc<F::C_REGS>();
+    }
+    constexpr int NT = BK / 8;      // 8-key column blocks of S and dP
+    constexpr int GT = F::GN / 8;   // 8-wide column blocks of one part of dQ
+    const int c = threadIdx.x / 128 - (F::INLINE_PRODUCER ? 0 : 1);
     const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
     const int wg0 = q0 + 64 * c;             // this warpgroup's first row
@@ -248,15 +293,26 @@ flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
     const float dd_a = row_a < Lq ? p.delta[r0 + row_a] : 0.f;
     const float dd_b = row_b < Lq ? p.delta[r0 + row_b] : 0.f;
     const float sl2 = p.scale * LOG2E;
-    float acc[DT * 4];
+    float acc[F::GP][GT * 4];
 #pragma unroll
-    for (int i = 0; i < DT * 4; ++i) acc[i] = 0.f;
+    for (int gp = 0; gp < F::GP; ++gp)
+#pragma unroll
+      for (int i = 0; i < GT * 4; ++i) acc[gp][i] = 0.f;
     // A of S = Q K^T and of dP = dO V^T: this warpgroup's 64 rows
     const uint64_t q_desc = sw128_desc(Qs + 64 * c * 128, 16, ATOM_BYTES);
     const uint64_t o_desc = sw128_desc(Os + 64 * c * 128, 16, ATOM_BYTES);
     mbar_wait(q_full, 0);
 
     for (int t = 0; t < n_tiles; ++t) {
+      if constexpr (F::INLINE_PRODUCER) {
+        // every warp is done with tile t - 1 once its slot's empty phase
+        // completes (this warp is, being here)
+        if (threadIdx.x == 0 && t >= 1 && t - 1 + S < n_tiles) {
+          mbar_wait(empty + (t - 1) % S, ((t - 1) / S) & 1);
+          load_kv(t - 1 + S);
+        }
+        __syncwarp();
+      }
       const int s = t % S;
       const uint32_t ph = (t / S) & 1;
       const int k0 = t * BK;
@@ -315,30 +371,37 @@ flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
           da[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
       // dQ += dS K, K MN-major through the transpose bit (the tile S read
-      // K-major): 16 keys (2048 bytes) per slice
+      // K-major): 16 keys (2048 bytes) per slice; part gp of dQ reads the
+      // K boxes of its GN columns
       const uint64_t k_mn = sw128_desc(Kt, F::BOX, ATOM_BYTES);
       wgmma_fence();  // da was written by ordinary instructions
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<T>(acc, da[kk], desc_at(k_mn, kk * 16 * 128));
+#pragma unroll
+        for (int gp = 0; gp < F::GP; ++gp)
+          wgmma_rs<T>(acc[gp], da[kk],
+                      desc_at(k_mn, gp * (F::GN / BOX_COLS) * F::BOX + kk * 16 * 128));
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(acc);
+#pragma unroll
+      for (int gp = 0; gp < F::GP; ++gp) fence_regs(acc[gp]);
       if (lane == 0) mbar_arrive(empty + s);  // this warp is done with the slot
     }
 
     // dQ (contiguous [B, Lq, H, D]) = scale * acc, in q's dtype, once
     const float scale = p.scale;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = j * 8 + 2 * t4;
-      if (row_a < Lq)
-        *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
-            pack2<T>(acc[4 * j] * scale, acc[4 * j + 1] * scale);
-      if (row_b < Lq)
-        *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
-            pack2<T>(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
-    }
+    for (int gp = 0; gp < F::GP; ++gp)
+#pragma unroll
+      for (int j = 0; j < GT; ++j) {
+        const int col = gp * F::GN + j * 8 + 2 * t4;
+        if (row_a < Lq)
+          *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_a) * H + h) * D + col) =
+              pack2<T>(acc[gp][4 * j] * scale, acc[gp][4 * j + 1] * scale);
+        if (row_b < Lq)
+          *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_b) * H + h) * D + col) =
+              pack2<T>(acc[gp][4 * j + 2] * scale, acc[gp][4 * j + 3] * scale);
+      }
   }
 }
 
@@ -748,12 +811,15 @@ __device__ __forceinline__ void load_rows_fma(float* Ls, float* Ds,
 
 // P and dS of one (query tile, key tile) pair, [query][key] in Ps / Ss,
 // each rounded to T: P before P^T dO (flash.py:482), dS before dS K and
-// dS^T Q (:443, :489)
+// dS^T Q (:443, :489).  Above the widest build the head dim is split into
+// chunks of D columns (see flash_bwd_dq_fma), and the tiles hold one chunk:
+// S and dP sum chunk by chunk in Ps and Ss (`first` starts them, `last`
+// turns them into P and dS), each pair by the same thread every chunk.
 template <typename T, int D>
 __device__ __forceinline__ void p_ds_tile_fma(
     const float* Qs, const float* Os, const float* Ks, const float* Vs,
     const float* Ls, const float* Ds, int q0, int k0, const Problem& p,
-    float* Ps, float* Ss, int tid) {
+    float* Ps, float* Ss, int tid, bool first, bool last) {
   using F = FmaBwd<D>;
   constexpr int FT = F::FT;
   for (int i = tid; i < FT * FT; i += F::THREADS) {
@@ -762,10 +828,16 @@ __device__ __forceinline__ void p_ds_tile_fma(
     const float* orow = Os + r * F::LD;
     const float* kr = Ks + c * F::LD;
     const float* vr = Vs + c * F::LD;
-    float s = 0.f, dp = 0.f;
+    float s = first ? 0.f : Ps[r * (FT + 1) + c];
+    float dp = first ? 0.f : Ss[r * (FT + 1) + c];
     for (int d = 0; d < D; ++d) {
       s = fmaf(qr[d], kr[d], s);
       dp = fmaf(orow[d], vr[d], dp);
+    }
+    if (!last) {
+      Ps[r * (FT + 1) + c] = s;
+      Ss[r * (FT + 1) + c] = dp;
+      continue;
     }
     const int qi = q0 + r, kj = k0 + c;
     const bool ok = qi < p.Lq && kj < p.Lk && (!p.causal || qi >= kj);
@@ -775,9 +847,16 @@ __device__ __forceinline__ void p_ds_tile_fma(
   }
 }
 
+// dQ over FT-row query tiles.  A head dim of nc * D (nc > 1: above the
+// widest build, padded to a multiple of it) is split into nc chunks of D
+// columns, one per blockIdx.z: every chunk's block sums S and dP over all
+// the chunks in chunk order, streaming the Q, dO, K and V chunks through
+// the shared tiles (so all of them compute the same P and dS), and
+// accumulates only its own chunk of dQ (dS K_c).  S and dP are thus
+// recomputed nc times, the cost of taking any width.
 template <typename T, int D>
 __global__ void __launch_bounds__(FmaBwd<D>::THREADS, 1)
-flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
+flash_bwd_dq_fma(Problem p, int nc, T* __restrict__ dq) {
   using F = FmaBwd<D>;
   constexpr int FT = F::FT, LD = F::LD, TPR = F::TPR, NJ = F::NJ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -795,12 +874,15 @@ flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / p.KVH);
   const int q0 = blockIdx.x * FT;
+  const int ch = blockIdx.z;  // this block's chunk of dQ's columns
   const T* qb = static_cast<const T*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
   const T* ob = static_cast<const T*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
   const T* kb = static_cast<const T*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
   const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-  load_tile_bwd<T, D>(Qs, qb, p.s.q[1], q0, Lq, tid);
-  load_tile_bwd<T, D>(Os, ob, p.s.d[1], q0, Lq, tid);
+  if (nc == 1) {
+    load_tile_bwd<T, D>(Qs, qb, p.s.q[1], q0, Lq, tid);
+    load_tile_bwd<T, D>(Os, ob, p.s.d[1], q0, Lq, tid);
+  }
   load_rows_fma<FT>(Ls, Ds, p, bh, q0, tid);
 
   // this thread: row r, columns c0 + TPR j
@@ -809,11 +891,22 @@ flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
   int n_tiles = (Lk + FT - 1) / FT;
   if (p.causal) n_tiles = min(n_tiles, (min(q0 + FT, Lq) - 1) / FT + 1);
   for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile_bwd<T, D>(Ks, kb, p.s.k[1], t * FT, Lk, tid);
-    load_tile_bwd<T, D>(Vs, vb, p.s.v[1], t * FT, Lk, tid);
-    __syncthreads();
-    p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, q0, t * FT, p, Ps, Ss, tid);
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (nc > 1) {
+        load_tile_bwd<T, D>(Qs, qb + cc * D, p.s.q[1], q0, Lq, tid);
+        load_tile_bwd<T, D>(Os, ob + cc * D, p.s.d[1], q0, Lq, tid);
+      }
+      load_tile_bwd<T, D>(Ks, kb + cc * D, p.s.k[1], t * FT, Lk, tid);
+      load_tile_bwd<T, D>(Vs, vb + cc * D, p.s.v[1], t * FT, Lk, tid);
+      __syncthreads();
+      p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, q0, t * FT, p, Ps, Ss, tid,
+                          cc == 0, cc == nc - 1);
+    }
+    if (ch != nc - 1) {  // dS K takes this block's own chunk of K
+      __syncthreads();
+      load_tile_bwd<T, D>(Ks, kb + ch * D, p.s.k[1], t * FT, Lk, tid);
+    }
     __syncthreads();
     for (int c = 0; c < FT; ++c) {
       const float ds = Ss[r * (FT + 1) + c];
@@ -824,15 +917,19 @@ flash_bwd_dq_fma(Problem p, T* __restrict__ dq) {
   }
   const int row = q0 + r;
   if (row < Lq) {
-    T* dst = dq + ((int64_t(b) * Lq + row) * H + h) * D + c0;
+    T* dst = dq + ((int64_t(b) * Lq + row) * H + h) * (int64_t(nc) * D) + ch * D + c0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dst[TPR * j] = from_f32<T>(acc[j] * p.scale);
   }
 }
 
+// dK/dV over FT-key tiles, a head dim above the widest build split as in
+// flash_bwd_dq_fma: every chunk's block sums S^T and dP^T over all the
+// chunks (K, V, Q and dO streamed chunk by chunk) and accumulates only its
+// own chunk of dK (dS^T Q_c) and dV (P^T dO_c)
 template <typename T, int D>
 __global__ void __launch_bounds__(FmaBwd<D>::THREADS, 1)
-flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
+flash_bwd_dkv_fma(Problem p, int nc, T* __restrict__ dk, T* __restrict__ dv) {
   using F = FmaBwd<D>;
   constexpr int FT = F::FT, LD = F::LD, TPR = F::TPR, NJ = F::NJ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -849,10 +946,13 @@ flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
   const int H = p.H, KVH = p.KVH, Lq = p.Lq, Lk = p.Lk, grp = H / KVH;
   const int bkv = blockIdx.y, b = bkv / KVH, kvh = bkv % KVH;
   const int k0 = blockIdx.x * FT;
+  const int ch = blockIdx.z;  // this block's chunk of dK's and dV's columns
   const T* kb = static_cast<const T*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
   const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-  load_tile_bwd<T, D>(Ks, kb, p.s.k[1], k0, Lk, tid);
-  load_tile_bwd<T, D>(Vs, vb, p.s.v[1], k0, Lk, tid);
+  if (nc == 1) {
+    load_tile_bwd<T, D>(Ks, kb, p.s.k[1], k0, Lk, tid);
+    load_tile_bwd<T, D>(Vs, vb, p.s.v[1], k0, Lk, tid);
+  }
 
   // this thread: key kr, columns c0 + TPR j
   const int kr = tid / TPR, c0 = tid % TPR;
@@ -864,12 +964,24 @@ flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
     const T* qb = static_cast<const T*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
     const T* ob = static_cast<const T*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
     for (int qt = qt0; qt < nq; ++qt) {
-      __syncthreads();  // the previous pair is consumed
-      load_tile_bwd<T, D>(Qs, qb, p.s.q[1], qt * FT, Lq, tid);
-      load_tile_bwd<T, D>(Os, ob, p.s.d[1], qt * FT, Lq, tid);
-      load_rows_fma<FT>(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
-      __syncthreads();
-      p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, qt * FT, k0, p, Ps, Ss, tid);
+      for (int cc = 0; cc < nc; ++cc) {
+        __syncthreads();  // the previous chunk or pair is consumed
+        if (nc > 1) {
+          load_tile_bwd<T, D>(Ks, kb + cc * D, p.s.k[1], k0, Lk, tid);
+          load_tile_bwd<T, D>(Vs, vb + cc * D, p.s.v[1], k0, Lk, tid);
+        }
+        load_tile_bwd<T, D>(Qs, qb + cc * D, p.s.q[1], qt * FT, Lq, tid);
+        load_tile_bwd<T, D>(Os, ob + cc * D, p.s.d[1], qt * FT, Lq, tid);
+        if (cc == 0) load_rows_fma<FT>(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
+        __syncthreads();
+        p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, qt * FT, k0, p, Ps, Ss, tid,
+                            cc == 0, cc == nc - 1);
+      }
+      if (ch != nc - 1) {  // dS^T Q and P^T dO take this block's own chunk
+        __syncthreads();
+        load_tile_bwd<T, D>(Qs, qb + ch * D, p.s.q[1], qt * FT, Lq, tid);
+        load_tile_bwd<T, D>(Os, ob + ch * D, p.s.d[1], qt * FT, Lq, tid);
+      }
       __syncthreads();
       for (int r = 0; r < FT; ++r) {
         const float pr = Ps[r * (FT + 1) + kr];
@@ -886,7 +998,7 @@ flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
   }
   const int key = k0 + kr;
   if (key < Lk) {
-    const int64_t o = ((int64_t(b) * Lk + key) * KVH + kvh) * D + c0;
+    const int64_t o = ((int64_t(b) * Lk + key) * KVH + kvh) * (int64_t(nc) * D) + ch * D + c0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       dk[o + TPR * j] = from_f32<T>(adk[j] * p.scale);
@@ -900,13 +1012,13 @@ flash_bwd_dkv_fma(Problem p, T* __restrict__ dk, T* __restrict__ dv) {
 // ---------------------------------------------------------------------------
 
 template <typename... Out>
-cudaError_t run(void (*kernel)(Problem, Out...), dim3 grid, int threads,
-                size_t bytes, cudaStream_t stream, const Problem& p,
+cudaError_t run(void (*kernel)(Problem, int, Out...), dim3 grid, int threads,
+                size_t bytes, cudaStream_t stream, const Problem& p, int nc,
                 Out... out) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, bytes, stream>>>(p, out...);
+  kernel<<<grid, threads, bytes, stream>>>(p, nc, out...);
   return cudaGetLastError();
 }
 
@@ -928,19 +1040,20 @@ Problem problem(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // the FMA kernels, one CTA per FT-row query tile (dQ) or FT-key tile (dK/dV)
+// and chunk of nc
 template <typename T, int D>
-cudaError_t launch_dq_fma(const Problem& p, int B, void* dq, cudaStream_t st) {
+cudaError_t launch_dq_fma(const Problem& p, int B, int nc, void* dq, cudaStream_t st) {
   using F = FmaBwd<D>;
-  return run(flash_bwd_dq_fma<T, D>, dim3((p.Lq + F::FT - 1) / F::FT, B * p.H),
-             F::THREADS, F::SMEM, st, p, static_cast<T*>(dq));
+  return run(flash_bwd_dq_fma<T, D>, dim3((p.Lq + F::FT - 1) / F::FT, B * p.H, nc),
+             F::THREADS, F::SMEM, st, p, nc, static_cast<T*>(dq));
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv_fma(const Problem& p, int B, void* dk, void* dv,
+cudaError_t launch_dkv_fma(const Problem& p, int B, int nc, void* dk, void* dv,
                            cudaStream_t st) {
   using F = FmaBwd<D>;
-  return run(flash_bwd_dkv_fma<T, D>, dim3((p.Lk + F::FT - 1) / F::FT, B * p.KVH),
-             F::THREADS, F::SMEM, st, p, static_cast<T*>(dk), static_cast<T*>(dv));
+  return run(flash_bwd_dkv_fma<T, D>, dim3((p.Lk + F::FT - 1) / F::FT, B * p.KVH, nc),
+             F::THREADS, F::SMEM, st, p, nc, static_cast<T*>(dk), static_cast<T*>(dv));
 }
 
 }  // namespace
@@ -949,11 +1062,12 @@ cudaError_t launch_dkv_fma(const Problem& p, int B, void* dk, void* dv,
 // (batch, length, head) of q, k, v, dout in `strides` (12 values) and a
 // contiguous head dim.  lse, delta: contiguous [B, H, Lq] f32.  dq:
 // contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16,
-// 2 = f16.  D: 64, 128, 256 or 512 (the wrapper pads other head dims);
-// bf16 and f16 take the TMA kernel at 64 and 128, and the FMA kernel at 256
-// and 512, as f32 does at every D.  *route is set to the kernel launched
-// (0 = flash_bwd_dq_tma, 1 = flash_bwd_dq_fma).  Returns a cudaError_t
-// (0 = launched).
+// 2 = f16.  D: 64, 128, 256, 512 or a multiple of 512 (the wrapper pads
+// other head dims); bf16 and f16 take the TMA kernel at 64, 128 and 256,
+// and the FMA kernel at 512, as f32 does at every D; a multiple of 512
+// runs the 512-wide FMA build split into D / 512 chunks of dQ's columns.
+// *route is set to the kernel launched (0 = flash_bwd_dq_tma,
+// 1 = flash_bwd_dq_fma).  Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, void* dq, int B, int H,
@@ -964,32 +1078,41 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TFS_DQ(LAUNCH, TY, DD, R)             \
-  do {                                        \
-    *route = R;                               \
-    return int(LAUNCH<TY, DD>(p, B, dq, st)); \
+  int nc;
+  const int W = chunk_width(D, &nc);
+#define TFS_DQ_TMA(TY, DD)                          \
+  do {                                              \
+    *route = 0;                                     \
+    return int(launch_dq<TY, DD>(p, B, dq, st));    \
   } while (0)
-  if (dtype == 1 && D == 64) TFS_DQ(launch_dq, bf16, 64, 0);
-  if (dtype == 1 && D == 128) TFS_DQ(launch_dq, bf16, 128, 0);
-  if (dtype == 1 && D == 256) TFS_DQ(launch_dq_fma, bf16, 256, 1);
-  if (dtype == 1 && D == 512) TFS_DQ(launch_dq_fma, bf16, 512, 1);
-  if (dtype == 2 && D == 64) TFS_DQ(launch_dq, f16, 64, 0);
-  if (dtype == 2 && D == 128) TFS_DQ(launch_dq, f16, 128, 0);
-  if (dtype == 2 && D == 256) TFS_DQ(launch_dq_fma, f16, 256, 1);
-  if (dtype == 2 && D == 512) TFS_DQ(launch_dq_fma, f16, 512, 1);
-  if (dtype == 0 && D == 64) TFS_DQ(launch_dq_fma, float, 64, 1);
-  if (dtype == 0 && D == 128) TFS_DQ(launch_dq_fma, float, 128, 1);
-  if (dtype == 0 && D == 256) TFS_DQ(launch_dq_fma, float, 256, 1);
-  if (dtype == 0 && D == 512) TFS_DQ(launch_dq_fma, float, 512, 1);
-#undef TFS_DQ
+#define TFS_DQ_FMA(TY, DD)                              \
+  do {                                                  \
+    *route = 1;                                         \
+    return int(launch_dq_fma<TY, DD>(p, B, nc, dq, st)); \
+  } while (0)
+  if (dtype == 1 && W == 64) TFS_DQ_TMA(bf16, 64);
+  if (dtype == 1 && W == 128) TFS_DQ_TMA(bf16, 128);
+  if (dtype == 1 && W == 256) TFS_DQ_TMA(bf16, 256);
+  if (dtype == 1 && W == 512) TFS_DQ_FMA(bf16, 512);
+  if (dtype == 2 && W == 64) TFS_DQ_TMA(f16, 64);
+  if (dtype == 2 && W == 128) TFS_DQ_TMA(f16, 128);
+  if (dtype == 2 && W == 256) TFS_DQ_TMA(f16, 256);
+  if (dtype == 2 && W == 512) TFS_DQ_FMA(f16, 512);
+  if (dtype == 0 && W == 64) TFS_DQ_FMA(float, 64);
+  if (dtype == 0 && W == 128) TFS_DQ_FMA(float, 128);
+  if (dtype == 0 && W == 256) TFS_DQ_FMA(float, 256);
+  if (dtype == 0 && W == 512) TFS_DQ_FMA(float, 512);
+#undef TFS_DQ_TMA
+#undef TFS_DQ_FMA
   return int(cudaErrorInvalidValue);
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
 // bf16 and f16 take the TMA kernel at 64, 128 and 256 (16-byte aligned
-// bases and strides) and the FMA kernel at 512, as f32 does at every D.
-// *route is set to the kernel launched (0 = flash_bwd_dkv_tma,
-// 1 = flash_bwd_dkv_fma).
+// bases and strides) and the FMA kernel at 512, as f32 does at every D; a
+// multiple of 512 runs the 512-wide FMA build in D / 512 chunks of dK's
+// and dV's columns.  *route is set to the kernel launched
+// (0 = flash_bwd_dkv_tma, 1 = flash_bwd_dkv_fma).
 extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dk, void* dv, int B,
@@ -1000,24 +1123,32 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Problem p = problem(q, k, v, dout, lse, delta, H, KVH, Lq, Lk, causal,
                             strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TFS_DKV(LAUNCH, TY, DD, R)                \
-  do {                                            \
-    *route = R;                                   \
-    return int(LAUNCH<TY, DD>(p, B, dk, dv, st)); \
+  int nc;
+  const int W = chunk_width(D, &nc);
+#define TFS_DKV_TMA(TY, DD)                             \
+  do {                                                  \
+    *route = 0;                                         \
+    return int(launch_dkv<TY, DD>(p, B, dk, dv, st));   \
   } while (0)
-  if (dtype == 1 && D == 64) TFS_DKV(launch_dkv, bf16, 64, 0);
-  if (dtype == 1 && D == 128) TFS_DKV(launch_dkv, bf16, 128, 0);
-  if (dtype == 1 && D == 256) TFS_DKV(launch_dkv, bf16, 256, 0);
-  if (dtype == 1 && D == 512) TFS_DKV(launch_dkv_fma, bf16, 512, 1);
-  if (dtype == 2 && D == 64) TFS_DKV(launch_dkv, f16, 64, 0);
-  if (dtype == 2 && D == 128) TFS_DKV(launch_dkv, f16, 128, 0);
-  if (dtype == 2 && D == 256) TFS_DKV(launch_dkv, f16, 256, 0);
-  if (dtype == 2 && D == 512) TFS_DKV(launch_dkv_fma, f16, 512, 1);
-  if (dtype == 0 && D == 64) TFS_DKV(launch_dkv_fma, float, 64, 1);
-  if (dtype == 0 && D == 128) TFS_DKV(launch_dkv_fma, float, 128, 1);
-  if (dtype == 0 && D == 256) TFS_DKV(launch_dkv_fma, float, 256, 1);
-  if (dtype == 0 && D == 512) TFS_DKV(launch_dkv_fma, float, 512, 1);
-#undef TFS_DKV
+#define TFS_DKV_FMA(TY, DD)                                     \
+  do {                                                          \
+    *route = 1;                                                 \
+    return int(launch_dkv_fma<TY, DD>(p, B, nc, dk, dv, st));   \
+  } while (0)
+  if (dtype == 1 && W == 64) TFS_DKV_TMA(bf16, 64);
+  if (dtype == 1 && W == 128) TFS_DKV_TMA(bf16, 128);
+  if (dtype == 1 && W == 256) TFS_DKV_TMA(bf16, 256);
+  if (dtype == 1 && W == 512) TFS_DKV_FMA(bf16, 512);
+  if (dtype == 2 && W == 64) TFS_DKV_TMA(f16, 64);
+  if (dtype == 2 && W == 128) TFS_DKV_TMA(f16, 128);
+  if (dtype == 2 && W == 256) TFS_DKV_TMA(f16, 256);
+  if (dtype == 2 && W == 512) TFS_DKV_FMA(f16, 512);
+  if (dtype == 0 && W == 64) TFS_DKV_FMA(float, 64);
+  if (dtype == 0 && W == 128) TFS_DKV_FMA(float, 128);
+  if (dtype == 0 && W == 256) TFS_DKV_FMA(float, 256);
+  if (dtype == 0 && W == 512) TFS_DKV_FMA(float, 512);
+#undef TFS_DKV_TMA
+#undef TFS_DKV_FMA
   return int(cudaErrorInvalidValue);
 }
 

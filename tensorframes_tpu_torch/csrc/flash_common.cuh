@@ -6,7 +6,8 @@
 // stored output -- and the element conversions of the FMA kernels, which
 // hold every tile in f32 whatever the element type (f32 at any head dim;
 // bf16 and f16 at the head dims above the tensor-core kernels': 512 for
-// all four, 256 for dQ and the ring step).
+// all four, 256 for the ring step), and the rule that splits a head dim
+// above 512 into chunks of 512 (SPLIT, chunk_width).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -100,9 +101,10 @@ __device__ __forceinline__ float4 load4<f16>(const f16* p) {
 // P V), Q, K and V tiles in shared memory as f32 with rows of D + 8, the
 // scores (then P) and the output accumulator beside them.  The tiles shrink
 // with D to fit the 227 KB a block may hold: 64 queries x 64 keys up to
-// D = 128, 64 x 32 at D = 256 (206 KB), 32 x 16 at D = 512 (202 KB); above
-// D = 128 the P V loop runs 32 output columns a pass, so that its
-// accumulators stay in registers.
+// D = 128, 64 x 32 at D = 256 (206 KB), 32 x 16 at D = 512 (202 KB, also
+// each 512-column chunk of a wider head dim); above D = 128 the P V loop
+// runs 32 output columns a pass, so that its accumulators stay in
+// registers.
 template <int D>
 struct FmaTiles {
   static constexpr int BQ = D > 256 ? 32 : 64;
@@ -116,6 +118,19 @@ struct FmaTiles {
       sizeof(float);
   static_assert(SMEM <= 232448, "FMA tiles exceed a block's shared memory");
 };
+
+// The widest build.  A head dim above it, padded by the wrapper to a
+// multiple of it, runs that build split into chunks of SPLIT columns, one
+// grid axis over them (parallel/flash.py::head_dim_chunks, the same rule).
+constexpr int SPLIT = 512;
+
+// The head dim a launch runs at: D itself, or SPLIT with *nc = D / SPLIT
+// chunks when D is a larger multiple of it (*nc = 1 otherwise); 0 when the
+// chunks would not fit a grid axis
+inline int chunk_width(int D, int* nc) {
+  *nc = D > SPLIT && D % SPLIT == 0 ? D / SPLIT : 1;
+  return *nc > 65535 ? 0 : *nc > 1 ? SPLIT : D;
+}
 
 // rows [row0, row0 + rows) of a [L, D] slice with row stride s_l, as f32
 // into rows of D + 8 (zeros past L)

@@ -76,8 +76,10 @@
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps), and so do bf16 and f16 at Dh = 512 (head dims 257..512,
 // padded): one template on the element type, tiles widened to f32 in shared
-// memory, P rounded to the element type before P V as above.  Both are off
-// the main path.
+// memory, P rounded to the element type before P V as above.  A head dim
+// above 512 (padded to a multiple of it) runs the 512-wide build split into
+// chunks of 512 output columns, one grid axis over them.  Both are off the
+// main path.
 
 #include <cuda_runtime.h>
 
@@ -414,7 +416,12 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 // FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 512 (two lanes
 // per query row, tiles in shared memory as f32; FmaTiles in
-// flash_common.cuh)
+// flash_common.cuh).  A head dim of nc * D (nc > 1: above the widest build,
+// padded to a multiple of it) is split into nc chunks of D columns, one per
+// blockIdx.z: every chunk's block forms S = sum_c Q_c K_c^T in chunk order,
+// streaming the Q and K chunks through the shared tiles (so all of them
+// run the same online softmax), and accumulates only its own chunk of O
+// (P V_c); chunk 0 writes lse.  S is thus recomputed nc times.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -422,7 +429,7 @@ __global__ void __launch_bounds__(FmaTiles<D>::THREADS, 1)
 flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
               float* __restrict__ lse, int H, int KVH, int Lq, int Lk,
-              int causal, int64_t q_sb, int64_t q_sl, int64_t q_sh,
+              int causal, int nc, int64_t q_sb, int64_t q_sl, int64_t q_sh,
               int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,
               int64_t v_sl, int64_t v_sh, float scale) {
   using F = FmaTiles<D>;
@@ -439,11 +446,12 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
   const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
+  const int ch = blockIdx.z;  // this block's chunk of the output columns
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile_fma<T, D>(Qs, qb, q_sl, q0, BQ, Lq, tid, F::THREADS);
+  if (nc == 1) load_tile_fma<T, D>(Qs, qb, q_sl, q0, BQ, Lq, tid, F::THREADS);
   for (int i = tid; i < BQ * O_LD; i += F::THREADS) Os[i] = 0.f;
 
   // lane pair (2r, 2r+1) owns row r of its warp: half the keys, half of Dh
@@ -459,20 +467,24 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();
-    load_tile_fma<T, D>(Ks, kb, k_sl, k0, BK, Lk, tid, F::THREADS);
-    load_tile_fma<T, D>(Vs, vb, v_sl, k0, BK, Lk, tid, F::THREADS);
-    __syncthreads();
-
     float sv[HK];
 #pragma unroll
     for (int c = 0; c < HK; ++c) sv[c] = 0.f;
-    const float* qr = Qs + wrow * T_LD;
-    const float* kr = Ks + half * HK * T_LD;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qr[d];
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (nc > 1) load_tile_fma<T, D>(Qs, qb + cc * D, q_sl, q0, BQ, Lq, tid, F::THREADS);
+      load_tile_fma<T, D>(Ks, kb + cc * D, k_sl, k0, BK, Lk, tid, F::THREADS);
+      if (cc == nc - 1)
+        load_tile_fma<T, D>(Vs, vb + ch * D, v_sl, k0, BK, Lk, tid, F::THREADS);
+      __syncthreads();
+
+      const float* qr = Qs + wrow * T_LD;
+      const float* kr = Ks + half * HK * T_LD;
+      for (int d = 0; d < D; ++d) {
+        const float qv = qr[d];
 #pragma unroll
-      for (int c = 0; c < HK; ++c) sv[c] = fmaf(qv, kr[c * T_LD + d], sv[c]);
+        for (int c = 0; c < HK; ++c) sv[c] = fmaf(qv, kr[c * T_LD + d], sv[c]);
+      }
     }
     float mx = -INFINITY;
 #pragma unroll
@@ -517,10 +529,11 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qrow < Lq) {
     const float denom = l_i == 0.f ? 1.f : l_i;
-    T* dst = out + ((int64_t(b) * Lq + qrow) * H + h) * D + half * HALF;
+    T* dst = out + ((int64_t(b) * Lq + qrow) * H + h) * (int64_t(nc) * D) + ch * D +
+             half * HALF;
 #pragma unroll 8
     for (int dd = 0; dd < HALF; ++dd) dst[dd] = from_f32<T>(orow[dd] / denom);
-    if (half == 0) lse[int64_t(bh) * Lq + qrow] = m_i + logf(denom);
+    if (half == 0 && ch == 0) lse[int64_t(bh) * Lq + qrow] = m_i + logf(denom);
   }
 }
 
@@ -531,18 +544,18 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int H, int KVH, int Lq, int Lk,
-                       int causal, const int64_t* s, float scale,
+                       int causal, int nc, const int64_t* s, float scale,
                        cudaStream_t stream) {
   using F = FmaTiles<D>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(F::SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
+  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H, nc);
   flash_fwd_fma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, H, KVH, Lq, Lk,
-      causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale);
+      causal, nc, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale);
   return cudaGetLastError();
 }
 
@@ -552,11 +565,12 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
 // (batch, length, head) each and a contiguous head dim; out: contiguous
 // [B, Lq, H, D] in the input dtype; lse: contiguous [B, H, Lq] f32.
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (the 16-bit types take TMA up to
-// D = 256: 16-byte aligned bases and strides, Lk > 0).  D: 64, 128, 256 or
-// 512 (the wrapper pads other head dims); bf16 and f16 at 512, and f32 at
-// every D, take the FMA kernel.  *route is set to the kernel launched
-// (0 = flash_fwd_tma, 1 = flash_fwd_fma).  Returns a cudaError_t
-// (0 = launched).
+// D = 256: 16-byte aligned bases and strides, Lk > 0).  D: 64, 128, 256,
+// 512 or a multiple of 512 (the wrapper pads other head dims); bf16 and
+// f16 at 512, and f32 at every D, take the FMA kernel, and a multiple of
+// 512 runs its 512-wide build split into D / 512 chunks of the output's
+// columns.  *route is set to the kernel launched (0 = flash_fwd_tma,
+// 1 = flash_fwd_fma).  Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,
@@ -568,25 +582,31 @@ extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   const int64_t s[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TFS_FWD(LAUNCH, TY, DD, R) \
-  return *route = R,               \
-         int(LAUNCH<TY, DD>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st))
+  int nc;
+  const int W = chunk_width(D, &nc);
+#define TFS_FWD_TMA(TY, DD) \
+  return *route = 0,        \
+         int(launch_tma<TY, DD>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, s, scale, st))
+#define TFS_FWD_FMA(TY, DD) \
+  return *route = 1,        \
+         int(launch_fma<TY, DD>(q, k, v, out, lse, B, H, KVH, Lq, Lk, causal, nc, s, scale, st))
   if (dtype == 1 || dtype == 2) {
     if (Lk == 0) return int(cudaErrorInvalidValue);
-    if (dtype == 1 && D == 64) TFS_FWD(launch_tma, bf16, 64, 0);
-    if (dtype == 1 && D == 128) TFS_FWD(launch_tma, bf16, 128, 0);
-    if (dtype == 1 && D == 256) TFS_FWD(launch_tma, bf16, 256, 0);
-    if (dtype == 1 && D == 512) TFS_FWD(launch_fma, bf16, 512, 1);
-    if (dtype == 2 && D == 64) TFS_FWD(launch_tma, f16, 64, 0);
-    if (dtype == 2 && D == 128) TFS_FWD(launch_tma, f16, 128, 0);
-    if (dtype == 2 && D == 256) TFS_FWD(launch_tma, f16, 256, 0);
-    if (dtype == 2 && D == 512) TFS_FWD(launch_fma, f16, 512, 1);
+    if (dtype == 1 && W == 64) TFS_FWD_TMA(bf16, 64);
+    if (dtype == 1 && W == 128) TFS_FWD_TMA(bf16, 128);
+    if (dtype == 1 && W == 256) TFS_FWD_TMA(bf16, 256);
+    if (dtype == 1 && W == 512) TFS_FWD_FMA(bf16, 512);
+    if (dtype == 2 && W == 64) TFS_FWD_TMA(f16, 64);
+    if (dtype == 2 && W == 128) TFS_FWD_TMA(f16, 128);
+    if (dtype == 2 && W == 256) TFS_FWD_TMA(f16, 256);
+    if (dtype == 2 && W == 512) TFS_FWD_FMA(f16, 512);
   }
-  if (dtype == 0 && D == 64) TFS_FWD(launch_fma, float, 64, 1);
-  if (dtype == 0 && D == 128) TFS_FWD(launch_fma, float, 128, 1);
-  if (dtype == 0 && D == 256) TFS_FWD(launch_fma, float, 256, 1);
-  if (dtype == 0 && D == 512) TFS_FWD(launch_fma, float, 512, 1);
-#undef TFS_FWD
+  if (dtype == 0 && W == 64) TFS_FWD_FMA(float, 64);
+  if (dtype == 0 && W == 128) TFS_FWD_FMA(float, 128);
+  if (dtype == 0 && W == 256) TFS_FWD_FMA(float, 256);
+  if (dtype == 0 && W == 512) TFS_FWD_FMA(float, 512);
+#undef TFS_FWD_TMA
+#undef TFS_FWD_FMA
   return int(cudaErrorInvalidValue);
 }
 

@@ -70,8 +70,10 @@
 // f32 inputs take a plain FMA kernel (TF32 would lose precision the JAX
 // reference keeps), and so do bf16 and f16 at Dh = 256 and 512 (head dims
 // 129..512, padded, the carried o with them): one template on the element
-// type, P rounded to it before P V as above, the carry f32.  Both are off
-// the main path.
+// type, P rounded to it before P V as above, the carry f32.  A head dim
+// above 512 (padded to a multiple of it) runs the 512-wide build split into
+// chunks of 512 columns of o, one grid axis over them.  Both are off the
+// main path.
 
 #include <cuda_runtime.h>
 
@@ -407,7 +409,13 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // FMA kernel: f32 at every head dim, bf16 and f16 at Dh = 256 and 512 (two lanes
 // per query row, tiles in shared memory as f32; FmaTiles in
-// flash_common.cuh)
+// flash_common.cuh).  A head dim of nc * D (nc > 1: above the widest build,
+// padded to a multiple of it, the carried o with it) is split into nc
+// chunks of D columns, one per blockIdx.z, as in flash_fwd.cu::
+// flash_fwd_fma: every chunk's block forms S = sum_c Q_c K_c^T in chunk
+// order and runs the same online softmax from the same carried m and l,
+// and folds only its own chunk of o (P V_c); chunk 0 writes m_out and
+// l_out, which no block reads (the carry comes in through m_in, l_in).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -417,7 +425,7 @@ ring_step_fma(const T* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ m_in, const float* __restrict__ l_in,
               float* __restrict__ o_out, float* __restrict__ m_out,
               float* __restrict__ l_out, int H, int KVH, int Lq, int Lk,
-              int q_off, int k_off, int causal, int64_t q_sb, int64_t q_sl,
+              int q_off, int k_off, int causal, int nc, int64_t q_sb, int64_t q_sl,
               int64_t q_sh, int64_t k_sb, int64_t k_sl, int64_t k_sh,
               int64_t v_sb, int64_t v_sl, int64_t v_sh, float scale) {
   using F = FmaTiles<D>;
@@ -434,12 +442,14 @@ ring_step_fma(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
   const int q0 = int(causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x) * BQ;
+  const int ch = blockIdx.z;  // this block's chunk of o's columns
+  const int64_t W = int64_t(nc) * D;  // the full (padded) head dim
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile_fma<T, D>(Qs, qb, q_sl, q0, BQ, Lq, tid, F::THREADS);
-  // the output accumulator starts from the carried o
+  if (nc == 1) load_tile_fma<T, D>(Qs, qb, q_sl, q0, BQ, Lq, tid, F::THREADS);
+  // the output accumulator starts from the carried o (this block's chunk)
   constexpr int VPR = D / 4;
   for (int i = tid; i < BQ * VPR; i += F::THREADS) {
     const int r = i / VPR, c = (i % VPR) * 4;
@@ -447,7 +457,7 @@ ring_step_fma(const T* __restrict__ q, const T* __restrict__ k,
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < Lq)
       val = *reinterpret_cast<const float4*>(
-          o_in + ((int64_t(b) * Lq + row) * H + h) * D + c);
+          o_in + ((int64_t(b) * Lq + row) * H + h) * W + ch * D + c);
     *reinterpret_cast<float4*>(Os + r * O_LD + c) = val;
   }
 
@@ -467,20 +477,24 @@ ring_step_fma(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();
-    load_tile_fma<T, D>(Ks, kb, k_sl, k0, BK, Lk, tid, F::THREADS);
-    load_tile_fma<T, D>(Vs, vb, v_sl, k0, BK, Lk, tid, F::THREADS);
-    __syncthreads();
-
     float sv[HK];
 #pragma unroll
     for (int c = 0; c < HK; ++c) sv[c] = 0.f;
-    const float* qr = Qs + wrow * T_LD;
-    const float* kr = Ks + half * HK * T_LD;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qr[d];
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (nc > 1) load_tile_fma<T, D>(Qs, qb + cc * D, q_sl, q0, BQ, Lq, tid, F::THREADS);
+      load_tile_fma<T, D>(Ks, kb + cc * D, k_sl, k0, BK, Lk, tid, F::THREADS);
+      if (cc == nc - 1)
+        load_tile_fma<T, D>(Vs, vb + ch * D, v_sl, k0, BK, Lk, tid, F::THREADS);
+      __syncthreads();
+
+      const float* qr = Qs + wrow * T_LD;
+      const float* kr = Ks + half * HK * T_LD;
+      for (int d = 0; d < D; ++d) {
+        const float qv = qr[d];
 #pragma unroll
-      for (int c = 0; c < HK; ++c) sv[c] = fmaf(qv, kr[c * T_LD + d], sv[c]);
+        for (int c = 0; c < HK; ++c) sv[c] = fmaf(qv, kr[c * T_LD + d], sv[c]);
+      }
     }
     float mx = -INFINITY;
 #pragma unroll
@@ -525,10 +539,10 @@ ring_step_fma(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qrow < Lq) {
     const bool dead = m_i == -INFINITY;  // saw no key: m = -inf, l = 0, o = 0
-    float* dst = o_out + ((int64_t(b) * Lq + qrow) * H + h) * D + half * HALF;
+    float* dst = o_out + ((int64_t(b) * Lq + qrow) * H + h) * W + ch * D + half * HALF;
 #pragma unroll 8
     for (int dd = 0; dd < HALF; ++dd) dst[dd] = dead ? 0.f : orow[dd];
-    if (half == 0) {
+    if (half == 0 && ch == 0) {
       m_out[rr] = m_i;
       l_out[rr] = dead ? 0.f : l_i;
     }
@@ -544,17 +558,17 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const float* o_in, const float* m_in, const float* l_in,
                        float* o_out, float* m_out, float* l_out, int B, int H,
                        int KVH, int Lq, int Lk, int q_off, int k_off, int causal,
-                       const int64_t* s, float scale, cudaStream_t stream) {
+                       int nc, const int64_t* s, float scale, cudaStream_t stream) {
   using F = FmaTiles<D>;
   cudaError_t err = cudaFuncSetAttribute(
       ring_step_fma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(F::SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H);
+  const dim3 grid((Lq + F::BQ - 1) / F::BQ, B * H, nc);
   ring_step_fma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), o_in, m_in, l_in, o_out, m_out, l_out, H,
-      KVH, Lq, Lk, q_off, k_off, causal, s[0], s[1], s[2], s[3], s[4], s[5],
+      KVH, Lq, Lk, q_off, k_off, causal, nc, s[0], s[1], s[2], s[3], s[4], s[5],
       s[6], s[7], s[8], scale);
   return cudaGetLastError();
 }
@@ -566,10 +580,12 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 // contiguous o [B, Lq, H, D] f32 and m, l [B, H, Lq] f32 (out must not alias
 // in).  q_off/k_off: the chunks' global positions.  dtype: 0 = f32,
 // 1 = bf16, 2 = f16 (the 16-bit types take TMA at D = 64 and 128: 16-byte
-// aligned bases and strides).  D: 64, 128, 256 or 512 (the wrapper pads
-// other head dims); bf16 and f16 at 256 and 512, and f32 at every D, take
-// the FMA kernel.  *route is set to the kernel launched (0 = ring_step_tma,
-// 1 = ring_step_fma).  Returns a cudaError_t (0 = launched).
+// aligned bases and strides).  D: 64, 128, 256, 512 or a multiple of 512
+// (the wrapper pads other head dims); bf16 and f16 at 256 and 512, and f32
+// at every D, take the FMA kernel, and a multiple of 512 runs its 512-wide
+// build split into D / 512 chunks of o's columns.  *route is set to the
+// kernel launched (0 = ring_step_tma, 1 = ring_step_fma).  Returns a
+// cudaError_t (0 = launched).
 extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
                                    const float* o_in, const float* m_in,
                                    const float* l_in, float* o_out,
@@ -582,6 +598,8 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Carry carry{o_in, m_in, l_in, o_out, m_out, l_out};
+  int nc;
+  const int W = chunk_width(D, &nc);
 #define TFS_RING_TMA(T, DD)                                                    \
   do {                                                                         \
     *route = 0;                                                                \
@@ -592,21 +610,21 @@ extern "C" int tfs_flash_ring_step(const void* q, const void* k, const void* v,
   do {                                                                          \
     *route = 1;                                                                 \
     return int(launch_fma<T, DD>(q, k, v, o_in, m_in, l_in, o_out, m_out, l_out, \
-                                 B, H, KVH, Lq, Lk, q_off, k_off, causal,        \
+                                 B, H, KVH, Lq, Lk, q_off, k_off, causal, nc,    \
                                  strides, scale, st));                           \
   } while (0)
-  if (dtype == 1 && D == 64) TFS_RING_TMA(bf16, 64);
-  if (dtype == 1 && D == 128) TFS_RING_TMA(bf16, 128);
-  if (dtype == 1 && D == 256) TFS_RING_FMA(bf16, 256);
-  if (dtype == 1 && D == 512) TFS_RING_FMA(bf16, 512);
-  if (dtype == 2 && D == 64) TFS_RING_TMA(f16, 64);
-  if (dtype == 2 && D == 128) TFS_RING_TMA(f16, 128);
-  if (dtype == 2 && D == 256) TFS_RING_FMA(f16, 256);
-  if (dtype == 2 && D == 512) TFS_RING_FMA(f16, 512);
-  if (dtype == 0 && D == 64) TFS_RING_FMA(float, 64);
-  if (dtype == 0 && D == 128) TFS_RING_FMA(float, 128);
-  if (dtype == 0 && D == 256) TFS_RING_FMA(float, 256);
-  if (dtype == 0 && D == 512) TFS_RING_FMA(float, 512);
+  if (dtype == 1 && W == 64) TFS_RING_TMA(bf16, 64);
+  if (dtype == 1 && W == 128) TFS_RING_TMA(bf16, 128);
+  if (dtype == 1 && W == 256) TFS_RING_FMA(bf16, 256);
+  if (dtype == 1 && W == 512) TFS_RING_FMA(bf16, 512);
+  if (dtype == 2 && W == 64) TFS_RING_TMA(f16, 64);
+  if (dtype == 2 && W == 128) TFS_RING_TMA(f16, 128);
+  if (dtype == 2 && W == 256) TFS_RING_FMA(f16, 256);
+  if (dtype == 2 && W == 512) TFS_RING_FMA(f16, 512);
+  if (dtype == 0 && W == 64) TFS_RING_FMA(float, 64);
+  if (dtype == 0 && W == 128) TFS_RING_FMA(float, 128);
+  if (dtype == 0 && W == 256) TFS_RING_FMA(float, 256);
+  if (dtype == 0 && W == 512) TFS_RING_FMA(float, 512);
 #undef TFS_RING_TMA
 #undef TFS_RING_FMA
   return int(cudaErrorInvalidValue);

@@ -391,7 +391,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // than its sub-partition's share under the launch bound -- 16384 registers
 // over the most warps one of the SM's four holds, 168 at 384 threads --
 // whatever setmaxnreg grants, so a kernel that needs more (the Dh = 256
-// forward and dK/dV, ~200) runs 8 warps and no producer warpgroup.
+// forward, dQ and dK/dV, ~200) runs 8 warps and no producer warpgroup.
 template <int R>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));

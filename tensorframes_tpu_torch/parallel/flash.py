@@ -29,13 +29,17 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
   same arithmetic in Python, and :func:`check_kernel_inputs` raises before
   a launch for what a descriptor refuses.
 * Every kernel is built for head dims 64, 128, 256 and 512.  The 16-bit
-  inputs take the TMA + ``wgmma`` kernels at 64 and 128, and the forward
-  and dK/dV at 256 too; the rest (f32 at every width, dQ and the ring step
-  at 256, all four at 512) are FMA kernels on tiles widened to f32.  Any
-  head dim from 1 to 512 runs: the wrappers zero-pad it to the next built
-  width and slice the results back (:func:`kernel_head_dim`), keeping
-  ``1/sqrt(Dh)`` of the true dim as the scale.  A head dim above 512
-  raises.
+  inputs take the TMA + ``wgmma`` kernels at 64 and 128, and the forward,
+  dQ and dK/dV at 256 too; the rest (f32 at every width, the ring step at
+  256, all four at 512) are FMA kernels on tiles widened to f32.  Every
+  head dim runs, as JAX's kernels take any: the wrappers zero-pad it to
+  the next built width, or above 512 to the next multiple of 512, and
+  slice the results back (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)``
+  of the true dim as the scale.  A multiple of 512 above it runs the
+  512-wide FMA build split into chunks of 512 columns, one grid axis over
+  them (:func:`head_dim_chunks`): each chunk's blocks recompute the scores
+  over the whole head dim and produce only their own chunk of the output
+  (or of dQ, dK and dV).
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -69,7 +73,8 @@ launches_dq = 0
 launches_dkv = 0
 launches_ring = 0
 # the same launches by the instantiation the C entry point reports it ran,
-# e.g. "flash_fwd_tma<bf16,256>" or "flash_bwd_dq_fma<f32,512>"
+# e.g. "flash_fwd_tma<bf16,256>" or "flash_bwd_dq_fma<f32,512>", and a
+# split head dim with its chunks, e.g. "flash_fwd_fma<bf16,512>x2" at 1024
 kernel_launches: Dict[str, int] = {}
 
 
@@ -83,8 +88,17 @@ _ROUTES = ("tma", "fma")  # the C entry points' *route: 0 and 1
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
+def launch_name(kernel: str, route: str, dtype: torch.dtype, width: int) -> str:
+    """The name :data:`kernel_launches` counts a launch of ``kernel`` by
+    ``route`` ("tma" or "fma") at head dim ``width`` under: the
+    instantiation, and the chunks of a split head dim."""
+    chunks = head_dim_chunks(width)
+    name = f"{kernel}_{route}<{_DTYPE_NAMES[dtype]},{width // chunks}>"
+    return name if chunks == 1 else f"{name}x{chunks}"
+
+
 def _count(kernel: str, route: ctypes.c_int, dtype: torch.dtype, width: int) -> None:
-    name = f"{kernel}_{_ROUTES[route.value]}<{_DTYPE_NAMES[dtype]},{width}>"
+    name = launch_name(kernel, _ROUTES[route.value], dtype, width)
     kernel_launches[name] = kernel_launches.get(name, 0) + 1
 
 
@@ -354,7 +368,7 @@ def flash_ring_step_plain(
 
     Tiles are ``block_q`` x ``block_k`` with ragged tails (the CUDA kernel's
     are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128, 64 x 32 at Dh = 256,
-    32 x 16 at Dh = 512);
+    32 x 16 at Dh = 512 and in each chunk of a wider one);
     by default the JAX kernel's (``_chunk_block``), or 128 for chunks it
     cannot tile.  A tile
     that the causal mask hides from every row of a query tile is skipped,
@@ -415,9 +429,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the kernels are built for; every head dim up to the widest
 # runs zero-padded to the next of them (:func:`kernel_head_dim`).  256 is
 # the widest head dim of the common public decoders (Gemma's); 512 is the
-# FMA kernels' widest tiling that fits a block's shared memory
+# FMA kernels' widest tiling that fits a block's shared memory, and the
+# chunk a wider head dim is split into (:func:`head_dim_chunks`)
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+SPLIT_WIDTH = KERNEL_HEAD_DIMS[-1]
 # a TMA box is 64 columns (one 128-byte swizzle atom of a 16-bit type) wide,
 # and a descriptor's byte strides stay below 2^40
 TMA_BOX_COLS = 64
@@ -426,17 +441,28 @@ TMA_STRIDE_LIMIT = 1 << 40
 
 def kernel_head_dim(head_dim: int) -> int:
     """The head dim the CUDA kernels run a true head dim of ``head_dim`` at:
-    64, 128, 256 or 512.  The wrappers zero-pad the head dim up to it and
-    slice the results back (:func:`pad_head_dim`): zero columns of Q and K
-    leave Q K^T unchanged and zero columns of V give zero output columns,
-    while the softmax scale stays ``1/sqrt(head_dim)``.  Raises ValueError past
-    :data:`MAX_HEAD_DIM`."""
-    if head_dim < 1 or head_dim > MAX_HEAD_DIM:
+    64, 128, 256 or 512, or above 512 the next multiple of 512 (split into
+    chunks of it, :func:`head_dim_chunks`).  The wrappers zero-pad the head
+    dim up to it and slice the results back (:func:`pad_head_dim`): zero
+    columns of Q and K leave Q K^T unchanged and zero columns of V give
+    zero output columns, while the softmax scale stays
+    ``1/sqrt(head_dim)``.  Raises ValueError for a head dim below 1."""
+    if head_dim < 1:
         raise ValueError(
-            f"flash_attention kernel takes head dims 1..{MAX_HEAD_DIM}; got "
-            f"{head_dim} (no kernel is built wider than {MAX_HEAD_DIM})"
+            f"flash_attention kernel takes head dims of 1 or more; got {head_dim}"
         )
+    if head_dim > SPLIT_WIDTH:
+        return -(-head_dim // SPLIT_WIDTH) * SPLIT_WIDTH
     return next(w for w in KERNEL_HEAD_DIMS if head_dim <= w)
+
+
+def head_dim_chunks(width: int) -> int:
+    """How many chunks of :data:`SPLIT_WIDTH` columns the kernels split a
+    head dim of ``width`` (a :func:`kernel_head_dim`) into: 1 up to 512,
+    ``width / 512`` above it.  The C entry points take the same rule: a
+    grid axis over the chunks, each chunk's blocks summing the scores over
+    every chunk and writing only their own columns of the output."""
+    return width // SPLIT_WIDTH if width > SPLIT_WIDTH else 1
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -478,8 +504,8 @@ def tma_tile_map(name, shape, strides, element_size, data_ptr, rows=128):
 
 def check_kernel_inputs(q, k, v) -> int:
     """Raise ValueError for what the CUDA kernels do not take: dtypes other
-    than bf16/f16/f32, mixed dtypes, a head dim above :data:`MAX_HEAD_DIM`,
-    a head dim that is not contiguous, or (at a head dim the kernels are
+    than bf16/f16/f32, mixed dtypes, an empty head dim, a head dim that is
+    not contiguous, or (at a head dim the kernels are
     built for, which is launched as it is) what a TMA descriptor refuses
     (:func:`tma_tile_map`: rows not 16-byte aligned, byte strides of 2^40
     or more).  Returns the head dim the kernels run at
@@ -613,8 +639,8 @@ def flash_attention_fwd(
     q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Lq, H, Dh], lse [B, H, Lq] f32)``.  CUDA tensors launch
-    the kernel (its own tiling, at the head dim zero-padded to 64, 128, 256
-    or 512;
+    the kernel (its own tiling, at the head dim zero-padded to 64, 128, 256,
+    512 or a multiple of 512;
     ``block_q``/``block_k`` shape only the plain version) or raise; CPU and
     meta tensors take the plain version."""
     if q.device.type == "cuda":
@@ -671,8 +697,8 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: float | None = None) -> torch.Tensor:
-    """The dQ kernel on CUDA tensors at a head dim of 64, 128, 256 or 512
-    (checked and padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
+    """The dQ kernel on CUDA tensors at a head dim of 64, 128, 256, 512 or
+    a multiple of 512 (checked and padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
     and ``delta = rowsum(dO o O)`` contiguous [B, H, Lq] f32; ``scale``
     defaults to ``1/sqrt(Dh)``.  Returns dq [B, Lq, H, Dh]."""
     global launches_dq
@@ -733,7 +759,7 @@ def flash_attention_bwd(
     """``(dq, dk, dv)`` of :func:`flash_attention` from the forward's ``out``
     and ``lse`` and the incoming gradient ``do``.  CUDA tensors launch the
     dQ and dK/dV kernels (their own tiling, at the head dim zero-padded to
-    64, 128, 256 or 512) or raise; CPU and meta tensors take
+    64, 128, 256, 512 or a multiple of 512) or raise; CPU and meta tensors take
     :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cuda":
         return _flash_bwd_cuda(q, k, v, out, lse, do, causal)
@@ -857,7 +883,8 @@ def flash_ring_step(
     ``1/sqrt(Dh)``: a caller that pads the head dim itself once for many
     hops (``ring.py``) passes the true dim's.  CUDA tensors launch
     ``csrc/flash_ring.cu`` (any chunk length; a head dim other than 64,
-    128, 256 or 512 zero-padded to the next of them, o with it) or raise;
+    128, 256 or 512 zero-padded to the next of them or above 512 to the
+    next multiple of 512, o with it) or raise;
     CPU and meta tensors take :func:`flash_ring_step_plain`."""
     if q.device.type == "cuda":
         return _ring_step_cuda(q, k, v, o, m, l, q_off, k_off, causal, scale)

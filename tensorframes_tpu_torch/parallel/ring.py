@@ -108,7 +108,8 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
     # the path JAX picks
     width = Dh
     if impl == "flash" and dev.type == "cuda" and kernel_head_dim(Dh) != Dh:
-        # the kernel runs at a head dim of 64, 128, 256 or 512: pad q, k
+        # the kernel runs at a head dim of 64, 128, 256, 512 or a multiple
+        # of 512 (kernel_head_dim): pad q, k
         # and v once for every hop of the layer, carry o at that width (the
         # step is given the true dim's scale) and slice it once after the
         # last hop

@@ -170,8 +170,8 @@ def test_kernel_input_checks_accept_the_main_path_layout():
     [
         (lambda q, k, v: (q.double(), k.double(), v.double()), "bf16, f16 or f32"),
         (lambda q, k, v: (q, k.float(), v), "one dtype"),
-        (lambda q, k, v: _kernel_inputs(D=513), "head dims 1..512"),
-        (lambda q, k, v: _kernel_inputs(D=640), "wider than 512"),
+        (lambda q, k, v: _kernel_inputs(D=0), "head dims of 1 or more"),
+        (lambda q, k, v: (q[0], k[0], v[0]), r"must be \[B, L, H, Dh\]"),
         (lambda q, k, v: (q, k[:1], v[:1]), "do not fit"),
         (lambda q, k, v: (q, k[:, :, :3], v[:, :, :3]), "divisible"),
         (lambda q, k, v: (torch.zeros(2, 16, 4, 128, dtype=torch.bfloat16)[..., ::2], k, v), "contiguous"),
@@ -215,6 +215,21 @@ def test_kernel_input_checks_accept_every_head_dim_to_512(dtype, D):
     # kernels take any Dh
     width = tflash.check_kernel_inputs(*_kernel_inputs(dtype, D))
     assert width == 512 == tflash.kernel_head_dim(D)
+    assert tflash.head_dim_chunks(width) == 1
+
+
+@pytest.mark.parametrize("D,width", [(513, 1024), (640, 1024), (1000, 1024),
+                                     (1024, 1024), (1025, 1536), (2048, 2048)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_input_checks_accept_every_head_dim_above_512(dtype, D, width):
+    # above the widest build a head dim runs zero-padded to the next
+    # multiple of 512, split into chunks of 512 columns, as JAX's kernels
+    # take any Dh
+    assert tflash.check_kernel_inputs(*_kernel_inputs(dtype, D, H=2, KVH=1)) == width
+    assert tflash.kernel_head_dim(D) == width
+    assert tflash.head_dim_chunks(width) == width // 512
+    name = tflash.launch_name("flash_bwd_dq", "fma", dtype, width)
+    assert name == f"flash_bwd_dq_fma<{tflash._DTYPE_NAMES[dtype]},512>x{width // 512}"
 
 
 def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
@@ -230,7 +245,10 @@ def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
 # sliced back, the scale of the true head dim -- against the JAX kernels in
 # interpret mode, at head dims of JAX's own configs and tests (8, 12, 32)
 # and in f16, and at the wide builds' head dims (160 padded to 256, 256
-# itself, 320 padded to 512, and 512).  f32: the JAX suite's tolerances
+# itself, 320 padded to 512, and 512), and split above the widest build
+# (640 padded to 1024, two chunks of 512: the plain version at the chunk's
+# FMA tiling over the whole padded head dim, the function each chunk's
+# blocks compute their columns of).  f32: the JAX suite's tolerances
 # (forward 2e-5, gradients 2e-4: summation order).  f16: outputs, p and dS round to f16
 # (2^-11 relative) at the same points in both, so 1e-2; bf16 (2^-8
 # relative): 3e-2.
@@ -241,14 +259,14 @@ PAD_CASES = [(8, torch.float32), (12, torch.float32), (32, torch.float32),
              (12, torch.float16), (64, torch.float16),
              (160, torch.float32), (256, torch.float32), (160, torch.float16),
              (256, torch.bfloat16), (320, torch.float32), (320, torch.bfloat16),
-             (512, torch.float16)]
+             (512, torch.float16), (640, torch.float32), (640, torch.bfloat16)]
 _JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
         torch.bfloat16: jnp.bfloat16}
 
 
 # the widths each 16-bit tensor-core kernel is built at (csrc/); f32, and
 # 16-bit inputs wider than these, take the FMA kernels
-_TMA_WIDTHS = {"fwd": (64, 128, 256), "dq": (64, 128), "dkv": (64, 128, 256),
+_TMA_WIDTHS = {"fwd": (64, 128, 256), "dq": (64, 128, 256), "dkv": (64, 128, 256),
                "ring": (64, 128)}
 
 
@@ -256,10 +274,11 @@ def _kernel_tiles(kernel, width, dtype):
     """(block_q, block_k) of the CUDA kernel that runs ``dtype`` at head dim
     ``width``: the tensor-core kernels' as ``csrc/`` builds them and
     ``test_torch_flash_tiling.py`` pins them (the forward at Dh 256: 128
-    queries x 64 keys; dK/dV: 128 keys against 32 queries); the FMA
-    kernels' (``FmaTiles`` in ``csrc/flash_common.cuh``: 64 x 64, 64 x 32
-    at Dh 256, 32 x 16 at 512; ``FmaBwd::FT`` in ``csrc/flash_bwd.cu``: 32,
-    16 at 512)."""
+    queries x 64 keys; dQ: 128 queries x 64 keys; dK/dV: 128 keys against
+    32 queries); the FMA kernels' (``FmaTiles`` in
+    ``csrc/flash_common.cuh``: 64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512
+    and in each 512-column chunk of a split head dim; ``FmaBwd::FT`` in
+    ``csrc/flash_bwd.cu``: 32, 16 from 512 on)."""
     if dtype == torch.float32 or width not in _TMA_WIDTHS[kernel]:
         if kernel in ("dq", "dkv"):
             ft = 16 if width > 256 else 32
@@ -267,7 +286,7 @@ def _kernel_tiles(kernel, width, dtype):
         return (32, 16) if width > 256 else (64, 32) if width > 128 else (64, 64)
     return {
         "fwd": {64: (192, 128), 128: (128, 128), 256: (128, 64)},
-        "dq": {64: (192, 64), 128: (128, 64)},
+        "dq": {64: (192, 64), 128: (128, 64), 256: (128, 64)},
         "dkv": {64: (64, 128), 128: (32, 128), 256: (32, 128)},
         "ring": {64: (192, 128), 128: (128, 128)},
     }[kernel][width]
@@ -349,3 +368,30 @@ def test_padded_ring_step_matches_jax(D, dtype):
     tol = PAD_TOL[dtype][0]  # f16: 1e-2, as before
     for name, a, b in zip(("o", "m", "l"), t, j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **tol)
+
+
+# The split head dim where the causal mask cuts through the chunk: the ring
+# step on the diagonal (q_off == k_off) at Dh 640 (two chunks of 512), with
+# GQA and a carry, against JAX's ring step in interpret mode; tolerances as
+# the padded ring step's (PAD_TOL's forward column).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_ring_step_on_the_diagonal_matches_jax(dtype):
+    B, C, H, KVH, D, off = 1, 192, 4, 2, 640, 192
+    rng = np.random.RandomState(11)
+    q, k, v = _qkv(B, C, H, D, seed=12, KVH=KVH)
+    o = (3 * rng.randn(B, C, H, D)).astype(np.float32)
+    m = rng.randn(B, H, C).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (B, H, C)).astype(np.float32)
+    j = jflash.flash_ring_step(
+        *(jnp.asarray(x, _JNP[dtype]) for x in (q, k, v)),
+        *(jnp.asarray(x) for x in (o, m, l)), off, off, True, interpret=True,
+    )
+    assert tflash.head_dim_chunks(tflash.kernel_head_dim(D)) == 2
+    t = _ring_emulated(
+        *(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+        *(torch.from_numpy(x) for x in (o, m, l)), off, off, True,
+    )
+    assert t[0].shape == (B, C, H, D) and t[0].dtype == torch.float32
+    for name, a, b in zip(("o", "m", "l"), t, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **PAD_TOL[dtype][0])

@@ -3,8 +3,8 @@
 The bf16 kernels' tiles:
 * the forward (``csrc/flash_fwd.cu``) and the ring step
   (``csrc/flash_ring.cu``): 192-query (128 at Dh = 128) by 128-key tiles;
-* dQ (``csrc/flash_bwd.cu``): 192-query (128 at Dh = 128) by 64-key
-  tiles;
+* dQ (``csrc/flash_bwd.cu``): 192-query (128 at Dh = 128 and 256) by
+  64-key tiles;
 * dK/dV (``csrc/flash_bwd.cu``): 128-key tiles against 64-query tiles (32
   at Dh = 128).
 The plain versions at those tilings are held against the JAX Pallas kernels
@@ -106,6 +106,25 @@ def test_plain_dq_at_the_kernel_tiling_matches_jax(case, block_q, block_k):
     t_dq = tflash.flash_bwd_dq_plain(
         tq, tk, tv, t_out, t_lse, tdo, causal, block_q, block_k
     )
+    np.testing.assert_allclose(t_dq.numpy(), np.asarray(j_dq), **GRAD)
+
+
+# dQ at Dh 256 (the 8-warp kernel: 128 query rows by 64 keys, one stage)
+# at its own head dim, on the shapes that stress its tiles: a ragged tail
+# of both, GQA, and a causal cross length
+DQ256_SHAPES = ["ragged-130", "gqa-4x2-ragged-200", "cross-140x300-causal"]
+
+
+@pytest.mark.parametrize("case", DQ256_SHAPES, ids=[f"bq128-bk64-dh256-{c}" for c in DQ256_SHAPES])
+def test_plain_dq_at_the_dh256_kernel_tiling_matches_jax(case):
+    B, Lq, Lk, H, KVH, _, causal = SHAPES[case]
+    q, k, v, do = _inputs(B, Lq, Lk, H, KVH, 256, seed=5)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    out, lse = jflash._flash_fwd_impl(jq, jk, jv, causal, 128, 128, None)
+    j_dq, _, _ = jflash._flash_bwd_impl(jq, jk, jv, out, lse, jdo, causal, 128, 64, None)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    t_out, t_lse = tflash.flash_attention_plain(tq, tk, tv, causal, 128, 128)
+    t_dq = tflash.flash_bwd_dq_plain(tq, tk, tv, t_out, t_lse, tdo, causal, 128, 64)
     np.testing.assert_allclose(t_dq.numpy(), np.asarray(j_dq), **GRAD)
 
 

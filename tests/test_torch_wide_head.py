@@ -1,6 +1,6 @@
 """A head dim of 256 with grouped-query attention -- the head geometry of
-Gemma-style decoders, which the CUDA forward and dK/dV kernels take on
-their TMA + wgmma path -- held against the JAX package with
+Gemma-style decoders, which the CUDA forward, dQ and dK/dV kernels take
+on their TMA + wgmma path -- held against the JAX package with
 ``attn_impl="flash"`` (JAX's Pallas kernels in interpret mode, the port's
 plain versions on the CPU): scoring through ``map_blocks`` and one train
 step's loss and gradients, on the same weights (``convert``).  Then the
@@ -123,12 +123,14 @@ def test_kernel_input_checks_at_256_with_gqa():
 def test_launches_are_counted_by_the_instantiation_the_kernel_reports():
     tflash.reset_launches()
     tflash._count("flash_fwd", ctypes.c_int(0), torch.bfloat16, 256)
-    tflash._count("flash_bwd_dq", ctypes.c_int(1), torch.bfloat16, 256)
+    tflash._count("flash_bwd_dq", ctypes.c_int(0), torch.bfloat16, 256)
     tflash._count("flash_bwd_dkv", ctypes.c_int(0), torch.float16, 256)
     tflash._count("flash_fwd", ctypes.c_int(0), torch.bfloat16, 256)
+    # a split head dim counts under its 512-wide build and its chunks
+    tflash._count("ring_step", ctypes.c_int(1), torch.float32, 1024)
     assert tflash.kernel_launches == {
-        "flash_fwd_tma<bf16,256>": 2, "flash_bwd_dq_fma<bf16,256>": 1,
-        "flash_bwd_dkv_tma<f16,256>": 1,
+        "flash_fwd_tma<bf16,256>": 2, "flash_bwd_dq_tma<bf16,256>": 1,
+        "flash_bwd_dkv_tma<f16,256>": 1, "ring_step_fma<f32,512>x2": 1,
     }
     tflash.reset_launches()
     assert tflash.kernel_launches == {} and tflash.launches == 0
