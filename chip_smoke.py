@@ -14,12 +14,13 @@ Phases, each printing its own lines and then its command time (``phase:``):
    per source, started together), with ptxas' register/spill report; every
    kernel's instantiations are asserted in the built code against
    ``built_instantiations``: the 16-bit TMA + wgmma kernels (bf16 and f16;
-   the forward, dQ and dK/dV at Dh 64, 128 and 256, the ring step at 64
-   and 128) with ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
-   in every instantiation's SASS (``cuobjdump``) and no ignored
-   ``setmaxnreg``; the FMA kernels (f32 at Dh 64, 128, 256 and 512, 16-bit
-   inputs at the widths above the TMA kernels') without them; 0 bytes of
-   ptxas spills in all;
+   the forward at Dh 64, 128, 256 and 512, dQ and dK/dV at 64, 128 and
+   256, the ring step at 64 and 128) with ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in every instantiation's SASS
+   (``cuobjdump``) and no ignored ``setmaxnreg``; the forward's f32 SIMT
+   kernel and the other kernels' FMA kernels (f32 at Dh 64, 128, 256 and
+   512, 16-bit inputs at the widths above their TMA kernels') with none of
+   them and no ``HMMA``; 0 bytes of ptxas spills in all;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
@@ -28,7 +29,9 @@ Phases, each printing its own lines and then its command time (``phase:``):
    128, Dh 160, 200 and 256 in bf16, f16 and f32 (the Dh-256 TMA forward,
    dQ and dK/dV also at the wide-head path's shape, at cross lengths both
    ways and on strided views), Dh 320 and 512 on the 512-wide build, and
-   Dh 640 and 1024 split into chunks of 512 in bf16, f16 and f32),
+   Dh 640, 1024 and 1536 split into chunks of 512 in bf16, f16 and f32,
+   a Dh-512 length that wraps the wide forward's slots 32 times, f32 on
+   strided views),
    with stated tolerances, each launch held to the instantiation the
    dispatch must pick (``route_of``); the ring step also keeps a dominant
    carry (m above every score of the chunk by > 30) to f32 rounding, in
@@ -56,7 +59,10 @@ Phases, each printing its own lines and then its command time (``phase:``):
    (remat "none") through ``FrameLoader`` and ``fit``: launches by
    instantiation (the TMA forward, dQ and dK/dV), ms per
    block and step, tokens/s, counted TFLOP/s, peak memory, nll against
-   ``"full"`` and a B=2 step against ``"full"``; then the
+   ``"full"`` and a B=2 step against ``"full"``; then the forward legs,
+   scored the same way: the same widths at 2 heads over 1 kv head (Dh 512,
+   only ``flash_fwd_tma<bf16,512>``) and the flagship's widths in f32
+   (only ``flash_fwd_simt<f32,64>``), nll against ``"full"``; then the
    small-head slice: a Dh = 32 model (d_model 128, 4 heads) scores a frame
    with ``attn_impl="flash"`` (forward launches ``n_layers x blocks``; nll
    against the CPU path, f32 at 1e-4 and bf16 at the slice's 3e-2);
@@ -104,7 +110,7 @@ Phases, each printing its own lines and then its command time (``phase:``):
    against flash at sp = 1 (loss and gradient norm); a small f32 model
    trained three steps under the mesh on the card and on the CPU;
    with ``--profile``, device time by kernel over one block and one train
-   step of each slice;
+   step of each slice (and one block of each forward leg);
 9. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
@@ -178,7 +184,8 @@ KERNEL_CASES = [
     # Dh 256: the TMA forward, dQ and dK/dV in bf16 and
     # f16, Dh 160 padded to 256, causal and not, GQA, ragged, cross lengths
     # both ways, strided views, and the wide-head slice's own shape (the
-    # flagship's B and L at 4 heads over 2 kv heads); f32 on the FMA kernels
+    # flagship's B and L at 4 heads over 2 kv heads); f32 on the SIMT forward
+    # and the FMA backward
     ("bf16_dh160", dict(B=2, Lq=700, Lk=700, H=8, KVH=2, D=160, dtype=torch.bfloat16, causal=True)),
     ("bf16_dh256", dict(B=2, Lq=1000, Lk=1000, H=8, KVH=4, D=256, dtype=torch.bfloat16, causal=False)),
     ("f16_dh160_cross", dict(B=2, Lq=300, Lk=500, H=4, KVH=2, D=160, dtype=torch.float16, causal=False)),
@@ -195,13 +202,14 @@ KERNEL_CASES = [
                                       causal=True, layout="fused")),
     ("f16_dh200_ragged130", dict(B=2, Lq=130, Lk=130, H=4, KVH=4, D=200, dtype=torch.float16,
                                  causal=True)),
-    # head dims 257..512: every kernel's FMA build at 512 (Dh 320 padded)
+    # head dims 257..512: the forward's 512-wide TMA and SIMT builds, the
+    # backward's FMA builds (Dh 320 padded)
     ("bf16_dh320", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=320, dtype=torch.bfloat16, causal=True)),
     ("f16_dh320_cross", dict(B=2, Lq=200, Lk=260, H=4, KVH=2, D=320, dtype=torch.float16,
                              causal=False)),
     ("f32_dh320", dict(B=2, Lq=257, Lk=257, H=4, KVH=2, D=320, dtype=torch.float32, causal=True)),
     ("bf16_dh512", dict(B=2, Lq=200, Lk=200, H=2, KVH=1, D=512, dtype=torch.bfloat16, causal=True)),
-    # head dims above 512: the 512-wide FMA builds split into chunks of 512
+    # head dims above 512: the 512-wide builds split into chunks of 512
     # columns (640 padded to 1024: two; 1024 itself), each dtype, causal and
     # not, GQA, ragged and cross lengths
     ("bf16_dh640", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=640, dtype=torch.bfloat16, causal=True)),
@@ -213,6 +221,22 @@ KERNEL_CASES = [
     ("f16_dh1024", dict(B=1, Lq=130, Lk=130, H=2, KVH=2, D=1024, dtype=torch.float16, causal=True)),
     ("f32_dh1024_cross", dict(B=1, Lq=200, Lk=140, H=2, KVH=1, D=1024, dtype=torch.float32,
                               causal=True)),
+    # the 16-bit forward's wide TMA body at Dh 512 and above: three chunks
+    # of 512 (six 256-column output chunks, Q streamed), ragged and GQA; a
+    # causal cross length; a length whose key tiles wrap the two half slots
+    # 32 times a CTA, causal, 2:1 GQA
+    ("bf16_dh1536", dict(B=1, Lq=300, Lk=300, H=4, KVH=2, D=1536, dtype=torch.bfloat16,
+                         causal=True)),
+    ("bf16_dh512_cross_causal", dict(B=2, Lq=200, Lk=330, H=2, KVH=2, D=512,
+                                     dtype=torch.bfloat16, causal=True)),
+    ("bf16_dh512_long", dict(B=1, Lq=2048, Lk=2048, H=2, KVH=1, D=512, dtype=torch.bfloat16,
+                             causal=True)),
+    # the f32 SIMT forward on strided views of one fused projection, and at
+    # Dh 64 with a causal cross length (the top-left mask)
+    ("f32_dh128_strided_fused", dict(B=2, Lq=300, Lk=300, H=8, KVH=2, D=128,
+                                     dtype=torch.float32, causal=True, layout="fused")),
+    ("f32_dh64_cross_causal", dict(B=2, Lq=130, Lk=300, H=4, KVH=2, D=64, dtype=torch.float32,
+                                   causal=True)),
 ]
 # f16 rounds finer than bf16 (2^-11 against 2^-8), so it has limits of its
 # own, between what the sound kernels need on an H100 (least_tol: out
@@ -362,6 +386,17 @@ REMAT_LOSS_TOL = 1e-3
 # the gradient norm agrees in relative terms
 FULL_LOSS_TOL, FULL_GRAD_NORM_RTOL = 3e-2, 5e-2
 SMALL_TRAIN_TOL = 1e-4  # f32, three steps, card vs CPU: summation order
+
+# the forward legs, scored as the wide-head path is (16 rows of 2048 tokens
+# in 2 blocks): the wide-head widths at 2 heads over 1 kv head (Dh 512, 2:1
+# GQA), and the flagship's widths in f32 (params 0.47 GB; "full" holds one
+# layer's [8, 16, 2048, 2048] f32 scores, 2.1 GB)
+DH512_MODEL = dict(WIDE_MODEL, n_heads=2, n_kv_heads=1)
+F32_MODEL = dict(TRAIN_MODEL, dtype=torch.float32, remat_policy="none")
+# flash vs full in f32 end to end (TF32 off): the two differ by summation
+# order and exp's rounding (~1e-6 relative a layer), while a wrong tile,
+# mask or scale moves a mean nll of ~9 by 1e-2 or more
+F32_NLL_TOL = 1e-4
 
 # the ring slices: the flagship widths at 8192 tokens, split over sp = 4
 # ranks on the one card (chunks of 2048); "auto" resolves to "ring_flash"
@@ -550,14 +585,16 @@ def phase_build():
 
 # The instantiations each kernel is built at, (element type, Dh), and the
 # route each (dtype, width) must take, as csrc/ dispatches them: the
-# TMA + wgmma kernels for bf16 and f16 (the forward, dQ and dK/dV to Dh
-# 256, the ring step to 128), the FMA kernels (tiles widened to f32) for
-# f32 at every width and for 16-bit inputs above those widths; a width
-# above 512 runs the 512-wide FMA build split into chunks of 512
+# TMA + wgmma kernels for bf16 and f16 (the forward at every width, dQ and
+# dK/dV to Dh 256, the ring step to 128); for f32 the forward's SIMT kernel
+# (register tiles, exact f32 FMAs) and the others' FMA kernels (tiles
+# widened to f32), which also take 16-bit inputs above their TMA widths; a
+# width above 512 runs the 512-wide build split into chunks of 512
 T16 = ("bf16", "f16")
 WIDTHS = (64, 128, 256, 512)
-TMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
+TMA_WIDTHS = {"flash_fwd": (64, 128, 256, 512), "flash_bwd_dq": (64, 128, 256),
               "flash_bwd_dkv": (64, 128, 256), "ring_step": (64, 128)}
+ROUTES = ("tma", "fma", "simt")
 SOURCE_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
              "flash_bwd_dkv": "flash_bwd", "ring_step": "flash_ring"}
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
@@ -566,12 +603,16 @@ MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
 
 
 def built_instantiations(kernel, route):
-    """{(type, Dh)} that csrc/ must build of ``<kernel>_<route>``."""
+    """{(type, Dh)} that csrc/ must build of ``<kernel>_<route>``: the
+    forward has no FMA kernel left and the others no SIMT kernel."""
     tma = TMA_WIDTHS[kernel]
+    f32 = {("f32", d) for d in WIDTHS}
     if route == "tma":
         return {(t, d) for t in T16 for d in tma}
-    return {("f32", d) for d in WIDTHS} | {(t, d) for t in T16 for d in WIDTHS
-                                           if d not in tma}
+    if route == "simt":
+        return f32 if kernel == "flash_fwd" else set()
+    wide16 = {(t, d) for t in T16 for d in WIDTHS if d not in tma}
+    return wide16 if kernel == "flash_fwd" else f32 | wide16
 
 
 def route_of(kernel, dtype, width):
@@ -579,11 +620,16 @@ def route_of(kernel, dtype, width):
     ``flash.kernel_launches`` names it (a split width with its chunks)."""
     from tensorframes_tpu_torch.parallel import flash
 
-    tma = DTYPE_NAMES[dtype] != "f32" and width in TMA_WIDTHS[kernel]
-    return flash.launch_name(kernel, "tma" if tma else "fma", dtype, width)
+    if kernel == "flash_fwd":
+        route = flash.fwd_route(dtype)
+    else:
+        tma = DTYPE_NAMES[dtype] != "f32" and width in TMA_WIDTHS[kernel]
+        route = "tma" if tma else "fma"
+    return flash.launch_name(kernel, route, dtype, width)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG")
+# wgmma, a TMA load, and mma.sync (HMMA: tensor cores without wgmma)
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
 def ptxas_spills(log):
@@ -602,7 +648,8 @@ def ptxas_spills(log):
 def check_hopper_design(_build):
     """Every kernel as built: exactly the instantiations of
     ``built_instantiations``, 0 spill bytes in all; HGMMA and UTMALDG in
-    every TMA kernel instantiation's SASS (and in no FMA kernel's), and no
+    every TMA kernel instantiation's SASS, and none of HGMMA, UTMALDG and
+    HMMA in any FMA or SIMT kernel's (exact f32 on the FMA pipe); no
     setmaxnreg that ptxas ignored (C7508).  Returns {source: [built
     instantiation names]}."""
     sass_of = {src: subprocess.run(
@@ -615,7 +662,7 @@ def check_hopper_design(_build):
         if "C7508" in log:
             raise AssertionError(f"{src}: ptxas ignored setmaxnreg (C7508)")
         spills_all = ptxas_spills(log)
-        for route in ("tma", "fma"):
+        for route in ROUTES:
             name = f"{kernel}_{route}"
             pat = re.compile(rf"\d+{name}I({'|'.join(MANGLED_TYPES)})Li(\d+)E")
             counts = {}
@@ -629,7 +676,7 @@ def check_hopper_design(_build):
             if set(counts) != want:
                 raise AssertionError(f"{name}: built {sorted(counts)}, expected {sorted(want)}")
             tensor_core = route == "tma"
-            if any((0 in c.values()) if tensor_core else sum(c.values())
+            if any((0 in (c["HGMMA"], c["UTMALDG"])) if tensor_core else sum(c.values())
                    for c in counts.values()):
                 raise AssertionError(f"{name}: SASS counts of {SASS_OPS}: {counts}")
             spills = {fn: v for fn, v in spills_all.items() if pat.search(fn)}
@@ -874,8 +921,8 @@ def phase_timing():
 
 
 # each kernel at a padded head dim, in f16, at Dh = 256 (the wide-head
-# path's GQA too), in f32 at every built width (the FMA kernels), in bf16
-# at 512 (the 16-bit FMA build) and split above 512 (Dh 640 padded to 1024
+# path's GQA too), in f32 at every built width (the SIMT forward, the FMA
+# backward), in bf16 at 512 and split above 512 (Dh 640 padded to 1024
 # and 1024 itself, each two chunks of 512), at the flagship's batch, length
 # and d_model (H = 1024 / Dh; 2 heads at 640); records only, the bound is
 # each variant's true work, f32's at the FMA pipe's rate
@@ -892,13 +939,15 @@ VARIANTS = {
     "dh640_bf16": dict(FLAGSHIP, D=640, H=2, KVH=2),
     "dh1024_bf16": dict(FLAGSHIP, D=1024, H=1, KVH=1),
 }
-# the FMA kernels take 7-32 ms a call at these shapes: fewer timed calls
+# the FMA kernels (the backward and the ring step in f32 and above Dh 256)
+# take 7-82 ms a call at these shapes: fewer timed calls
 FMA_ITERS = 5
 
 
 def variant_iters(c):
-    """Timed calls of a variant's kernels: 20, or FMA_ITERS where every
-    kernel runs on the FMA pipe (f32, and 16-bit above Dh 256)."""
+    """Timed calls of a variant's kernels: 20, or FMA_ITERS where the
+    backward and the ring step run FMA kernels (f32, and 16-bit above Dh
+    256)."""
     return FMA_ITERS if c["dtype"] == torch.float32 or c["D"] > 256 else 20
 
 
@@ -1125,22 +1174,21 @@ def phase_slice():
 
 
 
-def phase_wide_head():
-    """The wide-head path: the flagship's widths at 4 heads over 2 kv heads
-    (Dh 256, 2:1 GQA), scored through Program -> map_blocks and trained
-    through FrameLoader -> train.fit with remat "none", on the Dh-256
-    forward, dQ and dK/dV TMA kernels.  Launch counts by
-    instantiation, nll against "full", a B=2 step against "full".  Returns
-    the two runs' launches by instantiation, and (program, one block,
-    config, train config, params, loader) for profiling."""
-    from tensorframes_tpu_torch import TensorFrame, data, map_blocks, train
-    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+def score_leg(tag, cfg, params, seed, nll_tol, route):
+    """One scoring leg: WIDE_ROWS seeded rows of WIDE_L tokens in
+    WIDE_BLOCKS blocks, scored by ``cfg`` through Program -> map_blocks
+    after a warm-up block; the forward's launches, counted over that run
+    alone, must be n_layers x blocks of the ``route`` instantiation at the
+    model's head dim and nothing else; nll, perplexity and embedding of the
+    expected shapes and finite, and nll within ``nll_tol`` of the same
+    frame scored with attn_impl="full".  Returns (launches by
+    instantiation, program, one block)."""
+    from tensorframes_tpu_torch import TensorFrame, map_blocks
+    from tensorframes_tpu_torch.models import scoring
     from tensorframes_tpu_torch.parallel import flash
 
-    cfg = tfm.TransformerConfig(**WIDE_MODEL)
     width = flash.kernel_head_dim(cfg.d_model // cfg.n_heads)
-    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
-    tokens = np.random.RandomState(7).randint(
+    tokens = np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (WIDE_ROWS, WIDE_L)).astype(np.int32)
     frame = TensorFrame.from_arrays({"tokens": tokens}, num_blocks=WIDE_BLOCKS)
     block = TensorFrame.from_arrays({"tokens": tokens[: WIDE_ROWS // WIDE_BLOCKS]})
@@ -1158,23 +1206,43 @@ def phase_wide_head():
     prog = scoring.scoring_program(params, cfg, fetches=scoring.FETCHES)
     out, sec, scored, peak = score(prog)
     want = {route_of("flash_fwd", cfg.dtype, width): cfg.n_layers * WIDE_BLOCKS}
-    if scored != want or not all("_tma<" in k for k in want):
-        raise AssertionError(f"wide-head scoring: launched {scored}, expected {want}")
+    if scored != want or not all(f"_{route}<" in k for k in want):
+        raise AssertionError(f"{tag} scoring: launched {scored}, expected {want}")
     for key, shape in (("nll", (WIDE_ROWS,)), ("perplexity", (WIDE_ROWS,)),
                        ("embedding", (WIDE_ROWS, cfg.d_model))):
         if out[key].shape != shape or not np.isfinite(out[key]).all():
-            raise AssertionError(f"wide-head {key}: shape {out[key].shape} or non-finite")
+            raise AssertionError(f"{tag} {key}: shape {out[key].shape} or non-finite")
     full, full_sec, _, full_peak = score(scoring.scoring_program(
         params, dataclasses.replace(cfg, attn_impl="full"), fetches=("nll",)))
     diff = float(np.abs(full["nll"] - out["nll"]).max())
-    if not diff <= NLL_TOL:
-        raise AssertionError(f"wide-head nll flash vs full: max |diff| {diff} > {NLL_TOL}")
-    say("wide_head", leg="score", attn_impl="flash", head_dim=width, n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads, rows=WIDE_ROWS, tokens_per_row=WIDE_L,
-        blocks=WIDE_BLOCKS, seconds=sec, ms_per_block=sec / WIDE_BLOCKS * 1e3,
-        tokens_per_s=WIDE_ROWS * WIDE_L / sec, peak_bytes=peak, launched=scored,
-        nll_mean=float(out["nll"].mean()), full_ms_per_block=full_sec / WIDE_BLOCKS * 1e3,
-        full_peak_bytes=full_peak, nll_max_abs_diff_vs_full=diff, nll_tol=NLL_TOL)
+    if not diff <= nll_tol:
+        raise AssertionError(f"{tag} nll flash vs full: max |diff| {diff} > {nll_tol}")
+    say(tag, leg="score", attn_impl="flash", dtype=str(cfg.dtype), head_dim=width,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, rows=WIDE_ROWS,
+        tokens_per_row=WIDE_L, blocks=WIDE_BLOCKS, seconds=sec,
+        ms_per_block=sec / WIDE_BLOCKS * 1e3, tokens_per_s=WIDE_ROWS * WIDE_L / sec,
+        peak_bytes=peak, launched=scored, nll_mean=float(out["nll"].mean()),
+        full_ms_per_block=full_sec / WIDE_BLOCKS * 1e3, full_peak_bytes=full_peak,
+        nll_max_abs_diff_vs_full=diff, nll_tol=nll_tol)
+    return scored, prog, block
+
+
+def phase_wide_head():
+    """The wide-head path: the flagship's widths at 4 heads over 2 kv heads
+    (Dh 256, 2:1 GQA), scored through Program -> map_blocks and trained
+    through FrameLoader -> train.fit with remat "none", on the Dh-256
+    forward, dQ and dK/dV TMA kernels.  Launch counts by
+    instantiation, nll against "full", a B=2 step against "full".  Returns
+    the two runs' launches by instantiation, and (program, one block,
+    config, train config, params, loader) for profiling."""
+    from tensorframes_tpu_torch import TensorFrame, data, train
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    cfg = tfm.TransformerConfig(**WIDE_MODEL)
+    width = flash.kernel_head_dim(cfg.d_model // cfg.n_heads)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    scored, prog, block = score_leg("wide_head", cfg, params, 7, NLL_TOL, "tma")
 
     # one epoch of training from a FrameLoader, after a warm-up step
     tc = train.TrainConfig(learning_rate=3e-4)
@@ -1212,6 +1280,25 @@ def phase_wide_head():
         peak_bytes=peak, launched=trained, losses=losses)
     flash_vs_full_step("wide_head", cfg, tc, start_params, toks[:2])
     return scored, trained, (prog, block, cfg, tc, params, loader)
+
+
+def phase_forward_legs():
+    """The forward's two redesigned kernels, each on a scoring path of its
+    own (``score_leg``): the wide-head widths at 2 heads over 1 kv head
+    (Dh 512, 2:1 GQA) on ``flash_fwd_tma<bf16,512>``, and the flagship's
+    widths in f32 (TF32 off) on ``flash_fwd_simt<f32,64>``.  Returns the
+    two runs' launches by instantiation, and {leg: (program, one block)}
+    for profiling."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    runs, legs = [], {}
+    for tag, model, seed, tol, route in (("dh512_leg", DH512_MODEL, 9, NLL_TOL, "tma"),
+                                         ("f32_leg", F32_MODEL, 10, F32_NLL_TOL, "simt")):
+        cfg = tfm.TransformerConfig(**model)
+        params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        scored, *legs[tag] = score_leg(tag, cfg, params, seed, tol, route)
+        runs.append(scored)
+    return runs, legs
 
 
 def phase_small_head_slice():
@@ -2144,10 +2231,10 @@ def profile_step(label, cfg, tc, params, loader) -> None:
     profile_kernels(label, one_step)
 
 
-def phase_profile(prog, frame, train_run, wide_run, ring_run, ring_train_run) -> None:
+def phase_profile(prog, frame, train_run, wide_run, legs, ring_run, ring_train_run) -> None:
     """One block and one train step of each slice: flash at 2048 tokens
-    (the flagship and the wide-head model), and the ring at 8192 tokens
-    over sp = 4."""
+    (the flagship and the wide-head model), one block of each forward leg,
+    and the ring at 8192 tokens over sp = 4."""
     from tensorframes_tpu_torch import TensorFrame, map_blocks
     from tensorframes_tpu_torch.parallel import mesh
 
@@ -2158,6 +2245,9 @@ def phase_profile(prog, frame, train_run, wide_run, ring_run, ring_train_run) ->
     profile_kernels("wide-head score one block",
                     lambda: map_blocks(wide_prog, wide_block).to_arrays())
     profile_step("wide-head train one step", *wide_train)
+    for tag, (leg_prog, leg_block) in legs.items():
+        profile_kernels(f"{tag} score one block",
+                        lambda: map_blocks(leg_prog, leg_block).to_arrays())
     ring_prog, ring_block, ring_mesh = ring_run[1:4]
     with mesh.set_mesh(ring_mesh):
         profile_kernels("ring score one block",
@@ -2202,7 +2292,7 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
                         **timing[name])
         entries.append(dict(name=name, **common, **head,
                             instantiation=route_of(family, FLAGSHIP["dtype"], 64),
-                            built=built[f"{family}_tma"] + built[f"{family}_fma"]))
+                            built=[n for r in ROUTES for n in built[f"{family}_{r}"]]))
         for variant, row in timing["variants"][name].items():
             c = VARIANTS[variant]
             inst = route_of(family, c["dtype"], flash.kernel_head_dim(c["D"]))
@@ -2244,6 +2334,7 @@ def main() -> int:
     timing = run_phase(phase_timing)
     prog, frame, slice_launches = run_phase(phase_slice)
     *wide_launches, wide_run = run_phase(phase_wide_head)
+    leg_launches, legs = run_phase(phase_forward_legs)
     run_phase(phase_small_head_slice)
     run_phase(phase_verbs)
     run_phase(phase_crossover)
@@ -2253,9 +2344,10 @@ def main() -> int:
     ring_run = run_phase(phase_ring_slice)
     ring_train_run = run_phase(phase_ring_train, ring_run[3])
     if args.profile:
-        run_phase(phase_profile, prog, frame, train_run, wide_run, ring_run, ring_train_run)
+        run_phase(phase_profile, prog, frame, train_run, wide_run, legs, ring_run,
+                  ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
-        slice_launches, *wide_launches, train_run[5], ring_run[4]])
+        slice_launches, *wide_launches, *leg_launches, train_run[5], ring_run[4]])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)
     print(json.dumps(record), flush=True)

@@ -3,11 +3,12 @@
 // for the exp2 softmax, the packing of two f32 values into a pair of
 // the element type -- the step that turns a wgmma accumulator (P, dS) into
 // the register A fragment of the next product, and an f32 result into its
-// stored output -- and the element conversions of the FMA kernels, which
-// hold every tile in f32 whatever the element type (f32 at any head dim;
-// bf16 and f16 at the head dims above the tensor-core kernels': 512 for
-// all four, 256 for the ring step), and the rule that splits a head dim
-// above 512 into chunks of 512 (SPLIT, chunk_width).
+// stored output -- and the element conversions of the backward's and the
+// ring step's FMA kernels, which hold every tile in f32 whatever the
+// element type (f32 at any head dim; bf16 and f16 at the head dims above
+// those kernels' tensor-core builds: 512 for dQ and dK/dV, 256 for the ring
+// step), and the rule that splits a head dim above 512 into chunks of 512
+// (SPLIT, chunk_width), which the forward follows too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,9 +97,9 @@ __device__ __forceinline__ float4 load4<f16>(const f16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// The forward's and the ring step's FMA tiling at head dim D: a lane pair
-// per query row (half the keys each for the scores, half of D each for
-// P V), Q, K and V tiles in shared memory as f32 with rows of D + 8, the
+// The ring step's FMA tiling at head dim D: a lane pair per query row
+// (half the keys each for the scores, half of D each for P V), Q, K and V
+// tiles in shared memory as f32 with rows of D + 8, the
 // scores (then P) and the output accumulator beside them.  The tiles shrink
 // with D to fit the 227 KB a block may hold: 64 queries x 64 keys up to
 // D = 128, 64 x 32 at D = 256 (206 KB), 32 x 16 at D = 512 (202 KB, also

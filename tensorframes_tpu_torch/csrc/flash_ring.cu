@@ -141,13 +141,13 @@ struct Carry {
   float* l_out;
 };
 
-// flash_fwd.cu::flash_fwd_tma holds a second copy of this loop (the same
-// roles, ring, barrier phases, masks and early tile release), kept apart
-// because one shared loop made the forward 2-4% slower (PERF.md).  A fix
-// to any of those here is made there too, and the other way round.  The
-// copies differ on purpose only in the prologue and epilogue (carry in and
-// out here; 1/l and lse there), the global offsets of the mask, and alpha,
-// which here is exactly 1 while the max holds.
+// flash_fwd.cu::fwd_narrow (flash_fwd_tma below Dh 512) holds a second
+// copy of this loop (the same roles, ring, barrier phases, masks and early
+// tile release), kept apart because one shared loop made the forward 2-4%
+// slower (PERF.md).  A fix to any of those here is made there too, and the
+// other way round.  The copies differ on purpose only in the prologue and
+// epilogue (carry in and out here; 1/l and lse there), the global offsets
+// of the mask, and alpha, which here is exactly 1 while the max holds.
 template <typename T, int D>
 __global__ void __launch_bounds__(Ring<D>::THREADS, 1)
 ring_step_tma(const __grid_constant__ CUtensorMap q_map,
@@ -411,11 +411,12 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v,
 // per query row, tiles in shared memory as f32; FmaTiles in
 // flash_common.cuh).  A head dim of nc * D (nc > 1: above the widest build,
 // padded to a multiple of it, the carried o with it) is split into nc
-// chunks of D columns, one per blockIdx.z, as in flash_fwd.cu::
-// flash_fwd_fma: every chunk's block forms S = sum_c Q_c K_c^T in chunk
-// order and runs the same online softmax from the same carried m and l,
-// and folds only its own chunk of o (P V_c); chunk 0 writes m_out and
-// l_out, which no block reads (the carry comes in through m_in, l_in).
+// chunks of D columns, one per blockIdx.z, as the forward's f32 kernel
+// (flash_fwd.cu::flash_fwd_simt) splits its own: every chunk's block forms
+// S = sum_c Q_c K_c^T in chunk order and runs the same online softmax from
+// the same carried m and l, and folds only its own chunk of o (P V_c);
+// chunk 0 writes m_out and l_out, which no block reads (the carry comes in
+// through m_in, l_in).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>

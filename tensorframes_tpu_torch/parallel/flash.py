@@ -28,18 +28,20 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
   the C side encodes (``csrc/hopper.cuh``); :func:`tma_tile_map` is the
   same arithmetic in Python, and :func:`check_kernel_inputs` raises before
   a launch for what a descriptor refuses.
-* Every kernel is built for head dims 64, 128, 256 and 512.  The 16-bit
-  inputs take the TMA + ``wgmma`` kernels at 64 and 128, and the forward,
-  dQ and dK/dV at 256 too; the rest (f32 at every width, the ring step at
-  256, all four at 512) are FMA kernels on tiles widened to f32.  Every
-  head dim runs, as JAX's kernels take any: the wrappers zero-pad it to
-  the next built width, or above 512 to the next multiple of 512, and
-  slice the results back (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)``
-  of the true dim as the scale.  A multiple of 512 above it runs the
-  512-wide FMA build split into chunks of 512 columns, one grid axis over
-  them (:func:`head_dim_chunks`): each chunk's blocks recompute the scores
-  over the whole head dim and produce only their own chunk of the output
-  (or of dQ, dK and dV).
+* Every kernel is built for head dims 64, 128, 256 and 512.  The forward
+  takes the TMA + ``wgmma`` kernel for 16-bit inputs at every width and a
+  register-tiled SIMT kernel (exact f32 FMAs) for f32 (:func:`fwd_route`);
+  the backward and the ring step take their TMA + ``wgmma`` kernels for
+  16-bit inputs at 64 and 128 (dQ and dK/dV at 256 too) and FMA kernels on
+  tiles widened to f32 for the rest.  Every head dim runs, as JAX's
+  kernels take any: the wrappers zero-pad it to the next built width, or
+  above 512 to the next multiple of 512, and slice the results back
+  (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the true dim as the
+  scale.  A multiple of 512 above it runs the 512-wide build with its
+  chunks of 512 columns (:func:`head_dim_chunks`): a grid axis over chunks
+  of the output (256 columns in the 16-bit forward), each chunk's blocks
+  recomputing the scores over the whole head dim and producing only their
+  own columns of the output (or of dQ, dK and dV).
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -74,7 +76,7 @@ launches_dkv = 0
 launches_ring = 0
 # the same launches by the instantiation the C entry point reports it ran,
 # e.g. "flash_fwd_tma<bf16,256>" or "flash_bwd_dq_fma<f32,512>", and a
-# split head dim with its chunks, e.g. "flash_fwd_fma<bf16,512>x2" at 1024
+# split head dim with its chunks, e.g. "flash_fwd_tma<bf16,512>x2" at 1024
 kernel_launches: Dict[str, int] = {}
 
 
@@ -84,13 +86,22 @@ def reset_launches() -> None:
     kernel_launches.clear()
 
 
-_ROUTES = ("tma", "fma")  # the C entry points' *route: 0 and 1
+# the C entry points' *route: 0, 1 and 2 (the forward takes 0 and 2, the
+# others 0 and 1)
+_ROUTES = ("tma", "fma", "simt")
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def fwd_route(dtype: torch.dtype) -> str:
+    """The route ``csrc/flash_fwd.cu`` launches for ``dtype`` at every head
+    dim: "tma" (``flash_fwd_tma``, TMA + ``wgmma``) for bf16 and f16,
+    "simt" (``flash_fwd_simt``, register-tiled exact f32 FMAs) for f32."""
+    return "simt" if dtype == torch.float32 else "tma"
 
 
 def launch_name(kernel: str, route: str, dtype: torch.dtype, width: int) -> str:
     """The name :data:`kernel_launches` counts a launch of ``kernel`` by
-    ``route`` ("tma" or "fma") at head dim ``width`` under: the
+    ``route`` ("tma", "fma" or "simt") at head dim ``width`` under: the
     instantiation, and the chunks of a split head dim."""
     chunks = head_dim_chunks(width)
     name = f"{kernel}_{route}<{_DTYPE_NAMES[dtype]},{width // chunks}>"

@@ -264,28 +264,36 @@ _JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
         torch.bfloat16: jnp.bfloat16}
 
 
-# the widths each 16-bit tensor-core kernel is built at (csrc/); f32, and
-# 16-bit inputs wider than these, take the FMA kernels
-_TMA_WIDTHS = {"fwd": (64, 128, 256), "dq": (64, 128, 256), "dkv": (64, 128, 256),
-               "ring": (64, 128)}
+# the widths each 16-bit tensor-core kernel of the backward and the ring
+# step is built at (csrc/); f32, and 16-bit inputs wider than these, take
+# their FMA kernels (the forward takes its TMA kernel at every width, and
+# its SIMT kernel for f32)
+_TMA_WIDTHS = {"dq": (64, 128, 256), "dkv": (64, 128, 256), "ring": (64, 128)}
 
 
 def _kernel_tiles(kernel, width, dtype):
     """(block_q, block_k) of the CUDA kernel that runs ``dtype`` at head dim
     ``width``: the tensor-core kernels' as ``csrc/`` builds them and
     ``test_torch_flash_tiling.py`` pins them (the forward at Dh 256: 128
-    queries x 64 keys; dQ: 128 queries x 64 keys; dK/dV: 128 keys against
-    32 queries); the FMA kernels' (``FmaTiles`` in
-    ``csrc/flash_common.cuh``: 64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512
-    and in each 512-column chunk of a split head dim; ``FmaBwd::FT`` in
-    ``csrc/flash_bwd.cu``: 32, 16 from 512 on)."""
+    queries x 64 keys, and at 512 and in each 512-column chunk of a split
+    head dim the same; dQ: 128 queries x 64 keys; dK/dV: 128 keys against
+    32 queries); the forward's f32 SIMT kernel's (``Simt`` in
+    ``csrc/flash_fwd.cu``: 64 x 64, 64 x 32 at Dh 128, 32 x 32 from 256
+    on); the FMA kernels' (``FmaTiles`` in ``csrc/flash_common.cuh``:
+    64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512 and in each 512-column chunk
+    of a split head dim; ``FmaBwd::FT`` in ``csrc/flash_bwd.cu``: 32, 16
+    from 512 on)."""
+    w = min(width, 512)  # a split head dim runs the 512-wide build
+    if kernel == "fwd" and dtype == torch.float32:
+        return (32, 32) if w >= 256 else (64, 32) if w == 128 else (64, 64)
+    if kernel == "fwd":
+        return {64: (192, 128), 128: (128, 128)}.get(w, (128, 64))
     if dtype == torch.float32 or width not in _TMA_WIDTHS[kernel]:
         if kernel in ("dq", "dkv"):
             ft = 16 if width > 256 else 32
             return ft, ft
         return (32, 16) if width > 256 else (64, 32) if width > 128 else (64, 64)
     return {
-        "fwd": {64: (192, 128), 128: (128, 128), 256: (128, 64)},
         "dq": {64: (192, 64), 128: (128, 64), 256: (128, 64)},
         "dkv": {64: (64, 128), 128: (32, 128), 256: (32, 128)},
         "ring": {64: (192, 128), 128: (128, 128)},

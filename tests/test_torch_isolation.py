@@ -76,7 +76,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
         re.M,
     )
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "dq_tile_variant.py"]
+                                         ROOT / "tools" / "dq_tile_variant.py",
+                                         ROOT / "tools" / "fwd_simt_variant.py"]
     assert len(files) > 10
     assert {"train.py", "data.py", "checkpoint.py", "mesh.py", "ring.py", "flash.py",
             "importer.py", "ops.py", "inception.py", "vgg.py", "dsl.py", "builder.py"} <= {
