@@ -14,13 +14,15 @@ Phases, each printing its own lines and then its command time (``phase:``):
    per source, started together), with ptxas' register/spill report; every
    kernel's instantiations are asserted in the built code against
    ``built_instantiations``: the 16-bit TMA + wgmma kernels (bf16 and f16;
-   the forward at Dh 64, 128, 256 and 512, dQ and dK/dV at 64, 128 and
-   256, the ring step at 64 and 128) with ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions in every instantiation's SASS
-   (``cuobjdump``) and no ignored ``setmaxnreg``; the forward's f32 SIMT
-   kernel and the other kernels' FMA kernels (f32 at Dh 64, 128, 256 and
-   512, 16-bit inputs at the widths above their TMA kernels') with none of
-   them and no ``HMMA``; 0 bytes of ptxas spills in all;
+   the forward, dQ and dK/dV at Dh 64, 128, 256 and 512, the ring step at
+   64 and 128) with ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions in every instantiation's SASS (``cuobjdump``), no
+   ignored ``setmaxnreg``, and the instantiations whose wgmma ptxas
+   serialized (C7518) named, none allowed in dQ and dK/dV; the
+   forward's f32 SIMT kernel, the backward's f32 FMA kernels and the ring
+   step's FMA kernel (f32 at Dh 64, 128, 256 and 512, 16-bit inputs at 256
+   and 512) with none of them and no ``HMMA``; 0 bytes of ptxas spills in
+   all;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
@@ -30,8 +32,8 @@ Phases, each printing its own lines and then its command time (``phase:``):
    dQ and dK/dV also at the wide-head path's shape, at cross lengths both
    ways and on strided views), Dh 320 and 512 on the 512-wide build, and
    Dh 640, 1024 and 1536 split into chunks of 512 in bf16, f16 and f32,
-   a Dh-512 length that wraps the wide forward's slots 32 times, f32 on
-   strided views),
+   a Dh-512 length that wraps the wide forward's and backward's slots
+   many times, f32 on strided views),
    with stated tolerances, each launch held to the instantiation the
    dispatch must pick (``route_of``); the ring step also keeps a dominant
    carry (m above every score of the chunk by > 30) to f32 rounding, in
@@ -47,7 +49,9 @@ Phases, each printing its own lines and then its command time (``phase:``):
    Dh = 32 (padded), in f16, at Dh = 256 (also 4 heads over 2 kv heads) and
    in f32 at Dh 64, 128, 256 and 512, in bf16 at 512 and split at 640 and
    1024, beside SDPA at the same shapes and the backend SDPA picked (each
-   kernel record's ``variants``);
+   kernel record's ``variants``); at the flagship and every variant the
+   backward's pair (dQ then dK/dV, timed as one call) against SDPA's whole
+   backward (a ``timing`` line with ``pair``);
 5. slice (scoring): the flagship transformer (series widths, random seeded
    weights) scores a 64-row frame of 2048-token cells through
    ``map_blocks`` with ``attn_impl="flash"``; the kernels' launches are
@@ -62,7 +66,11 @@ Phases, each printing its own lines and then its command time (``phase:``):
    ``"full"`` and a B=2 step against ``"full"``; then the forward legs,
    scored the same way: the same widths at 2 heads over 1 kv head (Dh 512,
    only ``flash_fwd_tma<bf16,512>``) and the flagship's widths in f32
-   (only ``flash_fwd_simt<f32,64>``), nll against ``"full"``; then the
+   (only ``flash_fwd_simt<f32,64>``), nll against ``"full"``; the Dh-512
+   leg also trains one epoch of 4 steps at B=8 (remat "none") as the
+   wide-head path does, on ``flash_fwd_tma<bf16,512>``,
+   ``flash_bwd_dq_tma<bf16,512>`` and ``flash_bwd_dkv_tma<bf16,512>``
+   alone, with a B=2 step against ``"full"``; then the
    small-head slice: a Dh = 32 model (d_model 128, 4 heads) scores a frame
    with ``attn_impl="flash"`` (forward launches ``n_layers x blocks``; nll
    against the CPU path, f32 at 1e-4 and bf16 at the slice's 3e-2);
@@ -110,7 +118,8 @@ Phases, each printing its own lines and then its command time (``phase:``):
    against flash at sp = 1 (loss and gradient norm); a small f32 model
    trained three steps under the mesh on the card and on the CPU;
    with ``--profile``, device time by kernel over one block and one train
-   step of each slice (and one block of each forward leg);
+   step of each slice (and one block of each forward leg, one step of the
+   Dh-512 leg);
 9. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
@@ -203,7 +212,8 @@ KERNEL_CASES = [
     ("f16_dh200_ragged130", dict(B=2, Lq=130, Lk=130, H=4, KVH=4, D=200, dtype=torch.float16,
                                  causal=True)),
     # head dims 257..512: the forward's 512-wide TMA and SIMT builds, the
-    # backward's FMA builds (Dh 320 padded)
+    # backward's 512-wide TMA builds (16-bit) and FMA builds (f32), Dh 320
+    # padded
     ("bf16_dh320", dict(B=2, Lq=300, Lk=300, H=4, KVH=2, D=320, dtype=torch.bfloat16, causal=True)),
     ("f16_dh320_cross", dict(B=2, Lq=200, Lk=260, H=4, KVH=2, D=320, dtype=torch.float16,
                              causal=False)),
@@ -221,12 +231,17 @@ KERNEL_CASES = [
     ("f16_dh1024", dict(B=1, Lq=130, Lk=130, H=2, KVH=2, D=1024, dtype=torch.float16, causal=True)),
     ("f32_dh1024_cross", dict(B=1, Lq=200, Lk=140, H=2, KVH=1, D=1024, dtype=torch.float32,
                               causal=True)),
-    # the 16-bit forward's wide TMA body at Dh 512 and above: three chunks
-    # of 512 (six 256-column output chunks, Q streamed), ragged and GQA; a
-    # causal cross length; a length whose key tiles wrap the two half slots
-    # 32 times a CTA, causal, 2:1 GQA
+    # the 16-bit forward's and backward's wide TMA bodies at Dh 512 and
+    # above: three chunks of 512 (six 256-column output chunks, Q streamed),
+    # ragged and GQA; causal cross lengths both ways (key tiles past every
+    # query: dK/dV of no pair; a split dQ over fewer keys than queries); a
+    # length whose key tiles wrap the forward's two half slots 32 times a
+    # CTA, and that streams up to 128 (dQ) and 384 (dK/dV) items a CTA
+    # through the backward's two slots, causal, 2:1 GQA
     ("bf16_dh1536", dict(B=1, Lq=300, Lk=300, H=4, KVH=2, D=1536, dtype=torch.bfloat16,
                          causal=True)),
+    ("f16_dh1024_cross_causal", dict(B=1, Lq=300, Lk=140, H=2, KVH=1, D=1024,
+                                     dtype=torch.float16, causal=True)),
     ("bf16_dh512_cross_causal", dict(B=2, Lq=200, Lk=330, H=2, KVH=2, D=512,
                                      dtype=torch.bfloat16, causal=True)),
     ("bf16_dh512_long", dict(B=1, Lq=2048, Lk=2048, H=2, KVH=1, D=512, dtype=torch.bfloat16,
@@ -585,15 +600,16 @@ def phase_build():
 
 # The instantiations each kernel is built at, (element type, Dh), and the
 # route each (dtype, width) must take, as csrc/ dispatches them: the
-# TMA + wgmma kernels for bf16 and f16 (the forward at every width, dQ and
-# dK/dV to Dh 256, the ring step to 128); for f32 the forward's SIMT kernel
+# TMA + wgmma kernels for bf16 and f16 (the forward, dQ and dK/dV at every
+# width, the ring step to 128); for f32 the forward's SIMT kernel
 # (register tiles, exact f32 FMAs) and the others' FMA kernels (tiles
-# widened to f32), which also take 16-bit inputs above their TMA widths; a
-# width above 512 runs the 512-wide build split into chunks of 512
+# widened to f32), the ring step's also taking 16-bit inputs above its TMA
+# widths; a width above 512 runs the 512-wide build split into chunks of
+# 512
 T16 = ("bf16", "f16")
 WIDTHS = (64, 128, 256, 512)
-TMA_WIDTHS = {"flash_fwd": (64, 128, 256, 512), "flash_bwd_dq": (64, 128, 256),
-              "flash_bwd_dkv": (64, 128, 256), "ring_step": (64, 128)}
+TMA_WIDTHS = {"flash_fwd": WIDTHS, "flash_bwd_dq": WIDTHS, "flash_bwd_dkv": WIDTHS,
+              "ring_step": (64, 128)}
 ROUTES = ("tma", "fma", "simt")
 SOURCE_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
              "flash_bwd_dkv": "flash_bwd", "ring_step": "flash_ring"}
@@ -604,7 +620,8 @@ MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
 
 def built_instantiations(kernel, route):
     """{(type, Dh)} that csrc/ must build of ``<kernel>_<route>``: the
-    forward has no FMA kernel left and the others no SIMT kernel."""
+    forward has no FMA kernel left, the others no SIMT kernel, and only
+    the ring step a 16-bit FMA kernel."""
     tma = TMA_WIDTHS[kernel]
     f32 = {("f32", d) for d in WIDTHS}
     if route == "tma":
@@ -622,14 +639,19 @@ def route_of(kernel, dtype, width):
 
     if kernel == "flash_fwd":
         route = flash.fwd_route(dtype)
-    else:
+    elif kernel == "ring_step":
         tma = DTYPE_NAMES[dtype] != "f32" and width in TMA_WIDTHS[kernel]
         route = "tma" if tma else "fma"
+    else:
+        route = flash.bwd_route(dtype)
     return flash.launch_name(kernel, route, dtype, width)
 
 
 # wgmma, a TMA load, and mma.sync (HMMA: tensor cores without wgmma)
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# kernels whose wgmma ptxas must not serialize (C7518): the backward's, whose
+# wide bodies are built to avoid it (csrc/flash_bwd.cu)
+NO_SERIAL_WGMMA = ("flash_bwd_dq", "flash_bwd_dkv")
 
 
 def ptxas_spills(log):
@@ -650,7 +672,9 @@ def check_hopper_design(_build):
     ``built_instantiations``, 0 spill bytes in all; HGMMA and UTMALDG in
     every TMA kernel instantiation's SASS, and none of HGMMA, UTMALDG and
     HMMA in any FMA or SIMT kernel's (exact f32 on the FMA pipe); no
-    setmaxnreg that ptxas ignored (C7508).  Returns {source: [built
+    setmaxnreg that ptxas ignored (C7508); each instantiation whose wgmma
+    ptxas serialized (C7518) is reported, and in the backward's TMA
+    kernels (``NO_SERIAL_WGMMA``) fails.  Returns {source: [built
     instantiation names]}."""
     sass_of = {src: subprocess.run(
         [_build.cuda_bin("cuobjdump"), "--dump-sass", str(_build.library_path(src))],
@@ -661,6 +685,7 @@ def check_hopper_design(_build):
         log = _build.build_log(src)
         if "C7508" in log:
             raise AssertionError(f"{src}: ptxas ignored setmaxnreg (C7508)")
+        serial_fns = re.findall(r"\(C7518\)[^']*'(\S+)'", log)
         spills_all = ptxas_spills(log)
         for route in ROUTES:
             name = f"{kernel}_{route}"
@@ -682,10 +707,14 @@ def check_hopper_design(_build):
             spills = {fn: v for fn, v in spills_all.items() if pat.search(fn)}
             if len(spills) != len(counts) or any(v != (0, 0) for v in spills.values()):
                 raise AssertionError(f"{name}: ptxas spills {spills}")
+            serial = sorted({f"<{MANGLED_TYPES[m.group(1)]},{m.group(2)}>"
+                             for m in map(pat.search, serial_fns) if m})
+            if serial and kernel in NO_SERIAL_WGMMA:
+                raise AssertionError(f"{name}{serial}: ptxas serialized the wgmma (C7518)")
             built[name] = sorted(f"{name}<{t},{d}>" for t, d in counts)
             say("build", kernel=name, instantiations=built[name],
                 sass_counts={f"<{t},{d}>": c for (t, d), c in sorted(counts.items())},
-                spill_bytes=sorted(set(spills.values())))
+                spill_bytes=sorted(set(spills.values())), serialized_wgmma=serial)
     return built
 
 
@@ -915,6 +944,8 @@ def phase_timing():
             say("timing", kernel=name, **row,
                 share_of_bound=bound_ms / row["ms"],
                 tflops_per_s=flops / row["ms"] / 1e9)
+        time_pair(c, "flagship", runs["flash_bwd_dq"][0], runs["flash_bwd_dkv"][0], 20,
+                  sdpa_bwd_ms, timing["flash_bwd_dq"]["ms"], timing["flash_bwd_dkv"]["ms"])
     timing["flash_ring_step"] = phase_ring_timing()
     timing["variants"] = phase_variant_timing()
     return timing
@@ -939,16 +970,30 @@ VARIANTS = {
     "dh640_bf16": dict(FLAGSHIP, D=640, H=2, KVH=2),
     "dh1024_bf16": dict(FLAGSHIP, D=1024, H=1, KVH=1),
 }
-# the FMA kernels (the backward and the ring step in f32 and above Dh 256)
-# take 7-82 ms a call at these shapes: fewer timed calls
+# the FMA kernels (the backward in f32, the ring step in f32 and above Dh
+# 256) take 7-82 ms a call at these shapes: fewer timed calls
 FMA_ITERS = 5
 
 
-def variant_iters(c):
-    """Timed calls of a variant's kernels: 20, or FMA_ITERS where the
-    backward and the ring step run FMA kernels (f32, and 16-bit above Dh
-    256)."""
-    return FMA_ITERS if c["dtype"] == torch.float32 or c["D"] > 256 else 20
+def variant_iters(c, ring=False):
+    """Timed calls of a variant's kernels: 20, or FMA_ITERS where they run
+    FMA kernels (f32; the ring step also above Dh 256)."""
+    fma = c["dtype"] == torch.float32 or (ring and c["D"] > 256)
+    return FMA_ITERS if fma else 20
+
+
+def time_pair(c, variant, dq, dkv, iters, sdpa_bwd_ms, dq_ms, dkv_ms):
+    """The backward's pair at shape ``c``, dQ then dK/dV timed as one call,
+    against SDPA's whole backward on the same inputs (it computes dq, dk
+    and dv in one call: the fair yardstick of the pair, not of either
+    kernel alone), beside the sum of the kernels' own times and of their
+    bounds."""
+    ms = cuda_ms(lambda: (dq(), dkv()), iters)
+    bound_ms = kernel_bound(c, "flash_bwd_dq")[0] + kernel_bound(c, "flash_bwd_dkv")[0]
+    say("timing", pair="flash_bwd_dq+flash_bwd_dkv", variant=variant, ms=ms,
+        sum_ms=dq_ms + dkv_ms, library_ms=sdpa_bwd_ms, factor_vs_library=ms / sdpa_bwd_ms,
+        bound_ms=bound_ms)
+    return ms
 
 
 def sdpa(q, k, v, is_causal=False):
@@ -1027,24 +1072,32 @@ def phase_variant_timing():
             scale = flash._scale(c["D"])
             bwd_path_ms = cuda_ms(
                 lambda: flash.flash_attention_bwd(q, k, v, out, lse, do, True), n)
+            launch = {
+                "flash_bwd_dq": lambda: flash.flash_bwd_dq(pq, pk, pv, pdo, lse, delta, True,
+                                                           scale),
+                "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(pq, pk, pv, pdo, lse, delta, True,
+                                                             scale),
+            }
             for kernel, e in (("flash_bwd_dq", g_err[0]), ("flash_bwd_dkv", max(g_err[1:]))):
                 bound_ms, bound_by, flops = kernel_bound(c, kernel)
-                fn = flash.flash_bwd_dq if kernel == "flash_bwd_dq" else flash.flash_bwd_dkv
                 plain = (flash.flash_bwd_dq_plain if kernel == "flash_bwd_dq"
                          else flash.flash_bwd_dkv_plain)
                 record(kernel, name, c, dict(
-                    ms=cuda_ms(lambda: fn(pq, pk, pv, pdo, lse, delta, True, scale), n),
+                    ms=cuda_ms(launch[kernel], n),
                     plain_ms=cuda_ms(lambda: plain(q, k, v, out, lse, do, True), 3, 1),
                     library_ms=sdpa_bwd_ms, bound_ms=bound_ms, bound_by=bound_by,
                     max_abs_err=e, padded_backward_path_ms=bwd_path_ms,
                     sdpa_backend=backend), flops)
-            del pq, pk, pv, pout, pdo, delta
+            time_pair(c, name, launch["flash_bwd_dq"], launch["flash_bwd_dkv"], n, sdpa_bwd_ms,
+                      rows["flash_bwd_dq"][name]["ms"], rows["flash_bwd_dkv"][name]["ms"])
+            del pq, pk, pv, pout, pdo, delta, launch
         del q, k, v, do, qt, kt, vt, out, lse
         # the ring step at the off-diagonal flagship hop, at this variant
         rc = dict(RING_FLAGSHIP, D=c["D"], H=c["H"], KVH=c["KVH"], dtype=c["dtype"])
         q_off, k_off = RING_HOPS["off_diagonal"]
         args = ring_inputs(rc, "random", seed=5)
         rq, rk, rv = (x.transpose(1, 2) for x in args[:3])
+        n = variant_iters(rc, ring=True)
         with torch.no_grad():
             got = flash.flash_ring_step(*args, q_off, k_off, True)
             ref = flash.flash_ring_step_plain(*args, q_off, k_off, True)
@@ -1227,27 +1280,23 @@ def score_leg(tag, cfg, params, seed, nll_tol, route):
     return scored, prog, block
 
 
-def phase_wide_head():
-    """The wide-head path: the flagship's widths at 4 heads over 2 kv heads
-    (Dh 256, 2:1 GQA), scored through Program -> map_blocks and trained
-    through FrameLoader -> train.fit with remat "none", on the Dh-256
-    forward, dQ and dK/dV TMA kernels.  Launch counts by
-    instantiation, nll against "full", a B=2 step against "full".  Returns
-    the two runs' launches by instantiation, and (program, one block,
-    config, train config, params, loader) for profiling."""
+def train_leg(tag, cfg, params, seed):
+    """One epoch of ``cfg`` (remat as it says) from a FrameLoader through
+    train.fit, WIDE_TRAIN_ROWS seeded rows of WIDE_L + 1 tokens at
+    B=WIDE_TRAIN_B, after a warm-up step: the kernels' launches, counted
+    over that run alone, must be n_layers x steps of each of the forward,
+    dQ and dK/dV at the TMA instantiation of the model's head dim and
+    nothing else; the losses finite; ms per step, tokens/s, counted TFLOP/s
+    and peak memory; then a B=2 step against attn_impl="full".  Returns the
+    launches by instantiation and (config, train config, params, loader)
+    for profiling."""
     from tensorframes_tpu_torch import TensorFrame, data, train
-    from tensorframes_tpu_torch.models import transformer as tfm
     from tensorframes_tpu_torch.parallel import flash
 
-    cfg = tfm.TransformerConfig(**WIDE_MODEL)
     width = flash.kernel_head_dim(cfg.d_model // cfg.n_heads)
-    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
-    scored, prog, block = score_leg("wide_head", cfg, params, 7, NLL_TOL, "tma")
-
-    # one epoch of training from a FrameLoader, after a warm-up step
     tc = train.TrainConfig(learning_rate=3e-4)
     steps = WIDE_TRAIN_ROWS // WIDE_TRAIN_B
-    start = np.random.RandomState(8).randint(0, cfg.vocab_size, (WIDE_TRAIN_ROWS, 1))
+    start = np.random.RandomState(seed).randint(0, cfg.vocab_size, (WIDE_TRAIN_ROWS, 1))
     toks = ((start + np.arange(WIDE_L + 1)) % cfg.vocab_size).astype(np.int32)
     tframe = TensorFrame.from_arrays({"tokens": toks}, num_blocks=4)
 
@@ -1267,19 +1316,51 @@ def phase_wide_head():
             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     if trained != want or not {"flash_fwd_tma", "flash_bwd_dq_tma", "flash_bwd_dkv_tma"} <= {
             k.split("<")[0] for k in trained}:
-        raise AssertionError(f"wide-head train: launched {trained}, expected {want}")
+        raise AssertionError(f"{tag} train: launched {trained}, expected {want}")
     if not np.isfinite(losses).all():
-        raise AssertionError(f"wide-head train losses not finite: {losses}")
+        raise AssertionError(f"{tag} train losses not finite: {losses}")
     n_params = train.n_params(params)
     tokens_run = steps * WIDE_TRAIN_B * WIDE_L
     flops_per_token = train.counted_flops_per_token(n_params, cfg, WIDE_L)
-    say("wide_head", leg="train", attn_impl="flash", remat=cfg.remat_policy, steps=steps,
+    say(tag, leg="train", attn_impl="flash", remat=cfg.remat_policy, head_dim=width,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, steps=steps,
         batch=WIDE_TRAIN_B, seq=WIDE_L, n_params=n_params, seconds=sec,
         ms_per_step=sec / steps * 1e3, tokens_per_s=tokens_run / sec,
         counted_tflops_per_s=flops_per_token * tokens_run / sec / 1e12,
         peak_bytes=peak, launched=trained, losses=losses)
-    flash_vs_full_step("wide_head", cfg, tc, start_params, toks[:2])
-    return scored, trained, (prog, block, cfg, tc, params, loader)
+    flash_vs_full_step(tag, cfg, tc, start_params, toks[:2])
+    return trained, (cfg, tc, params, loader)
+
+
+def phase_wide_head():
+    """The wide-head path: the flagship's widths at 4 heads over 2 kv heads
+    (Dh 256, 2:1 GQA), scored through Program -> map_blocks and trained
+    through FrameLoader -> train.fit with remat "none", on the Dh-256
+    forward, dQ and dK/dV TMA kernels.  Launch counts by
+    instantiation, nll against "full", a B=2 step against "full".  Returns
+    the two runs' launches by instantiation, and (program, one block,
+    config, train config, params, loader) for profiling."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(**WIDE_MODEL)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    scored, prog, block = score_leg("wide_head", cfg, params, 7, NLL_TOL, "tma")
+    trained, train_run = train_leg("wide_head", cfg, params, 8)
+    return scored, trained, (prog, block, *train_run)
+
+
+def phase_dh512_train():
+    """The Dh-512 leg's training: DH512_MODEL (the wide-head widths at 2
+    heads over 1 kv head) trains one epoch through FrameLoader -> train.fit
+    (``train_leg``) on ``flash_fwd_tma<bf16,512>``,
+    ``flash_bwd_dq_tma<bf16,512>`` and ``flash_bwd_dkv_tma<bf16,512>``
+    alone.  Returns the launches by instantiation and (config, train
+    config, params, loader) for profiling."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(**DH512_MODEL)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    return train_leg("dh512_leg", cfg, params, 11)
 
 
 def phase_forward_legs():
@@ -2231,10 +2312,12 @@ def profile_step(label, cfg, tc, params, loader) -> None:
     profile_kernels(label, one_step)
 
 
-def phase_profile(prog, frame, train_run, wide_run, legs, ring_run, ring_train_run) -> None:
+def phase_profile(prog, frame, train_run, wide_run, legs, dh512_train, ring_run,
+                  ring_train_run) -> None:
     """One block and one train step of each slice: flash at 2048 tokens
-    (the flagship and the wide-head model), one block of each forward leg,
-    and the ring at 8192 tokens over sp = 4."""
+    (the flagship and the wide-head model), one block of each forward leg
+    and one train step of the Dh-512 leg, and the ring at 8192 tokens over
+    sp = 4."""
     from tensorframes_tpu_torch import TensorFrame, map_blocks
     from tensorframes_tpu_torch.parallel import mesh
 
@@ -2248,6 +2331,7 @@ def phase_profile(prog, frame, train_run, wide_run, legs, ring_run, ring_train_r
     for tag, (leg_prog, leg_block) in legs.items():
         profile_kernels(f"{tag} score one block",
                         lambda: map_blocks(leg_prog, leg_block).to_arrays())
+    profile_step("dh512_leg train one step", *dh512_train)
     ring_prog, ring_block, ring_mesh = ring_run[1:4]
     with mesh.set_mesh(ring_mesh):
         profile_kernels("ring score one block",
@@ -2269,7 +2353,8 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     every instantiation timed at a VARIANTS shape, named by what it runs,
     with its launches over the main paths' runs (``main_runs``: launches by
     instantiation of the flagship scoring, the wide-head scoring and train,
-    the flagship train epoch and the ring scoring runs)."""
+    the forward legs' scoring, the Dh-512 leg's train epoch, the flagship
+    train epoch and the ring scoring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
     by_inst = {}
@@ -2335,6 +2420,7 @@ def main() -> int:
     prog, frame, slice_launches = run_phase(phase_slice)
     *wide_launches, wide_run = run_phase(phase_wide_head)
     leg_launches, legs = run_phase(phase_forward_legs)
+    dh512_launches, dh512_train = run_phase(phase_dh512_train)
     run_phase(phase_small_head_slice)
     run_phase(phase_verbs)
     run_phase(phase_crossover)
@@ -2344,10 +2430,11 @@ def main() -> int:
     ring_run = run_phase(phase_ring_slice)
     ring_train_run = run_phase(phase_ring_train, ring_run[3])
     if args.profile:
-        run_phase(phase_profile, prog, frame, train_run, wide_run, legs, ring_run,
-                  ring_train_run)
+        run_phase(phase_profile, prog, frame, train_run, wide_run, legs, dh512_train,
+                  ring_run, ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
-        slice_launches, *wide_launches, *leg_launches, train_run[5], ring_run[4]])
+        slice_launches, *wide_launches, *leg_launches, dh512_launches, train_run[5],
+        ring_run[4]])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)
     print(json.dumps(record), flush=True)

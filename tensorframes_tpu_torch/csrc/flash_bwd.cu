@@ -17,13 +17,19 @@
 // operations, i.e. by the tensor-core rate (which only wgmma reaches) and
 // how well the loops keep the tensor cores fed.
 //
-// What the design does about it (the 16-bit kernels flash_bwd_dq_tma and
-// flash_bwd_dkv_tma, the main path, each one template instantiated for bf16
-// and f16 at Dh 64, 128 and 256): both are
-// warp-specialised TMA + wgmma kernels (building blocks in hopper.cuh).  In
-// both, the TPU grid's sequential axis becomes a loop inside one CTA, so
-// nothing carries between blocks and nothing needs atomics: the results are
-// deterministic.
+// Two pairs of kernels, by element type:
+//  * flash_bwd_dq_tma<T, D> and flash_bwd_dkv_tma<T, D>, bf16 and f16 at
+//    every head dim, on TMA + wgmma: the narrow bodies (dq_narrow,
+//    dkv_narrow) at D = 64, 128 and 256, the wide bodies (dq_wide,
+//    dkv_wide) at D = 512 and every multiple of it;
+//  * flash_bwd_dq_fma<float, D> and flash_bwd_dkv_fma<float, D>, f32 at
+//    every head dim: exact f32 FMAs on tiles in shared memory (TF32 would
+//    lose precision the JAX reference keeps).
+// In all of them the TPU grid's sequential axis becomes a loop inside one
+// CTA, so nothing carries between blocks and nothing needs atomics: the
+// results are deterministic.
+//
+// The narrow bodies (building blocks in hopper.cuh):
 //  * dQ: one CTA owns one (batch*head, query tile of 64 rows per consumer
 //    warpgroup).  The producer warpgroup loads the Q and dO tiles once by
 //    TMA, then
@@ -83,27 +89,72 @@
 //    issuing pair n + 1's S^T and dP^T behind pair n's gradient products
 //    inside a warpgroup (it also spills), and ping-pong between the two
 //    consumers.
+//
+// The wide bodies (Dh 512, and nc = Dh / 512 chunks above it), the
+// forward's wide body (flash_fwd.cu::fwd_wide) carried over to the
+// gradients, designed against what a CTA holds:
+//  * Registers.  A gradient accumulator of 64 rows x 256 columns is 128 f32
+//    registers a thread, over the 168 ptxas gives a thread of a 384-thread
+//    CTA: so each CTA is Dh 256's two consumer warpgroups (64 query rows
+//    each for dQ, 64 keys each for dK/dV) and no producer warpgroup, and it
+//    owns one 256-column chunk z of its output (grid axis x over (tile,
+//    chunk), a tile's chunks neighbours in the launch order so that they
+//    share their tiles in L2).  dK/dV keeps the two-pass scheme (dV, then
+//    dK), so a consumer holds one accumulator beside the 64 x 64 scores
+//    (S and dP: 32 + 32 registers).
+//  * Shared memory (232,448 bytes a block).  At Dh 512 the Q and dO of 128
+//    query rows take 256 KB, and so do the K and V of 128 keys: neither
+//    pair fits whole, so nothing stays resident.  S = Q K^T and dP = dO V^T
+//    are reduced over Dh in 256-column halves, each a chain of 16 wgmma
+//    m64n64k16, from a stream of items through two slots: item 2 hh of a
+//    tile is half hh of the row tile and of the streamed tile for S (Q and
+//    K for dQ; K and Q for dK/dV, where S^T = K Q^T), item 2 hh + 1 the same
+//    half for dP (dO and V; V and dO), so slot 0 always feeds S and slot 1
+//    dP.  A slot holds a 128-row half (64 KB) and a 64-row half (32 KB); a
+//    third buffer (32 KB) holds the gradient product's own operand: this
+//    chunk's 256 columns of K (dQ += dS K_z), or of dO (dV += P^T dO_z,
+//    the first pass) and Q (dK += dS^T Q_z, the second).  224 KB in all
+//    (plus the lse/D rows of dK/dV's pairs), static_assert'ed.  The dV pass
+//    streams only S's items.  dQ's tiles are 128 query rows x 64 keys,
+//    dK/dV's 128 keys x 64 query rows.  Above 512 the halves of every
+//    512-column chunk stream in chunk order, summing S and dP over all of
+//    them.
+//  * One softmax across chunks.  Nothing before the gradient product
+//    depends on the chunk index: every chunk's CTA issues the same wgmma
+//    sequence on the same tiles and gets bit-identical P and dS, rounded
+//    at the points the narrow bodies round them.
+//  * The ring without a producer warp: thread 0 refills a slot once all 8
+//    warps released it (at the point where its own warp releases it), and
+//    every load the others wait on was issued before, so its waits end.
+//    Every warpgroup runs every item, a tile that the causal mask or an
+//    end of the sequences empties for its rows too (the mask zeroes P), and
+//    an item's products complete before its release.  A first build that
+//    skipped such tiles per warpgroup (the products under a branch on the
+//    thread) and kept one commit group in flight across the release had
+//    ptxas serialize every wgmma of both kernels (C7518).
+//  * What it costs: each chunk recomputes S and dP.  dQ runs 1.67x the
+//    least products at Dh 512 (2 x (4 x 512 + 2 x 256) against 6 x 512 per
+//    (query, key) pair), dK/dV 2.0x with its two passes; at 1024 3.0x and
+//    3.5x.  Every tile step reloads its halves from L2 (Q and dO every key
+//    tile for dQ), so the loads, not the products, are the likelier bound.
+//
 //  * Loads read [B, L, H, Dh] through its strides (no transpose copy; head
 //    dims other than 64, 128, 256 and 512 arrive zero-padded to the next of
-//    them from the wrapper, which leaves S, dP and D unchanged); ragged
-//    tails are zero-filled (by the TMA descriptors, which bound L per
-//    batch, or by the copy) and masked here.
+//    them, or above 512 to a multiple of 512, from the wrapper, which
+//    leaves S, dP and D unchanged); ragged tails are zero-filled (by the
+//    TMA descriptors, which bound L per batch, or by the copy) and masked
+//    here.
 // Numerics kept from flash.py: P is cast to dO's dtype before P^T dO (:482)
 // and dS to q/k's dtype before its products (:443, :489); the scale is
 // applied in f32; a row whose lse is -inf takes lse 0 under the mask and
 // never computes exp(finite - (-inf)) (:409-412); the causal mask is
 // top-left (q >= k) when Lq != Lk.
-// f32 inputs take plain FMA kernels (TF32 would lose precision the JAX
-// reference keeps), and so do bf16 and f16 where the tensor-core kernels
-// stop: both at 512 (head dims 257..512, padded).  One template on the
-// element type, P and dS rounded to it before their products as above.
-// From Dh = 256 on the block has 256 threads, so that dK and dV of a tile
-// stay at 32 + 32 accumulators a thread; at 512 the tiles are 16 x 16
-// (FmaBwd).  A head dim above 512 (padded to a multiple of it) runs the
-// 512-wide build split into chunks of 512 columns, one grid axis over
-// them: each chunk's blocks sum S and dP over every chunk and accumulate
-// only their own chunk of dQ, or of dK and dV.  These kernels are off the
-// main path.
+// The f32 kernels: from Dh = 256 on the block has 256 threads, so that dK
+// and dV of a tile stay at 32 + 32 accumulators a thread; at 512 the tiles
+// are 16 x 16 (FmaBwd).  A head dim above 512 (padded to a multiple of it)
+// runs the 512-wide build split into chunks of 512 columns, one grid axis
+// over them: each chunk's blocks sum S and dP over every chunk and
+// accumulate only their own chunk of dQ, or of dK and dV.
 
 #include <cuda_runtime.h>
 
@@ -195,13 +246,11 @@ struct Dq {
   static_assert(SMEM <= 232448, "dQ tiles exceed a block's shared memory");
 };
 
+// dQ at Dh 64, 128 and 256: the narrow body of flash_bwd_dq_tma
 template <typename T, int D>
-__global__ void __launch_bounds__(Dq<D>::THREADS, 1)
-flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
-                 const __grid_constant__ CUtensorMap k_map,
-                 const __grid_constant__ CUtensorMap v_map,
-                 const __grid_constant__ CUtensorMap o_map, Problem p,
-                 T* __restrict__ dq) {
+__device__ __forceinline__ void dq_narrow(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                          const CUtensorMap& v_map, const CUtensorMap& o_map,
+                                          const Problem& p, T* __restrict__ dq) {
   using F = Dq<D>;
   constexpr int S = F::STAGES, BK = F::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -405,28 +454,280 @@ flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and f16 dQ at Dh 512 and its multiples: the wide body of
+// flash_bwd_dq_tma
+// ---------------------------------------------------------------------------
+
+template <>
+struct Dq<512> {
+  static constexpr int CONSUMERS = 2;        // warpgroups of 64 query rows
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int BK = 64;              // keys per tile
+  static constexpr int THREADS = 128 * CONSUMERS;
+  static constexpr int OW = 256;    // dQ columns per CTA
+  static constexpr int HALF = 256;  // columns of one step of S's and dP's reduction
+  static constexpr int BOXES = HALF / BOX_COLS;
+  static constexpr int A_BOX = BQ * 128;        // one 64-column box of a Q or dO half
+  static constexpr int B_BOX = BK * 128;        // one 64-column box of a K or V half
+  static constexpr int A_HALF = BOXES * A_BOX;  // 64 KB
+  static constexpr int B_HALF = BOXES * B_BOX;  // 32 KB
+  static constexpr int SLOT = A_HALF + B_HALF;  // an item: a Q (dO) half and a K (V) half
+  static constexpr int G_TILE = (OW / BOX_COLS) * B_BOX;  // this chunk's K columns, 32 KB
+  // full and empty per slot, the same pair for the K chunk
+  static constexpr int BARRIERS = 6;
+  static constexpr size_t SMEM =
+      2 * size_t(SLOT) + size_t(G_TILE) + 8 * BARRIERS + ATOM_BYTES;
+  static_assert(SMEM <= 232448, "wide dQ tiles exceed a block's shared memory");
+  static_assert(OW == 2 * 128, "dQ is two m64n128 products a warpgroup");
+};
+
+template <typename T>
+__device__ __forceinline__ void dq_wide(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                        const CUtensorMap& v_map, const CUtensorMap& o_map,
+                                        const Problem& p, int nc, T* __restrict__ dq) {
+  using F = Dq<512>;
+  constexpr int BK = F::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const slots = atom_aligned(smem_raw);  // slot s: A half, then B half
+  unsigned char* const Gs = slots + 2 * F::SLOT;        // this chunk's columns of K
+  uint64_t* const full = reinterpret_cast<uint64_t*>(Gs + F::G_TILE);
+  uint64_t* const empty = full + 2;
+  uint64_t* const g_full = empty + 2;
+  uint64_t* const g_empty = g_full + 1;
+
+  // NH 256-column halves of the head dim: the steps of the reduction, and
+  // the output chunks, one a CTA; a query tile's chunks are neighbours in
+  // the launch order, and causal: the heavier (later) tiles launch first
+  const int NH = 2 * nc;
+  const int z = blockIdx.x % NH;
+  const int n_qt = gridDim.x / NH, qt = blockIdx.x / NH;
+  const int H = p.H, Lq = p.Lq, Lk = p.Lk;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kvh = h / (H / p.KVH);
+  const int q0 = (p.causal ? n_qt - 1 - qt : qt) * F::BQ;
+  int n_tiles = (Lk + BK - 1) / BK;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + F::BQ, Lq) - 1) / BK + 1);
+  // item j: step u = j % per_tile of key tile j / per_tile, half u / 2 of
+  // Q and K (u even: S) or of dO and V (u odd: dP), in slot j & 1 = u & 1
+  const int per_tile = 2 * NH;
+  const int n_items = n_tiles * per_tile;  // >= 4: n_tiles >= 1
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // every warp releases a slot
+    }
+    mbar_init(g_full, 1);
+    mbar_init(g_empty, 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_item = [&](int j) {
+    const int t = j / per_tile, u = j % per_tile, s = j & 1;
+    unsigned char* const A = slots + s * F::SLOT;
+    unsigned char* const Bt = A + F::A_HALF;
+    mbar_arrive_expect_tx(full + s, F::SLOT);
+    for (int x = 0; x < F::BOXES; ++x) {
+      const int col = (u >> 1) * F::HALF + x * BOX_COLS;
+      if (u & 1) {
+        tma_load(A + x * F::A_BOX, &o_map, full + s, col, h, q0, b);
+        tma_load(Bt + x * F::B_BOX, &v_map, full + s, col, kvh, t * BK, b);
+      } else {
+        tma_load(A + x * F::A_BOX, &q_map, full + s, col, h, q0, b);
+        tma_load(Bt + x * F::B_BOX, &k_map, full + s, col, kvh, t * BK, b);
+      }
+    }
+  };
+  // key tile t's 256 columns of this chunk, dS K's operand
+  auto load_g = [&](int t) {
+    mbar_arrive_expect_tx(g_full, F::G_TILE);
+    for (int x = 0; x < F::OW / BOX_COLS; ++x)
+      tma_load(Gs + x * F::B_BOX, &k_map, g_full, z * F::OW + x * BOX_COLS, kvh, t * BK, b);
+  };
+  if (threadIdx.x == 0) {
+    load_item(0);
+    load_item(1);
+    load_g(0);
+  }
+
+  const int c = threadIdx.x / 128;  // this warpgroup: rows 64 c .. 64 c + 63
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+  const int wg0 = q0 + 64 * c;
+  const int wq0 = wg0 + 16 * w;
+  const int row_a = wq0 + g, row_b = row_a + 8;
+  // lse * log2(e) and D of the two rows, loaded before the first wait
+  const int64_t r0 = int64_t(bh) * Lq;
+  const float la_a = safe_lse(p.lse, r0 + row_a, row_a < Lq) * LOG2E;
+  const float la_b = safe_lse(p.lse, r0 + row_b, row_b < Lq) * LOG2E;
+  const float dd_a = row_a < Lq ? p.delta[r0 + row_a] : 0.f;
+  const float dd_b = row_b < Lq ? p.delta[r0 + row_b] : 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  // this warp is done with item j (K chunk t): release its slot; thread 0
+  // refills it with item j + 2 (K chunk t + 1) once all 8 warps have.  The
+  // warps it waits for need only loads issued before, so the wait ends.
+  auto release_item = [&](int j) {
+    if (lane == 0) mbar_arrive(empty + (j & 1));
+    if (threadIdx.x == 0 && j + 2 < n_items) {
+      mbar_wait(empty + (j & 1), (j >> 1) & 1);
+      load_item(j + 2);
+    }
+    __syncwarp();
+  };
+  auto release_g = [&](int t) {
+    if (lane == 0) mbar_arrive(g_empty);
+    if (threadIdx.x == 0 && t + 1 < n_tiles) {
+      mbar_wait(g_empty, t & 1);
+      load_g(t + 1);
+    }
+    __syncwarp();
+  };
+
+  constexpr int NT = BK / 8;   // 8-key column blocks of S and dP
+  constexpr int GT = 128 / 8;  // 8-column blocks of one part of dQ (m64n128)
+  float acc[2][GT * 4];
+#pragma unroll
+  for (int gp = 0; gp < 2; ++gp)
+#pragma unroll
+    for (int i = 0; i < GT * 4; ++i) acc[gp][i] = 0.f;
+  // A: this warpgroup's 64 rows of a slot's Q or dO half; B: its K or V half
+  const uint64_t a_desc = sw128_desc(slots + 64 * c * 128, 16, ATOM_BYTES);
+  const uint64_t b_desc = sw128_desc(slots + F::A_HALF, 16, ATOM_BYTES);
+  // item j's half hh of S (slot 0) or dP (slot 1) into d once it has
+  // landed, the reduction over the half's 256 columns in 16-wide slices,
+  // every operand K-major; then its slot is released.  Every warpgroup runs
+  // every item, and no product is in flight across a release (thread 0's
+  // refill is a divergent path; see the top of the file, C7518).  The loads
+  // stay ahead: item j + 1 is in flight while item j's products run.
+  auto half_item = [&](float (&d)[NT * 4], int j, int hh) {
+    const int s = j & 1;
+    mbar_wait(full + s, (j >> 1) & 1);
+    const uint64_t a = desc_at(opaque(a_desc), s * F::SLOT);
+    const uint64_t bb = desc_at(b_desc, s * F::SLOT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F::HALF / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<T>(d, desc_at(a, (kk / 4) * F::A_BOX + off),
+                  desc_at(bb, (kk / 4) * F::B_BOX + off), hh | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    release_item(j);
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    // S and dP over the NH halves in order: item 2 hh of the tile is half
+    // hh of S, item 2 hh + 1 half hh of dP.  A tile wholly above this
+    // warpgroup's rows, or rows past the end, runs too: the mask zeroes P
+    float sc[NT * 4], dp[NT * 4];
+    for (int hh = 0; hh < NH; ++hh) {
+      half_item(sc, t * per_tile + 2 * hh, hh);
+      half_item(dp, t * per_tile + 2 * hh + 1, hh);
+    }
+    mbar_wait(g_full, t & 1);
+    // P = exp(S * scale - lse), masked where the tile crosses the
+    // diagonal or an end of the sequences; then dS = P o (dP - D) in place
+    const bool need_mask =
+        k0 + BK > Lk || wq0 + 16 > Lq || (p.causal && k0 + BK - 1 > wq0);
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) {
+      const bool b_row = i & 2;
+      float pr = exp2_ftz(fmaf(sc[i], sl2, -(b_row ? la_b : la_a)));
+      if (need_mask) {
+        const int row = b_row ? row_b : row_a;
+        const int col = k0 + (i / 4) * 8 + 2 * t4 + (i & 1);
+        if (col >= Lk || row >= Lq || (p.causal && row < col)) pr = 0.f;
+      }
+      sc[i] = pr * (dp[i] - (b_row ? dd_b : dd_a));
+    }
+    // dS cast to T (k's dtype, flash.py:443): the A fragments of the
+    // 16-key slices, straight from the registers
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    // dQ_z += dS K_z, K_z MN-major: 16 keys (2048 bytes) per slice; part
+    // gp reads the two boxes of its 128 columns
+    const uint64_t k_mn = sw128_desc(Gs, F::B_BOX, ATOM_BYTES);
+    wgmma_fence();  // da was written by ordinary instructions
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int gp = 0; gp < 2; ++gp)
+        wgmma_rs<T>(acc[gp], da[kk], desc_at(k_mn, gp * 2 * F::B_BOX + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int gp = 0; gp < 2; ++gp) fence_regs(acc[gp]);
+    release_g(t);
+  }
+
+  // this chunk's columns of dQ (contiguous [B, Lq, H, 512 nc]) = scale *
+  // acc, in q's dtype, once
+  const int64_t width = int64_t(NH) * F::OW;
+  const float scale = p.scale;
+#pragma unroll
+  for (int gp = 0; gp < 2; ++gp)
+#pragma unroll
+    for (int j = 0; j < GT; ++j) {
+      const int col = z * F::OW + gp * 128 + j * 8 + 2 * t4;
+      if (row_a < Lq)
+        *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_a) * H + h) * width + col) =
+            pack2<T>(acc[gp][4 * j] * scale, acc[gp][4 * j + 1] * scale);
+      if (row_b < Lq)
+        *reinterpret_cast<uint32_t*>(dq + ((int64_t(b) * Lq + row_b) * H + h) * width + col) =
+            pack2<T>(acc[gp][4 * j + 2] * scale, acc[gp][4 * j + 3] * scale);
+    }
+}
+
+// The 16-bit dQ: the narrow body at Dh 64, 128 and 256, the wide one at 512
+// (nc chunks of 512 columns: the head dim is 512 nc)
 template <typename T, int D>
-cudaError_t launch_dq(const Problem& p, int B, void* dq, cudaStream_t stream) {
+__global__ void __launch_bounds__(Dq<D>::THREADS, 1)
+flash_bwd_dq_tma(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map, Problem p, int nc,
+                 T* __restrict__ dq) {
+  if constexpr (D == 512)
+    dq_wide<T>(q_map, k_map, v_map, o_map, p, nc, dq);
+  else
+    dq_narrow<T, D>(q_map, k_map, v_map, o_map, p, dq);
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Problem& p, int B, int nc, void* dq, cudaStream_t stream) {
   using F = Dq<D>;
+  const int width = D * nc;
   CUtensorMap q_map, k_map, v_map, o_map;
-  cudaError_t err = make_tile_map<T>(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
+  cudaError_t err = make_tile_map<T>(&q_map, p.q, B, p.Lq, p.H, width, p.s.q[0],
                                   p.s.q[1], p.s.q[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
+    err = make_tile_map<T>(&o_map, p.dout, B, p.Lq, p.H, width, p.s.d[0], p.s.d[1],
                         p.s.d[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
+    err = make_tile_map<T>(&k_map, p.k, B, p.Lk, p.KVH, width, p.s.k[0], p.s.k[1],
                         p.s.k[2], F::BK);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
+    err = make_tile_map<T>(&v_map, p.v, B, p.Lk, p.KVH, width, p.s.v[0], p.s.v[1],
                         p.s.v[2], F::BK);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq_tma<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + F::BQ - 1) / F::BQ, B * p.H);
+  // the wide body: a CTA per (query tile, 256-column chunk of dQ)
+  const int chunks = D == 512 ? width / Dq<512>::OW : 1;
+  const dim3 grid((p.Lq + F::BQ - 1) / F::BQ * chunks, B * p.H);
   flash_bwd_dq_tma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
-      q_map, k_map, v_map, o_map, p, static_cast<T*>(dq));
+      q_map, k_map, v_map, o_map, p, nc, static_cast<T*>(dq));
   return cudaGetLastError();
 }
 
@@ -478,13 +779,12 @@ struct Dkv {
   static_assert(SMEM <= 232448, "dK/dV tiles exceed a block's shared memory");
 };
 
+// dK/dV at Dh 64, 128 and 256: the narrow body of flash_bwd_dkv_tma
 template <typename T, int D>
-__global__ void __launch_bounds__(Dkv<D>::THREADS, 1)
-flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
-                  const __grid_constant__ CUtensorMap k_map,
-                  const __grid_constant__ CUtensorMap v_map,
-                  const __grid_constant__ CUtensorMap o_map, Problem p,
-                  T* __restrict__ dk, T* __restrict__ dv) {
+__device__ __forceinline__ void dkv_narrow(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                           const CUtensorMap& v_map, const CUtensorMap& o_map,
+                                           const Problem& p, T* __restrict__ dk,
+                                           T* __restrict__ dv) {
   using F = Dkv<D>;
   constexpr int S = F::STAGES, BQ2 = F::BQ;
   extern __shared__ unsigned char smem_raw[];
@@ -734,37 +1034,340 @@ flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and f16 dK/dV at Dh 512 and its multiples: the wide body of
+// flash_bwd_dkv_tma
+// ---------------------------------------------------------------------------
+
+template <>
+struct Dkv<512> {
+  static constexpr int BQ = 64;  // query rows per (Q, dO) tile
+  static constexpr int THREADS = 256;  // two consumer warpgroups of 64 keys
+  static constexpr int OW = 256;    // dK and dV columns per CTA
+  static constexpr int HALF = 256;  // columns of one step of S's and dP's reduction
+  static constexpr int BOXES = HALF / BOX_COLS;
+  static constexpr int A_BOX = DKV_BK * 128;    // one 64-column box of a K or V half
+  static constexpr int B_BOX = BQ * 128;        // one 64-column box of a Q or dO half
+  static constexpr int A_HALF = BOXES * A_BOX;  // 64 KB
+  static constexpr int B_HALF = BOXES * B_BOX;  // 32 KB
+  static constexpr int SLOT = A_HALF + B_HALF;  // an item: a K (V) half and a Q (dO) half
+  static constexpr int G_TILE = (OW / BOX_COLS) * B_BOX;  // this chunk's dO or Q, 32 KB
+  static constexpr int ROWS = 2 * BQ;  // the gradient tile's lse * log2(e), then D
+  // full and empty per slot, the same pair for the gradient tile
+  static constexpr int BARRIERS = 6;
+  static constexpr size_t SMEM = 2 * size_t(SLOT) + size_t(G_TILE) +
+                                 ROWS * sizeof(float) + 8 * BARRIERS + ATOM_BYTES;
+  static_assert(SMEM <= 232448, "wide dK/dV tiles exceed a block's shared memory");
+  static_assert(OW == 2 * 128, "dK and dV are two m64n128 products a warpgroup");
+};
+
+template <typename T>
+__device__ __forceinline__ void dkv_wide(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, const CUtensorMap& o_map,
+                                         const Problem& p, int nc, T* __restrict__ dk,
+                                         T* __restrict__ dv) {
+  using F = Dkv<512>;
+  constexpr int BQ2 = F::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const slots = atom_aligned(smem_raw);  // slot s: A half, then B half
+  unsigned char* const Gs = slots + 2 * F::SLOT;        // this chunk's columns of dO or Q
+  float* const rows = reinterpret_cast<float*>(Gs + F::G_TILE);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(rows + F::ROWS);
+  uint64_t* const empty = full + 2;
+  uint64_t* const g_full = empty + 2;
+  uint64_t* const g_empty = g_full + 1;
+
+  // NH 256-column halves of the head dim: the steps of the reduction, and
+  // the output chunks, one a CTA; a key tile's chunks are neighbours in the
+  // launch order, and causal: key tile 0, the heaviest, launches first
+  const int NH = 2 * nc;
+  const int z = blockIdx.x % NH;
+  const int k0 = (blockIdx.x / NH) * DKV_BK;
+  const int H = p.H, KVH = p.KVH, Lq = p.Lq, Lk = p.Lk, grp = H / KVH;
+  const int bkv = blockIdx.y, b = bkv / KVH, kvh = bkv % KVH;
+  const int nq = (Lq + BQ2 - 1) / BQ2;
+  // causal: query tiles that end before k0 see none of these keys
+  const int qt0 = p.causal ? min(k0 / BQ2, nq) : 0;
+  const int nqe = nq - qt0;
+  const int n_pairs = grp * nqe;  // (query head of the group, query tile)
+  // The item stream, item j in slot j & 1: the dV pass's NH items a pair
+  // (half hh of K and Q, for S^T), then the dK pass's 2 NH a pair (half hh
+  // of K and Q, then of V and dO, for dP^T); NH is even, so in the dK pass
+  // slot 0 feeds S^T and slot 1 dP^T.  The gradient tiles: pair n's dO
+  // columns (fill n), then its Q columns (fill n_pairs + n).
+  const int n_items1 = n_pairs * NH;
+  const int n_items = 3 * n_items1;
+  const int n_fills = 2 * n_pairs;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // every warp releases a slot
+    }
+    mbar_init(g_full, 1 + 32);  // the TMA thread and warp 0's lse/D rows
+    mbar_init(g_empty, 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_item = [&](int j) {
+    int n, hh;
+    bool dp_item;
+    if (j < n_items1) {
+      n = j / NH, hh = j % NH, dp_item = false;
+    } else {
+      const int i = j - n_items1;
+      n = i / (2 * NH), hh = (i % (2 * NH)) >> 1, dp_item = i & 1;
+    }
+    const int h = kvh * grp + n / nqe, qq0 = (qt0 + n % nqe) * BQ2;
+    const int s = j & 1;
+    unsigned char* const A = slots + s * F::SLOT;
+    unsigned char* const Bt = A + F::A_HALF;
+    mbar_arrive_expect_tx(full + s, F::SLOT);
+    for (int x = 0; x < F::BOXES; ++x) {
+      const int col = hh * F::HALF + x * BOX_COLS;
+      if (dp_item) {
+        tma_load(A + x * F::A_BOX, &v_map, full + s, col, kvh, k0, b);
+        tma_load(Bt + x * F::B_BOX, &o_map, full + s, col, h, qq0, b);
+      } else {
+        tma_load(A + x * F::A_BOX, &k_map, full + s, col, kvh, k0, b);
+        tma_load(Bt + x * F::B_BOX, &q_map, full + s, col, h, qq0, b);
+      }
+    }
+  };
+  // gradient fill m by warp 0: lane 0 loads the tile's 256 columns of this
+  // chunk by TMA, each lane stages two of its rows' lse * log2(e) and D
+  auto fill_g = [&](int m, int lane) {
+    const int n = m < n_pairs ? m : m - n_pairs;
+    const int h = kvh * grp + n / nqe, qq0 = (qt0 + n % nqe) * BQ2;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(g_full, F::G_TILE);
+      for (int x = 0; x < F::OW / BOX_COLS; ++x) {
+        const int col = z * F::OW + x * BOX_COLS;
+        if (m < n_pairs)
+          tma_load(Gs + x * F::B_BOX, &o_map, g_full, col, h, qq0, b);
+        else
+          tma_load(Gs + x * F::B_BOX, &q_map, g_full, col, h, qq0, b);
+      }
+    }
+    for (int r = lane; r < BQ2; r += 32) {
+      const int row = qq0 + r;
+      const int64_t i = (int64_t(b) * H + h) * Lq + row;
+      rows[r] = safe_lse(p.lse, i, row < Lq) * LOG2E;
+      rows[BQ2 + r] = row < Lq ? p.delta[i] : 0.f;
+    }
+    mbar_arrive(g_full);
+  };
+  if (n_pairs > 0 && threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      load_item(0);
+      load_item(1);  // n_items >= 3 NH >= 6
+    }
+    fill_g(0, threadIdx.x);
+  }
+
+  const int c = threadIdx.x / 128;  // this warpgroup: keys 64 c .. 64 c + 63
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + 64 * c;                   // this warpgroup's first key
+  const int wk0 = kw0 + 16 * w;                  // this warp's first key
+  const int key_a = wk0 + g, key_b = key_a + 8;  // this thread's two keys
+  const float sl2 = p.scale * LOG2E;
+
+  // this warp is done with item j (gradient fill m): release it; thread 0
+  // (warp 0) refills it with item j + 2 (fill m + 1) once all 8 warps have
+  auto release_item = [&](int j) {
+    if (lane == 0) mbar_arrive(empty + (j & 1));
+    if (threadIdx.x == 0 && j + 2 < n_items) {
+      mbar_wait(empty + (j & 1), (j >> 1) & 1);
+      load_item(j + 2);
+    }
+    __syncwarp();
+  };
+  auto release_g = [&](int m) {
+    if (lane == 0) mbar_arrive(g_empty);
+    if (threadIdx.x < 32 && m + 1 < n_fills) {
+      mbar_wait(g_empty, m & 1);
+      fill_g(m + 1, threadIdx.x);
+    }
+    __syncwarp();
+  };
+
+  constexpr int NT = BQ2 / 8;  // 8-query column blocks of S^T and dP^T
+  constexpr int GT = 128 / 8;  // 8-column blocks of one part of dK or dV (m64n128)
+  float acc[2][GT * 4];        // dV in the first pass, dK in the second
+  // A: this warpgroup's 64 keys of a slot's K or V half; B: its Q or dO half
+  const uint64_t a_desc = sw128_desc(slots + 64 * c * 128, 16, ATOM_BYTES);
+  const uint64_t b_desc = sw128_desc(slots + F::A_HALF, 16, ATOM_BYTES);
+  // item j's half hh of S^T or dP^T into d, then its release (as dq_wide's
+  // half_item: no product in flight across a release)
+  auto half_item = [&](float (&d)[NT * 4], int j, int hh) {
+    const int s = j & 1;
+    mbar_wait(full + s, (j >> 1) & 1);
+    const uint64_t a = desc_at(opaque(a_desc), s * F::SLOT);
+    const uint64_t bb = desc_at(b_desc, s * F::SLOT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F::HALF / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<T>(d, desc_at(a, (kk / 4) * F::A_BOX + off),
+                  desc_at(bb, (kk / 4) * F::B_BOX + off), hh | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    release_item(j);
+  };
+  // P^T = exp(S^T * scale - lse) of the pair whose query tile starts at
+  // qq0, masked where the tile crosses the diagonal or an end of the
+  // sequences; with_ds: dS^T = P^T o (dP^T - D) in dpt's place
+  auto probs = [&](float (&st)[NT * 4], float (&dpt)[NT * 4], int qq0, bool with_ds) {
+    const float* const Dt = rows + BQ2;
+    const bool need_mask =
+        qq0 + BQ2 > Lq || wk0 + 16 > Lk || (p.causal && qq0 < wk0 + 15);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t4);
+      const float2 dd = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = qq0 + 8 * j + 2 * t4 + (e & 1);  // the query
+        const int key = e < 2 ? key_a : key_b;
+        float pr = exp2_ftz(fmaf(st[4 * j + e], sl2, -((e & 1) ? lq.y : lq.x)));
+        if (need_mask && (col >= Lq || key >= Lk || (p.causal && col < key))) pr = 0.f;
+        st[4 * j + e] = pr;
+        if (with_ds) dpt[4 * j + e] = pr * (dpt[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+  };
+  // acc += X^T G_z with X^T (P^T or dS^T, rounded to T: P to dO's dtype,
+  // flash.py:482, dS to q's, :489) as register A fragments and the
+  // gradient tile MN-major: 16 query rows (2048 bytes) per slice; part gp
+  // reads the two boxes of its 128 columns
+  auto grad_product = [&](const float (&x)[NT * 4]) {
+    uint32_t xa[BQ2 / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ2 / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) xa[kk][r] = pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+    const uint64_t g_mn = sw128_desc(Gs, F::B_BOX, ATOM_BYTES);
+    wgmma_fence();  // xa was written by ordinary instructions
+#pragma unroll
+    for (int kk = 0; kk < BQ2 / 16; ++kk)
+#pragma unroll
+      for (int gp = 0; gp < 2; ++gp)
+        wgmma_rs<T>(acc[gp], xa[kk], desc_at(g_mn, gp * 2 * F::B_BOX + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int gp = 0; gp < 2; ++gp) fence_regs(acc[gp]);
+  };
+  auto zero = [&] {
+#pragma unroll
+    for (int gp = 0; gp < 2; ++gp)
+#pragma unroll
+      for (int i = 0; i < GT * 4; ++i) acc[gp][i] = 0.f;
+  };
+  // this chunk's columns of dK = scale * acc or dV (contiguous [B, Lk, KVH,
+  // 512 nc]) in k/v's dtype
+  auto store = [&](T* dst, float sc) {
+    const int64_t width = int64_t(NH) * F::OW;
+#pragma unroll
+    for (int gp = 0; gp < 2; ++gp)
+#pragma unroll
+      for (int j = 0; j < GT; ++j) {
+        const int col = z * F::OW + gp * 128 + j * 8 + 2 * t4;
+        if (key_a < Lk)
+          *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_a) * KVH + kvh) * width + col) =
+              pack2<T>(acc[gp][4 * j] * sc, acc[gp][4 * j + 1] * sc);
+        if (key_b < Lk)
+          *reinterpret_cast<uint32_t*>(dst + ((int64_t(b) * Lk + key_b) * KVH + kvh) * width + col) =
+              pack2<T>(acc[gp][4 * j + 2] * sc, acc[gp][4 * j + 3] * sc);
+      }
+  };
+  // A query tile wholly before this warpgroup's keys (causal), or keys past
+  // the end, run too: the mask zeroes P^T and dS^T.
+  // The dV pass: S^T over the NH halves in order, then dV_z += P^T dO_z.
+  zero();
+  for (int n = 0; n < n_pairs; ++n) {
+    const int qq0 = (qt0 + n % nqe) * BQ2;
+    float st[NT * 4];
+    for (int hh = 0; hh < NH; ++hh) half_item(st, n * NH + hh, hh);
+    mbar_wait(g_full, n & 1);
+    probs(st, st, qq0, false);
+    grad_product(st);
+    release_g(n);
+  }
+  store(dv, 1.f);
+
+  // the dK pass: S^T (items of slot 0) and dP^T (slot 1) over the halves,
+  // then dK_z += dS^T Q_z
+  zero();
+  for (int n = 0; n < n_pairs; ++n) {
+    const int qq0 = (qt0 + n % nqe) * BQ2;
+    float st[NT * 4], dpt[NT * 4];
+    for (int hh = 0; hh < NH; ++hh) {
+      const int j = n_items1 + n * 2 * NH + 2 * hh;
+      half_item(st, j, hh);
+      half_item(dpt, j + 1, hh);
+    }
+    const int m = n_pairs + n;
+    mbar_wait(g_full, m & 1);
+    probs(st, dpt, qq0, true);
+    grad_product(dpt);
+    release_g(m);
+  }
+  store(dk, p.scale);
+}
+
+// The 16-bit dK/dV: the narrow body at Dh 64, 128 and 256, the wide one at
+// 512 (nc chunks of 512 columns: the head dim is 512 nc)
 template <typename T, int D>
-cudaError_t launch_dkv(const Problem& p, int B, void* dk, void* dv,
+__global__ void __launch_bounds__(Dkv<D>::THREADS, 1)
+flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map, Problem p, int nc,
+                  T* __restrict__ dk, T* __restrict__ dv) {
+  if constexpr (D == 512)
+    dkv_wide<T>(q_map, k_map, v_map, o_map, p, nc, dk, dv);
+  else
+    dkv_narrow<T, D>(q_map, k_map, v_map, o_map, p, dk, dv);
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Problem& p, int B, int nc, void* dk, void* dv,
                        cudaStream_t stream) {
   using F = Dkv<D>;
+  const int width = D * nc;
   CUtensorMap q_map, k_map, v_map, o_map;
-  cudaError_t err = make_tile_map<T>(&q_map, p.q, B, p.Lq, p.H, D, p.s.q[0],
+  cudaError_t err = make_tile_map<T>(&q_map, p.q, B, p.Lq, p.H, width, p.s.q[0],
                                   p.s.q[1], p.s.q[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&o_map, p.dout, B, p.Lq, p.H, D, p.s.d[0], p.s.d[1],
+    err = make_tile_map<T>(&o_map, p.dout, B, p.Lq, p.H, width, p.s.d[0], p.s.d[1],
                         p.s.d[2], F::BQ);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&k_map, p.k, B, p.Lk, p.KVH, D, p.s.k[0], p.s.k[1],
+    err = make_tile_map<T>(&k_map, p.k, B, p.Lk, p.KVH, width, p.s.k[0], p.s.k[1],
                         p.s.k[2], DKV_BK);
   if (err == cudaSuccess)
-    err = make_tile_map<T>(&v_map, p.v, B, p.Lk, p.KVH, D, p.s.v[0], p.s.v[1],
+    err = make_tile_map<T>(&v_map, p.v, B, p.Lk, p.KVH, width, p.s.v[0], p.s.v[1],
                         p.s.v[2], DKV_BK);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkv_tma<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(F::SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK, B * p.KVH);
+  // the wide body: a CTA per (key tile, 256-column chunk of dK and dV)
+  const int chunks = D == 512 ? width / Dkv<512>::OW : 1;
+  const dim3 grid((p.Lk + DKV_BK - 1) / DKV_BK * chunks, B * p.KVH);
   flash_bwd_dkv_tma<T, D><<<grid, F::THREADS, F::SMEM, stream>>>(
-      q_map, k_map, v_map, o_map, p, static_cast<T*>(dk), static_cast<T*>(dv));
+      q_map, k_map, v_map, o_map, p, nc, static_cast<T*>(dk), static_cast<T*>(dv));
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernels over FT x FT tiles in shared memory: f32 at every head dim,
-// bf16 and f16 at the head dims above the tensor-core kernels' (dQ at 256
-// and 512, dK/dV at 512), with tiles widened to f32 and P and dS rounded to
-// the element type before their products
+// f32: FMA kernels over FT x FT tiles in shared memory, at every head dim
+// (templates on the element type, so P and dS round to it before their
+// products; only f32 is built)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -1063,9 +1666,10 @@ cudaError_t launch_dkv_fma(const Problem& p, int B, int nc, void* dk, void* dv,
 // contiguous head dim.  lse, delta: contiguous [B, H, Lq] f32.  dq:
 // contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16,
 // 2 = f16.  D: 64, 128, 256, 512 or a multiple of 512 (the wrapper pads
-// other head dims); bf16 and f16 take the TMA kernel at 64, 128 and 256,
-// and the FMA kernel at 512, as f32 does at every D; a multiple of 512
-// runs the 512-wide FMA build split into D / 512 chunks of dQ's columns.
+// other head dims); bf16 and f16 take the TMA kernel at every D, f32 the
+// FMA kernel; a multiple of 512 runs the 512-wide build with D / 512 chunks
+// (the TMA kernel a CTA per 256 columns of dQ, the FMA kernel a block per
+// 512).
 // *route is set to the kernel launched (0 = flash_bwd_dq_tma,
 // 1 = flash_bwd_dq_fma).  Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1080,10 +1684,10 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int nc;
   const int W = chunk_width(D, &nc);
-#define TFS_DQ_TMA(TY, DD)                          \
-  do {                                              \
-    *route = 0;                                     \
-    return int(launch_dq<TY, DD>(p, B, dq, st));    \
+#define TFS_DQ_TMA(TY, DD)                             \
+  do {                                                 \
+    *route = 0;                                        \
+    return int(launch_dq<TY, DD>(p, B, nc, dq, st));   \
   } while (0)
 #define TFS_DQ_FMA(TY, DD)                              \
   do {                                                  \
@@ -1093,11 +1697,11 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1 && W == 64) TFS_DQ_TMA(bf16, 64);
   if (dtype == 1 && W == 128) TFS_DQ_TMA(bf16, 128);
   if (dtype == 1 && W == 256) TFS_DQ_TMA(bf16, 256);
-  if (dtype == 1 && W == 512) TFS_DQ_FMA(bf16, 512);
+  if (dtype == 1 && W == 512) TFS_DQ_TMA(bf16, 512);
   if (dtype == 2 && W == 64) TFS_DQ_TMA(f16, 64);
   if (dtype == 2 && W == 128) TFS_DQ_TMA(f16, 128);
   if (dtype == 2 && W == 256) TFS_DQ_TMA(f16, 256);
-  if (dtype == 2 && W == 512) TFS_DQ_FMA(f16, 512);
+  if (dtype == 2 && W == 512) TFS_DQ_TMA(f16, 512);
   if (dtype == 0 && W == 64) TFS_DQ_FMA(float, 64);
   if (dtype == 0 && W == 128) TFS_DQ_FMA(float, 128);
   if (dtype == 0 && W == 256) TFS_DQ_FMA(float, 256);
@@ -1108,10 +1712,10 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
-// bf16 and f16 take the TMA kernel at 64, 128 and 256 (16-byte aligned
-// bases and strides) and the FMA kernel at 512, as f32 does at every D; a
-// multiple of 512 runs the 512-wide FMA build in D / 512 chunks of dK's
-// and dV's columns.  *route is set to the kernel launched
+// bf16 and f16 take the TMA kernel at every D (16-byte aligned bases and
+// strides), f32 the FMA kernel; a multiple of 512 runs the 512-wide build
+// with D / 512 chunks of dK's and dV's columns.  *route is set to the
+// kernel launched
 // (0 = flash_bwd_dkv_tma, 1 = flash_bwd_dkv_fma).
 extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
@@ -1125,10 +1729,10 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int nc;
   const int W = chunk_width(D, &nc);
-#define TFS_DKV_TMA(TY, DD)                             \
-  do {                                                  \
-    *route = 0;                                         \
-    return int(launch_dkv<TY, DD>(p, B, dk, dv, st));   \
+#define TFS_DKV_TMA(TY, DD)                                   \
+  do {                                                        \
+    *route = 0;                                               \
+    return int(launch_dkv<TY, DD>(p, B, nc, dk, dv, st));     \
   } while (0)
 #define TFS_DKV_FMA(TY, DD)                                     \
   do {                                                          \
@@ -1138,11 +1742,11 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && W == 64) TFS_DKV_TMA(bf16, 64);
   if (dtype == 1 && W == 128) TFS_DKV_TMA(bf16, 128);
   if (dtype == 1 && W == 256) TFS_DKV_TMA(bf16, 256);
-  if (dtype == 1 && W == 512) TFS_DKV_FMA(bf16, 512);
+  if (dtype == 1 && W == 512) TFS_DKV_TMA(bf16, 512);
   if (dtype == 2 && W == 64) TFS_DKV_TMA(f16, 64);
   if (dtype == 2 && W == 128) TFS_DKV_TMA(f16, 128);
   if (dtype == 2 && W == 256) TFS_DKV_TMA(f16, 256);
-  if (dtype == 2 && W == 512) TFS_DKV_FMA(f16, 512);
+  if (dtype == 2 && W == 512) TFS_DKV_TMA(f16, 512);
   if (dtype == 0 && W == 64) TFS_DKV_FMA(float, 64);
   if (dtype == 0 && W == 128) TFS_DKV_FMA(float, 128);
   if (dtype == 0 && W == 256) TFS_DKV_FMA(float, 256);

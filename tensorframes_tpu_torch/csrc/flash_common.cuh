@@ -5,10 +5,10 @@
 // the register A fragment of the next product, and an f32 result into its
 // stored output -- and the element conversions of the backward's and the
 // ring step's FMA kernels, which hold every tile in f32 whatever the
-// element type (f32 at any head dim; bf16 and f16 at the head dims above
-// those kernels' tensor-core builds: 512 for dQ and dK/dV, 256 for the ring
-// step), and the rule that splits a head dim above 512 into chunks of 512
-// (SPLIT, chunk_width), which the forward follows too.
+// element type (the backward's in f32 at any head dim; the ring step's in
+// f32, and in bf16 and f16 from 256 on, above its tensor-core builds), and
+// the rule that splits a head dim above 512 into chunks of 512 (SPLIT,
+// chunk_width), which every kernel follows.
 #pragma once
 
 #include <cuda_bf16.h>

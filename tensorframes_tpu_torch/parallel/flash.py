@@ -31,17 +31,19 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
 * Every kernel is built for head dims 64, 128, 256 and 512.  The forward
   takes the TMA + ``wgmma`` kernel for 16-bit inputs at every width and a
   register-tiled SIMT kernel (exact f32 FMAs) for f32 (:func:`fwd_route`);
-  the backward and the ring step take their TMA + ``wgmma`` kernels for
-  16-bit inputs at 64 and 128 (dQ and dK/dV at 256 too) and FMA kernels on
-  tiles widened to f32 for the rest.  Every head dim runs, as JAX's
-  kernels take any: the wrappers zero-pad it to the next built width, or
-  above 512 to the next multiple of 512, and slice the results back
-  (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the true dim as the
-  scale.  A multiple of 512 above it runs the 512-wide build with its
-  chunks of 512 columns (:func:`head_dim_chunks`): a grid axis over chunks
-  of the output (256 columns in the 16-bit forward), each chunk's blocks
-  recomputing the scores over the whole head dim and producing only their
-  own columns of the output (or of dQ, dK and dV).
+  the backward takes its TMA + ``wgmma`` kernels for 16-bit inputs at every
+  width and FMA kernels on f32 tiles for f32 (:func:`bwd_route`); the ring
+  step its TMA + ``wgmma`` kernel for 16-bit inputs at 64 and 128 and an
+  FMA kernel on tiles widened to f32 for the rest.  Every head dim runs,
+  as JAX's kernels take any: the wrappers zero-pad it to the next built
+  width, or above 512 to the next multiple of 512, and slice the results
+  back (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the true dim
+  as the scale.  A multiple of 512 above it runs the 512-wide build with
+  its chunks of 512 columns (:func:`head_dim_chunks`): a grid axis over
+  chunks of the output (256 columns in the 16-bit forward, dQ and dK/dV),
+  each chunk's blocks recomputing the scores (and dP) over the whole head
+  dim and producing only their own columns of the output (or of dQ, dK
+  and dV).
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -97,6 +99,15 @@ def fwd_route(dtype: torch.dtype) -> str:
     dim: "tma" (``flash_fwd_tma``, TMA + ``wgmma``) for bf16 and f16,
     "simt" (``flash_fwd_simt``, register-tiled exact f32 FMAs) for f32."""
     return "simt" if dtype == torch.float32 else "tma"
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """The route ``csrc/flash_bwd.cu`` launches dQ and dK/dV by for
+    ``dtype`` at every head dim: "tma" (``flash_bwd_dq_tma`` and
+    ``flash_bwd_dkv_tma``, TMA + ``wgmma``) for bf16 and f16, "fma"
+    (``flash_bwd_dq_fma``, ``flash_bwd_dkv_fma``: exact f32 FMAs on tiles in
+    shared memory) for f32."""
+    return "fma" if dtype == torch.float32 else "tma"
 
 
 def launch_name(kernel: str, route: str, dtype: torch.dtype, width: int) -> str:
@@ -441,7 +452,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # runs zero-padded to the next of them (:func:`kernel_head_dim`).  256 is
 # the widest head dim of the common public decoders (Gemma's); 512 is the
 # FMA kernels' widest tiling that fits a block's shared memory, and the
-# chunk a wider head dim is split into (:func:`head_dim_chunks`)
+# chunk a wider head dim is split into (:func:`head_dim_chunks`), which the
+# 16-bit TMA kernels of the forward and the backward split again into
+# 256-column output chunks
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
 SPLIT_WIDTH = KERNEL_HEAD_DIMS[-1]
 # a TMA box is 64 columns (one 128-byte swizzle atom of a 16-bit type) wide,
@@ -709,9 +722,10 @@ def _bwd_launch(name, fn, q, k, v, do, lse, delta, outs, causal, scale):
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                  scale: float | None = None) -> torch.Tensor:
     """The dQ kernel on CUDA tensors at a head dim of 64, 128, 256, 512 or
-    a multiple of 512 (checked and padded by :func:`flash_attention_bwd`): dO contiguous in q's dtype, lse
-    and ``delta = rowsum(dO o O)`` contiguous [B, H, Lq] f32; ``scale``
-    defaults to ``1/sqrt(Dh)``.  Returns dq [B, Lq, H, Dh]."""
+    a multiple of 512 (checked and padded by :func:`flash_attention_bwd`):
+    dO contiguous in q's dtype, lse and ``delta = rowsum(dO o O)``
+    contiguous [B, H, Lq] f32; ``scale`` defaults to ``1/sqrt(Dh)``.
+    Returns dq [B, Lq, H, Dh]."""
     global launches_dq
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_bwd_dq", _bwd_kernels()[1], q, k, v, do, lse, delta,

@@ -247,8 +247,8 @@ def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
 # and in f16, and at the wide builds' head dims (160 padded to 256, 256
 # itself, 320 padded to 512, and 512), and split above the widest build
 # (640 padded to 1024, two chunks of 512: the plain version at the chunk's
-# FMA tiling over the whole padded head dim, the function each chunk's
-# blocks compute their columns of).  f32: the JAX suite's tolerances
+# tiling over the whole padded head dim, the function each chunk's blocks
+# compute their columns of).  f32: the JAX suite's tolerances
 # (forward 2e-5, gradients 2e-4: summation order).  f16: outputs, p and dS round to f16
 # (2^-11 relative) at the same points in both, so 1e-2; bf16 (2^-8
 # relative): 3e-2.
@@ -265,10 +265,11 @@ _JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
 
 
 # the widths each 16-bit tensor-core kernel of the backward and the ring
-# step is built at (csrc/); f32, and 16-bit inputs wider than these, take
-# their FMA kernels (the forward takes its TMA kernel at every width, and
-# its SIMT kernel for f32)
-_TMA_WIDTHS = {"dq": (64, 128, 256), "dkv": (64, 128, 256), "ring": (64, 128)}
+# step is built at (csrc/; 512 also in each 512-column chunk of a split
+# head dim); f32, and 16-bit inputs wider than these, take their FMA
+# kernels (the forward takes its TMA kernel at every width, and its SIMT
+# kernel for f32)
+_TMA_WIDTHS = {"dq": (64, 128, 256, 512), "dkv": (64, 128, 256, 512), "ring": (64, 128)}
 
 
 def _kernel_tiles(kernel, width, dtype):
@@ -276,8 +277,9 @@ def _kernel_tiles(kernel, width, dtype):
     ``width``: the tensor-core kernels' as ``csrc/`` builds them and
     ``test_torch_flash_tiling.py`` pins them (the forward at Dh 256: 128
     queries x 64 keys, and at 512 and in each 512-column chunk of a split
-    head dim the same; dQ: 128 queries x 64 keys; dK/dV: 128 keys against
-    32 queries); the forward's f32 SIMT kernel's (``Simt`` in
+    head dim the same; dQ: 128 queries x 64 keys, at 512 and split too;
+    dK/dV: 128 keys against 32 queries, at 512 and split against 64,
+    ``test_torch_flash_bwd_redesign.py``); the forward's f32 SIMT kernel's (``Simt`` in
     ``csrc/flash_fwd.cu``: 64 x 64, 64 x 32 at Dh 128, 32 x 32 from 256
     on); the FMA kernels' (``FmaTiles`` in ``csrc/flash_common.cuh``:
     64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512 and in each 512-column chunk
@@ -288,16 +290,16 @@ def _kernel_tiles(kernel, width, dtype):
         return (32, 32) if w >= 256 else (64, 32) if w == 128 else (64, 64)
     if kernel == "fwd":
         return {64: (192, 128), 128: (128, 128)}.get(w, (128, 64))
-    if dtype == torch.float32 or width not in _TMA_WIDTHS[kernel]:
+    if dtype == torch.float32 or w not in _TMA_WIDTHS[kernel]:
         if kernel in ("dq", "dkv"):
             ft = 16 if width > 256 else 32
             return ft, ft
         return (32, 16) if width > 256 else (64, 32) if width > 128 else (64, 64)
     return {
-        "dq": {64: (192, 64), 128: (128, 64), 256: (128, 64)},
-        "dkv": {64: (64, 128), 128: (32, 128), 256: (32, 128)},
+        "dq": {64: (192, 64), 128: (128, 64), 256: (128, 64), 512: (128, 64)},
+        "dkv": {64: (64, 128), 128: (32, 128), 256: (32, 128), 512: (64, 128)},
         "ring": {64: (192, 128), 128: (128, 128)},
-    }[kernel][width]
+    }[kernel][w]
 
 
 def _fwd_emulated(q, k, v, causal):
