@@ -22,9 +22,10 @@
 //    every head dim, on TMA + wgmma: the narrow bodies (dq_narrow,
 //    dkv_narrow) at D = 64, 128 and 256, the wide bodies (dq_wide,
 //    dkv_wide) at D = 512 and every multiple of it;
-//  * flash_bwd_dq_fma<float, D> and flash_bwd_dkv_fma<float, D>, f32 at
-//    every head dim: exact f32 FMAs on tiles in shared memory (TF32 would
-//    lose precision the JAX reference keeps).
+//  * flash_bwd_dq_simt<float, D> and flash_bwd_dkv_simt<float, D>, f32 at
+//    every head dim: register-tiled SIMT kernels of exact f32 FMAs (TF32
+//    would lose precision the JAX reference keeps), flash_fwd.cu's
+//    flash_fwd_simt carried over to the gradients (SimtBwd below).
 // In all of them the TPU grid's sequential axis becomes a loop inside one
 // CTA, so nothing carries between blocks and nothing needs atomics: the
 // results are deterministic.
@@ -149,17 +150,14 @@
 // applied in f32; a row whose lse is -inf takes lse 0 under the mask and
 // never computes exp(finite - (-inf)) (:409-412); the causal mask is
 // top-left (q >= k) when Lq != Lk.
-// The f32 kernels: from Dh = 256 on the block has 256 threads, so that dK
-// and dV of a tile stay at 32 + 32 accumulators a thread; at 512 the tiles
-// are 16 x 16 (FmaBwd).  A head dim above 512 (padded to a multiple of it)
-// runs the 512-wide build split into chunks of 512 columns, one grid axis
-// over them: each chunk's blocks sum S and dP over every chunk and
-// accumulate only their own chunk of dQ, or of dK and dV.
+// The f32 kernels follow the same numerics (P and dS in f32, the identity
+// cast); their design is at SimtBwd below.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -1365,249 +1363,404 @@ cudaError_t launch_dkv(const Problem& p, int B, int nc, void* dk, void* dv,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA kernels over FT x FT tiles in shared memory, at every head dim
-// (templates on the element type, so P and dS round to it before their
-// products; only f32 is built)
+// f32: the register-tiled SIMT kernels, at every head dim
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct FmaBwd {
-  // query rows and keys per tile: 32, and 16 at D = 512, where 32-row
-  // Q, dO, K and V tiles of f32 would take 271 KB
-  static constexpr int FT = D > 256 ? 16 : 32;
-  // threads of a block, THREADS / FT a row (query row for dQ, key for
-  // dK/dV): 4 a row to D = 128; above it 8 (16 at 512), so that dK's and
-  // dV's accumulators stay at 32 + 32 registers a thread
-  static constexpr int THREADS = D > 128 ? 256 : 128;
-  static constexpr int TPR = THREADS / FT, NJ = D / TPR;
-  static constexpr int LD = D + 1;
-  // Q, dO, K, V tiles (rows of D + 1), P and dS tiles, lse and D vectors
-  static constexpr size_t SMEM =
-      (size_t(4) * FT * LD + 2 * FT * (FT + 1) + 2 * FT) * sizeof(float);
-  static_assert(SMEM <= 232448, "FMA tiles exceed a block's shared memory");
-  static_assert(THREADS % FT == 0 && D % TPR == 0);
+// flash_fwd.cu's Simt carried over to the gradients.  Both kernels form a
+// score tile of R resident rows by C streamed rows, on 256 threads:
+//  * dQ: S = Q K^T and dP = dO V^T over R query rows of one head (Q, dO,
+//    their lse and D resident) by C keys of its kv head (K and V streamed,
+//    from key 0 to the diagonal);
+//  * dK/dV: S^T = K Q^T and dP^T = V dO^T over R keys of one kv head (K and
+//    V resident) by C query rows (Q, dO, their lse and D streamed, every
+//    query head of the group in turn, each from the diagonal on).
+// Per streamed tile:
+//  * S and dP together: a thread forms a 4 x 4 micro-tile of both for the
+//    same pairs, rows sr + i NRG and columns sc + j NSG, from float4 loads
+//    along Dh; G lanes (neighbours) split the reduction over Dh by 16-byte
+//    chunk (chunk gs + G n), and a butterfly of shuffles sums their
+//    partials.  A warp holds NR_LO row groups x NS_LO column groups x G
+//    splits, so its loads touch few rows (broadcasts).
+//  * P = exp(S scale - lse) and dS = P o (dP - D) of the thread's pairs in
+//    registers (expf, as the forward; the mask, top-left causal), stored
+//    transposed, [column][row] in rows of LDM = R + 4: dS (dQ), or P and dS
+//    (dK/dV).
+//  * The gradient products as the forward's O += P V: a thread holds 4
+//    consecutive rows x CH float4 chunks of columns (chunk ocg + NCG m) of
+//    its R x D accumulators, dQ (dQ += dS K) or dV and dK (dV += P^T dO,
+//    dK += dS^T Q); per streamed row one float4 of dS (or of P and of dS)
+//    and CH float4s of K (or of dO and of Q) feed 16 CH FMAs each.
+//  * Shared memory: the resident tiles and ST stages of the streamed ones in
+//    rows of LD = D + 4 G floats (LD / 4 = G mod 8: the chunks a warp loads
+//    fall in distinct banks), copied by cp.async (ST = 2: the next tile's
+//    copy overlaps this one's work); the transposed P / dS; lse and D of
+//    the rows.
+//  * Registers: dK and dV of R keys x 512 columns would take 128 f32
+//    registers a thread at R = 32, so dK/dV runs 16 keys at Dh 512 (64).
+//    Two CTAs an SM where they fit and were faster (dQ at Dh 64, dK/dV at
+//    64 and 128; tools/bwd_simt_variant.py times one CTA against two):
+//    launch bounds hold a thread to 128 registers, so S and dP run as two
+//    rolled loops, one product's operands live at a time (one loop over
+//    both spilled 12-64 bytes, and dQ at 128 spills 120 even so: one CTA
+//    there, as fast); one CTA with two stages elsewhere below 512.
+// What bounds them on the H100: the FMA pipe (67 TFLOP/s f32), at 6 Dh
+// (dQ) and 8 Dh (dK/dV) FLOP per (query, key) pair; every FMA is exact f32
+// (TF32 would lose precision the JAX reference keeps).  A head dim above
+// 512 runs the 512 build split into chunks of 512 columns, one per
+// blockIdx.z: every chunk's block sums S and dP over all the chunks in chunk
+// order, streaming the resident and the streamed chunks through the tiles
+// (so every chunk computes the same P and dS), and accumulates only its own
+// chunk (dS K_z; P^T dO_z and dS^T Q_z).
+template <int R_, int C_, int D, bool DKV, int ST_, int CTAS_>
+struct SimtBwd {
+  static constexpr int R = R_, C = C_, ST = ST_, CTAS = CTAS_;
+  static constexpr int THREADS = 256;
+  static constexpr int NRG = R / 4, NSG = C / 4;
+  static constexpr int G = THREADS / (NRG * NSG);
+  static constexpr int NS_LO = G == 1 ? 8 : 4;
+  static constexpr int NR_LO = 32 / (G * NS_LO);
+  static constexpr int NS_HI = NSG / NS_LO;
+  static constexpr int NCG = THREADS / NRG;
+  static constexpr int CH = D / 4 / NCG;
+  static constexpr int NC_HI = NCG / 8;
+  static constexpr int LD = D + 4 * G;
+  static constexpr int LDM = R + 4;
+  static constexpr int NT = DKV ? 2 : 1;                  // dS; or P and dS
+  static constexpr int NROW = DKV ? 2 * ST * C : 2 * R;  // lse and D values
+  static constexpr size_t SMEM = (size_t(2 * R + 2 * ST * C) * LD + size_t(NT) * C * LDM +
+                                  NROW) * sizeof(float);
+  static_assert(NRG * NSG * G == THREADS && NR_LO * NS_LO * G == 32, "S's lanes");
+  static_assert(NSG % NS_LO == 0 && (NRG / NR_LO) * NS_HI == THREADS / 32, "S's warps");
+  static_assert(CH * NCG * 4 == D && (NRG / 4) * NC_HI == THREADS / 32, "the products' lanes");
+  static_assert((D / 4) % G == 0 && (LD / 4 - G) % 8 == 0 && LDM % 4 == 0, "strides");
+  static_assert(ST == 1 || D < SPLIT, "a split head dim streams its chunks through one stage");
+  static_assert(SMEM <= 232448 && CTAS * (SMEM + 1024) <= 233472,
+                "f32 backward tiles exceed the shared memory of their CTAs");
 };
 
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_bwd(float* dst, const T* base,
-                                              int64_t s_l, int row0, int L,
-                                              int tid) {
-  using F = FmaBwd<D>;
-  for (int i = tid; i < F::FT * D; i += F::THREADS) {
-    const int r = i / D, c = i % D, row = row0 + r;
-    dst[r * F::LD + c] = row < L ? to_f32(base[row * s_l + c]) : 0.f;
-  }
-}
+// the CTAs an SM, by head dim and kernel, and the stages of the streamed
+// tiles: two where one CTA holds the SM, below the split width
+constexpr int simt_ctas(int D, bool dkv) { return D <= (dkv ? 128 : 64) ? 2 : 1; }
+constexpr int simt_stages(int D, bool dkv) { return simt_ctas(D, dkv) == 1 && D < SPLIT ? 2 : 1; }
 
-// lse (safe) and D of query rows [q0, q0 + FT) of head bh
-template <int FT>
-__device__ __forceinline__ void load_rows_fma(float* Ls, float* Ds,
-                                              const Problem& p, int64_t bh,
-                                              int q0, int tid) {
-  if (tid < FT) {
-    const int row = q0 + tid;
-    const int64_t i = bh * p.Lq + row;
-    Ls[tid] = safe_lse(p.lse, i, row < p.Lq);
-    Ds[tid] = row < p.Lq ? p.delta[i] : 0.f;
-  }
-}
+// dQ: 64 query rows x 64 keys at Dh 64, x 32 keys at 128; 32 x 32 at 256;
+// 32 x 16 at 512 (Q, dO, K and V of 32 rows would take 278 KB).  dK/dV:
+// 64 keys x 64 query rows at 64; 32 x 32 at 128 and 256; 16 x 32 at 512.
+// Shared memory: dQ 86 (two CTAs), 145 and 209 (two stages) and 207 KB;
+// dK/dV 103 and 81 (two CTAs), 214 (two stages) and 209 KB.
+template <int D>
+using DqSimt = SimtBwd<D >= 256 ? 32 : 64, D >= 512 ? 16 : D >= 128 ? 32 : 64, D, false,
+                       simt_stages(D, false), simt_ctas(D, false)>;
+template <int D>
+using DkvSimt = SimtBwd<D >= 512 ? 16 : D >= 128 ? 32 : 64, D >= 128 ? 32 : 64, D, true,
+                        simt_stages(D, true), simt_ctas(D, true)>;
 
-// P and dS of one (query tile, key tile) pair, [query][key] in Ps / Ss,
-// each rounded to T: P before P^T dO (flash.py:482), dS before dS K and
-// dS^T Q (:443, :489).  Above the widest build the head dim is split into
-// chunks of D columns (see flash_bwd_dq_fma), and the tiles hold one chunk:
-// S and dP sum chunk by chunk in Ps and Ss (`first` starts them, `last`
-// turns them into P and dS), each pair by the same thread every chunk.
-template <typename T, int D>
-__device__ __forceinline__ void p_ds_tile_fma(
-    const float* Qs, const float* Os, const float* Ks, const float* Vs,
-    const float* Ls, const float* Ds, int q0, int k0, const Problem& p,
-    float* Ps, float* Ss, int tid, bool first, bool last) {
-  using F = FmaBwd<D>;
-  constexpr int FT = F::FT;
-  for (int i = tid; i < FT * FT; i += F::THREADS) {
-    const int r = i / FT, c = i % FT;
-    const float* qr = Qs + r * F::LD;
-    const float* orow = Os + r * F::LD;
-    const float* kr = Ks + c * F::LD;
-    const float* vr = Vs + c * F::LD;
-    float s = first ? 0.f : Ps[r * (FT + 1) + c];
-    float dp = first ? 0.f : Ss[r * (FT + 1) + c];
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(qr[d], kr[d], s);
-      dp = fmaf(orow[d], vr[d], dp);
+// acc[i][j] += the dot product of a's row sr + i NRG and b's row sc + j NSG
+// over the 4 columns from d
+template <typename F>
+__device__ __forceinline__ void fma_4x4(const float* a, const float* b, int sr, int sc,
+                                        int d, float (&acc)[4][4]) {
+  float4 x[4], y[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = *reinterpret_cast<const float4*>(a + (sr + i * F::NRG) * F::LD + d);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    y[j] = *reinterpret_cast<const float4*>(b + (sc + j * F::NSG) * F::LD + d);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+      acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+      acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+      acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
     }
-    if (!last) {
-      Ps[r * (FT + 1) + c] = s;
-      Ss[r * (FT + 1) + c] = dp;
-      continue;
-    }
-    const int qi = q0 + r, kj = k0 + c;
-    const bool ok = qi < p.Lq && kj < p.Lk && (!p.causal || qi >= kj);
-    const float pr = ok ? expf(s * p.scale - Ls[r]) : 0.f;
-    Ps[r * (FT + 1) + c] = round_to<T>(pr);
-    Ss[r * (FT + 1) + c] = round_to<T>(pr * (dp - Ds[r]));
-  }
 }
 
-// dQ over FT-row query tiles.  A head dim of nc * D (nc > 1: above the
-// widest build, padded to a multiple of it) is split into nc chunks of D
-// columns, one per blockIdx.z: every chunk's block sums S and dP over all
-// the chunks in chunk order, streaming the Q, dO, K and V chunks through
-// the shared tiles (so all of them compute the same P and dS), and
-// accumulates only its own chunk of dQ (dS K_c).  S and dP are thus
-// recomputed nc times, the cost of taking any width.
-template <typename T, int D>
-__global__ void __launch_bounds__(FmaBwd<D>::THREADS, 1)
-flash_bwd_dq_fma(Problem p, int nc, T* __restrict__ dq) {
-  using F = FmaBwd<D>;
-  constexpr int FT = F::FT, LD = F::LD, TPR = F::TPR, NJ = F::NJ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Os = Qs + FT * LD;
-  float* Ks = Os + FT * LD;
-  float* Vs = Ks + FT * LD;
-  float* Ps = Vs + FT * LD;
-  float* Ss = Ps + FT * (FT + 1);
-  float* Ls = Ss + FT * (FT + 1);
-  float* Ds = Ls + FT;
+// The body of both kernels: dQ (DKV false: out = dq) or dK and dV (DKV
+// true: out = dk, out2 = dv) of one CTA's R rows, chunk blockIdx.z of their
+// columns
+template <int D, bool DKV>
+__device__ __forceinline__ void bwd_simt(const Problem& p, int nc, float* __restrict__ out,
+                                         float* __restrict__ out2) {
+  using F = std::conditional_t<DKV, DkvSimt<D>, DqSimt<D>>;
+  constexpr int R = F::R, C = F::C, G = F::G, LD = F::LD, LDM = F::LDM, CH = F::CH;
+  extern __shared__ __align__(16) float smem_f[];
+  float* const A1 = smem_f;                   // Q, or K: R rows
+  float* const A2 = A1 + R * LD;              // dO, or V
+  float* const Bs = A2 + R * LD;              // ST stages of (K, V), or (Q, dO): C rows each
+  float* const Tt = Bs + 2 * F::ST * C * LD;  // dS, or P then dS: [column][row]
+  float* const rows = Tt + F::NT * C * LDM;   // lse, then D: of the R rows, or of each stage's C
 
-  const int tid = threadIdx.x;
-  const int H = p.H, Lq = p.Lq, Lk = p.Lk;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kvh = h / (H / p.KVH);
-  const int q0 = blockIdx.x * FT;
-  const int ch = blockIdx.z;  // this block's chunk of dQ's columns
-  const T* qb = static_cast<const T*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
-  const T* ob = static_cast<const T*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
-  const T* kb = static_cast<const T*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
-  const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-  if (nc == 1) {
-    load_tile_bwd<T, D>(Qs, qb, p.s.q[1], q0, Lq, tid);
-    load_tile_bwd<T, D>(Os, ob, p.s.d[1], q0, Lq, tid);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int H = p.H, KVH = p.KVH, grp = H / KVH, Lq = p.Lq, Lk = p.Lk;
+  const int causal = p.causal;
+  const int z = blockIdx.z;  // this block's chunk of the output columns
+  const float* const q = static_cast<const float*>(p.q);
+  const float* const k = static_cast<const float*>(p.k);
+  const float* const v = static_cast<const float*>(p.v);
+  const float* const dout = static_cast<const float*>(p.dout);
+
+  // the resident rows [r0, r0 + R) and the steps over streamed tiles: key
+  // tiles to the diagonal (dQ); (group head, query tile from the diagonal
+  // on) pairs (dK/dV)
+  int b, h, kvh, r0, n_steps, per = 1, qt0 = 0;
+  if constexpr (DKV) {
+    b = blockIdx.y / KVH;
+    kvh = blockIdx.y % KVH;
+    h = kvh * grp;
+    r0 = blockIdx.x * R;  // key tile 0, the heaviest under the causal mask, first
+    const int nq = (Lq + C - 1) / C;
+    qt0 = causal ? min(r0 / C, nq) : 0;
+    per = nq - qt0;
+    n_steps = grp * per;
+  } else {
+    b = blockIdx.y / H;
+    h = blockIdx.y % H;
+    kvh = h / grp;
+    r0 = int(causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * R;  // heavier tiles first
+    n_steps = (Lk + C - 1) / C;
+    if (causal) n_steps = min(n_steps, (min(r0 + R, Lq) - 1) / C + 1);
   }
-  load_rows_fma<FT>(Ls, Ds, p, bh, q0, tid);
+  const float* const kb = k + b * p.s.k[0] + kvh * p.s.k[2];
+  const float* const vb = v + b * p.s.v[0] + kvh * p.s.v[2];
+  const float* const a1b = DKV ? kb : q + b * p.s.q[0] + h * p.s.q[2];
+  const float* const a2b = DKV ? vb : dout + b * p.s.d[0] + h * p.s.d[2];
+  const int64_t a1s = DKV ? p.s.k[1] : p.s.q[1];
+  const int64_t a2s = DKV ? p.s.v[1] : p.s.d[1];
+  const int La = DKV ? Lk : Lq;
 
-  // this thread: row r, columns c0 + TPR j
-  const int r = tid / TPR, c0 = tid % TPR;
-  float acc[NJ] = {};
-  int n_tiles = (Lk + FT - 1) / FT;
-  if (p.causal) n_tiles = min(n_tiles, (min(q0 + FT, Lq) - 1) / FT + 1);
-  for (int t = 0; t < n_tiles; ++t) {
+  // rows [row0, row0 + n) of a [L, .] slice with row stride s_l, the
+  // columns [col, col + D), into rows of LD floats (zeros past L)
+  auto load_rows = [&](float* dst, const float* base, int64_t s_l, int row0, int n, int L,
+                       int col) {
+    constexpr int CPR = D / 4;
+    for (int i = tid; i < n * CPR; i += F::THREADS) {
+      const int r = i / CPR, c4 = (i % CPR) * 4;
+      const bool ok = row0 + r < L;
+      cp_async16(dst + r * LD + c4, base + (ok ? (row0 + r) * s_l : 0) + col + c4, ok);
+    }
+  };
+  // the (safe) lse, then D, of query rows [row0, row0 + n) of head hd
+  auto load_lse_d = [&](float* dst, int hd, int row0, int n) {
+    if (tid < n) {
+      const int row = row0 + tid;
+      const int64_t i = (int64_t(b) * H + hd) * Lq + row;
+      dst[tid] = safe_lse(p.lse, i, row < Lq);
+      dst[n + tid] = row < Lq ? p.delta[i] : 0.f;
+    }
+  };
+  // step s: the head and first row of its streamed tile
+  auto step_head = [&](int s) { return DKV ? kvh * grp + s / per : h; };
+  auto step_row0 = [&](int s) { return DKV ? (qt0 + s % per) * C : s * C; };
+  // step s's streamed tiles, the columns [col, col + D), into stage st:
+  // only the first (K, or Q) unless `both`
+  // (and with `first`, dK/dV's lse and D of its query rows)
+  auto load_step = [&](int s, int st, int col, bool both, bool first) {
+    float* const buf = Bs + st * 2 * C * LD;
+    const int c0 = step_row0(s);
+    if constexpr (DKV) {
+      const int hs = step_head(s);
+      load_rows(buf, q + b * p.s.q[0] + hs * p.s.q[2], p.s.q[1], c0, C, Lq, col);
+      if (both)
+        load_rows(buf + C * LD, dout + b * p.s.d[0] + hs * p.s.d[2], p.s.d[1], c0, C, Lq, col);
+      if (first) load_lse_d(rows + st * 2 * C, hs, c0, C);
+    } else {
+      load_rows(buf, kb, p.s.k[1], c0, C, Lk, col);
+      if (both) load_rows(buf + C * LD, vb, p.s.v[1], c0, C, Lk, col);
+    }
+  };
+
+  // S and dP: rows sr + i NRG, columns sc + j NSG, split gs of G
+  const int gs = lane % G;
+  const int sc = (warp % F::NS_HI) * F::NS_LO + (lane / G) % F::NS_LO;
+  const int sr = (warp / F::NS_HI) * F::NR_LO + lane / (G * F::NS_LO);
+  // the products: rows orow .. orow + 3, column chunks ocg + NCG m
+  const int orow = 4 * ((warp / F::NC_HI) * 4 + lane / 8);
+  const int ocg = (warp % F::NC_HI) * 8 + lane % 8;
+
+  // dQ, or dV; and dK
+  float4 acc[4][CH], acc2[4][DKV ? CH : 1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < CH; ++m) {
+      acc[i][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (DKV) acc2[i][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+  if constexpr (!DKV) load_lse_d(rows, h, r0, R);
+  load_rows(A1, a1b, a1s, r0, R, La, 0);
+  load_rows(A2, a2b, a2s, r0, R, La, 0);
+  if (n_steps > 0) load_step(0, 0, 0, true, true);
+  cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    const int st = F::ST == 1 ? 0 : s & 1;
+    const float* const B1 = Bs + st * 2 * C * LD;
+    const float* const B2 = B1 + C * LD;
+    const int c0 = step_row0(s);
+    float sacc[4][4], dacc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sacc[i][j] = dacc[i][j] = 0.f;
+    // S and dP, chunk by chunk of D columns in order (one chunk unless the
+    // head dim is split), every chunk's block alike
     for (int cc = 0; cc < nc; ++cc) {
-      __syncthreads();  // the previous chunk or tile is consumed
-      if (nc > 1) {
-        load_tile_bwd<T, D>(Qs, qb + cc * D, p.s.q[1], q0, Lq, tid);
-        load_tile_bwd<T, D>(Os, ob + cc * D, p.s.d[1], q0, Lq, tid);
+      cp_async_wait<0>();  // this chunk's tiles
+      __syncthreads();     // ... from every thread; and step s - 1 is done
+      if (F::ST == 2 && cc == 0 && s + 1 < n_steps) {  // its stage is free: step s + 1
+        // loads behind this one
+        load_step(s + 1, st ^ 1, 0, true, true);
+        cp_async_commit();
       }
-      load_tile_bwd<T, D>(Ks, kb + cc * D, p.s.k[1], t * FT, Lk, tid);
-      load_tile_bwd<T, D>(Vs, vb + cc * D, p.s.v[1], t * FT, Lk, tid);
-      __syncthreads();
-      p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, q0, t * FT, p, Ps, Ss, tid,
-                          cc == 0, cc == nc - 1);
+      if constexpr (F::CTAS == 2) {  // 128 registers: one product's operands at a time
+#pragma unroll 1
+        for (int n = 0; n < D / (4 * G); ++n) fma_4x4<F>(A1, B1, sr, sc, 4 * (gs + G * n), sacc);
+#pragma unroll 1
+        for (int n = 0; n < D / (4 * G); ++n) fma_4x4<F>(A2, B2, sr, sc, 4 * (gs + G * n), dacc);
+      } else {  // both products' loads in flight together
+#pragma unroll 2
+        for (int n = 0; n < D / (4 * G); ++n) {
+          const int d = 4 * (gs + G * n);
+          fma_4x4<F>(A1, B1, sr, sc, d, sacc);
+          fma_4x4<F>(A2, B2, sr, sc, d, dacc);
+        }
+      }
+      if (cc + 1 < nc) {
+        __syncthreads();  // every thread is done with chunk cc
+        load_rows(A1, a1b, a1s, r0, R, La, (cc + 1) * D);
+        load_rows(A2, a2b, a2s, r0, R, La, (cc + 1) * D);
+        load_step(s, st, (cc + 1) * D, true, false);
+        cp_async_commit();
+      }
     }
-    if (ch != nc - 1) {  // dS K takes this block's own chunk of K
+    if (nc > 1 && z != nc - 1) {  // the products take this block's own chunk
       __syncthreads();
-      load_tile_bwd<T, D>(Ks, kb + ch * D, p.s.k[1], t * FT, Lk, tid);
+      load_step(s, st, z * D, DKV, false);  // K; or Q and dO
+      cp_async_commit();
     }
-    __syncthreads();
-    for (int c = 0; c < FT; ++c) {
-      const float ds = Ss[r * (FT + 1) + c];
-      const float* kr = Ks + c * LD + c0;
+    // the G partial sums, by a butterfly: every lane ends with the same sums
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] = fmaf(ds, kr[TPR * j], acc[j]);
+    for (int off = 1; off < G; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sacc[i][j] += __shfl_xor_sync(0xffffffffu, sacc[i][j], off);
+          dacc[i][j] += __shfl_xor_sync(0xffffffffu, dacc[i][j], off);
+        }
+    // P and dS of the pairs (flash.py:406-412, :443, :489), stored transposed
+    // (Tt was last read by step s - 1's products, done before the sync above)
+    const float* const lr = DKV ? rows + st * 2 * C : rows;  // lse; D at + C (or + R)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j % G != gs) continue;
+      const int cl = sc + j * F::NSG;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rl = sr + i * F::NRG;
+        const int qi = DKV ? c0 + cl : r0 + rl, kj = DKV ? r0 + rl : c0 + cl;
+        const float lse = DKV ? lr[cl] : lr[rl];
+        const float dd = DKV ? lr[C + cl] : lr[R + rl];
+        const bool ok = qi < Lq && kj < Lk && (!causal || qi >= kj);  // top-left causal
+        const float pr = ok ? expf(sacc[i][j] * p.scale - lse) : 0.f;
+        const float ds = pr * (dacc[i][j] - dd);
+        if constexpr (DKV) {
+          Tt[cl * LDM + rl] = pr;
+          Tt[(C + cl) * LDM + rl] = ds;
+        } else {
+          Tt[cl * LDM + rl] = ds;
+        }
+      }
+    }
+    if (nc > 1) cp_async_wait<0>();  // this block's chunk (ST 2 keeps step s + 1's in flight)
+    __syncthreads();                  // P and dS from every thread
+
+    // dQ += dS K; or dV += P^T dO and dK += dS^T Q
+#pragma unroll(F::CTAS == 2 ? 2 : 4)
+    for (int c = 0; c < C; ++c) {
+      const float4 t = *reinterpret_cast<const float4*>(Tt + c * LDM + orow);
+      const float tr[4] = {t.x, t.y, t.z, t.w};
+      float ur[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (DKV) {
+        const float4 u = *reinterpret_cast<const float4*>(Tt + (C + c) * LDM + orow);
+        ur[0] = u.x; ur[1] = u.y; ur[2] = u.z; ur[3] = u.w;
+      }
+#pragma unroll
+      for (int m = 0; m < CH; ++m) {
+        const int col = 4 * (ocg + F::NCG * m);
+        const float4 x = *reinterpret_cast<const float4*>((DKV ? B2 : B1) + c * LD + col);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][m].x = fmaf(tr[i], x.x, acc[i][m].x);
+          acc[i][m].y = fmaf(tr[i], x.y, acc[i][m].y);
+          acc[i][m].z = fmaf(tr[i], x.z, acc[i][m].z);
+          acc[i][m].w = fmaf(tr[i], x.w, acc[i][m].w);
+        }
+        if constexpr (DKV) {
+          const float4 y = *reinterpret_cast<const float4*>(B1 + c * LD + col);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc2[i][m].x = fmaf(ur[i], y.x, acc2[i][m].x);
+            acc2[i][m].y = fmaf(ur[i], y.y, acc2[i][m].y);
+            acc2[i][m].z = fmaf(ur[i], y.z, acc2[i][m].z);
+            acc2[i][m].w = fmaf(ur[i], y.w, acc2[i][m].w);
+          }
+        }
+      }
+    }
+    if (s + 1 < n_steps && (F::ST == 1 || nc > 1)) {
+      __syncthreads();  // every thread is done with this step's tiles
+      if (nc > 1) {     // chunk 0 of the resident rows again
+        load_rows(A1, a1b, a1s, r0, R, La, 0);
+        load_rows(A2, a2b, a2s, r0, R, La, 0);
+      }
+      load_step(s + 1, 0, 0, true, true);
+      cp_async_commit();
     }
   }
-  const int row = q0 + r;
-  if (row < Lq) {
-    T* dst = dq + ((int64_t(b) * Lq + row) * H + h) * (int64_t(nc) * D) + ch * D + c0;
+  cp_async_wait<0>();  // (no step at all: the prologue's loads)
+
+  // this chunk's columns: dQ, or dK and dV, of the rows (scale in f32)
+  const int64_t width = int64_t(nc) * D;
+  const float scale = p.scale;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dst[TPR * j] = from_f32<T>(acc[j] * p.scale);
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + orow + i;
+    if (row >= La) continue;
+    const int64_t o = DKV ? ((int64_t(b) * Lk + row) * KVH + kvh) * width + z * D
+                          : ((int64_t(b) * Lq + row) * H + h) * width + z * D;
+#pragma unroll
+    for (int m = 0; m < CH; ++m) {
+      const int col = 4 * (ocg + F::NCG * m);
+      const float4 a = acc[i][m];
+      if constexpr (DKV) {
+        const float4 a2 = acc2[i][m];
+        *reinterpret_cast<float4*>(out + o + col) =
+            make_float4(a2.x * scale, a2.y * scale, a2.z * scale, a2.w * scale);
+        *reinterpret_cast<float4*>(out2 + o + col) = a;
+      } else {
+        *reinterpret_cast<float4*>(out + o + col) =
+            make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+      }
+    }
   }
 }
 
-// dK/dV over FT-key tiles, a head dim above the widest build split as in
-// flash_bwd_dq_fma: every chunk's block sums S^T and dP^T over all the
-// chunks (K, V, Q and dO streamed chunk by chunk) and accumulates only its
-// own chunk of dK (dS^T Q_c) and dV (P^T dO_c)
 template <typename T, int D>
-__global__ void __launch_bounds__(FmaBwd<D>::THREADS, 1)
-flash_bwd_dkv_fma(Problem p, int nc, T* __restrict__ dk, T* __restrict__ dv) {
-  using F = FmaBwd<D>;
-  constexpr int FT = F::FT, LD = F::LD, TPR = F::TPR, NJ = F::NJ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Os = Qs + FT * LD;
-  float* Ks = Os + FT * LD;
-  float* Vs = Ks + FT * LD;
-  float* Ps = Vs + FT * LD;
-  float* Ss = Ps + FT * (FT + 1);
-  float* Ls = Ss + FT * (FT + 1);
-  float* Ds = Ls + FT;
+__global__ void __launch_bounds__(DqSimt<D>::THREADS, DqSimt<D>::CTAS)
+flash_bwd_dq_simt(Problem p, int nc, T* __restrict__ dq) {
+  static_assert(std::is_same_v<T, float>, "the SIMT backward is the f32 kernel");
+  bwd_simt<D, false>(p, nc, dq, nullptr);
+}
 
-  const int tid = threadIdx.x;
-  const int H = p.H, KVH = p.KVH, Lq = p.Lq, Lk = p.Lk, grp = H / KVH;
-  const int bkv = blockIdx.y, b = bkv / KVH, kvh = bkv % KVH;
-  const int k0 = blockIdx.x * FT;
-  const int ch = blockIdx.z;  // this block's chunk of dK's and dV's columns
-  const T* kb = static_cast<const T*>(p.k) + b * p.s.k[0] + kvh * p.s.k[2];
-  const T* vb = static_cast<const T*>(p.v) + b * p.s.v[0] + kvh * p.s.v[2];
-  if (nc == 1) {
-    load_tile_bwd<T, D>(Ks, kb, p.s.k[1], k0, Lk, tid);
-    load_tile_bwd<T, D>(Vs, vb, p.s.v[1], k0, Lk, tid);
-  }
-
-  // this thread: key kr, columns c0 + TPR j
-  const int kr = tid / TPR, c0 = tid % TPR;
-  float adk[NJ] = {}, adv[NJ] = {};
-  const int nq = (Lq + FT - 1) / FT;
-  const int qt0 = p.causal ? min(k0 / FT, nq) : 0;
-  for (int gi = 0; gi < grp; ++gi) {
-    const int h = kvh * grp + gi;
-    const T* qb = static_cast<const T*>(p.q) + b * p.s.q[0] + h * p.s.q[2];
-    const T* ob = static_cast<const T*>(p.dout) + b * p.s.d[0] + h * p.s.d[2];
-    for (int qt = qt0; qt < nq; ++qt) {
-      for (int cc = 0; cc < nc; ++cc) {
-        __syncthreads();  // the previous chunk or pair is consumed
-        if (nc > 1) {
-          load_tile_bwd<T, D>(Ks, kb + cc * D, p.s.k[1], k0, Lk, tid);
-          load_tile_bwd<T, D>(Vs, vb + cc * D, p.s.v[1], k0, Lk, tid);
-        }
-        load_tile_bwd<T, D>(Qs, qb + cc * D, p.s.q[1], qt * FT, Lq, tid);
-        load_tile_bwd<T, D>(Os, ob + cc * D, p.s.d[1], qt * FT, Lq, tid);
-        if (cc == 0) load_rows_fma<FT>(Ls, Ds, p, int64_t(b) * H + h, qt * FT, tid);
-        __syncthreads();
-        p_ds_tile_fma<T, D>(Qs, Os, Ks, Vs, Ls, Ds, qt * FT, k0, p, Ps, Ss, tid,
-                            cc == 0, cc == nc - 1);
-      }
-      if (ch != nc - 1) {  // dS^T Q and P^T dO take this block's own chunk
-        __syncthreads();
-        load_tile_bwd<T, D>(Qs, qb + ch * D, p.s.q[1], qt * FT, Lq, tid);
-        load_tile_bwd<T, D>(Os, ob + ch * D, p.s.d[1], qt * FT, Lq, tid);
-      }
-      __syncthreads();
-      for (int r = 0; r < FT; ++r) {
-        const float pr = Ps[r * (FT + 1) + kr];
-        const float ds = Ss[r * (FT + 1) + kr];
-        const float* qr = Qs + r * LD + c0;
-        const float* orow = Os + r * LD + c0;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          adv[j] = fmaf(pr, orow[TPR * j], adv[j]);
-          adk[j] = fmaf(ds, qr[TPR * j], adk[j]);
-        }
-      }
-    }
-  }
-  const int key = k0 + kr;
-  if (key < Lk) {
-    const int64_t o = ((int64_t(b) * Lk + key) * KVH + kvh) * (int64_t(nc) * D) + ch * D + c0;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[o + TPR * j] = from_f32<T>(adk[j] * p.scale);
-      dv[o + TPR * j] = from_f32<T>(adv[j]);
-    }
-  }
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvSimt<D>::THREADS, DkvSimt<D>::CTAS)
+flash_bwd_dkv_simt(Problem p, int nc, T* __restrict__ dk, T* __restrict__ dv) {
+  static_assert(std::is_same_v<T, float>, "the SIMT backward is the f32 kernel");
+  bwd_simt<D, true>(p, nc, dk, dv);
 }
 
 // ---------------------------------------------------------------------------
@@ -1620,6 +1773,11 @@ cudaError_t run(void (*kernel)(Problem, int, Out...), dim3 grid, int threads,
                 Out... out) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  // all of an SM's 228 KB as shared memory, so that two CTAs fit where
+  // their tiles allow
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, bytes, stream>>>(p, nc, out...);
   return cudaGetLastError();
@@ -1642,21 +1800,20 @@ Problem problem(const void* q, const void* k, const void* v, const void* dout,
   return p;
 }
 
-// the FMA kernels, one CTA per FT-row query tile (dQ) or FT-key tile (dK/dV)
-// and chunk of nc
-template <typename T, int D>
-cudaError_t launch_dq_fma(const Problem& p, int B, int nc, void* dq, cudaStream_t st) {
-  using F = FmaBwd<D>;
-  return run(flash_bwd_dq_fma<T, D>, dim3((p.Lq + F::FT - 1) / F::FT, B * p.H, nc),
-             F::THREADS, F::SMEM, st, p, nc, static_cast<T*>(dq));
+// the SIMT kernels: one CTA per (R-row tile, batch x head or kv head, chunk)
+template <int D>
+cudaError_t launch_dq_simt(const Problem& p, int B, int nc, void* dq, cudaStream_t st) {
+  using F = DqSimt<D>;
+  return run(flash_bwd_dq_simt<float, D>, dim3((p.Lq + F::R - 1) / F::R, B * p.H, nc),
+             F::THREADS, F::SMEM, st, p, nc, static_cast<float*>(dq));
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv_fma(const Problem& p, int B, int nc, void* dk, void* dv,
-                           cudaStream_t st) {
-  using F = FmaBwd<D>;
-  return run(flash_bwd_dkv_fma<T, D>, dim3((p.Lk + F::FT - 1) / F::FT, B * p.KVH, nc),
-             F::THREADS, F::SMEM, st, p, nc, static_cast<T*>(dk), static_cast<T*>(dv));
+template <int D>
+cudaError_t launch_dkv_simt(const Problem& p, int B, int nc, void* dk, void* dv,
+                            cudaStream_t st) {
+  using F = DkvSimt<D>;
+  return run(flash_bwd_dkv_simt<float, D>, dim3((p.Lk + F::R - 1) / F::R, B * p.KVH, nc),
+             F::THREADS, F::SMEM, st, p, nc, static_cast<float*>(dk), static_cast<float*>(dv));
 }
 
 }  // namespace
@@ -1667,11 +1824,12 @@ cudaError_t launch_dkv_fma(const Problem& p, int B, int nc, void* dk, void* dv,
 // contiguous [B, Lq, H, D] in the input dtype.  dtype: 0 = f32, 1 = bf16,
 // 2 = f16.  D: 64, 128, 256, 512 or a multiple of 512 (the wrapper pads
 // other head dims); bf16 and f16 take the TMA kernel at every D, f32 the
-// FMA kernel; a multiple of 512 runs the 512-wide build with D / 512 chunks
-// (the TMA kernel a CTA per 256 columns of dQ, the FMA kernel a block per
-// 512).
+// SIMT kernel; a multiple of 512 runs the 512-wide build with D / 512
+// chunks (the TMA kernel a CTA per 256 columns of dQ, the SIMT kernel a
+// block per 512).
 // *route is set to the kernel launched (0 = flash_bwd_dq_tma,
-// 1 = flash_bwd_dq_fma).  Returns a cudaError_t (0 = launched).
+// 2 = flash_bwd_dq_simt; 1, the ring step's FMA route, is not taken here).
+// Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, void* dq, int B, int H,
@@ -1689,10 +1847,10 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
     *route = 0;                                        \
     return int(launch_dq<TY, DD>(p, B, nc, dq, st));   \
   } while (0)
-#define TFS_DQ_FMA(TY, DD)                              \
-  do {                                                  \
-    *route = 1;                                         \
-    return int(launch_dq_fma<TY, DD>(p, B, nc, dq, st)); \
+#define TFS_DQ_SIMT(DD)                               \
+  do {                                                \
+    *route = 2;                                       \
+    return int(launch_dq_simt<DD>(p, B, nc, dq, st)); \
   } while (0)
   if (dtype == 1 && W == 64) TFS_DQ_TMA(bf16, 64);
   if (dtype == 1 && W == 128) TFS_DQ_TMA(bf16, 128);
@@ -1702,21 +1860,20 @@ extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 2 && W == 128) TFS_DQ_TMA(f16, 128);
   if (dtype == 2 && W == 256) TFS_DQ_TMA(f16, 256);
   if (dtype == 2 && W == 512) TFS_DQ_TMA(f16, 512);
-  if (dtype == 0 && W == 64) TFS_DQ_FMA(float, 64);
-  if (dtype == 0 && W == 128) TFS_DQ_FMA(float, 128);
-  if (dtype == 0 && W == 256) TFS_DQ_FMA(float, 256);
-  if (dtype == 0 && W == 512) TFS_DQ_FMA(float, 512);
+  if (dtype == 0 && W == 64) TFS_DQ_SIMT(64);
+  if (dtype == 0 && W == 128) TFS_DQ_SIMT(128);
+  if (dtype == 0 && W == 256) TFS_DQ_SIMT(256);
+  if (dtype == 0 && W == 512) TFS_DQ_SIMT(512);
 #undef TFS_DQ_TMA
-#undef TFS_DQ_FMA
+#undef TFS_DQ_SIMT
   return int(cudaErrorInvalidValue);
 }
 
 // The same inputs; dk, dv: contiguous [B, Lk, KVH, D] in the input dtype.
 // bf16 and f16 take the TMA kernel at every D (16-byte aligned bases and
-// strides), f32 the FMA kernel; a multiple of 512 runs the 512-wide build
-// with D / 512 chunks of dK's and dV's columns.  *route is set to the
-// kernel launched
-// (0 = flash_bwd_dkv_tma, 1 = flash_bwd_dkv_fma).
+// strides), f32 the SIMT kernel; a multiple of 512 runs the 512-wide
+// build with D / 512 chunks of dK's and dV's columns.  *route is set to
+// the kernel launched (0 = flash_bwd_dkv_tma, 2 = flash_bwd_dkv_simt).
 extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dk, void* dv, int B,
@@ -1734,10 +1891,10 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
     *route = 0;                                               \
     return int(launch_dkv<TY, DD>(p, B, nc, dk, dv, st));     \
   } while (0)
-#define TFS_DKV_FMA(TY, DD)                                     \
-  do {                                                          \
-    *route = 1;                                                 \
-    return int(launch_dkv_fma<TY, DD>(p, B, nc, dk, dv, st));   \
+#define TFS_DKV_SIMT(DD)                                    \
+  do {                                                      \
+    *route = 2;                                             \
+    return int(launch_dkv_simt<DD>(p, B, nc, dk, dv, st));  \
   } while (0)
   if (dtype == 1 && W == 64) TFS_DKV_TMA(bf16, 64);
   if (dtype == 1 && W == 128) TFS_DKV_TMA(bf16, 128);
@@ -1747,12 +1904,12 @@ extern "C" int tfs_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 2 && W == 128) TFS_DKV_TMA(f16, 128);
   if (dtype == 2 && W == 256) TFS_DKV_TMA(f16, 256);
   if (dtype == 2 && W == 512) TFS_DKV_TMA(f16, 512);
-  if (dtype == 0 && W == 64) TFS_DKV_FMA(float, 64);
-  if (dtype == 0 && W == 128) TFS_DKV_FMA(float, 128);
-  if (dtype == 0 && W == 256) TFS_DKV_FMA(float, 256);
-  if (dtype == 0 && W == 512) TFS_DKV_FMA(float, 512);
+  if (dtype == 0 && W == 64) TFS_DKV_SIMT(64);
+  if (dtype == 0 && W == 128) TFS_DKV_SIMT(128);
+  if (dtype == 0 && W == 256) TFS_DKV_SIMT(256);
+  if (dtype == 0 && W == 512) TFS_DKV_SIMT(512);
 #undef TFS_DKV_TMA
-#undef TFS_DKV_FMA
+#undef TFS_DKV_SIMT
   return int(cudaErrorInvalidValue);
 }
 

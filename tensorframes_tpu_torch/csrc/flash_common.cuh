@@ -3,12 +3,12 @@
 // for the exp2 softmax, the packing of two f32 values into a pair of
 // the element type -- the step that turns a wgmma accumulator (P, dS) into
 // the register A fragment of the next product, and an f32 result into its
-// stored output -- and the element conversions of the backward's and the
-// ring step's FMA kernels, which hold every tile in f32 whatever the
-// element type (the backward's in f32 at any head dim; the ring step's in
-// f32, and in bf16 and f16 from 256 on, above its tensor-core builds), and
-// the rule that splits a head dim above 512 into chunks of 512 (SPLIT,
-// chunk_width), which every kernel follows.
+// stored output -- the element conversions of the ring step's FMA kernel,
+// which holds every tile in f32 whatever the element type (in f32, and in
+// bf16 and f16 from 256 on, above its tensor-core builds), the cp.async
+// copies of the f32 SIMT kernels (flash_fwd_simt, flash_bwd_dq_simt,
+// flash_bwd_dkv_simt), and the rule that splits a head dim above 512 into
+// chunks of 512 (SPLIT, chunk_width), which every kernel follows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,7 +39,7 @@ __device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// -- the FMA kernels' element conversions ----------------------------------
+// -- element conversions (the ring step's FMA kernel) -----------------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -119,6 +119,25 @@ struct FmaTiles {
       sizeof(float);
   static_assert(SMEM <= 232448, "FMA tiles exceed a block's shared memory");
 };
+
+// -- cp.async (the f32 SIMT kernels of the forward and the backward) --------
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (src is
+// not read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // The widest build.  A head dim above it, padded by the wrapper to a
 // multiple of it, runs that build split into chunks of SPLIT columns, one

@@ -762,22 +762,6 @@ struct Simt {
   static_assert(SMEM <= 232448, "f32 forward tiles exceed a block's shared memory");
 };
 
-// 16 bytes global -> shared, asynchronously; zeros where !valid (src is
-// not read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(Simt<D>::THREADS, D >= 512 ? 1 : 2)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
@@ -1016,9 +1000,9 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out,
 // TMA, so 16-byte aligned bases and strides, Lk > 0).  D: 64, 128, 256, 512
 // or a multiple of 512 (the wrapper pads other head dims), a multiple of
 // 512 running the 512-wide build with D / 512 chunks.  *route is set to the
-// kernel launched (0 = flash_fwd_tma, 2 = flash_fwd_simt; 1, the FMA
-// route of the other entry points, is not taken here).  Returns a
-// cudaError_t (0 = launched).
+// kernel launched (0 = flash_fwd_tma, 2 = flash_fwd_simt; 1, the ring
+// step's FMA route, is not taken here).  Returns a cudaError_t (0 =
+// launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,

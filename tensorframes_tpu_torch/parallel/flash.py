@@ -32,13 +32,13 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
   takes the TMA + ``wgmma`` kernel for 16-bit inputs at every width and a
   register-tiled SIMT kernel (exact f32 FMAs) for f32 (:func:`fwd_route`);
   the backward takes its TMA + ``wgmma`` kernels for 16-bit inputs at every
-  width and FMA kernels on f32 tiles for f32 (:func:`bwd_route`); the ring
-  step its TMA + ``wgmma`` kernel for 16-bit inputs at 64 and 128 and an
-  FMA kernel on tiles widened to f32 for the rest.  Every head dim runs,
-  as JAX's kernels take any: the wrappers zero-pad it to the next built
-  width, or above 512 to the next multiple of 512, and slice the results
-  back (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the true dim
-  as the scale.  A multiple of 512 above it runs the 512-wide build with
+  width and register-tiled SIMT kernels (exact f32 FMAs) for f32
+  (:func:`bwd_route`); the ring step its TMA + ``wgmma`` kernel for 16-bit
+  inputs at 64 and 128 and an FMA kernel on tiles widened to f32 for the
+  rest.  Every head dim runs, as JAX's kernels take any: the wrappers
+  zero-pad it to the next built width, or above 512 to the next multiple
+  of 512, and slice the results back (:func:`kernel_head_dim`), keeping
+  ``1/sqrt(Dh)`` of the true dim as the scale.  A multiple of 512 above it runs the 512-wide build with
   its chunks of 512 columns (:func:`head_dim_chunks`): a grid axis over
   chunks of the output (256 columns in the 16-bit forward, dQ and dK/dV),
   each chunk's blocks recomputing the scores (and dP) over the whole head
@@ -77,7 +77,7 @@ launches_dq = 0
 launches_dkv = 0
 launches_ring = 0
 # the same launches by the instantiation the C entry point reports it ran,
-# e.g. "flash_fwd_tma<bf16,256>" or "flash_bwd_dq_fma<f32,512>", and a
+# e.g. "flash_fwd_tma<bf16,256>" or "flash_bwd_dq_simt<f32,512>", and a
 # split head dim with its chunks, e.g. "flash_fwd_tma<bf16,512>x2" at 1024
 kernel_launches: Dict[str, int] = {}
 
@@ -88,8 +88,8 @@ def reset_launches() -> None:
     kernel_launches.clear()
 
 
-# the C entry points' *route: 0, 1 and 2 (the forward takes 0 and 2, the
-# others 0 and 1)
+# the C entry points' *route: 0, 1 and 2 (the forward and the backward take
+# 0 and 2, the ring step 0 and 1)
 _ROUTES = ("tma", "fma", "simt")
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
@@ -104,10 +104,10 @@ def fwd_route(dtype: torch.dtype) -> str:
 def bwd_route(dtype: torch.dtype) -> str:
     """The route ``csrc/flash_bwd.cu`` launches dQ and dK/dV by for
     ``dtype`` at every head dim: "tma" (``flash_bwd_dq_tma`` and
-    ``flash_bwd_dkv_tma``, TMA + ``wgmma``) for bf16 and f16, "fma"
-    (``flash_bwd_dq_fma``, ``flash_bwd_dkv_fma``: exact f32 FMAs on tiles in
-    shared memory) for f32."""
-    return "fma" if dtype == torch.float32 else "tma"
+    ``flash_bwd_dkv_tma``, TMA + ``wgmma``) for bf16 and f16, "simt"
+    (``flash_bwd_dq_simt``, ``flash_bwd_dkv_simt``: register-tiled exact
+    f32 FMAs) for f32, as the forward (:func:`fwd_route`)."""
+    return "simt" if dtype == torch.float32 else "tma"
 
 
 def launch_name(kernel: str, route: str, dtype: torch.dtype, width: int) -> str:
@@ -451,8 +451,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the kernels are built for; every head dim up to the widest
 # runs zero-padded to the next of them (:func:`kernel_head_dim`).  256 is
 # the widest head dim of the common public decoders (Gemma's); 512 is the
-# FMA kernels' widest tiling that fits a block's shared memory, and the
-# chunk a wider head dim is split into (:func:`head_dim_chunks`), which the
+# widest f32 tiling (the SIMT kernels', the ring step's FMA kernel's) that
+# fits a block's shared memory, and the chunk a wider head dim is split
+# into (:func:`head_dim_chunks`), which the
 # 16-bit TMA kernels of the forward and the backward split again into
 # 256-column output chunks
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)

@@ -228,8 +228,9 @@ def test_kernel_input_checks_accept_every_head_dim_above_512(dtype, D, width):
     assert tflash.check_kernel_inputs(*_kernel_inputs(dtype, D, H=2, KVH=1)) == width
     assert tflash.kernel_head_dim(D) == width
     assert tflash.head_dim_chunks(width) == width // 512
-    name = tflash.launch_name("flash_bwd_dq", "fma", dtype, width)
-    assert name == f"flash_bwd_dq_fma<{tflash._DTYPE_NAMES[dtype]},512>x{width // 512}"
+    route = tflash.bwd_route(dtype)
+    name = tflash.launch_name("flash_bwd_dq", route, dtype, width)
+    assert name == f"flash_bwd_dq_{route}<{tflash._DTYPE_NAMES[dtype]},512>x{width // 512}"
 
 
 def test_pad_head_dim_zero_fills_and_keeps_a_full_width_tensor():
@@ -266,9 +267,9 @@ _JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
 
 # the widths each 16-bit tensor-core kernel of the backward and the ring
 # step is built at (csrc/; 512 also in each 512-column chunk of a split
-# head dim); f32, and 16-bit inputs wider than these, take their FMA
-# kernels (the forward takes its TMA kernel at every width, and its SIMT
-# kernel for f32)
+# head dim); f32 takes the ring step's FMA kernel, as do 16-bit inputs
+# wider than these (the forward, dQ and dK/dV take their TMA kernels at
+# every width, and their SIMT kernels for f32)
 _TMA_WIDTHS = {"dq": (64, 128, 256, 512), "dkv": (64, 128, 256, 512), "ring": (64, 128)}
 
 
@@ -281,19 +282,21 @@ def _kernel_tiles(kernel, width, dtype):
     dK/dV: 128 keys against 32 queries, at 512 and split against 64,
     ``test_torch_flash_bwd_redesign.py``); the forward's f32 SIMT kernel's (``Simt`` in
     ``csrc/flash_fwd.cu``: 64 x 64, 64 x 32 at Dh 128, 32 x 32 from 256
-    on); the FMA kernels' (``FmaTiles`` in ``csrc/flash_common.cuh``:
-    64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512 and in each 512-column chunk
-    of a split head dim; ``FmaBwd::FT`` in ``csrc/flash_bwd.cu``: 32, 16
-    from 512 on)."""
+    on); the backward's f32 SIMT kernels' (``DqSimt`` and ``DkvSimt`` in
+    ``csrc/flash_bwd.cu``, ``test_torch_flash_bwd_simt.py``: dQ 64 x 64,
+    64 x 32 at Dh 128, 32 x 32 at 256, 32 x 16 at 512; dK/dV 64 x 64, then
+    32 x 32, and 32 x 16 at 512); the ring step's FMA kernel's (``FmaTiles``
+    in ``csrc/flash_common.cuh``: 64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512
+    and in each 512-column chunk of a split head dim)."""
     w = min(width, 512)  # a split head dim runs the 512-wide build
     if kernel == "fwd" and dtype == torch.float32:
         return (32, 32) if w >= 256 else (64, 32) if w == 128 else (64, 64)
     if kernel == "fwd":
         return {64: (192, 128), 128: (128, 128)}.get(w, (128, 64))
+    if kernel in ("dq", "dkv") and dtype == torch.float32:
+        return {64: (64, 64), 128: (64, 32) if kernel == "dq" else (32, 32),
+                256: (32, 32), 512: (32, 16)}[w]
     if dtype == torch.float32 or w not in _TMA_WIDTHS[kernel]:
-        if kernel in ("dq", "dkv"):
-            ft = 16 if width > 256 else 32
-            return ft, ft
         return (32, 16) if width > 256 else (64, 32) if width > 128 else (64, 64)
     return {
         "dq": {64: (192, 64), 128: (128, 64), 256: (128, 64), 512: (128, 64)},

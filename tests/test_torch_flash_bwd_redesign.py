@@ -152,7 +152,7 @@ WIDTHS = [64, 128, 256, 512, 1024, 1536]
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tma"), (torch.float16, "tma"),
-                                         (torch.float32, "fma")])
+                                         (torch.float32, "simt")])
 def test_backward_routes_name_the_new_instantiations(dtype, route):
     assert tflash.bwd_route(dtype) == route
     t = tflash._DTYPE_NAMES[dtype]
@@ -161,23 +161,24 @@ def test_backward_routes_name_the_new_instantiations(dtype, route):
         assert names == [f"{kernel}_{route}<{t},64>", f"{kernel}_{route}<{t},128>",
                          f"{kernel}_{route}<{t},256>", f"{kernel}_{route}<{t},512>",
                          f"{kernel}_{route}<{t},512>x2", f"{kernel}_{route}<{t},512>x3"]
-        # a 16-bit backward names no FMA kernel at any width
-        assert dtype == torch.float32 or not any("fma" in n for n in names)
+        # the backward names no FMA kernel at any width, in any dtype
+        assert not any("fma" in n for n in names)
 
 
 def test_the_backward_route_codes_count_by_instantiation():
-    # the C entry points report 0 (the TMA kernel) or 1 (the FMA kernel)
-    assert tflash._ROUTES.index("tma") == 0 and tflash._ROUTES.index("fma") == 1
+    # the C entry points report 0 (the TMA kernel) or 2 (the SIMT kernel,
+    # the forward's f32 route too)
+    assert tflash._ROUTES.index("tma") == 0 and tflash._ROUTES.index("simt") == 2
     tflash.reset_launches()
     tflash._count("flash_bwd_dq", ctypes.c_int(0), torch.bfloat16, 512)
     tflash._count("flash_bwd_dkv", ctypes.c_int(0), torch.bfloat16, 512)
     tflash._count("flash_bwd_dq", ctypes.c_int(0), torch.float16, 1024)
     tflash._count("flash_bwd_dkv", ctypes.c_int(0), torch.bfloat16, 1536)
-    tflash._count("flash_bwd_dq", ctypes.c_int(1), torch.float32, 512)
+    tflash._count("flash_bwd_dq", ctypes.c_int(2), torch.float32, 512)
     assert tflash.kernel_launches == {
         "flash_bwd_dq_tma<bf16,512>": 1, "flash_bwd_dkv_tma<bf16,512>": 1,
         "flash_bwd_dq_tma<f16,512>x2": 1, "flash_bwd_dkv_tma<bf16,512>x3": 1,
-        "flash_bwd_dq_fma<f32,512>": 1,
+        "flash_bwd_dq_simt<f32,512>": 1,
     }
     tflash.reset_launches()
 
