@@ -88,7 +88,31 @@ Phases, each printing its own lines and then its command time (``phase:``):
    fall), 10 k-means steps over 100,000 x 100 with k = 10 by both
    strategies, and ``aggregate`` over keys of more than 8 group sizes (the
    combine tree); each against the port's CPU path and numpy at stated
-   tolerances, each with its Mrows/s;
+   tolerances, each with its Mrows/s; then ``frame.cache()`` on that phase:
+   the ``reduce_blocks`` sum and the k-means demo (preagg) over cached
+   frames, bit-identical to the uncached runs with no host bytes staged
+   while cached (``observability`` counter ``h2d_bytes_staged``), Mrows/s
+   both ways;
+   decode (bench config 8: vocab 8192, d_model 1024, 8 layers, 16 heads,
+   d_ff 4096, bf16, seeded weights): (a) greedy ``generate`` of 256 tokens
+   from 32-token prompts at B = 1 and 8 (best of 3 after a warm-up;
+   tokens/s, ms a token, peak memory), the B = 1 run against one full
+   forward over its final sequence: the cached logits at every position in
+   f32 (1e-4), the generated tokens' mean NLL in bf16 (3e-2, the slice's),
+   and the tokens against that forward's argmax where the top-2 gap
+   exceeds 6e-2; (b) B = 8 with
+   1792-token prompts and 256 new (prefill ms, decode ms a token); (c) the
+   same prompts through ``PagePool``, ``paged_prefill`` and
+   ``paged_decode_step``, whose tokens must equal (b)'s bit for bit, and a
+   pool under a small ``TFS_HBM_BUDGET`` that must raise
+   ``PagesExhausted`` and be restored by ``free``; (d) (a) at B = 8 on
+   ``quantize_params`` (bytes, tokens/s, prefill logits within 0.5 of
+   bf16's); (e) ``speculative_generate`` in f32 at B = 1, gamma 4, 64
+   tokens, with the target as its own draft (acceptance 1.0) and with its
+   first 2 layers as the draft, both equal to greedy ``generate``; and a
+   small f32 model's tokens on the card against the CPU; no flash kernel
+   launches on this path (``--profile``: one decode step at B = 8 of (a)
+   and (b) by kernel);
 6. crossover: flash against full attention at the scoring slice's widths
    (ms per block of 16,384 tokens at L = 256 .. 4096, one B=2 train step
    at each L), and ``ring_flash`` against the xla ring at sp = 4 (L = 2048,
@@ -139,6 +163,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1687,6 +1712,363 @@ def phase_verbs():
     return rows
 
 
+# --- decode: bench config 8 (bench.py:3285-3330) -------------------------------
+DECODE_MODEL = dict(vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
+                    d_ff=4096, max_seq=2048)
+DECODE_PROMPT, DECODE_NEW, DECODE_BATCHES = 32, 256, (1, 8)
+DECODE_RUNS = 3  # timed runs after one warm-up; the best is reported
+# the cached path against one full forward (tfm.apply, no cache) over the
+# final sequence.  In f32 (the same weights, TF32 off) the logits at every
+# position agree to summation order: atol = rtol = 1e-4.  In bf16 each
+# projection's output is rounded to bf16 after products of another shape
+# (one row a step, where cuBLAS runs gemv kernels, against 288 rows at
+# once), which moves single logits by up to 5.27e-2 on an H100 (median
+# 7.1e-3), beyond a 3e-2 per-logit bound; the bf16 check is the slice's:
+# the mean next-token NLL of the generated tokens within NLL_TOL (3e-2)
+# of the full forward's
+DECODE_F32_TOL = 1e-4
+# a generated token must be the full forward's argmax wherever that
+# forward's top-2 gap exceeds this
+DECODE_GAP = 6e-2
+FULL_CONTEXT = dict(B=8, prompt=1792, new=256)  # the cache holds max_seq 2048
+PAGE_TOKENS = 16
+# tests/test_quant.py's bound on the largest logit difference of the int8
+# model from the float one
+INT8_LOGIT_BOUND = 0.5
+SPEC = dict(gamma=4, new=64, draft_layers=2)
+DECODE_SMALL = dict(vocab_size=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                    d_ff=128, max_seq=64)
+
+
+def best_of(fn, runs=DECODE_RUNS):
+    """(result, best seconds, peak bytes) of ``fn`` over ``runs`` calls after
+    one warm-up call; each call is synchronized before its clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    best, out = float("inf"), None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return out, best, torch.cuda.max_memory_allocated()
+
+
+def cached_logits(params, cfg, seq):
+    """The cached path's logits at every position of ``seq`` [B, L]: the
+    prompt's prefill, then one token a step, as ``generate`` runs them."""
+    from tensorframes_tpu_torch.models import decode
+
+    p = decode.cast_params(params, cfg.dtype)
+    cache = decode.init_cache(cfg, seq.shape[0], seq.shape[1])
+    logits, cache = decode.apply_cached(p, seq[:, :DECODE_PROMPT], cache, cfg)
+    out = [logits]
+    for t in range(DECODE_PROMPT, seq.shape[1]):
+        logits, cache = decode.apply_cached(p, seq[:, t : t + 1], cache, cfg)
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def decode_vs_full(params, cfg, out):
+    """Leg (a)'s check at B = 1 against one full forward (``tfm.apply``, no
+    cache) over the final sequence: the cached path's logits at every
+    position in f32 (DECODE_F32_TOL), the generated tokens' mean NLL in
+    bf16 (NLL_TOL), and each generated token against the bf16 forward's
+    argmax where its top-2 gap exceeds DECODE_GAP (the positions under it
+    are counted).  Everything is printed before any check raises."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        full = tfm.apply(params, out, cfg)
+        full32 = tfm.apply(params, out, cfg32)
+    cached, cached32 = cached_logits(params, cfg, out), cached_logits(params, cfg32, out)
+    diff = (cached - full).abs()
+    # next-token NLL of the generated tokens, from positions P-1 .. L-2
+    tgt = out[0, DECODE_PROMPT:].long()
+
+    def nll(logits):
+        lp = torch.log_softmax(logits[0, DECODE_PROMPT - 1 : -1].float(), -1)
+        return -lp.gather(-1, tgt[:, None])[:, 0]
+
+    nll_c, nll_f = nll(cached), nll(full)
+    ref = full[0, DECODE_PROMPT - 1 : -1]
+    top2 = torch.topk(ref, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    want = ref.argmax(-1)
+    clear = gap > DECODE_GAP
+    wrong = int((tgt != want)[clear].sum())
+    rec = dict(
+        bf16_logit_max_abs_diff=float(diff.max()),
+        bf16_logit_diff_quantiles={q: float(diff.flatten().quantile(q))
+                                   for q in (0.5, 0.99, 0.9999)},
+        nll_mean_cached=float(nll_c.mean()), nll_mean_full=float(nll_f.mean()),
+        nll_mean_abs_diff=float((nll_c.mean() - nll_f.mean()).abs()), nll_tol=NLL_TOL,
+        nll_position_max_abs_diff=float((nll_c - nll_f).abs().max()),
+        f32_logit_max_abs_diff=float((cached32 - full32).abs().max()),
+        f32_least_tol=least_tol(cached32, full32), f32_tol=DECODE_F32_TOL,
+        gap=DECODE_GAP, positions=int(gap.numel()), positions_under_gap=int((~clear).sum()),
+        tokens_differing_over_gap=wrong,
+        tokens_differing_under_gap=int((tgt != want)[~clear].sum()))
+    say("decode", check="cached vs full forward, B=1", **rec)
+    check_close("decode f32 cached vs full logits", cached32, full32, DECODE_F32_TOL)
+    if not rec["nll_mean_abs_diff"] <= NLL_TOL:
+        raise AssertionError(f"decode: mean NLL cached vs full differs by "
+                             f"{rec['nll_mean_abs_diff']} > {NLL_TOL}")
+    if wrong:
+        raise AssertionError(f"decode: {wrong} tokens differ from the full forward's argmax "
+                             f"where its top-2 gap exceeds {DECODE_GAP}")
+    return rec
+
+
+def phase_decode(profile=False):
+    """Bench config 8 on the card: greedy ``generate`` (a), the full-context
+    leg (b), paged against contiguous (c), int8 (d), speculative in f32 (e),
+    and a small f32 model's tokens against the CPU path.  The decode path
+    launches no hand-written kernel (the JAX package's runs no Pallas
+    kernel: ``_cache_attention`` is einsums); the flash counters must read
+    0 after it."""
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch.models import decode, kv_pager, quant
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.ops import frame_cache
+    from tensorframes_tpu_torch.parallel import flash
+
+    cfg = tfm.TransformerConfig(**DECODE_MODEL, dtype=torch.bfloat16)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.RandomState(8)
+
+    def tokens(B, L):
+        return torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, L)).astype(np.int32)).cuda()
+
+    flash.reset_launches()
+    records = {}
+
+    # (a) config 8 as JAX runs it: 32-token prompts, 256 new tokens
+    for B in DECODE_BATCHES:
+        prompt = tokens(B, DECODE_PROMPT)
+        out, sec, peak = best_of(lambda: decode.generate(params, prompt, cfg, DECODE_NEW))
+        if out.shape != (B, DECODE_PROMPT + DECODE_NEW) or not torch.equal(
+                out[:, :DECODE_PROMPT], prompt):
+            raise AssertionError(f"decode B={B}: output {tuple(out.shape)}")
+        rec = dict(B=B, prompt=DECODE_PROMPT, new=DECODE_NEW, seconds=sec,
+                   tokens_per_s=B * DECODE_NEW / sec, ms_per_token=sec / DECODE_NEW * 1e3,
+                   peak_bytes=peak)
+        if B == 1:
+            rec["check"] = decode_vs_full(params, cfg, out)
+        records[f"a_B{B}"] = rec
+        say("decode", leg="a", **rec)
+    prompt8 = prompt
+
+    # (b) full context: 1792-token prompts and 256 new, the cache at max_seq
+    fc = FULL_CONTEXT
+    cap = fc["prompt"] + fc["new"]
+    long_prompt = tokens(fc["B"], fc["prompt"])
+    cast = decode.cast_params(params, cfg.dtype)
+
+    def prefill():
+        cache = decode.init_cache(cfg, fc["B"], cap)
+        return decode.apply_cached(cast, long_prompt, cache, cfg)[0][:, -1].argmax(-1)
+
+    _, pre_sec, _ = best_of(prefill)
+    contiguous, sec, peak = best_of(
+        lambda: decode.generate(params, long_prompt, cfg, fc["new"], cache_len=cap))
+    rec = dict(B=fc["B"], prompt=fc["prompt"], new=fc["new"], cache=cap, seconds=sec,
+               prefill_ms=pre_sec * 1e3,
+               decode_ms_per_token=(sec - pre_sec) / (fc["new"] - 1) * 1e3,
+               tokens_per_s=fc["B"] * fc["new"] / sec, peak_bytes=peak)
+    records["b"] = rec
+    say("decode", leg="b", **rec)
+
+    # (c) the same prompts through the page pool: the contiguous tokens bit
+    # for bit at the same B and capacity
+    max_pages = cap // PAGE_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    c0, base = obs.counters(), frame_cache.budget_bytes_resident()
+    pool = kv_pager.PagePool(cfg, n_pages=fc["B"] * max_pages + 1, tokens_per_page=PAGE_TOKENS)
+    tables = kv_pager.init_tables(fc["B"], max_pages)
+    charges = []
+    for b in range(fc["B"]):
+        charge, pages = pool.allocate(kv_pager.pages_for(cap, PAGE_TOKENS), tenant=f"row{b}")
+        charges.append(charge)
+        tables[b] = torch.tensor(pages, dtype=torch.int32)
+    resident = frame_cache.budget_bytes_resident() - base
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kp, vp = pool.k_pages, pool.v_pages
+    last = torch.full((fc["B"],), fc["prompt"] - 1, dtype=torch.int32, device="cuda")
+    tok, kp, vp = kv_pager.paged_prefill(cast, long_prompt, tables, last, kp, vp, cfg)
+    toks = [tok]
+    idx = torch.full((fc["B"],), fc["prompt"], dtype=torch.int32, device="cuda")
+    for _ in range(fc["new"] - 1):
+        tok, kp, vp = kv_pager.paged_decode_step(cast, tok, tables, idx, kp, vp, cfg)
+        idx = idx + 1
+        toks.append(tok)
+    paged = torch.stack(toks, dim=1)
+    torch.cuda.synchronize()
+    paged_sec = time.perf_counter() - t0
+    if not torch.equal(paged, contiguous[:, fc["prompt"]:]):
+        n = int((paged != contiguous[:, fc["prompt"]:]).sum())
+        raise AssertionError(f"paged decode differs from contiguous in {n} tokens")
+    used = pool.stats()["pages_used"]
+    for c in charges:
+        pool.free(c)
+    # a small budget refuses the pool's pages as PagesExhausted; free restores
+    budget = 100 * pool.page_bytes
+    prev = os.environ.get("TFS_HBM_BUDGET")
+    os.environ["TFS_HBM_BUDGET"] = str(budget)
+    try:
+        held, _ = pool.allocate(64, tenant="small")
+        try:
+            pool.allocate(64, tenant="small")
+            raise AssertionError("a pool past TFS_HBM_BUDGET did not raise PagesExhausted")
+        except kv_pager.PagesExhausted as e:
+            refusal = dict(reason=e.reason, needed=e.needed, free=e.free,
+                           retry_after_ms=e.retry_after_ms)
+            if e.reason != "budget":
+                raise AssertionError(f"PagesExhausted reason {e.reason}, expected budget")
+        pool.free(held)
+    finally:
+        if prev is None:
+            os.environ.pop("TFS_HBM_BUDGET")
+        else:
+            os.environ["TFS_HBM_BUDGET"] = prev
+    d = obs.counters_delta(c0)
+    if pool.used_count() or frame_cache.budget_bytes_resident() != base or (
+            d["kv_pages_allocated"] != d["kv_pages_freed"]):
+        raise AssertionError(f"free did not restore the pool: {pool.stats()}, {d}")
+    rec = dict(B=fc["B"], cache=cap, page_tokens=PAGE_TOKENS, pages_used=used,
+               budget_bytes_resident=resident, page_bytes=pool.page_bytes,
+               seconds=paged_sec, tokens_per_s=fc["B"] * fc["new"] / paged_sec,
+               peak_bytes=torch.cuda.max_memory_allocated(), bit_identical=True,
+               small_budget_bytes=budget, refusal=refusal,
+               kv_pages_allocated=d["kv_pages_allocated"], kv_pages_freed=d["kv_pages_freed"])
+    records["c"] = rec
+    say("decode", leg="c", **rec)
+    del pool, kp, vp
+
+    # (d) int8 weights at B = 8, leg (a)'s shape
+    qp = quant.quantize_params(params)
+    out, sec, peak = best_of(lambda: decode.generate(qp, prompt8, cfg, DECODE_NEW))
+    with torch.no_grad():
+        lq = decode.apply_cached(decode.cast_params(qp, cfg.dtype), prompt8,
+                                 decode.init_cache(cfg, 8, DECODE_PROMPT), cfg)[0]
+        lf = decode.apply_cached(cast, prompt8, decode.init_cache(cfg, 8, DECODE_PROMPT),
+                                 cfg)[0]
+    diff = float((lq - lf).abs().max())
+    if not (out.shape == (8, DECODE_PROMPT + DECODE_NEW) and diff < INT8_LOGIT_BOUND):
+        raise AssertionError(f"int8: output {tuple(out.shape)}, prefill logits differ "
+                             f"from bf16 by {diff} (bound {INT8_LOGIT_BOUND})")
+    rec = dict(B=8, new=DECODE_NEW, param_bytes=quant.param_bytes(qp),
+               bf16_param_bytes=quant.param_bytes(cast), seconds=sec,
+               tokens_per_s=8 * DECODE_NEW / sec, ms_per_token=sec / DECODE_NEW * 1e3,
+               bf16_tokens_per_s=records["a_B8"]["tokens_per_s"], peak_bytes=peak,
+               prefill_logit_max_abs_diff_vs_bf16=diff, bound=INT8_LOGIT_BOUND)
+    records["d"] = rec
+    say("decode", leg="d", **rec)
+    del qp
+
+    # (e) speculative, in f32 with TF32 off (device.resolve_device sets it)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    prompt1 = prompt8[:1]
+    ref, ref_sec, _ = best_of(lambda: decode.generate(params, prompt1, cfg32, SPEC["new"]))
+    draft_cfg = dataclasses.replace(cfg32, n_layers=SPEC["draft_layers"])
+    # the draft: the target's first layers, its embedding and head
+    draft = dict(params, blocks={k: v[: SPEC["draft_layers"]]
+                                 for k, v in params["blocks"].items()})
+    for name, dp, dcfg in (("self_draft", params, cfg32),
+                           ("two_layer_draft", draft, draft_cfg)):
+        (out, stats), sec, peak = best_of(lambda: decode.speculative_generate(
+            dp, dcfg, params, cfg32, prompt1, SPEC["new"], gamma=SPEC["gamma"],
+            return_stats=True))
+        if not torch.equal(out, ref.to(out.dtype)):
+            raise AssertionError(f"speculative ({name}) differs from target-greedy generate")
+        rate = stats["accepted"] / max(1, stats["drafted"])
+        if name == "self_draft" and rate != 1.0:
+            raise AssertionError(f"self-draft accepted {stats}")
+        rec = dict(draft=name, gamma=SPEC["gamma"], new=SPEC["new"], acceptance=rate,
+                   **stats, seconds=sec, tokens_per_s=SPEC["new"] / sec,
+                   greedy_tokens_per_s=SPEC["new"] / ref_sec, peak_bytes=peak,
+                   equals_greedy=True)
+        records[f"e_{name}"] = rec
+        say("decode", leg="e", **rec)
+
+    # a small f32 model's greedy tokens on the card against the CPU path
+    small = tfm.TransformerConfig(**DECODE_SMALL, dtype=torch.float32)
+    sp = tfm.init(torch.Generator().manual_seed(3), small, device="cpu")
+    sprompt = np.random.RandomState(3).randint(0, small.vocab_size, (2, 7)).astype(np.int32)
+    cpu_out = decode.generate(sp, sprompt, small, 12)
+    on_card = dict(sp, blocks={k: v.cuda() for k, v in sp["blocks"].items()},
+                   **{k: sp[k].cuda() for k in ("embed", "ln_f", "lm_head")})
+    gpu_out = decode.generate(on_card, sprompt, small, 12)
+    if not torch.equal(gpu_out.cpu(), cpu_out):
+        raise AssertionError("small decode: the card's tokens differ from the CPU's")
+    say("decode", check="small f32 model, greedy tokens card vs cpu", equal=True)
+
+    if flash.launches:
+        raise AssertionError(f"the decode path launched {flash.launches} flash kernels")
+    if profile:
+        for label, seq in (("a", prompt8), ("b", long_prompt)):
+            cache = decode.init_cache(cfg, 8, seq.shape[1] + 1)
+            _, cache = decode.apply_cached(cast, seq, cache, cfg)
+
+            def step(cache=cache, tok=seq[:, -1:]):
+                decode.apply_cached(cast, tok, dict(cache), cfg)[0].argmax(-1).cpu()
+
+            step()
+            profile_kernels(f"decode leg ({label}) one step at B=8", step)
+    return records
+
+
+def phase_cached_verbs():
+    """``frame.cache()`` on the verbs phase (f): config 2's reduce_blocks sum
+    over 500,000 x 64 and the k-means demo (preagg, 100,000 x 100, 10 steps;
+    the reference's demo caches its DataFrame before iterating), cached
+    against uncached: bit-identical results, no host bytes staged while
+    cached, Mrows/s both ways."""
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch.models import kmeans
+
+    vals = np.random.RandomState(0).rand(VERB_ROWS, VERB_D).astype(np.float32)
+    kr = np.random.RandomState(1)
+    true = kr.randn(KMEANS_K, KMEANS_D) * 10
+    pts = (true[kr.randint(0, KMEANS_K, KMEANS_N)]
+           + kr.randn(KMEANS_N, KMEANS_D)).astype(np.float32)
+    init = pts[:KMEANS_K].astype(np.float64)
+    legs = {
+        "reduce_blocks_sum": (
+            tft.TensorFrame.from_arrays({"v": vals}, num_blocks=VERB_BLOCKS), VERB_ROWS,
+            lambda f: tft.reduce_blocks(lambda v_input: {"v": v_input.sum(0)}, f)),
+        "kmeans_preagg": (
+            tft.TensorFrame.from_arrays({"points": pts}, num_blocks=VERB_BLOCKS),
+            KMEANS_N * KMEANS_STEPS,
+            lambda f: {"centers": kmeans.fit(f, KMEANS_K, KMEANS_STEPS, "preagg",
+                                             init_centers=init)[0]}),
+    }
+    rows = {}
+    for name, (fr, n_rows, run) in legs.items():
+        before = obs.counters()
+        cached = fr.cache()
+        cache_bytes = obs.counters_delta(before)["h2d_bytes_staged"]
+        plain, sec = timed(lambda: run(fr))
+        before = obs.counters()
+        got, csec = timed(lambda: run(cached))
+        staged = obs.counters_delta(before)["h2d_bytes_staged"]
+        for k in plain:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(plain[k])):
+                raise AssertionError(f"cached {name} {k} differs from uncached")
+        if staged:
+            raise AssertionError(f"cached {name} staged {staged} host bytes")
+        rows[name] = dict(uncached=n_rows / sec / 1e6, cached=n_rows / csec / 1e6)
+        say("cached_verbs", leg=name, rows=n_rows, uncached_mrows_per_s=n_rows / sec / 1e6,
+            cached_mrows_per_s=n_rows / csec / 1e6, speedup=sec / csec,
+            cache_build_bytes=cache_bytes, h2d_bytes_while_cached=staged,
+            bit_identical=True)
+    return rows
+
+
 def clone_params(tree):
     return {
         k: clone_params(v) if isinstance(v, dict) else v.detach().clone()
@@ -2498,6 +2880,8 @@ def main() -> int:
     dh512_launches, dh512_train = run_phase(phase_dh512_train)
     run_phase(phase_small_head_slice)
     run_phase(phase_verbs)
+    run_phase(phase_cached_verbs)
+    run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)
     run_phase(phase_frontier, *train_run[1:3])

@@ -9,7 +9,12 @@ on them (``models/``), the flagship transformer scored on the data plane
 long sequences with ring attention on the ``sp`` axis
 (``parallel/ring.py``); frozen TF GraphDefs imported and scored through
 the verbs (``graphdef/``, with Inception-v3 and VGG-16 in ``models/``),
-the graph DSL (``dsl.py``) and the fluent ``OpBuilder`` (``builder.py``).
+the graph DSL (``dsl.py``) and the fluent ``OpBuilder`` (``builder.py``);
+KV-cache decode with sampling, speculative, paged and int8 variants
+(``models/decode.py``, ``models/kv_pager.py``, ``models/quant.py``),
+``TensorFrame.cache`` over the device-memory budget
+(``ops/frame_cache.py``), Arrow/parquet/pandas I/O (``io.py``) and the
+always-on counters (``observability.py``).
 Its attention kernels are hand-written CUDA for Hopper
 (``parallel/flash.py``, ``csrc/``).  Every entry point
 runs on the CUDA card unless its caller passes ``device="cpu"``; without a

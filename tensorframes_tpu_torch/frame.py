@@ -6,24 +6,47 @@ cells (before ``analyze``), or a ``torch.Tensor`` once a verb has produced
 it on the device.  Verb outputs stay on the device until ``collect`` /
 ``to_arrays`` materialise them on the host.
 
-Cell packing uses the numpy path only (the JAX package's native C++ packer
-is an optimisation of the same result).  ``group_by`` makes the
-``GroupedFrame`` that ``aggregate`` takes.  ``cache``/``lazy`` and the
-arrow/parquet/pandas entry points wait for later slices (ROADMAP.md).
+Cell packing uses the numpy path only (the JAX package's native C++ packer,
+``native/packer.cpp``, is an optimisation of the same result and waits,
+ROADMAP.md Queue 1 item B).  ``group_by`` makes the ``GroupedFrame`` that
+``aggregate`` takes.  ``from_arrow``/``to_arrow``, ``from_parquet``/
+``to_parquet`` go through ``io.py``; ``from_pandas``/``to_pandas`` import
+pandas when called.  ``cache()`` copies the device-feedable columns to one
+device once, so later verbs stage no host bytes; the cache sharded across a
+device pool and ``lazy()`` wait for the pool and the planner (item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import dtypes
+from . import dtypes, observability
+from .device import DeviceLike, resolve_device
 from .dtypes import ScalarType
 from .schema import ColumnInfo, Schema, SchemaError
 from .shape import UNKNOWN, Shape
+
+_log = logging.getLogger("tensorframes_tpu_torch.frame")
+
+# cache() skip log, one shot per distinct (columns, reasons) set: why a
+# cached frame still stages host bytes lands in the log once, not per verb
+_cache_skip_logged: set = set()
+
+
+def _warn_skipped_once(detail: str) -> None:
+    if detail not in _cache_skip_logged:
+        _cache_skip_logged.add(detail)
+        _log.warning(
+            "cache(): some columns stay on host and will keep paying "
+            "host->device staging — %s. Pass strict=True to make this an "
+            "error.",
+            detail,
+        )
 
 
 def is_device_array(x) -> bool:
@@ -195,6 +218,44 @@ class TensorFrame:
         return TensorFrame(cols).repartition(num_blocks)
 
     @staticmethod
+    def from_arrow(table, num_blocks: int = 1) -> "TensorFrame":
+        """Arrow Table -> frame, zero-copy where the layout allows
+        (:mod:`tensorframes_tpu_torch.io`)."""
+        from .io import table_to_frame
+
+        return table_to_frame(table, num_blocks=num_blocks)
+
+    def to_arrow(self):
+        """Frame -> Arrow Table (inverse of :meth:`from_arrow`)."""
+        from .io import frame_to_table
+
+        return frame_to_table(self)
+
+    @staticmethod
+    def from_parquet(path, columns=None, num_blocks: int = 1) -> "TensorFrame":
+        """Read a parquet file, or a directory of part files, into columnar
+        frame storage."""
+        from .io import read_parquet
+
+        return read_parquet(path, columns=columns, num_blocks=num_blocks)
+
+    def to_parquet(self, path, row_group_size: Optional[int] = None) -> None:
+        from .io import write_parquet
+
+        write_parquet(self, path, row_group_size=row_group_size)
+
+    @staticmethod
+    def from_pandas(df, num_blocks: int = 1) -> "TensorFrame":
+        data = {}
+        for name in df.columns:
+            s = df[name]
+            if s.dtype == object:
+                data[name] = list(s)
+            else:
+                data[name] = s.to_numpy()
+        return TensorFrame.from_arrays(data, num_blocks=num_blocks)
+
+    @staticmethod
     def from_blocks(
         blocks: Sequence[Mapping[str, Any]],
         schema: Optional[Schema] = None,
@@ -324,6 +385,91 @@ class TensorFrame:
     def select(self, names: Sequence[str]) -> "TensorFrame":
         return TensorFrame([self.column(n) for n in names], self._offsets)
 
+    def cache(
+        self,
+        device: DeviceLike = None,
+        sharded: Optional[bool] = None,
+        strict: bool = False,
+    ) -> "TensorFrame":
+        """The frame with its device-feedable columns copied once to
+        ``device`` (None: the CUDA card), the Spark ``df.cache()`` analog:
+        every later verb reads those columns on the device and stages no
+        host bytes (``observability`` counter ``h2d_bytes_staged``).
+
+        Stay on host, logged once per distinct set with their reasons
+        (``strict=True`` raises ``SchemaError`` instead): ragged and
+        binary/string columns, which are host inputs by definition, and
+        64-bit columns that would canonicalise on the device (none here:
+        PyTorch keeps 64-bit types, ``dtypes.coerce``).  ``sharded=True``
+        (block shards across a device pool) raises: it waits for the
+        device pool (ROADMAP.md Queue 1 item 9)."""
+        host: Dict[str, Any] = {}
+        skipped: Dict[str, str] = {}
+        for c in self._columns:
+            st = c.info.scalar_type
+            if c.is_device:
+                continue  # already resident
+            if c.is_ragged:
+                skipped[c.info.name] = (
+                    "ragged (variable cell shapes; analyze/bucket first)"
+                )
+            elif not st.device_ok:
+                skipped[c.info.name] = (
+                    f"host-only scalar type {st.name} (binary/string)"
+                )
+            elif dtypes.coerce(st) is not st:
+                skipped[c.info.name] = (
+                    f"{st.name} would canonicalise to "
+                    f"{dtypes.coerce(st).name} on device (cast the column "
+                    f"first)"
+                )
+            else:
+                host[c.info.name] = c.data
+        if skipped:
+            detail = "; ".join(
+                f"{name}: {why}" for name, why in sorted(skipped.items())
+            )
+            if strict:
+                raise SchemaError(
+                    f"cache(strict=True): {len(skipped)} column(s) cannot "
+                    f"be cached on device — {detail}"
+                )
+            _warn_skipped_once(detail)
+        if sharded:
+            raise NotImplementedError(
+                "cache(sharded=True) places block shards across a device "
+                "pool, which is not ported yet: it waits for the device "
+                "pool, ROADMAP.md Queue 1 item 9"
+            )
+        dev = resolve_device(device)
+        staged = {}
+        for name, data in host.items():
+            arr = np.ascontiguousarray(data)
+            observability.note_h2d_bytes(arr.nbytes)
+            staged[name] = torch.from_numpy(arr).to(dev, non_blocking=True)
+        cols = [
+            Column(c.info, staged[c.info.name]) if c.info.name in staged else c
+            for c in self._columns
+        ]
+        return TensorFrame(cols, self._offsets)
+
+    def uncache(self) -> "TensorFrame":
+        """The frame with its device-resident columns copied back to host
+        numpy."""
+        cols = [
+            Column(c.info, to_host(c.data, c.info.name)) if c.is_device else c
+            for c in self._columns
+        ]
+        return TensorFrame(cols, self._offsets)
+
+    def lazy(self):
+        """Planned mode (the JAX package's ``ops/planner.py``) is not ported
+        yet: it waits for the planner, ROADMAP.md Queue 1 item 9."""
+        raise NotImplementedError(
+            "TensorFrame.lazy() (the verb-graph planner) is not ported yet: "
+            "it waits for ROADMAP.md Queue 1 item 9"
+        )
+
     def group_by(self, *keys: str):
         """The frame grouped by scalar key columns, for ``aggregate``."""
         from .ops.engine import GroupedFrame
@@ -352,6 +498,19 @@ class TensorFrame:
             else:
                 out[c.info.name] = c.data
         return out
+
+    def to_pandas(self):
+        import pandas as pd
+
+        data = {}
+        for c in self._columns:
+            if c.is_ragged or c.info.cell_shape.rank > 0:
+                data[c.info.name] = c.cells()
+            elif c.is_device:
+                data[c.info.name] = to_host(c.data, c.info.name)
+            else:
+                data[c.info.name] = c.data
+        return pd.DataFrame(data)
 
     def __repr__(self):
         return (

@@ -3,9 +3,11 @@
 ``params_from_numpy`` takes the JAX param pytree with every leaf already a
 numpy array (``jax.tree.map(np.asarray, params)``), so the port never sees
 a JAX type.  Every leaf is checked against the config's layout: a missing
-or extra key, a wrong shape or a quantised (``QTensor``) leaf raises with
-a message naming the leaf, so a wrong layout fails loudly instead of
-scoring garbage.  Quantised weights come with the decode slice.
+or extra key or a wrong shape raises with a message naming the leaf, so a
+wrong layout fails loudly instead of scoring garbage.  A quantised leaf
+(``models/quant.py``'s ``QTensor``, or any ``(q, scale)`` pair of numpy
+arrays) becomes the port's ``transformer.QTensor``: ``q`` int8 of the
+leaf's shape, ``scale`` f32 broadcastable to it, both kept as they are.
 
 ``adamw_state_from_numpy`` carries a JAX run's optimizer state (the
 ``optax`` chain of ``train.make_optimizer``, numpy leaves) into the port's
@@ -30,14 +32,44 @@ from ..device import DeviceLike, resolve_device
 from . import transformer as tfm
 
 
-def _leaf(path: str, value, shape: tuple, cfg, device) -> torch.Tensor:
-    if isinstance(value, tuple) and hasattr(value, "_fields"):
-        # a NamedTuple leaf: models/quant.py's QTensor(q, scale)
+def _qleaf(path: str, value, shape: tuple, device) -> tfm.QTensor:
+    """A quantised leaf, ``(q, scale)`` numpy arrays, as a port QTensor."""
+    if len(value) != 2:
         raise ValueError(
-            f"param {path!r} is a quantised {type(value).__name__} "
-            f"{value._fields}; quantised weights are not ported yet (they "
-            f"come with the decode slice) — pass float weights"
+            f"param {path!r}: a quantised leaf is a (q, scale) pair, got "
+            f"{len(value)} items"
         )
+    q, scale = value
+    for name, a in (("q", q), ("scale", scale)):
+        if not isinstance(a, np.ndarray):
+            raise TypeError(
+                f"param {path!r}.{name} must be a numpy array, got "
+                f"{type(a).__name__}"
+            )
+    if q.dtype != np.int8:
+        raise TypeError(f"param {path!r}.q has dtype {q.dtype}, expected int8")
+    if scale.dtype.kind != "f":
+        raise TypeError(f"param {path!r}.scale has non-float dtype {scale.dtype}")
+    if tuple(q.shape) != tuple(shape):
+        raise ValueError(
+            f"param {path!r}.q has shape {tuple(q.shape)} but the config "
+            f"expects {tuple(shape)}"
+        )
+    if scale.ndim != q.ndim or np.broadcast_shapes(scale.shape, q.shape) != q.shape:
+        raise ValueError(
+            f"param {path!r}.scale of shape {tuple(scale.shape)} does not "
+            f"broadcast to q's {tuple(q.shape)}"
+        )
+    return tfm.QTensor(
+        torch.from_numpy(np.array(q)).to(device),
+        torch.from_numpy(np.array(scale)).to(device=device, dtype=torch.float32),
+    )
+
+
+def _leaf(path: str, value, shape: tuple, cfg, device):
+    if isinstance(value, tuple):
+        # models/quant.py's QTensor(q, scale), a NamedTuple, or a plain pair
+        return _qleaf(path, value, shape, device)
     if not isinstance(value, np.ndarray):
         raise TypeError(
             f"param {path!r} must be a numpy array, got "

@@ -25,6 +25,15 @@ Numerics matched to the JAX package on purpose:
   (``embed_lookup``): its gradient is scatter-added in that dtype and cast
   to f32 afterwards, as JAX's is.
 
+Decode hooks (``models/decode.py``, ``models/kv_pager.py``): a weight may
+be a :class:`QTensor` (int8 values and f32 scales, ``models/quant.py``),
+read through :func:`weight` and :func:`embed_lookup`; ``_block`` and
+``_attn_residual`` take ``kv=(cache_k, cache_v, index)``, write the chunk's
+k/v into the cache in place and attend over it with
+:func:`_cache_attention` (plain einsums, as JAX's are: no kernel).
+``_attn_qkv`` and ``_mlp_residual`` are the one definition the contiguous
+and the paged caches share, so the two agree bit for bit by construction.
+
 ``"ring"``/``"ring_flash"`` run ring attention over the ambient mesh's
 ``sp`` axis (``parallel.mesh.set_mesh``; the axis's ranks share one device,
 see ``parallel/mesh.py``), and ``"auto"`` resolves to them under an
@@ -47,7 +56,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,8 +75,38 @@ from ..parallel.ring import full_attention, ring_attention
 Params = Dict[str, Any]
 
 _DEFERRED = {
-    "moe": "ROADMAP.md Queue 1 item D, the MoE attention path (models/moe.py)",
+    "moe": "ROADMAP.md Queue 1 item D, the MoE attention path (models/moe.py), "
+    "the item after decode",
 }
+
+
+class QTensor(NamedTuple):
+    """An int8-quantized weight: ``q`` int8 values and a broadcastable f32
+    ``scale`` (per output channel, or per embedding row; ``models/quant.py``)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def weight(w, dt) -> torch.Tensor:
+    """A weight in ``dt``: a QTensor dequantised (``q`` cast, times the cast
+    scale, as JAX's ``weight``), a plain tensor cast.  XLA fuses the
+    dequantisation into the consuming product; here it makes a ``dt``
+    matrix each use."""
+    if isinstance(w, QTensor):
+        return w.q.to(dt) * w.scale.to(dt)
+    return w.to(dt)
+
+
+def embed_lookup(emb, tokens: torch.Tensor, dt) -> torch.Tensor:
+    """The token-row gather.  A plain table is cast, then gathered (its
+    gradient is scatter-added in ``dt``, as JAX's is); an int8 table
+    gathers its rows first and scales them by the gathered row scales, so
+    no dequantised [V, D] table is made."""
+    idx = tokens.long()
+    if isinstance(emb, QTensor):
+        return emb.q[idx].to(dt) * emb.scale[idx].to(dt)
+    return emb.to(dt)[idx]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,9 +307,9 @@ def _attn_qkv(bp, x, positions, cfg):
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
     y = _saved(_rms_norm(x, bp["ln1"]))
-    q = (y @ bp["wq"].to(dt)).reshape(B, L, h, dh)
-    k = (y @ bp["wk"].to(dt)).reshape(B, L, kvh, dh)
-    v = (y @ bp["wv"].to(dt)).reshape(B, L, kvh, dh)
+    q = (y @ weight(bp["wq"], dt)).reshape(B, L, h, dh)
+    k = (y @ weight(bp["wk"], dt)).reshape(B, L, kvh, dh)
+    v = (y @ weight(bp["wv"], dt)).reshape(B, L, kvh, dh)
     return (
         _saved(_rope(q, positions, cfg.rope_theta)),
         _saved(_rope(k, positions, cfg.rope_theta)),
@@ -279,15 +318,30 @@ def _attn_qkv(bp, x, positions, cfg):
 
 
 def _attn_residual(
-    bp, x, positions, cfg, custom_positions: bool = False, segments=None
+    bp, x, positions, cfg, custom_positions: bool = False, segments=None,
+    kv=None,
 ):
-    """x -> x + Wo(attn(...)).  ``cfg.attn_impl`` is resolved
+    """x -> x + Wo(attn(...)).  Returns ``(x', cache)``; cache is None
+    outside decode.  ``cfg.attn_impl`` is resolved
     (full/flash/ring/ring_flash); ``segments`` [B, L] (packed sequences)
-    take the full path."""
+    take the full path.
+
+    ``kv=(ck, cv, idx)``: caches [B, S, kvh, Dh] and the python int where
+    this chunk starts.  The chunk's (post-RoPE, pre-GQA-repeat) k/v are
+    written into the caches in place at ``idx`` and attention runs over the
+    whole cache (:func:`_cache_attention`); slots past the written frontier
+    carry positions later than every query, so the causal mask hides them."""
     B, L, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _attn_qkv(bp, x, positions, cfg)
-    if cfg.attn_impl in ("ring", "ring_flash"):
+    if kv is not None:
+        ck, cv, idx = kv
+        # JAX: dynamic_update_slice_in_dim(ck, k, idx, 1); the caller sizes
+        # the cache, so the slice never clamps
+        ck[:, idx : idx + L] = k.to(ck.dtype)
+        cv[:, idx : idx + L] = v.to(cv.dtype)
+        att = _cache_attention(q, ck.to(cfg.dtype), cv.to(cfg.dtype), positions)
+    elif cfg.attn_impl in ("ring", "ring_flash"):
         # GQA kv heads stay grouped: the ring rotates kv-width chunks and
         # widens them per fold step
         att = ring_attention(
@@ -314,23 +368,70 @@ def _attn_residual(
         else:
             att = _saved(core(q, k, v))
     att = att.reshape(B, L, h * dh)
-    return x + att @ bp["wo"].to(cfg.dtype)
+    x = x + att @ weight(bp["wo"], cfg.dtype)
+    return x, ((ck, cv) if kv is not None else None)
+
+
+def _cache_attention(q, ck, cv, positions_q):
+    """Attention over a KV cache with GROUPED kv heads: q [B, L, h, Dh],
+    ck/cv [B, S, kvh, Dh]; the h/kvh query groups index their shared kv
+    head, so the cache is never widened to h heads.  JAX's einsums take
+    ``preferred_element_type=f32``: exact products of the operands summed
+    in f32, which the upcast operands give here.  The softmax is f32 and
+    its probabilities are cast to ``q.dtype`` before the second product.
+    Slots past a query's position (unwritten, or stale pages) get
+    probability exactly 0."""
+    B, L, h, dh = q.shape
+    S, kvh = ck.shape[1], ck.shape[2]
+    g = h // kvh
+    scale = np.float32(1.0 / np.sqrt(dh))
+    qg = q.reshape(B, L, kvh, g, dh)
+    s = torch.einsum("blkgd,bskd->bkgls", qg.float(), ck.float()) * scale
+    k_pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    mask = positions_q[:, None, None, :, None] >= k_pos
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    att = torch.einsum("bkgls,bskd->blkgd", p.float(), cv.float()).to(q.dtype)
+    return att.reshape(B, L, h, dh)
 
 
 def _mlp_residual(bp, x, cfg):
     """x -> x + FF(rms_norm(x)), dense SwiGLU.  Returns ``(x', aux)``."""
     dt = cfg.dtype
     y = _saved(_rms_norm(x, bp["ln2"]))
-    gate = F.silu(y @ bp["w_gate"].to(dt))
-    up = y @ bp["w_up"].to(dt)
-    x = x + _saved(gate * up) @ bp["w_down"].to(dt)
+    gate = F.silu(y @ weight(bp["w_gate"], dt))
+    up = y @ weight(bp["w_up"], dt)
+    x = x + _saved(gate * up) @ weight(bp["w_down"], dt)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _block(bp, x, positions, cfg, custom_positions, segments):
-    """One decoder block: ``(x', aux)``."""
-    x = _attn_residual(bp, x, positions, cfg, custom_positions, segments)
-    return _mlp_residual(bp, x, cfg)
+def _block(bp, x, positions, cfg, custom_positions=False, segments=None, kv=None):
+    """One decoder block: ``(x', aux)``, or ``(x', (ck, cv), aux)`` with a
+    ``kv`` cache (:func:`_attn_residual`)."""
+    x, cache = _attn_residual(
+        bp, x, positions, cfg, custom_positions, segments, kv
+    )
+    x, aux = _mlp_residual(bp, x, cfg)
+    if kv is not None:
+        return x, cache, aux
+    return x, aux
+
+
+def layer_params(blocks: Params):
+    """The stacked block params as one dict a layer (JAX's ``lax.scan``
+    slices them per step).  ``unbind``, not ``v[i]``: its backward stacks
+    the layers' gradients once, where each ``v[i]`` would add a zero-filled
+    ``[n_layers, ...]`` tensor.  A QTensor leaf is split into per-layer
+    QTensors."""
+
+    def split(v):
+        if isinstance(v, QTensor):
+            return [QTensor(q, s) for q, s in zip(v.q.unbind(0), v.scale.unbind(0))]
+        return v.unbind(0)
+
+    layers = {k: split(v) for k, v in blocks.items()}
+    n_layers = len(next(iter(layers.values())))
+    return [{k: v[i] for k, v in layers.items()} for i in range(n_layers)]
 
 
 def _remat_policy(cfg: TransformerConfig) -> str:
@@ -386,12 +487,7 @@ def apply_blocks(
     policy = _remat_policy(cfg)
     remat = policy in ("full", "dots", "selective") and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    # unbind, not v[i]: its backward stacks the layers' gradients once,
-    # where each v[i] would add a zero-filled [n_layers, ...] tensor
-    layers = {k: v.unbind(0) for k, v in blocks.items()}
-    n_layers = next(iter(blocks.values())).shape[0]
-    for i in range(n_layers):
-        bp = {k: v[i] for k, v in layers.items()}
+    for bp in layer_params(blocks):
         args = (bp, x, positions, cfg, custom_positions, segments)
         if remat and policy == "full":
             x, a = checkpoint(_block, *args, use_reentrant=False)
@@ -500,19 +596,22 @@ def apply(
     if positions is None:
         positions = torch.arange(L, dtype=torch.int32, device=tokens.device)
         positions = positions.expand(B, L)
-    # cast the table, then gather (embed_lookup): the gradient is
-    # scatter-added in the activation dtype, as JAX's is
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
     x, aux = apply_blocks(params["blocks"], x, positions, cfg, custom, segment_ids)
     x = _rms_norm(x, params["ln_f"])
-    # JAX: einsum(..., preferred_element_type=f32) -> exact products, f32 out
-    logits = x.float() @ params["lm_head"].to(cfg.dtype).float()
+    logits = lm_head_logits(x, params["lm_head"], cfg.dtype)
     out = (logits,)
     if return_hidden:
         out += (x,)
     if return_aux:
         out += (aux,)
     return out if len(out) > 1 else logits
+
+
+def lm_head_logits(x: torch.Tensor, lm_head, dt) -> torch.Tensor:
+    """JAX's ``einsum(x, weight(lm_head, dt), preferred_element_type=f32)``:
+    exact products of the ``dt`` operands, summed in f32."""
+    return x.float() @ weight(lm_head, dt).float()
 
 
 # ---------------------------------------------------------------------------

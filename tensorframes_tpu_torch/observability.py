@@ -1,0 +1,102 @@
+"""Always-on counters: the evidence behind the frame cache and the KV pager.
+
+The counters core of ``tensorframes_tpu/observability.py``: one process-wide
+dict of monotonic counts, bumped under a lock (``_bump``), snapshotted by
+:func:`counters` and diffed by :func:`counters_delta`.  The port keeps the
+counters its modules bump:
+
+* ``h2d_bytes_staged``: host bytes the engine's staging path
+  (``ops/engine.py::Executor._device_value``) and ``TensorFrame.cache``
+  copy to the device; a verb over a cached frame leaves it at zero;
+* ``cache_shard_hits`` and ``cache_evictions``: the frame-cache budget's
+  LRU (``ops/frame_cache.py``);
+* ``kv_pages_allocated`` and ``kv_pages_freed``: the KV page pool
+  (``models/kv_pager.py``).
+
+``current_request()`` is the active request's ledger, and stays None until
+the request ledger is ported (ROADMAP.md Queue 1 item 10), as do spans,
+traces, histograms and ``metrics_text``.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import threading
+from typing import Any, Dict, Optional
+
+_COUNTERS = (
+    "h2d_bytes_staged",
+    "cache_shard_hits",
+    "cache_evictions",
+    "kv_pages_allocated",
+    "kv_pages_freed",
+)
+
+_counters: Dict[str, int] = {k: 0 for k in _COUNTERS}
+
+# bumps may come from several threads; one uncontended lock a bump, on
+# paths that are at most per block, never per element
+_counters_lock = threading.Lock()
+
+# the active request's ledger: nothing installs one until the request
+# ledger is ported (item 10), so every read gives None
+_request_ctx: "contextvars.ContextVar[Optional[Any]]" = contextvars.ContextVar(
+    "tfs_request_ledger", default=None
+)
+
+
+def current_request() -> Optional[Any]:
+    """The active request's ledger, or None (one contextvar read)."""
+    return _request_ctx.get()
+
+
+def _bump(key: str, n: int = 1) -> None:
+    with _counters_lock:
+        _counters[key] += n
+    led = _request_ctx.get()
+    if led is not None:
+        led.add(key, n)
+
+
+def note_h2d_bytes(n: int) -> None:
+    """``n`` host bytes copied to the device by the engine's staging path
+    or a ``cache()`` build.  An epoch served from cached columns leaves
+    this at zero."""
+    _bump("h2d_bytes_staged", int(n))
+
+
+def note_cache_shard_hit() -> None:
+    """One block served from a resident frame-cache entry instead of host
+    staging."""
+    _bump("cache_shard_hits")
+
+
+def note_cache_eviction() -> None:
+    """One resident entry evicted by the ``TFS_HBM_BUDGET`` LRU."""
+    _bump("cache_evictions")
+
+
+def note_kv_pages_allocated(n: int) -> None:
+    """``n`` KV pages reserved from the page pool for one sequence."""
+    _bump("kv_pages_allocated", n)
+
+
+def note_kv_pages_freed(n: int) -> None:
+    """``n`` KV pages returned to the pool when a sequence ends."""
+    _bump("kv_pages_freed", n)
+
+
+def counters() -> Dict[str, int]:
+    """Snapshot of the cumulative counters.  Diff two snapshots
+    (:func:`counters_delta`) to meter one region."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def counters_delta(
+    before: Dict[str, int], after: Optional[Dict[str, int]] = None
+) -> Dict[str, int]:
+    """``after - before`` for every counter (``after`` defaults to a fresh
+    snapshot)."""
+    after = after if after is not None else counters()
+    return {k: after[k] - before.get(k, 0) for k in _COUNTERS}

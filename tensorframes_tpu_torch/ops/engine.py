@@ -24,8 +24,10 @@ asynchronously, so block N+1's host->device copy is queued while block N
 computes.  Map outputs stay on the device as tensors until
 ``collect``/``to_arrays``; the reduce verbs return host arrays.
 
-Not ported yet (ROADMAP.md, Queue 1): bucketing, prefetch, the device pool,
-the frame cache, fault tolerance, streaming plans and spans; JAX's padded
+Host arrays copied to the device bump ``observability.note_h2d_bytes``;
+columns of a ``TensorFrame.cache()``d frame are already there and copy
+nothing.  Not ported yet (ROADMAP.md, Queue 1): bucketing, prefetch, the
+device pool, the sharded frame cache, fault tolerance, streaming plans and spans; JAX's padded
 ragged ``map_rows`` buckets (``_ragged_pad_ok``) and its device segment
 aggregate (``_aggregate_segment``), which need the program analysis of
 item 9 -- their absence changes speed, not results.
@@ -38,7 +40,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import dtypes
+from .. import dtypes, observability
 from ..device import DeviceLike, resolve_device
 from ..frame import Column, TensorFrame, _column_from_cells, to_host
 from ..program import Program
@@ -130,6 +132,7 @@ class Executor:
         if isinstance(value, torch.Tensor):
             return value.to(device=device, dtype=st.torch_dtype)
         arr = np.ascontiguousarray(np.asarray(value), dtype=st.host_dtype())
+        observability.note_h2d_bytes(arr.nbytes)
         return torch.from_numpy(arr).to(device, non_blocking=True)
 
     def _staged_value(self, stage_fn, value, input_name: str) -> np.ndarray:
@@ -373,10 +376,11 @@ class Executor:
         with torch.no_grad():
             for key in sorted(buckets):
                 idxs = np.asarray(buckets[key])
-                arrays = {
-                    r: torch.from_numpy(np.stack([cells[r][i] for i in idxs])).to(device)
-                    for r in ragged_names
-                }
+                arrays = {}
+                for r in ragged_names:
+                    stacked = np.stack([cells[r][i] for i in idxs])
+                    observability.note_h2d_bytes(stacked.nbytes)
+                    arrays[r] = torch.from_numpy(stacked).to(device)
                 for u, (data, st) in uniform.items():
                     rows = (data[torch.as_tensor(idxs, device=data.device)]
                             if isinstance(data, torch.Tensor) else data[idxs])

@@ -52,9 +52,12 @@ class GraphNodeSummary:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a pytree of dicts/lists/tuples."""
+    """Apply ``fn`` to every leaf of a pytree of dicts/lists/tuples (named
+    tuples, such as a quantized weight's ``QTensor``, keep their type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)

@@ -69,6 +69,31 @@ def test_importing_the_graphdef_slice_loads_no_jax_or_jax_package():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_serving_slice_loads_no_jax_pyarrow_or_pandas():
+    # the decode path runs on the card's machine, which has neither pyarrow
+    # nor pandas: io.py and the frame's pandas entry points import them only
+    # when called
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch, tensorframes_tpu_torch.envutil, "
+        "tensorframes_tpu_torch.observability, tensorframes_tpu_torch.io, "
+        "tensorframes_tpu_torch.ops.frame_cache, tensorframes_tpu_torch.models.quant, "
+        "tensorframes_tpu_torch.models.decode, tensorframes_tpu_torch.models.kv_pager\n"
+        "from tensorframes_tpu_torch.models.decode import (generate, "
+        "speculative_generate, sample_logits, apply_cached, init_cache)\n"
+        "from tensorframes_tpu_torch.models.kv_pager import (PagePool, apply_paged, "
+        "paged_decode_step, paged_prefill)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pat = re.compile(
         r"^\s*(import|from)\s+"
@@ -80,7 +105,9 @@ def test_sources_import_neither_jax_nor_the_jax_package():
                                          ROOT / "tools" / "fwd_simt_variant.py"]
     assert len(files) > 10
     assert {"train.py", "data.py", "checkpoint.py", "mesh.py", "ring.py", "flash.py",
-            "importer.py", "ops.py", "inception.py", "vgg.py", "dsl.py", "builder.py"} <= {
+            "importer.py", "ops.py", "inception.py", "vgg.py", "dsl.py", "builder.py",
+            "envutil.py", "observability.py", "io.py", "frame_cache.py", "quant.py",
+            "decode.py", "kv_pager.py"} <= {
         p.name for p in files
     }
     for path in files:
@@ -155,6 +182,33 @@ def test_entry_points_raise_without_a_card(no_cuda, call):
 def test_graphdef_slice_entry_points_raise_without_a_card(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: tft.TensorFrame.from_arrays({"x": np.ones(3)}).cache(),
+        lambda: __import__("tensorframes_tpu_torch.models.decode", fromlist=["x"])
+        .init_cache(_cfg(), 1, 4),
+        lambda: __import__("tensorframes_tpu_torch.models.kv_pager", fromlist=["x"])
+        .PagePool(_cfg(), 4, 8),
+        lambda: __import__("tensorframes_tpu_torch.models.kv_pager", fromlist=["x"])
+        .init_tables(1, 4),
+    ],
+    ids=["cache", "init_cache", "PagePool", "init_tables"],
+)
+def test_serving_slice_entry_points_raise_without_a_card(no_cuda, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_decode_runs_on_the_params_device(no_cuda):
+    from tensorframes_tpu_torch.models import decode
+
+    params = tfm.init(torch.Generator().manual_seed(0), _cfg(), device="cpu")
+    out = decode.generate(params, np.zeros((1, 2), np.int32), _cfg(), 3)
+    assert out.device.type == "cpu" and out.shape == (1, 5)
+    assert flash.launches == 0
 
 
 def test_executor_runs_on_its_programs_device(no_cuda):

@@ -144,10 +144,9 @@ def test_remat_full_gives_the_gradients_of_none():
 
 
 @pytest.mark.parametrize("policy", ["dots", "attn", "selective"])
-def test_unported_remat_policies_raise_naming_the_roadmap(policy):
-    # these policies raised until ROADMAP Queue 1 item F landed; they now
-    # run and give the JAX package's loss (tests/test_torch_remat.py holds
-    # their gradients too)
+def test_remat_policies_give_the_jax_loss(policy):
+    # the selective policies run and give the JAX package's loss
+    # (tests/test_torch_remat.py holds their gradients too)
     jcfg, tcfg = _pair(BASE, attn_impl="full", remat_policy=policy)
     jp, tp = _params(jcfg, tcfg)
     inp, tgt = _batch()

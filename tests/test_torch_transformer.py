@@ -236,11 +236,20 @@ def test_convert_rejects_non_square_transpose():
 
 
 def test_convert_rejects_qtensor_leaves_naming_them():
+    # quantised leaves convert (tests/test_torch_quant.py holds their
+    # logits to JAX); a malformed one raises naming the leaf
     jcfg, tcfg = _pair(BASE)
     qp = jquant.quantize_params(jtfm.init(jax.random.PRNGKey(0), jcfg))
     tree = jax.tree.map(np.asarray, qp)
-    with pytest.raises(ValueError, match=r"param '(embed|lm_head|blocks\.\w+)' is a quantised QTensor"):
-        convert.params_from_numpy(tree, tcfg, device="cpu")
+    out = convert.params_from_numpy(tree, tcfg, device="cpu")
+    assert isinstance(out["blocks"]["wq"], ttfm.QTensor)
+    bad = dict(tree, lm_head=tree["lm_head"]._replace(q=tree["lm_head"].q.astype(np.int16)))
+    with pytest.raises(TypeError, match=r"param 'lm_head'\.q has dtype int16"):
+        convert.params_from_numpy(bad, tcfg, device="cpu")
+    wq = tree["blocks"]["wq"]
+    bad = dict(tree, blocks=dict(tree["blocks"], wq=wq._replace(scale=wq.scale[0])))
+    with pytest.raises(ValueError, match=r"param 'blocks\.wq'\.scale of shape"):
+        convert.params_from_numpy(bad, tcfg, device="cpu")
 
 
 def test_config_from_dict_maps_dtypes_and_rejects_unknown_fields():
