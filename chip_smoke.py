@@ -149,7 +149,33 @@ Phases, each printing its own lines and then its command time (``phase:``):
    with ``--profile``, device time by kernel over one block and one train
    step of each slice (and one block of each forward leg, one step of the
    Dh-512 and f32 legs);
-9. the card's line again, the kernels' JSON record (each kernel at the
+   the verbs phase of 5 also runs the block dispatch stack: configs 2, 3, 5
+   with ``TFS_PREFETCH_BLOCKS`` 2 against 0 (bit-identical; host bytes a
+   second, staging and wait seconds and the overlap ratio over every verb
+   of the leg that staged), a ``map_blocks`` over config 2's frame under an
+   injected transient fault (one retry) and an injected OOM (one split),
+   each bit-identical to the clean run, and a deadline at 0.3 of a clean
+   run that stops a ``map_blocks`` of 8 synced blocks with
+   ``DeadlineExceeded``;
+9. MoE (the README's sparse flagship: the widths above, 8 experts, top-2,
+   capacity 1.25, bf16, seeded weights): (a) 64 rows of 2048 tokens scored
+   in 8 blocks through ``map_blocks`` with flash, ``nll`` within 3e-2 of
+   ``"full"``, with the share of (token, rank) dispatch decisions that
+   differ between the two on one block, and the device ms of one MoE
+   layer's parts at that block's shapes (weight casts, router, gate,
+   dispatch product, expert GEMMs, combine product); (e)
+   ``layer_routing_stats`` of that block at every layer; (f) 4 rows of
+   8192 tokens in 2 blocks at ``"ring_flash"`` under the ring slice's sp = 4
+   mesh (each 2048-token chunk its own routing group), only the ring step
+   launched, ``nll`` within 3e-2 of ``"flash"`` under the same mesh (the
+   same groups) with the dispatch decisions that differ; (b) 4 train steps
+   at B=8 x 2048 at "selective" through ``FrameLoader`` and ``fit``
+   (launches as ``route_of`` names them, finite and falling losses, aux);
+   (c) greedy ``generate`` at B = 8 (32-token prompts, 64 new), contiguous
+   and paged, equal bit for bit, no flash launch; (d) a small f32 MoE model
+   card vs CPU at 1e-4 with drops present (and the dispatch decisions that
+   differ), cached decode vs the full forward at ample capacity at 1e-4;
+10. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -162,6 +188,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1709,6 +1736,7 @@ def phase_verbs():
         lambda: tft.aggregate(agg, aframe.group_by("k"), **cpu).to_arrays(),
         {"k": present, "v": ref}, SUM_RTOL, SUM_RTOL,
         groups=len(present), distinct_sizes=distinct_sizes)
+    verbs_dispatch_stack(frame, pix, row_prog, fit)
     return rows
 
 
@@ -2713,6 +2741,536 @@ def phase_graphdef(profile=False):
         tol=MLP_TOL, predictions_compared=int(clear.sum()))
 
 
+# --- the mixture-of-experts flagship (README: moe_experts=8, moe_top_k=2) -----
+MOE_MODEL = dict(vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
+                 d_ff=4096, max_seq=2048, dtype=torch.bfloat16, moe_experts=8, moe_top_k=2,
+                 moe_capacity_factor=1.25)
+MOE_ROWS, MOE_BLOCKS, MOE_L = 64, 8, 2048
+MOE_TRAIN_ROWS, MOE_TRAIN_B = 32, 8  # 4 steps at B=8
+MOE_DECODE = dict(B=8, prompt=32, new=64)
+# the f32 leg: card vs the CPU path (summation order) and cached decode vs
+# the full forward, at the default and at ample capacity (JAX's own factor)
+MOE_SMALL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=128,
+                 max_seq=64, dtype=torch.float32, moe_experts=4, moe_top_k=2)
+MOE_SMALL_TOL = 1e-4
+MOE_AMPLE = 8.0
+# the ring leg: 8192-token rows under the ring slice's sp = 4 mesh, two
+# blocks of 2 rows (each row's 2048-token chunks route as their own groups)
+MOE_RING_ROWS, MOE_RING_BLOCKS = 4, 2
+
+
+def moe_dispatch(params, cfg, tokens):
+    """The experts each (token, rank) pick is kept by, layer by layer:
+    [n_layers, G, S, E] int8 (1 where a token's pick of expert e got a
+    slot), replayed through the model's own ``_attn_residual``, ``_route``
+    and ``_mlp_residual`` under ``cfg``'s attention."""
+    from tensorframes_tpu_torch.models import moe, transformer as tfm
+
+    B, L = tokens.shape
+    pos = torch.arange(L, dtype=torch.int32, device=tokens.device).expand(B, L)
+    kept = []
+    with torch.no_grad():
+        x = tfm.embed_lookup(params["embed"], tokens, cfg.dtype)
+        for bp in tfm.layer_params(params["blocks"]):
+            x, _ = tfm._attn_residual(bp, x, pos, cfg)
+            dispatch = moe._route(bp, tfm._rms_norm(x, bp["ln2"]), cfg)[2]
+            kept.append(dispatch.sum(-1).to(torch.int8))
+            del dispatch
+            x, _ = tfm._mlp_residual(bp, x, cfg)
+    return torch.stack(kept)
+
+
+MOE_BREAKDOWN_ITERS = 5
+
+
+def moe_breakdown(params, cfg, tokens):
+    """Device ms of the parts of one MoE layer (layer 0) at a scoring
+    block's shapes, each timed by CUDA events over MOE_BREAKDOWN_ITERS runs
+    after a warm-up, on that layer's real input: the expert weights' cast
+    to the activation dtype (``transformer.weight``, every use), the router
+    (f32 product and softmax), the gate, the dispatch product, the three
+    expert GEMMs with the SwiGLU, and the combine product."""
+    import torch.nn.functional as F
+
+    from tensorframes_tpu_torch.models import moe, transformer as tfm
+
+    B, L = tokens.shape
+    dt, k, E = cfg.dtype, cfg.moe_top_k, cfg.moe_experts
+    bp = tfm.layer_params(params["blocks"])[0]
+    pos = torch.arange(L, dtype=torch.int32, device=tokens.device).expand(B, L)
+    with torch.no_grad():
+        x, _ = tfm._attn_residual(bp, tfm.embed_lookup(params["embed"], tokens, dt), pos, cfg)
+        yg = tfm._rms_norm(x, bp["ln2"]).reshape(B, L, -1)
+        cap = moe.capacity(L, k, E, cfg.moe_capacity_factor)
+        names = ("we_gate", "we_up", "we_down")
+        w = {n: tfm.weight(bp[n], dt) for n in names}
+        probs = torch.softmax(yg.float() @ bp["router"].float(), dim=-1)
+        dispatch, combine, _ = moe.gate(probs, k, cap)
+        ex_in = moe._expert_in(dispatch, yg, dt)
+
+        def experts():
+            h = F.silu(moe._expert_ffn(ex_in, w["we_gate"])) * moe._expert_ffn(ex_in, w["we_up"])
+            return moe._expert_ffn(h, w["we_down"])
+
+        ex_out = experts()
+        parts = {
+            "weight_casts": lambda: [tfm.weight(bp[n], dt) for n in names],
+            "router": lambda: torch.softmax(yg.float() @ bp["router"].float(), dim=-1),
+            "gate": lambda: moe.gate(probs, k, cap),
+            "dispatch_product": lambda: moe._expert_in(dispatch, yg, dt),
+            "expert_gemms": experts,
+            "combine_product": lambda: moe._expert_out(combine, ex_out, dt),
+        }
+        ms = {}
+        for name, fn in parts.items():
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(MOE_BREAKDOWN_ITERS):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(end) / MOE_BREAKDOWN_ITERS
+    expert_flop = 3 * 2 * E * B * cap * cfg.d_model * cfg.d_ff
+    onehot_flop = 2 * B * E * cap * L * cfg.d_model
+    return dict(layer_ms=ms, moe_ms_per_block=sum(ms.values()) * cfg.n_layers,
+                expert_gemm_tflops_per_s=expert_flop / ms["expert_gemms"] / 1e9,
+                dispatch_tflops_per_s=onehot_flop / ms["dispatch_product"] / 1e9,
+                combine_tflops_per_s=onehot_flop / ms["combine_product"] / 1e9)
+
+
+def active_params(params, cfg):
+    """Parameters a token runs through: all but the experts, plus top_k of
+    the E experts' weights (the 6N of the counted FLOPs)."""
+    from tensorframes_tpu_torch import train
+
+    total = train.n_params(params)
+    experts = sum(params["blocks"][k].numel() for k in ("we_gate", "we_up", "we_down"))
+    return total - experts + experts * cfg.moe_top_k // cfg.moe_experts
+
+
+def phase_moe():
+    """The MoE flagship at the README's config on the card: (a) scoring
+    through map_blocks, flash against full with the share of dispatch
+    decisions that differ; (b) 4 train steps at "selective" through
+    FrameLoader and fit; (c) greedy generate, contiguous and paged; (d) a
+    small f32 MoE model card vs CPU at the default capacity, and cached
+    decode vs the full forward at ample capacity; (e) layer_routing_stats of
+    one block; (f) 8192-token rows at "ring_flash" under an sp = 4 mesh,
+    against "flash" under the same mesh.  Returns the launches by
+    instantiation of (a), (b) and (f)."""
+    from tensorframes_tpu_torch import TensorFrame, data, map_blocks, train
+    from tensorframes_tpu_torch.models import decode, kv_pager, moe, scoring
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash, mesh
+
+    cfg = tfm.TransformerConfig(**MOE_MODEL, attn_impl="flash")
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(14), cfg)
+    n_params, n_active = train.n_params(params), active_params(params, cfg)
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    S = MOE_L
+    cap = moe.capacity(S, k, E, cfg.moe_capacity_factor)
+    B = MOE_ROWS // MOE_BLOCKS
+    expert_tflop = 3 * 2 * E * B * cap * cfg.d_model * cfg.d_ff * cfg.n_layers / 1e12
+    onehot_tflop = 2 * 2 * B * E * cap * S * cfg.d_model * cfg.n_layers / 1e12
+    say("moe", config=dict(MOE_MODEL, dtype=str(cfg.dtype)), n_params=n_params,
+        active_params_per_token=n_active, capacity=cap,
+        expert_tflop_per_block=expert_tflop, dispatch_combine_tflop_per_block=onehot_tflop)
+
+    # (a) scoring, flash then full, one warm-up block each
+    tokens = np.random.RandomState(14).randint(0, cfg.vocab_size, (MOE_ROWS, MOE_L))
+    frame = TensorFrame.from_arrays({"tokens": tokens.astype(np.int32)}, num_blocks=MOE_BLOCKS)
+    block = TensorFrame.from_arrays({"tokens": tokens[:B].astype(np.int32)})
+
+    def score(c, fetches, data_frame=frame, warm=block):
+        prog = scoring.scoring_program(params, c, fetches=fetches)
+        map_blocks(prog, warm).to_arrays()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        out = map_blocks(prog, data_frame).to_arrays()
+        sec = time.perf_counter() - t0
+        return out, sec, dict(flash.kernel_launches), torch.cuda.max_memory_allocated()
+
+    out, sec, scored, peak = score(cfg, scoring.FETCHES)
+    want = {route_of("flash_fwd", cfg.dtype, 64): cfg.n_layers * MOE_BLOCKS}
+    if scored != want:
+        raise AssertionError(f"moe scoring: launched {scored}, expected {want}")
+    for key, shape in (("nll", (MOE_ROWS,)), ("perplexity", (MOE_ROWS,)),
+                       ("embedding", (MOE_ROWS, cfg.d_model))):
+        if out[key].shape != shape or not np.isfinite(out[key]).all():
+            raise AssertionError(f"moe {key}: shape {out[key].shape} or non-finite")
+    full_cfg = dataclasses.replace(cfg, attn_impl="full")
+    full, full_sec, full_launched, full_peak = score(full_cfg, ("nll",))
+    if full_launched:
+        raise AssertionError(f"moe full scoring launched {full_launched}")
+    diff = float(np.abs(full["nll"] - out["nll"]).max())
+    first = torch.from_numpy(tokens[:B].astype(np.int64)).cuda()
+    kept_flash = moe_dispatch(params, cfg, first)
+    kept_full = moe_dispatch(params, full_cfg, first)
+    decisions = cfg.n_layers * B * S * k
+    differ = int((kept_flash != kept_full).sum()) / (2 * decisions)
+    dropped = 1.0 - float(kept_flash.float().sum()) / decisions
+    if not diff <= NLL_TOL:
+        raise AssertionError(f"moe nll flash vs full: max |diff| {diff} > {NLL_TOL} "
+                             f"(dispatch decisions differing: {differ})")
+    say("moe", leg="a_score", attn_impl="flash", rows=MOE_ROWS, tokens_per_row=MOE_L,
+        blocks=MOE_BLOCKS, seconds=sec, rows_per_s=MOE_ROWS / sec,
+        tokens_per_s=MOE_ROWS * MOE_L / sec, ms_per_block=sec / MOE_BLOCKS * 1e3,
+        peak_bytes=peak, launched=scored, nll_mean=float(out["nll"].mean()),
+        full_ms_per_block=full_sec / MOE_BLOCKS * 1e3, full_peak_bytes=full_peak,
+        nll_max_abs_diff_vs_full=diff, nll_tol=NLL_TOL,
+        dispatch_decisions_differ_share=differ, dispatch_decisions=decisions,
+        dropped_share_block0=dropped)
+    del out, full, kept_flash, kept_full
+    parts = moe_breakdown(params, cfg, first)
+    say("moe", leg="a_breakdown", rows=B, tokens_per_row=MOE_L, **parts,
+        moe_share_of_block=parts["moe_ms_per_block"] / (sec / MOE_BLOCKS * 1e3))
+
+    # (e) routing statistics of one block at every layer
+    stats = [moe.layer_routing_stats(params, first, cfg, layer=i) for i in range(cfg.n_layers)]
+    for i, s in enumerate(stats):
+        if not (abs(s["load"].sum() - 1.0) < 1e-4 and 0.0 <= s["drop_fraction"] < 1.0
+                and np.isfinite(s["aux"])):
+            raise AssertionError(f"moe routing stats of layer {i}: {s}")
+    say("moe", leg="e_routing_stats", rows=B, capacity=stats[0]["capacity"],
+        load=[s["load"].round(5).tolist() for s in stats],
+        drop_fraction=[s["drop_fraction"] for s in stats], aux=[s["aux"] for s in stats])
+
+    # (f) the ring: 8192-token rows at "ring_flash" under the sp = 4 mesh,
+    # so each row routes as 4 groups of 2048 tokens; "flash" under the same
+    # mesh routes the same groups (same capacity, same drops), and the ring
+    # step must be all the attention that runs
+    ring_mesh = mesh.training_mesh(sp=RING_SP)
+    rcfg = dataclasses.replace(cfg, attn_impl="ring_flash", max_seq=RING_L)
+    rb = MOE_RING_ROWS // MOE_RING_BLOCKS
+    rtoks = np.random.RandomState(18).randint(
+        0, cfg.vocab_size, (MOE_RING_ROWS, RING_L)).astype(np.int32)
+    rframe = TensorFrame.from_arrays({"tokens": rtoks}, num_blocks=MOE_RING_BLOCKS)
+    rblock = TensorFrame.from_arrays({"tokens": rtoks[:rb]})
+    fcfg = dataclasses.replace(rcfg, attn_impl="flash")
+    with mesh.set_mesh(ring_mesh):
+        if moe._sp_groups(RING_L) != RING_SP:
+            raise AssertionError(f"moe ring: {moe._sp_groups(RING_L)} groups a row under sp=4")
+        rout, rsec, ring_launched, rpeak = score(rcfg, ("nll",), rframe, rblock)
+        fout, fsec, flat_launched, _ = score(fcfg, ("nll",), rframe, rblock)
+        rfirst = torch.from_numpy(rtoks[:rb].astype(np.int64)).cuda()
+        kept_ring = moe_dispatch(params, rcfg, rfirst)
+        kept_flat = moe_dispatch(params, fcfg, rfirst)
+    want_r = {route_of("ring_step", cfg.dtype, 64):
+              cfg.n_layers * hops_per_layer(RING_SP) * MOE_RING_BLOCKS}
+    if ring_launched != want_r:
+        raise AssertionError(f"moe ring scoring: launched {ring_launched}, expected {want_r}")
+    want_f = {route_of("flash_fwd", cfg.dtype, 64): cfg.n_layers * MOE_RING_BLOCKS}
+    if flat_launched != want_f:
+        raise AssertionError(f"moe flash under sp=4: launched {flat_launched}, expected {want_f}")
+    if rout["nll"].shape != (MOE_RING_ROWS,) or not np.isfinite(rout["nll"]).all():
+        raise AssertionError(f"moe ring nll: shape {rout['nll'].shape} or non-finite")
+    rdiff = float(np.abs(rout["nll"] - fout["nll"]).max())
+    rdecisions = cfg.n_layers * rb * RING_L * k
+    rdiffer = int((kept_ring != kept_flat).sum()) / (2 * rdecisions)
+    rdropped = 1.0 - float(kept_ring.float().sum()) / rdecisions
+    if not rdiff <= NLL_TOL:
+        raise AssertionError(f"moe nll ring_flash vs flash under sp=4: max |diff| {rdiff} > "
+                             f"{NLL_TOL} (dispatch decisions differing: {rdiffer})")
+    say("moe", leg="f_ring", attn_impl="ring_flash", sp=RING_SP, rows=MOE_RING_ROWS,
+        tokens_per_row=RING_L, blocks=MOE_RING_BLOCKS, groups_per_row=RING_SP,
+        capacity=moe.capacity(RING_L // RING_SP, k, E, cfg.moe_capacity_factor),
+        seconds=rsec, tokens_per_s=MOE_RING_ROWS * RING_L / rsec,
+        ms_per_block=rsec / MOE_RING_BLOCKS * 1e3, peak_bytes=rpeak, launched=ring_launched,
+        flash_ms_per_block=fsec / MOE_RING_BLOCKS * 1e3, flash_launched=flat_launched,
+        nll_mean=float(rout["nll"].mean()), nll_max_abs_diff_vs_flash=rdiff, nll_tol=NLL_TOL,
+        dispatch_decisions_differ_share=rdiffer, dispatch_decisions=rdecisions,
+        dropped_share_block0=rdropped)
+    del rout, fout, kept_ring, kept_flat
+
+    # (b) 4 train steps at B=8 x 2048, remat "selective", FrameLoader -> fit
+    tcfg = dataclasses.replace(cfg, remat_policy="selective")
+    tc = train.TrainConfig(learning_rate=3e-4)
+    steps = MOE_TRAIN_ROWS // MOE_TRAIN_B
+    start = np.random.RandomState(15).randint(0, cfg.vocab_size, (MOE_TRAIN_ROWS, 1))
+    toks = ((start + np.arange(MOE_L + 1)) % cfg.vocab_size).astype(np.int32)
+    tframe = TensorFrame.from_arrays({"tokens": toks}, num_blocks=4)
+
+    def loader():
+        return data.FrameLoader(tframe, batch_size=MOE_TRAIN_B, shuffle=True, seed=0)
+
+    train.fit(loader(), tcfg, tc, steps=1, params=params)  # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    _, opt_state, losses = train.fit(loader(), tcfg, tc, steps=steps, params=params)
+    tsec = time.perf_counter() - t0
+    trained, tpeak = dict(flash.kernel_launches), train.hbm_high_water()
+    want_t = {route_of("flash_fwd", cfg.dtype, 64): 2 * cfg.n_layers * steps,
+              route_of("flash_bwd_dq", cfg.dtype, 64): cfg.n_layers * steps,
+              route_of("flash_bwd_dkv", cfg.dtype, 64): cfg.n_layers * steps}
+    if trained != want_t:
+        raise AssertionError(f"moe train: launched {trained}, expected {want_t}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"moe train losses not finite and falling: {losses}")
+    del opt_state
+    with torch.no_grad():
+        batch = torch.from_numpy(toks[:2]).cuda()
+        _, aux = tfm.apply(params, batch[:, :-1], cfg, return_aux=True)
+    tokens_run = steps * MOE_TRAIN_B * MOE_L
+    flops_per_token = train.counted_flops_per_token(n_active, cfg, MOE_L)
+    say("moe", leg="b_train", attn_impl="flash", remat="selective", steps=steps,
+        batch=MOE_TRAIN_B, seq=MOE_L, n_params=n_params, active_params=n_active,
+        seconds=tsec, ms_per_step=tsec / steps * 1e3, tokens_per_s=tokens_run / tsec,
+        counted_tflops_per_s_active=flops_per_token * tokens_run / tsec / 1e12,
+        peak_bytes=tpeak, resident_bytes_at_start=resident, launched=trained,
+        losses=losses, aux_after=float(aux), aux_coef=cfg.moe_aux_coef)
+
+    # (c) greedy decode, contiguous then paged: bit for bit, no flash launch
+    dc = MOE_DECODE
+    prompts = torch.from_numpy(np.random.RandomState(16).randint(
+        0, cfg.vocab_size, (dc["B"], dc["prompt"])).astype(np.int32)).cuda()
+    capacity_len = dc["prompt"] + dc["new"]
+    capacity_len += (-capacity_len) % PAGE_TOKENS
+    flash.reset_launches()
+    contiguous, csec, cpeak = best_of(lambda: decode.generate(
+        params, prompts, cfg, dc["new"], cache_len=capacity_len))
+    cast = decode.cast_params(params, cfg.dtype)
+    max_pages = capacity_len // PAGE_TOKENS
+    pool = kv_pager.PagePool(cfg, n_pages=dc["B"] * max_pages + 1, tokens_per_page=PAGE_TOKENS)
+    tables = kv_pager.init_tables(dc["B"], max_pages)
+    charges = []
+    for b in range(dc["B"]):
+        charge, pages = pool.allocate(max_pages, tenant=f"row{b}")
+        charges.append(charge)
+        tables[b] = torch.tensor(pages, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kp, vp = pool.k_pages, pool.v_pages
+    last = torch.full((dc["B"],), dc["prompt"] - 1, dtype=torch.int32, device="cuda")
+    tok, kp, vp = kv_pager.paged_prefill(cast, prompts, tables, last, kp, vp, cfg)
+    out_toks = [tok]
+    idx = torch.full((dc["B"],), dc["prompt"], dtype=torch.int32, device="cuda")
+    for _ in range(dc["new"] - 1):
+        tok, kp, vp = kv_pager.paged_decode_step(cast, tok, tables, idx, kp, vp, cfg)
+        idx = idx + 1
+        out_toks.append(tok)
+    paged = torch.stack(out_toks, dim=1)
+    torch.cuda.synchronize()
+    psec = time.perf_counter() - t0
+    for c in charges:
+        pool.free(c)
+    if not torch.equal(paged, contiguous[:, dc["prompt"]:]):
+        n = int((paged != contiguous[:, dc["prompt"]:]).sum())
+        raise AssertionError(f"moe paged decode differs from contiguous in {n} tokens")
+    if flash.launches:
+        raise AssertionError(f"moe decode launched flash kernels: {dict(flash.kernel_launches)}")
+    say("moe", leg="c_decode", B=dc["B"], prompt=dc["prompt"], new=dc["new"],
+        cache=capacity_len, contiguous_seconds=csec,
+        contiguous_tokens_per_s=dc["B"] * dc["new"] / csec,
+        contiguous_ms_per_token=csec / dc["new"] * 1e3, peak_bytes=cpeak,
+        paged_seconds=psec, paged_tokens_per_s=dc["B"] * dc["new"] / psec,
+        paged_equal_contiguous=True, flash_launches=0)
+    del params, cast, pool, kp, vp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a small f32 MoE model: card vs the CPU path at the default
+    # capacity (drops present), cached decode vs full forward at ample
+    small = tfm.TransformerConfig(**MOE_SMALL, attn_impl="flash")
+    sp_cpu = tfm.init(torch.Generator().manual_seed(17), small, device="cpu")
+    sp_gpu = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict) else v.cuda())
+              for k, v in sp_cpu.items()}
+    stoks = np.random.RandomState(17).randint(0, small.vocab_size, (4, 48)).astype(np.int64)
+    drop = moe.layer_routing_stats(sp_cpu, torch.from_numpy(stoks),
+                                   dataclasses.replace(small, attn_impl="full"))["drop_fraction"]
+    flash.reset_launches()
+    g_logits, g_aux = tfm.apply(sp_gpu, torch.from_numpy(stoks).cuda(), small, return_aux=True)
+    small_launched = dict(flash.kernel_launches)
+    c_logits, c_aux = tfm.apply(sp_cpu, torch.from_numpy(stoks), small, return_aux=True)
+    kept_card = moe_dispatch(sp_gpu, small, torch.from_numpy(stoks).cuda()).cpu()
+    kept_cpu = moe_dispatch(sp_cpu, small, torch.from_numpy(stoks))
+    small_differ = int((kept_card != kept_cpu).sum()) / (2 * kept_cpu.numel() // small.moe_experts
+                                                        * small.moe_top_k)
+    e_card = check_close("moe small logits, cuda vs cpu", g_logits.cpu(), c_logits,
+                         MOE_SMALL_TOL)
+    if abs(float(g_aux) - float(c_aux)) > MOE_SMALL_TOL:
+        raise AssertionError(f"moe small aux: cuda {float(g_aux)} vs cpu {float(c_aux)}")
+    ample = dataclasses.replace(small, moe_capacity_factor=MOE_AMPLE)
+    ref = tfm.apply(sp_gpu, torch.from_numpy(stoks).cuda(), ample)
+    cache = decode.init_cache(ample, 4, 48)
+    logits, cache = decode.apply_cached(sp_gpu, torch.from_numpy(stoks[:, :40]).cuda(), cache,
+                                        ample)
+    outs = [logits]
+    for i in range(40, 48):
+        logits, cache = decode.apply_cached(sp_gpu, torch.from_numpy(stoks[:, i:i + 1]).cuda(),
+                                            cache, ample)
+        outs.append(logits)
+    e_cached = check_close("moe small cached decode vs full forward", torch.cat(outs, 1).cpu(),
+                           ref.cpu(), MOE_SMALL_TOL)
+    say("moe", leg="d_small_f32", check="card vs cpu at the default capacity, cached decode "
+        "vs full forward at ample capacity (f32, TF32 off)", drop_fraction_layer0=drop,
+        max_abs_err_card_vs_cpu=e_card, dispatch_decisions_differ_share=small_differ,
+        aux_card=float(g_aux), aux_cpu=float(c_aux),
+        max_abs_err_cached_vs_full=e_cached, tol=MOE_SMALL_TOL, launched=small_launched)
+    return scored, trained, ring_launched
+
+
+class env_set:
+    """Set environment knobs for a ``with`` block, then restore them."""
+
+    def __init__(self, **knobs):
+        self.knobs, self.prev = knobs, {}
+
+    def __enter__(self):
+        for k, v in self.knobs.items():
+            self.prev[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_arrays(a, b) -> bool:
+    return set(a) == set(b) and all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+DEADLINE_BLOCKS, DEADLINE_ITERS, DEADLINE_SHARE = 8, 100, 0.3
+
+
+class verb_records:
+    """Collect the block-loop record of every verb run inside the ``with``
+    block (``engine.last_verb_stats`` keeps only the last one)."""
+
+    def __enter__(self):
+        from tensorframes_tpu_torch.ops import engine
+
+        self.engine, self.records = engine, []
+        self.orig = engine._record_stats
+
+        def record(*args):
+            self.orig(*args)
+            self.records.append(engine.last_verb_stats())
+
+        engine._record_stats = record
+        return self.records
+
+    def __exit__(self, *exc):
+        self.engine._record_stats = self.orig
+
+
+def verbs_dispatch_stack(frame, pix, row_prog, logreg_fit):
+    """The block dispatch stack under the verbs on the card: configs 2, 3
+    and 5 with ``TFS_PREFETCH_BLOCKS`` 2 against 0 (bit-identical results,
+    host bytes over the verb's seconds, the overlap ratio); an injected
+    transient fault retried and an injected OOM split on a ``map_blocks``
+    (bit-identical to the clean run); a deadline that stops a verb at a
+    block boundary with ``DeadlineExceeded``."""
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import cancellation, observability as obs
+    from tensorframes_tpu_torch.ops import engine, prefetch
+
+    legs = {
+        "config2_reduce_blocks_sum": (VERB_ROWS, lambda: tft.reduce_blocks(
+            lambda v_input: {"v": v_input.sum(0)}, frame)),
+        "config3_map_rows_mlp": (MLP_ROWS, lambda: tft.map_rows(
+            row_prog, pix, feed_dict={"image": "pixels"}).to_arrays()),
+        "config5_logreg": (VERB_ROWS * LOGREG_STEPS, lambda: logreg_fit("cuda")),
+    }
+    for name, (n_rows, fn) in legs.items():
+        runs = {}
+        for depth in ("0", "2"):
+            with env_set(TFS_PREFETCH_BLOCKS=depth):
+                fn()  # warm-up
+                torch.cuda.synchronize()
+                c0 = obs.counters()
+                t0 = time.perf_counter()
+                with verb_records() as recs:
+                    out = fn()
+                    torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                h2d = obs.counters_delta(c0)["h2d_bytes_staged"]
+            # the prefetch stats of every verb of the leg that staged blocks
+            staged = [r["prefetch"] for r in recs if r["prefetch"]["items"]]
+            stage_s = sum(p["stage_s"] for p in staged)
+            wait_s = sum(p["wait_s"] for p in staged)
+            runs[depth] = dict(out=out, seconds=sec, h2d=h2d, stage_s=stage_s, wait_s=wait_s,
+                               overlap=prefetch.overlap_ratio(stage_s, wait_s),
+                               items=sum(p["items"] for p in staged), verbs=len(recs))
+        if not same_arrays(runs["0"]["out"], runs["2"]["out"]):
+            raise AssertionError(f"{name}: prefetched results differ from depth 0")
+        say("verbs", leg=f"prefetch_{name}", rows=n_rows, bit_identical=True,
+            h2d_bytes=runs["2"]["h2d"], verbs=runs["2"]["verbs"], **{
+                f"depth{d}_{k}": v for d, r in runs.items() for k, v in (
+                    ("seconds", r["seconds"]), ("mrows_per_s", n_rows / r["seconds"] / 1e6),
+                    ("h2d_gb_per_s_over_leg", r["h2d"] / r["seconds"] / 1e9),
+                    ("stage_s", r["stage_s"]), ("wait_s", r["wait_s"]),
+                    ("overlap_ratio", r["overlap"]), ("staged_items", r["items"]))},
+            depth0_over_depth2=runs["0"]["seconds"] / runs["2"]["seconds"])
+
+    prog = lambda v: {"y": v * 2.0 + 1.0}  # noqa: E731
+    clean = tft.map_blocks(prog, frame).to_arrays()
+    faults_run = {}
+    for kind, knobs, counter in (
+        ("transient", dict(TFS_FAULT_INJECT="transient:block=1:attempt=0"), "block_retries"),
+        ("oom", dict(TFS_FAULT_INJECT="oom:block=2:minrows=100000", TFS_MIN_SPLIT_ROWS="16"),
+         "block_oom_splits"),
+    ):
+        with env_set(TFS_BLOCK_RETRIES="2", TFS_BLOCK_BACKOFF_S="0.001", **knobs):
+            c0 = obs.counters()
+            t0 = time.perf_counter()
+            got = tft.map_blocks(prog, frame).to_arrays()
+            sec = time.perf_counter() - t0
+            d = obs.counters_delta(c0)
+            ft = engine.last_verb_stats()["fault_tolerance"]
+        if not same_arrays(got, clean):
+            raise AssertionError(f"map_blocks under an injected {kind} differs from the clean run")
+        if d[counter] != 1 or d["faults_injected"] < 1:
+            raise AssertionError(f"injected {kind}: counters {d}")
+        faults_run[kind] = dict(seconds=sec, counters={k: d[k] for k in (
+            "faults_injected", "block_retries", "block_oom_splits")}, record=ft)
+    say("verbs", leg="faults_map_blocks", rows=VERB_ROWS, blocks=VERB_BLOCKS,
+        bit_identical=True, **faults_run)
+
+    # a deadline: each block syncs (the host loop follows the card), and the
+    # scope's deadline falls DEADLINE_SHARE of the way through a clean run
+    w = torch.randn(VERB_D, VERB_D, generator=torch.Generator().manual_seed(3)).cuda() / 8
+    done = []
+
+    def heavy(v):
+        y = v
+        for _ in range(DEADLINE_ITERS):
+            y = torch.tanh(y @ w)
+        if y.device.type == "cuda":  # not the verbs' shape analysis on meta
+            float(y[0, 0])  # a sync: the block's work is done on return
+            done.append(1)
+        return {"y": y}
+
+    dframe = frame.repartition(DEADLINE_BLOCKS)
+    prog_h = tft.Program.wrap(heavy, device="cuda")
+    clean_sec = min(timed(lambda: tft.map_blocks(prog_h, dframe).to_arrays())[1]
+                    for _ in range(2))
+    deadline = DEADLINE_SHARE * clean_sec
+    done.clear()
+    scope = cancellation.CancelScope(deadline_s=deadline, label="map_blocks")
+    t0 = time.perf_counter()
+    try:
+        with cancellation.activate(scope):
+            tft.map_blocks(prog_h, dframe).to_arrays()
+        raise AssertionError(f"a {deadline:.4f}s deadline did not stop a "
+                             f"{clean_sec:.4f}s map_blocks")
+    except cancellation.DeadlineExceeded:
+        stopped = time.perf_counter() - t0
+    if not 0 < len(done) < DEADLINE_BLOCKS:
+        raise AssertionError(f"deadline: {len(done)} of {DEADLINE_BLOCKS} blocks ran")
+    say("verbs", leg="deadline_map_blocks", blocks=DEADLINE_BLOCKS, clean_seconds=clean_sec,
+        deadline_s=deadline, stopped_after_s=stopped, blocks_done=len(done),
+        raised="DeadlineExceeded")
+
+
 def _np_tree(tree):
     """A param tree of tensors as host f32 numpy."""
     if isinstance(tree, dict):
@@ -2811,7 +3369,8 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     with its launches over the main paths' runs (``main_runs``: launches by
     instantiation of the flagship scoring, the wide-head scoring and train,
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
-    flagship train epoch and the ring scoring runs)."""
+    flagship train epoch, the ring scoring runs and the MoE legs' scoring,
+    train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
     by_inst = {}
@@ -2832,8 +3391,9 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
         else:
             head = dict(launches=train_launches[name], max_abs_err=errs["flagship"][name],
                         **timing[name])
-        entries.append(dict(name=name, **common, **head,
-                            instantiation=route_of(family, FLAGSHIP["dtype"], 64),
+        inst = route_of(family, FLAGSHIP["dtype"], 64)
+        entries.append(dict(name=name, **common, **head, instantiation=inst,
+                            launches_all_main_runs=by_inst.get(inst, 0),
                             built=[n for r in ROUTES for n in built[f"{family}_{r}"]]))
         for variant, row in timing["variants"][name].items():
             c = VARIANTS[variant]
@@ -2888,6 +3448,7 @@ def main() -> int:
     run_phase(phase_graphdef, args.profile)
     ring_run = run_phase(phase_ring_slice)
     ring_train_run = run_phase(phase_ring_train, ring_run[3])
+    moe_launches = run_phase(phase_moe)
     # last, so that its f32 params stay out of the other phases' peak memory
     f32_launches, f32_train = run_phase(phase_f32_train)
     if args.profile:
@@ -2896,7 +3457,7 @@ def main() -> int:
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
         train_run[5],
-        ring_run[4]])
+        ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)
     print(json.dumps(record), flush=True)

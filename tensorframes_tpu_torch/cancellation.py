@@ -1,0 +1,148 @@
+"""Cooperative cancellation: deadlines and cancel scopes for verb dispatch.
+
+The port's own copy of ``tensorframes_tpu/cancellation.py`` (no framework
+code), names kept.  A CUDA launch cannot be interrupted mid-flight either,
+but the engine's unit of work is the block, so checking a scope at every
+*block boundary* (and every retry attempt) bounds the overrun to one
+block's compute -- the granularity the fault-tolerance layer recovers at.
+Cancellation never tears a frame: a dispatch loop that raises
+:class:`DeadlineExceeded` has completed every block it started, written
+nothing into the source frame (verbs build NEW frames), and left no
+worker thread running (the prefetcher reaps its staging thread when its
+generator is abandoned).
+
+Usage::
+
+    scope = CancelScope(deadline_s=0.250, label="map_blocks")
+    with activate(scope):
+        out = map_blocks(program, frame)  # raises DeadlineExceeded at
+                                          # the first block boundary
+                                          # past the deadline
+
+* :func:`checkpoint` -- the boundary hook: one contextvar read when no
+  scope is active; raises when the active scope is cancelled or past its
+  deadline.
+* :meth:`CancelScope.cancel` -- external cooperative cancel, thread-safe.
+* ``Cancelled``/``DeadlineExceeded`` are classified NON-transient by
+  ``resilience.FailureDetector`` and re-raised untouched by
+  ``FrameRetrySession``: a cancelled block never burns retry budget or
+  backs off.
+
+The scope rides a ``contextvars.ContextVar``, so concurrent threads each
+see only their own scope.  The prefetcher's staging thread runs under a
+copy of the consumer's context, but staging code never calls
+:func:`checkpoint`, so the copied scope stays inert there.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import threading
+import time
+from typing import Optional
+
+
+class Cancelled(RuntimeError):
+    """The active :class:`CancelScope` was cancelled cooperatively."""
+
+
+class DeadlineExceeded(Cancelled):
+    """The active :class:`CancelScope`'s deadline passed.
+
+    Raised at a block boundary (or retry attempt), so the failing verb
+    has executed an integer number of blocks and its session's frames
+    remain intact and fully usable."""
+
+
+class CancelScope:
+    """One request's cancellation state: an optional deadline plus an
+    externally settable cancel reason.  Thread-safe: ``cancel`` may be
+    called from any thread; ``check``
+    runs on the dispatching thread."""
+
+    __slots__ = ("label", "_deadline", "_cancel_reason", "_lock")
+
+    def __init__(
+        self, deadline_s: Optional[float] = None, label: str = ""
+    ):
+        self.label = label
+        self._deadline = (
+            time.monotonic() + float(deadline_s)
+            if deadline_s is not None
+            else None
+        )
+        self._cancel_reason: Optional[str] = None
+        self._lock = threading.Lock()
+
+    def cancel(self, reason: str = "cancelled") -> None:
+        """Cooperatively cancel: the next :meth:`check` (the next block
+        boundary of whatever this scope is running) raises
+        :class:`Cancelled` carrying ``reason``."""
+        with self._lock:
+            if self._cancel_reason is None:
+                self._cancel_reason = str(reason)
+
+    @property
+    def cancel_reason(self) -> Optional[str]:
+        with self._lock:
+            return self._cancel_reason
+
+    def time_remaining(self) -> Optional[float]:
+        """Seconds until the deadline (may be negative), or None when
+        the scope has no deadline."""
+        if self._deadline is None:
+            return None
+        return self._deadline - time.monotonic()
+
+    def expired(self) -> bool:
+        return self._deadline is not None and (
+            time.monotonic() > self._deadline
+        )
+
+    def check(self) -> None:
+        """Raise if cancelled or past deadline; otherwise a no-op."""
+        reason = self.cancel_reason
+        if reason is not None:
+            raise Cancelled(
+                f"{self.label or 'request'} cancelled: {reason}"
+            )
+        if self.expired():
+            raise DeadlineExceeded(
+                f"{self.label or 'request'} exceeded its deadline "
+                f"(cancelled at a block boundary; completed blocks are "
+                f"intact and the session remains usable)"
+            )
+
+
+_current: "contextvars.ContextVar[Optional[CancelScope]]" = (
+    contextvars.ContextVar("tfs_cancel_scope", default=None)
+)
+
+
+def current_scope() -> Optional[CancelScope]:
+    """The scope active on this thread's context, or None."""
+    return _current.get()
+
+
+@contextlib.contextmanager
+def activate(scope: CancelScope):
+    """Make ``scope`` the active scope for the duration of the block."""
+    token = _current.set(scope)
+    try:
+        yield scope
+    finally:
+        _current.reset(token)
+
+
+def checkpoint() -> None:
+    """The block-boundary hook: raises ``Cancelled``/``DeadlineExceeded``
+    when the active scope says stop; one contextvar read otherwise.
+
+    Called by the engine's block loops (the map verbs and the reduce
+    partials) and by ``FrameRetrySession.run`` before each attempt and
+    each backoff sleep.
+    """
+    scope = _current.get()
+    if scope is not None:
+        scope.check()

@@ -37,7 +37,13 @@ and the paged caches share, so the two agree bit for bit by construction.
 ``"ring"``/``"ring_flash"`` run ring attention over the ambient mesh's
 ``sp`` axis (``parallel.mesh.set_mesh``; the axis's ranks share one device,
 see ``parallel/mesh.py``), and ``"auto"`` resolves to them under an
-``sp > 1`` mesh as the JAX package does.  MoE blocks wait for a later slice.
+``sp > 1`` mesh as the JAX package does.
+
+``moe_experts > 0`` replaces each block's SwiGLU with the mixture of
+experts of ``models/moe.py`` (``router`` [D, E], ``we_gate``/``we_up``
+[E, D, F], ``we_down`` [E, F, D], stacked over layers); it composes with
+every ``attn_impl``, decode and the paged cache, and ``loss_fn`` adds
+``moe_aux_coef`` times the summed load-balance loss.
 
 The remat policies (``apply_blocks``) are ``torch.utils.checkpoint`` with
 selective-checkpoint policies in place of ``jax.checkpoint`` policies:
@@ -71,14 +77,9 @@ from ..device import DeviceLike, resolve_device
 from ..parallel.flash import chunk_supported, flash_attention
 from ..parallel.mesh import get_mesh
 from ..parallel.ring import full_attention, ring_attention
+from .moe import moe_mlp
 
 Params = Dict[str, Any]
-
-_DEFERRED = {
-    "moe": "ROADMAP.md Queue 1 item D, the MoE attention path (models/moe.py), "
-    "the item after decode",
-}
-
 
 class QTensor(NamedTuple):
     """An int8-quantized weight: ``q`` int8 values and a broadcastable f32
@@ -165,10 +166,6 @@ class TransformerConfig:
 def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.attn_impl not in ("auto", "full", "flash", "ring", "ring_flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            f"moe_experts > 0 is not ported yet: {_DEFERRED['moe']}"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -181,17 +178,25 @@ def block_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     d, h, kvh, dh, f = (
         cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
     )
-    return {
+    shapes = {
         "ln1": (d,),
         "wq": (d, h * dh),
         "wk": (d, kvh * dh),
         "wv": (d, kvh * dh),
         "wo": (h * dh, d),
         "ln2": (d,),
-        "w_gate": (d, f),
-        "w_up": (d, f),
-        "w_down": (f, d),
     }
+    if cfg.moe_experts:
+        E, fe = cfg.moe_experts, cfg.moe_d_ff or f
+        shapes.update({
+            "router": (d, E),
+            "we_gate": (E, d, fe),
+            "we_up": (E, d, fe),
+            "we_down": (E, fe, d),
+        })
+    else:
+        shapes.update({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
+    return shapes
 
 
 def param_shapes(cfg: TransformerConfig) -> Params:
@@ -229,7 +234,9 @@ def init(
     fan_in = {
         "wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
         "wo": cfg.n_heads * cfg.head_dim, "w_gate": cfg.d_model,
-        "w_up": cfg.d_model, "w_down": cfg.d_ff,
+        "w_up": cfg.d_model, "w_down": cfg.d_ff, "router": cfg.d_model,
+        "we_gate": cfg.d_model, "we_up": cfg.d_model,
+        "we_down": cfg.moe_d_ff or cfg.d_ff,
     }
     embed = dense(cfg.d_model, (cfg.vocab_size, cfg.d_model))
     per_layer = []
@@ -395,10 +402,16 @@ def _cache_attention(q, ck, cv, positions_q):
     return att.reshape(B, L, h, dh)
 
 
-def _mlp_residual(bp, x, cfg):
-    """x -> x + FF(rms_norm(x)), dense SwiGLU.  Returns ``(x', aux)``."""
+def _mlp_residual(bp, x, cfg, segments=None):
+    """x -> x + FF(rms_norm(x)): the dense SwiGLU, or the mixture of experts
+    (``models/moe.py``) when ``cfg.moe_experts`` > 0.  Returns ``(x',
+    aux)``; aux is the MoE load-balance loss (0 for dense).  ``segments``
+    [B, L] keep padding out of the experts' capacity."""
     dt = cfg.dtype
     y = _saved(_rms_norm(x, bp["ln2"]))
+    if cfg.moe_experts:
+        ff_out, aux = moe_mlp(bp, y, cfg, segments)
+        return x + ff_out, aux
     gate = F.silu(y @ weight(bp["w_gate"], dt))
     up = y @ weight(bp["w_up"], dt)
     x = x + _saved(gate * up) @ weight(bp["w_down"], dt)
@@ -411,7 +424,7 @@ def _block(bp, x, positions, cfg, custom_positions=False, segments=None, kv=None
     x, cache = _attn_residual(
         bp, x, positions, cfg, custom_positions, segments, kv
     )
-    x, aux = _mlp_residual(bp, x, cfg)
+    x, aux = _mlp_residual(bp, x, cfg, segments)
     if kv is not None:
         return x, cache, aux
     return x, aux
@@ -532,6 +545,19 @@ def resolve_attn_impl(
     return "full"
 
 
+def resolved_config(
+    cfg: TransformerConfig, L: int, custom_positions: bool = False,
+    segmented: bool = False,
+) -> TransformerConfig:
+    """``cfg`` with ``attn_impl="auto"`` resolved (:func:`resolve_attn_impl`)
+    for a sequence of length ``L``; any other ``cfg`` as it is."""
+    if cfg.attn_impl != "auto":
+        return cfg
+    return dataclasses.replace(
+        cfg, attn_impl=resolve_attn_impl(cfg, L, custom_positions, segmented)
+    )
+
+
 def apply(
     params: Params,
     tokens: torch.Tensor,
@@ -571,13 +597,7 @@ def apply(
             "positions from data.pack_examples/lm_split_packed"
         )
     _check_supported(cfg)
-    if cfg.attn_impl == "auto":
-        cfg = dataclasses.replace(
-            cfg,
-            attn_impl=resolve_attn_impl(
-                cfg, L, positions is not None, segment_ids is not None
-            ),
-        )
+    cfg = resolved_config(cfg, L, positions is not None, segment_ids is not None)
     if positions is not None and cfg.attn_impl in ("flash", "ring", "ring_flash"):
         raise ValueError(
             f"attn_impl={cfg.attn_impl!r} masks with row-major positions "
@@ -685,16 +705,22 @@ def loss_fn(
 
     With ``cfg.ce_chunk > 0`` the loss is computed chunk-wise from the
     final hidden states: the same numerics, O(L/chunk) less live memory.
-    (MoE configs, whose loss adds the aux term, are not ported yet.)"""
+    A sparse config adds ``moe_aux_coef`` times the summed load-balance
+    loss (JAX ``loss_fn``)."""
     if cfg.ce_chunk:
-        _, hidden = apply(
+        _, hidden, aux = apply(
             params, tokens, cfg, positions=positions, return_hidden=True,
-            segment_ids=segment_ids,
+            return_aux=True, segment_ids=segment_ids,
         )
-        return cross_entropy_chunked(
+        loss = cross_entropy_chunked(
             hidden, params["lm_head"], targets, cfg.ce_chunk, cfg.dtype
         )
-    logits = apply(
-        params, tokens, cfg, positions=positions, segment_ids=segment_ids
-    )
-    return cross_entropy(logits, targets)
+    else:
+        logits, aux = apply(
+            params, tokens, cfg, positions=positions, return_aux=True,
+            segment_ids=segment_ids,
+        )
+        loss = cross_entropy(logits, targets)
+    if cfg.moe_experts:
+        loss = loss + aux * float(np.float32(cfg.moe_aux_coef))
+    return loss

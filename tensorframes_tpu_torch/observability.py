@@ -6,12 +6,15 @@ dict of monotonic counts, bumped under a lock (``_bump``), snapshotted by
 counters its modules bump:
 
 * ``h2d_bytes_staged``: host bytes the engine's staging path
-  (``ops/engine.py::Executor._device_value``) and ``TensorFrame.cache``
+  (``ops/prefetch.py::stage_arrays``) and ``TensorFrame.cache``
   copy to the device; a verb over a cached frame leaves it at zero;
 * ``cache_shard_hits`` and ``cache_evictions``: the frame-cache budget's
   LRU (``ops/frame_cache.py``);
 * ``kv_pages_allocated`` and ``kv_pages_freed``: the KV page pool
-  (``models/kv_pager.py``).
+  (``models/kv_pager.py``);
+* ``faults_injected``, ``block_retries`` and ``block_oom_splits``: the
+  block dispatch stack (``faults.py``, ``ops/fault_tolerance.py``): how
+  much adversity a run met and how it recovered.
 
 ``current_request()`` is the active request's ledger, and stays None until
 the request ledger is ported (ROADMAP.md Queue 1 item 10), as do spans,
@@ -30,6 +33,9 @@ _COUNTERS = (
     "cache_evictions",
     "kv_pages_allocated",
     "kv_pages_freed",
+    "faults_injected",
+    "block_retries",
+    "block_oom_splits",
 )
 
 _counters: Dict[str, int] = {k: 0 for k in _COUNTERS}
@@ -84,6 +90,21 @@ def note_kv_pages_allocated(n: int) -> None:
 def note_kv_pages_freed(n: int) -> None:
     """``n`` KV pages returned to the pool when a sequence ends."""
     _bump("kv_pages_freed", n)
+
+
+def note_fault_injected() -> None:
+    """One ``TFS_FAULT_INJECT`` transient/oom spec fired."""
+    _bump("faults_injected")
+
+
+def note_block_retry() -> None:
+    """One block re-dispatched after a transient failure."""
+    _bump("block_retries")
+
+
+def note_oom_split() -> None:
+    """One binary split of a block (or sub-range) after a device OOM."""
+    _bump("block_oom_splits")
 
 
 def counters() -> Dict[str, int]:

@@ -19,35 +19,101 @@ PyTorch counterpart of ``tensorframes_tpu/ops/engine.py``:
   all groups of one size (at most 8 distinct sizes), or a pairwise combine
   tree over row partials (skewed sizes).
 
-Blocks run one after another on the program's device; PyTorch launches
-asynchronously, so block N+1's host->device copy is queued while block N
-computes.  Map outputs stay on the device as tensors until
-``collect``/``to_arrays``; the reduce verbs return host arrays.
+Blocks run one after another on the program's device, under the block
+dispatch stack of ROADMAP.md item 9, as the JAX package's are:
 
-Host arrays copied to the device bump ``observability.note_h2d_bytes``;
-columns of a ``TensorFrame.cache()``d frame are already there and copy
-nothing.  Not ported yet (ROADMAP.md, Queue 1): bucketing, prefetch, the
-device pool, the sharded frame cache, fault tolerance, streaming plans and spans; JAX's padded
+* a cancellation checkpoint at every block boundary
+  (``cancellation.py``: a ``CancelScope``'s deadline or cancel raises
+  there, never mid-block);
+* a ``prefetch.Prefetcher`` over host-fresh blocks: one staging thread
+  casts each block (and runs ``host_stage``) in block order and, on CUDA,
+  copies it from pinned buffers on a copy stream while earlier blocks
+  compute; a ``cache()``d frame's columns are read in place and stage 0
+  host bytes;
+* the retry session of ``ops/fault_tolerance.py`` when
+  ``TFS_BLOCK_RETRIES`` > 0 or ``TFS_FAULT_INJECT`` is set: transient
+  failures re-stage and retry, a device OOM splits a provably
+  row-independent block (``rowdep.py``), on the same device and kernels.
+
+Map outputs stay on the device as tensors until ``collect``/``to_arrays``;
+the reduce verbs return host arrays.  Every verb stages host arrays one
+way, through ``prefetch.stage_arrays`` (``aggregate``'s columns and the
+ragged ``map_rows`` buckets too), which bumps
+``observability.note_h2d_bytes`` (each staging once, a retry's included).
+``last_verb_stats`` gives the last loop's prefetch and retry record.  Not
+ported yet (ROADMAP.md, Queue 1 item 9): bucketing, the device pool, the
+sharded frame cache, chunk-level streaming plans and spans; JAX's padded
 ragged ``map_rows`` buckets (``_ragged_pad_ok``) and its device segment
-aggregate (``_aggregate_segment``), which need the program analysis of
-item 9 -- their absence changes speed, not results.
+aggregate (``_aggregate_segment``), which need the rest of the program
+analysis -- their absence changes speed, not results.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import dtypes, observability
+from .. import cancellation, dtypes, faults
 from ..device import DeviceLike, resolve_device
 from ..frame import Column, TensorFrame, _column_from_cells, to_host
 from ..program import Program
 from ..schema import ColumnInfo
 from ..shape import Shape, ShapeError, UNKNOWN
-from . import validation
+from . import fault_tolerance, prefetch, rowdep, validation
 from .validation import ValidationError
+
+# the last verb's block-loop record on this thread (``last_verb_stats``)
+_LAST = threading.local()
+
+
+def last_verb_stats() -> Optional[Dict[str, Any]]:
+    """The block-loop record of the last map verb or reduce this thread
+    ran (the JAX package annotates its verb span with the same fields):
+    ``verb``, ``blocks``, ``prefetch`` (``items``, ``depth``, ``stage_s``,
+    ``wait_s``, ``overlap_ratio``, ``donate``) and, when a retry session
+    ran, ``fault_tolerance`` (``retries``, ``oom_splits``,
+    ``retry_budget_per_block``)."""
+    return getattr(_LAST, "stats", None)
+
+
+def _attempt(staged, restage, run):
+    """One block's attempt fn for the retry session (and the single call
+    without one): attempt 0 takes the prefetched ``staged`` inputs, or
+    stages them, and every later attempt RE-STAGES from the host frame;
+    each runs ``run`` on the program's device."""
+    holder = {"staged": staged}
+
+    def attempt(a: int, dev_i) -> Dict[str, torch.Tensor]:
+        first = holder.pop("staged", None)  # at most once, ever
+        if a > 0 or first is None:
+            first = restage()
+        return run(first.ready())
+
+    return attempt
+
+
+def _record_stats(verb: str, n_blocks: int, pf, donate: bool, session) -> None:
+    stage_s = pf.stats["stage_s"] if pf is not None else 0.0
+    wait_s = pf.stats["wait_s"] if pf is not None else 0.0
+    rec: Dict[str, Any] = {
+        "verb": verb,
+        "blocks": n_blocks,
+        "prefetch": {
+            "items": pf.stats["items"] if pf is not None else 0,
+            "depth": pf.stats["depth"] if pf is not None else 0,
+            "stage_s": stage_s,
+            "wait_s": wait_s,
+            "overlap_ratio": prefetch.overlap_ratio(stage_s, wait_s),
+            "donate": donate,
+        },
+    }
+    if session is not None:
+        rec["fault_tolerance"] = session.record()
+    _LAST.stats = rec
 
 
 def _check_shape_hints(
@@ -125,16 +191,6 @@ class Executor:
 
     # ---------------------------------------------------------------- map --
 
-    def _device_value(self, value: Any, st, device: torch.device) -> torch.Tensor:
-        """One block/column of data -> device tensor in its compute dtype.
-        Tensors (chained verb outputs) are used in place — at most a cast;
-        host arrays are cast on the host, then copied."""
-        if isinstance(value, torch.Tensor):
-            return value.to(device=device, dtype=st.torch_dtype)
-        arr = np.ascontiguousarray(np.asarray(value), dtype=st.host_dtype())
-        observability.note_h2d_bytes(arr.nbytes)
-        return torch.from_numpy(arr).to(device, non_blocking=True)
-
     def _staged_value(self, stage_fn, value, input_name: str) -> np.ndarray:
         """Run one host_stage fn over a block's cells and shape-check the
         result — the host half of the reference's binary-feed contract
@@ -158,6 +214,46 @@ class Executor:
             )
         return out
 
+    def _stage_values(
+        self, values: Mapping[str, tuple], device: torch.device
+    ) -> prefetch.Staged:
+        """Stage ``values`` (name -> ``(value, scalar type)``) on
+        ``device``: host arrays through ``prefetch.stage_arrays`` (pinned
+        buffers and the copy stream on CUDA), tensors (cached columns,
+        chained verb outputs) in place -- at most a cast, 0 host bytes."""
+        host, resident = {}, {}
+        for n, (value, st) in values.items():
+            if isinstance(value, torch.Tensor):
+                resident[n] = value.to(device=device, dtype=st.torch_dtype)
+            else:
+                host[n] = (value, st.host_dtype())
+        staged = (
+            prefetch.stage_arrays(host, device) if host else prefetch.Staged({})
+        )
+        staged.tensors.update(resident)
+        return staged
+
+    def _stage_inputs(
+        self,
+        program: Program,
+        block: Mapping[str, Any],
+        infos: Mapping[str, ColumnInfo],
+        device: torch.device,
+        host_stage: Optional[Mapping[str, Any]] = None,
+    ) -> prefetch.Staged:
+        """One block's program inputs staged on ``device``; an input with a
+        ``host_stage`` fn takes that fn's output over the block's cells."""
+        values = {}
+        for n in program.input_names:
+            value = block[program.column_for_input(n)]
+            if host_stage and n in host_stage:
+                value = self._staged_value(host_stage[n], value, n)
+                st = dtypes.coerce(dtypes.from_numpy(value.dtype))
+            else:
+                st = dtypes.coerce(infos[n].scalar_type)
+            values[n] = (value, st)
+        return self._stage_values(values, device)
+
     def _device_inputs(
         self,
         program: Program,
@@ -166,18 +262,8 @@ class Executor:
         device: torch.device,
         host_stage: Optional[Mapping[str, Any]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """One block's program inputs on ``device``; an input with a
-        ``host_stage`` fn takes that fn's output over the block's cells."""
-        inputs = {}
-        for n in program.input_names:
-            value = block[program.column_for_input(n)]
-            if host_stage and n in host_stage:
-                value = self._staged_value(host_stage[n], value, n)
-                st = dtypes.coerce(dtypes.from_numpy(value.dtype))
-            else:
-                st = dtypes.coerce(infos[n].scalar_type)
-            inputs[n] = self._device_value(value, st, device)
-        return inputs
+        """One block's program inputs on ``device``, ready to read."""
+        return self._stage_inputs(program, block, infos, device, host_stage).ready()
 
     def map_blocks(
         self,
@@ -210,18 +296,137 @@ class Executor:
     def _map_dispatch(self, program, frame, infos, run, rows_level, trim,
                       host_stage=None):
         """Run ``run`` (the block call, or the vmapped row call) over every
-        block, checking each block's outputs."""
+        block, checking each block's outputs: the map verbs' block loop
+        (the JAX package's ``_map_dispatch``).
+
+        Each block boundary is a cancellation checkpoint.  When no program
+        input is device-resident, blocks are staged ahead by a
+        ``prefetch.Prefetcher`` (``TFS_PREFETCH_BLOCKS``; ``host_stage``
+        runs on its thread, in block order); a ``cache()``d frame's blocks
+        are read in place.  With ``TFS_BLOCK_RETRIES`` > 0 or a fault plan,
+        each block runs under the frame's retry session
+        (``ops/fault_tolerance.py``): transient failures re-stage and retry,
+        a device OOM splits the block when that is provably safe."""
+        verb = "map_rows" if rows_level else "map_blocks"
+        device = program.device
+        sizes = frame.block_sizes
+        fresh = not any(
+            frame.column(program.column_for_input(n)).is_device
+            for n in program.input_names
+        )
+        session = fault_tolerance.frame_session(frame.num_blocks, verb=verb)
+        donate = prefetch.donate_inputs()
+
+        def stage(bi):
+            return self._stage_inputs(program, frame.block(bi), infos, device, host_stage)
+
+        pf = prefetch.Prefetcher(stage, frame.num_blocks) if fresh else None
+        items = pf if pf is not None else (None for _ in sizes)
         out_blocks = []
         with torch.no_grad():
-            for bi, n_rows in enumerate(frame.block_sizes):
-                inputs = self._device_inputs(
-                    program, frame.block(bi), infos, program.device, host_stage
-                )
-                outs = run(inputs)
-                del inputs
-                self._check_block_outputs(program, outs, n_rows, rows_level, trim)
+            for bi, staged in enumerate(items):
+                cancellation.checkpoint()  # block boundary
+                attempt = _attempt(staged, functools.partial(stage, bi), run)
+                if donate:
+                    staged = None  # the block's inputs go back to the allocator
+                if session is None:
+                    outs = attempt(0, 0)
+                else:
+                    split = self._oom_split_closure(
+                        session, program, frame, bi, infos, host_stage, run,
+                        rows_level, trim,
+                    )
+                    outs = session.run(bi, sizes[bi], attempt, device=0, oom_split=split)
+                del attempt
+                self._check_block_outputs(program, outs, sizes[bi], rows_level, trim)
                 out_blocks.append(outs)
+                del staged
+        _record_stats(verb, frame.num_blocks, pf, donate, session)
         return out_blocks
+
+    def _oom_split_closure(
+        self, session, program, frame, bi, infos, host_stage, run, rows_level, trim
+    ):
+        """The OOM-degradation policy for one map-verb block: split the
+        block in half and re-dispatch (recursively, floor
+        ``TFS_MIN_SPLIT_ROWS``) when that is provably safe -- ``map_rows``
+        is row-independent by construction, ``map_blocks`` must pass
+        ``rowdep.rows_independent`` at every size the split can reach.
+        Trimmed maps, host-staged blocks and cross-row programs surface a
+        ``BlockExecutionError`` naming the block and row range instead."""
+        n_rows = frame.block_sizes[bi]
+        verb = "map_rows" if rows_level else "map_blocks"
+
+        def refuse(exc: BaseException, why: str):
+            raise fault_tolerance.BlockExecutionError(
+                f"{verb}: block {bi} rows [0, {n_rows}) exhausted device "
+                f"memory and cannot degrade by splitting: {why}"
+            ) from exc
+
+        def split(exc: BaseException) -> Dict[str, torch.Tensor]:
+            floor = fault_tolerance.min_split_rows()
+            if trim:
+                refuse(exc, "trimmed maps define their own output row count, "
+                            "so half-block outputs cannot be reassembled")
+            if host_stage:
+                refuse(exc, "host-staged blocks stage as one unit")
+            if n_rows < 2 * floor:
+                refuse(exc, f"the block is already at the split floor "
+                            f"(TFS_MIN_SPLIT_ROWS={floor})")
+            if not rows_level:
+                sizes, stack = set(), [(0, n_rows)]
+                while stack:
+                    lo, hi = stack.pop()
+                    sizes.add(hi - lo)
+                    if hi - lo >= 2 * floor:
+                        mid = (lo + hi) // 2
+                        stack += [(lo, mid), (mid, hi)]
+                block = frame.block(bi)
+                specs = {
+                    n: (
+                        dtypes.coerce(infos[n].scalar_type).torch_dtype,
+                        tuple(np.shape(block[program.column_for_input(n)])[1:]),
+                    )
+                    for n in program.input_names
+                }
+                if not rowdep.rows_independent(program, specs, sorted(sizes)):
+                    refuse(exc, "the program is not provably row-independent "
+                                "(cross-row outputs cannot be recomputed from "
+                                "half blocks)")
+            mid = n_rows // 2
+            left = self._split_range(session, program, frame, bi, infos, run, 0, mid)
+            right = self._split_range(session, program, frame, bi, infos, run, mid, n_rows)
+            session.note_split(bi)
+            return {k: torch.cat([left[k], right[k]]) for k in left}
+
+        return split
+
+    def _split_range(
+        self, session, program, frame, bi, infos, run, lo: int, hi: int
+    ) -> Dict[str, torch.Tensor]:
+        """Dispatch rows ``[lo, hi)`` of block ``bi`` on the program's
+        device, splitting again on a further OOM down to
+        ``TFS_MIN_SPLIT_ROWS``.  The injected-fault site is ``"split"``, so
+        attempt-selected specs never re-fire on recovery work."""
+        floor = fault_tolerance.min_split_rows()
+        try:
+            faults.maybe_inject(bi, 0, 0, hi - lo, site="split")
+            sub = {k: v[lo:hi] for k, v in frame.block(bi).items()}
+            return run(self._device_inputs(program, sub, infos, program.device))
+        except BaseException as exc:  # noqa: BLE001 - OOM-only recovery
+            if not faults.is_oom(exc):
+                raise
+            if hi - lo < 2 * floor:
+                raise fault_tolerance.BlockExecutionError(
+                    f"block {bi} rows [{lo}, {hi}) exhausted device memory at "
+                    f"the split floor (TFS_MIN_SPLIT_ROWS={floor}); this row "
+                    f"range does not fit on the device"
+                ) from exc
+            mid = (lo + hi) // 2
+            left = self._split_range(session, program, frame, bi, infos, run, lo, mid)
+            right = self._split_range(session, program, frame, bi, infos, run, mid, hi)
+            session.note_split(bi)
+            return {k: torch.cat([left[k], right[k]]) for k in left}
 
     def _check_block_outputs(
         self, program: Program, outs, n_rows: int, rows_level: bool, trim: bool
@@ -376,16 +581,16 @@ class Executor:
         with torch.no_grad():
             for key in sorted(buckets):
                 idxs = np.asarray(buckets[key])
-                arrays = {}
-                for r in ragged_names:
-                    stacked = np.stack([cells[r][i] for i in idxs])
-                    observability.note_h2d_bytes(stacked.nbytes)
-                    arrays[r] = torch.from_numpy(stacked).to(device)
+                values = {
+                    r: (np.stack([cells[r][i] for i in idxs]),
+                        dtypes.coerce(infos[r].scalar_type))
+                    for r in ragged_names
+                }
                 for u, (data, st) in uniform.items():
                     rows = (data[torch.as_tensor(idxs, device=data.device)]
                             if isinstance(data, torch.Tensor) else data[idxs])
-                    arrays[u] = self._device_value(rows, st, device)
-                outs = run(arrays)
+                    values[u] = (rows, st)
+                outs = run(self._stage_values(values, device).ready())
                 _check_shape_hints(program, outs, "map_rows", cell_level=True)
                 for name, v in outs.items():
                     host = to_host(v, name)
@@ -509,19 +714,40 @@ class Executor:
         self, program, run, bases, reduced, frame: TensorFrame
     ) -> List[Dict[str, torch.Tensor]]:
         """Per-block partials for the reduce verbs, in block order; empty
-        blocks are skipped (``DebugRowOps.scala:489-499``)."""
+        blocks are skipped (``DebugRowOps.scala:489-499``).  The block loop
+        of the map verbs without the split: host blocks are prefetched,
+        each boundary is a cancellation checkpoint, and a retry session
+        re-stages and retries transient failures (a partial is cross-row
+        by definition, so an OOM surfaces with the block's row range)."""
         sts = {b: dtypes.coerce(reduced[b].scalar_type) for b in bases}
         # base -> the RESOLVED source column (a feed-dict rename)
         cols = {b: reduced[b].name for b in bases}
+        sizes = frame.block_sizes
+        nonempty = [bi for bi in range(frame.num_blocks) if sizes[bi]]
+        device = program.device
+        session = fault_tolerance.frame_session(frame.num_blocks, verb="reduce")
+        donate = prefetch.donate_inputs()
+
+        def stage(j):
+            block = frame.block(nonempty[j])
+            return self._stage_values(
+                {b: (block[cols[b]], sts[b]) for b in bases}, device
+            )
+
+        fresh = not any(frame.column(cols[b]).is_device for b in bases)
+        pf = prefetch.Prefetcher(stage, len(nonempty)) if fresh else None
+        items = pf if pf is not None else (None for _ in nonempty)
         partials = []
-        for bi, size in enumerate(frame.block_sizes):
-            if size == 0:
-                continue
-            block = frame.block(bi)
-            partials.append(run({
-                b: self._device_value(block[cols[b]], sts[b], program.device)
-                for b in bases
-            }))
+        for j, staged in enumerate(items):
+            cancellation.checkpoint()  # block boundary (partials)
+            attempt = _attempt(staged, functools.partial(stage, j), run)
+            del staged
+            if session is None:
+                partials.append(attempt(0, 0))
+            else:
+                bi = nonempty[j]
+                partials.append(session.run(bi, sizes[bi], attempt, device=0))
+        _record_stats("reduce", frame.num_blocks, pf, donate, session)
         return partials
 
     def _reduce_blocks_setup(
@@ -624,13 +850,16 @@ class Executor:
 
         # --- data columns on the device, reordered so groups are contiguous
         device = program.device
-        data = {}
-        for b in bases:
-            ci = reduced[b]
-            st = dtypes.coerce(ci.scalar_type)
-            data[b] = self._device_value(frame.column(ci.name).data, st, device)[
-                torch.as_tensor(order, device=device)
-            ]
+        staged = self._stage_values(
+            {
+                b: (frame.column(reduced[b].name).data,
+                    dtypes.coerce(reduced[b].scalar_type))
+                for b in bases
+            },
+            device,
+        ).ready()
+        order_t = torch.as_tensor(order, device=device)
+        data = {b: staged[b][order_t] for b in bases}
 
         def vrun(arrs):
             return torch.func.vmap(

@@ -94,6 +94,29 @@ def test_importing_the_serving_slice_loads_no_jax_pyarrow_or_pandas():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_moe_and_dispatch_slice_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch, tensorframes_tpu_torch.text, "
+        "tensorframes_tpu_torch.models.moe, tensorframes_tpu_torch.cancellation, "
+        "tensorframes_tpu_torch.faults, tensorframes_tpu_torch.resilience, "
+        "tensorframes_tpu_torch.ops.prefetch, tensorframes_tpu_torch.ops.fault_tolerance, "
+        "tensorframes_tpu_torch.ops.rowdep\n"
+        "from tensorframes_tpu_torch.text import BPETokenizer\n"
+        "from tensorframes_tpu_torch.models.moe import (gate, moe_mlp, routing_stats, "
+        "layer_routing_stats)\n"
+        "from tensorframes_tpu_torch.ops.engine import last_verb_stats\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pat = re.compile(
         r"^\s*(import|from)\s+"
@@ -107,7 +130,9 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     assert {"train.py", "data.py", "checkpoint.py", "mesh.py", "ring.py", "flash.py",
             "importer.py", "ops.py", "inception.py", "vgg.py", "dsl.py", "builder.py",
             "envutil.py", "observability.py", "io.py", "frame_cache.py", "quant.py",
-            "decode.py", "kv_pager.py"} <= {
+            "decode.py", "kv_pager.py", "moe.py", "text.py", "cancellation.py",
+            "faults.py", "resilience.py", "prefetch.py", "fault_tolerance.py",
+            "rowdep.py"} <= {
         p.name for p in files
     }
     for path in files:

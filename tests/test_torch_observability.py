@@ -62,10 +62,15 @@ def test_counters_snapshot_and_delta():
     obs.note_cache_eviction()
     obs.note_kv_pages_allocated(3)
     obs.note_kv_pages_freed(2)
+    obs.note_fault_injected()
+    obs.note_block_retry()
+    obs.note_block_retry()
+    obs.note_oom_split()
     d = obs.counters_delta(before)
     assert d == {
         "h2d_bytes_staged": 128, "cache_shard_hits": 1, "cache_evictions": 1,
-        "kv_pages_allocated": 3, "kv_pages_freed": 2,
+        "kv_pages_allocated": 3, "kv_pages_freed": 2, "faults_injected": 1,
+        "block_retries": 2, "block_oom_splits": 1,
     }
     after = obs.counters()
     assert obs.counters_delta(before, after) == d

@@ -1,5 +1,6 @@
 """The port's weight-only int8 quantization (``models/quant.py``) against the
-JAX package's, mirroring ``tests/test_quant.py`` without MoE (item D), the
+JAX package's, mirroring ``tests/test_quant.py`` (its MoE cases on the
+port's MoE, ``models/moe.py``) without the
 jit case (the port has no jit) and the orbax checkpoint (the port's
 checkpoint stores float trees).
 
@@ -143,3 +144,42 @@ def test_quantized_scoring_through_verbs():
     jq = jquant.quantize_params(jp)
     j = tfs.map_blocks(jscoring.scoring_program(jq, jcfg), jframe)
     np.testing.assert_allclose(b, np.asarray(j.to_arrays()["nll"]), rtol=2e-5, atol=2e-5)
+
+
+def _moe_pair():
+    jcfg = jtfm.TransformerConfig(**{**FIELDS, "moe_experts": 4, "dtype": jnp.float32})
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    jq = jquant.quantize_params(jtfm.init(jax.random.PRNGKey(0), jcfg))
+    tq = convert.params_from_numpy(jax.tree.map(np.asarray, jq), tcfg, **CPU)
+    return jcfg, tcfg, jq, tq
+
+
+def test_quantized_moe_params_match_jax():
+    """The experts quantised per output channel, the router kept f32; the
+    int8 MoE model's logits against JAX's."""
+    jcfg, tcfg, jq, tq = _moe_pair()
+    tp = convert.params_from_numpy(
+        jax.tree.map(np.asarray, jtfm.init(jax.random.PRNGKey(0), jcfg)), tcfg, **CPU)
+    ours = quant.quantize_params(tp)
+    for k in ("we_gate", "we_up", "we_down"):
+        assert isinstance(ours["blocks"][k], QTensor)
+        _assert_q_equal(ours["blocks"][k], jq["blocks"][k])
+    assert not isinstance(ours["blocks"]["router"], QTensor)  # stays f32
+    toks = np.random.RandomState(1).randint(0, FIELDS["vocab_size"], (2, 16)).astype(np.int32)
+    got = tfm.apply(ours, torch.from_numpy(toks), tcfg).numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, np.asarray(jtfm.apply(jq, jnp.asarray(toks), jcfg)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_layer_routing_stats_on_quantized_params_match_jax():
+    from tensorframes_tpu.models import moe as jmoe
+    from tensorframes_tpu_torch.models import moe
+
+    jcfg, tcfg, jq, tq = _moe_pair()
+    toks = np.random.RandomState(1).randint(0, FIELDS["vocab_size"], (2, 16)).astype(np.int32)
+    t = moe.layer_routing_stats(tq, torch.from_numpy(toks), tcfg, layer=0)
+    j = jmoe.layer_routing_stats(jq, jnp.asarray(toks), jcfg, layer=0)
+    np.testing.assert_allclose(t["load"].sum(), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(t["load"], j["load"], rtol=1e-5, atol=1e-6)
+    assert t["capacity"] == j["capacity"]

@@ -173,16 +173,32 @@ def test_config_validation_matches_jax(over, exc):
     assert str(je.value) == str(te.value)
 
 
-# the ring attention paths are ported; MoE blocks are not, under any path
+# MoE blocks run under every attention path: ring and ring_flash under an
+# sp = 2 mesh in both packages (each sequence chunk one routing group), and
+# the full path, at the default capacity factor
 @pytest.mark.parametrize("over", [{"attn_impl": "ring", "moe_experts": 2},
                                   {"attn_impl": "ring_flash", "moe_experts": 2},
                                   {"moe_experts": 2}])
-def test_unported_paths_raise_naming_the_roadmap(over):
-    _, tcfg = _pair(BASE, **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.apply({}, torch.zeros(1, 4, dtype=torch.int32), tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.init(torch.Generator(), tcfg, device="cpu")
+def test_moe_paths_match_jax(devices, over):
+    from jax.sharding import Mesh
+
+    from tensorframes_tpu_torch.parallel import mesh as tmesh
+
+    jcfg, tcfg = _pair(BASE, **over)
+    jp, tp = _params(jcfg, tcfg)
+    toks = _tokens(B=2, L=8)
+    sp = 2 if over.get("attn_impl", "full") != "full" else 1
+    with jax.set_mesh(Mesh(np.array(devices[:sp]), ("sp",))):
+        j_logits, j_aux = jax.jit(
+            lambda p, t: jtfm.apply(p, t, jcfg, return_aux=True)
+        )(jp, jnp.asarray(toks))
+    with tmesh.set_mesh(tmesh.training_mesh(sp=sp, device="cpu")):
+        t_logits, t_aux = ttfm.apply(
+            tp, torch.from_numpy(toks), tcfg, return_aux=True
+        )
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(t_aux), float(j_aux), rtol=1e-5)
+    assert float(t_aux) > 0
 
 
 # -- parameter conversion edge cases ----------------------------------------
