@@ -175,7 +175,27 @@ Phases, each printing its own lines and then its command time (``phase:``):
    and paged, equal bit for bit, no flash launch; (d) a small f32 MoE model
    card vs CPU at 1e-4 with drops present (and the dispatch decisions that
    differ), cached decode vs the full forward at ample capacity at 1e-4;
-10. the card's line again, the kernels' JSON record (each kernel at the
+10. pipeline (after the cached verbs): the program analysis and the fast
+   paths it gates, the device pool and verb chains: (a) the flagship
+   scores 64 rows of 2048 tokens in 8 blocks as one chain,
+   ``tft.pipeline(frame).map_blocks(score).reduce_blocks(mean_nll)``,
+   bit-identical to the eager ``map_blocks`` then ``reduce_blocks``, with
+   exactly 64 ``flash_fwd_tma<bf16,64>`` launches and the tokens' bytes
+   staged once; (b) ``logistic_regression.fit_fused`` (500,000 x 64, 20
+   steps) and ``kmeans.fit_fused`` (100,000 x 100, k = 10, 10 steps)
+   against their eager ``fit`` (1e-4; ``KMEANS_TOL`` and equal
+   assignments), one readback each; (c) the device segment aggregate over
+   2,000,000 rows, 1,000 int keys and a 16-wide f32 value (sum, min, max,
+   mean, sum of squares) and a two-key case with float keys holding -0.0
+   and NaN, against the general path and numpy (keys, min and max
+   exactly, the rest at ``SUM_RTOL``), bit-identical from run to run;
+   (d) bucket padding: a ragged ``map_rows`` over 200,000 rows of lengths
+   1..1024 and an uneven-block ``map_blocks``, padded against
+   ``TFS_BLOCK_BUCKETS=off``, outputs identical, vmapped calls and
+   Mrows/s; (e) the classification of every program the phase and the
+   scoring slice run, the pool resolving no pool on one card, and
+   ``cache(sharded=True)`` staging 0 host bytes under ``reduce_blocks``;
+11. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -1515,6 +1535,9 @@ def phase_small_head_slice():
     for dtype, tol in ((torch.float32, SMALL_HEAD_TOL), (torch.bfloat16, NLL_TOL)):
         cfg = dataclasses.replace(f32, dtype=dtype)
         prog = scoring.scoring_program(cpu_params, cfg, fetches=("nll",), device="cuda")
+        # warm-up: the bucket plan classifies the program on its first call
+        map_blocks(prog, frame).to_arrays()
+        torch.cuda.synchronize()
         flash.reset_launches()
         t0 = time.perf_counter()
         nll = map_blocks(prog, frame).to_arrays()["nll"]
@@ -1541,6 +1564,10 @@ MLP_ROWS, MLP_SIZES = 65_536, [784, 256, 128, 10]
 LOGREG_STEPS = 20
 KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_STEPS = 100_000, 100, 10, 10
 AGG_ROWS, AGG_KEYS = 200_000, 1_000
+# the pipeline phase (phase_pipeline)
+SEG_ROWS, SEG_KEYS, SEG_D = 2_000_000, 1_000, 16
+RAGGED_ROWS, RAGGED_MAX = 200_000, 1024
+UNEVEN_ROWS, UNEVEN_BLOCKS = 1_000_003, 7
 # f32 sums over 125k rows a block in another order than the CPU's (and
 # than numpy's f64): relative 1e-4; min, max and integer results exactly
 SUM_RTOL = 1e-4
@@ -1731,9 +1758,10 @@ def phase_verbs():
     present = keys[order][starts]
     ref = np.add.reduceat(avals[order].astype(np.float64), starts)
     agg = lambda v_input: {"v": v_input.sum(0)}  # noqa: E731
+    # the general path (a sum is a segment plan, which would run instead)
     leg("aggregate_tree", len(keys),
-        lambda: tft.aggregate(agg, aframe.group_by("k")).to_arrays(),
-        lambda: tft.aggregate(agg, aframe.group_by("k"), **cpu).to_arrays(),
+        lambda: general_aggregate(agg, aframe.group_by("k")).to_arrays(),
+        lambda: general_aggregate(agg, aframe.group_by("k"), "cpu").to_arrays(),
         {"k": present, "v": ref}, SUM_RTOL, SUM_RTOL,
         groups=len(present), distinct_sizes=distinct_sizes)
     verbs_dispatch_stack(frame, pix, row_prog, fit)
@@ -3369,6 +3397,7 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     with its launches over the main paths' runs (``main_runs``: launches by
     instantiation of the flagship scoring, the wide-head scoring and train,
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
+    pipeline phase's scoring chain, the
     flagship train epoch, the ring scoring runs and the MoE legs' scoring,
     train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
@@ -3401,6 +3430,305 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
             entries.append(dict(name=f"{inst} ({variant})", **common,
                                 launches=by_inst.get(inst, 0), **row))
     return {"kernels": entries}
+
+
+def general_aggregate(fn, grouped, device="cuda"):
+    """``aggregate`` on the general paths (bucketed or the combine tree),
+    as an executor without the device segment path runs it."""
+    import tensorframes_tpu_torch as tft
+
+    ex = tft.Executor()
+    ex.supports_segment_aggregate = False
+    return ex.aggregate(tft.Program.wrap(fn, device=device), grouped)
+
+
+def no_host_sync(fn):
+    """``fn()`` with every host sync on the card an error
+    (``torch.cuda.set_sync_debug_mode``): a ``.item()``, a blocking copy
+    or a branch on a device value inside ``fn`` fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_pipeline(slice_prog):
+    """Legs (a)-(e) of the program analysis, its fast paths, the pool and
+    verb chains (the module docstring's phase 10).  Returns the flash
+    launches of leg (a) by instantiation."""
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import analysis, observability as obs
+    from tensorframes_tpu_torch.models import kmeans, logistic_regression as lr
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+    from tensorframes_tpu_torch.ops import bucketing, device_pool, engine
+    from tensorframes_tpu_torch.parallel import flash
+
+    classified = {}
+
+    def classify(name, program, specs):
+        c = analysis.classify(program, specs)
+        classified[name] = dict(verdict=c.verdict, outputs=c.outputs, reason=c.reason)
+
+    c_pool = obs.counters()
+
+    # (a) the flagship's scoring as one chain, against the eager verbs
+    cfg = tfm.TransformerConfig(
+        vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
+        d_ff=4096, max_seq=2048, dtype=torch.bfloat16, attn_impl="flash",
+    )
+    rows, L, blocks = 64, 2048, 8
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = np.random.RandomState(5).randint(0, cfg.vocab_size, (rows, L)).astype(np.int32)
+    frame = tft.TensorFrame.from_arrays({"tokens": tokens}, num_blocks=blocks)
+    score = scoring.scoring_program(params, cfg, fetches=("nll",))
+    mean_nll = tft.Program.wrap(lambda nll_input: {"nll": nll_input.mean(0)}, device="cuda")
+
+    def eager():
+        return tft.reduce_blocks(mean_nll, tft.map_blocks(score, frame))
+
+    # built once (the stages' shape inference runs here, on meta tensors)
+    t0 = time.perf_counter()
+    pipe = tft.pipeline(frame).map_blocks(score).reduce_blocks(mean_nll)
+    build_s = time.perf_counter() - t0
+    pipe.collect()  # warm-up
+    torch.cuda.synchronize()
+    flash.reset_launches()  # count the chain's run alone
+    c0 = obs.counters()
+    t0 = time.perf_counter()
+    got = pipe.collect()
+    chain_s = time.perf_counter() - t0
+    staged = obs.counters_delta(c0)["h2d_bytes_staged"]
+    launches = dict(flash.kernel_launches)
+    want, eager_s = timed(eager)
+    inst = route_of("flash_fwd", torch.bfloat16, 64)
+    if launches != {inst: cfg.n_layers * blocks}:
+        raise AssertionError(f"pipeline scoring launched {launches}, expected "
+                             f"{{{inst!r}: {cfg.n_layers * blocks}}}")
+    if not same_arrays(got, want):
+        raise AssertionError(f"pipeline scoring {got} differs from the eager verbs {want}")
+    if staged != tokens.nbytes:
+        raise AssertionError(f"pipeline scoring staged {staged} host bytes, expected "
+                             f"the tokens' {tokens.nbytes} once")
+    if not np.isfinite(got["nll"]).all():
+        raise AssertionError(f"pipeline scoring nll not finite: {got}")
+    say("pipeline", leg="a_scoring_chain", rows=rows, tokens_per_row=L, blocks=blocks,
+        bit_identical=True, flash_launches=launches, h2d_bytes_staged=staged,
+        nll=float(got["nll"]), build_seconds=build_s, chain_ms_per_block=chain_s / blocks * 1e3,
+        eager_ms_per_block=eager_s / blocks * 1e3, chain_tokens_per_s=rows * L / chain_s,
+        eager_tokens_per_s=rows * L / eager_s)
+    # the gate a verb asks (one run on meta tensors, stopped at the
+    # embedding gather), then the full classification (every probe)
+    specs = {"tokens": (torch.int32, (L,))}
+    t0 = time.perf_counter()
+    if analysis.rows_independent(slice_prog, specs, (4, 8)):
+        raise AssertionError("the scoring program passed the row-independence gate")
+    gate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    classify("scoring_program", slice_prog, specs)
+    classified["scoring_program"].update(seconds=time.perf_counter() - t0, gate_seconds=gate_s)
+    classify("mean_nll", mean_nll, {"nll_input": (torch.float32, ())})
+    del params, score
+
+    # (b) the fused drivers against their eager fits
+    rng = np.random.RandomState(0)
+    vals = rng.rand(VERB_ROWS, VERB_D).astype(np.float32)
+    labels = (vals @ rng.randn(VERB_D).astype(np.float32) > 0).astype(np.float32)
+    lframe = tft.TensorFrame.from_arrays({"features": vals, "label": labels},
+                                         num_blocks=VERB_BLOCKS)
+    (pe, le), eager_s = timed(lambda: lr.fit(lframe, num_iters=LOGREG_STEPS, lr=0.5))
+    (pf, lf), fused_s = timed(lambda: lr.fit_fused(lframe, num_iters=LOGREG_STEPS, lr=0.5))
+    e_w = check_results("logreg fit_fused vs fit", {"w": pf["w"].numpy()},
+                        {"w": pe["w"].cpu().numpy()}, 1e-4, 1e-4)
+    e_l = check_results("logreg fit_fused losses", {"l": np.array(lf)}, {"l": np.array(le)},
+                        1e-4, 1e-4)
+    # fit_fused's loop driven directly: iterate with host syncs as errors,
+    # then the one readback (the mode is live: a .item() under it raises)
+    try:
+        no_host_sync(lambda: torch.ones((), device="cuda").item())
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("set_sync_debug_mode('error') let a .item() through")
+    pipe, _ = lr.make_pipeline(lframe, 0.5)
+    finals, hist = no_host_sync(lambda: pipe.iterate(
+        LOGREG_STEPS, carry={"w": "w", "b": "b"}, collect=("loss",)))
+    w, losses = pipe.readback((finals["w"], hist["loss"]))
+    if pipe.readbacks != 1 or not (np.array_equal(w, pf["w"].numpy())
+                                   and np.array_equal(losses, np.float32(lf))):
+        raise AssertionError(f"logreg iterate: {pipe.readbacks} readbacks, or results "
+                             f"unlike fit_fused's")
+    say("pipeline", leg="b_logreg_fit_fused", rows=VERB_ROWS, steps=LOGREG_STEPS,
+        readbacks=pipe.readbacks, host_syncs_in_iterate=0,
+        max_abs_err_w=e_w, max_abs_err_loss=e_l, tol=1e-4,
+        fused_ms_per_step=fused_s / LOGREG_STEPS * 1e3,
+        eager_ms_per_step=eager_s / LOGREG_STEPS * 1e3)
+    gprog = lr.grad_program(lr.init(VERB_D))
+    classify("logreg_grad", gprog, {"features": (torch.float32, (VERB_D,)),
+                                    "label": (torch.float32, ())})
+    kr = np.random.RandomState(1)
+    true = kr.randn(KMEANS_K, KMEANS_D) * 10
+    pts = (true[kr.randint(0, KMEANS_K, KMEANS_N)]
+           + kr.randn(KMEANS_N, KMEANS_D)).astype(np.float32)
+    kframe = tft.TensorFrame.from_arrays({"points": pts}, num_blocks=VERB_BLOCKS)
+    init = pts[:KMEANS_K].astype(np.float64)
+    (ce, ae), eager_s = timed(lambda: kmeans.fit(kframe, KMEANS_K, KMEANS_STEPS, "preagg",
+                                                  init_centers=init))
+    (cf, af), fused_s = timed(lambda: kmeans.fit_fused(kframe, KMEANS_K, KMEANS_STEPS,
+                                                        init_centers=init))
+    e_c = check_results("kmeans fit_fused vs fit", {"c": cf}, {"c": ce}, 0.0, KMEANS_TOL)
+    if not np.array_equal(af, ae):
+        raise AssertionError("kmeans fit_fused assigns points unlike fit")
+    pipe, _ = kmeans.make_pipeline(kframe, kmeans._init_centers(kframe, KMEANS_K, 0, init))
+    finals, _ = no_host_sync(lambda: pipe.iterate(KMEANS_STEPS, carry={"centers": "centers"}))
+    centers = np.asarray(pipe.readback(finals)["centers"], np.float64)
+    if pipe.readbacks != 1 or not np.array_equal(centers, cf):
+        raise AssertionError(f"kmeans iterate: {pipe.readbacks} readbacks, or centers "
+                             f"unlike fit_fused's")
+    say("pipeline", leg="b_kmeans_fit_fused", rows=KMEANS_N, k=KMEANS_K, steps=KMEANS_STEPS,
+        readbacks=pipe.readbacks, host_syncs_in_iterate=0,
+        max_abs_err_centers=e_c, tol=KMEANS_TOL,
+        assignments_equal=True, fused_ms_per_step=fused_s / KMEANS_STEPS * 1e3,
+        eager_ms_per_step=eager_s / KMEANS_STEPS * 1e3)
+    classify("kmeans_preagg", kmeans.preagg_program(init),
+             {"points": (torch.float32, (KMEANS_D,))})
+    del vals, labels, lframe, pts, kframe
+
+    # (c) the device segment aggregate against the general path and numpy
+    sr = np.random.RandomState(3)
+    keys = np.repeat(np.arange(SEG_KEYS), SEG_ROWS // SEG_KEYS)
+    sr.shuffle(keys)
+    svals = sr.rand(SEG_ROWS, SEG_D).astype(np.float32)
+    sframe = tft.TensorFrame.from_arrays({"k": keys, "v": svals}, num_blocks=VERB_BLOCKS)
+    order = np.argsort(keys, kind="stable")
+    starts = np.r_[0, np.nonzero(np.diff(keys[order]))[0] + 1]
+    x64 = svals[order].astype(np.float64)
+    refs = {
+        "sum": (lambda v_input: {"v": v_input.sum(0)}, np.add.reduceat(x64, starts), SUM_RTOL),
+        "min": (lambda v_input: {"v": v_input.amin(0)},
+                np.minimum.reduceat(svals[order], starts), 0.0),
+        "max": (lambda v_input: {"v": v_input.amax(0)},
+                np.maximum.reduceat(svals[order], starts), 0.0),
+        "mean": (lambda v_input: {"v": v_input.mean(0)},
+                 np.add.reduceat(x64, starts) / (SEG_ROWS // SEG_KEYS), SUM_RTOL),
+        "sum_sq": (lambda v_input: {"v": (v_input * v_input).sum(0)},
+                   np.add.reduceat(x64 * x64, starts), SUM_RTOL),
+    }
+    uniq = np.unique(keys)
+    for name, (fn, ref, rtol) in refs.items():
+        prog = tft.Program.wrap(fn, device="cuda")
+        got, seg_s = timed(lambda: tft.aggregate(prog, sframe.group_by("k")).to_arrays())
+        again = tft.aggregate(prog, sframe.group_by("k")).to_arrays()
+        gen, gen_s = timed(lambda: general_aggregate(fn, sframe.group_by("k")).to_arrays())
+        if not same_arrays(got, again):
+            raise AssertionError(f"segment {name}: two runs differ")
+        if not np.array_equal(np.asarray(got["k"]), uniq):
+            raise AssertionError(f"segment {name}: keys differ from np.unique")
+        e_gen = check_results(f"segment {name} vs general", got, gen, rtol, 0.0, ("v",))
+        e_np = check_results(f"segment {name} vs numpy", {"v": got["v"]}, {"v": ref}, rtol)
+        say("pipeline", leg=f"c_segment_{name}", rows=SEG_ROWS, keys=SEG_KEYS, width=SEG_D,
+            bit_identical_runs=True, max_abs_err_vs_general=e_gen, max_abs_err_vs_numpy=e_np,
+            rtol=rtol, segment_mrows_per_s=SEG_ROWS / seg_s / 1e6,
+            general_mrows_per_s=SEG_ROWS / gen_s / 1e6, general_over_segment=gen_s / seg_s)
+        classify(f"aggregate_{name}", prog, {"v_input": (torch.float32, (SEG_D,))})
+    # two keys, the float one holding -0.0 and NaN
+    k1 = sr.randint(0, 10, SEG_ROWS)
+    k2 = np.array([-0.0, 0.0, 1.5, np.nan], np.float32)[sr.randint(0, 4, SEG_ROWS)]
+    fk = tft.TensorFrame.from_arrays({"a": k1, "b": k2, "v": svals}, num_blocks=VERB_BLOCKS)
+    prog = tft.Program.wrap(lambda v_input: {"v": v_input.sum(0)}, device="cuda")
+    got = tft.aggregate(prog, fk.group_by("a", "b")).to_arrays()
+    again = tft.aggregate(prog, fk.group_by("a", "b")).to_arrays()
+    if not all(np.array_equal(np.asarray(got[c]), np.asarray(again[c]), equal_nan=True)
+               for c in ("a", "b", "v")):
+        raise AssertionError("segment two-key float: two runs differ")
+    canon = np.where(np.isnan(k2), np.inf, k2 + np.float32(0.0))  # NaN last, -0.0 -> 0.0
+    rec = np.rec.fromarrays([k1, canon])
+    ukeys, inv = np.unique(rec, return_inverse=True)
+    ref = np.zeros((len(ukeys), SEG_D))
+    np.add.at(ref, inv.reshape(-1), svals.astype(np.float64))
+    want_b = np.where(np.isinf(ukeys["f1"]), np.nan, ukeys["f1"])
+    gb = np.asarray(got["b"])
+    if not (np.array_equal(np.asarray(got["a"]), ukeys["f0"])
+            and np.array_equal(gb, want_b, equal_nan=True) and not np.signbit(gb).any()):
+        raise AssertionError("segment two-key float: keys differ from the canonical order")
+    e_np = check_results("segment two-key float vs numpy", {"v": got["v"]}, {"v": ref}, SUM_RTOL)
+    say("pipeline", leg="c_segment_two_key_float", rows=SEG_ROWS, groups=len(ukeys),
+        bit_identical_runs=True, max_abs_err_vs_numpy=e_np, rtol=SUM_RTOL,
+        nan_groups=int(np.isnan(gb).sum()), negative_zero_keys=int(np.signbit(gb).sum()))
+    del svals, sframe, fk, x64
+
+    # (d) bucket padding: ragged map_rows, uneven map_blocks; on against off
+    rr = np.random.RandomState(4)
+    lengths = rr.randint(1, RAGGED_MAX + 1, RAGGED_ROWS)
+    flat = rr.rand(int(lengths.sum())).astype(np.float32)
+    cells = np.split(flat, np.cumsum(lengths)[:-1])
+    rframe = tft.TensorFrame.from_arrays({"v": cells}, num_blocks=VERB_BLOCKS)
+    ragged = tft.Program.wrap(lambda v: {"z": v * 2.0 + 1.0}, device="cuda")
+    runs = {}
+    for knob in ("", "off"):
+        # one run each: the host's bucketing and reassembly dominate
+        with env_set(TFS_BLOCK_BUCKETS=knob):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tft.map_rows(ragged, rframe).column("z").cells()
+            sec = time.perf_counter() - t0
+            runs[knob or "on"] = dict(out=out, seconds=sec,
+                                      calls=engine.last_verb_stats()["ragged_buckets"],
+                                      padded=engine.last_verb_stats()["padded"])
+    if not all(np.array_equal(a, b) for a, b in zip(runs["on"]["out"], runs["off"]["out"])):
+        raise AssertionError("ragged map_rows: padded buckets differ from exact ones")
+    if not runs["on"]["padded"] or runs["off"]["padded"]:
+        raise AssertionError(f"ragged map_rows: padding {runs['on']['padded']} on, "
+                             f"{runs['off']['padded']} off")
+    say("pipeline", leg="d_ragged_map_rows", rows=RAGGED_ROWS, max_len=RAGGED_MAX,
+        identical=True, **{f"{k}_{f}": r[f] for k, r in runs.items()
+                           for f in ("calls", "seconds")},
+        **{f"{k}_mrows_per_s": RAGGED_ROWS / r["seconds"] / 1e6 for k, r in runs.items()})
+    classify("ragged_cell", ragged, {"v": (torch.float32, ())})
+    del cells, flat, rframe, runs
+    uvals = rr.rand(UNEVEN_ROWS, VERB_D).astype(np.float32)
+    uframe = tft.TensorFrame.from_arrays({"x": uvals}, num_blocks=UNEVEN_BLOCKS)
+    uprog = tft.Program.wrap(lambda x: {"y": x * 2.0 + 1.0}, device="cuda")
+    runs = {}
+    for knob in ("", "off"):
+        with env_set(TFS_BLOCK_BUCKETS=knob):
+            runs[knob or "on"] = timed(lambda: tft.map_blocks(uprog, uframe).to_arrays()["y"])
+    if not np.array_equal(runs["on"][0], runs["off"][0]):
+        raise AssertionError("uneven map_blocks: padded blocks differ from exact ones")
+    say("pipeline", leg="d_uneven_map_blocks", rows=UNEVEN_ROWS, blocks=UNEVEN_BLOCKS,
+        block_sizes=sorted(set(uframe.block_sizes)),
+        padded_to=bucketing.bucket_for(max(uframe.block_sizes)), identical=True,
+        on_seconds=runs["on"][1], off_seconds=runs["off"][1],
+        on_mrows_per_s=UNEVEN_ROWS / runs["on"][1] / 1e6,
+        off_mrows_per_s=UNEVEN_ROWS / runs["off"][1] / 1e6,
+        on_over_off=runs["on"][1] / runs["off"][1])
+    classify("uneven_map", uprog, {"x": (torch.float32, (VERB_D,))})
+    del uvals, uframe, runs
+
+    # (e) the analysis, the pool on one card, the sharded cache
+    for name, c in classified.items():
+        say("pipeline", leg="e_classification", program=name, **c)
+    local = device_pool._local_devices()
+    pooled = obs.counters_delta(c_pool)["pool_blocks"]
+    if device_pool.pool_devices() != [] or len(local) != 1 or pooled:
+        raise AssertionError(f"pool on one card: pool {device_pool.pool_devices()}, "
+                             f"local {local}, {pooled} pooled blocks")
+    cvals = np.random.RandomState(6).rand(VERB_ROWS, VERB_D).astype(np.float32)
+    cframe = tft.TensorFrame.from_arrays({"v": cvals}, num_blocks=VERB_BLOCKS)
+    sharded, plain = cframe.cache(sharded=True), cframe.cache()
+    red = tft.Program.wrap(lambda v_input: {"v": v_input.sum(0)}, device="cuda")
+    c0 = obs.counters()
+    got = tft.reduce_blocks(red, sharded)
+    staged = obs.counters_delta(c0)["h2d_bytes_staged"]
+    want = tft.reduce_blocks(red, plain)
+    if staged or not same_arrays(got, want):
+        raise AssertionError(f"cache(sharded=True): {staged} host bytes staged, "
+                             f"identical {same_arrays(got, want)}")
+    say("pipeline", leg="e_pool_and_sharded_cache", local_devices=[str(d) for d in local],
+        pool_devices=[], pooled_blocks=pooled, sharded_cache_h2d_bytes=staged,
+        sharded_equals_unsharded=True)
+    return launches
 
 
 def run_phase(phase, *args):
@@ -3441,6 +3769,7 @@ def main() -> int:
     run_phase(phase_small_head_slice)
     run_phase(phase_verbs)
     run_phase(phase_cached_verbs)
+    pipeline_launches = run_phase(phase_pipeline, prog)
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)
@@ -3456,7 +3785,7 @@ def main() -> int:
                   ring_run, ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
-        train_run[5],
+        pipeline_launches, train_run[5],
         ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)

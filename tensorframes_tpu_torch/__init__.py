@@ -12,9 +12,13 @@ the verbs (``graphdef/``, with Inception-v3 and VGG-16 in ``models/``),
 the graph DSL (``dsl.py``) and the fluent ``OpBuilder`` (``builder.py``);
 KV-cache decode with sampling, speculative, paged and int8 variants
 (``models/decode.py``, ``models/kv_pager.py``, ``models/quant.py``),
-``TensorFrame.cache`` over the device-memory budget
-(``ops/frame_cache.py``), Arrow/parquet/pandas I/O (``io.py``) and the
-always-on counters (``observability.py``).
+``TensorFrame.cache`` over the device-memory budget, sharded across a
+device pool when there is one (``ops/frame_cache.py``,
+``ops/device_pool.py``), Arrow/parquet/pandas I/O (``io.py``) and the
+always-on counters (``observability.py``); the program analysis
+(``analysis/``: the row-dependence classifier and ``check``) and the fast
+paths it gates (bucket padding, padded ragged buckets, the device segment
+aggregate); verb chains with ``pipeline`` (``ops/pipeline.py``).
 Its attention kernels are hand-written CUDA for Hopper
 (``parallel/flash.py``, ``csrc/``).  Every entry point
 runs on the CUDA card unless its caller passes ``device="cpu"``; without a
@@ -25,6 +29,7 @@ and installs no global hooks.
 """
 
 from . import dsl, graphdef
+from .analysis import check
 from .analyze import analyze, print_schema
 from .builder import OpBuilder
 from .data import FrameLoader
@@ -42,6 +47,7 @@ from .ops.engine import (
     reduce_blocks,
     reduce_rows,
 )
+from .ops.pipeline import Pipeline, pipeline
 from .ops.validation import ValidationError
 from .program import GraphNodeSummary, Program, ProgramError
 from .schema import ColumnInfo, Schema, SchemaError
@@ -54,6 +60,7 @@ __all__ = [
     "GraphNodeSummary",
     "GroupedFrame",
     "OpBuilder",
+    "Pipeline",
     "Program",
     "ProgramError",
     "ScalarType",
@@ -67,12 +74,14 @@ __all__ = [
     "aggregate",
     "analyze",
     "block",
+    "check",
     "dsl",
     "graphdef",
     "group_by",
     "map_blocks",
     "map_blocks_trimmed",
     "map_rows",
+    "pipeline",
     "print_schema",
     "reduce_blocks",
     "reduce_rows",

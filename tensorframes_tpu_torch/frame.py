@@ -12,8 +12,9 @@ ROADMAP.md Queue 1 item B).  ``group_by`` makes the ``GroupedFrame`` that
 ``aggregate`` takes.  ``from_arrow``/``to_arrow``, ``from_parquet``/
 ``to_parquet`` go through ``io.py``; ``from_pandas``/``to_pandas`` import
 pandas when called.  ``cache()`` copies the device-feedable columns to one
-device once, so later verbs stage no host bytes; the cache sharded across a
-device pool and ``lazy()`` wait for the pool and the planner (item 9).
+device once, so later verbs stage no host bytes; ``cache(sharded=True)``
+places each block on its pool device (``ops/frame_cache.py``).  ``lazy()``
+waits for the planner (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ class Column:
 
     @property
     def is_ragged(self) -> bool:
+        if getattr(self.data, "_tfs_released", False):
+            return False  # a released column (frame_cache.SpillBackedColumnData)
         if isinstance(self.data, np.ndarray):
             return self.data.dtype == object
         return not is_device_array(self.data)
@@ -400,9 +403,15 @@ class TensorFrame:
         (``strict=True`` raises ``SchemaError`` instead): ragged and
         binary/string columns, which are host inputs by definition, and
         64-bit columns that would canonicalise on the device (none here:
-        PyTorch keeps 64-bit types, ``dtypes.coerce``).  ``sharded=True``
-        (block shards across a device pool) raises: it waits for the
-        device pool (ROADMAP.md Queue 1 item 9)."""
+        PyTorch keeps 64-bit types, ``dtypes.coerce``).
+
+        ``sharded`` (``ops/frame_cache.py``): True places each BLOCK's
+        column slices on that block's pool device, by the plan the pool
+        schedules with, so every verb runs each block where it lives; the
+        host columns stay the authoritative copy and the shards ride along
+        as ``frame._cache``.  None follows ``TFS_CACHE_SHARDED`` (``auto``:
+        shard when the device pool is active); False, or fewer than two
+        devices, gives the one-device cache."""
         host: Dict[str, Any] = {}
         skipped: Dict[str, str] = {}
         for c in self._columns:
@@ -435,12 +444,20 @@ class TensorFrame:
                     f"be cached on device — {detail}"
                 )
             _warn_skipped_once(detail)
-        if sharded:
-            raise NotImplementedError(
-                "cache(sharded=True) places block shards across a device "
-                "pool, which is not ported yet: it waits for the device "
-                "pool, ROADMAP.md Queue 1 item 9"
+        if device is not None and sharded:
+            raise SchemaError(
+                "cache(): device= pins every column on ONE device and "
+                "sharded=True requests block-affinity placement across "
+                "the pool — pass one or the other."
             )
+        if device is None and sharded is not False:
+            from .ops import frame_cache
+
+            devs = frame_cache.shard_devices(sharded)
+            if devs:
+                cache = frame_cache.build(self, sorted(host), devices=devs)
+                if cache is not None:
+                    return frame_cache.attach(TensorFrame(list(self._columns), self._offsets), cache)
         dev = resolve_device(device)
         staged = {}
         for name, data in host.items():
@@ -455,7 +472,17 @@ class TensorFrame:
 
     def uncache(self) -> "TensorFrame":
         """The frame with its device-resident columns copied back to host
-        numpy."""
+        numpy; a sharded cache is released (its shards leave the budget)
+        after any released column is read back to a real host array."""
+        from .ops import frame_cache
+
+        cache = getattr(self, "_cache", None)
+        for c in self._columns:
+            if frame_cache.is_released(c.data):
+                c.data = np.asarray(c.data)
+        if cache is not None:
+            cache.release()
+            frame_cache.attach(self, None)
         cols = [
             Column(c.info, to_host(c.data, c.info.name)) if c.is_device else c
             for c in self._columns
@@ -464,11 +491,21 @@ class TensorFrame:
 
     def lazy(self):
         """Planned mode (the JAX package's ``ops/planner.py``) is not ported
-        yet: it waits for the planner, ROADMAP.md Queue 1 item 9."""
+        yet: the planner imports the roofline model, so it waits for
+        ROADMAP.md Queue 1 item 10."""
         raise NotImplementedError(
             "TensorFrame.lazy() (the verb-graph planner) is not ported yet: "
-            "it waits for ROADMAP.md Queue 1 item 9"
+            "it waits for ROADMAP.md Queue 1 item 10 (the planner imports "
+            "the roofline model and the observability layer of item 10)"
         )
+
+    def release_host_columns(self) -> int:
+        """Release this frame's cached host columns when a spill-backed
+        sharded cache holds every block (``frame_cache.release_host_columns``);
+        returns the host bytes released."""
+        from .ops import frame_cache
+
+        return frame_cache.release_host_columns(self)
 
     def group_by(self, *keys: str):
         """The frame grouped by scalar key columns, for ``aggregate``."""

@@ -15,9 +15,10 @@ reference's ``kmeans_demo.py``:
 The centers are Program params, updated in place between Lloyd iterations
 (``Program.update_params``), where the demo rebuilds and re-broadcasts its
 graph (demo L68-80).  Distances: ||x-c||^2 = ||x||^2 - 2 x.c + ||c||^2 with
-the cross term as one matmul (||x||^2 does not move the argmin).  The fused
-forms (``make_pipeline``, ``fit_fused``) need the pipeline layer
-(ROADMAP.md Queue 1 item 8) and are not ported yet.
+the cross term as one matmul (||x||^2 does not move the argmin).
+``make_pipeline`` chains the pre-aggregation, the combine and the center
+update as one ``tft.pipeline``; ``fit_fused`` runs every Lloyd iteration
+through ``Pipeline.iterate`` with the centers on the device.
 """
 
 from __future__ import annotations
@@ -155,6 +156,51 @@ def _init_centers(
         chosen.append(int(np.argmax(d2)))
         np.minimum(d2, ((pts - pts[chosen[-1]]) ** 2).sum(-1), out=d2)
     return pts[chosen].copy()
+
+
+def make_pipeline(frame: TensorFrame, centers, device: DeviceLike = None):
+    """The Lloyd iteration as one chain: per-block pre-aggregation ->
+    cross-block combine -> center update, the centers carried on the
+    device between iterations (``pipe.iterate``)."""
+    from ..ops.pipeline import pipeline
+
+    prog = preagg_program(centers, device)
+
+    def update(row, params):
+        sums, counts = row["psum"], row["pcount"]
+        safe = torch.where(counts > 0, counts, torch.ones((), dtype=counts.dtype, device=counts.device))
+        new = sums / safe[:, None]
+        # empty clusters keep their previous center (MLlib semantics)
+        new = torch.where(counts[:, None] > 0, new, params["centers"])
+        return {"centers": new.to(params["centers"].dtype)}
+
+    pipe = (
+        pipeline(frame, device=prog.device)
+        .map_blocks(prog, trim=True)
+        .reduce_blocks(Program.wrap(_combine_fn, device=prog.device))
+        .then(update)
+    )
+    return pipe, prog
+
+
+def fit_fused(
+    frame: TensorFrame,
+    k: int,
+    num_iters: int = 10,
+    seed: int = 0,
+    init_centers: Optional[np.ndarray] = None,
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``fit(strategy="preagg")`` with all ``num_iters`` Lloyd iterations in
+    one ``Pipeline.iterate`` (same init), the centers read back once; then
+    one assignment pass."""
+    centers = _init_centers(frame, k, seed, init_centers)
+    pipe, _ = make_pipeline(frame, centers, device)
+    finals, _ = pipe.iterate(num_iters, carry={"centers": "centers"})
+    centers = np.asarray(pipe.readback(finals)["centers"], dtype=np.float64)
+    assign = assignment_program(centers, device)
+    assigned = map_blocks(assign, frame)
+    return centers, np.asarray(assigned.to_arrays()["closest"])
 
 
 def fit(

@@ -11,9 +11,10 @@ pre-aggregation idiom of ``kmeans_demo.py:101-168``).  A training step is
 3. a parameter update on the device.
 
 The gradient program differentiates the loss inside the verb program with
-``torch.func.grad_and_value`` (JAX: ``jax.value_and_grad``).  The fused
-forms (``make_pipeline``, ``fit_fused``) need the pipeline layer
-(ROADMAP.md Queue 1 item 8) and are not ported yet.
+``torch.func.grad_and_value`` (JAX: ``jax.value_and_grad``).
+``make_pipeline`` chains the three as one ``tft.pipeline`` and
+``fit_fused`` runs every step of the loop through ``Pipeline.iterate``,
+with the params on the device and one readback at the end.
 """
 
 from __future__ import annotations
@@ -145,6 +146,67 @@ def fit(
         )
         losses.append(loss)
     return params, losses
+
+
+def make_pipeline(frame: TensorFrame, lr: float, params=None, device: DeviceLike = None):
+    """The training step as one chain (``tft.pipeline``): grad partials ->
+    cross-block sum -> SGD update, the params on the device.  Returns
+    ``(pipe, grad_prog)``: ``pipe.run()`` is one step (device outputs
+    ``w``, ``b``, ``loss``); ``pipe.iterate(K, carry={"w": "w", "b": "b"},
+    collect=("loss",))`` runs K steps with no readback."""
+    from ..ops.pipeline import pipeline
+
+    if params is None:
+        params = init(frame.schema["features"].cell_shape[0], device=device)
+    gprog = grad_program(params, device=device)
+
+    def update(row, p):
+        n = row["count"]
+        return {
+            "w": p["w"] - lr * (row["grad_w"] / n).to(p["w"].dtype),
+            "b": p["b"] - lr * (row["grad_b"] / n).to(p["b"].dtype),
+            "loss": row["loss"] / n,
+        }
+
+    pipe = (
+        pipeline(frame, device=gprog.device)
+        .map_blocks(gprog, trim=True)
+        .reduce_blocks(Program.wrap(_sum_program(), device=gprog.device))
+        .then(update)
+    )
+    return pipe, gprog
+
+
+def _canonical_frame(frame: TensorFrame, feature_col: str, label_col: str) -> TensorFrame:
+    """Non-canonical column names remapped onto ``features``/``label``."""
+    if feature_col == "features" and label_col == "label":
+        return frame
+    arrs = frame.select([feature_col, label_col]).to_arrays()
+    return TensorFrame.from_arrays(
+        {"features": arrs[feature_col], "label": arrs[label_col]},
+        num_blocks=frame.num_blocks,
+    )
+
+
+def fit_fused(
+    frame: TensorFrame,
+    num_iters: int = 50,
+    lr: float = 0.5,
+    feature_col: str = "features",
+    label_col: str = "label",
+    device: DeviceLike = None,
+    params=None,
+):
+    """:func:`fit` with the whole loop in one ``Pipeline.iterate``: the
+    same per-step calls, the params and the loss history on the device,
+    and one readback at the end.  ``params``: the starting params (zeros
+    by default, as :func:`fit`)."""
+    frame = _canonical_frame(frame, feature_col, label_col)
+    pipe, _ = make_pipeline(frame, lr, params=params, device=device)
+    finals, hist = pipe.iterate(num_iters, carry={"w": "w", "b": "b"}, collect=("loss",))
+    finals, losses = pipe.readback((finals, hist["loss"]))
+    return ({"w": torch.as_tensor(finals["w"]), "b": torch.as_tensor(finals["b"])},
+            [float(x) for x in losses])
 
 
 def predict(params, features: np.ndarray) -> np.ndarray:

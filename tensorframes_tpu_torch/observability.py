@@ -14,7 +14,16 @@ counters its modules bump:
   (``models/kv_pager.py``);
 * ``faults_injected``, ``block_retries`` and ``block_oom_splits``: the
   block dispatch stack (``faults.py``, ``ops/fault_tolerance.py``): how
-  much adversity a run met and how it recovered.
+  much adversity a run met and how it recovered;
+* ``pool_blocks``, ``pool_copy_fallbacks`` and
+  ``devices_quarantined``: the device pool (``ops/device_pool.py``);
+* ``analysis_static_hits`` and ``analysis_probe_fallbacks``: which
+  row-independence questions the classifier answered and which fell back
+  to the exact-size probe (``analysis/rowdep.py``);
+* ``d2h_bytes_assembled``: device bytes read back to the host by the pooled
+  map loops and pipelines;
+* ``spill_bytes_written`` and ``spill_bytes_read``: the sharded cache's
+  disk spill (``streaming/spill.py``).
 
 ``current_request()`` is the active request's ledger, and stays None until
 the request ledger is ported (ROADMAP.md Queue 1 item 10), as do spans,
@@ -36,6 +45,14 @@ _COUNTERS = (
     "faults_injected",
     "block_retries",
     "block_oom_splits",
+    "pool_blocks",
+    "pool_copy_fallbacks",
+    "devices_quarantined",
+    "analysis_static_hits",
+    "analysis_probe_fallbacks",
+    "d2h_bytes_assembled",
+    "spill_bytes_written",
+    "spill_bytes_read",
 )
 
 _counters: Dict[str, int] = {k: 0 for k in _COUNTERS}
@@ -105,6 +122,49 @@ def note_block_retry() -> None:
 def note_oom_split() -> None:
     """One binary split of a block (or sub-range) after a device OOM."""
     _bump("block_oom_splits")
+
+
+def note_pool_dispatch(device: int, n_rows: int) -> None:
+    """One block dispatched by the device pool (``device`` and ``n_rows``
+    are for the request ledger, once it is ported)."""
+    _bump("pool_blocks")
+
+
+def note_pool_copy_fallback() -> None:
+    """One pooled readback that could not start asynchronously and was
+    copied synchronously instead."""
+    _bump("pool_copy_fallbacks")
+
+
+def note_device_quarantined() -> None:
+    """One device taken out of a pooled run after repeated failures."""
+    _bump("devices_quarantined")
+
+
+def note_analysis_static_hit() -> None:
+    """One row-independence question answered by the classifier."""
+    _bump("analysis_static_hits")
+
+
+def note_analysis_probe_fallback() -> None:
+    """One row-independence question the classifier left ``UNKNOWN``, so
+    the exact-size probe answered it."""
+    _bump("analysis_probe_fallbacks")
+
+
+def note_d2h_bytes(n: int) -> None:
+    """``n`` device bytes read back to the host by a pooled loop."""
+    _bump("d2h_bytes_assembled", int(n))
+
+
+def note_spill_bytes_written(n: int) -> None:
+    """``n`` bytes a spill store wrote to disk."""
+    _bump("spill_bytes_written", int(n))
+
+
+def note_spill_bytes_read(n: int) -> None:
+    """``n`` bytes a spill store read back from disk."""
+    _bump("spill_bytes_read", int(n))
 
 
 def counters() -> Dict[str, int]:

@@ -1,5 +1,6 @@
-"""The port's execution layer: the serial executor, the six verbs and their
-validation."""
+"""The port's execution layer: the executor, the six verbs and their
+validation, bucket padding, the device pool, the frame cache, the segment
+recognizer and verb pipelines."""
 
 from .engine import (
     Executor,

@@ -1,27 +1,34 @@
-"""The execution engine: the six verbs, serial and single-device.
+"""The execution engine: the six verbs, on one device or across a pool.
 
 PyTorch counterpart of ``tensorframes_tpu/ops/engine.py``:
 
 * ``map_blocks`` / ``map_blocks_trimmed``: input staging
-  (``_device_inputs``), the per-block program call, the per-block output
+  (``_stage_inputs``), the per-block program call, the per-block output
   and shape-hint checks (same messages), the output frame with passthrough
   columns shadowed by outputs, and the empty-frame contract;
 * ``map_rows``: the cell-level program under ``torch.func.vmap`` over each
-  block's rows; ragged columns run one vmapped call per distinct row shape
-  (exact-shape buckets);
+  block's rows; ragged columns run one vmapped call per bucket: the
+  geometric bucket of the ragged length when the cell program is proven
+  elementwise along it (``_ragged_pad_ok``), else each exact shape;
 * ``reduce_rows``: a balanced tree of vmapped pairwise calls per block
   (``mode="tree"``), or the reference's left fold in row order
   (``mode="sequential"``);
 * ``reduce_blocks``: the block program once per block, then once over the
   stacked partials (``_combine_partials``, the one final-combine shape of
   both reduce verbs);
-* ``aggregate``: a host group index, then the block program vmapped over
-  all groups of one size (at most 8 distinct sizes), or a pairwise combine
-  tree over row partials (skewed sizes).
+* ``aggregate``: the device segment path when ``segment_compile``
+  recognizes the program (``_aggregate_segment``: one stable key sort and
+  one segmented reduction a reduce, no float atomics), else a host group
+  index and the block program vmapped over all groups of one size (at
+  most 8 distinct sizes), or a pairwise combine tree over row partials
+  (skewed sizes).
 
-Blocks run one after another on the program's device, under the block
-dispatch stack of ROADMAP.md item 9, as the JAX package's are:
+Blocks run under the block dispatch stack, as the JAX package's do:
 
+* bucket padding (``ops/bucketing.py``, ``_bucket_plan``): ``map_rows``
+  blocks, and ``map_blocks`` blocks whose program ``analysis.rows_independent``
+  proves row-independent, pad to a geometric bucket on the device after
+  their real rows are staged, and slice back;
 * a cancellation checkpoint at every block boundary
   (``cancellation.py``: a ``CancelScope``'s deadline or cancel raises
   there, never mid-block);
@@ -30,22 +37,24 @@ dispatch stack of ROADMAP.md item 9, as the JAX package's are:
   copies it from pinned buffers on a copy stream while earlier blocks
   compute; a ``cache()``d frame's columns are read in place and stage 0
   host bytes;
+* the device pool (``ops/device_pool.py``) when two or more devices
+  resolve: a host-fresh multi-block frame's blocks spread over per-device
+  lanes with overlapped readback, and a sharded-cached frame
+  (``ops/frame_cache.py``) runs each block on the device holding it; the
+  reduce partials fold back on one device;
 * the retry session of ``ops/fault_tolerance.py`` when
   ``TFS_BLOCK_RETRIES`` > 0 or ``TFS_FAULT_INJECT`` is set: transient
-  failures re-stage and retry, a device OOM splits a provably
-  row-independent block (``rowdep.py``), on the same device and kernels.
+  failures re-stage and retry (under the pool, a device that keeps
+  failing is quarantined), a device OOM splits a provably row-independent
+  block (``analysis.rows_independent``), on the same device and kernels.
 
-Map outputs stay on the device as tensors until ``collect``/``to_arrays``;
-the reduce verbs return host arrays.  Every verb stages host arrays one
-way, through ``prefetch.stage_arrays`` (``aggregate``'s columns and the
-ragged ``map_rows`` buckets too), which bumps
-``observability.note_h2d_bytes`` (each staging once, a retry's included).
-``last_verb_stats`` gives the last loop's prefetch and retry record.  Not
-ported yet (ROADMAP.md, Queue 1 item 9): bucketing, the device pool, the
-sharded frame cache, chunk-level streaming plans and spans; JAX's padded
-ragged ``map_rows`` buckets (``_ragged_pad_ok``) and its device segment
-aggregate (``_aggregate_segment``), which need the rest of the program
-analysis -- their absence changes speed, not results.
+Map outputs stay on the device as tensors until ``collect``/``to_arrays``
+(the pooled loops read them back to the host, in block order); the reduce
+verbs return host arrays.  Every verb stages host arrays one way, through
+``prefetch.stage_arrays``, which bumps ``observability.note_h2d_bytes``
+(each staging once, a retry's included).  ``last_verb_stats`` gives the
+last loop's record.  Not ported (ROADMAP.md Queue 1): chunk-level streamed
+plans and spans (item 11), the planner (after item 10).
 """
 
 from __future__ import annotations
@@ -57,13 +66,21 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import cancellation, dtypes, faults
+from .. import analysis, cancellation, dtypes, faults, observability
 from ..device import DeviceLike, resolve_device
 from ..frame import Column, TensorFrame, _column_from_cells, to_host
 from ..program import Program
 from ..schema import ColumnInfo
 from ..shape import Shape, ShapeError, UNKNOWN
-from . import fault_tolerance, prefetch, rowdep, validation
+from . import (
+    bucketing,
+    device_pool,
+    fault_tolerance,
+    frame_cache,
+    prefetch,
+    segment_compile,
+    validation,
+)
 from .validation import ValidationError
 
 # the last verb's block-loop record on this thread (``last_verb_stats``)
@@ -94,6 +111,39 @@ def _attempt(staged, restage, run):
         return run(first.ready())
 
     return attempt
+
+
+def _runner(program: Program, rows_level: bool):
+    """The block call of a map verb: the program, or its vmapped row call."""
+    return program.vmapped() if rows_level else program.call
+
+
+def _padded(run, n_rows: int, pad_to: Optional[int]):
+    """``run`` on a block padded to its bucket ``pad_to``: the staged real
+    rows pad on their device (``bucketing.pad_rows``, so the host copies
+    and the bytes staged are the real rows') and the outputs slice back to
+    the ``n_rows`` real rows (row independence makes them the exact-shape
+    rows, bit for bit)."""
+    if pad_to is None:
+        return run
+
+    def padded(inputs):
+        outs = run({k: bucketing.pad_rows(v, pad_to) for k, v in inputs.items()})
+        return {k: v[:n_rows] for k, v in outs.items()}
+
+    return padded
+
+
+def _frame_fresh(frame: TensorFrame) -> bool:
+    """Every column host-resident: the one freshness rule behind the
+    device pool (a device-resident column stays on its device)."""
+    return all(not c.is_device for c in frame.columns)
+
+
+def _torch_dtype_of(a) -> torch.dtype:
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    return dtypes.coerce(dtypes.from_numpy(np.asarray(a).dtype)).torch_dtype
 
 
 def _record_stats(verb: str, n_blocks: int, pf, donate: bool, session) -> None:
@@ -186,8 +236,13 @@ def _with_prelude(program: Program, host_stage):
 
 
 class Executor:
-    """Serial verb executor: blocks run one after another on the program's
-    device (where its params live)."""
+    """Verb executor: blocks run one after another on the program's device
+    (where its params live), or across the device pool when one resolves
+    (``ops/device_pool.py``)."""
+
+    # the device segment path of ``aggregate`` (``_aggregate_segment``);
+    # an executor with it off runs the general paths for every program
+    supports_segment_aggregate = True
 
     # ---------------------------------------------------------------- map --
 
@@ -289,33 +344,56 @@ class Executor:
             out_blocks = [self._empty_map_outputs(program, infos, False)]
         else:
             out_blocks = self._map_dispatch(
-                program, frame, infos, program.call, False, trim, host_stage
+                program, frame, infos, False, trim, host_stage
             )
         return self._build_map_output(frame, out_blocks, trim)
 
-    def _map_dispatch(self, program, frame, infos, run, rows_level, trim,
-                      host_stage=None):
-        """Run ``run`` (the block call, or the vmapped row call) over every
+    def _map_dispatch(self, program, frame, infos, rows_level, trim,
+                      host_stage=None, keep=None):
+        """Run the block program (or the vmapped row program) over every
         block, checking each block's outputs: the map verbs' block loop
         (the JAX package's ``_map_dispatch``).
 
-        Each block boundary is a cancellation checkpoint.  When no program
-        input is device-resident, blocks are staged ahead by a
-        ``prefetch.Prefetcher`` (``TFS_PREFETCH_BLOCKS``; ``host_stage``
-        runs on its thread, in block order); a ``cache()``d frame's blocks
-        are read in place.  With ``TFS_BLOCK_RETRIES`` > 0 or a fault plan,
-        each block runs under the frame's retry session
-        (``ops/fault_tolerance.py``): transient failures re-stage and retry,
-        a device OOM splits the block when that is provably safe."""
+        Each block boundary is a cancellation checkpoint.  Blocks pad to
+        their bucket (``_bucket_plan``) and the outputs slice back.  A
+        sharded-cached frame runs each block on the device holding it, and
+        a host-fresh multi-block frame spreads over the device pool when
+        one resolves (``_map_dispatch_pooled``).  Otherwise blocks run on
+        the program's device: when no program input is device-resident
+        they are staged ahead by a ``prefetch.Prefetcher``
+        (``TFS_PREFETCH_BLOCKS``; ``host_stage`` runs on its thread, in
+        block order); a ``cache()``d frame's blocks are read in place.
+        With ``TFS_BLOCK_RETRIES`` > 0 or a fault plan, each block runs
+        under the frame's retry session (``ops/fault_tolerance.py``):
+        transient failures re-stage and retry, a device OOM splits the
+        block when that is provably safe.  ``keep``: a list a pooled run
+        fills with each block's ``(device index, device outputs)``."""
         verb = "map_rows" if rows_level else "map_blocks"
-        device = program.device
         sizes = frame.block_sizes
+        pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, trim)
+        cache = frame_cache.active_cache(frame)
+        if cache is not None:
+            return self._map_dispatch_pooled(
+                program, frame, infos, rows_level, trim, host_stage, pads,
+                cache.devices, cache.assignment, cache, keep,
+            )
+        pool_devs = (
+            device_pool.pool_devices()
+            if _frame_fresh(frame) and frame.num_blocks > 1 else []
+        )
+        if len(pool_devs) >= 2:
+            return self._map_dispatch_pooled(
+                program, frame, infos, rows_level, trim, host_stage, pads,
+                pool_devs, device_pool.assign(sizes, len(pool_devs)), None, keep,
+            )
+        device = program.device
         fresh = not any(
             frame.column(program.column_for_input(n)).is_device
             for n in program.input_names
         )
         session = fault_tolerance.frame_session(frame.num_blocks, verb=verb)
         donate = prefetch.donate_inputs()
+        call = _runner(program, rows_level)
 
         def stage(bi):
             return self._stage_inputs(program, frame.block(bi), infos, device, host_stage)
@@ -326,6 +404,7 @@ class Executor:
         with torch.no_grad():
             for bi, staged in enumerate(items):
                 cancellation.checkpoint()  # block boundary
+                run = _padded(call, sizes[bi], pads[bi])
                 attempt = _attempt(staged, functools.partial(stage, bi), run)
                 if donate:
                     staged = None  # the block's inputs go back to the allocator
@@ -333,8 +412,8 @@ class Executor:
                     outs = attempt(0, 0)
                 else:
                     split = self._oom_split_closure(
-                        session, program, frame, bi, infos, host_stage, run,
-                        rows_level, trim,
+                        session, program, frame, bi, infos, host_stage,
+                        rows_level, trim, lambda: (device, call),
                     )
                     outs = session.run(bi, sizes[bi], attempt, device=0, oom_split=split)
                 del attempt
@@ -344,16 +423,155 @@ class Executor:
         _record_stats(verb, frame.num_blocks, pf, donate, session)
         return out_blocks
 
+    def _bucket_plan(self, program, frame, infos, host_stage, rows_level, trim):
+        """Per-block bucket targets, or None per block to run the exact
+        shape (the JAX package's ``_bucket_plan``).  ``map_rows`` blocks
+        pad freely (the vmapped cell program makes rows independent);
+        ``map_blocks`` padding needs ``analysis.rows_independent`` at every
+        (real, padded) size the frame will run.  Trimmed maps and
+        host-staged ``map_blocks`` inputs keep exact shapes."""
+        sizes = frame.block_sizes
+        none_plan: List[Optional[int]] = [None] * frame.num_blocks
+        if trim or not bucketing.enabled() or (host_stage and not rows_level):
+            return none_plan
+        targets = [bucketing.bucket_for(n) if n > 0 else None for n in sizes]
+        targets = [t if t is not None and t != sizes[bi] else None
+                   for bi, t in enumerate(targets)]
+        if all(t is None for t in targets):
+            return none_plan
+        if not rows_level:
+            proof_sizes = sorted(
+                {sizes[bi] for bi, t in enumerate(targets) if t is not None}
+                | {t for t in targets if t is not None}
+            )
+            specs = analysis.input_specs_for(program, infos)
+            if specs is None or not analysis.rows_independent(program, specs, proof_sizes):
+                return none_plan
+        return targets
+
+    def _map_dispatch_pooled(self, program, frame, infos, rows_level, trim,
+                             host_stage, pads, devices, assignment, cache, keep=None):
+        """The map loop across several devices (the JAX package's
+        ``_map_dispatch_pool`` and ``_map_dispatch_sharded``): block ``bi``
+        runs on ``devices[assignment[bi]]``, its outputs read back to the
+        host through the pool's bounded windows and reassembled by block
+        index (``device_pool.PoolRun``).
+
+        Host-fresh frames (``cache`` None) stage on one lane a device, or
+        on one lane in block order when a ``host_stage`` fn runs.  A
+        sharded-cached frame reads each block's shard in place on its
+        device: no lanes, no host bytes for resident blocks; an evicted
+        block re-stages from the host copy.  Retries and quarantine
+        redirects always re-stage from the host copy, on the current
+        effective device."""
+        verb = "map_rows" if rows_level else "map_blocks"
+        nb = frame.num_blocks
+        sizes = frame.block_sizes
+        pool = device_pool.PoolRun(
+            devices, assignment, prefetch.prefetch_depth() or 1, affinity=cache is not None
+        )
+        session = fault_tolerance.frame_session(nb, verb=verb, pool=pool)
+        calls: Dict[int, Any] = {}
+
+        def call_on(di):
+            if di not in calls:
+                calls[di] = _runner(device_pool.program_on(program, devices[di]), rows_level)
+            return calls[di]
+
+        def stage_block(bi, dev):
+            return self._stage_inputs(program, frame.block(bi), infos, dev, host_stage)
+
+        lane_iters: List[Any] = []
+        lanes: List[Any] = []
+        if cache is None:
+            if host_stage:
+                lanes = [prefetch.Prefetcher(
+                    lambda bi: stage_block(bi, devices[assignment[bi]]), nb,
+                    name="tfs-pool-stage",
+                )]
+            else:
+                lanes = device_pool.lanes(devices, assignment, stage_block)
+            lane_iters = [iter(ln) for ln in lanes]
+        staged_cols = {program.column_for_input(n) for n in (host_stage or {})}
+        out_blocks: List[Optional[Dict[str, Any]]] = [None] * nb
+        with torch.no_grad():
+            for bi in range(nb):
+                cancellation.checkpoint()  # block boundary (pooled loop)
+                di = assignment[bi]
+                di_eff = pool.effective_device(di) if session is not None else di
+                if cache is not None:
+                    shard = cache.shard(bi) if di_eff == di else None
+                    block = dict(frame.block(bi))
+                    used = False
+                    for cname, v in (shard or {}).items():
+                        if cname not in staged_cols:
+                            block[cname] = v
+                            used = True
+                    if used:
+                        observability.note_cache_shard_hit()
+                    elif session is not None and di_eff != di:
+                        session.note_cache_restage()
+                    staged = self._stage_inputs(program, block, infos, devices[di_eff], host_stage)
+                else:
+                    staged = next(lane_iters[0 if host_stage else di])
+                holder = {"staged": staged}
+                del staged
+
+                def attempt(a, dev_i, _bi=bi, _di=di_eff, _h=holder):
+                    ins = _h.pop("staged", None) if (a == 0 and dev_i == _di) else None
+                    _h.clear()
+                    if ins is None:  # a retry or a redirect: fresh host bytes
+                        ins = stage_block(_bi, devices[dev_i])
+                    with device_pool.device_scope(devices[dev_i]):
+                        return _padded(call_on(dev_i), sizes[_bi], pads[_bi])(ins.ready())
+
+                if session is None:
+                    outs = attempt(0, di)
+                else:
+                    def dev_run(_di=di):
+                        e = pool.effective_device(_di)
+                        return devices[e], call_on(e)
+
+                    split = self._oom_split_closure(
+                        session, program, frame, bi, infos, host_stage,
+                        rows_level, trim, dev_run,
+                    )
+                    outs = session.run(
+                        bi, sizes[bi], attempt,
+                        device=lambda _di=di: pool.effective_device(_di),
+                        oom_split=split,
+                    )
+                    di_eff = pool.effective_device(di)
+                self._check_block_outputs(program, outs, sizes[bi], rows_level, trim)
+                if keep is not None:
+                    keep[bi] = (di_eff, outs)
+                pool.submit(bi, di_eff, sizes[bi], outs, out_blocks)
+                del outs
+            pool.finish(out_blocks)
+        stage_s = sum(ln.stats["stage_s"] for ln in lanes)
+        wait_s = sum(ln.stats["wait_s"] for ln in lanes)
+        _LAST.stats = {
+            "verb": verb,
+            "blocks": nb,
+            "device_pool": pool.record(stage_s, wait_s),
+            **({"fault_tolerance": session.record()} if session is not None else {}),
+            **({"frame_cache": cache.record()} if cache is not None else {}),
+        }
+        return out_blocks
+
     def _oom_split_closure(
-        self, session, program, frame, bi, infos, host_stage, run, rows_level, trim
+        self, session, program, frame, bi, infos, host_stage, rows_level, trim,
+        dev_run,
     ):
         """The OOM-degradation policy for one map-verb block: split the
         block in half and re-dispatch (recursively, floor
         ``TFS_MIN_SPLIT_ROWS``) when that is provably safe -- ``map_rows``
         is row-independent by construction, ``map_blocks`` must pass
-        ``rowdep.rows_independent`` at every size the split can reach.
+        ``analysis.rows_independent`` at every size the split can reach.
         Trimmed maps, host-staged blocks and cross-row programs surface a
-        ``BlockExecutionError`` naming the block and row range instead."""
+        ``BlockExecutionError`` naming the block and row range instead.
+        ``dev_run()`` gives the device and the block call the halves run
+        with: the program's own, or the pool's current effective one."""
         n_rows = frame.block_sizes[bi]
         verb = "map_rows" if rows_level else "map_blocks"
 
@@ -381,38 +599,35 @@ class Executor:
                     if hi - lo >= 2 * floor:
                         mid = (lo + hi) // 2
                         stack += [(lo, mid), (mid, hi)]
-                block = frame.block(bi)
-                specs = {
-                    n: (
-                        dtypes.coerce(infos[n].scalar_type).torch_dtype,
-                        tuple(np.shape(block[program.column_for_input(n)])[1:]),
-                    )
-                    for n in program.input_names
-                }
-                if not rowdep.rows_independent(program, specs, sorted(sizes)):
+                specs = analysis.input_specs_for(program, infos)
+                if specs is None or not analysis.rows_independent(
+                    program, specs, sorted(sizes)
+                ):
                     refuse(exc, "the program is not provably row-independent "
                                 "(cross-row outputs cannot be recomputed from "
                                 "half blocks)")
+            device, run = dev_run()
             mid = n_rows // 2
-            left = self._split_range(session, program, frame, bi, infos, run, 0, mid)
-            right = self._split_range(session, program, frame, bi, infos, run, mid, n_rows)
+            with device_pool.device_scope(device):
+                left = self._split_range(session, program, frame, bi, infos, device, run, 0, mid)
+                right = self._split_range(session, program, frame, bi, infos, device, run, mid, n_rows)
             session.note_split(bi)
             return {k: torch.cat([left[k], right[k]]) for k in left}
 
         return split
 
     def _split_range(
-        self, session, program, frame, bi, infos, run, lo: int, hi: int
+        self, session, program, frame, bi, infos, device, run, lo: int, hi: int
     ) -> Dict[str, torch.Tensor]:
-        """Dispatch rows ``[lo, hi)`` of block ``bi`` on the program's
-        device, splitting again on a further OOM down to
-        ``TFS_MIN_SPLIT_ROWS``.  The injected-fault site is ``"split"``, so
-        attempt-selected specs never re-fire on recovery work."""
+        """Dispatch rows ``[lo, hi)`` of block ``bi`` on ``device``,
+        splitting again on a further OOM down to ``TFS_MIN_SPLIT_ROWS``.
+        The injected-fault site is ``"split"``, so attempt-selected specs
+        never re-fire on recovery work."""
         floor = fault_tolerance.min_split_rows()
         try:
             faults.maybe_inject(bi, 0, 0, hi - lo, site="split")
             sub = {k: v[lo:hi] for k, v in frame.block(bi).items()}
-            return run(self._device_inputs(program, sub, infos, program.device))
+            return run(self._device_inputs(program, sub, infos, device))
         except BaseException as exc:  # noqa: BLE001 - OOM-only recovery
             if not faults.is_oom(exc):
                 raise
@@ -423,8 +638,8 @@ class Executor:
                     f"range does not fit on the device"
                 ) from exc
             mid = (lo + hi) // 2
-            left = self._split_range(session, program, frame, bi, infos, run, lo, mid)
-            right = self._split_range(session, program, frame, bi, infos, run, mid, hi)
+            left = self._split_range(session, program, frame, bi, infos, device, run, lo, mid)
+            right = self._split_range(session, program, frame, bi, infos, device, run, mid, hi)
             session.note_split(bi)
             return {k: torch.cat([left[k], right[k]]) for k in left}
 
@@ -535,9 +750,46 @@ class Executor:
             out_blocks = [self._empty_map_outputs(program, infos, True)]
         else:
             out_blocks = self._map_dispatch(
-                program, frame, infos, program.vmapped(), True, False, host_stage
+                program, frame, infos, True, False, host_stage
             )
         return self._build_map_output(frame, out_blocks, trim=False)
+
+    def _ragged_pad_ok(self, program, ragged_name, rcells, uniform, sizes) -> bool:
+        """Whether the single ragged input's cells may pad along their lead
+        (ragged) axis: the shared gate ``analysis.rows_independent`` posed
+        on the CELL program, the ragged axis as the lead dim, at the exact
+        (real, bucketed) lengths, with every uniform input bound as a param
+        (constant within a row).  A program that reduces, sorts or flips
+        along the ragged axis fails and keeps exact per-shape buckets."""
+        rest = {c.shape[1:] for c in rcells}
+        if len(rest) != 1:
+            return False  # trailing dims ragged too: exact buckets
+        cell_rest = rest.pop()
+        dt = dtypes.coerce(dtypes.from_numpy(np.asarray(rcells[0]).dtype)).torch_dtype
+        key = (
+            "ragged-pad", ragged_name, tuple(sorted(sizes)), cell_rest, str(dt),
+            tuple(sorted((u, tuple(np.shape(a)[1:]), str(a.dtype)) for u, a in uniform.items())),
+        )
+        memo = segment_compile.derived(program)
+        if key in memo:
+            return memo[key]
+        try:
+            dummies = {
+                u: torch.zeros(tuple(np.shape(a)[1:]), dtype=_torch_dtype_of(a))
+                for u, a in uniform.items()
+            }
+            probe = Program(
+                program._fn, program.input_names + list(program.params),
+                program._declared_fetches, None, {**program.params, **dummies},
+                device=program.device,
+            )
+            ok = analysis.rows_independent(probe, {ragged_name: (dt, cell_rest)}, sizes)
+        except analysis.AnalysisXCheckError:
+            raise
+        except Exception:  # noqa: BLE001 - an unposable proof proves nothing
+            ok = False
+        memo[key] = ok
+        return ok
 
     def _map_rows_ragged(
         self,
@@ -549,10 +801,12 @@ class Executor:
     ) -> TensorFrame:
         """Ragged ``map_rows`` by shape-bucketing: rows are grouped by their
         concrete cell shapes and each group runs as ONE vmapped call, in
-        sorted shape order.  (JAX also pads a provably elementwise program's
-        cells up to geometric buckets, ``_ragged_pad_ok``; that proof needs
-        the program analysis of ROADMAP item 9, so here every bucket is an
-        exact shape.)"""
+        sorted shape order.  When the program is provably elementwise along
+        the ragged axis (``_ragged_pad_ok``, one ragged input), rows group
+        by the geometric bucket of their ragged length instead
+        (``bucketing.bucket_for``): each cell pads to the bucket by edge
+        repetition and each output row slices back to its own length, so
+        O(log max length) calls replace one a distinct length."""
         n = frame.num_rows
         device = program.device
         cells: Dict[str, List[np.ndarray]] = {}
@@ -572,18 +826,38 @@ class Executor:
                 ]
             else:
                 uniform[in_name] = (col.data, st)
+        # cell-axis bucket padding: one ragged input, pads proven safe
+        pad_lengths: Dict[int, int] = {}
+        if bucketing.enabled() and len(ragged_names) == 1:
+            r = ragged_names[0]
+            lengths = sorted({c.shape[0] for c in cells[r] if c.shape[0] > 0})
+            targets = {d: bucketing.bucket_for(d) for d in lengths}
+            if any(t != d for d, t in targets.items()):
+                proof_sizes = sorted(set(lengths) | set(targets.values()))
+                if self._ragged_pad_ok(
+                    program, r, cells[r], {u: v for u, (v, _st) in uniform.items()},
+                    proof_sizes,
+                ):
+                    pad_lengths = {d: t for d, t in targets.items() if t != d}
         buckets: Dict[tuple, List[int]] = {}
         for i in range(n):
-            key = tuple(cells[r][i].shape for r in ragged_names)
+            key = tuple(
+                (pad_lengths.get(cells[r][i].shape[0], cells[r][i].shape[0]),)
+                + cells[r][i].shape[1:]
+                for r in ragged_names
+            )
             buckets.setdefault(key, []).append(i)
         run = program.vmapped()
         out_cells: Dict[str, List[Any]] = {}
         with torch.no_grad():
             for key in sorted(buckets):
                 idxs = np.asarray(buckets[key])
+                target = key[0][0] if pad_lengths else None
                 values = {
-                    r: (np.stack([cells[r][i] for i in idxs]),
-                        dtypes.coerce(infos[r].scalar_type))
+                    r: (np.stack([
+                        bucketing.pad_rows(cells[r][i], target) if target is not None
+                        else cells[r][i] for i in idxs
+                    ]), dtypes.coerce(infos[r].scalar_type))
                     for r in ragged_names
                 }
                 for u, (data, st) in uniform.items():
@@ -591,12 +865,35 @@ class Executor:
                             if isinstance(data, torch.Tensor) else data[idxs])
                     values[u] = (rows, st)
                 outs = run(self._stage_values(values, device).ready())
-                _check_shape_hints(program, outs, "map_rows", cell_level=True)
-                for name, v in outs.items():
-                    host = to_host(v, name)
-                    col_cells = out_cells.setdefault(name, [None] * n)
-                    for j, i in enumerate(idxs):
-                        col_cells[i] = host[j]
+                hosts = {name: to_host(v, name) for name, v in outs.items()}
+                for name in hosts:
+                    if name not in out_cells:
+                        out_cells[name] = [None] * n
+                if not pad_lengths:
+                    _check_shape_hints(program, outs, "map_rows", cell_level=True)
+                    for name, host in hosts.items():
+                        col_cells = out_cells[name]
+                        for j, i in enumerate(idxs):
+                            col_cells[i] = host[j]
+                    continue
+                # a padded bucket: every output tracks the ragged axis on
+                # dim 0 (the proof guarantees it); slice each row back to
+                # its own length and hint-check once per distinct length
+                checked: set = set()
+                for j, i in enumerate(idxs):
+                    d = cells[ragged_names[0]][i].shape[0]
+                    row = {name: host[j][:d] if d < host[j].shape[0] else host[j]
+                           for name, host in hosts.items()}
+                    if program.shape_hints and d not in checked:
+                        _check_shape_hints(
+                            program, {name: torch.as_tensor(c)[None] for name, c in row.items()},
+                            "map_rows", cell_level=True,
+                        )
+                        checked.add(d)
+                    for name, c in row.items():
+                        out_cells[name][i] = c
+        _LAST.stats = {"verb": "map_rows", "blocks": frame.num_blocks,
+                       "ragged_buckets": len(buckets), "padded": bool(pad_lengths)}
         cols = [
             _column_from_cells(name, out_cells[name]) for name in sorted(out_cells)
         ]
@@ -651,8 +948,9 @@ class Executor:
 
     def _reduce_rows_setup(self, program: Program, frame: TensorFrame, mode: str):
         """Pre-flight of reduce_rows: checks the pairwise contract and
-        returns ``(bases, reduced, run)``, where ``run`` folds a dict of
-        block arrays down to one cell each."""
+        returns ``(bases, reduced, run_for)``, where ``run_for(program)``
+        folds a dict of block arrays down to one cell each with that
+        program (the verb's own, or its copy on a pool device)."""
         if frame.num_rows == 0:
             raise ValidationError(
                 "reduce_rows: cannot reduce an empty frame (no identity "
@@ -676,26 +974,26 @@ class Executor:
                 f"reduce_rows: unknown mode {mode!r}; use 'tree' or "
                 f"'sequential'"
             )
-        pairfn = self._pair_call(program, bases)
         fold = self._tree_fold if mode == "tree" else self._seq_fold
 
-        def run(arrs):
-            return fold(pairfn, arrs, program.params)
+        def run_for(prog):
+            pairfn = self._pair_call(prog, bases)
+            return lambda arrs: fold(pairfn, arrs, prog.params)
 
-        return bases, reduced, run
+        return bases, reduced, run_for
 
     def reduce_rows(
         self, program: Program, frame: TensorFrame, mode: str = "tree"
     ) -> Dict[str, Any]:
         """``reduceRows`` (``DebugRowOps.scala:479-501``): pairwise-fold all
         rows of the named columns down to one row."""
-        bases, reduced, run = self._reduce_rows_setup(program, frame, mode)
-        return self._reduce(program, run, bases, reduced, frame)
+        bases, reduced, run_for = self._reduce_rows_setup(program, frame, mode)
+        return self._reduce(program, run_for, bases, reduced, frame)
 
-    def _reduce(self, program, run, bases, reduced, frame) -> Dict[str, Any]:
+    def _reduce(self, program, run_for, bases, reduced, frame) -> Dict[str, Any]:
         with torch.no_grad():
-            partials = self._reduce_partials(program, run, bases, reduced, frame)
-            final = self._combine_partials(run, bases, partials)
+            partials = self._reduce_partials(program, run_for, bases, reduced, frame)
+            final = self._combine_partials(run_for(program), bases, partials)
         return {b: _host(final[b]) for b in bases}
 
     def _combine_partials(
@@ -711,19 +1009,38 @@ class Executor:
         return run(stacked)
 
     def _reduce_partials(
-        self, program, run, bases, reduced, frame: TensorFrame
+        self, program, run_for, bases, reduced, frame: TensorFrame
     ) -> List[Dict[str, torch.Tensor]]:
         """Per-block partials for the reduce verbs, in block order; empty
         blocks are skipped (``DebugRowOps.scala:489-499``).  The block loop
         of the map verbs without the split: host blocks are prefetched,
         each boundary is a cancellation checkpoint, and a retry session
         re-stages and retries transient failures (a partial is cross-row
-        by definition, so an OOM surfaces with the block's row range)."""
+        by definition, so an OOM surfaces with the block's row range).  A
+        sharded-cached frame, or a host-fresh one under the device pool,
+        folds each block on its device (``_reduce_partials_pooled``)."""
         sts = {b: dtypes.coerce(reduced[b].scalar_type) for b in bases}
         # base -> the RESOLVED source column (a feed-dict rename)
         cols = {b: reduced[b].name for b in bases}
         sizes = frame.block_sizes
         nonempty = [bi for bi in range(frame.num_blocks) if sizes[bi]]
+        cache = frame_cache.active_cache(frame)
+        if cache is not None and len(nonempty) > 1:
+            return self._reduce_partials_pooled(
+                program, run_for, bases, sts, cols, frame, nonempty,
+                cache.devices, [cache.assignment[bi] for bi in nonempty], cache,
+            )
+        pool_devs = (
+            device_pool.pool_devices()
+            if len(nonempty) > 1 and _frame_fresh(frame) else []
+        )
+        if len(pool_devs) >= 2:
+            return self._reduce_partials_pooled(
+                program, run_for, bases, sts, cols, frame, nonempty, pool_devs,
+                device_pool.assign([sizes[bi] for bi in nonempty], len(pool_devs)),
+                None,
+            )
+        run = run_for(program)
         device = program.device
         session = fault_tolerance.frame_session(frame.num_blocks, verb="reduce")
         donate = prefetch.donate_inputs()
@@ -750,12 +1067,95 @@ class Executor:
         _record_stats("reduce", frame.num_blocks, pf, donate, session)
         return partials
 
+    def _reduce_partials_pooled(
+        self, program, run_for, bases, sts, cols, frame, nonempty, devices,
+        assignment, cache,
+    ) -> List[Dict[str, torch.Tensor]]:
+        """Partials folded on several devices (the JAX package's pooled and
+        sharded partials): the ``k``-th nonempty block folds on
+        ``devices[assignment[k]]``, from its cached shard in place when it
+        has one there, else staged on that device's lane (host-fresh) or
+        inline from the host copy (an evicted block).  Every partial then
+        moves, in block order, to the program's device, so the caller's one
+        ``_combine_partials`` fold is the serial fold bit for bit.  Retries
+        and quarantine redirects re-stage from the host copy on the current
+        effective device."""
+        sizes = frame.block_sizes
+        pool = device_pool.PoolRun(
+            devices, assignment, prefetch.prefetch_depth() or 1, affinity=cache is not None
+        )
+        session = fault_tolerance.frame_session(frame.num_blocks, verb="reduce", pool=pool)
+        runs: Dict[int, Any] = {}
+
+        def run_on(di, arrs):
+            if di not in runs:
+                runs[di] = run_for(device_pool.program_on(program, devices[di]))
+            with device_pool.device_scope(devices[di]):
+                return runs[di](arrs.ready())
+
+        def stage_block(k, dev, shard=None):
+            block = frame.block(nonempty[k])
+            return self._stage_values(
+                {b: ((shard or {}).get(cols[b], block[cols[b]]), sts[b]) for b in bases}, dev
+            )
+
+        lanes = [] if cache is not None else device_pool.lanes(devices, assignment, stage_block)
+        lane_iters = [iter(ln) for ln in lanes]
+        combine = program.device
+        partials = []
+        with torch.no_grad():
+            for k, bi in enumerate(nonempty):
+                cancellation.checkpoint()  # block boundary (pooled partials)
+                di = assignment[k]
+                if cache is not None:
+                    shard = cache.shard(bi)
+                    used = shard is not None and any(cols[b] in shard for b in bases)
+                    staged = stage_block(k, devices[di], shard if used else None)
+                else:
+                    used, staged = False, next(lane_iters[di])
+                holder = {"staged": staged}
+                del staged
+                hit = {"v": False}
+
+                def attempt(a, dev_i, _k=k, _h=holder, _di=di, _used=used, _hit=hit):
+                    arrs = _h.pop("staged", None) if (a == 0 and dev_i == _di) else None
+                    _h.clear()
+                    _hit["v"] = arrs is not None and _used
+                    if arrs is None:
+                        arrs = stage_block(_k, devices[dev_i])
+                    return run_on(dev_i, arrs)
+
+                if session is None:
+                    p = attempt(0, di)
+                    di_eff = di
+                else:
+                    p = session.run(bi, sizes[bi], attempt,
+                                    device=lambda _di=di: pool.effective_device(_di))
+                    di_eff = pool.effective_device(di)
+                    if used and not hit["v"]:
+                        session.note_cache_restage()
+                if hit["v"]:
+                    observability.note_cache_shard_hit()
+                pool.note_dispatch(di_eff, sizes[bi])
+                partials.append({b: p[b].to(combine) for b in bases})
+        _LAST.stats = {
+            "verb": "reduce",
+            "blocks": frame.num_blocks,
+            "device_pool": pool.record(
+                sum(ln.stats["stage_s"] for ln in lanes), sum(ln.stats["wait_s"] for ln in lanes)
+            ),
+            **({"fault_tolerance": session.record()} if session is not None else {}),
+            **({"frame_cache": cache.record()} if cache is not None else {}),
+        }
+        return partials
+
     def _reduce_blocks_setup(
         self, program: Program, frame: TensorFrame, verb: str = "reduce_blocks"
     ):
         """Pre-flight of reduce_blocks: checks the x_input contract and
-        returns ``(bases, reduced, run)``, where ``run`` applies the block
-        program to a dict of block arrays keyed by base column name."""
+        returns ``(bases, reduced, run_for)``, where ``run_for(program)``
+        applies that program to a dict of block arrays keyed by base
+        column name."""
         if frame.num_rows == 0:
             raise ValidationError(
                 f"{verb}: cannot reduce an empty frame (no identity "
@@ -776,10 +1176,10 @@ class Executor:
         )
         validation.check_reduce_blocks_outputs(reduced, summaries, verb=verb)
 
-        def run(arrs):
-            return program.call({f"{b}_input": arrs[b] for b in bases})
+        def run_for(prog):
+            return lambda arrs: prog.call({f"{b}_input": arrs[b] for b in bases})
 
-        return bases, reduced, run
+        return bases, reduced, run_for
 
     def reduce_blocks(
         self, program: Program, frame: TensorFrame
@@ -787,8 +1187,8 @@ class Executor:
         """``reduceBlocks`` (``DebugRowOps.scala:503-526``): phase 1 reduces
         each block to one row with the user's block program; phase 2 applies
         the same program once to the stacked per-block partials."""
-        bases, reduced, run = self._reduce_blocks_setup(program, frame)
-        return self._reduce(program, run, bases, reduced, frame)
+        bases, reduced, run_for = self._reduce_blocks_setup(program, frame)
+        return self._reduce(program, run_for, bases, reduced, frame)
 
     # ---------------------------------------------------------- aggregate --
 
@@ -818,6 +1218,11 @@ class Executor:
                 )
         if frame.num_rows == 0:
             return self._aggregate_empty(program, grouped, reduced, bases)
+
+        # --- the device segment path (a recognized plan) ---
+        seg = self._aggregate_segment(program, grouped, reduced, bases)
+        if seg is not None:
+            return seg
 
         # --- host-side group index (the shuffle replacement) ---
         key_cells = list(frame.select(grouped.keys).to_arrays().values())
@@ -889,6 +1294,81 @@ class Executor:
             arr = results[b]
             st = dtypes.from_torch(arr.dtype)
             info = ColumnInfo(b, st, Shape(tuple(arr.shape)).with_lead(UNKNOWN))
+            cols.append(Column(info, arr))
+        return TensorFrame(cols)
+
+    def _aggregate_segment(self, program, grouped, reduced, bases) -> Optional[TensorFrame]:
+        """The device segment path (the JAX package's ``_aggregate_segment``):
+        when ``segment_compile.recognize`` compiles the program into a
+        :class:`~.segment_compile.SegmentPlan`, the whole keyed reduction
+        runs on the program's device:
+
+        * one stable lexicographic sort over the key columns (a stable
+          sort a key, last key first), float keys canonicalised first
+          (-0.0 -> +0.0, every NaN -> one NaN) and compared by bit pattern,
+          so the groups and their order are ``np.unique``'s, NaN last;
+        * the plan's row stage over the columns, gathered into key order;
+        * one segmented reduction a reduce over the contiguous runs
+          (``torch.segment_reduce`` on lengths for floats, exact integer
+          ``scatter_reduce`` for ints): no float atomics, so the result is
+          the same bits on every run;
+        * the plan's group stage, vmapped over the groups.
+
+        The one host sync is the group count.  Returns None (the general
+        paths run) for programs the recognizer refuses, ragged or
+        host-only columns, and key types other than int, bool and float;
+        an executor with ``supports_segment_aggregate = False`` skips it."""
+        if not self.supports_segment_aggregate:
+            return None
+        frame = grouped.frame
+        n = frame.num_rows
+        if n == 0 or n >= np.iinfo(np.int32).max:
+            return None
+        for kname in grouped.keys:
+            kcol = frame.column(kname)
+            kst = kcol.info.scalar_type
+            if (kcol.is_ragged or not kst.device_ok or kst.torch_dtype is None
+                    or kst.torch_dtype.is_complex or dtypes.coerce(kst) is not kst):
+                return None
+        for b in bases:
+            col = frame.column(reduced[b].name)
+            if col.is_ragged or not col.info.scalar_type.device_ok:
+                return None
+        specs = {
+            f"{b}_input": (dtypes.coerce(reduced[b].scalar_type).torch_dtype,
+                           tuple(reduced[b].cell_shape))
+            for b in bases
+        }
+        plan = _recognize_segment_plan(program, specs, bases)
+        if plan is None:
+            return None
+        device = program.device
+        values = {
+            f"key:{k}": (frame.column(k).data, frame.column(k).info.scalar_type)
+            for k in grouped.keys
+        }
+        values.update({
+            f"{b}_input": (frame.column(reduced[b].name).data, dtypes.coerce(reduced[b].scalar_type))
+            for b in bases
+        })
+        with torch.no_grad():
+            staged = self._stage_values(values, device).ready()
+            uniq, order, counts = _segment_index([staged[f"key:{k}"] for k in grouped.keys])
+            pre = plan.pre({f"{b}_input": staged[f"{b}_input"] for b in bases}, program.params)
+            segs = [_segment_reduce(pc[order], kind, counts)
+                    for pc, kind in zip(pre, plan.reduce_kinds)]
+            outs = plan.post(segs, counts, program.params)
+        cols: List[Column] = []
+        for kname, kvals in zip(grouped.keys, uniq):
+            kinfo = frame.column(kname).info
+            cols.append(Column(
+                ColumnInfo(kname, kinfo.scalar_type, Shape(tuple(kvals.shape)).with_lead(UNKNOWN)),
+                kvals,
+            ))
+        for b in bases:
+            arr = outs[b]
+            info = ColumnInfo(b, dtypes.from_torch(arr.dtype),
+                              Shape(tuple(arr.shape)).with_lead(UNKNOWN))
             cols.append(Column(info, arr))
         return TensorFrame(cols)
 
@@ -978,6 +1458,81 @@ class Executor:
             gid = new_gid[order]
         # gid is sorted and exactly one partial per group remains
         return parts
+
+
+def _recognize_segment_plan(program: Program, specs, bases):
+    """The program's :class:`~.segment_compile.SegmentPlan`, or None,
+    memoized on the program by input signature."""
+    key = ("segplan", tuple(sorted((n, str(d), tuple(c)) for n, (d, c) in specs.items())))
+    memo = segment_compile.derived(program)
+    if key not in memo:
+        memo[key] = segment_compile.recognize(program, specs, bases)
+    return memo[key]
+
+
+def _canonical_key(k: torch.Tensor) -> torch.Tensor:
+    """Float keys grouped as ``np.unique`` groups them: -0.0 folds into
+    +0.0 and every NaN becomes one NaN."""
+    if k.dtype.is_floating_point:
+        k = torch.where(k == 0, torch.zeros((), dtype=k.dtype, device=k.device), k)
+        k = torch.where(torch.isnan(k), torch.full((), float("nan"), dtype=k.dtype, device=k.device), k)
+    return k
+
+
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _boundary(k: torch.Tensor) -> torch.Tensor:
+    """True where a sorted key column changes value (floats by bit
+    pattern, so the canonical NaNs form one group)."""
+    if k.dtype.is_floating_point:
+        k = k.view(_BITS[k.element_size()])
+    return k[1:] != k[:-1]
+
+
+def _segment_index(keys: Sequence[torch.Tensor]):
+    """``(unique key columns, row order, group counts)`` of the stable
+    lexicographic sort over ``keys``; the group count is the one host
+    sync."""
+    keys = [_canonical_key(k) for k in keys]
+    n = keys[0].shape[0]
+    dev = keys[0].device
+    order = torch.arange(n, device=dev)
+    for k in reversed(keys):  # stable sorts, least significant key first
+        kk = k[order]
+        if kk.dtype == torch.bool:
+            kk = kk.to(torch.uint8)
+        order = order[torch.sort(kk, stable=True).indices]
+    sk = [k[order] for k in keys]
+    neq = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=dev)
+    for k in sk:
+        neq |= _boundary(k)
+    newseg = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), neq])
+    gid = torch.cumsum(newseg.to(torch.int64), 0) - 1
+    num_groups = int(gid[-1]) + 1  # the one host sync
+    rows = torch.arange(n, device=dev)
+    starts = torch.full((num_groups,), n, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, gid, rows, reduce="amin"
+    )
+    counts = torch.zeros(num_groups, dtype=torch.int64, device=dev).index_add_(
+        0, gid, torch.ones(n, dtype=torch.int64, device=dev)
+    )
+    return [k[starts] for k in sk], order, counts
+
+
+_SCATTER = {"sum": "sum", "prod": "prod", "min": "amin", "max": "amax"}
+
+
+def _segment_reduce(v: torch.Tensor, kind: str, counts: torch.Tensor) -> torch.Tensor:
+    """One segmented reduction over contiguous runs of ``counts`` rows:
+    ``torch.segment_reduce`` for floats (a sequential reduction a segment,
+    no atomics), an exact integer ``scatter_reduce`` otherwise."""
+    if v.dtype.is_floating_point:
+        return torch.segment_reduce(v, kind, lengths=counts, axis=0)
+    gid = torch.repeat_interleave(torch.arange(counts.shape[0], device=v.device), counts)
+    gid = gid.reshape((-1,) + (1,) * (v.dim() - 1)).expand_as(v)
+    out = torch.zeros((counts.shape[0],) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+    return out.scatter_reduce_(0, gid, v, reduce=_SCATTER[kind], include_self=False)
 
 
 # ---------------------------------------------------------------------------

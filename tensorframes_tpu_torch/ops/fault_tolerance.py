@@ -25,9 +25,14 @@ re-stages fresh buffers from the host frame, runs the same program, on
 the same device, through the same kernels, and lands in the same block
 slot.  No retry and no split sends a block to the CPU or to a kernel's
 plain version, and an error that poisons the CUDA context is never
-retried (``resilience.is_sticky_cuda_error``).  The device pool's
-quarantine waits for the pool (ROADMAP.md Queue 1 item 9): on one device
-there is nothing to drain to.
+retried (``resilience.is_sticky_cuda_error``).
+
+**Device quarantine** (under the device pool, ``ops/device_pool.py``):
+every transient failure counts against the device it ran on
+(``PoolRun.note_block_failure``); after ``TFS_QUARANTINE_AFTER`` of them
+the device is drained and its later blocks, retries included, go to the
+least-loaded healthy device of the pool (``PoolRun.effective_device``),
+never to the CPU.
 
 Knobs:
 
@@ -37,6 +42,8 @@ Knobs:
   0.05).
 * ``TFS_MIN_SPLIT_ROWS`` -- OOM split floor (default 16): a range smaller
   than twice the floor never splits further.
+* ``TFS_QUARANTINE_AFTER`` -- transient failures before a pool device is
+  drained (default 3).
 * ``TFS_FAULT_INJECT`` -- the deterministic fault-injection plan
   (``faults.py``).
 """
@@ -55,10 +62,12 @@ logger = logging.getLogger("tensorframes_tpu_torch.fault_tolerance")
 ENV_RETRIES = "TFS_BLOCK_RETRIES"
 ENV_BACKOFF = "TFS_BLOCK_BACKOFF_S"
 ENV_MIN_SPLIT = "TFS_MIN_SPLIT_ROWS"
+ENV_QUARANTINE = "TFS_QUARANTINE_AFTER"
 
 DEFAULT_RETRIES = 2
 DEFAULT_BACKOFF_S = 0.05
 DEFAULT_MIN_SPLIT_ROWS = 16
+DEFAULT_QUARANTINE_AFTER = 3
 
 
 def block_retries() -> int:
@@ -76,12 +85,20 @@ def min_split_rows() -> int:
     return _env_int(ENV_MIN_SPLIT, DEFAULT_MIN_SPLIT_ROWS, floor=1)
 
 
+def quarantine_after() -> int:
+    """Transient failures before a pool device drains
+    (``TFS_QUARANTINE_AFTER``, >= 1)."""
+    return _env_int(ENV_QUARANTINE, DEFAULT_QUARANTINE_AFTER, floor=1)
+
+
 class BlockExecutionError(RuntimeError):
     """A block's dispatch failed irrecoverably; the message names the
     block index and row range so a frame-scale failure points at data."""
 
 
-def frame_session(num_blocks: int, verb: str = "") -> Optional["FrameRetrySession"]:
+def frame_session(
+    num_blocks: int, verb: str = "", pool=None
+) -> Optional["FrameRetrySession"]:
     """A :class:`FrameRetrySession` for one verb invocation, or ``None``
     when the layer is fully off (``TFS_BLOCK_RETRIES=0`` and no fault
     injection): the engine's loops then call each block once, with no
@@ -89,12 +106,13 @@ def frame_session(num_blocks: int, verb: str = "") -> Optional["FrameRetrySessio
     retries = block_retries()
     if retries <= 0 and not faults.active():
         return None
-    return FrameRetrySession(num_blocks, retries, verb=verb)
+    return FrameRetrySession(num_blocks, retries, verb=verb, pool=pool)
 
 
 class FrameRetrySession:
     """One verb invocation's retry bookkeeping: the per-block attempt loop,
-    the shared per-frame detector budget, and the counters of
+    the shared per-frame detector budget, quarantine reporting to the
+    pooled run (``pool``, a ``device_pool.PoolRun``) and the counters of
     :meth:`record`."""
 
     def __init__(
@@ -102,11 +120,13 @@ class FrameRetrySession:
         num_blocks: int,
         retries: Optional[int] = None,
         verb: str = "",
+        pool=None,
         detector: Optional[resilience.FailureDetector] = None,
         sleep: Callable[[float], None] = time.sleep,
     ):
         self.per_block = block_retries() if retries is None else int(retries)
         self.verb = verb
+        self.pool = pool
         # ONE detector per frame: classification lives in resilience and
         # its restart budget is the frame-level bound
         self.detector = detector or resilience.FailureDetector(
@@ -116,13 +136,16 @@ class FrameRetrySession:
         self._sleep = sleep
         self.retries = 0
         self.oom_splits = 0
+        # sharded-cache blocks rebuilt from the host copy because their
+        # home device was quarantined
+        self.cache_restages = 0
 
     def run(
         self,
         bi: int,
         n_rows: int,
         attempt_fn: Callable[[int, Optional[int]], Any],
-        device: Optional[int] = 0,
+        device: Any = 0,
         oom_split: Optional[Callable[[BaseException], Any]] = None,
         row_range: Optional[Tuple[int, int]] = None,
     ):
@@ -131,7 +154,9 @@ class FrameRetrySession:
 
         ``attempt_fn`` MUST re-stage its inputs on every attempt past the
         first.  ``device`` is the device index the fault plan's ``device=``
-        selector sees (the serial engine dispatches as 0).  ``oom_split``
+        selector sees (the serial engine dispatches as 0), or a zero-arg
+        callable giving the current effective index under the pool's
+        quarantine, read again at every attempt.  ``oom_split``
         is the verb's degradation closure: called with the OOM exception,
         it returns the block's outputs computed from split sub-ranges or
         raises :class:`BlockExecutionError`."""
@@ -141,9 +166,10 @@ class FrameRetrySession:
             # every attempt is a cancellation checkpoint, so a deadline that
             # passed during a block's compute or backoff surfaces here
             cancellation.checkpoint()
+            dev_i = device() if callable(device) else device
             try:
-                faults.maybe_inject(bi, attempt, device, n_rows)
-                return attempt_fn(attempt, device)
+                faults.maybe_inject(bi, attempt, dev_i, n_rows)
+                return attempt_fn(attempt, dev_i)
             except BaseException as exc:  # noqa: BLE001 - classified below
                 if isinstance(exc, cancellation.Cancelled):
                     raise  # a cancel is an instruction, not a failure
@@ -157,6 +183,9 @@ class FrameRetrySession:
                     ) from exc
                 if not self.detector.is_transient(exc):
                     raise
+                if self.pool is not None and dev_i is not None:
+                    # quarantine sees every failure, the last one included
+                    self.pool.note_block_failure(dev_i)
                 if attempt >= self.per_block:
                     if self.per_block <= 0:
                         raise  # retries pinned off: surface untouched
@@ -177,7 +206,7 @@ class FrameRetrySession:
                 observability.note_block_retry()
                 logger.warning(
                     "%s: block %d (device %s) transient failure, retry %d/%d "
-                    "after %.3fs: %r", self.verb, bi, device, attempt + 1,
+                    "after %.3fs: %r", self.verb, bi, dev_i, attempt + 1,
                     self.per_block, delay, exc,
                 )
                 # never sleep a backoff for a request already cancelled
@@ -190,15 +219,29 @@ class FrameRetrySession:
         self.oom_splits += 1
         observability.note_oom_split()
 
+    def note_cache_restage(self) -> None:
+        """One cached block rebuilt from its host copy because its resident
+        shard's device was quarantined."""
+        self.cache_restages += 1
+
     def events(self) -> bool:
         """Whether anything recovery-worthy happened."""
-        return bool(self.retries or self.oom_splits)
+        return bool(
+            self.retries or self.oom_splits or self.cache_restages
+            or (self.pool is not None and self.pool.quarantined)
+        )
 
     def record(self) -> dict:
         """The verb's ``fault_tolerance`` record (the JAX package's span
         annotation)."""
-        return {
+        rec: dict = {
             "retries": self.retries,
             "oom_splits": self.oom_splits,
             "retry_budget_per_block": self.per_block,
         }
+        if self.cache_restages:
+            rec["cache_restages"] = self.cache_restages
+        if self.pool is not None:
+            rec["failures_per_device"] = list(self.pool.failures)
+            rec["quarantined_devices"] = sorted(self.pool.quarantined)
+        return rec

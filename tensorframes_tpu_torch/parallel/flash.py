@@ -11,9 +11,10 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
 
 * :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
   wrappers.  A CUDA tensor launches the kernels in ``csrc/flash_fwd.cu`` /
-  ``csrc/flash_bwd.cu`` (or raises: there is no fallback); a CPU or
-  ``meta`` tensor takes :func:`flash_attention_plain` /
-  :func:`flash_attention_bwd_plain`.
+  ``csrc/flash_bwd.cu`` (or raises: there is no fallback); a CPU tensor
+  takes :func:`flash_attention_plain` / :func:`flash_attention_bwd_plain`
+  (the backward also on ``meta``); a ``meta`` tensor's forward gives its
+  shapes from one product chain (``_attention_meta``).
 * The plain versions emulate the Pallas kernels' tiled algorithms in plain
   PyTorch: ``block_q``/``block_k`` tiles, the causal block skip, the key
   padding mask, the GQA head map, the -inf-safe recurrence and recompute,
@@ -666,13 +667,33 @@ def flash_attention_fwd(
     """``(out [B, Lq, H, Dh], lse [B, H, Lq] f32)``.  CUDA tensors launch
     the kernel (its own tiling, at the head dim zero-padded to 64, 128, 256,
     512 or a multiple of 512;
-    ``block_q``/``block_k`` shape only the plain version) or raise; CPU and
-    meta tensors take the plain version."""
+    ``block_q``/``block_k`` shape only the plain version) or raise; CPU
+    tensors take the plain version, meta tensors ``_attention_meta``."""
     if q.device.type == "cuda":
         return _flash_fwd_cuda(q, k, v, causal)
-    if q.device.type in ("cpu", "meta"):
+    if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, block_q, block_k)
+    if q.device.type == "meta":
+        return _attention_meta(q, k, v)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _attention_meta(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's outputs on ``meta`` tensors (shapes and dtypes, no
+    values): one product chain over the whole length in place of the plain
+    version's tile loop, whose op count grows with (L / 128)^2 and made a
+    2048-token program take minutes to trace for shape inference and the
+    program analysis."""
+    H, KVH = q.shape[2], k.shape[2]
+    kv = _kv_head_map(H, KVH).to(q.device)
+    wide = _wide(q.dtype)
+    qh = q.permute(0, 2, 1, 3).to(wide)
+    kh = k.permute(0, 2, 1, 3)[:, kv].to(wide)
+    vh = v.permute(0, 2, 1, 3)[:, kv].to(wide)
+    s = qh @ kh.transpose(-1, -2)
+    lse = torch.logsumexp(s, -1)
+    out = (torch.softmax(s, -1) @ vh).to(q.dtype)
+    return out.permute(0, 2, 1, 3), lse
 
 
 def _bwd_kernels():

@@ -424,9 +424,11 @@ def test_oom_split_proven_programs_bit_identical(monkeypatch, case):
 
 def test_rowdep_accepts_a_row_broadcast_bias():
     """A linear layer's [p] or [1, p] bias is the same for every row, so
-    the program is proven row-independent; a GEMM's bits may still change
-    with the row count, so the split's output is not compared here."""
-    from tensorframes_tpu_torch.ops import rowdep
+    the exact-size proof (``segment_compile.rows_independent_at``, the
+    oracle under the classifier) proves the program row-independent; a
+    GEMM's bits may still change with the row count, so the split's output
+    is not compared here."""
+    from tensorframes_tpu_torch.ops import segment_compile
 
     specs = {"x": (torch.float32, (4,))}
     def linear(shape):
@@ -435,10 +437,10 @@ def test_rowdep_accepts_a_row_broadcast_bias():
 
     for shape in ((3,), (1, 3)):
         prog = engine._wrap(linear(shape), "map_blocks", device="cpu")
-        assert rowdep.rows_independent(prog, specs, [20, 10, 5])
+        assert segment_compile.rows_independent_at(prog, specs, [20, 10, 5])
     stacked = engine._wrap(lambda x: {"y": torch.stack([x, x], 0)}, "map_blocks",
                            device="cpu")
-    assert not rowdep.rows_independent(stacked, specs, [20, 10, 5])
+    assert not segment_compile.rows_independent_at(stacked, specs, [20, 10, 5])
 
 
 def test_oom_trimmed_map_surfaces_immediately(monkeypatch):

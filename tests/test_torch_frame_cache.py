@@ -3,7 +3,7 @@
 cases of ``tests/test_frame_cache.py``: budget parsing, the LRU accounting
 (held to the JAX package's ``_HbmBudget`` on the same charge sequences),
 the default path, and the strict/one-shot skip log.  The sharded cache
-waits for the device pool (ROADMAP.md Queue 1 item 9) and raises here."""
+(item 9) is held to the JAX package in ``tests/test_torch_device_pool.py``."""
 
 import logging
 
@@ -197,10 +197,17 @@ def test_cache_strict_and_one_shot_skip_log(caplog):
 
 
 def test_sharded_cache_and_pool_entry_points_name_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """Item 9's sharded cache has landed: ``device=`` with ``sharded=True``
+    is refused with the JAX package's message, without two devices
+    ``shard_devices`` resolves none (so ``cache(sharded=True)`` is the
+    one-device cache), and ``lazy()`` names where the planner waits."""
+    with pytest.raises(SchemaError) as ei:
         _frame().cache(sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    jframe = tfs.TensorFrame.from_arrays({"x": np.ones((4, 2), np.float32)})
+    with pytest.raises(JSchemaError) as je:
+        jframe.cache(sharded=True, device="cpu")
+    assert str(ei.value) == str(je.value)
+    with pytest.raises(NotImplementedError, match="item 10"):
         _frame().lazy()
-    for name in ("shard_devices", "build", "release_host_columns", "FrameCache"):
-        with pytest.raises(NotImplementedError, match=f"frame_cache.{name} .*item 9"):
-            getattr(frame_cache, name)()
+    assert frame_cache.shard_devices(True) == [] or torch.cuda.device_count() >= 2
+    assert frame_cache.build(_frame(), ["x"], devices=[torch.device("cpu")]) is None

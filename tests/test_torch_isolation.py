@@ -101,11 +101,33 @@ def test_importing_the_moe_and_dispatch_slice_loads_no_jax():
         "tensorframes_tpu_torch.models.moe, tensorframes_tpu_torch.cancellation, "
         "tensorframes_tpu_torch.faults, tensorframes_tpu_torch.resilience, "
         "tensorframes_tpu_torch.ops.prefetch, tensorframes_tpu_torch.ops.fault_tolerance, "
-        "tensorframes_tpu_torch.ops.rowdep\n"
+        "tensorframes_tpu_torch.analysis.rowdep\n"
         "from tensorframes_tpu_torch.text import BPETokenizer\n"
         "from tensorframes_tpu_torch.models.moe import (gate, moe_mlp, routing_stats, "
         "layer_routing_stats)\n"
         "from tensorframes_tpu_torch.ops.engine import last_verb_stats\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_importing_the_analysis_and_pool_slice_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch, tensorframes_tpu_torch.analysis, "
+        "tensorframes_tpu_torch.analysis.rowdep, tensorframes_tpu_torch.analysis.contracts, "
+        "tensorframes_tpu_torch.ops.segment_compile, tensorframes_tpu_torch.ops.bucketing, "
+        "tensorframes_tpu_torch.ops.device_pool, tensorframes_tpu_torch.ops.pipeline, "
+        "tensorframes_tpu_torch.streaming.spill\n"
+        "from tensorframes_tpu_torch import pipeline, Pipeline, check\n"
+        "from tensorframes_tpu_torch.models.logistic_regression import fit_fused, make_pipeline\n"
+        "from tensorframes_tpu_torch.models.kmeans import fit_fused as kfit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas'))\n"
         "print(repr(bad))"
@@ -132,7 +154,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "envutil.py", "observability.py", "io.py", "frame_cache.py", "quant.py",
             "decode.py", "kv_pager.py", "moe.py", "text.py", "cancellation.py",
             "faults.py", "resilience.py", "prefetch.py", "fault_tolerance.py",
-            "rowdep.py"} <= {
+            "rowdep.py", "contracts.py", "segment_compile.py", "bucketing.py",
+            "device_pool.py", "pipeline.py", "spill.py"} <= {
         p.name for p in files
     }
     for path in files:
@@ -225,6 +248,36 @@ def test_graphdef_slice_entry_points_raise_without_a_card(no_cuda, call):
 def test_serving_slice_entry_points_raise_without_a_card(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: tft.pipeline(tft.TensorFrame.from_arrays({"x": np.ones(3)}))
+        .map_blocks(lambda x: {"y": x}),
+        lambda: tft.check(tft.TensorFrame.from_arrays({"x": np.ones(3)}),
+                          lambda x: {"y": x}, "map_blocks"),
+        lambda: __import__("tensorframes_tpu_torch.models.logistic_regression", fromlist=["x"])
+        .fit_fused(tft.TensorFrame.from_arrays({"features": np.ones((4, 2)),
+                                                "label": np.ones(4)}), num_iters=1),
+        lambda: __import__("tensorframes_tpu_torch.models.kmeans", fromlist=["x"])
+        .fit_fused(tft.TensorFrame.from_arrays({"points": np.ones((4, 2))}), 2, num_iters=1),
+        lambda: tft.aggregate(lambda v_input: {"v": v_input.sum(0)},
+                              tft.group_by(tft.TensorFrame.from_arrays(
+                                  {"k": np.arange(4), "v": np.ones(4)}), "k")),
+    ],
+    ids=["pipeline", "check", "logreg_fit_fused", "kmeans_fit_fused", "segment_aggregate"],
+)
+def test_analysis_and_pipeline_entry_points_raise_without_a_card(no_cuda, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_the_pool_resolves_no_device_without_a_card(no_cuda, monkeypatch):
+    from tensorframes_tpu_torch.ops import device_pool, frame_cache
+
+    monkeypatch.setenv("TFS_DEVICE_POOL", "auto")
+    assert device_pool.pool_devices() == [] and frame_cache.shard_devices(True) == []
 
 
 def test_decode_runs_on_the_params_device(no_cuda):

@@ -68,6 +68,7 @@ def test_counters_snapshot_and_delta():
     obs.note_oom_split()
     d = obs.counters_delta(before)
     assert d == {
+        **dict.fromkeys(before, 0),  # the pool's, the analysis' and the spill's
         "h2d_bytes_staged": 128, "cache_shard_hits": 1, "cache_evictions": 1,
         "kv_pages_allocated": 3, "kv_pages_freed": 2, "faults_injected": 1,
         "block_retries": 2, "block_oom_splits": 1,
