@@ -195,7 +195,27 @@ Phases, each printing its own lines and then its command time (``phase:``):
    Mrows/s; (e) the classification of every program the phase and the
    scoring slice run, the pool resolving no pool on one card, and
    ``cache(sharded=True)`` staging 0 host bytes under ``reduce_blocks``;
-11. the card's line again, the kernels' JSON record (each kernel at the
+11. observability (after the pipeline phase): (a) the flagship scores the
+   scoring cell (64 rows of 2048 tokens in 8 blocks, ``map_blocks``,
+   flash) ``OBS_RUNS`` times each with spans and the flight recorder off
+   and on, in turns; every run is bit-identical to the first, with 64
+   ``flash_fwd_tma<bf16,64>`` launches; each "on" run runs under
+   ``enable()``, ``enable_trace()`` and ``request_ledger(tenant="smoke")``,
+   its ledger must equal ``counters_delta`` over it, the ``cuda:0`` track
+   must hold its 8 block events (with the ledger's cid) and its span the
+   ``map_blocks`` phases; ``metrics_text`` must carry the ``map_blocks``
+   latency family and the tenant's; ms a block both ways; (b)
+   ``dump_trace`` written and read back as JSON (8 events on the card's
+   track, no drops), and one small ``map_blocks`` under
+   ``enable(profile_dir)`` must write a Chrome trace; (c) the roofline of
+   one scoring block on the card's peaks, with ``measured_s`` from (a)'s
+   "off" median: one attention op a layer, each with exactly the flash
+   forward's own count (``kernel_bound``); ``total_flops``,
+   ``ceiling_mfu``, ``mfu``, ``ceiling_fraction``; (d) one ``generate`` at
+   B = 8 (decode config 8's prompts) under a span: its phases, and its wall
+   time to the readback; (e) ``doctor()`` over the process's state,
+   rendered;
+12. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -219,10 +239,14 @@ import time
 import numpy as np
 import torch
 
-# the card's published peaks (H100 SXM data sheet, dense), for the bound
-PEAK_16BIT_FLOPS = 989e12  # bf16 and f16 alike
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# the port itself: without it (the script alone) this fails before any
+# output.  Its roofline holds the card's published peaks (H100 SXM data
+# sheet, dense) and the kernels' counts that the bounds use
+from tensorframes_tpu_torch import roofline  # noqa: E402
+
+PEAK_16BIT_FLOPS = roofline.PEAK_FLOPS[roofline.H100]  # bf16 and f16 alike
+PEAK_F32_FLOPS = 67e12  # the FMA pipe, outside the tensor cores
+PEAK_BYTES = roofline.PEAK_BYTES_PER_S[roofline.H100]
 
 FLAGSHIP = dict(B=8, Lq=2048, Lk=2048, H=16, KVH=16, D=64, dtype=torch.bfloat16, causal=True)
 # the small-head slice: a JAX test width (d_model 128, 4 heads: Dh = 32),
@@ -612,48 +636,27 @@ def qkv(c, seed=0):
     return r(c["Lq"], c["H"]), r(c["Lk"], c["KVH"]), r(c["Lk"], c["KVH"])
 
 
-# FLOPs per (query, key) pair and head dim: the forward's S and PV; dQ's
-# S, dP and dS K; dK/dV's S, dP, P^T dO and dS^T Q
-FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
-
-
 def kernel_bound(c, kernel):
-    """Least time for one kernel's work: every input read once, every
+    """Least time for one kernel's work (``roofline.flash_cost``, the count
+    the roofline gives the attention op): every input read once, every
     output written once; FLOPs counted for the (query, key) pairs this data
     needs (causal: the top-left triangle, exactly)."""
     B, Lq, Lk, H, KVH, D = (c[k] for k in ("B", "Lq", "Lk", "H", "KVH", "D"))
-    if c["causal"]:
-        pairs = sum(min(i + 1, Lk) for i in range(Lq))
-    else:
-        pairs = Lq * Lk
-    flops = FLOPS_PER_PAIR[kernel] * B * H * D * pairs
     es = torch.tensor([], dtype=c["dtype"]).element_size()
-    q_like, kv_like, row = es * B * Lq * H * D, es * B * Lk * KVH * D, 4 * B * H * Lq
-    nbytes = {
-        "flash_fwd": 2 * q_like + 2 * kv_like + row,       # q, k, v -> out, lse
-        "flash_bwd_dq": 3 * q_like + 2 * kv_like + 2 * row,  # q, dO, k, v, lse, D -> dq
-        "flash_bwd_dkv": 2 * q_like + 4 * kv_like + 2 * row,  # ... -> dk, dv
-    }[kernel]
+    flops, nbytes = roofline.flash_cost(kernel, B, Lq, Lk, H, KVH, D, es, c["causal"])
     peak = PEAK_F32_FLOPS if c["dtype"] == torch.float32 else PEAK_16BIT_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
 def ring_bound(c, q_off, k_off):
-    """Least time for one ring hop at shape ``c``: q, k, v read once, the
-    f32 carry o read and written once, m and l read and written once; FLOPs
-    (S and PV, 4 per pair and head dim) for the (query, key) pairs these
-    offsets leave visible, exactly."""
+    """Least time for one ring hop at shape ``c`` (``roofline.ring_step_cost``):
+    q, k, v read once, the f32 carry o read and written once, m and l read
+    and written once; FLOPs (S and PV, 4 per pair and head dim) for the
+    (query, key) pairs these offsets leave visible, exactly."""
     B, C, H, KVH, D = (c[k] for k in ("B", "C", "H", "KVH", "D"))
-    if c["causal"]:
-        pairs = sum(min(max(q_off + i - k_off + 1, 0), C) for i in range(C))
-    else:
-        pairs = C * C
-    flops = 4 * B * H * D * pairs
     es = torch.tensor([], dtype=c["dtype"]).element_size()
-    nbytes = (es * B * C * (H + 2 * KVH) * D  # q, k, v
-              + 2 * 4 * B * C * H * D  # o in and out, f32
-              + 4 * 4 * B * H * C)  # m and l in and out, f32
+    flops, nbytes = roofline.ring_step_cost(B, C, H, KVH, D, es, q_off, k_off, c["causal"])
     peak = PEAK_F32_FLOPS if c["dtype"] == torch.float32 else PEAK_16BIT_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
@@ -3397,8 +3400,8 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     with its launches over the main paths' runs (``main_runs``: launches by
     instantiation of the flagship scoring, the wide-head scoring and train,
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
-    pipeline phase's scoring chain, the
-    flagship train epoch, the ring scoring runs and the MoE legs' scoring,
+    pipeline phase's scoring chain, the observability phase's scoring runs,
+    the flagship train epoch, the ring scoring runs and the MoE legs' scoring,
     train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
@@ -3731,6 +3734,177 @@ def phase_pipeline(slice_prog):
     return launches
 
 
+# the observability phase: the scoring cell run with spans and the flight
+# recorder off and on, in turns (off, on, off, on, ...), this many runs each
+OBS_RUNS = 3
+
+
+def phase_observability(slice_prog):
+    """Legs (a)-(e) of the observability layer, the roofline and the
+    doctor (the module docstring's phase 11).  Returns the flash launches
+    of leg (a)'s runs by instantiation."""
+    import tempfile
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch.doctor import render
+    from tensorframes_tpu_torch.models import decode, transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    cfg = tfm.TransformerConfig(**DECODE_MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    rows, L, blocks = 64, 2048, 8
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (rows, L)).astype(np.int32)
+    frame = tft.TensorFrame.from_arrays({"tokens": tokens}, num_blocks=blocks)
+    block_rows = rows // blocks
+    inst = route_of("flash_fwd", torch.bfloat16, 64)
+    card = str(torch.device("cuda", torch.cuda.current_device()))
+
+    def run():
+        flash.reset_launches()  # count this run alone
+        t0 = time.perf_counter()
+        out = tft.map_blocks(slice_prog, frame).to_arrays()  # ends in a D2H sync
+        return out, time.perf_counter() - t0, dict(flash.kernel_launches)
+
+    # (a) the scoring cell, spans and recorder off and on in turns
+    tft.map_blocks(slice_prog, tft.TensorFrame.from_arrays(
+        {"tokens": tokens[:block_rows]})).to_arrays()  # warm-up
+    obs.disable()
+    obs.disable_trace()
+    obs.reset_latency()
+    ref = None
+    ms = {"off": [], "on": []}
+    total = {}
+    for i in range(2 * OBS_RUNS):
+        mode = "off" if i % 2 == 0 else "on"
+        if mode == "off":
+            out, sec, launches = run()
+        else:
+            obs.clear_trace()
+            obs.enable()
+            obs.enable_trace()
+            c0 = obs.counters()
+            try:
+                with obs.request_ledger(tenant="smoke") as led:
+                    out, sec, launches = run()
+            finally:
+                obs.disable()
+                obs.disable_trace()
+            delta = obs.counters_delta(c0)
+            ledger = {k: led.counters.get(k, 0) for k in delta}
+            if ledger != delta:
+                raise AssertionError(f"ledger {led.counters} differs from the delta "
+                                     f"{ {k: v for k, v in delta.items() if v} }")
+            blk = [e for e in obs.trace_events() if e["track"] == card]
+            if sorted(e["name"] for e in blk) != sorted(f"map_blocks b{b}" for b in range(blocks)) \
+                    or any(e["args"].get("cid") != led.correlation_id for e in blk):
+                raise AssertionError(f"{card} track: {[e['name'] for e in blk]}")
+            span = obs.last_spans(1)[0]
+            if span["verb"] != "map_blocks" or span.get("cid") != led.correlation_id \
+                    or not {"validate", "dispatch"} <= set(span["phases_s"]) \
+                    or (span["rows"], span["blocks"]) != (rows, blocks):
+                raise AssertionError(f"map_blocks span: {span}")
+        if launches != {inst: cfg.n_layers * blocks}:
+            raise AssertionError(f"observability {mode} run launched {launches}, expected "
+                                 f"{{{inst!r}: {cfg.n_layers * blocks}}}")
+        if ref is None:
+            ref = out
+        elif not same_arrays(out, ref):
+            raise AssertionError(f"observability {mode} run: outputs differ from the first run")
+        ms[mode].append(sec / blocks * 1e3)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    text = obs.metrics_text()
+    if f'tfs_verb_latency_seconds_count{{verb="map_blocks"}} {2 * OBS_RUNS}' not in text \
+            or 'tfs_request_requests_total{tenant="smoke"}' not in text:
+        raise AssertionError("metrics_text lacks the map_blocks latency family or the tenant's")
+    say("observability", leg="a_scoring_off_on", rows=rows, tokens_per_row=L, blocks=blocks,
+        ms_per_block_off=ms["off"], ms_per_block_on=ms["on"],
+        median_off=float(np.median(ms["off"])), median_on=float(np.median(ms["on"])),
+        on_over_off=float(np.median(ms["on"]) / np.median(ms["off"])),
+        flash_launches_a_run=cfg.n_layers * blocks, nll_bit_identical=True,
+        ledger=led.snapshot(), span_phases_s=span["phases_s"], span_total_s=span["total_s"],
+        block_events=len(blk), latency=obs.latency_snapshot()["verb:map_blocks"])
+
+    # (b) the Chrome-trace dump of the last "on" run, and one small verb profiled
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.dump_trace(os.path.join(tmp, "trace.json"))
+        with open(path) as f:
+            dumped = json.load(f)
+        tids = {e["args"]["name"]: e["tid"] for e in dumped["traceEvents"]
+                if e["ph"] == "M" and e["name"] == "thread_name"}
+        on_card = [e for e in dumped["traceEvents"]
+                   if e["ph"] == "X" and e["tid"] == tids.get(card)]
+        if len(on_card) != blocks or dumped["otherData"]["dropped_events"]:
+            raise AssertionError(f"dump_trace: {len(on_card)} events on {card}, tracks "
+                                 f"{sorted(tids)}, {dumped['otherData']}")
+        prof_dir = os.path.join(tmp, "profile")
+        small = tft.TensorFrame.from_arrays({"x": np.arange(4096.0, dtype=np.float32)},
+                                            num_blocks=4)
+        obs.enable(profile_dir=prof_dir)
+        try:
+            tft.map_blocks(lambda x: {"z": x * 2}, small).to_arrays()
+        finally:
+            obs.disable()
+        files = [n for n in os.listdir(prof_dir) if n.endswith(".json")]
+        if not files:
+            raise AssertionError(f"enable(profile_dir) wrote no trace into {prof_dir}")
+        say("observability", leg="b_trace_files", tracks=sorted(tids),
+            events=len(dumped["traceEvents"]), card_events=len(on_card),
+            profile_files=len(files),
+            profile_bytes=os.path.getsize(os.path.join(prof_dir, files[0])))
+
+    # (c) the roofline of one scoring block on the card's peaks
+    block = torch.from_numpy(tokens[:block_rows]).cuda()
+    t0 = time.perf_counter()
+    rep = roofline.roofline(slice_prog, {"tokens": block},
+                            measured_s=float(np.median(ms["off"])) / 1e3)
+    trace_s = time.perf_counter() - t0
+    attn = [o for o in rep.ops if o.kind == "attention"]
+    want = kernel_bound(dict(B=block_rows, Lq=L, Lk=L, H=cfg.n_heads, KVH=cfg.n_kv_heads,
+                             D=cfg.d_model // cfg.n_heads, dtype=torch.bfloat16, causal=True),
+                        "flash_fwd")[2]
+    if rep.device_kind != torch.cuda.get_device_name(0) or len(attn) != cfg.n_layers \
+            or any(o.flops != want for o in attn):
+        raise AssertionError(f"roofline on {rep.device_kind}: attention ops "
+                             f"{[o.flops for o in attn]}, expected {cfg.n_layers} x {want}")
+    say("observability", leg="c_roofline", device=rep.device_kind, source=rep.source,
+        seconds=trace_s, ops=len(rep.ops), total_flops=rep.total_flops,
+        total_bytes=rep.total_bytes, aggregate_flops=rep.xla_flops,
+        attention_flops_each=want, ceiling_mfu=rep.ceiling_mfu, mfu=rep.mfu,
+        ceiling_fraction=rep.ceiling_fraction, measured_s=rep.measured_s,
+        summary=rep.summary(top=5))
+
+    # (d) one generate at B = 8 under a span (decode config 8's prompts)
+    model = slice_prog.params["model"]
+    prompt = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (8, DECODE_PROMPT)).astype(np.int32)).cuda()
+    decode.generate(model, prompt, cfg, 2)  # warm-up
+    torch.cuda.synchronize()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        gen = decode.generate(model, prompt, cfg, DECODE_NEW)
+        span = obs.last_spans(1)[0]
+        gen = gen.cpu()  # the readback: the first wait on the card
+        wall = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    if span["verb"] != "generate" or (span["rows"], span["blocks"]) != (8, 1) \
+            or set(span["phases_s"]) != {"prefill", "dispatch"} \
+            or tuple(gen.shape) != (8, DECODE_PROMPT + DECODE_NEW):
+        raise AssertionError(f"generate span {span}, output {tuple(gen.shape)}")
+    say("observability", leg="d_generate_span", B=8, prompt=DECODE_PROMPT, new=DECODE_NEW,
+        span_phases_s=span["phases_s"], span_total_s=span["total_s"], wall_s=wall,
+        readback_s=wall - span["total_s"], host_share=span["total_s"] / wall,
+        tokens_per_s=8 * DECODE_NEW / wall)
+
+    # (e) the advisor over this process's state
+    diags = tft.doctor()
+    say("observability", leg="e_doctor", codes=[d["code"] for d in diags])
+    print(render(diags), flush=True)
+    return total
+
+
 def run_phase(phase, *args):
     """``phase(*args)``, printing its command time: the script's run time
     by phase."""
@@ -3751,9 +3925,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    # the port itself: without it (the script alone) this fails before any
-    # output
-    import tensorframes_tpu_torch  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity with JAX
     torch.backends.cudnn.allow_tf32 = False
     card = phase_env()
@@ -3770,6 +3941,7 @@ def main() -> int:
     run_phase(phase_verbs)
     run_phase(phase_cached_verbs)
     pipeline_launches = run_phase(phase_pipeline, prog)
+    observability_launches = run_phase(phase_observability, prog)
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)
@@ -3785,7 +3957,7 @@ def main() -> int:
                   ring_run, ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
-        pipeline_launches, train_run[5],
+        pipeline_launches, observability_launches, train_run[5],
         ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)

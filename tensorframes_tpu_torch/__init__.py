@@ -14,8 +14,11 @@ KV-cache decode with sampling, speculative, paged and int8 variants
 (``models/decode.py``, ``models/kv_pager.py``, ``models/quant.py``),
 ``TensorFrame.cache`` over the device-memory budget, sharded across a
 device pool when there is one (``ops/frame_cache.py``,
-``ops/device_pool.py``), Arrow/parquet/pandas I/O (``io.py``) and the
-always-on counters (``observability.py``); the program analysis
+``ops/device_pool.py``), Arrow/parquet/pandas I/O (``io.py``), the
+observability layer (``observability.py``: counters, verb spans, the
+flight recorder, latency histograms, ``metrics_text`` and the request
+ledger), the roofline on the card's peaks (``roofline.py``) and the
+advisor ``doctor`` (``doctor.py``); the program analysis
 (``analysis/``: the row-dependence classifier and ``check``) and the fast
 paths it gates (bucket padding, padded ragged buckets, the device segment
 aggregate); verb chains with ``pipeline`` (``ops/pipeline.py``).
@@ -28,10 +31,12 @@ The package imports torch and numpy only — never jax or tensorframes_tpu —
 and installs no global hooks.
 """
 
-from . import dsl, graphdef
+from . import dsl, graphdef, observability
 from .analysis import check
 from .analyze import analyze, print_schema
 from .builder import OpBuilder
+from .doctor import doctor
+from .observability import initialize_logging
 from .data import FrameLoader
 from .dsl import block, row
 from .dtypes import ScalarType, by_name as scalar_type, supported_types
@@ -75,12 +80,15 @@ __all__ = [
     "analyze",
     "block",
     "check",
+    "doctor",
     "dsl",
     "graphdef",
     "group_by",
+    "initialize_logging",
     "map_blocks",
     "map_blocks_trimmed",
     "map_rows",
+    "observability",
     "pipeline",
     "print_schema",
     "reduce_blocks",

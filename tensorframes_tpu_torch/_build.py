@@ -9,6 +9,11 @@ the flags, so a changed source or header rebuilds and an unchanged one
 loads at once.  Builds happen at
 first use — never at import — and a failed build raises with nvcc's
 output.  ``build_all`` starts one ``nvcc`` per source, all at once.
+
+The compile counters of ``observability`` count this module's work: each
+``nvcc`` run is one ``backend_compiles`` and one
+``persistent_cache_misses``; each library ``load`` finds already built
+in ``_build/`` is one ``persistent_cache_hits``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+from . import observability
 
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
@@ -90,6 +97,8 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
+    observability.note_backend_compile()
+    observability.note_persistent_cache(hit=False)
     proc.tmp, proc.so = tmp, so
     return proc
 
@@ -130,6 +139,8 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
+        if library_path(name).exists():
+            observability.note_persistent_cache(hit=True)
         so = build_all([name])[name]
         lib = _loaded[name] = ctypes.CDLL(str(so))
     return lib

@@ -241,7 +241,7 @@ def _taint_run(program, specs, n_rows: int) -> None:
     for nm in sorted(specs):
         dtype, cell = _spec_cell(specs[nm])
         inputs[nm] = torch.empty((n_rows,) + cell, dtype=dtype, device="meta")
-    with torch.no_grad(), _Taint(list(inputs.values())):
+    with torch.no_grad(), observability.suppress_trace_count(), _Taint(list(inputs.values())):
         program.call(inputs, params)
 
 

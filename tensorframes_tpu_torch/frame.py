@@ -14,7 +14,7 @@ ROADMAP.md Queue 1 item B).  ``group_by`` makes the ``GroupedFrame`` that
 pandas when called.  ``cache()`` copies the device-feedable columns to one
 device once, so later verbs stage no host bytes; ``cache(sharded=True)``
 places each block on its pool device (``ops/frame_cache.py``).  ``lazy()``
-waits for the planner (ROADMAP.md Queue 1 item 10).
+waits for the planner (ROADMAP.md Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -491,12 +491,11 @@ class TensorFrame:
 
     def lazy(self):
         """Planned mode (the JAX package's ``ops/planner.py``) is not ported
-        yet: the planner imports the roofline model, so it waits for
-        ROADMAP.md Queue 1 item 10."""
+        yet: it waits for ROADMAP.md Queue 1 item 10b."""
         raise NotImplementedError(
             "TensorFrame.lazy() (the verb-graph planner) is not ported yet: "
-            "it waits for ROADMAP.md Queue 1 item 10 (the planner imports "
-            "the roofline model and the observability layer of item 10)"
+            "it waits for ROADMAP.md Queue 1 item 10b (the planner, on the "
+            "roofline model and the observability layer of item 10a)"
         )
 
     def release_host_columns(self) -> int:

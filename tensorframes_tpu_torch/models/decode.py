@@ -18,8 +18,10 @@ JAX jits a whole generation into one dispatch (``_generate_jit``); here it
 is an eager loop over the same ops, a few hundred small launches a token.
 It is not ``torch.compile``d: fusing would change the eager rounding the
 port is held to.  Params are cast to the compute dtype once a call
-(:func:`cast_params`).  ``generate`` bumps no counter (JAX's ``verb_span``
-waits for the spans of ROADMAP.md Queue 1 item 10).
+(:func:`cast_params`).  ``generate`` runs under
+``observability.verb_span("generate", B, 1)``, as JAX's does, with the
+phases ``prefill`` and ``dispatch`` (the decode steps): both end when the
+host has enqueued the work, since nothing here waits for the card.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import observability
 from ..device import DeviceLike, resolve_device
 from . import transformer as tfm
 
@@ -219,12 +222,16 @@ def generate(
             logits_last, gen, temperature, top_k, top_p
         ).to(prompt.dtype)
 
-    logits, cache = apply_cached(params, prompt, cache, cfg)  # prefill
-    toks = [sample(logits[:, -1])]
-    for _ in range(max_new_tokens - 1):
-        logits, cache = apply_cached(params, toks[-1][:, None], cache, cfg)
-        toks.append(sample(logits[:, -1]))
-    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+    with observability.verb_span("generate", B, 1) as span:
+        logits, cache = apply_cached(params, prompt, cache, cfg)  # prefill
+        toks = [sample(logits[:, -1])]
+        span.mark("prefill")
+        for _ in range(max_new_tokens - 1):
+            logits, cache = apply_cached(params, toks[-1][:, None], cache, cfg)
+            toks.append(sample(logits[:, -1]))
+        out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+        span.mark("dispatch")
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -160,6 +160,16 @@ def _d2h_stream(device: torch.device):
         return _d2h_streams[device]
 
 
+def device_tracks(devices: Sequence[Any]) -> List[str]:
+    """The flight recorder's track of each pool device: the device's name
+    (``cuda:1``), with the pool index added when names repeat (a pool of
+    CPU devices in the tests)."""
+    names = [str(d) for d in devices]
+    if len(set(names)) == len(names):
+        return names
+    return [f"{n}/{i}" for i, n in enumerate(names)]
+
+
 def _host_value(t: torch.Tensor):
     """A host tensor as the frame holds it: numpy, or the tensor itself
     for bf16 (numpy has no bf16)."""
@@ -178,6 +188,7 @@ class PoolRun:
     def __init__(self, devices: Sequence[Any], assignment: Sequence[int],
                  depth: int, affinity: bool = False):
         self.devices = list(devices)
+        self.tracks = device_tracks(self.devices)
         self.assignment = list(assignment)
         self.depth = max(1, int(depth))
         # affinity runs (a sharded cache) stage nothing: 0 stage time
@@ -206,6 +217,7 @@ class PoolRun:
         with _quarantine_lock:
             _quarantine_history.add(di)
         observability.note_device_quarantined()
+        observability.trace_instant("quarantine", "faults", device=di, failures=self.failures[di])
         healthy = len(self.devices) - len(self.quarantined)
         logger.warning(
             "device %d quarantined after %d transient failures; "
@@ -275,6 +287,12 @@ class PoolRun:
         out_blocks[bi] = {k: _host_value(v) for k, v in pending.items()}
         observability.note_d2h_bytes(sum(v.numel() * v.element_size() for v in pending.values()))
         now = time.perf_counter()
+        # the readback is where a pooled block syncs: its place on the
+        # device's track shows the readback overlap
+        if observability.trace_enabled():
+            observability.trace_complete(
+                f"readback b{bi}", self.tracks[di], t0, now, block=bi, device=di
+            )
         self.drain_s += now - t0
         self._last_done[di] = now
 

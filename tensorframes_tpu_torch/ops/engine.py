@@ -53,8 +53,14 @@ Map outputs stay on the device as tensors until ``collect``/``to_arrays``
 verbs return host arrays.  Every verb stages host arrays one way, through
 ``prefetch.stage_arrays``, which bumps ``observability.note_h2d_bytes``
 (each staging once, a retry's included).  ``last_verb_stats`` gives the
-last loop's record.  Not ported (ROADMAP.md Queue 1): chunk-level streamed
-plans and spans (item 11), the planner (after item 10).
+last loop's record.
+
+Each verb runs under ``observability.verb_span`` (its phases, the loop's
+record as annotations, the always-on latency histogram); every block
+leaves a flight-recorder event on its device's track (``cuda:0``) and is
+attributed to the active request's ledger, as JAX's loops do.  Not ported
+(ROADMAP.md Queue 1): chunk-level streamed plans (item 11), the planner
+(item 10b).
 """
 
 from __future__ import annotations
@@ -144,6 +150,15 @@ def _torch_dtype_of(a) -> torch.dtype:
     if isinstance(a, torch.Tensor):
         return a.dtype
     return dtypes.coerce(dtypes.from_numpy(np.asarray(a).dtype)).torch_dtype
+
+
+def _annotate(span) -> None:
+    """The block loop's record, just made, as annotations of the verb's
+    span (JAX's loops annotate the span with the same fields)."""
+    rec = _LAST.stats
+    for key in ("prefetch", "device_pool", "fault_tolerance", "frame_cache"):
+        if key in rec:
+            span.annotate(key, rec[key])
 
 
 def _record_stats(verb: str, n_blocks: int, pf, donate: bool, session) -> None:
@@ -333,20 +348,25 @@ class Executor:
         program (binary decode); the program's ``host_prelude`` is merged
         under it."""
         host_stage = _with_prelude(program, host_stage)
-        infos = validation.check_map_inputs(
-            program, frame, "map_blocks", host_staged=host_stage or ()
-        )
-        if frame.num_rows == 0 and not trim:
-            # empty-frame contract: a non-trimmed map of an empty frame is
-            # an empty frame with the program's inferred output schema — no
-            # program execution.  (A TRIMMED map still applies the program
-            # to the empty block: its output row count is program-defined.)
-            out_blocks = [self._empty_map_outputs(program, infos, False)]
-        else:
-            out_blocks = self._map_dispatch(
-                program, frame, infos, False, trim, host_stage
+        with observability.verb_span("map_blocks", frame.num_rows, frame.num_blocks) as span:
+            infos = validation.check_map_inputs(
+                program, frame, "map_blocks", host_staged=host_stage or ()
             )
-        return self._build_map_output(frame, out_blocks, trim)
+            span.mark("validate")
+            if frame.num_rows == 0 and not trim:
+                # empty-frame contract: a non-trimmed map of an empty frame
+                # is an empty frame with the program's inferred output
+                # schema — no program execution.  (A TRIMMED map still
+                # applies the program to the empty block: its output row
+                # count is program-defined.)
+                out_blocks = [self._empty_map_outputs(program, infos, False)]
+            else:
+                out_blocks = self._map_dispatch(
+                    program, frame, infos, False, trim, host_stage
+                )
+                _annotate(span)
+            span.mark("dispatch")
+            return self._build_map_output(frame, out_blocks, trim)
 
     def _map_dispatch(self, program, frame, infos, rows_level, trim,
                       host_stage=None, keep=None):
@@ -401,9 +421,11 @@ class Executor:
         pf = prefetch.Prefetcher(stage, frame.num_blocks) if fresh else None
         items = pf if pf is not None else (None for _ in sizes)
         out_blocks = []
+        track = str(device)
         with torch.no_grad():
             for bi, staged in enumerate(items):
                 cancellation.checkpoint()  # block boundary
+                t_blk = observability.trace_now()
                 run = _padded(call, sizes[bi], pads[bi])
                 attempt = _attempt(staged, functools.partial(stage, bi), run)
                 if donate:
@@ -418,6 +440,12 @@ class Executor:
                     outs = session.run(bi, sizes[bi], attempt, device=0, oom_split=split)
                 del attempt
                 self._check_block_outputs(program, outs, sizes[bi], rows_level, trim)
+                # the ledger-off cost: one contextvar read a block
+                observability.note_request_block(0, sizes[bi])
+                if t_blk is not None:
+                    observability.trace_complete(
+                        f"{verb} b{bi}", track, t_blk, block=bi, rows=sizes[bi]
+                    )
                 out_blocks.append(outs)
                 del staged
         _record_stats(verb, frame.num_blocks, pf, donate, session)
@@ -497,6 +525,7 @@ class Executor:
         with torch.no_grad():
             for bi in range(nb):
                 cancellation.checkpoint()  # block boundary (pooled loop)
+                t_blk = observability.trace_now()
                 di = assignment[bi]
                 di_eff = pool.effective_device(di) if session is not None else di
                 if cache is not None:
@@ -543,6 +572,11 @@ class Executor:
                     )
                     di_eff = pool.effective_device(di)
                 self._check_block_outputs(program, outs, sizes[bi], rows_level, trim)
+                if t_blk is not None:
+                    observability.trace_complete(
+                        f"{verb} b{bi}", pool.tracks[di_eff], t_blk, block=bi,
+                        rows=sizes[bi], device=di_eff,
+                    )
                 if keep is not None:
                     keep[bi] = (di_eff, outs)
                 pool.submit(bi, di_eff, sizes[bi], outs, out_blocks)
@@ -735,24 +769,30 @@ class Executor:
         columns run one vmapped call per distinct row shape
         (``_map_rows_ragged``).  ``host_stage`` as for :meth:`map_blocks`."""
         host_stage = _with_prelude(program, host_stage)
-        infos = validation.check_map_inputs(
-            program, frame, "map_rows", host_staged=host_stage or (),
-            allow_ragged=True,
-        )
-        ragged = [
-            n for n in program.input_names
-            if not (host_stage and n in host_stage)
-            and frame.column(program.column_for_input(n)).is_ragged
-        ]
-        if ragged:
-            return self._map_rows_ragged(program, frame, infos, ragged, host_stage)
-        if frame.num_rows == 0:
-            out_blocks = [self._empty_map_outputs(program, infos, True)]
-        else:
-            out_blocks = self._map_dispatch(
-                program, frame, infos, True, False, host_stage
+        with observability.verb_span("map_rows", frame.num_rows, frame.num_blocks) as span:
+            infos = validation.check_map_inputs(
+                program, frame, "map_rows", host_staged=host_stage or (),
+                allow_ragged=True,
             )
-        return self._build_map_output(frame, out_blocks, trim=False)
+            span.mark("validate")
+            ragged = [
+                n for n in program.input_names
+                if not (host_stage and n in host_stage)
+                and frame.column(program.column_for_input(n)).is_ragged
+            ]
+            if ragged:
+                out = self._map_rows_ragged(program, frame, infos, ragged, host_stage)
+                span.mark("dispatch")
+                return out
+            if frame.num_rows == 0:
+                out_blocks = [self._empty_map_outputs(program, infos, True)]
+            else:
+                out_blocks = self._map_dispatch(
+                    program, frame, infos, True, False, host_stage
+                )
+                _annotate(span)
+            span.mark("dispatch")
+            return self._build_map_output(frame, out_blocks, trim=False)
 
     def _ragged_pad_ok(self, program, ragged_name, rcells, uniform, sizes) -> bool:
         """Whether the single ragged input's cells may pad along their lead
@@ -987,14 +1027,24 @@ class Executor:
     ) -> Dict[str, Any]:
         """``reduceRows`` (``DebugRowOps.scala:479-501``): pairwise-fold all
         rows of the named columns down to one row."""
-        bases, reduced, run_for = self._reduce_rows_setup(program, frame, mode)
-        return self._reduce(program, run_for, bases, reduced, frame)
+        with observability.verb_span("reduce_rows", frame.num_rows, frame.num_blocks) as span:
+            bases, reduced, run_for = self._reduce_rows_setup(program, frame, mode)
+            span.mark("validate")
+            return self._reduce(program, run_for, bases, reduced, frame, span)
 
-    def _reduce(self, program, run_for, bases, reduced, frame) -> Dict[str, Any]:
+    def _reduce(self, program, run_for, bases, reduced, frame, span) -> Dict[str, Any]:
+        """The reduce verbs' body after validation: the partials (phase
+        ``dispatch_partials``), the one combine (``dispatch``) and the host
+        readback (``sync``)."""
         with torch.no_grad():
             partials = self._reduce_partials(program, run_for, bases, reduced, frame)
+            _annotate(span)
+            span.mark("dispatch_partials")
             final = self._combine_partials(run_for(program), bases, partials)
-        return {b: _host(final[b]) for b in bases}
+            span.mark("dispatch")
+        out = {b: _host(final[b]) for b in bases}
+        span.mark("sync")
+        return out
 
     def _combine_partials(
         self, run, bases, partials: List[Dict[str, torch.Tensor]]
@@ -1055,15 +1105,22 @@ class Executor:
         pf = prefetch.Prefetcher(stage, len(nonempty)) if fresh else None
         items = pf if pf is not None else (None for _ in nonempty)
         partials = []
+        track = str(device)
         for j, staged in enumerate(items):
             cancellation.checkpoint()  # block boundary (partials)
+            t_blk = observability.trace_now()
+            bi = nonempty[j]
             attempt = _attempt(staged, functools.partial(stage, j), run)
             del staged
             if session is None:
                 partials.append(attempt(0, 0))
             else:
-                bi = nonempty[j]
                 partials.append(session.run(bi, sizes[bi], attempt, device=0))
+            observability.note_request_block(0, sizes[bi])
+            if t_blk is not None:
+                observability.trace_complete(
+                    f"reduce b{bi}", track, t_blk, block=bi, rows=sizes[bi]
+                )
         _record_stats("reduce", frame.num_blocks, pf, donate, session)
         return partials
 
@@ -1106,6 +1163,7 @@ class Executor:
         with torch.no_grad():
             for k, bi in enumerate(nonempty):
                 cancellation.checkpoint()  # block boundary (pooled partials)
+                t_blk = observability.trace_now()
                 di = assignment[k]
                 if cache is not None:
                     shard = cache.shard(bi)
@@ -1137,6 +1195,11 @@ class Executor:
                 if hit["v"]:
                     observability.note_cache_shard_hit()
                 pool.note_dispatch(di_eff, sizes[bi])
+                if t_blk is not None:
+                    observability.trace_complete(
+                        f"reduce b{bi}", pool.tracks[di_eff], t_blk, block=bi,
+                        rows=sizes[bi], device=di_eff, shard_hit=hit["v"],
+                    )
                 partials.append({b: p[b].to(combine) for b in bases})
         _LAST.stats = {
             "verb": "reduce",
@@ -1187,8 +1250,10 @@ class Executor:
         """``reduceBlocks`` (``DebugRowOps.scala:503-526``): phase 1 reduces
         each block to one row with the user's block program; phase 2 applies
         the same program once to the stacked per-block partials."""
-        bases, reduced, run_for = self._reduce_blocks_setup(program, frame)
-        return self._reduce(program, run_for, bases, reduced, frame)
+        with observability.verb_span("reduce_blocks", frame.num_rows, frame.num_blocks) as span:
+            bases, reduced, run_for = self._reduce_blocks_setup(program, frame)
+            span.mark("validate")
+            return self._reduce(program, run_for, bases, reduced, frame, span)
 
     # ---------------------------------------------------------- aggregate --
 
@@ -1207,6 +1272,15 @@ class Executor:
         combine tree over row partials runs in O(log max size) calls.  The
         result has one row per group, keys in sorted order, then the
         reduced columns."""
+        with observability.verb_span(
+            "aggregate", grouped.frame.num_rows, grouped.frame.num_blocks
+        ) as span:
+            return self._aggregate_impl(program, grouped, span)
+
+    def _aggregate_impl(self, program: Program, grouped: GroupedFrame, span) -> TensorFrame:
+        """The body of :meth:`aggregate`, phases ``validate_and_group_index``
+        and ``execute`` (the segment path: ``group_index_device`` and
+        ``execute``)."""
         frame = grouped.frame
         reduced = validation.check_reduce_blocks(program, frame, verb="aggregate")
         bases = sorted(reduced)
@@ -1217,10 +1291,12 @@ class Executor:
                     f"reduced column"
                 )
         if frame.num_rows == 0:
-            return self._aggregate_empty(program, grouped, reduced, bases)
+            out = self._aggregate_empty(program, grouped, reduced, bases)
+            span.mark("validate_and_group_index")
+            return out
 
         # --- the device segment path (a recognized plan) ---
-        seg = self._aggregate_segment(program, grouped, reduced, bases)
+        seg = self._aggregate_segment(program, grouped, reduced, bases, span)
         if seg is not None:
             return seg
 
@@ -1252,6 +1328,7 @@ class Executor:
             }
         )
         validation.check_reduce_blocks_outputs(reduced, summaries, verb="aggregate")
+        span.mark("validate_and_group_index")
 
         # --- data columns on the device, reordered so groups are contiguous
         device = program.device
@@ -1283,6 +1360,7 @@ class Executor:
                     np.repeat(np.arange(num_groups, dtype=np.int64), counts),
                     num_groups,
                 )
+        span.mark("execute")
 
         # --- one-block result: keys ++ outputs, one row per group ---
         cols: List[Column] = []
@@ -1297,7 +1375,7 @@ class Executor:
             cols.append(Column(info, arr))
         return TensorFrame(cols)
 
-    def _aggregate_segment(self, program, grouped, reduced, bases) -> Optional[TensorFrame]:
+    def _aggregate_segment(self, program, grouped, reduced, bases, span) -> Optional[TensorFrame]:
         """The device segment path (the JAX package's ``_aggregate_segment``):
         when ``segment_compile.recognize`` compiles the program into a
         :class:`~.segment_compile.SegmentPlan`, the whole keyed reduction
@@ -1354,10 +1432,12 @@ class Executor:
         with torch.no_grad():
             staged = self._stage_values(values, device).ready()
             uniq, order, counts = _segment_index([staged[f"key:{k}"] for k in grouped.keys])
+            span.mark("group_index_device")
             pre = plan.pre({f"{b}_input": staged[f"{b}_input"] for b in bases}, program.params)
             segs = [_segment_reduce(pc[order], kind, counts)
                     for pc, kind in zip(pre, plan.reduce_kinds)]
             outs = plan.post(segs, counts, program.params)
+        span.mark("execute")
         cols: List[Column] = []
         for kname, kvals in zip(grouped.keys, uniq):
             kinfo = frame.column(kname).info

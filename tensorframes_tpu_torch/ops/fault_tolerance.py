@@ -204,6 +204,10 @@ class FrameRetrySession:
                 )
                 self.retries += 1
                 observability.note_block_retry()
+                observability.trace_instant(
+                    "retry", "faults", verb=self.verb, block=bi, attempt=attempt + 1,
+                    device=dev_i,
+                )
                 logger.warning(
                     "%s: block %d (device %s) transient failure, retry %d/%d "
                     "after %.3fs: %r", self.verb, bi, dev_i, attempt + 1,
@@ -218,6 +222,7 @@ class FrameRetrySession:
         """One binary OOM split performed for block ``bi``."""
         self.oom_splits += 1
         observability.note_oom_split()
+        observability.trace_instant("oom_split", "faults", verb=self.verb, block=bi)
 
     def note_cache_restage(self) -> None:
         """One cached block rebuilt from its host copy because its resident

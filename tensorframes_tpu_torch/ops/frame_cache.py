@@ -24,7 +24,9 @@ PyTorch counterpart of ``tensorframes_tpu/ops/frame_cache.py``:
   block slices back from the shards or the spill files on demand.
 
 A charged object (a cache, a sequence's pages) is held weakly: it needs a
-``tenant`` attribute and an ``evict(bi)`` method.  ``TensorFrame.cache()``
+``tenant`` attribute and an ``evict(bi)`` method.  A sharded cache is
+charged to the tenant of the request that builds or adopts it
+(``observability.current_request()``, outer ledgers included).  ``TensorFrame.cache()``
 on one device copies whole columns and charges nothing, as the JAX
 package's single-device cache does; with fewer than two devices
 ``cache(sharded=True)`` is that single-device cache.
@@ -91,6 +93,17 @@ def tenant_budget() -> int:
     per-tenant cap), layered under ``TFS_HBM_BUDGET``: a tenant past it
     evicts its own least recently used entries first."""
     return _budget_knob(ENV_TENANT_BUDGET, "no per-tenant cap")
+
+
+def _request_tenant() -> Optional[str]:
+    """The tenant the active request chain attributes work to (a nested
+    ledger may leave ``tenant`` to an outer one)."""
+    led = observability.current_request()
+    while led is not None:
+        if led.tenant:
+            return led.tenant
+        led = led.parent
+    return None
 
 
 def array_nbytes(a) -> int:
@@ -305,8 +318,9 @@ class FrameCache:
         self.nbytes: List[int] = [0] * len(self.assignment)
         self.adopted = adopted
         self.spill = spill
-        # per-tenant attribution comes with the request ledger (item 10)
-        self.tenant: Optional[str] = None
+        # per-tenant budget attribution: the tenant of the request that
+        # builds or adopts the cache (None: the shared, uncapped pool)
+        self.tenant: Optional[str] = _request_tenant()
         self._spilled: set = set()
         self._spill_tag = f"shard-{os.getpid()}-{id(self):x}"
         if spill is not None:
@@ -344,6 +358,7 @@ class FrameCache:
                 observability.note_h2d_bytes(arr.nbytes)
                 staged[name] = torch.from_numpy(arr).to(dev)
             if self.insert(bi, staged):
+                observability.trace_instant("spill_restore", "cache", block=bi)
                 return self.blocks[bi]
         return None
 
@@ -351,9 +366,15 @@ class FrameCache:
         """Drop block ``bi``'s shard (budget eviction); a spill-backed cache
         writes it to disk first unless a valid copy is already there."""
         shard = self.blocks[bi]
+        spilled_now = False
         if shard is not None and self.spill is not None and bi not in self._spilled:
             self.spill.put(self._spill_key(bi), {k: _to_numpy(v) for k, v in shard.items()})
             self._spilled.add(bi)
+            spilled_now = True
+        if shard is not None:
+            observability.trace_instant(
+                "evict", "cache", block=bi, bytes=self.nbytes[bi], spilled=spilled_now
+            )
         self.blocks[bi] = None
         self.nbytes[bi] = 0
 
@@ -520,6 +541,10 @@ def release_host_columns(frame) -> int:
         if col.info.name in cached_names and isinstance(d, np.ndarray) and d.dtype != object:
             released += d.nbytes
             col.data = SpillBackedColumnData(cache, col.info.name, frame.offsets, d.dtype, d.shape[1:])
+    if released:
+        observability.trace_instant(
+            "release_host", "cache", bytes=released, blocks=frame.num_blocks
+        )
     return released
 
 

@@ -47,7 +47,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import cancellation, dtypes
+from .. import cancellation, dtypes, observability
 from ..device import DeviceLike, resolve_device
 from ..frame import TensorFrame, is_device_array
 from ..program import Program
@@ -479,14 +479,21 @@ class Pipeline:
         and returns host columns assembled in block order."""
         if not self._stages:
             raise ValidationError("pipeline.run: empty pipeline (no stages)")
-        plan = self._pool_plan()
-        if plan is not None:
-            return self._run_pooled(*plan)
-        with torch.no_grad():
-            out = self._body(self._entry_cols(), self._params_list())
-        if self._row_stage:
-            return out
-        return self._with_passthrough(TensorFrame.from_blocks(out))
+        with observability.verb_span(
+            "pipeline", self._frame.num_rows, self._frame.num_blocks
+        ) as span:
+            plan = self._pool_plan()
+            span.mark("validate")
+            if plan is not None:
+                out_frame = self._run_pooled(*plan)
+                span.mark("dispatch")
+                return out_frame
+            with torch.no_grad():
+                out = self._body(self._entry_cols(), self._params_list())
+            span.mark("dispatch")
+            if self._row_stage:
+                return out
+            return self._with_passthrough(TensorFrame.from_blocks(out))
 
     def _with_passthrough(self, frame: TensorFrame) -> TensorFrame:
         """Host-only and ragged source columns ride along when the chain
@@ -565,7 +572,7 @@ class Pipeline:
             {k: tree_map(lambda a: a.to("meta"), v) for k, v in p.items()}
             for p in self._params_list()
         ]
-        with torch.no_grad():
+        with torch.no_grad(), observability.suppress_trace_count():
             self._body(cols, params)
         return self
 
@@ -627,6 +634,19 @@ class Pipeline:
                     f"does not exist on any stage program."
                 )
             targets.extend((i, param_name, out_name) for i in hits)
+        with observability.verb_span(
+            "pipeline.iterate", self._frame.num_rows, self._frame.num_blocks
+        ) as span:
+            span.mark("validate")
+            finals, hist = self._iterate(num_steps, carry, collect, targets)
+            span.mark("dispatch")
+        for i, pname, _ in targets:
+            self._stages[i].program.update_params(**{pname: finals[pname]})
+        return finals, hist
+
+    def _iterate(self, num_steps, carry, collect, targets):
+        """The loop of :meth:`iterate`: ``(final params, history)`` on the
+        device."""
         cols = self._entry_cols()
         pl = [dict(p) for p in self._params_list()]
         hist: Dict[str, List[torch.Tensor]] = {k: [] for k in collect}
@@ -659,8 +679,6 @@ class Pipeline:
                 for k in collect:
                     hist[k].append(row[k])
         finals = {pname: pl[i][pname] for i, pname, _ in targets}
-        for i, pname, _ in targets:
-            self._stages[i].program.update_params(**{pname: finals[pname]})
         return finals, {k: torch.stack(v) if v else v for k, v in hist.items()}
 
 

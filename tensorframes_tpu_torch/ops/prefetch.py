@@ -143,6 +143,10 @@ class Prefetcher:
             dt = time.perf_counter() - t0
             self.stats["stage_s"] += dt
             self.stats["wait_s"] += dt  # inline: staging is waiting
+            if observability.trace_enabled():
+                observability.trace_complete(
+                    f"stage {i}", f"lane/{self._name}", t0, t0 + dt, item=i
+                )
             yield v
 
     def _iter_threaded(self):
@@ -166,7 +170,14 @@ class Prefetcher:
                         return
                     t0 = time.perf_counter()
                     v = self._stage(i)
-                    self.stats["stage_s"] += time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    self.stats["stage_s"] += t1 - t0
+                    # the staging timeline of this lane (the H2D half of
+                    # the overlap the recorder shows)
+                    if observability.trace_enabled():
+                        observability.trace_complete(
+                            f"stage {i}", f"lane/{self._name}", t0, t1, item=i
+                        )
                     if not put((v, None)):
                         return
             except BaseException as e:  # shipped to the consumer's next()
@@ -223,6 +234,13 @@ def _cast_pool():
 
             _casts.append(ThreadPoolExecutor(CAST_THREADS, thread_name_prefix="tfs-cast"))
         return _casts[0]
+
+
+def _submit_cast(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on the cast pool, in a copy of the calling
+    thread's context: what the task attributes reaches the request that
+    submitted it (a pool thread has no context of its own)."""
+    return _cast_pool().submit(contextvars.copy_context().run, fn, *args, **kwargs)
 
 
 def _copy_stream(device: torch.device):
@@ -304,7 +322,7 @@ def stage_arrays(
             step = max(1, CHUNK_BYTES // max(1, nbytes // max(1, len(src))))
             spans = [(lo, lo + step) for lo in range(0, len(src), step)]
             casts = [
-                _cast_pool().submit(np.copyto, host[lo:hi], src[lo:hi], casting="unsafe")
+                _submit_cast(np.copyto, host[lo:hi], src[lo:hi], casting="unsafe")
                 for lo, hi in spans
             ]
             for (lo, hi), cast in zip(spans, casts):

@@ -42,7 +42,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from .. import envutil
+from .. import envutil, observability
 
 logger = logging.getLogger("tensorframes_tpu_torch.segment_compile")
 
@@ -222,7 +222,7 @@ def _trace(program, specs: Mapping[str, Any], n_rows: int):
     for nm in names:
         dtype, cell = _spec_cell(specs[nm])
         ins.append(torch.empty((n_rows,) + cell, dtype=dtype, device="meta"))
-    with torch.no_grad():
+    with torch.no_grad(), observability.suppress_trace_count():
         gm = make_fx(fn, decomposition_table=_DECOMP)(*ins, *leaves)
     index: Dict[Any, int] = {}
     nodes: List[_Node] = []
@@ -916,7 +916,7 @@ def _graph(program, specs: Mapping[str, Any], n_rows: int):
     for n in names:
         dtype, cell = _spec_cell(specs[n])
         ins.append(torch.empty((n_rows,) + cell, dtype=dtype, device="meta"))
-    with torch.no_grad():
+    with torch.no_grad(), observability.suppress_trace_count():
         return make_fx(fn)(*ins, *leaves), n_in
 
 

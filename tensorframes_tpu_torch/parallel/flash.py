@@ -58,6 +58,10 @@ The ring step (``_ring_step_kernel``, launched by ``flash_ring_step``) is
 carried, un-normalised (o, m, l) with global causal offsets.  CUDA tensors
 launch ``csrc/flash_ring.cu``; CPU and meta tensors take
 :func:`flash_ring_step_plain`.
+
+Inside a roofline trace (``roofline.py``) :func:`flash_attention` and
+:func:`flash_ring_step` emit one cost op each in place of a kernel or a
+plain version, so the roofline counts attention as the kernels do.
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from .. import roofline
 
 _NEG_INF = float("-inf")
 
@@ -843,6 +849,8 @@ def flash_attention(
     with H % KVH == 0 (GQA K/V stay kv-width).  Row-major causal
     positions (the ``sp == 1`` case).  Differentiable on every device: the
     gradient goes through :class:`FlashAttention`."""
+    if roofline.cost_tracing():
+        return roofline.cost_ops()[0](q, k, v, causal)
     return FlashAttention.apply(q, k, v, causal, block_q, block_k)
 
 
@@ -933,6 +941,8 @@ def flash_ring_step(
     128, 256 or 512 zero-padded to the next of them or above 512 to the
     next multiple of 512, o with it) or raise;
     CPU and meta tensors take :func:`flash_ring_step_plain`."""
+    if roofline.cost_tracing():
+        return roofline.cost_ops()[1](q, k, v, o, m, l, int(q_off), int(k_off), causal)
     if q.device.type == "cuda":
         return _ring_step_cuda(q, k, v, o, m, l, q_off, k_off, causal, scale)
     if q.device.type in ("cpu", "meta"):

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from . import dtypes
+from . import dtypes, observability
 from .device import DeviceLike, resolve_device
 from .dtypes import ScalarType
 from .shape import Shape, UNKNOWN
@@ -84,6 +84,21 @@ def _tree_structure(tree):
     if isinstance(tree, (list, tuple)):
         return (type(tree).__name__, tuple(_tree_structure(v) for v in tree))
     return "*"
+
+
+def _traced(values) -> bool:
+    """Whether a program call runs under a tracer (a ``make_fx`` proxy
+    mode, ``torch.compile``, or fake or ``meta`` inputs, which compute
+    nothing) rather than eagerly on data."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+
+    if get_proxy_mode() is not None or torch.compiler.is_compiling():
+        return True
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            return v.is_meta or is_fake(v)
+    return False
 
 
 def _to_tensor(x, device: torch.device) -> torch.Tensor:
@@ -377,10 +392,14 @@ class Program:
         inputs: Mapping[str, Any],
         params: Optional[Mapping[str, Any]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Run the program on ``inputs`` with the current (or given) params."""
+        """Run the program on ``inputs`` with the current (or given) params.
+        A call under a tracer counts one ``program_traces`` (analysis runs
+        suppress it); an eager call counts none."""
         if params is None:
             params = self._params
         kwargs = {n: inputs[n] for n in self._input_names}
+        if _traced(kwargs.values()):
+            observability.note_program_trace()
         kwargs.update(params)
         return self._normalize_outputs(self._fn(**kwargs))
 
@@ -453,7 +472,7 @@ class Program:
                 )
                 for n in self._input_names
             }
-            with torch.no_grad():
+            with torch.no_grad(), observability.suppress_trace_count():
                 return self.call(ins, meta_params)
 
         out_a = _eval(3)

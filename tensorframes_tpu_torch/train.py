@@ -402,9 +402,9 @@ def frontier_sweep(
     Each point builds params and the step at its shape and times the full
     ``make_train_step`` step (best of ``steps`` synced reps, after one
     warm-up step), recording tokens/s, counted TFLOP/s
-    (:func:`counted_flops_per_token`) and, with ``peak_flops`` given, MFU
-    (``peak_flops=None`` gives ``mfu=None``: the port has no peak table
-    yet).  ``hbm_high_water_gb`` is recorded only on the points that raised
+    (:func:`counted_flops_per_token`) and MFU against ``peak_flops``
+    (None: the card's peak from ``roofline.PEAK_FLOPS``, by its reported
+    name; a device not in the table, such as the CPU, gives ``mfu=None``).  ``hbm_high_water_gb`` is recorded only on the points that raised
     the device's peak-allocation mark (monotone over the sweep: a smaller
     later point would only echo the running peak).  A point that raises
     (out of memory, or a policy its attention refuses) keeps its ``error``
@@ -415,6 +415,10 @@ def frontier_sweep(
     if tcfg is None:
         tcfg = TrainConfig(learning_rate=3e-4)
     dev = resolve_device(device)
+    if peak_flops is None:
+        from .roofline import PEAK_FLOPS, device_name
+
+        peak_flops = PEAK_FLOPS.get(device_name(dev))
     rs = np.random.RandomState(rng)
 
     def run_point(pt: FrontierPoint) -> None:

@@ -1,7 +1,9 @@
 """``train.frontier_sweep``, ``FrontierPoint`` and ``best_frontier_point``
 against the JAX package's contract: the grid runs cheapest first by B*L
 across shapes, each policy in turn; a point that raises keeps its
-``error`` and the sweep goes on; ``peak_flops=None`` gives ``mfu=None``;
+``error`` and the sweep goes on; ``peak_flops=None`` takes the device's
+peak from ``roofline.PEAK_FLOPS``, and gives ``mfu=None`` on a device the
+table does not list (the CPU);
 the records and the best point are the JAX dataclass's on the same values.
 On the CPU (``device="cpu"``) there is no allocator mark, so no point
 carries ``hbm_gb``."""
@@ -53,6 +55,17 @@ def test_peak_flops_gives_mfu_and_attn_runs_on_full_attention():
     assert all(p.error is None for p in pts)
     for p in pts:
         assert p.mfu == pytest.approx(p.achieved_tflops * 1e12 / 1e12)
+
+
+def test_peak_flops_none_resolves_from_the_roofline_table(monkeypatch):
+    from tensorframes_tpu_torch import roofline
+
+    monkeypatch.setitem(roofline.PEAK_FLOPS, "cpu", 2e12)
+    cfg = ttfm.TransformerConfig(**SMALL, attn_impl="full")
+    (pt,) = ttrain.frontier_sweep(cfg, batches=(1,), seqs=(8,), steps=1,
+                                  remat_policies=("selective",), device="cpu")
+    assert pt.error is None
+    assert pt.mfu == pytest.approx(pt.achieved_tflops * 1e12 / 2e12)
 
 
 @pytest.mark.parametrize("fields", [
