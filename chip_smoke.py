@@ -215,7 +215,34 @@ Phases, each printing its own lines and then its command time (``phase:``):
    B = 8 (decode config 8's prompts) under a span: its phases, and its wall
    time to the readback; (e) ``doctor()`` over the process's state,
    rendered;
-12. the card's line again, the kernels' JSON record (each kernel at the
+12. planner (after the observability phase): (a) the flagship scores 64
+   rows of 2048 tokens in 8 blocks through a plan,
+   ``frame.lazy()`` -> ``map_blocks(score)`` -> ``map_blocks(ppl =
+   exp(nll))`` -> ``reduce_blocks(mean)``, bit-identical to the eager
+   verbs, with 64 ``flash_fwd_tma<bf16,64>`` launches, the tokens' bytes
+   staged once, one fused dispatch and one fused reduce, the decision
+   ``serial``/``pool_unavailable``; ms a block of that first (cold) plan
+   and of eager, then of warm plans and eager runs in turns; (b)
+   ``explain`` of a chain launches nothing, ``explain(analyze=True)`` runs
+   it (64 launches) and reports ``wall=``, ``h2d_bytes=`` and ``request:
+   cid=``; (c) the identical chain built while (a)'s result is held is a
+   sharing hit (0 launches, 0 bytes), and two chains off one root
+   auto-cache its tokens on the card (``budget_bytes_resident`` up by
+   their bytes, the second chain's decision ``affinity``), and after
+   ``del`` and ``gc.collect()`` the budget and
+   ``torch.cuda.memory_allocated()`` are back where they were; (d) config
+   5's logistic regression (500,000 x 64 in 4 blocks) as ``PLAN_EPOCHS``
+   gradient epochs through ``iterate_epochs`` against the same eager loop,
+   weights bit-identical, epochs 2+ staging 0 host bytes; (e) the scoring
+   program through ``serialize`` and ``deserialize_program`` run by
+   ``map_blocks`` (64 launches, nll against the live program: equal, or
+   within 1e-5), with the artifact's bytes and the export and load
+   seconds; (f) two processes each warm the scoring program on one block
+   against one fresh ``TFS_COMPILE_CACHE``: the first builds
+   ``flash_fwd`` (``backend_compiles`` >= 1), the second builds nothing
+   and loads it (``persistent_cache_hits`` >= 1), with the same
+   fingerprints; both wall times;
+13. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -3401,7 +3428,7 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     instantiation of the flagship scoring, the wide-head scoring and train,
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
     pipeline phase's scoring chain, the observability phase's scoring runs,
-    the flagship train epoch, the ring scoring runs and the MoE legs' scoring,
+    the planner phase's scoring runs, the flagship train epoch, the ring scoring runs and the MoE legs' scoring,
     train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
@@ -3905,6 +3932,275 @@ def phase_observability(slice_prog):
     return total
 
 
+# the planner phase: the scoring cell's shape (phase_pipeline's), and config
+# 5's logistic regression as a planned epochs loop
+PLAN_ROWS, PLAN_L, PLAN_BLOCKS = 64, 2048, 8
+PLAN_EPOCHS, PLAN_LR = 4, 0.5
+# leg (f): one process warms the scoring program against the compile cache
+COLD_START_CODE = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+import tensorframes_tpu_torch as tft
+from tensorframes_tpu_torch import observability as obs
+from tensorframes_tpu_torch.models import scoring, transformer as tfm
+cfg = tfm.TransformerConfig(**json.loads(sys.argv[1]), dtype=torch.bfloat16, attn_impl="flash")
+params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+prog = scoring.scoring_program(params, cfg, fetches=("nll",))
+tokens = np.zeros((int(sys.argv[2]), int(sys.argv[3])), np.int32)
+c0 = obs.counters()
+t1 = time.perf_counter()
+fps = tft.warmup(prog, tft.TensorFrame.from_arrays({"tokens": tokens}))
+torch.cuda.synchronize()
+d = obs.counters_delta(c0)
+print(json.dumps(dict(fingerprints=fps, warmup_s=time.perf_counter() - t1,
+                      wall_s=time.perf_counter() - t0, **{k: d[k] for k in (
+                          "backend_compiles", "persistent_cache_hits",
+                          "persistent_cache_misses", "program_traces")})))
+"""
+
+
+def phase_planner(slice_prog):
+    """Legs (a)-(f) of the verb-graph planner, the engine's warmup, the
+    program artifacts and the compile cache (the module docstring's phase
+    12).  Returns the flash launches of the phase's scoring runs by
+    instantiation."""
+    import tempfile
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch.ops import frame_cache
+    from tensorframes_tpu_torch.parallel import flash
+    from tensorframes_tpu_torch.program import deserialize_program
+
+    eager = tft.Executor()  # engine=: the comparison legs stay eager
+    cfg_kw = dict(DECODE_MODEL)
+    n_layers = cfg_kw["n_layers"]
+    rows, L, blocks = PLAN_ROWS, PLAN_L, PLAN_BLOCKS
+    block_rows = rows // blocks
+    inst = route_of("flash_fwd", torch.bfloat16, 64)
+    want_launches = {inst: n_layers * blocks}
+    tokens = np.random.RandomState(12).randint(0, cfg_kw["vocab_size"], (rows, L)).astype(np.int32)
+    frame = tft.TensorFrame.from_arrays({"tokens": tokens}, num_blocks=blocks)
+    ppl = tft.Program.wrap(lambda nll: {"ppl": torch.exp(nll)}, device="cuda")
+    mean = tft.Program.wrap(lambda ppl_input: {"ppl": ppl_input.mean(0)}, device="cuda")
+    worst = tft.Program.wrap(lambda ppl_input: {"ppl": ppl_input.amax(0)}, device="cuda")
+    total = {}
+
+    def counted(fn):
+        """fn() with the flash launches counted over it alone."""
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        c0 = obs.counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(flash.kernel_launches)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        return out, sec, launches, obs.counters_delta(c0)
+
+    def planned(fr, reduce_prog=mean):
+        lz = tft.map_blocks(ppl, tft.map_blocks(slice_prog, fr.lazy()))
+        return tft.reduce_blocks(reduce_prog, lz), lz
+
+    def eager_chain(fr, reduce_prog=mean):
+        return tft.reduce_blocks(reduce_prog, tft.map_blocks(
+            ppl, tft.map_blocks(slice_prog, fr, engine=eager), engine=eager), engine=eager)
+
+    # (a) the flagship scored through a plan, against the eager verbs; then
+    # warm plans (the fusion metadata cached) and eager runs in turns, each
+    # plan over a new frame object so that no run is a sharing hit
+    tft.map_blocks(slice_prog, tft.TensorFrame.from_arrays(
+        {"tokens": tokens[:block_rows]})).to_arrays()  # warm-up
+    (got, lz), plan_s, launches, d = counted(lambda: planned(frame))
+    want, eager_s, e_launches, d_eager = counted(lambda: eager_chain(frame))
+    turns = {"eager": [], "planned": []}
+    for kind in ("eager", "planned", "planned", "eager"):
+        fr = tft.TensorFrame.from_arrays({"tokens": tokens}, num_blocks=blocks)
+        run = (lambda: planned(fr)[0]) if kind == "planned" else (lambda: eager_chain(fr))
+        out, sec, n, _ = counted(run)
+        if n != want_launches or not same_arrays(out, want):
+            raise AssertionError(f"{kind} turn: launches {n}, or results unlike the first")
+        turns[kind].append(sec / blocks * 1e3)
+    rec = lz._last_records[0]
+    if launches != want_launches or e_launches != want_launches:
+        raise AssertionError(f"planned scoring launched {launches} (eager {e_launches}), "
+                             f"expected {want_launches}")
+    if not same_arrays(got, want):
+        raise AssertionError(f"planned scoring {dict(got)} differs from the eager verbs {want}")
+    if d["h2d_bytes_staged"] != tokens.nbytes:
+        raise AssertionError(f"planned scoring staged {d['h2d_bytes_staged']} host bytes, "
+                             f"expected the tokens' {tokens.nbytes} once")
+    if d["plan_fused_dispatches"] != 1 or d["plan_fused_reduces"] != 1:
+        raise AssertionError(f"planned scoring counters {d}")
+    if (rec["dispatch"], rec["reason"], rec["terminal"]) != (
+            "serial", "pool_unavailable", "reduce_blocks"):
+        raise AssertionError(f"planned scoring decision {rec}")
+    if not np.isfinite(np.asarray(got["ppl"])).all():
+        raise AssertionError(f"planned scoring ppl not finite: {dict(got)}")
+    say("planner", leg="a_planned_scoring", rows=rows, tokens_per_row=L, blocks=blocks,
+        bit_identical=True, flash_launches=launches, h2d_bytes_staged=d["h2d_bytes_staged"],
+        eager_h2d_bytes_staged=d_eager["h2d_bytes_staged"],
+        plan_fused_dispatches=d["plan_fused_dispatches"],
+        plan_fused_reduces=d["plan_fused_reduces"], decision=rec["dispatch"],
+        reason=rec["reason"], ppl=float(np.asarray(got["ppl"])),
+        first_planned_ms_per_block=plan_s / blocks * 1e3,
+        first_eager_ms_per_block=eager_s / blocks * 1e3,
+        turns_ms_per_block=turns,
+        warm_planned_over_eager=float(np.mean(turns["planned"]) / np.mean(turns["eager"])))
+
+    # (b) explain before execution launches nothing; analyze runs the plan
+    # (its own frame: a second chain off (a)'s root would auto-cache it)
+    chain = tft.map_blocks(ppl, tft.map_blocks(slice_prog, tft.TensorFrame.from_arrays(
+        {"tokens": tokens}, num_blocks=blocks).lazy()))
+    text, _, launches, _ = counted(lambda: tft.explain(chain))
+    if launches or chain.is_materialized or "fused group 0" not in text:
+        raise AssertionError(f"explain launched {launches}:\n{text}")
+    report, analyze_s, launches, _ = counted(lambda: tft.explain(chain, analyze=True))
+    if launches != want_launches or not all(
+            k in report for k in ("wall=", "h2d_bytes=", "request: cid=")):
+        raise AssertionError(f"explain(analyze=True) launched {launches}:\n{report}")
+    print(report, flush=True)
+    say("planner", leg="b_explain", explain_launches=0, analyze_launches=launches,
+        analyze_s=analyze_s, lines=len(report.splitlines()))
+    del chain
+
+    # (c) sharing: the identical chain while (a)'s result is held runs nothing
+    (again, _), _, launches, d = counted(lambda: planned(frame))
+    if again is not got or launches or d["plan_cse_hits"] != 1 or d["h2d_bytes_staged"]:
+        raise AssertionError(f"shared chain: launches {launches}, counters {d}")
+    # ... and two chains off one root auto-cache it, refunded at collection
+    gc.collect()
+    torch.cuda.synchronize()
+    base_budget = frame_cache.budget_bytes_resident()
+    base_mem = torch.cuda.memory_allocated()
+    fr2 = tft.TensorFrame.from_arrays({"tokens": tokens.copy()}, num_blocks=blocks)
+    (first, _), _, _, _ = counted(lambda: planned(fr2))
+    (second, lz2), _, launches, d = counted(lambda: planned(fr2, worst))
+    cached_bytes = frame_cache.budget_bytes_resident() - base_budget
+    held_mem = torch.cuda.memory_allocated() - base_mem
+    if launches != want_launches or d["plan_cache_inserts"] != 1 \
+            or cached_bytes != tokens.nbytes or lz2._last_records[0]["dispatch"] != "affinity":
+        raise AssertionError(f"auto-cache: launches {launches}, counters {d}, "
+                             f"{cached_bytes} budget bytes, records {lz2._last_records}")
+    want2 = counted(lambda: eager_chain(fr2, worst))[0]
+    if not (same_arrays(first, got) and same_arrays(second, want2)):
+        raise AssertionError("auto-cached chains differ from the eager verbs")
+    del fr2, lz2, first, second
+    gc.collect()
+    torch.cuda.synchronize()
+    left_budget = frame_cache.budget_bytes_resident() - base_budget
+    left_mem = torch.cuda.memory_allocated() - base_mem
+    if left_budget or left_mem > 0:
+        raise AssertionError(f"auto-cache refund: {left_budget} budget bytes and {left_mem} "
+                             f"device bytes left after collection")
+    say("planner", leg="c_sharing_and_auto_cache", cse_hit_launches=0, cse_hits=1,
+        auto_cache_bytes=cached_bytes, device_bytes_held=held_mem,
+        budget_bytes_after_gc=left_budget, device_bytes_after_gc=left_mem,
+        second_chain_decision="affinity")
+
+    # (d) config 5's logistic regression, PLAN_EPOCHS planned epochs
+    rng = np.random.RandomState(0)
+    vals = rng.rand(VERB_ROWS, VERB_D).astype(np.float32)
+    labels = (vals @ rng.randn(VERB_D).astype(np.float32) > 0).astype(np.float32)
+
+    def row_grads():
+        def fn(features, label, w, b):
+            err = torch.sigmoid(features @ w + b) - label
+            return {"gw": err[:, None] * features, "gb": err}
+
+        return tft.Program.wrap(fn, params={"w": np.zeros(VERB_D, np.float32),
+                                            "b": np.zeros((), np.float32)}, device="cuda")
+
+    sums = tft.Program.wrap(lambda gw_input, gb_input: {"gw": gw_input.sum(0),
+                                                        "gb": gb_input.sum(0)}, device="cuda")
+
+    def loop(run, prog):
+        w, b, out = np.zeros(VERB_D, np.float32), np.float32(0.0), []
+
+        def step(root, e):
+            nonlocal w, b
+            prog.update_params(w=w, b=b)
+            c0 = obs.counters()
+            t0 = time.perf_counter()
+            g = tft.reduce_blocks(sums, tft.map_blocks(prog, root)) if run == "plan" else \
+                tft.reduce_blocks(sums, tft.map_blocks(prog, root, engine=eager), engine=eager)
+            sec = time.perf_counter() - t0
+            w = (w - np.float32(PLAN_LR) * g["gw"] / np.float32(VERB_ROWS)).astype(np.float32)
+            b = np.float32(b - np.float32(PLAN_LR) * g["gb"] / np.float32(VERB_ROWS))
+            out.append(dict(w=w.copy(), h2d=obs.counters_delta(c0)["h2d_bytes_staged"], s=sec))
+            return out[-1]
+
+        lframe = tft.TensorFrame.from_arrays({"features": vals, "label": labels},
+                                             num_blocks=VERB_BLOCKS)
+        if run == "plan":
+            tft.iterate_epochs(lframe, step, PLAN_EPOCHS)
+        else:
+            for e in range(PLAN_EPOCHS):
+                step(lframe, e)
+        return out
+
+    ref = loop("eager", row_grads())
+    got_epochs = loop("plan", row_grads())
+    if not all(np.array_equal(a["w"], r["w"]) for a, r in zip(got_epochs, ref)):
+        raise AssertionError("planned epochs differ from the eager loop")
+    if any(e["h2d"] for e in got_epochs[1:]) or not np.isfinite(got_epochs[-1]["w"]).all():
+        raise AssertionError(f"planned epochs staged {[e['h2d'] for e in got_epochs]} bytes")
+    say("planner", leg="d_iterate_epochs", rows=VERB_ROWS, width=VERB_D, blocks=VERB_BLOCKS,
+        epochs=PLAN_EPOCHS, bit_identical=True,
+        planned_h2d_bytes=[e["h2d"] for e in got_epochs], eager_h2d_bytes=[e["h2d"] for e in ref],
+        planned_ms_per_epoch=[e["s"] * 1e3 for e in got_epochs],
+        eager_ms_per_epoch=[e["s"] * 1e3 for e in ref])
+    del vals, labels, ref, got_epochs
+
+    # (e) the scoring program serialized and deserialized, run through map_blocks
+    t0 = time.perf_counter()
+    data = slice_prog.serialize({"tokens": (tft.scalar_type("int32"), (-1, L))})
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = deserialize_program(data)
+    load_s = time.perf_counter() - t0
+    live = counted(lambda: tft.map_blocks(slice_prog, frame).to_arrays())[0]
+    out, back_s, launches, _ = counted(lambda: tft.map_blocks(back, frame).to_arrays())
+    if launches != want_launches:
+        raise AssertionError(f"deserialized program launched {launches}, expected "
+                             f"{want_launches}")
+    nll_err = float(np.abs(np.asarray(out["nll"], np.float64)
+                           - np.asarray(live["nll"], np.float64)).max())
+    if nll_err > 1e-5 or not np.isfinite(np.asarray(out["nll"])).all():
+        raise AssertionError(f"deserialized program nll differs by {nll_err}")
+    say("planner", leg="e_serialize", artifact_bytes=len(data), export_s=export_s,
+        load_s=load_s, flash_launches=launches, nll_bit_identical=nll_err == 0.0,
+        nll_max_abs_err=nll_err, ms_per_block=back_s / blocks * 1e3)
+    del data, back
+
+    # (f) cold start: two processes warm the scoring program on one block
+    # against one fresh compile cache; the second runs no nvcc
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, TFS_COMPILE_CACHE=os.path.join(tmp, "cc"))
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", COLD_START_CODE, json.dumps(cfg_kw), str(block_rows),
+                 str(L)], cwd=root, env=env, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"cold-start process failed:\n{proc.stderr[-4000:]}")
+            runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                             process_s=time.perf_counter() - t0))
+        kernels = sorted(os.listdir(os.path.join(tmp, "cc", "kernels")))
+    cold, warm = runs
+    if cold["backend_compiles"] < 1 or warm["backend_compiles"] != 0 \
+            or warm["persistent_cache_hits"] < 1 or cold["fingerprints"] != warm["fingerprints"]:
+        raise AssertionError(f"cold start: {runs}")
+    say("planner", leg="f_cold_start", first=cold, second=warm, kernel_files=kernels,
+        first_over_second=cold["process_s"] / warm["process_s"])
+    return total
+
+
 def run_phase(phase, *args):
     """``phase(*args)``, printing its command time: the script's run time
     by phase."""
@@ -3942,6 +4238,7 @@ def main() -> int:
     run_phase(phase_cached_verbs)
     pipeline_launches = run_phase(phase_pipeline, prog)
     observability_launches = run_phase(phase_observability, prog)
+    planner_launches = run_phase(phase_planner, prog)
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)
@@ -3957,7 +4254,7 @@ def main() -> int:
                   ring_run, ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
-        pipeline_launches, observability_launches, train_run[5],
+        pipeline_launches, observability_launches, planner_launches, train_run[5],
         ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)

@@ -21,19 +21,25 @@ ledger), the roofline on the card's peaks (``roofline.py``) and the
 advisor ``doctor`` (``doctor.py``); the program analysis
 (``analysis/``: the row-dependence classifier and ``check``) and the fast
 paths it gates (bucket padding, padded ragged buckets, the device segment
-aggregate); verb chains with ``pipeline`` (``ops/pipeline.py``).
+aggregate); verb chains with ``pipeline`` (``ops/pipeline.py``); the
+lazy verb-graph planner (``frame.lazy()``, ``TFS_PLAN``, ``explain``,
+``iterate_epochs``, ``warm_plan``: ``ops/planner.py``), the engine's
+``warmup``, ``Program.serialize``/``aot_compile`` on ``torch.export``
+with ``deserialize_program``, and the persistent compile cache
+(``compile_cache.py``, ``TFS_COMPILE_CACHE``).
 Its attention kernels are hand-written CUDA for Hopper
 (``parallel/flash.py``, ``csrc/``).  Every entry point
 runs on the CUDA card unless its caller passes ``device="cpu"``; without a
 card and without that request it raises.
 
 The package imports torch and numpy only — never jax or tensorframes_tpu —
-and installs no global hooks.
+and installs no global hooks.  When ``TFS_COMPILE_CACHE`` is set, the
+import points the compile cache at it (``compile_cache.configure``).
 """
 
-from . import dsl, graphdef, observability
+from . import analysis, compile_cache, dsl, faults, graphdef, observability, resilience
 from .analysis import check
-from .analyze import analyze, print_schema
+from .analyze import analyze, explain, print_schema
 from .builder import OpBuilder
 from .doctor import doctor
 from .observability import initialize_logging
@@ -51,12 +57,16 @@ from .ops.engine import (
     map_rows,
     reduce_blocks,
     reduce_rows,
+    warmup,
 )
 from .ops.pipeline import Pipeline, pipeline
+from .ops.planner import LazyFrame, LazyGroupedFrame, iterate_epochs, warm_plan
 from .ops.validation import ValidationError
-from .program import GraphNodeSummary, Program, ProgramError
+from .program import GraphNodeSummary, Program, ProgramError, deserialize_program
 from .schema import ColumnInfo, Schema, SchemaError
 from .shape import Shape, ShapeError, UNKNOWN
+
+compile_cache.configure()
 
 __all__ = [
     "ColumnInfo",
@@ -64,6 +74,8 @@ __all__ = [
     "FrameLoader",
     "GraphNodeSummary",
     "GroupedFrame",
+    "LazyFrame",
+    "LazyGroupedFrame",
     "OpBuilder",
     "Pipeline",
     "Program",
@@ -77,14 +89,20 @@ __all__ = [
     "UNKNOWN",
     "ValidationError",
     "aggregate",
+    "analysis",
     "analyze",
     "block",
     "check",
+    "compile_cache",
+    "deserialize_program",
     "doctor",
     "dsl",
+    "explain",
+    "faults",
     "graphdef",
     "group_by",
     "initialize_logging",
+    "iterate_epochs",
     "map_blocks",
     "map_blocks_trimmed",
     "map_rows",
@@ -93,7 +111,10 @@ __all__ = [
     "print_schema",
     "reduce_blocks",
     "reduce_rows",
+    "resilience",
     "row",
     "scalar_type",
     "supported_types",
+    "warm_plan",
+    "warmup",
 ]

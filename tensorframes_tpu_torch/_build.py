@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``_build/`` beside this file (listed in
-``.gitignore``), named by a hash of its source, of every header it
+``.gitignore``), or in ``<dir>/kernels/`` when the persistent compile
+cache is configured (``compile_cache.py``, ``TFS_COMPILE_CACHE``), named
+by a hash of its source, of every header it
 includes from ``csrc/`` (``#include "..."``, followed recursively) and of
 the flags, so a changed source or header rebuilds and an unchanged one
 loads at once.  Builds happen at
@@ -27,7 +29,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-from . import observability
+from . import compile_cache, observability
 
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
@@ -39,6 +41,13 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from: the compile cache's
+    ``kernels/`` when one is configured, else ``BUILD_DIR``."""
+    cached = compile_cache.subdir("kernels")
+    return Path(cached) if cached is not None else BUILD_DIR
 
 
 def cuda_bin(tool: str) -> str:
@@ -84,14 +93,14 @@ def library_path(name: str) -> Path:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:
     so = library_path(name)
     if so.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [cuda_bin("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(

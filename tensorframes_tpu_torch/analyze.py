@@ -57,7 +57,24 @@ def print_schema(frame: TensorFrame) -> None:
     print(explain(frame))
 
 
-def explain(frame: TensorFrame) -> str:
-    """Pretty-printed tensor schema (planned-frame rendering waits for the
-    planner slice)."""
+def explain(frame: TensorFrame, analyze: bool = False) -> str:
+    """Pretty-printed tensor schema; for a *planned* frame (``frame.lazy()``
+    / ``TFS_PLAN``) the optimized logical plan instead: the stages, fused
+    groups, pruned columns, cache insertions and the last run's per-group
+    decisions, without executing anything.
+
+    ``analyze=True`` (``EXPLAIN ANALYZE``): execute the plan under a request
+    ledger and append the measured report (per-group wall time, bytes
+    staged, pool occupancy, each decision with its observed payoff).  Only
+    planned frames can be analyzed."""
+    if getattr(frame, "_tfs_lazy", False):
+        if analyze:
+            return frame.explain_analyze()
+        return frame.explain_plan()
+    if analyze:
+        raise ValueError(
+            "explain(analyze=True) needs a planned frame — call "
+            "frame.lazy() (or set TFS_PLAN=1) and chain verbs before "
+            "analyzing; an eager frame has no pending plan to execute"
+        )
     return frame.schema.explain()

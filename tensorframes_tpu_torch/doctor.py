@@ -18,10 +18,11 @@ describes each.
 Every input is injectable (``counters=``, ``latency=``, ``ledger=``,
 ``spans=``, ``tenants=``, ``shuffles=``, ``plans=``, ``artifacts=``,
 ``fleet=``, ``decode=``), so tests and offline analysis run the same rules
-over recorded snapshots; with no arguments the live process is read.  The
-sections whose modules the port does not have yet (the relational
-shuffle, the planner, the recovery janitor, the bridge's fleet and decode
-scheduler: ROADMAP.md Queue 1 items 10b-12) read empty inputs, and
+over recorded snapshots; with no arguments the live process is read (the
+``plans`` section from the planner's ``recent_plan_stats``).  The sections
+whose modules the port does not have yet (the relational shuffle, the
+recovery janitor, the bridge's fleet and decode scheduler: ROADMAP.md
+Queue 1 items 11-12) read empty inputs, and
 :func:`render` names them in one line.  Only the absence of such a module
 is tolerated: any other failure to read a section raises.
 """

@@ -14,7 +14,7 @@ ROADMAP.md Queue 1 item B).  ``group_by`` makes the ``GroupedFrame`` that
 pandas when called.  ``cache()`` copies the device-feedable columns to one
 device once, so later verbs stage no host bytes; ``cache(sharded=True)``
 places each block on its pool device (``ops/frame_cache.py``).  ``lazy()``
-waits for the planner (ROADMAP.md Queue 1 item 10b).
+switches a frame into planned mode (``ops/planner.py``).
 """
 
 from __future__ import annotations
@@ -490,13 +490,21 @@ class TensorFrame:
         return TensorFrame(cols, self._offsets)
 
     def lazy(self):
-        """Planned mode (the JAX package's ``ops/planner.py``) is not ported
-        yet: it waits for ROADMAP.md Queue 1 item 10b."""
-        raise NotImplementedError(
-            "TensorFrame.lazy() (the verb-graph planner) is not ported yet: "
-            "it waits for ROADMAP.md Queue 1 item 10b (the planner, on the "
-            "roofline model and the observability layer of item 10a)"
-        )
+        """Switch this frame into *planned* mode (``ops/planner.py``): verbs
+        called on the returned LazyFrame append to a logical plan instead
+        of dispatching, and the optimized plan (adjacent maps fused into one
+        dispatch, dead columns pruned before staging, a terminal reduce
+        folded into the chain, twice-consumed subplans auto-cached)
+        executes on first materialisation (``collect``/``to_arrays``/..., a
+        reduce verb, ``aggregate``).  ``tft.explain`` renders the plan.
+        Eager execution stays the default and is bit-identical.
+
+        One shared plan root per frame object: repeated ``lazy()`` calls
+        return the same node, so chains built from separate calls count as
+        consumers of one subplan."""
+        from .ops.planner import root_for
+
+        return root_for(self)
 
     def release_host_columns(self) -> int:
         """Release this frame's cached host columns when a spill-backed

@@ -8,9 +8,9 @@ same public names, record layouts, metric families and knobs:
   set, bumped under a lock (``_bump``), snapshotted by :func:`counters`
   (with ``by_verb`` and the ``peak_host_bytes`` gauge) and diffed by
   :func:`counters_delta`.  Keys whose modules are not ported yet (the
-  bridge, the planner, shuffle and joins, the journal, the fleet, streamed
-  windows, the decode scheduler) stay 0 until those modules land with
-  their ``note_*`` functions.  Where the JAX package counts XLA, the port
+  bridge, shuffle and joins, the journal, the fleet, streamed windows, the
+  decode scheduler) stay 0 until those modules land with their ``note_*``
+  functions; the planner's ``plan_*`` keys move with ``ops/planner.py``.  Where the JAX package counts XLA, the port
   counts its own machinery:
 
   - ``program_traces``: one a trace of the user's program outside
@@ -20,14 +20,15 @@ same public names, record layouts, metric families and knobs:
     classifier's ``make_fx`` traces and taint run, the segment
     recognizer's traces, ``Pipeline.warmup``: the counterparts of JAX
     ``program.py:587, 659, 720``, ``segment_compile.py:290`` and
-    ``pipeline.py:1154``) run under :func:`suppress_trace_count`.  The
-    port has no engine ``warmup`` (JAX ``engine.py:1823``): eager torch
-    has nothing to prime.
+    ``pipeline.py:1154``) run under :func:`suppress_trace_count`, as do
+    the exports of ``Program.serialize``/``aot_compile`` and the zeros
+    runs of the engine's ``warmup`` and the planner's ``warm_plan``.
   - ``backend_compiles``: each ``nvcc`` run of ``_build.py``, the port's
     one compile; ``persistent_cache_hits``: each kernel library loaded
-    from ``_build/`` without ``nvcc``; ``persistent_cache_misses``: each
-    library that had to be built.  There are no ``jax.monitoring``
-    listeners (JAX ``install_counters``).
+    from its build directory (``_build/``, or the compile cache's
+    ``kernels/`` under ``TFS_COMPILE_CACHE``) without ``nvcc``;
+    ``persistent_cache_misses``: each library that had to be built.  There
+    are no ``jax.monitoring`` listeners (JAX ``install_counters``).
 
 * **spans** (:func:`enable`, :func:`verb_span`, :func:`last_spans`): per
   verb ``validate / dispatch / sync`` phases.  On the card CUDA runs
@@ -584,6 +585,43 @@ def note_analysis_probe_fallback() -> None:
 def note_d2h_bytes(n: int) -> None:
     """``n`` device bytes read back to the host by a pooled loop."""
     _bump("d2h_bytes_assembled", int(n))
+
+
+def note_plan_fused_dispatch() -> None:
+    """One fused group (>= 2 adjacent map stages in one chained dispatch)
+    run by the planner (``ops/planner.py``)."""
+    _bump("plan_fused_dispatches")
+
+
+def note_plan_columns_pruned(n: int) -> None:
+    """``n`` source columns a fused dispatch never staged because no stage
+    reads them (dead-column pruning)."""
+    _bump("plan_columns_pruned", int(n))
+
+
+def note_plan_cache_insert() -> None:
+    """One cache the planner inserted (a subplan with >= 2 consumers, or
+    adopted pooled chain outputs)."""
+    _bump("plan_cache_inserts")
+
+
+def note_plan_fused_reduce() -> None:
+    """One terminal reduce (or pruned aggregate) folded into the planned
+    chain dispatch: per-block partials on the chain's devices, no
+    materialized intermediate frame."""
+    _bump("plan_fused_reduces")
+
+
+def note_plan_cse_hit() -> None:
+    """One planned subplan served by the cross-plan sharing registry
+    instead of re-executing (concurrent waiters and later identical
+    chains both count)."""
+    _bump("plan_cse_hits")
+
+
+def note_plan_stream_window() -> None:
+    """One streaming window executed through plan construction."""
+    _bump("plan_stream_windows")
 
 
 def note_spill_bytes_written(n: int) -> None:

@@ -58,16 +58,27 @@ last loop's record.
 Each verb runs under ``observability.verb_span`` (its phases, the loop's
 record as annotations, the always-on latency histogram); every block
 leaves a flight-recorder event on its device's track (``cuda:0``) and is
-attributed to the active request's ledger, as JAX's loops do.  Not ported
-(ROADMAP.md Queue 1): chunk-level streamed plans (item 11), the planner
-(item 10b).
+attributed to the active request's ledger, as JAX's loops do.
+
+``Executor.warmup`` (and the module-level :func:`warmup`) mirrors the
+bucket plan the map verbs will run: it exports the program once per
+executed size (``Program.aot_compile_raw``, one fingerprint each) and
+primes every (size, device) pair by running the entry once on zero-filled
+blocks, which builds or loads the kernels the program launches and seeds
+the allocator.  The module-level verbs route through the planner
+(``ops/planner.py``): a ``frame.lazy()`` frame, or any frame under
+``TFS_PLAN=1``, records map verbs on a plan (``_lazy_target``), and the
+reduce verbs and ``aggregate`` are its materialisation points
+(``_lazy_frame``, ``LazyGroupedFrame``); an explicit ``engine=`` stays
+eager.  Not ported (ROADMAP.md Queue 1): chunk-level streamed plans (item
+11).
 """
 
 from __future__ import annotations
 
 import functools
 import threading
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -235,6 +246,10 @@ class GroupedFrame:
 
 
 def group_by(frame: TensorFrame, *keys: str) -> GroupedFrame:
+    if getattr(frame, "_tfs_lazy", False):
+        # a LazyFrame defers its grouping to aggregate (ops/planner.py),
+        # counting the grouping as one consumer
+        return frame.group_by(*keys)
     return GroupedFrame(frame, keys)
 
 
@@ -258,6 +273,9 @@ class Executor:
     # the device segment path of ``aggregate`` (``_aggregate_segment``);
     # an executor with it off runs the general paths for every program
     supports_segment_aggregate = True
+    # the device pool (``ops/device_pool.py``); an executor with it off
+    # (the planner's fused-serial target) runs host-fresh frames serially
+    supports_device_pool = True
 
     # ---------------------------------------------------------------- map --
 
@@ -391,6 +409,7 @@ class Executor:
         verb = "map_rows" if rows_level else "map_blocks"
         sizes = frame.block_sizes
         pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, trim)
+        program.note_entry(rows_level)
         cache = frame_cache.active_cache(frame)
         if cache is not None:
             return self._map_dispatch_pooled(
@@ -399,7 +418,8 @@ class Executor:
             )
         pool_devs = (
             device_pool.pool_devices()
-            if _frame_fresh(frame) and frame.num_blocks > 1 else []
+            if self.supports_device_pool and _frame_fresh(frame) and frame.num_blocks > 1
+            else []
         )
         if len(pool_devs) >= 2:
             return self._map_dispatch_pooled(
@@ -939,6 +959,102 @@ class Executor:
         ]
         return self._with_passthrough(frame, cols, frame.offsets)
 
+    # ------------------------------------------------------------- warmup --
+
+    def warmup(
+        self,
+        program: Program,
+        frame: TensorFrame,
+        rows_level: bool = False,
+        host_stage: Optional[Mapping[str, Any]] = None,
+    ) -> List[str]:
+        """Export and prime what the map verbs will actually run over
+        ``frame``, returning one fingerprint per executed size (the JAX
+        package's ``Executor.warmup``).
+
+        "Actually": the sizes come from the same :meth:`_bucket_plan` the
+        verbs use, so a row-independent program gives one fingerprint per
+        bucketed size and a cross-row one one per distinct block size.  Each
+        size is exported once (``Program.aot_compile_raw``: the graph and
+        its fingerprint; with ``TFS_COMPILE_CACHE`` the artifact is saved
+        there).  Then every (size, device) pair runs the entry once on
+        zero-filled blocks, under ``suppress_trace_count``: that builds or
+        loads every kernel the program launches (``nvcc``, or a library
+        from the compile cache) and seeds the caching allocator, so the
+        first real block pays neither.  The devices are the sharded
+        cache's, or the pool's for a host-fresh multi-block frame, else the
+        program's.  ``host_stage`` inputs are probed on one row to learn
+        the staged cell shape; ragged ``map_rows`` inputs raise (their
+        shapes depend on the data)."""
+        host_stage = _with_prelude(program, host_stage)
+        verb = "map_rows" if rows_level else "map_blocks"
+        if rows_level and any(
+            frame.column(program.column_for_input(n)).is_ragged
+            and not (host_stage and n in host_stage)
+            for n in program.input_names
+        ):
+            raise ValidationError(
+                "warmup: ragged columns are not supported; ragged map_rows "
+                "calls are keyed by the data's cell shapes, so they build "
+                "at first use."
+            )
+        infos = validation.check_map_inputs(
+            program, frame, verb, host_staged=host_stage or ()
+        )
+        staged_specs: Dict[str, Tuple[Any, Tuple[int, ...]]] = {}
+        if host_stage:
+            block0 = frame.block(0)
+            for n in program.input_names:
+                if n in host_stage:
+                    value = block0[program.column_for_input(n)][:1]
+                    arr = self._staged_value(host_stage[n], value, n)
+                    staged_specs[n] = (
+                        dtypes.coerce(dtypes.from_numpy(arr.dtype)), arr.shape[1:]
+                    )
+        pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, False)
+        exec_sizes = sorted({
+            pads[bi] if pads[bi] is not None else n
+            for bi, n in enumerate(frame.block_sizes) if n > 0
+        })
+
+        def specs_at(n_rows):
+            out = {}
+            for n in program.input_names:
+                if n in staged_specs:
+                    st, cell = staged_specs[n]
+                else:
+                    st, cell = dtypes.coerce(infos[n].scalar_type), tuple(infos[n].cell_shape)
+                out[n] = (st, (n_rows,) + tuple(cell))
+            return out
+
+        raw = program._raw_entry(rows_level)
+        fps = [
+            program.aot_compile_raw(raw, specs_at(n), ("aot", bool(rows_level))).fingerprint
+            for n in exec_sizes
+        ]
+        cache = frame_cache.active_cache(frame)
+        if cache is not None:
+            devices = [cache.devices[di] for di in sorted(set(cache.assignment))]
+        else:
+            pool = (
+                device_pool.pool_devices()
+                if self.supports_device_pool and _frame_fresh(frame) and frame.num_blocks > 1
+                else []
+            )
+            devices = pool if len(pool) >= 2 else [program.device]
+        with torch.no_grad(), observability.suppress_trace_count():
+            for n_rows in exec_sizes:
+                for dev in devices:
+                    call = _runner(device_pool.program_on(program, dev), rows_level)
+                    zeros = {
+                        n: torch.zeros(shape, dtype=st.torch_dtype, device=dev)
+                        for n, (st, shape) in specs_at(n_rows).items()
+                    }
+                    with device_pool.device_scope(dev):
+                        call(zeros)
+        program.note_entry(rows_level)
+        return fps
+
     # ------------------------------------------------------------- reduce --
 
     def _pair_call(self, program: Program, bases: Sequence[str]):
@@ -1082,7 +1198,8 @@ class Executor:
             )
         pool_devs = (
             device_pool.pool_devices()
-            if len(nonempty) > 1 and _frame_fresh(frame) else []
+            if self.supports_device_pool and len(nonempty) > 1 and _frame_fresh(frame)
+            else []
         )
         if len(pool_devs) >= 2:
             return self._reduce_partials_pooled(
@@ -1638,6 +1755,35 @@ def _wrap(fn, verb, fetches=None, feed_dict=None, shapes=None, device=None) -> P
     return program
 
 
+_DEFAULT = Executor()
+
+
+def _resolve(engine: Optional[Executor]) -> Executor:
+    return engine if engine is not None else _DEFAULT
+
+
+def _lazy_target(frame, engine):
+    """The LazyFrame a map verb appends to instead of dispatching, or None
+    for the eager path (``ops/planner.py``: the frame is lazy via
+    ``frame.lazy()``, or ``TFS_PLAN=1`` routes plain frames).  An explicit
+    ``engine=`` always stays eager: a plan targets the default engine."""
+    if engine is not None:
+        return None
+    from . import planner
+
+    return planner.maybe_lazy(frame)
+
+
+def _lazy_frame(frame):
+    """A LazyFrame argument materialised, for the verbs that are
+    materialisation points over plain frames (and warmup)."""
+    if getattr(frame, "_tfs_lazy", False):
+        from . import planner
+
+        return planner.ensure_frame(frame)
+    return frame
+
+
 def map_blocks(
     fn,
     frame: TensorFrame,
@@ -1647,14 +1793,21 @@ def map_blocks(
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
     host_stage: Optional[Mapping[str, Any]] = None,
+    engine: Optional[Executor] = None,
 ) -> TensorFrame:
     """Apply a block-level program to every block.
 
     ``fn``: a :class:`Program` or a callable (wrapped on ``device``; None =
     the CUDA card).  ``shapes``: output name -> block-shape hint.
-    ``host_stage``: input name -> host preprocessing fn (binary decode)."""
+    ``host_stage``: input name -> host preprocessing fn (binary decode).
+    Planned mode (``ops/planner.py``): on a ``frame.lazy()`` frame, or any
+    frame under ``TFS_PLAN=1``, the verb is recorded on the plan and a
+    LazyFrame returned; ``engine=`` dispatches eagerly on that executor."""
     program = _wrap(fn, "map_blocks", fetches, feed_dict, shapes, device)
-    return Executor().map_blocks(program, frame, trim=trim, host_stage=host_stage)
+    lazy = _lazy_target(frame, engine)
+    if lazy is not None:
+        return lazy._append("map_blocks", program, trim=trim, host_stage=host_stage)
+    return _resolve(engine).map_blocks(program, frame, trim=trim, host_stage=host_stage)
 
 
 def map_blocks_trimmed(fn, frame: TensorFrame, **kw) -> TensorFrame:
@@ -1670,12 +1823,16 @@ def map_rows(
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
     host_stage: Optional[Mapping[str, Any]] = None,
+    engine: Optional[Executor] = None,
 ) -> TensorFrame:
     """Apply a row-level program to every row (``tfs.map_rows``, reference
     ``core.py:175-211``).  ``shapes`` hints are per-row cell shapes;
-    ``host_stage`` as for :func:`map_blocks`."""
+    ``host_stage``, planned mode and ``engine`` as for :func:`map_blocks`."""
     program = _wrap(fn, "map_rows", fetches, feed_dict, shapes, device)
-    return Executor().map_rows(program, frame, host_stage=host_stage)
+    lazy = _lazy_target(frame, engine)
+    if lazy is not None:
+        return lazy._append("map_rows", program, host_stage=host_stage)
+    return _resolve(engine).map_rows(program, frame, host_stage=host_stage)
 
 
 def reduce_rows(
@@ -1685,12 +1842,16 @@ def reduce_rows(
     mode: str = "tree",
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
+    engine: Optional[Executor] = None,
 ) -> Dict[str, Any]:
     """Pairwise-reduce all rows to one (``tfs.reduce_rows``, reference
     ``core.py:138-173``).  Returns column -> host array (bf16: a CPU
-    tensor)."""
+    tensor).  A LazyFrame argument is a materialisation point: the plan
+    executes, folding the reduce into its chain where it can."""
     program = _wrap(fn, "reduce_rows", fetches, shapes=shapes, device=device)
-    return Executor().reduce_rows(program, frame, mode=mode)
+    if engine is None and getattr(frame, "_tfs_lazy", False):
+        return frame._reduce("reduce_rows", program, mode=mode)
+    return _resolve(engine).reduce_rows(program, _lazy_frame(frame), mode=mode)
 
 
 def reduce_blocks(
@@ -1699,12 +1860,16 @@ def reduce_blocks(
     fetches: Optional[Sequence[str]] = None,
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
+    engine: Optional[Executor] = None,
 ) -> Dict[str, Any]:
     """Block-reduce then combine across blocks (``tfs.reduce_blocks``,
     reference ``core.py:255-291``).  Returns column -> host array (bf16: a
-    CPU tensor)."""
+    CPU tensor).  A LazyFrame argument is a materialisation point (see
+    :func:`reduce_rows`)."""
     program = _wrap(fn, "reduce_blocks", fetches, shapes=shapes, device=device)
-    return Executor().reduce_blocks(program, frame)
+    if engine is None and getattr(frame, "_tfs_lazy", False):
+        return frame._reduce("reduce_blocks", program)
+    return _resolve(engine).reduce_blocks(program, _lazy_frame(frame))
 
 
 def aggregate(
@@ -1713,8 +1878,43 @@ def aggregate(
     fetches: Optional[Sequence[str]] = None,
     shapes: Optional[Mapping[str, Sequence[int]]] = None,
     device: DeviceLike = None,
+    engine: Optional[Executor] = None,
 ) -> TensorFrame:
     """Keyed algebraic aggregation (``tfs.aggregate``, reference
-    ``core.py:319-336``)."""
+    ``core.py:319-336``).  Grouping a LazyFrame defers its one
+    materialisation to this call, which fetches only the key and reduced
+    columns of the chain (``ops/planner.py``); the aggregate itself always
+    runs the eager engine, so grouping numerics cannot drift."""
     program = _wrap(fn, "aggregate", fetches, shapes=shapes, device=device)
-    return Executor().aggregate(program, grouped)
+    from . import planner
+
+    if isinstance(grouped, planner.LazyGroupedFrame):
+        if engine is None:
+            return grouped.lazy._aggregate_terminal(program, grouped.keys, grouped=grouped)
+        grouped = GroupedFrame(grouped.frame, grouped.keys)
+    if getattr(grouped.frame, "_tfs_lazy", False):
+        grouped = GroupedFrame(_lazy_frame(grouped.frame), grouped.keys)
+    return _resolve(engine).aggregate(program, grouped)
+
+
+def warmup(
+    fn,
+    frame: TensorFrame,
+    rows_level: bool = False,
+    fetches: Optional[Sequence[str]] = None,
+    feed_dict: Optional[Mapping[str, str]] = None,
+    host_stage: Optional[Mapping[str, Any]] = None,
+    device: DeviceLike = None,
+    engine: Optional[Executor] = None,
+) -> List[str]:
+    """Export and prime the map-verb entry ``fn`` will run over ``frame``
+    (see :meth:`Executor.warmup`); returns the fingerprints.  A LazyFrame
+    argument first primes the plan's own chain (``planner.warm_plan``),
+    then materialises and warms ``fn`` over the result."""
+    program = _wrap(fn, "warmup", fetches, feed_dict, device=device)
+    if engine is None and getattr(frame, "_tfs_lazy", False):
+        from . import planner
+
+        planner.warm_plan(frame)
+    frame = _lazy_frame(frame)
+    return _resolve(engine).warmup(program, frame, rows_level=rows_level, host_stage=host_stage)

@@ -568,13 +568,16 @@ def active_cache(frame) -> Optional[FrameCache]:
 
 
 def build(frame, col_names: Sequence[str], devices: Optional[Sequence[Any]] = None,
-          spill: Optional[Any] = None) -> Optional[FrameCache]:
+          spill: Optional[Any] = None, min_devices: int = 2) -> Optional[FrameCache]:
     """Stage ``col_names``'s block slices onto their devices by the pool's
-    assignment and return the cache; None with fewer than two devices, no
-    columns or no rows.  The copies are the one host-to-device cost a cached
-    loop pays (counted in ``h2d_bytes_staged``)."""
+    assignment and return the cache; None with fewer than ``min_devices``
+    devices (two: a sharded cache; the planner's one-card auto-cache
+    passes one), no columns or no rows.  The copies are the one
+    host-to-device cost a cached loop pays (counted in
+    ``h2d_bytes_staged``)."""
     devices = list(shard_devices(True) if devices is None else devices)
-    if not col_names or len(devices) < 2 or frame.num_blocks < 1 or frame.num_rows == 0:
+    if (not col_names or len(devices) < max(1, min_devices)
+            or frame.num_blocks < 1 or frame.num_rows == 0):
         return None
     assignment = device_pool.assign(frame.block_sizes, len(devices))
     cache = FrameCache(devices, assignment, spill=spill)

@@ -54,10 +54,8 @@ from ..program import Program
 from ..schema import ColumnInfo, Schema
 from ..shape import Shape, UNKNOWN
 from . import device_pool, frame_cache, validation
-from .engine import Executor, _host
+from .engine import _DEFAULT, _host
 from .validation import ValidationError
-
-_DEFAULT = Executor()
 
 # the param of a pooled chain's Program that carries every stage's params
 _CHAIN_PARAMS = "__chain_params"
@@ -687,6 +685,12 @@ def pipeline(frame: TensorFrame, engine=None, device: DeviceLike = None) -> Pipe
     ``device``: where the stage programs built from functions run (None =
     the CUDA card).  A ``MeshExecutor`` ``engine`` (mesh-global chains)
     waits for ROADMAP.md Queue 1 item 13."""
+    if getattr(frame, "_tfs_lazy", False):
+        # a Pipeline over a lazy frame materialises the plan first: a
+        # Pipeline is its own chaining surface
+        from . import planner
+
+        frame = planner.ensure_frame(frame)
     if engine is not None:
         raise NotImplementedError(
             "pipeline(engine=...): mesh-global chains over a MeshExecutor "

@@ -61,12 +61,20 @@ launch ``csrc/flash_ring.cu``; CPU and meta tensors take
 
 Inside a roofline trace (``roofline.py``) :func:`flash_attention` and
 :func:`flash_ring_step` emit one cost op each in place of a kernel or a
-plain version, so the roofline counts attention as the kernels do.
+plain version, so the roofline counts attention as the kernels do.  Inside
+a ``torch.export`` (``Program.serialize`` / ``aot_compile``,
+:func:`export_tracing`) :func:`flash_attention` calls the
+``tensorframes_torch::flash_fwd`` op instead (:func:`export_ops`), whose
+implementation is :func:`flash_attention_fwd`: the exported graph launches
+the forward kernel on the card and counts it in :data:`kernel_launches`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -842,6 +850,40 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+_export_trace: "contextvars.ContextVar[bool]" = contextvars.ContextVar(
+    "tfs_flash_export", default=False
+)
+
+
+@contextlib.contextmanager
+def export_tracing():
+    """Scope a ``torch.export`` trace: :func:`flash_attention` emits the
+    ``tensorframes_torch::flash_fwd`` op, which an exported graph keeps."""
+    token = _export_trace.set(True)
+    try:
+        yield
+    finally:
+        _export_trace.reset(token)
+
+
+@functools.lru_cache(maxsize=None)
+def export_ops():
+    """The ``tensorframes_torch::flash_fwd`` op (registered at first use:
+    an export, or the load of an exported artifact): the attention output
+    of :func:`flash_attention_fwd`, the kernel on a CUDA tensor and the
+    plain version on a CPU one.  Inference only: it has no gradient."""
+
+    def forward(q, k, v, causal):
+        return flash_attention_fwd(q, k, v, causal)[0]
+
+    op = torch.library.custom_op(
+        "tensorframes_torch::flash_fwd", forward, mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    )
+    op.register_fake(lambda q, k, v, causal: q.new_empty(q.shape))
+    return op
+
+
 def flash_attention(
     q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128
 ) -> torch.Tensor:
@@ -851,6 +893,8 @@ def flash_attention(
     gradient goes through :class:`FlashAttention`."""
     if roofline.cost_tracing():
         return roofline.cost_ops()[0](q, k, v, causal)
+    if _export_trace.get():
+        return export_ops()(q, k, v, causal)
     return FlashAttention.apply(q, k, v, causal, block_q, block_k)
 
 

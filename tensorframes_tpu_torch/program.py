@@ -3,9 +3,10 @@
 PyTorch counterpart of ``tensorframes_tpu/program.py``.  A ``Program``
 wraps a function over torch tensors whose argument names are the input
 names and whose outputs are named fetches.  PyTorch runs eagerly, so there
-is no trace or compile cache: the callable is kept as given, and
-``update_params`` swaps the param tensors it is called with — it never
-rebuilds the callable.
+is no trace or compile cache behind the verbs: the callable is kept as
+given, and ``update_params`` swaps the param tensors it is called with (it
+never rebuilds the callable) and bumps ``_params_version``, the generation
+the planner's cross-plan sharing keys on.
 
 Params (a tensor, or a pytree of nested dicts/lists/tuples of tensors)
 move to the program's device once, at construction or ``update_params``,
@@ -13,14 +14,37 @@ not per block.  ``analyze`` shape-infers the program on ``meta`` tensors:
 no data, no device work, and refines the result by the program's shape
 hints (``with_shape_hints``).  ``vmapped`` is the row-level call of
 ``map_rows``: the cell program under ``torch.func.vmap``, as the JAX
-package's is under ``jax.vmap``.  ``serialize``/``aot_compile`` are
-StableHLO-specific in the JAX package and wait for a later slice.
+package's is under ``jax.vmap``.
+
+Where the JAX package lowers to StableHLO, the port exports with
+``torch.export``:
+
+* ``serialize`` / :func:`deserialize_program`: a frozen artifact (params
+  in as buffers, every Unknown lead dim one ``rows`` ``Dim``, each Unknown
+  cell dim its own), behind JAX's ``tfs-program-v1`` JSON header;
+* ``aot_compile`` / ``aot_compile_raw``: the program exported at one exact
+  (bucketed) signature with its params as live arguments, memoized in the
+  derived-callable LRU (``cached_jit``, ``_DERIVED_CAP``) and fingerprinted
+  by the torch version and the exported graph's code; with the compile
+  cache configured (``compile_cache.py``) the artifact is saved under
+  ``<dir>/programs/<fingerprint>.pt2``.
+
+``parallel.flash`` launches its kernels through ``ctypes``, which an
+export cannot trace, so under an export ``flash_attention`` calls the
+``tensorframes_torch::flash_fwd`` op, whose implementation is the flash
+forward itself: an exported or deserialized program launches
+``flash_fwd_tma`` on the card (``flash.kernel_launches`` counts it) and
+the plain version on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
+import io
+import json
+import os
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -134,6 +158,15 @@ class Program:
             k: tree_map(lambda a: _to_tensor(a, self._device), v)
             for k, v in (params or {}).items()
         }
+        # monotonic params generation: bumped by update_params so caches
+        # keyed on live param VALUES (the planner's cross-plan sharing)
+        # tell two states of one Program apart without hashing tensors
+        self._params_version = 0
+        # derived callables (cached_jit, aot_compile), least recently used
+        # first; and the entries the verbs have dispatched ("block",
+        # "rows"): the planner's "warm" (see ops/planner.py)
+        self._derived: Dict[Any, Any] = {}
+        self._warm_entries: set = set()
         for k in self._params:
             if k not in all_names:
                 raise ProgramError(
@@ -299,6 +332,10 @@ class Program:
         return dict(self._params)
 
     @property
+    def param_names(self) -> List[str]:
+        return list(self._params)
+
+    @property
     def name(self) -> str:
         """The wrapped function's qualified name (for error messages)."""
         return getattr(self._fn, "__qualname__", None) or repr(self._fn)
@@ -331,6 +368,7 @@ class Program:
                     )
             validated[k] = new
         self._params.update(validated)
+        self._params_version += 1
         return self
 
     def column_for_input(self, name: str) -> str:
@@ -431,6 +469,178 @@ class Program:
 
         return run
 
+    def note_entry(self, rows_level: bool) -> None:
+        """The engine dispatched this program's block entry (or its row
+        entry, ``rows_level``): the planner's "warm" (``ops/planner.py``)."""
+        self._warm_entries.add("rows" if rows_level else "block")
+
+    def entry_warm(self, rows_level: bool) -> bool:
+        return ("rows" if rows_level else "block") in self._warm_entries
+
+    # -- derived callables ---------------------------------------------------
+
+    # cap on derived callables kept per Program; least recently USED
+    # evicted first, so a Program reused across many short-lived signatures
+    # does not pin their exported graphs forever
+    _DERIVED_CAP = 32
+
+    def _derived_hit(self, key):
+        """LRU touch: re-insert ``key`` so eviction order is recency of
+        use, not of insertion."""
+        self._derived[key] = self._derived.pop(key)
+        return self._derived[key]
+
+    def _derived_put(self, key, value):
+        while len(self._derived) >= self._DERIVED_CAP:
+            self._derived.pop(next(iter(self._derived)))
+        self._derived[key] = value
+        return value
+
+    def cached_jit(self, key, build_raw):
+        """Memoize ``build_raw()``, a raw ``fn(*args, params)``, with the
+        live params bound as its last argument (the JAX package's
+        ``cached_jit``, which jits it; eager torch has nothing to compile,
+        so the memo is the callable itself).  Eviction is LRU: a hit
+        re-inserts the key, so a burst of one-off keys cannot evict a hot
+        one."""
+        if key in self._derived:
+            return self._derived_hit(key)
+        raw = build_raw()
+        bound = lambda *args: raw(*args, self._params)  # noqa: E731
+        bound.raw = raw
+        return self._derived_put(key, bound)
+
+    # -- ahead-of-time export (the cold-start path) -------------------------
+
+    def _raw_entry(self, rows_level: bool):
+        """The raw entry ``fn(inputs, params)``: the block call, or the
+        vmapped row call of ``map_rows``."""
+        if rows_level:
+            return self.vmapped()
+        return lambda inputs, params: self.call(inputs, params)
+
+    def _examples(self, input_specs: Mapping[str, Any], what: str) -> Dict[str, torch.Tensor]:
+        """Zero tensors on the program's device at ``input_specs``'
+        static shapes (input name -> ``(ScalarType or torch.dtype, shape)``)."""
+        out = {}
+        for n in self._input_names:
+            if n not in input_specs:
+                raise ProgramError(
+                    f"no spec for program input {n!r}; got specs for "
+                    f"{sorted(input_specs)}"
+                )
+            dt, shape = _spec(input_specs[n])
+            if any(d == UNKNOWN for d in shape):
+                raise ProgramError(
+                    f"input {n!r}: {what} needs a static shape, got "
+                    f"{tuple(shape)} (bucket the lead dim first)"
+                )
+            out[n] = torch.zeros(tuple(shape), dtype=dt, device=self._device)
+        return out
+
+    def aot_compile(self, input_specs: Mapping[str, Any], rows_level: bool = False):
+        """Export the program at one exact (bucketed) input signature;
+        returns the bound callable ``fn(inputs) -> {name: tensor}``, which
+        carries ``.fingerprint`` (16 hex characters) and ``.signature``.
+        ``rows_level``: export the vmapped row entry (``map_rows``).  See
+        :meth:`aot_compile_raw`."""
+        return self.aot_compile_raw(
+            self._raw_entry(rows_level), input_specs, ("aot", bool(rows_level))
+        )
+
+    def aot_compile_raw(self, raw, input_specs: Mapping[str, Any], tag):
+        """:meth:`aot_compile` for an arbitrary raw entry ``fn(inputs,
+        params)`` of this program.  Exported once per (``tag``, signature)
+        and memoized in the derived-callable LRU; the params are live
+        arguments, so ``update_params`` reaches the returned callable.
+
+        The fingerprint hashes the torch version, the signature and the
+        exported graph's code, which hold no object ids or source
+        locations: two Programs wrapping the same source give the same
+        fingerprint, in any process.  With the compile cache configured
+        the exported program is saved as ``<dir>/programs/<fp>.pt2``."""
+        examples = self._examples(input_specs, "aot_compile")
+        sig = tuple((n, tuple(t.shape), str(t.dtype)) for n, t in sorted(examples.items()))
+        key = (tag, sig)
+        if key in self._derived:
+            return self._derived_hit(key)
+        ep = _export(_LiveEntry(raw), (examples, self._params))
+        h = hashlib.sha256()
+        h.update(torch.__version__.encode())
+        h.update(repr(sig).encode())
+        h.update(ep.graph_module.code.encode())
+        fp = h.hexdigest()[:16]
+        from . import compile_cache
+
+        home = compile_cache.subdir("programs")
+        if home is not None:
+            path = os.path.join(home, f"{fp}.pt2")
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                torch.export.save(ep, tmp)
+                os.replace(tmp, path)
+        mod = ep.module()
+        fn = lambda inputs: mod(dict(inputs), self._params)  # noqa: E731
+        fn.fingerprint = fp
+        fn.signature = sig
+        return self._derived_put(key, fn)
+
+    # -- serialization -------------------------------------------------------
+
+    def serialize(self, input_specs: Mapping[str, Any]) -> bytes:
+        """Freeze into a portable program artifact (``torch.export``).
+
+        The params are frozen in as buffers, and Unknown (-1) dims become
+        symbolic: every Unknown lead dim shares one ``rows`` ``Dim`` (all
+        columns of a block have the same row count), each Unknown cell dim
+        gets its own, so one artifact serves any block size.  The bytes
+        are JAX's layout: the JSON header ``tfs-program-v1`` (``inputs``,
+        ``fetches``, ``feed``), ``b"\\x00"``, then the payload of
+        ``torch.export.save``.  Round-trip via :func:`deserialize_program`.
+
+        ``input_specs``: input name -> ``(ScalarType, shape)``, Unknown
+        dims allowed."""
+        from torch.export import Dim
+
+        rows = None
+        examples: Dict[str, torch.Tensor] = {}
+        dynamic: Dict[str, Dict[int, Any]] = {}
+        n_cell = 0
+        for n in self._input_names:
+            if n not in input_specs:
+                raise ProgramError(
+                    f"serialize: no spec for program input {n!r}; got "
+                    f"specs for {sorted(input_specs)}"
+                )
+            dt, shape = _spec(input_specs[n])
+            dims, sizes = {}, []
+            for i, d in enumerate(shape):
+                if d != UNKNOWN:
+                    sizes.append(d)
+                    continue
+                if i == 0:
+                    rows = rows or Dim("rows")
+                    dims[i] = rows
+                    sizes.append(3)
+                else:
+                    dims[i] = Dim(f"u{n_cell}")
+                    sizes.append(5 + n_cell)
+                    n_cell += 1
+            examples[n] = torch.zeros(tuple(sizes), dtype=dt, device=self._device)
+            dynamic[n] = dims
+        ep = _export(_FrozenEntry(self), (examples,), dynamic_shapes=({**dynamic},))
+        header = json.dumps(
+            {
+                "format": "tfs-program-v1",
+                "inputs": self._input_names,
+                "fetches": self._fetches or self.fetches,
+                "feed": self._feed,
+            }
+        ).encode()
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        return header + b"\x00" + buf.getvalue()
+
     # -- analysis ------------------------------------------------------------
 
     def analyze(
@@ -517,3 +727,95 @@ class Program:
                 )
             )
         return summaries
+
+
+def _spec(spec):
+    """``(torch.dtype, Shape)`` of an input spec: ``(ScalarType or
+    torch.dtype, shape)`` or an example tensor."""
+    if isinstance(spec, torch.Tensor):
+        return spec.dtype, Shape(tuple(spec.shape))
+    st, shape = spec
+    dt = st if isinstance(st, torch.dtype) else dtypes.coerce(st).torch_dtype
+    return dt, Shape(shape)
+
+
+class _LiveEntry(torch.nn.Module):
+    """A raw entry ``fn(inputs, params)`` as the module ``aot_compile``
+    exports: the params are arguments, so they stay live."""
+
+    def __init__(self, raw):
+        super().__init__()
+        self._raw = raw
+
+    def forward(self, inputs, params):
+        return self._raw(inputs, params)
+
+
+class _FrozenEntry(torch.nn.Module):
+    """A program with its param leaves as buffers, the module
+    ``serialize`` exports: the params are frozen into the artifact."""
+
+    def __init__(self, program: "Program"):
+        super().__init__()
+        self._program = program
+        self._n = 0
+        for _path, leaf in tree_leaves(program._params):
+            self.register_buffer(f"p{self._n}", leaf)
+            self._n += 1
+
+    def forward(self, inputs):
+        leaves = iter([getattr(self, f"p{i}") for i in range(self._n)])
+        params = tree_map(lambda _leaf: next(leaves), self._program._params)
+        return self._program.call(inputs, params)
+
+
+def _export(module: torch.nn.Module, args, dynamic_shapes=None):
+    """``torch.export.export`` of ``module`` with the flash kernels as the
+    ``tensorframes_torch::flash_fwd`` op (``parallel.flash``); the trace
+    is analysis, not a trace of the user's program."""
+    from .parallel import flash
+
+    with flash.export_tracing(), observability.suppress_trace_count(), torch.no_grad():
+        return torch.export.export(module, args, dynamic_shapes=dynamic_shapes)
+
+
+def _on_device(ep, device: torch.device):
+    """``ep`` with its state on ``device`` (``move_to_device_pass`` when
+    the artifact was exported elsewhere)."""
+    tensors = list(ep.state_dict.values()) + [
+        t for t in ep.constants.values() if isinstance(t, torch.Tensor)
+    ]
+    if all(t.device == device for t in tensors):
+        return ep
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(ep, device)
+
+
+def deserialize_program(data: bytes, device: DeviceLike = None) -> Program:
+    """Rehydrate a :meth:`Program.serialize` artifact on ``device`` (None =
+    the CUDA card; raises without one).
+
+    The artifact is self-contained (params frozen in, shapes symbolic).
+    Block-level semantics only, as in the JAX package: the exported graph
+    cannot be re-vmapped, so feed it to ``map_blocks``/``reduce_*``, not
+    ``map_rows``."""
+    sep = data.index(b"\x00")
+    header = json.loads(data[:sep].decode())
+    if header.get("format") != "tfs-program-v1":
+        raise ProgramError(
+            f"not a serialized tensorframes program (format="
+            f"{header.get('format')!r})"
+        )
+    from .parallel import flash
+
+    flash.export_ops()  # the op an exported attention calls, before the load
+    dev = resolve_device(device)
+    ep = _on_device(torch.export.load(io.BytesIO(data[sep + 1:])), dev)
+    module = ep.module()
+    names = header["inputs"]
+
+    def fn(**kwargs):
+        return module({n: kwargs[n] for n in names})
+
+    return Program(fn, names, header["fetches"], header.get("feed") or None, device=dev)

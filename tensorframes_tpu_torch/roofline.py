@@ -159,7 +159,8 @@ def cost_ops():
 
 
 def _attention_node_cost(name: str, args) -> Tuple[float, float]:
-    if name == "attention":
+    # "flash_fwd": the op an exported program calls (``parallel.flash``)
+    if name in ("attention", "flash_fwd"):
         q, k, _v, causal = args[:4]
         B, Lq, H, D = q.shape
         return flash_cost("flash_fwd", B, Lq, k.shape[1], H, k.shape[2], D,
@@ -290,9 +291,11 @@ def device_name(device: torch.device) -> str:
     return device.type
 
 
-def _trace(fn, args):
+def _trace(fn, args, device: Optional[torch.device] = None):
     """The ATen graph of ``fn(*args)`` traced on fake tensors, with the
-    flash kernels as the cost ops.  Nothing runs on data."""
+    flash kernels as the cost ops.  Nothing runs on data.  ``device``: the
+    ``meta`` tensors among ``args`` stand for tensors on this device (a
+    spec, with nothing allocated)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -300,8 +303,16 @@ def _trace(fn, args):
     from .program import tree_map
 
     fm = FakeTensorMode(allow_non_fake_inputs=True)
-    fake = tree_map(lambda a: fm.from_tensor(a) if isinstance(a, torch.Tensor) else a,
-                    list(args))
+
+    def fake(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if a.is_meta and device is not None:
+            with fm:
+                return torch.empty(a.shape, dtype=a.dtype, device=device)
+        return fm.from_tensor(a)
+
+    fake = tree_map(fake, list(args))
     cost_ops()
     token = _cost_trace.set(True)
     try:
@@ -344,6 +355,18 @@ def _walk(gm) -> List[Tuple[str, str, float, float, float]]:
             continue
         out.append((node.name, kind, float(flops), float(nbytes), float(agg)))
     return out
+
+
+def cost(fn, args, device: Optional[torch.device] = None) -> Tuple[float, float]:
+    """``(flops, bytes)`` of ``fn(*args)`` as :func:`roofline` counts them:
+    the per-op FLOPs, or the aggregate count when no op has a formula, and
+    every op's bytes.  ``meta`` args stand for tensors on ``device``.  The
+    planner's intensity (``ops/planner.py``) reads it."""
+    parsed = _walk(_trace(fn, args, device))
+    flops = sum(f for _, _, f, _, _ in parsed)
+    if not flops:
+        flops = sum(a for *_, a in parsed)
+    return float(flops), float(sum(b for _, _, _, b, _ in parsed))
 
 
 def _op(name, kind, flops, nbytes, peak_flops, peak_bw) -> OpRoofline:

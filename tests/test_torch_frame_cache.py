@@ -200,14 +200,15 @@ def test_sharded_cache_and_pool_entry_points_name_item_9():
     """Item 9's sharded cache has landed: ``device=`` with ``sharded=True``
     is refused with the JAX package's message, without two devices
     ``shard_devices`` resolves none (so ``cache(sharded=True)`` is the
-    one-device cache), and ``lazy()`` names where the planner waits."""
+    one-device cache), and ``lazy()`` gives the planner's plan root (item
+    10b has landed)."""
     with pytest.raises(SchemaError) as ei:
         _frame().cache(sharded=True, device="cpu")
     jframe = tfs.TensorFrame.from_arrays({"x": np.ones((4, 2), np.float32)})
     with pytest.raises(JSchemaError) as je:
         jframe.cache(sharded=True, device="cpu")
     assert str(ei.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _frame().lazy()
+    frame = _frame()
+    assert isinstance(frame.lazy(), tft.LazyFrame) and frame.lazy() is frame.lazy()
     assert frame_cache.shard_devices(True) == [] or torch.cuda.device_count() >= 2
     assert frame_cache.build(_frame(), ["x"], devices=[torch.device("cpu")]) is None

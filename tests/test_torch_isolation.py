@@ -158,6 +158,26 @@ def test_importing_the_observability_slice_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_planner_slice_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch, tensorframes_tpu_torch.ops.planner, "
+        "tensorframes_tpu_torch.compile_cache, tensorframes_tpu_torch.program\n"
+        "from tensorframes_tpu_torch import (LazyFrame, LazyGroupedFrame, iterate_epochs, "
+        "warm_plan, warmup, explain, deserialize_program, compile_cache)\n"
+        "from tensorframes_tpu_torch.ops.planner import run_window_chain, recent_plan_stats\n"
+        "from tensorframes_tpu_torch.parallel.flash import export_ops\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pat = re.compile(
         r"^\s*(import|from)\s+"
@@ -174,7 +194,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "decode.py", "kv_pager.py", "moe.py", "text.py", "cancellation.py",
             "faults.py", "resilience.py", "prefetch.py", "fault_tolerance.py",
             "rowdep.py", "contracts.py", "segment_compile.py", "bucketing.py",
-            "device_pool.py", "pipeline.py", "spill.py", "roofline.py", "doctor.py"} <= {
+            "device_pool.py", "pipeline.py", "spill.py", "roofline.py", "doctor.py",
+            "planner.py", "compile_cache.py"} <= {
         p.name for p in files
     }
     for path in files:

@@ -3,9 +3,9 @@
 slow-request, tenant-metric, doctor and histogram cases.
 
 The bridge cases (``:193-347``: the attribution RPC and the idempotent
-retry's history) wait for the bridge (ROADMAP.md Queue 1 item 12), the
-streaming window events (``:591-637``) for the streamed verbs (item 11)
-and ``explain(analyze=True)`` (``:415-478``) for the planner (item 10b).
+retry's history) wait for the bridge (ROADMAP.md Queue 1 item 12) and the
+streaming window events (``:591-637``) for the streamed verbs (item 11);
+``explain(analyze=True)`` (``:415-478``) runs on the planner.
 The doctor cases feed the same snapshots to JAX's ``doctor`` and the
 port's and require the same codes, severities and messages."""
 
@@ -390,7 +390,8 @@ def test_doctor_render_matches_jax_for_diagnostics():
 
 def test_doctor_reads_live_state_and_names_unported_sections():
     assert isinstance(tft.doctor(), list)
-    assert doctor_mod.not_ported() == ["shuffles", "plans", "artifacts", "fleet", "decode"]
+    # the planner has landed: its ``plans`` section is read live
+    assert doctor_mod.not_ported() == ["shuffles", "artifacts", "fleet", "decode"]
 
 
 def test_doctor_raises_on_a_broken_ported_section(monkeypatch):
@@ -470,3 +471,87 @@ def test_latency_histo_snapshot_consistent_under_recording():
         stop.set()
         t.join(10)
     assert not t.is_alive()
+
+
+# ---------------------------------------------------------------------------
+# explain(analyze=True) (tests/test_request_telemetry.py:415-478)
+# ---------------------------------------------------------------------------
+
+
+def _lazy_chain(mod, n=64, blocks=4):
+    """``x`` (f64, 2 wide) -> tanh -> +1 over a frame with a dead column."""
+    frame = mod.TensorFrame.from_arrays(
+        {"x": np.arange(float(n * 2)).reshape(n, 2), "dead": np.ones(n)}, num_blocks=blocks
+    )
+    if mod is tft:
+        tanh = lambda x: {"y": __import__("torch").tanh(x)}  # noqa: E731
+        a = tft.map_blocks(tft.Program.wrap(tanh, fetches=["y"], device="cpu"), frame.lazy())
+        return frame, tft.map_blocks(
+            tft.Program.wrap(lambda y: {"z": y + 1.0}, fetches=["z"], device="cpu"), a)
+    import jax.numpy as jnp
+
+    a = mod.map_blocks(mod.Program.wrap(lambda x: {"y": jnp.tanh(x)}, fetches=["y"]),
+                       frame.lazy())
+    return frame, mod.map_blocks(mod.Program.wrap(lambda y: {"z": y + 1.0}, fetches=["z"]), a)
+
+
+def _analyze_shape(txt):
+    """The report's lines with the measured numbers and ids blanked."""
+    import re
+
+    return [re.sub(r"=[^ \]]*", "=#", line) for line in txt.splitlines()]
+
+
+def test_explain_analyze_reports_measured_wall_and_bytes():
+    import tensorframes_tpu as tfs
+
+    _, b = _lazy_chain(tft)
+    txt = tft.explain(b, analyze=True)
+    assert "== analyze (measured) ==" in txt
+    assert "wall=" in txt and "h2d_bytes=" in txt
+    assert "dispatch=" in txt and "reason=" in txt
+    assert "request: cid=" in txt
+    recs = b._last_records
+    assert recs
+    for r in recs:
+        assert r["wall_s"] > 0
+        assert "h2d_bytes" in r and "traces" in r
+    fused = [r for r in recs if r.get("fused", 1) >= 2]
+    assert len(fused) == 1
+    assert fused[0]["h2d_bytes"] == 64 * 2 * 8  # x only, f64
+    _, jb = _lazy_chain(tfs)
+    jtxt = tfs.explain(jb, analyze=True)
+    # JAX's report, line for line, up to the measured values
+    assert _analyze_shape(txt) == _analyze_shape(jtxt)
+    assert [(r["dispatch"], r["reason"], r["h2d_bytes"]) for r in recs] == [
+        (r["dispatch"], r["reason"], r["h2d_bytes"]) for r in jb._last_records]
+
+
+def test_explain_analyze_is_consistent_with_plain_explain():
+    _, b = _lazy_chain(tft)
+    analyzed = tft.explain(b, analyze=True)
+    plain = tft.explain(b)
+    assert plain.splitlines()[0] == analyzed.splitlines()[0]
+    assert "== logical plan (lazy) ==" in analyzed
+    again = tft.explain(b, analyze=True)
+    assert "already materialized" in again
+    assert "wall=" in again
+
+
+def test_explain_analyze_requires_planned_frame():
+    frame = _frame(16, 2)
+    with pytest.raises(ValueError, match="lazy"):
+        tft.explain(frame, analyze=True)
+    assert "x" in tft.explain(frame)
+
+
+def test_explain_analyze_executes_exactly_once():
+    _, b = _lazy_chain(tft)
+    c0 = obs.counters()
+    tft.explain(b, analyze=True)
+    mat = b.frame()
+    d = obs.counters_delta(c0)
+    assert d["plan_fused_dispatches"] == 1, d
+    np.testing.assert_allclose(
+        np.asarray(mat.to_arrays()["z"]), np.tanh(np.arange(128.0).reshape(64, 2)) + 1.0
+    )
