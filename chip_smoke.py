@@ -242,7 +242,31 @@ Phases, each printing its own lines and then its command time (``phase:``):
    ``flash_fwd`` (``backend_compiles`` >= 1), the second builds nothing
    and loads it (``persistent_cache_hits`` >= 1), with the same
    fingerprints; both wall times;
-13. the card's line again, the kernels' JSON record (each kernel at the
+13. streaming (after the planner phase): the host-side data layers, on
+   the planner phase's frame with a ``row`` id and 16 ``doc`` keys: (a)
+   ``relational.shuffle(frame, "doc", partitions=4)``, then each
+   partition's stream scored by streamed ``map_blocks`` into a
+   ``CollectSink``: every row once, each window's ``nll`` bit-identical to
+   eager ``map_blocks`` on that window, 8 ``flash_fwd_tma<bf16,64>``
+   launches a block, ``peak_host_bytes`` within two windows plus the
+   frame; ms a window, the spill bytes; (b) under ``TFS_PLAN=1`` the
+   streamed chain ``map_blocks(score)`` -> ``map_blocks(ppl)``,
+   bit-identical to the eager streamed chain, one fused dispatch a window;
+   (c) a child process runs the journaled ``reduce_blocks`` (the mean of
+   ``nll``) under ``proc_kill:window=2:phase=mid`` and dies by SIGKILL; a
+   second child resumes it to the parent's uninterrupted bytes, with
+   ``journal_resumes`` 1, ``journal_windows_skipped`` 2 and no ``nvcc`` in
+   either; both wall times; (d) the scored windows joined with a 16-row
+   ``doc -> weight`` table, broadcast and sort-merge, then a streamed
+   ``aggregate`` of weight x nll by doc, each equal to ``join_frames`` +
+   the eager ``aggregate`` byte for byte; the doctor's ``shuffles``
+   section reads the live stats; (e) one 1,048,576 x 64 f32 block (256 MiB)
+   through ``sigmoid((x * w).sum(-1))`` in 64 MiB chunks and whole: the results
+   (bit-identical, else within 1e-6), the chunk count, ms both ways, the
+   H2D bytes and the overlap ratio; (f) ``TensorFrame.from_rows`` over a
+   million rows of 16-float lists through the native packer and the numpy
+   path, identical arrays and schemas; both seconds and the ``g++`` build's;
+14. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -259,6 +283,7 @@ import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -4201,6 +4226,316 @@ def phase_planner(slice_prog):
     return total
 
 
+STREAM_DOCS, STREAM_PARTITIONS = 16, 4
+STREAM_JOB, STREAM_KILL = "smoke-stream-reduce", "proc_kill:window=2:phase=mid"
+CHUNK_ROWS, CHUNK_D = 1_048_576, 64  # leg (e): one 256 MiB f32 block
+PACK_ROWS, PACK_CELL = 1_000_000, 16  # leg (f)
+# leg (c)'s children: each runs ``durable_child`` of this script
+DURABLE_CHILD_CODE = "import sys, chip_smoke; chip_smoke.durable_child(sys.argv[1])"
+
+
+def stream_source():
+    """The streaming phase's frame: the planner phase's tokens, a row id
+    (0..63) and 16 doc keys, in the planner phase's 8 blocks."""
+    import tensorframes_tpu_torch as tft
+
+    tokens = np.random.RandomState(12).randint(
+        0, DECODE_MODEL["vocab_size"], (PLAN_ROWS, PLAN_L)).astype(np.int32)
+    row = np.arange(PLAN_ROWS, dtype=np.int64)
+    return tft.TensorFrame.from_arrays({"tokens": tokens, "row": row, "doc": row % STREAM_DOCS},
+                                       num_blocks=PLAN_BLOCKS)
+
+
+def stream_mean():
+    """Leg (c)'s reduce: the mean of ``nll`` a block, re-applied to the
+    stacked block means (the one fold shape)."""
+    import tensorframes_tpu_torch as tft
+
+    return tft.Program.wrap(lambda nll_input: {"nll": nll_input.mean(0)}, device="cuda")
+
+
+def durable_child(job_id: str) -> None:
+    """Leg (c)'s child process: the flagship (phase 5's widths and seed)
+    scores the shuffled stream into the journaled ``reduce_blocks`` of
+    ``job_id`` (``TFS_JOURNAL_DIR``, ``TFS_SPILL_DIR`` and
+    ``TFS_FAULT_INJECT`` come from its environment).  It prints the
+    counters after its warm-up block (all its kernel loads), then, unless
+    the journal's fault kills it, the result's bytes and its counters."""
+    t0 = time.perf_counter()
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import observability as obs, relational, streaming
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+
+    keys = ("backend_compiles", "persistent_cache_hits", "journal_resumes",
+            "journal_windows_skipped", "journal_appends", "stream_windows")
+    c0 = obs.counters()
+    cfg = tfm.TransformerConfig(**DECODE_MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    prog = scoring.scoring_program(tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg),
+                                   cfg, fetches=scoring.FETCHES)
+    frame = stream_source()
+    tft.map_blocks(prog, tft.TensorFrame.from_arrays(
+        {"tokens": frame.column("tokens").data[:8]})).to_arrays()  # warm-up
+    d = obs.counters_delta(c0)
+    print(json.dumps({"stage": "warm", **{k: d[k] for k in keys}}), flush=True)
+    sh = relational.shuffle(frame, "doc", partitions=STREAM_PARTITIONS)
+    out = streaming.reduce_blocks(stream_mean(), sh.stream().map_blocks(prog), job_id=job_id)
+    torch.cuda.synchronize()
+    d = obs.counters_delta(c0)
+    print(json.dumps({"stage": "done", "nll": np.asarray(out["nll"]).tobytes().hex(),
+                      "wall_s": time.perf_counter() - t0, **{k: d[k] for k in keys}}), flush=True)
+
+
+def phase_streaming(slice_prog):
+    """Legs (a)-(f) of the host-side data layers (the module docstring's
+    phase 13).  Returns the flash launches of the phase's scoring runs by
+    instantiation."""
+    import tempfile
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import _build, native, observability as obs
+    from tensorframes_tpu_torch import relational, streaming
+    from tensorframes_tpu_torch.ops import engine
+    from tensorframes_tpu_torch.parallel import flash
+    from tensorframes_tpu_torch.streaming import CollectSink
+    from tensorframes_tpu_torch.streaming.reader import frame_host_bytes
+
+    doctor_mod = sys.modules["tensorframes_tpu_torch.doctor"]
+    eager = tft.Executor()
+    n_layers = DECODE_MODEL["n_layers"]
+    inst = route_of("flash_fwd", torch.bfloat16, 64)
+    ppl = tft.Program.wrap(lambda nll: {"ppl": torch.exp(nll)}, device="cuda")
+    total = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        c0 = obs.counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(flash.kernel_launches)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        return out, sec, launches, obs.counters_delta(c0)
+
+    frame = stream_source()
+    saved = {k: os.environ.get(k) for k in ("TFS_SPILL_DIR", "TFS_PLAN")}
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["TFS_SPILL_DIR"] = os.path.join(tmp.name, "spill")
+    try:
+        # (a) the flagship scored over a shuffle: each partition's stream
+        # through streamed map_blocks into a CollectSink
+        obs.reset_peak_host_bytes()
+        c_sh = obs.counters()
+        sh = relational.shuffle(frame, "doc", partitions=STREAM_PARTITIONS)
+        d_sh = obs.counters_delta(c_sh)
+        windows, per_window_ms, spill_read = [], [], 0
+        for p in range(STREAM_PARTITIONS):
+            out, sec, launches, d = counted(lambda: streaming.map_blocks(
+                slice_prog, sh.partition(p), sink=CollectSink()))
+            if out is None:
+                continue
+            windows.append((p, out, launches))
+            per_window_ms.append(sec * 1e3)
+            spill_read += d["spill_bytes_read"]
+        peak = obs.counters()["peak_host_bytes"]
+        rows = np.concatenate([np.asarray(o.column("row").data) for _, o, _ in windows])
+        if sorted(rows.tolist()) != list(range(PLAN_ROWS)):
+            raise AssertionError(f"streamed scoring rows {sorted(rows.tolist())}")
+        window_bytes = []
+        for p, out, launches in windows:
+            (wf,) = list(sh.partition(p).windows())  # one run: one window
+            window_bytes.append(frame_host_bytes(wf))
+            ref = tft.map_blocks(slice_prog, wf, engine=eager).to_arrays()["nll"]
+            if not np.array_equal(np.asarray(out.column("nll").data), ref):
+                raise AssertionError(f"partition {p}: streamed nll differs from eager map_blocks")
+            if launches != {inst: n_layers * wf.num_blocks}:
+                raise AssertionError(f"partition {p}: launches {launches}, expected "
+                                     f"{n_layers * wf.num_blocks} of {inst}")
+            if not np.isfinite(np.asarray(out.column("nll").data)).all():
+                raise AssertionError(f"partition {p}: nll not finite")
+        bound = 2 * max(window_bytes) + frame_host_bytes(frame)
+        if not 0 < peak <= bound:
+            raise AssertionError(f"peak_host_bytes {peak} beyond two windows + the frame {bound}")
+        say("streaming", leg="a_streamed_scoring_over_shuffle", windows=len(windows),
+            window_rows=[o.num_rows for _, o, _ in windows], ms_per_window=per_window_ms,
+            ms_per_8_rows=[ms * 8 / o.num_rows for ms, (_, o, _) in zip(per_window_ms, windows)],
+            flash_launches=sum(sum(n.values()) for _, _, n in windows), bit_identical=True,
+            rows_once=True, peak_host_bytes=peak, peak_bound=bound,
+            spill_bytes_written=d_sh["spill_bytes_written"], spill_bytes_read=spill_read,
+            shuffle_partitions_written=d_sh["shuffle_partitions_written"])
+
+        # (b) the planned streamed chain, against the eager streamed chain
+        def chain():
+            return [wf.to_arrays()["ppl"]
+                    for wf in sh.stream().map_blocks(slice_prog).map_blocks(ppl).windows()]
+
+        os.environ["TFS_PLAN"] = "0"
+        eager_ppl, eager_s, _, _ = counted(chain)
+        os.environ["TFS_PLAN"] = "1"
+        planned_ppl, plan_s, launches, d = counted(chain)
+        os.environ["TFS_PLAN"] = "0"
+        n_win = len(windows)
+        if len(planned_ppl) != n_win or not all(
+                np.array_equal(a, b) for a, b in zip(planned_ppl, eager_ppl)):
+            raise AssertionError("planned streamed chain differs from the eager streamed chain")
+        if d["plan_stream_windows"] != n_win or d["plan_fused_dispatches"] != n_win:
+            raise AssertionError(f"planned streamed chain counters {d}")
+        if launches != {inst: n_layers * n_win}:
+            raise AssertionError(f"planned streamed chain launched {launches}")
+        say("streaming", leg="b_planned_streamed_chain", windows=n_win, bit_identical=True,
+            plan_stream_windows=d["plan_stream_windows"],
+            plan_fused_dispatches=d["plan_fused_dispatches"], planned_s=plan_s,
+            eager_s=eager_s, flash_launches=launches)
+
+        # (c) the journaled streamed reduce across a process death: two
+        # children against one journal, the first killed at a boundary
+        (ref, ref_s, _, _) = counted(lambda: streaming.reduce_blocks(
+            stream_mean(), sh.stream().map_blocks(slice_prog)))
+        ref_hex = np.asarray(ref["nll"]).tobytes().hex()
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, TFS_JOURNAL_DIR=os.path.join(tmp.name, "journal"),
+                   TFS_SPILL_DIR=os.path.join(tmp.name, "child-spill"))
+        env.pop("TFS_COMPILE_CACHE", None)  # the kernels load from the checkout's build
+        runs = []
+        for fault in (STREAM_KILL, ""):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", DURABLE_CHILD_CODE, STREAM_JOB], cwd=root,
+                env=dict(env, TFS_FAULT_INJECT=fault), capture_output=True, text=True,
+                timeout=600)
+            lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+            runs.append(dict(rc=proc.returncode, wall_s=time.perf_counter() - t0, lines=lines,
+                             stderr=proc.stderr[-3000:]))
+        killed, resumed = runs
+        if killed["rc"] != -signal.SIGKILL or [x["stage"] for x in killed["lines"]] != ["warm"]:
+            raise AssertionError(f"the first child did not die by SIGKILL after its warm-up: "
+                                 f"{killed}")
+        if resumed["rc"] != 0 or resumed["lines"][-1]["stage"] != "done":
+            raise AssertionError(f"the resuming child failed: {resumed}")
+        done = resumed["lines"][-1]
+        if done["nll"] != ref_hex:
+            raise AssertionError(f"resumed result {done['nll']} differs from the parent's "
+                                 f"uninterrupted {ref_hex}")
+        if (done["journal_resumes"], done["journal_windows_skipped"]) != (1, 2) \
+                or killed["lines"][0]["backend_compiles"] or done["backend_compiles"]:
+            raise AssertionError(f"children counters: {killed['lines']} / {done}")
+        say("streaming", leg="c_durable_reduce_across_sigkill", fault=STREAM_KILL,
+            killed_rc=killed["rc"], killed_wall_s=killed["wall_s"],
+            resumed_wall_s=resumed["wall_s"], resumed_in_child_s=done["wall_s"],
+            parent_uninterrupted_s=ref_s, bytes_equal=True,
+            nll_mean=float(np.frombuffer(bytes.fromhex(ref_hex), np.float32)[0]),
+            journal_resumes=done["journal_resumes"],
+            journal_windows_skipped=done["journal_windows_skipped"],
+            backend_compiles=[killed["lines"][0]["backend_compiles"], done["backend_compiles"]],
+            persistent_cache_hits=[killed["lines"][0]["persistent_cache_hits"],
+                                   done["persistent_cache_hits"]])
+
+        # (d) the scored windows joined with a doc -> weight table, both ways,
+        # then a streamed aggregate of weight * nll by doc.  The products
+        # (f32 nll ~ 9, integer weights <= 16) and their sums over 64 rows
+        # fit f64's mantissa, so every association gives the same bytes
+        weights = tft.TensorFrame.from_arrays({
+            "doc": np.arange(STREAM_DOCS, dtype=np.int64),
+            "weight": np.arange(1, STREAM_DOCS + 1, dtype=np.float64)})
+        wmul = tft.Program.wrap(lambda nll, weight: {"wnll": nll.double() * weight},
+                                device="cuda")
+        wsum = tft.Program.wrap(lambda wnll_input: {"wnll": wnll_input.sum(0)}, device="cuda")
+        scored = tft.TensorFrame.from_blocks(
+            [{n: v for n, v in o.block(bi).items()} for _, o, _ in windows
+             for bi in range(o.num_blocks)])
+        joined = relational.join_frames(scored, weights, "doc")
+        want = tft.aggregate(wsum, tft.group_by(
+            tft.map_blocks(wmul, joined, engine=eager), "doc"), engine=eager).to_arrays()
+        got = {}
+        for strategy in ("broadcast", "sort_merge"):
+            js = relational.join(sh.stream().map_blocks(slice_prog), weights, on="doc",
+                                 strategy=strategy, partitions=STREAM_PARTITIONS)
+            out, sec, launches, _ = counted(lambda: streaming.aggregate(
+                wsum, js.map_blocks(wmul).group_by("doc")).to_arrays())
+            if not same_arrays(out, want):
+                raise AssertionError(f"{strategy} join + streamed aggregate differs from "
+                                     f"join_frames + eager aggregate")
+            got[strategy] = dict(seconds=sec, flash_launches=launches)
+        stats = relational.recent_shuffle_stats()
+        if not stats or doctor_mod._read_section("shuffles", []) != stats \
+                or stats[-1]["key"] != "doc":
+            raise AssertionError(f"doctor's shuffles section {stats}")
+        say("streaming", leg="d_joins_and_streamed_aggregate", bit_identical=True, groups=len(
+            want["doc"]), strategies=got, doctor_shuffles=stats[-1],
+            wnll_total=float(want["wnll"].sum()))
+        sh.release()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+
+    # (e) one 256 MiB block through a row-independent map_blocks: config 5's
+    # logistic prediction, in 64 MiB chunks and whole.  It is spelled as a
+    # product and a sum over the features: a matrix product is outside the
+    # row-independence whitelist in both packages, so ``x @ w`` would run
+    # whole
+    rng = np.random.RandomState(5)
+    x = rng.rand(CHUNK_ROWS, CHUNK_D).astype(np.float32)
+    pred = tft.Program.wrap(lambda features, w: {"p": torch.sigmoid((features * w).sum(-1))},
+                            params={"w": rng.randn(CHUNK_D).astype(np.float32)}, device="cuda")
+    block = tft.TensorFrame.from_arrays({"features": x})
+    chunked, whole = tft.Executor(), tft.Executor()
+    whole.stream_chunk_bytes = 0
+    legs = {}
+    for name, ex in (("chunked", chunked), ("whole", whole), ("whole", whole),
+                     ("chunked", chunked), ("chunked", chunked), ("whole", whole)):
+        out, sec, _, d = counted(lambda: ex.map_blocks(pred, block).column("p").data)
+        rec = engine.last_verb_stats()["prefetch"]
+        leg = legs.setdefault(name, dict(ms=[], out=out, h2d_bytes=d["h2d_bytes_staged"],
+                                         chunks=rec["items"], overlap=[]))
+        leg["ms"].append(sec * 1e3)
+        leg["overlap"].append(rec["overlap_ratio"])
+    want_chunks = -(-x.nbytes // chunked.stream_chunk_bytes)
+    if legs["chunked"]["chunks"] != want_chunks:
+        raise AssertionError(f"chunked block ran {legs['chunked']['chunks']} chunks, expected "
+                             f"{want_chunks}")
+    err = float((legs["chunked"]["out"] - legs["whole"]["out"]).abs().max())
+    if err > 1e-6:
+        raise AssertionError(f"chunked against whole: max |diff| {err} > 1e-6")
+    say("streaming", leg="e_chunked_block_streaming", rows=CHUNK_ROWS, width=CHUNK_D,
+        block_bytes=x.nbytes, chunk_bytes=chunked.stream_chunk_bytes,
+        chunks=legs["chunked"]["chunks"], bit_identical=err == 0.0, max_abs_err=err,
+        chunked_ms=legs["chunked"]["ms"], whole_ms=legs["whole"]["ms"],
+        chunked_h2d_bytes=legs["chunked"]["h2d_bytes"], whole_h2d_bytes=legs["whole"]["h2d_bytes"],
+        chunked_overlap_ratio=legs["chunked"]["overlap"],
+        whole_overlap_ratio=legs["whole"]["overlap"])
+    del x, block, legs
+
+    # (f) the native packer: from_rows over a million rows of 16-float lists
+    first = time.perf_counter()
+    tft.TensorFrame.from_rows([{"v": [0.5] * PACK_CELL}])  # the first use builds
+    first_s = time.perf_counter() - first
+    rows = [{"v": r} for r in np.random.RandomState(6).rand(PACK_ROWS, PACK_CELL).tolist()]
+    t0 = time.perf_counter()
+    packed = tft.TensorFrame.from_rows(rows)
+    packed_s = time.perf_counter() - t0
+    saved_native, native._native = native._native, None  # the numpy path
+    try:
+        t0 = time.perf_counter()
+        plain = tft.TensorFrame.from_rows(rows)
+        plain_s = time.perf_counter() - t0
+    finally:
+        native._native = saved_native
+    a, b = packed.column("v").data, plain.column("v").data
+    if not (a.dtype == b.dtype and np.array_equal(a, b)
+            and repr(packed.schema.explain()) == repr(plain.schema.explain())):
+        raise AssertionError("packed from_rows differs from the numpy path")
+    say("streaming", leg="f_native_packer", rows=PACK_ROWS, cell=PACK_CELL, identical=True,
+        packer_s=packed_s, numpy_s=plain_s, numpy_over_packer=plain_s / packed_s,
+        gxx_build_s=_build.host_build_seconds.get("packer"), first_use_s=first_s)
+    return total
+
+
 def run_phase(phase, *args):
     """``phase(*args)``, printing its command time: the script's run time
     by phase."""
@@ -4239,6 +4574,7 @@ def main() -> int:
     pipeline_launches = run_phase(phase_pipeline, prog)
     observability_launches = run_phase(phase_observability, prog)
     planner_launches = run_phase(phase_planner, prog)
+    streaming_launches = run_phase(phase_streaming, prog)
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)
@@ -4254,7 +4590,8 @@ def main() -> int:
                   ring_run, ring_train_run)
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
-        pipeline_launches, observability_launches, planner_launches, train_run[5],
+        pipeline_launches, observability_launches, planner_launches, streaming_launches,
+        train_run[5],
         ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)

@@ -26,7 +26,14 @@ lazy verb-graph planner (``frame.lazy()``, ``TFS_PLAN``, ``explain``,
 ``iterate_epochs``, ``warm_plan``: ``ops/planner.py``), the engine's
 ``warmup``, ``Program.serialize``/``aot_compile`` on ``torch.export``
 with ``deserialize_program``, and the persistent compile cache
-(``compile_cache.py``, ``TFS_COMPILE_CACHE``).
+(``compile_cache.py``, ``TFS_COMPILE_CACHE``); the host-side data layers:
+out-of-core streamed frames and their six verbs (``streaming/``:
+``scan_parquet``, ``from_batches``, the sinks), chunked block streaming in
+the engine (``TFS_STREAM_CHUNK_BYTES``), durable jobs on a write-ahead
+journal (``recovery/``: ``job_id=``, ``TFS_JOURNAL_DIR``,
+``recovery.job_status``), the shuffle, joins and relational pipelines
+(``relational/``), and the native row-cell packer of ``from_rows``
+(``native.py``, ``csrc/packer.cpp``).
 Its attention kernels are hand-written CUDA for Hopper
 (``parallel/flash.py``, ``csrc/``).  Every entry point
 runs on the CUDA card unless its caller passes ``device="cpu"``; without a
@@ -66,6 +73,12 @@ from .program import GraphNodeSummary, Program, ProgramError, deserialize_progra
 from .schema import ColumnInfo, Schema, SchemaError
 from .shape import Shape, ShapeError, UNKNOWN
 
+from . import streaming
+from .streaming import scan_parquet
+from . import recovery
+from . import relational
+from .relational import join, join_frames, shuffle
+
 compile_cache.configure()
 
 __all__ = [
@@ -103,6 +116,8 @@ __all__ = [
     "group_by",
     "initialize_logging",
     "iterate_epochs",
+    "join",
+    "join_frames",
     "map_blocks",
     "map_blocks_trimmed",
     "map_rows",
@@ -110,10 +125,15 @@ __all__ = [
     "pipeline",
     "print_schema",
     "reduce_blocks",
+    "recovery",
     "reduce_rows",
+    "relational",
     "resilience",
     "row",
     "scalar_type",
+    "scan_parquet",
+    "shuffle",
+    "streaming",
     "supported_types",
     "warm_plan",
     "warmup",

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host extension.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``.
@@ -12,8 +12,15 @@ loads at once.  Builds happen at
 first use — never at import — and a failed build raises with nvcc's
 output.  ``build_all`` starts one ``nvcc`` per source, all at once.
 
+The host C++ of ``csrc/<name>.cpp`` (the row-cell packer,
+``native.py``) is a CPython extension: :func:`load_extension` builds it
+with ``g++ -O3 -shared -fPIC -std=c++17 -I<python include>`` into the same
+directory, named by a hash of its source, the flags, the include path and
+the interpreter's extension suffix, at first use, and imports it.  A
+failed build raises with the compiler's output, as a failed ``nvcc`` does.
+
 The compile counters of ``observability`` count this module's work: each
-``nvcc`` run is one ``backend_compiles`` and one
+``nvcc`` or ``g++`` run is one ``backend_compiles`` and one
 ``persistent_cache_misses``; each library ``load`` finds already built
 in ``_build/`` is one ``persistent_cache_hits``.
 """
@@ -26,8 +33,10 @@ import os
 import re
 import shutil
 import subprocess
+import sysconfig
+import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 from . import compile_cache, observability
 
@@ -162,3 +171,67 @@ def cuda_error_string(lib: ctypes.CDLL, code: int) -> str:
     fn.restype = ctypes.c_char_p
     fn.argtypes = [ctypes.c_int]
     return fn(code).decode()
+
+
+# -- host C++ extensions ---------------------------------------------------------
+
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# seconds of the last g++ build of each extension in this process
+host_build_seconds: Dict[str, float] = {}
+
+
+def _python_include() -> str:
+    return sysconfig.get_paths()["include"]
+
+
+def extension_path(name: str) -> Path:
+    """Where ``csrc/<name>.cpp`` builds to: content-addressed by its source,
+    the flags, the Python include directory and the extension suffix."""
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    h = hashlib.sha256()
+    h.update((SRC_DIR / f"{name}.cpp").read_bytes())
+    h.update(" ".join((*CXX_FLAGS, _python_include(), suffix)).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}{suffix}"
+
+
+def build_extension(name: str) -> Path:
+    """Build ``csrc/<name>.cpp`` with ``g++`` unless it is built; raises
+    with the compiler's output (or naming the missing compiler)."""
+    so = extension_path(name)
+    if so.exists():
+        observability.note_persistent_cache(hit=True)
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = ["g++", *CXX_FLAGS, f"-I{_python_include()}", str(SRC_DIR / f"{name}.cpp"),
+           "-o", str(tmp)]
+    observability.note_backend_compile()
+    observability.note_persistent_cache(hit=False)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(
+            f"g++ not found: the host extension {name}.cpp is built with g++ at first use"
+        ) from e
+    if proc.returncode != 0:
+        if tmp.exists():
+            tmp.unlink()
+        raise RuntimeError(f"g++ failed to build {name}.cpp:\n{proc.stdout}")
+    os.replace(tmp, so)  # atomic: a reader never sees half a file
+    host_build_seconds[name] = time.perf_counter() - t0
+    return so
+
+
+def load_extension(name: str, module: str) -> Any:
+    """The CPython extension of ``csrc/<name>.cpp``, imported as ``module``
+    (its ``PyInit_<module>``), building it if needed."""
+    import importlib.machinery
+    import importlib.util
+
+    path = build_extension(name)
+    loader = importlib.machinery.ExtensionFileLoader(f"{__package__}.{module}", str(path))
+    spec = importlib.util.spec_from_loader(loader.name, loader, origin=str(path))
+    mod = importlib.util.module_from_spec(spec)
+    loader.exec_module(mod)
+    return mod

@@ -13,15 +13,17 @@ returns structured diagnostics instead of raising at the first one::
                 advice="pass feed_dict={input: column} ..."), ...]
 
 Codes, severities and advice are the JAX package's, and the same codes
-ride on the dispatch-time exceptions (``ValidationError.code``).  The
-relational checks (``TFS14x``, :func:`check_relational`) come with the
-relational verbs (ROADMAP.md Queue 1 item 11) and raise until then.
+ride on the dispatch-time exceptions (``ValidationError.code``), the
+relational checks (``TFS14x``, :func:`check_relational`) included: the
+shuffle and the joins raise the same codes at dispatch time.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
 
 from . import rowdep
 
@@ -52,7 +54,7 @@ CODES: Dict[str, tuple] = {
     "TFS123": ("GraphDef structurally invalid", "error"),
     "TFS130": ("program is not row-independent", "info"),
     "TFS131": ("row-dependence unknown (dispatch will probe)", "info"),
-    # TFS14x: relational contracts (the relational verbs, item 11)
+    # TFS14x: relational contracts (relational/)
     "TFS140": ("shuffle/join key column missing or duplicated", "error"),
     "TFS141": ("join key columns have mismatched dtypes", "error"),
     "TFS142": ("shuffle/join key cells are ragged / non-hashable",
@@ -106,14 +108,95 @@ def check_relational(
     right=None,
     how: str = "inner",
 ) -> List[Diagnostic]:
-    """The ``TFS14x`` relational contracts (``shuffle``/``join``) come with
-    the relational verbs: not ported yet, they wait for ROADMAP.md Queue 1
-    item 11."""
-    raise NotImplementedError(
-        f"check_relational({verb!r}): the relational verbs and their "
-        f"TFS14x contracts are not ported yet: they wait for ROADMAP.md "
-        f"Queue 1 item 11"
-    )
+    """Relational contract verification: the ``TFS14x``
+    checks for ``verb`` in ``shuffle``/``join`` — key presence,
+    duplication, scalar/hashable cells, cross-side dtype match, and
+    output-name collisions — statically, against the schemas alone.
+    Worst-first, like :func:`check`; the same codes ride the
+    dispatch-time ``ValidationError`` the verbs raise."""
+    diags: List[Diagnostic] = []
+    keys = list(keys or ())
+    loc = f"{verb}:key"
+    if not keys:
+        return [_diag(
+            "TFS140", f"{verb} needs a key column", loc,
+            "pass on=<column> (join) / key=<column> (shuffle)",
+        )]
+    if len(keys) > len(set(keys)):
+        diags.append(_diag(
+            "TFS140",
+            f"{verb}: key columns {keys} name a column more than once",
+            loc, "each key column may appear once",
+        ))
+    if len(set(keys)) > 1:
+        diags.append(_diag(
+            "TFS140",
+            f"{verb}: multi-column keys are not supported yet "
+            f"({keys}); combine the columns into one key first",
+            loc, "re-key on a single column",
+        ))
+    key = keys[0]
+
+    def _side(f, side: str):
+        schema = f.schema
+        if key not in schema:
+            diags.append(_diag(
+                "TFS140",
+                f"{verb}: key column {key!r} does not exist on the "
+                f"{side} side. Available columns: {schema.names}",
+                f"{loc}:{side}",
+                "the key must name an existing column on both sides",
+            ))
+            return None
+        ci = schema[key]
+        if ci.cell_shape.rank != 0:
+            diags.append(_diag(
+                "TFS142",
+                f"{verb}: {side} key column {key!r} holds cells of "
+                f"shape {ci.cell_shape}; keys must be scalar",
+                f"{loc}:{side}",
+                "hash-partitioning needs one hashable cell per row",
+            ))
+        col = f.column(key)
+        if col.is_ragged and not isinstance(col.data, np.ndarray):
+            diags.append(_diag(
+                "TFS142",
+                f"{verb}: {side} key column {key!r} holds ragged "
+                f"cells; analyze/bucket the frame first",
+                f"{loc}:{side}",
+                "ragged cells have no stable byte representation to "
+                "hash",
+            ))
+        return ci
+
+    lci = _side(frame, "left")
+    if verb == "join" and right is not None:
+        rci = _side(right, "right")
+        if lci is not None and rci is not None and (
+            lci.scalar_type.name != rci.scalar_type.name
+        ):
+            diags.append(_diag(
+                "TFS141",
+                f"join: key column {key!r} has dtype "
+                f"{lci.scalar_type.name} on the left and "
+                f"{rci.scalar_type.name} on the right",
+                loc,
+                "byte-equality joins need one representation; cast "
+                "one side first",
+            ))
+        collide = sorted(
+            (set(frame.column_names) & set(right.column_names)) - {key}
+        )
+        if collide:
+            diags.append(_diag(
+                "TFS143",
+                f"join: non-key column name(s) {collide} exist on "
+                f"both sides",
+                f"{verb}:columns",
+                "rename or drop one side's columns before joining",
+            ))
+    diags.sort(key=lambda d: (_SEV_RANK[d.severity], d.code))
+    return diags
 
 
 def check(

@@ -19,11 +19,11 @@ Every input is injectable (``counters=``, ``latency=``, ``ledger=``,
 ``spans=``, ``tenants=``, ``shuffles=``, ``plans=``, ``artifacts=``,
 ``fleet=``, ``decode=``), so tests and offline analysis run the same rules
 over recorded snapshots; with no arguments the live process is read (the
-``plans`` section from the planner's ``recent_plan_stats``).  The sections
-whose modules the port does not have yet (the relational shuffle, the
-recovery janitor, the bridge's fleet and decode scheduler: ROADMAP.md
-Queue 1 items 11-12) read empty inputs, and
-:func:`render` names them in one line.  Only the absence of such a module
+``plans`` section from the planner's ``recent_plan_stats``, ``shuffles``
+from ``relational.recent_shuffle_stats``, ``artifacts`` from the janitor's
+``summary``).  The sections whose modules the port does not have yet (the
+bridge's fleet and decode scheduler: ROADMAP.md Queue 1 item 12) read
+empty inputs, and :func:`render` names them in one line.  Only the absence of such a module
 is tolerated: any other failure to read a section raises.
 """
 
@@ -660,8 +660,9 @@ def _rule_fleet_imbalance(fleet) -> Optional[Dict[str, Any]]:
     )
 
 
-# argument -> (module, function, the rules that read it) of each section
-# whose module is not in the port yet: the JAX package reads them lazily
+# argument -> (module, function, the rules that read it) of each live
+# section, read lazily as the JAX package reads them; a module not in the
+# port yet (the bridge's, item 12) reads as empty
 _SECTIONS = {
     "shuffles": ("relational", "recent_shuffle_stats", ("shuffle_skew",)),
     "plans": ("ops.planner", "recent_plan_stats", ("cse_miss",)),

@@ -23,11 +23,17 @@ Engine kinds:
   loop, as ``torch.cuda.OutOfMemoryError`` does);
 * ``delay`` -- sleep ``ms`` milliseconds at the dispatch boundary.
 
+The journal kind ``proc_kill`` fires at the durable-job journal's
+boundaries (:func:`maybe_kill_boundary`, called by
+``recovery/journal.py``): it SIGKILLs this process at boundary
+``window=N`` in crash cell ``phase=pre|mid|post`` (unset means ``pre``)::
+
+    TFS_FAULT_INJECT="proc_kill:window=2:phase=mid"
+
 The bridge kinds (``bridge_stall``, ``bridge_delay``, ``bridge_drop``,
-``replica_kill``) and the journal kind (``proc_kill``) parse with the same
-grammar and selectors as in the JAX package, so one spec string means one
-thing in both packages, but nothing fires them until the bridge and the
-durable-job journal are ported (ROADMAP.md Queue 1 items 11-12).
+``replica_kill``) parse with the same grammar and selectors as in the JAX
+package, so one spec string means one thing in both packages, but nothing
+fires them until the bridge is ported (ROADMAP.md Queue 1 item 12).
 
 Selectors (all optional; a spec fires when every given selector matches):
 
@@ -133,6 +139,23 @@ class FaultSpec:
         return True
 
 
+    def matches_boundary(self, window: int, phase: str) -> bool:
+        """Whether this (boundary-kind) spec fires at journal boundary
+        ``window`` in crash cell ``phase``; an unset ``phase`` means
+        ``pre`` (the kill lands before any durability action)."""
+        if self.window is not None and self.window != window:
+            return False
+        if (self.phase or "pre") != phase:
+            return False
+        if self.rate is not None:
+            draw = random.Random(
+                f"{self.seed}:{self.index}:{self.kind}:{window}"
+            ).random()
+            if draw >= self.rate:
+                return False
+        return True
+
+
 _warned: set = set()
 
 
@@ -214,6 +237,31 @@ def active() -> bool:
     """Whether any ENGINE-level injection spec is live (it brings the
     dispatch boundary's retry session up even with retries pinned off)."""
     return any(s.kind in _ENGINE_KINDS for s in specs())
+
+
+def boundary_active() -> bool:
+    """Whether any journal-boundary injection spec is live."""
+    return any(s.kind in _BOUNDARY_KINDS for s in specs())
+
+
+def maybe_kill_boundary(window: int, phase: str) -> None:
+    """The journal-boundary hook (``recovery/journal.py``): SIGKILL this
+    process for the first matching ``proc_kill`` spec, with no cleanup, as
+    the crash-resume contract must survive.  A no-op (one truthiness
+    check) when ``TFS_FAULT_INJECT`` is unset."""
+    plan = specs()
+    if not plan:
+        return
+    for spec in plan:
+        if spec.kind in _BOUNDARY_KINDS and spec.matches_boundary(window, phase):
+            import os
+            import signal
+
+            logger.warning(
+                "faults: proc_kill firing at boundary window=%d phase=%s",
+                window, phase,
+            )
+            os.kill(os.getpid(), signal.SIGKILL)
 
 
 def maybe_inject(

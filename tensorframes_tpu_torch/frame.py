@@ -6,9 +6,10 @@ cells (before ``analyze``), or a ``torch.Tensor`` once a verb has produced
 it on the device.  Verb outputs stay on the device until ``collect`` /
 ``to_arrays`` materialise them on the host.
 
-Cell packing uses the numpy path only (the JAX package's native C++ packer,
-``native/packer.cpp``, is an optimisation of the same result and waits,
-ROADMAP.md Queue 1 item B).  ``group_by`` makes the ``GroupedFrame`` that
+Pure-python row cells pack in one C++ pass (``native.py``,
+``csrc/packer.cpp``, built with ``g++`` at first use); cells it refuses
+(ragged, numpy leaves) take the numpy path, with the same result.
+``group_by`` makes the ``GroupedFrame`` that
 ``aggregate`` takes.  ``from_arrow``/``to_arrow``, ``from_parquet``/
 ``to_parquet`` go through ``io.py``; ``from_pandas``/``to_pandas`` import
 pandas when called.  ``cache()`` copies the device-feedable columns to one
@@ -61,6 +62,15 @@ def to_host(x: torch.Tensor, column: str = "?") -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def host_value(x) -> Any:
+    """A block value copied to the host bit for bit: a numpy array, or a
+    CPU tensor for bfloat16, which numpy lacks."""
+    if is_device_array(x):
+        x = x.detach().cpu()
+        return x if x.dtype == torch.bfloat16 else x.numpy()
+    return np.asarray(x)
+
+
 def _is_ragged(cells: Sequence[np.ndarray]) -> bool:
     if not cells:
         return False
@@ -100,6 +110,20 @@ class Column:
         return self.data[start:stop]
 
 
+def _py_cell_shape(c) -> Optional[Tuple[int, ...]]:
+    """Shape of a pure-python cell (a scalar or nested lists/tuples); None
+    when the cell is not plain python (an ndarray, a numpy scalar)."""
+    shape: List[int] = []
+    while isinstance(c, (list, tuple)):
+        if not c:
+            return None
+        shape.append(len(c))
+        c = c[0]
+    if isinstance(c, (bool, int, float)):
+        return tuple(shape)
+    return None
+
+
 def _column_from_cells(
     name: str, cells: List[Any], st: Optional[ScalarType] = None
 ) -> Column:
@@ -117,6 +141,20 @@ def _column_from_cells(
         info = ColumnInfo(name, st, Shape((UNKNOWN,)))
         return Column(info, arr)
     host = st.host_dtype(name)
+    # pure-python cells: one C++ pass into the final buffer; the packer's
+    # refusals (ragged, mis-shaped, non-plain-python cells) take the numpy
+    # path below, which makes ragged columns
+    cell_shape = _py_cell_shape(cells[0])
+    if cell_shape is not None:
+        from . import native
+
+        try:
+            packed = native.pack_cells(cells, cell_shape, host)
+        except (ValueError, TypeError):
+            packed = None
+        if packed is not None:
+            info = ColumnInfo(name, st, Shape(packed.shape).with_lead(UNKNOWN))
+            return Column(info, packed)
     np_cells = [np.asarray(c, dtype=host) for c in cells]
     rank = np_cells[0].ndim
     for i, c in enumerate(np_cells):
@@ -455,9 +493,23 @@ class TensorFrame:
 
             devs = frame_cache.shard_devices(sharded)
             if devs:
-                cache = frame_cache.build(self, sorted(host), devices=devs)
+                # a streamed window (streaming/reader.py) has no durable host
+                # copy once the stream moves on: its evicted shards spill to
+                # TFS_SPILL_DIR, and then its host columns are released
+                windowed = getattr(self, "_host_windowed", False)
+                spill = None
+                if windowed:
+                    from .streaming import spill as _spill
+
+                    spill = _spill.store_if_configured()
+                cache = frame_cache.build(self, sorted(host), devices=devs, spill=spill)
                 if cache is not None:
-                    return frame_cache.attach(TensorFrame(list(self._columns), self._offsets), cache)
+                    out = TensorFrame(list(self._columns), self._offsets)
+                    out._host_windowed = windowed
+                    frame_cache.attach(out, cache)
+                    if spill is not None and frame_cache.release_host_enabled():
+                        frame_cache.release_host_columns(out)
+                    return out
         dev = resolve_device(device)
         staged = {}
         for name, data in host.items():

@@ -214,8 +214,8 @@ def read_parquet(
     Directories whose layout is richer than flat ``*.parquet`` parts
     (hive partitions, other extensions) fall back to pyarrow's own
     dataset discovery.  Sources that do not fit in host RAM want the
-    streaming reader (``streaming.scan_parquet``, ROADMAP.md Queue 1 item
-    11, not ported yet)."""
+    streaming reader, ``streaming.scan_parquet``, which windows the same
+    files in the same order."""
     pa = _pyarrow()  # consistent missing-dependency error surface
     import os
 

@@ -8,10 +8,12 @@ same public names, record layouts, metric families and knobs:
   set, bumped under a lock (``_bump``), snapshotted by :func:`counters`
   (with ``by_verb`` and the ``peak_host_bytes`` gauge) and diffed by
   :func:`counters_delta`.  Keys whose modules are not ported yet (the
-  bridge, shuffle and joins, the journal, the fleet, streamed windows, the
-  decode scheduler) stay 0 until those modules land with their ``note_*``
-  functions; the planner's ``plan_*`` keys move with ``ops/planner.py``.  Where the JAX package counts XLA, the port
-  counts its own machinery:
+  bridge, the fleet, the decode scheduler: ROADMAP.md Queue 1 item 12)
+  stay 0 until those modules land with their ``note_*`` functions; the
+  planner's ``plan_*`` keys move with ``ops/planner.py``, the streamed
+  windows, shuffle, join and journal keys with ``streaming/``,
+  ``relational/`` and ``recovery/``.  Where the JAX package counts XLA,
+  the port counts its own machinery:
 
   - ``program_traces``: one a trace of the user's program outside
     analysis, as in JAX.  The verbs run eagerly, so they make none;
@@ -622,6 +624,64 @@ def note_plan_cse_hit() -> None:
 def note_plan_stream_window() -> None:
     """One streaming window executed through plan construction."""
     _bump("plan_stream_windows")
+
+
+def note_stream_window() -> None:
+    """One streamed window materialised into host columns by the windowed
+    reader (``streaming/reader.py``)."""
+    _bump("stream_windows")
+
+
+def note_shuffle_partition_written(n: int = 1) -> None:
+    """``n`` per-partition spill runs written by the shuffle
+    (``relational/shuffle.py``): one a (window, non-empty partition)."""
+    _bump("shuffle_partitions_written", int(n))
+
+
+def note_shuffle_bytes_spilled(n: int) -> None:
+    """``n`` bytes of shuffle run payload written (also counted in
+    ``spill_bytes_written`` by the store)."""
+    _bump("shuffle_bytes_spilled", int(n))
+
+
+def note_join_build_rows(n: int) -> None:
+    """``n`` build-side rows indexed by a join (once a broadcast build, once
+    a partition for sort-merge)."""
+    _bump("join_build_rows", int(n))
+
+
+def note_join_probe_rows(n: int) -> None:
+    """``n`` probe-side rows streamed through a join."""
+    _bump("join_probe_rows", int(n))
+
+
+def note_journal_append() -> None:
+    """One window/epoch boundary committed to a durable job's journal
+    (``recovery/journal.py``): the manifest atomically replaced."""
+    _bump("journal_appends")
+
+
+def note_journal_bytes(n: int) -> None:
+    """``n`` bytes of journal payload (state ``.npz``) written to
+    ``TFS_JOURNAL_DIR``."""
+    _bump("journal_bytes_written", int(n))
+
+
+def note_journal_window_skipped() -> None:
+    """One journaled window (or epoch) a resumed run skipped: never built,
+    never dispatched."""
+    _bump("journal_windows_skipped")
+
+
+def note_journal_resume() -> None:
+    """One durable job adopted with journaled boundaries to resume from."""
+    _bump("journal_resumes")
+
+
+def note_journal_fence_rejection() -> None:
+    """One journal write refused: the writer's fence token was superseded
+    by a successor process."""
+    _bump("journal_fence_rejections")
 
 
 def note_spill_bytes_written(n: int) -> None:

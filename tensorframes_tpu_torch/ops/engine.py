@@ -70,8 +70,18 @@ the allocator.  The module-level verbs route through the planner
 ``TFS_PLAN=1``, records map verbs on a plan (``_lazy_target``), and the
 reduce verbs and ``aggregate`` are its materialisation points
 (``_lazy_frame``, ``LazyGroupedFrame``); an explicit ``engine=`` stays
-eager.  Not ported (ROADMAP.md Queue 1): chunk-level streamed plans (item
-11).
+eager.
+
+Chunked block streaming (``_stream_plan``, ``_run_block_streamed``): a
+host-fresh block whose staged bytes reach two ``TFS_STREAM_CHUNK_BYTES``
+(default 64 MiB; 0 disables) runs as row chunks of equal size through
+their own prefetcher, so chunk k+1's copy overlaps chunk k's compute inside
+the block; the short tail chunk pads to the chunk size on the device
+(one call shape), and the outputs concatenate on the block's device.  Only
+``map_rows`` (row-independent by construction) and ``map_blocks`` programs
+``analysis.rows_independent`` proves at the block, chunk and tail sizes
+stream; every chunk boundary is a cancellation checkpoint and, under a
+retry session, its own attempt unit.
 """
 
 from __future__ import annotations
@@ -83,7 +93,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import analysis, cancellation, dtypes, faults, observability
+from .. import analysis, cancellation, dtypes, envutil, faults, observability
 from ..device import DeviceLike, resolve_device
 from ..frame import Column, TensorFrame, _column_from_cells, to_host
 from ..program import Program
@@ -172,15 +182,24 @@ def _annotate(span) -> None:
             span.annotate(key, rec[key])
 
 
-def _record_stats(verb: str, n_blocks: int, pf, donate: bool, session) -> None:
-    stage_s = pf.stats["stage_s"] if pf is not None else 0.0
-    wait_s = pf.stats["wait_s"] if pf is not None else 0.0
+def _chunk_stats() -> Dict[str, Any]:
+    """The streamed chunks' prefetch totals of one verb (a local dict: the
+    block prefetcher's thread writes its own stats concurrently)."""
+    return {"items": 0, "stage_s": 0.0, "wait_s": 0.0}
+
+
+def _record_stats(verb: str, n_blocks: int, pf, donate: bool, session,
+                  chunks: Optional[Dict[str, Any]] = None) -> None:
+    chunks = chunks or _chunk_stats()
+    stage_s = (pf.stats["stage_s"] if pf is not None else 0.0) + chunks["stage_s"]
+    wait_s = (pf.stats["wait_s"] if pf is not None else 0.0) + chunks["wait_s"]
     rec: Dict[str, Any] = {
         "verb": verb,
         "blocks": n_blocks,
         "prefetch": {
-            "items": pf.stats["items"] if pf is not None else 0,
-            "depth": pf.stats["depth"] if pf is not None else 0,
+            "items": (pf.stats["items"] if pf is not None else 0) + chunks["items"],
+            "depth": (pf.stats["depth"] if pf is not None
+                      else prefetch.prefetch_depth() if chunks["items"] else 0),
             "stage_s": stage_s,
             "wait_s": wait_s,
             "overlap_ratio": prefetch.overlap_ratio(stage_s, wait_s),
@@ -404,18 +423,23 @@ class Executor:
         With ``TFS_BLOCK_RETRIES`` > 0 or a fault plan, each block runs
         under the frame's retry session (``ops/fault_tolerance.py``):
         transient failures re-stage and retry, a device OOM splits the
-        block when that is provably safe.  ``keep``: a list a pooled run
-        fills with each block's ``(device index, device outputs)``."""
+        block when that is provably safe.  A block past
+        ``stream_chunk_bytes`` streams in row chunks
+        (``_run_block_streamed``).  ``keep``: a list a pooled run fills with
+        each block's ``(device index, device outputs)``."""
         verb = "map_rows" if rows_level else "map_blocks"
         sizes = frame.block_sizes
-        pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, trim)
         program.note_entry(rows_level)
         cache = frame_cache.active_cache(frame)
         if cache is not None:
+            # a cached frame's bytes are on the device already: no chunks
+            pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, trim)
             return self._map_dispatch_pooled(
                 program, frame, infos, rows_level, trim, host_stage, pads,
                 cache.devices, cache.assignment, cache, keep,
             )
+        plans = self._stream_plans(program, frame, infos, host_stage, rows_level)
+        pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, trim, plans)
         pool_devs = (
             device_pool.pool_devices()
             if self.supports_device_pool and _frame_fresh(frame) and frame.num_blocks > 1
@@ -424,7 +448,7 @@ class Executor:
         if len(pool_devs) >= 2:
             return self._map_dispatch_pooled(
                 program, frame, infos, rows_level, trim, host_stage, pads,
-                pool_devs, device_pool.assign(sizes, len(pool_devs)), None, keep,
+                pool_devs, device_pool.assign(sizes, len(pool_devs)), None, keep, plans,
             )
         device = program.device
         fresh = not any(
@@ -434,11 +458,15 @@ class Executor:
         session = fault_tolerance.frame_session(frame.num_blocks, verb=verb)
         donate = prefetch.donate_inputs()
         call = _runner(program, rows_level)
+        chunks = _chunk_stats()
 
         def stage(bi):
+            if plans[bi] is not None:
+                return None  # streamed in chunks, staged by its own prefetcher
             return self._stage_inputs(program, frame.block(bi), infos, device, host_stage)
 
-        pf = prefetch.Prefetcher(stage, frame.num_blocks) if fresh else None
+        to_stage = fresh and any(p is None for p in plans)
+        pf = prefetch.Prefetcher(stage, frame.num_blocks) if to_stage else None
         items = pf if pf is not None else (None for _ in sizes)
         out_blocks = []
         track = str(device)
@@ -446,6 +474,20 @@ class Executor:
             for bi, staged in enumerate(items):
                 cancellation.checkpoint()  # block boundary
                 t_blk = observability.trace_now()
+                if plans[bi] is not None:
+                    outs = self._run_block_streamed(
+                        program, frame.block(bi), infos, plans[bi], bi, session,
+                        lambda dev_i: (device, call), lambda: 0, chunks,
+                    )
+                    self._check_block_outputs(program, outs, sizes[bi], rows_level, trim)
+                    observability.note_request_block(0, sizes[bi])
+                    if t_blk is not None:
+                        observability.trace_complete(
+                            f"{verb} b{bi}", track, t_blk, block=bi, rows=sizes[bi],
+                            chunks=-(-sizes[bi] // plans[bi]),
+                        )
+                    out_blocks.append(outs)
+                    continue
                 run = _padded(call, sizes[bi], pads[bi])
                 attempt = _attempt(staged, functools.partial(stage, bi), run)
                 if donate:
@@ -468,21 +510,135 @@ class Executor:
                     )
                 out_blocks.append(outs)
                 del staged
-        _record_stats(verb, frame.num_blocks, pf, donate, session)
+        _record_stats(verb, frame.num_blocks, pf, donate, session, chunks)
         return out_blocks
 
-    def _bucket_plan(self, program, frame, infos, host_stage, rows_level, trim):
+    # h2d granularity for host-fresh blocks: a block whose staged bytes
+    # reach two chunks runs as row chunks, so chunk k+1's copy overlaps
+    # chunk k's compute inside the block.  TFS_STREAM_CHUNK_BYTES (0
+    # disables), read once, as the JAX package's engine does.
+    stream_chunk_bytes = envutil.env_int("TFS_STREAM_CHUNK_BYTES", 64 * 1024 * 1024)
+
+    def _stream_plan(self, program, block, infos, host_stage,
+                     check_independence: bool = True) -> Optional[int]:
+        """Rows a chunk for streaming this block, or None for the whole-block
+        path: device-resident inputs, small blocks, host-staged inputs,
+        programs not proven row-independent (the JAX package's
+        ``_stream_plan``)."""
+        chunk = self.stream_chunk_bytes
+        if not chunk or host_stage:
+            return None
+        total = 0
+        n_rows = None
+        for name in program.input_names:
+            value = block[program.column_for_input(name)]
+            if isinstance(value, torch.Tensor):
+                return None  # already on a device: nothing to stream
+            arr = np.asarray(value)
+            if arr.dtype == object or not arr.ndim:
+                return None
+            st = dtypes.coerce(infos[name].scalar_type)
+            total += arr.size * st.torch_dtype.itemsize
+            n_rows = arr.shape[0]
+        if n_rows is None or total < 2 * chunk:
+            return None
+        n_chunks = -(-total // chunk)
+        per = -(-n_rows // n_chunks)
+        if per >= n_rows:
+            return None
+        if check_independence:
+            # proven at the executed sizes: the block, a chunk, the tail
+            specs = analysis.input_specs_for(program, infos)
+            tail = n_rows % per or per
+            if specs is None or not analysis.rows_independent(program, specs, (n_rows, per, tail)):
+                return None
+        return per
+
+    def _stream_plans(self, program, frame, infos, host_stage, rows_level) -> List[Optional[int]]:
+        """:meth:`_stream_plan` of every block (``map_rows`` cell programs
+        are row-independent by construction)."""
+        return [
+            self._stream_plan(program, frame.block(bi), infos, host_stage,
+                              check_independence=not rows_level)
+            for bi in range(frame.num_blocks)
+        ]
+
+    def _run_block_streamed(self, program, block, infos, per, bi, session, dev_call,
+                            dev_index, chunks) -> Dict[str, torch.Tensor]:
+        """One block as row chunks of ``per`` rows (the JAX package's
+        ``_run_block_streamed``): the chunks are staged by their own
+        prefetcher, so chunk k+1's copy overlaps chunk k's compute; the
+        short tail chunk pads to ``per`` on the device (one call shape) and
+        slices back; the outputs concatenate on the block's device.
+
+        ``dev_call(dev_i)`` gives the ``(device, call)`` of device index
+        ``dev_i``; ``dev_index()`` the current effective index (a
+        quarantine redirect under the pool).  Each chunk boundary is a
+        cancellation checkpoint; under a retry ``session`` each chunk is
+        its own attempt unit, re-staged on the current device when
+        retried (no OOM split: chunks are the streaming granularity
+        already).  ``chunks`` accumulates the chunk prefetcher's totals."""
+        names = program.input_names
+        sts = {nm: dtypes.coerce(infos[nm].scalar_type) for nm in names}
+        arrays = {nm: np.asarray(block[program.column_for_input(nm)]) for nm in names}
+        n_rows = len(arrays[names[0]])
+        starts = list(range(0, n_rows, per))
+        pad_tail = bucketing.enabled() and n_rows % per != 0
+
+        def stage(k, dev_i=None):
+            dev = dev_call(dev_index() if dev_i is None else dev_i)[0]
+            lo = starts[k]
+            return self._stage_values(
+                {nm: (arrays[nm][lo:lo + per], sts[nm]) for nm in names}, dev
+            )
+
+        def run_chunk(k, dev_i, ins):
+            dev, call = dev_call(dev_i)
+            rows = min(per, n_rows - starts[k])
+            with device_pool.device_scope(dev):
+                return _padded(call, rows, per if pad_tail and rows < per else None)(ins.ready())
+
+        pf = prefetch.Prefetcher(stage, len(starts))
+        outs: List[Dict[str, torch.Tensor]] = []
+        for k, staged in enumerate(pf):
+            cancellation.checkpoint()  # chunk boundary
+            if session is None:
+                outs.append(run_chunk(k, dev_index(), staged))
+                del staged
+                continue
+            lo, hi = starts[k], min(starts[k] + per, n_rows)
+            holder = {"staged": staged}
+            del staged
+
+            def attempt(a, dev_i, _k=k, _h=holder):
+                ins = _h.pop("staged", None)
+                if a > 0 or ins is None or dev_i != dev_index():
+                    ins = stage(_k, dev_i)  # a retry re-stages on the current device
+                return run_chunk(_k, dev_i, ins)
+
+            outs.append(session.run(bi, hi - lo, attempt, device=dev_index, row_range=(lo, hi)))
+        for key in ("items", "stage_s", "wait_s"):
+            chunks[key] += pf.stats[key]
+        dev = dev_call(dev_index())[0]
+        # a mid-block quarantine redirect may leave chunks on two devices
+        return {k: torch.cat([o[k].to(dev) for o in outs]) for k in outs[0]}
+
+    def _bucket_plan(self, program, frame, infos, host_stage, rows_level, trim,
+                     stream_plans=None):
         """Per-block bucket targets, or None per block to run the exact
         shape (the JAX package's ``_bucket_plan``).  ``map_rows`` blocks
         pad freely (the vmapped cell program makes rows independent);
         ``map_blocks`` padding needs ``analysis.rows_independent`` at every
         (real, padded) size the frame will run.  Trimmed maps and
-        host-staged ``map_blocks`` inputs keep exact shapes."""
+        host-staged ``map_blocks`` inputs keep exact shapes; blocks streamed
+        in chunks (``stream_plans``) pad their tail chunk instead."""
         sizes = frame.block_sizes
         none_plan: List[Optional[int]] = [None] * frame.num_blocks
         if trim or not bucketing.enabled() or (host_stage and not rows_level):
             return none_plan
-        targets = [bucketing.bucket_for(n) if n > 0 else None for n in sizes]
+        streamed = stream_plans or none_plan
+        targets = [bucketing.bucket_for(n) if n > 0 and streamed[bi] is None else None
+                   for bi, n in enumerate(sizes)]
         targets = [t if t is not None and t != sizes[bi] else None
                    for bi, t in enumerate(targets)]
         if all(t is None for t in targets):
@@ -498,7 +654,8 @@ class Executor:
         return targets
 
     def _map_dispatch_pooled(self, program, frame, infos, rows_level, trim,
-                             host_stage, pads, devices, assignment, cache, keep=None):
+                             host_stage, pads, devices, assignment, cache, keep=None,
+                             plans=None):
         """The map loop across several devices (the JAX package's
         ``_map_dispatch_pool`` and ``_map_dispatch_sharded``): block ``bi``
         runs on ``devices[assignment[bi]]``, its outputs read back to the
@@ -511,7 +668,8 @@ class Executor:
         device: no lanes, no host bytes for resident blocks; an evicted
         block re-stages from the host copy.  Retries and quarantine
         redirects always re-stage from the host copy, on the current
-        effective device."""
+        effective device.  A block with a chunk plan (``plans``) streams its
+        chunks to its assigned device (``_run_block_streamed``)."""
         verb = "map_rows" if rows_level else "map_blocks"
         nb = frame.num_blocks
         sizes = frame.block_sizes
@@ -526,7 +684,12 @@ class Executor:
                 calls[di] = _runner(device_pool.program_on(program, devices[di]), rows_level)
             return calls[di]
 
+        plans = plans or [None] * nb
+        chunks = _chunk_stats()
+
         def stage_block(bi, dev):
+            if plans[bi] is not None:
+                return None  # streamed in chunks, staged by its own prefetcher
             return self._stage_inputs(program, frame.block(bi), infos, dev, host_stage)
 
         lane_iters: List[Any] = []
@@ -563,34 +726,25 @@ class Executor:
                     staged = self._stage_inputs(program, block, infos, devices[di_eff], host_stage)
                 else:
                     staged = next(lane_iters[0 if host_stage else di])
-                holder = {"staged": staged}
-                del staged
-
-                def attempt(a, dev_i, _bi=bi, _di=di_eff, _h=holder):
-                    ins = _h.pop("staged", None) if (a == 0 and dev_i == _di) else None
-                    _h.clear()
-                    if ins is None:  # a retry or a redirect: fresh host bytes
-                        ins = stage_block(_bi, devices[dev_i])
-                    with device_pool.device_scope(devices[dev_i]):
-                        return _padded(call_on(dev_i), sizes[_bi], pads[_bi])(ins.ready())
-
-                if session is None:
-                    outs = attempt(0, di)
+                if plans[bi] is not None:
+                    outs = self._run_block_streamed(
+                        program, frame.block(bi), infos, plans[bi], bi, session,
+                        lambda dev_i: (devices[dev_i], call_on(dev_i)),
+                        (lambda _di=di: pool.effective_device(_di)) if session is not None
+                        else (lambda _di=di: _di),
+                        chunks,
+                    )
+                    if session is not None:
+                        di_eff = pool.effective_device(di)
                 else:
-                    def dev_run(_di=di):
-                        e = pool.effective_device(_di)
-                        return devices[e], call_on(e)
-
-                    split = self._oom_split_closure(
-                        session, program, frame, bi, infos, host_stage,
-                        rows_level, trim, dev_run,
+                    holder = {"staged": staged}
+                    del staged  # the holder's is the one reference
+                    outs = self._pooled_block(
+                        program, frame, infos, rows_level, trim, host_stage, pads, devices,
+                        pool, session, bi, di, di_eff, holder, call_on, stage_block,
                     )
-                    outs = session.run(
-                        bi, sizes[bi], attempt,
-                        device=lambda _di=di: pool.effective_device(_di),
-                        oom_split=split,
-                    )
-                    di_eff = pool.effective_device(di)
+                    if session is not None:
+                        di_eff = pool.effective_device(di)
                 self._check_block_outputs(program, outs, sizes[bi], rows_level, trim)
                 if t_blk is not None:
                     observability.trace_complete(
@@ -602,8 +756,8 @@ class Executor:
                 pool.submit(bi, di_eff, sizes[bi], outs, out_blocks)
                 del outs
             pool.finish(out_blocks)
-        stage_s = sum(ln.stats["stage_s"] for ln in lanes)
-        wait_s = sum(ln.stats["wait_s"] for ln in lanes)
+        stage_s = sum(ln.stats["stage_s"] for ln in lanes) + chunks["stage_s"]
+        wait_s = sum(ln.stats["wait_s"] for ln in lanes) + chunks["wait_s"]
         _LAST.stats = {
             "verb": verb,
             "blocks": nb,
@@ -612,6 +766,36 @@ class Executor:
             **({"frame_cache": cache.record()} if cache is not None else {}),
         }
         return out_blocks
+
+    def _pooled_block(self, program, frame, infos, rows_level, trim, host_stage, pads,
+                      devices, pool, session, bi, di, di_eff, holder, call_on, stage_block):
+        """One block of the pooled map loop on its (effective) device, under
+        the retry session when there is one; ``holder["staged"]`` holds the
+        lane's staged inputs, taken by the first attempt."""
+        sizes = frame.block_sizes
+
+        def attempt(a, dev_i, _bi=bi, _di=di_eff, _h=holder):
+            ins = _h.pop("staged", None) if (a == 0 and dev_i == _di) else None
+            _h.clear()
+            if ins is None:  # a retry or a redirect: fresh host bytes
+                ins = stage_block(_bi, devices[dev_i])
+            with device_pool.device_scope(devices[dev_i]):
+                return _padded(call_on(dev_i), sizes[_bi], pads[_bi])(ins.ready())
+
+        if session is None:
+            return attempt(0, di)
+
+        def dev_run(_di=di):
+            e = pool.effective_device(_di)
+            return devices[e], call_on(e)
+
+        split = self._oom_split_closure(
+            session, program, frame, bi, infos, host_stage, rows_level, trim, dev_run,
+        )
+        return session.run(
+            bi, sizes[bi], attempt,
+            device=lambda _di=di: pool.effective_device(_di), oom_split=split,
+        )
 
     def _oom_split_closure(
         self, session, program, frame, bi, infos, host_stage, rows_level, trim,
@@ -1011,11 +1195,20 @@ class Executor:
                     staged_specs[n] = (
                         dtypes.coerce(dtypes.from_numpy(arr.dtype)), arr.shape[1:]
                     )
-        pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, False)
+        # mirror the dispatch: blocks the verbs would stream run chunk-sized
+        # calls that build at first use, so their whole-block size is not
+        # warmed; a sharded-cached frame never streams
+        cache = frame_cache.active_cache(frame)
+        plans = ([None] * frame.num_blocks if cache is not None
+                 else self._stream_plans(program, frame, infos, host_stage, rows_level))
+        pads = self._bucket_plan(program, frame, infos, host_stage, rows_level, False, plans)
         exec_sizes = sorted({
             pads[bi] if pads[bi] is not None else n
-            for bi, n in enumerate(frame.block_sizes) if n > 0
+            for bi, n in enumerate(frame.block_sizes) if n > 0 and plans[bi] is None
         })
+        if not exec_sizes:
+            program.note_entry(rows_level)
+            return []  # every block streams, or the frame is empty
 
         def specs_at(n_rows):
             out = {}
@@ -1032,7 +1225,6 @@ class Executor:
             program.aot_compile_raw(raw, specs_at(n), ("aot", bool(rows_level))).fingerprint
             for n in exec_sizes
         ]
-        cache = frame_cache.active_cache(frame)
         if cache is not None:
             devices = [cache.devices[di] for di in sorted(set(cache.assignment))]
         else:

@@ -74,10 +74,12 @@ disables), ``TFS_PLAN_CALIBRATE`` (measured rows/s feed back into the
 decision, default off; with ``TFS_COMPILE_CACHE`` the table persists as
 ``<dir>/tfs-calibration-v1.json``).
 
-Not ported yet (ROADMAP.md Queue 1 item 11): the streaming verbs that call
-:func:`run_window_chain`, the engine's chunked streaming (the
-``stream_chunked_blocks`` branch reads a threshold the port does not have)
-and the journal behind ``iterate_epochs(job_id=...)``.
+The streamed map chains (``streaming/verbs.py``, ``MappedStream``) run each
+window through :func:`run_window_chain` under ``TFS_PLAN``; a block past
+the engine's chunked-streaming threshold (``TFS_STREAM_CHUNK_BYTES``) keeps
+the serial per-stage dispatch (``stream_chunked_blocks``); and
+``iterate_epochs(job_id=...)`` journals each epoch's result through
+``recovery/``.
 """
 
 from __future__ import annotations
@@ -657,10 +659,8 @@ def _choose_dispatch(meta: _FusedMeta, frame: TensorFrame, warm: bool) -> Dict[s
         rec.update(decision="serial", reason="pool_unavailable")
         return rec
     # blocks past the engine's chunked-streaming threshold keep the serial
-    # per-stage dispatch (bounded memory, OOM splits).  The port's engine
-    # has no chunked streaming yet (ROADMAP.md Queue 1 item 11), so the
-    # threshold reads 0 and this branch waits for it.
-    chunk = getattr(_DEFAULT, "stream_chunk_bytes", 0)
+    # per-stage dispatch (bounded memory, OOM splits)
+    chunk = _DEFAULT.stream_chunk_bytes
     if chunk:
         per_row = 0
         for name in meta.src_inputs:
@@ -2172,8 +2172,13 @@ def iterate_epochs(frame, step, epochs: int, job_id: Optional[str] = None) -> Li
     hand-written loop would; params may change between epochs
     (``update_params``).
 
-    ``job_id`` (a durable, resumable loop) needs the journal of
-    ``recovery``, which the port does not have yet: it raises."""
+    ``job_id`` makes the loop durable (``recovery/``, ``TFS_JOURNAL_DIR``):
+    each epoch's result (arrays, tensors, scalars, nested containers) is
+    journaled at the epoch boundary, a resumed loop replays the journaled
+    epochs' results without running ``step`` for them, and a completed
+    loop returns its journaled results.  ``step`` must derive carried
+    state (the params it updates) from the journaled results, not from
+    process-local mutation, for the resumed epochs to be bit-identical."""
     if epochs < 1:
         raise ValidationError("iterate_epochs: epochs must be >= 1")
     if isinstance(frame, LazyFrame):
@@ -2182,29 +2187,59 @@ def iterate_epochs(frame, step, epochs: int, job_id: Optional[str] = None) -> Li
         root = root_for(frame)
     else:
         raise ValidationError("iterate_epochs: takes a TensorFrame or LazyFrame")
+    writer = None
+    start_epoch = 0
+    results: List[Any] = []
     if job_id is not None:
-        raise NotImplementedError(
-            "iterate_epochs(job_id=...): durable epochs need the journal of "
-            "recovery/, which is not ported yet: it waits for ROADMAP.md "
-            "Queue 1 item 11"
+        from .. import recovery
+
+        writer = recovery.adopt(
+            job_id, "iterate_epochs",
+            recovery.job_fingerprint("iterate_epochs", epochs=epochs),
         )
+        # completed and interrupted loops replay the journaled epochs from
+        # their boundary states (kept past complete for this)
+        with recovery.durable.closing_on_error(writer):
+            start_epoch = min(writer.boundary, epochs)
+            for e in range(start_epoch):
+                results.append(recovery.unpack_tree(
+                    writer.load_state(e) or {}, writer.extras()[e]
+                ))
+                # an epoch journaled, replayed, never re-executed
+                observability.note_journal_window_skipped()
+        if writer.completed:
+            writer.close()
+            return results
     if epochs >= 2 and root._materialized is not None:
         # declare the loop's >= 2 consumptions: the entry cache inserts on
         # the FIRST consumption instead of the second
         root._mat_uses = max(root._mat_uses, 1)
-    results: List[Any] = []
     primer = None
     try:
-        for e in range(epochs):
+        for e in range(start_epoch, epochs):
             cancellation.checkpoint()  # epoch boundary
             results.append(step(root, e))
+            if writer is not None:
+                from .. import recovery
+
+                arrays, extra = recovery.pack_tree(results[-1])
+                writer.append(arrays=arrays, extra=extra)
             # the primer runs CONCURRENTLY with the next epoch; at most one
             # is in flight
             if e + 1 < epochs and (primer is None or not primer.is_alive()):
                 primer = _start_epoch_primer(root)
+    except BaseException:
+        if writer is not None:
+            writer.close()  # stays resumable from the journal
+        raise
     finally:
         if primer is not None:
             primer.join()
+    if writer is not None:
+        from .. import recovery
+
+        with recovery.durable.closing_on_error(writer):
+            writer.complete(keep_states=True)
     return results
 
 
@@ -2220,8 +2255,8 @@ def run_window_chain(frame: TensorFrame,
     and the fusion metadata is shared across windows (the stage Programs
     are the cache keys).  The sharing registry is bypassed: windows never
     repeat.  Bit-identical to the stages dispatched eagerly per window.
-    (The streaming verbs that call it arrive with ROADMAP.md Queue 1 item
-    11.)"""
+    The streamed map chains (``streaming.verbs.MappedStream``) call it per
+    window under ``TFS_PLAN``."""
     cur = LazyFrame(source=frame)
     for kind, program, trim in steps:
         cur = cur._append(kind, program, trim=trim)

@@ -96,6 +96,10 @@ def donate_inputs() -> bool:
     return raw not in ("0", "false", "no")
 
 
+# the end marker of an unbounded prefetcher's source
+_END = object()
+
+
 class Prefetcher:
     """Iterate ``num_items`` staged values with up to ``depth`` items in
     flight.
@@ -103,24 +107,28 @@ class Prefetcher:
     ``stage(i)`` runs on the staging thread and returns the staged value
     for item ``i`` (:func:`stage_arrays` issues the copies and returns
     before they finish).  ``stage`` may run host code and issue copies; it
-    must not run the program.  The JAX package's unbounded mode
-    (``num_items=None``, for streamed windows) comes with the streaming
-    frames (ROADMAP.md Queue 1 item 11).
+    must not run the program.
+
+    ``num_items=None`` (the streaming window reader): the item count is
+    unknown up front, ``stage(i)`` is called for ``i = 0, 1, ...`` until it
+    raises ``StopIteration``, which ends the iteration; ``stats["items"]``
+    then counts the items staged.  In bounded mode an early
+    ``StopIteration`` is a staging error, never a silent truncation.
     """
 
     def __init__(
         self,
         stage: Callable[[int], Any],
-        num_items: int,
+        num_items: Optional[int],
         depth: Optional[int] = None,
         name: str = "tfs-prefetch",
     ):
         self._stage = stage
-        self._n = int(num_items)
+        self._n = None if num_items is None else int(num_items)
         self._depth = prefetch_depth() if depth is None else max(0, depth)
         self._name = name
         self.stats: Dict[str, Any] = {
-            "items": self._n,
+            "items": 0 if self._n is None else self._n,
             "depth": self._depth,
             "stage_s": 0.0,
             "wait_s": 0.0,
@@ -131,23 +139,43 @@ class Prefetcher:
         return overlap_ratio(self.stats["stage_s"], self.stats["wait_s"])
 
     def __iter__(self):
-        if self._depth <= 0 or self._n <= 1:
+        if self._depth <= 0 or (self._n is not None and self._n <= 1):
             yield from self._iter_inline()
         else:
             yield from self._iter_threaded()
 
-    def _iter_inline(self):
-        for i in range(self._n):
-            t0 = time.perf_counter()
+    def _next_staged(self, i: int):
+        """``stage(i)`` timed, or the end marker ``_END`` when an unbounded
+        source is dry."""
+        t0 = time.perf_counter()
+        try:
             v = self._stage(i)
-            dt = time.perf_counter() - t0
+        except StopIteration as e:
+            if self._n is not None:
+                raise StagingError(
+                    f"{self._name}: staging item {i} raised StopIteration "
+                    f"before the declared {self._n} items"
+                ) from e
+            return _END, 0.0
+        t1 = time.perf_counter()
+        if self._n is None:
+            self.stats["items"] += 1
+        if observability.trace_enabled():
+            observability.trace_complete(
+                f"stage {i}", f"lane/{self._name}", t0, t1, item=i
+            )
+        return v, t1 - t0
+
+    def _iter_inline(self):
+        i = 0
+        while self._n is None or i < self._n:
+            v, dt = self._next_staged(i)
+            if v is _END:
+                return
             self.stats["stage_s"] += dt
             self.stats["wait_s"] += dt  # inline: staging is waiting
-            if observability.trace_enabled():
-                observability.trace_complete(
-                    f"stage {i}", f"lane/{self._name}", t0, t0 + dt, item=i
-                )
             yield v
+            i += 1
 
     def _iter_threaded(self):
         q: "queue.Queue" = queue.Queue(maxsize=self._depth)
@@ -165,21 +193,19 @@ class Prefetcher:
         def worker():
             i = 0
             try:
-                for i in range(self._n):
+                while self._n is None or i < self._n:
                     if stop.is_set():
                         return
-                    t0 = time.perf_counter()
-                    v = self._stage(i)
-                    t1 = time.perf_counter()
-                    self.stats["stage_s"] += t1 - t0
+                    v, dt = self._next_staged(i)
+                    if v is _END:
+                        put((_END, None))
+                        return
                     # the staging timeline of this lane (the H2D half of
                     # the overlap the recorder shows)
-                    if observability.trace_enabled():
-                        observability.trace_complete(
-                            f"stage {i}", f"lane/{self._name}", t0, t1, item=i
-                        )
+                    self.stats["stage_s"] += dt
                     if not put((v, None)):
                         return
+                    i += 1
             except BaseException as e:  # shipped to the consumer's next()
                 put((None, (i, e)))
 
@@ -189,10 +215,14 @@ class Prefetcher:
         t = threading.Thread(target=lambda: ctx.run(worker), name=self._name, daemon=True)
         t.start()
         try:
-            for _ in range(self._n):
+            produced = 0
+            while self._n is None or produced < self._n:
                 t0 = time.perf_counter()
                 v, err = q.get()
                 self.stats["wait_s"] += time.perf_counter() - t0
+                if v is _END:
+                    return
+                produced += 1
                 if err is not None:
                     i, e = err
                     from .validation import ValidationError

@@ -4,8 +4,11 @@ The store of ``tensorframes_tpu/streaming/spill.py``: bytes that have no
 other durable home go to local disk, counted.  The sharded frame cache
 (``ops/frame_cache.py``) spills an evicted shard here when its frame has
 no authoritative host copy, and restores it on the block's next use.
-Shard files are ``.npz`` dicts of numeric arrays; traffic is counted in
-``observability.counters()`` as ``spill_bytes_written`` and
+The windowed reader (``reader.py``) spools a one-shot source's windows
+here, and the shuffle (``relational/shuffle.py``) writes its partition
+runs here.  Shard and run files are ``.npz`` dicts of numeric arrays
+(:func:`npz_bytes`, shared with the durable-job journal); traffic is
+counted in ``observability.counters()`` as ``spill_bytes_written`` and
 ``spill_bytes_read``.
 
 Knob: ``TFS_SPILL_DIR``, the spill root (created on demand; unset
@@ -15,14 +18,56 @@ disables spill, so evictions drop).
 from __future__ import annotations
 
 import io
+import json
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from .. import envutil, observability
 
 ENV_SPILL_DIR = "TFS_SPILL_DIR"
+
+
+# the npz key holding the torch dtypes of arrays stored as raw bits
+_DTYPES_KEY = "__tfs_torch_dtypes__"
+
+
+def npz_bytes(arrays: Mapping[str, Any]) -> bytes:
+    """``arrays`` as ``.npz`` bytes (no pickle).  Tensors move to the host;
+    a tensor whose dtype numpy lacks (bfloat16) is stored as its raw 16
+    bits, its dtype named in a JSON entry of the same file, so that
+    :func:`npz_load` restores it bit for bit."""
+    raw: Dict[str, np.ndarray] = {}
+    marks: Dict[str, str] = {}
+    for k, v in arrays.items():
+        if isinstance(v, torch.Tensor):
+            t = v.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                raw[k] = t.view(torch.int16).numpy()
+                marks[k] = "bfloat16"
+            else:
+                raw[k] = t.numpy()
+        else:
+            raw[k] = np.asarray(v)
+    if marks:
+        raw[_DTYPES_KEY] = np.frombuffer(json.dumps(marks).encode(), np.uint8)
+    buf = io.BytesIO()
+    np.savez(buf, **raw)
+    return buf.getvalue()
+
+
+def npz_load(data: bytes) -> Dict[str, Any]:
+    """The arrays of :func:`npz_bytes`: numpy arrays, and CPU tensors for
+    the dtypes numpy lacks."""
+    with np.load(io.BytesIO(data)) as z:
+        out: Dict[str, Any] = {k: z[k] for k in z.files}
+    marks = out.pop(_DTYPES_KEY, None)
+    if marks is not None:
+        for k, name in json.loads(marks.tobytes().decode()).items():
+            out[k] = torch.from_numpy(out[k].copy()).view(getattr(torch, name))
+    return out
 
 
 def spill_dir() -> str:
@@ -60,9 +105,7 @@ class SpillStore:
     def put(self, key: str, arrays: Dict[str, np.ndarray]) -> int:
         """Persist ``arrays`` under ``key``; returns (and counts) the bytes
         written."""
-        buf = io.BytesIO()
-        np.savez(buf, **{k: np.asarray(v) for k, v in arrays.items()})
-        data = buf.getvalue()
+        data = npz_bytes(arrays)
         path = self._path(key)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -79,8 +122,7 @@ class SpillStore:
         except FileNotFoundError:
             return None
         observability.note_spill_bytes_read(len(data))
-        with np.load(io.BytesIO(data)) as z:
-            return {k: z[k] for k in z.files}
+        return npz_load(data)
 
     def delete(self, key: str) -> None:
         try:

@@ -428,11 +428,21 @@ def test_check_codes_registry_equals_jax():
 
 
 def test_check_relational_waits_for_item_11():
-    _, tf = _frames()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        analysis.check_relational(tf, "join", keys=["x"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tft.check(tf, None, "shuffle", keys=["x"])
+    """The relational contracts have landed with the relational verbs
+    (item 11): ``check_relational`` and ``check(..., "shuffle"|"join")``
+    give the JAX package's TFS14x diagnostics."""
+    from tensorframes_tpu.analysis import contracts as jcontracts
+
+    jtf, tf = _frames()
+    for verb, keys in (("join", ["x"]), ("join", ["nope"]), ("shuffle", ["x"]),
+                       ("shuffle", ["nope"]), ("join", [])):
+        right = tf if verb == "join" else None
+        jright = jtf if verb == "join" else None
+        got = analysis.check_relational(tf, verb, keys=keys, right=right)
+        want = jcontracts.check_relational(jtf, verb, keys=keys, right=jright)
+        assert [(d.code, d.severity, d.location) for d in got] == [
+            (d.code, d.severity, d.location) for d in want]
+    assert [d.code for d in tft.check(tf, None, "shuffle", keys=["nope"])] == ["TFS140"]
 
 
 # -- the flash kernel inside a traced program ---------------------------------------

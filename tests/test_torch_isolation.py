@@ -178,6 +178,43 @@ def test_importing_the_planner_slice_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_data_layers_loads_no_jax_or_pyarrow():
+    # the card's machine runs the streamed, relational and durable paths
+    # without pyarrow: the Arrow-facing entry points import it when called
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch.streaming, tensorframes_tpu_torch.streaming.reader, "
+        "tensorframes_tpu_torch.streaming.sink, tensorframes_tpu_torch.streaming.verbs, "
+        "tensorframes_tpu_torch.relational, tensorframes_tpu_torch.relational.shuffle, "
+        "tensorframes_tpu_torch.relational.join, tensorframes_tpu_torch.relational.pipeline, "
+        "tensorframes_tpu_torch.recovery, tensorframes_tpu_torch.recovery.journal, "
+        "tensorframes_tpu_torch.recovery.durable, tensorframes_tpu_torch.recovery.janitor, "
+        "tensorframes_tpu_torch.native\n"
+        "from tensorframes_tpu_torch import (streaming, relational, recovery, join, "
+        "join_frames, shuffle, scan_parquet)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_the_packer_builds_from_the_ports_own_copy():
+    """The native packer is the port's copy of the JAX package's source,
+    built from the port's ``csrc/``, never from a path of the JAX package."""
+    from tensorframes_tpu_torch import _build
+
+    src = _build.SRC_DIR / "packer.cpp"
+    assert _build.SRC_DIR == PKG / "csrc" and src.exists()
+    assert src.read_bytes() == (ROOT / "tensorframes_tpu" / "native" / "packer.cpp").read_bytes()
+    assert "tensorframes_tpu/" not in str(_build.extension_path("packer")).replace(
+        "tensorframes_tpu_torch/", "")
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pat = re.compile(
         r"^\s*(import|from)\s+"
@@ -195,7 +232,9 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "faults.py", "resilience.py", "prefetch.py", "fault_tolerance.py",
             "rowdep.py", "contracts.py", "segment_compile.py", "bucketing.py",
             "device_pool.py", "pipeline.py", "spill.py", "roofline.py", "doctor.py",
-            "planner.py", "compile_cache.py"} <= {
+            "planner.py", "compile_cache.py", "reader.py", "sink.py", "verbs.py",
+            "journal.py", "durable.py", "janitor.py", "shuffle.py", "join.py",
+            "native.py"} <= {
         p.name for p in files
     }
     for path in files:

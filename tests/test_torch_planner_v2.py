@@ -506,12 +506,98 @@ def test_doctor_reads_live_plan_stats(monkeypatch):
 # streaming window plans
 # ---------------------------------------------------------------------------
 
-# test_stream_map_chain_planned_bit_identical and
-# test_stream_single_stage_stays_eager (StreamFrame map chains under
-# TFS_PLAN) and test_relational_pipeline_map_stages_planned (the relational
-# pipeline's map stages) wait for the streaming and relational verbs:
-# ROADMAP.md Queue 1 item 11.  run_window_chain, which they call per
-# window, is held here directly.
+
+def _window_stream(n=1000, window=250, seed=0):
+    import pyarrow as pa
+
+    from tensorframes_tpu_torch.streaming import from_batches
+
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n).astype(np.float64)
+    tbl = pa.table({"x": x, "dead": x * 2.0})
+    return from_batches(lambda: iter(tbl.to_batches(max_chunksize=100)), window_rows=window,
+                        label="t")
+
+
+def _jwindow_stream(n=1000, window=250, seed=0):
+    import pyarrow as pa
+
+    from tensorframes_tpu.streaming import from_batches
+
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n).astype(np.float64)
+    tbl = pa.table({"x": x, "dead": x * 2.0})
+    return from_batches(lambda: iter(tbl.to_batches(max_chunksize=100)), window_rows=window,
+                        label="t")
+
+
+def test_stream_map_chain_planned_bit_identical(monkeypatch):
+    m1 = _prog(lambda x: {"y": x + 3.0}, ["y"])
+    m2 = _prog(lambda y: {"z": y * 0.5}, ["z"])
+    monkeypatch.setenv("TFS_PLAN", "0")
+    eager = [_col(wf, "z") for wf in _window_stream().map_blocks(m1).map_blocks(m2).windows()]
+    monkeypatch.setenv("TFS_PLAN", "1")
+    c0 = obs.counters()
+    planned = [_col(wf, "z") for wf in _window_stream().map_blocks(m1).map_blocks(m2).windows()]
+    d = obs.counters_delta(c0)
+    assert len(eager) == len(planned) == 4
+    for a, b in zip(eager, planned):
+        np.testing.assert_array_equal(a, b)
+    assert d["plan_stream_windows"] == 4 and d["plan_fused_dispatches"] == 4, d
+    jm1 = tfs.Program.wrap(lambda x: {"y": x + 3.0}, fetches=["y"])
+    jm2 = tfs.Program.wrap(lambda y: {"z": y * 0.5}, fetches=["z"])
+    jplanned = [np.asarray(wf.column("z").data)
+                for wf in _jwindow_stream().map_blocks(jm1).map_blocks(jm2).windows()]
+    for a, b in zip(planned, jplanned):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stream_single_stage_stays_eager(monkeypatch):
+    """A one-stage chain has nothing to fuse: no per-window plan."""
+    m1 = _prog(lambda x: {"y": x + 3.0}, ["y"])
+    monkeypatch.setenv("TFS_PLAN", "1")
+    c0 = obs.counters()
+    outs = [_col(wf, "y") for wf in _window_stream().map_blocks(m1).windows()]
+    d = obs.counters_delta(c0)
+    assert len(outs) == 4 and d["plan_stream_windows"] == 0, d
+
+
+def test_relational_pipeline_map_stages_planned(monkeypatch, tmp_path):
+    """The relational pipeline's stacked map stages route through
+    per-window plans under TFS_PLAN, with the eager run's results."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+    from tensorframes_tpu_torch.relational.pipeline import run_stream_pipeline
+
+    rng = np.random.RandomState(0)
+    pq.write_table(pa.table({"x": rng.rand(600).astype(np.float64)}), tmp_path / "in.parquet")
+
+    def graph(op, out, const):
+        src = "x" if out == "y" else "y"
+        g = GraphBuilder()
+        g.placeholder(src, "float64", [-1])
+        g.const("c", np.float64(const))
+        g.op(op, out, [src, "c"])
+        return g.to_bytes()
+
+    stages = [{"op": "map_blocks", "graph": graph("Add", "y", 3.0), "fetches": ["y"]},
+              {"op": "map_blocks", "graph": graph("Mul", "z", 0.5), "fetches": ["z"]}]
+    src = {"parquet": str(tmp_path / "in.parquet"), "window_rows": 200}
+    monkeypatch.setenv("TFS_PLAN", "0")
+    eager = run_stream_pipeline(src, stages, {"kind": "frame"}, device="cpu")
+    monkeypatch.setenv("TFS_PLAN", "1")
+    c0 = obs.counters()
+    planned = run_stream_pipeline(src, stages, {"kind": "frame"}, device="cpu")
+    d = obs.counters_delta(c0)
+    np.testing.assert_array_equal(_col(eager["frame"], "z"), _col(planned["frame"], "z"))
+    assert d["plan_stream_windows"] >= 3, d
+    assert planned["rows"] == eager["rows"] == 600
+
+
+# run_window_chain, which the streamed chains call per window, is also held
+# here directly.
 
 
 def _windows(n=1000, window=250, seed=0):
@@ -670,14 +756,48 @@ def test_iterate_epochs_param_updates_flow_through():
     np.testing.assert_allclose(rs[2], rs[0] * 3.0, rtol=1e-6)
 
 
-def test_iterate_epochs_validates_inputs():
+def test_iterate_epochs_validates_inputs(monkeypatch):
     with pytest.raises(tft.ValidationError):
         tft.iterate_epochs(_frame(), lambda root, e: None, 0)
     with pytest.raises(tft.ValidationError):
         tft.iterate_epochs("nope", lambda root, e: None, 2)
-    # durable epochs need the journal (recovery/): item 11
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # durable epochs need a journal directory
+    monkeypatch.setenv("TFS_JOURNAL_DIR", "")
+    with pytest.raises(tft.ValidationError, match="TFS_JOURNAL_DIR"):
         tft.iterate_epochs(_frame(), lambda root, e: None, 2, job_id="j")
+
+
+def test_iterate_epochs_durable_resume(monkeypatch, tmp_path):
+    """A durable loop interrupted at epoch 3 resumes from the journal: the
+    journaled epochs replay without running ``step`` (the twin of
+    ``tests/test_recovery.py::test_epochs_resume_replays_without_rerun``)."""
+    monkeypatch.setenv("TFS_JOURNAL_DIR", str(tmp_path / "journal"))
+    frame = _frame()
+    red = _prog(lambda x_input: {"x": x_input.sum(0)}, ["x"])
+    calls = []
+
+    def step(root, e):
+        calls.append(e)
+        if e == 3 and not step.resumed:
+            raise RuntimeError("simulated crash")
+        return {"x": tft.reduce_blocks(red, root)["x"] * np.float32(e + 1), "epoch": e}
+
+    step.resumed = False
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        tft.iterate_epochs(frame, step, 5, job_id="ep")
+    step.resumed = True
+    calls.clear()
+    c0 = obs.counters()
+    res = tft.iterate_epochs(frame, step, 5, job_id="ep")
+    d = obs.counters_delta(c0)
+    assert calls == [3, 4] and d["journal_windows_skipped"] == 3 and d["journal_resumes"] == 1
+    base = tft.reduce_blocks(red, frame)["x"]
+    for e, r in enumerate(res):
+        assert r["epoch"] == e
+        np.testing.assert_array_equal(r["x"], base * np.float32(e + 1))
+    calls.clear()
+    assert [r["epoch"] for r in tft.iterate_epochs(frame, step, 5, job_id="ep")] == list(range(5))
+    assert calls == []  # completed: replayed, never re-run
 
 
 # ---------------------------------------------------------------------------

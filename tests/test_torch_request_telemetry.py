@@ -3,9 +3,10 @@
 slow-request, tenant-metric, doctor and histogram cases.
 
 The bridge cases (``:193-347``: the attribution RPC and the idempotent
-retry's history) wait for the bridge (ROADMAP.md Queue 1 item 12) and the
-streaming window events (``:591-637``) for the streamed verbs (item 11);
-``explain(analyze=True)`` (``:415-478``) runs on the planner.
+retry's history) wait for the bridge (ROADMAP.md Queue 1 item 12); the
+streaming window events (``:591-637``) have their twins in
+``test_torch_stream_frames.py``; ``explain(analyze=True)`` (``:415-478``)
+runs on the planner.
 The doctor cases feed the same snapshots to JAX's ``doctor`` and the
 port's and require the same codes, severities and messages."""
 
@@ -390,8 +391,10 @@ def test_doctor_render_matches_jax_for_diagnostics():
 
 def test_doctor_reads_live_state_and_names_unported_sections():
     assert isinstance(tft.doctor(), list)
-    # the planner has landed: its ``plans`` section is read live
-    assert doctor_mod.not_ported() == ["shuffles", "artifacts", "fleet", "decode"]
+    # the planner, the relational layer and the janitor have landed: their
+    # sections are read live; only the bridge's wait (item 12)
+    assert doctor_mod.not_ported() == ["fleet", "decode"]
+    assert "not ported yet, read as empty: fleet, decode" in doctor_mod.render([])
 
 
 def test_doctor_raises_on_a_broken_ported_section(monkeypatch):
