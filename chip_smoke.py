@@ -266,7 +266,41 @@ Phases, each printing its own lines and then its command time (``phase:``):
    H2D bytes and the overlap ratio; (f) ``TensorFrame.from_rows`` over a
    million rows of 16-float lists through the native packer and the numpy
    path, identical arrays and schemas; both seconds and the ``g++`` build's;
-14. the card's line again, the kernels' JSON record (each kernel at the
+14. bridge (after the streaming phase): serving over the bridge, every
+   server on the card in a thread of this process bound to 127.0.0.1:0 and
+   every client over the socket: (a) config 3's frame (65,536 x 784 f32,
+   205.5 MB) up through ``create_frame``, the 784-256-128-10 MLP frozen
+   into a GraphDef through ``map_rows`` and ``map_blocks``, the outputs and
+   the frame down through ``collect``, each bit-identical to the same verb
+   in process on the card (MB/s up and down, rows/s against in process);
+   (b) 8 sessions each send a 4,096-row slice through ``map_rows`` at
+   once to a server built with ``coalesce_us=2000``: at least one
+   coalesced batch, each result against the same request served alone
+   (bit-identical, else the differing elements printed and held to
+   ``MLP_TOL``), the members' ledgers summing to the wave's counters
+   delta; then ``warm`` of a new GraphDef, after which its first request
+   makes no ``program_traces`` and no ``backend_compiles``; (c) decode
+   config 8 (bf16) behind the ``decode`` RPC, ``max_slots`` 8: 16 client
+   threads with seeded prompts of 32-1792 tokens and 32-256 new, every
+   stream whole, one joining a running batch, ``decode_tokens`` the sum of
+   the requests, no page left used; each stream equal to its solo
+   ``generate`` at the scheduler's capacity up to that run's first top-2
+   gap under ``DECODE_GAP``; a span past the free pages refused as
+   ``ServerBusy`` (reason ``pages``, ``retry_after_ms`` > 0); the doctor's
+   ``decode`` section reading the live scheduler; aggregate tokens/s and
+   p50/p99 ms a stream; a small f32 model's scheduled streams on the card
+   equal to the CPU's; (d) a ``map_blocks`` of 8 blocks, each paced by an
+   injected 40 ms dispatch delay, under a deadline at 0.3 of a clean run
+   raises ``DeadlineExceeded`` and the frame then gives the clean result;
+   ``bridge_drop`` on the first ``map_rows`` is retried under its
+   idempotency token (executed once, one cache hit, bit-identical); a
+   drain with decode streams in flight completes them; (e) the
+   ``pipeline`` RPC over a registered 1,048,576 x 16 frame (``map_blocks``,
+   a sort-merge join, ``aggregate``, GraphDef stages, windows of 131,072
+   rows) equal byte for byte to in-process ``run_stream_pipeline``, its
+   window ledgers summing to the request's, ``metrics`` carrying the
+   bridge's latency family; no flash kernel launches in the phase;
+15. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -4536,6 +4570,528 @@ def phase_streaming(slice_prog):
     return total
 
 
+# --- serving over the bridge (phase 14) ----------------------------------------
+BRIDGE_COALESCE_US, BRIDGE_CLIENTS, BRIDGE_SLICE = 2000, 8, 4_096  # leg (b)
+BRIDGE_COALESCE_TRIES = 3  # leg (b) repeats its wave when nothing coalesced
+BRIDGE_STREAMS, BRIDGE_SLOTS = 16, 8  # leg (c)
+BRIDGE_PROMPTS, BRIDGE_NEW = (32, 1792), (32, 256)  # leg (c): ranges, both ends in
+BRIDGE_SMALL_STREAMS = 4  # leg (c): the small f32 model, card vs CPU
+BRIDGE_DELAY_MS = 40  # leg (d): the injected dispatch delay that paces each block
+BRIDGE_PIPE_ROWS, BRIDGE_PIPE_D, BRIDGE_PIPE_WINDOW = 1_048_576, 16, 131_072  # leg (e)
+BRIDGE_TIMEOUT_S = 600.0  # every client call; a hang fails the phase
+
+
+def mlp_graph(seed, rows_level):
+    """Config 3's 784-256-128-10 MLP frozen into a GraphDef with seeded
+    weights: a row program (``image`` [784]) or a block program (``image``
+    [-1, 784]).  Returns (bytes, fetches)."""
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    rng = np.random.RandomState(seed)
+    g = GraphBuilder()
+    g.placeholder("image", "float32", [MLP_SIZES[0]] if rows_level else [-1, MLP_SIZES[0]])
+    x = "image"
+    for i, (fi, fo) in enumerate(zip(MLP_SIZES[:-1], MLP_SIZES[1:])):
+        g.const(f"w{i}", (rng.randn(fi, fo) * np.sqrt(2.0 / fi)).astype(np.float32))
+        g.const(f"b{i}", np.zeros((fo,), np.float32))
+        x = g.op("MatMul", f"mm{i}", [x, f"w{i}"])
+        x = g.op("BiasAdd", f"bias{i}", [x, f"b{i}"])
+        if i < len(MLP_SIZES) - 2:
+            x = g.op("Relu", f"relu{i}", [x])
+    g.op("ArgMax", "prediction", [x, g.const("axis", np.int32(-1))])
+    return g.to_bytes(), ["prediction", x]
+
+
+def same_bytes(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def differing(a, b):
+    """(count of differing elements, max |a - b|) of two equal-shape arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b)
+    return int((d > 0).sum()), float(d.max()) if d.size else 0.0
+
+
+def run_threads(n, fn, timeout_s=BRIDGE_TIMEOUT_S):
+    """``fn(k)`` on ``n`` threads, each joined with a timeout; the first
+    error raises here."""
+    import threading
+
+    errs = []
+
+    def wrap(k):
+        try:
+            fn(k)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    ts = [threading.Thread(target=wrap, args=(k,), daemon=True) for k in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout_s)
+        if t.is_alive():
+            raise AssertionError(f"a bridge client thread did not finish in {timeout_s}s")
+    if errs:
+        raise errs[0]
+
+
+def phase_bridge():
+    """Legs (a)-(e) of serving over the bridge (the module docstring's
+    phase 14).  Every server runs on the card in a thread of this process,
+    bound to 127.0.0.1:0, and every client talks to it over the socket.
+    Returns the flash launches of the phase (none may happen)."""
+    import tempfile
+    import threading
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import cancellation, observability as obs
+    from tensorframes_tpu_torch import relational
+    from tensorframes_tpu_torch.bridge import BridgeClient, DeadlineExceeded, ServerBusy, serve
+    from tensorframes_tpu_torch.bridge import coalescer
+    from tensorframes_tpu_torch.graphdef import import_graphdef
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+    from tensorframes_tpu_torch.models import decode
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    doctor_mod = sys.modules["tensorframes_tpu_torch.doctor"]
+    flash.reset_launches()
+
+    def client(srv, **kw):
+        return BridgeClient(*srv.address, timeout_s=BRIDGE_TIMEOUT_S, **kw)
+
+    # (a) the verbs over the socket: config 3's frame up, the MLP GraphDef
+    # through map_rows and map_blocks, the outputs down; each bit-identical
+    # to the same verb in process on the card
+    rng = np.random.RandomState(0)
+    feats = rng.rand(MLP_ROWS, MLP_SIZES[0]).astype(np.float32)
+    row_graph, row_fetch = mlp_graph(0, rows_level=True)
+    block_graph, block_fetch = mlp_graph(0, rows_level=False)
+    srv = serve(device="cuda", max_inflight=0)
+    try:
+        with client(srv) as c:
+            t0 = time.perf_counter()
+            rf = c.create_frame({"pixels": feats}, num_blocks=VERB_BLOCKS)
+            up_s = time.perf_counter() - t0
+            verbs = {}
+            frame = tft.TensorFrame.from_arrays({"pixels": feats}, num_blocks=VERB_BLOCKS)
+            for verb, graph, fetches in (("map_rows", row_graph, row_fetch),
+                                         ("map_blocks", block_graph, block_fetch)):
+                inputs = {"image": "pixels"}
+                prog = import_graphdef(graph, fetches=fetches, inputs=inputs, device="cuda")
+                # one untimed run each first: both sides then run warm
+                getattr(rf, verb)(graph, fetches, inputs=inputs).release()
+                getattr(tft, verb)(prog, frame).to_arrays()
+                t0 = time.perf_counter()
+                out = getattr(rf, verb)(graph, fetches, inputs=inputs)
+                got = out.collect(columns=fetches)
+                bridge_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ref = getattr(tft, verb)(prog, frame).to_arrays()
+                local_s = time.perf_counter() - t0
+                for k in fetches:
+                    if not same_bytes(got[k], ref[k]):
+                        raise AssertionError(f"bridge {verb} {k}: not bit-identical to the "
+                                             f"in-process verb ({differing(got[k], ref[k])})")
+                out.release()
+                verbs[verb] = dict(bridge_rows_per_s=MLP_ROWS / bridge_s,
+                                   in_process_rows_per_s=MLP_ROWS / local_s,
+                                   bridge_over_in_process=local_s / bridge_s)
+            t0 = time.perf_counter()
+            back = rf.collect(columns=["pixels"])["pixels"]
+            down_s = time.perf_counter() - t0
+            if not same_bytes(back, feats):
+                raise AssertionError("bridge collect: the frame came back changed")
+        say("bridge", leg="a_verbs", rows=MLP_ROWS, frame_bytes=feats.nbytes,
+            up_mb_per_s=feats.nbytes / up_s / 1e6, down_mb_per_s=feats.nbytes / down_s / 1e6,
+            bit_identical=True, **{f"{v}_{k}": x for v, r in verbs.items() for k, x in r.items()})
+    finally:
+        srv.close(drain_s=5.0)
+
+    # (b) coalescing: BRIDGE_CLIENTS sessions each send a BRIDGE_SLICE-row
+    # slice through map_rows of the MLP at once; each result against the
+    # same request served alone, the members' ledgers against the global
+    # counters delta of the wave
+    srv = serve(device="cuda", max_inflight=0, coalesce_us=BRIDGE_COALESCE_US,
+                coalesce_rows=BRIDGE_CLIENTS * BRIDGE_SLICE, warm_spec="8")
+    try:
+        slices = [feats[k * BRIDGE_SLICE:(k + 1) * BRIDGE_SLICE] for k in range(BRIDGE_CLIENTS)]
+        conns = [client(srv, tenant=f"t{k}") for k in range(BRIDGE_CLIENTS)]
+        try:
+            frames = [c.create_frame({"pixels": s}) for c, s in zip(conns, slices)]
+            alone = {}
+            for k, f in enumerate(frames):  # one at a time: each served alone
+                out = f.map_rows(row_graph, row_fetch, inputs={"image": "pixels"})
+                alone[k] = out.collect(columns=row_fetch)
+                out.release()
+            for attempt in range(1, BRIDGE_COALESCE_TRIES + 1):
+                together, cids, ledgers = {}, {}, {}
+                # go: the wave starts; fired: every map returned; read: the
+                # delta is taken, so no member's collect lands inside it
+                go, fired, read = (threading.Barrier(BRIDGE_CLIENTS + 1) for _ in range(3))
+                wave = {}
+
+                def member(k):
+                    go.wait(BRIDGE_TIMEOUT_S)
+                    out = frames[k].map_rows(row_graph, row_fetch, inputs={"image": "pixels"})
+                    cids[k] = conns[k].last_correlation_id
+                    fired.wait(BRIDGE_TIMEOUT_S)
+                    read.wait(BRIDGE_TIMEOUT_S)
+                    together[k] = out.collect(columns=row_fetch)
+                    ledgers[k] = conns[k].attribution(cids[k])["ledger"]
+                    out.release()
+
+                def main_side():
+                    c0 = obs.counters()
+                    go.wait(BRIDGE_TIMEOUT_S)
+                    fired.wait(BRIDGE_TIMEOUT_S)
+                    wave["delta"] = obs.counters_delta(c0)
+                    read.wait(BRIDGE_TIMEOUT_S)
+
+                side = threading.Thread(target=main_side, daemon=True)
+                side.start()
+                run_threads(BRIDGE_CLIENTS, member)
+                side.join(BRIDGE_TIMEOUT_S)
+                delta = wave["delta"]
+                if delta["coalesced_batches"] >= 1:
+                    break
+            if delta["coalesced_batches"] < 1:
+                raise AssertionError(f"coalescing: no batch coalesced in "
+                                     f"{BRIDGE_COALESCE_TRIES} waves")
+            summed = {}
+            for k in range(BRIDGE_CLIENTS):
+                for key, n in ledgers[k]["counters"].items():
+                    summed[key] = summed.get(key, 0) + n
+            bad = {k: (summed.get(k, 0), n) for k, n in delta.items() if summed.get(k, 0) != n}
+            if bad:
+                raise AssertionError(f"coalescing: ledger shares differ from the delta: {bad}")
+            diffs = {k: differing(together[k][f], alone[k][f])
+                     for k in range(BRIDGE_CLIENTS) for f in row_fetch}
+            n_diff = sum(d[0] for d in diffs.values())
+            worst = max(d[1] for d in diffs.values())
+            # a coalesced batch runs the MLP's products at another row count
+            # than a lone request; cuBLAS picks its kernel by shape, so the
+            # leg prints the differing elements and holds them to the verbs
+            # phase's MLP_TOL should any appear
+            if worst > MLP_TOL:
+                raise AssertionError(f"coalescing: results differ from solo by {worst}")
+            # warm a new program, then its first request
+            warm_graph, warm_fetch = mlp_graph(1, rows_level=True)
+            w = conns[0].warm(warm_graph, warm_fetch, columns={"pixels": feats[:1]},
+                              rows=[BRIDGE_SLICE], verb="map_rows", inputs={"image": "pixels"})
+            c0 = obs.counters()
+            out = frames[0].map_rows(warm_graph, warm_fetch, inputs={"image": "pixels"})
+            d_warm = obs.counters_delta(c0)
+            out.release()
+            if d_warm["program_traces"] or d_warm["backend_compiles"] or not d_warm[
+                    "warm_program_hits"]:
+                raise AssertionError(f"warm: the first request traced or built: {d_warm}")
+        finally:
+            for c in conns:
+                c.close()
+        say("bridge", leg="b_coalescing", clients=BRIDGE_CLIENTS, rows_each=BRIDGE_SLICE,
+            coalesce_us=BRIDGE_COALESCE_US, waves=attempt,
+            coalesced_batches=delta["coalesced_batches"],
+            coalesced_requests=delta["coalesced_requests"],
+            solo_requests=delta["coalesce_solo_requests"],
+            ledger_shares_sum_to_delta=True, bit_identical=n_diff == 0,
+            differing_elements=n_diff, max_abs_diff=worst, tol=MLP_TOL,
+            warm_primed_rows=w["primed_rows"], first_request_program_traces=d_warm[
+                "program_traces"], first_request_backend_compiles=d_warm["backend_compiles"])
+    finally:
+        srv.close(drain_s=5.0)
+
+    # (c) paged continuous decode behind the decode RPC, at decode config 8
+    cfg = tfm.TransformerConfig(**DECODE_MODEL, dtype=torch.bfloat16)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    drng = np.random.RandomState(19)
+    lens = drng.randint(BRIDGE_PROMPTS[0], BRIDGE_PROMPTS[1] + 1, BRIDGE_STREAMS)
+    news = drng.randint(BRIDGE_NEW[0], BRIDGE_NEW[1] + 1, BRIDGE_STREAMS)
+    lens[:2], news[:2] = BRIDGE_PROMPTS, BRIDGE_NEW  # both ends of each range
+    prompts = [drng.randint(0, cfg.vocab_size, L).astype(np.int32) for L in lens]
+    # the scheduler reserves a request's whole span at submit, pending ones
+    # too, and takes up to 2 x max_slots requests: a pool for that backlog
+    # at full capacity never refuses one of the 16 streams
+    pages_full = -(-cfg.max_seq // PAGE_TOKENS)
+    srv = serve(device="cuda", max_inflight=4 * BRIDGE_STREAMS,
+                decode_model=dict(params=params, cfg=cfg, max_slots=BRIDGE_SLOTS,
+                                  tokens_per_page=PAGE_TOKENS,
+                                  pool_pages=2 * BRIDGE_SLOTS * pages_full + 1))
+    sched = srv.decode_scheduler
+    drained = False
+    try:
+        streamed, walls = {}, {}
+        c0 = obs.counters()
+        t_all = time.perf_counter()
+
+        def stream(k):
+            with client(srv, tenant=f"d{k % 4}", busy_retries=0) as c:
+                t0 = time.perf_counter()
+                streamed[k] = c.decode(prompts[k].tolist(), max_new=int(news[k]))["tokens"]
+                walls[k] = time.perf_counter() - t0
+
+        run_threads(BRIDGE_STREAMS, stream)
+        total_s = time.perf_counter() - t_all
+        d_dec = obs.counters_delta(c0)
+        snap = sched.snapshot()
+        if snap["pages_used"] != 0:
+            raise AssertionError(f"decode: {snap['pages_used']} pages still used")
+        if snap["joined_mid_run"] < 1:
+            raise AssertionError("decode: no stream joined a running batch")
+        if d_dec["decode_tokens"] != int(news.sum()):
+            raise AssertionError(f"decode: {d_dec['decode_tokens']} tokens, want {news.sum()}")
+        if any(len(streamed[k]) != news[k] for k in range(BRIDGE_STREAMS)):
+            raise AssertionError("decode: a stream ended short")
+        # each stream against its solo generate at the scheduler's capacity,
+        # up to the solo run's first near-tie (top-2 gap under DECODE_GAP)
+        gaps = []
+        real_apply = decode.apply_cached
+
+        def recording(*a, **kw):
+            logits, cache = real_apply(*a, **kw)
+            top2 = torch.topk(logits[0, -1].float(), 2).values
+            gaps.append(top2[0] - top2[1])  # read after the run: no sync a step
+            return logits, cache
+
+        held, exact, diverged = 0, 0, []
+        decode.apply_cached = recording
+        try:
+            for k in range(BRIDGE_STREAMS):
+                gaps.clear()
+                solo = decode.generate(params, torch.from_numpy(prompts[k][None]).cuda(), cfg,
+                                       int(news[k]), cache_len=sched.cap)
+                solo = solo[0, lens[k]:].tolist()
+                gap = torch.stack(gaps).tolist()
+                first_tie = next((i for i, g in enumerate(gap) if g < DECODE_GAP), len(gap))
+                if streamed[k][:first_tie] != solo[:first_tie]:
+                    i = next(i for i in range(first_tie) if streamed[k][i] != solo[i])
+                    diverged.append(dict(stream=k, position=i, gap=gap[i]))
+                held += first_tie
+                exact += int(streamed[k] == solo)
+        finally:
+            decode.apply_cached = real_apply
+        if diverged:
+            raise AssertionError(f"decode: streams differ from solo generate before a near-tie: "
+                                 f"{diverged}")
+        # a span the free pages cannot hold: refused as server_busy, reason pages
+        need = -(-int(lens[0] + news[0]) // sched.pool.tokens_per_page)
+        hold, _ = sched.pool.allocate(sched.pool.free_count() - (need - 1))
+        try:
+            with client(srv, busy_retries=0) as c:
+                try:
+                    c.decode(prompts[0].tolist(), max_new=int(news[0]))
+                    raise AssertionError("decode: a span past the free pages was admitted")
+                except ServerBusy as e:
+                    refusal = dict(reason=e.payload.get("reason"), retry_after_ms=e.retry_after_ms)
+            if refusal["reason"] != "pages" or not refusal["retry_after_ms"] > 0:
+                raise AssertionError(f"decode refusal: {refusal}")
+        finally:
+            sched.pool.free(hold)
+        # the doctor's decode section reads this live scheduler
+        section = doctor_mod._read_section("decode", {})
+        if section.get("max_slots") != BRIDGE_SLOTS or section.get("retired") != snap["retired"]:
+            raise AssertionError(f"doctor: the decode section reads {section}")
+        tft.doctor()
+        ms = sorted(1e3 * walls[k] for k in range(BRIDGE_STREAMS))
+        say("bridge", leg="c_decode", streams=BRIDGE_STREAMS, slots=BRIDGE_SLOTS,
+            prompt_range=list(BRIDGE_PROMPTS), new_range=list(BRIDGE_NEW),
+            tokens=int(news.sum()), seconds=total_s, tokens_per_s=int(news.sum()) / total_s,
+            p50_ms_a_stream=float(np.percentile(ms, 50)),
+            p99_ms_a_stream=float(np.percentile(ms, 99)),
+            yardstick_in_process_generate_B8_tokens_per_s=626.6,
+            joined_mid_run=snap["joined_mid_run"], prefill_batches=snap["prefill_batches"],
+            steps=snap["steps"], pages_used_after=snap["pages_used"], cap=sched.cap,
+            tokens_held_before_first_tie=held, streams_exactly_solo=exact, gap=DECODE_GAP,
+            refusal=refusal, doctor_decode_section_live=True)
+
+        # the small f32 model's scheduled streams, card against CPU
+        scfg = tfm.TransformerConfig(**DECODE_SMALL, dtype=torch.float32)
+        sp_cpu = tfm.init(torch.Generator().manual_seed(3), scfg, device="cpu")
+        sp_card = torch.utils._pytree.tree_map(lambda a: a.cuda(), sp_cpu)
+        small = [(np.random.RandomState(20 + k).randint(0, scfg.vocab_size, 5 + 3 * k)
+                  .astype(np.int32), 6 + 2 * k) for k in range(BRIDGE_SMALL_STREAMS)]
+        outs = {}
+        for name, p in (("card", sp_card), ("cpu", sp_cpu)):
+            s = coalescer.DecodeScheduler(p, scfg, max_slots=2, tokens_per_page=8)
+            res = {}
+            try:
+                run_threads(BRIDGE_SMALL_STREAMS,
+                            lambda k: res.__setitem__(k, s.submit(*small[k], timeout_s=120)))
+            finally:
+                s.close()
+            outs[name] = res
+        if outs["card"] != outs["cpu"]:
+            raise AssertionError(f"small f32 scheduled streams: card {outs['card']} != cpu "
+                                 f"{outs['cpu']}")
+        say("bridge", leg="c_small_f32_card_vs_cpu", streams=BRIDGE_SMALL_STREAMS,
+            tokens_equal=True)
+
+        # (d) resilience: a deadline mid-frame, a dropped reply, a drain
+        dframe_cols = {"pixels": feats[: 8 * 1024]}
+        with client(srv) as c:
+            rf = c.create_frame(dframe_cols, num_blocks=8)
+            os.environ["TFS_FAULT_INJECT"] = f"delay:ms={BRIDGE_DELAY_MS}"
+            try:
+                t0 = time.perf_counter()
+                clean = rf.map_blocks(block_graph, block_fetch, inputs={"image": "pixels"})
+                clean_s = time.perf_counter() - t0
+                clean_out = clean.collect(columns=block_fetch)
+                c0 = obs.counters()
+                t0 = time.perf_counter()
+                try:
+                    rf.map_blocks(block_graph, block_fetch, inputs={"image": "pixels"},
+                                  deadline_ms=0.3 * clean_s * 1e3)
+                    raise AssertionError("bridge: a deadline at 0.3 of a clean run did not stop "
+                                         "the map_blocks")
+                except DeadlineExceeded:
+                    stopped_s = time.perf_counter() - t0
+                d_dl = obs.counters_delta(c0)
+            finally:
+                os.environ["TFS_FAULT_INJECT"] = ""
+            again = rf.map_blocks(block_graph, block_fetch, inputs={"image": "pixels"})
+            again_out = again.collect(columns=block_fetch)
+            if not all(same_bytes(again_out[k], clean_out[k]) for k in block_fetch):
+                raise AssertionError("bridge: the frame's clean result changed after a deadline")
+        os.environ["TFS_FAULT_INJECT"] = "bridge_drop:method=map_rows:call=0"
+        try:
+            with client(srv, reconnect_retries=3) as c:
+                rf = c.create_frame(dframe_cols, num_blocks=2)
+                c0 = obs.counters()
+                out = rf.map_rows(row_graph, row_fetch, inputs={"image": "pixels"})
+                d_drop = obs.counters_delta(c0)
+                dropped = out.collect(columns=row_fetch)
+        finally:
+            os.environ["TFS_FAULT_INJECT"] = ""
+        if not (d_drop["bridge_verbs_executed"] == 1 and d_drop["bridge_idem_hits"] == 1
+                and d_drop["faults_injected"] == 1):
+            raise AssertionError(f"bridge_drop: not exactly once: {d_drop}")
+        frame = tft.TensorFrame.from_arrays(dframe_cols, num_blocks=2)
+        ref = tft.map_rows(import_graphdef(row_graph, fetches=row_fetch,
+                                           inputs={"image": "pixels"}, device="cuda"),
+                           frame).to_arrays()
+        if not all(same_bytes(dropped[k], ref[k]) for k in row_fetch):
+            raise AssertionError("bridge_drop: the retried result is not bit-identical")
+        # drain with streams in flight: every admitted stream completes.  The
+        # close waits until all four executed (a monotonic counter, so a
+        # short stream retiring early cannot hide the others)
+        finished = {}
+        longest = [int(k) for k in np.argsort(-news, kind="stable")[:4]]
+
+        def late(i):
+            k = longest[i]
+            with client(srv) as c:
+                finished[k] = c.decode(prompts[k].tolist(), max_new=int(news[k]))["tokens"]
+
+        executed0 = obs.counters()["bridge_verbs_executed"]
+        ts = [threading.Thread(target=late, args=(i,), daemon=True) for i in range(4)]
+        for t in ts:
+            t.start()
+        t0 = time.monotonic()
+        while obs.counters()["bridge_verbs_executed"] - executed0 < 4:
+            if time.monotonic() - t0 > BRIDGE_TIMEOUT_S:
+                raise AssertionError("drain: the streams never reached the scheduler")
+            time.sleep(0.01)
+        in_flight = sched.snapshot()["active"]
+        srv.close(drain_s=BRIDGE_TIMEOUT_S)
+        drained = True
+        for t in ts:
+            t.join(BRIDGE_TIMEOUT_S)
+        if sorted(finished) != sorted(longest) or any(
+                len(finished[k]) != news[k] for k in longest):
+            raise AssertionError("drain: a stream in flight did not complete")
+        say("bridge", leg="d_resilience", deadline_blocks=8, delay_ms=BRIDGE_DELAY_MS,
+            clean_s=clean_s, deadline_s=0.3 * clean_s, stopped_s=stopped_s,
+            deadline_exceeded=d_dl["bridge_deadline_exceeded"], rerun_bit_identical=True,
+            drop_verbs_executed=d_drop["bridge_verbs_executed"],
+            drop_idem_hits=d_drop["bridge_idem_hits"], drop_bit_identical=True,
+            drain_streams=4, drain_active_at_close=in_flight, drain_completed=len(finished))
+    finally:
+        if not drained:
+            srv.close(drain_s=5.0)
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) the pipeline RPC over a registered frame: map_blocks, a sort-merge
+    # join (a shuffle into partitions) and an aggregate, all GraphDef stages
+    prng = np.random.RandomState(21)
+    pcols = {"k": prng.randint(0, STREAM_DOCS, BRIDGE_PIPE_ROWS).astype(np.int64),
+             "x": prng.rand(BRIDGE_PIPE_ROWS, BRIDGE_PIPE_D).astype(np.float32)}
+    bcols = {"k": np.arange(STREAM_DOCS, dtype=np.int64),
+             "w": prng.rand(STREAM_DOCS).astype(np.float32)}
+    g = GraphBuilder()
+    g.placeholder("x", "float32", [-1, BRIDGE_PIPE_D])
+    g.const("two", np.float32(2.0))
+    g.op("Mul", "y", ["x", "two"])
+    map_g = g.to_bytes()
+    g = GraphBuilder()
+    g.placeholder("y_input", "float32", [-1, BRIDGE_PIPE_D])
+    g.placeholder("w_input", "float32", [-1])
+    g.const("axis", np.int32(0))
+    g.op("Sum", "y", ["y_input", "axis"])
+    g.op("Sum", "w", ["w_input", "axis"])
+    agg_g = g.to_bytes()
+
+    def stages(build):
+        return [{"op": "map_blocks", "graph": map_g, "fetches": ["y"]},
+                {"op": "join", "on": "k", "strategy": "sort_merge", "partitions": 4, **build},
+                {"op": "aggregate", "keys": ["k"], "graph": agg_g, "fetches": ["y", "w"]}]
+
+    saved = os.environ.get("TFS_SPILL_DIR")
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["TFS_SPILL_DIR"] = tmp.name
+    srv = serve(device="cuda", max_inflight=0)
+    try:
+        with client(srv, tenant="pipe") as c:
+            src = c.create_frame(pcols)
+            build = c.create_frame(bcols)
+            t0 = time.perf_counter()
+            r = c.run_pipeline({"frame_id": src.frame_id, "window_rows": BRIDGE_PIPE_WINDOW},
+                               stages({"build_frame_id": build.frame_id}))
+            pipe_s = time.perf_counter() - t0
+            led = c.attribution(c.last_correlation_id)["ledger"]
+            got = r["frame"].collect()
+            metrics = c.metrics()
+        local = relational.run_stream_pipeline(
+            {"frame_id": 1, "window_rows": BRIDGE_PIPE_WINDOW},
+            stages({"build_frame": tft.TensorFrame.from_arrays(bcols)}),
+            frames={1: tft.TensorFrame.from_arrays(pcols)}, device="cuda")
+        want = local["frame"].to_arrays()
+        if sorted(got) != sorted(want) or not all(same_bytes(got[k], want[k]) for k in want):
+            raise AssertionError("pipeline RPC: the result differs from in-process "
+                                 "run_stream_pipeline")
+        summed = {}
+        for wsnap in r["windows"]:
+            for key, n in wsnap["counters"].items():
+                summed[key] = summed.get(key, 0) + n
+        bad = {k: (n, led["counters"].get(k, 0)) for k, n in summed.items()
+               if led["counters"].get(k, 0) != n}
+        if bad:
+            raise AssertionError(f"pipeline RPC: window attributions differ from the ledger: {bad}")
+        families = [f for f in ("tfs_bridge_latency_seconds", 'method="pipeline"')
+                    if f not in metrics]
+        if families:
+            raise AssertionError(f"metrics: missing {families}")
+        say("bridge", leg="e_pipeline", rows=BRIDGE_PIPE_ROWS, window_rows=BRIDGE_PIPE_WINDOW,
+            windows=r["window_count"], seconds=pipe_s, rows_per_s=BRIDGE_PIPE_ROWS / pipe_s,
+            byte_equal_in_process=True, window_ledgers_sum_to_request=True,
+            metrics_bridge_families=True)
+    finally:
+        srv.close(drain_s=5.0)
+        if saved is None:
+            os.environ.pop("TFS_SPILL_DIR", None)
+        else:
+            os.environ["TFS_SPILL_DIR"] = saved
+        tmp.cleanup()
+    launches = dict(flash.kernel_launches)
+    if any(launches.values()):
+        raise AssertionError(f"the bridge legs launched flash kernels: {launches}")
+    say("bridge", leg="flash_launches", launches=launches)
+    return launches
+
+
 def run_phase(phase, *args):
     """``phase(*args)``, printing its command time: the script's run time
     by phase."""
@@ -4575,6 +5131,7 @@ def main() -> int:
     observability_launches = run_phase(phase_observability, prog)
     planner_launches = run_phase(phase_planner, prog)
     streaming_launches = run_phase(phase_streaming, prog)
+    run_phase(phase_bridge)
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)

@@ -1,0 +1,1763 @@
+"""Multi-tenant serving throughput layer.
+
+The port's copy of ``tensorframes_tpu/bridge/coalescer.py``.  The bridge
+server gives the serving path resilience (admission, deadlines, sessions,
+drain) and attribution (per-request ledgers, per-tenant metrics); this
+module is the throughput layer on top.  Where the JAX package counts jit
+signatures and XLA compiles, the port's programs run eagerly, so a warm
+program is one whose GraphDef import, kernel builds and allocator are
+already done (``Executor.warmup``): the first request then makes no
+``program_traces`` and no ``backend_compiles``.
+
+* :class:`WarmPool` — an LRU of **hot compiled programs** keyed by the
+  full builder signature (graph bytes + fetches + feeds + shape hints),
+  so a repeat request reuses the SAME :class:`~..program.Program` object:
+  zero GraphDef re-import, zero re-trace.  ``Executor.warmup`` primes the ``(bucket, device)``
+  grid for a registered program (the bridge ``warm`` RPC).
+
+* :class:`Coalescer` — **request coalescing**: concurrent map-verb
+  requests carrying the same program/schema signature wait up to
+  ``TFS_BRIDGE_COALESCE_US`` for company, then dispatch as ONE
+  bucket-canonical micro-batch (rows concatenated, dealt into
+  ``ops/bucketing.coalesced_blocks`` blocks so the device pool spreads
+  them, padded on the same geometric ladder every verb uses).  The
+  batch runs through the ordinary engine dispatch — the pooled path is
+  REUSED, not forked — and outputs are sliced back per request.
+  Per-request results are bit-identical to solo execution: ``map_rows``
+  rows are independent by construction (vmap), and ``map_blocks``
+  coalescing is gated on the same row-independence gate bucketing uses
+  (``analysis.rows_independent``: the classifier first, the exact-size
+  probe on ``UNKNOWN``) — a cross-row program never coalesces.
+  Attribution stays exact: the shared dispatch runs under a private
+  batch ledger whose counters are apportioned to the participants by
+  row share (largest-remainder, so the shares SUM to the batch's global
+  counters delta bit-for-bit), and one flight-recorder instant carries
+  every participating correlation id.
+
+* :class:`SloScheduler` — **SLO-aware admission policy**: reads the
+  bridge latency histograms and sliding-window per-tenant row usage
+  to shed before p99 blows instead of FIFO-shedding at a fixed depth.
+  ``TFS_BRIDGE_FAIR_ROWS`` gives each tenant a row budget per
+  ``TFS_BRIDGE_FAIR_WINDOW_S`` window — an over-budget tenant is shed
+  (with a ``retry_after_ms`` hint) only when another tenant shared the
+  window, so a lone tenant can always use the whole machine even when
+  its own requests back up the gate; ``TFS_BRIDGE_SLO_MS``
+  additionally sheds the dominant row consumer once the measured bridge
+  p99 climbs past 80% of the target.
+
+* :class:`ContinuousBatcher` — **continuous decode batching**:
+  decode-style requests join a RUNNING batch at step boundaries and
+  retire the moment their own stream finishes, so a short request never
+  waits for a long one; the step is one ``torch.func.vmap(row_step)``
+  over the slot axis.  Per-row results are solo-identical because rows
+  under vmap are independent by construction.
+
+* :class:`DecodeScheduler` — continuous decode over the paged KV cache
+  (``models/kv_pager.py``), the body of the bridge's ``decode`` RPC.
+
+Knobs (absence = feature off):
+
+=============================  =============================================
+``TFS_BRIDGE_COALESCE_US``     micro-batch gather window in µs (0 = off)
+``TFS_BRIDGE_COALESCE_ROWS``   max rows per coalesced batch (default 4096)
+``TFS_BRIDGE_WARM``            warm program-pool spec: ``N`` or
+                               ``cap=N;buckets=64,512`` (0 = off)
+``TFS_BRIDGE_FAIR_ROWS``       per-tenant rows per fairness window (0 = off)
+``TFS_BRIDGE_FAIR_WINDOW_S``   fairness sliding window (default 10s)
+``TFS_BRIDGE_SLO_MS``          serving p99 target; shed past 80% (0 = off)
+=============================  =============================================
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import logging
+import threading
+import time
+import weakref
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .. import cancellation, observability
+from ..builder import compile_program
+from ..device import DeviceLike
+from ..envutil import env_float as _env_float, env_int as _env_int
+from ..frame import TensorFrame
+from ..analysis import rowdep as analysis
+from ..ops import bucketing, device_pool
+from ..ops import engine as engine_mod
+from ..ops import validation
+from .. import envutil
+
+logger = logging.getLogger("tensorframes_tpu_torch.bridge.coalescer")
+
+ENV_COALESCE_US = "TFS_BRIDGE_COALESCE_US"
+ENV_COALESCE_ROWS = "TFS_BRIDGE_COALESCE_ROWS"
+ENV_WARM = "TFS_BRIDGE_WARM"
+ENV_FAIR_ROWS = "TFS_BRIDGE_FAIR_ROWS"
+ENV_FAIR_WINDOW_S = "TFS_BRIDGE_FAIR_WINDOW_S"
+ENV_SLO_MS = "TFS_BRIDGE_SLO_MS"
+
+DEFAULT_COALESCE_ROWS = 4096
+DEFAULT_FAIR_WINDOW_S = 10.0
+# shed when measured p99 passes this fraction of TFS_BRIDGE_SLO_MS —
+# "before p99 blows", not after the SLO is already violated
+SLO_PRESSURE_FRACTION = 0.8
+# how long a cached latency snapshot serves admission decisions before
+# the scheduler re-reads the histograms (a snapshot per request would
+# put a lock + full copy on the admission hot path)
+_SLO_SNAPSHOT_TTL_S = 0.5
+
+
+# the one exact integer split behind shared-work ledger attribution
+# (largest remainder), shared with the planner's CSE registry
+_apportion = observability.apportion
+
+
+# ---------------------------------------------------------------------------
+# warm program pool
+# ---------------------------------------------------------------------------
+
+
+class WarmSpec:
+    """Parsed ``TFS_BRIDGE_WARM``: an int capacity (``"8"``) or a
+    ``cap=8;buckets=64,512`` spec whose bucket list seeds the default
+    priming sizes for the ``warm`` RPC."""
+
+    def __init__(self, cap: int = 0, buckets: Tuple[int, ...] = ()):
+        self.cap = max(0, int(cap))
+        self.buckets = tuple(int(b) for b in buckets if int(b) > 0)
+
+    @classmethod
+    def from_env(cls, raw: Optional[str] = None) -> "WarmSpec":
+        if raw is None:
+            raw = envutil.env_raw(ENV_WARM)  # never None, already stripped
+        raw = raw.strip()
+        if not raw:
+            return cls()
+        try:
+            if "=" not in raw:
+                return cls(cap=int(raw))
+            cap, buckets = 0, ()
+            for part in raw.split(";"):
+                part = part.strip()
+                if not part:
+                    continue
+                k, _, v = part.partition("=")
+                if k.strip() == "cap":
+                    cap = int(v)
+                elif k.strip() == "buckets":
+                    buckets = tuple(
+                        int(x) for x in v.split(",") if x.strip()
+                    )
+                else:
+                    raise ValueError(f"unknown key {k!r}")
+            return cls(cap=cap, buckets=buckets)
+        except (ValueError, TypeError):
+            logger.warning(
+                "%s=%r is malformed (use an int cap or "
+                "'cap=N;buckets=64,512'); warm pool disabled",
+                ENV_WARM,
+                raw,
+            )
+            return cls()
+
+
+def program_signature(
+    verb: str,
+    graph: Any,
+    fetches: Optional[Sequence[str]],
+    inputs: Optional[Mapping[str, str]],
+    shapes: Optional[Mapping[str, Sequence[int]]],
+    trim: bool,
+) -> Tuple:
+    """The coalescing/warm-pool identity of a bridge map-verb request:
+    two requests with the same signature run the same compiled program.
+    GraphDef bytes hash (never the bytes themselves — signatures are
+    dict keys held for the pool's lifetime)."""
+    if isinstance(graph, (bytes, bytearray)):
+        gk = hashlib.sha1(bytes(graph)).hexdigest()
+    else:
+        gk = ("obj", id(graph))
+    return (
+        verb,
+        bool(trim),
+        gk,
+        tuple(fetches or ()),
+        tuple(sorted((inputs or {}).items())),
+        tuple(
+            sorted((k, tuple(v)) for k, v in (shapes or {}).items())
+        ),
+    )
+
+
+class _WarmEntry:
+    __slots__ = ("program", "requests", "coalesce_ok")
+
+    def __init__(self, program):
+        self.program = program
+        self.requests = 0  # map-verb requests served by this program
+        # map_blocks coalescability memo: None = unproven, else bool
+        self.coalesce_ok: Optional[bool] = None
+
+
+class WarmPool:
+    """LRU of hot built programs, keyed by the full builder signature,
+    built on ``device`` (None = the CUDA card).  ``cap=0`` disables
+    retention (every lookup rebuilds); lookups are still served so the
+    coalescer has one program-construction path either way."""
+
+    def __init__(
+        self, spec: Optional[WarmSpec] = None, device: DeviceLike = None
+    ):
+        self.spec = spec if spec is not None else WarmSpec.from_env()
+        self.device = device
+        self._lock = threading.Lock()
+        self._lru: "collections.OrderedDict[Tuple, _WarmEntry]" = (
+            collections.OrderedDict()
+        )
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._lru)
+
+    def entry(
+        self,
+        verb: str,
+        graph: Any,
+        fetches=None,
+        inputs=None,
+        shapes=None,
+        trim: bool = False,
+    ) -> Tuple[Tuple, _WarmEntry, bool]:
+        """-> ``(signature, entry, hit)``; builds (and, with capacity,
+        retains) the compiled program on a miss."""
+        key = program_signature(verb, graph, fetches, inputs, shapes, trim)
+        with self._lock:
+            ent = self._lru.get(key)
+            if ent is not None:
+                self._lru.move_to_end(key)
+                ent.requests += 1
+                observability.note_warm_program(True)
+                return key, ent, True
+        # build outside the lock: GraphDef import is the expensive part
+        program = compile_program(
+            graph, fetches=fetches, inputs=inputs, shapes=shapes,
+            what=f"bridge:{verb}", device=self.device,
+        )
+        ent = _WarmEntry(program)
+        ent.requests = 1
+        observability.note_warm_program(False)
+        if self.spec.cap > 0:
+            with self._lock:
+                # a racing builder may have inserted the same key: keep
+                # the resident one (it may already be warm)
+                existing = self._lru.get(key)
+                if existing is not None:
+                    self._lru.move_to_end(key)
+                    existing.requests += 1
+                    return key, existing, True
+                self._lru[key] = ent
+                while len(self._lru) > self.spec.cap:
+                    self._lru.popitem(last=False)
+        return key, ent, False
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "resident": len(self._lru),
+                "cap": self.spec.cap,
+                "requests": {
+                    k[2][:8] if isinstance(k[2], str) else str(k[2]):
+                    e.requests
+                    for k, e in self._lru.items()
+                },
+            }
+
+
+# ---------------------------------------------------------------------------
+# request coalescing
+# ---------------------------------------------------------------------------
+
+
+class _Member:
+    """One request parked in a coalescing batch."""
+
+    __slots__ = (
+        "sess",
+        "frame",
+        "rows",
+        "scope",
+        "ledger",
+        "cid",
+        "result",
+        "error",
+        "abandoned",
+        "reg_lock",
+    )
+
+    def __init__(self, sess, frame, scope):
+        self.sess = sess
+        self.frame = frame
+        self.rows = frame.num_rows
+        self.scope = scope
+        self.ledger = observability.current_request()
+        self.cid = self.ledger.correlation_id if self.ledger else None
+        self.result = None
+        self.error: Optional[BaseException] = None
+        # abandonment handshake: the member's handler thread may give up
+        # (deadline) while the leader is still executing the batch; the
+        # leader must not register an output frame into the member's
+        # session that the client will never learn about (it would leak
+        # against the session's frame cap).  reg_lock makes the
+        # register-vs-abandon decision atomic.
+        self.abandoned = False
+        self.reg_lock = threading.Lock()
+
+    def abandon(self) -> None:
+        """Mark this member abandoned and release its output frame if
+        the leader already registered one."""
+        with self.reg_lock:
+            self.abandoned = True
+            res = self.result
+        if res is not None:
+            self.sess.release(res["frame_id"])
+
+
+class _Batch:
+    __slots__ = ("key", "members", "rows", "sealed", "full", "done")
+
+    def __init__(self, key):
+        self.key = key
+        self.members: List[_Member] = []
+        self.rows = 0
+        self.sealed = False
+        self.full = threading.Event()  # rows cap reached: leader wakes
+        self.done = threading.Event()  # results distributed
+
+
+class Coalescer:
+    """Coalesces concurrent same-program map-verb requests into one
+    bucket-canonical dispatch.  See the module docstring for the policy;
+    the server routes every gated ``map_blocks``/``map_rows`` through
+    :meth:`run_map_verb`."""
+
+    def __init__(
+        self,
+        engine=None,
+        wait_us: Optional[float] = None,
+        max_rows: Optional[int] = None,
+        warm: Optional[WarmPool] = None,
+        register_scope: Optional[Callable] = None,
+        unregister_scope: Optional[Callable] = None,
+    ):
+        self.engine = engine
+        self.wait_us = (
+            _env_float(ENV_COALESCE_US, 0.0)
+            if wait_us is None
+            else float(wait_us)
+        )
+        self.max_rows = (
+            _env_int(ENV_COALESCE_ROWS, DEFAULT_COALESCE_ROWS, floor=1)
+            if max_rows is None
+            else max(1, int(max_rows))
+        )
+        self.warm = warm if warm is not None else WarmPool()
+        self._register_scope = register_scope or (lambda s: None)
+        self._unregister_scope = unregister_scope or (lambda s: None)
+        self._lock = threading.Lock()
+        self._open: Dict[Tuple, _Batch] = {}
+        # batch-size histogram (requests per dispatched batch): tiny,
+        # bounded by max observed batch size; served by health + gauges
+        self._batch_hist: Dict[int, int] = {}
+        self._rows_batched = 0
+
+    # -- public surface ------------------------------------------------------
+
+    def enabled(self) -> bool:
+        return self.wait_us > 0
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Coalescer state for the health RPC: open queue depth per
+        program, the batch-size histogram, and warm-pool residency."""
+        with self._lock:
+            queued = {
+                (k[2][:8] if isinstance(k[2], str) else str(k[2])):
+                len(b.members)
+                for k, b in self._open.items()
+            }
+            hist = dict(self._batch_hist)
+            rows = self._rows_batched
+        return {
+            "enabled": self.enabled(),
+            "wait_us": self.wait_us,
+            "max_rows": self.max_rows,
+            "queued": sum(queued.values()),
+            "queue_by_program": queued,
+            "batch_size_hist": {str(k): v for k, v in sorted(hist.items())},
+            "rows_batched": rows,
+            "warm_pool": self.warm.snapshot(),
+        }
+
+    def gauges(self) -> Dict[str, Any]:
+        """The grouped gauge provider body (one consistent snapshot per
+        scrape; names are distinct from every counter family, per the
+        no-duplicate-family rule)."""
+        with self._lock:
+            queued = sum(len(b.members) for b in self._open.values())
+            open_programs = len(self._open)
+        return {
+            "tfs_bridge_coalesce_queued": queued,
+            "tfs_bridge_coalesce_open_programs": open_programs,
+            "tfs_bridge_warm_resident": len(self.warm),
+        }
+
+    def run_map_verb(
+        self,
+        sess,
+        verb: str,
+        frame_id: int,
+        graph: Any = None,
+        fetches: Optional[Sequence[str]] = None,
+        inputs: Optional[Mapping[str, str]] = None,
+        shapes: Optional[Mapping[str, Sequence[int]]] = None,
+        trim: bool = False,
+        scope: Optional[cancellation.CancelScope] = None,
+    ) -> Dict[str, Any]:
+        """The server's gated map-verb entry: coalesce when profitable,
+        else execute solo (always through the warm program pool)."""
+        frame = sess.frame(frame_id)
+        key, ent, hit = self.warm.entry(
+            verb, graph, fetches, inputs, shapes, trim
+        )
+        program = ent.program
+        if not (
+            self.enabled()
+            and frame.num_rows > 0
+            and self._coalescable(verb, trim, frame, program, ent)
+        ):
+            out = self._execute(program, verb, trim, frame)
+            fid = sess.register(out)
+            return {"frame_id": fid, "schema": sess._schema(out)}
+        member = _Member(sess, frame, scope)
+        batch, leader = self._join(key + self._schema_sig(frame), member)
+        if leader:
+            self._gather_then_run(batch, verb, trim, program, ent)
+        else:
+            self._await_result(batch, member)
+        if member.error is not None:
+            raise member.error
+        if member.result is None:  # pragma: no cover - defensive
+            raise RuntimeError("coalesced batch produced no result")
+        return member.result
+
+    # -- eligibility ---------------------------------------------------------
+
+    @staticmethod
+    def _schema_sig(frame: TensorFrame) -> Tuple:
+        return tuple(
+            (c.name, c.scalar_type.name, tuple(c.cell_shape))
+            for c in frame.schema
+        )
+
+    def _coalescable(self, verb, trim, frame, program, ent) -> bool:
+        """Whether this request may merge with others: every column must
+        be a plain uniform device-ok array (concat + split is a pure
+        row-slice), and a trimmed map never coalesces (its output row
+        count is program-defined, so row shares are undefined).
+        ``map_blocks`` is additionally gated on the row-independence
+        proof, memoized per program (``_prove_coalesce``)."""
+        if trim:
+            return False
+        if ent.coalesce_ok is False:
+            return False
+        for c in frame.schema:
+            col = frame.column(c.name)
+            if col.is_ragged or col.is_device:
+                return False
+            if not c.scalar_type.device_ok:
+                return False
+            if not isinstance(col.data, np.ndarray):
+                return False
+        return True
+
+    def _prove_coalesce(
+        self, verb, program, ent, members, block_sizes
+    ) -> bool:
+        """``map_rows`` rows are independent by construction;
+        ``map_blocks`` must pass the row-independence proof at
+        every size it runs solo AND coalesced (the exact condition
+        bucketing's pad-and-slice uses).  The verdict is memoized on the
+        warm entry — a structurally cross-row program is rejected once,
+        then skips the coalesce path entirely."""
+        if verb == "map_rows":
+            return True
+        if ent.coalesce_ok is not None:
+            return ent.coalesce_ok
+        try:
+            frame0 = members[0].frame
+            infos = validation.check_map_inputs(
+                program, frame0, verb, host_staged=()
+            )
+            sizes = set(block_sizes)
+            for m in members:
+                sizes.update(m.frame.block_sizes)
+            if bucketing.enabled():
+                sizes.update(
+                    bucketing.bucket_for(s) for s in list(sizes)
+                )
+            specs = analysis.input_specs_for(program, infos)
+            ok = specs is not None and analysis.rows_independent(
+                program, specs, sorted(s for s in sizes if s > 0)
+            )
+        except analysis.AnalysisXCheckError:
+            raise  # the differential fence must fail loudly
+        except Exception:  # noqa: BLE001 — unprovable = not coalescable
+            ok = False
+        ent.coalesce_ok = ok
+        if not ok:
+            logger.info(
+                "coalescer: map_blocks program failed the row-"
+                "independence proof; its requests will run solo"
+            )
+        return ok
+
+    # -- batching ------------------------------------------------------------
+
+    def _join(self, key, member) -> Tuple[_Batch, bool]:
+        with self._lock:
+            batch = self._open.get(key)
+            if (
+                batch is None
+                or batch.sealed
+                or batch.rows + member.rows > self.max_rows
+            ):
+                if batch is not None and not batch.sealed:
+                    # displaced from _open: no later request can join it,
+                    # so wake its leader instead of letting the batch
+                    # sleep out the rest of the gather window
+                    batch.full.set()
+                batch = _Batch(key)
+                self._open[key] = batch
+            leader = not batch.members
+            batch.members.append(member)
+            batch.rows += member.rows
+            if batch.rows >= self.max_rows:
+                batch.full.set()
+        return batch, leader
+
+    def _seal(self, batch) -> List[_Member]:
+        with self._lock:
+            batch.sealed = True
+            if self._open.get(batch.key) is batch:
+                del self._open[batch.key]
+            return list(batch.members)
+
+    def _gather_then_run(self, batch, verb, trim, program, ent) -> None:
+        # the leader parks for the gather window (bounded by its own
+        # remaining deadline), then seals and executes for everyone
+        wait_s = self.wait_us / 1e6
+        lead = batch.members[0]
+        if lead.scope is not None:
+            remaining = lead.scope.time_remaining()
+            if remaining is not None:
+                wait_s = max(0.0, min(wait_s, remaining))
+        batch.full.wait(timeout=wait_s)
+        members = self._seal(batch)
+        try:
+            self._run_batch(batch, verb, trim, program, ent, members)
+        finally:
+            batch.done.set()
+
+    def _await_result(self, batch, member) -> None:
+        remaining = (
+            member.scope.time_remaining()
+            if member.scope is not None
+            else None
+        )
+        if not batch.done.wait(timeout=remaining):
+            # the member's own deadline expired while its batch was
+            # still gathering/executing: cancel THIS request only — the
+            # batch (and every other member) is unaffected
+            member.abandon()
+            raise cancellation.DeadlineExceeded(
+                "request deadline expired while waiting for its "
+                "coalesced batch"
+            )
+        if member.scope is not None:
+            try:
+                member.scope.check()
+            except BaseException:
+                member.abandon()
+                raise
+
+    def _run_batch(
+        self, batch, verb, trim, program, ent, members: List[_Member]
+    ) -> None:
+        # drop members whose deadline already expired — they are
+        # cancelled individually, the rest still batch
+        alive: List[_Member] = []
+        for m in members:
+            if m.scope is not None and m.scope.expired():
+                m.error = cancellation.DeadlineExceeded(
+                    "request deadline expired before its coalesced "
+                    "batch dispatched"
+                )
+            else:
+                alive.append(m)
+        if not alive:
+            return
+        if len(alive) == 1:
+            # nobody arrived within the gather window: solo semantics
+            # (the member's OWN block structure — re-blocking a lone
+            # map_blocks request could change a cross-row program's
+            # results), counted as the coalesce_miss evidence
+            observability.note_coalesce_solo()
+            with self._lock:
+                self._batch_hist[1] = self._batch_hist.get(1, 0) + 1
+            self._run_solo_for(alive[0], verb, trim, program)
+            return
+        total = sum(m.rows for m in alive)
+        n_lanes = (
+            len(device_pool.pool_devices()) if device_pool.enabled() else 1
+        )
+        nb = bucketing.coalesced_blocks(total, n_lanes)
+        block_sizes = [
+            total // nb + (1 if i < total % nb else 0) for i in range(nb)
+        ]
+        if not self._prove_coalesce(
+            verb, program, ent, alive, block_sizes
+        ):
+            # structurally cross-row map_blocks: solo semantics for each
+            # member, executed sequentially on the leader thread with
+            # exact per-member attribution
+            for m in alive:
+                self._run_solo_for(m, verb, trim, program)
+            return
+        try:
+            self._dispatch_coalesced(
+                verb, trim, program, alive, total, nb
+            )
+        except BaseException as e:  # noqa: BLE001 — every member gets it
+            for m in alive:
+                if m.error is None and m.result is None:
+                    m.error = e
+
+    # -- execution -----------------------------------------------------------
+
+    def _executor(self):
+        return engine_mod._resolve(self.engine)
+
+    def _execute(self, program, verb, trim, frame) -> TensorFrame:
+        """One solo dispatch through the ordinary engine path (shared by
+        the ineligible/solo branch and the proof-failed fallback).
+
+        With ``TFS_PLAN`` live on the server, the dispatch
+        routes through the planner instead — concurrent requests on the
+        SAME registered frame with the same warm-pool Program then
+        rendezvous in the cross-plan CSE registry and execute the
+        subplan exactly once, each absorbing its exact ledger share
+        (``plan_cse_hits``); coalescing still owns the different-rows
+        case, CSE owns the identical-subplan case."""
+        if self.engine is None:
+            from ..ops import planner
+
+            if planner.planning_enabled() and isinstance(
+                frame, TensorFrame
+            ):
+                node = planner.root_for(frame)._append(
+                    "map_rows" if verb == "map_rows" else "map_blocks",
+                    program,
+                    trim=trim,
+                )
+                return node._materialize(count_use=False)
+        ex = self._executor()
+        if verb == "map_rows":
+            return ex.map_rows(program, frame)
+        return ex.map_blocks(program, frame, trim=trim)
+
+    def _run_solo_for(self, m: _Member, verb, trim, program) -> None:
+        """Execute one member with solo semantics on the leader thread,
+        attributing the delta to the member's OWN ledger (the leader's
+        thread context carries the leader's ledger, not the member's)."""
+        try:
+            shares, blocks, rows, out = self._metered(
+                lambda: self._execute(program, verb, trim, m.frame)
+            )
+            if m.ledger is not None:
+                m.ledger.absorb(shares, blocks, rows)
+            with m.reg_lock:
+                if not m.abandoned:
+                    fid = m.sess.register(out)
+                    m.result = {
+                        "frame_id": fid,
+                        "schema": m.sess._schema(out),
+                    }
+        except BaseException as e:  # noqa: BLE001
+            m.error = e
+
+    def _metered(self, fn):
+        """Run ``fn`` under a private root ledger (the leader's own
+        request context suspended), returning the exact counters /
+        blocks-per-device / rows delta plus the result."""
+        tok0 = observability.activate_request(None)
+        led = observability.RequestLedger(method="bridge:coalesce")
+        tok1 = observability.activate_request(led)
+        try:
+            out = fn()
+        finally:
+            observability.deactivate_request(tok1)
+            observability.deactivate_request(tok0)
+        return dict(led.counters), dict(led.blocks_per_device), led.rows, out
+
+    def _dispatch_coalesced(
+        self, verb, trim, program, alive: List[_Member], total: int, nb: int
+    ) -> None:
+        names = [c.name for c in alive[0].frame.schema]
+        combined = {
+            n: np.concatenate(
+                [np.asarray(m.frame.column(n).data) for m in alive]
+            )
+            if len(alive) > 1
+            else np.asarray(alive[0].frame.column(n).data)
+            for n in names
+        }
+        cframe = TensorFrame.from_arrays(combined, num_blocks=nb)
+        # the batch scope: the most patient member's deadline (None when
+        # any member has none).  Registered with the server so graceful
+        # drain cancels in-flight batches cooperatively.
+        deadline_s: Optional[float] = 0.0
+        for m in alive:
+            r = (
+                m.scope.time_remaining() if m.scope is not None else None
+            )
+            if r is None:
+                deadline_s = None
+                break
+            deadline_s = max(deadline_s, r)
+        scope = cancellation.CancelScope(
+            deadline_s=deadline_s, label="bridge:coalesce"
+        )
+        self._register_scope(scope)
+        t_tr = observability.trace_now()
+        try:
+            with cancellation.activate(scope):
+                counters, blocks, rows, out = self._metered(
+                    lambda: self._execute(program, verb, trim, cframe)
+                )
+        finally:
+            self._unregister_scope(scope)
+        # one trace record for the shared dispatch, carrying every
+        # participating correlation id
+        cids = [m.cid for m in alive if m.cid]
+        observability.trace_complete(
+            f"coalesced {verb}",
+            "bridge/coalescer",
+            t_tr,
+            cids=",".join(cids),
+            requests=len(alive),
+            rows=total,
+            blocks=nb,
+        )
+        observability.note_coalesced_batch(len(alive), total)
+        with self._lock:
+            k = len(alive)
+            self._batch_hist[k] = self._batch_hist.get(k, 0) + 1
+            if k > 1:
+                self._rows_batched += total
+        # split outputs per member and bill each its exact row share
+        self._distribute(alive, out, counters, blocks, rows, total)
+
+    def _distribute(
+        self, alive, out: TensorFrame, counters, blocks, rows, total
+    ) -> None:
+        # output columns stay where the verb left them (card tensors or
+        # host arrays): each member's rows are a slice, as a solo run's
+        # outputs would be whole
+        out_cols = {c.info.name: c.data for c in out.columns}
+        weights = [m.rows for m in alive]
+        shares_by_key = {
+            k: _apportion(v, weights) for k, v in counters.items() if v
+        }
+        block_shares = {
+            d: _apportion(v, weights) for d, v in blocks.items() if v
+        }
+        row_shares = _apportion(rows, weights)
+        offset = 0
+        n_members = len(alive)
+        for i, m in enumerate(alive):
+            try:
+                sub = {
+                    n: a[offset : offset + m.rows]
+                    for n, a in out_cols.items()
+                }
+                rf = TensorFrame.from_arrays(
+                    sub, num_blocks=min(m.frame.num_blocks, m.rows)
+                )
+                if m.ledger is not None:
+                    m.ledger.absorb(
+                        {k: s[i] for k, s in shares_by_key.items()},
+                        {d: s[i] for d, s in block_shares.items()},
+                        row_shares[i],
+                    )
+                with m.reg_lock:
+                    if not m.abandoned:
+                        fid = m.sess.register(rf)
+                        m.result = {
+                            "frame_id": fid,
+                            "schema": m.sess._schema(rf),
+                            "coalesced": {
+                                "requests": n_members,
+                                "rows": total,
+                                "row_share": m.rows,
+                            },
+                        }
+            except BaseException as e:  # noqa: BLE001 — per-member
+                m.error = e
+            offset += m.rows
+
+
+# ---------------------------------------------------------------------------
+# SLO-aware admission policy
+# ---------------------------------------------------------------------------
+
+
+class SloScheduler:
+    """Per-tenant fair-share row budgets + latency-aware proactive
+    shedding, consulted BEFORE the admission gate.
+
+    Returns a shed *decision* (dict) rather than raising — the server
+    owns the ``ServerBusy`` wire error, and this module must not import
+    the server (the server imports it)."""
+
+    def __init__(
+        self,
+        fair_rows: Optional[int] = None,
+        window_s: Optional[float] = None,
+        slo_ms: Optional[float] = None,
+    ):
+        self.fair_rows = (
+            _env_int(ENV_FAIR_ROWS, 0)
+            if fair_rows is None
+            else max(0, int(fair_rows))
+        )
+        self.window_s = (
+            _env_float(ENV_FAIR_WINDOW_S, DEFAULT_FAIR_WINDOW_S, floor=0.1)
+            if window_s is None
+            else max(0.1, float(window_s))
+        )
+        self.slo_ms = (
+            _env_float(ENV_SLO_MS, 0.0)
+            if slo_ms is None
+            else max(0.0, float(slo_ms))
+        )
+        self._lock = threading.Lock()
+        self._usage: Dict[str, "collections.deque"] = {}
+        # tenant -> last check() arrival: makes a tenant whose first
+        # request is still queued (nothing billed yet) visible to the
+        # fairness trigger
+        self._arrivals: Dict[str, float] = {}
+        self._snapshot: Tuple[float, Optional[float]] = (0.0, None)
+
+    def enabled(self) -> bool:
+        return self.fair_rows > 0 or self.slo_ms > 0
+
+    # -- recording -----------------------------------------------------------
+
+    def note(self, tenant: Optional[str], rows: int) -> None:
+        """Record ``rows`` served for ``tenant`` (called after a gated
+        verb executes)."""
+        if not self.enabled() or rows <= 0:
+            return
+        t = tenant or "default"
+        now = time.monotonic()
+        with self._lock:
+            dq = self._usage.setdefault(t, collections.deque())
+            dq.append((now, int(rows)))
+            self._prune_locked(now)
+
+    def _prune_locked(self, now: float) -> None:
+        horizon = now - self.window_s
+        for t in list(self._usage):
+            dq = self._usage[t]
+            while dq and dq[0][0] < horizon:
+                dq.popleft()
+            if not dq:
+                del self._usage[t]
+
+    def _rows_by_tenant(self) -> Dict[str, int]:
+        now = time.monotonic()
+        with self._lock:
+            self._prune_locked(now)
+            return {
+                t: sum(r for _, r in dq) for t, dq in self._usage.items()
+            }
+
+    def _bridge_p99_s(self) -> Optional[float]:
+        """Worst gated-method p99 from the always-on bridge histograms,
+        re-read at most every ``_SLO_SNAPSHOT_TTL_S``."""
+        now = time.monotonic()
+        with self._lock:
+            t, v = self._snapshot
+            if now - t < _SLO_SNAPSHOT_TTL_S:
+                return v
+        worst: Optional[float] = None
+        for key, s in observability.latency_snapshot().items():
+            if not key.startswith("bridge:"):
+                continue
+            if s.get("count", 0) < 8:
+                continue
+            p99 = s.get("p99_s")
+            if p99 and (worst is None or p99 > worst):
+                worst = p99
+        with self._lock:
+            self._snapshot = (now, worst)
+        return worst
+
+    # -- policy --------------------------------------------------------------
+
+    def check(
+        self,
+        tenant: Optional[str],
+        rows_hint: int = 0,
+        contention: bool = False,
+    ) -> Optional[Dict[str, Any]]:
+        """Shed decision for one arriving gated request, or None to
+        admit.  Fairness only bites when ANOTHER tenant shared the
+        window (billed rows, or a request that arrived but has not
+        executed yet) — a lone over-budget tenant is just using the
+        machine, even when its own requests back up the admission gate.
+        ``contention`` is the gate's view (queue non-empty or inflight
+        at the bound); it never sheds by itself, it only hardens the
+        retry hint."""
+        if not self.enabled():
+            return None
+        t = tenant or "default"
+        now = time.monotonic()
+        with self._lock:
+            self._arrivals[t] = now
+            horizon = now - self.window_s
+            for k in [
+                k for k, ts in self._arrivals.items() if ts < horizon
+            ]:
+                del self._arrivals[k]
+            others_arrived = any(k != t for k in self._arrivals)
+        usage = self._rows_by_tenant()
+        mine = usage.get(t, 0)
+        others = [v for k, v in usage.items() if k != t]
+        over_budget = self.fair_rows > 0 and mine > self.fair_rows
+        if over_budget and (bool(others) or others_arrived):
+            observability.note_fair_share_shed()
+            return {
+                "reason": "fair_share",
+                "tenant": t,
+                "rows_used": mine,
+                "fair_rows": self.fair_rows,
+                "window_s": self.window_s,
+                # back off proportionally to the overshoot (harder when
+                # the gate is also backed up): the hint drains the
+                # window instead of hammering it
+                "retry_after_ms": int(
+                    min(
+                        1000.0 * self.window_s,
+                        50.0
+                        * max(1.0, mine / self.fair_rows)
+                        * (2.0 if contention else 1.0),
+                    )
+                ),
+            }
+        if self.slo_ms > 0:
+            p99 = self._bridge_p99_s()
+            if (
+                p99 is not None
+                and p99 * 1000.0 >= SLO_PRESSURE_FRACTION * self.slo_ms
+                and others
+                and mine >= max(others)
+            ):
+                # tail pressure: the dominant row consumer yields first,
+                # BEFORE the p99 breaches the target
+                observability.note_slo_shed()
+                return {
+                    "reason": "slo_pressure",
+                    "tenant": t,
+                    "p99_ms": round(p99 * 1000.0, 3),
+                    "slo_ms": self.slo_ms,
+                    "rows_used": mine,
+                    "retry_after_ms": int(max(25.0, self.slo_ms)),
+                }
+        return None
+
+    def snapshot(self) -> Dict[str, Any]:
+        p99_s = self._bridge_p99_s()
+        return {
+            "enabled": self.enabled(),
+            "fair_rows": self.fair_rows,
+            "window_s": self.window_s,
+            "slo_ms": self.slo_ms,
+            "rows_by_tenant": self._rows_by_tenant(),
+            # the worst gated-method p99 (None until 8+
+            # samples) — surfaced through ``health`` so the fleet
+            # router's latency-SLO signal needs no metrics scrape
+            "p99_ms": (
+                round(p99_s * 1000.0, 3) if p99_s is not None else None
+            ),
+        }
+
+
+# ---------------------------------------------------------------------------
+# continuous decode batching
+# ---------------------------------------------------------------------------
+
+
+class ContinuousBatcher:
+    """Continuous batching for autoregressive decode: requests JOIN the
+    running batch at step boundaries and RETIRE the moment their own
+    stream finishes — a short request never waits out a long neighbor.
+
+    ``row_step(state, token) -> (state, token)`` is the per-row decode
+    step over a pytree ``state`` of tensors (e.g. a KV cache slice + a
+    position) and a 0-d token tensor; the batcher runs it as
+    ``torch.func.vmap(row_step)`` over the slot axis at ``max_batch``,
+    so per-row results are independent by construction — the same
+    guarantee that makes ``map_rows`` bucket padding bit-identical.  Free
+    slots step garbage that no one reads.  The stacked state lives on
+    the device of the first row's tensors.
+
+    ``submit`` blocks until the request's stream completes and returns
+    the emitted tokens; it is thread-safe (one server handler thread
+    per request parks here while the driver thread steps the batch).
+    """
+
+    def __init__(self, row_step, max_batch: int = 8):
+        self.max_batch = max(1, int(max_batch))
+        self._step = torch.func.vmap(row_step)
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._pending: "collections.deque" = collections.deque()
+        self._active: Dict[int, "_DecodeSlot"] = {}
+        self._free = list(range(self.max_batch))
+        self._states = None  # stacked pytree, built from the first row
+        self._tokens = None  # tensor [max_batch]
+        self._driver: Optional[threading.Thread] = None
+        self._closed = False
+        self.steps = 0  # batch steps executed (telemetry/tests)
+        self.joined_mid_run = 0  # requests admitted while others ran
+
+    # -- public --------------------------------------------------------------
+
+    def submit(
+        self,
+        state,
+        first_token,
+        max_new: int,
+        until: Optional[Callable[[Any], bool]] = None,
+        timeout_s: Optional[float] = None,
+    ) -> List[Any]:
+        """Decode up to ``max_new`` tokens from ``(state, first_token)``,
+        stopping early when ``until(token)`` is true.  Returns the
+        emitted tokens (the stop token included)."""
+        slot_req = _DecodeSlot(state, first_token, max_new, until)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("ContinuousBatcher is closed")
+            self._pending.append(slot_req)
+            self._ensure_driver()
+            self._cv.notify_all()
+        if not slot_req.done.wait(timeout=timeout_s):
+            with self._cv:
+                slot_req.abandoned = True
+            raise TimeoutError(
+                f"decode request did not finish within {timeout_s}s"
+            )
+        if slot_req.error is not None:
+            raise slot_req.error
+        return slot_req.out
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._driver is not None:
+            self._driver.join(timeout=5.0)
+
+    # -- driver --------------------------------------------------------------
+
+    def _ensure_driver(self) -> None:
+        if self._driver is None or not self._driver.is_alive():
+            self._driver = threading.Thread(
+                target=self._drive, name="tfs-decode-batcher", daemon=True
+            )
+            self._driver.start()
+
+    def _drive(self) -> None:
+        try:
+            while True:
+                with self._cv:
+                    while (
+                        not self._closed
+                        and not self._pending
+                        and not self._active
+                    ):
+                        self._cv.wait()
+                    if self._closed and not self._active:
+                        # clean shutdown: requests still queued (never
+                        # admitted to a slot) must not block their
+                        # submit() callers forever
+                        err = RuntimeError(
+                            "ContinuousBatcher closed before this "
+                            "request was admitted"
+                        )
+                        for req in self._pending:
+                            req.error = err
+                            req.done.set()
+                        self._pending.clear()
+                        return
+                    was_running = bool(self._active)
+                    # step boundary: admit pending requests into free slots
+                    while self._pending and self._free:
+                        req = self._pending.popleft()
+                        if req.abandoned:
+                            continue
+                        slot = self._free.pop()
+                        self._admit(slot, req)
+                        if was_running:
+                            self.joined_mid_run += 1
+                    active = dict(self._active)
+                if not active:
+                    continue
+                with torch.no_grad():
+                    states, toks = self._step(self._states, self._tokens)
+                self._states, self._tokens = states, toks
+                self.steps += 1
+                emitted = toks.cpu()
+                with self._cv:
+                    for slot, req in list(self._active.items()):
+                        tok = emitted[slot]
+                        req.out.append(tok)
+                        req.emitted += 1
+                        stop = req.emitted >= req.max_new or (
+                            req.until is not None and bool(req.until(tok))
+                        )
+                        if stop or req.abandoned:
+                            del self._active[slot]
+                            self._free.append(slot)
+                            req.done.set()
+        except BaseException as e:  # noqa: BLE001 — fail every waiter
+            with self._cv:
+                for req in list(self._active.values()):
+                    req.error = e
+                    req.done.set()
+                for req in self._pending:
+                    req.error = e
+                    req.done.set()
+                self._active.clear()
+                self._pending.clear()
+                self._free = list(range(self.max_batch))
+
+    def _admit(self, slot: int, req: "_DecodeSlot") -> None:
+        if self._states is None:
+            # stack template from the first row: zeros at [max_batch,...]
+            self._states = pytree.tree_map(
+                lambda a: torch.zeros(
+                    (self.max_batch,) + tuple(torch.as_tensor(a).shape),
+                    dtype=torch.as_tensor(a).dtype,
+                    device=torch.as_tensor(a).device,
+                ),
+                req.state,
+            )
+            t0 = torch.as_tensor(req.first_token)
+            self._tokens = torch.zeros(
+                (self.max_batch,), dtype=t0.dtype, device=t0.device
+            )
+
+        def put(stack, row):
+            stack[slot] = torch.as_tensor(row, device=stack.device)
+            return stack
+
+        self._states = pytree.tree_map(put, self._states, req.state)
+        self._tokens[slot] = torch.as_tensor(req.first_token)
+        self._active[slot] = req
+
+
+class _DecodeSlot:
+    __slots__ = (
+        "state",
+        "first_token",
+        "max_new",
+        "until",
+        "out",
+        "emitted",
+        "done",
+        "error",
+        "abandoned",
+    )
+
+    def __init__(self, state, first_token, max_new, until):
+        self.state = state
+        self.first_token = first_token
+        self.max_new = max(1, int(max_new))
+        self.until = until
+        self.out: List[Any] = []
+        self.emitted = 0
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.abandoned = False
+
+
+# ---------------------------------------------------------------------------
+# paged continuous decode
+# ---------------------------------------------------------------------------
+
+ENV_DECODE_MAX_SLOTS = "TFS_DECODE_MAX_SLOTS"
+DEFAULT_DECODE_MAX_SLOTS = 8
+# bounded retry against injected/real transient dispatch failures at a
+# step boundary.  The pages are written in place (``index_put_``), but a
+# retried step writes the same slots with the same values (its inputs —
+# tokens, tables, frontiers — are host state the step does not touch),
+# so the retry recomputes the identical step
+_DECODE_STEP_ATTEMPTS = 3
+
+# live schedulers, weakly held: tfs.doctor() reads the first open one's
+# snapshot without the caller having to thread it through
+_LIVE_DECODE: "weakref.WeakSet[DecodeScheduler]" = weakref.WeakSet()
+
+
+def decode_doctor_snapshot() -> Optional[Dict[str, Any]]:
+    """Snapshot of the live :class:`DecodeScheduler`, if one exists —
+    the evidence feed for doctor's ``kv_fragmentation`` /
+    ``decode_slot_starvation`` rules (injectable there as
+    ``decode=``)."""
+    for sched in list(_LIVE_DECODE):
+        if not sched._closed:
+            return sched.snapshot()
+    return None
+
+
+class DecodeRefused(RuntimeError):
+    """Typed decode admission refusal: the page pool (``reason:
+    'pages'``) or the slot/backlog bound (``reason: 'slots'``) cannot
+    take the sequence now.  Carries ``retry_after_ms`` — the serving
+    layer maps this to ``server_busy`` so clients back off instead of
+    the scheduler OOMing mid-step."""
+
+    def __init__(self, reason: str, retry_after_ms: int, detail: str = ""):
+        self.reason = reason
+        self.retry_after_ms = int(retry_after_ms)
+        super().__init__(
+            f"decode admission refused ({reason}): "
+            f"{detail or 'resources exhausted'}; "
+            f"retry after {self.retry_after_ms}ms"
+        )
+
+
+class _PagedSeq:
+    """One admitted sequence: its prompt, page reservation and stream
+    bookkeeping.  ``charge`` is the pool's pinned-budget handle — the
+    slot holds it (the budget LRU only holds a weakref) until the pages
+    are freed at retirement."""
+
+    __slots__ = (
+        "prompt", "max_new", "until", "tenant", "scope", "charge",
+        "table_row", "out", "emitted", "done", "error", "abandoned",
+    )
+
+    def __init__(self, prompt, max_new, until, tenant, scope, charge):
+        self.prompt = prompt  # np.int32 [Lp]
+        self.max_new = max(1, int(max_new))
+        self.until = until
+        self.tenant = tenant
+        self.scope = scope  # cancellation.CancelScope | None
+        self.charge = charge  # kv_pager._SeqPages
+        self.table_row = None  # np.int32 [max_pages], set at admission
+        self.out: List[int] = []
+        self.emitted = 0
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.abandoned = False
+
+
+class DecodeScheduler:
+    """Continuous decode over the PAGED KV cache: the serving form of
+    ``models/kv_pager.py``, on the device of ``params`` (the pool, the
+    pages and every step live there).
+
+    The ContinuousBatcher above batches opaque per-row step functions;
+    this scheduler owns the transformer serving path end to end — each
+    of its ``TFS_DECODE_MAX_SLOTS`` slots holds a page table into the
+    shared :class:`~..models.kv_pager.PagePool`, and the driver thread
+    alternates two fixed-shape dispatches:
+
+    * **prefill lane** (disaggregated): sequences admitted at a step
+      boundary prefill together as one bucket-padded batch
+      (``ops/bucketing`` ladder — the same geometric ladder every verb
+      uses, so the shapes stay bounded), writing their prompts' KV
+      straight into their reserved pages;
+    * **decode lane**: one ``[max_slots]``-shaped greedy step for the
+      whole population; slots join at step boundaries and retire the
+      moment their stream finishes (``max_new`` reached, ``until`` hit,
+      deadline expired, or caller abandoned), returning their pages to
+      the pool immediately — early retirement is what lets short
+      requests subsidise long ones under a fixed page budget.
+
+    Admission is synchronous and typed: ``submit`` reserves the FULL
+    page span (``ceil((Lp + max_new) / P)``) up front, so a sequence
+    that starts decoding can always finish — pool exhaustion surfaces
+    as :class:`DecodeRefused` with ``retry_after_ms`` at admission,
+    never as an OOM three steps into a stream.  Deadlines and cancels
+    (the request's :mod:`cancellation` scope, captured at submit) are
+    honoured at step boundaries, where retirement frees pages without
+    perturbing neighbors: per-row tokens equal solo ``decode.generate`` at
+    the scheduler's capacity (masked slots carry exact-zero weight and
+    the attention reduction extent matches by construction; on the card
+    a GEMM may pick another kernel for another row count, so a near-tie
+    argmax can differ there).
+
+    ``speculative`` runs the draft/verify path (B=1 by its contract)
+    solo in the caller's thread — an opt-in per-request latency knob,
+    verified bit-exactly by the target model inside
+    ``decode.speculative_generate`` itself.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg,
+        *,
+        max_slots: Optional[int] = None,
+        tokens_per_page: Optional[int] = None,
+        max_seq: Optional[int] = None,
+        pool_pages: Optional[int] = None,
+        draft_params=None,
+        draft_cfg=None,
+    ):
+        from ..models import decode as decode_mod
+        from ..models import kv_pager
+
+        self._kv = kv_pager
+        self._decode = decode_mod
+        self.cfg = cfg
+        self._raw_params = params  # speculative casts per-model itself
+        self._params = decode_mod.cast_params(params, cfg.dtype)
+        self.device = decode_mod._params_device(params)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.max_slots = max(
+            1,
+            int(max_slots)
+            if max_slots is not None
+            else _env_int(ENV_DECODE_MAX_SLOTS, DEFAULT_DECODE_MAX_SLOTS),
+        )
+        P = (
+            int(tokens_per_page)
+            if tokens_per_page is not None
+            else kv_pager.page_tokens()
+        )
+        cap = int(max_seq) if max_seq is not None else int(cfg.max_seq)
+        # capacity rounds UP to a whole page: the gathered attention
+        # extent is max_pages * P, and bit-identity vs the contiguous
+        # path is pinned at exactly this capacity (``cache_len=cap``)
+        self.max_pages = kv_pager.pages_for(cap, P)
+        self.cap = self.max_pages * P
+        n_pages = (
+            int(pool_pages)
+            if pool_pages is not None
+            else self.max_slots * self.max_pages + 1
+        )
+        self.pool = kv_pager.PagePool(
+            cfg, n_pages, tokens_per_page=P, device=self.device
+        )
+        self._kp = self.pool.k_pages
+        self._vp = self.pool.v_pages
+        self._tables = np.zeros(
+            (self.max_slots, self.max_pages), np.int32
+        )
+        self._indices = np.zeros((self.max_slots,), np.int32)
+        self._toks = np.zeros((self.max_slots,), np.int32)
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._pending: "collections.deque[_PagedSeq]" = collections.deque()
+        self._active: Dict[int, _PagedSeq] = {}
+        self._free = list(range(self.max_slots))
+        self._driver: Optional[threading.Thread] = None
+        self._closed = False
+        # telemetry (guarded by _lock where racy)
+        self.steps = 0
+        self.joined_mid_run = 0
+        self.retired = 0
+        self.total_tokens = 0
+        self.prefill_batches = 0
+        self.refusals = {"pages": 0, "slots": 0}
+        # refusals issued while at least one slot sat idle: the bound
+        # (pool size / backlog cap), not compute, was the limit — the
+        # decode_slot_starvation doctor rule's evidence
+        self.refused_while_idle = 0
+        _LIVE_DECODE.add(self)
+
+    # -- public --------------------------------------------------------------
+
+    def submit(
+        self,
+        prompt,
+        max_new: int,
+        until: Optional[Callable[[int], bool]] = None,
+        tenant: Optional[str] = None,
+        timeout_s: Optional[float] = None,
+    ) -> List[int]:
+        """Stream up to ``max_new`` greedy tokens continuing ``prompt``
+        (1-D int array).  Joins the running batch at the next step
+        boundary; blocks until the stream retires and returns the
+        emitted tokens.  Raises :class:`DecodeRefused` when the page
+        pool or the slot backlog cannot take the sequence."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("decode needs a non-empty prompt")
+        max_new = max(1, int(max_new))
+        total = int(prompt.size) + max_new
+        if total > self.cap:
+            raise ValueError(
+                f"prompt {prompt.size} + max_new {max_new} exceeds the "
+                f"scheduler capacity {self.cap} tokens"
+            )
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("DecodeScheduler is closed")
+            # bounded backlog: refusing here (with a hint) beats an
+            # unbounded queue whose tail waits out every stream ahead
+            if len(self._pending) + len(self._active) >= 2 * self.max_slots:
+                self.refusals["slots"] += 1
+                if len(self._active) < self.max_slots:
+                    self.refused_while_idle += 1
+                raise DecodeRefused(
+                    "slots",
+                    retry_after_ms=100 * max(1, len(self._pending)),
+                    detail=(
+                        f"{len(self._active)} active + "
+                        f"{len(self._pending)} pending vs "
+                        f"{self.max_slots} slots"
+                    ),
+                )
+        # reserve the FULL span up front — outside the scheduler lock
+        # (the pool has its own) so a slow budget walk never stalls the
+        # step loop
+        try:
+            charge, pages = self.pool.allocate(
+                self._kv.pages_for(total, self.pool.tokens_per_page),
+                tenant=tenant,
+            )
+        except self._kv.PagesExhausted as e:
+            with self._cv:
+                self.refusals["pages"] += 1
+                if len(self._active) < self.max_slots:
+                    self.refused_while_idle += 1
+            raise DecodeRefused(
+                "pages", e.retry_after_ms, detail=str(e)
+            ) from e
+        req = _PagedSeq(
+            prompt, max_new, until, tenant,
+            cancellation.current_scope(), charge,
+        )
+        row = np.zeros((self.max_pages,), np.int32)
+        row[: len(pages)] = pages
+        req.table_row = row
+        with self._cv:
+            if self._closed:
+                self.pool.free(charge)
+                raise RuntimeError("DecodeScheduler is closed")
+            self._pending.append(req)
+            self._ensure_driver()
+            self._cv.notify_all()
+        if not req.done.wait(timeout=timeout_s):
+            with self._cv:
+                req.abandoned = True
+                self._cv.notify_all()
+            raise TimeoutError(
+                f"decode request did not finish within {timeout_s}s"
+            )
+        if req.error is not None:
+            raise req.error
+        return req.out
+
+    def speculative(
+        self,
+        prompt,
+        max_new: int,
+        gamma: int = 4,
+        tenant: Optional[str] = None,
+    ) -> List[int]:
+        """Opt-in per-request speculative decoding: the draft model
+        proposes, the target verifies bit-exactly
+        (``decode.speculative_generate``).  Runs solo in the caller's
+        thread — B=1 by the draft/verify contract — so it never blocks
+        the batch; greedy output equals the batched path's."""
+        if self.draft_params is None or self.draft_cfg is None:
+            raise ValueError(
+                "speculative decode needs a draft model "
+                "(DecodeScheduler(draft_params=..., draft_cfg=...))"
+            )
+        prompt = np.asarray(prompt, np.int32).reshape(1, -1)
+        out = self._decode.speculative_generate(
+            self.draft_params, self.draft_cfg,
+            self._raw_params, self.cfg,
+            torch.as_tensor(prompt, device=self.device), int(max_new),
+            gamma=int(gamma),
+        )
+        toks = [int(t) for t in out[0, prompt.shape[1]:].cpu().tolist()]
+        with self._cv:
+            self.total_tokens += len(toks)
+        observability.note_decode_tokens(len(toks))
+        return toks
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._driver is not None:
+            self._driver.join(timeout=5.0)
+
+    # -- telemetry -----------------------------------------------------------
+
+    def gauges(self) -> Dict[str, float]:
+        """The ``tfs_kv_pages`` gauge family (grouped provider)."""
+        stats = self.pool.stats()
+        with self._lock:
+            active, pending = len(self._active), len(self._pending)
+        return {
+            "tfs_kv_pages_free": float(stats["pages_free"]),
+            "tfs_kv_pages_used": float(stats["pages_used"]),
+            "tfs_kv_pages_capacity": float(stats["pages_total"]),
+            "tfs_decode_slots_active": float(active),
+            "tfs_decode_slots_free": float(self.max_slots - active),
+            "tfs_decode_pending": float(pending),
+        }
+
+    def snapshot(self) -> Dict[str, Any]:
+        stats = self.pool.stats()
+        with self._lock:
+            return {
+                "max_slots": self.max_slots,
+                "cap_tokens": self.cap,
+                "page_tokens": self.pool.tokens_per_page,
+                "active": len(self._active),
+                "pending": len(self._pending),
+                "steps": self.steps,
+                "retired": self.retired,
+                "joined_mid_run": self.joined_mid_run,
+                "total_tokens": self.total_tokens,
+                "prefill_batches": self.prefill_batches,
+                "refused_pages": self.refusals["pages"],
+                "refused_slots": self.refusals["slots"],
+                "refused_while_idle": self.refused_while_idle,
+                "pages_free": stats["pages_free"],
+                "pages_used": stats["pages_used"],
+                "pages_capacity": stats["pages_total"],
+                "pages_allocated_total": stats["allocated_total"],
+                "pages_freed_total": stats["freed_total"],
+            }
+
+    # -- driver --------------------------------------------------------------
+
+    def _ensure_driver(self) -> None:
+        if self._driver is None or not self._driver.is_alive():
+            self._driver = threading.Thread(
+                target=self._drive, name="tfs-paged-decode", daemon=True
+            )
+            self._driver.start()
+
+    def _retire_locked(self, slot: int, req: _PagedSeq) -> None:
+        """Free a slot at a step boundary: pages back to the pool, the
+        table row back to all-trash (so the slot's idle writes land on
+        page 0), the waiter released.  Holding the lock is fine — the
+        pool lock nests under no other."""
+        del self._active[slot]
+        self._free.append(slot)
+        self._tables[slot] = 0
+        self._indices[slot] = 0
+        self._toks[slot] = 0
+        self.retired += 1
+        self.pool.free(req.charge)
+        req.done.set()
+
+    def _dispatch(self, fn, *args):
+        """One step dispatch with chaos injection + bounded retry:
+        ``faults.maybe_inject`` fires configured transients at the step
+        boundary (site='dispatch', so attempt selectors work); a retry
+        rewrites the same page slots with the same values, so it
+        recomputes the identical step."""
+        from .. import faults
+
+        attempt = 0
+        while True:
+            try:
+                faults.maybe_inject(self.steps, attempt, site="dispatch")
+                return fn(*args)
+            except faults.InjectedTransient:
+                attempt += 1
+                if attempt >= _DECODE_STEP_ATTEMPTS:
+                    raise
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _drive(self) -> None:
+        kv = self._kv
+        try:
+            while True:
+                with self._cv:
+                    while (
+                        not self._closed
+                        and not self._pending
+                        and not self._active
+                    ):
+                        self._cv.wait()
+                    if self._closed and not self._active:
+                        err = RuntimeError(
+                            "DecodeScheduler closed before this "
+                            "request was admitted"
+                        )
+                        for req in self._pending:
+                            self.pool.free(req.charge)
+                            req.error = err
+                            req.done.set()
+                        self._pending.clear()
+                        return
+                    # step boundary: deadline/cancel checks retire
+                    # expired rows and free their pages BEFORE admission
+                    # (their slots are immediately reusable)
+                    for slot, req in list(self._active.items()):
+                        if req.abandoned:
+                            self._retire_locked(slot, req)
+                            continue
+                        if req.scope is not None:
+                            try:
+                                req.scope.check()
+                            except cancellation.Cancelled as e:
+                                req.error = e
+                                self._retire_locked(slot, req)
+                                observability.note_bridge_deadline_exceeded()
+                    was_running = bool(self._active)
+                    admitted: List[Tuple[int, _PagedSeq]] = []
+                    while self._pending and self._free:
+                        req = self._pending.popleft()
+                        if req.abandoned:
+                            self.pool.free(req.charge)
+                            req.done.set()
+                            continue
+                        slot = self._free.pop()
+                        self._tables[slot] = req.table_row
+                        self._indices[slot] = 0
+                        self._active[slot] = req
+                        admitted.append((slot, req))
+                        if was_running:
+                            self.joined_mid_run += 1
+                    active = bool(self._active)
+                if not active:
+                    continue
+                if admitted:
+                    self._prefill(admitted)
+                    # prefill may retire 1-token streams at once; the
+                    # boundary loop re-checks before the next step
+                    with self._cv:
+                        for slot, req in admitted:
+                            if slot in self._active and (
+                                req.emitted >= req.max_new
+                                or (
+                                    req.until is not None
+                                    and req.out
+                                    and bool(req.until(req.out[-1]))
+                                )
+                            ):
+                                self._retire_locked(slot, req)
+                        if not self._active:
+                            continue
+                # decode lane: one fixed-shape step for the population
+                toks, self._kp, self._vp = self._dispatch(
+                    kv.paged_decode_step,
+                    self._params,
+                    self._dev(self._toks),
+                    self._dev(self._tables),
+                    self._dev(self._indices),
+                    self._kp,
+                    self._vp,
+                    self.cfg,
+                )
+                emitted = toks.cpu().numpy()
+                self.steps += 1
+                with self._cv:
+                    for slot, req in list(self._active.items()):
+                        self._indices[slot] += 1
+                        tok = int(emitted[slot])
+                        self._toks[slot] = tok
+                        req.out.append(tok)
+                        req.emitted += 1
+                        self.total_tokens += 1
+                        observability.note_decode_tokens(1)
+                        stop = req.emitted >= req.max_new or (
+                            req.until is not None and bool(req.until(tok))
+                        )
+                        if stop or req.abandoned:
+                            self._retire_locked(slot, req)
+                    # idle slots keep index 0 / token 0: their writes
+                    # land on the trash page via their all-zero tables
+        except BaseException as e:  # noqa: BLE001 — fail every waiter
+            with self._cv:
+                for req in list(self._active.values()):
+                    self.pool.free(req.charge)
+                    req.error = e
+                    req.done.set()
+                for req in self._pending:
+                    self.pool.free(req.charge)
+                    req.error = e
+                    req.done.set()
+                self._active.clear()
+                self._pending.clear()
+                self._free = list(range(self.max_slots))
+                self._tables[:] = 0
+                self._indices[:] = 0
+                self._toks[:] = 0
+
+    def _prefill(self, admitted) -> None:
+        """The disaggregated prefill lane: the boundary's newly admitted
+        sequences prefill as ONE bucket-padded batch through the
+        existing ladder.  Rows not being prefilled ride along with
+        all-trash tables (their live tables stay untouched — prefill
+        writes only through the batch's own table argument)."""
+        kv = self._kv
+        max_lp = max(int(r.prompt.size) for _, r in admitted)
+        lb = min(max(bucketing.bucket_for(max_lp), 1), self.cap)
+        lb = max(lb, max_lp)
+        toks = np.zeros((self.max_slots, lb), np.int32)
+        tables = np.zeros((self.max_slots, self.max_pages), np.int32)
+        last_pos = np.zeros((self.max_slots,), np.int32)
+        for slot, req in admitted:
+            lp = int(req.prompt.size)
+            toks[slot, :lp] = req.prompt
+            tables[slot] = req.table_row
+            last_pos[slot] = lp - 1
+        tok0, self._kp, self._vp = self._dispatch(
+            kv.paged_prefill,
+            self._params,
+            self._dev(toks),
+            self._dev(tables),
+            self._dev(last_pos),
+            self._kp,
+            self._vp,
+            self.cfg,
+        )
+        tok0 = tok0.cpu().numpy()
+        self.prefill_batches += 1
+        observability.note_decode_prefill_batch()
+        with self._cv:
+            for slot, req in admitted:
+                lp = int(req.prompt.size)
+                self._indices[slot] = lp
+                tok = int(tok0[slot])
+                self._toks[slot] = tok
+                req.out.append(tok)
+                req.emitted += 1
+                self.total_tokens += 1
+                observability.note_decode_tokens(1)

@@ -21,9 +21,10 @@ Every input is injectable (``counters=``, ``latency=``, ``ledger=``,
 over recorded snapshots; with no arguments the live process is read (the
 ``plans`` section from the planner's ``recent_plan_stats``, ``shuffles``
 from ``relational.recent_shuffle_stats``, ``artifacts`` from the janitor's
-``summary``).  The sections whose modules the port does not have yet (the
-bridge's fleet and decode scheduler: ROADMAP.md Queue 1 item 12) read
-empty inputs, and :func:`render` names them in one line.  Only the absence of such a module
+``summary``, ``decode`` from the live ``bridge.coalescer.DecodeScheduler``).
+The section whose module the port does not have yet (the bridge's fleet:
+ROADMAP.md Queue 1 item 12b) reads empty inputs, and :func:`render` names
+it in one line.  Only the absence of such a module
 is tolerated: any other failure to read a section raises.
 """
 
@@ -662,7 +663,7 @@ def _rule_fleet_imbalance(fleet) -> Optional[Dict[str, Any]]:
 
 # argument -> (module, function, the rules that read it) of each live
 # section, read lazily as the JAX package reads them; a module not in the
-# port yet (the bridge's, item 12) reads as empty
+# port yet (the fleet's, item 12b) reads as empty
 _SECTIONS = {
     "shuffles": ("relational", "recent_shuffle_stats", ("shuffle_skew",)),
     "plans": ("ops.planner", "recent_plan_stats", ("cse_miss",)),

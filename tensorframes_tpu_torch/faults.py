@@ -30,10 +30,22 @@ boundaries (:func:`maybe_kill_boundary`, called by
 
     TFS_FAULT_INJECT="proc_kill:window=2:phase=mid"
 
-The bridge kinds (``bridge_stall``, ``bridge_delay``, ``bridge_drop``,
-``replica_kill``) parse with the same grammar and selectors as in the JAX
-package, so one spec string means one thing in both packages, but nothing
-fires them until the bridge is ported (ROADMAP.md Queue 1 item 12).
+The bridge kinds fire in the bridge server's request path
+(``bridge/server.py``, through :func:`maybe_inject_bridge`), targeted by
+``method=NAME`` and ``call=N`` (the N-th call of that method in the
+session, 0-based) plus ``rate``/``seed``: ``bridge_stall:ms=`` sleeps
+inside the request's cancel scope before it executes (a wedged verb),
+``bridge_delay:ms=`` sleeps before the reply is written (a slow link),
+``bridge_drop`` executes the request and then severs the connection
+without replying (the dropped reply the client's idempotent retry is
+for), and ``replica_kill:ms=`` SIGKILLs the server process ``ms``
+milliseconds after the matched request starts (:func:`schedule_replica_kill`;
+``ms=0`` kills before it executes)::
+
+    TFS_FAULT_INJECT="bridge_drop:method=map_blocks:call=0"
+
+``hello``, ``health``, ``metrics``, ``attribution`` and ``end_session``
+dispatch before the hook and are never targeted.
 
 Selectors (all optional; a spec fires when every given selector matches):
 
@@ -139,6 +151,22 @@ class FaultSpec:
         return True
 
 
+    def matches_bridge(self, method: str, call: int) -> bool:
+        """Whether this (bridge-kind) spec fires for the ``call``-th call
+        of ``method`` in a bridge session; rate draws hash from ``(seed,
+        index, kind, method, call)``."""
+        if self.method is not None and self.method != method:
+            return False
+        if self.call is not None and self.call != call:
+            return False
+        if self.rate is not None:
+            draw = random.Random(
+                f"{self.seed}:{self.index}:{self.kind}:{method}:{call}"
+            ).random()
+            if draw >= self.rate:
+                return False
+        return True
+
     def matches_boundary(self, window: int, phase: str) -> bool:
         """Whether this (boundary-kind) spec fires at journal boundary
         ``window`` in crash cell ``phase``; an unset ``phase`` means
@@ -239,6 +267,11 @@ def active() -> bool:
     return any(s.kind in _ENGINE_KINDS for s in specs())
 
 
+def bridge_active() -> bool:
+    """Whether any bridge-level injection spec is live."""
+    return any(s.kind in _BRIDGE_KINDS for s in specs())
+
+
 def boundary_active() -> bool:
     """Whether any journal-boundary injection spec is live."""
     return any(s.kind in _BOUNDARY_KINDS for s in specs())
@@ -295,6 +328,74 @@ def maybe_inject(
                 f"UNAVAILABLE: injected transient fault ({where})"
             )
         raise InjectedOOM(f"RESOURCE_EXHAUSTED: injected out-of-memory ({where})")
+
+
+class BridgeFaultPlan:
+    """The bridge injections for one request: ``stall_ms`` (sleep before
+    execution, inside the request's cancel scope), ``delay_ms`` (sleep
+    before the reply), ``drop`` (sever the connection instead of
+    replying) and ``kill_after_ms`` (SIGKILL the server process that many
+    milliseconds after dispatch begins; ``None`` = no kill)."""
+
+    __slots__ = ("stall_ms", "delay_ms", "drop", "kill_after_ms")
+
+    def __init__(self):
+        self.stall_ms = 0.0
+        self.delay_ms = 0.0
+        self.drop = False
+        self.kill_after_ms: Optional[float] = None
+
+    def __bool__(self) -> bool:
+        return bool(
+            self.stall_ms or self.delay_ms or self.drop
+            or self.kill_after_ms is not None
+        )
+
+
+def maybe_inject_bridge(method: str, call: int) -> Optional[BridgeFaultPlan]:
+    """The bridge server's hook: the combined :class:`BridgeFaultPlan` for
+    the ``call``-th call of ``method`` in this session, or None.  A drop
+    counts in ``faults_injected`` where the server severs the connection,
+    not here, so a request refused before its reply never reads as a
+    fired fault; stalls and delays stay uncounted, as ``delay`` does."""
+    plan = specs()
+    if not plan:
+        return None
+    out = BridgeFaultPlan()
+    for spec in plan:
+        if spec.kind not in _BRIDGE_KINDS or not spec.matches_bridge(method, call):
+            continue
+        if spec.kind == "bridge_stall":
+            out.stall_ms += spec.ms
+        elif spec.kind == "bridge_delay":
+            out.delay_ms += spec.ms
+        elif spec.kind == "replica_kill":
+            out.kill_after_ms = spec.ms
+        else:
+            out.drop = True
+    return out if out else None
+
+
+def schedule_replica_kill(after_ms: float) -> None:
+    """Arm a ``replica_kill``: SIGKILL this process ``after_ms``
+    milliseconds from now from a daemon timer, so the matched request dies
+    mid-flight with no cleanup; ``after_ms <= 0`` kills at once."""
+    import os
+    import signal
+    import threading
+
+    def _die():
+        logger.warning(
+            "faults: replica_kill firing (%.0fms after dispatch)", after_ms
+        )
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    if after_ms <= 0:
+        _die()
+        return
+    t = threading.Timer(after_ms / 1000.0, _die)
+    t.daemon = True
+    t.start()
 
 
 _OOM_MARKERS = ("resource_exhausted", "resource exhausted", "out of memory")

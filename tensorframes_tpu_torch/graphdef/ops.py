@@ -96,7 +96,12 @@ def _t(x, device: Optional[torch.device] = None) -> torch.Tensor:
     if entry is not None and entry[0] is x:
         cached = entry[1].get(dev)
         if cached is None:
-            cached = entry[1][dev] = torch.tensor(np.asarray(x), device=dev)
+            cached = torch.tensor(np.asarray(x), device=dev)
+            # a copy made under a tracer (``torch.export``'s fake mode, as
+            # in ``Executor.warmup``) is a tensor subclass that must not
+            # outlive the trace: only plain tensors are kept
+            if type(cached) is torch.Tensor:
+                entry[1][dev] = cached
         return cached
     return torch.tensor(np.asarray(x), device=dev)
 

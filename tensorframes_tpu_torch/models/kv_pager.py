@@ -26,8 +26,8 @@ Bit identity: a sequence whose table spans ``cap // P`` pages attends over
 ``cap`` gathered slots; compared with ``decode.generate(...,
 cache_len=cap)`` at the same batch and capacity, every product has the same
 shape, and the tokens agree bit for bit.  The scheduler that serves streams
-over the pool (``DecodeScheduler``, the JAX package's
-``bridge/coalescer.py``) waits for ROADMAP.md Queue 1 item 12.
+over the pool is ``bridge/coalescer.py``'s ``DecodeScheduler``, behind the
+bridge's ``decode`` RPC.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ same public names, record layouts, metric families and knobs:
 * **counters**: one process-wide dict of monotonic counts with JAX's key
   set, bumped under a lock (``_bump``), snapshotted by :func:`counters`
   (with ``by_verb`` and the ``peak_host_bytes`` gauge) and diffed by
-  :func:`counters_delta`.  Keys whose modules are not ported yet (the
-  bridge, the fleet, the decode scheduler: ROADMAP.md Queue 1 item 12)
-  stay 0 until those modules land with their ``note_*`` functions; the
+  :func:`counters_delta`.  The fleet's keys (``fleet_*``: ROADMAP.md
+  Queue 1 item 12b) stay 0 until the fleet lands with its ``note_*``
+  functions; the bridge's, the coalescer's and the decode scheduler's
+  move with ``bridge/``; the
   planner's ``plan_*`` keys move with ``ops/planner.py``, the streamed
   windows, shuffle, join and journal keys with ``streaming/``,
   ``relational/`` and ``recovery/``.  Where the JAX package counts XLA,
@@ -526,6 +527,80 @@ def note_cache_shard_hit() -> None:
 def note_cache_eviction() -> None:
     """One resident entry evicted by the ``TFS_HBM_BUDGET`` LRU."""
     _bump("cache_evictions")
+
+
+def note_bridge_deadline_exceeded() -> None:
+    """One bridge request cancelled at a block or step boundary because
+    its ``deadline_ms`` passed (``bridge/server.py``)."""
+    _bump("bridge_deadline_exceeded")
+
+
+def note_bridge_shed() -> None:
+    """One bridge request shed by admission (``ServerBusy``/``Draining``)."""
+    _bump("bridge_shed")
+
+
+def note_bridge_retry() -> None:
+    """One client-side bridge call resent after a reconnect."""
+    _bump("bridge_retries")
+
+
+def note_bridge_cancel() -> None:
+    """One in-flight bridge request cancelled (the drain's stragglers)."""
+    _bump("bridge_cancels")
+
+
+def note_bridge_idem_hit() -> None:
+    """One bridge request served from the idempotency cache instead of
+    executing again: the exactly-once evidence."""
+    _bump("bridge_idem_hits")
+
+
+def note_bridge_verb_executed() -> None:
+    """One admission-gated bridge method that actually executed."""
+    _bump("bridge_verbs_executed")
+
+
+def note_coalesced_batch(requests: int, rows: int) -> None:
+    """One coalesced micro-batch of ``requests`` requests and ``rows``
+    rows (``bridge/coalescer.py``); a batch of one counts as solo."""
+    if requests <= 1:
+        note_coalesce_solo()
+        return
+    _bump("coalesced_batches")
+    _bump("coalesced_requests", requests)
+    _bump("coalesced_rows", rows)
+
+
+def note_coalesce_solo() -> None:
+    """One request that reached the coalescer and dispatched alone."""
+    _bump("coalesce_solo_requests")
+
+
+def note_warm_program(hit: bool) -> None:
+    """One warm-pool lookup (hit: the Program was resident; miss: it was
+    built again from the GraphDef bytes)."""
+    _bump("warm_program_hits" if hit else "warm_program_misses")
+
+
+def note_fair_share_shed() -> None:
+    """The SLO scheduler shed a request over its tenant's row budget."""
+    _bump("fair_share_sheds")
+
+
+def note_slo_shed() -> None:
+    """The SLO scheduler shed the dominant consumer under p99 pressure."""
+    _bump("slo_sheds")
+
+
+def note_decode_tokens(n: int) -> None:
+    """``n`` tokens emitted by the paged decode scheduler."""
+    _bump("decode_tokens", n)
+
+
+def note_decode_prefill_batch() -> None:
+    """One batched prefill run by the decode scheduler's prefill lane."""
+    _bump("decode_prefill_batches")
 
 
 def note_kv_pages_allocated(n: int) -> None:

@@ -98,6 +98,16 @@ def bucket_for(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def coalesced_blocks(total_rows: int, n_lanes: int) -> int:
+    """Block count for a coalesced micro-batch (``bridge/coalescer.py``):
+    spread the combined rows over up to ``n_lanes`` device-pool lanes,
+    never dealing a block below the minimum bucket (sub-bucket blocks would
+    all pad to ``_MIN_BUCKET`` anyway and only multiply dispatches)."""
+    if n_lanes <= 1 or total_rows <= _MIN_BUCKET:
+        return 1
+    return max(1, min(int(n_lanes), total_rows // _MIN_BUCKET))
+
+
 def pad_rows(arr, target: int):
     """``arr``'s lead axis padded to ``target`` rows by repeating the last
     row: tensors on their device (a block's staged rows), numpy arrays in

@@ -1,7 +1,7 @@
 """Durable execution: crash-consistent checkpoint/resume for streaming
 verbs and pipelines, epoch loops and shuffles (PyTorch counterpart of
-``tensorframes_tpu/recovery/``; bridge jobs come with ROADMAP.md Queue 1
-item 12).
+``tensorframes_tpu/recovery/``; the bridge's ``pipeline`` RPC carries
+``job_id`` and the ``job_status`` RPC reads :func:`job_status`).
 
 * :mod:`.journal` — the fenced write-ahead job journal
   (``TFS_JOURNAL_DIR``): atomic per-job manifests of completed

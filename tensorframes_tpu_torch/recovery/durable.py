@@ -1,6 +1,7 @@
 """Durable-execution glue: the small shared surface the streaming /
 relational / planner integration points call (PyTorch counterpart of
-``tensorframes_tpu/recovery/durable.py``; the bridge's, item 12, later).
+``tensorframes_tpu/recovery/durable.py``; the bridge's ``pipeline`` RPC
+reaches it through ``relational.run_stream_pipeline``).
 
 The journal (``journal.py``) knows nothing about streams; this module
 knows just enough about the streaming stack's shapes to (a) open a

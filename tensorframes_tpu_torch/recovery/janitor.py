@@ -26,10 +26,10 @@ current manifest references.  Completed jobs keep their (tiny, states
 already deleted) manifests for the exactly-once resume contract; only
 their unreferenced leftovers are reclaimed.  Adoption
 (:meth:`JobJournal.adopt`) runs the per-job half of this sweep
-automatically.  The fleet registry's liveness (JAX ``bridge/fleet.py``)
-and the bridge server's startup sweep wait for the bridge (ROADMAP.md
-Queue 1 item 12): until then :func:`_fleet_live_pids` sees no fleet, and
-only this process's pid namespace decides liveness.
+automatically; the bridge server runs the sweep at start.  The fleet
+registry's liveness (JAX ``bridge/fleet.py``) waits for the fleet
+(ROADMAP.md Queue 1 item 12b): until then :func:`_fleet_live_pids` sees
+no fleet, and only this process's pid namespace decides liveness.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def _fleet_live_pids() -> frozenset:
     and reclaiming its journal states would corrupt its resume.  The
     registry heartbeat is the cross-process source of truth."""
     # the fleet registry (bridge/fleet.py) comes with ROADMAP.md Queue 1
-    # item 12; until then no replica's heartbeat exists to consult
+    # item 12b; until then no replica's heartbeat exists to consult
     return frozenset()
 
 

@@ -476,3 +476,36 @@ def test_flash_program_classifies_as_jax_without_a_launch():
     assert (flash.launches, dict(flash.kernel_launches)) == before
     specs = {"tokens": (torch.int32, (8,))}
     assert not analysis.rows_independent(tprog, specs, (8, 16))
+
+
+def test_bridge_check_rpc():
+    """The ungated ``check`` RPC on the port's server: clean, a missing
+    input (TFS103, as JAX's server answers), and pure on repeat."""
+    from tensorframes_tpu.bridge import BridgeClient as JBridgeClient
+    from tensorframes_tpu.bridge import serve as jserve
+    from tensorframes_tpu_torch.bridge import BridgeClient, serve
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    g = GraphBuilder()
+    g.placeholder("x", "float64", [-1])
+    g.const("three", np.float64(3.0))
+    g.op("Add", "z", ["x", "three"])
+    add3 = g.to_bytes()
+    srv, jsrv = serve(device="cpu"), jserve()
+    try:
+        bads = []
+        for s, cls in ((srv, BridgeClient), (jsrv, JBridgeClient)):
+            with cls(*s.address, timeout_s=60.0) as c:
+                rf = c.create_frame({"x": np.arange(8.0)}, num_blocks=2).analyze()
+                assert rf.check("map_blocks", add3, fetches=["z"]) == []
+                bad = rf.check("map_blocks", add3, fetches=["z"], inputs={"x": "missing"})
+                assert [d["code"] for d in bad] == ["TFS103"]
+                assert bad[0]["severity"] == "error"
+                assert rf.check("map_blocks", add3, fetches=["z"],
+                                inputs={"x": "missing"}) == bad
+                bads.append(bad)
+        assert [(d["code"], d["severity"]) for d in bads[0]] == [
+            (d["code"], d["severity"]) for d in bads[1]]
+    finally:
+        srv.close(drain_s=1.0)
+        jsrv.close(drain_s=1.0)

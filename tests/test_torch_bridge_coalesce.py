@@ -1,0 +1,858 @@
+"""The port's serving throughput layer (``bridge/coalescer.py``): the cases
+of ``tests/test_bridge_coalesce.py`` on the port's server over TCP on the
+CPU — coalesced results bit-identical to solo, the shared dispatch's
+ledger shares summing to the global delta, cross-row programs refused,
+deadlines mid-batch, chaos, the warm pool, fair-share shedding,
+continuous batching (``torch.func.vmap``), health, metrics and the
+doctor's rules — plus the apportionment and warm-spec units against the
+JAX package's.
+
+The ledger fence is deterministic here: its three requests fill the
+batch's row cap exactly, so the batch seals when the last joins instead
+of when a gather window runs out.
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+
+import torch
+
+from tensorframes_tpu.bridge import coalescer as jco
+from tensorframes_tpu_torch import observability
+from tensorframes_tpu_torch.bridge import (
+    ContinuousBatcher,
+    DeadlineExceeded,
+    ServerBusy,
+)
+from tensorframes_tpu_torch.bridge import BridgeClient as _Client
+from tensorframes_tpu_torch.bridge import coalescer as co
+from tensorframes_tpu_torch.bridge import serve as _serve
+from tensorframes_tpu_torch.doctor import doctor
+from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+TIMEOUT_S = 60.0
+
+
+def serve(**kw):
+    return _serve(device="cpu", **kw)
+
+
+def BridgeClient(*a, **kw):  # noqa: N802 — the client with a default timeout
+    kw.setdefault("timeout_s", TIMEOUT_S)
+    return _Client(*a, **kw)
+
+ADD3 = None
+CENTER = None
+
+
+def _add3_graph():
+    """Row-independent block program: z = x + 3."""
+    global ADD3
+    if ADD3 is None:
+        g = GraphBuilder()
+        g.placeholder("x", "float64", [-1])
+        g.const("three", np.float64(3.0))
+        g.op("Add", "z", ["x", "three"])
+        ADD3 = g.to_bytes()
+    return ADD3
+
+
+def _center_graph():
+    """CROSS-ROW block program: z = x - mean(x) — its result depends on
+    the whole block, so coalescing it would be unsound."""
+    global CENTER
+    if CENTER is None:
+        g = GraphBuilder()
+        g.placeholder("x", "float64", [-1])
+        g.const("axis", np.int32(0))
+        g.op("Mean", "m", ["x", "axis"])
+        g.op("Sub", "z", ["x", "m"])
+        CENTER = g.to_bytes()
+    return CENTER
+
+
+def _wait_until(pred, timeout_s=10.0, what="condition"):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _run_workers(n, fn):
+    errs = []
+
+    def wrap(k):
+        try:
+            fn(k)
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errs.append(e)
+
+    ts = [threading.Thread(target=wrap, args=(k,), daemon=True) for k in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(TIMEOUT_S)
+        assert not t.is_alive(), "a worker thread hung"
+    if errs:
+        raise errs[0]
+
+
+# ---------------------------------------------------------------------------
+# units: apportionment, warm spec, warm pool
+# ---------------------------------------------------------------------------
+
+
+def test_apportion_exact_and_deterministic():
+    for total, weights in (
+        (10, [3, 3, 4]),
+        (7, [1, 1, 1]),
+        (1, [100, 1]),
+        (0, [5, 5]),
+        (13, [0, 0]),  # degenerate: all-zero weights
+        (1_000_003, [7, 11, 13, 17]),
+    ):
+        shares = co._apportion(total, weights)
+        assert sum(shares) == total
+        assert shares == co._apportion(total, weights)  # deterministic
+        assert shares == jco._apportion(total, weights)  # and JAX's split
+    # proportionality: the heavy weight gets the bulk
+    shares = co._apportion(100, [90, 10])
+    assert shares == [90, 10]
+
+
+def test_warm_spec_parse():
+    assert co.WarmSpec.from_env("").cap == 0
+    assert co.WarmSpec.from_env("8").cap == 8
+    s = co.WarmSpec.from_env("cap=4;buckets=64,512")
+    assert s.cap == 4 and s.buckets == (64, 512)
+    # malformed falls back to disabled, never raises
+    assert co.WarmSpec.from_env("cap=banana").cap == 0
+    for raw in ("", "8", "cap=4;buckets=64,512", "cap=banana", "buckets=8"):
+        ours, theirs = co.WarmSpec.from_env(raw), jco.WarmSpec.from_env(raw)
+        assert (ours.cap, ours.buckets) == (theirs.cap, theirs.buckets)
+    args = ("map_rows", _add3_graph(), ["z"], {"x": "y"}, {"z": [-1]}, False)
+    assert co.program_signature(*args) == jco.program_signature(*args)
+
+
+def test_warm_pool_lru_and_signature():
+    pool = co.WarmPool(co.WarmSpec(cap=2), device="cpu")
+    k1, e1, hit1 = pool.entry("map_blocks", _add3_graph(), ["z"], {}, {})
+    assert not hit1
+    k2, e2, hit2 = pool.entry("map_blocks", _add3_graph(), ["z"], {}, {})
+    assert hit2 and e2 is e1 and e2.requests == 2
+    # a different signature is a different program
+    k3, _, hit3 = pool.entry("map_rows", _add3_graph(), ["z"], {}, {})
+    assert not hit3 and k3 != k1
+    # capacity 2: a third distinct program evicts the LRU entry
+    pool.entry("map_blocks", _center_graph(), ["z"], {}, {})
+    assert len(pool) == 2
+    _, _, hit_again = pool.entry(
+        "map_blocks", _add3_graph(), ["z"], {}, {}
+    )
+    assert not hit_again  # was evicted
+
+
+# ---------------------------------------------------------------------------
+# coalesced dispatch: bit-identity + attribution
+# ---------------------------------------------------------------------------
+
+
+def test_coalesced_bit_identical_to_solo():
+    """N concurrent same-program requests coalesce into one dispatch;
+    every request's bytes equal its solo execution's."""
+    solo_srv = serve(max_inflight=0, coalesce_us=0, warm_spec="8")
+    coal_srv = serve(
+        max_inflight=0, coalesce_us=200_000, coalesce_rows=4096,
+        warm_spec="8",
+    )
+    inputs = {k: np.arange(24.0) * (k + 1) + 17 * k for k in range(3)}
+    solo, coal = {}, {}
+    try:
+        for k, xs in inputs.items():
+            with BridgeClient(*solo_srv.address) as c:
+                f = c.create_frame({"x": xs}, num_blocks=2).analyze()
+                solo[k] = f.map_blocks(
+                    _add3_graph(), fetches=["z"]
+                ).collect()["z"]
+
+        barrier = threading.Barrier(3)
+        before = observability.counters()
+
+        def worker(k):
+            with BridgeClient(*coal_srv.address) as c:
+                f = c.create_frame(
+                    {"x": inputs[k]}, num_blocks=2
+                ).analyze()
+                barrier.wait()
+                coal[k] = f.map_blocks(
+                    _add3_graph(), fetches=["z"]
+                ).collect()["z"]
+
+        _run_workers(3, worker)
+        delta = observability.counters_delta(before)
+        assert delta["coalesced_batches"] >= 1
+        assert delta["coalesced_requests"] + delta[
+            "coalesce_solo_requests"
+        ] == 3
+        for k in inputs:
+            np.testing.assert_array_equal(coal[k], solo[k])
+            np.testing.assert_array_equal(coal[k], inputs[k] + 3.0)
+    finally:
+        solo_srv.close(drain_s=1.0)
+        coal_srv.close(drain_s=1.0)
+
+
+def test_coalesced_ledger_row_shares_sum_to_global_delta():
+    """The shared dispatch's cost is apportioned by row share: summing
+    the participants' ledger counters reproduces the process-global
+    counters delta of the batch window bit-for-bit."""
+    rows = {0: 8, 1: 16, 2: 40}
+    # the row cap is the three requests' rows: the batch seals when the
+    # third joins, however long the first waited
+    srv = serve(max_inflight=0, coalesce_us=30_000_000,
+                coalesce_rows=sum(rows.values()), warm_spec="8")
+    cids, atts, outs = {}, {}, {}
+    setup = threading.Barrier(4)
+    go = threading.Barrier(4)
+    fired = threading.Barrier(4)
+    read = threading.Barrier(4)
+    try:
+
+        def worker(k):
+            with BridgeClient(*srv.address, tenant=f"t{k}") as c:
+                f = c.create_frame(
+                    {"x": np.arange(float(rows[k])) + 100 * k},
+                    num_blocks=1,
+                ).analyze()
+                setup.wait()
+                go.wait()  # main thread snapshots between these
+                out = f.map_blocks(_add3_graph(), fetches=["z"])
+                cids[k] = c.last_correlation_id
+                fired.wait()  # maps (only) inside the delta window
+                read.wait()  # the delta is taken before any collect
+                outs[k] = out.collect()["z"]
+                atts[k] = c.attribution(cids[k])["ledger"]
+
+        state = {}
+
+        def main_side():
+            setup.wait()
+            state["before"] = observability.counters()
+            go.wait()
+            fired.wait()
+            state["after"] = observability.counters()
+            read.wait()
+
+        t = threading.Thread(target=main_side, daemon=True)
+        t.start()
+        _run_workers(3, worker)
+        t.join(TIMEOUT_S)
+        delta = observability.counters_delta(
+            state["before"], state["after"]
+        )
+        # the three maps coalesced (one batch) — a request that slipped
+        # out of the window would still be exact, but the point of this
+        # fence is the SHARED dispatch's apportionment
+        assert delta["coalesced_requests"] == 3
+        assert delta["coalesced_batches"] == 1
+        summed = {}
+        for k in rows:
+            led = atts[k]
+            assert led is not None, f"no attribution for request {k}"
+            for key, v in led["counters"].items():
+                summed[key] = summed.get(key, 0) + v
+        for key, v in delta.items():
+            assert summed.get(key, 0) == v, (
+                f"ledger shares sum {summed.get(key, 0)} != global "
+                f"delta {v} for {key}"
+            )
+        # row shares: each ledger carries exactly its own rows
+        for k in rows:
+            assert atts[k]["rows"] == rows[k]
+        for k in rows:
+            np.testing.assert_array_equal(
+                outs[k], np.arange(float(rows[k])) + 100 * k + 3.0
+            )
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_cross_row_map_blocks_refuses_to_coalesce():
+    """A block program whose output depends on the whole block (mean
+    centering) fails the row-independence proof: requests run with solo
+    semantics (own block structure) and exact results, and no coalesced
+    batch is recorded."""
+    srv = serve(max_inflight=0, coalesce_us=200_000, warm_spec="8")
+    res = {}
+    barrier = threading.Barrier(3)
+    before = observability.counters()
+    try:
+
+        def worker(k):
+            xs = np.arange(8.0) * (k + 1) + 5 * k
+            with BridgeClient(*srv.address) as c:
+                f = c.create_frame({"x": xs}, num_blocks=1).analyze()
+                barrier.wait()
+                res[k] = (
+                    xs,
+                    f.map_blocks(_center_graph(), fetches=["z"]).collect()[
+                        "z"
+                    ],
+                )
+
+        _run_workers(3, worker)
+        delta = observability.counters_delta(before)
+        assert delta["coalesced_batches"] == 0
+        for xs, z in res.values():
+            np.testing.assert_allclose(z, xs - xs.mean())
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_map_rows_coalesces_bit_identically():
+    """map_rows (cell-level program, vmapped) coalesces without a proof
+    — rows are independent by construction."""
+    g = GraphBuilder()
+    g.placeholder("x", "float64", [])
+    g.const("two", np.float64(2.0))
+    g.op("Mul", "y", ["x", "two"])
+    graph = g.to_bytes()
+    srv = serve(max_inflight=0, coalesce_us=200_000, warm_spec="8")
+    res = {}
+    barrier = threading.Barrier(2)
+    before = observability.counters()
+    try:
+
+        def worker(k):
+            xs = np.arange(12.0) + 31 * k
+            with BridgeClient(*srv.address) as c:
+                f = c.create_frame({"x": xs}, num_blocks=1).analyze()
+                barrier.wait()
+                r = c.call(
+                    "map_rows",
+                    frame_id=f.frame_id,
+                    graph=graph,
+                    fetches=["y"],
+                    inputs={},
+                    shapes={},
+                )
+                out = c.call(
+                    "collect", frame_id=r["frame_id"], columns=["y"]
+                )
+                res[k] = (xs, np.asarray(out["columns"]["y"]))
+
+        _run_workers(2, worker)
+        delta = observability.counters_delta(before)
+        assert delta["coalesced_batches"] >= 1
+        for xs, y in res.values():
+            np.testing.assert_array_equal(y, xs * 2.0)
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_deadline_mid_batch_cancels_only_expired_request():
+    """A member whose deadline expires while its batch is still
+    gathering gets a structured deadline_exceeded; the batch (and every
+    other member) completes with exact results."""
+    srv = serve(max_inflight=0, coalesce_us=600_000, warm_spec="8")
+    try:
+        with BridgeClient(*srv.address) as lead, BridgeClient(
+            *srv.address
+        ) as tail:
+            fl = lead.create_frame(
+                {"x": np.arange(16.0)}, num_blocks=1
+            ).analyze()
+            ft = tail.create_frame(
+                {"x": np.arange(8.0) + 50}, num_blocks=1
+            ).analyze()
+            lead_out = {}
+
+            def leader():
+                lead_out["z"] = fl.map_blocks(
+                    _add3_graph(), fetches=["z"]
+                ).collect()["z"]
+
+            t = threading.Thread(target=leader, daemon=True)
+            before = observability.counters()
+            t.start()
+            # the leader is parked in its gather window
+            _wait_until(
+                lambda: tail.health()["coalescer"]["queued"] >= 1,
+                what="leader parked in the gather window",
+            )
+            with pytest.raises(DeadlineExceeded):
+                ft.map_blocks(
+                    _add3_graph(), fetches=["z"], deadline_ms=100
+                )
+            t.join(TIMEOUT_S)
+            delta = observability.counters_delta(before)
+            assert delta["bridge_deadline_exceeded"] == 1
+            np.testing.assert_array_equal(
+                lead_out["z"], np.arange(16.0) + 3.0
+            )
+            # the session survives: the expired member re-runs fine
+            again = ft.map_blocks(_add3_graph(), fetches=["z"]).collect()
+            np.testing.assert_array_equal(
+                again["z"], np.arange(8.0) + 50 + 3.0
+            )
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_coalesced_chaos_bit_identity(monkeypatch):
+    """Injected attempt-0 transients during a coalesced dispatch are
+    absorbed by the round-9 retry layer; per-request results stay
+    bit-identical to the clean run."""
+    srv = serve(max_inflight=0, coalesce_us=200_000, warm_spec="8")
+    inputs = {k: np.arange(32.0) + 1000 * k for k in range(3)}
+    clean, chaotic = {}, {}
+    try:
+
+        def leg(out, barrier):
+            def worker(k):
+                with BridgeClient(*srv.address) as c:
+                    f = c.create_frame(
+                        {"x": inputs[k]}, num_blocks=1
+                    ).analyze()
+                    barrier.wait()
+                    out[k] = f.map_blocks(
+                        _add3_graph(), fetches=["z"], deadline_ms=30_000
+                    ).collect()["z"]
+
+            _run_workers(3, worker)
+
+        leg(clean, threading.Barrier(3))
+        monkeypatch.setenv("TFS_BLOCK_RETRIES", "3")
+        # attempt-0 transients on EVERY block: the retry layer must
+        # absorb one failure per dispatched block, deterministically
+        monkeypatch.setenv("TFS_FAULT_INJECT", "transient:attempt=0")
+        before = observability.counters()
+        leg(chaotic, threading.Barrier(3))
+        delta = observability.counters_delta(before)
+        monkeypatch.setenv("TFS_FAULT_INJECT", "")
+        assert delta["faults_injected"] >= 1
+        assert delta["block_retries"] >= 1
+        for k in inputs:
+            np.testing.assert_array_equal(chaotic[k], clean[k])
+            np.testing.assert_array_equal(chaotic[k], inputs[k] + 3.0)
+    finally:
+        monkeypatch.setenv("TFS_FAULT_INJECT", "")
+        srv.close(drain_s=1.0)
+
+
+# ---------------------------------------------------------------------------
+# warm pool: priming kills first-request compiles
+# ---------------------------------------------------------------------------
+
+
+def test_warm_rpc_primes_zero_compile_first_request():
+    srv = serve(max_inflight=0, coalesce_us=0, warm_spec="8")
+    try:
+        with BridgeClient(*srv.address) as c:
+            r = c.warm(
+                _add3_graph(),
+                ["z"],
+                columns={"x": np.zeros(1)},
+                rows=[64],
+                verb="map_blocks",
+            )
+            assert r["primed_rows"] == [64]
+            assert r["resident"] >= 1
+            f = c.create_frame(
+                {"x": np.arange(64.0)}, num_blocks=1
+            ).analyze()
+            before = observability.counters()
+            out = f.map_blocks(_add3_graph(), fetches=["z"]).collect()
+            delta = observability.counters_delta(before)
+            # the program was resident (no GraphDef re-import) and its
+            # executable grid primed: the first real request compiles
+            # and traces NOTHING
+            assert delta["backend_compiles"] == 0
+            assert delta["program_traces"] == 0
+            assert delta["warm_program_hits"] == 1
+            np.testing.assert_array_equal(
+                out["z"], np.arange(64.0) + 3.0
+            )
+            # re-warming the same signature is a pool hit
+            assert c.warm(
+                _add3_graph(),
+                ["z"],
+                columns={"x": np.zeros(1)},
+                rows=[64],
+                verb="map_blocks",
+            )["warm_hit"]
+    finally:
+        srv.close(drain_s=1.0)
+
+
+# ---------------------------------------------------------------------------
+# SLO scheduler: fairness under a hog tenant
+# ---------------------------------------------------------------------------
+
+
+def test_fair_share_sheds_hog_keeps_serving_small_tenant():
+    srv = serve(
+        max_inflight=0, coalesce_us=0, fair_rows=100, fair_window_s=60.0
+    )
+    try:
+        # busy_retries pinned 0: this test asserts the IMMEDIATE shed
+        # surface (the serving tier exports TFS_BRIDGE_CLIENT_BUSY_RETRIES)
+        with BridgeClient(
+            *srv.address, tenant="hog", busy_retries=0
+        ) as hog, BridgeClient(
+            *srv.address, tenant="small", busy_retries=0
+        ) as small:
+            fh = hog.create_frame(
+                {"x": np.arange(200.0)}, num_blocks=1
+            ).analyze()
+            fs = small.create_frame(
+                {"x": np.arange(8.0)}, num_blocks=1
+            ).analyze()
+            fh.map_blocks(_add3_graph(), fetches=["z"])  # 200 rows billed
+            fs.map_blocks(_add3_graph(), fetches=["z"])
+            before = observability.counters()
+            with pytest.raises(ServerBusy) as ei:
+                fh.map_blocks(_add3_graph(), fetches=["z"])
+            assert ei.value.payload.get("reason") == "fair_share"
+            assert ei.value.retry_after_ms > 0
+            # the small tenant is untouched by the hog's budget
+            out = fs.map_blocks(_add3_graph(), fetches=["z"]).collect()
+            np.testing.assert_array_equal(
+                out["z"], np.arange(8.0) + 3.0
+            )
+            delta = observability.counters_delta(before)
+            assert delta["fair_share_sheds"] == 1
+            assert delta["bridge_shed"] == 1
+            # health exposes the per-tenant window for dashboards
+            sched = small.health()["scheduler"]
+            assert sched["rows_by_tenant"]["hog"] >= 200
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_lone_tenant_is_never_fairness_shed():
+    """Fairness needs contention: a single over-budget tenant on an
+    otherwise idle server just gets the machine."""
+    srv = serve(
+        max_inflight=0, coalesce_us=0, fair_rows=10, fair_window_s=60.0
+    )
+    try:
+        with BridgeClient(*srv.address, tenant="only") as c:
+            f = c.create_frame(
+                {"x": np.arange(50.0)}, num_blocks=1
+            ).analyze()
+            for _ in range(3):  # far over budget, no one else waiting
+                f.map_blocks(_add3_graph(), fetches=["z"])
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_client_honors_retry_after_hint():
+    """With busy_retries set, a shed call sleeps the server's
+    retry_after_ms hint and re-sends instead of surfacing — and wins
+    once the window drains."""
+    srv = serve(
+        max_inflight=0, coalesce_us=0, fair_rows=20, fair_window_s=0.4
+    )
+    try:
+        with BridgeClient(*srv.address, tenant="a") as a, BridgeClient(
+            *srv.address, tenant="b", busy_retries=30
+        ) as b:
+            fa = a.create_frame(
+                {"x": np.arange(8.0)}, num_blocks=1
+            ).analyze()
+            fb = b.create_frame(
+                {"x": np.arange(30.0)}, num_blocks=1
+            ).analyze()
+            fb.map_blocks(_add3_graph(), fetches=["z"])  # b over budget
+            fa.map_blocks(_add3_graph(), fetches=["z"])  # contention
+            before = observability.counters()
+            # b is over budget NOW, but the hint-driven retries outlive
+            # the 0.4s fairness window — the call eventually executes
+            out = fb.map_blocks(
+                _add3_graph(), fetches=["z"], deadline_ms=30_000
+            ).collect()
+            np.testing.assert_array_equal(
+                out["z"], np.arange(30.0) + 3.0
+            )
+            delta = observability.counters_delta(before)
+            assert delta["fair_share_sheds"] >= 1  # it WAS shed first
+        # without busy retries the shed surfaces immediately (the
+        # pre-round-16 contract)
+        with BridgeClient(
+            *srv.address, tenant="c", busy_retries=0
+        ) as c_cl:
+            fc = c_cl.create_frame(
+                {"x": np.arange(30.0)}, num_blocks=1
+            ).analyze()
+            fc.map_blocks(_add3_graph(), fetches=["z"])
+            with BridgeClient(*srv.address, tenant="d") as d_cl:
+                fd = d_cl.create_frame(
+                    {"x": np.arange(4.0)}, num_blocks=1
+                ).analyze()
+                fd.map_blocks(_add3_graph(), fetches=["z"])
+            with pytest.raises(ServerBusy):
+                fc.map_blocks(_add3_graph(), fetches=["z"])
+    finally:
+        srv.close(drain_s=1.0)
+
+
+# ---------------------------------------------------------------------------
+# continuous decode batching
+# ---------------------------------------------------------------------------
+
+
+def _toy_row_step(state, tok):
+    """Toy decode step: emit carry + token, advance carry."""
+    carry = state["c"]
+    return {"c": carry + 1.0}, carry + tok
+
+
+def _toy_solo(start, n):
+    c, t, out = float(start), 0.0, []
+    for _ in range(n):
+        t = c + t
+        out.append(t)
+        c += 1.0
+    return out
+
+
+def test_continuous_batch_join_and_early_retirement():
+    b = ContinuousBatcher(_toy_row_step, max_batch=4)
+    try:
+        results = {}
+
+        def run(k, start, n):
+            results[k] = [
+                float(x)
+                for x in b.submit(
+                    {"c": torch.tensor(start, dtype=torch.float64)},
+                    torch.tensor(0.0, dtype=torch.float64),
+                    max_new=n,
+                    timeout_s=60.0,
+                )
+            ]
+
+        # long enough that the short request reliably joins MID-run
+        # (each vmapped step is ~0.1-1ms on this box)
+        long_n = 4000
+        long_t = threading.Thread(target=run, args=(1, 10.0, long_n), daemon=True)
+        long_t.start()
+        _wait_until(lambda: b.steps >= 2, what="batch running")
+        short_t = threading.Thread(target=run, args=(2, 5.0, 3), daemon=True)
+        short_t.start()
+        short_t.join(timeout=60.0)
+        # EARLY RETIREMENT: the short request returns while the long
+        # one is still decoding
+        assert not short_t.is_alive()
+        assert long_t.is_alive() or len(results.get(1, [])) == long_n
+        long_t.join(timeout=120.0)
+        assert b.joined_mid_run >= 1
+        # bit-identity vs the solo reference recurrence
+        assert results[1] == _toy_solo(10.0, long_n)
+        assert results[2] == _toy_solo(5.0, 3)
+    finally:
+        b.close()
+
+
+def test_continuous_batch_until_stop_and_solo_parity():
+    batched = ContinuousBatcher(_toy_row_step, max_batch=4)
+    solo = ContinuousBatcher(_toy_row_step, max_batch=1)
+    try:
+        stop = lambda tok: float(tok) >= 40.0  # noqa: E731
+        kw = dict(max_new=64, until=stop, timeout_s=60.0)
+        results = {}
+
+        def run(k, start):
+            results[k] = [
+                float(x)
+                for x in batched.submit(
+                    {"c": torch.tensor(start, dtype=torch.float64)},
+                    torch.tensor(0.0, dtype=torch.float64), **kw
+                )
+            ]
+
+        _run_workers(3, lambda k: run(k, 3.0 + k))
+        for k in range(3):
+            ref = [
+                float(x)
+                for x in solo.submit(
+                    {"c": torch.tensor(3.0 + k, dtype=torch.float64)},
+                    torch.tensor(0.0, dtype=torch.float64), **kw
+                )
+            ]
+            assert results[k] == ref  # batch size never changes a row
+            assert results[k][-1] >= 40.0  # stopped by `until`
+            assert len(results[k]) < 64  # ...early, not by max_new
+    finally:
+        batched.close()
+        solo.close()
+
+
+# ---------------------------------------------------------------------------
+# observability: gauges, health, metrics, doctor
+# ---------------------------------------------------------------------------
+
+
+def test_health_and_metrics_report_coalescer_state():
+    srv = serve(
+        max_inflight=0, coalesce_us=50_000, warm_spec="8", fair_rows=1000
+    )
+    try:
+        with BridgeClient(*srv.address) as c:
+            c.warm(
+                _add3_graph(), ["z"], columns={"x": np.zeros(1)}, rows=[8]
+            )
+            f = c.create_frame({"x": np.arange(8.0)}, num_blocks=1)
+            f.analyze()
+            f.map_blocks(_add3_graph(), fetches=["z"])
+            h = c.health()
+            assert h["coalescer"]["enabled"] is True
+            assert h["coalescer"]["warm_pool"]["resident"] >= 1
+            assert "batch_size_hist" in h["coalescer"]
+            assert h["scheduler"]["fair_rows"] == 1000
+            m = c.metrics()
+            # grouped gauge provider: one family per gauge, no dups
+            for fam in (
+                "tfs_bridge_coalesce_queued",
+                "tfs_bridge_coalesce_open_programs",
+                "tfs_bridge_warm_resident",
+                "tfs_coalesced_batches_total",
+                "tfs_coalesce_solo_requests_total",
+                "tfs_warm_program_hits_total",
+                "tfs_fair_share_sheds_total",
+            ):
+                assert m.count(f"# TYPE {fam} ") == 1, fam
+    finally:
+        srv.close(drain_s=1.0)
+
+
+def test_doctor_coalesce_miss_rule():
+    ds = doctor(
+        counters={
+            "coalesce_solo_requests": 20,
+            "coalesced_requests": 2,
+            "warm_program_hits": 19,
+        },
+        latency={},
+        spans=[],
+        tenants={},
+    )
+    d = next(x for x in ds if x["code"] == "coalesce_miss")
+    assert d["knob"] == "TFS_BRIDGE_COALESCE_US"
+    assert d["evidence"]["coalesce_solo_requests"] == 20
+    # quiet when batches dominate
+    assert not any(
+        x["code"] == "coalesce_miss"
+        for x in doctor(
+            counters={
+                "coalesce_solo_requests": 3,
+                "coalesced_requests": 60,
+            },
+            latency={},
+            spans=[],
+            tenants={},
+        )
+    )
+
+
+def test_doctor_unfair_tenant_rule():
+    tenants = {
+        "hog": {"requests": 12, "rows": 80_000},
+        "small": {"requests": 8, "rows": 900},
+    }
+    ds = doctor(
+        counters={"bridge_shed": 4},
+        latency={},
+        spans=[],
+        tenants=tenants,
+    )
+    d = next(x for x in ds if x["code"] == "unfair_tenant")
+    assert d["severity"] == "warn"
+    assert d["knob"] == "TFS_BRIDGE_FAIR_ROWS"
+    assert d["evidence"]["top_tenant"] == "hog"
+    # already enforcing -> informational, not a missing knob
+    ds2 = doctor(
+        counters={"fair_share_sheds": 2},
+        latency={},
+        spans=[],
+        tenants=tenants,
+    )
+    assert (
+        next(x for x in ds2 if x["code"] == "unfair_tenant")["severity"]
+        == "info"
+    )
+    # no contention evidence -> quiet (imbalance alone is not starvation)
+    assert not any(
+        x["code"] == "unfair_tenant"
+        for x in doctor(counters={}, latency={}, spans=[], tenants=tenants)
+    )
+
+
+def test_continuous_batcher_tokens_equal_jax():
+    """The same toy step under ``torch.func.vmap`` and ``jax.vmap``: every
+    stream's tokens equal the JAX batcher's."""
+    import jax.numpy as jnp
+
+    def jstep(state, tok):
+        return {"c": state["c"] + 1.0}, state["c"] + tok
+
+    ours = ContinuousBatcher(_toy_row_step, max_batch=2)
+    theirs = jco.ContinuousBatcher(jstep, max_batch=2)
+    try:
+        for start, n in ((1.5, 5), (-2.0, 9)):
+            got = [float(x) for x in ours.submit(
+                {"c": torch.tensor(start, dtype=torch.float64)},
+                torch.tensor(0.0, dtype=torch.float64), max_new=n, timeout_s=TIMEOUT_S)]
+            want = [float(x) for x in theirs.submit(
+                {"c": jnp.float64(start)}, jnp.float64(0.0), max_new=n, timeout_s=TIMEOUT_S)]
+            assert got == want == _toy_solo(start, n)
+    finally:
+        ours.close()
+        theirs.close()
+
+
+def test_coalesced_blocks_equal_jax():
+    from tensorframes_tpu.ops import bucketing as jb
+    from tensorframes_tpu_torch.ops import bucketing
+
+    for total in (0, 7, 8, 9, 64, 1000, 65_536):
+        for lanes in (1, 2, 8):
+            assert bucketing.coalesced_blocks(total, lanes) == jb.coalesced_blocks(total, lanes)
+
+
+def test_clamp_program_coalesces_in_the_port():
+    """ROADMAP Queue 3 item 3: the port's classifier reads a clamp-only
+    block program as ROW_INDEPENDENT (JAX: UNKNOWN, then its probe), so
+    the coalescer's gate admits it; the outputs equal solo runs either
+    way."""
+    g = GraphBuilder()
+    g.placeholder("x", "float64", [-1])
+    g.const("lo", np.float64(2.0))
+    g.const("hi", np.float64(9.0))
+    g.op("Maximum", "a", ["x", "lo"])
+    g.op("Minimum", "z", ["a", "hi"])
+    graph = g.to_bytes()
+    srv = serve(max_inflight=0, coalesce_us=30_000_000, coalesce_rows=20, warm_spec="8")
+    res = {}
+    barrier = threading.Barrier(2)
+    try:
+        def worker(k):
+            xs = np.arange(10.0) + 5 * k
+            with BridgeClient(*srv.address) as c:
+                f = c.create_frame({"x": xs}, num_blocks=1)
+                barrier.wait()
+                res[k] = (xs, f.map_blocks(graph, fetches=["z"]).collect()["z"])
+
+        before = observability.counters()
+        _run_workers(2, worker)
+        delta = observability.counters_delta(before)
+        assert delta["coalesced_batches"] == 1
+        for xs, z in res.values():
+            np.testing.assert_array_equal(z, np.clip(xs, 2.0, 9.0))
+    finally:
+        srv.close(drain_s=1.0)

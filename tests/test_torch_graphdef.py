@@ -1446,3 +1446,24 @@ def test_function_output_arg_inner_index_on_nonfinal_arg_rejected(monkeypatch):
     p = import_graphdef(_multi_out_graph({"r": "m:parts:1"}), fetches=["call:0"])
     with pytest.raises(GraphImportError, match="precedes other output"):
         p.call({"x": X3})
+
+
+def test_constants_copied_under_a_tracer_are_not_kept():
+    """``Executor.warmup`` exports the program (``torch.export`` traces it
+    on fake tensors); the constants' device copies made inside that trace
+    must not be kept, or every later call would compute on fake tensors."""
+    b = JBuilder()
+    b.placeholder("x", "float64", [-1])
+    b.const("three", np.float64(3.0))
+    b.op("Add", "z", ["x", "three"])
+    graph = b.to_bytes()
+    prog = _t_import(graph, fetches=["z"], device="cpu")
+    ex = tft.Executor()
+    assert ex.warmup(prog, tft.TensorFrame.from_arrays({"x": np.zeros(64)}))
+    out = ex.map_blocks(prog, tft.TensorFrame.from_arrays({"x": np.arange(64.0)}))
+    z = out.column("z").data
+    assert type(z) is torch.Tensor
+    want = j_import(graph, fetches=["z"])
+    np.testing.assert_array_equal(
+        z.numpy(), np.asarray(tfs.map_blocks(want, tfs.TensorFrame.from_arrays(
+            {"x": np.arange(64.0)})).column("z").data))

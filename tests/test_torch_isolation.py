@@ -203,6 +203,29 @@ def test_importing_the_data_layers_loads_no_jax_or_pyarrow():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_bridge_and_spark_loads_no_jax_pyarrow_or_pandas():
+    # the bridge serves on the card's machine (no pyarrow, no pandas, no
+    # pyspark); the Spark shim imports pandas and pyspark only when called
+    code = (
+        "import sys\n"
+        "import tensorframes_tpu_torch.bridge, tensorframes_tpu_torch.bridge.protocol, "
+        "tensorframes_tpu_torch.bridge.server, tensorframes_tpu_torch.bridge.client, "
+        "tensorframes_tpu_torch.bridge.coalescer, tensorframes_tpu_torch.spark\n"
+        "from tensorframes_tpu_torch.bridge import (BridgeClient, BridgeServer, serve, "
+        "RemoteFrame, Coalescer, ContinuousBatcher, SloScheduler, WarmPool, WarmSpec)\n"
+        "from tensorframes_tpu_torch.bridge.coalescer import DecodeScheduler\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas', "
+        "'pyspark', 'ml_dtypes'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_the_packer_builds_from_the_ports_own_copy():
     """The native packer is the port's copy of the JAX package's source,
     built from the port's ``csrc/``, never from a path of the JAX package."""
@@ -234,7 +257,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "device_pool.py", "pipeline.py", "spill.py", "roofline.py", "doctor.py",
             "planner.py", "compile_cache.py", "reader.py", "sink.py", "verbs.py",
             "journal.py", "durable.py", "janitor.py", "shuffle.py", "join.py",
-            "native.py"} <= {
+            "native.py", "protocol.py", "server.py", "client.py", "coalescer.py",
+            "spark.py"} <= {
         p.name for p in files
     }
     for path in files:
@@ -321,8 +345,11 @@ def test_graphdef_slice_entry_points_raise_without_a_card(no_cuda, call):
         .PagePool(_cfg(), 4, 8),
         lambda: __import__("tensorframes_tpu_torch.models.kv_pager", fromlist=["x"])
         .init_tables(1, 4),
+        lambda: __import__("tensorframes_tpu_torch.bridge", fromlist=["x"]).serve(),
+        lambda: __import__("tensorframes_tpu_torch.bridge.coalescer", fromlist=["x"])
+        .WarmPool().entry("map_blocks", _tiny_graph(), ["y"]),
     ],
-    ids=["cache", "init_cache", "PagePool", "init_tables"],
+    ids=["cache", "init_cache", "PagePool", "init_tables", "serve", "WarmPool"],
 )
 def test_serving_slice_entry_points_raise_without_a_card(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):

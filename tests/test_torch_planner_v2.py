@@ -441,9 +441,91 @@ def test_reduce_terminal_cse_registry_hit_when_result_held(monkeypatch, devices)
                for r in lz2._last_records), lz2._last_records
 
 
-# test_bridge_concurrent_requests_cse_execute_once (the bridge's concurrent
-# verb RPCs sharing one subplan under TFS_PLAN=1) waits for the bridge:
-# ROADMAP.md Queue 1 item 12.
+def test_bridge_concurrent_requests_cse_execute_once(monkeypatch, hold_owner):
+    """Two concurrent verb RPCs on the same registered frame with the
+    warm-pool-shared program execute the subplan once under ``TFS_PLAN=1``:
+    ``plan_cse_hits`` moves and the two requests' attribution ledgers sum
+    to the global counters delta.  The owner hook holds the first request
+    inside its execution until the second waits on it."""
+    import socket
+
+    from tensorframes_tpu_torch.bridge import BridgeClient, serve
+    from tensorframes_tpu_torch.bridge.client import RemoteFrame
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    g = GraphBuilder()
+    g.placeholder("x", "float64", [-1])
+    g.const("three", np.float64(3.0))
+    g.op("Add", "z", ["x", "three"])
+    graph = g.to_bytes()
+    monkeypatch.setenv("TFS_PLAN", "1")
+    srv = serve(device="cpu", max_inflight=0, coalesce_us=0, warm_spec="8")
+    xs = np.arange(48.0)
+    try:
+        with BridgeClient(*srv.address, tenant="seed", timeout_s=60.0) as c0:
+            f = c0.create_frame({"x": xs}, num_blocks=2).analyze()
+            token, fid, schema = c0.session_token, f.frame_id, f.schema
+            # two more clients reattached to the seed's session before the
+            # measured window (shutdown, not close: a closed socket's fd
+            # stays usable through its makefile refs)
+            clients = []
+            for i in range(2):
+                c = BridgeClient(*srv.address, tenant=f"t{i}", timeout_s=60.0)
+                c.session_token = token
+                with c._lock:
+                    c._sock.shutdown(socket.SHUT_RDWR)
+                c.call("ping")
+                clients.append(c)
+            setup, go, fired, read = (threading.Barrier(3) for _ in range(4))
+            cids, atts, outs, errs = [None, None], [None, None], [None, None], []
+
+            def worker(i):
+                try:
+                    c = clients[i]
+                    rf = RemoteFrame(c, fid, schema)
+                    setup.wait()
+                    go.wait()
+                    out = rf.map_blocks(graph, fetches=["z"])
+                    cids[i] = c.last_correlation_id
+                    fired.wait()
+                    read.wait()
+                    outs[i] = out.collect()["z"]
+                    atts[i] = c.attribution(cids[i])["ledger"]
+                except BaseException as e:  # noqa: BLE001
+                    errs.append(e)
+                    for b in (setup, go, fired, read):
+                        b.abort()
+
+            ts = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(2)]
+            for t in ts:
+                t.start()
+            setup.wait()
+            before = obs.counters()
+            go.wait()
+            fired.wait()
+            after = obs.counters()
+            read.wait()
+            for t in ts:
+                t.join(60)
+            delta = obs.counters_delta(before, after)
+            for c in clients:
+                c.close()
+            if errs:
+                raise errs[0]
+        np.testing.assert_array_equal(outs[0], xs + 3.0)
+        np.testing.assert_array_equal(outs[1], xs + 3.0)
+        assert delta["plan_cse_hits"] >= 1, delta
+        summed = {}
+        for led in atts:
+            assert led is not None
+            for k, v in led["counters"].items():
+                summed[k] = summed.get(k, 0) + v
+        for k, v in delta.items():
+            if k in ("plan_cse_hits", "bridge_verbs_executed"):
+                continue  # noted outside the absorbed dispatch delta
+            assert summed.get(k, 0) == v, (k, summed.get(k, 0), v)
+    finally:
+        srv.close(drain_s=1.0)
 
 
 def test_cse_params_update_invalidates_signature():

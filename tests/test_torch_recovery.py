@@ -15,9 +15,11 @@ are compared.
   child's (``slow``, as JAX's matrix is; the smoke below is not);
 * the janitor and the doctor's ``stale_artifacts`` rule.
 
-The bridge cases (``SessionLost``, the pipeline RPC across a server
-restart, the idempotency tokens) wait for ROADMAP.md Queue 1 item 12; the
-planner calibration cases have their twins in ``test_torch_aot.py``.
+The bridge cases run on the port's server: ``SessionLost`` after a
+restart, the ``pipeline`` RPC resuming a durable job across a server
+restart, ``job_status`` and ``JobActive``, and the idempotency token's
+retry composing with the journal; the planner calibration cases have
+their twins in ``test_torch_aot.py``.
 """
 
 import hashlib
@@ -512,6 +514,143 @@ def test_pipeline_broadcast_join_durable(jroot, src_parquet):
     _assert_window_fence(delta, FAIL_AT, N_WINDOWS - FAIL_AT)
     for n in ref["frame"].column_names:
         assert _bytes(out["frame"].column(n).data) == _bytes(ref["frame"].column(n).data)
+
+
+# ---------------------------------------------------------------------------
+# the bridge: durable pipelines over the port's server
+# ---------------------------------------------------------------------------
+
+
+def _graph_map():
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    g = GraphBuilder()
+    g.placeholder("x", "float64", [])
+    g.const("two", np.float64(2.0))
+    g.op("Mul", "y", ["x", "two"])
+    return g.to_bytes()
+
+
+def _graph_agg():
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    g = GraphBuilder()
+    g.placeholder("y_input", "float64", [-1])
+    g.const("axis", np.int32(0))
+    g.op("Sum", "y", ["y_input", "axis"])
+    return g.to_bytes()
+
+
+def _wire_spec(src):
+    return dict(source={"parquet": src, "window_rows": WINDOW},
+                stages=[{"op": "map_rows", "graph": _graph_map(), "fetches": ["y"]},
+                        {"op": "aggregate", "keys": ["k"], "graph": _graph_agg(),
+                         "fetches": ["y"]}])
+
+
+def _bridge(**kw):
+    from tensorframes_tpu_torch.bridge import BridgeClient, serve
+
+    s = serve(device=CPU)
+    return s, BridgeClient(*s.address, timeout_s=60.0, **kw)
+
+
+@pytest.fixture()
+def bridge_pair(jroot, tmp_path, monkeypatch):
+    monkeypatch.setenv("TFS_BRIDGE_PIPELINE_PATHS", str(tmp_path))
+    s, c = _bridge()
+    yield s, c
+    c.close()
+    s.close(drain_s=1.0)
+
+
+def test_bridge_session_lost_is_typed(jroot):
+    from tensorframes_tpu_torch.bridge.client import SessionLost
+
+    s1, c1 = _bridge()
+    c1.ping()
+    token = c1.session_token
+    assert token
+    c1.close()
+    s1.close(drain_s=0.5)
+    s2, c2 = _bridge()  # a "restarted" server: no sessions
+    with c2._lock:
+        c2._teardown_locked()
+    c2.session_token = token
+    with pytest.raises(SessionLost):
+        c2.ping()
+    assert c2.session_token is None  # the next call starts a new session
+    assert c2.ping()
+    c2.close()
+    s2.close(drain_s=0.5)
+
+
+def test_bridge_pipeline_resume_across_restart(jroot, tmp_path, src_parquet, monkeypatch):
+    monkeypatch.setenv("TFS_BRIDGE_PIPELINE_PATHS", str(tmp_path))
+    spec = _wire_spec(src_parquet)
+    with pytest.raises(Exception, match="simulated crash"):
+        relational.run_stream_pipeline(_flaky_stream(src_parquet, FAIL_AT),
+                                       stages=spec["stages"], job_id="bp", device=CPU)
+    ref = relational.run_stream_pipeline(**spec, device=CPU)
+    s, c = _bridge()
+    try:
+        assert c.health()["journal"]["configured"] is True
+        c0 = obs.counters()
+        r = c.run_pipeline(spec["source"], spec["stages"], job_id="bp")
+        delta = obs.counters_delta(c0)
+        assert delta["stream_windows"] == N_WINDOWS - FAIL_AT
+        assert delta["journal_windows_skipped"] == FAIL_AT
+        got = r["frame"].collect()
+        for n in ref["frame"].column_names:
+            assert np.asarray(got[n]).tobytes() == _bytes(ref["frame"].column(n).data)
+        assert c.job_status("bp")["status"] == "complete"
+        c0 = obs.counters()
+        r2 = c.run_pipeline(spec["source"], spec["stages"], job_id="bp")
+        assert r2.get("resumed") is True
+        assert obs.counters_delta(c0)["stream_windows"] == 0
+        assert np.asarray(r2["frame"].collect()["y"]).tobytes() == _bytes(
+            ref["frame"].column("y").data)
+    finally:
+        c.close()
+        s.close(drain_s=1.0)
+
+
+def test_bridge_job_active_and_status(bridge_pair, src_parquet):
+    from tensorframes_tpu_torch.bridge.client import JobActive as ClientJobActive
+
+    _, c = bridge_pair
+    assert c.job_status("nothing")["status"] == "absent"
+    w = JobJournal(recovery.journal_dir()).adopt("busy", "pipeline", "whatever")
+    try:
+        st = c.job_status("busy")
+        assert st["status"] == "running" and st["active_in_process"]
+        with pytest.raises(ClientJobActive) as ei:
+            c.run_pipeline(**_wire_spec(src_parquet), job_id="busy")
+        assert ei.value.code == "job_active" and ei.value.payload["retry_after_ms"] == 250
+    finally:
+        w.close()
+
+
+def test_bridge_idem_retry_composes_with_journal(jroot, tmp_path, src_parquet, monkeypatch):
+    """A dropped reply on a durable pipeline: the retry is served from the
+    session's idempotency cache, so the windows ran exactly once."""
+    monkeypatch.setenv("TFS_BRIDGE_PIPELINE_PATHS", str(tmp_path))
+    monkeypatch.setenv("TFS_FAULT_INJECT", "bridge_drop:method=pipeline:call=0")
+    s, c = _bridge(backoff_s=0.02)
+    try:
+        spec = _wire_spec(src_parquet)
+        c0 = obs.counters()
+        r = c.run_pipeline(spec["source"], spec["stages"], job_id="bi")
+        delta = obs.counters_delta(c0)
+        assert delta["stream_windows"] == N_WINDOWS
+        assert delta["bridge_idem_hits"] == 1
+        assert delta["bridge_retries"] >= 1
+        assert recovery.job_status("bi")["status"] == "complete"
+        assert r["rows"] == ROWS
+    finally:
+        monkeypatch.setenv("TFS_FAULT_INJECT", "")
+        c.close()
+        s.close(drain_s=1.0)
 
 
 # ---------------------------------------------------------------------------

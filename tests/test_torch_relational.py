@@ -12,9 +12,8 @@ inputs.
 * re-keying a frame >= 4x ``TFS_HOST_BUDGET`` keeps ``peak_host_bytes`` at
   the budget; ``check`` gives JAX's TFS14x codes;
 * pipelines run source -> map -> join -> aggregate with per-window ledgers
-  that sum to the request's (the bridge's ``pipeline`` RPC, its path
-  allowlist and its wire errors wait for ROADMAP.md Queue 1 item 12: their
-  twins here run the same pipeline in process);
+  that sum to the request's, in process and over the bridge's ``pipeline``
+  RPC (its path allowlist and its TFS14x codes on the wire too);
 * a windowed frame's host columns release under a spill-backed cache.
 """
 
@@ -623,9 +622,100 @@ def test_bridge_check_relational():
     assert tft.check(left, None, "shuffle", keys=["k"]) == []
 
 
-# test_bridge_pipeline_contract_refusal (the code on the wire) and
-# test_bridge_pipeline_path_outside_allowlist_refused (the server's path
-# allowlist) are the bridge's own: ROADMAP.md Queue 1 item 12.
+# -- the bridge pipeline cases over the port's server -------------------------
+
+
+@pytest.fixture()
+def bridge(tmp_path, monkeypatch):
+    from tensorframes_tpu_torch.bridge import BridgeClient, serve
+
+    # path-based pipeline sources/sinks are allowlisted per operator
+    # (TFS_BRIDGE_PIPELINE_PATHS); this test dir is the allowed root
+    monkeypatch.setenv("TFS_BRIDGE_PIPELINE_PATHS", str(tmp_path))
+    s = serve(device=CPU)
+    c = BridgeClient(*s.address, tenant="rel-t", timeout_s=60.0)
+    yield c
+    c.close()
+    s.close(drain_s=1.0)
+
+
+def test_bridge_pipeline_rpc_end_to_end_with_attribution(pq_path, build_frame, bridge):
+    build = bridge.create_frame(
+        {n: _np(build_frame.column(n).data) for n in ("k", "w")}).analyze()
+    r = bridge.run_pipeline(
+        {"parquet": pq_path, "window_rows": WINDOW},
+        stages=[{"op": "map_rows", "graph": _map_graph(), "fetches": ["y"]},
+                {"op": "join", "on": "k", "build_frame_id": build.frame_id},
+                {"op": "aggregate", "keys": ["k"], "graph": _agg_graph(),
+                 "fetches": ["y", "w"]}])
+    assert r["rows"] == N_ROWS
+    assert r["window_count"] == (N_ROWS + WINDOW - 1) // WINDOW
+    cid = bridge.last_correlation_id
+    cols = r["frame"].collect()
+    got = {int(k): (np.asarray(y).tobytes(), float(w))
+           for k, y, w in zip(np.asarray(cols["k"]), cols["y"], np.asarray(cols["w"]))}
+    assert got == _agg_dict(_pipeline_reference(pq_path, build_frame))
+    assert all(w["correlation_id"].startswith(cid + ":w") for w in r["windows"])
+    led = bridge.attribution(cid)["ledger"]
+    assert led is not None
+    summed = {}
+    for w in r["windows"]:
+        for key, n in w["counters"].items():
+            summed[key] = summed.get(key, 0) + n
+    for key, n in summed.items():
+        assert led["counters"].get(key, 0) == n, key
+    extra = {key for key, n in led["counters"].items() if n and not summed.get(key)}
+    assert extra <= {"bridge_verbs_executed"}, extra
+
+
+def test_bridge_pipeline_rpc_deadline(pq_path, bridge):
+    from tensorframes_tpu_torch.bridge.client import DeadlineExceeded
+
+    build = bridge.create_frame({"k": np.arange(KEYS, dtype=np.int64),
+                                 "w": np.arange(KEYS, dtype=np.float64)}).analyze()
+    with pytest.raises(DeadlineExceeded):
+        bridge.run_pipeline(
+            {"parquet": pq_path, "window_rows": 50},
+            stages=[{"op": "map_rows", "graph": _map_graph(), "fetches": ["y"]},
+                    {"op": "join", "on": "k", "build_frame_id": build.frame_id}],
+            sink={"kind": "collect"}, deadline_ms=1)
+    assert bridge.call("schema", frame_id=build.frame_id)["schema"]
+
+
+def test_bridge_pipeline_contract_refusal(pq_path, bridge):
+    from tensorframes_tpu_torch.bridge.client import BridgeError
+
+    build = bridge.create_frame({"k": np.arange(KEYS, dtype=np.int64)}).analyze()
+    with pytest.raises(BridgeError) as ei:
+        bridge.run_pipeline({"parquet": pq_path},
+                            stages=[{"op": "join", "on": "zz", "build_frame_id": build.frame_id}])
+    assert ei.value.code == "TFS140"  # the TFSxxx code rides the wire
+
+
+def test_bridge_pipeline_path_outside_allowlist_refused(pq_path, bridge, monkeypatch, tmp_path):
+    from tensorframes_tpu_torch.bridge.client import BridgeError
+
+    with pytest.raises(BridgeError) as ei:
+        bridge.run_pipeline({"parquet": pq_path}, stages=[],
+                            sink={"kind": "parquet", "path": "/etc/tfs-evil.parquet"})
+    assert "TFS_BRIDGE_PIPELINE_PATHS" in str(ei.value)
+    monkeypatch.setenv("TFS_BRIDGE_PIPELINE_PATHS", "")
+    with pytest.raises(BridgeError):
+        bridge.run_pipeline({"parquet": pq_path}, stages=[])
+    monkeypatch.setenv("TFS_BRIDGE_PIPELINE_PATHS", str(tmp_path))
+    f = bridge.create_frame({"k": np.arange(4, dtype=np.int64)}).analyze()
+    assert bridge.run_pipeline({"frame_id": f.frame_id, "window_rows": 2}, stages=[])["rows"] == 4
+
+
+def test_bridge_check_relational_over_the_wire(bridge):
+    left = bridge.create_frame({"k": np.arange(4, dtype=np.int64),
+                                "v": np.arange(4.0)}).analyze()
+    right = bridge.create_frame({"k": np.arange(4, dtype=np.int64),
+                                 "w": np.arange(4.0)}).analyze()
+    assert left.check("join", keys=["k"], right=right) == []
+    d = left.check("join", keys=["v"], right=right)
+    assert d and d[0]["code"] == "TFS140"
+    assert left.check("shuffle", keys=["k"]) == []
 
 
 # ---------------------------------------------------------------------------

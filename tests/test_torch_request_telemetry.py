@@ -2,8 +2,9 @@
 ``doctor.py``): the twins of ``tests/test_request_telemetry.py``'s ledger,
 slow-request, tenant-metric, doctor and histogram cases.
 
-The bridge cases (``:193-347``: the attribution RPC and the idempotent
-retry's history) wait for the bridge (ROADMAP.md Queue 1 item 12); the
+The bridge cases (``:193-347``: the attribution RPC, one correlation id
+across a request's bridge, engine and fault events, the idempotent
+retry's history, server-minted ids) run on the port's server; the
 streaming window events (``:591-637``) have their twins in
 ``test_torch_stream_frames.py``; ``explain(analyze=True)`` (``:415-478``)
 runs on the planner.
@@ -259,6 +260,150 @@ def test_sharded_cache_is_charged_to_the_requesting_tenant(monkeypatch):
 _QUIET = dict(shuffles=[], plans=[], artifacts={}, fleet={}, decode={})
 
 
+# -- the bridge: correlation ids and the attribution RPC ----------------------
+
+
+def _serve():
+    from tensorframes_tpu_torch.bridge import serve
+
+    return serve(device="cpu")
+
+
+def _client(srv, **kw):
+    from tensorframes_tpu_torch.bridge import BridgeClient
+
+    return BridgeClient(*srv.address, timeout_s=60.0, **kw)
+
+
+def _add3_graph():
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+
+    g = GraphBuilder()
+    g.placeholder("x", "float64", [-1])
+    g.const("three", np.float64(3.0))
+    g.op("Add", "z", ["x", "three"])
+    return g.to_bytes()
+
+
+def test_idem_retry_does_not_overwrite_attribution():
+    srv = _serve()
+    try:
+        executed = obs.RequestLedger("samecid01")
+        executed.add("bridge_verbs_executed", 1)
+        executed.add("h2d_bytes_staged", 4096)
+        executed.finish()
+        srv._record_attribution(executed)
+        replay = obs.RequestLedger("samecid01")
+        replay.add("bridge_idem_hits", 1)
+        replay.finish()
+        srv._record_attribution(replay)
+        snap = srv.attribution_snapshot("samecid01")["ledger"]
+        assert snap["counters"]["h2d_bytes_staged"] == 4096
+        assert snap["counters"]["bridge_verbs_executed"] == 1
+        executed2 = obs.RequestLedger("samecid01")
+        executed2.add("bridge_verbs_executed", 1)
+        executed2.add("h2d_bytes_staged", 8192)
+        executed2.finish()
+        srv._record_attribution(executed2)
+        assert srv.attribution_snapshot("samecid01")["ledger"]["counters"][
+            "h2d_bytes_staged"] == 8192
+    finally:
+        srv.close(drain_s=0.2)
+
+
+def test_bridge_request_attribution_with_deadline_and_faults(monkeypatch):
+    """A deadline-carrying bridge verb under an injected transient: its
+    ledger equals the counters delta, with one correlation id across its
+    bridge, engine and fault events."""
+    monkeypatch.setenv("TFS_BLOCK_RETRIES", "2")
+    monkeypatch.setenv("TFS_FAULT_INJECT", "transient:block=1:attempt=0")
+    obs.enable_trace()
+    srv = _serve()
+    try:
+        with _client(srv, tenant="acme") as client:
+            rf = client.create_frame({"x": np.arange(24.0)}, num_blocks=3).analyze()
+            before = obs.counters()
+            out = rf.map_blocks(_add3_graph(), fetches=["z"], deadline_ms=60000)
+            delta = obs.counters_delta(before)
+            cid = client.last_correlation_id
+            att = client.attribution(cid)
+            assert att["found"], att
+            led = att["ledger"]
+            assert (led["correlation_id"], led["tenant"], led["method"]) == (
+                cid, "acme", "bridge:map_blocks")
+            for key in ("h2d_bytes_staged", "block_retries", "pool_blocks",
+                        "faults_injected", "program_traces"):
+                assert led["counters"].get(key, 0) == delta[key], key
+            assert led["counters"]["block_retries"] == 1
+            assert led["counters"]["faults_injected"] == 1
+            assert sum(led["blocks_per_device"].values()) == 3
+            evs = [e for e in obs.trace_events() if e.get("args", {}).get("cid") == cid]
+            tracks = {e["track"] for e in evs}
+            names = {e["name"].split(" ")[0] for e in evs}
+            assert any(t.startswith("bridge/") for t in tracks)
+            assert "cpu" in tracks  # the engine's block events, on the device track
+            assert "faults" in tracks and "retry" in names
+            np.testing.assert_allclose(out.collect()["z"], np.arange(24.0) + 3.0)
+    finally:
+        obs.disable_trace()
+        srv.close(drain_s=0.5)
+
+
+def test_bridge_attribution_unknown_cid_and_recent():
+    srv = _serve()
+    try:
+        with _client(srv) as client:
+            rf = client.create_frame({"x": np.arange(8.0)}, num_blocks=2)
+            att = client.attribution("no-such-cid")
+            assert att["found"] is False and att["ledger"] is None
+            recent = client.attribution()["recent"]
+            assert recent and recent[-1]["method"] == "bridge:create_frame"
+            assert all("correlation_id" in r for r in recent)
+            rf.release()
+    finally:
+        srv.close(drain_s=0.5)
+
+
+def test_last_correlation_id_survives_safe_calls():
+    srv = _serve()
+    try:
+        with _client(srv) as client:
+            client.create_frame({"x": np.arange(8.0)}, num_blocks=2)
+            cid = client.last_correlation_id
+            assert cid is not None and client.attribution(cid)["found"]
+            client.ping()
+            client.metrics()
+            assert client.last_correlation_id == cid
+            assert client.attribution(client.last_correlation_id)["found"]
+    finally:
+        srv.close(drain_s=0.5)
+
+
+def test_bridge_server_mints_cid_for_legacy_clients():
+    import socket
+
+    from tensorframes_tpu_torch.bridge.protocol import (
+        encode_value, read_message, write_message)
+
+    srv = _serve()
+    try:
+        sock = socket.create_connection(srv.address, timeout=60)
+        rf, wf = sock.makefile("rb"), sock.makefile("wb")
+        bins = []
+        write_message(wf, {"id": 1, "method": "create_frame", "params": encode_value(
+            {"columns": {"x": np.arange(4.0)}, "num_blocks": 1}, bins)}, bins)
+        resp, _ = read_message(rf)
+        assert "result" in resp, resp
+        sock.close()
+        with _client(srv) as client:
+            recent = client.attribution()["recent"]
+        legacy = [r for r in recent if r["method"] == "bridge:create_frame"]
+        assert legacy and legacy[-1]["correlation_id"]
+        assert legacy[-1]["tenant"] is None
+    finally:
+        srv.close(drain_s=0.5)
+
+
 def _healthy_counters():
     c = {k: 0 for k in obs.counters() if k != "by_verb"}
     c["by_verb"] = {}
@@ -391,10 +536,11 @@ def test_doctor_render_matches_jax_for_diagnostics():
 
 def test_doctor_reads_live_state_and_names_unported_sections():
     assert isinstance(tft.doctor(), list)
-    # the planner, the relational layer and the janitor have landed: their
-    # sections are read live; only the bridge's wait (item 12)
-    assert doctor_mod.not_ported() == ["fleet", "decode"]
-    assert "not ported yet, read as empty: fleet, decode" in doctor_mod.render([])
+    # the planner, the relational layer, the janitor and the decode
+    # scheduler have landed: their sections are read live; only the
+    # fleet's waits (item 12b)
+    assert doctor_mod.not_ported() == ["fleet"]
+    assert "not ported yet, read as empty: fleet" in doctor_mod.render([])
 
 
 def test_doctor_raises_on_a_broken_ported_section(monkeypatch):

@@ -1,7 +1,7 @@
 """The port's flight recorder, latency histograms and metrics exposition
-(``observability.py``): the twins of the non-bridge cases of
-``tests/test_trace_metrics.py``, and the same bounds, quantiles and
-metric families as the JAX package's.
+(``observability.py``): the twins of the cases of
+``tests/test_trace_metrics.py`` (the bridge's over the port's server), and
+the same bounds, quantiles and metric families as the JAX package's.
 
 The suite runs with ``TFS_TRACE`` pinned off (conftest); the tests drive
 the recorder through the API, which wins over the env."""
@@ -440,3 +440,71 @@ def test_last_spans_deep_copies_nested_dicts():
         assert live["phases_s"]["validate"] != -1.0
     finally:
         obs.disable()
+
+
+# -- the bridge's metrics, latency labels and request events -------------------
+
+
+def _serve():
+    from tensorframes_tpu_torch.bridge import serve
+
+    return serve(device="cpu")
+
+
+def _client(server):
+    from tensorframes_tpu_torch.bridge import BridgeClient
+
+    return BridgeClient(*server.address, timeout_s=60.0)
+
+
+def test_bridge_metrics_rpc_and_health_gauges():
+    server = _serve()
+    try:
+        with _client(server) as c:
+            rf = c.create_frame({"x": np.arange(16.0)}, num_blocks=2)
+            rf.collect()
+            gauges = c.health()["gauges"]
+            assert {"live_host_bytes", "peak_host_bytes", "trace_events",
+                    "trace_drops"} <= set(gauges)
+            text = c.metrics()
+            assert 'tfs_bridge_latency_seconds_bucket{method="collect"' in text
+            assert "tfs_bridge_inflight" in text
+            assert 'method="metrics"' not in text  # recorded after the reply
+            snap = obs.latency_snapshot()
+            assert snap["bridge:collect"]["count"] >= 1
+            assert snap["bridge:health"]["count"] >= 1
+    finally:
+        server.close()
+
+
+def test_bridge_unknown_methods_share_one_latency_label():
+    from tensorframes_tpu_torch.bridge.client import BridgeError
+
+    obs.reset_latency()
+    server = _serve()
+    try:
+        with _client(server) as c:
+            for i in range(3):
+                with pytest.raises(BridgeError):
+                    c.call(f"no_such_method_{i}")
+        snap = obs.latency_snapshot()
+        assert snap["bridge:unknown"]["count"] == 3
+        assert not any(k.startswith("bridge:no_such_method") for k in snap)
+    finally:
+        server.close()
+        obs.reset_latency()
+
+
+def test_bridge_request_trace_events():
+    obs.enable_trace()
+    server = _serve()
+    try:
+        with _client(server) as c:
+            rf = c.create_frame({"x": np.arange(8.0)})
+            rf.collect()
+        names = {e["name"] for e in obs.trace_events() if e["track"].startswith("bridge/")}
+        for phase in ("request ", "admit ", "execute "):
+            assert any(n.startswith(phase) for n in names), names
+    finally:
+        obs.disable_trace()
+        server.close()
