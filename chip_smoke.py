@@ -237,7 +237,8 @@ Phases, each printing its own lines and then its command time (``phase:``):
    program through ``serialize`` and ``deserialize_program`` run by
    ``map_blocks`` (64 launches, nll against the live program: equal, or
    within 1e-5), with the artifact's bytes and the export and load
-   seconds; (f) two processes each warm the scoring program on one block
+   seconds; (f) two processes each warm the scoring program, cut to
+   ``COLD_START_LAYERS`` layers at the same widths, on one block
    against one fresh ``TFS_COMPILE_CACHE``: the first builds
    ``flash_fwd`` (``backend_compiles`` >= 1), the second builds nothing
    and loads it (``persistent_cache_hits`` >= 1), with the same
@@ -300,7 +301,33 @@ Phases, each printing its own lines and then its command time (``phase:``):
    rows) equal byte for byte to in-process ``run_stream_pipeline``, its
    window ledgers summing to the request's, ``metrics`` carrying the
    bridge's latency family; no flash kernel launches in the phase;
-15. the card's line again, the kernels' JSON record (each kernel at the
+15. fleet (after the bridge phase): the bridge fleet on the card, every
+   client a ``FleetClient``: (a) three replica processes
+   (``python -m tensorframes_tpu_torch.bridge.replica --device cuda``)
+   sharing one journal, compile cache, fleet registry and pipeline root;
+   8 clients with distinct keys each upload config 3's frame and run the
+   MLP GraphDef through ``map_blocks`` and ``map_rows``, each output
+   bit-identical to the verb in process, each key answered by the replica
+   the router names; each replica's seconds from spawn to healthy, the
+   sessions per replica and the doctor's ``fleet`` section; (b) the owner
+   of a durable pipeline over a 1,048,576 x 16 parquet file (8 windows of
+   131,072 rows: ``map_blocks``, ``aggregate``) SIGKILLed mid-job by the
+   ``replica_kill`` fault under 4 threads of small ``map_blocks`` traffic:
+   no failed request, the client failed over, the job resumed on a peer
+   (``fleet_jobs_migrated`` 1, the peer skipping every journaled window and
+   running the rest), byte-equal to in-process ``run_stream_pipeline``,
+   ``job_status`` complete; the seconds from the kill to the resumed
+   result; (c) the victim restarted, then a rolling restart of the three
+   under 2 traffic threads: no failed request, every restart counted,
+   every replica healthy, each serving the pipeline with no
+   ``backend_compiles`` and no ``persistent_cache_misses``; each replica's
+   SIGTERM-to-healthy seconds; (d) decode config 8 (bf16) behind a
+   two-replica thread fleet: 8 streams of 32-token prompts and 128 new
+   tokens, one replica drained mid-run, sessions opened after the drain on
+   the survivor, every stream whole and equal to its solo ``generate`` up
+   to the first top-2 gap under ``DECODE_GAP``; tokens/s and p50/p99
+   seconds a stream; no flash kernel launches in the phase;
+16. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -3995,7 +4022,11 @@ def phase_observability(slice_prog):
 # 5's logistic regression as a planned epochs loop
 PLAN_ROWS, PLAN_L, PLAN_BLOCKS = 64, 2048, 8
 PLAN_EPOCHS, PLAN_LR = 4, 0.5
-# leg (f): one process warms the scoring program against the compile cache
+# leg (f): one process warms the scoring program against the compile cache,
+# at the flagship's widths cut to this depth (the leg measures the cache and
+# the process's warm-up, which more layers only lengthen; its launches are
+# the processes', counted nowhere in this one)
+COLD_START_LAYERS = 2
 COLD_START_CODE = r"""
 import json, sys, time
 t0 = time.perf_counter()
@@ -4244,7 +4275,8 @@ def phase_planner(slice_prog):
         for _ in range(2):
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [sys.executable, "-c", COLD_START_CODE, json.dumps(cfg_kw), str(block_rows),
+                [sys.executable, "-c", COLD_START_CODE,
+                 json.dumps(dict(cfg_kw, n_layers=COLD_START_LAYERS)), str(block_rows),
                  str(L)], cwd=root, env=env, capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:
                 raise AssertionError(f"cold-start process failed:\n{proc.stderr[-4000:]}")
@@ -4255,7 +4287,8 @@ def phase_planner(slice_prog):
     if cold["backend_compiles"] < 1 or warm["backend_compiles"] != 0 \
             or warm["persistent_cache_hits"] < 1 or cold["fingerprints"] != warm["fingerprints"]:
         raise AssertionError(f"cold start: {runs}")
-    say("planner", leg="f_cold_start", first=cold, second=warm, kernel_files=kernels,
+    say("planner", leg="f_cold_start", layers=COLD_START_LAYERS, first=cold, second=warm,
+        kernel_files=kernels,
         first_over_second=cold["process_s"] / warm["process_s"])
     return total
 
@@ -4638,6 +4671,47 @@ def run_threads(n, fn, timeout_s=BRIDGE_TIMEOUT_S):
         raise errs[0]
 
 
+def held_to_solo(params, cfg, prompts, news, streamed, cap):
+    """Each scheduled stream ``streamed[k]`` against its solo ``generate``
+    of ``news[k]`` tokens from ``prompts[k]`` at the scheduler's capacity
+    ``cap``, up to the solo run's first near-tie (top-2 gap under
+    ``DECODE_GAP``: the rule of ``phase_decode`` (a)).  Raises when a
+    stream differs before that point; returns (tokens held, streams equal
+    to solo throughout)."""
+    from tensorframes_tpu_torch.models import decode
+
+    gaps = []
+    real_apply = decode.apply_cached
+
+    def recording(*a, **kw):
+        logits, cache = real_apply(*a, **kw)
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        gaps.append(top2[0] - top2[1])  # read after the run: no sync a step
+        return logits, cache
+
+    held, exact, diverged = 0, 0, []
+    decode.apply_cached = recording
+    try:
+        for k in range(len(prompts)):
+            gaps.clear()
+            solo = decode.generate(params, torch.from_numpy(prompts[k][None]).cuda(), cfg,
+                                   int(news[k]), cache_len=cap)
+            solo = solo[0, len(prompts[k]):].tolist()
+            gap = torch.stack(gaps).tolist()
+            first_tie = next((i for i, g in enumerate(gap) if g < DECODE_GAP), len(gap))
+            if streamed[k][:first_tie] != solo[:first_tie]:
+                i = next(i for i in range(first_tie) if streamed[k][i] != solo[i])
+                diverged.append(dict(stream=k, position=i, gap=gap[i]))
+            held += first_tie
+            exact += int(streamed[k] == solo)
+    finally:
+        decode.apply_cached = real_apply
+    if diverged:
+        raise AssertionError(f"decode: streams differ from solo generate before a near-tie: "
+                             f"{diverged}")
+    return held, exact
+
+
 def phase_bridge():
     """Legs (a)-(e) of serving over the bridge (the module docstring's
     phase 14).  Every server runs on the card in a thread of this process,
@@ -4653,7 +4727,6 @@ def phase_bridge():
     from tensorframes_tpu_torch.bridge import coalescer
     from tensorframes_tpu_torch.graphdef import import_graphdef
     from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
-    from tensorframes_tpu_torch.models import decode
     from tensorframes_tpu_torch.models import transformer as tfm
     from tensorframes_tpu_torch.parallel import flash
 
@@ -4847,35 +4920,7 @@ def phase_bridge():
             raise AssertionError("decode: a stream ended short")
         # each stream against its solo generate at the scheduler's capacity,
         # up to the solo run's first near-tie (top-2 gap under DECODE_GAP)
-        gaps = []
-        real_apply = decode.apply_cached
-
-        def recording(*a, **kw):
-            logits, cache = real_apply(*a, **kw)
-            top2 = torch.topk(logits[0, -1].float(), 2).values
-            gaps.append(top2[0] - top2[1])  # read after the run: no sync a step
-            return logits, cache
-
-        held, exact, diverged = 0, 0, []
-        decode.apply_cached = recording
-        try:
-            for k in range(BRIDGE_STREAMS):
-                gaps.clear()
-                solo = decode.generate(params, torch.from_numpy(prompts[k][None]).cuda(), cfg,
-                                       int(news[k]), cache_len=sched.cap)
-                solo = solo[0, lens[k]:].tolist()
-                gap = torch.stack(gaps).tolist()
-                first_tie = next((i for i, g in enumerate(gap) if g < DECODE_GAP), len(gap))
-                if streamed[k][:first_tie] != solo[:first_tie]:
-                    i = next(i for i in range(first_tie) if streamed[k][i] != solo[i])
-                    diverged.append(dict(stream=k, position=i, gap=gap[i]))
-                held += first_tie
-                exact += int(streamed[k] == solo)
-        finally:
-            decode.apply_cached = real_apply
-        if diverged:
-            raise AssertionError(f"decode: streams differ from solo generate before a near-tie: "
-                                 f"{diverged}")
+        held, exact = held_to_solo(params, cfg, prompts, news, streamed, sched.cap)
         # a span the free pages cannot hold: refused as server_busy, reason pages
         need = -(-int(lens[0] + news[0]) // sched.pool.tokens_per_page)
         hold, _ = sched.pool.allocate(sched.pool.free_count() - (need - 1))
@@ -5092,6 +5137,519 @@ def phase_bridge():
     return launches
 
 
+# --- the bridge fleet (phase 15) ---------------------------------------------
+FLEET_SIZE, FLEET_CLIENTS = 3, 8  # legs (a)-(c): process replicas; (a) FleetClients
+FLEET_TRAFFIC_ROWS = 64  # legs (b), (c): the rows of each traffic map_blocks
+# leg (b): the victim's durable pipeline is SIGKILLed FLEET_KILL_MS after it
+# starts, and every engine dispatch on the victim first sleeps
+# FLEET_DELAY_MS, so each of the 8 windows takes at least that long (its
+# map_blocks and its aggregate each dispatch): the first boundary is
+# journaled within ~2 x 200 ms plus the window's own work, well before
+# 1000 ms, and the job cannot end before 8 x 200 = 1600 ms, after the kill
+FLEET_KILL_MS, FLEET_DELAY_MS = 1000, 200
+# (b)-(c): a restart can count three flaps in the router (the poll's down
+# transition, the new epoch, and a client's connection to the old process
+# failing after the new one answers on the same port), so the victim's kill
+# and two restarts make up to seven inside the router's 60 s window; planned
+# restarts must not quarantine it
+FLEET_QUARANTINE_AFTER = 8
+FLEET_TRAFFIC_PAUSE_S = 0.02  # between one traffic thread's requests
+FLEET_STREAMS, FLEET_PROMPT, FLEET_NEW, FLEET_SLOTS = 8, 32, 128, 8  # leg (d)
+FLEET_READY_S = 180.0  # a replica's spawn-to-healthy limit
+
+
+def fleet_keys(names, n):
+    """``n`` routing keys for each of ``names``, each owned (rendezvous,
+    all eligible) by its name."""
+    from tensorframes_tpu_torch.bridge import fleet
+
+    keys = {name: [] for name in names}
+    i = 0
+    while min(len(v) for v in keys.values()) < n:
+        k = f"smoke-{i}"
+        owner = max(names, key=lambda name: fleet._rendezvous_score(name, k))
+        if len(keys[owner]) < n:
+            keys[owner].append(k)
+        i += 1
+    return keys
+
+
+class FleetTraffic:
+    """``n`` threads of small ``map_blocks`` requests through FleetClients
+    (keys ``<prefix>-<i>``) until :meth:`stop`; each result must equal
+    ``want`` byte for byte.  A frame does not follow a failover (the new
+    replica opens a fresh session), so after one a thread uploads its frame
+    again: counted in ``reuploads``, not failed."""
+
+    def __init__(self, router, n, graph, fetches, cols, want, prefix):
+        import threading
+
+        self.args = (router, graph, fetches, cols, want, prefix)
+        self.halt = threading.Event()
+        self.errors = []
+        self.counts = {"requests": 0, "reuploads": 0, "failovers": 0}
+        self.lock = threading.Lock()
+        self.threads = [threading.Thread(target=self.unit, args=(i,), daemon=True)
+                        for i in range(n)]
+        for t in self.threads:
+            t.start()
+
+    def unit(self, i):
+        from tensorframes_tpu_torch.bridge import BridgeError, FleetClient
+
+        router, graph, fetches, cols, want, prefix = self.args
+        try:
+            with FleetClient(router, key=f"{prefix}-{i}", timeout_s=BRIDGE_TIMEOUT_S) as tc:
+                rf, seen = None, -1
+                while not self.halt.is_set():
+                    if tc.client.failovers != seen:
+                        seen = tc.client.failovers
+                        rf = tc.create_frame(cols)
+                    try:
+                        out = rf.map_blocks(graph, fetches, inputs={"image": "pixels"})
+                        got = out.collect(columns=fetches)
+                        out.release()
+                    except BridgeError as e:
+                        if tc.client.failovers != seen and "unknown frame id" in str(e):
+                            with self.lock:
+                                self.counts["reuploads"] += 1
+                            continue
+                        raise
+                    if not all(same_bytes(got[k], want[k]) for k in fetches):
+                        raise AssertionError(f"traffic {prefix}-{i}: a result differs")
+                    with self.lock:
+                        self.counts["requests"] += 1
+                    time.sleep(FLEET_TRAFFIC_PAUSE_S)
+                with self.lock:
+                    self.counts["failovers"] += tc.client.failovers
+        except Exception as exc:  # noqa: BLE001 — stop() raises it
+            self.errors.append(exc)
+
+    def stop(self):
+        """Stop and join every thread; raises on any failed request.
+        Returns the counts."""
+        self.halt.set()
+        for t in self.threads:
+            t.join(BRIDGE_TIMEOUT_S)
+            if t.is_alive():
+                raise AssertionError("a traffic thread did not finish")
+        if self.errors:
+            raise AssertionError(f"traffic requests failed: {self.errors!r}")
+        return dict(self.counts)
+
+
+def phase_fleet():
+    """Legs (a)-(d) of the bridge fleet (the module docstring's phase 15):
+    replicas on the card, in processes of their own for (a)-(c) and in
+    threads of this process for (d), every client a ``FleetClient``.
+    Returns the flash launches of the phase (none may happen)."""
+    import tempfile
+    import threading
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch import relational
+    from tensorframes_tpu_torch.bridge import BridgeFleet, FleetClient
+    from tensorframes_tpu_torch.bridge import fleet as fleet_mod
+    from tensorframes_tpu_torch.graphdef import import_graphdef
+    from tensorframes_tpu_torch.graphdef.builder import GraphBuilder
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    doctor_mod = sys.modules["tensorframes_tpu_torch.doctor"]
+    flash.reset_launches()
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    base_env = {
+        "TFS_JOURNAL_DIR": os.path.join(root, "journal"),
+        "TFS_COMPILE_CACHE": os.path.join(root, "cache"),
+        "TFS_FLEET_REGISTRY": os.path.join(root, "registry"),
+        "TFS_BRIDGE_PIPELINE_PATHS": os.path.join(root, "data"),
+        "TFS_FAULT_INJECT": "",
+        # the replicas share a Python bytecode cache as they share the
+        # compile cache: an interpreter that writes none compiles torch's
+        # modules from source at every start, a replica's import and its
+        # tracer warm-up (``replica.warm_interpreter``) included
+        "PYTHONDONTWRITEBYTECODE": "",
+        "PYTHONPYCACHEPREFIX": os.path.join(root, "pycache"),
+    }
+    os.makedirs(base_env["TFS_BRIDGE_PIPELINE_PATHS"])
+    fleets, routers = [], []
+
+    def start(**kw):
+        """A process fleet on the card, started on a thread of its own so
+        this one works meanwhile; ``join`` waits for it (and raises its
+        error)."""
+        fl = BridgeFleet(FLEET_SIZE, base_env=base_env, log_dir=os.path.join(root, "logs"),
+                         ready_timeout_s=FLEET_READY_S, device="cuda", **kw)
+        fleets.append(fl)
+        errs = []
+
+        def run():
+            try:
+                fl.start()
+            except BaseException as e:  # noqa: BLE001 — raised by join
+                errs.append(e)
+
+        starter = threading.Thread(target=run, daemon=True)
+        starter.start()
+
+        def join():
+            starter.join(FLEET_SIZE * FLEET_READY_S)
+            if errs or starter.is_alive():
+                raise AssertionError(f"fleet start: {errs!r}")
+            return fl
+
+        return join
+
+    def router_of(fl, **kw):
+        r = fl.router(health_s=0.2, **kw)
+        routers.append(r)
+        return r
+
+    try:
+        # (a) routing at full width: 8 FleetClients with distinct keys each
+        # upload config 3's frame and run the MLP GraphDef through map_blocks
+        # and map_rows, each output bit-identical to the verb in process
+        feats = np.random.RandomState(0).rand(MLP_ROWS, MLP_SIZES[0]).astype(np.float32)
+        frame = tft.TensorFrame.from_arrays({"pixels": feats}, num_blocks=VERB_BLOCKS)
+        inputs = {"image": "pixels"}
+        graphs = {"map_rows": mlp_graph(0, rows_level=True),
+                  "map_blocks": mlp_graph(0, rows_level=False)}
+        joining = start()
+        want = {verb: getattr(tft, verb)(import_graphdef(g, fetches=f, inputs=inputs,
+                                                         device="cuda"), frame).to_arrays()
+                for verb, (g, f) in graphs.items()}
+        fl = joining()
+        started = fl.timings()
+        router = router_of(fl)
+        names = [n for n, _, _ in fl.replicas()]
+        answered, walls = {}, {}
+        hold = threading.Barrier(FLEET_CLIENTS + 1)
+
+        def session(k):
+            key = f"route-{k}"
+            try:
+                with FleetClient(router, key=key, timeout_s=BRIDGE_TIMEOUT_S) as fc:
+                    t0 = time.perf_counter()
+                    rf = fc.create_frame({"pixels": feats}, num_blocks=VERB_BLOCKS)
+                    for verb, (g, f) in graphs.items():
+                        out = getattr(rf, verb)(g, f, inputs=inputs)
+                        got = out.collect(columns=f)
+                        out.release()
+                        for c in f:
+                            if not same_bytes(got[c], want[verb][c]):
+                                raise AssertionError(f"fleet {verb} {c} (key {key}): not "
+                                                     f"bit-identical to the in-process verb")
+                    walls[k] = time.perf_counter() - t0
+                    answered[key] = fc.health()["replica"]["name"]
+                    hold.wait(BRIDGE_TIMEOUT_S)  # every session open at the poll
+                    hold.wait(BRIDGE_TIMEOUT_S)
+            except BaseException:
+                hold.abort()  # the others stop waiting for this one
+                raise
+
+        def poll_while_held():
+            try:
+                hold.wait(BRIDGE_TIMEOUT_S)
+                router.poll_once()
+                hold.wait(BRIDGE_TIMEOUT_S)
+            except threading.BrokenBarrierError:
+                pass  # a session failed: run_threads raises its error
+
+        poller = threading.Thread(target=poll_while_held, daemon=True)
+        poller.start()
+        t0 = time.perf_counter()
+        run_threads(FLEET_CLIENTS, session)
+        total_s = time.perf_counter() - t0
+        poller.join(BRIDGE_TIMEOUT_S)
+        key = "smoke-durable"
+        victim = max(names, key=lambda n: fleet_mod._rendezvous_score(n, key))
+        # leg (b)'s fleet starts now: its spawn overlaps the checks below,
+        # this fleet's stop and the parquet source's making
+        joining = start(fault_env={victim: f"replica_kill:method=pipeline:call=1:"
+                                           f"ms={FLEET_KILL_MS};delay:ms={FLEET_DELAY_MS}"})
+        routed = {key: router.route(key).name for key in answered}
+        if routed != answered:
+            raise AssertionError(f"fleet routing: router {routed} != answering {answered}")
+        snap = router.snapshot()["replicas"]
+        sessions = {n: snap[n]["sessions"] for n in names}
+        section = doctor_mod._read_section("fleet", {})
+        if sorted(section.get("replicas", {})) != names:
+            raise AssertionError(f"doctor: the fleet section reads {section}")
+        say("fleet", leg="a_routing", replicas=FLEET_SIZE, clients=FLEET_CLIENTS,
+            rows=MLP_ROWS, frame_bytes=feats.nbytes, bit_identical=True,
+            routes_match_answering_replica=True,
+            start_s={n: started[n]["ready_s"] for n in names}, sessions=sessions,
+            seconds=total_s, mb_per_s_up=FLEET_CLIENTS * feats.nbytes / total_s / 1e6,
+            p50_s_a_client=float(np.percentile(list(walls.values()), 50)),
+            doctor_fleet=section)
+        fl.stop()
+        router.close()
+
+        # (b) chaos: SIGKILL the owner of a durable pipeline mid-job under 4
+        # traffic threads; the job migrates through the shared journal
+        try:
+            import pyarrow  # noqa: F401
+        except ImportError as e:
+            raise AssertionError(f"fleet leg (b) needs pyarrow for its parquet source: {e}")
+        prng = np.random.RandomState(21)
+        src = os.path.join(base_env["TFS_BRIDGE_PIPELINE_PATHS"], "pipe.parquet")
+        tft.TensorFrame.from_arrays({
+            "k": prng.randint(0, STREAM_DOCS, BRIDGE_PIPE_ROWS).astype(np.int64),
+            "x": prng.rand(BRIDGE_PIPE_ROWS, BRIDGE_PIPE_D).astype(np.float32),
+        }).to_parquet(src, row_group_size=BRIDGE_PIPE_WINDOW)
+        g = GraphBuilder()
+        g.placeholder("x", "float32", [-1, BRIDGE_PIPE_D])
+        g.const("two", np.float32(2.0))
+        g.op("Mul", "y", ["x", "two"])
+        map_g = g.to_bytes()
+        g = GraphBuilder()
+        g.placeholder("y_input", "float32", [-1, BRIDGE_PIPE_D])
+        g.const("axis", np.int32(0))
+        g.op("Sum", "y", ["y_input", "axis"])
+        agg_g = g.to_bytes()
+        # phase_bridge (e)'s chain without its join: a durable pipeline
+        # refuses a sort-merge join, and a registered build frame does not
+        # follow a failover
+        source = {"parquet": src, "window_rows": BRIDGE_PIPE_WINDOW}
+        stages = [{"op": "map_blocks", "graph": map_g, "fetches": ["y"]},
+                  {"op": "aggregate", "keys": ["k"], "graph": agg_g, "fetches": ["y"]}]
+        n_windows = -(-BRIDGE_PIPE_ROWS // BRIDGE_PIPE_WINDOW)
+        t0 = time.perf_counter()
+        ref = relational.run_stream_pipeline(source, stages=stages,
+                                             device="cuda")["frame"].to_arrays()
+        in_process_s = time.perf_counter() - t0
+        fl = joining()
+        router = router_of(fl, quarantine_after=FLEET_QUARANTINE_AFTER)
+        if router.route(key).name != victim:
+            raise AssertionError(f"fleet: {key} does not route to {victim}")
+        tcols = {"pixels": feats[:FLEET_TRAFFIC_ROWS]}
+        block_g, block_f = graphs["map_blocks"]
+        twant = tft.map_blocks(import_graphdef(block_g, fetches=block_f, inputs=inputs,
+                                               device="cuda"),
+                               tft.TensorFrame.from_arrays(tcols)).to_arrays()
+        traffic = FleetTraffic(router, 4, block_g, block_f, tcols, twant, "chaos")
+        c0 = obs.counters()
+        died = {}
+        proc = fl._replicas[victim].proc
+
+        def watch():
+            proc.wait()
+            died["t"] = time.perf_counter()
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        with FleetClient(router, key=key, timeout_s=BRIDGE_TIMEOUT_S) as fc:
+            t0 = time.perf_counter()
+            warm = fc.run_pipeline(source, stages)  # pipeline call 0 on the victim
+            warm_s = time.perf_counter() - t0
+            if warm["rows"] != BRIDGE_PIPE_ROWS:
+                raise AssertionError(f"fleet warm pipeline: {warm['rows']} rows")
+            r = fc.run_pipeline(source, stages, job_id="smoke-chaos")
+            done = time.perf_counter()
+            chaos_traffic = traffic.stop()
+            got = r["frame"].collect()
+            h = fc.health()
+            status = fc.job_status("smoke-chaos")["status"]
+            failovers = fc.client.failovers
+        watcher.join(10)  # the victim is dead by now, unless the kill never came
+        delta = obs.counters_delta(c0)
+        hc = h["counters"]
+        checks = {
+            "failovers >= 1": failovers >= 1,
+            "resumed": r.get("resumed") is True,
+            "fleet_jobs_migrated == 1": delta["fleet_jobs_migrated"] == 1,
+            "victim died by SIGKILL": proc.returncode == -signal.SIGKILL,
+            "journal_windows_skipped >= 1": hc["journal_windows_skipped"] >= 1,
+            "skipped + executed windows == all": (
+                hc["journal_windows_skipped"] + hc["stream_windows"] == n_windows),
+            "byte-equal to in process": sorted(got) == sorted(ref) and all(
+                same_bytes(got[c], ref[c]) for c in ref),
+            "job complete": status == "complete",
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"fleet chaos: {bad}: {dict(delta=delta, health=hc)}")
+        say("fleet", leg="b_chaos", rows=BRIDGE_PIPE_ROWS, window_rows=BRIDGE_PIPE_WINDOW,
+            windows=n_windows, victim=victim, adopter=h["replica"]["name"],
+            kill_ms=FLEET_KILL_MS, delay_ms=FLEET_DELAY_MS, failovers=failovers,
+            fleet_failovers=delta["fleet_failovers"],
+            fleet_jobs_migrated=delta["fleet_jobs_migrated"], resumed=True,
+            victim_returncode=proc.returncode,
+            adopter_windows_skipped=hc["journal_windows_skipped"],
+            adopter_windows_executed=hc["stream_windows"],
+            adopter_journal_resumes=hc["journal_resumes"], byte_equal_in_process=True,
+            job_status=status, kill_to_resumed_s=done - died["t"],
+            victim_warm_pipeline_s=warm_s, in_process_pipeline_s=in_process_s,
+            adopter_window_wall_s=[w["wall_s"] for w in r["windows"]],
+            traffic_failed_requests=0, **{f"traffic_{k}": v for k, v in chaos_traffic.items()})
+
+        # (c) the victim restarted, then a rolling restart of all three under
+        # 2 traffic threads; each replica then serves the primed pipeline
+        # (run on the victim and the adopter in (b)) building nothing
+        c0 = obs.counters()
+        fl.fault_env.pop(victim)
+        fl.restart(victim)
+        router.poll_once()
+        victim_restart_s = fl.timings()[victim]["ready_s"]
+        traffic = FleetTraffic(router, 2, block_g, block_f, tcols, twant, "rolling")
+        t0 = time.perf_counter()
+        fl.rolling_restart(router)
+        rolling_s = time.perf_counter() - t0
+        rolling_traffic = traffic.stop()
+        restarts = obs.counters_delta(c0)["fleet_replica_restarts"]
+        router.poll_once()
+        snap = router.snapshot()["replicas"]
+        if restarts != 1 + FLEET_SIZE or not all(
+                s["healthy"] and not s["draining"] and not s["quarantined"]
+                for s in snap.values()):
+            raise AssertionError(f"rolling restart: {restarts} restarts, replicas {snap}")
+        rejoin = {}
+        for name, (k,) in fleet_keys(names, 1).items():
+            with FleetClient(router, key=k, timeout_s=BRIDGE_TIMEOUT_S) as fc:
+                if router.route(k).name != name:
+                    raise AssertionError(f"rolling restart: {k} does not route to {name}")
+                t0 = time.perf_counter()
+                rows = fc.run_pipeline(source, stages)["rows"]
+                first_s = time.perf_counter() - t0
+                h = fc.health()
+            cnt = h["counters"]
+            if (h["replica"]["name"] != name or rows != BRIDGE_PIPE_ROWS
+                    or cnt["backend_compiles"] or cnt["persistent_cache_misses"]):
+                raise AssertionError(f"rolling restart: {name} rebuilt or answered wrong: {h}")
+            rejoin[name] = dict(first_pipeline_s=first_s, **{
+                c: cnt[c] for c in ("backend_compiles", "persistent_cache_hits",
+                                    "persistent_cache_misses")})
+        timings = fl.timings()
+        say("fleet", leg="c_rolling_restart", victim_restart_s=victim_restart_s,
+            rolling_s=rolling_s, fleet_replica_restarts=restarts,
+            sigterm_to_healthy_s={n: timings[n]["term_to_ready_s"] for n in names},
+            traffic_failed_requests=0, **{f"traffic_{k}": v for k, v in rolling_traffic.items()},
+            rejoined=rejoin, flaps={n: s["flaps_recent"] for n, s in snap.items()})
+        fl.stop()
+        router.close()
+        del feats, frame, want
+    except BaseException:
+        logs = os.path.join(root, "logs")
+        for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+            with open(os.path.join(logs, name), errors="replace") as f:
+                print(f"--- {name} (last lines)\n" + "".join(f.readlines()[-20:]),
+                      file=sys.stderr, flush=True)
+        raise
+    finally:
+        for r in routers:
+            r.close()
+        for fl in fleets:
+            fl.stop()
+        tmp.cleanup()
+
+    # (d) decode behind a two-replica thread fleet at decode config 8: 8
+    # streams through FleetClients whose keys split over both replicas, one
+    # replica drained mid-run
+    cfg = tfm.TransformerConfig(**DECODE_MODEL, dtype=torch.bfloat16)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    drng = np.random.RandomState(23)
+    prompts = [drng.randint(0, cfg.vocab_size, FLEET_PROMPT).astype(np.int32)
+               for _ in range(FLEET_STREAMS)]
+    news = [FLEET_NEW] * FLEET_STREAMS
+    # every stream could land on one replica: pools for that backlog at full
+    # capacity (the scheduler reserves pending requests' spans too)
+    pages_full = -(-cfg.max_seq // PAGE_TOKENS)
+    fl = BridgeFleet(2, mode="thread", device="cuda", max_inflight=0,
+                     decode_model=dict(params=params, cfg=cfg, max_slots=FLEET_SLOTS,
+                                       tokens_per_page=PAGE_TOKENS,
+                                       pool_pages=2 * FLEET_SLOTS * pages_full + 1))
+    router = None
+    try:
+        fl.start()
+        router = fl.router(health_s=0.2)
+        names = [n for n, _, _ in fl.replicas()]
+        drained_name, survivor = names
+        servers = {n: fl._replicas[n].server for n in names}
+        keys = fleet_keys(names, FLEET_STREAMS // 2)
+        half = FLEET_STREAMS // 2
+        # wave 1: half the streams, split over both replicas; wave 2 opens its
+        # sessions after the drain began, so every one routes to the survivor
+        wave_keys = ([keys[n][i] for i in range(half // 2) for n in names]
+                     + [keys[n][i] for i in range(half // 2, half) for n in names])
+        streamed, walls, addrs, errs = {}, {}, {}, []
+
+        def stream(k):
+            try:
+                with FleetClient(router, key=wave_keys[k], timeout_s=BRIDGE_TIMEOUT_S) as fc:
+                    addrs[k] = (fc.client._host, fc.client._port)
+                    t0 = time.perf_counter()
+                    streamed[k] = fc.client.decode(prompts[k].tolist(),
+                                                   max_new=news[k])["tokens"]
+                    walls[k] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+
+        def drain():
+            try:
+                fl.drain(drained_name, timeout_s=BRIDGE_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+
+        c0 = obs.counters()
+        t_all = time.perf_counter()
+        first = [threading.Thread(target=stream, args=(k,), daemon=True) for k in range(half)]
+        for t in first:
+            t.start()
+        t0 = time.monotonic()
+        while servers[drained_name].decode_scheduler.snapshot()["active"] < half // 2:
+            if errs or time.monotonic() - t0 > BRIDGE_TIMEOUT_S:
+                raise AssertionError(f"fleet decode: wave 1 never reached the scheduler "
+                                     f"({errs!r})")
+            time.sleep(0.005)
+        router.mark_draining(drained_name)
+        drainer = threading.Thread(target=drain, daemon=True)
+        drainer.start()
+        while not servers[drained_name].gate.snapshot()["draining"]:
+            time.sleep(0.001)
+        in_flight_at_drain = servers[drained_name].decode_scheduler.snapshot()["active"]
+        run_threads(FLEET_STREAMS - half, lambda j: stream(half + j))
+        for t in first + [drainer]:
+            t.join(BRIDGE_TIMEOUT_S)
+        total_s = time.perf_counter() - t_all
+        if errs:
+            raise errs[0]
+        d_dec = obs.counters_delta(c0)
+        survivor_addr = dict((n, (h, p)) for n, h, p in fl.replicas())[survivor]
+        late = [addrs[k] for k in range(half, FLEET_STREAMS)]
+        if any(a != survivor_addr for a in late):
+            raise AssertionError(f"fleet decode: sessions opened after the drain reached "
+                                 f"{late}, not the survivor {survivor_addr}")
+        if sorted(streamed) != list(range(FLEET_STREAMS)) or any(
+                len(streamed[k]) != news[k] for k in range(FLEET_STREAMS)) or d_dec[
+                    "decode_tokens"] != sum(news):
+            raise AssertionError(f"fleet decode: a stream did not complete ("
+                                 f"{d_dec['decode_tokens']} tokens of {sum(news)})")
+        held, exact = held_to_solo(params, cfg, prompts, news, streamed,
+                                   servers[survivor].decode_scheduler.cap)
+        ms = [walls[k] for k in range(FLEET_STREAMS)]
+        say("fleet", leg="d_decode", streams=FLEET_STREAMS, prompt=FLEET_PROMPT,
+            new=FLEET_NEW, slots=FLEET_SLOTS, replicas=2, drained=drained_name,
+            in_flight_at_drain=in_flight_at_drain, late_sessions_on_survivor=len(late),
+            tokens=sum(news), seconds=total_s, tokens_per_s=sum(news) / total_s,
+            p50_s_a_stream=float(np.percentile(ms, 50)),
+            p99_s_a_stream=float(np.percentile(ms, 99)),
+            decode_tokens=d_dec["decode_tokens"], failed_requests=0,
+            tokens_held_before_first_tie=held, streams_exactly_solo=exact, gap=DECODE_GAP)
+    finally:
+        if router is not None:
+            router.close()
+        fl.stop()
+    del params
+    torch.cuda.empty_cache()
+    launches = dict(flash.kernel_launches)
+    if any(launches.values()):
+        raise AssertionError(f"the fleet legs launched flash kernels: {launches}")
+    say("fleet", leg="flash_launches", launches=launches)
+    return launches
+
+
 def run_phase(phase, *args):
     """``phase(*args)``, printing its command time: the script's run time
     by phase."""
@@ -5132,6 +5690,7 @@ def main() -> int:
     planner_launches = run_phase(phase_planner, prog)
     streaming_launches = run_phase(phase_streaming, prog)
     run_phase(phase_bridge)
+    run_phase(phase_fleet)
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)

@@ -20,8 +20,11 @@ client of either package drives a server of the other.
   program pool, SLO-aware fair-share admission, continuous batching, and
   paged continuous decode (``DecodeScheduler``) behind the ``decode`` RPC.
 
-The fleet (``BridgeFleet``, ``FleetClient``, ``FleetRouter``) comes with
-ROADMAP.md Queue 1 item 12b.
+* The fleet (``fleet.py``, ``replica.py``): ``BridgeFleet`` runs N
+  replicas (processes or threads) on one device with shared journal and
+  compile cache, ``FleetRouter`` rendezvous-routes session keys over the
+  healthy ones, and ``FleetClient`` fails over on ``Draining``, dead
+  connections and ``SessionLost``.
 """
 
 from .client import (
@@ -42,17 +45,21 @@ from .coalescer import (
     WarmPool,
     WarmSpec,
 )
+from .fleet import BridgeFleet, FleetClient, FleetRouter
 from .server import BridgeServer, serve
 
 __all__ = [
     "BridgeClient",
     "BridgeError",
+    "BridgeFleet",
     "BridgeServer",
     "Cancelled",
     "Coalescer",
     "ContinuousBatcher",
     "DeadlineExceeded",
     "Draining",
+    "FleetClient",
+    "FleetRouter",
     "RemoteFrame",
     "ServerBusy",
     "SessionLost",

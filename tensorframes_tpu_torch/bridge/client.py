@@ -1,9 +1,7 @@
 """Bridge client: the reference-shaped front-end handle.
 
 The port's copy of ``tensorframes_tpu/bridge/client.py``; it speaks the
-same wire as the JAX package's server and client.  Fleet failover
-(``router=``) comes with the fleet (ROADMAP.md Queue 1 item 12b) and
-raises until then.
+same wire as the JAX package's server and client.
 
 ``RemoteFrame`` plays the role the JVM DataFrame handle plays for the
 reference's Python API (``core.py``): a thin id-carrying proxy whose verbs
@@ -43,6 +41,13 @@ Client-side resilience:
   the caller's policy.  The hint is capped
   (``TFS_BRIDGE_CLIENT_BUSY_CAP_MS``) and decorrelated with jitter
   (:func:`busy_backoff_s`) so shed clients never re-arrive in lockstep.
+* **Fleet failover**: with ``router=`` wired in (a
+  :class:`~tensorframes_tpu_torch.bridge.fleet.FleetRouter`), connection
+  failures, ``Draining``, and ``SessionLost`` re-route the call to a
+  healthy peer instead of surfacing — a fresh session there (frames do
+  not follow; re-upload), with durable jobs migrating via the journal
+  when their re-sent request carries its ``job_id``.  Budget: one
+  reroute per known peer per call.
 """
 
 from __future__ import annotations
@@ -222,8 +227,8 @@ class BridgeClient:
       reconnect policy: decorrelated-jitter exponential backoff via
       ``resilience.FailureDetector`` (``jitter=0`` is the exact
       exponential sequence; ``rng`` injectable for deterministic tests).
-    * ``router`` — fleet failover; raises until the fleet is ported
-      (ROADMAP.md Queue 1 item 12b).
+    * ``router`` — a :class:`~tensorframes_tpu_torch.bridge.fleet.
+      FleetRouter` for fleet failover (see the module docstring).
     """
 
     def __init__(
@@ -240,17 +245,16 @@ class BridgeClient:
         busy_retries: Optional[int] = None,
         router=None,
     ):
-        if router is not None:
-            raise NotImplementedError(
-                "BridgeClient(router=...) is fleet failover, which the "
-                "PyTorch port does not have yet (ROADMAP.md Queue 1 item "
-                "12b); connect to one server"
-            )
         self._host = host
         self._port = int(port)
+        # fleet failover: with a router wired in, connection failures,
+        # ``Draining``, and ``SessionLost`` re-route this client to a
+        # healthy peer (fresh session there; durable jobs migrate via
+        # the journal when their request is re-sent with its job_id).
+        # ``failovers`` counts reroutes on this client;
         # ``server_replica`` is the identity dict the last successful
         # hello returned (None on servers that send none)
-        self.router = None
+        self.router = router
         self.failovers = 0
         self.server_replica: Optional[Dict[str, Any]] = None
         # request-scoped telemetry: every GATED call is
@@ -384,6 +388,40 @@ class BridgeClient:
         self.server_replica = resp["result"].get("replica")
         sock.settimeout(self._timeout_s)
 
+    def _failover_locked(self, reason: str, failed: bool) -> bool:
+        """Re-point this client at a healthy peer: tell the router what
+        happened to the current address (``failed`` = dead connection,
+        else draining/restarted-but-alive), pick the rendezvous choice
+        among the OTHER replicas, and drop the session token — the
+        reattach is a fresh session on the new replica (frames do not
+        follow; durable jobs do, via the journal, when call() re-sends
+        their request).  False when no router or no other replica is
+        known."""
+        if self.router is None:
+            return False
+        addr = (self._host, self._port)
+        try:
+            if failed:
+                self.router.note_failed(addr)
+            else:
+                self.router.note_draining(addr)
+            nxt = self.router.pick(exclude=addr)
+        except Exception:  # noqa: BLE001 — a sick router must not mask
+            logger.warning("bridge: fleet router errored", exc_info=True)
+            return False
+        if nxt is None or tuple(nxt) == addr:
+            return False
+        self._teardown_locked()
+        self._host, self._port = nxt
+        self.session_token = None
+        self.failovers += 1
+        observability.note_fleet_failover()
+        logger.warning(
+            "bridge: failing over to %s:%d (%s at %s:%d)",
+            nxt[0], nxt[1], reason, addr[0], addr[1],
+        )
+        return True
+
     def _roundtrip_locked(self, msg: dict, bins: Optional[list] = None):
         write_message(self._wfile, msg, bins)
         try:
@@ -431,6 +469,11 @@ class BridgeClient:
         cid = None if safe else observability.new_correlation_id()
         busy_left = 0 if safe else self._busy_retries
         busy_attempt = 0
+        # one reroute per known peer: a call may walk the fleet once,
+        # but a fully-dead fleet still surfaces promptly
+        failover_left = (
+            self.router.failover_budget() if self.router is not None else 0
+        )
         with self._lock:
             if cid is not None:
                 self.last_correlation_id = cid
@@ -529,6 +572,16 @@ class BridgeClient:
                         # a misleading unknown-frame-id — surface the
                         # real connection failure instead
                         raise
+                    if failover_left > 0 and self._failover_locked(
+                        f"{type(exc).__name__}: {exc}", failed=True
+                    ):
+                        # a dead connection with a router configured
+                        # reroutes NOW instead of burning the reconnect
+                        # budget on a corpse; the new replica gets a
+                        # fresh detector budget of its own
+                        failover_left -= 1
+                        detector = None
+                        continue
                     if detector is None:
                         detector = resilience.FailureDetector(
                             max_restarts=self._retries,
@@ -563,9 +616,35 @@ class BridgeClient:
                     )
                     time.sleep(delay)
                     continue
+                except SessionLost:
+                    # the reattach found a restarted (or TTL-reaped)
+                    # server: frames are gone either way.  With a
+                    # router, reroute the reattach to a peer — the
+                    # re-sent request runs on a fresh session there, and
+                    # a durable ``job_id`` adopts its journal fence and
+                    # resumes.  Without one, surface it.
+                    if failover_left > 0 and self._failover_locked(
+                        "session lost", failed=False
+                    ):
+                        failover_left -= 1
+                        continue
+                    raise
                 rbins = resp.pop("_bins")
                 if "error" in resp:
                     err = resp["error"]
+                    if (
+                        err.get("code") == "draining"
+                        and failover_left > 0
+                        and self._failover_locked(
+                            "server draining", failed=False
+                        )
+                    ):
+                        # Draining is a failover signal when a router is
+                        # configured — the drained request was never
+                        # executed or cached, so re-sending the SAME idem
+                        # token + cid on a peer is still one logical call
+                        failover_left -= 1
+                        continue
                     if (
                         err.get("code") == "server_busy"
                         and busy_left > 0

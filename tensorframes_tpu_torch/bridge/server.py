@@ -4,8 +4,8 @@ The port's copy of ``tensorframes_tpu/bridge/server.py``: the same method
 surface, allowlists, error codes and fields, so a client of either
 package drives it.  ``BridgeServer(device=...)`` (None = the CUDA card)
 builds every program on that device; results are copied to the host
-before they are encoded.  The fleet's registry heartbeat comes with the
-fleet (ROADMAP.md Queue 1 item 12b).
+before they are encoded.  With ``TFS_FLEET_REGISTRY`` set the server
+heartbeats its replica file there (``bridge/fleet.py``).
 
 The method surface mirrors the reference's builder factories
 (``PythonInterface.scala:46-68``: ``map_blocks / map_rows / reduce_blocks /
@@ -83,6 +83,7 @@ from ..ops import engine as _engine_mod
 from ..ops.engine import GroupedFrame
 from ..ops.validation import ValidationError
 from . import coalescer as _coalescer
+from . import fleet as _fleet
 from .protocol import (
     PROTOCOL_VERSION,
     decode_value,
@@ -100,9 +101,8 @@ ENV_QUEUE_DEPTH = "TFS_BRIDGE_QUEUE_DEPTH"
 ENV_DRAIN_S = "TFS_BRIDGE_DRAIN_S"
 ENV_MAX_FRAMES = "TFS_BRIDGE_MAX_FRAMES"
 ENV_SESSION_TTL_S = "TFS_BRIDGE_SESSION_TTL_S"
-# the replica name a fleet pins (the JAX package's ``bridge/fleet.py``
-# constant; the fleet itself comes with ROADMAP.md Queue 1 item 12b)
-ENV_FLEET_REPLICA = "TFS_FLEET_REPLICA"
+# the replica name a fleet pins (``bridge/fleet.py``'s constant)
+ENV_FLEET_REPLICA = _fleet.ENV_FLEET_REPLICA
 # colon-separated directory roots a pipeline RPC's path-based
 # parquet source/sink may touch; unset = path access refused (frame_id
 # sources and frame/collect sinks are always allowed)
@@ -1425,8 +1425,19 @@ class BridgeServer(socketserver.ThreadingTCPServer):
                 target=self._reap_loop, name="tfs-bridge-reaper", daemon=True
             )
             t.start()
-        # the fleet registry heartbeat (JAX ``server.py``'s
-        # ``_registry_beat``) comes with the fleet, ROADMAP.md item 12b
+        # fleet registry heartbeat: one atomic JSON file per replica
+        # whose mtime is the liveness signal the janitor and peers trust
+        # ACROSS processes (a same-host ``os.kill(pid, 0)`` cannot see
+        # into another container or pid namespace).  No registry
+        # configured (TFS_FLEET_REGISTRY unset) = no-op.
+        self._registry_dir = _fleet.registry_dir()
+        if self._registry_dir:
+            self._registry_beat()
+            threading.Thread(
+                target=self._registry_loop,
+                name="tfs-fleet-heartbeat",
+                daemon=True,
+            ).start()
         # metrics exposition: the admission gauges register as
         # providers so the standalone TFS_METRICS_PORT endpoint (started
         # here from the env when set) scrapes them alongside the process
@@ -1488,6 +1499,30 @@ class BridgeServer(socketserver.ThreadingTCPServer):
             logger.warning(
                 "bridge: journal startup recovery failed", exc_info=True
             )
+
+    def _registry_name(self) -> str:
+        return self._replica_name or f"pid{os.getpid()}"
+
+    def _registry_beat(self) -> None:
+        try:
+            _fleet.registry_write(
+                self._registry_name(),
+                self.address[0],
+                self.address[1],
+                epoch=self._replica_epoch,
+                root=self._registry_dir,
+            )
+        except OSError:
+            logger.warning(
+                "bridge: fleet-registry heartbeat failed", exc_info=True
+            )
+
+    def _registry_loop(self) -> None:
+        # 3 beats per TTL: one missed write (busy box, slow fs) never
+        # reads as death
+        interval = max(0.5, _fleet.REGISTRY_TTL_S / 3.0)
+        while not self._reaper_stop.wait(interval):
+            self._registry_beat()
 
     def _admission_gauges(self) -> Dict[str, Any]:
         s = self.gate.snapshot()
@@ -1863,14 +1898,16 @@ class BridgeServer(socketserver.ThreadingTCPServer):
                     "fair_share_sheds",
                     "slo_sheds",
                     # the fleet acceptance evidence — journal
-                    # exactly-once accounting, persistent-compile-cache
-                    # hits (zero-recompile proof on warm rejoin), and
-                    # the fleet lifecycle counters
+                    # exactly-once accounting, the compile cache's
+                    # hits and misses and the port's one compile (an
+                    # nvcc run: the zero-recompile proof on warm
+                    # rejoin), and the fleet lifecycle counters
                     "stream_windows",
                     "journal_appends",
                     "journal_windows_skipped",
                     "journal_resumes",
                     "journal_fence_rejections",
+                    "backend_compiles",
                     "persistent_cache_hits",
                     "persistent_cache_misses",
                     "fleet_failovers",
@@ -1966,6 +2003,12 @@ class BridgeServer(socketserver.ThreadingTCPServer):
             return
         self._closed = True
         self._reaper_stop.set()
+        if self._registry_dir:
+            # leave no heartbeat behind: a cleanly-closed replica's pid
+            # must not pin journal artifacts against the janitor
+            _fleet.registry_remove(
+                self._registry_name(), root=self._registry_dir
+            )
         for name, fn in self._gauge_providers.items():
             observability.unregister_gauge(name, fn)
         budget = self.drain_s if drain_s is None else float(drain_s)

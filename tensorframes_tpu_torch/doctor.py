@@ -21,11 +21,12 @@ Every input is injectable (``counters=``, ``latency=``, ``ledger=``,
 over recorded snapshots; with no arguments the live process is read (the
 ``plans`` section from the planner's ``recent_plan_stats``, ``shuffles``
 from ``relational.recent_shuffle_stats``, ``artifacts`` from the janitor's
-``summary``, ``decode`` from the live ``bridge.coalescer.DecodeScheduler``).
-The section whose module the port does not have yet (the bridge's fleet:
-ROADMAP.md Queue 1 item 12b) reads empty inputs, and :func:`render` names
-it in one line.  Only the absence of such a module
-is tolerated: any other failure to read a section raises.
+``summary``, ``decode`` from the live ``bridge.coalescer.DecodeScheduler``,
+``fleet`` from the newest live ``bridge.fleet.FleetRouter``).  A section
+whose module is absent would read empty inputs, and :func:`render` would
+name it in one line; every section's module is in the port, so none does.
+Only the absence of such a module is tolerated: any other failure to read
+a section raises.
 """
 
 from __future__ import annotations
@@ -662,8 +663,8 @@ def _rule_fleet_imbalance(fleet) -> Optional[Dict[str, Any]]:
 
 
 # argument -> (module, function, the rules that read it) of each live
-# section, read lazily as the JAX package reads them; a module not in the
-# port yet (the fleet's, item 12b) reads as empty
+# section, read lazily as the JAX package reads them; a module absent
+# from the port would read as empty
 _SECTIONS = {
     "shuffles": ("relational", "recent_shuffle_stats", ("shuffle_skew",)),
     "plans": ("ops.planner", "recent_plan_stats", ("cse_miss",)),

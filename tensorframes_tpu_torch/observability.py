@@ -7,10 +7,9 @@ same public names, record layouts, metric families and knobs:
 * **counters**: one process-wide dict of monotonic counts with JAX's key
   set, bumped under a lock (``_bump``), snapshotted by :func:`counters`
   (with ``by_verb`` and the ``peak_host_bytes`` gauge) and diffed by
-  :func:`counters_delta`.  The fleet's keys (``fleet_*``: ROADMAP.md
-  Queue 1 item 12b) stay 0 until the fleet lands with its ``note_*``
-  functions; the bridge's, the coalescer's and the decode scheduler's
-  move with ``bridge/``; the
+  :func:`counters_delta`.  The fleet's keys (``fleet_*``), the
+  bridge's, the coalescer's and the decode scheduler's move with
+  ``bridge/``; the
   planner's ``plan_*`` keys move with ``ops/planner.py``, the streamed
   windows, shuffle, join and journal keys with ``streaming/``,
   ``relational/`` and ``recovery/``.  Where the JAX package counts XLA,
@@ -591,6 +590,33 @@ def note_fair_share_shed() -> None:
 def note_slo_shed() -> None:
     """The SLO scheduler shed the dominant consumer under p99 pressure."""
     _bump("slo_sheds")
+
+
+def note_fleet_failover() -> None:
+    """One client call rerouted to a different replica (the origin was
+    draining, dead, or had forgotten the session) by the router-aware
+    retry loop (``bridge/client.py`` + ``bridge/fleet.py``)."""
+    _bump("fleet_failovers")
+
+
+def note_fleet_job_migrated() -> None:
+    """One durable job that RESUMED on a different replica than the one
+    that started it — the failed-over re-issue adopted the journal fence
+    and continued from the last window boundary."""
+    _bump("fleet_jobs_migrated")
+
+
+def note_fleet_quarantine() -> None:
+    """One replica the fleet router quarantined for flapping (repeated
+    up/down transitions inside the flap window) — the replica analog of
+    ``devices_quarantined``."""
+    _bump("fleet_quarantines")
+
+
+def note_fleet_replica_restart() -> None:
+    """One replica process the fleet restarted (rolling restarts and
+    crash replacements alike)."""
+    _bump("fleet_replica_restarts")
 
 
 def note_decode_tokens(n: int) -> None:

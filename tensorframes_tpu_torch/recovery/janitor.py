@@ -26,10 +26,7 @@ current manifest references.  Completed jobs keep their (tiny, states
 already deleted) manifests for the exactly-once resume contract; only
 their unreferenced leftovers are reclaimed.  Adoption
 (:meth:`JobJournal.adopt`) runs the per-job half of this sweep
-automatically; the bridge server runs the sweep at start.  The fleet
-registry's liveness (JAX ``bridge/fleet.py``) waits for the fleet
-(ROADMAP.md Queue 1 item 12b): until then :func:`_fleet_live_pids` sees
-no fleet, and only this process's pid namespace decides liveness.
+automatically; the bridge server runs the sweep at start.
 """
 
 from __future__ import annotations
@@ -73,9 +70,15 @@ def _fleet_live_pids() -> frozenset:
     container can look dead from here while very much alive and mid-job,
     and reclaiming its journal states would corrupt its resume.  The
     registry heartbeat is the cross-process source of truth."""
-    # the fleet registry (bridge/fleet.py) comes with ROADMAP.md Queue 1
-    # item 12b; until then no replica's heartbeat exists to consult
-    return frozenset()
+    try:
+        from ..bridge import fleet as _fleet
+
+        return _fleet.registry_live_pids()
+    except Exception:  # noqa: BLE001 — a sick registry must not stop the scan
+        logger.warning(
+            "janitor: fleet-registry liveness unavailable", exc_info=True
+        )
+        return frozenset()
 
 
 def _dead(pid, fleet_live: frozenset) -> bool:

@@ -204,11 +204,6 @@ def test_method_surface_matches_jax():
         assert getattr(srv, name).code == getattr(jsrv, name).code
 
 
-def test_router_waits_for_the_fleet(server):
-    with pytest.raises(NotImplementedError, match="12b"):
-        BridgeClient(*server.address, router=object())
-
-
 # -- across packages ----------------------------------------------------------
 
 

@@ -2,6 +2,7 @@
 nothing of the JAX package, its sources import none of them, and its entry
 points refuse to run on the CPU unless asked to."""
 
+import os
 import pathlib
 import re
 import subprocess
@@ -226,6 +227,27 @@ def test_importing_the_bridge_and_spark_loads_no_jax_pyarrow_or_pandas():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+def test_importing_the_fleet_loads_no_jax_pyarrow_or_pandas():
+    # the fleet, its replica entry point and the fence racer a replica test
+    # runs all start on the card's machine (no pyarrow, no pandas)
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import tensorframes_tpu_torch.bridge.fleet, tensorframes_tpu_torch.bridge.replica\n"
+        "import _torch_fence_racer\n"
+        "from tensorframes_tpu_torch.bridge import BridgeFleet, FleetClient, FleetRouter\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'tensorframes_tpu', 'pyarrow', 'pandas', "
+        "'ml_dtypes'))\n"
+        "print(repr(bad))"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_the_packer_builds_from_the_ports_own_copy():
     """The native packer is the port's copy of the JAX package's source,
     built from the port's ``csrc/``, never from a path of the JAX package."""
@@ -246,7 +268,8 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     )
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tools" / "dq_tile_variant.py",
-                                         ROOT / "tools" / "fwd_simt_variant.py"]
+                                         ROOT / "tools" / "fwd_simt_variant.py",
+                                         ROOT / "tests" / "_torch_fence_racer.py"]
     assert len(files) > 10
     assert {"train.py", "data.py", "checkpoint.py", "mesh.py", "ring.py", "flash.py",
             "importer.py", "ops.py", "inception.py", "vgg.py", "dsl.py", "builder.py",
@@ -258,7 +281,7 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             "planner.py", "compile_cache.py", "reader.py", "sink.py", "verbs.py",
             "journal.py", "durable.py", "janitor.py", "shuffle.py", "join.py",
             "native.py", "protocol.py", "server.py", "client.py", "coalescer.py",
-            "spark.py"} <= {
+            "spark.py", "fleet.py", "replica.py", "_torch_fence_racer.py"} <= {
         p.name for p in files
     }
     for path in files:
@@ -348,12 +371,39 @@ def test_graphdef_slice_entry_points_raise_without_a_card(no_cuda, call):
         lambda: __import__("tensorframes_tpu_torch.bridge", fromlist=["x"]).serve(),
         lambda: __import__("tensorframes_tpu_torch.bridge.coalescer", fromlist=["x"])
         .WarmPool().entry("map_blocks", _tiny_graph(), ["y"]),
+        lambda: __import__("tensorframes_tpu_torch.bridge", fromlist=["x"])
+        .BridgeFleet(1, mode="thread").start(),
     ],
-    ids=["cache", "init_cache", "PagePool", "init_tables", "serve", "WarmPool"],
+    ids=["cache", "init_cache", "PagePool", "init_tables", "serve", "WarmPool",
+         "BridgeFleet_thread"],
 )
 def test_serving_slice_entry_points_raise_without_a_card(no_cuda, call):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+def test_a_fleet_replica_never_falls_back_to_the_cpu(tmp_path):
+    """A process replica with no card and no ``--device`` exits non-zero with
+    ``resolve_device``'s message (in its log), and ``BridgeFleet.start``
+    raises naming the replica and its exit code.  ``CUDA_VISIBLE_DEVICES=""``
+    hides any card."""
+    from tensorframes_tpu_torch.bridge import BridgeFleet
+
+    env = {"CUDA_VISIBLE_DEVICES": "", "TFS_FLEET_REGISTRY": ""}
+    out = subprocess.run(
+        [sys.executable, "-m", "tensorframes_tpu_torch.bridge.replica", "--name", "nocard"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, **env},
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr
+    fl = BridgeFleet(1, base_env=env, log_dir=str(tmp_path / "logs"))
+    try:
+        with pytest.raises(RuntimeError, match=r"replica r0 exited rc=1 "):
+            fl.start()
+    finally:
+        fl.stop()
+    assert "no CUDA device" in (tmp_path / "logs" / "r0.log").read_text()
 
 
 @pytest.mark.parametrize(
