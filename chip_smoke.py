@@ -327,7 +327,33 @@ Phases, each printing its own lines and then its command time (``phase:``):
    the survivor, every stream whole and equal to its solo ``generate`` up
    to the first top-2 gap under ``DECODE_GAP``; tokens/s and p50/p99
    seconds a stream; no flash kernel launches in the phase;
-16. the card's line again, the kernels' JSON record (each kernel at the
+16. mesh (after the streaming phase): the mesh executor and the
+   multi-process runtime on the card: (a) the flagship's 64 rows of 2048
+   tokens scored by ``map_blocks(prog, frame,
+   engine=MeshExecutor(data_mesh()))`` in ``"global"`` and ``"per_block"``
+   mode, each bit-identical to the serial executor over the rows as one
+   block, with its ``flash_fwd_tma<bf16,64>`` launches and ms against the
+   serial run; (a2) ``per_block`` over a mesh of ``MESH_POSITIONS``
+   positions held on the one card (the shard and gather code on the card)
+   against the slice's blocks, nll within 3e-2 and its bit-identity
+   printed; (b) ``reduce_blocks``, ``reduce_rows`` (tree; sequential over
+   4,096 rows), ``map_rows`` and the segment ``aggregate`` over config 2's
+   and config 5's frames and the k-means frame (keyed by cluster) in both
+   modes, each bit-identical to the serial verb over one block, Mrows/s
+   both ways; (b2) the split paths over the positions against the serial
+   executor over as many equal blocks (keys and integers exact, floats at
+   ``SUM_RTOL``); (c) ``logistic_regression.fit_fused`` and
+   ``kmeans.fit_fused`` through ``pipeline(engine=MeshExecutor(...))``
+   against the eager fits over the same engine (1e-5 and 1e-6, the CPU
+   twins'; equal assignments), and a ``per_block`` engine refused; (d)
+   ``multihost.initialize`` with NCCL at world size 1 in this process, then
+   two child processes sharing the card: over NCCL (what it prints is
+   recorded) and over gloo, whose ``frame_from_process_local`` halves of
+   config 2's rows run a cross-process ``reduce_blocks`` held to the serial
+   executor over the same two blocks; the seconds to form each group and
+   of the reduce, and the collectives whose CUDA partials crossed through
+   the host (gloo takes no CUDA tensor);
+17. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -3514,8 +3540,9 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     instantiation of the flagship scoring, the wide-head scoring and train,
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
     pipeline phase's scoring chain, the observability phase's scoring runs,
-    the planner phase's scoring runs, the flagship train epoch, the ring scoring runs and the MoE legs' scoring,
-    train and ring runs)."""
+    the planner phase's scoring runs, the streaming and mesh phases' scoring
+    runs, the flagship train epoch, the ring scoring runs and the MoE legs'
+    scoring, train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
     by_inst = {}
@@ -4601,6 +4628,340 @@ def phase_streaming(slice_prog):
         packer_s=packed_s, numpy_s=plain_s, numpy_over_packer=plain_s / packed_s,
         gxx_build_s=_build.host_build_seconds.get("packer"), first_use_s=first_s)
     return total
+
+
+# --- the mesh executor and multi-host (phase 16) -------------------------------
+MESH_POSITIONS = 8  # legs (a2) and (b2): data-axis positions held on the one card
+MESH_CHILD_CODE = "import sys, chip_smoke; chip_smoke.mesh_child(*sys.argv[1:])"
+MESH_CHILD_TIMEOUT_S = 150
+# the fused drivers against the eager ones over the mesh: the CPU twins'
+# tolerances (tests/test_torch_mesh_twins.py::test_fused_models_on_mesh)
+MESH_FIT_RTOL, MESH_CENTERS_RTOL = 1e-5, 1e-6
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rows():
+    """Config 2's rows (phase_verbs' first draw)."""
+    return np.random.RandomState(0).rand(VERB_ROWS, VERB_D).astype(np.float32)
+
+
+def mesh_child(rank, world, port, backend, device="cuda", card="") -> None:
+    """Leg (d)'s child (and ``tools/mesh_multicard.py``'s ranks): rank
+    ``rank`` of a ``world``-process group over ``backend`` on ``device``.
+    Its data mesh is the default one, the rank's share of the host's cards
+    (``card`` names one card to hold instead, which every rank may name).
+    It builds a process-local frame of its share of config 2's rows and
+    runs the cross-process ``reduce_blocks`` sum over the data mesh, then
+    prints one JSON line: the seconds to form the group and of the reduce,
+    the result's bytes, the host detours, or the error it met."""
+    import datetime
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch.ops import device_pool
+    from tensorframes_tpu_torch.parallel import MeshExecutor, data_mesh, multihost
+
+    rank, world = int(rank), int(world)
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        device_pool._local_devices = lambda: [dev]
+    res = {"rank": rank, "backend": backend}
+    t0 = time.perf_counter()
+    try:
+        multihost.initialize(f"127.0.0.1:{port}", world, rank, backend=backend,
+                             timeout=datetime.timedelta(seconds=60))
+        res["init_s"] = time.perf_counter() - t0
+        # the first collective: every rank's device count
+        mesh = data_mesh(devices=[torch.device(device, int(card))] if card else None)
+        res["group_s"] = time.perf_counter() - t0
+        res["devices"] = [str(d) for d in mesh.devices]
+        share = VERB_ROWS // world
+        frame = multihost.frame_from_process_local(
+            {"v": mesh_rows()[rank * share:(rank + 1) * share]}, mesh)
+        prog = tft.Program.wrap(lambda v_input: {"v": v_input.sum(0)}, device=mesh.device)
+        eng = MeshExecutor(mesh)
+        eng.reduce_blocks(prog, frame)  # warm-up
+        t1 = time.perf_counter()
+        out = eng.reduce_blocks(prog, frame)
+        res.update(reduce_s=time.perf_counter() - t1, v=np.asarray(out["v"]).tobytes().hex(),
+                   process_count=multihost.process_count(), mesh_size=mesh.shape["dp"],
+                   process_rows=list(frame.process_rows), host_detours=multihost.host_detours)
+    except Exception as e:  # noqa: BLE001 - the refusal is the finding
+        res.update(error=f"{type(e).__name__}: {e}"[:600], wall_s=time.perf_counter() - t0)
+        print(json.dumps(res), flush=True)
+        os._exit(3)  # a failed group may not tear down cleanly
+    res["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    multihost.shutdown()
+
+
+def _start_group(world, backend, device, root, card=""):
+    """``world`` children forming one group (started, not awaited)."""
+    port = _free_port()
+    env = dict(os.environ)
+    env.pop("TFS_COMPILE_CACHE", None)  # nothing to build: the verbs launch no kernel
+    return [subprocess.Popen(
+        [sys.executable, "-c", MESH_CHILD_CODE, str(r), str(world), str(port), backend, device,
+         card],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def _collect_group(procs):
+    """The children's JSON lines in rank order, each with its return code
+    and stderr tail; a child past ``MESH_CHILD_TIMEOUT_S`` is killed."""
+    out = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=MESH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+            se += f"\n(killed after {MESH_CHILD_TIMEOUT_S} s)"
+        lines = [json.loads(x) for x in so.splitlines() if x.startswith("{")]
+        out.append(dict(lines[-1] if lines else {}, rc=p.returncode, stderr=se[-1500:]))
+    return out
+
+
+def phase_mesh(slice_prog, slice_frame, device="cuda"):
+    """Legs (a)-(d) of the mesh executor and the multi-process runtime on
+    one card (the module docstring's phase 16).  Returns the flash launches
+    of the phase's scoring runs by instantiation."""
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch.models import kmeans, logistic_regression as lr
+    from tensorframes_tpu_torch.ops.validation import ValidationError
+    from tensorframes_tpu_torch.parallel import MeshExecutor, data_mesh, flash, multihost
+    from tensorframes_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = data_mesh()
+    if mesh.shape["dp"] != 1 or multihost.process_count() != 1:
+        raise AssertionError(f"mesh: one card, one process expected; got {mesh}")
+    engines = {"global": MeshExecutor(mesh), "per_block": MeshExecutor(mesh, mode="per_block")}
+    serial = tft.Executor()
+    n_layers = DECODE_MODEL["n_layers"]
+    inst = route_of("flash_fwd", torch.bfloat16, 64)
+    total = {}
+
+    def one_block(frame):
+        return tft.TensorFrame(list(frame.columns), (0, frame.num_rows))
+
+    def scored(fn):
+        sync()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        out = fn().to_arrays()  # ends in a D2H sync
+        sec = time.perf_counter() - t0
+        return out, sec, dict(flash.kernel_launches)
+
+    def count(launches, want):
+        if on_card and launches != want:
+            raise AssertionError(f"mesh: flash launches {launches}, expected {want}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # (a) the flagship's scoring block through the mesh executor, both
+    # modes, against the serial executor over the same rows as one block
+    rows = slice_frame.num_rows
+    tokens = slice_frame.column("tokens").data.shape[1]
+    one = one_block(slice_frame)
+    scored(lambda: serial.map_blocks(slice_prog, one))  # warm-up at this shape
+    ref, ref_s, _ = scored(lambda: serial.map_blocks(slice_prog, one))
+    for mode, eng in engines.items():
+        out, sec, launches = scored(lambda: tft.map_blocks(slice_prog, slice_frame, engine=eng))
+        if not all(np.array_equal(out[k], ref[k]) for k in ref):
+            raise AssertionError(f"mesh scoring ({mode}) differs from the serial executor")
+        count(launches, {inst: n_layers})
+        say("mesh", leg=f"a_score_{mode}", rows=rows, tokens_per_row=tokens, mesh_size=1,
+            bit_identical=True, flash_launches=launches, ms_per_block=sec * 1e3,
+            serial_ms_per_block=ref_s * 1e3, mesh_over_serial=sec / ref_s)
+    # (a2) per_block over MESH_POSITIONS positions held on the one card: the
+    # shard and gather code on the card, one 8-row shard a position, as the
+    # slice's 8 blocks
+    pos = Mesh(("dp",), (MESH_POSITIONS,), dev, (dev,))
+    eng8 = MeshExecutor(pos, mode="per_block")
+    ref8, ref8_s, _ = scored(lambda: serial.map_blocks(slice_prog, slice_frame))
+    out8, s8, launches = scored(lambda: tft.map_blocks(slice_prog, slice_frame, engine=eng8))
+    count(launches, {inst: n_layers * MESH_POSITIONS})
+    err8 = max(float(np.abs(out8[k].astype(np.float64) - ref8[k]).max()) for k in ref8)
+    if not err8 <= NLL_TOL:
+        raise AssertionError(f"mesh scoring over {MESH_POSITIONS} positions: {err8} > {NLL_TOL}")
+    say("mesh", leg="a2_score_per_block_positions", positions=MESH_POSITIONS,
+        bit_identical_to_serial_blocks=all(np.array_equal(out8[k], ref8[k]) for k in ref8),
+        max_abs_err=err8, tol=NLL_TOL, flash_launches=launches, ms_per_block=s8 / 8 * 1e3,
+        serial_ms_per_block=ref8_s / 8 * 1e3)
+
+    # (b) the other verbs over config 2's, config 5's and the k-means frames
+    vals = mesh_rows()
+    frame = tft.TensorFrame.from_arrays({"v": vals}, num_blocks=VERB_BLOCKS)
+    lr_rng = np.random.RandomState(5)
+    labels = (vals @ lr_rng.randn(VERB_D).astype(np.float32) > 0).astype(np.float32)
+    lframe = tft.TensorFrame.from_arrays({"features": vals, "label": labels},
+                                         num_blocks=VERB_BLOCKS)
+    kr = np.random.RandomState(1)
+    true = kr.randn(KMEANS_K, KMEANS_D) * 10
+    cluster = kr.randint(0, KMEANS_K, KMEANS_N)
+    pts = (true[cluster] + kr.randn(KMEANS_N, KMEANS_D)).astype(np.float32)
+    kframe = tft.TensorFrame.from_arrays({"points": pts, "cluster": cluster.astype(np.int32)},
+                                         num_blocks=VERB_BLOCKS)
+    seq = tft.TensorFrame.from_arrays({"v": vals[:SEQ_ROWS]}, num_blocks=VERB_BLOCKS)
+    pair = lambda v_1, v_2: {"v": v_1 + v_2}  # noqa: E731
+    on = dict(device=dev)
+    verbs = {
+        "reduce_blocks_sum": (VERB_ROWS, lambda e, f=frame: tft.reduce_blocks(
+            lambda v_input: {"v": v_input.sum(0)}, f, engine=e, **on)),
+        "reduce_rows_tree": (VERB_ROWS, lambda e, f=frame: tft.reduce_rows(
+            pair, f, engine=e, **on)),
+        "reduce_rows_sequential": (SEQ_ROWS, lambda e, f=seq: tft.reduce_rows(
+            pair, f, mode="sequential", engine=e, **on)),
+        "map_rows_sumsq": (VERB_ROWS, lambda e, f=frame: tft.map_rows(
+            lambda v: {"n": (v * v).sum()}, f, engine=e, **on).to_arrays()),
+        "aggregate_segment_config5": (VERB_ROWS, lambda e, f=lframe: tft.aggregate(
+            lambda features_input: {"features": features_input.sum(0)},
+            f.group_by("label"), engine=e, **on).to_arrays()),
+        "aggregate_segment_kmeans": (KMEANS_N, lambda e, f=kframe: tft.aggregate(
+            lambda points_input: {"points": points_input.amax(0)},
+            f.group_by("cluster"), engine=e, **on).to_arrays()),
+    }
+    for name, (n_rows, run) in verbs.items():
+        # the serial reference: the same verb over the rows as one block
+        ref, ref_s = timed(lambda: run(_Reblocked(serial)))
+        for mode, eng in engines.items():
+            got, sec = timed(lambda: run(eng))
+            if not same_arrays(got, ref):
+                raise AssertionError(f"mesh {name} ({mode}) differs from the serial executor")
+            say("mesh", leg=f"b_{name}", mode=mode, rows=n_rows, bit_identical=True,
+                mrows_per_s=n_rows / sec / 1e6, serial_mrows_per_s=n_rows / ref_s / 1e6)
+    # (b2) the split paths over MESH_POSITIONS positions on the card, global
+    # mode: against the serial executor over the same rows in that many
+    # equal blocks (the same fold of the same partials where the verb folds)
+    glob8 = MeshExecutor(pos)
+    for name in ("reduce_blocks_sum", "reduce_rows_tree", "map_rows_sumsq",
+                 "aggregate_segment_config5", "aggregate_segment_kmeans"):
+        n_rows, run = verbs[name]
+        ref = run(_Reblocked(serial, MESH_POSITIONS))
+        got, sec = timed(lambda: run(glob8))
+        floats = [k for k in ref if np.asarray(ref[k]).dtype.kind == "f"]
+        err = check_results(f"mesh {name} over {MESH_POSITIONS} positions", got, ref, SUM_RTOL,
+                            keys=floats)
+        exact = {k: ref[k] for k in ref if k not in floats}  # keys and integers
+        if not same_arrays({k: got[k] for k in exact}, exact):
+            raise AssertionError(f"mesh {name} over positions: {sorted(exact)} differ")
+        say("mesh", leg=f"b2_{name}_positions", positions=MESH_POSITIONS, rows=n_rows,
+            bit_identical=same_arrays(got, ref), max_abs_err=err, rtol=SUM_RTOL,
+            mrows_per_s=n_rows / sec / 1e6)
+
+    # (c) the fused chains over the mesh against the eager mesh fits
+    eng = engines["global"]
+    (pf, lf), fused_s = timed(lambda: lr.fit_fused(lframe, num_iters=LOGREG_STEPS, lr=0.5,
+                                                   engine=eng))
+    (pe, le), eager_s = timed(lambda: lr.fit(lframe, LOGREG_STEPS, 0.5, engine=eng))
+    e_w = check_results("mesh logreg fit_fused vs fit", {"w": pf["w"].numpy()},
+                        {"w": pe["w"].cpu().numpy()}, MESH_FIT_RTOL, MESH_FIT_RTOL)
+    e_l = check_results("mesh logreg losses", {"l": np.array(lf)}, {"l": np.array(le)},
+                        MESH_FIT_RTOL)
+    init = pts[:KMEANS_K].astype(np.float64)
+    (cf, af), kf_s = timed(lambda: kmeans.fit_fused(kframe, KMEANS_K, KMEANS_STEPS,
+                                                    init_centers=init, engine=eng))
+    (ce, ae), ke_s = timed(lambda: kmeans.fit(kframe, KMEANS_K, KMEANS_STEPS, "preagg",
+                                              init_centers=init, engine=eng))
+    e_c = check_results("mesh kmeans fit_fused vs fit", {"c": cf}, {"c": ce}, MESH_CENTERS_RTOL)
+    if not np.array_equal(af, ae):
+        raise AssertionError("mesh kmeans: fit_fused assigns points unlike fit")
+    try:
+        lr.fit_fused(lframe, num_iters=1, lr=0.5, engine=engines["per_block"])
+        raise AssertionError("mesh: a per_block engine composed with a fused chain")
+    except ValidationError as e:
+        refusal = str(e)
+    say("mesh", leg="c_fused_chains", logreg_rows=VERB_ROWS, logreg_steps=LOGREG_STEPS,
+        logreg_fused_s=fused_s, logreg_eager_s=eager_s, w_max_abs_err=e_w, loss_max_abs_err=e_l,
+        kmeans_rows=KMEANS_N, kmeans_steps=KMEANS_STEPS, kmeans_fused_s=kf_s,
+        kmeans_eager_s=ke_s, centers_max_abs_err=e_c, assignments_equal=True,
+        rtol=[MESH_FIT_RTOL, MESH_CENTERS_RTOL], per_block_refused=refusal[:80])
+
+    # (d) the process group on the card: NCCL at world size 1 in this
+    # process, then two children sharing the card, over NCCL (both name
+    # card 0, as the default mesh refuses it: NCCL is expected to refuse
+    # two ranks on one GPU) and over gloo (the cross-process reduce)
+    if on_card:
+        t0 = time.perf_counter()
+        multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+        try:
+            backend = torch.distributed.get_backend()
+            init_s = time.perf_counter() - t0
+            if multihost.process_count() != 1 or backend != "nccl":
+                raise AssertionError(f"world 1: {multihost.process_count()} ranks, {backend}")
+            probe = torch.arange(4.0, device=dev)
+            gathered = multihost.all_gather_tensor(probe)
+            if len(gathered) != 1 or not torch.equal(gathered[0], probe):
+                raise AssertionError("nccl world 1: all_gather returned another tensor")
+        finally:
+            multihost.shutdown()
+        say("mesh", leg="d_nccl_world_1", backend=backend, process_count=1, init_s=init_s)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    nccl_procs = _start_group(2, "nccl", device, root, card="0") if on_card else []
+    gloo = _collect_group(_start_group(2, "gloo", device, root))
+    groups_s = time.perf_counter() - t0
+    nccl = _collect_group(nccl_procs)
+    say("mesh", leg="d_nccl_two_ranks_one_card",
+        refused=bool(nccl) and all("error" in r or r["rc"] != 0 for r in nccl),
+        printed=[r.get("error") or r["stderr"][-300:] for r in nccl])
+    bad = [r for r in gloo if r["rc"] != 0 or "error" in r]
+    if bad:
+        raise AssertionError(f"gloo children failed: {bad}")
+    ref = tft.reduce_blocks(lambda v_input: {"v": v_input.sum(0)},
+                            tft.TensorFrame.from_arrays({"v": vals}, num_blocks=2),
+                            engine=serial, **on)
+    got = np.frombuffer(bytes.fromhex(gloo[0]["v"]), np.float32)
+    if gloo[0]["v"] != gloo[1]["v"]:
+        raise AssertionError("gloo: the two ranks hold different results")
+    err = check_results("gloo cross-process reduce_blocks", {"v": got}, ref, SUM_RTOL)
+    if any(r["process_count"] != 2 or r["mesh_size"] != 2 for r in gloo):
+        raise AssertionError(f"gloo: group {gloo}")
+    say("mesh", leg="d_gloo_two_ranks", process_count=2, mesh_size=2,
+        process_rows=[r["process_rows"] for r in gloo],
+        group_s=[r["group_s"] for r in gloo], reduce_s=[r["reduce_s"] for r in gloo],
+        child_wall_s=[r["wall_s"] for r in gloo], both_groups_s=groups_s,
+        host_detours=[r["host_detours"] for r in gloo],
+        detour=("gloo takes no CUDA tensor: each partial crossed through the host"
+                if any(r["host_detours"] for r in gloo) else None),
+        bit_identical_to_two_blocks=bool(np.array_equal(got, np.asarray(ref["v"]))),
+        max_abs_err=err, rtol=SUM_RTOL)
+    return total
+
+
+class _Reblocked:
+    """An engine that runs ``serial``'s verbs over the frame re-cut into
+    one block (``n`` None) or ``n`` equal blocks."""
+
+    def __init__(self, serial, n=None):
+        self.serial, self.n = serial, n
+
+    def _cut(self, frame):
+        import tensorframes_tpu_torch as tft
+
+        rows = frame.num_rows
+        if self.n is None:
+            return tft.TensorFrame(list(frame.columns), (0, rows))
+        return tft.TensorFrame(list(frame.columns), [rows * i // self.n for i in range(self.n + 1)])
+
+    def __getattr__(self, verb):
+        method = getattr(self.serial, verb)
+        if verb == "aggregate":
+            from tensorframes_tpu_torch.ops.engine import GroupedFrame
+
+            return lambda program, grouped, **kw: method(
+                program, GroupedFrame(self._cut(grouped.frame), grouped.keys), **kw)
+        return lambda program, frame, **kw: method(program, self._cut(frame), **kw)
 
 
 # --- serving over the bridge (phase 14) ----------------------------------------
@@ -5689,6 +6050,7 @@ def main() -> int:
     observability_launches = run_phase(phase_observability, prog)
     planner_launches = run_phase(phase_planner, prog)
     streaming_launches = run_phase(phase_streaming, prog)
+    mesh_launches = run_phase(phase_mesh, prog, frame)
     run_phase(phase_bridge)
     run_phase(phase_fleet)
     run_phase(phase_decode, args.profile)
@@ -5707,7 +6069,7 @@ def main() -> int:
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
         pipeline_launches, observability_launches, planner_launches, streaming_launches,
-        train_run[5],
+        mesh_launches, train_run[5],
         ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)

@@ -64,7 +64,7 @@ import numpy as np
 
 from .. import observability, resilience
 from ..envutil import env_float, env_int, env_opt_float
-from .protocol import decode_value, encode_value, read_message, write_message
+from .protocol import connect, decode_value, encode_value, read_message, write_message
 
 logger = logging.getLogger("tensorframes_tpu_torch.bridge.client")
 
@@ -344,9 +344,7 @@ class BridgeClient:
             effective is None or timeout_s < effective
         ):
             effective = timeout_s
-        sock = socket.create_connection(
-            (self._host, self._port), timeout=effective
-        )
+        sock = connect(self._host, self._port, timeout=effective)
         self._sock = sock
         self._rfile = sock.makefile("rb")
         self._wfile = sock.makefile("wb")

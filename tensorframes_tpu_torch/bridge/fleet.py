@@ -64,7 +64,7 @@ import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .. import envutil, observability
-from .protocol import read_message, write_message
+from .protocol import connect, read_message, write_message
 
 logger = logging.getLogger("tensorframes_tpu_torch.bridge.fleet")
 
@@ -191,7 +191,7 @@ def _fetch_health(
 ) -> Dict[str, Any]:
     """One raw ``health`` round trip — no ``hello``, so a poll never
     creates (and TTL-leaks) a server-side session."""
-    with socket.create_connection((host, port), timeout=timeout_s) as s:
+    with connect(host, port, timeout=timeout_s) as s:
         s.settimeout(timeout_s)
         w = s.makefile("wb")
         r = s.makefile("rb")

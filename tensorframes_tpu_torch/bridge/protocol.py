@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import base64
 import json
+import socket
 import struct
 from typing import Any, List, Optional
 
@@ -188,6 +189,21 @@ def configure_limits(
         MAX_MESSAGE_BYTES = int(max_message_bytes)
     if max_binary_bytes is not None:
         MAX_BINARY_BYTES = int(max_binary_bytes)
+
+
+def connect(host: str, port: int, timeout: Optional[float] = None) -> socket.socket:
+    """A TCP connection to ``host:port``.  A connection that reached
+    itself raises ``ConnectionRefusedError``: when nothing listens on a
+    local port inside the ephemeral range, a connect there can be given
+    that same port as its own and connect to itself, holding the port
+    that a restarting server is about to bind."""
+    sock = socket.create_connection((host, port), timeout=timeout)
+    if sock.getsockname() == sock.getpeername():
+        sock.close()
+        raise ConnectionRefusedError(
+            f"the connection to {host}:{port} reached itself: nothing listens there"
+        )
+    return sock
 
 
 def write_message(sock_file, msg: dict, bins: Optional[List[bytes]] = None) -> None:

@@ -28,11 +28,18 @@ this module stays a thin arg-parse around :func:`serve`.
 from __future__ import annotations
 
 import argparse
+import errno
 import logging
 import os
 import signal
+import socket
 import sys
 import threading
+import time
+
+# how long a replica restarted on its own port waits for the port to be
+# released by whatever still holds it
+PORT_WAIT_S = 10.0
 
 
 def warm_interpreter() -> None:
@@ -44,6 +51,27 @@ def warm_interpreter() -> None:
     from torch.fx.experimental.proxy_tensor import make_fx
 
     make_fx(lambda x: x + 1)(torch.zeros(1))
+
+
+def wait_for_port(host: str, port: int, log) -> None:
+    """Return once ``host:port`` can be bound, or after ``PORT_WAIT_S``
+    (then ``serve`` raises).  A replica restarted on its own port may find
+    it briefly held: a client's connect to the dead replica can be given
+    that port as its own."""
+    if not port:
+        return
+    deadline = time.monotonic() + PORT_WAIT_S
+    while True:
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind((host, port))
+                return
+            except OSError as exc:
+                if exc.errno != errno.EADDRINUSE or time.monotonic() > deadline:
+                    return
+        log.warning("port %s:%d is in use; waiting for it", host, port)
+        time.sleep(0.2)
 
 
 def main(argv=None) -> int:
@@ -86,6 +114,7 @@ def main(argv=None) -> int:
         log.error("replica %s: %s", args.name or "?", exc)
         return 1
     warm_interpreter()
+    wait_for_port(args.host, args.port, log)
     server = serve(
         host=args.host, port=args.port, background=True, device=device
     )

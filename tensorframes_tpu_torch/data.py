@@ -62,8 +62,8 @@ class FrameLoader:
         if self.mesh is not None:
             raise NotImplementedError(
                 "FrameLoader(mesh=...) is not ported yet: ROADMAP.md Queue 1 "
-                "item 13 (the mesh-sharded loader comes with the distributed "
-                "slice)"
+                "item 13b (the mesh-sharded loader comes with the distributed "
+                "training slice)"
             )
         self._device = resolve_device(self.device)
         pin = self._device.type == "cuda"

@@ -52,8 +52,9 @@ def _warn_skipped_once(detail: str) -> None:
 
 
 def is_device_array(x) -> bool:
-    """True for a torch tensor (device-resident column storage)."""
-    return isinstance(x, torch.Tensor)
+    """True for a torch tensor (device-resident column storage), or a
+    process-local column (``parallel.multihost.ProcessLocalData``)."""
+    return isinstance(x, torch.Tensor) or getattr(x, "_tfs_process_local", False)
 
 
 def to_host(x: torch.Tensor, column: str = "?") -> np.ndarray:

@@ -30,7 +30,7 @@ import torch
 
 from ..device import DeviceLike
 from ..frame import TensorFrame
-from ..ops.engine import aggregate, group_by, map_blocks, reduce_blocks
+from ..ops.engine import aggregate, engine_device, group_by, map_blocks, reduce_blocks
 from ..program import Program
 
 
@@ -89,10 +89,13 @@ def step(
     strategy: str = "preagg",
     device: DeviceLike = None,
     _programs: Optional[dict] = None,
+    engine=None,
 ) -> np.ndarray:
     """One Lloyd iteration -> new centers [k, d] (host, float64 as given).
 
-    ``_programs``: the program cache threaded by ``fit``."""
+    ``_programs``: the program cache threaded by ``fit``; ``engine``: the
+    verbs' executor."""
+    device = engine_device(device, engine)
     centers = np.asarray(centers)
     k, d = centers.shape
     progs = _programs if _programs is not None else {}
@@ -101,8 +104,8 @@ def step(
             progs["preagg"] = preagg_program(centers, device)
             progs["combine"] = Program.wrap(_combine_fn, device=progs["preagg"].device)
         progs["preagg"].update_params(centers=_centers(centers))
-        partials = map_blocks(progs["preagg"], frame, trim=True)
-        total = reduce_blocks(progs["combine"], partials)
+        partials = map_blocks(progs["preagg"], frame, trim=True, engine=engine)
+        total = reduce_blocks(progs["combine"], partials, engine=engine)
         sums = np.asarray(total["psum"])
         counts = np.asarray(total["pcount"])
     elif strategy == "aggregate":
@@ -110,7 +113,7 @@ def step(
             progs["assign"] = assignment_program(centers, device)
             progs["agg_sum"] = Program.wrap(_agg_sum_fn, device=progs["assign"].device)
         progs["assign"].update_params(centers=_centers(centers))
-        assigned = map_blocks(progs["assign"], frame)
+        assigned = map_blocks(progs["assign"], frame, engine=engine)
         arrs = assigned.to_arrays()
         witheach = TensorFrame.from_arrays(
             {
@@ -120,7 +123,7 @@ def step(
             },
             num_blocks=frame.num_blocks,
         )
-        grouped = aggregate(progs["agg_sum"], group_by(witheach, "closest"))
+        grouped = aggregate(progs["agg_sum"], group_by(witheach, "closest"), engine=engine)
         out = grouped.to_arrays()
         sums = np.zeros((k, d))
         counts = np.zeros(k)
@@ -158,12 +161,14 @@ def _init_centers(
     return pts[chosen].copy()
 
 
-def make_pipeline(frame: TensorFrame, centers, device: DeviceLike = None):
+def make_pipeline(frame: TensorFrame, centers, device: DeviceLike = None, engine=None):
     """The Lloyd iteration as one chain: per-block pre-aggregation ->
     cross-block combine -> center update, the centers carried on the
-    device between iterations (``pipe.iterate``)."""
+    device between iterations (``pipe.iterate``).  ``engine``: a
+    ``MeshExecutor`` runs the chain mesh-global."""
     from ..ops.pipeline import pipeline
 
+    device = engine_device(device, engine)
     prog = preagg_program(centers, device)
 
     def update(row, params):
@@ -175,7 +180,7 @@ def make_pipeline(frame: TensorFrame, centers, device: DeviceLike = None):
         return {"centers": new.to(params["centers"].dtype)}
 
     pipe = (
-        pipeline(frame, device=prog.device)
+        pipeline(frame, device=prog.device, engine=engine)
         .map_blocks(prog, trim=True)
         .reduce_blocks(Program.wrap(_combine_fn, device=prog.device))
         .then(update)
@@ -190,16 +195,19 @@ def fit_fused(
     seed: int = 0,
     init_centers: Optional[np.ndarray] = None,
     device: DeviceLike = None,
+    engine=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """``fit(strategy="preagg")`` with all ``num_iters`` Lloyd iterations in
     one ``Pipeline.iterate`` (same init), the centers read back once; then
-    one assignment pass."""
+    one assignment pass.  ``engine``: a ``MeshExecutor`` runs the loop
+    mesh-global and the assignment over its mesh."""
+    device = engine_device(device, engine)
     centers = _init_centers(frame, k, seed, init_centers)
-    pipe, _ = make_pipeline(frame, centers, device)
+    pipe, _ = make_pipeline(frame, centers, device, engine=engine)
     finals, _ = pipe.iterate(num_iters, carry={"centers": "centers"})
     centers = np.asarray(pipe.readback(finals)["centers"], dtype=np.float64)
     assign = assignment_program(centers, device)
-    assigned = map_blocks(assign, frame)
+    assigned = map_blocks(assign, frame, engine=engine)
     return centers, np.asarray(assigned.to_arrays()["closest"])
 
 
@@ -211,15 +219,18 @@ def fit(
     device: DeviceLike = None,
     seed: int = 0,
     init_centers: Optional[np.ndarray] = None,
+    engine=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Lloyd's algorithm on column ``points`` [n, d].  Returns (centers
     [k, d], assignments [n]).  Default init is greedy farthest-point
-    seeding (deterministic given ``seed``)."""
+    seeding (deterministic given ``seed``).  ``engine``: the verbs'
+    executor."""
+    device = engine_device(device, engine)
     centers = _init_centers(frame, k, seed, init_centers)
     programs: dict = {}
     for _ in range(num_iters):
-        centers = step(centers, frame, strategy, device, _programs=programs)
+        centers = step(centers, frame, strategy, device, _programs=programs, engine=engine)
     assign = programs.get("assign") or assignment_program(centers, device)
     assign.update_params(centers=_centers(centers))
-    assigned = map_blocks(assign, frame)
+    assigned = map_blocks(assign, frame, engine=engine)
     return centers, np.asarray(assigned.to_arrays()["closest"])

@@ -14,7 +14,9 @@ The gradient program differentiates the loss inside the verb program with
 ``torch.func.grad_and_value`` (JAX: ``jax.value_and_grad``).
 ``make_pipeline`` chains the three as one ``tft.pipeline`` and
 ``fit_fused`` runs every step of the loop through ``Pipeline.iterate``,
-with the params on the device and one readback at the end.
+with the params on the device and one readback at the end.  Every driver
+takes ``engine=``: a ``parallel.MeshExecutor`` runs the verbs (and the
+chain, mesh-global) over its mesh, the programs on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..frame import TensorFrame
-from ..ops.engine import map_blocks, reduce_blocks
+from ..ops.engine import engine_device, map_blocks, reduce_blocks
 from ..program import Program
 
 
@@ -98,21 +100,23 @@ def gradient_step(
     device: DeviceLike = None,
     _programs: Optional[dict] = None,
     feed_dict: Optional[Dict[str, str]] = None,
+    engine=None,
 ) -> Tuple[Dict[str, torch.Tensor], float]:
     """One full distributed step: per-block grad partials -> cross-block sum
     -> SGD update.  Returns (new_params, mean_loss).
 
     ``_programs``: the program cache threaded by ``fit``, so iterations
     update params in place.  ``feed_dict`` maps ``features``/``label`` to
-    other column names."""
+    other column names.  ``engine``: the executor of both verbs."""
+    device = engine_device(device, engine)
     progs = _programs if _programs is not None else {}
     if "grad" not in progs:
         progs["grad"] = grad_program(params, device=device)
         progs["sum"] = Program.wrap(_sum_program(), device=progs["grad"].device)
     else:
         progs["grad"].update_params(w=params["w"], b=params["b"])
-    partials = map_blocks(progs["grad"], frame, trim=True, feed_dict=feed_dict)
-    summed = reduce_blocks(progs["sum"], partials)
+    partials = map_blocks(progs["grad"], frame, trim=True, feed_dict=feed_dict, engine=engine)
+    summed = reduce_blocks(progs["sum"], partials, engine=engine)
     n = float(summed["count"])
     dev = progs["grad"].device
     gw = torch.as_tensor(summed["grad_w"], device=dev) / n
@@ -131,10 +135,12 @@ def fit(
     device: DeviceLike = None,
     feature_col: str = "features",
     label_col: str = "label",
+    engine=None,
 ):
     """Train on a frame with columns ``features`` [n, d] and ``label`` [n]
     (other names through ``feature_col``/``label_col``).  Returns (params,
-    mean loss of every step)."""
+    mean loss of every step).  ``engine``: the verbs' executor."""
+    device = engine_device(device, engine)
     d = frame.schema[feature_col].cell_shape[0]
     params = init(d, device=device)
     feed = {"features": feature_col, "label": label_col}
@@ -142,20 +148,24 @@ def fit(
     progs: dict = {}  # one program, update_params per iteration
     for _ in range(num_iters):
         params, loss = gradient_step(
-            params, frame, lr, device=device, _programs=progs, feed_dict=feed
+            params, frame, lr, device=device, _programs=progs, feed_dict=feed,
+            engine=engine,
         )
         losses.append(loss)
     return params, losses
 
 
-def make_pipeline(frame: TensorFrame, lr: float, params=None, device: DeviceLike = None):
+def make_pipeline(frame: TensorFrame, lr: float, params=None, device: DeviceLike = None,
+                  engine=None):
     """The training step as one chain (``tft.pipeline``): grad partials ->
     cross-block sum -> SGD update, the params on the device.  Returns
     ``(pipe, grad_prog)``: ``pipe.run()`` is one step (device outputs
     ``w``, ``b``, ``loss``); ``pipe.iterate(K, carry={"w": "w", "b": "b"},
-    collect=("loss",))`` runs K steps with no readback."""
+    collect=("loss",))`` runs K steps with no readback.  ``engine``: a
+    ``MeshExecutor`` runs the chain mesh-global."""
     from ..ops.pipeline import pipeline
 
+    device = engine_device(device, engine)
     if params is None:
         params = init(frame.schema["features"].cell_shape[0], device=device)
     gprog = grad_program(params, device=device)
@@ -169,7 +179,7 @@ def make_pipeline(frame: TensorFrame, lr: float, params=None, device: DeviceLike
         }
 
     pipe = (
-        pipeline(frame, device=gprog.device)
+        pipeline(frame, device=gprog.device, engine=engine)
         .map_blocks(gprog, trim=True)
         .reduce_blocks(Program.wrap(_sum_program(), device=gprog.device))
         .then(update)
@@ -196,13 +206,15 @@ def fit_fused(
     label_col: str = "label",
     device: DeviceLike = None,
     params=None,
+    engine=None,
 ):
     """:func:`fit` with the whole loop in one ``Pipeline.iterate``: the
     same per-step calls, the params and the loss history on the device,
     and one readback at the end.  ``params``: the starting params (zeros
-    by default, as :func:`fit`)."""
+    by default, as :func:`fit`).  ``engine``: a ``MeshExecutor`` runs the
+    loop mesh-global."""
     frame = _canonical_frame(frame, feature_col, label_col)
-    pipe, _ = make_pipeline(frame, lr, params=params, device=device)
+    pipe, _ = make_pipeline(frame, lr, params=params, device=device, engine=engine)
     finals, hist = pipe.iterate(num_iters, carry={"w": "w", "b": "b"}, collect=("loss",))
     finals, losses = pipe.readback((finals, hist["loss"]))
     return ({"w": torch.as_tensor(finals["w"]), "b": torch.as_tensor(finals["b"])},

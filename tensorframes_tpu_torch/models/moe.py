@@ -16,7 +16,7 @@ PyTorch counterpart of ``tensorframes_tpu/models/moe.py`` (GShard/Switch):
   over the group's token axis; under a mesh whose ``sp`` axis is larger
   than 1 and divides L, each chunk is its own group, as in the JAX
   package.  The ``ep`` axis and its all-to-all need several devices
-  (ROADMAP.md Queue 1 item 13); the JAX ``shard`` constraints are nothing
+  (ROADMAP.md Queue 1 item 13b); the JAX ``shard`` constraints are nothing
   on one device.
 
 The router runs in f32.  The auxiliary load-balance loss is Switch's

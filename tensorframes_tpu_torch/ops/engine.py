@@ -295,6 +295,12 @@ class Executor:
     # the device pool (``ops/device_pool.py``); an executor with it off
     # (the planner's fused-serial target) runs host-fresh frames serially
     supports_device_pool = True
+    # a mesh executor (``parallel/dist.py``): a fused pipeline over it runs
+    # the frame as one logical block
+    is_mesh = False
+    # where the programs that a driver or a pipeline builds for this
+    # executor go when the caller names no device (None: the CUDA card)
+    default_device: Optional[torch.device] = None
 
     # ---------------------------------------------------------------- map --
 
@@ -1052,7 +1058,6 @@ class Executor:
         repetition and each output row slices back to its own length, so
         O(log max length) calls replace one a distinct length."""
         n = frame.num_rows
-        device = program.device
         cells: Dict[str, List[np.ndarray]] = {}
         uniform: Dict[str, Any] = {}
         for in_name in program.input_names:
@@ -1091,7 +1096,6 @@ class Executor:
                 for r in ragged_names
             )
             buckets.setdefault(key, []).append(i)
-        run = program.vmapped()
         out_cells: Dict[str, List[Any]] = {}
         with torch.no_grad():
             for key in sorted(buckets):
@@ -1108,7 +1112,7 @@ class Executor:
                     rows = (data[torch.as_tensor(idxs, device=data.device)]
                             if isinstance(data, torch.Tensor) else data[idxs])
                     values[u] = (rows, st)
-                outs = run(self._stage_values(values, device).ready())
+                outs = self._run_rows_bucket(program, values)
                 hosts = {name: to_host(v, name) for name, v in outs.items()}
                 for name in hosts:
                     if name not in out_cells:
@@ -1142,6 +1146,13 @@ class Executor:
             _column_from_cells(name, out_cells[name]) for name in sorted(out_cells)
         ]
         return self._with_passthrough(frame, cols, frame.offsets)
+
+    def _run_rows_bucket(self, program: Program, values: Mapping[str, tuple]) -> Dict[str, torch.Tensor]:
+        """Run the vmapped cell program over one same-shape row bucket
+        (``values``: input name -> ``(value, scalar type)``) on the
+        program's device.  The mesh executor pads and splits the bucket
+        over its devices (rows are independent under vmap)."""
+        return program.vmapped()(self._stage_values(values, program.device).ready())
 
     # ------------------------------------------------------------- warmup --
 
@@ -1652,10 +1663,7 @@ class Executor:
         order_t = torch.as_tensor(order, device=device)
         data = {b: staged[b][order_t] for b in bases}
 
-        def vrun(arrs):
-            return torch.func.vmap(
-                lambda a: program.call({f"{b}_input": a[b] for b in bases})
-            )(arrs)
+        vrun = _GroupRun(program, bases)
 
         by_size = {int(size): np.nonzero(counts == size)[0] for size in np.unique(counts)}
         with torch.no_grad():
@@ -1729,23 +1737,13 @@ class Executor:
         plan = _recognize_segment_plan(program, specs, bases)
         if plan is None:
             return None
-        device = program.device
-        values = {
-            f"key:{k}": (frame.column(k).data, frame.column(k).info.scalar_type)
-            for k in grouped.keys
-        }
-        values.update({
+        keys = {k: (frame.column(k).data, frame.column(k).info.scalar_type) for k in grouped.keys}
+        data = {
             f"{b}_input": (frame.column(reduced[b].name).data, dtypes.coerce(reduced[b].scalar_type))
             for b in bases
-        })
+        }
         with torch.no_grad():
-            staged = self._stage_values(values, device).ready()
-            uniq, order, counts = _segment_index([staged[f"key:{k}"] for k in grouped.keys])
-            span.mark("group_index_device")
-            pre = plan.pre({f"{b}_input": staged[f"{b}_input"] for b in bases}, program.params)
-            segs = [_segment_reduce(pc[order], kind, counts)
-                    for pc, kind in zip(pre, plan.reduce_kinds)]
-            outs = plan.post(segs, counts, program.params)
+            uniq, outs = self._segment_run(program, plan, keys, data, span)
         span.mark("execute")
         cols: List[Column] = []
         for kname, kvals in zip(grouped.keys, uniq):
@@ -1760,6 +1758,23 @@ class Executor:
                               Shape(tuple(arr.shape)).with_lead(UNKNOWN))
             cols.append(Column(info, arr))
         return TensorFrame(cols)
+
+    def _segment_run(self, program, plan, keys, data, span):
+        """The segment path's device work on the program's device: ``keys``
+        (name -> ``(value, scalar type)``, in grouping order) and ``data``
+        (``<base>_input`` -> ``(value, scalar type)``) staged, one stable
+        sort, the plan's stages.  Returns ``(unique key columns, {base:
+        [G, *cell]})``.  The mesh executor splits the rows over its
+        devices."""
+        values = {f"key:{k}": v for k, v in keys.items()}
+        values.update(data)
+        staged = self._stage_values(values, program.device).ready()
+        uniq, order, counts = _segment_index([staged[f"key:{k}"] for k in keys])
+        span.mark("group_index_device")
+        pre = plan.pre({n: staged[n] for n in data}, program.params)
+        segs = [_segment_reduce(pc[order], kind, counts)
+                for pc, kind in zip(pre, plan.reduce_kinds)]
+        return uniq, plan.post(segs, counts, program.params)
 
     def _aggregate_empty(self, program, grouped, reduced, bases) -> TensorFrame:
         """Empty-frame contract: zero groups, so an empty result frame with
@@ -1847,6 +1862,22 @@ class Executor:
             gid = new_gid[order]
         # gid is sorted and exactly one partial per group remains
         return parts
+
+
+class _GroupRun:
+    """The block program vmapped over one [groups, size, *cell] bucket of
+    ``aggregate``'s general path; ``program`` and ``bases`` let the mesh
+    executor run it on its other devices."""
+
+    def __init__(self, program: Program, bases: Sequence[str]):
+        self.program = program
+        self.bases = list(bases)
+
+    def __call__(self, arrs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        program, bases = self.program, self.bases
+        return torch.func.vmap(
+            lambda a: program.call({f"{b}_input": a[b] for b in bases})
+        )(arrs)
 
 
 def _recognize_segment_plan(program: Program, specs, bases):
@@ -1948,6 +1979,13 @@ def _wrap(fn, verb, fetches=None, feed_dict=None, shapes=None, device=None) -> P
 
 
 _DEFAULT = Executor()
+
+
+def engine_device(device: DeviceLike, engine: Optional[Executor]) -> DeviceLike:
+    """``device``, or where it is None, ``engine``'s default device."""
+    if device is None and engine is not None:
+        return engine.default_device
+    return device
 
 
 def _resolve(engine: Optional[Executor]) -> Executor:

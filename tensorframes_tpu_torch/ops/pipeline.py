@@ -35,8 +35,16 @@ Map-terminal chains over a host-fresh multi-block frame run per block under
 the device pool (``ops/device_pool.py``) when one resolves, and over a
 sharded-cached frame on the devices holding the blocks: the map stages
 over one block are one Program, run by the eager map verbs' own loop;
-row-terminal chains always run on the programs' device.  A ``MeshExecutor`` engine (the
-JAX package's mesh-global chains) waits for ROADMAP.md Queue 1 item 13.
+row-terminal chains always run on the programs' device.
+
+Mesh composition: ``tft.pipeline(frame, engine=MeshExecutor(mesh))`` runs
+the chain mesh-global, the whole frame as ONE logical block (the mesh
+executor's ``global`` semantics) on the mesh's first device, where the
+stage programs live.  The JAX package's GSPMD partitions that one block
+over the data axis; the port runs it whole, which gives the same results
+and, on a one-device mesh, the serial chain over one block bit for bit.
+Per-block ("partition") semantics stay with the eager ``MeshExecutor``
+verbs; ``mode="per_block"`` executors are rejected here.
 """
 
 from __future__ import annotations
@@ -132,9 +140,13 @@ class Pipeline:
     def __init__(self, frame: TensorFrame, stages: Tuple[_Stage, ...] = (),
                  visible: Optional[Dict[str, ColumnInfo]] = None,
                  from_source: Optional[Dict[str, bool]] = None,
-                 row_stage: bool = False, device: DeviceLike = None):
+                 row_stage: bool = False, device: DeviceLike = None,
+                 engine=None):
         self._frame = frame
         self._stages = stages
+        self._engine = engine
+        if device is None and engine is not None:
+            device = engine.default_device
         self._device = device
         if visible is None:
             visible, from_source = {}, {}
@@ -156,7 +168,7 @@ class Pipeline:
             self._frame, self._stages + (stage,),
             self._visible if visible is None else visible,
             self._from_source if from_source is None else from_source,
-            row_stage, self._device,
+            row_stage, self._device, self._engine,
         )
 
     def _wrap(self, fn, kw) -> Program:
@@ -330,7 +342,8 @@ class Pipeline:
                 f"columns {self._frame.column_names}"
             )
         return Pipeline(frame, self._stages, dict(self._visible),
-                        dict(self._from_source), self._row_stage, self._device)
+                        dict(self._from_source), self._row_stage, self._device,
+                        self._engine)
 
     # --------------------------------------------------------------- body --
 
@@ -399,14 +412,21 @@ class Pipeline:
             blk = self._map_stage_block(st, blk, params)
         return {k: blk[k] for k in sorted(blk)}
 
+    @property
+    def _mesh_mode(self) -> bool:
+        """True when the chain runs mesh-global: the whole frame as one
+        logical block (a ``MeshExecutor`` engine)."""
+        return self._engine is not None and self._engine.is_mesh
+
     def _body(self, cols: Dict[str, Any], params_list: List[Dict]) -> Any:
         """The chain over the staged source columns: the final row dict,
         or the list of per-block column dicts.  The same calls, block by
-        block, as the eager verbs make."""
+        block, as the eager verbs make (mesh-global: one block)."""
         frame = self._frame
+        offsets = (0, frame.num_rows) if self._mesh_mode else frame.offsets
         blocks = [
-            {name: arr[frame.offsets[i]:frame.offsets[i + 1]] for name, arr in cols.items()}
-            for i in range(frame.num_blocks)
+            {name: arr[offsets[i]:offsets[i + 1]] for name, arr in cols.items()}
+            for i in range(len(offsets) - 1)
         ]
         row: Optional[Dict[str, Any]] = None
         for st, params in zip(self._stages, params_list):
@@ -509,7 +529,7 @@ class Pipeline:
         needs a map-terminal chain, >= 2 blocks, host-resident entry
         columns, and either a sharded cache on the frame or >= 2 pool
         devices."""
-        if (self._row_stage or self._frame.num_blocks < 2
+        if (self._row_stage or self._frame.num_blocks < 2 or self._mesh_mode
                 or any(st.kind not in ("map_blocks", "map_rows") for st in self._stages)):
             return None
         cache = frame_cache.active_cache(self._frame)
@@ -559,6 +579,11 @@ class Pipeline:
         here; eager torch has nothing to compile.)"""
         if not self._stages:
             raise ValidationError("pipeline.warmup: empty pipeline")
+        if self._mesh_mode:
+            raise ValidationError(
+                "pipeline.warmup: mesh-global chains compile against live "
+                "shardings; warm them by running once."
+            )
         from ..program import tree_map
 
         layout, _ = self._entry_layout()
@@ -683,17 +708,19 @@ class Pipeline:
 def pipeline(frame: TensorFrame, engine=None, device: DeviceLike = None) -> Pipeline:
     """Start a verb chain over ``frame`` (see :class:`Pipeline`).
     ``device``: where the stage programs built from functions run (None =
-    the CUDA card).  A ``MeshExecutor`` ``engine`` (mesh-global chains)
-    waits for ROADMAP.md Queue 1 item 13."""
+    the CUDA card, or the mesh's first device under a mesh engine).
+    ``engine``: a ``parallel.MeshExecutor`` runs the chain mesh-global
+    (module docstring)."""
     if getattr(frame, "_tfs_lazy", False):
         # a Pipeline over a lazy frame materialises the plan first: a
         # Pipeline is its own chaining surface
         from . import planner
 
         frame = planner.ensure_frame(frame)
-    if engine is not None:
-        raise NotImplementedError(
-            "pipeline(engine=...): mesh-global chains over a MeshExecutor "
-            "are not ported yet: they wait for ROADMAP.md Queue 1 item 13"
+    if engine is not None and engine.is_mesh and engine.mode != "global":
+        raise ValidationError(
+            "pipeline: a fused chain has exactly one logical block, so "
+            "only mode='global' MeshExecutors compose with it; per-block "
+            "(partition) semantics need the eager MeshExecutor verbs."
         )
-    return Pipeline(frame, device=device)
+    return Pipeline(frame, device=device, engine=engine)

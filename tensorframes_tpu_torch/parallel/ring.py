@@ -23,7 +23,7 @@ over ranks.  Rank ``my`` at hop ``i`` folds chunk ``(my - i) % sp``, the
 JAX fold order, so f32 results differ from the JAX package's only by the
 backends' summation.  The rotation is one function, :func:`_rotate`; on one
 device it re-indexes the list of chunks, and a ``torch.distributed``
-backing of the axis (ROADMAP.md Queue 1 item 13) replaces it with a send to
+backing of the axis (ROADMAP.md Queue 1 item 13b) replaces it with a send to
 the next rank and a receive from the previous one.
 
 ``impl="flash"`` folds with the hand-written ring-step kernel

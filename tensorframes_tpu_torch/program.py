@@ -376,6 +376,12 @@ class Program:
         return self._feed.get(name, name)
 
     @property
+    def columns_needed(self) -> List[str]:
+        """Each input's feeding column, in input order (after
+        ``feed_dict``)."""
+        return [self.column_for_input(n) for n in self._input_names]
+
+    @property
     def fetches(self) -> Optional[List[str]]:
         return list(self._fetches) if self._fetches is not None else (
             sorted(self._declared_fetches) if self._declared_fetches else None

@@ -2,11 +2,10 @@
 sink, as one declarative spec.
 
 PyTorch counterpart of ``tensorframes_tpu/relational/pipeline.py``, with
-its spec grammar: the in-process runner the bridge's ``pipeline`` RPC
-calls in the JAX package (the bridge comes with ROADMAP.md Queue 1 item
-12).  The runner drives the pipeline window by window at fixed host
-memory, with a cancellation checkpoint at every window boundary, and runs
-each window under a nested
+its spec grammar: the in-process runner that the bridge's ``pipeline``
+RPC calls (``bridge/server.py``).  The runner drives the pipeline window
+by window at fixed host memory, with a cancellation checkpoint at every
+window boundary, and runs each window under a nested
 :class:`~tensorframes_tpu_torch.observability.RequestLedger`
 (``<cid>:w<i>``), so the per-window counters sum exactly to the enclosing
 request's ledger.

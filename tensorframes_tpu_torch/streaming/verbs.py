@@ -24,8 +24,11 @@ What this module adds is the composition across windows:
   uninterrupted run's bytes.
 
 Every verb records a ``stream_<verb>`` span annotated with ``streaming``
-(windows, rows, live/peak host bytes), and each window leaves one
-``window <k>`` event on the flight recorder's ``stream`` track.
+(windows, rows, live/peak host bytes); the reduce verbs' spans also carry
+each window's ``fault_tolerance``, ``device_pool`` and ``frame_cache``
+records, their numbers summed over the windows (``_MergingSpan``).  Each
+window leaves one ``window <k>`` event on the flight recorder's ``stream``
+track.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from .. import cancellation, observability
 from ..frame import Column, TensorFrame
-from ..ops.engine import GroupedFrame, _host, _resolve, _wrap
+from ..ops.engine import GroupedFrame, _host, _resolve, _wrap, last_verb_stats
 from ..ops.validation import ValidationError
 from .reader import StreamFrame, StreamGroupedFrame
 # lazy import would cycle at module load; the recovery package only
@@ -173,6 +176,43 @@ def _frame_bytes(frame: TensorFrame) -> int:
                 nb = 0
         total += int(nb)
     return total
+
+
+class _MergingSpan:
+    """Span adapter for the streamed reduce verbs: each window's block
+    loop leaves its own record (``fault_tolerance``, ``device_pool``,
+    ``frame_cache``), and a plain span's ``annotate`` overwrites, so the
+    last window would erase every earlier window's retry and quarantine
+    evidence.  This adapter SUMS numeric fields across windows (other
+    fields keep the last value), so the stream span carries whole-stream
+    totals (the JAX package's ``_MergingSpan``)."""
+
+    def __init__(self, span):
+        self._span = span
+        self._acc: Dict[str, Dict[str, Any]] = {}
+
+    def mark(self, phase: str) -> None:
+        self._span.mark(phase)
+
+    def annotate(self, key: str, value) -> None:
+        if isinstance(value, dict):
+            acc = self._acc.setdefault(key, {})
+            for k, v in value.items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    acc[k] = v
+                else:
+                    acc[k] = acc.get(k, 0) + v
+            value = dict(acc)
+        self._span.annotate(key, value)
+
+
+def _annotate_window(span) -> None:
+    """One window's block-loop record (``engine.last_verb_stats``) into the
+    stream span: the keys the JAX package's reduce partials annotate."""
+    rec = last_verb_stats() or {}
+    for key in ("device_pool", "fault_tolerance", "frame_cache"):
+        if key in rec:
+            span.annotate(key, rec[key])
 
 
 def _annotate(span, stream: StreamFrame, windows: int, rows: int) -> None:
@@ -463,6 +503,7 @@ def _reduce_stream(
     ex = _resolve(engine)
     try:
         with observability.verb_span(f"stream_{verb}", 0, 0) as span, torch.no_grad():
+            merged = _MergingSpan(span)  # per-window records accumulate
             setup = None
             partials = list(prior_partials)
             windows, rows = start_window, prior_rows
@@ -479,6 +520,7 @@ def _reduce_stream(
                 window_partials = ex._reduce_partials(
                     program, run_for, bases, reduced, wf
                 )
+                _annotate_window(merged)
                 partials.extend(window_partials)
                 if writer is not None:
                     from .. import recovery

@@ -17,15 +17,18 @@ Long sequences train under an ambient ``sp`` mesh
 (``parallel.mesh.set_mesh(training_mesh(sp=...))``) with ``attn_impl``
 ``"ring"``, ``"ring_flash"`` or ``"auto"``: the step reads the mesh where
 attention runs, and the ranks share the one device.  ``frontier_sweep``
-measures the train step over batch x length x remat policy.  Pipeline
-parallelism (``pp_stages > 1``, the GPipe and 1F1B schedules) waits for the
-distributed slice (ROADMAP.md).
+measures the train step over batch x length x remat policy.  With
+``pp_stages > 1`` and no ``pp`` mesh axis above 1 (the port's meshes have
+none until the distributed training slice, ROADMAP.md Queue 1 item 13b),
+both schedules train single-stage, as the JAX package's do: GPipe after its
+divisibility checks, 1F1B after logging the JAX package's warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import logging
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -36,10 +39,7 @@ from .device import DeviceLike, resolve_device
 from .models import transformer as tfm
 from .models.transformer import Params, TransformerConfig
 
-_DEFERRED_PP = (
-    "ROADMAP.md Queue 1 item 13 (pipeline stages and the GPipe/1F1B "
-    "schedules come with the distributed slice)"
-)
+_log = logging.getLogger("tensorframes_tpu_torch.train")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,7 @@ class TrainConfig:
     b2: float = 0.95
     eps: float = 1e-8
     grad_clip: float = 1.0
-    pp_stages: int = 1  # pipeline stages (> 1 is not ported yet)
+    pp_stages: int = 1  # pipeline stages (> 1 trains single-stage: no pp axis)
     microbatches: int = 1  # pipeline microbatches (used with pp_stages > 1)
     pipeline_schedule: str = "gpipe"  # "gpipe" | "1f1b"
     # "constant" | "cosine" (linear warmup to learning_rate, cosine decay
@@ -201,6 +201,48 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
 # ---------------------------------------------------------------------------
 
 
+def _single_stage(cfg: TransformerConfig, tcfg: TrainConfig, tokens, warned: List[bool]) -> None:
+    """``pp_stages > 1`` with no ``pp`` mesh axis above 1: the JAX package's
+    checks before it falls back to the single-stage loss.  GPipe
+    (``pipelined_blocks``) checks that the stages divide the layers and the
+    microbatches the batch; 1F1B (``loss_and_grad_1f1b``) refuses MoE and
+    ``ce_chunk`` and logs its warning (once a step function here, once a
+    trace there)."""
+    S, M = tcfg.pp_stages, tcfg.microbatches
+    if tcfg.pipeline_schedule == "gpipe":
+        if cfg.n_layers % S:
+            raise ValueError(f"pp_stages {S} must divide n_layers {cfg.n_layers}")
+        if tokens.shape[0] % M:
+            raise ValueError(f"microbatches {M} must divide batch {tokens.shape[0]}")
+        return
+    if cfg.moe_experts:
+        raise ValueError(
+            "pipeline_schedule='1f1b' does not support MoE models yet; "
+            "use pipeline_schedule='gpipe'"
+        )
+    if cfg.ce_chunk:
+        raise ValueError(
+            "pipeline_schedule='1f1b' computes the head loss per tick "
+            "and does not honour ce_chunk; use pipeline_schedule="
+            "'gpipe' (which chunks via cross_entropy_chunked) or "
+            "ce_chunk=0"
+        )
+    if not warned:
+        warned.append(True)
+        from .parallel.mesh import get_mesh
+
+        mesh = get_mesh()
+        _log.warning(
+            "loss_and_grad_1f1b: pp_stages=%d but %s; running "
+            "SINGLE-stage (no pipeline parallelism). Enter the mesh "
+            "with set_mesh(...) or pass mesh= explicitly.",
+            S,
+            "no ambient mesh is set"
+            if mesh is None or not mesh.axis_names
+            else "the mesh has no pp axis of size>1",
+        )
+
+
 def make_train_step(
     cfg: TransformerConfig, tcfg: TrainConfig, packed: bool = False
 ):
@@ -220,13 +262,11 @@ def make_train_step(
         )
     if packed and tcfg.pp_stages > 1:
         raise ValueError("packed training is single-stage; set pp_stages=1")
-    if tcfg.pp_stages > 1:
-        raise NotImplementedError(
-            f"pp_stages={tcfg.pp_stages} (pipeline_schedule="
-            f"{tcfg.pipeline_schedule!r}) is not ported yet: {_DEFERRED_PP}"
-        )
+    warned: List[bool] = []
 
     def step(params, opt_state, tokens, targets, segments=None, positions=None):
+        if tcfg.pp_stages > 1:
+            _single_stage(cfg, tcfg, tokens, warned)
         opt_state.optimizer.zero_grad(set_to_none=True)
         loss = tfm.loss_fn(
             params, tokens, targets, cfg,

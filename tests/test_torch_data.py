@@ -127,7 +127,7 @@ def test_loader_size_errors_match_jax(kw):
 
 
 def test_loader_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13b"):
         _loader(token_frame(n_rows=16, seq=4), batch_size=8, mesh=object())
 
 

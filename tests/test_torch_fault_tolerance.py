@@ -5,9 +5,10 @@ The contract: **retries never change results**.  The same
 ``TFS_FAULT_INJECT`` schedules give the same retries, splits and messages
 as in the JAX package (``tests/test_fault_tolerance.py``'s eager cases),
 outputs bit-identical to a clean run, and every retry and split re-runs
-the block on the program's own device.  The device-pool cases
-(quarantine, pooled chaos) and the streamed-chunk and fused-pipeline
-retries wait with their modules (ROADMAP.md Queue 1 items 8, 9, 11)."""
+the block on the program's own device.  The pooled chaos chain is the
+last case here; the other device-pool cases (quarantine) are in
+``tests/test_torch_device_pool.py``, and the streamed-chunk retries in
+``tests/test_torch_streaming.py``."""
 
 import numpy as np
 import pytest
@@ -467,3 +468,35 @@ def test_sticky_cuda_error_in_a_verb_is_not_retried(monkeypatch):
     with pytest.raises(RuntimeError, match="launch failure"):
         tft.map_blocks(prog, _frame(), device="cpu")
     assert calls == [1]
+
+
+def test_chaos_pool_chain_bit_identical(monkeypatch):
+    """Twin of JAX's pooled chaos chain (``tests/test_fault_tolerance.py``):
+    a map-terminal chain over eight pool devices under seeded random
+    transient faults equals the clean serial chain bit for bit, and JAX's
+    chain (f32 elementwise: exact)."""
+    from tensorframes_tpu.ops.pipeline import pipeline as jpipeline
+    from tensorframes_tpu_torch.ops import device_pool
+
+    monkeypatch.setattr(device_pool, "_local_devices", lambda: [torch.device("cpu")] * 8)
+    device_pool.reset_quarantine_history()
+    monkeypatch.setenv("TFS_QUARANTINE_AFTER", "50")
+    _retry_env(monkeypatch, retries="4")
+    frame = tft.analyze(_frame(n=122, nb=4))  # uneven: a bucket-padded chain
+
+    def chain(pl, f):
+        return pl(f).map_rows(lambda x: {"z": x * 2.0}).map_blocks(lambda z: {"w": z + 1.0})
+
+    monkeypatch.setenv("TFS_DEVICE_POOL", "0")
+    clean = chain(lambda f: tft.pipeline(f, device="cpu"), frame).run()
+    jclean = chain(jpipeline, _jframe(n=122, nb=4)).run()
+    monkeypatch.setenv("TFS_DEVICE_POOL", "auto")
+    monkeypatch.setenv("TFS_FAULT_INJECT", "transient:rate=0.25:seed=7")
+    before = obs.counters()["faults_injected"]
+    chaotic = chain(lambda f: tft.pipeline(f, device="cpu"), frame).run()
+    assert obs.counters()["faults_injected"] > before  # chaos really ran
+    for col in ("w", "z", "x", "k"):
+        got = chaotic.to_arrays()[col]
+        np.testing.assert_array_equal(got, clean.to_arrays()[col], err_msg=col)
+        np.testing.assert_array_equal(got, np.asarray(jclean.column(col).data), err_msg=col)
+    assert chaotic.offsets == clean.offsets == jclean.offsets

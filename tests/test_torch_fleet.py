@@ -706,3 +706,42 @@ def test_fleet_decode_equals_jax_generate():
                 assert got == [int(t) for t in want], i
         finally:
             router.close()
+
+
+def test_self_connection_refused_and_restart_waits_for_its_port(monkeypatch):
+    """A connect to a local port nobody listens on can be given that port
+    as its own and reach itself; the port's connect refuses it (a client
+    and the router's health poll), and a replica restarted on its own port
+    waits for the port to be released instead of failing its bind."""
+    import logging
+    import socket
+    import threading
+
+    from tensorframes_tpu_torch.bridge import protocol, replica
+
+    # a TCP self-connection, made deterministically: bind, then connect to
+    # the same address
+    probe = socket.socket()
+    probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.connect(("127.0.0.1", port))
+    assert probe.getsockname() == probe.getpeername()
+    monkeypatch.setattr(socket, "create_connection", lambda *a, **k: probe)
+    with pytest.raises(ConnectionRefusedError, match="reached itself"):
+        protocol.connect("127.0.0.1", port, timeout=1.0)
+    assert probe.fileno() == -1  # closed
+    monkeypatch.undo()
+
+    holder = socket.socket()  # a listener holds the port for 0.5 s
+    holder.bind(("127.0.0.1", 0))
+    holder.listen()
+    port = holder.getsockname()[1]
+    threading.Timer(0.5, holder.close).start()
+    t0 = time.monotonic()
+    replica.wait_for_port("127.0.0.1", port, logging.getLogger("test"))
+    waited = time.monotonic() - t0
+    assert 0.4 <= waited < replica.PORT_WAIT_S
+    with socket.socket() as s:  # the port binds now
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))

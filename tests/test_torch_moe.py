@@ -12,7 +12,7 @@ backends summing in different orders, through several layers).
 Not mirrored, because they need several devices: the ``ep``-sharded
 forward and weight layout, the pipelined (pp) MoE loss and the checkpoint
 restored onto another mesh (``tests/test_moe.py``); ``ep`` waits for
-ROADMAP.md Queue 1 item 13."""
+ROADMAP.md Queue 1 item 13b."""
 
 import dataclasses
 

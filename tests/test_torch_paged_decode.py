@@ -1,6 +1,7 @@
 """The port's paged KV cache (``tensorframes_tpu_torch/models/kv_pager.py``):
-the pager-level cases of ``tests/test_paged_decode.py`` (the scheduler and
-the bridge wait for ROADMAP.md Queue 1 item 12).
+the pager-level cases of ``tests/test_paged_decode.py`` (the scheduler's
+and the bridge's cases are in ``tests/test_torch_decode_scheduler.py`` and
+``tests/test_torch_bridge.py``).
 
 * paged decode equals the port's contiguous ``generate(...,
   cache_len=cap)`` bit for bit at the same capacity (the port's own

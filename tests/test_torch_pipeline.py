@@ -25,6 +25,7 @@ import tensorframes_tpu_torch as tft
 from tensorframes_tpu_torch import observability as obs
 from tensorframes_tpu_torch.models import convert, kmeans, logistic_regression as lr
 from tensorframes_tpu_torch.ops.validation import ValidationError
+from tensorframes_tpu_torch.parallel import MeshExecutor, data_mesh
 
 JTOL = dict(rtol=1e-6, atol=1e-7)
 
@@ -250,9 +251,16 @@ def test_a_host_read_inside_iterate_is_caught(monkeypatch):
 
 
 def test_engine_waits_for_item_13():
-    f, _ = _frames()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tft.pipeline(f, engine=SimpleNamespace(mesh=None))
+    """Item 13a landed: a mesh engine in global mode runs the chain
+    (``tests/test_torch_mesh_twins.py``); a per-block one raises JAX's
+    error, as a fused chain has one logical block."""
+    tf, jf = _frames()
+    engine = MeshExecutor(data_mesh(devices=["cpu"]), mode="per_block")
+    with pytest.raises(ValidationError, match="per-block") as te:
+        tft.pipeline(tf, engine=engine)
+    with pytest.raises(tfs.ValidationError) as je:
+        jpipeline(jf, engine=SimpleNamespace(mesh=None, mode="per_block"))
+    assert str(te.value) == str(je.value)
 
 
 # -- the fused drivers --------------------------------------------------------------

@@ -4,8 +4,10 @@ package's contract (``tests/test_prefetch.py``'s eager cases): the
 at the matching item with their cause, and reaps its thread; the map and
 reduce verbs prefetched are bit-identical to the synchronous path and to
 JAX; a ``cache()``d frame stages nothing; ``host_stage`` runs on the
-staging thread.  The fused-pipeline and streamed-chunk cases wait with
-their modules (ROADMAP.md Queue 1 items 8 and 11)."""
+staging thread; and the fused pipeline run, map-terminal, cached and
+``iterate`` chains are bit-identical synchronous and overlapped (the last
+four cases).  The streamed-chunk cases are in
+``tests/test_torch_streaming.py``."""
 
 import threading
 
@@ -228,3 +230,93 @@ def test_host_stage_runs_on_staging_thread_results_identical(monkeypatch):
                            device="cpu")
     np.testing.assert_array_equal(again.column("s").data.numpy(), out.column("s").data.numpy())
     assert threads == [threading.current_thread().name] * 4
+
+
+# -- fused pipeline parity under donation ------------------------------------
+#
+# Twins of ``tests/test_prefetch.py``'s fused-pipeline cases: the port's
+# chain run synchronously (``TFS_PREFETCH_BLOCKS=0``, ``TFS_DONATE=0``) and
+# overlapped with donation is bit-identical, and equals JAX's chain (f64
+# sums ``rtol=1e-12``: the backends sum in other orders; f32 iterate
+# ``rtol=1e-6``).
+
+
+def _chain_frames(data, blocks):
+    return (tft.analyze(tft.TensorFrame.from_arrays(data, num_blocks=blocks)),
+            tfs.analyze(tfs.TensorFrame.from_arrays(data, num_blocks=blocks)))
+
+
+def test_pipeline_run_bit_identical_under_donation(monkeypatch):
+    from tensorframes_tpu.ops.pipeline import pipeline as jpipeline
+
+    data = {"x": np.random.RandomState(6).rand(1024, 8), "y": np.random.RandomState(7).rand(1024)}
+
+    def build(pl, frame):
+        return (pl(frame).map_blocks(lambda x, y: {"s": x.sum(1) * y})
+                .reduce_blocks(lambda s_input: {"s": s_input.sum(0)}))
+
+    _sync_env(monkeypatch)
+    ref = build(lambda f: tft.pipeline(f, device="cpu"), _chain_frames(data, 4)[0]).collect()
+    _overlap_env(monkeypatch)
+    got = build(lambda f: tft.pipeline(f, device="cpu"), _chain_frames(data, 4)[0]).collect()
+    np.testing.assert_array_equal(got["s"], ref["s"])
+    jgot = build(jpipeline, _chain_frames(data, 4)[1]).collect()
+    np.testing.assert_allclose(got["s"], np.asarray(jgot["s"]), rtol=1e-12)
+
+
+def test_pipeline_map_terminal_bit_identical_under_donation(monkeypatch):
+    x = np.random.RandomState(8).rand(512, 8)
+
+    def build():
+        frame = _chain_frames({"x": x}, 2)[0]
+        return tft.pipeline(frame, device="cpu").map_rows(lambda x: {"n": (x * x).sum()})
+
+    _sync_env(monkeypatch)
+    ref = build().run().to_arrays()["n"]
+    _overlap_env(monkeypatch)
+    got = build().run().to_arrays()["n"]
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_allclose(got, (x * x).sum(1), rtol=1e-12)
+    # the passthrough source column survives in the donated output frame
+    np.testing.assert_array_equal(build().run().to_arrays()["x"], x)
+
+
+def test_pipeline_cached_frame_never_donates(monkeypatch):
+    _overlap_env(monkeypatch)
+    x = np.random.RandomState(9).rand(256, 4)
+    frame = _chain_frames({"x": x}, 2)[0].cache(device="cpu")
+    pipe = tft.pipeline(frame, device="cpu").reduce_blocks(lambda x_input: {"x": x_input.sum(0)})
+    before = observability.counters()["h2d_bytes_staged"]
+    first = pipe.collect()
+    second = pipe.collect()  # the cached columns are still valid
+    assert observability.counters()["h2d_bytes_staged"] == before  # read in place
+    np.testing.assert_array_equal(second["x"], first["x"])
+    np.testing.assert_array_equal(frame.to_arrays()["x"], x)
+
+
+def test_pipeline_iterate_parity_under_donation(monkeypatch):
+    from tensorframes_tpu.ops.pipeline import pipeline as jpipeline
+
+    x = np.random.RandomState(10).rand(512, 4).astype(np.float32)
+
+    def build(pl, frame, program, w, **kw):
+        prog = program.wrap(lambda x, w: {"g": (x * w).sum(0)}, fetches=["g"], params={"w": w},
+                            **kw)
+        return (pl(frame).map_blocks(prog, trim=True)
+                .reduce_blocks(lambda g_input: {"g": g_input.sum(0)})
+                .then(lambda row, params: {"g": row["g"], "w": params["w"] - 0.01 * row["g"]}))
+
+    def port():
+        return build(lambda f: tft.pipeline(f, device="cpu"), _chain_frames({"x": x}, 2)[0],
+                     tft.Program, torch.ones(4), device="cpu")
+
+    _sync_env(monkeypatch)
+    ref_finals, ref_hist = port().iterate(5, carry={"w": "w"}, collect=("g",))
+    _overlap_env(monkeypatch)
+    got_finals, got_hist = port().iterate(5, carry={"w": "w"}, collect=("g",))
+    np.testing.assert_array_equal(got_finals["w"].numpy(), ref_finals["w"].numpy())
+    np.testing.assert_array_equal(got_hist["g"].numpy(), ref_hist["g"].numpy())
+    jfinals, jhist = build(jpipeline, _chain_frames({"x": x}, 2)[1], tfs.Program,
+                          np.ones(4, np.float32)).iterate(5, carry={"w": "w"}, collect=("g",))
+    np.testing.assert_allclose(got_finals["w"].numpy(), np.asarray(jfinals["w"]), rtol=1e-6)
+    np.testing.assert_allclose(got_hist["g"].numpy(), np.asarray(jhist["g"]), rtol=1e-6)

@@ -326,7 +326,7 @@ def test_training_mesh_keeps_the_jax_axis_order_and_names():
 def test_training_mesh_refuses_axes_across_devices(kw, what):
     """The JAX rule "mesh size == available devices" becomes: the mesh
     holds one device, so every axis but sp is 1 and there is one slice."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13") as e:
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13b") as e:
         tmesh.training_mesh(device="cpu", **kw)
     assert f"training_mesh({what})" in str(e.value)
 

@@ -406,12 +406,40 @@ def test_unknown_pipeline_schedule_matches_jax():
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
-def test_pipeline_stages_raise_naming_the_roadmap(schedule):
-    _, tcfg = _pair(BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        ttrain.make_train_step(
-            tcfg, ttrain.TrainConfig(pp_stages=2, pipeline_schedule=schedule)
-        )
+def test_pipeline_stages_raise_naming_the_roadmap(schedule, caplog):
+    """``pp_stages > 1`` with no ``pp`` axis: both packages train
+    single-stage (once the port raised here, naming the roadmap).  The
+    loss equals JAX's on the same weights and batch, which is JAX's
+    single-stage ``loss_fn``, and the 1F1B schedule logs JAX's warning."""
+    import logging
+
+    jcfg, tcfg = _pair(BASE)
+    jp, tp = _params(jcfg, tcfg)
+    inp, tgt = _batch(B=4, seed=0)
+    over = dict(pp_stages=2, microbatches=2, pipeline_schedule=schedule)
+    jstep, jtx = jtrain.make_train_step(jcfg, jtrain.TrainConfig(**over))
+    with caplog.at_level(logging.WARNING):
+        _, _, jloss = jstep(jp, jtx.init(jp), jnp.asarray(inp), jnp.asarray(tgt))
+        tstep, ttx = ttrain.make_train_step(tcfg, ttrain.TrainConfig(**over))
+        _, _, tloss = tstep(tp, ttx.init(tp), torch.from_numpy(inp), torch.from_numpy(tgt))
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+    # JAX's fallback is its single-stage loss (3.95905 on this batch)
+    single = jtfm.loss_fn(jp, jnp.asarray(inp), jnp.asarray(tgt), jcfg)
+    np.testing.assert_allclose(float(jloss), float(single), rtol=1e-6)
+    warned = {r.name for r in caplog.records if "running SINGLE-stage" in r.getMessage()}
+    if schedule == "1f1b":
+        assert {"tensorframes_tpu.train", "tensorframes_tpu_torch.train"} <= warned
+    else:
+        assert not warned
+    bad = dict(over, microbatches=3)
+    if schedule == "gpipe":  # GPipe's checks come before its fallback
+        jstep, jtx = jtrain.make_train_step(jcfg, jtrain.TrainConfig(**bad))
+        tstep, ttx = ttrain.make_train_step(tcfg, ttrain.TrainConfig(**bad))
+        with pytest.raises(ValueError) as je:
+            jstep(jp, jtx.init(jp), jnp.asarray(inp), jnp.asarray(tgt))
+        with pytest.raises(ValueError) as te:
+            tstep(tp, ttx.init(tp), torch.from_numpy(inp), torch.from_numpy(tgt))
+        assert str(te.value) == str(je.value)
 
 
 def test_fit_raises_like_jax_when_the_loader_runs_dry():
