@@ -95,7 +95,7 @@ Phases, each printing its own lines and then its command time (``phase:``):
    both ways;
    decode (bench config 8: vocab 8192, d_model 1024, 8 layers, 16 heads,
    d_ff 4096, bf16, seeded weights): (a) greedy ``generate`` of 256 tokens
-   from 32-token prompts at B = 1 and 8 (best of 3 after a warm-up;
+   from 32-token prompts at B = 1 and 8 (one timed run after a warm-up;
    tokens/s, ms a token, peak memory), the B = 1 run against one full
    forward over its final sequence: the cached logits at every position in
    f32 (1e-4), the generated tokens' mean NLL in bf16 (3e-2, the slice's),
@@ -353,7 +353,26 @@ Phases, each printing its own lines and then its command time (``phase:``):
    executor over the same two blocks; the seconds to form each group and
    of the reduce, and the collectives whose CUDA partials crossed through
    the host (gloo takes no CUDA tensor);
-17. the card's line again, the kernels' JSON record (each kernel at the
+17. train_axes (after the train phase): the training axes on the card,
+   every mesh position held on the one card as a rank of its axis: (a)
+   GPipe over ``training_mesh(pp=2)`` at 4 microbatches and ``pp=4`` at 8,
+   the flagship train config at B = 8 x 2048, loss and gradient norm held
+   to the single-stage ``loss_fn``'s, ms a train step and flash launches
+   by kernel a step; (b) 1F1B on the same meshes, the same checks, then
+   peak device memory of loss and gradients at one row a microbatch, 2
+   against 8 microbatches, both schedules (GPipe's grows with M, 1F1B's
+   less); (c) ``pp=2 x sp=2`` with ``ring_flash`` (the ring slice's widths,
+   L = 4096, B = 2, 2 microbatches) against the single-stage ring at
+   ``sp=2``, with its ``ring_step_tma`` launches; (d) the MoE flagship at
+   ``pp=2`` (2 microbatches) against the unpipelined loss, and
+   ``training_mesh(ep=2)`` against ``ep=1`` (bit-identity printed); (e)
+   ``train.fit`` fed by ``FrameLoader(mesh=training_mesh(pp=2), spec=("dp",
+   None))`` for 4 steps, the losses falling; (f) two processes sharing the
+   card under ``gloo`` (``train_axes_child``), a 2-layer cut of the
+   flagship, ``dp=2``: each rank trains on its half of every batch (a
+   mesh-sharded ``FrameLoader``), two steps, each loss held to the
+   one-process step's;
+18. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -1914,7 +1933,9 @@ def phase_verbs():
 DECODE_MODEL = dict(vocab_size=8192, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
                     d_ff=4096, max_seq=2048)
 DECODE_PROMPT, DECODE_NEW, DECODE_BATCHES = 32, 256, (1, 8)
-DECODE_RUNS = 3  # timed runs after one warm-up; the best is reported
+# timed runs after one warm-up; the best is reported (3 until the
+# train-axes phase came: cut to 1 to keep the script's run time)
+DECODE_RUNS = 1
 # the cached path against one full forward (tfm.apply, no cache) over the
 # final sequence.  In f32 (the same weights, TF32 off) the logits at every
 # position agree to summation order: atol = rtol = 1e-4.  In bf16 each
@@ -2434,6 +2455,339 @@ def phase_train():
     say("train", check="small f32 model, 3 steps, cuda vs cpu params "
         f"(atol=rtol={SMALL_TRAIN_TOL:g})", max_abs_err=err)
     return launches, cfg, tc, start_params, loader, by_instantiation
+
+
+# the training axes (phase_train_axes): the train phase's config and rows
+AXES_B = 8  # one flagship batch of 8 rows of 2048 tokens
+AXES_PIPES = ((2, 4), (4, 8))  # (pp stages, microbatches) of (a) and (b)
+AXES_TIMED_STEPS = 2  # timed train steps a schedule and mesh, after a warm-up
+AXES_MEM_M = (2, 8)  # microbatch counts of the memory runs, one row each
+AXES_RING_L, AXES_RING_B, AXES_RING_SP = 4096, 2, 2  # (c), 2 microbatches
+AXES_FIT_STEPS = 4
+AXES_CHILD_LAYERS, AXES_CHILD_STEPS = 2, 2  # (f): a 2-layer cut, two steps
+AXES_CHILD_TIMEOUT_S = 240
+AXES_CHILD_CODE = "import sys, chip_smoke; chip_smoke.train_axes_child(*sys.argv[1:])"
+# a pipeline cuts the batch into microbatches: the same products at fewer
+# rows.  Allowed at first REMAT_LOSS_TOL on the loss and FULL_GRAD_NORM_RTOL
+# on the gradient norm (cuBLAS may pick other kernels for fewer rows); the
+# card gave 0-9.5e-7 and 1.1e-5-4.3e-5 relative over GPipe and 1F1B at
+# both meshes, the ring pipeline 0 (an H100 at 700 W), so the
+# limits are 1e-4 and 1e-3.  The MoE pipeline's aux is JAX's per-microbatch
+# estimator, so its loss is held to the unpipelined loss_fn averaged over
+# the same microbatches (equal valid counts: the CE is the batch's), at
+# AXES_LOSS_TOL too (the card gave 0); its gap to the full-batch loss is
+# printed.  Two processes (f) update the weights from gradients summed in
+# another order: their second loss is held at bf16's first-loss limit
+AXES_LOSS_TOL, AXES_GRAD_RTOL = 1e-4, 1e-3
+
+
+def axes_rows(n_rows):
+    """The train phase's token rows (its first draw), ``n_rows`` of them."""
+    rng = np.random.RandomState(0)
+    start = rng.randint(0, TRAIN_MODEL["vocab_size"], (TRAIN_ROWS, 1))
+    toks = (start + np.arange(TRAIN_L + 1)) % TRAIN_MODEL["vocab_size"]
+    return toks.astype(np.int32)[:n_rows]
+
+
+def train_axes_child(rank, world, port) -> None:
+    """Leg (f)'s child: rank ``rank`` of a ``world``-process ``gloo`` group
+    on card 0 (``gloo`` moves the CUDA gradients through the host), a
+    ``dp=world`` training mesh, the 2-layer cut of the flagship from the
+    train phase's seed; a mesh-sharded ``FrameLoader`` hands it its rows
+    of each batch, and it trains ``AXES_CHILD_STEPS`` steps.  Prints one
+    JSON line: the global losses, its rows, the seconds, the host detours,
+    or the error it met."""
+    import datetime
+
+    from tensorframes_tpu_torch import TensorFrame, data, train
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash, multihost
+    from tensorframes_tpu_torch.parallel.mesh import set_mesh, training_mesh
+
+    rank, world = int(rank), int(world)
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                             timeout=datetime.timedelta(seconds=120))
+        res["init_s"] = time.perf_counter() - t0
+        cfg = tfm.TransformerConfig(**dict(TRAIN_MODEL, n_layers=AXES_CHILD_LAYERS))
+        params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        mesh = training_mesh(dp=world)
+        frame = TensorFrame.from_arrays({"tokens": axes_rows(AXES_B * AXES_CHILD_STEPS)})
+        loader = data.FrameLoader(frame, batch_size=AXES_B, mesh=mesh, spec=("dp", None))
+        losses, rows = [], []
+        with set_mesh(mesh):
+            step, tx = train.make_train_step(cfg, train.TrainConfig(learning_rate=3e-4))
+            state = tx.init(params)
+            flash.reset_launches()
+            t1 = time.perf_counter()
+            for batch in loader:
+                rows.append(int(batch["tokens"].shape[0]))
+                losses.append(float(step(params, state, *data.lm_split(batch))[2]))
+        res.update(losses=losses, rows=rows, steps_s=time.perf_counter() - t1,
+                   crosses=[a for a in mesh.axis_names if mesh.crosses(a)],
+                   launches=dict(flash.kernel_launches), host_detours=multihost.host_detours)
+    except Exception as e:  # noqa: BLE001 - printed for the parent
+        res.update(error=f"{type(e).__name__}: {e}"[:600], wall_s=time.perf_counter() - t0)
+        print(json.dumps(res), flush=True)
+        os._exit(3)
+    res["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    multihost.shutdown()
+
+
+def phase_train_axes():
+    """Legs (a)-(f) of the training axes on one card (the module
+    docstring's phase 17).  Returns the flash launches of the phase's main
+    runs (the timed pipelined train steps, the ring steps, ``fit``) by
+    instantiation."""
+    from tensorframes_tpu_torch import TensorFrame, data, train
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+    from tensorframes_tpu_torch.parallel.mesh import set_mesh, training_mesh
+
+    total = {}
+
+    def counted():
+        for name, n in flash.kernel_launches.items():
+            total[name] = total.get(name, 0) + n
+
+    def grad_of(params, fn):
+        """(loss, gradient norm) of ``fn(params)``: a loss to differentiate,
+        or ``(loss, grads)`` as the 1F1B schedule returns them."""
+        leaves = [t.requires_grad_() for _, t in train.param_leaves(params)]
+        out = fn(params)
+        if isinstance(out, tuple):
+            loss, grads = out[0], [g for _, g in train.param_leaves(out[1])]
+        else:
+            loss, grads = out, torch.autograd.grad(out, leaves)
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        for t in leaves:
+            t.requires_grad_(False)
+        return float(loss.detach()), norm
+
+    def timed_steps(cfg, tc, params, inp, tgt, profiled=False):
+        """ms a train step (``AXES_TIMED_STEPS`` after a warm-up), the
+        share of the wall time the host spent enqueueing them, and the
+        flash launches a step by kernel, of the timed steps alone;
+        ``profiled``: one more step under the profiler, the device's busy
+        time in it."""
+        step, tx = train.make_train_step(cfg, tc)
+        state = tx.init(params)
+        float(step(params, state, inp, tgt)[2])  # warm-up
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(AXES_TIMED_STEPS):
+            last = step(params, state, inp, tgt)[2]
+        enqueued = time.perf_counter() - t0
+        float(last)
+        wall = time.perf_counter() - t0
+        counted()
+        per_step = {k: v // AXES_TIMED_STEPS for k, v in
+                    (("flash_fwd", flash.launches), ("flash_bwd_dq", flash.launches_dq),
+                     ("flash_bwd_dkv", flash.launches_dkv), ("ring_step", flash.launches_ring))}
+        host = dict(host_enqueue_share=enqueued / wall)
+        if profiled:
+            wall_ms, rows = device_rows(lambda: float(step(params, state, inp, tgt)[2]))
+            busy = sum(us for _, us in rows) / 1e3
+            host.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                        idle_share=max(0.0, 1.0 - busy / wall_ms))
+        del state
+        return wall / AXES_TIMED_STEPS * 1e3, per_step, host
+
+    # (a), (b): the flagship train config, GPipe and 1F1B against one stage
+    cfg = tfm.TransformerConfig(**TRAIN_MODEL)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = torch.from_numpy(axes_rows(AXES_B)).cuda()
+    inp, tgt = batch[:, :-1], batch[:, 1:]
+    ref_loss, ref_norm = grad_of(clone_params(params), lambda p: tfm.loss_fn(p, inp, tgt, cfg))
+    ref_ms, ref_launches, ref_busy = timed_steps(cfg, train.TrainConfig(learning_rate=3e-4),
+                                                 clone_params(params), inp, tgt, profiled=True)
+    total.clear()  # the single-stage step is the comparison, not this phase's path
+    say("train_axes", leg="a/b single stage", batch=AXES_B, seq=TRAIN_L, loss=ref_loss,
+        grad_norm=ref_norm, ms_per_step=ref_ms, launches_per_step=ref_launches, **ref_busy)
+    L = cfg.n_layers
+    fwd_per_layer = {"gpipe": 2, "1f1b": 3}  # "selective" recomputes; 1F1B once more
+    for sched in ("gpipe", "1f1b"):
+        for S, M in AXES_PIPES:
+            tc = train.TrainConfig(learning_rate=3e-4, pp_stages=S, microbatches=M,
+                                   pipeline_schedule=sched)
+            with set_mesh(training_mesh(pp=S)):
+                if sched == "gpipe":
+                    loss, norm = grad_of(clone_params(params), lambda p: train.loss_pipelined(
+                        p, inp, tgt, cfg, tc))
+                else:
+                    loss, norm = grad_of(clone_params(params), lambda p: train.loss_and_grad_1f1b(
+                        p, inp, tgt, cfg, tc))
+                ms, per_step, busy = timed_steps(cfg, tc, clone_params(params), inp, tgt,
+                                                 profiled=(sched, S) == ("gpipe", 2))
+            d_loss, d_norm = abs(loss - ref_loss), abs(norm / ref_norm - 1)
+            want = {"flash_fwd": fwd_per_layer[sched] * L * M, "flash_bwd_dq": L * M,
+                    "flash_bwd_dkv": L * M, "ring_step": 0}
+            say("train_axes", leg="a" if sched == "gpipe" else "b", schedule=sched, pp=S,
+                microbatches=M, loss=loss, loss_abs_diff=d_loss, loss_tol=AXES_LOSS_TOL,
+                grad_norm=norm, grad_norm_rel_diff=d_norm, grad_norm_rtol=AXES_GRAD_RTOL,
+                ms_per_step=ms, ms_vs_single_stage=ms / ref_ms, launches_per_step=per_step,
+                bubble_share=(S - 1) / (M + S - 1), **busy)
+            if not (d_loss <= AXES_LOSS_TOL and d_norm <= AXES_GRAD_RTOL):
+                raise AssertionError(f"train_axes {sched} pp={S} M={M}: loss diff {d_loss}, "
+                                     f"grad norm rel {d_norm}")
+            if per_step != want:
+                raise AssertionError(f"train_axes {sched} pp={S} M={M}: launches {per_step}, "
+                                     f"expected {want}")
+
+    # (b) peak memory of loss and gradients at one row a microbatch
+    mem = {}
+    for sched in ("gpipe", "1f1b"):
+        for M in AXES_MEM_M:
+            tc = train.TrainConfig(pp_stages=2, microbatches=M, pipeline_schedule=sched)
+            rows = torch.from_numpy(axes_rows(M)).cuda()
+            p = clone_params(params)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with set_mesh(training_mesh(pp=2)):
+                fn = train.loss_pipelined if sched == "gpipe" else train.loss_and_grad_1f1b
+                grad_of(p, lambda q: fn(q, rows[:, :-1], rows[:, 1:], cfg, tc))
+            mem[(sched, M)] = torch.cuda.max_memory_allocated() - base
+            del p
+    grow = {sched: mem[(sched, AXES_MEM_M[1])] - mem[(sched, AXES_MEM_M[0])]
+            for sched in ("gpipe", "1f1b")}
+    say("train_axes", leg="b memory", microbatch_rows=1, pp=2, microbatches=list(AXES_MEM_M),
+        peak_bytes_over_params={f"{s}_M{m}": v for (s, m), v in mem.items()},
+        growth_bytes=grow)
+    if not (grow["gpipe"] > 0 and grow["1f1b"] < grow["gpipe"]):
+        raise AssertionError(f"train_axes memory: GPipe grows {grow['gpipe']}, "
+                             f"1F1B {grow['1f1b']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) pp=2 x sp=2 with ring_flash against the single-stage ring at sp=2
+    rcfg = tfm.TransformerConfig(**RING_MODEL, attn_impl="ring_flash")
+    rparams = tfm.init(torch.Generator(device="cuda").manual_seed(0), rcfg)
+    rng = np.random.RandomState(22)
+    rb = torch.from_numpy(rng.randint(0, rcfg.vocab_size, (AXES_RING_B, AXES_RING_L + 1))
+                          .astype(np.int32)).cuda()
+    rin, rtg = rb[:, :-1], rb[:, 1:]
+    rtc = train.TrainConfig(learning_rate=3e-4, pp_stages=2, microbatches=2)
+    with torch.no_grad():
+        with set_mesh(training_mesh(sp=AXES_RING_SP)):
+            r_ref = float(tfm.loss_fn(rparams, rin, rtg, rcfg))
+        with set_mesh(training_mesh(pp=2, sp=AXES_RING_SP)):
+            r_pp = float(train.loss_pipelined(rparams, rin, rtg, rcfg, rtc))
+    with set_mesh(training_mesh(pp=2, sp=AXES_RING_SP)):
+        r_ms, r_launches, r_busy = timed_steps(rcfg, rtc, clone_params(rparams), rin, rtg)
+    r_want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "ring_step": rcfg.n_layers * 2 * hops_per_layer(AXES_RING_SP)}
+    say("train_axes", leg="c", pp=2, sp=AXES_RING_SP, seq=AXES_RING_L, batch=AXES_RING_B,
+        microbatches=2, loss=r_pp, single_stage_loss=r_ref, loss_abs_diff=abs(r_pp - r_ref),
+        loss_tol=AXES_LOSS_TOL, ms_per_step=r_ms, launches_per_step=r_launches,
+        instantiations=sorted(total), **r_busy)
+    if not abs(r_pp - r_ref) <= AXES_LOSS_TOL or r_launches != r_want:
+        raise AssertionError(f"train_axes ring: loss diff {abs(r_pp - r_ref)}, launches "
+                             f"{r_launches}, expected {r_want}")
+    del rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the MoE flagship pipelined, and ep=2 against ep=1
+    mcfg = tfm.TransformerConfig(**MOE_MODEL, attn_impl="flash")
+    mparams = tfm.init(torch.Generator(device="cuda").manual_seed(14), mcfg)
+    mb = torch.from_numpy(np.random.RandomState(14).randint(
+        0, mcfg.vocab_size, (MOE_TRAIN_B, MOE_L + 1)).astype(np.int32)).cuda()
+    min_, mtg = mb[:, :-1], mb[:, 1:]
+    mtc = train.TrainConfig(pp_stages=2, microbatches=2)
+    with torch.no_grad():
+        m_ref = float(tfm.loss_fn(mparams, min_, mtg, mcfg))
+        m_mb = float(sum(tfm.loss_fn(mparams, a, b, mcfg) for a, b in
+                         zip(min_.chunk(2), mtg.chunk(2)))) / 2
+        with set_mesh(training_mesh(pp=2)):
+            m_pp = float(train.loss_pipelined(mparams, min_, mtg, mcfg, mtc))
+        ep_loss = {}
+        for ep in (1, 2):
+            with set_mesh(training_mesh(dp=2, ep=ep)):
+                ep_loss[ep] = tfm.loss_fn(mparams, min_, mtg, mcfg)
+    ep_diff = float((ep_loss[2] - ep_loss[1]).abs())
+    say("train_axes", leg="d", pp=2, microbatches=2, batch=MOE_TRAIN_B, loss=m_pp,
+        unpipelined_microbatch_mean=m_mb, loss_abs_diff=abs(m_pp - m_mb),
+        loss_tol=AXES_LOSS_TOL, full_batch_loss=m_ref, full_batch_rel_gap=abs(m_pp / m_ref - 1),
+        ep2_loss=float(ep_loss[2]), ep1_loss=float(ep_loss[1]), ep_abs_diff=ep_diff,
+        ep_bit_identical=bool(torch.equal(ep_loss[1], ep_loss[2])), ep_tol=NLL_TOL)
+    if not (abs(m_pp - m_mb) <= AXES_LOSS_TOL and ep_diff <= NLL_TOL):
+        raise AssertionError(f"train_axes moe: pipelined diff {abs(m_pp - m_mb)}, "
+                             f"ep diff {ep_diff}")
+    del mparams, ep_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) fit fed by a mesh-sharded loader under the pp=2 mesh
+    mesh = training_mesh(pp=2)
+    frame = TensorFrame.from_arrays({"tokens": axes_rows(AXES_B * AXES_FIT_STEPS)})
+    loader = data.FrameLoader(frame, batch_size=AXES_B, shuffle=True, seed=0, mesh=mesh,
+                              spec=("dp", None))
+    fparams = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    with set_mesh(mesh):
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        _, _, losses = train.fit(loader, cfg, train.TrainConfig(
+            learning_rate=3e-4, pp_stages=2, microbatches=2), steps=AXES_FIT_STEPS,
+            params=fparams)
+        fit_s = time.perf_counter() - t0
+        counted()
+    say("train_axes", leg="e", pp=2, microbatches=2, steps=AXES_FIT_STEPS, losses=losses,
+        seconds=fit_s, launches=dict(flash.kernel_launches))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train_axes fit losses not finite and falling: {losses}")
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) two gloo processes sharing the card, dp=2, against one process
+    ccfg = tfm.TransformerConfig(**dict(TRAIN_MODEL, n_layers=AXES_CHILD_LAYERS))
+    cparams = tfm.init(torch.Generator(device="cuda").manual_seed(0), ccfg)
+    step, tx = train.make_train_step(ccfg, train.TrainConfig(learning_rate=3e-4))
+    state = tx.init(cparams)
+    one = []
+    for b in data.FrameLoader(TensorFrame.from_arrays(
+            {"tokens": axes_rows(AXES_B * AXES_CHILD_STEPS)}), batch_size=AXES_B):
+        one.append(float(step(cparams, state, *data.lm_split(b))[2]))
+    del cparams, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", AXES_CHILD_CODE, str(r), "2", str(port)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    kids = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=AXES_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+            se += f"\n(killed after {AXES_CHILD_TIMEOUT_S} s)"
+        lines = [json.loads(x) for x in so.splitlines() if x.startswith("{")]
+        kids.append(dict(lines[-1] if lines else {}, rc=p.returncode, stderr=se[-1500:]))
+    bad = [k for k in kids if k["rc"] != 0 or "losses" not in k]
+    if bad:
+        raise AssertionError(f"train_axes two processes failed: {bad}")
+    diffs = [max(abs(a - b) for a, b in zip(k["losses"], one)) for k in kids]
+    say("train_axes", leg="f", processes=2, backend="gloo", layers=AXES_CHILD_LAYERS,
+        one_process_losses=one, ranks=[{k: v for k, v in kid.items() if k != "stderr"}
+                                       for kid in kids],
+        loss_abs_diff=max(diffs), loss_tol=REMAT_LOSS_TOL)
+    if not (max(diffs) <= REMAT_LOSS_TOL and all(k["rows"] == [AXES_B // 2] * AXES_CHILD_STEPS
+                                                 and k["crosses"] == ["dp"] for k in kids)):
+        raise AssertionError(f"train_axes two processes: losses {kids} against {one}")
+    say("train_axes", launches_main_runs=total)
+    return total
 
 
 def ring_launches(flash):
@@ -3450,9 +3804,9 @@ def _np_tree(tree):
     return tree.detach().float().cpu().numpy()
 
 
-def profile_kernels(label, fn) -> None:
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of its wall time."""
+def device_rows(fn):
+    """One call of ``fn`` under torch.profiler: its wall ms and the device
+    kernels' rows with their self device time (us)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3469,16 +3823,22 @@ def profile_kernels(label, fn) -> None:
 
     # device kernels only: a CPU op's row repeats its kernels' time
     kernels = [
-        e for e in prof.key_averages()
+        (e, dev_us(e)) for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
     ]
-    rows = sorted(kernels, key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    return wall_ms, sorted(kernels, key=lambda r: r[1], reverse=True)
+
+
+def profile_kernels(label, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's idle share of its wall time."""
+    wall_ms, rows = device_rows(fn)
+    busy_ms = sum(us for _, us in rows) / 1e3
     say("profile", path=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=max(0.0, 1.0 - busy_ms / wall_ms))
-    for e in rows[:16]:
-        say("profile", path=label, kernel=e.key[:90], device_ms=dev_us(e) / 1e3,
-            calls=e.count, share=dev_us(e) / 1e3 / busy_ms)
+    for e, us in rows[:16]:
+        say("profile", path=label, kernel=e.key[:90], device_ms=us / 1e3,
+            calls=e.count, share=us / 1e3 / busy_ms)
 
 
 def profile_step(label, cfg, tc, params, loader) -> None:
@@ -3541,7 +3901,7 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
     pipeline phase's scoring chain, the observability phase's scoring runs,
     the planner phase's scoring runs, the streaming and mesh phases' scoring
-    runs, the flagship train epoch, the ring scoring runs and the MoE legs'
+    runs, the flagship train epoch, the train-axes phase's pipelined steps, the ring scoring runs and the MoE legs'
     scoring, train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
@@ -6056,6 +6416,7 @@ def main() -> int:
     run_phase(phase_decode, args.profile)
     run_phase(phase_crossover)
     train_run = run_phase(phase_train)
+    axes_launches = run_phase(phase_train_axes)
     run_phase(phase_frontier, *train_run[1:3])
     run_phase(phase_graphdef, args.profile)
     ring_run = run_phase(phase_ring_slice)
@@ -6069,7 +6430,7 @@ def main() -> int:
     record = kernel_record(built, errs, timing, train_run[0], ring_run[0], [
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
         pipeline_launches, observability_launches, planner_launches, streaming_launches,
-        mesh_launches, train_run[5],
+        mesh_launches, train_run[5], axes_launches,
         ring_run[4], *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)

@@ -7,7 +7,12 @@ The port's copy of ``tensorframes_tpu/bridge/replica.py``.
 :class:`~tensorframes_tpu_torch.bridge.server.BridgeServer` on (H, P)
 until SIGTERM, which triggers the graceful drain (reject new admissions,
 finish in-flight requests, cooperatively cancel stragglers) and exits 0
-— the "drain" half of a rolling restart.  SIGKILL (the ``replica_kill``
+— the "drain" half of a rolling restart.  The exit is bounded: a drain
+that overruns its window by ``CLOSE_GRACE_S`` dumps every thread's
+stack to the replica's log and exits 1, and the process ends with
+``os._exit`` once the drain is over, so no interpreter teardown (a
+leftover request thread inside a CUDA call, a pool joined at exit) can
+hold it past the spawner's drain timeout.  SIGKILL (the ``replica_kill``
 fault, or an impatient operator) skips all of that, which is the point:
 the fleet's journal-backed migration is what makes that death
 survivable.
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import errno
+import faulthandler
 import logging
 import os
 import signal
@@ -40,6 +46,14 @@ import time
 # how long a replica restarted on its own port waits for the port to be
 # released by whatever still holds it
 PORT_WAIT_S = 10.0
+# how far past its drain window (``BridgeServer.drain_s``) a replica's
+# close() may run before the replica dumps its threads' stacks and exits
+CLOSE_GRACE_S = 10.0
+# how often the main thread wakes while it serves: a SIGTERM that the
+# kernel delivered to another thread of the process runs its Python
+# handler at the main thread's next wake-up, where an untimed wait would
+# sleep through it
+WAKE_S = 0.5
 
 
 def warm_interpreter() -> None:
@@ -128,8 +142,12 @@ def main(argv=None) -> int:
     )
 
     done = threading.Event()
+    termed: list = []  # the monotonic time of the first SIGTERM
 
     def _on_term(signum, frame):  # noqa: ARG001 — signal signature
+        if termed:
+            return  # already draining
+        termed.append(time.monotonic())
         log.info("replica %s: SIGTERM — draining", args.name or "?")
         # drain off the signal handler's thread: close() blocks on
         # in-flight requests, and a handler must return promptly
@@ -139,10 +157,32 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _on_term)
     signal.signal(signal.SIGINT, _on_term)
-    done.wait()
-    log.info("replica %s: drained, exiting", args.name or "?")
+    while not done.wait(WAKE_S):
+        if termed and time.monotonic() - termed[0] > server.drain_s + CLOSE_GRACE_S:
+            log.error(
+                "replica %s: close() overran its %.1fs drain window by "
+                "%.0fs; its threads follow, then it exits",
+                args.name or "?", server.drain_s, CLOSE_GRACE_S,
+            )
+            faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+            return 1
+    log.info(
+        "replica %s: drained in %.2fs, exiting",
+        args.name or "?", time.monotonic() - termed[0],
+    )
     return 0
 
 
+def _exit(code: int) -> None:
+    """Flush the log and end the process at once: the drain is over,
+    and what the interpreter's teardown would run after it (joining
+    leftover threads, freeing the CUDA context under a request thread
+    still inside a CUDA call) only delays the exit the spawner waits for."""
+    logging.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    _exit(main())

@@ -24,10 +24,16 @@ _NAME = re.compile(r"^step-(\d+)\.pt$")
 
 def _place(value: Any, target: Any) -> Any:
     """``value`` with each tensor moved to the device of the tensor at the
-    same place in ``target`` (where there is one)."""
+    same place in ``target`` (where there is one), taking the mesh layout
+    that ``transformer.shard`` recorded on it: a state saved under one mesh
+    restores onto another."""
     if isinstance(value, torch.Tensor):
         if isinstance(target, torch.Tensor):
-            return value.to(target.device)
+            out = value.to(target.device)
+            spec = getattr(target, "_tfs_spec", None)
+            if spec is not None:
+                out._tfs_spec = spec
+            return out
         return value
     if isinstance(value, dict):
         tgt = target if isinstance(target, dict) else {}

@@ -15,7 +15,11 @@ PyTorch counterpart of ``tensorframes_tpu/data.py`` on one device:
   flight (PyTorch's pinned allocator hands a block out again only after
   the copies recorded on it have finished).
 
-A mesh-sharded loader (``mesh=``) waits for the distributed slice.
+With a training mesh (``mesh=``, ``spec=``, JAX's arguments) the batches
+land on the mesh's device; under a process group each rank gets the part
+of every batch that its mesh positions hold along the axes ``spec`` names
+(``("dp", None)``: its ``dp`` positions' rows).  The order and the shuffle
+are global, so the ranks' parts, in rank order, are the one-process batch.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .frame import TensorFrame
+from .parallel.mesh import Mesh
 
 __all__ = [
     "FrameLoader",
@@ -43,9 +48,11 @@ __all__ = [
 class FrameLoader:
     """Batches a TensorFrame's columns for iterative training/eval.
 
-    ``device``: where batches land (None: the CUDA card).  ``mesh``/
-    ``spec`` are the JAX package's sharded-loader arguments; a mesh is not
-    ported yet and raises."""
+    ``device``: where batches land (None: the CUDA card).  ``mesh``: a
+    training mesh whose device the batches land on; ``spec``: its mesh
+    partition entries for the batch's dims (default ``("dp",)``: the batch
+    axis over dp, cells whole), which under a process group cut each rank's
+    part (the module docstring).  ``spec`` is ignored without ``mesh``."""
 
     frame: TensorFrame
     batch_size: int
@@ -59,13 +66,17 @@ class FrameLoader:
     device: DeviceLike = None
 
     def __post_init__(self):
+        self._share: List[tuple] = []
         if self.mesh is not None:
-            raise NotImplementedError(
-                "FrameLoader(mesh=...) is not ported yet: ROADMAP.md Queue 1 "
-                "item 13b (the mesh-sharded loader comes with the distributed "
-                "training slice)"
-            )
-        self._device = resolve_device(self.device)
+            if self.device is not None and resolve_device(self.device) != self.mesh.device:
+                raise ValueError(
+                    f"FrameLoader: device {self.device} but the mesh is on "
+                    f"{self.mesh.device}"
+                )
+            self._device = self.mesh.device
+            self._share = _rank_share(self.mesh, self.spec)
+        else:
+            self._device = resolve_device(self.device)
         pin = self._device.type == "cuda"
         names = list(self.columns or self.frame.column_names)
         if self.batch_size < 1:
@@ -131,12 +142,31 @@ class FrameLoader:
         order = self._order(epoch) if self.shuffle else None
         pending: deque = deque()
         for b in range(self._num_batches):
-            lo, hi = b * self.batch_size, (b + 1) * self.batch_size
+            lo = b * self.batch_size
+            hi = min(lo + self.batch_size, self.frame.num_rows)
+            for dim, i0, i1, parts, axes in self._share:
+                if dim == 0:  # this rank's rows, before they are gathered
+                    n = hi - lo
+                    if n % parts:
+                        raise ValueError(
+                            f"FrameLoader: a batch of {n} rows does not "
+                            f"divide over the mesh axes {axes} ({parts} parts)"
+                        )
+                    lo, hi = lo + i0 * n // parts, lo + i1 * n // parts
+            batch = {n: self._cut(n, lo, hi, order) for n in self._names}
+            for dim, i0, i1, parts, axes in self._share:
+                for n, t in batch.items() if dim else ():
+                    if dim >= t.ndim or t.shape[dim] % parts:
+                        raise ValueError(
+                            f"FrameLoader: column {n!r} of shape "
+                            f"{tuple(t.shape)} does not divide over the mesh "
+                            f"axes {axes} ({parts} parts) in dim {dim}"
+                        )
+                    step = t.shape[dim] // parts
+                    batch[n] = t.narrow(dim, i0 * step, (i1 - i0) * step)
             pending.append({
-                n: self._cut(n, lo, hi, order).to(
-                    self._device, non_blocking=True, copy=True
-                )
-                for n in self._names
+                n: t.to(self._device, non_blocking=True, copy=True)
+                for n, t in batch.items()
             })
             if len(pending) > max(self.prefetch, 0):
                 yield pending.popleft()
@@ -151,6 +181,35 @@ class FrameLoader:
         while True:
             yield from self.epoch(e)
             e += 1
+
+
+def _rank_share(mesh: Mesh, spec: Sequence[object]) -> List[tuple]:
+    """``(dim, lo, hi, parts, axes)`` for each dim that ``spec`` splits
+    over axes crossing ranks: the dim splits into ``parts`` (the axes'
+    sizes, row-major in the order named) and this rank holds parts
+    ``lo .. hi-1``.  Dims this rank holds whole are left out."""
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = tuple(
+            a for a in (entry if isinstance(entry, (tuple, list)) else (entry,))
+            if a in mesh.axis_names
+        )
+        if not any(mesh.crosses(a) for a in axes):
+            continue
+        sizes = [mesh.shape[a] for a in axes]
+        held = np.zeros(sizes, dtype=bool)
+        held[tuple(slice(lo, lo + k) for lo, k in (mesh.held(a) for a in axes))] = True
+        idx = np.flatnonzero(held)
+        if idx[-1] - idx[0] + 1 != len(idx):
+            raise ValueError(
+                f"FrameLoader: rank {mesh.rank}'s positions on {axes} are "
+                f"not one contiguous part of the dim; name the axes in mesh "
+                f"order"
+            )
+        out.append((dim, int(idx[0]), int(idx[-1]) + 1, int(held.size), axes))
+    return out
 
 
 def lm_split(batch: Mapping[str, object], column: str = "tokens"):

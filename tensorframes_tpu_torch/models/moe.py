@@ -1,4 +1,4 @@
-"""Mixture-of-experts FFN: capacity routing on one device.
+"""Mixture-of-experts FFN: capacity routing and expert parallelism.
 
 PyTorch counterpart of ``tensorframes_tpu/models/moe.py`` (GShard/Switch):
 
@@ -15,9 +15,19 @@ PyTorch counterpart of ``tensorframes_tpu/models/moe.py`` (GShard/Switch):
 * **Groups are (batch x sp-chunk).**  Slot positions come from a cumsum
   over the group's token axis; under a mesh whose ``sp`` axis is larger
   than 1 and divides L, each chunk is its own group, as in the JAX
-  package.  The ``ep`` axis and its all-to-all need several devices
-  (ROADMAP.md Queue 1 item 13b); the JAX ``shard`` constraints are nothing
-  on one device.
+  package.  ``ep`` changes no routing.
+* **The ``ep`` exchange** (:func:`_ep_exchange`, JAX's two ``shard``
+  constraints around the expert products, where GSPMD inserts the
+  all-to-all): the dispatched ``[E, G, C, D]`` buffers move from
+  batch-sharded to expert-sharded, each rank runs the products of its own
+  ``E/ep`` experts over every group of its ``ep`` peers, and the outputs
+  move back.  Where the ``ep`` positions sit on one rank the exchange is
+  the identity (a re-index of what that rank holds); where they cross
+  ranks it is ``torch.distributed`` point-to-point traffic, and the
+  expert weights' gradients are complete after the train step's
+  gradient reduction.  Under a process group the load-balance statistics
+  are means over every rank's groups (an all-reduce), as GSPMD's global
+  means are.
 
 The router runs in f32.  The auxiliary load-balance loss is Switch's
 ``E * sum_e f_e * P_e`` (``f_e`` the fraction of tokens whose top-1
@@ -31,13 +41,14 @@ Every expert product is a ``bmm`` (a batch dim, E or G), never an
 
 from __future__ import annotations
 
+import contextvars
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import get_mesh
+from ..parallel.mesh import Mesh, get_mesh
 
 
 def capacity(group_size: int, top_k: int, n_experts: int, factor: float) -> int:
@@ -103,28 +114,53 @@ def gate(
         dispatch = dispatch + contrib
         combine = combine + (p / denom)[..., None, None] * contrib
 
-    # Switch load-balance loss on the PRE-capacity assignment, statistics
-    # over REAL tokens
-    if valid is not None:
+    return dispatch, combine, _balance(probs, picks[0][0], valid)
+
+
+def _balance(probs: torch.Tensor, top1: torch.Tensor, valid=None) -> torch.Tensor:
+    """Switch's load-balance loss ``E * sum_e f_e * P_e`` on the
+    PRE-capacity top-1 assignment ``top1`` [G, S, E] (pad picks already
+    zero), statistics over REAL tokens."""
+    E = probs.shape[-1]
+    vmask = valid.to(probs.dtype)[..., None] if valid is not None else None
+    mesh = get_mesh()
+    if mesh is not None and mesh.world > 1:
+        # every rank routes its own groups: the means are over all of them
+        from ..parallel.collectives import all_reduce_sum
+
+        w = vmask if vmask is not None else torch.ones_like(probs[..., :1])
+        n = torch.clamp_min(all_reduce_sum(torch.sum(w)), 1.0)
+        f = all_reduce_sum(torch.sum(top1, dim=(0, 1))) / n
+        p_mean = all_reduce_sum(torch.sum(probs * w, dim=(0, 1))) / n
+    elif vmask is not None:
         n = torch.clamp_min(torch.sum(vmask), 1.0)
-        f = torch.sum(picks[0][0], dim=(0, 1)) / n
+        f = torch.sum(top1, dim=(0, 1)) / n
         p_mean = torch.sum(probs * vmask, dim=(0, 1)) / n
     else:
-        f = torch.mean(picks[0][0], dim=(0, 1))
+        f = torch.mean(top1, dim=(0, 1))
         p_mean = torch.mean(probs, dim=(0, 1))
-    aux = E * torch.sum(f * p_mean)
-    return dispatch, combine, aux
+    return E * torch.sum(f * p_mean)
+
+
+# Set by the GPipe schedule (``train.pipelined_blocks``) while its stage
+# bodies run ring attention over an sp axis: JAX's stage body is manual
+# over sp there, so each sp position routes only its own chunk-groups and
+# the stage's aux is the mean over sp of those per-chunk losses.
+SP_LOCAL_AUX: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "tensorframes_tpu_torch_moe_sp_local_aux", default=False
+)
 
 
 def _sp_groups(L: int) -> int:
     """How many sp chunks the sequence axis splits into under the ambient
     mesh (1 with no mesh, or an ``sp`` axis of 1 or one that does not
-    divide L)."""
+    divide L); where ``sp`` crosses ranks, the chunks of this rank's
+    ``L`` tokens."""
     mesh = get_mesh()
     if mesh is None or "sp" not in mesh.axis_names:
         return 1
-    sp = mesh.shape["sp"]
-    return sp if sp > 1 and L % sp == 0 else 1
+    held = mesh.held("sp")[1]  # all of sp in one process; else this rank's
+    return held if mesh.shape["sp"] > 1 and L % held == 0 else 1
 
 
 def _route(bp, y: torch.Tensor, cfg, segments=None):
@@ -144,6 +180,15 @@ def _route(bp, y: torch.Tensor, cfg, segments=None):
     if segments is not None:
         valid = segments.reshape(G, S) > 0
     dispatch, combine, aux = gate(probs, cfg.moe_top_k, cap, valid)
+    if sp > 1 and SP_LOCAL_AUX.get():
+        # group g is (row g // sp, chunk g % sp): one loss a chunk, averaged
+        top1 = F.one_hot(torch.argmax(probs, dim=-1), E).to(probs.dtype)
+        if valid is not None:
+            top1 = top1 * valid.to(probs.dtype)[..., None]
+        aux = sum(
+            _balance(probs[c::sp], top1[c::sp], None if valid is None else valid[c::sp])
+            for c in range(sp)
+        ) / sp
     return yg, probs, dispatch, combine, aux, cap
 
 
@@ -225,21 +270,81 @@ def _expert_out(combine: torch.Tensor, ex_out: torch.Tensor, dt) -> torch.Tensor
     return torch.bmm(c, eo)
 
 
+class _Exchange(torch.autograd.Function):
+    """The ``ep`` all-to-all between the ranks ``peers`` (in ``ep`` order,
+    this rank among them): ``to_experts`` takes [E, G, C, D] (every expert,
+    this rank's groups) to [E/P, P*G, C, D] (this rank's experts, every
+    peer's groups, in peer order); the reverse takes it back.  Each is the
+    other's backward."""
+
+    @staticmethod
+    def forward(ctx, t, peers, to_experts):
+        ctx.peers, ctx.to_experts = peers, to_experts
+        return _all_to_all(t, peers, to_experts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.peers, not ctx.to_experts), None, None
+
+
+def _all_to_all(t: torch.Tensor, peers, to_experts: bool) -> torch.Tensor:
+    from ..parallel.collectives import exchange
+
+    P = len(peers)
+    if to_experts:
+        return torch.cat(exchange(list(t.chunk(P, 0)), peers), 1)
+    return torch.cat(exchange(list(t.chunk(P, 1)), peers), 0)
+
+
+def _ep_peers(mesh: Optional[Mesh], n_experts: int):
+    """The ranks of this rank's ``ep`` exchange, in ``ep`` order, and this
+    rank's index among them; None where the ``ep`` positions sit on this
+    rank (or the experts do not divide over the ranks: JAX's constraint
+    then drops ``ep`` and every rank runs every expert)."""
+    if mesh is None or not mesh.crosses("ep"):
+        return None
+    lo, held = mesh.held("ep")
+    P = mesh.shape["ep"] // held
+    if n_experts % P:
+        return None
+    return [mesh.rank_at("ep", j * held) for j in range(P)], lo // held
+
+
+def _ep_exchange(t: torch.Tensor, route, to_experts: bool) -> torch.Tensor:
+    """Batch-sharded -> expert-sharded buffers (``to_experts``) or back:
+    the identity where ``route`` is None."""
+    if route is None:
+        return t
+    return _Exchange.apply(t, route[0], to_experts)
+
+
 def moe_mlp(bp, y: torch.Tensor, cfg, segments=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE replacement for the dense SwiGLU block.
 
     ``y`` [B, L, D] (post-RMSNorm activations) -> ``(out [B, L, D], aux
     [])``.  ``bp`` holds ``router`` [D, E], ``we_gate``/``we_up`` [E, D, F]
-    and ``we_down`` [E, F, D] (each may be an int8 ``QTensor``)."""
+    and ``we_down`` [E, F, D] (each may be an int8 ``QTensor``).  Where the
+    ambient mesh's ``ep`` axis crosses ranks, this rank runs the products of
+    its own experts only (:func:`_ep_exchange`)."""
     from .transformer import weight
 
     B, L, D = y.shape
     dt = cfg.dtype
     yg, _probs, dispatch, combine, aux, _cap = _route(bp, y, cfg, segments)
-    ex_in = _expert_in(dispatch, yg, dt)
-    h_gate = _expert_ffn(ex_in, weight(bp["we_gate"], dt))
-    h_up = _expert_ffn(ex_in, weight(bp["we_up"], dt))
+    E = dispatch.shape[2]
+    route = _ep_peers(get_mesh(), E)
+    ex_in = _ep_exchange(_expert_in(dispatch, yg, dt), route, True)
+
+    def w(name):  # this rank's experts' weights
+        full = weight(bp[name], dt)
+        if route is None:
+            return full
+        n = E // len(route[0])
+        return full[route[1] * n:(route[1] + 1) * n]
+
+    h_gate = _expert_ffn(ex_in, w("we_gate"))
+    h_up = _expert_ffn(ex_in, w("we_up"))
     h = F.silu(h_gate) * h_up
-    ex_out = _expert_ffn(h, weight(bp["we_down"], dt))
+    ex_out = _ep_exchange(_expert_ffn(h, w("we_down")), route, False)
     out = _expert_out(combine, ex_out, dt).reshape(B, L, D)
     return out, aux

@@ -36,8 +36,21 @@ and the paged caches share, so the two agree bit for bit by construction.
 
 ``"ring"``/``"ring_flash"`` run ring attention over the ambient mesh's
 ``sp`` axis (``parallel.mesh.set_mesh``; the axis's ranks share one device,
-see ``parallel/mesh.py``), and ``"auto"`` resolves to them under an
-``sp > 1`` mesh as the JAX package does.
+or cross the ranks of a process group, see ``parallel/mesh.py``), and
+``"auto"`` resolves to them under an ``sp > 1`` mesh as the JAX package
+does.  Where ``sp`` crosses ranks, each rank's tokens are its part of the
+sequence, and the positions start at that part's offset.
+
+The mesh layouts: :func:`shard` is the JAX package's sharding constraint.
+On values it is the identity, as GSPMD's constraint is: the port holds a
+mesh's positions as ranks and moves data between them explicitly
+(``models/moe.py``'s exchange, ``parallel/ring.py``, ``train.py``'s
+gradient reduction).  It keeps JAX's checks and records the spec it
+resolved against the ambient mesh, which :func:`sharding_spec` reads back;
+:func:`shard_params` lays the canonical ``tp``/``ep`` specs
+(:func:`block_spec`) on a param tree.  ``apply``/``loss_fn`` take JAX's
+``blocks_runner`` hook, through which ``train.py`` runs the decoder stack
+as a pipeline.
 
 ``moe_experts > 0`` replaces each block's SwiGLU with the mixture of
 experts of ``models/moe.py`` (``router`` [D, E], ``we_gate``/``we_up``
@@ -108,6 +121,47 @@ def embed_lookup(emb, tokens: torch.Tensor, dt) -> torch.Tensor:
     if isinstance(emb, QTensor):
         return emb.q[idx].to(dt) * emb.scale[idx].to(dt)
     return emb.to(dt)[idx]
+
+
+def shard(x, *spec):
+    """The JAX sharding constraint: the identity on values, recording the
+    spec resolved against the ambient mesh (:func:`sharding_spec`).
+
+    Axes named in ``spec`` but absent from the ambient mesh are dropped, as
+    is an axis that does not divide its dim evenly; entries may be
+    ``None``, an axis name, or a tuple of axis names.  Without a mesh
+    nothing is recorded."""
+    if len(spec) > x.ndim:
+        raise ValueError(
+            f"shard: {len(spec)} spec entries for a rank-{x.ndim} array"
+        )
+    mesh = get_mesh()
+    if mesh is None or not mesh.axis_names:
+        return x
+    sizes = mesh.shape
+
+    def keep(entry, dim):
+        if entry is None:
+            return None
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        kept = []
+        split = 1
+        for a in axes:
+            if a in sizes and dim % (split * sizes[a]) == 0:
+                kept.append(a)
+                split *= sizes[a]
+        if not kept:
+            return None
+        return tuple(kept) if isinstance(entry, (tuple, list)) else kept[0]
+
+    x._tfs_spec = tuple(keep(e, d) for e, d in zip(spec, x.shape))
+    return x
+
+
+def sharding_spec(x) -> Optional[tuple]:
+    """The spec :func:`shard` last recorded on ``x`` (JAX's
+    ``x.sharding.spec``), or None."""
+    return getattr(x, "_tfs_spec", None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +319,52 @@ def init(
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+
+# the canonical layout of one decoder block's params, WITHOUT the stacked
+# [n_layers, ...] lead axis: shared by shard_params and the pipeline's
+# stage regrouping (train._stage_params)
+_BLOCK_SPECS = {
+    "ln1": (None,),
+    "wq": (None, "tp"),
+    "wk": (None, "tp"),
+    "wv": (None, "tp"),
+    "wo": ("tp", None),
+    "ln2": (None,),
+    "w_gate": (None, "tp"),
+    "w_up": (None, "tp"),
+    "w_down": ("tp", None),
+    # MoE: expert axis over ep, expert FFNs tp-sharded like the dense
+    # ones; the router is small and replicated
+    "router": (None, None),
+    "we_gate": ("ep", None, "tp"),
+    "we_up": ("ep", None, "tp"),
+    "we_down": ("ep", "tp", None),
+}
+
+
+def block_spec(name: str, lead_dims: int = 1) -> tuple:
+    """Sharding spec for a stacked block param (``lead_dims`` unsharded
+    lead axes: 1 for the [n_layers] stack, 2 for [stages, lps])."""
+    return (None,) * lead_dims + _BLOCK_SPECS[name]
+
+
+def shard_params(params: Params) -> Params:
+    """The canonical tp/ep layout on a param tree (:func:`shard` on each
+    leaf; nothing recorded without an ambient mesh).  Returns a new dict
+    holding the same tensors.  Quantized (QTensor) leaves pass through
+    unchanged."""
+
+    def s_(v, *spec):
+        return v if isinstance(v, QTensor) else shard(v, *spec)
+
+    p = dict(params)
+    p["embed"] = s_(params["embed"], "tp", None)
+    p["lm_head"] = s_(params["lm_head"], None, "tp")
+    p["blocks"] = {
+        k: s_(v, *block_spec(k)) for k, v in params["blocks"].items()
+    }
+    return p
 
 
 _TAG = threading.local()
@@ -558,18 +658,33 @@ def resolved_config(
     )
 
 
+def _sequence_share(L: int):
+    """``(global length, offset)`` of a rank's ``L`` tokens: where the
+    ambient mesh's ``sp`` axis crosses ranks, a rank holds the chunks of
+    its ``sp`` positions, starting at that offset; else ``(L, 0)``."""
+    mesh = get_mesh()
+    if mesh is None or not mesh.crosses("sp"):
+        return L, 0
+    lo, held = mesh.held("sp")
+    return L * mesh.shape["sp"] // held, lo * (L // held)
+
+
 def apply(
     params: Params,
     tokens: torch.Tensor,
     cfg: TransformerConfig,
     positions: Optional[torch.Tensor] = None,
+    blocks_runner=None,
     return_hidden: bool = False,
     return_aux: bool = False,
     segment_ids: Optional[torch.Tensor] = None,
 ):
     """tokens [B, L] int -> logits [B, L, V] (f32), on the params' device.
 
-    ``return_hidden=True`` also returns the final-norm hidden states
+    ``blocks_runner(blocks, x, positions, cfg, segments=None) -> (x, aux)``
+    overrides how the decoder stack runs (default :func:`apply_blocks`;
+    the training layer passes the GPipe pipeline,
+    ``train.pipelined_blocks``).  ``return_hidden=True`` also returns the final-norm hidden states
     [B, L, D]; ``return_aux=True`` appends the MoE aux loss (f32 scalar, 0
     for dense).  Extras come in (hidden, aux) order.  ``segment_ids``
     [B, L] enables packed-sequence training (``data.pack_examples``):
@@ -579,8 +694,11 @@ def apply(
 
     Under an ambient mesh (``parallel.mesh.set_mesh``) whose ``sp`` axis is
     larger than 1, ``"ring"``/``"ring_flash"`` split the sequence over its
-    ranks, and ``"auto"`` resolves as the JAX package does."""
+    ranks, and ``"auto"`` resolves as the JAX package does.  Where that axis
+    crosses ranks of a process group, ``tokens`` are this rank's part of
+    the sequence and attention must be the ring."""
     B, L = tokens.shape
+    L_all, offset = _sequence_share(L)
     if segment_ids is not None and cfg.attn_impl in (
         "flash", "ring", "ring_flash",
     ):
@@ -597,7 +715,13 @@ def apply(
             "positions from data.pack_examples/lm_split_packed"
         )
     _check_supported(cfg)
-    cfg = resolved_config(cfg, L, positions is not None, segment_ids is not None)
+    cfg = resolved_config(cfg, L_all, positions is not None, segment_ids is not None)
+    if L_all != L and cfg.attn_impl not in ("ring", "ring_flash"):
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} attends over the whole sequence, "
+            f"but the mesh's sp axis splits it across ranks: use "
+            f"attn_impl='ring', 'ring_flash' or 'auto'"
+        )
     if positions is not None and cfg.attn_impl in ("flash", "ring", "ring_flash"):
         raise ValueError(
             f"attn_impl={cfg.attn_impl!r} masks with row-major positions "
@@ -614,10 +738,14 @@ def apply(
         )
     custom = positions is not None
     if positions is None:
-        positions = torch.arange(L, dtype=torch.int32, device=tokens.device)
-        positions = positions.expand(B, L)
+        positions = torch.arange(
+            offset, offset + L, dtype=torch.int32, device=tokens.device
+        ).expand(B, L)
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
-    x, aux = apply_blocks(params["blocks"], x, positions, cfg, custom, segment_ids)
+    if blocks_runner is None:
+        x, aux = apply_blocks(params["blocks"], x, positions, cfg, custom, segment_ids)
+    else:
+        x, aux = blocks_runner(params["blocks"], x, positions, cfg, segment_ids)
     x = _rms_norm(x, params["ln_f"])
     logits = lm_head_logits(x, params["lm_head"], cfg.dtype)
     out = (logits,)
@@ -661,18 +789,16 @@ def _chunk_nll(h, w, t):
     return nll_sum_and_count(logits, t)
 
 
-def cross_entropy_chunked(
+def nll_sum_and_count_chunked(
     hidden: torch.Tensor,
     lm_head: torch.Tensor,
     targets: torch.Tensor,
     chunk: int,
     dtype,
-) -> torch.Tensor:
-    """``cross_entropy(hidden @ lm_head, targets)`` without ever holding the
-    full [B, L, V] f32 logits: one [B, chunk, V] slice at a time, each
-    checkpointed (``torch.utils.checkpoint``) so its logits are recomputed
-    in the backward instead of saved — ``jax.checkpoint`` on the JAX scan
-    body.  Row-wise softmax makes this exactly the un-chunked loss."""
+):
+    """``nll_sum_and_count(hidden @ lm_head, targets)`` one [B, chunk, V]
+    logits slice at a time, each checkpointed (``torch.utils.checkpoint``)
+    so its logits are recomputed in the backward instead of saved."""
     B, L, D = hidden.shape
     if L % chunk:
         raise ValueError(
@@ -688,6 +814,21 @@ def cross_entropy_chunked(
         else:
             ns, nc = _chunk_nll(*args)
         s, c = s + ns, c + nc
+    return s, c
+
+
+def cross_entropy_chunked(
+    hidden: torch.Tensor,
+    lm_head: torch.Tensor,
+    targets: torch.Tensor,
+    chunk: int,
+    dtype,
+) -> torch.Tensor:
+    """``cross_entropy(hidden @ lm_head, targets)`` without ever holding the
+    full [B, L, V] f32 logits (:func:`nll_sum_and_count_chunked`) —
+    ``jax.checkpoint`` on the JAX scan body.  Row-wise softmax makes this
+    exactly the un-chunked loss."""
+    s, c = nll_sum_and_count_chunked(hidden, lm_head, targets, chunk, dtype)
     return s / torch.clamp_min(c, 1)
 
 
@@ -696,6 +837,7 @@ def loss_fn(
     tokens: torch.Tensor,
     targets: torch.Tensor,
     cfg: TransformerConfig,
+    blocks_runner=None,
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -709,7 +851,8 @@ def loss_fn(
     loss (JAX ``loss_fn``)."""
     if cfg.ce_chunk:
         _, hidden, aux = apply(
-            params, tokens, cfg, positions=positions, return_hidden=True,
+            params, tokens, cfg, positions=positions,
+            blocks_runner=blocks_runner, return_hidden=True,
             return_aux=True, segment_ids=segment_ids,
         )
         loss = cross_entropy_chunked(
@@ -717,7 +860,8 @@ def loss_fn(
         )
     else:
         logits, aux = apply(
-            params, tokens, cfg, positions=positions, return_aux=True,
+            params, tokens, cfg, positions=positions,
+            blocks_runner=blocks_runner, return_aux=True,
             segment_ids=segment_ids,
         )
         loss = cross_entropy(logits, targets)

@@ -16,17 +16,23 @@ process's).  The ranks on one host split its cards between them, in rank
 order, so torchrun's usual layout (one rank a card) gives each rank its
 own card.
 
-The training mesh keeps one device, as the port's rule.  A :class:`Mesh` names one device
-explicitly, and an ``sp`` axis of size n sits on that device as n ranks:
-each position of the axis is one rank of the ring, and its chunk of the
-sequence lives on the mesh's device.  This is the port's counterpart of the
-JAX test suite's forced host devices; it computes what the JAX package
-computes, rank by rank and hop by hop.  So the JAX check "mesh size ... !=
-available devices" becomes: every axis other than ``sp`` has size 1 and
-there is one slice.  A larger ``pp``, ``dp``, ``ep`` or ``tp``, or
-``slices > 1``, needs several devices and raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 13b, which also backs ``sp`` with
-``torch.distributed`` across cards).
+A training mesh lays its positions out in JAX's device order (row-major
+over ``pp, dp, ep, sp, tp``; with ``slices > 1`` the ``dcn_axis`` split
+outermost, as ``jax.make_mesh`` on host devices orders them).  In one
+process every position sits on the mesh's one device, as a rank of its
+axis: an ``sp`` axis of size n holds n ranks of the ring there, a ``pp``
+axis of size S holds the S pipeline stages, and a collective over an axis
+is a re-index of what those ranks hold.  This is the port's counterpart of
+the JAX test suite's forced host devices; it computes what the JAX package
+computes, rank by rank and hop by hop.  Under an initialized
+``torch.distributed`` group of W ranks, each rank holds a contiguous 1/W
+of the positions on its one card (torchrun's layout), so the JAX rule
+"mesh size == available devices" becomes: the mesh's size divides over the
+ranks, each rank's share being one block of the mesh.  An axis whose
+positions sit on several ranks *crosses* them (:meth:`Mesh.crosses`), and
+its collectives are ``torch.distributed`` calls (``parallel/collectives.py``):
+``dp``, ``ep`` and ``sp`` may cross; ``pp`` and ``tp`` across ranks raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -36,15 +42,16 @@ import contextvars
 import dataclasses
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 
 AXES = ("pp", "dp", "ep", "sp", "tp")
 
-_DEFERRED = (
-    "ROADMAP.md Queue 1 item 13b (training axes across devices come with "
-    "the torch.distributed training slice)"
+_ACROSS_RANKS = (
+    "ROADMAP.md Queue 1 item 13c (pipeline stages and tensor-parallel "
+    "shards across ranks)"
 )
 
 
@@ -52,20 +59,53 @@ _DEFERRED = (
 class Mesh:
     """Named axes over devices.  ``shape`` maps each axis to its size, as
     ``jax.sharding.Mesh.shape`` does.  ``device`` is the first of this
-    process's ``devices`` (a training mesh has only it)."""
+    process's ``devices`` (a training mesh has only it).
+
+    A training mesh also knows its ranks: ``world`` ranks of a process
+    group (1 outside one), this process's ``rank``, and ``holders``, the
+    rank holding each position (row-major over the axes)."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: torch.device
     devices: Tuple[torch.device, ...] = ()
+    world: int = 1
+    rank: int = 0
+    holders: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if not self.devices:
             object.__setattr__(self, "devices", (self.device,))
+        if not self.holders:
+            object.__setattr__(self, "holders", (0,) * int(np.prod(self.axis_sizes)))
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    def _grid(self) -> np.ndarray:
+        return np.asarray(self.holders).reshape(self.axis_sizes)
+
+    def held(self, axis: str) -> Tuple[int, int]:
+        """``(lo, count)``: the positions ``lo .. lo+count-1`` of ``axis``
+        that this rank holds (all of them in one process)."""
+        i = self.axis_names.index(axis)
+        coords = np.argwhere(self._grid() == self.rank)[:, i]
+        return int(coords.min()), int(coords.max() - coords.min() + 1)
+
+    def crosses(self, axis: str) -> bool:
+        """Whether the positions of ``axis`` sit on more than one rank."""
+        if axis not in self.axis_names:
+            return False
+        return bool(np.any(np.diff(self._grid(), axis=self.axis_names.index(axis)) != 0))
+
+    def rank_at(self, axis: str, index: int) -> int:
+        """The rank holding this rank's first position with ``axis`` moved
+        to ``index``: the peer a collective over ``axis`` talks to."""
+        grid = self._grid()
+        first = [int(c) for c in np.argwhere(grid == self.rank)[0]]
+        first[self.axis_names.index(axis)] = index
+        return int(grid[tuple(first)])
 
 
 def _local_devices():
@@ -145,6 +185,29 @@ def data_mesh(
     return Mesh(("dp",), (n,), local[0], tuple(local[:n]))
 
 
+def _layout(sizes: Dict[str, int], slices: int, dcn_axis: str) -> np.ndarray:
+    """The device index of each position, in JAX's device order: row-major
+    in one slice; with ``slices > 1`` slice-major, ``dcn_axis``'s slice
+    component outermost (``training_mesh``'s fallback layout)."""
+    n = int(np.prod(list(sizes.values())))
+    if slices <= 1:
+        return np.arange(n).reshape(tuple(sizes[a] for a in AXES))
+    local = dict(sizes)
+    local[dcn_axis] //= slices
+    devs = np.arange(n).reshape((slices,) + tuple(local[a] for a in AXES))
+    order = list(range(1, len(AXES) + 1))
+    order.insert(AXES.index(dcn_axis), 0)
+    return devs.transpose(order).reshape(tuple(sizes[a] for a in AXES))
+
+
+def _group_rank() -> Tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 def training_mesh(
     dp: int = 1,
     tp: int = 1,
@@ -152,25 +215,56 @@ def training_mesh(
     pp: int = 1,
     ep: int = 1,
     slices: int = 1,
+    dcn_axis: str = "dp",
     device: DeviceLike = None,
 ) -> Mesh:
     """A 5-axis mesh ``(pp, dp, ep, sp, tp)`` on ``device`` (None: the CUDA
-    card).  ``sp`` may take any size: its ranks share the device.  Every
-    other axis must be 1 and ``slices`` 1 (the module docstring's rule)."""
+    card), with the JAX signature and checks.  Any axis sizes in one
+    process; under a process group the mesh's positions divide over the
+    ranks (the module docstring's rule), and a ``pp`` or ``tp`` axis that
+    crosses ranks raises ``NotImplementedError``.  Under a group every
+    rank builds the same mesh."""
     sizes = dict(zip(AXES, (pp, dp, ep, sp, tp)))
     small = {a: n for a, n in sizes.items() if n < 1}
     if small:
         raise ValueError(f"mesh axis sizes must be >= 1; got {small}")
-    wide = {a: n for a, n in sizes.items() if a != "sp" and n > 1}
-    if wide or slices > 1:
-        what = ", ".join(f"{a}={n}" for a, n in wide.items())
-        if slices > 1:
-            what = ", ".join(filter(None, (what, f"slices={slices}")))
-        raise NotImplementedError(
-            f"training_mesh({what}) needs more than one device; the port's "
-            f"mesh holds one device and only sp may exceed 1: {_DEFERRED}"
+    n = pp * dp * ep * sp * tp
+    if slices > 1:
+        if dcn_axis not in sizes:
+            raise ValueError(f"dcn_axis must be one of {AXES}, got {dcn_axis!r}")
+        if sizes[dcn_axis] % slices:
+            raise ValueError(
+                f"{dcn_axis}={sizes[dcn_axis]} must be a multiple of "
+                f"slices={slices}: the DCN-crossing axis splits as "
+                f"(slices, {dcn_axis}/slices)"
+            )
+    world, rank = _group_rank()
+    if n % world:
+        raise ValueError(
+            f"mesh size pp*dp*ep*sp*tp = {n} != available devices: it does "
+            f"not divide over the {world} ranks of the process group"
         )
-    return Mesh(AXES, tuple(sizes[a] for a in AXES), resolve_device(device))
+    holders = _layout(sizes, slices, dcn_axis) // (n // world)
+    for r in range(world):
+        coords = np.argwhere(holders == r)
+        box = np.prod(coords.max(0) - coords.min(0) + 1)
+        if box != len(coords):
+            raise ValueError(
+                f"mesh size pp*dp*ep*sp*tp = {n} != available devices: rank "
+                f"{r}'s share of the {world} ranks is not one block of the mesh"
+            )
+    mesh = Mesh(
+        AXES, tuple(sizes[a] for a in AXES), resolve_device(device),
+        world=world, rank=rank, holders=tuple(int(h) for h in holders.ravel()),
+    )
+    across = [a for a in ("pp", "tp") if mesh.crosses(a)]
+    if across:
+        what = ", ".join(f"{a}={sizes[a]}" for a in across)
+        raise NotImplementedError(
+            f"training_mesh({what}) over {world} ranks: the axis crosses "
+            f"ranks, and only dp, ep and sp may: {_ACROSS_RANKS}"
+        )
+    return mesh
 
 
 _AMBIENT: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(

@@ -213,16 +213,20 @@ def all_gather_tensor(t: torch.Tensor) -> List[torch.Tensor]:
     a collective that fails raises."""
     if not _group_up():
         return [t]
-    global host_detours
-    dist = _dist()
-    wire = t
-    if t.device.type == "cuda" and dist.get_backend() == "gloo":
-        host_detours += 1
-        wire = t.detach().cpu()
-    wire = wire.contiguous()
-    parts = [torch.empty_like(wire) for _ in range(process_count())]
-    dist.all_gather(parts, wire)
+    w = wire(t)
+    parts = [torch.empty_like(w) for _ in range(process_count())]
+    _dist().all_gather(parts, w)
     return [p.to(t.device) for p in parts]
+
+
+def wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the group's backend takes it, contiguous: on the host under
+    ``gloo`` when it is a CUDA tensor (counted in :data:`host_detours`)."""
+    global host_detours
+    if t.device.type == "cuda" and _dist().get_backend() == "gloo":
+        host_detours += 1
+        return t.detach().cpu().contiguous()
+    return t.detach().contiguous()
 
 
 class ProcessLocalData:

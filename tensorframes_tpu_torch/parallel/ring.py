@@ -17,14 +17,17 @@ log-sum-exp, dQ accumulates with its rank, and the dK/dV accumulators
 travel with their K/V chunks and arrive home after a full rotation, at kv
 width under GQA.
 
-The port holds the ``sp`` axis on ONE device (``parallel/mesh.py``): every
-rank's chunk lives there, and the core loops over hops and, within a hop,
-over ranks.  Rank ``my`` at hop ``i`` folds chunk ``(my - i) % sp``, the
-JAX fold order, so f32 results differ from the JAX package's only by the
-backends' summation.  The rotation is one function, :func:`_rotate`; on one
-device it re-indexes the list of chunks, and a ``torch.distributed``
-backing of the axis (ROADMAP.md Queue 1 item 13b) replaces it with a send to
-the next rank and a receive from the previous one.
+The port holds the ``sp`` axis's positions as ranks (``parallel/mesh.py``):
+this process holds the chunks of the positions it holds (all of them in
+one process), and the core loops over hops and, within a hop, over those
+ranks.  Rank ``my`` at hop ``i`` folds chunk ``(my - i) % sp``, the JAX fold
+order, so f32 results differ from the JAX package's only by the backends'
+summation.  The rotation is one function, :func:`_rotate`: among the ranks
+one process holds it re-indexes the list of chunks, with no copy; where
+the axis crosses ranks of a process group, the last held chunk is sent to
+the rank holding the next position and the first is received from the
+rank holding the previous one (``collectives.shift``), in the forward ring
+and for the backward ring's travelling dK/dV alike.
 
 ``impl="flash"`` folds with the hand-written ring-step kernel
 (``flash.flash_ring_step``); ``impl="xla"`` with the plain step below (the
@@ -34,11 +37,12 @@ they are XLA einsums in JAX.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .collectives import shift
 from .flash import flash_ring_step, kernel_head_dim, pad_head_dim
 from .mesh import Mesh, get_mesh
 
@@ -84,20 +88,34 @@ def _widen(x: torch.Tensor, groups: int) -> torch.Tensor:
     return x if groups == 1 else torch.repeat_interleave(x, groups, dim=2)
 
 
-def _rotate(blocks: List[torch.Tensor]) -> List[torch.Tensor]:
+class _Ring(NamedTuple):
+    """Where the ring's ranks live: ``sp`` positions on ``axis``, this
+    process holding ``lo .. lo+k-1`` (``mesh`` None: all, in one process)."""
+
+    sp: int
+    lo: int
+    mesh: Optional[Mesh]
+    axis: str
+
+
+def _rotate(blocks: List[torch.Tensor], ring: _Ring) -> List[torch.Tensor]:
     """One ring hop (the JAX ``ppermute`` ``i -> i + 1``): rank ``r`` takes
-    the block rank ``r - 1`` held.  ``blocks[r]`` is rank r's block; on one
-    device the hop is a re-indexing, with no copy."""
-    return blocks[-1:] + blocks[:-1]
+    the block rank ``r - 1`` held.  ``blocks[j]`` is the block of held rank
+    ``lo + j``; among held ranks the hop is a re-indexing, with no copy, and
+    across ranks of a group the ends travel (``collectives.shift``)."""
+    if ring.mesh is None:
+        return blocks[-1:] + blocks[:-1]
+    return [shift(blocks[-1], ring.mesh, ring.axis)] + blocks[:-1]
 
 
 def _positions(rank: int, C: int, device) -> torch.Tensor:
     return rank * C + torch.arange(C, device=device)
 
 
-def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
-    """The forward ring over the ranks' chunks (lists indexed by rank):
-    returns every rank's output [B, C, H, Dh] and lse [B, H, C]."""
+def _fwd_local(q_c, k_c, v_c, *, ring, causal, scale, impl="xla"):
+    """The forward ring over the held ranks' chunks (lists indexed by held
+    rank): returns their outputs [B, C, H, Dh] and lse [B, H, C]."""
+    sp, lo, k = ring.sp, ring.lo, len(q_c)
     dtype = q_c[0].dtype
     B, C, H, Dh = q_c[0].shape
     g = H // k_c[0].shape[2]  # GQA group size (1 = standard MHA)
@@ -116,33 +134,35 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
         width = kernel_head_dim(Dh)
         q_c, k_c, v_c = ([pad_head_dim(x, width) for x in xs] for xs in (q_c, k_c, v_c))
     f32 = dict(dtype=torch.float32, device=dev)
-    o = [torch.zeros((B, C, H, width), **f32) for _ in range(sp)]
-    m = [torch.full((B, H, C), _NEG_INF, **f32) for _ in range(sp)]
-    l = [torch.zeros((B, H, C), **f32) for _ in range(sp)]
+    o = [torch.zeros((B, C, H, width), **f32) for _ in range(k)]
+    m = [torch.full((B, H, C), _NEG_INF, **f32) for _ in range(k)]
+    l = [torch.zeros((B, H, C), **f32) for _ in range(k)]
     k_cur, v_cur = list(k_c), list(v_c)
     for i in range(sp):
-        for my in range(sp):
+        for j in range(k):
+            my = lo + j
             src = (my - i) % sp
             if causal and src > my:
                 # a strictly later chunk is hidden from every query: skip
                 # its work, keep the rotation
                 continue
             if impl == "flash":
-                o[my], m[my], l[my] = flash_ring_step(
-                    q_c[my], k_cur[my], v_cur[my], o[my], m[my], l[my],
+                o[j], m[j], l[j] = flash_ring_step(
+                    q_c[j], k_cur[j], v_cur[j], o[j], m[j], l[j],
                     my * C, src * C, causal, scale=scale,
                 )
             else:
                 s = _scores(
-                    q_c[my], _widen(k_cur[my], g), scale, causal,
+                    q_c[j], _widen(k_cur[j], g), scale, causal,
                     _positions(my, C, dev), _positions(src, C, dev),
                 )
-                o[my], m[my], l[my] = _online_softmax_step(
-                    o[my], m[my], l[my], s, _widen(v_cur[my], g), dtype
+                o[j], m[j], l[j] = _online_softmax_step(
+                    o[j], m[j], l[j], s, _widen(v_cur[j], g), dtype
                 )
-        k_cur, v_cur = _rotate(k_cur), _rotate(v_cur)
+        if i < sp - 1:  # the last hop's rotation would only bring them home
+            k_cur, v_cur = _rotate(k_cur, ring), _rotate(v_cur, ring)
     out, lse = [], []
-    for r in range(sp):
+    for r in range(k):
         l_safe = torch.where(l[r] == 0.0, 1.0, l[r])  # all-masked rows -> 0
         o_r = o[r] if width == Dh else o[r][..., :Dh]
         out.append((o_r / l_safe.transpose(1, 2)[..., None]).to(dtype))
@@ -150,11 +170,12 @@ def _fwd_local(q_c, k_c, v_c, *, sp, causal, scale, impl="xla"):
     return out, lse
 
 
-def _bwd_local(q_c, k_c, v_c, o_c, lse_c, do_c, *, sp, causal, scale):
+def _bwd_local(q_c, k_c, v_c, o_c, lse_c, do_c, *, ring, causal, scale):
     """The second ring: the dK/dV accumulators rotate WITH their K/V chunks
     and arrive home after ``sp`` hops, gathering their contributions in hop
     order; dQ accumulates with its rank.  Under GQA the accumulators stay at
     kv width (per-query-head gradients group-sum down: the repeat's VJP)."""
+    sp, lo, k = ring.sp, ring.lo, len(q_c)
     dtype = q_c[0].dtype
     B, C, H, Dh = q_c[0].shape
     KVH = k_c[0].shape[2]
@@ -166,35 +187,37 @@ def _bwd_local(q_c, k_c, v_c, o_c, lse_c, do_c, *, sp, causal, scale):
 
     do32 = [d.float() for d in do_c]
     # D = rowsum(dO * O): [B, H, Lq]
-    big_d = [(do32[r] * o_c[r].float()).sum(-1).transpose(1, 2) for r in range(sp)]
+    big_d = [(do32[r] * o_c[r].float()).sum(-1).transpose(1, 2) for r in range(k)]
     lse_safe = [torch.where(torch.isneginf(x), 0.0, x) for x in lse_c]
     f32 = dict(dtype=torch.float32, device=dev)
-    dq = [torch.zeros((B, C, H, Dh), **f32) for _ in range(sp)]
-    dk = [torch.zeros((B, C, KVH, Dh), **f32) for _ in range(sp)]
-    dv = [torch.zeros((B, C, KVH, Dh), **f32) for _ in range(sp)]
+    dq = [torch.zeros((B, C, H, Dh), **f32) for _ in range(k)]
+    dk = [torch.zeros((B, C, KVH, Dh), **f32) for _ in range(k)]
+    dv = [torch.zeros((B, C, KVH, Dh), **f32) for _ in range(k)]
     k_cur, v_cur = list(k_c), list(v_c)
     for i in range(sp):
-        for my in range(sp):
+        for j in range(k):
+            my = lo + j
             src = (my - i) % sp
             if causal and src > my:
                 continue  # a hidden hop contributes no gradient
-            k_w, v_w = _widen(k_cur[my], g).float(), _widen(v_cur[my], g).float()
+            k_w, v_w = _widen(k_cur[j], g).float(), _widen(v_cur[j], g).float()
             s = _scores(
-                q_c[my], k_w, scale, causal,
+                q_c[j], k_w, scale, causal,
                 _positions(my, C, dev), _positions(src, C, dev),
             )
             p = torch.where(
-                torch.isneginf(s), 0.0, torch.exp(s - lse_safe[my][..., None])
+                torch.isneginf(s), 0.0, torch.exp(s - lse_safe[j][..., None])
             )  # [B, H, Lq, Lk] f32
-            dv[my] = dv[my] + group_sum(torch.einsum("bhqk,bqhd->bkhd", p, do32[my]))
-            dp = torch.einsum("bqhd,bkhd->bhqk", do32[my], v_w)
-            ds = p * (dp - big_d[my][..., None]) * scale
-            dq[my] = dq[my] + torch.einsum("bhqk,bkhd->bqhd", ds, k_w)
-            dk[my] = dk[my] + group_sum(
-                torch.einsum("bhqk,bqhd->bkhd", ds, q_c[my].float())
+            dv[j] = dv[j] + group_sum(torch.einsum("bhqk,bqhd->bkhd", p, do32[j]))
+            dp = torch.einsum("bqhd,bkhd->bhqk", do32[j], v_w)
+            ds = p * (dp - big_d[j][..., None]) * scale
+            dq[j] = dq[j] + torch.einsum("bhqk,bkhd->bqhd", ds, k_w)
+            dk[j] = dk[j] + group_sum(
+                torch.einsum("bhqk,bqhd->bkhd", ds, q_c[j].float())
             )
-        k_cur, v_cur = _rotate(k_cur), _rotate(v_cur)
-        dk, dv = _rotate(dk), _rotate(dv)
+        if i < sp - 1:  # K/V are not needed after the last hop
+            k_cur, v_cur = _rotate(k_cur, ring), _rotate(v_cur, ring)
+        dk, dv = _rotate(dk, ring), _rotate(dv, ring)
     return (
         [x.to(dtype) for x in dq], [x.to(dtype) for x in dk],
         [x.to(dtype) for x in dv],
@@ -207,24 +230,34 @@ class _ManualCore(torch.autograd.Function):
     backward runs the second ring (whichever step the forward used)."""
 
     @staticmethod
-    def forward(ctx, sp, causal, scale, impl, *chunks):
-        q_c, k_c, v_c = chunks[:sp], chunks[sp:2 * sp], chunks[2 * sp:]
+    def forward(ctx, ring, causal, scale, impl, *chunks):
+        k = len(chunks) // 3
+        q_c, k_c, v_c = chunks[:k], chunks[k:2 * k], chunks[2 * k:]
         out, lse = _fwd_local(
-            q_c, k_c, v_c, sp=sp, causal=causal, scale=scale, impl=impl
+            q_c, k_c, v_c, ring=ring, causal=causal, scale=scale, impl=impl
         )
         ctx.save_for_backward(*chunks, *out, *lse)
-        ctx.ring = (sp, causal, scale)
+        ctx.ring = (ring, causal, scale, k)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *d_out):
-        sp, causal, scale = ctx.ring
+        ring, causal, scale, k = ctx.ring
         saved = ctx.saved_tensors
-        q_c, k_c, v_c, out, lse = (saved[j * sp:(j + 1) * sp] for j in range(5))
+        q_c, k_c, v_c, out, lse = (saved[j * k:(j + 1) * k] for j in range(5))
         dq, dk, dv = _bwd_local(
-            q_c, k_c, v_c, out, lse, d_out, sp=sp, causal=causal, scale=scale
+            q_c, k_c, v_c, out, lse, d_out, ring=ring, causal=causal, scale=scale
         )
         return (None, None, None, None, *dq, *dk, *dv)
+
+
+def _ring_of(mesh: Optional[Mesh], axis: str, sp: int) -> _Ring:
+    """The held ranks of ``axis``: all ``sp`` of them in one process, or
+    this rank's share where the axis crosses ranks of a group."""
+    if mesh is None or not mesh.crosses(axis):
+        return _Ring(sp, 0, None, axis)
+    lo, _ = mesh.held(axis)
+    return _Ring(sp, lo, mesh, axis)
 
 
 def ring_attention_manual(
@@ -235,18 +268,23 @@ def ring_attention_manual(
     causal: bool = True,
     axis: str = "sp",
     impl: str = "xla",
+    mesh: Optional[Mesh] = None,
 ) -> List[torch.Tensor]:
     """The ring core for callers that already hold the ranks' chunks:
-    ``q_c[r]``/``k_c[r]``/``v_c[r]`` are rank r's contiguous [B, C, H, Dh]
-    (k/v at kv width) chunks.  Returns the ranks' outputs, differentiable.
-    ``axis`` names the mesh axis, as in the JAX signature."""
-    if not (len(q_c) == len(k_c) == len(v_c) == sp):
+    ``q_c[j]``/``k_c[j]``/``v_c[j]`` are the contiguous [B, C, H, Dh] (k/v
+    at kv width) chunks of the ranks this process holds (all ``sp`` in one
+    process; its share where ``mesh``'s ``axis`` crosses ranks, default the
+    ambient mesh).  Returns their outputs, differentiable.  ``axis`` names
+    the mesh axis, as in the JAX signature."""
+    ring = _ring_of(mesh if mesh is not None else get_mesh(), axis, sp)
+    held = ring.mesh.held(axis)[1] if ring.mesh is not None else sp
+    if not (len(q_c) == len(k_c) == len(v_c) == held):
         raise ValueError(
-            f"ring_attention_manual: {sp} ranks on axis {axis!r} but "
+            f"ring_attention_manual: {held} ranks on axis {axis!r} but "
             f"{len(q_c)}/{len(k_c)}/{len(v_c)} q/k/v chunks"
         )
     scale = _scale(q_c[0].shape[-1])
-    return list(_ManualCore.apply(sp, causal, scale, impl, *q_c, *k_c, *v_c))
+    return list(_ManualCore.apply(ring, causal, scale, impl, *q_c, *k_c, *v_c))
 
 
 def ring_attention(
@@ -261,7 +299,9 @@ def ring_attention(
     """Exact attention over a [B, L, H, Dh] q whose sequence is split over
     the mesh's ``axis`` (default: the ambient mesh, ``set_mesh``).  Returns
     [B, L, H, Dh] in q's dtype.  Without a mesh, or with ``sp == 1``, it is
-    the unsharded attention.
+    the unsharded attention.  Where the axis crosses ranks of a process
+    group, q/k/v are this rank's part of the sequence (its held positions'
+    chunks, in order) and so is the result.
 
     ``k``/``v`` may be GQA-grouped ([B, L, KVH, Dh] with H % KVH == 0):
     they ride the ring at kv width and widen per fold step.  Chunks are
@@ -274,8 +314,9 @@ def ring_attention(
     sp = mesh.shape[axis]
     if sp == 1:
         return _unsharded_attention(q, k, v, causal)
-    L = q.shape[1]
-    if L % sp:
+    held = mesh.held(axis)[1]
+    L = q.shape[1] * sp // held
+    if q.shape[1] % held or L % sp:
         raise ValueError(
             f"ring_attention: sequence length {L} is not divisible by the "
             f"{axis!r} axis size {sp}"
@@ -287,7 +328,7 @@ def ring_attention(
         )
     C = L // sp
     outs = ring_attention_manual(
-        q.split(C, 1), k.split(C, 1), v.split(C, 1), sp, causal, axis, impl
+        q.split(C, 1), k.split(C, 1), v.split(C, 1), sp, causal, axis, impl, mesh
     )
     return torch.cat(outs, 1)
 

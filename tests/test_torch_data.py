@@ -127,8 +127,73 @@ def test_loader_size_errors_match_jax(kw):
 
 
 def test_loader_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13b"):
-        _loader(token_frame(n_rows=16, seq=4), batch_size=8, mesh=object())
+    """The mesh-sharded loader (``tests/test_train_data.py:87-94``): in one
+    process the batches are the plain loader's, on the mesh's device; under
+    a group of 8 ranks over ``dp=8`` each rank gets its ``[1, 5]`` row, and
+    the ranks' rows in rank order are the one-process batch."""
+    from tensorframes_tpu_torch.parallel import mesh as tmesh
+
+    f = token_frame(n_rows=16, seq=4)
+    mesh = tmesh.training_mesh(dp=8, device="cpu")
+    whole = next(iter(tdata.FrameLoader(f, batch_size=8, mesh=mesh, spec=("dp", None))))["tokens"]
+    assert whole.device == mesh.device
+    np.testing.assert_array_equal(whole.numpy(), next(iter(_loader(f, batch_size=8)))["tokens"].numpy())
+    parts = []
+    for rank in range(8):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tmesh, "_group_rank", lambda rank=rank: (8, rank))
+            ranked = tmesh.training_mesh(dp=8, device="cpu")
+        loader = tdata.FrameLoader(f, batch_size=8, mesh=ranked, spec=("dp", None), shuffle=True)
+        batch = next(iter(loader))["tokens"]
+        assert batch.shape == (1, 5)
+        parts.append(batch.numpy())
+    shuffled = next(iter(_loader(f, batch_size=8, shuffle=True)))["tokens"].numpy()
+    np.testing.assert_array_equal(np.concatenate(parts), shuffled)
+
+
+def test_loader_mesh_cuts_named_axes_only():
+    """``spec`` names the axes a dim splits over: under 4 ranks of ``dp=2,
+    sp=2`` the rows split over dp only, and a sequence dim named ``"sp"``
+    splits too; a batch that does not divide raises."""
+    from tensorframes_tpu_torch.parallel import mesh as tmesh
+
+    f = tft.TensorFrame.from_arrays({"tokens": _rows(n_rows=8, seq=7)})
+    full = next(iter(_loader(f, batch_size=4)))["tokens"].numpy()
+    for rank in range(4):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tmesh, "_group_rank", lambda rank=rank: (4, rank))
+            mesh = tmesh.training_mesh(dp=2, sp=2, device="cpu")
+        d, s = divmod(rank, 2)
+        rows = next(iter(tdata.FrameLoader(f, batch_size=4, mesh=mesh, spec=("dp",))))["tokens"]
+        np.testing.assert_array_equal(rows.numpy(), full[2 * d:2 * d + 2])
+        cells = next(iter(tdata.FrameLoader(f, batch_size=4, mesh=mesh, spec=("dp", "sp"))))["tokens"]
+        np.testing.assert_array_equal(cells.numpy(), full[2 * d:2 * d + 2, 4 * s:4 * s + 4])
+        with pytest.raises(ValueError, match="does not divide"):
+            next(iter(tdata.FrameLoader(f, batch_size=3, mesh=mesh, spec=("dp",))))
+
+
+def test_fit_from_frame_on_mesh():
+    """``tests/test_train_data.py:116-126``: dp-sharded loader batches into
+    the train step under a live ``dp=2, tp=2, sp=2`` mesh, JAX's config
+    (its default full attention over the sp-split sequence): the loss
+    falls, and ``fit`` lays the tp layout on the params."""
+    from tensorframes_tpu_torch import train as ttrain
+    from tensorframes_tpu_torch.models import transformer as ttfm
+    from tensorframes_tpu_torch.parallel import mesh as tmesh
+
+    cfg = ttfm.TransformerConfig(
+        vocab_size=32, d_model=32, n_layers=2, n_heads=2, n_kv_heads=2,
+        d_ff=64, max_seq=16,
+    )
+    f = token_frame(n_rows=16, seq=8)
+    mesh = tmesh.training_mesh(dp=2, tp=2, sp=2, device="cpu")
+    loader = tdata.FrameLoader(f, batch_size=8, mesh=mesh, spec=("dp", None))
+    with tmesh.set_mesh(mesh):
+        params, _, losses = ttrain.fit(
+            loader, cfg, ttrain.TrainConfig(learning_rate=1e-2), steps=6, device="cpu"
+        )
+    assert losses[-1] < losses[0], losses
+    assert ttfm.sharding_spec(params["blocks"]["wq"]) == (None, None, "tp")
 
 
 def test_loader_forever_cycles_epochs():

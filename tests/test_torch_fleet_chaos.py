@@ -12,7 +12,11 @@
   sense (``backend_compiles == 0`` and ``persistent_cache_misses == 0``:
   eager torch caches only kernel libraries and exported programs);
 * two live processes racing one ``job_id`` resolve to exactly one fence
-  winner, whose result is byte-equal to an uninterrupted run.
+  winner, whose result is byte-equal to an uninterrupted run;
+* a replica exits promptly after its drain when a leftover thread would
+  hold its interpreter's teardown, drains when SIGTERM lands on a thread
+  other than its main one, and exits 1 with its threads' stacks when its
+  close() overruns the drain window.
 
 Sizes are JAX's: 800 rows in 100-row windows, 8 windows.
 """
@@ -269,3 +273,64 @@ def test_cross_process_fence_race(tmp_path, src_parquet, monkeypatch):
     arr = np.ascontiguousarray(np.asarray(ref["x"]))
     assert rb["sha"] == hashlib.sha256(arr.tobytes()).hexdigest()
     assert recovery.job_status("race")["status"] == "complete"
+
+
+# a replica with one injection: "leftover" starts a thread that never ends
+# and that the interpreter's teardown would join; "stalled_close" makes the
+# server's close() block for good; "other_thread" raises SIGTERM on a
+# thread of its own once the file named by TFS_TEST_TRIGGER exists, so the
+# main thread is not the one the signal interrupts
+_REPLICA_WITH = """
+import os, signal, sys, threading, time, runpy
+how = os.environ["TFS_TEST_INJECT"]
+if how == "leftover":
+    threading.Thread(target=threading.Event().wait, name="leftover").start()
+elif how == "stalled_close":
+    from tensorframes_tpu_torch.bridge.server import BridgeServer
+    BridgeServer.close = lambda self, drain_s=None: threading.Event().wait()
+else:
+    def kill_from_here():
+        while not os.path.exists(os.environ["TFS_TEST_TRIGGER"]):
+            time.sleep(0.05)
+        signal.pthread_kill(threading.get_ident(), signal.SIGTERM)
+    threading.Thread(target=kill_from_here, daemon=True).start()
+runpy.run_module("tensorframes_tpu_torch.bridge.replica", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("inject,rc", [("leftover", 0), ("other_thread", 0),
+                                       ("stalled_close", 1)])
+def test_replica_exits_promptly_after_sigterm(tmp_path, inject, rc):
+    log_path = tmp_path / "replica.log"
+    trigger = tmp_path / "go"
+    env = dict(os.environ, TFS_TEST_INJECT=inject, TFS_TEST_TRIGGER=str(trigger),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (os.path.dirname(HERE), os.environ.get("PYTHONPATH", "")) if p))
+    env.pop("TFS_FLEET_REGISTRY", None)
+    env["TFS_BRIDGE_DRAIN_S"] = "0.5"
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _REPLICA_WITH, "--host", "127.0.0.1", "--port", "0",
+             "--name", "t0", "--device", CPU], env=env, stdout=log, stderr=log)
+    try:
+        deadline = time.monotonic() + TIMEOUT_S
+        while b"serving on" not in log_path.read_bytes():
+            assert proc.poll() is None, log_path.read_text()
+            assert time.monotonic() < deadline, log_path.read_text()
+            time.sleep(0.1)
+        if inject == "other_thread":
+            trigger.touch()
+        else:
+            proc.send_signal(signal.SIGTERM)
+        # the exit is bounded by the drain window and the close grace (10.5 s
+        # here), well inside the fleet's 30 s drain timeout
+        assert proc.wait(timeout=20) == rc, log_path.read_text()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log_path.read_text()
+    if rc:
+        assert "overran its 0.5s drain window" in text and "Thread 0x" in text, text
+    else:
+        assert "drained in" in text, text

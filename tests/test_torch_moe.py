@@ -9,10 +9,10 @@ route as their own groups).  Tolerances: dispatch and combine exact, aux
 1e-6, a layer 1e-5, a model's logits, loss and gradients 1e-4 (two CPU
 backends summing in different orders, through several layers).
 
-Not mirrored, because they need several devices: the ``ep``-sharded
-forward and weight layout, the pipelined (pp) MoE loss and the checkpoint
-restored onto another mesh (``tests/test_moe.py``); ``ep`` waits for
-ROADMAP.md Queue 1 item 13b."""
+The mesh cases of ``tests/test_moe.py`` (the ``ep``-sharded forward and
+weight layout, the pipelined (pp) MoE loss and the checkpoint restored
+onto another mesh) are mirrored in ``tests/test_torch_moe_axes.py``, and
+``ep`` across processes in ``tests/test_torch_multiprocess.py``."""
 
 import dataclasses
 

@@ -324,11 +324,78 @@ def test_training_mesh_keeps_the_jax_axis_order_and_names():
     ],
 )
 def test_training_mesh_refuses_axes_across_devices(kw, what):
-    """The JAX rule "mesh size == available devices" becomes: the mesh
-    holds one device, so every axis but sp is 1 and there is one slice."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13b") as e:
+    """The JAX rule "mesh size == available devices" became: in one process
+    every position sits on the mesh's one device as a rank of its axis, so
+    every axis size is accepted there (these five meshes were refused
+    before the training axes were ported)."""
+    m = tmesh.training_mesh(device="cpu", **kw)
+    sizes = {a: kw.get(a, 1) for a in tmesh.AXES}
+    assert m.shape == sizes and m.device == torch.device("cpu")
+    assert m.world == 1 and set(m.holders) == {0}
+    assert not any(m.crosses(a) for a in tmesh.AXES)
+    assert all(m.held(a) == (0, n) for a, n in sizes.items())
+
+
+def test_training_mesh_dcn_layout_matches_jax():
+    """``slices > 1``: positions take JAX's device order (``dcn_axis``'s
+    slice component outermost), on JAX's 8 forced host devices."""
+    from tensorframes_tpu.parallel import mesh as jmesh
+
+    for kw in ({"dp": 4, "sp": 2, "slices": 2}, {"dp": 2, "tp": 4, "slices": 2, "dcn_axis": "tp"}):
+        jm = jmesh.training_mesh(**kw)
+        ids = np.vectorize(lambda d: d.id)(jm.devices)
+        sizes = {a: kw.get(a, 1) for a in tmesh.AXES}
+        got = tmesh._layout(sizes, kw["slices"], kw.get("dcn_axis", "dp"))
+        np.testing.assert_array_equal(got, ids)
+
+
+@pytest.mark.parametrize("kw", [{"dp": 8, "slices": 3}, {"dp": 8, "slices": 2, "dcn_axis": "bogus"}])
+def test_training_mesh_dcn_errors_match_jax(kw):
+    from tensorframes_tpu.parallel import mesh as jmesh
+
+    with pytest.raises(ValueError) as je:
+        jmesh.training_mesh(**kw)
+    with pytest.raises(ValueError) as te:
         tmesh.training_mesh(device="cpu", **kw)
-    assert f"training_mesh({what})" in str(e.value)
+    assert str(te.value) == str(je.value)
+
+
+def _as_rank(monkeypatch, world, rank):
+    monkeypatch.setattr(tmesh, "_group_rank", lambda: (world, rank))
+
+
+@pytest.mark.parametrize("kw,world", [({"dp": 3}, 2), ({"dp": 2, "sp": 3, "tp": 2}, 4)])
+def test_training_mesh_under_a_group_must_divide(monkeypatch, kw, world):
+    """Under a group the positions divide over the ranks, one block of the
+    mesh a rank (here a rank of 3 positions would hold parts of two sp
+    rows)."""
+    _as_rank(monkeypatch, world, 0)
+    with pytest.raises(ValueError, match=r"mesh size pp\*dp\*ep\*sp\*tp = \d+ != available devices"):
+        tmesh.training_mesh(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,what", [({"pp": 2}, "pp=2"), ({"tp": 2, "dp": 1}, "tp=2"),
+                                     ({"pp": 2, "tp": 4, "dp": 2}, "pp=2")])
+def test_training_mesh_pp_tp_across_ranks_name_item_13c(monkeypatch, kw, what):
+    _as_rank(monkeypatch, 2 if "dp" not in kw or kw["dp"] == 1 else 4, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13c") as e:
+        tmesh.training_mesh(device="cpu", **kw)
+    assert f"training_mesh({what}" in str(e.value)
+
+
+def test_training_mesh_ranks_hold_blocks(monkeypatch):
+    """dp=2, ep=2, tp=2 over 2 ranks: each holds one dp position with
+    every ep and tp position, so dp crosses and nothing else does; over 4
+    ranks ep crosses too.  ``rank_at`` names the peer along an axis."""
+    for world, rank, crossing, held_ep in ((2, 1, ["dp"], (0, 2)), (4, 3, ["dp", "ep"], (1, 1))):
+        _as_rank(monkeypatch, world, rank)
+        m = tmesh.training_mesh(dp=2, ep=2, tp=2, device="cpu")
+        assert [a for a in tmesh.AXES if m.crosses(a)] == crossing
+        assert m.held("dp") == (1, 1) and m.held("ep") == held_ep and m.held("tp") == (0, 2)
+        assert m.rank_at("dp", 0) == rank - world // 2
+    _as_rank(monkeypatch, 2, 0)
+    m = tmesh.training_mesh(sp=4, device="cpu")
+    assert m.held("sp") == (0, 2) and m.rank_at("sp", 3) == 1 and m.crosses("sp")
 
 
 def test_training_mesh_rejects_empty_axes():

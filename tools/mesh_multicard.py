@@ -18,9 +18,15 @@ the CPU) through ``multihost.initialize``, each holds its share of config
 2's rows as a ``frame_from_process_local`` frame on its own card (the
 default ``data_mesh()``: the rank's share of the host's cards), and the
 cross-process ``reduce_blocks`` is held to the serial reduce over the
-same blocks.  Each
-step prints one ``mesh_multicard:`` JSON line with its seconds; any
-failure exits non-zero.
+same blocks.  Part 3, one process a card again (``train_child``): a
+``dp=N`` train step of the flagship's train config (B = 8 x 2048, each
+rank fed its rows by a mesh-sharded ``FrameLoader``, the gradients
+all-reduced before the clip) and an ``ep=N`` step of the MoE flagship
+(each rank runs its E/N experts; the dispatched buffers cross the cards
+point to point), a warm-up step and two timed steps each, every loss held
+to the one-card steps on the same weights and batches.  Each step prints one
+``mesh_multicard:`` JSON line with its seconds; any failure exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -171,6 +177,141 @@ def part_two(world: int, device: str) -> None:
         rtol=RTOL, bit_identical=bool(np.array_equal(got, np.asarray(ref["v"]))))
 
 
+TRAIN_STEPS, TRAIN_B = 2, 8
+TRAIN_CHILD_CODE = ("import sys; sys.path.insert(0, 'tools'); import mesh_multicard; "
+                    "mesh_multicard.train_child(*sys.argv[1:])")
+# the loss against the one-card step: the dense model's as chip_smoke's
+# pipelines (cuBLAS at fewer rows), the MoE model's at the MoE phase's
+# limit (a near-tie of the router may pick another expert at other rows)
+TRAIN_TOL = {"dense": chip_smoke.REMAT_LOSS_TOL, "moe": chip_smoke.NLL_TOL}
+
+
+def train_config(kind: str, device: str):
+    """The flagship train config or the MoE flagship (tiny f32 widths for a
+    CPU rehearsal)."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    base = dict(chip_smoke.MOE_MODEL, attn_impl="flash") if kind == "moe" else chip_smoke.TRAIN_MODEL
+    if device == "cpu":
+        base = dict(base, vocab_size=97, d_model=32, n_layers=2, n_heads=4, n_kv_heads=4,
+                    d_ff=64, dtype=torch.float32)
+    return tfm.TransformerConfig(**base)
+
+
+def train_batches(cfg, device: str):
+    """A warm-up batch and ``TRAIN_STEPS`` batches of ``TRAIN_B`` rows: the
+    train phase's rows (their first 33 tokens on the CPU), as a frame."""
+    import tensorframes_tpu_torch as tft
+
+    toks = chip_smoke.axes_rows(TRAIN_B * (TRAIN_STEPS + 1)) % cfg.vocab_size
+    if device == "cpu":
+        toks = toks[:, :33]
+    return tft.TensorFrame.from_arrays({"tokens": np.ascontiguousarray(toks)})
+
+
+def train_steps(cfg, params, loader, dev):
+    """Losses of a warm-up step and ``TRAIN_STEPS`` steps, ms a step of the
+    latter (synchronized), and peak bytes."""
+    from tensorframes_tpu_torch import data, train
+
+    step, tx = train.make_train_step(cfg, train.TrainConfig(learning_rate=3e-4))
+    state = tx.init(params)
+    losses, rows = [], []
+    t0 = None
+    for batch in loader:
+        rows.append(int(batch["tokens"].shape[0]))
+        losses.append(float(step(params, state, *data.lm_split(batch))[2]))
+        if t0 is None:  # the warm-up step ends here
+            sync(dev)
+            t0 = time.perf_counter()
+    ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    return losses, rows, ms, train.hbm_high_water(dev)
+
+
+def train_child(rank, world, port, device, kind) -> None:
+    """Part 3's rank: a ``world``-rank group (NCCL on cards, one a card;
+    ``gloo`` on the CPU), a ``dp=world`` (dense) or ``ep=world`` (MoE)
+    training mesh, its rows of each batch; prints one JSON line."""
+    import datetime
+
+    from tensorframes_tpu_torch import data
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import multihost
+    from tensorframes_tpu_torch.parallel.mesh import set_mesh, training_mesh
+
+    rank, world = int(rank), int(world)
+    res = {"rank": rank, "kind": kind}
+    t0 = time.perf_counter()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                             backend="nccl" if device == "cuda" else "gloo",
+                             timeout=datetime.timedelta(seconds=120))
+        res["init_s"] = time.perf_counter() - t0
+        axes = {"ep": world} if kind == "moe" else {"dp": world}
+        mesh = training_mesh(device=None if device == "cuda" else "cpu", **axes)
+        dev = mesh.device
+        cfg = train_config(kind, device)
+        params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        loader = data.FrameLoader(train_batches(cfg, device), batch_size=TRAIN_B, mesh=mesh,
+                                  spec=(("dp", "ep"), None))
+        with set_mesh(mesh):
+            losses, rows, ms, peak = train_steps(cfg, params, loader, dev)
+        res.update(device=str(dev), losses=losses, rows=rows, ms_per_step=ms, peak_bytes=peak,
+                   crosses=[a for a in mesh.axis_names if mesh.crosses(a)],
+                   host_detours=multihost.host_detours)
+    except Exception as e:  # noqa: BLE001 - printed for the parent
+        res.update(error=f"{type(e).__name__}: {e}"[:600], wall_s=time.perf_counter() - t0)
+        print(json.dumps(res), flush=True)
+        os._exit(3)
+    res["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(res), flush=True)
+    multihost.shutdown()
+
+
+def part_three(world: int, device: str) -> None:
+    """The dense ``dp=world`` and the MoE ``ep=world`` steps across the
+    cards, each against the one-card steps."""
+    import gc
+    import subprocess
+
+    from tensorframes_tpu_torch import data
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    for kind in ("dense", "moe"):
+        cfg = train_config(kind, device)
+        params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        loader = data.FrameLoader(train_batches(cfg, device), batch_size=TRAIN_B, device=dev)
+        one, _, one_ms, one_peak = train_steps(cfg, params, loader, dev)
+        del params, loader
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        port = chip_smoke._free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TRAIN_CHILD_CODE, str(r), str(world), str(port), device, kind],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        outs = chip_smoke._collect_group(procs)
+        wall = time.perf_counter() - t0
+        bad = [o for o in outs if o["rc"] != 0 or "losses" not in o]
+        if bad:
+            raise AssertionError(f"{kind} ranks failed: {bad}")
+        diff = max(abs(a - b) for o in outs for a, b in zip(o["losses"], one))
+        say(part=3, leg=f"{kind}_{'ep' if kind == 'moe' else 'dp'}{world}_train", ranks=world,
+            one_card_losses=one, one_card_ms_per_step=one_ms, one_card_peak_bytes=one_peak,
+            losses=[o["losses"] for o in outs], rows=[o["rows"] for o in outs],
+            devices=[o["device"] for o in outs], crosses=outs[0]["crosses"],
+            ms_per_step=[o["ms_per_step"] for o in outs],
+            peak_bytes=[o["peak_bytes"] for o in outs], init_s=[o["init_s"] for o in outs],
+            host_detours=[o["host_detours"] for o in outs], wall_s=wall,
+            loss_abs_diff=diff, tol=TRAIN_TOL[kind])
+        if not diff <= TRAIN_TOL[kind]:
+            raise AssertionError(f"{kind} across {world} ranks: losses {outs} against {one}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -194,6 +335,9 @@ def main() -> int:
     part_one(dev0)
     say(part=1, seconds=time.perf_counter() - t0)
     part_two(cards, args.device)
+    t0 = time.perf_counter()
+    part_three(cards, args.device)
+    say(part=3, seconds=time.perf_counter() - t0)
     return 0
 
 
