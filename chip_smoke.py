@@ -14,15 +14,14 @@ Phases, each printing its own lines and then its command time (``phase:``):
    per source, started together), with ptxas' register/spill report; every
    kernel's instantiations are asserted in the built code against
    ``built_instantiations``: the 16-bit TMA + wgmma kernels (bf16 and f16;
-   the forward, dQ and dK/dV at Dh 64, 128, 256 and 512, the ring step at
-   64 and 128) with ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-   instructions in every instantiation's SASS (``cuobjdump``), no
-   ignored ``setmaxnreg``, and the instantiations whose wgmma ptxas
-   serialized (C7518) named, none allowed in dQ and dK/dV; the f32 SIMT
-   kernels of the forward, dQ and dK/dV (Dh 64, 128, 256 and 512) and the
-   ring step's FMA kernel (f32 at those widths, 16-bit inputs at 256 and
-   512) with none of them and no ``HMMA``; 0 bytes of ptxas spills in all,
-   and every instantiation's registers a thread printed;
+   the forward, dQ, dK/dV and the ring step at Dh 64, 128, 256 and 512)
+   with ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in every
+   instantiation's SASS (``cuobjdump``), no ignored ``setmaxnreg``, and the
+   instantiations whose wgmma ptxas serialized (C7518) named, none allowed
+   in dQ, dK/dV and the ring step; the f32 SIMT kernels of the forward,
+   dQ, dK/dV and the ring step (Dh 64, 128, 256 and 512) with none of them
+   and no ``HMMA``; no FMA kernel; 0 bytes of ptxas spills in all, and
+   every instantiation's registers a thread printed;
 3. kernels: each kernel (the flash forward, the backward's dQ and dK/dV,
    the ring step) against its plain PyTorch version on the card, at the
    main paths' shapes and the edge cases (ragged, cross, GQA, a length that
@@ -37,7 +36,8 @@ Phases, each printing its own lines and then its command time (``phase:``):
    with stated tolerances, each launch held to the instantiation the
    dispatch must pick (``route_of``); the ring step also keeps a dominant
    carry (m above every score of the chunk by > 30) to f32 rounding, in
-   bf16, f16, at a padded Dh and at Dh 256;
+   bf16, f16 and f32, at a padded Dh, at Dh 256, 512 and split, and folds
+   a Dh-256 chunk at a cross offset over many tiles;
    gradients through the autograd Function on the card against the same
    Function on CPU copies; and an explicit ``ring_flash`` at a chunk the
    TPU cannot tile, which must launch the ring step on every hop;
@@ -145,7 +145,16 @@ Phases, each printing its own lines and then its command time (``phase:``):
    ``attn_impl="ring_flash"``, after one warm-up step (launches, falling
    losses, ms/step, tokens/s, counted TFLOP/s, peak memory); one step
    against flash at sp = 1 (loss and gradient norm); a small f32 model
-   trained three steps under the mesh on the card and on the CPU;
+   trained three steps under the mesh on the card and on the CPU; then
+   the wide ring path (``phase_ring_wide``): the same setup (L = 8192,
+   sp = 4, ``attn_impl="ring_flash"``) scores 8 rows in 2 blocks of the
+   wide-head model (Dh 256, 2:1 GQA: ``ring_step_tma<bf16,256>``), 4 rows
+   in 1 block of the Dh-512 model (``ring_step_tma<bf16,512>``) and 2
+   rows in 1 block of the flagship in f32 (``ring_step_simt<f32,64>``),
+   each ring step launch counted by instantiation and ``nll`` held to
+   ``"flash"`` at sp = 1, and trains the wide-head model 2 steps at B = 2
+   after a warm-up step, its loss and gradient norm held to ``"flash"``
+   at sp = 1;
    with ``--profile``, device time by kernel over one block and one train
    step of each slice (and one block of each forward leg, one step of the
    Dh-512 and f32 legs);
@@ -626,6 +635,17 @@ RING_CASES = [
      100, 200, "dead"),
     ("dominant_carry_dh640", dict(B=1, C=300, H=4, KVH=2, D=640, dtype=torch.bfloat16,
                                   causal=True), 300, 300, "dominant"),
+    # the wide TMA body's own width and the SIMT kernel with a dominant
+    # carry, and the narrow Dh-256 body (inline producer, 64-key tiles, two
+    # O parts) at a cross offset over many tiles with ragged GQA chunks
+    ("dominant_carry_dh512", dict(B=2, C=1000, H=4, KVH=2, D=512, dtype=torch.bfloat16,
+                                  causal=True), 1000, 1000, "dominant"),
+    ("dominant_carry_f32", dict(B=2, C=1000, H=8, KVH=2, D=64, dtype=torch.float32,
+                                causal=True), 1000, 1000, "dominant"),
+    ("dominant_carry_f32_dh512", dict(B=1, C=300, H=4, KVH=2, D=512, dtype=torch.float32,
+                                      causal=True), 300, 300, "dominant"),
+    ("gqa_ragged1000_cross_dh256", dict(B=2, C=1000, H=8, KVH=2, D=256, dtype=torch.bfloat16,
+                                        causal=True), 1037, 0, "random"),
 ]
 # o is compared as o / l: the un-normalised o carries the row's denominator
 # (up to ~2000 here), so one bf16 rounding of p that differs between exp2f
@@ -855,38 +875,31 @@ def phase_build():
 
 
 # The instantiations each kernel is built at, (element type, Dh), and the
-# route each (dtype, width) must take, as csrc/ dispatches them: the
-# TMA + wgmma kernels for bf16 and f16 (the forward, dQ and dK/dV at every
-# width, the ring step to 128); for f32 the SIMT kernels of the forward, dQ
-# and dK/dV (register tiles, exact f32 FMAs) and the ring step's FMA kernel
-# (tiles widened to f32), which also takes 16-bit inputs above its TMA
-# widths; a width above 512 runs the 512-wide build split into chunks of
-# 512
+# route each (dtype, width) must take, as csrc/ dispatches them: every
+# kernel (the forward, dQ, dK/dV and the ring step) takes its TMA + wgmma
+# kernel for bf16 and f16 at every width and its SIMT kernel (register
+# tiles, exact f32 FMAs) for f32; a width above 512 runs the 512-wide build
+# split into chunks of 512.  "fma" names the route that the ring step's
+# FMA kernel took until its SIMT and wide TMA bodies replaced it: no kernel
+# may be built under it
 T16 = ("bf16", "f16")
 WIDTHS = (64, 128, 256, 512)
-TMA_WIDTHS = {"flash_fwd": WIDTHS, "flash_bwd_dq": WIDTHS, "flash_bwd_dkv": WIDTHS,
-              "ring_step": (64, 128)}
 ROUTES = ("tma", "fma", "simt")
 SOURCE_OF = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
              "flash_bwd_dkv": "flash_bwd", "ring_step": "flash_ring"}
-DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 # the mangled template arguments <T, D> of a kernel's symbol
 MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
 
 
 def built_instantiations(kernel, route):
-    """{(type, Dh)} that csrc/ must build of ``<kernel>_<route>``: only the
-    ring step has an FMA kernel left (f32, and 16-bit above its TMA
-    widths), and it alone no SIMT kernel."""
-    tma = TMA_WIDTHS[kernel]
-    f32 = {("f32", d) for d in WIDTHS}
-    ring = kernel == "ring_step"
+    """{(type, Dh)} that csrc/ must build of ``<kernel>_<route>``, alike for
+    every kernel: bf16 and f16 at every width under "tma", f32 at every
+    width under "simt", nothing under "fma"."""
     if route == "tma":
-        return {(t, d) for t in T16 for d in tma}
+        return {(t, d) for t in T16 for d in WIDTHS}
     if route == "simt":
-        return set() if ring else f32
-    wide16 = {(t, d) for t in T16 for d in WIDTHS if d not in tma}
-    return f32 | wide16 if ring else set()
+        return {("f32", d) for d in WIDTHS}
+    return set()
 
 
 def route_of(kernel, dtype, width):
@@ -894,21 +907,17 @@ def route_of(kernel, dtype, width):
     ``flash.kernel_launches`` names it (a split width with its chunks)."""
     from tensorframes_tpu_torch.parallel import flash
 
-    if kernel == "flash_fwd":
-        route = flash.fwd_route(dtype)
-    elif kernel == "ring_step":
-        tma = DTYPE_NAMES[dtype] != "f32" and width in TMA_WIDTHS[kernel]
-        route = "tma" if tma else "fma"
-    else:
-        route = flash.bwd_route(dtype)
+    route = {"flash_fwd": flash.fwd_route, "ring_step": flash.ring_route}.get(
+        kernel, flash.bwd_route)(dtype)
     return flash.launch_name(kernel, route, dtype, width)
 
 
 # wgmma, a TMA load, and mma.sync (HMMA: tensor cores without wgmma)
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
-# kernels whose wgmma ptxas must not serialize (C7518): the backward's, whose
-# wide bodies are built to avoid it (csrc/flash_bwd.cu)
-NO_SERIAL_WGMMA = ("flash_bwd_dq", "flash_bwd_dkv")
+# kernels whose wgmma ptxas must not serialize (C7518): the backward's and
+# the ring step's, whose wide bodies are built to avoid it
+# (csrc/flash_bwd.cu, csrc/flash_ring.cu)
+NO_SERIAL_WGMMA = ("flash_bwd_dq", "flash_bwd_dkv", "ring_step")
 
 
 def ptxas_spills(log):
@@ -941,10 +950,11 @@ def check_hopper_design(_build):
     """Every kernel as built: exactly the instantiations of
     ``built_instantiations``, 0 spill bytes in all; HGMMA and UTMALDG in
     every TMA kernel instantiation's SASS, and none of HGMMA, UTMALDG and
-    HMMA in any FMA or SIMT kernel's (exact f32 on the FMA pipe); no
-    setmaxnreg that ptxas ignored (C7508); each instantiation whose wgmma
-    ptxas serialized (C7518) is reported, and in the backward's TMA
-    kernels (``NO_SERIAL_WGMMA``) fails; each instantiation's registers a
+    HMMA in any SIMT kernel's (exact f32 on the FMA pipe); no FMA kernel;
+    no setmaxnreg that ptxas ignored (C7508); each instantiation whose
+    wgmma ptxas serialized (C7518) is reported, and in the backward's and
+    the ring step's TMA kernels (``NO_SERIAL_WGMMA``) fails; each
+    instantiation's registers a
     thread are printed.  Returns {source: [built instantiation names]}."""
     sass_of = {src: subprocess.run(
         [_build.cuda_bin("cuobjdump"), "--dump-sass", str(_build.library_path(src))],
@@ -1243,21 +1253,15 @@ VARIANTS = {
     "dh640_bf16": dict(FLAGSHIP, D=640, H=2, KVH=2),
     "dh1024_bf16": dict(FLAGSHIP, D=1024, H=1, KVH=1),
 }
-# the ring step's FMA kernel (f32, and 16-bit above Dh 256) takes 12-82 ms
-# a call at these shapes, the f32 SIMT kernels of the forward and the
-# backward a few ms: fewer timed calls than the 16-bit kernels' 20
-FMA_ITERS = 5
+# the f32 SIMT kernels take a few ms a call at these shapes: fewer timed
+# calls than the 16-bit kernels' 20
 SIMT_ITERS = 10
 
 
-def variant_iters(c, ring=False):
-    """Timed calls of a variant's kernels: FMA_ITERS where they run the ring
-    step's FMA kernel (f32; also above Dh 256), SIMT_ITERS for the other
-    f32 kernels, 20 for the 16-bit ones."""
-    f32 = c["dtype"] == torch.float32
-    if ring and (f32 or c["D"] > 256):
-        return FMA_ITERS
-    return SIMT_ITERS if f32 else 20
+def variant_iters(c):
+    """Timed calls of a variant's kernels: SIMT_ITERS in f32, 20 for the
+    16-bit ones."""
+    return SIMT_ITERS if c["dtype"] == torch.float32 else 20
 
 
 def time_pair(c, variant, dq, dkv, iters, sdpa_bwd_ms, dq_ms, dkv_ms):
@@ -1375,7 +1379,7 @@ def phase_variant_timing():
         q_off, k_off = RING_HOPS["off_diagonal"]
         args = ring_inputs(rc, "random", seed=5)
         rq, rk, rv = (x.transpose(1, 2) for x in args[:3])
-        n = variant_iters(rc, ring=True)
+        n = variant_iters(rc)
         with torch.no_grad():
             got = flash.flash_ring_step(*args, q_off, k_off, True)
             ref = flash.flash_ring_step_plain(*args, q_off, k_off, True)
@@ -2992,6 +2996,149 @@ def phase_ring_train(ring_mesh):
     return cfg, tc, start_params, loader
 
 
+# the wide ring path: the ring slices' setup (L = 8192 over sp = 4 on the
+# one card, attn_impl="ring_flash", full width) for the models whose ring
+# step runs the wide and f32 kernels: (leg, model, rows, blocks, seed, nll
+# limit against "flash" at sp = 1); then the wide-head model trains
+# RING_WIDE_STEPS steps at B = RING_WIDE_B after a warm-up step
+RING_WIDE_LEGS = (("a_dh256", WIDE_MODEL, 8, 2, 13, NLL_TOL),
+                  ("b_dh512", DH512_MODEL, 4, 1, 14, NLL_TOL),
+                  ("c_f32", F32_MODEL, 2, 1, 15, F32_NLL_TOL))
+RING_WIDE_STEPS, RING_WIDE_B = 2, 2
+
+
+def phase_ring_wide():
+    """The ring step's wide and f32 kernels on a path of their own: each
+    ``RING_WIDE_LEGS`` model scores its rows through Program ->
+    map_blocks under set_mesh(training_mesh(sp=4)) with
+    ``attn_impl="ring_flash"``, after a one-block warm-up; the launches,
+    counted over that run alone, must be n_layers x sp(sp+1)/2 x blocks of
+    the ring step's instantiation at the model's dtype and head dim and
+    nothing else; nll, perplexity and embedding of the expected shapes and
+    finite, and nll within the leg's limit of the same rows scored with
+    ``attn_impl="flash"`` and no mesh.  (d) The wide-head model trains
+    through FrameLoader -> fit under the mesh (the backward ring is the
+    plain one, as in JAX), launches counted as above, and one step's loss
+    and gradient norm from the same params are held to "flash" at sp = 1
+    (``FULL_LOSS_TOL``, ``FULL_GRAD_NORM_RTOL``).  Returns each run's
+    launches by instantiation."""
+    from tensorframes_tpu_torch import TensorFrame, data, map_blocks, train
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash, mesh
+
+    ring_mesh = mesh.training_mesh(sp=RING_SP)
+    hops = hops_per_layer(RING_SP)
+    runs = []
+
+    def run(program, on_mesh, data_frame, warm):
+        """(outputs, seconds, launches by instantiation, peak bytes) of one
+        map_blocks run after a warm-up block, under the ring mesh or none"""
+        with mesh.set_mesh(ring_mesh if on_mesh else None):
+            map_blocks(program, warm).to_arrays()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash.reset_launches()  # count the main path's run alone
+            t0 = time.perf_counter()
+            out = map_blocks(program, data_frame).to_arrays()  # ends in a D2H sync
+            sec = time.perf_counter() - t0
+        return out, sec, dict(flash.kernel_launches), torch.cuda.max_memory_allocated()
+
+    for leg, model, rows, blocks, seed, tol in RING_WIDE_LEGS:
+        cfg = tfm.TransformerConfig(**dict(model, max_seq=RING_L, attn_impl="ring_flash"))
+        width = flash.kernel_head_dim(cfg.d_model // cfg.n_heads)
+        params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        tokens = np.random.RandomState(seed).randint(
+            0, cfg.vocab_size, (rows, RING_L)).astype(np.int32)
+        frame = TensorFrame.from_arrays({"tokens": tokens}, num_blocks=blocks)
+        warm = TensorFrame.from_arrays({"tokens": tokens[: rows // blocks]})
+        out, sec, launched, peak = run(
+            scoring.scoring_program(params, cfg, fetches=scoring.FETCHES), True, frame, warm)
+        want = {route_of("ring_step", cfg.dtype, width): cfg.n_layers * hops * blocks}
+        if launched != want:
+            raise AssertionError(f"ring_wide {leg}: launched {launched}, expected {want}")
+        for key, shape in (("nll", (rows,)), ("perplexity", (rows,)),
+                           ("embedding", (rows, cfg.d_model))):
+            if out[key].shape != shape or not np.isfinite(out[key]).all():
+                raise AssertionError(f"ring_wide {leg} {key}: shape {out[key].shape} "
+                                     "or non-finite")
+        flat_cfg = dataclasses.replace(cfg, attn_impl="flash")
+        flat, flat_sec, flat_launched, _ = run(
+            scoring.scoring_program(params, flat_cfg, fetches=("nll",)), False, frame, warm)
+        flat_want = {route_of("flash_fwd", cfg.dtype, width): cfg.n_layers * blocks}
+        if flat_launched != flat_want:
+            raise AssertionError(f"ring_wide {leg} at sp = 1: launched {flat_launched}")
+        diff = float(np.abs(flat["nll"] - out["nll"]).max())
+        if not diff <= tol:
+            raise AssertionError(f"ring_wide {leg} nll ring_flash vs flash: max |diff| "
+                                 f"{diff} > {tol}")
+        say("ring_wide", leg=leg, attn_impl="ring_flash", sp=RING_SP, dtype=str(cfg.dtype),
+            head_dim=width, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, rows=rows,
+            tokens_per_row=RING_L, blocks=blocks, seconds=sec,
+            ms_per_block=sec / blocks * 1e3, tokens_per_s=rows * RING_L / sec,
+            peak_bytes=peak, launched=launched, nll_mean=float(out["nll"].mean()),
+            flash_sp1_ms_per_block=flat_sec / blocks * 1e3,
+            nll_max_abs_diff_vs_flash_sp1=diff, nll_tol=tol)
+        runs.append(launched)
+        del params, out, flat
+
+    # (d) the wide-head model trains under the mesh
+    cfg = tfm.TransformerConfig(**dict(WIDE_MODEL, max_seq=RING_L, attn_impl="ring_flash"))
+    width = flash.kernel_head_dim(cfg.d_model // cfg.n_heads)
+    tc = train.TrainConfig(learning_rate=3e-4)
+    rows = RING_WIDE_STEPS * RING_WIDE_B
+    start = np.random.RandomState(16).randint(0, cfg.vocab_size, (rows, 1))
+    toks = ((start + np.arange(RING_L + 1)) % cfg.vocab_size).astype(np.int32)
+    tframe = TensorFrame.from_arrays({"tokens": toks}, num_blocks=2)
+    params = tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+    def loader():
+        return data.FrameLoader(tframe, batch_size=RING_WIDE_B, shuffle=True, seed=0)
+
+    with mesh.set_mesh(ring_mesh):
+        train.fit(loader(), cfg, tc, steps=1, params=params)  # warm-up step
+        start_params = clone_params(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        _, _, losses = train.fit(loader(), cfg, tc, steps=RING_WIDE_STEPS, params=params)
+        sec = time.perf_counter() - t0  # fit's losses are read: synced
+        trained, peak = dict(flash.kernel_launches), train.hbm_high_water()
+    want = {route_of("ring_step", cfg.dtype, width): cfg.n_layers * hops * RING_WIDE_STEPS}
+    if trained != want:
+        raise AssertionError(f"ring_wide train: launched {trained}, expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"ring_wide train losses not finite: {losses}")
+    runs.append(trained)
+    batch = torch.from_numpy(toks[:RING_WIDE_B]).cuda()
+    inp, tgt = batch[:, :-1], batch[:, 1:]
+    ref = {}
+    for impl, m in (("ring_flash", ring_mesh), ("flash", None)):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        with mesh.set_mesh(m):
+            p = clone_params(start_params)
+            leaves = [t.requires_grad_() for _, t in train.param_leaves(p)]
+            loss = tfm.loss_fn(p, inp, tgt, icfg)
+            grads = torch.autograd.grad(loss, leaves)
+            norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        ref[impl] = dict(loss=float(loss.detach()), grad_norm=norm)
+        del p, leaves, grads, loss
+    d_loss = abs(ref["ring_flash"]["loss"] - ref["flash"]["loss"])
+    d_norm = abs(ref["ring_flash"]["grad_norm"] / ref["flash"]["grad_norm"] - 1)
+    if not (d_loss <= FULL_LOSS_TOL and d_norm <= FULL_GRAD_NORM_RTOL):
+        raise AssertionError(f"ring_wide train, ring_flash sp={RING_SP} vs flash sp=1: "
+                             f"loss diff {d_loss}, grad norm rel {d_norm}")
+    tokens_run = RING_WIDE_STEPS * RING_WIDE_B * RING_L
+    say("ring_wide", leg="d_train", attn_impl="ring_flash", sp=RING_SP, head_dim=width,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, steps=RING_WIDE_STEPS,
+        batch=RING_WIDE_B, seq=RING_L, seconds=sec, ms_per_step=sec / RING_WIDE_STEPS * 1e3,
+        tokens_per_s=tokens_run / sec, peak_bytes=peak, launched=trained, losses=losses,
+        **{f"{impl}_{k}": v for impl, r in ref.items() for k, v in r.items()},
+        loss_abs_diff=d_loss, loss_tol=FULL_LOSS_TOL, grad_norm_rel_diff=d_norm,
+        grad_norm_rtol=FULL_GRAD_NORM_RTOL)
+    return runs
+
+
 def phase_crossover():
     """attn_impl="auto"'s threshold on this card: flash against full at the
     scoring slice's widths, scoring ms per block of CROSSOVER_TOKENS tokens
@@ -3901,8 +4048,9 @@ def kernel_record(built, errs, timing, train_launches, ring_launches_n, main_run
     the forward legs' scoring, the Dh-512 and f32 legs' train epochs, the
     pipeline phase's scoring chain, the observability phase's scoring runs,
     the planner phase's scoring runs, the streaming and mesh phases' scoring
-    runs, the flagship train epoch, the train-axes phase's pipelined steps, the ring scoring runs and the MoE legs'
-    scoring, train and ring runs)."""
+    runs, the flagship train epoch, the train-axes phase's pipelined
+    steps, the ring scoring runs, the wide ring path's scoring and train
+    runs and the MoE legs' scoring, train and ring runs)."""
     from tensorframes_tpu_torch.parallel import flash
 
     by_inst = {}
@@ -6421,6 +6569,7 @@ def main() -> int:
     run_phase(phase_graphdef, args.profile)
     ring_run = run_phase(phase_ring_slice)
     ring_train_run = run_phase(phase_ring_train, ring_run[3])
+    ring_wide_launches = run_phase(phase_ring_wide)
     moe_launches = run_phase(phase_moe)
     # last, so that its f32 params stay out of the other phases' peak memory
     f32_launches, f32_train = run_phase(phase_f32_train)
@@ -6431,7 +6580,7 @@ def main() -> int:
         slice_launches, *wide_launches, *leg_launches, dh512_launches, f32_launches,
         pipeline_launches, observability_launches, planner_launches, streaming_launches,
         mesh_launches, train_run[5], axes_launches,
-        ring_run[4], *moe_launches])
+        ring_run[4], *ring_wide_launches, *moe_launches])
     # the card line again, so that it stands among the last lines too
     print(card, flush=True)
     print(json.dumps(record), flush=True)

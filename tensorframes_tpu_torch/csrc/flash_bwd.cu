@@ -1828,7 +1828,7 @@ cudaError_t launch_dkv_simt(const Problem& p, int B, int nc, void* dk, void* dv,
 // chunks (the TMA kernel a CTA per 256 columns of dQ, the SIMT kernel a
 // block per 512).
 // *route is set to the kernel launched (0 = flash_bwd_dq_tma,
-// 2 = flash_bwd_dq_simt; 1, the ring step's FMA route, is not taken here).
+// 2 = flash_bwd_dq_simt; 1 is retired).
 // Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,

@@ -267,15 +267,13 @@ struct Fwd {
   static_assert(SMEM <= 232448, "forward tiles exceed a block's shared memory");
 };
 
-// flash_ring.cu::ring_step_tma holds a second copy of this loop (the
-// same roles, ring, barrier phases, masks and early tile release) at
-// Dh = 64 and 128, kept apart because one shared loop made this kernel
-// 2-4% slower (PERF.md).  A fix to any of those here is made there too, and
-// the other way round.  Only this copy is built at Dh = 256 (64-key tiles,
-// O in two 128-column products): the ring step takes its FMA kernel there.
-// The copies differ on purpose only in the prologue and epilogue (carry in
-// and out there; 1/l and lse here), the global offsets of the mask, and
-// alpha, which there is exactly 1 while the max holds.
+// flash_ring.cu::ring_narrow holds a second copy of this loop (the same
+// roles, ring, barrier phases, masks and early tile release) at Dh = 64,
+// 128 and 256, kept apart because one shared loop made this kernel 2-4%
+// slower (PERF.md).  A fix to any of those here is made there too, and the
+// other way round.  The copies differ on purpose only in the prologue and
+// epilogue (carry in and out there; 1/l and lse here), the global offsets
+// of the mask, and alpha, which there is exactly 1 while the max holds.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_narrow(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                            const CUtensorMap& v_map, T* __restrict__ out,
@@ -716,52 +714,8 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* out,
 // f32: the register-tiled SIMT kernel
 // ---------------------------------------------------------------------------
 
-// The tiling at head dim D (each chunk of a wider one), 256 threads:
-//  * S = Q K^T, BQ x BK: a thread forms a 4 x 4 micro-tile, rows rg + i NRG
-//    and keys kg + j NKG, from float4 loads along Dh; G lanes (neighbours)
-//    split the reduction over Dh by 16-byte chunk (chunk gs + G n), and a
-//    butterfly of shuffles sums their partials.  A warp holds NR_LO row
-//    groups x NK_LO key groups x G splits, so its loads touch few rows.
-//  * The softmax: RT lanes (neighbours) a row, each BK / RT of its keys.
-//  * O += P V, BQ x D: a thread holds 4 consecutive rows x CH float4 chunks
-//    of columns (chunk cg + NCG m), a warp 4 row groups x 8 column groups:
-//    one float4 of P^T and CH of V feed 16 CH FMAs.
-//  * Shared memory, rows padded (floats): Q, K and V rows of LD = D + 4 G,
-//    so that LD / 4 = G (mod 8) and the chunks a warp loads fall in
-//    distinct banks; the scores S (rows of BK + RT), P^T (rows of BQ + 32 /
-//    RT) and per-row alpha and l.  BQ x BK is 64 x 64 at D = 64, 64 x 32
-//    at 128 (89 KB each), 32 x 32 at 256 (115 KB) and 512 (213 KB).
-//  * Two CTAs an SM up to D = 256: ptxas is held to 128 registers a thread
-//    and the S loop stays rolled, so that its loads fit them (measured
-//    1.09-1.16x faster than one CTA at 154-190 registers,
-//    tools/fwd_simt_variant.py); one at 512, where shared memory allows no
-//    second and the unrolled loop is faster.
-template <int D>
-struct Simt {
-  static constexpr int THREADS = 256;
-  static constexpr int BQ = D >= 256 ? 32 : 64;
-  static constexpr int BK = D >= 128 ? 32 : 64;
-  static constexpr int NRG = BQ / 4, NKG = BK / 4;
-  static constexpr int G = THREADS / (NRG * NKG);
-  static constexpr int NK_LO = G == 1 ? 8 : 4;
-  static constexpr int NR_LO = 32 / (G * NK_LO);
-  static constexpr int NK_HI = NKG / NK_LO;
-  static constexpr int RT = THREADS / BQ;
-  static constexpr int NCG = THREADS / NRG;
-  static constexpr int CH = D / 4 / NCG;
-  static constexpr int NC_HI = NCG / 8;
-  static constexpr int LD = D + 4 * G;
-  static constexpr int LDS = BK + RT;
-  static constexpr int LDP = BQ + 32 / RT;
-  static constexpr size_t SMEM = (size_t(BQ + 2 * BK) * LD + size_t(BQ) * LDS +
-                                  size_t(BK) * LDP + 2 * size_t(BQ)) * sizeof(float);
-  static_assert(NRG * NKG * G == THREADS && NR_LO * NK_LO * G == 32, "S's lanes");
-  static_assert(NKG % NK_LO == 0 && (NRG / NR_LO) * NK_HI == THREADS / 32, "S's warps");
-  static_assert(CH * NCG * 4 == D && (NRG / 4) * NC_HI == THREADS / 32, "O's lanes");
-  static_assert((D / 4) % G == 0 && (LD / 4 - G) % 8 == 0 && LDP % 4 == 0, "strides");
-  static_assert(SMEM <= 232448, "f32 forward tiles exceed a block's shared memory");
-};
-
+// The tiling (Simt) is in flash_common.cuh, shared with the ring step's
+// SIMT kernel (flash_ring.cu::ring_step_simt).
 template <typename T, int D>
 __global__ void __launch_bounds__(Simt<D>::THREADS, D >= 512 ? 1 : 2)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
@@ -1000,9 +954,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out,
 // TMA, so 16-byte aligned bases and strides, Lk > 0).  D: 64, 128, 256, 512
 // or a multiple of 512 (the wrapper pads other head dims), a multiple of
 // 512 running the 512-wide build with D / 512 chunks.  *route is set to the
-// kernel launched (0 = flash_fwd_tma, 2 = flash_fwd_simt; 1, the ring
-// step's FMA route, is not taken here).  Returns a cudaError_t (0 =
-// launched).
+// kernel launched (0 = flash_fwd_tma, 2 = flash_fwd_simt; 1 is retired).
+// Returns a cudaError_t (0 = launched).
 extern "C" int tfs_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int KVH,
                              int Lq, int Lk, int D, int dtype, int causal,

@@ -29,22 +29,20 @@ logsumexp tile by tile.  Neither materialises the [Lq, Lk] scores.
   the C side encodes (``csrc/hopper.cuh``); :func:`tma_tile_map` is the
   same arithmetic in Python, and :func:`check_kernel_inputs` raises before
   a launch for what a descriptor refuses.
-* Every kernel is built for head dims 64, 128, 256 and 512.  The forward
-  takes the TMA + ``wgmma`` kernel for 16-bit inputs at every width and a
-  register-tiled SIMT kernel (exact f32 FMAs) for f32 (:func:`fwd_route`);
-  the backward takes its TMA + ``wgmma`` kernels for 16-bit inputs at every
-  width and register-tiled SIMT kernels (exact f32 FMAs) for f32
-  (:func:`bwd_route`); the ring step its TMA + ``wgmma`` kernel for 16-bit
-  inputs at 64 and 128 and an FMA kernel on tiles widened to f32 for the
-  rest.  Every head dim runs, as JAX's kernels take any: the wrappers
-  zero-pad it to the next built width, or above 512 to the next multiple
-  of 512, and slice the results back (:func:`kernel_head_dim`), keeping
-  ``1/sqrt(Dh)`` of the true dim as the scale.  A multiple of 512 above it runs the 512-wide build with
-  its chunks of 512 columns (:func:`head_dim_chunks`): a grid axis over
-  chunks of the output (256 columns in the 16-bit forward, dQ and dK/dV),
-  each chunk's blocks recomputing the scores (and dP) over the whole head
-  dim and producing only their own columns of the output (or of dQ, dK
-  and dV).
+* Every kernel is built for head dims 64, 128, 256 and 512, and each takes
+  its TMA + ``wgmma`` kernel for 16-bit inputs at every width and a
+  register-tiled SIMT kernel (exact f32 FMAs) for f32: the forward
+  (:func:`fwd_route`), dQ and dK/dV (:func:`bwd_route`) and the ring step
+  (:func:`ring_route`).  Every head dim runs, as JAX's kernels take any:
+  the wrappers zero-pad it to the next built width, or above 512 to the
+  next multiple of 512, and slice the results back
+  (:func:`kernel_head_dim`), keeping ``1/sqrt(Dh)`` of the true dim as the
+  scale.  A multiple of 512 above it runs the 512-wide build with its
+  chunks of 512 (:func:`head_dim_chunks`): a grid axis over chunks of the
+  output (256 columns in the 16-bit kernels), each chunk's blocks
+  recomputing the scores (and dP) over the whole head dim and producing
+  only their own columns of the output (or of dQ, dK and dV, or of the
+  ring step's carried o).
 
 Numerics: scores are f32 from exact products of the input dtype, ``p`` is
 cast to ``v.dtype`` before PV (``flash.py:107-108``) and to ``do.dtype``
@@ -103,9 +101,9 @@ def reset_launches() -> None:
     kernel_launches.clear()
 
 
-# the C entry points' *route: 0, 1 and 2 (the forward and the backward take
-# 0 and 2, the ring step 0 and 1)
-_ROUTES = ("tma", "fma", "simt")
+# the C entry points' *route, by its value: 0 (TMA + wgmma) or 2 (SIMT), in
+# every kernel (1 is retired)
+_ROUTES = ("tma", None, "simt")
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
@@ -125,9 +123,18 @@ def bwd_route(dtype: torch.dtype) -> str:
     return "simt" if dtype == torch.float32 else "tma"
 
 
+def ring_route(dtype: torch.dtype) -> str:
+    """The route ``csrc/flash_ring.cu`` launches the ring step by for
+    ``dtype`` at every head dim: "tma" (``ring_step_tma``, TMA + ``wgmma``;
+    the narrow body to 256, the wide one at 512 and split above it) for
+    bf16 and f16, "simt" (``ring_step_simt``, register-tiled exact f32
+    FMAs) for f32, as the forward (:func:`fwd_route`)."""
+    return "simt" if dtype == torch.float32 else "tma"
+
+
 def launch_name(kernel: str, route: str, dtype: torch.dtype, width: int) -> str:
     """The name :data:`kernel_launches` counts a launch of ``kernel`` by
-    ``route`` ("tma", "fma" or "simt") at head dim ``width`` under: the
+    ``route`` ("tma" or "simt") at head dim ``width`` under: the
     instantiation, and the chunks of a split head dim."""
     chunks = head_dim_chunks(width)
     name = f"{kernel}_{route}<{_DTYPE_NAMES[dtype]},{width // chunks}>"
@@ -401,13 +408,18 @@ def flash_ring_step_plain(
 
     q [B, C, H, Dh]; k/v [B, Ck, KVH, Dh]; the carry o [B, C, H, Dh] f32,
     m/l [B, H, C] f32; ``q_off``/``k_off`` the chunks' global positions.
-    Returns the updated, un-normalised ``(o, m, l)``.
+    Returns the updated, un-normalised ``(o, m, l)``.  v and o may hold a
+    chunk of the head dim's columns, q and k the whole of it: the scores,
+    m and l are the whole head dim's, o the chunk's, as each CTA of the
+    wide 16-bit kernel computes them.
 
-    Tiles are ``block_q`` x ``block_k`` with ragged tails (the CUDA kernel's
-    are 192 x 128 at Dh = 64, 128 x 128 at Dh = 128, 64 x 32 at Dh = 256,
-    32 x 16 at Dh = 512 and in each chunk of a wider one);
-    by default the JAX kernel's (``_chunk_block``), or 128 for chunks it
-    cannot tile.  A tile
+    Tiles are ``block_q`` x ``block_k`` with ragged tails (the CUDA
+    kernels': in bf16 and f16 192 x 128 at Dh = 64, 128 x 128 at Dh = 128,
+    128 x 64 at Dh = 256, 512 and in each 512-column chunk of a wider one,
+    where each 256-column chunk of o is a CTA of its own over the same
+    scores; in f32 ``Simt``'s 64 x 64 at Dh = 64, 64 x 32 at 128, 32 x 32
+    from 256 on); by default the JAX kernel's (``_chunk_block``), or 128
+    for chunks it cannot tile.  A tile
     that the causal mask hides from every row of a query tile is skipped,
     as the CUDA kernel skips it; JAX folds it as all -inf, which leaves a
     row with a finite max unchanged and zeroes (alpha = 0) a row whose max
@@ -423,7 +435,7 @@ def flash_ring_step_plain(
     qh = q.permute(0, 2, 1, 3).to(wide)  # [B, H, C, Dh]
     kh = k.permute(0, 2, 1, 3)[:, kv].to(wide)  # GQA: [B, H, Ck, Dh]
     vh = v.permute(0, 2, 1, 3)[:, kv]
-    o_out = torch.empty(B, H, C, Dh, dtype=o.dtype, device=q.device)
+    o_out = torch.empty(B, H, C, o.shape[3], dtype=o.dtype, device=q.device)
     m_out = torch.empty_like(m)
     l_out = torch.empty_like(l)
     oh = o.permute(0, 2, 1, 3)
@@ -466,11 +478,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the kernels are built for; every head dim up to the widest
 # runs zero-padded to the next of them (:func:`kernel_head_dim`).  256 is
 # the widest head dim of the common public decoders (Gemma's); 512 is the
-# widest f32 tiling (the SIMT kernels', the ring step's FMA kernel's) that
-# fits a block's shared memory, and the chunk a wider head dim is split
-# into (:func:`head_dim_chunks`), which the
-# 16-bit TMA kernels of the forward and the backward split again into
-# 256-column output chunks
+# widest f32 tiling (the SIMT kernels') that fits a block's shared memory,
+# and the chunk a wider head dim is split into (:func:`head_dim_chunks`),
+# which the 16-bit TMA kernels split again into 256-column output chunks
 KERNEL_HEAD_DIMS = (64, 128, 256, 512)
 SPLIT_WIDTH = KERNEL_HEAD_DIMS[-1]
 # a TMA box is 64 columns (one 128-byte swizzle atom of a 16-bit type) wide,

@@ -265,43 +265,31 @@ _JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
         torch.bfloat16: jnp.bfloat16}
 
 
-# the widths each 16-bit tensor-core kernel of the backward and the ring
-# step is built at (csrc/; 512 also in each 512-column chunk of a split
-# head dim); f32 takes the ring step's FMA kernel, as do 16-bit inputs
-# wider than these (the forward, dQ and dK/dV take their TMA kernels at
-# every width, and their SIMT kernels for f32)
-_TMA_WIDTHS = {"dq": (64, 128, 256, 512), "dkv": (64, 128, 256, 512), "ring": (64, 128)}
-
-
 def _kernel_tiles(kernel, width, dtype):
     """(block_q, block_k) of the CUDA kernel that runs ``dtype`` at head dim
     ``width``: the tensor-core kernels' as ``csrc/`` builds them and
-    ``test_torch_flash_tiling.py`` pins them (the forward at Dh 256: 128
-    queries x 64 keys, and at 512 and in each 512-column chunk of a split
-    head dim the same; dQ: 128 queries x 64 keys, at 512 and split too;
-    dK/dV: 128 keys against 32 queries, at 512 and split against 64,
-    ``test_torch_flash_bwd_redesign.py``); the forward's f32 SIMT kernel's (``Simt`` in
-    ``csrc/flash_fwd.cu``: 64 x 64, 64 x 32 at Dh 128, 32 x 32 from 256
+    ``test_torch_flash_tiling.py`` pins them (the forward and the ring step
+    at Dh 256: 128 queries x 64 keys, and at 512 and in each 512-column
+    chunk of a split head dim the same; dQ: 128 queries x 64 keys, at 512
+    and split too; dK/dV: 128 keys against 32 queries, at 512 and split
+    against 64, ``test_torch_flash_bwd_redesign.py``); the f32 SIMT kernels'
+    of the forward and the ring step (``Simt`` in
+    ``csrc/flash_common.cuh``: 64 x 64, 64 x 32 at Dh 128, 32 x 32 from 256
     on); the backward's f32 SIMT kernels' (``DqSimt`` and ``DkvSimt`` in
     ``csrc/flash_bwd.cu``, ``test_torch_flash_bwd_simt.py``: dQ 64 x 64,
     64 x 32 at Dh 128, 32 x 32 at 256, 32 x 16 at 512; dK/dV 64 x 64, then
-    32 x 32, and 32 x 16 at 512); the ring step's FMA kernel's (``FmaTiles``
-    in ``csrc/flash_common.cuh``: 64 x 64, 64 x 32 at Dh 256, 32 x 16 at 512
-    and in each 512-column chunk of a split head dim)."""
+    32 x 32, and 32 x 16 at 512)."""
     w = min(width, 512)  # a split head dim runs the 512-wide build
-    if kernel == "fwd" and dtype == torch.float32:
+    if kernel in ("fwd", "ring") and dtype == torch.float32:
         return (32, 32) if w >= 256 else (64, 32) if w == 128 else (64, 64)
-    if kernel == "fwd":
+    if kernel in ("fwd", "ring"):
         return {64: (192, 128), 128: (128, 128)}.get(w, (128, 64))
     if kernel in ("dq", "dkv") and dtype == torch.float32:
         return {64: (64, 64), 128: (64, 32) if kernel == "dq" else (32, 32),
                 256: (32, 32), 512: (32, 16)}[w]
-    if dtype == torch.float32 or w not in _TMA_WIDTHS[kernel]:
-        return (32, 16) if width > 256 else (64, 32) if width > 128 else (64, 64)
     return {
         "dq": {64: (192, 64), 128: (128, 64), 256: (128, 64), 512: (128, 64)},
         "dkv": {64: (64, 128), 128: (32, 128), 256: (32, 128), 512: (64, 128)},
-        "ring": {64: (192, 128), 128: (128, 128)},
     }[kernel][w]
 
 

@@ -84,6 +84,53 @@ def test_transformer_ring_matches_jax(devices, impl, fields):
     np.testing.assert_allclose(t.numpy(), np.asarray(ref), rtol=5e-4, atol=5e-4)
 
 
+# The ring step's wide and f32 kernels' paths at a small size: 2 layers at
+# L = 256 under sp = 4 (chunks of 64), the wide-head geometry (Dh 256, 2:1
+# GQA) in bf16 and the flagship's head dim (64) in f32.  The port's plain
+# ring step stands in for the kernels on the CPU.  (rtol, atol): bf16, the
+# two packages round activations and p at their own points, and logits of
+# up to ~4 differ by up to ~0.04 between any two of JAX's ring, JAX's full
+# attention and the port's full attention on these inputs, so 3e-2 and
+# 6e-2; f32, 5e-4 as above.
+WIDE_RING = {
+    "dh256-gqa-bf16": (dict(BASE, vocab_size=64, d_model=512, n_heads=2, n_kv_heads=1,
+                            d_ff=128, max_seq=256, dtype=jnp.bfloat16), (3e-2, 6e-2)),
+    "dh64-f32": (dict(BASE, vocab_size=64, d_model=256, n_heads=4, n_kv_heads=4,
+                      d_ff=128, max_seq=256), (5e-4, 5e-4)),
+}
+
+
+def _seeded_params(jcfg, tcfg, seed=0):
+    """Seeded numpy weights in the shapes and dtypes of ``jtfm.init`` (traced,
+    not compiled: compiling init at these widths takes seconds): 1 +
+    N(0, 0.1) for the norms' scales, N(0, 1 / fan_in) for the rest."""
+    shapes = jax.eval_shape(lambda key: jtfm.init(key, jcfg), jax.random.PRNGKey(seed))
+    rng = np.random.RandomState(seed)
+
+    def draw(s):
+        x = rng.randn(*s.shape) * (0.1 if len(s.shape) == 1 else s.shape[-2] ** -0.5)
+        return (x + (len(s.shape) == 1)).astype(s.dtype)
+
+    tree = jax.tree.map(draw, shapes)
+    return (jax.tree.map(jnp.asarray, tree),
+            convert.params_from_numpy(tree, tcfg, device="cpu"))
+
+
+@pytest.mark.parametrize("case", list(WIDE_RING), ids=list(WIDE_RING))
+def test_wide_and_f32_ring_flash_matches_jax(devices, case):
+    fields, tol = WIDE_RING[case]
+    jcfg, tcfg = _pair(fields, attn_impl="ring_flash")
+    jp, tp = _seeded_params(jcfg, tcfg)
+    toks = np.random.RandomState(5).randint(0, 64, (1, 256)).astype(np.int32)
+    with jax.set_mesh(_jmesh(devices, 4)):
+        j = jax.jit(lambda p, t: jtfm.apply(p, t, jcfg))(jp, jnp.asarray(toks))
+    with tmesh.set_mesh(_tmesh(4)):
+        t = ttfm.apply(tp, torch.from_numpy(toks), tcfg)
+    assert t.shape == (1, 256, 64)
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), rtol=tol[0],
+                               atol=tol[1])
+
+
 def _record(monkeypatch):
     """Wrap each attention entry point of both packages so a forward
     records the path it took: "full", "flash", or "ring"/"ring_flash"."""

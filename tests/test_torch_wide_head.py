@@ -127,10 +127,10 @@ def test_launches_are_counted_by_the_instantiation_the_kernel_reports():
     tflash._count("flash_bwd_dkv", ctypes.c_int(0), torch.float16, 256)
     tflash._count("flash_fwd", ctypes.c_int(0), torch.bfloat16, 256)
     # a split head dim counts under its 512-wide build and its chunks
-    tflash._count("ring_step", ctypes.c_int(1), torch.float32, 1024)
+    tflash._count("ring_step", ctypes.c_int(2), torch.float32, 1024)
     assert tflash.kernel_launches == {
         "flash_fwd_tma<bf16,256>": 2, "flash_bwd_dq_tma<bf16,256>": 1,
-        "flash_bwd_dkv_tma<f16,256>": 1, "ring_step_fma<f32,512>x2": 1,
+        "flash_bwd_dkv_tma<f16,256>": 1, "ring_step_simt<f32,512>x2": 1,
     }
     tflash.reset_launches()
     assert tflash.kernel_launches == {} and tflash.launches == 0
