@@ -243,9 +243,10 @@ Phases, each printing its own lines and then its command time (``phase:``):
    5's logistic regression (500,000 x 64 in 4 blocks) as ``PLAN_EPOCHS``
    gradient epochs through ``iterate_epochs`` against the same eager loop,
    weights bit-identical, epochs 2+ staging 0 host bytes; (e) the scoring
-   program through ``serialize`` and ``deserialize_program`` run by
-   ``map_blocks`` (64 launches, nll against the live program: equal, or
-   within 1e-5), with the artifact's bytes and the export and load
+   program cut to ``COLD_START_LAYERS`` layers (the export's seconds grow
+   with the depth) through ``serialize`` and ``deserialize_program`` run
+   by ``map_blocks`` (8 launches, nll against the live program: equal,
+   or within 1e-5), with the artifact's bytes and the export and load
    seconds; (f) two processes each warm the scoring program, cut to
    ``COLD_START_LAYERS`` layers at the same widths, on one block
    against one fresh ``TFS_COMPILE_CACHE``: the first builds
@@ -311,7 +312,7 @@ Phases, each printing its own lines and then its command time (``phase:``):
    window ledgers summing to the request's, ``metrics`` carrying the
    bridge's latency family; no flash kernel launches in the phase;
 15. fleet (after the bridge phase): the bridge fleet on the card, every
-   client a ``FleetClient``: (a) three replica processes
+   client a ``FleetClient``: (a) ``FLEET_SIZE`` (2) replica processes
    (``python -m tensorframes_tpu_torch.bridge.replica --device cuda``)
    sharing one journal, compile cache, fleet registry and pipeline root;
    8 clients with distinct keys each upload config 3's frame and run the
@@ -326,12 +327,12 @@ Phases, each printing its own lines and then its command time (``phase:``):
    (``fleet_jobs_migrated`` 1, the peer skipping every journaled window and
    running the rest), byte-equal to in-process ``run_stream_pipeline``,
    ``job_status`` complete; the seconds from the kill to the resumed
-   result; (c) the victim restarted, then a rolling restart of the three
-   under 2 traffic threads: no failed request, every restart counted,
+   result; (c) the victim restarted, then a rolling restart of every
+   replica under 2 traffic threads: no failed request, every restart counted,
    every replica healthy, each serving the pipeline with no
    ``backend_compiles`` and no ``persistent_cache_misses``; each replica's
    SIGTERM-to-healthy seconds; (d) decode config 8 (bf16) behind a
-   two-replica thread fleet: 8 streams of 32-token prompts and 128 new
+   two-replica thread fleet: 8 streams of 32-token prompts and 64 new
    tokens, one replica drained mid-run, sessions opened after the drain on
    the survivor, every stream whole and equal to its solo ``generate`` up
    to the first top-2 gap under ``DECODE_GAP``; tokens/s and p50/p99
@@ -380,7 +381,17 @@ Phases, each printing its own lines and then its command time (``phase:``):
    card under ``gloo`` (``train_axes_child``), a 2-layer cut of the
    flagship, ``dp=2``: each rank trains on its half of every batch (a
    mesh-sharded ``FrameLoader``), two steps, each loss held to the
-   one-process step's;
+   one-process step's; (g) ``pp`` and ``tp`` across ``gloo`` processes
+   sharing the card (``rank_axes_child``), each rank holding only its
+   shard of the train phase's weights: (g1) ``pp=2`` GPipe and (g2) 1F1B
+   at 4 microbatches and (g3) ``tp=2`` over two ranks, the flagship train
+   config at B = 8 x 2048, (g4) ``pp=2 x tp=2`` over four at a 2-layer cut
+   and B = 2; each a warm-up step and two timed steps, the loss and global
+   gradient norm held to the one-process step's (``AXES_RANK_TOL``), every
+   flash launch the instantiation ``route_of`` names, each rank's param
+   and Adam bytes exactly its shard's; ms a step, the enqueue share, bytes
+   a rank by kind, host detours and peak device memory a rank against one
+   process;
 18. the card's line again, the kernels' JSON record (each kernel at the
    flagship shape with its built instantiations, then every instantiation
    timed at a variant shape, with its launches over the main paths' runs),
@@ -2483,6 +2494,34 @@ AXES_CHILD_CODE = "import sys, chip_smoke; chip_smoke.train_axes_child(*sys.argv
 # printed.  Two processes (f) update the weights from gradients summed in
 # another order: their second loss is held at bf16's first-loss limit
 AXES_LOSS_TOL, AXES_GRAD_RTOL = 1e-4, 1e-3
+# (g): pp and tp across gloo processes sharing card 0 (NCCL refuses two ranks
+# on one card), each rank holding its shard; (name, axes, schedule,
+# microbatches, layers, rows) by launch size: (g1)-(g3) the flagship train
+# config at B = 8, (g4) a 2-layer cut at B = 2, for time only
+AXES_RANK_CASES = {
+    2: (("g1", {"pp": 2}, "gpipe", 4, TRAIN_MODEL["n_layers"], AXES_B),
+        ("g2", {"pp": 2}, "1f1b", 4, TRAIN_MODEL["n_layers"], AXES_B),
+        ("g3", {"tp": 2}, "gpipe", 1, TRAIN_MODEL["n_layers"], AXES_B)),
+    4: (("g4", {"pp": 2, "tp": 2}, "gpipe", 2, 2, 2),),
+}
+# a pipeline across ranks computes the one-process step's products on the
+# same rows (pp hands whole activations on): held as (a)/(b) are, loss
+# 1e-4 absolute and gradient norm 1e-3 relative.  Under tp the row-split
+# products are partial sums added in f32 and rounded to bf16 once, where
+# one process rounds one product: another bf16 rounding of every attention
+# and MLP output, so loss 5e-3 and gradient norm 2e-2 relative (the flash
+# against "full" limits of one bf16 step)
+AXES_RANK_TOL = {"g1": (AXES_LOSS_TOL, AXES_GRAD_RTOL, "abs"),
+                 "g2": (AXES_LOSS_TOL, AXES_GRAD_RTOL, "abs"),
+                 "g3": (5e-3, 2e-2, "rel"), "g4": (5e-3, 2e-2, "rel")}
+AXES_RANK_TIMEOUT_S = 600
+AXES_RANK_CODE = "import sys, chip_smoke; chip_smoke.rank_axes_child(*sys.argv[1:])"
+# the same across four cards, one NCCL rank a card (``tools/mesh_multicard.py``
+# part 4): the flagship train config at B = 8, no cut
+AXES_CARD_CASES = (("pp4_gpipe", {"pp": 4}, "gpipe", 8, TRAIN_MODEL["n_layers"], AXES_B),
+                   ("pp4_1f1b", {"pp": 4}, "1f1b", 8, TRAIN_MODEL["n_layers"], AXES_B),
+                   ("tp4", {"tp": 4}, "gpipe", 1, TRAIN_MODEL["n_layers"], AXES_B),
+                   ("pp2_tp2", {"pp": 2, "tp": 2}, "gpipe", 4, TRAIN_MODEL["n_layers"], AXES_B))
 
 
 def axes_rows(n_rows):
@@ -2542,6 +2581,141 @@ def train_axes_child(rank, world, port) -> None:
     multihost.shutdown()
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rank_mesh(axes, world, rank):
+    """The training mesh ``axes`` as rank ``rank`` of ``world`` holds it,
+    built without a process group (for the shard a rank should hold)."""
+    from tensorframes_tpu_torch.parallel import mesh as tmesh
+
+    sizes = {a: axes.get(a, 1) for a in tmesh.AXES}
+    n = int(np.prod(list(sizes.values())))
+    holders = tmesh._layout(sizes, 1, "dp") // (n // world)
+    return tmesh.Mesh(tmesh.AXES, tuple(sizes.values()), torch.device("cuda"), world=world,
+                      rank=rank, holders=tuple(int(h) for h in holders.ravel()))
+
+
+def rank_axes_child(rank, world, port, table="ranks") -> None:
+    """Leg (g)'s child: rank ``rank`` of a ``world``-process ``gloo`` group
+    on card 0 (``table`` "cards": of an NCCL group, one rank a card, for
+    ``AXES_CARD_CASES``).  For each of ``AXES_RANK_CASES[world]`` it builds the
+    training mesh (``pp``/``tp`` crossing the ranks), cuts its shard of the
+    train phase's seeded weights (``shard_params``), runs a warm-up step
+    (its loss and global gradient norm are those of the starting weights)
+    and ``AXES_TIMED_STEPS`` timed steps.  Prints one JSON line a case: ms a
+    step, the host's enqueue share, payload bytes a step by kind, host
+    detours, peak device memory, its param and Adam bytes, flash launches
+    by instantiation; or the error it met."""
+    import datetime
+
+    from tensorframes_tpu_torch import train
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import collectives, flash, multihost
+    from tensorframes_tpu_torch.parallel.mesh import set_mesh, training_mesh
+
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cards = table == "cards"
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="nccl" if cards else "gloo",
+                         timeout=datetime.timedelta(seconds=300))
+    # whether this torch's gloo sums bf16 (the tp sums travel in f32 anyway)
+    try:
+        probe = torch.ones(4, dtype=torch.bfloat16, device="cuda" if cards else "cpu")
+        torch.distributed.all_reduce(probe)
+        gloo_bf16 = bool((probe == world).all())
+    except RuntimeError as e:
+        gloo_bf16 = f"{type(e).__name__}: {e}"[:200]
+    # whether this torch runs a bf16 product with an f32 result, forward and
+    # backward (the row-split partials take exact products in f32 without it)
+    try:
+        a = torch.ones(16, 16, dtype=torch.bfloat16, device="cuda", requires_grad=True)
+        torch.mm(a, a.detach(), out_dtype=torch.float32).sum().backward()
+        mm_out_dtype = True
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        mm_out_dtype = f"{type(e).__name__}: {e}"[:200]
+    for name, axes, sched, M, layers, B in (AXES_CARD_CASES if cards else AXES_RANK_CASES[world]):
+        res = {"rank": rank, "case": name, "init_s": time.perf_counter() - t0,
+               "gloo_bf16_all_reduce": gloo_bf16, "mm_out_dtype": mm_out_dtype}
+        try:
+            cfg = tfm.TransformerConfig(**dict(TRAIN_MODEL, n_layers=layers))
+            tc = train.TrainConfig(learning_rate=3e-4, pp_stages=axes.get("pp", 1),
+                                   microbatches=M, pipeline_schedule=sched)
+            mesh = training_mesh(**axes)
+            with set_mesh(mesh):
+                params = tfm.shard_params(
+                    tfm.init(torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = _nbytes(t for _, t in train.param_leaves(params))
+            base = torch.cuda.memory_allocated() - held
+            batch = torch.from_numpy(axes_rows(B)).cuda()
+            inp, tgt = batch[:, :-1], batch[:, 1:]
+            with set_mesh(mesh):
+                step, tx = train.make_train_step(cfg, tc)
+                state = tx.init(params)
+                loss = float(step(params, state, inp, tgt)[2])  # warm-up
+                norm = float(state.grad_norm)
+                torch.cuda.synchronize()
+                flash.reset_launches()
+                collectives.reset_traffic()
+                detours = multihost.host_detours
+                t1 = time.perf_counter()
+                for _ in range(AXES_TIMED_STEPS):
+                    last = step(params, state, inp, tgt)[2]
+                enqueued = time.perf_counter() - t1
+                float(last)
+                wall = time.perf_counter() - t1
+            adam = _nbytes(v for st in state.optimizer.state.values()
+                           for k, v in st.items() if k.startswith("exp_avg"))
+            res.update(
+                loss=loss, grad_norm=norm, ms_per_step=wall / AXES_TIMED_STEPS * 1e3,
+                host_enqueue_share=enqueued / wall,
+                bytes_per_step={k: v // AXES_TIMED_STEPS for k, v in collectives.traffic.items()},
+                host_detours_per_step=(multihost.host_detours - detours) / AXES_TIMED_STEPS,
+                peak_bytes=torch.cuda.max_memory_allocated() - base, param_bytes=held,
+                adam_bytes=adam, launches=dict(flash.kernel_launches),
+                crosses=[a for a in mesh.axis_names if mesh.crosses(a)],
+                device=str(torch.device("cuda", torch.cuda.current_device())),
+                wall_s=time.perf_counter() - t0)
+            del params, state, step, tx
+            gc.collect()
+            torch.cuda.empty_cache()
+        except Exception as e:  # noqa: BLE001 - printed for the parent
+            res.update(error=f"{type(e).__name__}: {e}"[:600], wall_s=time.perf_counter() - t0)
+            print(json.dumps(res), flush=True)
+            os._exit(3)
+        print(json.dumps(res), flush=True)
+    multihost.shutdown()
+
+
+def run_ranks(code, world, timeout_s, *args):
+    """``world`` children of ``code`` (rank, world, port, ``args``) from
+    the checkout, on one port; their JSON lines and return codes."""
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world), str(port), *args],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    kids = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            so, se = p.communicate()
+            se += f"\n(killed after {timeout_s} s)"
+        lines = [json.loads(x) for x in so.splitlines() if x.startswith("{")]
+        kids.append(dict(lines=lines, rc=p.returncode, stderr=se[-1500:]))
+    return kids
+
+
 def phase_train_axes():
     """Legs (a)-(f) of the training axes on one card (the module
     docstring's phase 17).  Returns the flash launches of the phase's main
@@ -2578,6 +2752,10 @@ def phase_train_axes():
         flash launches a step by kernel, of the timed steps alone;
         ``profiled``: one more step under the profiler, the device's busy
         time in it."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - _nbytes(t for _, t in train.param_leaves(params))
         step, tx = train.make_train_step(cfg, tc)
         state = tx.init(params)
         float(step(params, state, inp, tgt)[2])  # warm-up
@@ -2589,11 +2767,12 @@ def phase_train_axes():
         enqueued = time.perf_counter() - t0
         float(last)
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
         counted()
         per_step = {k: v // AXES_TIMED_STEPS for k, v in
                     (("flash_fwd", flash.launches), ("flash_bwd_dq", flash.launches_dq),
                      ("flash_bwd_dkv", flash.launches_dkv), ("ring_step", flash.launches_ring))}
-        host = dict(host_enqueue_share=enqueued / wall)
+        host = dict(host_enqueue_share=enqueued / wall, peak_bytes=peak)
         if profiled:
             wall_ms, rows = device_rows(lambda: float(step(params, state, inp, tgt)[2]))
             busy = sum(us for _, us in rows) / 1e3
@@ -2790,8 +2969,112 @@ def phase_train_axes():
     if not (max(diffs) <= REMAT_LOSS_TOL and all(k["rows"] == [AXES_B // 2] * AXES_CHILD_STEPS
                                                  and k["crosses"] == ["dp"] for k in kids)):
         raise AssertionError(f"train_axes two processes: losses {kids} against {one}")
+    # (g) pp and tp across gloo processes sharing the card, each rank
+    # holding its shard, against one process on the same weights and rows
+    main_total = dict(total)
+    ref = {AXES_B: dict(loss=ref_loss, grad_norm=ref_norm, ms=ref_ms,
+                        peak=ref_busy["peak_bytes"])}
+    gcfg = tfm.TransformerConfig(**dict(TRAIN_MODEL, n_layers=AXES_RANK_CASES[4][0][4]))
+    gparams = tfm.init(torch.Generator(device="cuda").manual_seed(0), gcfg)
+    gb = torch.from_numpy(axes_rows(AXES_RANK_CASES[4][0][5])).cuda()
+    g_loss, g_norm = grad_of(clone_params(gparams), lambda p: tfm.loss_fn(
+        p, gb[:, :-1], gb[:, 1:], gcfg))
+    g_ms, _, g_host = timed_steps(gcfg, train.TrainConfig(learning_rate=3e-4),
+                                  clone_params(gparams), gb[:, :-1], gb[:, 1:])
+    ref[AXES_RANK_CASES[4][0][5]] = dict(loss=g_loss, grad_norm=g_norm, ms=g_ms,
+                                        peak=g_host["peak_bytes"])
+    total.clear()  # leg (a)'s total stands; these one-process steps are comparisons
+    total.update(main_total)
+    del gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for world, cases in AXES_RANK_CASES.items():
+        t0 = time.perf_counter()
+        kids = run_ranks(AXES_RANK_CODE, world, AXES_RANK_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        bad = [k for k in kids if k["rc"] != 0 or len(k["lines"]) != len(cases)
+               or any("error" in x for x in k["lines"])]
+        if bad:
+            raise AssertionError(f"train_axes (g) {world} ranks failed: {bad}")
+        for i, case in enumerate(cases):
+            ranks = [k["lines"][i] for k in kids]
+            for x in ranks:
+                for k, n in x["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            held_rank_case("train_axes", case, ranks, ref[case[5]], world, cfg,
+                           AXES_RANK_TOL[case[0]], launch_seconds=seconds)
     say("train_axes", launches_main_runs=total)
     return total
+
+
+def held_rank_case(tag, case, ranks, ref, world, cfg, tol, **extra):
+    """Print one case of ranks (``rank_axes_child``'s lines) against the
+    one-process step ``ref`` (loss, grad_norm, ms, peak), and raise unless
+    the loss and gradient norm hold ``tol``, every rank launched the flash
+    instantiations ``route_of`` names as often as its layers and
+    microbatches say, and held exactly its shard's param and Adam bytes."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    name, axes, sched, M, layers, B = case
+    loss_tol, norm_rtol, how = tol
+    d_loss = max(abs(x["loss"] - ref["loss"]) for x in ranks)
+    if how == "rel":
+        d_loss /= abs(ref["loss"])
+    d_norm = max(abs(x["grad_norm"] / ref["grad_norm"] - 1) for x in ranks)
+    lcfg = dataclasses.replace(cfg, n_layers=layers)
+    local = layers // axes.get("pp", 1)
+    width = flash.kernel_head_dim(cfg.head_dim)
+    n_bwd = local * M * AXES_TIMED_STEPS
+    want = {route_of("flash_fwd", cfg.dtype, width): {"gpipe": 2, "1f1b": 3}[sched] * n_bwd,
+            route_of("flash_bwd_dq", cfg.dtype, width): n_bwd,
+            route_of("flash_bwd_dkv", cfg.dtype, width): n_bwd}
+    shard = [sum(int(np.prod(cut_shape(shape, tfm.param_cuts(lcfg, rank_mesh(
+        axes, world, x["rank"])).get(path, ())))) * 4
+        for path, shape in flat_shapes(tfm.param_shapes(lcfg))) for x in ranks]
+    say(tag, leg=name, processes=world, schedule=sched, mesh=axes, microbatches=M,
+        layers=layers, batch=B, seq=TRAIN_L, loss=[x["loss"] for x in ranks],
+        one_process_loss=ref["loss"], loss_diff=d_loss, loss_tol=loss_tol, loss_tol_kind=how,
+        grad_norm=[x["grad_norm"] for x in ranks], one_process_grad_norm=ref["grad_norm"],
+        grad_norm_rel_diff=d_norm, grad_norm_rtol=norm_rtol,
+        ms_per_step=[x["ms_per_step"] for x in ranks], one_process_ms=ref["ms"],
+        host_enqueue_share=[x["host_enqueue_share"] for x in ranks],
+        bytes_per_step_per_rank=[x["bytes_per_step"] for x in ranks],
+        host_detours_per_step=[x["host_detours_per_step"] for x in ranks],
+        peak_bytes=[x["peak_bytes"] for x in ranks], one_process_peak_bytes=ref["peak"],
+        peak_vs_one_process=[x["peak_bytes"] / ref["peak"] for x in ranks],
+        param_bytes=[x["param_bytes"] for x in ranks], shard_bytes=shard,
+        adam_bytes=[x["adam_bytes"] for x in ranks],
+        launches_per_rank=[x["launches"] for x in ranks], crosses=ranks[0]["crosses"],
+        devices=[x["device"] for x in ranks],
+        gloo_bf16_all_reduce=ranks[0]["gloo_bf16_all_reduce"],
+        mm_out_dtype=ranks[0]["mm_out_dtype"], **extra)
+    if not (d_loss <= loss_tol and d_norm <= norm_rtol):
+        raise AssertionError(f"{tag} {name}: loss diff {d_loss}, grad norm rel {d_norm}")
+    if any(x["launches"] != want for x in ranks):
+        raise AssertionError(f"{tag} {name}: launches {[x['launches'] for x in ranks]}, "
+                             f"expected {want}")
+    if any(x["param_bytes"] != b or x["adam_bytes"] != 2 * b for x, b in zip(ranks, shard)):
+        raise AssertionError(f"{tag} {name}: a rank holds more than its shard: "
+                             f"{[x['param_bytes'] for x in ranks]} against {shard}")
+
+
+def flat_shapes(tree, prefix=""):
+    """``(path, shape)`` of every leaf of a shape tree (``param_leaves``
+    paths)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += flat_shapes(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)]
+    return out
+
+
+def cut_shape(shape, cuts):
+    """A leaf's shape cut as ``transformer.param_cuts`` says."""
+    shape = list(shape)
+    for dim, _axis, start, stop, _full in cuts:
+        shape[dim] = stop - start
+    return shape
 
 
 def ring_launches(flash):
@@ -4561,7 +4844,7 @@ PLAN_EPOCHS, PLAN_LR = 4, 0.5
 # at the flagship's widths cut to this depth (the leg measures the cache and
 # the process's warm-up, which more layers only lengthen; its launches are
 # the processes', counted nowhere in this one)
-COLD_START_LAYERS = 2
+COLD_START_LAYERS = 1
 COLD_START_CODE = r"""
 import json, sys, time
 t0 = time.perf_counter()
@@ -4594,6 +4877,7 @@ def phase_planner(slice_prog):
 
     import tensorframes_tpu_torch as tft
     from tensorframes_tpu_torch import observability as obs
+    from tensorframes_tpu_torch.models import scoring, transformer as tfm
     from tensorframes_tpu_torch.ops import frame_cache
     from tensorframes_tpu_torch.parallel import flash
     from tensorframes_tpu_torch.program import deserialize_program
@@ -4780,26 +5064,34 @@ def phase_planner(slice_prog):
         eager_ms_per_epoch=[e["s"] * 1e3 for e in ref])
     del vals, labels, ref, got_epochs
 
-    # (e) the scoring program serialized and deserialized, run through map_blocks
+    # (e) the scoring program, cut to COLD_START_LAYERS layers (the export's
+    # seconds grow with the depth), serialized and deserialized, run through
+    # map_blocks against itself live
+    cut_cfg = tfm.TransformerConfig(**dict(cfg_kw, n_layers=COLD_START_LAYERS),
+                                    dtype=torch.bfloat16, attn_impl="flash")
+    cut_prog = scoring.scoring_program(
+        tfm.init(torch.Generator(device="cuda").manual_seed(0), cut_cfg), cut_cfg,
+        fetches=("nll",))
     t0 = time.perf_counter()
-    data = slice_prog.serialize({"tokens": (tft.scalar_type("int32"), (-1, L))})
+    data = cut_prog.serialize({"tokens": (tft.scalar_type("int32"), (-1, L))})
     export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     back = deserialize_program(data)
     load_s = time.perf_counter() - t0
-    live = counted(lambda: tft.map_blocks(slice_prog, frame).to_arrays())[0]
+    live = counted(lambda: tft.map_blocks(cut_prog, frame).to_arrays())[0]
     out, back_s, launches, _ = counted(lambda: tft.map_blocks(back, frame).to_arrays())
-    if launches != want_launches:
+    if launches != {inst: COLD_START_LAYERS * blocks}:
         raise AssertionError(f"deserialized program launched {launches}, expected "
-                             f"{want_launches}")
+                             f"{ {inst: COLD_START_LAYERS * blocks} }")
     nll_err = float(np.abs(np.asarray(out["nll"], np.float64)
                            - np.asarray(live["nll"], np.float64)).max())
     if nll_err > 1e-5 or not np.isfinite(np.asarray(out["nll"])).all():
         raise AssertionError(f"deserialized program nll differs by {nll_err}")
-    say("planner", leg="e_serialize", artifact_bytes=len(data), export_s=export_s,
+    say("planner", leg="e_serialize", layers=COLD_START_LAYERS, artifact_bytes=len(data),
+        export_s=export_s,
         load_s=load_s, flash_launches=launches, nll_bit_identical=nll_err == 0.0,
         nll_max_abs_err=nll_err, ms_per_block=back_s / blocks * 1e3)
-    del data, back
+    del data, back, cut_prog
 
     # (f) cold start: two processes warm the scoring program on one block
     # against one fresh compile cache; the second runs no nvcc
@@ -6007,7 +6299,7 @@ def phase_bridge():
 
 
 # --- the bridge fleet (phase 15) ---------------------------------------------
-FLEET_SIZE, FLEET_CLIENTS = 3, 8  # legs (a)-(c): process replicas; (a) FleetClients
+FLEET_SIZE, FLEET_CLIENTS = 2, 8  # legs (a)-(c): process replicas; (a) FleetClients
 FLEET_TRAFFIC_ROWS = 64  # legs (b), (c): the rows of each traffic map_blocks
 # leg (b): the victim's durable pipeline is SIGKILLed FLEET_KILL_MS after it
 # starts, and every engine dispatch on the victim first sleeps
@@ -6023,7 +6315,7 @@ FLEET_KILL_MS, FLEET_DELAY_MS = 1000, 200
 # restarts must not quarantine it
 FLEET_QUARANTINE_AFTER = 8
 FLEET_TRAFFIC_PAUSE_S = 0.02  # between one traffic thread's requests
-FLEET_STREAMS, FLEET_PROMPT, FLEET_NEW, FLEET_SLOTS = 8, 32, 128, 8  # leg (d)
+FLEET_STREAMS, FLEET_PROMPT, FLEET_NEW, FLEET_SLOTS = 8, 32, 64, 8  # leg (d)
 FLEET_READY_S = 180.0  # a replica's spawn-to-healthy limit
 
 
@@ -6354,8 +6646,8 @@ def phase_fleet():
             adopter_window_wall_s=[w["wall_s"] for w in r["windows"]],
             traffic_failed_requests=0, **{f"traffic_{k}": v for k, v in chaos_traffic.items()})
 
-        # (c) the victim restarted, then a rolling restart of all three under
-        # 2 traffic threads; each replica then serves the primed pipeline
+        # (c) the victim restarted, then a rolling restart of every replica
+        # under 2 traffic threads; each replica then serves the primed pipeline
         # (run on the victim and the adopter in (b)) building nothing
         c0 = obs.counters()
         fl.fault_env.pop(victim)

@@ -108,22 +108,50 @@ def params_from_numpy(
     tree: Mapping[str, Any],
     cfg: tfm.TransformerConfig,
     device: DeviceLike = None,
+    mesh=None,
 ) -> tfm.Params:
     """The JAX package's param tree (numpy leaves) as the port's params, in
-    ``cfg.param_dtype`` on ``device`` (None: the CUDA card)."""
+    ``cfg.param_dtype`` on ``device`` (None: the CUDA card).
+
+    ``mesh``: a training mesh whose ``pp`` or ``tp`` axis crosses ranks;
+    each leaf is then cut to this rank's shard on the host before it moves
+    (``transformer.param_cuts``), and carries its cuts as
+    ``transformer.shard_params`` leaves do."""
     dev = resolve_device(device)
     layout = tfm.param_shapes(cfg)
     _check_keys("", tree, layout)
     _check_keys("blocks", tree["blocks"], layout["blocks"])
+    cuts = tfm.param_cuts(cfg, mesh) if tfm._crosses_pp_or_tp(mesh) else None
+
+    def leaf(path, value, shape):
+        if cuts is None:
+            return _leaf(path, value, shape, cfg, dev)
+        if not isinstance(value, np.ndarray):
+            raise TypeError(
+                f"param {path!r}: a rank's shard is cut from a numpy array, "
+                f"got {type(value).__name__}"
+            )
+        if tuple(value.shape) != tuple(shape):
+            raise ValueError(
+                f"param {path!r} has shape {tuple(value.shape)} but the config "
+                f"expects {tuple(shape)}"
+            )
+        local = list(shape)
+        for dim, _axis, start, stop, _full in cuts[path]:
+            local[dim] = stop - start
+        t = _leaf(path, tfm.cut(value, cuts[path]), tuple(local), cfg, dev)
+        t._tfs_shard = cuts[path]
+        return t
+
     out: tfm.Params = {}
     for k, shape in layout.items():
         if k == "blocks":
             out[k] = {
-                bk: _leaf(f"blocks.{bk}", tree[k][bk], bshape, cfg, dev)
+                bk: leaf(f"blocks.{bk}", tree[k][bk], bshape)
                 for bk, bshape in shape.items()
             }
         else:
-            out[k] = _leaf(k, tree[k], shape, cfg, dev)
+            out[k] = leaf(k, tree[k], shape)
     return out
 
 

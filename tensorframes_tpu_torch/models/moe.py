@@ -26,8 +26,16 @@ PyTorch counterpart of ``tensorframes_tpu/models/moe.py`` (GShard/Switch):
   ranks it is ``torch.distributed`` point-to-point traffic, and the
   expert weights' gradients are complete after the train step's
   gradient reduction.  Under a process group the load-balance statistics
-  are means over every rank's groups (an all-reduce), as GSPMD's global
-  means are.
+  are means over the groups of every rank that holds other rows (an
+  all-reduce over the ``dp``/``ep``/``sp`` ranks), as GSPMD's global means
+  are.
+* **``tp`` across ranks** (``transformer.tp_share``): ``we_gate``/``we_up``
+  are split by columns and ``we_down`` by rows, as the specs say
+  (``("ep", None, "tp")``, ``("ep", "tp", None)``).  The routing is
+  replicated over ``tp``; ``copy_to_tp`` goes on the tokens entering the
+  experts and on the combine weights, and ``reduce_from_tp`` after the
+  combine (it is linear, so summing the combined partials equals
+  combining the summed expert outputs, and moves less).
 
 The router runs in f32.  The auxiliary load-balance loss is Switch's
 ``E * sum_e f_e * P_e`` (``f_e`` the fraction of tokens whose top-1
@@ -48,7 +56,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import Mesh, get_mesh
+from ..parallel.mesh import DATA_AXES, Mesh, get_mesh
 
 
 def capacity(group_size: int, top_k: int, n_experts: int, factor: float) -> int:
@@ -124,14 +132,16 @@ def _balance(probs: torch.Tensor, top1: torch.Tensor, valid=None) -> torch.Tenso
     E = probs.shape[-1]
     vmask = valid.to(probs.dtype)[..., None] if valid is not None else None
     mesh = get_mesh()
-    if mesh is not None and mesh.world > 1:
-        # every rank routes its own groups: the means are over all of them
+    group = mesh.group(DATA_AXES) if mesh is not None and mesh.world > 1 else None
+    if group is not None:
+        # the ranks of other rows route their own groups: the means are
+        # over all of them
         from ..parallel.collectives import all_reduce_sum
 
         w = vmask if vmask is not None else torch.ones_like(probs[..., :1])
-        n = torch.clamp_min(all_reduce_sum(torch.sum(w)), 1.0)
-        f = all_reduce_sum(torch.sum(top1, dim=(0, 1))) / n
-        p_mean = all_reduce_sum(torch.sum(probs * w, dim=(0, 1))) / n
+        n = torch.clamp_min(all_reduce_sum(torch.sum(w), group), 1.0)
+        f = all_reduce_sum(torch.sum(top1, dim=(0, 1)), group) / n
+        p_mean = all_reduce_sum(torch.sum(probs * w, dim=(0, 1)), group) / n
     elif vmask is not None:
         n = torch.clamp_min(torch.sum(vmask), 1.0)
         f = torch.sum(top1, dim=(0, 1)) / n
@@ -325,14 +335,20 @@ def moe_mlp(bp, y: torch.Tensor, cfg, segments=None) -> Tuple[torch.Tensor, torc
     [])``.  ``bp`` holds ``router`` [D, E], ``we_gate``/``we_up`` [E, D, F]
     and ``we_down`` [E, F, D] (each may be an int8 ``QTensor``).  Where the
     ambient mesh's ``ep`` axis crosses ranks, this rank runs the products of
-    its own experts only (:func:`_ep_exchange`)."""
-    from .transformer import weight
+    its own experts only (:func:`_ep_exchange`); where its ``tp`` axis
+    crosses ranks, its columns and rows of their FFNs."""
+    from ..parallel.collectives import copy_to_tp, reduce_from_tp
+    from .transformer import _tp_share, weight
 
     B, L, D = y.shape
     dt = cfg.dtype
     yg, _probs, dispatch, combine, aux, _cap = _route(bp, y, cfg, segments)
     E = dispatch.shape[2]
     route = _ep_peers(get_mesh(), E)
+    tp = _tp_share(cfg)
+    split = tp is not None and tp.moe
+    if split:
+        yg, combine = copy_to_tp(yg, tp.group), copy_to_tp(combine, tp.group)
     ex_in = _ep_exchange(_expert_in(dispatch, yg, dt), route, True)
 
     def w(name):  # this rank's experts' weights
@@ -347,4 +363,6 @@ def moe_mlp(bp, y: torch.Tensor, cfg, segments=None) -> Tuple[torch.Tensor, torc
     h = F.silu(h_gate) * h_up
     ex_out = _ep_exchange(_expert_ffn(h, w("we_down")), route, False)
     out = _expert_out(combine, ex_out, dt).reshape(B, L, D)
+    if split:
+        out = reduce_from_tp(out, tp.group)
     return out, aux

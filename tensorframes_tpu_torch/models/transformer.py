@@ -52,6 +52,22 @@ resolved against the ambient mesh, which :func:`sharding_spec` reads back;
 ``blocks_runner`` hook, through which ``train.py`` runs the decoder stack
 as a pipeline.
 
+Across ranks (``parallel/mesh.py``: a mesh whose ``pp`` or ``tp`` crosses
+the ranks of a process group) each rank holds only its shard
+(:func:`param_cuts`, cut by :func:`shard_params` or
+``convert.params_from_numpy(mesh=)``; :func:`gather_params` assembles the
+global tree): the layers of its pipeline stages (``train.py`` runs them),
+and under ``tp`` (:func:`tp_share`) its whole query heads and their kv
+heads, its columns of ``w_gate``/``w_up`` and rows of ``w_down``, its vocab
+rows of ``embed`` and columns of ``lm_head``.  A leaf whose dim does not
+divide over ``tp`` runs replicated, as JAX's constraint drops the axis.
+``copy_to_tp`` goes before each column-split product and
+``reduce_from_tp`` after each row-split one (the partials summed in f32
+and cast once); the embedding is a masked lookup summed over ``tp``, and
+the loss a vocab-parallel cross-entropy (the max, the sum of exponentials
+and the target's logit all-reduced): no rank holds the [B, L, V] logits.
+``apply`` gathers them whole.
+
 ``moe_experts > 0`` replaces each block's SwiGLU with the mixture of
 experts of ``models/moe.py`` (``router`` [D, E], ``we_gate``/``we_up``
 [E, D, F], ``we_down`` [E, F, D], stacked over layers); it composes with
@@ -72,6 +88,7 @@ whose outputs are saved return the saved tensor instead of recomputing.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
 import threading
@@ -87,8 +104,9 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
 from ..parallel.flash import chunk_supported, flash_attention
-from ..parallel.mesh import get_mesh
+from ..parallel.mesh import Mesh, get_mesh
 from ..parallel.ring import full_attention, ring_attention
 from .moe import moe_mlp
 
@@ -121,6 +139,21 @@ def embed_lookup(emb, tokens: torch.Tensor, dt) -> torch.Tensor:
     if isinstance(emb, QTensor):
         return emb.q[idx].to(dt) * emb.scale[idx].to(dt)
     return emb.to(dt)[idx]
+
+
+def embed_tokens(emb, tokens: torch.Tensor, cfg: "TransformerConfig") -> torch.Tensor:
+    """The token embedding of the model: :func:`embed_lookup`, or where
+    ``embed`` is split by vocab rows over ``tp``, a masked lookup of this
+    rank's rows summed over the ``tp`` ranks (exact: each token's row
+    lives on one of them)."""
+    tp = _tp_share(cfg)
+    if tp is None or not tp.vocab:
+        return embed_lookup(emb, tokens, cfg.dtype)
+    lo, hi = tp.cut(cfg.vocab_size)
+    idx = tokens.long() - lo
+    inside = (idx >= 0) & (idx < hi - lo)
+    rows = emb.to(cfg.dtype)[idx.clamp(0, hi - lo - 1)]
+    return reduce_from_tp(rows * inside[..., None].to(cfg.dtype), tp.group)
 
 
 def shard(x, *spec):
@@ -349,11 +382,136 @@ def block_spec(name: str, lead_dims: int = 1) -> tuple:
     return (None,) * lead_dims + _BLOCK_SPECS[name]
 
 
-def shard_params(params: Params) -> Params:
+@dataclasses.dataclass(frozen=True)
+class TPShare:
+    """This rank's share of a ``tp`` axis that crosses ranks: parts
+    ``lo .. lo+k-1`` of ``n`` (:meth:`Mesh.held`), and which products split
+    over it.  ``heads``: attention by whole query heads; ``kv``: the kv
+    heads too (else each rank computes, from the whole ``wk``/``wv``, the kv
+    heads its query heads read, and their gradients are summed over
+    ``tp``); ``mlp``/``moe``: the dense and the expert FFNs; ``vocab``:
+    ``embed`` rows and ``lm_head`` columns."""
+
+    mesh: Mesh
+    lo: int
+    k: int
+    n: int
+    heads: bool
+    kv: bool
+    mlp: bool
+    moe: bool
+    vocab: bool
+
+    @property
+    def group(self):
+        return self.mesh.group("tp")
+
+    def cut(self, size: int):
+        """``(start, stop)`` of this rank's part of a dim of ``size``."""
+        return size * self.lo // self.n, size * (self.lo + self.k) // self.n
+
+    def kv_heads(self, cfg: "TransformerConfig"):
+        """``(start, stop)``: the kv heads this rank's query heads read."""
+        a, b = self.cut(cfg.n_heads)
+        g = cfg.n_heads // cfg.n_kv_heads
+        return a // g, (b - 1) // g + 1
+
+
+@functools.lru_cache(maxsize=64)
+def tp_share(cfg: "TransformerConfig", mesh: Optional[Mesh]) -> Optional[TPShare]:
+    """This rank's :class:`TPShare` under ``mesh``, or None where its
+    ``tp`` axis does not cross ranks (every product whole, as in one
+    process).  Attention splits where the query heads divide over ``tp``
+    and each rank's query heads read a whole set of kv heads (the kv heads
+    divide over ``tp`` too, or a rank's query heads all read one kv
+    head); each other product where its split dim divides."""
+    if mesh is None or not mesh.crosses("tp"):
+        return None
+    n = mesh.shape["tp"]
+    lo, k = mesh.held("tp")
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    local = h * k // n
+    heads = h % n == 0 and (kvh % n == 0 or (h // kvh) % local == 0)
+    fe = cfg.moe_d_ff or cfg.d_ff
+    return TPShare(
+        mesh, lo, k, n, heads=heads, kv=heads and kvh % n == 0,
+        mlp=cfg.d_ff % n == 0, moe=fe % n == 0, vocab=cfg.vocab_size % n == 0,
+    )
+
+
+def _tp_share(cfg: "TransformerConfig") -> Optional[TPShare]:
+    return tp_share(cfg, get_mesh())
+
+
+# the dim of each block leaf (with its [n_layers] lead axis) that tp splits,
+# and the TPShare flag that says whether it does
+_TP_DIMS = {
+    "wq": (2, "heads"), "wk": (2, "kv"), "wv": (2, "kv"), "wo": (1, "heads"),
+    "w_gate": (2, "mlp"), "w_up": (2, "mlp"), "w_down": (1, "mlp"),
+    "we_gate": (3, "moe"), "we_up": (3, "moe"), "we_down": (2, "moe"),
+}
+
+
+def param_cuts(cfg: "TransformerConfig", mesh: Mesh) -> Dict[str, tuple]:
+    """This rank's shard of each leaf (by :func:`train.param_leaves`
+    path) under ``mesh``: a tuple of ``(dim, axis, start, stop, full)``
+    cuts, empty for a leaf the rank holds whole.  ``pp`` across ranks
+    cuts the blocks' layer axis to the rank's stages; ``tp`` across ranks
+    cuts as :class:`TPShare` says."""
+    cuts: Dict[str, tuple] = {}
+    shapes = param_shapes(cfg)
+    layer = ()
+    if mesh.crosses("pp"):
+        S = mesh.shape["pp"]
+        if cfg.n_layers % S:
+            raise ValueError(f"pp_stages {S} must divide n_layers {cfg.n_layers}")
+        lo, k = mesh.held("pp")
+        lps = cfg.n_layers // S
+        layer = ((0, "pp", lo * lps, (lo + k) * lps, cfg.n_layers),)
+    tp = tp_share(cfg, mesh)
+
+    def tp_cut(dim, full):
+        start, stop = tp.cut(full)
+        return ((dim, "tp", start, stop, full),)
+
+    for name, shape in shapes["blocks"].items():
+        c = layer
+        if tp is not None and name in _TP_DIMS:
+            dim, flag = _TP_DIMS[name]
+            if getattr(tp, flag):  # the heads divide: the cut falls between them
+                c = c + tp_cut(dim, shape[dim])
+        cuts[f"blocks.{name}"] = c
+    vocab = tp is not None and tp.vocab
+    cuts["embed"] = tp_cut(0, cfg.vocab_size) if vocab else ()
+    cuts["lm_head"] = tp_cut(1, cfg.vocab_size) if vocab else ()
+    cuts["ln_f"] = ()
+    return cuts
+
+
+def cut(a, cuts: tuple):
+    """``a`` (a tensor or a numpy array) narrowed to ``cuts``
+    (:func:`param_cuts`); a tensor's cut is a copy of its own."""
+    for dim, _axis, start, stop, _full in cuts:
+        index = (slice(None),) * dim + (slice(start, stop),)
+        a = a[index]
+    return a.clone() if isinstance(a, torch.Tensor) and cuts else a
+
+
+def _crosses_pp_or_tp(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and (mesh.crosses("pp") or mesh.crosses("tp"))
+
+
+def shard_params(params: Params, cfg: Optional["TransformerConfig"] = None) -> Params:
     """The canonical tp/ep layout on a param tree (:func:`shard` on each
     leaf; nothing recorded without an ambient mesh).  Returns a new dict
     holding the same tensors.  Quantized (QTensor) leaves pass through
-    unchanged."""
+    unchanged.
+
+    Under an ambient mesh whose ``pp`` or ``tp`` crosses ranks, each
+    leaf is cut to this rank's shard (:func:`param_cuts`; ``cfg`` is then
+    required) and carries its cuts (``_tfs_shard``, which
+    :func:`gather_params` and the checkpoint read); a leaf already cut
+    passes through."""
 
     def s_(v, *spec):
         return v if isinstance(v, QTensor) else shard(v, *spec)
@@ -364,7 +522,56 @@ def shard_params(params: Params) -> Params:
     p["blocks"] = {
         k: s_(v, *block_spec(k)) for k, v in params["blocks"].items()
     }
+    mesh = get_mesh()
+    if not _crosses_pp_or_tp(mesh):
+        return p
+    if cfg is None:
+        raise ValueError(
+            "shard_params: the mesh's pp or tp axis crosses ranks, so each "
+            "rank cuts its shard: pass cfg"
+        )
+    cuts = param_cuts(cfg, mesh)
+
+    def place(v, path):
+        if isinstance(v, QTensor) or hasattr(v, "_tfs_shard"):
+            return v
+        out = cut(v.detach(), cuts[path]).requires_grad_(v.requires_grad)
+        out._tfs_shard = cuts[path]
+        if sharding_spec(v) is not None:
+            out._tfs_spec = sharding_spec(v)
+        return out
+
+    for k in ("embed", "lm_head", "ln_f"):
+        p[k] = place(p[k], k)
+    p["blocks"] = {k: place(v, f"blocks.{k}") for k, v in p["blocks"].items()}
     return p
+
+
+def gather_params(params: Params, mesh: Optional[Mesh] = None, like: Optional[Params] = None) -> Params:
+    """The global tree on the host: each leaf cut by a crossing axis
+    (``_tfs_shard``, read from the leaf at the same place in ``like``
+    where given, e.g. the params when gathering their gradients) is
+    all-gathered over that axis's ranks (a collective: every rank calls
+    it), every leaf then copied to the CPU.  The port's counterpart of
+    reading a global ``jax.Array``.  ``mesh``: the ambient one if None."""
+    from ..parallel.collectives import all_gather
+
+    mesh = mesh if mesh is not None else get_mesh()
+
+    def one(t, ref):
+        out = t.detach()
+        for dim, axis, _start, _stop, _full in getattr(ref, "_tfs_shard", ()):
+            group = mesh.group(axis)
+            if group is not None:
+                out = torch.cat(all_gather(out.contiguous(), group), dim)
+        return out.cpu()
+
+    def walk(tree, ref):
+        if isinstance(tree, dict):
+            return {k: walk(v, ref[k] if isinstance(ref, dict) else None) for k, v in tree.items()}
+        return tree if isinstance(tree, QTensor) else one(tree, ref)
+
+    return walk(params, like if like is not None else params)
 
 
 _TAG = threading.local()
@@ -407,16 +614,40 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` summed in f32 and returned in f32: exact products of the
+    upcast operands, a 16-bit product's f32 accumulator before its one
+    rounding (the card's torch 2.11 has no ``torch.mm(...,
+    out_dtype=f32)``)."""
+    if a.dtype == torch.float32:
+        return a @ w
+    return a.float() @ w.float()
+
+
+def _row_split(a: torch.Tensor, w, dt, tp: TPShare) -> torch.Tensor:
+    """A product whose weight is split by rows over ``tp``: this rank's
+    partial in f32, summed over the ``tp`` ranks, cast to ``dt`` once."""
+    return reduce_from_tp(_mm_f32(a, weight(w, dt)), tp.group).to(dt)
+
+
 def _attn_qkv(bp, x, positions, cfg):
     """rms_norm -> q/k/v projections -> RoPE.  Returns ``(q [B, L, h, Dh],
-    k [B, L, kvh, Dh], v [B, L, kvh, Dh])``."""
+    k [B, L, kvh, Dh], v [B, L, kvh, Dh])``; under a ``tp`` split, this
+    rank's query heads and the kv heads they read."""
     B, L, _ = x.shape
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     dt = cfg.dtype
+    tp = _tp_share(cfg)
     y = _saved(_rms_norm(x, bp["ln1"]))
-    q = (y @ weight(bp["wq"], dt)).reshape(B, L, h, dh)
-    k = (y @ weight(bp["wk"], dt)).reshape(B, L, kvh, dh)
-    v = (y @ weight(bp["wv"], dt)).reshape(B, L, kvh, dh)
+    wq, wk, wv = (weight(bp[n], dt) for n in ("wq", "wk", "wv"))
+    if tp is not None and tp.heads:
+        y = copy_to_tp(y, tp.group)
+        if not tp.kv:  # the kv heads this rank's query heads read
+            a, b = tp.kv_heads(cfg)
+            wk, wv = wk[:, a * dh:b * dh], wv[:, a * dh:b * dh]
+    q = (y @ wq).reshape(B, L, wq.shape[-1] // dh, dh)
+    k = (y @ wk).reshape(B, L, wk.shape[-1] // dh, dh)
+    v = (y @ wv).reshape(B, L, wv.shape[-1] // dh, dh)
     return (
         _saved(_rope(q, positions, cfg.rope_theta)),
         _saved(_rope(k, positions, cfg.rope_theta)),
@@ -439,8 +670,8 @@ def _attn_residual(
     whole cache (:func:`_cache_attention`); slots past the written frontier
     carry positions later than every query, so the causal mask hides them."""
     B, L, _ = x.shape
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _attn_qkv(bp, x, positions, cfg)
+    h, kvh = q.shape[2], k.shape[2]
     if kv is not None:
         ck, cv, idx = kv
         # JAX: dynamic_update_slice_in_dim(ck, k, idx, 1); the caller sizes
@@ -474,8 +705,12 @@ def _attn_residual(
             att = _saved(checkpoint(core, q, k, v, use_reentrant=False))
         else:
             att = _saved(core(q, k, v))
-    att = att.reshape(B, L, h * dh)
-    x = x + att @ weight(bp["wo"], cfg.dtype)
+    att = att.reshape(B, L, h * cfg.head_dim)
+    tp = _tp_share(cfg)
+    if tp is not None and tp.heads:
+        x = x + _row_split(att, bp["wo"], cfg.dtype, tp)
+    else:
+        x = x + att @ weight(bp["wo"], cfg.dtype)
     return x, ((ck, cv) if kv is not None else None)
 
 
@@ -512,9 +747,16 @@ def _mlp_residual(bp, x, cfg, segments=None):
     if cfg.moe_experts:
         ff_out, aux = moe_mlp(bp, y, cfg, segments)
         return x + ff_out, aux
+    tp = _tp_share(cfg)
+    split = tp is not None and tp.mlp
+    if split:
+        y = copy_to_tp(y, tp.group)
     gate = F.silu(y @ weight(bp["w_gate"], dt))
     up = y @ weight(bp["w_up"], dt)
-    x = x + _saved(gate * up) @ weight(bp["w_down"], dt)
+    if split:
+        x = x + _row_split(_saved(gate * up), bp["w_down"], dt, tp)
+    else:
+        x = x + _saved(gate * up) @ weight(bp["w_down"], dt)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -602,11 +844,15 @@ def apply_blocks(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in layer_params(blocks):
         args = (bp, x, positions, cfg, custom_positions, segments)
+        # the recompute runs on autograd's thread for the device, where the
+        # forward's context variables (the ambient mesh, the pipeline's
+        # sp-local aux) are not set: it runs in a copy of the forward's
+        block = functools.partial(contextvars.copy_context().run, _block)
         if remat and policy == "full":
-            x, a = checkpoint(_block, *args, use_reentrant=False)
+            x, a = checkpoint(block, *args, use_reentrant=False)
         elif remat:
             x, a = checkpoint(
-                _block, *args, use_reentrant=False,
+                block, *args, use_reentrant=False,
                 context_fn=functools.partial(_checkpoint_context, policy),
             )
         else:
@@ -669,34 +915,15 @@ def _sequence_share(L: int):
     return L * mesh.shape["sp"] // held, lo * (L // held)
 
 
-def apply(
+def _hidden(
     params: Params,
     tokens: torch.Tensor,
     cfg: TransformerConfig,
     positions: Optional[torch.Tensor] = None,
     blocks_runner=None,
-    return_hidden: bool = False,
-    return_aux: bool = False,
     segment_ids: Optional[torch.Tensor] = None,
 ):
-    """tokens [B, L] int -> logits [B, L, V] (f32), on the params' device.
-
-    ``blocks_runner(blocks, x, positions, cfg, segments=None) -> (x, aux)``
-    overrides how the decoder stack runs (default :func:`apply_blocks`;
-    the training layer passes the GPipe pipeline,
-    ``train.pipelined_blocks``).  ``return_hidden=True`` also returns the final-norm hidden states
-    [B, L, D]; ``return_aux=True`` appends the MoE aux loss (f32 scalar, 0
-    for dense).  Extras come in (hidden, aux) order.  ``segment_ids``
-    [B, L] enables packed-sequence training (``data.pack_examples``):
-    attention stays within each segment (id 0 = padding); pass the
-    matching restart ``positions``.  Packed batches take the full-attention
-    path (the flash kernels mask by row-major offsets).
-
-    Under an ambient mesh (``parallel.mesh.set_mesh``) whose ``sp`` axis is
-    larger than 1, ``"ring"``/``"ring_flash"`` split the sequence over its
-    ranks, and ``"auto"`` resolves as the JAX package does.  Where that axis
-    crosses ranks of a process group, ``tokens`` are this rank's part of
-    the sequence and attention must be the ring."""
+    """:func:`apply` up to the final norm: ``(hidden [B, L, D], aux)``."""
     B, L = tokens.shape
     L_all, offset = _sequence_share(L)
     if segment_ids is not None and cfg.attn_impl in (
@@ -736,18 +963,64 @@ def apply(
             f"never materialise the [L, L] probabilities in the first "
             f"place) — use remat_policy='none'/'full'/'selective' there."
         )
+    mesh = get_mesh()
+    if blocks_runner is None and mesh is not None and mesh.crosses("pp"):
+        raise ValueError(
+            "the mesh's pp axis crosses ranks: each rank holds only its "
+            "pipeline stages' layers; run the stack as a pipeline "
+            "(train.apply_pipelined / make_train_step with pp_stages)"
+        )
     custom = positions is not None
     if positions is None:
         positions = torch.arange(
             offset, offset + L, dtype=torch.int32, device=tokens.device
         ).expand(B, L)
-    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    x = embed_tokens(params["embed"], tokens, cfg)
     if blocks_runner is None:
         x, aux = apply_blocks(params["blocks"], x, positions, cfg, custom, segment_ids)
     else:
         x, aux = blocks_runner(params["blocks"], x, positions, cfg, segment_ids)
-    x = _rms_norm(x, params["ln_f"])
-    logits = lm_head_logits(x, params["lm_head"], cfg.dtype)
+    return _rms_norm(x, params["ln_f"]), aux
+
+
+def apply(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    positions: Optional[torch.Tensor] = None,
+    blocks_runner=None,
+    return_hidden: bool = False,
+    return_aux: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
+):
+    """tokens [B, L] int -> logits [B, L, V] (f32), on the params' device.
+
+    ``blocks_runner(blocks, x, positions, cfg, segments=None) -> (x, aux)``
+    overrides how the decoder stack runs (default :func:`apply_blocks`;
+    the training layer passes the GPipe pipeline,
+    ``train.pipelined_blocks``).  ``return_hidden=True`` also returns the final-norm hidden states
+    [B, L, D]; ``return_aux=True`` appends the MoE aux loss (f32 scalar, 0
+    for dense).  Extras come in (hidden, aux) order.  ``segment_ids``
+    [B, L] enables packed-sequence training (``data.pack_examples``):
+    attention stays within each segment (id 0 = padding); pass the
+    matching restart ``positions``.  Packed batches take the full-attention
+    path (the flash kernels mask by row-major offsets).
+
+    Under an ambient mesh (``parallel.mesh.set_mesh``) whose ``sp`` axis is
+    larger than 1, ``"ring"``/``"ring_flash"`` split the sequence over its
+    ranks, and ``"auto"`` resolves as the JAX package does.  Where that axis
+    crosses ranks of a process group, ``tokens`` are this rank's part of
+    the sequence and attention must be the ring.  Where ``lm_head`` is
+    split by vocab over ``tp`` ranks, the logits are gathered whole."""
+    x, aux = _hidden(params, tokens, cfg, positions, blocks_runner, segment_ids)
+    tp = _tp_share(cfg)
+    if tp is not None and tp.vocab:
+        logits = gather_from_tp(
+            lm_head_logits(copy_to_tp(x, tp.group), params["lm_head"], cfg.dtype),
+            tp.group,
+        )
+    else:
+        logits = lm_head_logits(x, params["lm_head"], cfg.dtype)
     out = (logits,)
     if return_hidden:
         out += (x,)
@@ -784,8 +1057,29 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return s / torch.clamp_min(c, 1)
 
 
-def _chunk_nll(h, w, t):
+def vocab_parallel_nll_sum_and_count(logits: torch.Tensor, targets: torch.Tensor, lo: int, group):
+    """:func:`nll_sum_and_count` where ``logits`` [..., V/tp] are this
+    rank's vocab columns ``lo ..`` of the whole: the max, the sum of
+    exponentials and the target's logit are all-reduced over the ``tp``
+    ranks of ``group`` (scalars a token), never the logits.  The same
+    ``log_softmax`` up to f32 rounding."""
+    from ..parallel.collectives import all_reduce_max_
+
+    m = all_reduce_max_(logits.detach().amax(-1, keepdim=True), group)
+    se = reduce_from_tp(torch.exp(logits - m).sum(-1), group)
+    valid = targets >= 0
+    idx = torch.where(valid, targets, 0).long() - lo
+    inside = (idx >= 0) & (idx < logits.shape[-1])
+    picked = torch.gather(logits, -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    target = reduce_from_tp(picked * inside, group)
+    nll = torch.log(se) + m[..., 0] - target
+    return (nll * valid).sum(), valid.sum()
+
+
+def _chunk_nll(h, w, t, vocab=None):
     logits = h.float() @ w.float()  # exact products, f32 out
+    if vocab is not None:
+        return vocab_parallel_nll_sum_and_count(logits, t, *vocab)
     return nll_sum_and_count(logits, t)
 
 
@@ -795,10 +1089,13 @@ def nll_sum_and_count_chunked(
     targets: torch.Tensor,
     chunk: int,
     dtype,
+    vocab=None,
 ):
     """``nll_sum_and_count(hidden @ lm_head, targets)`` one [B, chunk, V]
     logits slice at a time, each checkpointed (``torch.utils.checkpoint``)
-    so its logits are recomputed in the backward instead of saved."""
+    so its logits are recomputed in the backward instead of saved.
+    ``vocab=(lo, group)``: ``lm_head`` holds this rank's vocab columns
+    from ``lo`` (:func:`vocab_parallel_nll_sum_and_count`)."""
     B, L, D = hidden.shape
     if L % chunk:
         raise ValueError(
@@ -808,7 +1105,7 @@ def nll_sum_and_count_chunked(
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     c = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for i in range(0, L, chunk):
-        args = (hidden[:, i : i + chunk], w, targets[:, i : i + chunk])
+        args = (hidden[:, i : i + chunk], w, targets[:, i : i + chunk], vocab)
         if torch.is_grad_enabled():
             ns, nc = checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
@@ -832,6 +1129,44 @@ def cross_entropy_chunked(
     return s / torch.clamp_min(c, 1)
 
 
+def head_nll_sum_and_count(hidden: torch.Tensor, lm_head, targets: torch.Tensor, cfg):
+    """The head's ``(nll sum, valid count)`` from the final-norm hidden
+    states: chunked under ``cfg.ce_chunk``, vocab-parallel where
+    ``lm_head`` is split by vocab over ``tp``."""
+    tp = _tp_share(cfg)
+    vocab = None
+    if tp is not None and tp.vocab:
+        hidden = copy_to_tp(hidden, tp.group)
+        vocab = (tp.cut(cfg.vocab_size)[0], tp.group)
+    if cfg.ce_chunk:
+        return nll_sum_and_count_chunked(
+            hidden, lm_head, targets, cfg.ce_chunk, cfg.dtype, vocab
+        )
+    logits = lm_head_logits(hidden, lm_head, cfg.dtype)
+    if vocab is not None:
+        return vocab_parallel_nll_sum_and_count(logits, targets, *vocab)
+    return nll_sum_and_count(logits, targets)
+
+
+def loss_terms(
+    params: Params,
+    tokens: torch.Tensor,
+    targets: torch.Tensor,
+    cfg: TransformerConfig,
+    blocks_runner=None,
+    positions: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+):
+    """``(nll sum, valid count, aux)`` of a batch: :func:`loss_fn`'s parts,
+    which sum over ranks that hold other rows."""
+    hidden, aux = _hidden(
+        params, tokens, cfg, positions=positions, blocks_runner=blocks_runner,
+        segment_ids=segment_ids,
+    )
+    nll, count = head_nll_sum_and_count(hidden, params["lm_head"], targets, cfg)
+    return nll, count, aux
+
+
 def loss_fn(
     params: Params,
     tokens: torch.Tensor,
@@ -849,22 +1184,10 @@ def loss_fn(
     final hidden states: the same numerics, O(L/chunk) less live memory.
     A sparse config adds ``moe_aux_coef`` times the summed load-balance
     loss (JAX ``loss_fn``)."""
-    if cfg.ce_chunk:
-        _, hidden, aux = apply(
-            params, tokens, cfg, positions=positions,
-            blocks_runner=blocks_runner, return_hidden=True,
-            return_aux=True, segment_ids=segment_ids,
-        )
-        loss = cross_entropy_chunked(
-            hidden, params["lm_head"], targets, cfg.ce_chunk, cfg.dtype
-        )
-    else:
-        logits, aux = apply(
-            params, tokens, cfg, positions=positions,
-            blocks_runner=blocks_runner, return_aux=True,
-            segment_ids=segment_ids,
-        )
-        loss = cross_entropy(logits, targets)
+    nll, count, aux = loss_terms(
+        params, tokens, targets, cfg, blocks_runner, positions, segment_ids
+    )
+    loss = nll / torch.clamp_min(count, 1)
     if cfg.moe_experts:
         loss = loss + aux * float(np.float32(cfg.moe_aux_coef))
     return loss

@@ -30,9 +30,14 @@ of the positions on its one card (torchrun's layout), so the JAX rule
 "mesh size == available devices" becomes: the mesh's size divides over the
 ranks, each rank's share being one block of the mesh.  An axis whose
 positions sit on several ranks *crosses* them (:meth:`Mesh.crosses`), and
-its collectives are ``torch.distributed`` calls (``parallel/collectives.py``):
-``dp``, ``ep`` and ``sp`` may cross; ``pp`` and ``tp`` across ranks raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 13c).
+its collectives are ``torch.distributed`` calls (``parallel/collectives.py``)
+over the ranks of that axis: :meth:`Mesh.axis_ranks` lists them and
+:meth:`Mesh.group` is their process group, made on every rank while the
+mesh is built.  Every axis may cross.  A rank whose block holds several
+positions of an axis keeps them as in-process ranks of it
+(:meth:`Mesh.held`); only the edges of its block cross.  Where ``pp``
+crosses, each rank holds the layers of its pipeline stages; where ``tp``
+crosses, its head, column and row slices (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -48,11 +53,9 @@ import torch
 from ..device import DeviceLike, resolve_device
 
 AXES = ("pp", "dp", "ep", "sp", "tp")
-
-_ACROSS_RANKS = (
-    "ROADMAP.md Queue 1 item 13c (pipeline stages and tensor-parallel "
-    "shards across ranks)"
-)
+# the axes whose ranks hold other rows or another part of the sequence:
+# the loss counts and the gradients sum over them
+DATA_AXES = ("dp", "ep", "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +109,42 @@ class Mesh:
         first = [int(c) for c in np.argwhere(grid == self.rank)[0]]
         first[self.axis_names.index(axis)] = index
         return int(grid[tuple(first)])
+
+    def axis_ranks(self, axes, rank: Optional[int] = None) -> Tuple[int, ...]:
+        """The ranks that share ``rank``'s (default: this rank's)
+        coordinates on every axis but ``axes`` (one name or several), in
+        the order of the axes' positions, each once: the members of a
+        collective over ``axes``."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        grid = self._grid()
+        r = self.rank if rank is None else rank
+        first = np.argwhere(grid == r)[0]
+        index = tuple(
+            slice(None) if a in names else int(first[i])
+            for i, a in enumerate(self.axis_names)
+        )
+        out: List[int] = []
+        for h in grid[index].ravel():
+            if int(h) not in out:
+                out.append(int(h))
+        return tuple(out)
+
+    def group(self, axes):
+        """The ``torch.distributed`` group of :meth:`axis_ranks` over
+        ``axes``, or None where those ranks are this rank alone (the axes
+        do not cross).  The groups are made on every rank when
+        :func:`training_mesh` builds the mesh under a process group."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        ranks = self.axis_ranks(names)
+        if len(ranks) == 1:
+            return None
+        groups = _GROUPS.get(_group_key(self))
+        if groups is None or ranks not in groups:
+            raise RuntimeError(
+                f"no process group over {names} for this mesh: build it with "
+                f"training_mesh under the initialized process group"
+            )
+        return groups[ranks]
 
 
 def _local_devices():
@@ -208,6 +247,36 @@ def _group_rank() -> Tuple[int, int]:
     return 1, 0
 
 
+# the axis groups of each mesh layout, made once a layout and process group
+# (``dist.new_group`` is collective: every rank makes every group, in one
+# order, or the ranks hang)
+_GROUPS: Dict[tuple, Dict[Tuple[int, ...], object]] = {}
+
+
+def _group_key(mesh: Mesh) -> tuple:
+    import torch.distributed as dist
+
+    world = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+    return (id(world), mesh.world, mesh.axis_sizes, mesh.holders)
+
+
+def _make_groups(mesh: Mesh) -> None:
+    """Make the groups of every crossing axis and of the data axes
+    together, on every rank in the same order, and cache them."""
+    key = _group_key(mesh)
+    if mesh.world == 1 or key in _GROUPS:
+        return
+    import torch.distributed as dist
+
+    made: Dict[Tuple[int, ...], object] = {}
+    for axes in [(a,) for a in AXES] + [DATA_AXES]:
+        for r in range(mesh.world):
+            ranks = mesh.axis_ranks(axes, r)
+            if len(ranks) > 1 and ranks not in made:
+                made[ranks] = dist.new_group(list(ranks))
+    _GROUPS[key] = made
+
+
 def training_mesh(
     dp: int = 1,
     tp: int = 1,
@@ -221,9 +290,9 @@ def training_mesh(
     """A 5-axis mesh ``(pp, dp, ep, sp, tp)`` on ``device`` (None: the CUDA
     card), with the JAX signature and checks.  Any axis sizes in one
     process; under a process group the mesh's positions divide over the
-    ranks (the module docstring's rule), and a ``pp`` or ``tp`` axis that
-    crosses ranks raises ``NotImplementedError``.  Under a group every
-    rank builds the same mesh."""
+    ranks (the module docstring's rule), and every rank builds the same
+    mesh: building it makes the groups of its crossing axes
+    (:meth:`Mesh.group`), a collective call."""
     sizes = dict(zip(AXES, (pp, dp, ep, sp, tp)))
     small = {a: n for a, n in sizes.items() if n < 1}
     if small:
@@ -257,13 +326,10 @@ def training_mesh(
         AXES, tuple(sizes[a] for a in AXES), resolve_device(device),
         world=world, rank=rank, holders=tuple(int(h) for h in holders.ravel()),
     )
-    across = [a for a in ("pp", "tp") if mesh.crosses(a)]
-    if across:
-        what = ", ".join(f"{a}={sizes[a]}" for a in across)
-        raise NotImplementedError(
-            f"training_mesh({what}) over {world} ranks: the axis crosses "
-            f"ranks, and only dp, ep and sp may: {_ACROSS_RANKS}"
-        )
+    import torch.distributed as dist
+
+    if world > 1 and dist.is_available() and dist.is_initialized():
+        _make_groups(mesh)
     return mesh
 
 

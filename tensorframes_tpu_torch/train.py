@@ -17,18 +17,27 @@ The mesh axes (``parallel.mesh.training_mesh``, entered with
 ``parallel.mesh.set_mesh``): the step reads the ambient mesh.
 
 * ``pp``: the decoder stack runs as a pipeline of ``pp_stages`` stages over
-  ``microbatches``.  The stages are ranks of the ``pp`` axis on the mesh's
-  one device, so the JAX ``ppermute`` between them is a re-index of the
-  activations each stage hands on.  GPipe (:func:`pipelined_blocks`) runs
-  JAX's M+S-1-tick schedule, and autograd through it is the backward;
-  1F1B (:func:`loss_and_grad_1f1b`) runs JAX's M+2(S-1)-tick schedule,
-  recomputing each stage's forward from a ring of ``min(M, 2S-1)`` saved
-  inputs with an explicit ``torch.autograd.grad`` per tick.  Bubble ticks
-  and the head on stages other than the last compute nothing: JAX
-  computes them only to keep one SPMD program, and skipping them changes
-  no number.  With ``pp_stages > 1`` and no ``pp`` axis above 1 both
-  schedules train single-stage, as the JAX package's do: GPipe after its
-  divisibility checks, 1F1B after logging the JAX package's warning.
+  ``microbatches``.  In one process the stages are ranks of the ``pp``
+  axis on the mesh's one device, so the JAX ``ppermute`` between them is a
+  re-index of the activations each stage hands on.  GPipe
+  (:func:`pipelined_blocks`) runs JAX's M+S-1-tick schedule, and autograd
+  through it is the backward; 1F1B (:func:`loss_and_grad_1f1b`) runs
+  JAX's M+2(S-1)-tick schedule, recomputing each stage's forward from a
+  ring of ``min(M, 2S-1)`` saved inputs with an explicit
+  ``torch.autograd.grad`` per tick.  Bubble ticks and the head on stages
+  other than the last compute nothing: JAX computes them only to keep one
+  SPMD program, and skipping them changes no number.  With ``pp_stages >
+  1`` and no ``pp`` axis above 1 both schedules train single-stage, as the
+  JAX package's do: GPipe after its divisibility checks, 1F1B after
+  logging the JAX package's warning.
+* ``pp`` across ranks: each rank holds and runs its own stages' layers and
+  hands activations forward and cotangents back to its neighbours by send
+  and receive (:func:`_gpipe_ticks`; 1F1B's rotation is one batched
+  exchange a tick).  GPipe's backward is a schedule of its own
+  (:func:`loss_and_grad_gpipe`): autograd does not cross processes.  The
+  first stage owns the embedding's cotangents, the last the head's, the
+  loss sums and the valid count's divide; ``embed``/``ln_f``/``lm_head``
+  are held by every stage and their gradients summed over ``pp``.
 * ``sp``: ``attn_impl`` ``"ring"``, ``"ring_flash"`` or ``"auto"`` split
   the sequence over the ``sp`` ranks (inside each pipeline stage too).
 * ``dp``, ``ep``, ``tp`` in one process change no number (GSPMD's layouts
@@ -36,8 +45,13 @@ The mesh axes (``parallel.mesh.training_mesh``, entered with
   ``models/moe.py``'s exchange).  Under a process group whose ``dp``,
   ``ep`` or ``sp`` crosses ranks, each rank computes on its own rows or
   sequence part: the loss is the global nll sum over the global valid
-  count (two scalars all-reduced), and the gradients are all-reduced
-  before the clip, so the global-norm clip sees the global gradient.
+  count (two scalars all-reduced over those ranks), and each gradient is
+  summed over the ranks holding the same shard of it before the clip
+  (:func:`_reduce_grads`).  Where ``tp`` crosses ranks each rank computes
+  its shard's products (``models/transformer.py``), and the ``tp`` ranks
+  compute the same loss.  The global-norm clip sums squared norms over
+  every rank, a leaf held whole by several counted once; AdamW is
+  elementwise, so each rank updates its own shard.
 
 ``frontier_sweep`` measures the train step over batch x length x remat
 policy.
@@ -57,7 +71,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .models import transformer as tfm
 from .models.transformer import Params, TransformerConfig, shard
-from .parallel.mesh import Mesh, get_mesh
+from .parallel.mesh import DATA_AXES, Mesh, get_mesh
 
 _log = logging.getLogger("tensorframes_tpu_torch.train")
 
@@ -150,14 +164,19 @@ def make_schedule(tcfg: TrainConfig) -> Union[float, Callable[[int], float]]:
     )
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: each ``g`` stays when the
     global norm is below ``max_norm`` and becomes ``g / norm * max_norm``
-    otherwise.  Decided on the device, with no host sync."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    otherwise.  Decided on the device, with no host sync.  ``norm``: the
+    global norm where ``grads`` are one rank's shards (None: theirs).
+    Returns the norm."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
 
 
 class OptState:
@@ -171,6 +190,7 @@ class OptState:
     def __init__(self, tcfg: TrainConfig, params: Params):
         self.tcfg = tcfg
         self.schedule = make_schedule(tcfg)
+        self.paths = [k for k, _ in param_leaves(params)]
         self.leaves = [p for _, p in param_leaves(params)]
         for p in self.leaves:
             p.requires_grad_(True)
@@ -179,19 +199,22 @@ class OptState:
             eps=tcfg.eps, weight_decay=tcfg.weight_decay,
         )
         self.count = 0
+        self.grad_norm: Optional[torch.Tensor] = None  # the last update's
 
     def lr(self, count: int) -> float:
         s = self.schedule
         return float(s(count)) if callable(s) else float(s)
 
-    def apply_gradients(self) -> None:
-        """Clip the leaves' ``.grad``, apply one AdamW update at the
-        schedule's rate for this count, and clear the gradients."""
+    def apply_gradients(self, norm: Optional[torch.Tensor] = None) -> None:
+        """Clip the leaves' ``.grad`` (by ``norm``, the global norm over
+        every rank's shards, where given), apply one AdamW update at the
+        schedule's rate for this count, and clear the gradients.  AdamW is
+        elementwise: each rank updates its own shard."""
         grads = [p.grad for p in self.leaves]
         if any(g is None for g in grads):
             raise RuntimeError("apply_gradients: a param leaf has no gradient")
         with torch.no_grad():
-            clip_by_global_norm_(grads, self.tcfg.grad_clip)
+            self.grad_norm = clip_by_global_norm_(grads, self.tcfg.grad_clip, norm)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr(self.count)
         self.optimizer.step()
@@ -199,7 +222,16 @@ class OptState:
         self.count += 1
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+        """The optimizer's state and the count.  Adam's moments carry
+        their param's shard cuts (``_tfs_shard``), so a checkpoint gathers
+        and restores them as it does the params."""
+        sd = self.optimizer.state_dict()
+        for i, p in enumerate(self.leaves):
+            cuts = getattr(p, "_tfs_shard", None)
+            for v in sd["state"].get(i, {}).values():
+                if cuts is not None and isinstance(v, torch.Tensor) and v.shape == p.shape:
+                    v._tfs_shard = cuts
+        return {"optimizer": sd, "count": self.count}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
@@ -260,6 +292,65 @@ def _stages(blocks: Params, n_layers: int, stages: int) -> List[Params]:
     return [{k: v[s] for k, v in split.items()} for s in range(stages)]
 
 
+class _PipeLinks:
+    """The stages ``lo .. hi-1`` this rank holds of ``S`` (all of them in
+    one process), and the ranks holding the stage before ``lo`` and the
+    one after ``hi - 1`` where the ``pp`` axis crosses ranks (None at the
+    ends, and in one process)."""
+
+    def __init__(self, mesh: Mesh, S: int):
+        crosses = mesh.crosses("pp")
+        lo, k = mesh.held("pp") if crosses else (0, S)
+        self.lo, self.hi = lo, lo + k
+        self.prev = mesh.rank_at("pp", lo - 1) if crosses and lo > 0 else None
+        self.next = mesh.rank_at("pp", self.hi) if crosses and self.hi < S else None
+
+    def local_stages(self, blocks: Params, cfg: TransformerConfig, S: int) -> List[Params]:
+        """This rank's stages' block dicts, from the blocks it holds."""
+        held = self.hi - self.lo
+        layers = cfg.n_layers // S * held
+        have = next(iter(blocks.values())).shape[0]
+        if have != layers:
+            raise ValueError(
+                f"the blocks hold {have} layers, and this rank's {held} of "
+                f"{S} pipeline stages {layers}: cut each rank's shard with "
+                f"transformer.shard_params(params, cfg) or "
+                f"convert.params_from_numpy(..., mesh=mesh) under the mesh"
+            )
+        return _stages(blocks, layers, held)
+
+
+def _gpipe_ticks(run, first, links: _PipeLinks, S: int, M: int, shape, dtype, dev):
+    """JAX's M+S-1-tick GPipe schedule over this rank's stages: at tick t
+    stage s runs microbatch t-s (``run(s, m, input) -> output``) on
+    ``first[m]`` (stage 0) or on what stage s-1 handed on the tick
+    before: a re-index in this process, a receive from ``links.prev``
+    where stage s-1 is on another rank (and a send to ``links.next`` for
+    this rank's last stage).  Both sides know from the schedule which
+    ticks carry a microbatch: bubble ticks move nothing.  Returns this
+    rank's last stage's output by microbatch."""
+    from .parallel.collectives import p2p
+
+    buf: Dict[int, torch.Tensor] = {}
+    last: Dict[int, torch.Tensor] = {}
+    for t in range(M + S - 1):
+        if links.prev is not None and 0 <= t - links.lo < M:
+            (buf[links.lo],) = p2p([], [(shape, dtype, links.prev)], dev)
+        ys: Dict[int, torch.Tensor] = {}
+        for s in range(links.lo, links.hi):
+            m = t - s
+            if 0 <= m < M:  # else a bubble tick: this stage holds no microbatch
+                ys[s] = run(s, m, first[m] if s == 0 else buf[s])
+        y = ys.get(links.hi - 1)
+        if y is not None:
+            if links.next is not None:
+                p2p([(y, links.next)], [], dev)
+            last[t - (links.hi - 1)] = y
+        # the pp ring: stage s+1 takes stage s's output next tick
+        buf = {s + 1: y for s, y in ys.items()}
+    return last
+
+
 def pipelined_blocks(
     blocks: Params,
     x: torch.Tensor,
@@ -285,7 +376,14 @@ def pipelined_blocks(
     is the backward.  Under an ``sp`` axis above 1 with ``attn_impl``
     ``ring``/``ring_flash`` each stage body runs the ring over the ``sp``
     ranks (a MoE stage then routes each sp chunk on its own, as JAX's
-    sp-manual body does)."""
+    sp-manual body does).
+
+    Where ``pp`` crosses ranks, each rank runs its own stages, handing
+    activations to its neighbours (:func:`_gpipe_ticks`), and the last
+    stage's output and the aux are shared over the ``pp`` ranks.  Autograd
+    does not cross processes, so this is a forward only (under
+    ``torch.no_grad``); :func:`loss_and_grad_gpipe` and the train step
+    run its backward."""
     if mesh is None:
         mesh = get_mesh()
     S, M = stages, microbatches
@@ -301,38 +399,50 @@ def pipelined_blocks(
             f"pp_stages={S} does not match the mesh's pp axis size "
             f"{mesh.shape['pp']}; one pipeline stage per pp device"
         )
+    crosses = mesh.crosses("pp")
+    if crosses and torch.is_grad_enabled():
+        raise ValueError(
+            "the mesh's pp axis crosses ranks and autograd does not cross "
+            "processes: run this forward under torch.no_grad(), and train "
+            "through make_train_step or loss_and_grad_gpipe"
+        )
     from .models.moe import SP_LOCAL_AUX
 
-    stage_blocks = _stages(blocks, cfg.n_layers, S)
+    links = _PipeLinks(mesh, S)
+    stage_blocks = links.local_stages(blocks, cfg, S)
     x_mb = x.reshape(M, B // M, L, D).unbind(0)
     pos_mb = positions.reshape(M, B // M, L).unbind(0)
-    sp_manual = (
+    aux = {s: torch.zeros((), dtype=torch.float32, device=x.device)
+           for s in range(links.lo, links.hi)}
+
+    def run(s, m, inp):
+        y, a = tfm.apply_blocks(stage_blocks[s - links.lo], inp, pos_mb[m], cfg, True)
+        aux[s] = aux[s] + a
+        return y
+
+    token = SP_LOCAL_AUX.set(_sp_manual(cfg, mesh))
+    try:
+        last = _gpipe_ticks(run, x_mb, links, S, M, (B // M, L, D), x.dtype, x.device)
+    finally:
+        SP_LOCAL_AUX.reset(token)
+    total_aux = sum(aux.values()) / M
+    if not crosses:
+        return torch.cat([last[m] for m in range(M)], 0), total_aux
+    from .parallel.collectives import all_reduce_sum_, broadcast_
+
+    out = torch.cat([last[m] for m in range(M)], 0) if links.hi == S else torch.empty_like(x)
+    group = mesh.group("pp")
+    broadcast_(out, mesh.rank_at("pp", S - 1), group)
+    return out, all_reduce_sum_(total_aux.detach().clone(), group)
+
+
+def _sp_manual(cfg: TransformerConfig, mesh: Mesh) -> bool:
+    """Whether the stage bodies run ring attention over an ``sp`` axis."""
+    return (
         cfg.attn_impl in ("ring", "ring_flash")
         and "sp" in mesh.axis_names
         and mesh.shape["sp"] > 1
     )
-    token = SP_LOCAL_AUX.set(sp_manual)
-    try:
-        buf: List[Optional[torch.Tensor]] = [None] * S
-        outs: List[Optional[torch.Tensor]] = [None] * M
-        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for _ in range(S)]
-        for t in range(M + S - 1):
-            ys: List[Optional[torch.Tensor]] = [None] * S
-            for s in range(S):
-                m = t - s
-                if not 0 <= m < M:
-                    continue  # a bubble tick: this stage holds no microbatch
-                inp = x_mb[m] if s == 0 else buf[s]
-                ys[s], a = tfm.apply_blocks(stage_blocks[s], inp, pos_mb[m], cfg, True)
-                aux[s] = aux[s] + a
-            outs_t = t - (S - 1)
-            if outs_t >= 0:
-                outs[outs_t] = ys[S - 1]
-            # the pp ring: stage s+1 takes stage s's output next tick
-            buf = [None] + ys[:-1]
-    finally:
-        SP_LOCAL_AUX.reset(token)
-    return torch.cat(outs, 0), sum(aux) / M
 
 
 def _pipeline_runner(tcfg: TrainConfig):
@@ -365,6 +475,250 @@ def loss_pipelined(params, tokens, targets, cfg, tcfg):
     return tfm.loss_fn(
         params, tokens, targets, cfg, blocks_runner=_pipeline_runner(tcfg)
     )
+
+
+# ---------------------------------------------------------------------------
+# gradients across ranks
+# ---------------------------------------------------------------------------
+
+
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (a copy); ``t`` itself
+    where the group is None (its ranks are this rank alone)."""
+    if group is None:
+        return t
+    from .parallel.collectives import all_reduce_sum_
+
+    return all_reduce_sum_(t.detach().clone(), group)
+
+
+def _reduce_grads(grads: Dict[str, torch.Tensor], mesh: Optional[Mesh], cfg: TransformerConfig) -> None:
+    """Complete each rank's gradients (by :func:`param_leaves` path), in
+    place: ``embed``/``ln_f``/``lm_head`` summed over the ``pp`` ranks
+    (zeros where a stage does not use them), ``wk``/``wv`` over the ``tp``
+    ranks where each computes the kv heads its query heads read, and
+    every leaf over the ranks holding the same shard of it with other
+    rows (the ``dp``/``ep``/``sp`` ranks).  One flat all-reduce a group."""
+    if mesh is None or mesh.world == 1:
+        return
+    from .parallel.collectives import all_reduce_sum_
+
+    def flat_sum(paths, group):
+        if group is None or not paths:
+            return
+        gs = [grads[p] for p in paths]
+        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in gs]), group)
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view_as(g))
+
+    if mesh.crosses("pp"):
+        flat_sum([p for p in grads if not p.startswith("blocks.")], mesh.group("pp"))
+    tp = tfm.tp_share(cfg, mesh)
+    if tp is not None and tp.heads and not tp.kv:
+        flat_sum([p for p in ("blocks.wk", "blocks.wv") if p in grads], tp.group)
+    flat_sum(list(grads), mesh.group(DATA_AXES))
+
+
+def _global_grad_norm(leaves: Sequence[Tuple[str, torch.Tensor]], mesh: Optional[Mesh]):
+    """The global gradient norm over every rank's shards (None in one
+    process: the optimizer computes it).  A leaf held whole by several
+    ranks (over the data axes, and over ``pp``/``tp`` where they do not
+    cut it: ``_tfs_shard``) counts once, from the first of them."""
+    if mesh is None or mesh.world == 1:
+        return None
+    from .parallel.collectives import all_reduce_sum_
+
+    own = []
+    for _path, p in leaves:
+        cut_by = {axis for _dim, axis, *_ in getattr(p, "_tfs_shard", ())}
+        held_whole = list(DATA_AXES) + [a for a in ("pp", "tp") if a not in cut_by]
+        if mesh.axis_ranks(held_whole)[0] == mesh.rank:
+            own.append(p.grad)
+    dev = leaves[0][1].device
+    sq = sum(torch.sum(g * g) for g in own) if own else torch.zeros((), device=dev)
+    return torch.sqrt(all_reduce_sum_(sq.float().reshape(()).clone()))
+
+
+def _rank_loss(params, tokens, targets, cfg, mesh: Mesh, positions=None, segments=None,
+               blocks_runner=None):
+    """Under a process group: ``(this rank's term, the global loss)``.
+    The terms sum over the ranks that hold other rows or sequence parts
+    (the ``dp``/``ep``/``sp`` ranks) to the global loss, the nll sum over
+    the global valid count (all-reduced) plus the MoE aux (already global,
+    so a rank adds its share); the sum of the terms' gradients over those
+    ranks is the global gradient.  Ranks of ``tp`` compute the same
+    term."""
+    data = mesh.group(DATA_AXES)
+    nll, count, aux = tfm.loss_terms(
+        params, tokens, targets, cfg, blocks_runner, positions, segments
+    )
+    total = torch.clamp_min(_sum_over(count.detach(), data), 1)
+    term = nll / total
+    if cfg.moe_experts:
+        share = len(mesh.axis_ranks(DATA_AXES))
+        term = term + aux * float(np.float32(cfg.moe_aux_coef)) / share
+    return term, _sum_over(term.detach(), data)
+
+
+def _stacked(stage_grads, local_blocks: Params) -> Dict[str, torch.Tensor]:
+    """This rank's stages' gradients stacked into its blocks' layout."""
+    return {
+        f"blocks.{k}": torch.stack([g[k] for g in stage_grads]).reshape(v.shape)
+        for k, v in local_blocks.items()
+    }
+
+
+def loss_and_grad_gpipe(
+    params: Params,
+    tokens: torch.Tensor,
+    targets: torch.Tensor,
+    cfg: TransformerConfig,
+    tcfg: TrainConfig,
+    mesh: Optional[Mesh] = None,
+):
+    """The GPipe step's mean-CE loss (plus the MoE aux) and gradients (a
+    tree shaped like ``params``: this rank's shard, complete), over the
+    ``pp`` axis of ``mesh`` (default: the ambient mesh).
+
+    In one process this is autograd through :func:`loss_pipelined`.
+    Where ``pp`` crosses ranks the backward is a schedule of its own,
+    since autograd does not cross processes: the forward ticks
+    (:func:`_gpipe_ticks`) keep each stage's input (a leaf) and output
+    a microbatch; the last stage runs ``ln_f``, the head and the loss
+    and differentiates them; then in reverse tick order each rank runs
+    ``torch.autograd.backward`` from each of its stages' outputs with the
+    cotangent the next stage handed back (a MoE stage's aux term with
+    it), and hands its input's cotangent to the stage before.  The first
+    stage owns the embedding's cotangents, the last the head's; the loss
+    is shared over the ``pp`` ranks."""
+    if mesh is None:
+        mesh = get_mesh()
+    S, M = tcfg.pp_stages, tcfg.microbatches
+    if not (mesh is not None and mesh.crosses("pp")):
+        leaves = [p.detach().requires_grad_() for _, p in param_leaves(params)]
+        tree = _grads_like(params, leaves)
+        with torch.enable_grad():
+            if mesh is not None and mesh.world > 1:
+                term, loss = _rank_loss(tree, tokens, targets, cfg, mesh,
+                                        blocks_runner=_pipeline_runner(tcfg))
+            else:
+                term = loss = loss_pipelined(tree, tokens, targets, cfg, tcfg)
+            grads = torch.autograd.grad(term, leaves)
+        by_path = {p: g for (p, _), g in zip(param_leaves(params), grads)}
+        _reduce_grads(by_path, mesh, cfg)
+        return loss.detach(), _grads_like(params, [by_path[p] for p, _ in param_leaves(params)])
+    if mesh.shape["pp"] != S:
+        raise ValueError(
+            f"pp_stages={S} does not match the mesh's pp axis size "
+            f"{mesh.shape['pp']}; one pipeline stage per pp device"
+        )
+    if cfg.n_layers % S:
+        raise ValueError(f"pp_stages {S} must divide n_layers {cfg.n_layers}")
+    B, L = tokens.shape
+    if B % M:
+        raise ValueError(f"microbatches {M} must divide batch {B}")
+    from .models.moe import SP_LOCAL_AUX
+    from .parallel.collectives import p2p
+
+    L_all, offset = tfm._sequence_share(L)
+    rcfg = tfm.resolved_config(cfg, L_all)
+    if L_all != L and rcfg.attn_impl not in ("ring", "ring_flash"):
+        raise ValueError(
+            f"attn_impl={rcfg.attn_impl!r} attends over the whole sequence, "
+            f"but the mesh's sp axis splits it across ranks: use "
+            f"attn_impl='ring', 'ring_flash' or 'auto'"
+        )
+    links = _PipeLinks(mesh, S)
+    lo, hi = links.lo, links.hi
+    mb, D, dt, dev = B // M, cfg.d_model, cfg.dtype, tokens.device
+    shape = (mb, L, D)
+    positions = torch.arange(offset, offset + L, dtype=torch.int32, device=dev).expand(mb, L)
+    stage_blocks = [
+        {k: v.detach().requires_grad_() for k, v in bp.items()}
+        for bp in links.local_stages(params["blocks"], cfg, S)
+    ]
+    data = mesh.group(DATA_AXES)
+    denom = torch.clamp_min(_sum_over((targets >= 0).sum(), data), 1).float()
+    coef = float(np.float32(cfg.moe_aux_coef)) if cfg.moe_experts else 0.0
+    aux_ct = torch.tensor(coef / M / len(mesh.axis_ranks(DATA_AXES)), device=dev)
+
+    x = x_mb = emb = None
+    if lo == 0:  # the first stage owns the embedding
+        emb = params["embed"].detach().requires_grad_()
+        with torch.enable_grad():
+            x = tfm.embed_tokens(emb, tokens, rcfg)
+        x_mb = x.reshape(M, mb, L, D).unbind(0)
+    graph: Dict[Tuple[int, int], tuple] = {}
+    inputs: Dict[Tuple[int, int], torch.Tensor] = {}
+    aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def run(s, m, inp):
+        nonlocal aux_sum
+        leaf = inp.detach().requires_grad_()
+        with torch.enable_grad():
+            y, a = tfm.apply_blocks(stage_blocks[s - lo], leaf, positions, rcfg, True)
+        inputs[(s, m)], graph[(s, m)] = leaf, (y, a)
+        aux_sum = aux_sum + a.detach()
+        return y.detach()
+
+    token = SP_LOCAL_AUX.set(_sp_manual(rcfg, mesh))
+    try:
+        last = _gpipe_ticks(run, x_mb, links, S, M, shape, dt, dev)
+        cts: Dict[Tuple[int, int], torch.Tensor] = {}
+        nll = torch.zeros((), dtype=torch.float32, device=dev)
+        head = {}
+        if hi == S:  # the last stage: ln_f, the head and the loss
+            head = {k: params[k].detach().requires_grad_() for k in ("ln_f", "lm_head")}
+            ys = [last[m].requires_grad_() for m in range(M)]
+            with torch.enable_grad():
+                h = tfm._rms_norm(torch.cat(ys, 0), head["ln_f"])
+                nll, _ = tfm.head_nll_sum_and_count(h, head["lm_head"], targets, rcfg)
+                (nll / denom).backward()
+            nll = nll.detach()
+            cts.update({(S - 1, m): ys[m].grad for m in range(M)})
+        # the backward ticks, last to first
+        dx0: Dict[int, torch.Tensor] = {}
+        for t in reversed(range(M + S - 1)):
+            if links.next is not None and 0 <= t - (hi - 1) < M:
+                (cts[(hi - 1, t - (hi - 1))],) = p2p([], [(shape, dt, links.next)], dev)
+            for s in reversed(range(lo, hi)):
+                m = t - s
+                if not 0 <= m < M:
+                    continue
+                y, a = graph.pop((s, m))
+                outs, grads = [y], [cts.pop((s, m)).to(y.dtype)]
+                if coef:
+                    outs.append(a)
+                    grads.append(aux_ct)
+                torch.autograd.backward(outs, grads)
+                dx = inputs.pop((s, m)).grad
+                if s > lo:
+                    cts[(s - 1, m)] = dx
+                elif s > 0:
+                    p2p([(dx, links.prev)], [], dev)
+                else:
+                    dx0[m] = dx
+    finally:
+        SP_LOCAL_AUX.reset(token)
+    grads: Dict[str, torch.Tensor] = {}
+    if lo == 0:
+        torch.autograd.backward(x, torch.cat([dx0[m] for m in range(M)], 0))
+        grads["embed"] = emb.grad
+    else:
+        grads["embed"] = torch.zeros_like(params["embed"])
+    for k in ("ln_f", "lm_head"):
+        grads[k] = head[k].grad if k in head else torch.zeros_like(params[k])
+    grads.update(_stacked(
+        [{k: v.grad if v.grad is not None else torch.zeros_like(v) for k, v in bp.items()}
+         for bp in stage_blocks],
+        params["blocks"],
+    ))
+    _reduce_grads(grads, mesh, cfg)
+    loss = _sum_over(nll, data) / denom
+    if coef:
+        loss = loss + aux_sum * coef / M
+    loss = _sum_over(loss, mesh.group("pp"))
+    return loss, _grads_like(params, [grads[p] for p, _ in param_leaves(params)])
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +787,12 @@ def loss_and_grad_1f1b(
     ring at once.  Sums accumulate across microbatches; one global
     valid-count divide at the end.  The same gradients as the single-stage
     ``loss_fn``.  Restrictions, as JAX's: dense models, no ``ce_chunk``, no
-    sp ring inside the stages, no ``tp``."""
+    sp ring inside the stages, no ``tp``.
+
+    Where ``pp`` crosses ranks each rank runs its own stages, and the
+    rotation of activations forward and cotangents backward is one
+    batched exchange a tick with its neighbours; the returned gradients
+    are this rank's shard, complete over the ranks."""
     _check_1f1b(cfg)
     if mesh is None:
         mesh = get_mesh()
@@ -451,11 +810,7 @@ def loss_and_grad_1f1b(
             f"pp_stages={S} does not match the mesh's pp axis size "
             f"{mesh.shape['pp']}"
         )
-    if (
-        cfg.attn_impl in ("ring", "ring_flash")
-        and "sp" in mesh.axis_names
-        and mesh.shape["sp"] > 1
-    ):
+    if _sp_manual(cfg, mesh):
         raise ValueError(
             "pipeline_schedule='1f1b' cannot nest the sp-manual ring "
             "attention inside its per-tick vjp; use the GPipe schedule "
@@ -473,36 +828,43 @@ def loss_and_grad_1f1b(
     B, L = tokens.shape
     if B % M:
         raise ValueError(f"microbatches {M} must divide batch {B}")
+    from .parallel.collectives import p2p
+
     mb, D, dt = B // M, cfg.d_model, cfg.dtype
     K = min(M, 2 * S - 1)  # in-flight stage inputs (the 1F1B bound)
     dev = tokens.device
+    links = _PipeLinks(mesh, S)
+    lo, hi = links.lo, links.hi
+    data = mesh.group(DATA_AXES)
+    denom = torch.clamp_min(_sum_over((targets >= 0).sum(), data), 1).float()
 
-    with torch.no_grad():
-        x = tfm.embed_lookup(params["embed"], tokens, dt)
-    x_mb = x.reshape(M, mb, L, D).unbind(0)
+    x_mb = None
+    if lo == 0:
+        with torch.no_grad():
+            x = tfm.embed_lookup(params["embed"], tokens, dt)
+        x_mb = x.reshape(M, mb, L, D).unbind(0)
     positions = torch.arange(L, dtype=torch.int32, device=dev).expand(mb, L)
     tgt_mb = targets.reshape(M, mb, L).unbind(0)
-    stage_blocks = [
-        {k: v.detach() for k, v in bp.items()}
-        for bp in _stages(params["blocks"], cfg.n_layers, S)
-    ]
+    stage_blocks = {
+        lo + i: {k: v.detach() for k, v in bp.items()}
+        for i, bp in enumerate(links.local_stages(params["blocks"], cfg, S))
+    }
     head = {k: params[k].detach().requires_grad_() for k in ("ln_f", "lm_head")}
 
     def stage_fn(bp, xx):
         return tfm.apply_blocks(bp, xx, positions, cfg)[0]
 
-    fwd_buf: List[Optional[torch.Tensor]] = [None] * S
-    bwd_buf: List[Optional[torch.Tensor]] = [None] * S
-    acts: List[List[Optional[torch.Tensor]]] = [[None] * K for _ in range(S)]
-    g_stage: List[Optional[List[torch.Tensor]]] = [None] * S
+    fwd_buf: Dict[int, torch.Tensor] = {}
+    bwd_buf: Dict[int, torch.Tensor] = {}
+    acts = {s: [None] * K for s in range(lo, hi)}
+    g_stage: Dict[int, List[torch.Tensor]] = {}
     g_head: Optional[List[torch.Tensor]] = None
     dx0: List[Optional[torch.Tensor]] = [None] * M
     nll_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    v_sum = torch.zeros((), dtype=torch.float32, device=dev)
     for t in range(M + 2 * (S - 1)):
-        new_fwd: List[Optional[torch.Tensor]] = [None] * S
-        new_bwd: List[Optional[torch.Tensor]] = [None] * S
-        for s in range(S):
+        new_fwd: Dict[int, torch.Tensor] = {}
+        new_bwd: Dict[int, torch.Tensor] = {}
+        for s in range(lo, hi):
             # ---- forward half: stage s runs microbatch t - s ----
             mf = t - s
             dy = None
@@ -517,12 +879,11 @@ def loss_and_grad_1f1b(
                     with torch.enable_grad():
                         h = tfm._rms_norm(yy, head["ln_f"])
                         logits = tfm.lm_head_logits(h, head["lm_head"], dt)
-                        nll, vc = tfm.nll_sum_and_count(logits, tgt_mb[mf])
+                        nll, _ = tfm.nll_sum_and_count(logits, tgt_mb[mf])
                         *dh, dy = torch.autograd.grad(
                             nll, [head["ln_f"], head["lm_head"], yy]
                         )
                     nll_sum = nll_sum + nll.detach()
-                    v_sum = v_sum + vc.float()
                     g_head = dh if g_head is None else [a + b for a, b in zip(g_head, dh)]
                 else:
                     new_fwd[s + 1] = y
@@ -537,36 +898,54 @@ def loss_and_grad_1f1b(
                     *dbp, dx = torch.autograd.grad(
                         y, [*bp.values(), x_saved], ct.to(y.dtype)
                     )
-                g_stage[s] = dbp if g_stage[s] is None else [
+                g_stage[s] = dbp if s not in g_stage else [
                     a + b for a, b in zip(g_stage[s], dbp)
                 ]
                 if s == 0:
                     dx0[tb] = dx
                 else:
                     new_bwd[s - 1] = dx
-        # ---- rotate activations forward, cotangents backward ----
+        # ---- rotate activations forward, cotangents backward: across
+        # ranks one batched exchange with the neighbours ----
+        sends, recvs = [], []
+        if hi in new_fwd:
+            sends.append((new_fwd.pop(hi), links.next))
+        if lo - 1 in new_bwd:
+            sends.append((new_bwd.pop(lo - 1), links.prev))
+        take_fwd = links.prev is not None and 0 <= t - (lo - 1) < M
+        take_bwd = links.next is not None and 0 <= t - (2 * (S - 1) - hi) < M
+        if take_fwd:
+            recvs.append(((mb, L, D), dt, links.prev))
+        if take_bwd:
+            recvs.append(((mb, L, D), dt, links.next))
+        if sends or recvs:
+            got = p2p(sends, recvs, dev)
+            if take_fwd:
+                new_fwd[lo] = got[0]
+            if take_bwd:
+                new_bwd[hi - 1] = got[-1]
         fwd_buf, bwd_buf = new_fwd, new_bwd
 
-    # stage 0 owns the embed cotangents: the embed's own backward
-    emb = params["embed"].detach().requires_grad_()
-    with torch.enable_grad():
-        (g_embed,) = torch.autograd.grad(
-            tfm.embed_lookup(emb, tokens, dt), [emb], torch.cat(dx0, 0)
-        )
-    names = list(stage_blocks[0])
-    g_blocks = {
-        k: torch.stack([g_stage[s][i] for s in range(S)]).reshape(params["blocks"][k].shape)
-        for i, k in enumerate(names)
-    }
-    denom = torch.clamp_min(v_sum, 1.0)
-    grads = {
-        "embed": g_embed,
-        "blocks": g_blocks,
-        "ln_f": g_head[0],
-        "lm_head": g_head[1],
-    }
-    grads = _grads_like(params, [g / denom.to(g.dtype) for _, g in param_leaves(grads)])
-    return nll_sum / denom, grads
+    grads: Dict[str, torch.Tensor] = {}
+    if lo == 0:
+        # stage 0 owns the embed cotangents: the embed's own backward
+        emb = params["embed"].detach().requires_grad_()
+        with torch.enable_grad():
+            (grads["embed"],) = torch.autograd.grad(
+                tfm.embed_lookup(emb, tokens, dt), [emb], torch.cat(dx0, 0)
+            )
+    else:
+        grads["embed"] = torch.zeros_like(params["embed"])
+    names = list(stage_blocks[lo])
+    grads.update(_stacked(
+        [dict(zip(names, g_stage[s])) for s in range(lo, hi)], params["blocks"]
+    ))
+    for i, k in enumerate(("ln_f", "lm_head")):
+        grads[k] = g_head[i] if hi == S else torch.zeros_like(params[k])
+    grads = {p: g / denom.to(g.dtype) for p, g in grads.items()}
+    _reduce_grads(grads, mesh, cfg)
+    loss = _sum_over(_sum_over(nll_sum, data) / denom, mesh.group("pp"))
+    return loss, _grads_like(params, [grads[p] for p, _ in param_leaves(params)])
 
 
 # ---------------------------------------------------------------------------
@@ -594,46 +973,6 @@ def _single_stage(cfg: TransformerConfig, tcfg: TrainConfig, tokens, warned: Lis
         _warn_single_stage(S, get_mesh())
 
 
-def _rank_loss(params, tokens, targets, cfg, mesh: Mesh, positions=None, segments=None):
-    """Under a process group whose mesh splits the batch or the sequence
-    over the ranks: ``(this rank's term, the global loss)``.  The terms sum
-    over the ranks to the global loss, the nll sum over the global valid
-    count (all-reduced) plus the MoE aux (already global, so a rank adds
-    its 1/W share); the sum of the terms' gradients is the global
-    gradient."""
-    from .parallel.collectives import all_reduce_sum_
-
-    if cfg.ce_chunk:
-        _, hidden, aux = tfm.apply(
-            params, tokens, cfg, positions=positions, return_hidden=True,
-            return_aux=True, segment_ids=segments,
-        )
-        nll, count = tfm.nll_sum_and_count_chunked(
-            hidden, params["lm_head"], targets, cfg.ce_chunk, cfg.dtype
-        )
-    else:
-        logits, aux = tfm.apply(
-            params, tokens, cfg, positions=positions, return_aux=True,
-            segment_ids=segments,
-        )
-        nll, count = tfm.nll_sum_and_count(logits, targets)
-    total = torch.clamp_min(all_reduce_sum_(count.detach().clone()), 1)
-    term = nll / total
-    if cfg.moe_experts:
-        term = term + aux * float(np.float32(cfg.moe_aux_coef)) / mesh.world
-    return term, all_reduce_sum_(term.detach().clone())
-
-
-def _all_reduce_grads(leaves: List[torch.Tensor]) -> None:
-    """Sum every leaf's ``.grad`` over the ranks: one flat all-reduce."""
-    from .parallel.collectives import all_reduce_sum_
-
-    grads = [p.grad for p in leaves]
-    flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]))
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
-
-
 def make_train_step(
     cfg: TransformerConfig, tcfg: TrainConfig, packed: bool = False
 ):
@@ -643,9 +982,12 @@ def make_train_step(
     loss is a detached device scalar (reading it syncs).
 
     The step reads the ambient mesh: ``pp_stages > 1`` over a ``pp`` axis
-    trains through :func:`loss_pipelined` (``"gpipe"``) or
+    trains through :func:`loss_pipelined` (``"gpipe"``; where ``pp``
+    crosses ranks, :func:`loss_and_grad_gpipe`) or
     :func:`loss_and_grad_1f1b` (``"1f1b"``); under a process group each
-    rank passes its own rows (or sequence part) and gets the global loss.
+    rank passes its own rows (or sequence part), holds its shard of the
+    params where ``pp`` or ``tp`` crosses ranks, and gets the global loss;
+    the global-norm clip sees the global gradient.
 
     ``packed=True``: the step takes two extra arguments ``(segments,
     positions)`` (``data.lm_split_packed``) and trains with segment-aware
@@ -663,27 +1005,44 @@ def make_train_step(
     def step(params, opt_state, tokens, targets, segments=None, positions=None):
         mesh = get_mesh()
         opt_state.optimizer.zero_grad(set_to_none=True)
-        if _pipelined(mesh, tcfg.pp_stages) and tcfg.pipeline_schedule == "1f1b":
-            loss, grads = loss_and_grad_1f1b(params, tokens, targets, cfg, tcfg)
+        piped = _pipelined(mesh, tcfg.pp_stages)
+        across = mesh is not None and mesh.world > 1
+        if mesh is not None and mesh.crosses("pp") and not piped:
+            raise ValueError(
+                f"the mesh's pp axis ({mesh.shape['pp']}) crosses ranks, so "
+                f"each rank holds only its stages' layers: train with "
+                f"pp_stages={mesh.shape['pp']}"
+            )
+        if piped and (tcfg.pipeline_schedule == "1f1b" or mesh.crosses("pp")):
+            fn = loss_and_grad_1f1b if tcfg.pipeline_schedule == "1f1b" else loss_and_grad_gpipe
+            loss, grads = fn(params, tokens, targets, cfg, tcfg)
             for p, (_, g) in zip(opt_state.leaves, param_leaves(grads)):
                 p.grad = g
-        elif _pipelined(mesh, tcfg.pp_stages):
+        elif across:
+            if tcfg.pp_stages > 1 and not piped:
+                _single_stage(cfg, tcfg, tokens, warned)
+            term, loss = _rank_loss(
+                params, tokens, targets, cfg, mesh, positions, segments,
+                _pipeline_runner(tcfg) if piped else None,
+            )
+            term.backward()
+            _reduce_grads(
+                {p: leaf.grad for (p, _), leaf in zip(param_leaves(params), opt_state.leaves)},
+                mesh, cfg,
+            )
+        elif piped:
             loss = loss_pipelined(params, tokens, targets, cfg, tcfg)
             loss.backward()
         else:
             if tcfg.pp_stages > 1:
                 _single_stage(cfg, tcfg, tokens, warned)
-            if mesh is not None and mesh.world > 1:
-                term, loss = _rank_loss(params, tokens, targets, cfg, mesh, positions, segments)
-                term.backward()
-                _all_reduce_grads(opt_state.leaves)
-            else:
-                loss = tfm.loss_fn(
-                    params, tokens, targets, cfg,
-                    positions=positions, segment_ids=segments,
-                )
-                loss.backward()
-        opt_state.apply_gradients()
+            loss = tfm.loss_fn(
+                params, tokens, targets, cfg,
+                positions=positions, segment_ids=segments,
+            )
+            loss.backward()
+        norm = _global_grad_norm(list(zip(opt_state.paths, opt_state.leaves)), mesh)
+        opt_state.apply_gradients(norm)
         return params, opt_state, loss.detach()
 
     if packed:
@@ -731,7 +1090,7 @@ def fit(
 
     if params is None:
         params = tfm.init(torch.Generator().manual_seed(rng), cfg, device=device)
-    params = tfm.shard_params(params)
+    params = tfm.shard_params(params, cfg)
     train_step, tx = make_train_step(cfg, tcfg, packed=packed)
     opt_state = tx.init(params)
     losses = []
@@ -927,6 +1286,7 @@ __all__ = [
     "FrontierPoint",
     "apply_pipelined",
     "loss_and_grad_1f1b",
+    "loss_and_grad_gpipe",
     "loss_pipelined",
     "pipelined_blocks",
     "best_frontier_point",

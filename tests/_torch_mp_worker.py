@@ -10,7 +10,14 @@ axes cross them (``dp=8``, the MoE ``dp=2, ep=2, tp=2`` step, ``ep=2``,
 ``sp=2``: the ring alone and a ring model's step), from the weights the
 parent wrote (the JAX package's, as numpy); then both see eight CUDA cards
 and build the default data mesh, which splits them between the ranks.
-Process 0 writes the results as JSON."""
+Process 0 writes the results as JSON.
+
+``python _torch_mp_worker.py pp_tp COORD PID WORLD OUT DIR`` runs the
+pipeline and tensor-parallel cases of ``tests/test_torch_pp_tp_ranks.py``
+instead: two or four ranks on training meshes whose ``pp`` and ``tp``
+cross them, each holding only its shard of the seeded weights
+(``pp_tp_weights``, the JAX layout); rank 0 writes the scalars to
+``OUT`` and the gathered gradients, logits and params under ``DIR``."""
 
 import json
 import os
@@ -115,10 +122,12 @@ def train_across_ranks(weights_dir: str, pid: int) -> dict:
         rows = slice(pid * 8, (pid + 1) * 8)  # this rank's dp or ep rows
         params = load_params(f"{weights_dir}/moe.npz", cfg)
         with set_mesh(mesh):
-            leaves = [p.requires_grad_() for _, p in train.param_leaves(params)]
+            leaves = train.param_leaves(params)
+            for _, p in leaves:
+                p.requires_grad_()
             term, loss = train._rank_loss(params, tt[rows], tg[rows], cfg, mesh)
             term.backward()
-            train._all_reduce_grads(leaves)
+            train._reduce_grads({k: p.grad for k, p in leaves}, mesh, cfg)
         out[name] = float(loss)
         out[name + "_grads"] = {
             k: params["blocks"][k].grad.flatten()[:64].tolist()
@@ -217,5 +226,200 @@ def main(coordinator: str, pid: int, out_path: str, weights_dir: str) -> None:
     multihost.shutdown()
 
 
+# the pipeline / tensor-parallel cases: ``tests/test_torch_pp_train.py``'s
+# small_cfg, and its variants by name
+PP_TP_SMALL = dict(vocab_size=97, d_model=32, n_layers=4, n_heads=4, n_kv_heads=4,
+                   d_ff=64, max_seq=32)
+PP_TP_CFGS = {
+    "dense": {},
+    "v128": {"vocab_size": 128},
+    "gqa": {"n_kv_heads": 1, "n_layers": 2},
+    "moe": {"moe_experts": 4, "moe_top_k": 2, "moe_capacity_factor": 8.0, "n_layers": 2},
+}
+
+
+def pp_tp_cfg(name: str, **over):
+    """A case's port config (f32 activations)."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    return tfm.TransformerConfig(**{**PP_TP_SMALL, **PP_TP_CFGS[name], "dtype": torch.float32,
+                                    **over})
+
+
+def pp_tp_weights(name: str) -> dict:
+    """Seeded weights of a case's config in the JAX layout and scaling
+    (normal times sqrt(1/fan_in), ones for the norms), as numpy: both
+    packages are fed this one tree."""
+    from tensorframes_tpu_torch.models import transformer as tfm
+
+    cfg = pp_tp_cfg(name)
+    rng = np.random.RandomState(sorted(PP_TP_CFGS).index(name))
+    fan_in = {"wo": cfg.d_model, "w_down": cfg.d_ff, "we_down": cfg.moe_d_ff or cfg.d_ff}
+
+    def leaf(k, shape):
+        if k in ("ln1", "ln2", "ln_f"):
+            return np.ones(shape, np.float32)
+        fan = fan_in.get(k, cfg.d_model)
+        return (rng.randn(*shape) * np.sqrt(1.0 / fan)).astype(np.float32)
+
+    shapes = tfm.param_shapes(cfg)
+    return {
+        "embed": leaf("embed", shapes["embed"]),
+        "blocks": {k: leaf(k, s) for k, s in sorted(shapes["blocks"].items())},
+        "ln_f": leaf("ln_f", shapes["ln_f"]),
+        "lm_head": leaf("lm_head", shapes["lm_head"]),
+    }
+
+
+def pp_tp_tokens():
+    """The [8, 16] token batch and its targets (next token, wrapping)."""
+    rng = np.random.RandomState(11)
+    toks = rng.randint(0, 97, (8, 16)).astype(np.int64)
+    return toks, np.roll(toks, -1, axis=1)
+
+
+def _flat_np(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_np(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v.detach().cpu().numpy()
+    return out
+
+
+def pp_tp_cases(world: int, pid: int, out_dir: str) -> dict:
+    """Run this launch's cases; every rank runs every collective.
+    Returns the scalars (rank 0 also writes each case's gathered arrays
+    as ``<case>.npz`` under ``out_dir``)."""
+    from tensorframes_tpu_torch import TensorFrame, data, train
+    from tensorframes_tpu_torch.checkpoint import Checkpointer
+    from tensorframes_tpu_torch.models import convert
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import multihost
+    from tensorframes_tpu_torch.parallel.mesh import set_mesh, training_mesh
+
+    toks, tgts = (torch.from_numpy(a) for a in pp_tp_tokens())
+    out = {}
+
+    def save(case, **arrays):
+        if pid == 0:
+            np.savez(os.path.join(out_dir, f"{case}.npz"), **arrays)
+
+    def local_shapes(params):
+        shapes = {k: list(v.shape) for k, v in _flat_np(params).items()}
+        return multihost._all_gather_objects(shapes)
+
+    def grads_case(case, name, mesh, tcfg, rows=slice(None), part=slice(None), fn=None,
+                   logits=False, **over):
+        cfg = pp_tp_cfg(name, **over)
+        params = convert.params_from_numpy(pp_tp_weights(name), cfg, device="cpu", mesh=mesh)
+        with set_mesh(mesh):
+            fn = fn or train.loss_and_grad_gpipe
+            loss, grads = fn(params, toks[rows, part].contiguous(), tgts[rows, part].contiguous(),
+                             cfg, tcfg)
+            gathered = tfm.gather_params(grads, mesh, like=params)
+            arrays = {f"grad.{k}": v for k, v in _flat_np(gathered).items()}
+            if logits:
+                with torch.no_grad():
+                    if tcfg.pp_stages > 1:
+                        lg = train.apply_pipelined(params, toks, cfg, tcfg)
+                    else:
+                        lg = tfm.apply(params, toks, cfg)
+                arrays["logits"] = lg.numpy()
+        save(case, **arrays)
+        out[case] = {"loss": float(loss), "shapes": local_shapes(params),
+                     "crosses": [a for a in mesh.axis_names if mesh.crosses(a)]}
+        return cfg, params
+
+    gpipe = lambda S, M=2: train.TrainConfig(pp_stages=S, microbatches=M)  # noqa: E731
+    one_f = lambda S, M=2: train.TrainConfig(pp_stages=S, microbatches=M,  # noqa: E731
+                                             pipeline_schedule="1f1b")
+    if world == 2:
+        grads_case("gpipe_pp2", "dense", training_mesh(pp=2, device="cpu"), gpipe(2))
+        grads_case("1f1b_pp2", "dense", training_mesh(pp=2, device="cpu"), one_f(2),
+                   fn=train.loss_and_grad_1f1b)
+        grads_case("gpipe_pp4", "dense", training_mesh(pp=4, device="cpu"), gpipe(4))
+        grads_case("1f1b_pp4", "dense", training_mesh(pp=4, device="cpu"), one_f(4, 4),
+                   fn=train.loss_and_grad_1f1b)
+        for case, name in (("tp_v97", "dense"), ("tp_v128", "v128"), ("tp_gqa", "gqa"),
+                           ("tp_moe", "moe")):
+            grads_case(case, name, training_mesh(tp=2, device="cpu"), train.TrainConfig(),
+                       logits=case in ("tp_v97", "tp_v128"))
+        # 1F1B refuses a tp mesh with JAX's text (pp crosses the ranks here)
+        cfg = pp_tp_cfg("dense")
+        mesh = training_mesh(pp=2, tp=2, device="cpu")
+        params = convert.params_from_numpy(pp_tp_weights("dense"), cfg, device="cpu", mesh=mesh)
+        try:
+            with set_mesh(mesh):
+                train.loss_and_grad_1f1b(params, toks, tgts, cfg, one_f(2))
+            out["1f1b_tp_error"] = None
+        except ValueError as e:
+            out["1f1b_tp_error"] = str(e)
+        # one optimizer step under pp=2: the gathered params after it
+        mesh = training_mesh(pp=2, device="cpu")
+        params = convert.params_from_numpy(pp_tp_weights("dense"), cfg, device="cpu", mesh=mesh)
+        with set_mesh(mesh):
+            step, tx = train.make_train_step(cfg, gpipe(2))
+            state = tx.init(params)
+            _, _, loss = step(params, state, toks, tgts)
+            save("step", **{f"param.{k}": v for k, v in
+                            _flat_np(tfm.gather_params(params, mesh)).items()})
+        adam = {train.param_leaves(params)[i][0]: list(st["exp_avg"].shape)
+                for i, st in state.state_dict()["optimizer"]["state"].items()}
+        out["step"] = {"loss": float(loss), "shapes": local_shapes(params),
+                       "adam_shapes": multihost._all_gather_objects(adam),
+                       "grad_norm": float(state.grad_norm)}
+        return out
+
+    # four ranks
+    cfg, params = grads_case("gpipe_pp2_tp2", "v128", training_mesh(pp=2, tp=2, device="cpu"),
+                             gpipe(2), logits=True)
+    mesh = training_mesh(pp=2, dp=2, device="cpu")
+    frame = TensorFrame.from_arrays({"tokens": np.concatenate([toks, toks[:, :1]], 1)})
+    loader = data.FrameLoader(frame, batch_size=8, mesh=mesh, spec=("dp", None), device="cpu")
+    batch = next(iter(loader))
+    out["loader_pp_dp"] = multihost._all_gather_objects(batch["tokens"][:, 0].tolist())
+    rows = slice(mesh.held("dp")[0] * 4, mesh.held("dp")[0] * 4 + 4)
+    grads_case("1f1b_pp2_dp2", "dense", mesh, one_f(2), rows=rows, fn=train.loss_and_grad_1f1b)
+    mesh = training_mesh(pp=2, sp=2, device="cpu")
+    part = slice(mesh.held("sp")[0] * 8, mesh.held("sp")[0] * 8 + 8)
+    grads_case("gpipe_pp2_sp2", "dense", mesh, gpipe(2), part=part, attn_impl="ring")
+    # the checkpoint of the pp=2 x tp=2 shards, gathered and written by rank 0
+    mesh = training_mesh(pp=2, tp=2, device="cpu")
+    loader = data.FrameLoader(frame, batch_size=8, mesh=mesh, spec=("dp", None), device="cpu")
+    out["loader_pp_tp"] = multihost._all_gather_objects(
+        next(iter(loader))["tokens"][:, 0].tolist())
+    with set_mesh(mesh):
+        step, tx = train.make_train_step(cfg, gpipe(2))
+        state = tx.init(params)
+        step(params, state, toks, tgts)
+        ck = Checkpointer(os.path.join(out_dir, "ckpt"))
+        ck.save(1, {"params": params, "opt": state.state_dict()})
+        whole = tfm.gather_params(params, mesh)
+        save("ckpt_whole", **{f"param.{k}": v for k, v in _flat_np(whole).items()})
+        back = ck.restore(1, target={"params": params, "opt": state.state_dict()})
+    flat_back, flat_own = _flat_np(back["params"]), _flat_np(params)
+    out["restore_own_shard"] = all(np.array_equal(flat_back[k], flat_own[k]) for k in flat_own)
+    out["restore_own_adam"] = all(
+        torch.equal(back["opt"]["optimizer"]["state"][i]["exp_avg"], st["exp_avg"])
+        for i, st in state.optimizer.state_dict()["state"].items())
+    return out
+
+
+def pp_tp_main(coordinator: str, pid: int, world: int, out_path: str, out_dir: str) -> None:
+    from tensorframes_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator, num_processes=world, process_id=pid, backend="gloo")
+    res = pp_tp_cases(world, pid, out_dir)
+    if pid == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    multihost.shutdown()
+
+
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1] == "pp_tp":
+        pp_tp_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    else:
+        main(sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -374,13 +374,31 @@ def test_training_mesh_under_a_group_must_divide(monkeypatch, kw, world):
         tmesh.training_mesh(device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw,what", [({"pp": 2}, "pp=2"), ({"tp": 2, "dp": 1}, "tp=2"),
-                                     ({"pp": 2, "tp": 4, "dp": 2}, "pp=2")])
-def test_training_mesh_pp_tp_across_ranks_name_item_13c(monkeypatch, kw, what):
-    _as_rank(monkeypatch, 2 if "dp" not in kw or kw["dp"] == 1 else 4, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13c") as e:
-        tmesh.training_mesh(device="cpu", **kw)
-    assert f"training_mesh({what}" in str(e.value)
+@pytest.mark.parametrize("kw,world,crossing,held,peers", [
+    ({"pp": 2}, 2, ["pp"], {"pp": (0, 1), "tp": (0, 1)}, {"pp": (0, 1), "tp": (0,)}),
+    ({"tp": 2, "dp": 1}, 2, ["tp"], {"tp": (0, 1), "pp": (0, 1)}, {"tp": (0, 1), "pp": (0,)}),
+    ({"pp": 2, "tp": 4, "dp": 2}, 4, ["pp", "dp"], {"pp": (0, 1), "dp": (0, 1), "tp": (0, 4)},
+     {"pp": (0, 2), "dp": (0, 1), "tp": (0,), ("dp", "ep", "sp"): (0, 1),
+      ("pp", "dp"): (0, 1, 2, 3)}),
+])
+def test_training_mesh_lays_pp_and_tp_across_ranks(monkeypatch, kw, world, crossing, held, peers):
+    """A ``pp`` or ``tp`` axis may cross the ranks: the mesh builds, and
+    rank 0 holds its block (``held``), names its peer along each axis
+    (``rank_at``) and lists the members of each axis's collective
+    (``axis_ranks``).  With no process group up, an axis that does not
+    cross has no group, and one that crosses has none made."""
+    _as_rank(monkeypatch, world, 0)
+    m = tmesh.training_mesh(device="cpu", **kw)
+    assert [a for a in tmesh.AXES if m.crosses(a)] == crossing
+    for axis, want in held.items():
+        assert m.held(axis) == want
+    for axes, want in peers.items():
+        assert m.axis_ranks(axes) == want
+        if isinstance(axes, str):
+            assert m.rank_at(axes, m.shape[axes] - 1) == want[-1]
+    assert m.group("tp" if "tp" not in crossing else "ep") is None
+    with pytest.raises(RuntimeError, match="no process group"):
+        m.group(crossing[0])
 
 
 def test_training_mesh_ranks_hold_blocks(monkeypatch):

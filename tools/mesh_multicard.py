@@ -24,9 +24,18 @@ rank fed its rows by a mesh-sharded ``FrameLoader``, the gradients
 all-reduced before the clip) and an ``ep=N`` step of the MoE flagship
 (each rank runs its E/N experts; the dispatched buffers cross the cards
 point to point), a warm-up step and two timed steps each, every loss held
-to the one-card steps on the same weights and batches.  Each step prints one
-``mesh_multicard:`` JSON line with its seconds; any failure exits
-non-zero.
+to the one-card steps on the same weights and batches.  Part 4, one NCCL
+rank a card (``chip_smoke.rank_axes_child``, ``table="cards"``): the
+flagship's train config at B = 8 x 2048 on meshes whose ``pp`` and ``tp``
+cross the cards, each rank holding its shard (``chip_smoke.AXES_CARD_CASES``:
+``pp=4`` GPipe and 1F1B at 8 microbatches, ``tp=4``, ``pp=2 x tp=2``), a
+warm-up step and two timed steps, the loss and gradient norm held to the
+one-card step's as ``chip_smoke.held_rank_case`` holds leg (g)'s, with ms
+a step and peak memory a rank against one card (cards only).  Each step
+prints one ``mesh_multicard:`` JSON line with its seconds; any failure
+exits non-zero.
+
+    python3 tools/mesh_multicard.py --parts 4    # part 4 alone
 """
 
 from __future__ import annotations
@@ -312,12 +321,62 @@ def part_three(world: int, device: str) -> None:
             raise AssertionError(f"{kind} across {world} ranks: losses {outs} against {one}")
 
 
+def part_four(world: int) -> None:
+    """``pp`` and ``tp`` across the cards, one NCCL rank a card, against
+    the one-card step on the same weights and rows."""
+    import gc
+
+    from tensorframes_tpu_torch import train
+    from tensorframes_tpu_torch.models import transformer as tfm
+    from tensorframes_tpu_torch.parallel import flash
+
+    if world != 4:
+        raise ValueError(f"part 4's meshes need 4 cards, got {world}")
+    dev = torch.device("cuda", 0)
+    cfg = tfm.TransformerConfig(**chip_smoke.TRAIN_MODEL)
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = torch.from_numpy(chip_smoke.axes_rows(chip_smoke.AXES_B)).to(dev)
+    inp, tgt = batch[:, :-1], batch[:, 1:]
+    step, tx = train.make_train_step(cfg, train.TrainConfig(learning_rate=3e-4))
+    state = tx.init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss = float(step(params, state, inp, tgt)[2])
+    ref = dict(loss=loss, grad_norm=float(state.grad_norm))
+    torch.cuda.synchronize(dev)
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(chip_smoke.AXES_TIMED_STEPS):
+        last = step(params, state, inp, tgt)[2]
+    float(last)
+    ref.update(ms=(time.perf_counter() - t0) / chip_smoke.AXES_TIMED_STEPS * 1e3,
+               peak=torch.cuda.max_memory_allocated(dev))
+    del params, state, step, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kids = chip_smoke.run_ranks(chip_smoke.AXES_RANK_CODE, world,
+                                chip_smoke.AXES_RANK_TIMEOUT_S, "cards")
+    wall = time.perf_counter() - t0
+    cases = chip_smoke.AXES_CARD_CASES
+    bad = [k for k in kids if k["rc"] != 0 or len(k["lines"]) != len(cases)
+           or any("error" in x for x in k["lines"])]
+    if bad:
+        raise AssertionError(f"part 4 ranks failed: {bad}")
+    for i, case in enumerate(cases):
+        tol = chip_smoke.AXES_RANK_TOL["g3" if "tp" in case[1] else "g1"]
+        chip_smoke.held_rank_case("mesh_multicard", case, [k["lines"][i] for k in kids], ref,
+                                  world, cfg, tol, part=4, wall_s=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--cards", type=int, default=None,
                     help="positions (default: every visible CUDA card)")
+    ap.add_argument("--parts", default="1,2,3,4",
+                    help="the parts to run, comma-separated (4: cards only)")
     args = ap.parse_args()
+    parts = {int(p) for p in args.parts.split(",")}
     os.environ["TFS_DEVICE_POOL"] = "0"  # the serial references stay on one device
     if args.device == "cuda" and not torch.cuda.is_available():
         print("mesh_multicard: no CUDA device available", file=sys.stderr)
@@ -331,13 +390,14 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         say(cards=cards, names=sorted({torch.cuda.get_device_name(i) for i in range(cards)}))
     dev0 = torch.device(args.device, 0) if args.device == "cuda" else torch.device("cpu")
-    t0 = time.perf_counter()
-    part_one(dev0)
-    say(part=1, seconds=time.perf_counter() - t0)
-    part_two(cards, args.device)
-    t0 = time.perf_counter()
-    part_three(cards, args.device)
-    say(part=3, seconds=time.perf_counter() - t0)
+    for part, run in ((1, lambda: part_one(dev0)), (2, lambda: part_two(cards, args.device)),
+                      (3, lambda: part_three(cards, args.device)),
+                      (4, lambda: part_four(cards))):
+        if part not in parts or (part == 4 and args.device != "cuda"):
+            continue
+        t0 = time.perf_counter()
+        run()
+        say(part=part, seconds=time.perf_counter() - t0)
     return 0
 
 
